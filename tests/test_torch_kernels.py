@@ -1,0 +1,178 @@
+"""The port's kernel wrappers (K1 systolic matmul, K2 fused affine, K5 flash
+attention) against the JAX package's, on the CPU.
+
+The same numpy inputs go through ``repro.kernels.ops`` (Pallas in interpret
+mode, as it runs off-TPU) and ``repro_torch.kernels.ops`` (on a CPU tensor:
+the kernel's plain PyTorch version).  Tolerances are those of
+tests/test_kernels.py.  The CUDA kernels themselves are held against the
+plain versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.systolic_matmul import (_ACTS, k_splits,
+                                                 systolic_matmul)
+from repro_torch.kernels.vector_engine import fused_affine_act
+
+_DTYPES = {"float32": (jnp.float32, torch.float32),
+           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _both(a: np.ndarray, dtype: str = "float32"):
+    """One numpy array as a JAX array and a CPU tensor of the same dtype."""
+    jd, td = _DTYPES[dtype]
+    return jnp.asarray(a).astype(jd), torch.from_numpy(a).to(td)
+
+
+def _close(got: torch.Tensor, want, rtol, atol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=rtol,
+                               atol=atol)
+
+
+def _tol(dtype):
+    return 2e-2 if dtype == "bfloat16" else 2e-4
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (256, 384, 128),
+                                   (64, 128, 256), (8, 16, 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["none", "relu", "gelu"])
+def test_matmul_matches_jax(m, k, n, dtype, act):
+    rng = np.random.default_rng(7)
+    (jx, tx), (jw, tw), (jb, tb) = (
+        _both(rng.standard_normal(s, dtype=np.float32), dtype)
+        for s in ((m, k), (k, n), (n,)))
+    want = jops.matmul(jx, jw, jb, act=act, bm=min(64, m), bn=min(64, n),
+                       bk=min(64, k))
+    got = ops.matmul(tx, tw, tb, act=act, bm=min(64, m), bn=min(64, n),
+                     bk=min(64, k))
+    assert got.dtype == _DTYPES[dtype][1] and got.shape == (m, n)
+    _close(got, want, rtol=0.05 if dtype == "bfloat16" else 1e-4,
+           atol=_tol(dtype) * max(1, k // 64))
+
+
+@pytest.mark.parametrize("act", ["silu", "tanh", "sigmoid"])
+def test_matmul_epilogue_acts_match_jax(act):
+    rng = np.random.default_rng(8)
+    (jx, tx), (jw, tw), (jb, tb) = (
+        _both(rng.standard_normal(s, dtype=np.float32))
+        for s in ((64, 128), (128, 64), (64,)))
+    _close(ops.matmul(tx, tw, tb, act=act),
+           jops.matmul(jx, jw, jb, act=act, bm=64, bn=64, bk=64),
+           rtol=1e-4, atol=4e-4)
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_matmul_padded_arbitrary_shapes_match_jax(out):
+    rng = np.random.default_rng(9)
+    (jx, tx), (jw, tw) = (_both(rng.standard_normal(s, dtype=np.float32))
+                          for s in ((37, 147), (147, 53)))
+    jd, td = _DTYPES[out]
+    want = jops.matmul_padded(jx, jw, out_dtype=jd)
+    got = ops.matmul_padded(tx, tw, out_dtype=td)
+    assert got.shape == tuple(want.shape) and got.dtype == td
+    _close(got, want, rtol=1e-2 if out == "bfloat16" else 1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,d", [
+    (2, 8, 2, 128, 128, 64), (1, 4, 1, 64, 128, 32), (2, 4, 4, 128, 64, 64)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 48)])
+def test_attention_matches_jax(b, h, kv, sq, skv, d, causal, window):
+    rng = np.random.default_rng(3)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(rng.standard_normal(s, dtype=np.float32))
+        for s in ((b, h, sq, d), (b, kv, skv, d), (b, kv, skv, d)))
+    want = jops.attention(jq, jk, jv, causal=causal, window=window, bq=32,
+                          bk=32)
+    got = ops.attention(tq, tk, tv, causal=causal, window=window, bq=32,
+                        bk=32)
+    _close(got, want, rtol=1e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_dtype_matches_jax(dtype):
+    rng = np.random.default_rng(4)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(rng.standard_normal((1, 2, 64, 32), dtype=np.float32), dtype)
+        for _ in range(3))
+    got = ops.attention(tq, tk, tv, bq=32, bk=32)
+    assert got.dtype == _DTYPES[dtype][1]
+    _close(got, jops.attention(jq, jk, jv, bq=32, bk=32), rtol=0.05,
+           atol=0.03)
+
+
+@pytest.mark.parametrize("m,n", [(256, 256), (64, 384), (8, 128),
+                                 (1, 32 * 32 * 3)])
+@pytest.mark.parametrize("act", list(_ACTS))
+def test_affine_act_matches_jax(m, n, act):
+    rng = np.random.default_rng(5)
+    (jx, tx), (js, ts), (jb, tb) = (
+        _both(rng.standard_normal(s, dtype=np.float32))
+        for s in ((m, n), (n,), (n,)))
+    _close(ops.affine_act(tx, ts, tb, act=act),
+           jops.affine_act(jx, js, jb, act=act), rtol=1e-5, atol=1e-5)
+
+
+def test_refs_match_jax_refs():
+    rng = np.random.default_rng(6)
+    (jx, tx), (jw, tw), (jb, tb) = (
+        _both(rng.standard_normal(s, dtype=np.float32))
+        for s in ((16, 24), (24, 8), (8,)))
+    _close(ref.matmul_ref(tx, tw, tb, act="gelu"),
+           jref.matmul_ref(jx, jw, jb, act="gelu"), rtol=1e-5, atol=1e-5)
+    _close(ref.affine_act_ref(tx, tb[:1].expand(24), tw[:, 0],
+                              act="sigmoid"),
+           jref.affine_act_ref(jx, jnp.broadcast_to(jb[:1], (24,)), jw[:, 0],
+                               act="sigmoid"), rtol=1e-6, atol=1e-6)
+    (jq, tq), (jk, tk) = (_both(rng.standard_normal(s, dtype=np.float32))
+                          for s in ((1, 4, 9, 16), (1, 2, 9, 16)))
+    _close(ref.attention_ref(tq, tk, tk, causal=True, window=3),
+           jref.attention_ref(jq, jk, jk, causal=True, window=3),
+           rtol=1e-5, atol=1e-6)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The CUDA launchers never fall back: a CPU tensor is an error, raised
+    before any build, and the launch counters stay put."""
+    x = torch.ones((4, 4))
+    counts = (systolic_matmul.launches, fused_affine_act.launches,
+              flash_attention.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        systolic_matmul(x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_affine_act(x, x[0], x[0])
+    q = torch.ones((1, 1, 4, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, q, q)
+    ops.matmul(x, x)
+    assert (systolic_matmul.launches, fused_affine_act.launches,
+            flash_attention.launches) == counts
+
+
+def test_cuda_wrappers_validate_shapes():
+    with pytest.raises(ValueError, match="do not chain"):
+        systolic_matmul(torch.ones((4, 3)), torch.ones((4, 3)))
+    with pytest.raises(ValueError, match="activation"):
+        systolic_matmul(torch.ones((4, 3)), torch.ones((3, 3)), act="elu")
+    q = torch.ones((1, 3, 4, 16))
+    with pytest.raises(ValueError, match="do not match"):
+        flash_attention(q, q[:, :2], q[:, :2])
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(*(torch.ones((1, 1, 4, 24)),) * 3)
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (12544, 147, 64, 1),   # ResNet-50 stem: 196 tiles fill 132 SMs
+    (3136, 576, 64, 4),    # stage 1 3x3: 49 tiles, K in 4 slices of 144
+    (49, 4608, 512, 33),   # stage 4 3x3: 8 tiles, about 2 blocks per SM
+    (49, 100, 40, 1),      # K too short to split
+])
+def test_k_splits_fill_the_card(m, k, n, want):
+    assert k_splits(m, n, k, sms=132) == want
