@@ -5,12 +5,14 @@ A CPU tensor takes the kernel's plain PyTorch version; any other tensor
 launches the hand-written CUDA kernel, which raises where it cannot run.
 The TPU tile sizes (``bm``/``bn``/``bk``, ``bq``/``bk``) are accepted for
 call compatibility and unused: the CUDA kernels pick their own tiles and
-mask ragged edges.  ``interpret`` has no counterpart.
+mask ragged edges.  ``interpret`` has no counterpart, and neither has the
+x64 context of the JAX package's ``lindley``: float64 is explicit here.
 """
 from __future__ import annotations
 
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.lindley import lindley_scan, lindley_scan_plain
 from repro_torch.kernels.systolic_matmul import (systolic_matmul,
                                                  systolic_matmul_plain)
 from repro_torch.kernels.vector_engine import (fused_affine_act,
@@ -46,3 +48,10 @@ def affine_act(x, scale, bias, *, act="none", out_dtype=None):
                                       out_dtype=out_dtype)
     return fused_affine_act(x.contiguous(), scale, bias, act=act,
                             out_dtype=out_dtype)
+
+
+def lindley(t, s, *, br=128, bd=128):
+    """Batched FCFS service starts in float64: t, s (R, W) -> (R, W)."""
+    if t.device.type == "cpu":
+        return lindley_scan_plain(t, s)
+    return lindley_scan(t.contiguous(), s.contiguous())

@@ -13,8 +13,13 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.core import lindley as core_lindley
+from repro_torch.core.arrivals import PoissonProcess
+from repro_torch.core.engine import ClusterEngine
+from repro_torch.core.function import standard_pipeline
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.lindley import lindley_scan, lindley_scan_plain
 from repro_torch.kernels.systolic_matmul import (_ACTS, systolic_matmul,
                                                  systolic_matmul_plain)
 from repro_torch.kernels.vector_engine import (fused_affine_act,
@@ -98,3 +103,72 @@ def test_ops_launch_kernels_for_cuda_tensors(cuda):
     ops.attention(q, q, q)
     assert (systolic_matmul.launches, fused_affine_act.launches,
             flash_attention.launches) == tuple(c + 1 for c in counts)
+
+
+def _queues(rng, r, w):
+    """Sorted arrivals and service demands, each row zero-padded past a
+    random length, as the solver's length buckets hand them over."""
+    t = np.sort(rng.uniform(0.0, 1e3, size=(r, w)), axis=1)
+    s = rng.uniform(1e-4, 2.0, size=(r, w))
+    lens = rng.integers(w // 2 + 1, w + 1, size=r)
+    pad = np.arange(w)[None, :] >= lens[:, None]
+    t[pad] = 0.0
+    s[pad] = 0.0
+    return t, s
+
+
+@pytest.mark.parametrize("r,w", [(3, 17), (128, 1024), (257, 4096),
+                                 (1, 1 << 19), (65, 1), (1, 1)])
+def test_lindley_scan_bytes_equal_plain_on_cpu(cuda, r, w):
+    """torch.cumsum on the card re-associates, so the plain version is run
+    on a CPU copy, where it gives numpy's bytes."""
+    t, s = _queues(np.random.default_rng(r * 7 + w), r, w)
+    before = lindley_scan.launches
+    got = lindley_scan(torch.from_numpy(t).to(cuda),
+                       torch.from_numpy(s).to(cuda))
+    torch.cuda.synchronize()
+    assert lindley_scan.launches == before + 1
+    want = lindley_scan_plain(torch.from_numpy(t), torch.from_numpy(s))
+    assert got.dtype == torch.float64
+    assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+
+
+def test_solver_cuda_bytes_equal_segmented_on_zipf(cuda):
+    rng = np.random.default_rng(0)
+    n, nserv = 200_000, 128
+    p = np.arange(1, nserv + 1, dtype=np.float64) ** -1.2
+    p /= p.sum()
+    keys = np.sort(rng.choice(nserv, size=n, p=p))
+    t = np.sort(rng.uniform(0.0, n / 1e4, size=n))
+    s = rng.uniform(1e-4, 2e-3, size=n)
+    seg = core_lindley.segment_fenceposts(keys, 0, nserv)
+    out = {}
+    before = lindley_scan.launches
+    for backend in ("segmented", "cuda"):
+        start, fin = np.empty(n), np.empty(n)
+        core_lindley.solve_segments(seg, t, s, start, fin, backend=backend)
+        out[backend] = (start.tobytes(), fin.tobytes())
+    assert lindley_scan.launches > before
+    assert out["cuda"] == out["segmented"]
+
+
+def test_fleet_cuda_bytes_equal_segmented(cuda):
+    pipes = [standard_pipeline(n) for n in ("asset_damage",
+                                            "content_moderation")]
+    runs = {}
+    for backend in ("segmented", "cuda"):
+        eng = ClusterEngine(n_dscs=64, n_cpu=64, hedge_budget_s=0.08, seed=0)
+        before = lindley_scan.launches
+        tr = eng.run_sharded(pipes, arrivals=PoissonProcess(rate=1600.0),
+                             duration_s=3.0, n_shards=2, processes=1,
+                             backend=backend)
+        runs[backend] = (eng, tr, lindley_scan.launches - before)
+    (es, ts, n_seg), (ec, tc, n_cuda) = runs["segmented"], runs["cuda"]
+    assert ec.last_shard_stats["path"] == "partitioned"
+    assert n_seg == 0 and n_cuda > 0
+    for col in ("arrival", "finish", "winner", "drive", "start", "service",
+                "hedged", "dscs_finish", "cpu_finish"):
+        assert getattr(ts, col).tobytes() == getattr(tc, col).tobytes(), col
+    assert ts.events == tc.events
+    assert es._qstate == ec._qstate and es._pstate == ec._pstate
+    assert dict(es.telemetry.counters) == dict(ec.telemetry.counters)

@@ -145,7 +145,9 @@ def test_port_imports_no_jax_and_no_repro():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (f, mod)
     code = ("import sys, repro_torch.convert, repro_torch.core.executor, "
-            "repro_torch.kernels.ref, repro_torch.kernels.ops; "
+            "repro_torch.kernels.ref, repro_torch.kernels.ops, "
+            "repro_torch.core.sharding, repro_torch.core.engine, "
+            "repro_torch.core.lindley, repro_torch.kernels.lindley; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
