@@ -13,8 +13,14 @@ Lindley scan, byte for byte against its plain version; the sharded fleet
 engine at the size of ``poisson-1m-f1024`` (10^6 requests, 1024 drives and
 1024 CPU nodes, 8 shards), run ``segmented, cuda, cuda, segmented`` with the
 cuda traces byte-identical to the numpy ones and K6 launched once for each
-length bucket; and the Zipf-skewed solver of ``lindley-zipf-1m``.  Any
-failed check raises, so the exit code is non-zero.  fp32 products and
+length bucket; and the Zipf-skewed solver of ``lindley-zipf-1m``.  The LM
+slice last: K8, the Mamba-2 SSD chunk scan, against its plain version at
+``tests/test_kernels.py``'s shapes, with h0, and at Mamba-2 370M's layer
+shape in bf16 and fp32; ``serve("mamba2-370m", smoke=False)`` at full width
+and depth (48 layers, bf16, batch 4, 1024-token prompts, 32 new tokens)
+with K8 launched once per layer; at fp32 the served prefill against one
+with K8's plain version swapped in, and decode == forward.  Any failed
+check raises, so the exit code is non-zero.  fp32 products and
 convolutions run without TF32 throughout (``allow_tf32 = False`` for both
 cuBLAS and cuDNN), so the plain versions are true fp32 references.
 
@@ -49,6 +55,14 @@ RESNET_LAUNCHES = 53                    # convolutions per ResNet-50 request
 FLEET = {"n_dscs": 1024, "n_cpu": 1024, "utilization": 0.95,
          "requests": 1_000_000, "hedge_budget_s": 0.08, "n_shards": 8}
 ZIPF = {"requests": 1_000_000, "n_servers": 128, "zipf_s": 1.2}
+# Mamba-2 370M at full width and depth (src/repro_torch/configs/
+# mamba2_370m.py), served at batch 4 with 1024-token prompts and 32
+# generated tokens; K8's layer shape (B, S, H, P, G, N) on that path.
+MAMBA = "mamba2-370m"
+SERVE = {"batch": 4, "prompt": 1024, "gen": 32}
+MAMBA_CHUNK = 256
+K8_LAYER = (4, 1024, 32, 64, 1, 128)
+K8_CHUNK = 64                           # rows a K8 block walks at a time
 
 
 def bound(nbytes, ops_, dtype):
@@ -310,6 +324,242 @@ def drive_fleet(dev, time_ms):
             "bound_by": "bytes", "library_ms": None}
 
 
+def k8_bound(B, S, H, P, G, N, dtype):
+    """K8 at one shape.  Bytes: x and y, B and C in ``dtype``, dt and the
+    final state in fp32.  Operations of the kernel's 64-row chunks, an FMA
+    counted as two: C.B^T once per group over the causal pairs, W @ x over
+    the same pairs, and the two (P, N) state products of every row."""
+    import torch
+    esz = torch.empty((), dtype=dtype).element_size()
+    nbytes = (esz * (2 * B * S * H * P + 2 * B * S * G * N)
+              + 4 * (B * S * H + H + B * H * P * N))
+    ops_ = (B * G * S * (K8_CHUNK + 1) * N + B * H * S * (K8_CHUNK + 1) * P
+            + 4 * B * H * S * P * N)
+    return bound(nbytes, ops_, dtype)
+
+
+def ssd_inputs(shape, dtype, dev, seed):
+    """tests/test_kernels.py::test_ssd_kernel's distributions on the card."""
+    import torch
+    b, s, h, p, g, n = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f = lambda *shp: torch.randn(*shp, generator=gen, device=dev)
+    x = (f(b, s, h, p) * 0.4).to(dtype)
+    dt = torch.nn.functional.softplus(f(b, s, h))
+    A = -torch.exp(f(h) * 0.4)
+    return x, dt, A, (f(b, s, g, n) * 0.3).to(dtype), \
+        (f(b, s, g, n) * 0.3).to(dtype)
+
+
+def check_k8(dev, time_ms, call_ms, max_err):
+    """K8 against its plain version at tests/test_kernels.py's shapes, one
+    with h0, and Mamba-2 370M's layer shape in bf16 and fp32; the layer
+    shape's times by dtype.  Returns (largest abs err, {dtype: times})."""
+    import torch
+    from repro_torch.kernels.ssd import ssd_scan, ssd_scan_plain
+    cases = [((2, 128, 4, 32, 2, 16), 32, torch.float32, False),
+             ((1, 256, 2, 16, 1, 8), 64, torch.float32, False),
+             ((2, 64, 4, 16, 4, 16), 64, torch.float32, False),
+             ((2, 128, 4, 32, 2, 16), 32, torch.float32, True),
+             (K8_LAYER, MAMBA_CHUNK, torch.bfloat16, False),
+             (K8_LAYER, MAMBA_CHUNK, torch.float32, False)]
+    worst, times = 0.0, {}
+    for i, (shape, chunk, dtype, with_h0) in enumerate(cases):
+        x, dt, A, Bm, Cm = ssd_inputs(shape, dtype, dev, seed=i)
+        b, s, h, p, g, n = shape
+        h0 = (torch.randn(b, h, p, n, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(99))
+              if with_h0 else None)
+        y, hf = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+        yp, hp = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+        bf = dtype == torch.bfloat16
+        # fp32: tests/test_kernels.py's rtol 1e-3 with a tighter atol; bf16
+        # y: one bf16 rounding (2^-8 relative) apart; the state is fp32
+        rtol, atol = (1e-2, 1e-2) if bf else (1e-3, 1e-4)
+        what = f"K8 {shape} chunk={chunk} {dtype} h0={with_h0}"
+        err = max(max_err(y, yp, rtol, atol, what + " y"),
+                  max_err(hf, hp, 1e-3, 1e-4, what + " state"))
+        worst = max(worst, err)
+        line = (f"K8 ssd_scan B,S,H,P,G,N={shape} chunk={chunk} {dtype} "
+                f"h0={with_h0}: max_abs_err={err:.3e} (y rtol={rtol} "
+                f"atol={atol}; state rtol=1e-3 atol=1e-4)")
+        if shape == K8_LAYER:
+            ms = time_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=chunk))
+            plain = time_ms(lambda: ssd_scan_plain(x, dt, A, Bm, Cm,
+                                                   chunk=chunk), reps=3)
+            bnd, by = k8_bound(*shape, dtype)
+            times[dtype] = {"err": err, "ms": ms, "plain_ms": plain,
+                            "bound_ms": bnd, "bound_by": by}
+            line += (f"; ms={ms:.4f} (per Python call "
+                     f"{call_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)):.4f}) "
+                     f"plain_ms={plain:.4f} library_ms=none bound_ms={bnd:.4f} "
+                     f"({by})")
+        print(line)
+    return worst, times
+
+
+def drive_lm(dev, counters):
+    """The LM slice's path at full width and depth: ``serve`` of Mamba-2
+    370M in bf16, K8 launched once per layer; then, at fp32, the served
+    prefill against one with K8's plain version in its place, and decode ==
+    forward.  Returns K8's launches in the counted ``serve`` call."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import RequestStream
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd import ssd_scan, ssd_scan_plain
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decode as DE
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch(MAMBA)
+    shape = (cfg.num_layers, cfg.d_model, cfg.ssm_expand * cfg.d_model,
+             cfg.ssm_state, cfg.ssm_chunk, cfg.vocab_size, cfg.padded_vocab,
+             cfg.dtype)
+    if shape != (48, 1024, 2048, 128, 256, 50280, 50432, "bfloat16"):
+        raise AssertionError(f"{MAMBA}: config {shape}")
+    pbytes = sum(t.numel() * t.element_size()
+                 for t in T.tree_leaves(T.param_shapes(cfg)))
+    B, S, G_ = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+
+    # ---- 8. the third path: Mamba-2 370M serving on K8 -------------------
+    serve(MAMBA, smoke=False, batch=B, prompt=256, gen=2)     # warm-up
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    out = serve(MAMBA, smoke=False, batch=B, prompt=S, gen=G_)
+    launches = [c.launches for c in counters]
+    gen_tok = out["generated"]
+    want = [0] * (len(counters) - 1) + [cfg.num_layers]
+    if launches != want:
+        raise AssertionError(f"serve launches K1/K2/K5/K6/K8 {launches}, "
+                             f"want {want}")
+    if not (gen_tok.shape == (B, G_) and gen_tok.dtype == np.int32
+            and ((0 <= gen_tok) & (gen_tok < cfg.vocab_size)).all()):
+        raise AssertionError(f"serve generated {gen_tok.shape} "
+                             f"{gen_tok.dtype}, range {gen_tok.min()}.."
+                             f"{gen_tok.max()}")
+    print(f"serve {MAMBA} (48 layers, d_model 1024, din 2048, 32 heads x 64,"
+          f" N 128, chunk 256, vocab 50280 padded to 50432, bf16, "
+          f"{T.count_params(cfg)} parameters, {pbytes} bytes): batch {B}, "
+          f"prompt {S}, gen {G_}: prefill_ms={out['prefill_s'] * 1e3:.3f} "
+          f"decode_ms_per_token={out['decode_s_per_token'] * 1e3:.3f}; K8 "
+          f"launches {launches[-1]} (one per layer), K1/K2/K5/K6 none; "
+          f"generated {gen_tok.shape} int32, first row "
+          f"{gen_tok[0, :8].tolist()}")
+
+    # where a prefill's and a decode step's time goes (profiler on)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    tok = torch.from_numpy(RequestStream(cfg, B, S, 0).requests_at(0)
+                           ["tokens"]).to(dev)
+    _, cache = DE.prefill(cfg, params, tok)
+    nxt = tok[:, -1:]
+    DE.decode_step(cfg, params, cache, nxt)
+    torch.cuda.synchronize()
+    for phase, steps in (("prefill", 1), ("decode", 4)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                if phase == "prefill":
+                    DE.prefill(cfg, params, tok)
+                else:
+                    DE.decode_step(cfg, params, cache, nxt)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in rows) / 1e3 / steps
+        if busy == 0:
+            print(f"profile {phase}: device time not measured (the profiler "
+                  f"saw none)")
+            continue
+        top = "; ".join(
+            f"{e.key[:40]} x{e.count // steps} "
+            f"{e.self_device_time_total / 1e3 / steps:.3f} ms"
+            for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8])
+        kinds = {"K8": ("ssd_kernel",), "copies": ("Memcpy", "Memset"),
+                 "GEMMs": ("nvjet", "gemm", "cutlass", "xmma")}
+        by_kind = dict.fromkeys([*kinds, "other PyTorch kernels"], 0.0)
+        for e in rows:
+            kind = next((k for k, names in kinds.items()
+                         if any(n in e.key for n in names)),
+                        "other PyTorch kernels")
+            by_kind[kind] += e.self_device_time_total / 1e3 / steps
+        top = "; ".join(f"{k} {v:.3f} ms" for k, v in by_kind.items()) + \
+            "; by kernel: " + top
+        launches_ = sum(e.count for e in prof.key_averages()
+                        if e.key == "cudaLaunchKernel") // steps
+        print(f"profile {phase} (B={B}, S={S}, profiler on, host wall "
+              f"{wall:.3f} ms a {'call' if steps == 1 else 'step'}): device "
+              f"busy {busy:.3f} ms (idle share {1 - busy / wall:.3f}); "
+              f"cudaLaunchKernel x{launches_}; kernels by device time: {top}")
+    del params, cache
+
+    # fp32, TF32 off: the served prefill against K8's plain version
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = T.init_params(cfg32, torch.Generator(device=dev).manual_seed(1),
+                             device=dev)
+    real = ops.ssd_scan
+
+    def plain_k8(x, dt, A, Bm, Cm, *, chunk, h0):
+        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+
+    runs = {}
+    for name in ("kernel", "plain", "kernel", "plain"):
+        before = ssd_scan.launches
+        ops.ssd_scan = plain_k8 if name == "plain" else real
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = DE.prefill(cfg32, params32, tok)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            ops.ssd_scan = real
+        n = ssd_scan.launches - before
+        if n != (cfg.num_layers if name == "kernel" else 0):
+            raise AssertionError(f"fp32 prefill ({name}): {n} K8 launches")
+        runs.setdefault(name, (logits[:, -1].float(), []))[1].append(ms)
+    (lk, ms_k), (lp, ms_p) = runs["kernel"], runs["plain"]
+    real_cols = slice(0, cfg.vocab_size)
+    rel = ((lk[:, real_cols] - lp[:, real_cols]).norm()
+           / lp[:, real_cols].norm()).item()
+    same = torch.equal(lk.argmax(-1), lp.argmax(-1))
+    if not (torch.isfinite(lk[:, real_cols]).all() and rel <= 1e-3 and same):
+        raise AssertionError(f"fp32 prefill: K8 vs plain rel err {rel:.3e} "
+                             f"(limit 1e-3), same argmax {same}")
+    print(f"fp32 prefill (TF32 off, B={B}, S={S}): last-position logits, K8 "
+          f"vs its plain version: rel Frobenius err {rel:.3e} (limit 1e-3), "
+          f"same argmax in all {B} rows; host ms kernel "
+          f"{[round(t, 3) for t in ms_k]}, plain {[round(t, 3) for t in ms_p]}")
+
+    # decode == forward at full width (tests/test_models.py:80's tolerance)
+    tok256 = tok[:, :256]
+    full = T.forward(cfg32, params32, tok256)
+    _, cache = DE.prefill(cfg32, params32, tok256[:, :255])
+    dl, cache = DE.decode_step(cfg32, params32, cache, tok256[:, 255:])
+    got, want_ = dl[:, 0, real_cols], full[:, 255, real_cols]
+    err = (got - want_).abs()
+    share = (err / (2e-3 + 2e-2 * want_.abs())).max().item()
+    if not (int(cache["pos"]) == 256 and torch.isfinite(got).all()
+            and share <= 1.0):
+        raise AssertionError(f"decode != forward: max abs err "
+                             f"{err.max().item():.3e}")
+    print(f"decode == forward (fp32, B={B}): prefill 255 tokens + one "
+          f"decode_step vs forward on 256: max abs err "
+          f"{err.max().item():.3e}, at most {share:.2e} of the limit "
+          f"(rtol 2e-2 atol 2e-3)")
+    return launches[-1]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -320,6 +570,8 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels.lindley import lindley_scan
+    from repro_torch.kernels.ssd import ssd_scan
     from repro_torch.kernels.systolic_matmul import (_ACTS, k_splits,
                                                      systolic_matmul,
                                                      systolic_matmul_plain)
@@ -494,6 +746,7 @@ def main() -> int:
                   f"bound_ms={bnd:.4f} ({by})")
 
     k6_err = check_k6(dev, time_ms, call_ms)
+    k8_err, k8_times = check_k8(dev, time_ms, call_ms, max_err)
 
     # ---- 4. the executor for every non-LM workload -----------------------
     for wl in list(E._MODEL_BUILDERS) + ["credit_risk"]:
@@ -631,6 +884,7 @@ def main() -> int:
               f"op: {host_top}")
 
     k6_entry = drive_fleet(dev, time_ms)
+    k8_launches = drive_lm(dev, counters + (lindley_scan, ssd_scan))
 
     # ---- the kernels line: K1 over one request's 53 shapes ---------------
     k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
@@ -686,6 +940,10 @@ def main() -> int:
          "plain_ms": k5[2], "bound_ms": k5[4], "bound_by": k5[5],
          "library_ms": k5[3]},
         {**k6_entry, "max_abs_err": k6_err},
+        {"name": "ssd_scan", "route": "cuda", "source": src + "ssd.cu",
+         "replaces": "src/repro/kernels/ssd.py:87", "launches": k8_launches,
+         "max_abs_err": k8_err, **{k: v for k, v in k8_times[
+             torch.bfloat16].items() if k != "err"}, "library_ms": None},
     ]
     print(f"elapsed {time.perf_counter() - t_start:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,11 @@ arrays, onto the port's tree: the same dicts, lists and tuples, float leaves
 as tensors on the device, integer scalars (strides, ViT's meta) as ints.
 Convolution weights stay HWIO; ``models.vision.conv2d`` turns them into
 OIHW where it calls ``F.conv2d``.  Both packages then compute the same
-function, which the differential tests rely on.
+function, which the differential tests rely on.  A bfloat16 leaf (numpy's
+``ml_dtypes.bfloat16``, which ``torch.tensor`` refuses) becomes a
+``torch.bfloat16`` tensor with the same bits.  The LM trees of
+``repro.models.transformer`` (stacked blocks, a ``rem`` list) map the same
+way.
 """
 from __future__ import annotations
 
@@ -30,6 +34,10 @@ def params_from_jax(tree: Any, device=None) -> Any:
                 isinstance(node, np.ndarray) and node.ndim == 0
                 and np.issubdtype(node.dtype, np.integer)):
             return int(node)
-        return torch.tensor(np.asarray(node), device=dev)
+        arr = np.asarray(node)
+        if arr.dtype.name == "bfloat16":
+            bits = np.array(arr).view(np.int16)     # a writable copy
+            return torch.from_numpy(bits).view(torch.bfloat16).to(dev)
+        return torch.tensor(arr, device=dev)
 
     return conv(tree)

@@ -7,12 +7,17 @@ The TPU tile sizes (``bm``/``bn``/``bk``, ``bq``/``bk``) are accepted for
 call compatibility and unused: the CUDA kernels pick their own tiles and
 mask ragged edges.  ``interpret`` has no counterpart, and neither has the
 x64 context of the JAX package's ``lindley``: float64 is explicit here.
+``ssd`` takes a trailing ``h0`` (the starting state, zeros if None), which
+the TPU kernel lacks and ``models.layers.ssd_chunked`` passes on; its
+``chunk`` is checked as the JAX code checks it (the kernel walks its own
+chunks, which does not change the function).
 """
 from __future__ import annotations
 
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.lindley import lindley_scan, lindley_scan_plain
+from repro_torch.kernels.ssd import ssd_scan, ssd_scan_plain
 from repro_torch.kernels.systolic_matmul import (systolic_matmul,
                                                  systolic_matmul_plain)
 from repro_torch.kernels.vector_engine import (fused_affine_act,
@@ -55,3 +60,12 @@ def lindley(t, s, *, br=128, bd=128):
     if t.device.type == "cpu":
         return lindley_scan_plain(t, s)
     return lindley_scan(t.contiguous(), s.contiguous())
+
+
+def ssd(x, dt, A, Bm, Cm, *, chunk=128, h0=None):
+    """Mamba-2 SSD: (y (B,S,H,P), final state (B,H,P,N) fp32)."""
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    return ssd_scan(x.contiguous(), dt.contiguous(), A.contiguous(),
+                    Bm.contiguous(), Cm.contiguous(), chunk=chunk,
+                    h0=None if h0 is None else h0.contiguous())

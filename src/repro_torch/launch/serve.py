@@ -1,0 +1,115 @@
+"""Serving launcher: batched prefill, then greedy decode with a cache.
+
+``python -m repro_torch.launch.serve --arch mamba2-370m --batch 4 --prompt 1024 --gen 32``
+
+The port of the JAX package's ``launch/serve.py`` on one card, for the
+Mamba-2 (``ssm``) family.  Each phase's time is read from the host clock
+after ``torch.cuda.synchronize()``, so it is the card's time for the
+phase, not the time to enqueue it.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.data.pipeline import RequestStream
+from repro_torch.device import resolve
+from repro_torch.launch import steps as ST
+from repro_torch.models import decode as DE
+from repro_torch.models import transformer as T
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt: int = 64,
+          gen: int = 16, seed: int = 0, greedy: bool = True, device=None):
+    """Random weights from ``seed``, ``batch`` prompts of ``prompt`` tokens
+    from ``RequestStream``, then ``gen`` tokens each.  ``device=None``
+    means the card (and raises without CUDA).  As in the JAX package, a
+    prompt longer than the config's ``ssm_chunk`` must be a multiple of
+    it.  Returns ``generated`` int32 (batch, gen), ``prefill_s`` and
+    ``decode_s_per_token``."""
+    dev = resolve(device)
+    cfg = get_arch(arch)
+    if smoke:
+        cfg = cfg.reduced()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    prefill_fn = ST.make_prefill_step(cfg)
+    decode_fn = ST.make_decode_step(cfg)
+    reqs = RequestStream(cfg, batch, prompt, seed).requests_at(0)
+    batch_in = {"tokens": torch.from_numpy(reqs["tokens"]).to(dev)}
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill_fn(params, batch_in)
+    # grow the cache to prompt+gen capacity for attention layers
+    cache = _grow_cache(cfg, cache, batch, prompt + gen)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    tokens = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    out = [tokens]
+    t0 = time.perf_counter()
+    for _ in range(gen - 1):
+        logits, cache = decode_fn(params, cache, {"tokens": tokens})
+        tokens = (torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+                  if greedy else tokens)
+        out.append(tokens)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    return {
+        "generated": torch.cat(out, dim=1).cpu().numpy(),
+        "prefill_s": t_prefill,
+        "decode_s_per_token": t_decode / max(gen - 1, 1),
+    }
+
+
+def _grow_cache(cfg, cache, batch: int, capacity: int):
+    """Re-embed a prompt-sized cache into a ``capacity``-sized one (prefix
+    copy along the seq dim; ring/state caches are size-invariant)."""
+    def grow(tmpl, src):
+        if isinstance(tmpl, dict):
+            return {k: grow(tmpl[k], src[k]) for k in tmpl}
+        if isinstance(tmpl, list):
+            return [grow(t, s) for t, s in zip(tmpl, src)]
+        if tmpl.shape == src.shape:
+            return src
+        dst = torch.zeros(tmpl.shape, dtype=tmpl.dtype, device=src.device)
+        dst[tuple(slice(0, s) for s in src.shape)] = src
+        return dst
+
+    new = grow(DE.cache_shapes(cfg, batch, capacity), cache)
+    new["pos"] = cache["pos"]
+    return new
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--smoke", action="store_true",
+                    help="the architecture's reduced config (default: full)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    args = ap.parse_args()
+    out = serve(args.arch, smoke=args.smoke, batch=args.batch,
+                prompt=args.prompt, gen=args.gen, seed=args.seed,
+                device=args.device)
+    print(f"[serve] generated shape {out['generated'].shape} "
+          f"prefill {out['prefill_s']*1e3:.1f}ms "
+          f"decode {out['decode_s_per_token']*1e3:.2f}ms/token")
+
+
+if __name__ == "__main__":
+    main()

@@ -20,6 +20,7 @@ from repro_torch.core.function import standard_pipeline
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.lindley import lindley_scan, lindley_scan_plain
+from repro_torch.kernels.ssd import ssd_scan, ssd_scan_plain
 from repro_torch.kernels.systolic_matmul import (_ACTS, systolic_matmul,
                                                  systolic_matmul_plain)
 from repro_torch.kernels.vector_engine import (fused_affine_act,
@@ -172,3 +173,76 @@ def test_fleet_cuda_bytes_equal_segmented(cuda):
     assert ts.events == tc.events
     assert es._qstate == ec._qstate and es._pstate == ec._pstate
     assert dict(es.telemetry.counters) == dict(ec.telemetry.counters)
+
+
+def _ssd_inputs(b, s, h, p, g, n, dtype, dev, seed=0):
+    """tests/test_kernels.py::test_ssd_kernel's distributions, from numpy."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape,
+                                                           dtype=np.float32))
+    x = (f(b, s, h, p) * 0.4).to(dev, dtype)
+    dt = torch.nn.functional.softplus(f(b, s, h)).to(dev)
+    A = -torch.exp(f(h) * 0.4).to(dev)
+    Bm = (f(b, s, g, n) * 0.3).to(dev, dtype)
+    Cm = (f(b, s, g, n) * 0.3).to(dev, dtype)
+    return x, dt, A, Bm, Cm
+
+
+# tests/test_kernels.py::test_ssd_kernel's shapes, a ragged 63-row tail, a
+# P wider than one tile, and Mamba-2 370M's layer at batch 1
+SSD_SHAPES = [(2, 128, 4, 32, 2, 16, 32), (1, 256, 2, 16, 1, 8, 64),
+              (2, 64, 4, 16, 4, 16, 64), (2, 255, 4, 64, 1, 128, 256),
+              (1, 96, 2, 80, 2, 32, 96), (1, 1024, 32, 64, 1, 128, 256)]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_scan_matches_plain(cuda, b, s, h, p, g, n, chunk, dtype,
+                                with_h0):
+    """y within rtol 1e-3 (fp32; tests/test_kernels.py's bar) or one bf16
+    rounding (1e-2), the fp32 state within 1e-3: the kernel walks 64-row
+    chunks, the plain version the caller's, so only fp32 sums differ."""
+    x, dt, A, Bm, Cm = _ssd_inputs(b, s, h, p, g, n, dtype, cuda)
+    h0 = (torch.randn(b, h, p, n, generator=torch.Generator().manual_seed(1))
+          .to(cuda) if with_h0 else None)
+    before = ssd_scan.launches
+    y, hf = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    yp, hp = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    assert y.dtype == dtype and hf.dtype == torch.float32
+    bf = dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), yp.float(), rtol=1e-2 if bf else 1e-3,
+                               atol=1e-2 if bf else 1e-4)
+    torch.testing.assert_close(hf, hp, rtol=1e-3, atol=1e-4)
+
+
+def test_ops_ssd_launches_the_kernel_for_cuda_tensors(cuda):
+    x, dt, A, Bm, Cm = _ssd_inputs(1, 64, 4, 16, 2, 8, torch.float32, cuda)
+    before = ssd_scan.launches
+    # non-contiguous views, as ssd_forward's splits hand them over
+    y, hf = ops.ssd(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
+                    Bm, Cm, chunk=32)
+    assert ssd_scan.launches == before + 1
+    yp, hp = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=32)
+    torch.testing.assert_close(y, yp, rtol=1e-3, atol=1e-4)
+
+
+def test_ssd_scan_refuses_what_it_cannot_run(cuda):
+    x, dt, A, Bm, Cm = _ssd_inputs(1, 64, 4, 16, 2, 8, torch.float32, cuda)
+    before = ssd_scan.launches
+    with pytest.raises(ValueError, match="runs on a CUDA tensor"):
+        ssd_scan(x.cpu(), dt.cpu(), A.cpu(), Bm.cpu(), Cm.cpu(), chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, Bm,
+                 Cm, chunk=32)
+    with pytest.raises(ValueError, match="not a multiple of the chunk"):
+        ssd_scan(x, dt, A, Bm, Cm, chunk=48)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd_scan(x.half(), dt, A, Bm.half(), Cm.half(), chunk=32)
+    with pytest.raises(TypeError, match="differ in dtype"):
+        ssd_scan(x, dt, A, Bm.bfloat16(), Cm.bfloat16(), chunk=32)
+    with pytest.raises(TypeError, match="dt must be float32"):
+        ssd_scan(x, dt.bfloat16(), A, Bm, Cm, chunk=32)
+    assert ssd_scan.launches == before

@@ -147,7 +147,10 @@ def test_port_imports_no_jax_and_no_repro():
     code = ("import sys, repro_torch.convert, repro_torch.core.executor, "
             "repro_torch.kernels.ref, repro_torch.kernels.ops, "
             "repro_torch.core.sharding, repro_torch.core.engine, "
-            "repro_torch.core.lindley, repro_torch.kernels.lindley; "
+            "repro_torch.core.lindley, repro_torch.kernels.lindley, "
+            "repro_torch.kernels.ssd, repro_torch.configs, "
+            "repro_torch.data.pipeline, repro_torch.models.decode, "
+            "repro_torch.launch.steps, repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
