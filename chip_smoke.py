@@ -19,7 +19,16 @@ slice last: K8, the Mamba-2 SSD chunk scan, against its plain version at
 shape in bf16 and fp32; ``serve("mamba2-370m", smoke=False)`` at full width
 and depth (48 layers, bf16, batch 4, 1024-token prompts, 32 new tokens)
 with K8 launched once per layer; at fp32 the served prefill against one
-with K8's plain version swapped in, and decode == forward.  Any failed
+with K8's plain version swapped in, and decode == forward.  Phase 9, the
+RecurrentGemma slice: K7, the RG-LRU scan, against its plain version at
+``tests/test_kernels.py``'s shapes, a ragged one and the layer shape
+(4, 1024, 2560) in fp32 and bf16; K5 at head dim 256; ``serve
+("recurrentgemma-2b", smoke=False)`` at full width and depth (26 layers,
+bf16, batch 4, 1024-token prompts, 32 new tokens) with K7 launched once per
+rglru layer and K5 once per attention layer, profiled, and again with
+4096-token prompts past the 2048-token window (the ring cache); at fp32 the
+served prefill against one with K7's and K5's plain versions swapped in,
+and decode == forward.  Any failed
 check raises, so the exit code is non-zero.  fp32 products and
 convolutions run without TF32 throughout (``allow_tf32 = False`` for both
 cuBLAS and cuDNN), so the plain versions are true fp32 references.
@@ -63,6 +72,19 @@ SERVE = {"batch": 4, "prompt": 1024, "gen": 32}
 MAMBA_CHUNK = 256
 K8_LAYER = (4, 1024, 32, 64, 1, 128)
 K8_CHUNK = 64                           # rows a K8 block walks at a time
+# RecurrentGemma-2B at full width and depth (src/repro_torch/configs/
+# recurrentgemma_2b.py), served at batch 4 with 1024-token prompts and 32
+# new tokens, and with 4096-token prompts (past the 2048-token window: the
+# ring cache) and 16; K7's layer shape (B, S, W) and K5's shapes (B, H, KV,
+# Sq, Skv, D) on that path, causal with the model's window.
+GEMMA = "recurrentgemma-2b"
+GEMMA_SERVE = {"batch": 4, "prompt": 1024, "gen": 32}
+GEMMA_RING = {"batch": 4, "prompt": 4096, "gen": 16}
+K7_SHAPES = [(2, 64, 128), (4, 128, 256), (1, 32, 128), (3, 77, 200)]
+K7_LAYER = (4, 1024, 2560)
+K7_OPS = 17                 # fp32 operations a K7 element (gates, a, b, FMA)
+K5_GEMMA = [(4, 10, 1, 1024, 1024, 256), (1, 10, 1, 4096, 4096, 256)]
+GEMMA_WINDOW = 2048
 
 
 def bound(nbytes, ops_, dtype):
@@ -398,6 +420,57 @@ def check_k8(dev, time_ms, call_ms, max_err):
     return worst, times
 
 
+def profile_serving(cfg, params, tok, cache, nxt, kernels):
+    """Profile one prefill of ``tok`` and four decode steps of ``nxt`` on
+    ``cache``: device busy time, idle share, launches a step, and device
+    ms by kind (``kernels`` names the port's, by substrings of their
+    kernel names; then GEMMs, copies and PyTorch's other kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode as DE
+    B, S = tok.shape
+    for phase, steps in (("prefill", 1), ("decode", 4)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                if phase == "prefill":
+                    DE.prefill(cfg, params, tok)
+                else:
+                    DE.decode_step(cfg, params, cache, nxt)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in rows) / 1e3 / steps
+        if busy == 0:
+            print(f"profile {phase}: device time not measured (the profiler "
+                  f"saw none)")
+            continue
+        top = "; ".join(
+            f"{e.key[:40]} x{e.count // steps} "
+            f"{e.self_device_time_total / 1e3 / steps:.3f} ms"
+            for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8])
+        kinds = {**kernels, "copies": ("Memcpy", "Memset"),
+                 "GEMMs": ("nvjet", "gemm", "cutlass", "xmma")}
+        by_kind = dict.fromkeys([*kinds, "other PyTorch kernels"], 0.0)
+        for e in rows:
+            kind = next((k for k, names in kinds.items()
+                         if any(n in e.key for n in names)),
+                        "other PyTorch kernels")
+            by_kind[kind] += e.self_device_time_total / 1e3 / steps
+        top = "; ".join(f"{k} {v:.3f} ms" for k, v in by_kind.items()) + \
+            "; by kernel: " + top
+        launches_ = sum(e.count for e in prof.key_averages()
+                        if e.key == "cudaLaunchKernel") // steps
+        print(f"profile {phase} (B={B}, S={S}, profiler on, host wall "
+              f"{wall:.3f} ms a {'call' if steps == 1 else 'step'}): device "
+              f"busy {busy:.3f} ms (idle share {1 - busy / wall:.3f}); "
+              f"cudaLaunchKernel x{launches_}; kernels by device time: {top}")
+
+
 def drive_lm(dev, counters):
     """The LM slice's path at full width and depth: ``serve`` of Mamba-2
     370M in bf16, K8 launched once per layer; then, at fp32, the served
@@ -407,8 +480,6 @@ def drive_lm(dev, counters):
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import RequestStream
@@ -463,44 +534,8 @@ def drive_lm(dev, counters):
     nxt = tok[:, -1:]
     DE.decode_step(cfg, params, cache, nxt)
     torch.cuda.synchronize()
-    for phase, steps in (("prefill", 1), ("decode", 4)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                if phase == "prefill":
-                    DE.prefill(cfg, params, tok)
-                else:
-                    DE.decode_step(cfg, params, cache, nxt)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / steps
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in rows) / 1e3 / steps
-        if busy == 0:
-            print(f"profile {phase}: device time not measured (the profiler "
-                  f"saw none)")
-            continue
-        top = "; ".join(
-            f"{e.key[:40]} x{e.count // steps} "
-            f"{e.self_device_time_total / 1e3 / steps:.3f} ms"
-            for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8])
-        kinds = {"K8": ("ssd_kernel",), "copies": ("Memcpy", "Memset"),
-                 "GEMMs": ("nvjet", "gemm", "cutlass", "xmma")}
-        by_kind = dict.fromkeys([*kinds, "other PyTorch kernels"], 0.0)
-        for e in rows:
-            kind = next((k for k, names in kinds.items()
-                         if any(n in e.key for n in names)),
-                        "other PyTorch kernels")
-            by_kind[kind] += e.self_device_time_total / 1e3 / steps
-        top = "; ".join(f"{k} {v:.3f} ms" for k, v in by_kind.items()) + \
-            "; by kernel: " + top
-        launches_ = sum(e.count for e in prof.key_averages()
-                        if e.key == "cudaLaunchKernel") // steps
-        print(f"profile {phase} (B={B}, S={S}, profiler on, host wall "
-              f"{wall:.3f} ms a {'call' if steps == 1 else 'step'}): device "
-              f"busy {busy:.3f} ms (idle share {1 - busy / wall:.3f}); "
-              f"cudaLaunchKernel x{launches_}; kernels by device time: {top}")
+    profile_serving(cfg, params, tok, cache, nxt,
+                    {"K8": ("ssd_kernel",)})
     del params, cache
 
     # fp32, TF32 off: the served prefill against K8's plain version
@@ -560,6 +595,287 @@ def drive_lm(dev, counters):
     return launches[-1]
 
 
+def attn_pairs(Sq, Skv, causal, window):
+    """The (Sq, Skv) mask of the query-key pairs attention computes."""
+    import torch
+    qp = torch.arange(Sq)[:, None]
+    kp = torch.arange(Skv)[None, :]
+    keep = torch.ones(Sq, Skv, dtype=torch.bool)
+    if causal:
+        keep &= kp <= qp
+    if window:
+        keep &= (qp - kp) < window
+    return keep
+
+
+def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
+                  max_err):
+    """K5 at one shape (B, H, KV, Sq, Skv, D) against its plain version,
+    and its times beside F.scaled_dot_product_attention's and its bound.
+    Returns (err, ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    B, H, KV, Sq, Skv, D = shape
+    q = randn(B, H, Sq, D, dtype=dtype)
+    k, v = randn(B, KV, Skv, D, dtype=dtype), randn(B, KV, Skv, D, dtype=dtype)
+    rtol, atol = (0.05, 0.03) if dtype == torch.bfloat16 else (1e-3, 2e-4)
+    err = max_err(flash_attention(q, k, v, causal=causal, window=window),
+                  flash_attention_plain(q, k, v, causal=causal,
+                                        window=window),
+                  rtol, atol, f"K5 {(B, H, KV, Sq, Skv, D)} {dtype}")
+    keep = attn_pairs(Sq, Skv, causal, window)
+    mask = keep.to(q.device) if (causal or window) else None
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                         window=window))
+    plain = time_ms(lambda: flash_attention_plain(
+        q, k, v, causal=causal, window=window))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=KV != H))
+    esz = q.element_size()
+    bnd, by = bound((2 * q.numel() + 2 * k.numel()) * esz,
+                    4 * B * H * D * int(keep.sum()), dtype)
+    print(f"K5 flash_attention B={B} H={H} KV={KV} Sq={Sq} Skv={Skv} "
+          f"D={D} causal={causal} window={window} {dtype}: "
+          f"max_abs_err={err:.3e} rtol={rtol} atol={atol}; "
+          f"ms={ms:.4f} (per Python call {call_ms(lambda: flash_attention(q, k, v, causal=causal, window=window)):.4f}) "
+          f"plain_ms={plain:.4f} library_ms(sdpa)={lib:.4f} "
+          f"bound_ms={bnd:.4f} ({by})")
+    return err, ms, plain, lib, bnd, by
+
+
+def k7_bound(B, S, W, dtype):
+    """K7 at (B, S, W): x, gx, ga read and y written in ``dtype``, log_a and
+    h0 in fp32; K7_OPS fp32 operations an element (the state and all the
+    arithmetic are fp32 whatever the input type)."""
+    import torch
+    esz = torch.empty((), dtype=dtype).element_size()
+    nbytes = 4 * B * S * W * esz + 4 * (W + B * W)
+    return bound(nbytes, K7_OPS * B * S * W, torch.float32)
+
+
+def rglru_inputs(shape, dtype, dev, seed):
+    """tests/test_kernels.py::test_rglru_kernel's distributions on the card."""
+    import torch
+    b, s, w = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f = lambda *shp: torch.randn(*shp, generator=gen, device=dev)
+    return ((f(b, s, w) * 0.2).to(dtype), f(b, s, w).to(dtype),
+            f(b, s, w).to(dtype), f(w), f(b, w) * 0.1)
+
+
+def check_k7(dev, time_ms, call_ms, max_err):
+    """Phase 9(a): K7 against its plain version at tests/test_kernels.py's
+    shapes and a ragged one in fp32, and at RecurrentGemma-2B's layer shape
+    in fp32 and bf16, all with h0; the layer shape's times by dtype.
+    Returns (largest abs err, {dtype: times})."""
+    import torch
+    from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
+    cases = [(shape, torch.float32) for shape in K7_SHAPES] + [
+        (K7_LAYER, torch.float32), (K7_LAYER, torch.bfloat16)]
+    worst, times = 0.0, {}
+    for i, (shape, dtype) in enumerate(cases):
+        args = rglru_inputs(shape, dtype, dev, seed=i)
+        bf = dtype == torch.bfloat16
+        # fp32: tests/test_kernels.py's rtol/atol 1e-4; bf16 y: one bf16
+        # rounding apart (the state is fp32 in both)
+        tol = 1e-2 if bf else 1e-4
+        err = max_err(rglru_scan(*args), rglru_scan_plain(*args), tol, tol,
+                      f"K7 {shape} {dtype}")
+        worst = max(worst, err)
+        line = (f"K7 rglru_scan B,S,W={shape} {dtype} h0=True: "
+                f"max_abs_err={err:.3e} (rtol={tol} atol={tol})")
+        if shape == K7_LAYER:
+            ms = time_ms(lambda: rglru_scan(*args))
+            plain = time_ms(lambda: rglru_scan_plain(*args), reps=3)
+            bnd, by = k7_bound(*shape, dtype)
+            times[dtype] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd,
+                            "bound_by": by}
+            line += (f"; ms={ms:.4f} (per Python call "
+                     f"{call_ms(lambda: rglru_scan(*args)):.4f}) "
+                     f"plain_ms={plain:.4f} library_ms=none "
+                     f"bound_ms={bnd:.4f} ({by})")
+        print(line)
+    return worst, times
+
+
+def gemma_config():
+    """RecurrentGemma-2B as the port's registry gives it, checked to be the
+    full-width, full-depth model."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    cfg = get_arch(GEMMA)
+    shape = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
+             cfg.sliding_window, cfg.block_pattern, cfg.dtype,
+             T.count_params(cfg))
+    if shape != (26, 2560, 10, 1, 256, 7680, 256000, GEMMA_WINDOW,
+                 ("rglru", "rglru", "attn"), "bfloat16", 2_894_528_000):
+        raise AssertionError(f"{GEMMA}: config {shape}")
+    return cfg
+
+
+def drive_gemma(dev, counters, time_ms, call_ms, max_err, randn):
+    """Phase 9: the RecurrentGemma-2B slice at full width and depth.  K7
+    and K5 at D = 256 against their plain versions; ``serve`` in bf16 with
+    K7 launched once per rglru layer and K5 once per attention layer, with
+    a profile of a prefill and a decode step; the ring cache's run at a
+    4096-token prompt; at fp32 the served prefill against one with K7's
+    and K5's plain versions swapped in, and decode == forward.  Returns
+    K7's entry of the kernels line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import RequestStream
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
+    from repro_torch.launch.serve import _grow_cache, serve
+    from repro_torch.models import decode as DE
+    from repro_torch.models import transformer as T
+
+    # ---- 9(a), 9(b): K7, and K5 at head dim 256 ---------------------------
+    k7_err, k7_times = check_k7(dev, time_ms, call_ms, max_err)
+    for shape in K5_GEMMA:
+        for dtype in (torch.float32, torch.bfloat16):
+            check_k5_case(shape, True, GEMMA_WINDOW, dtype, randn, time_ms,
+                          call_ms, max_err)
+
+    # ---- 9(c): the fourth path, RecurrentGemma-2B serving on K7 and K5 ----
+    cfg = gemma_config()
+    kinds = [cfg.block_pattern[j % len(cfg.block_pattern)]
+             for j in range(cfg.num_layers)]
+    want = [0] * len(counters)
+    want[counters.index(flash_attention)] = kinds.count("attn")
+    want[counters.index(rglru_scan)] = kinds.count("rglru")
+    pbytes = sum(t.numel() * t.element_size()
+                 for t in T.tree_leaves(T.param_shapes(cfg)))
+    names = ("K1", "K2", "K5", "K6", "K8", "K7")
+
+    def counted_serve(run):
+        for c in counters:
+            c.launches = 0
+        out = serve(GEMMA, smoke=False, batch=run["batch"],
+                    prompt=run["prompt"], gen=run["gen"])
+        launches = [c.launches for c in counters]
+        gen_tok = out["generated"]
+        if launches != want:
+            raise AssertionError(f"serve {run}: launches "
+                                 f"{dict(zip(names, launches))}, want "
+                                 f"{dict(zip(names, want))}")
+        if not (gen_tok.shape == (run["batch"], run["gen"])
+                and gen_tok.dtype == np.int32
+                and ((0 <= gen_tok) & (gen_tok < cfg.vocab_size)).all()):
+            raise AssertionError(f"serve {run}: generated {gen_tok.shape} "
+                                 f"{gen_tok.dtype}, range {gen_tok.min()}.."
+                                 f"{gen_tok.max()}")
+        cache = ("ring" if run["prompt"] + run["gen"] > cfg.sliding_window
+                 else "full")
+        print(f"serve {GEMMA} (26 layers, d_model 2560, 10 heads x 256 with "
+              f"1 KV head, d_ff 7680, window {cfg.sliding_window}, vocab "
+              f"256000, bf16, {T.count_params(cfg)} parameters, {pbytes} "
+              f"bytes): batch {run['batch']}, prompt {run['prompt']}, gen "
+              f"{run['gen']} ({cache} K/V cache): prefill_ms="
+              f"{out['prefill_s'] * 1e3:.3f} decode_ms_per_token="
+              f"{out['decode_s_per_token'] * 1e3:.3f}; K7 launches "
+              f"{launches[-1]} (one per rglru layer), K5 "
+              f"{launches[names.index('K5')]} (one per attention layer), "
+              f"K1/K2/K6/K8 none; generated {gen_tok.shape} int32, first "
+              f"row {gen_tok[0, :8].tolist()}")
+        return launches[-1]
+
+    B, S, G_ = (GEMMA_SERVE[k] for k in ("batch", "prompt", "gen"))
+    serve(GEMMA, smoke=False, batch=B, prompt=256, gen=2)     # warm-up
+    torch.cuda.synchronize()
+    k7_launches = counted_serve(GEMMA_SERVE)
+
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    tok = torch.from_numpy(RequestStream(cfg, B, S, 0).requests_at(0)
+                           ["tokens"]).to(dev)
+    _, cache = DE.prefill(cfg, params, tok)
+    cache = _grow_cache(cfg, cache, B, S + 8)
+    nxt = tok[:, -1:]
+    DE.decode_step(cfg, params, cache, nxt)
+    torch.cuda.synchronize()
+    profile_serving(cfg, params, tok, cache, nxt,
+                    {"K7": ("rglru_kernel",), "K5": ("flash_kernel",)})
+    del params, cache
+
+    # ---- 9(d): the ring cache, prompt past the window ---------------------
+    counted_serve(GEMMA_RING)
+
+    # ---- 9(e): fp32, TF32 off: the served prefill against the plain versions
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = T.init_params(cfg32, torch.Generator(device=dev).manual_seed(1),
+                             device=dev)
+    real = (ops.rglru_scan, ops.flash_attention)
+
+    def plain_k5(q, k, v, *, causal, window):
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+
+    runs = {}
+    for name in ("kernel", "plain", "kernel", "plain"):
+        before = (rglru_scan.launches, flash_attention.launches)
+        if name == "plain":
+            ops.rglru_scan, ops.flash_attention = rglru_scan_plain, plain_k5
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = DE.prefill(cfg32, params32, tok)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            ops.rglru_scan, ops.flash_attention = real
+        n = (rglru_scan.launches - before[0],
+             flash_attention.launches - before[1])
+        if n != ((kinds.count("rglru"), kinds.count("attn"))
+                 if name == "kernel" else (0, 0)):
+            raise AssertionError(f"fp32 prefill ({name}): K7/K5 launches {n}")
+        runs.setdefault(name, (logits[:, -1].float(), []))[1].append(ms)
+    (lk, ms_k), (lp, ms_p) = runs["kernel"], runs["plain"]
+    rel = ((lk - lp).norm() / lp.norm()).item()
+    same = torch.equal(lk.argmax(-1), lp.argmax(-1))
+    if not (torch.isfinite(lk).all() and rel <= 1e-3 and same):
+        raise AssertionError(f"fp32 prefill: K7/K5 vs plain rel err "
+                             f"{rel:.3e} (limit 1e-3), same argmax {same}")
+    print(f"fp32 prefill {GEMMA} (TF32 off, B={B}, S={S}): last-position "
+          f"logits, K7 and K5 vs their plain versions: rel Frobenius err "
+          f"{rel:.3e} (limit 1e-3), same argmax in all {B} rows; host ms "
+          f"kernel {[round(t, 3) for t in ms_k]}, plain "
+          f"{[round(t, 3) for t in ms_p]}")
+
+    # decode == forward at full width (tests/test_models.py:80's tolerance)
+    tok256 = tok[:, :256]
+    full = T.forward(cfg32, params32, tok256)
+    _, cache = DE.prefill(cfg32, params32, tok256[:, :255])
+    cache = _grow_cache(cfg32, cache, B, 256)
+    dl, cache = DE.decode_step(cfg32, params32, cache, tok256[:, 255:])
+    got, want_ = dl[:, 0], full[:, 255]
+    err = (got - want_).abs()
+    share = (err / (2e-3 + 2e-2 * want_.abs())).max().item()
+    if not (int(cache["pos"]) == 256 and torch.isfinite(got).all()
+            and share <= 1.0):
+        raise AssertionError(f"{GEMMA} decode != forward: max abs err "
+                             f"{err.max().item():.3e}")
+    print(f"decode == forward {GEMMA} (fp32, B={B}): prefill 255 tokens + "
+          f"one decode_step vs forward on 256: max abs err "
+          f"{err.max().item():.3e}, at most {share:.2e} of the limit "
+          f"(rtol 2e-2 atol 2e-3)")
+    del params32, cache, full
+
+    # ---- 9(f): K7's entry of the kernels line (bf16, the serving dtype) ---
+    return {"name": "rglru_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rglru.cu",
+            "replaces": "src/repro/kernels/rglru.py:54",
+            "launches": k7_launches, "max_abs_err": k7_err,
+            **k7_times[torch.bfloat16], "library_ms": None}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -568,9 +884,9 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import executor as E
     from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.lindley import lindley_scan
+    from repro_torch.kernels.rglru import rglru_scan
     from repro_torch.kernels.ssd import ssd_scan
     from repro_torch.kernels.systolic_matmul import (_ACTS, k_splits,
                                                      systolic_matmul,
@@ -578,7 +894,6 @@ def main() -> int:
     from repro_torch.kernels.vector_engine import (fused_affine_act,
                                                    fused_affine_act_plain)
     from repro_torch.models import vision
-    import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -704,46 +1019,14 @@ def main() -> int:
               f"plain_ms={plain:.4f} library_ms(torch.addcmul)={lib:.4f} "
               f"bound_ms={bnd:.4f} ({by})")
 
-    def attn_pairs(Sq, Skv, causal, window):
-        qp = torch.arange(Sq)[:, None]
-        kp = torch.arange(Skv)[None, :]
-        keep = torch.ones(Sq, Skv, dtype=torch.bool)
-        if causal:
-            keep &= kp <= qp
-        if window:
-            keep &= (qp - kp) < window
-        return keep
-
     k5_rows = {}
     for (B, H, KV, Sq, Skv, D, causal, window) in [
             (1, 4, 4, 17, 17, 32, False, 0), (1, 4, 4, 122, 122, 32, False, 0),
             (2, 8, 2, 512, 512, 64, True, 128)]:
         for dtype in (torch.float32, torch.bfloat16):
-            q = randn(B, H, Sq, D, dtype=dtype)
-            k, v = randn(B, KV, Skv, D, dtype=dtype), randn(B, KV, Skv, D, dtype=dtype)
-            rtol, atol = (0.05, 0.03) if dtype == torch.bfloat16 else (1e-3, 2e-4)
-            err = max_err(flash_attention(q, k, v, causal=causal, window=window),
-                          flash_attention_plain(q, k, v, causal=causal,
-                                                window=window),
-                          rtol, atol, f"K5 {(B, H, KV, Sq, Skv, D)} {dtype}")
-            keep = attn_pairs(Sq, Skv, causal, window)
-            mask = keep.to(dev) if (causal or window) else None
-            ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
-                                                 window=window))
-            plain = time_ms(lambda: flash_attention_plain(
-                q, k, v, causal=causal, window=window))
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, enable_gqa=KV != H))
-            esz = q.element_size()
-            bnd, by = bound((2 * q.numel() + 2 * k.numel()) * esz,
-                            4 * B * H * D * int(keep.sum()), dtype)
-            k5_rows[(Sq, dtype)] = (err, ms, plain, lib, bnd, by)
-            print(f"K5 flash_attention B={B} H={H} KV={KV} Sq={Sq} Skv={Skv} "
-                  f"D={D} causal={causal} window={window} {dtype}: "
-                  f"max_abs_err={err:.3e} rtol={rtol} atol={atol}; "
-                  f"ms={ms:.4f} (per Python call {call_ms(lambda: flash_attention(q, k, v, causal=causal, window=window)):.4f}) "
-                  f"plain_ms={plain:.4f} library_ms(sdpa)={lib:.4f} "
-                  f"bound_ms={bnd:.4f} ({by})")
+            k5_rows[(Sq, dtype)] = check_k5_case(
+                (B, H, KV, Sq, Skv, D), causal, window, dtype, randn,
+                time_ms, call_ms, max_err)
 
     k6_err = check_k6(dev, time_ms, call_ms)
     k8_err, k8_times = check_k8(dev, time_ms, call_ms, max_err)
@@ -885,6 +1168,9 @@ def main() -> int:
 
     k6_entry = drive_fleet(dev, time_ms)
     k8_launches = drive_lm(dev, counters + (lindley_scan, ssd_scan))
+    k7_entry = drive_gemma(dev, counters + (lindley_scan, ssd_scan,
+                                            rglru_scan),
+                           time_ms, call_ms, max_err, randn)
 
     # ---- the kernels line: K1 over one request's 53 shapes ---------------
     k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
@@ -944,6 +1230,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/ssd.py:87", "launches": k8_launches,
          "max_abs_err": k8_err, **{k: v for k, v in k8_times[
              torch.bfloat16].items() if k != "err"}, "library_ms": None},
+        k7_entry,
     ]
     print(f"elapsed {time.perf_counter() - t_start:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}))

@@ -12,11 +12,17 @@
 // cores.
 //
 // What the design does about it: one block per (b*h, 32-query tile); the
-// KV loop runs inside the block (blocks share nothing), staging 32 keys and
-// values at a time in shared memory as fp32.  Four threads own one query
-// row, each with a quarter of its head dimension in registers (q and the
-// fp32 accumulator), and combine their partial q.k with two warp shuffles,
-// so a row's m and l stay in registers with no block-wide reduction.  The
+// KV loop runs inside the block (blocks share nothing), staging BKV keys and
+// values at a time in shared memory as fp32.  LANES threads own one query
+// row, each with 1/LANES of its head dimension in registers (q and the
+// fp32 accumulator), and combine their partial q.k with log2(LANES) warp
+// shuffles, so a row's m and l stay in registers with no block-wide
+// reduction.  D in {16, 32, 64, 128} takes 4 lanes and 32-key tiles.
+// D = 256 (RecurrentGemma-2B's local attention) takes 8 lanes, so that a
+// thread still holds 32 floats of q and 32 of the accumulator, and 16-key
+// tiles: two [16][256] fp32 tiles are 32 KB, inside the 48 KB of static
+// shared memory, where [32][256] would be 64 KB.  Every block walks all
+// the KV tiles, masked ones included (skipping them is later work).  The
 // mask value is the finite NEG_INF = -1e30 of the TPU kernel, and l is
 // clamped at 1e-30: a fully masked tile then adds weight that the first
 // unmasked tile's rescale (alpha = 0) wipes out, where -inf would give NaN.
@@ -28,16 +34,15 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 32;     // query rows per block
-constexpr int BKV = 32;    // keys per shared-memory tile
-constexpr int LANES = 4;   // threads per query row
-constexpr int THREADS = BQ * LANES;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+// LANES threads per query row, BKV keys per shared-memory tile.
+template <typename T, int D, int LANES, int BKV>
+__global__ void __launch_bounds__(BQ * LANES)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int H, int KV,
              int Sq, int Skv, float scale, int causal, int window) {
   constexpr int DP = D / LANES;
+  constexpr int THREADS = BQ * LANES;
   __shared__ float ks[BKV][D];
   __shared__ float vs[BKV][D];
   const int tid = threadIdx.x;
@@ -75,8 +80,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float part = 0.0f;
 #pragma unroll
       for (int i = 0; i < DP; ++i) part = fmaf(qr[i], ks[j][lane + LANES * i], part);
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
+#pragma unroll
+      for (int off = 1; off < LANES; off <<= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, off);
       const int kpos = k0 + j;
       float sj = part * scale;
       if ((causal && kpos > qpos) || (window && qpos - kpos >= window))
@@ -111,12 +117,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int LANES = 4, int BKV = 32>
 void launch(const void* q, const void* k, const void* v, void* o, int B,
             int H, int KV, int Sq, int Skv, float scale, int causal,
             int window, cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_kernel<T, D><<<grid, THREADS, 0, stream>>>(
+  flash_kernel<T, D, LANES, BKV><<<grid, BQ * LANES, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, KV, Sq, Skv, scale,
       causal, window);
@@ -131,6 +137,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
     case 32: launch<T, 32>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, window, s); break;
     case 64: launch<T, 64>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, window, s); break;
     case 128: launch<T, 128>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, window, s); break;
+    case 256: launch<T, 256, 8, 16>(q, k, v, o, B, H, KV, Sq, Skv, scale, causal, window, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -139,7 +146,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q (B,H,Sq,D), k and v (B,KV,Skv,D), o (B,H,Sq,D), all contiguous of
-// dtype (fp32 or bf16); D in {16, 32, 64, 128}; H a multiple of KV.
+// dtype (fp32 or bf16); D in {16, 32, 64, 128, 256}; H a multiple of KV.
 // Launches on `stream` and returns cudaGetLastError().
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int H, int KV, int Sq, int Skv,

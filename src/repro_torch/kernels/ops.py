@@ -7,6 +7,7 @@ The TPU tile sizes (``bm``/``bn``/``bk``, ``bq``/``bk``) are accepted for
 call compatibility and unused: the CUDA kernels pick their own tiles and
 mask ragged edges.  ``interpret`` has no counterpart, and neither has the
 x64 context of the JAX package's ``lindley``: float64 is explicit here.
+``rglru`` keeps the TPU kernel's arguments, ``h0`` included.
 ``ssd`` takes a trailing ``h0`` (the starting state, zeros if None), which
 the TPU kernel lacks and ``models.layers.ssd_chunked`` passes on; its
 ``chunk`` is checked as the JAX code checks it (the kernel walks its own
@@ -17,6 +18,7 @@ from __future__ import annotations
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.lindley import lindley_scan, lindley_scan_plain
+from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
 from repro_torch.kernels.ssd import ssd_scan, ssd_scan_plain
 from repro_torch.kernels.systolic_matmul import (systolic_matmul,
                                                  systolic_matmul_plain)
@@ -60,6 +62,14 @@ def lindley(t, s, *, br=128, bd=128):
     if t.device.type == "cpu":
         return lindley_scan_plain(t, s)
     return lindley_scan(t.contiguous(), s.contiguous())
+
+
+def rglru(x, gx, ga, log_a, h0):
+    """RG-LRU: x/gx/ga (B,S,W), log_a (W,), h0 (B,W) -> (B,S,W), x's dtype."""
+    if x.device.type == "cpu":
+        return rglru_scan_plain(x, gx, ga, log_a, h0)
+    return rglru_scan(x.contiguous(), gx.contiguous(), ga.contiguous(),
+                      log_a.contiguous(), h0.contiguous())
 
 
 def ssd(x, dt, A, Bm, Cm, *, chunk=128, h0=None):

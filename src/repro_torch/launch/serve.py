@@ -3,7 +3,7 @@
 ``python -m repro_torch.launch.serve --arch mamba2-370m --batch 4 --prompt 1024 --gen 32``
 
 The port of the JAX package's ``launch/serve.py`` on one card, for the
-Mamba-2 (``ssm``) family.  Each phase's time is read from the host clock
+Mamba-2 (``ssm``) and RecurrentGemma (``hybrid``) families.  Each phase's time is read from the host clock
 after ``torch.cuda.synchronize()``, so it is the card's time for the
 phase, not the time to enqueue it.
 """
@@ -33,8 +33,9 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt: int = 64,
     """Random weights from ``seed``, ``batch`` prompts of ``prompt`` tokens
     from ``RequestStream``, then ``gen`` tokens each.  ``device=None``
     means the card (and raises without CUDA).  As in the JAX package, a
-    prompt longer than the config's ``ssm_chunk`` must be a multiple of
-    it.  Returns ``generated`` int32 (batch, gen), ``prefill_s`` and
+    Mamba-2 prompt longer than the config's ``ssm_chunk`` must be a
+    multiple of it, and a prompt within a sliding window that the
+    generated tokens outgrow is refused (``_grow_cache``).  Returns ``generated`` int32 (batch, gen), ``prefill_s`` and
     ``decode_s_per_token``."""
     dev = resolve(device)
     cfg = get_arch(arch)
@@ -74,9 +75,21 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt: int = 64,
 
 def _grow_cache(cfg, cache, batch: int, capacity: int):
     """Re-embed a prompt-sized cache into a ``capacity``-sized one (prefix
-    copy along the seq dim; ring/state caches are size-invariant)."""
+    copy along the seq dim; ring/state caches, ``kpos`` included, are
+    size-invariant).
+
+    A prompt within the sliding window whose ``capacity`` outgrows it would
+    turn a full K/V cache into a ring; the JAX package's version breaks
+    there on the mismatched trees, and this one raises ``ValueError``."""
     def grow(tmpl, src):
         if isinstance(tmpl, dict):
+            if tmpl.keys() != src.keys():
+                raise ValueError(
+                    f"_grow_cache: a cache of {sorted(src)} cannot grow into "
+                    f"{sorted(tmpl)}: the prompt fits the sliding window "
+                    f"({cfg.sliding_window}) but prompt + gen = {capacity} "
+                    f"outgrows it, which needs a ring cache the prefill did "
+                    f"not build")
             return {k: grow(tmpl[k], src[k]) for k in tmpl}
         if isinstance(tmpl, list):
             return [grow(t, s) for t, s in zip(tmpl, src)]

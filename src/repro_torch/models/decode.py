@@ -1,16 +1,26 @@
-"""The JAX package's ``models/decode.py`` serving path for the ``ssd``
-block kind: cache construction, prefill and single-token decode.
+"""The JAX package's ``models/decode.py`` serving path for the ``ssd``,
+``rglru`` and GQA ``attn`` block kinds: cache construction, prefill and
+single-token decode.
 
 The cache mirrors the parameter layout: a pattern group's leaves are
 stacked ``(groups, ...)`` under ``blocks["b{j}_{kind}"]``, remainders are
 a list under ``rem``, and ``pos`` is a 0-d int32 tensor shared by the
-batch.  An ``ssd`` layer keeps its SSM state ``h`` (B, H, P, N) in fp32 and
-the conv tail ``conv`` (B, K-1, din + 2GN) in the model's dtype.  Unlike
-the JAX package, ``decode_step`` writes the new state into the cache it is
-given.
+batch.  Per block kind:
+
+  attn   : full K/V (B, S, KV, Dh), written at ``pos``
+  attn+sw: ring buffer (B, W, KV, Dh) + slot->position map ``kpos`` (W,)
+           int32, -1 for an empty slot, when the sequence outgrows the
+           sliding window W
+  rglru  : recurrent state ``h`` (B, W) fp32 + conv tail ``conv`` (B, 3, W)
+  ssd    : SSM state ``h`` (B, H, P, N) fp32 + conv tail
+
+Unlike the JAX package, ``decode_step`` writes into the cache it is given:
+the new K/V row at ``pos`` (``pos % W`` in the ring) with ``index_copy_``
+on the 0-d ``pos`` tensor, so no step reads ``pos`` back to the host.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import torch
@@ -28,27 +38,45 @@ Pytree = Any
 # cache shape definitions
 # ---------------------------------------------------------------------------
 
+def _use_ring(cfg: ModelConfig, seq: int) -> bool:
+    return cfg.sliding_window > 0 and seq > cfg.sliding_window
+
+
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def layer_cache_def(cfg: ModelConfig, kind: str, batch: int,
                     seq: int) -> Dict[str, torch.Tensor]:
-    """Shape and dtype of one layer's cache, as ``meta`` tensors (an
-    ``ssd`` layer's does not depend on ``seq``)."""
-    T.check_kind(kind)
-    din = cfg.ssm_expand * cfg.d_model
-    H = din // cfg.ssm_head_dim
-    conv_ch = din + 2 * cfg.ssm_ngroups * cfg.ssm_state
-    return {
-        "h": _meta((batch, H, cfg.ssm_head_dim, cfg.ssm_state), torch.float32),
-        "conv": _meta((batch, cfg.ssm_conv - 1, conv_ch),
-                      getattr(torch, cfg.dtype)),
-    }
+    """Shape and dtype of one layer's cache, as ``meta`` tensors."""
+    dt = getattr(torch, cfg.dtype)
+    Dh = cfg.resolved_head_dim
+    KV = cfg.num_kv_heads
+    if kind == "attn":
+        if _use_ring(cfg, seq):
+            W = cfg.sliding_window
+            return {"k": _meta((batch, W, KV, Dh), dt),
+                    "v": _meta((batch, W, KV, Dh), dt),
+                    "kpos": _meta((W,), torch.int32)}
+        return {"k": _meta((batch, seq, KV, Dh), dt),
+                "v": _meta((batch, seq, KV, Dh), dt)}
+    if kind == "rglru":
+        W = cfg.d_model
+        return {"h": _meta((batch, W), torch.float32),
+                "conv": _meta((batch, 3, W), dt)}
+    if kind == "ssd":
+        din = cfg.ssm_expand * cfg.d_model
+        H = din // cfg.ssm_head_dim
+        conv_ch = din + 2 * cfg.ssm_ngroups * cfg.ssm_state
+        return {"h": _meta((batch, H, cfg.ssm_head_dim, cfg.ssm_state),
+                           torch.float32),
+                "conv": _meta((batch, cfg.ssm_conv - 1, conv_ch), dt)}
+    raise ValueError(kind)
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> Pytree:
     """The cache tree as ``meta`` tensors (no storage)."""
+    T.check_supported(cfg)
     period = len(cfg.block_pattern)
     groups, rem = divmod(cfg.num_layers, period)
     group_tree = {f"b{j}_{kind}": layer_cache_def(cfg, kind, batch, seq)
@@ -64,16 +92,81 @@ def cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> Pytree:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> Pytree:
-    """A zero cache on ``device`` (None: the card)."""
+    """A zero cache on ``device`` (None: the card); a ring's ``kpos`` is -1
+    (no slot filled)."""
     dev = resolve(device)
-    return T.tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
-                                            device=dev),
-                      cache_shapes(cfg, batch, seq))
+
+    def mk(s: torch.Tensor) -> torch.Tensor:
+        fill = -1 if s.dtype == torch.int32 and s.dim() == 1 else 0
+        return torch.full(s.shape, fill, dtype=s.dtype, device=dev)
+
+    return T.tree_map(mk, cache_shapes(cfg, batch, seq))
 
 
 # ---------------------------------------------------------------------------
 # single-token block steps
 # ---------------------------------------------------------------------------
+
+def _ring_attend(q, kc, vc, kpos, pos, window):
+    """q (B,1,H,Dh) vs ring cache (B,W,KV,Dh); kpos (W,) slot->abs position."""
+    B, _, H, Dh = q.shape
+    KV = kc.shape[2]
+    G = H // KV
+    qg = q.reshape(B, 1, KV, G, Dh)
+    s = torch.einsum("bckgd,bskd->bkgcs", qg, kc).float() / math.sqrt(Dh)
+    ok = (kpos >= 0) & (kpos <= pos) & ((pos - kpos) < window)
+    s = s.masked_fill(~ok, -1e30)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgcs,bskd->bckgd", w.to(vc.dtype), vc)
+    return o.reshape(B, 1, H, vc.shape[-1])
+
+
+def attn_step(cfg: ModelConfig, p, x, cache, pos, ctx):
+    """One token of GQA attention; writes its K/V (and ring slot) into
+    ``cache`` in place."""
+    Dh = cfg.resolved_head_dim
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    q = T._heads(T._proj(h, p["wq"]), H, Dh)
+    k = T._heads(T._proj(h, p["wk"]), KV, Dh)
+    v = T._heads(T._proj(h, p["wv"]), KV, Dh)
+    if cfg.rope == "rope":
+        q = L.apply_rope(q, ctx.cos, ctx.sin)
+        k = L.apply_rope(k, ctx.cos, ctx.sin)
+    window = cfg.sliding_window if cfg.family == "hybrid" else 0
+    if "kpos" in cache:                       # ring buffer (long-context local)
+        W = cfg.sliding_window
+        slot = (pos % W).reshape(1).long()
+        cache["k"].index_copy_(1, slot, k)
+        cache["v"].index_copy_(1, slot, v)
+        cache["kpos"].index_copy_(0, slot, pos.reshape(1))
+        o = _ring_attend(q, cache["k"], cache["v"], cache["kpos"], pos, W)
+    else:
+        at = pos.reshape(1).long()
+        cache["k"].index_copy_(1, at, k)
+        cache["v"].index_copy_(1, at, v)
+        o = L._attn_block(q, cache["k"], cache["v"], q_start=pos, kv_start=0,
+                          causal=True, window=window, kv_len=pos + 1)
+    return x + T._proj(o.reshape(x.shape[0], 1, H * Dh), p["wo"])
+
+
+def rglru_step_block(cfg: ModelConfig, p, x, cache, ctx):
+    """One token through an RG-LRU mixer; returns (x, new h and conv).  The
+    new state is ``rglru_step``'s, in x's dtype, stored as fp32: in bf16
+    the carried state is rounded to bf16 every token, as in the JAX
+    package."""
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    gate = L.act_fn("gelu")(T._proj(h, p["wy"]))[:, 0]
+    xb_t = T._proj(h, p["wx"])[:, 0]                            # (B,W)
+    hist = torch.cat([cache["conv"].to(x.dtype), xb_t[:, None]], dim=1)
+    w = p["conv_w"]
+    conv = sum(hist[:, i] * w[i][None, :] for i in range(w.shape[0]))
+    ga = conv @ p["wga"].to(x.dtype) + p["bga"].to(x.dtype)
+    gx = conv @ p["wgx"].to(x.dtype) + p["bgx"].to(x.dtype)
+    hn = L.rglru_step(conv, gx, ga, p["log_a"], cache["h"])
+    y = T._proj((hn.to(x.dtype) * gate)[:, None], p["wo"])
+    return x + y, {"h": hn.float(), "conv": hist[:, 1:]}
+
 
 def ssd_step_block(cfg: ModelConfig, p, x, cache, ctx):
     D = cfg.d_model
@@ -104,10 +197,19 @@ def ssd_step_block(cfg: ModelConfig, p, x, cache, ctx):
 def block_step(cfg: ModelConfig, kind: str, p, x, cache, pos, ctx):
     """One token through one block; writes the block's new state into
     ``cache`` (its tensors, in place) and returns (x, cache)."""
-    T.check_kind(kind)
-    x, new = ssd_step_block(cfg, p["ssd"], x, cache, ctx)
-    cache["h"].copy_(new["h"])
-    cache["conv"].copy_(new["conv"])
+    if kind == "attn":
+        x = attn_step(cfg, p["attn"], x, cache, pos, ctx)
+    else:
+        if kind == "rglru":
+            x, new = rglru_step_block(cfg, p["rec"], x, cache, ctx)
+        elif kind == "ssd":
+            x, new = ssd_step_block(cfg, p["ssd"], x, cache, ctx)
+        else:
+            raise ValueError(kind)
+        cache["h"].copy_(new["h"])
+        cache["conv"].copy_(new["conv"])
+    if "ffn" in p:
+        x = T.ffn_forward(cfg, p["ffn"], x, ctx)
     return x, cache
 
 
@@ -120,11 +222,12 @@ def decode_step(cfg: ModelConfig, params, cache, tokens
     """tokens (B, 1) at position cache['pos'] -> (logits (B,1,V), cache).
 
     The cache is updated in place (the JAX package returns a new tree):
-    every layer's state and conv tail, and ``pos``, which advances by one.
-    The returned cache is the one passed in."""
+    every layer's state, conv tail and K/V row, and ``pos``, which advances
+    by one.  The returned cache is the one passed in."""
     pos = cache["pos"]
+    B = tokens.shape[0]
     x = T.embed_tokens(cfg, params, tokens)
-    ctx = T.Ctx(cfg=cfg)
+    ctx = T.rope_ctx(cfg, pos.expand(B, 1))
     pattern = cfg.block_pattern
     blocks = params["blocks"]
     for g in range(T.num_groups(blocks)):
@@ -142,18 +245,55 @@ def decode_step(cfg: ModelConfig, params, cache, tokens
 # prefill (build the cache for a whole prompt)
 # ---------------------------------------------------------------------------
 
+def _attn_prefill_kv(cfg, p, h, ctx):
+    Dh = cfg.resolved_head_dim
+    KV = cfg.num_kv_heads
+    k = T._heads(T._proj(h, p["wk"]), KV, Dh)
+    v = T._heads(T._proj(h, p["wv"]), KV, Dh)
+    if cfg.rope == "rope":
+        k = L.apply_rope(k, ctx.cos, ctx.sin)
+    return k, v
+
+
 def block_prefill(cfg: ModelConfig, kind: str, p, x, ctx: T.Ctx):
     """Forward one block over the full prompt, returning its cache entry."""
-    T.check_kind(kind)
-    x, (hl, conv) = T.ssd_forward(cfg, p["ssd"], x, ctx)
-    return x, {"h": hl, "conv": conv}
+    S = x.shape[1]
+    cache: Dict[str, torch.Tensor] = {}
+    if kind == "attn":
+        h = L.rms_norm(x, p["attn"]["ln"], cfg.norm_eps)
+        k, v = _attn_prefill_kv(cfg, p["attn"], h, ctx)
+        if _use_ring(cfg, S):
+            W = cfg.sliding_window
+            shift = (S - W) % W          # align slots to p % W
+            cache["k"] = torch.roll(k[:, S - W:], shift, dims=1)
+            cache["v"] = torch.roll(v[:, S - W:], shift, dims=1)
+            cache["kpos"] = torch.roll(
+                torch.arange(S - W, S, dtype=torch.int32, device=x.device),
+                shift)
+        else:
+            cache["k"], cache["v"] = k, v
+        window = cfg.sliding_window if cfg.family == "hybrid" else 0
+        x = T.attn_forward(cfg, p["attn"], x, ctx, window=window)
+    elif kind == "rglru":
+        x, (hl, conv) = T.rglru_forward(cfg, p["rec"], x, ctx)
+        # the last state in x's dtype, as the JAX package keeps it
+        cache["h"], cache["conv"] = hl.float(), conv
+    elif kind == "ssd":
+        x, (hl, conv) = T.ssd_forward(cfg, p["ssd"], x, ctx)
+        cache["h"], cache["conv"] = hl, conv
+    else:
+        raise ValueError(kind)
+    if "ffn" in p:
+        x = T.ffn_forward(cfg, p["ffn"], x, ctx)
+    return x, cache
 
 
 def prefill(cfg: ModelConfig, params, tokens):
     """Run the prompt, returning (logits_last (B,1,V), cache)."""
     B, S = tokens.shape
     x = T.embed_tokens(cfg, params, tokens)
-    ctx = T.Ctx(cfg=cfg)
+    ctx = T.rope_ctx(cfg, torch.arange(S, device=tokens.device)[None]
+                     .expand(B, S))
     pattern = cfg.block_pattern
     cache = init_cache(cfg, B, S, device=tokens.device)
     cache["pos"].fill_(S)

@@ -3,11 +3,16 @@
 The vision models use ``rms_norm`` and ``act_fn``; the Mamba-2 blocks add
 ``causal_conv1d``, ``ssd_chunked`` (the SSD chunk scan, K8 on the card
 through ``ops.ssd``) and ``ssd_step`` (one decode token, plain PyTorch: the
-JAX package has no kernel for it).  RoPE, blocked attention, MoE and the
-RG-LRU come with the slices that need them (ROADMAP.md, queue 1).
+JAX package has no kernel for it).  RecurrentGemma adds RoPE
+(``rope_angles``, ``apply_rope``), ``blocked_attention`` (K5 on the card
+through ``ops.attention``; the JAX package calls its pure-JAX version the
+analogue of that kernel), ``_attn_block`` (plain, for decode), ``rglru`` (K7
+on the card through ``ops.rglru``) and ``rglru_step`` (plain).  M-RoPE and
+MoE come with the slices that need them (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -28,6 +33,132 @@ def act_fn(name: str):
     return {"silu": F.silu,
             "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
 
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (..., S) -> cos/sin (..., S, head_dim//2), fp32."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, Dh); cos/sin (B, S, Dh//2) -> rotate-half RoPE."""
+    half = x.shape[-1] // 2
+    x1 = x[..., :half].float()
+    x2 = x[..., half:].float()
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _attn_block(qc: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                q_start, kv_start: int, causal: bool, window: int,
+                kv_len: Optional[torch.Tensor]) -> torch.Tensor:
+    """One query block attending to a K/V span, in plain PyTorch.
+
+    qc (B, C, H, Dh); k/v (B, Skv, KV, Dv).  GQA via head grouping.
+    ``q_start`` may be a 0-d tensor (the position of qc in the sequence);
+    ``kv_len`` optionally masks the valid KV prefix (decode with a
+    preallocated cache), as an int or a 0-d tensor shared by the batch.
+    """
+    B, C, H, Dh = qc.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = qc.reshape(B, C, KV, G, Dh)
+    scores = torch.einsum("bckgd,bskd->bkgcs", qg, k).float()
+    scores = scores / math.sqrt(Dh)
+    qpos = q_start + torch.arange(C, device=qc.device)           # (C,)
+    kpos = kv_start + torch.arange(Skv, device=qc.device)        # (Skv,)
+    mask = torch.ones((C, Skv), dtype=torch.bool, device=qc.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= (qpos[:, None] - kpos[None, :]) < window
+    if kv_len is not None:
+        mask &= kpos[None, :] < kv_len
+    scores = scores.masked_fill(~mask, -1e30)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgcs,bskd->bckgd", w.to(v.dtype), v)
+    return out.reshape(B, C, H, v.shape[-1])
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0, chunk: int = 512,
+                      unroll: bool = True, q_offset: int = 0,
+                      kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention of q (B, Sq, H, Dh) over k/v (B, Skv, KV, Dh), causal
+    and windowed as asked, through ``ops.attention`` (K5 on the card).
+
+    The JAX package's version loops over query chunks; ``chunk`` and
+    ``unroll`` only shape that loop, so they are accepted and unused here,
+    like the TPU tile sizes.  A ``q_offset`` or ``kv_len`` takes the plain
+    ``_attn_block`` on the CPU and raises on the card: K5 aligns both
+    sequences at position 0 and takes no valid-prefix length, and a quiet
+    plain path there would hide the kernel.  Serving does not need them
+    (decode calls ``_attn_block`` directly).
+    """
+    if isinstance(q_offset, torch.Tensor) or q_offset or kv_len is not None:
+        if q.device.type != "cpu":
+            raise NotImplementedError(
+                "blocked_attention: K5 takes no q_offset or kv_len; only "
+                "the CPU runs them (plain _attn_block)")
+        return _attn_block(q, k, v, q_start=q_offset, kv_start=0,
+                           causal=causal, window=window, kv_len=kv_len)
+    o = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                      v.transpose(1, 2), causal=causal, window=window)
+    return o.transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (RecurrentGemma)
+# ---------------------------------------------------------------------------
+
+def rglru(x: torch.Tensor, gate_x: torch.Tensor, gate_a: torch.Tensor,
+          log_a: torch.Tensor, h0: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Real-Gated Linear Recurrent Unit, through ``ops.rglru`` (K7 on the
+    card).
+
+    x, gate_x, gate_a: (B, S, W).  log_a: (W,) learnable (Lambda).
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t),
+    a_t = exp(c * softplus(Lambda) * r_t),  c = -8;  h_{-1} = h0 or zeros.
+    Returns (h_seq (B,S,W), h_last (B,W)), both in x's dtype.
+    """
+    if h0 is None:
+        h0 = torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32,
+                         device=x.device)
+    seq = ops.rglru(x, gate_x, gate_a, log_a.float(), h0.float())
+    return seq, seq[:, -1]
+
+
+def rglru_step(xt, gxt, gat, log_a, h_prev):
+    """Single-token RG-LRU update for decode.  xt (B, W); returns xt's
+    dtype."""
+    c = -8.0
+    r = torch.sigmoid(gat.float())
+    i = torch.sigmoid(gxt.float())
+    log_a_t = c * r * F.softplus(log_a.float())
+    a = torch.exp(log_a_t)
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a_t), min=1e-12))
+    h = a * h_prev.float() + mult * i * xt.float()
+    return h.to(xt.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD
+# ---------------------------------------------------------------------------
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,

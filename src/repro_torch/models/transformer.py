@@ -1,14 +1,16 @@
-"""The JAX package's ``models/transformer.py`` for the Mamba-2 (``ssd``)
-block kind.
+"""The JAX package's ``models/transformer.py`` for the Mamba-2 (``ssd``),
+RG-LRU (``rglru``) and GQA attention (``attn``) block kinds, with the dense
+MLP: the blocks of Mamba-2 370M and RecurrentGemma-2B.
 
 Parameters keep the JAX tree: each block pattern group's leaves are stacked
 ``(groups, ...)`` under ``blocks["b{j}_{kind}"]``, pattern remainders are a
 list under ``rem``, so ``repro_torch.convert.params_from_jax`` carries a
 JAX tree across leaf for leaf.  A Python loop over the stacked groups takes
 the place of ``lax.scan``; ``remat``, ``scan_layers`` and activation
-sharding have no counterpart on one card.  Attention, RG-LRU, MoE, MLA,
-encoder and frontend blocks raise ``NotImplementedError``: they come with
-later slices of the port (ROADMAP.md, queue 1).
+sharding have no counterpart on one card.  qk-norm, QKV bias, MLA, M-RoPE,
+learned positions, MoE, cross-attention, the encoder and the frontends
+raise ``NotImplementedError``: they come with later slices of the port
+(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -25,20 +27,33 @@ from repro_torch.models import layers as L
 
 Pytree = Any
 
-# The block kinds this slice runs, and where the others come from.
-_LATER = {"attn": "the dense GQA slice", "rglru": "the RecurrentGemma-2B slice"}
-
 
 def unsupported(what: str, slice_: str):
     return NotImplementedError(
-        f"the port's LM stack runs the Mamba-2 'ssd' block only; {what} comes "
-        f"with {slice_} (ROADMAP.md, queue 1)")
+        f"the port's LM stack runs the 'ssd', 'rglru' and GQA 'attn' blocks "
+        f"with a dense MLP; {what} comes with {slice_} (ROADMAP.md, queue 1)")
 
 
-def check_kind(kind: str) -> None:
-    if kind != "ssd":
-        raise unsupported(f"block kind {kind!r}",
-                          _LATER.get(kind, "a later slice"))
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for a feature of ``cfg`` that the port does not run yet."""
+    later = [
+        (cfg.encoder_layers, "the encoder", "the Whisper slice"),
+        (cfg.cross_attention, "cross-attention", "the Whisper slice"),
+        (cfg.frontend != "none", f"the {cfg.frontend} frontend",
+         "a later slice"),
+        (cfg.rope == "learned", "learned positions", "the Whisper slice"),
+        (cfg.rope == "mrope", "M-RoPE", "a later slice"),
+        (cfg.num_experts, "MoE", "a later slice"),
+    ]
+    if "attn" in cfg.block_pattern:
+        later += [
+            (cfg.attention == "mla", "MLA", "a later slice"),
+            (cfg.qk_norm, "qk-norm", "the dense GQA slice"),
+            (cfg.qkv_bias, "QKV bias", "the dense GQA slice"),
+        ]
+    for bad, what, slice_ in later:
+        if bad:
+            raise unsupported(what, slice_)
 
 
 # ---------------------------------------------------------------------------
@@ -49,7 +64,7 @@ def check_kind(kind: str) -> None:
 class PDef:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]          # logical axis names (or None)
-    init: str = "normal"                     # normal | zeros | ones | ssm_a | dtbias
+    init: str = "normal"                     # normal | zeros | ones | lru | ssm_a | dtbias
     scale: float = 0.02
 
     def with_stack(self, n: int) -> "PDef":
@@ -63,6 +78,50 @@ def _dense(din, dout, ax_in="fsdp", ax_out="tp", scale=0.02):
 
 def _norm(d):
     return PDef((d,), (None,), "zeros")
+
+
+def attn_defs(cfg: ModelConfig) -> Dict[str, PDef]:
+    """GQA attention (no qk-norm, no QKV bias: ``check_supported``)."""
+    D = cfg.d_model
+    Dh = cfg.resolved_head_dim
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    return {
+        "ln": _norm(D),
+        "wq": _dense(D, H * Dh),
+        "wk": _dense(D, KV * Dh),
+        "wv": _dense(D, KV * Dh),
+        "wo": _dense(H * Dh, D, ax_in="tp", ax_out="fsdp",
+                     scale=0.02 / math.sqrt(2 * max(cfg.num_layers, 1))),
+    }
+
+
+def mlp_defs(cfg: ModelConfig) -> Dict[str, PDef]:
+    D, F_ = cfg.d_model, cfg.d_ff
+    return {
+        "ln": _norm(D),
+        "w1": _dense(D, F_),
+        "w3": _dense(D, F_),
+        "w2": _dense(F_, D, ax_in="tp", ax_out="fsdp",
+                     scale=0.02 / math.sqrt(2 * max(cfg.num_layers, 1))),
+    }
+
+
+def rglru_defs(cfg: ModelConfig) -> Dict[str, PDef]:
+    D = cfg.d_model
+    W = D  # lru width = d_model (RecurrentGemma-2B)
+    return {
+        "ln": _norm(D),
+        "wx": _dense(D, W),
+        "wy": _dense(D, W),
+        "conv_w": PDef((4, W), (None, "tp"), "normal", 0.1),
+        "wga": _dense(W, W, ax_in="tp", ax_out=None),
+        "bga": PDef((W,), (None,), "zeros"),
+        "wgx": _dense(W, W, ax_in="tp", ax_out=None),
+        "bgx": PDef((W,), (None,), "zeros"),
+        "log_a": PDef((W,), (None,), "lru"),
+        "wo": _dense(W, D, ax_in="tp", ax_out="fsdp",
+                     scale=0.02 / math.sqrt(2 * max(cfg.num_layers, 1))),
+    }
 
 
 def ssd_defs(cfg: ModelConfig) -> Dict[str, PDef]:
@@ -84,13 +143,20 @@ def ssd_defs(cfg: ModelConfig) -> Dict[str, PDef]:
     }
 
 
-def block_defs(cfg: ModelConfig, kind: str,
-               decoder: bool = True) -> Dict[str, Any]:
-    """One block: the SSD mixer (Mamba-2 blocks have no FFN, d_ff = 0)."""
-    check_kind(kind)
-    if decoder and cfg.cross_attention:
-        raise unsupported("cross-attention", "the Whisper slice")
-    return {"ssd": ssd_defs(cfg)}
+def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
+    """One block = mixer (+ FFN)."""
+    d: Dict[str, Any] = {}
+    if kind == "attn":
+        d["attn"] = attn_defs(cfg)
+    elif kind == "rglru":
+        d["rec"] = rglru_defs(cfg)
+    elif kind == "ssd":
+        d["ssd"] = ssd_defs(cfg)
+    else:
+        raise ValueError(kind)
+    if kind != "ssd":  # mamba2 blocks have no separate FFN (d_ff = 0)
+        d["ffn"] = mlp_defs(cfg)
+    return d
 
 
 # ---------------------------------------------------------------------------
@@ -118,14 +184,7 @@ def param_defs(cfg: ModelConfig) -> Pytree:
     D = cfg.d_model
     period = len(cfg.block_pattern)
     groups, rem = divmod(cfg.num_layers, period)
-    if cfg.encoder_layers:
-        raise unsupported("the encoder", "the Whisper slice")
-    if cfg.frontend != "none":
-        raise unsupported(f"the {cfg.frontend} frontend", "a later slice")
-    if cfg.rope == "learned":
-        raise unsupported("learned positions", "the Whisper slice")
-    if cfg.num_experts:
-        raise unsupported("MoE", "the dense GQA slice")
+    check_supported(cfg)
 
     Vp = cfg.padded_vocab      # Megatron-style padding, as the JAX tree has it
     defs: Dict[str, Any] = {
@@ -144,7 +203,7 @@ def param_defs(cfg: ModelConfig) -> Pytree:
 
 
 def _dtype(pd: PDef, cfg: ModelConfig) -> torch.dtype:
-    if pd.init in ("ssm_a", "dtbias"):
+    if pd.init in ("lru", "ssm_a", "dtbias"):
         return torch.float32
     return getattr(torch, cfg.dtype)
 
@@ -168,7 +227,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             return torch.zeros(pd.shape, dtype=dtype, device=dev)
         if pd.init == "ones":
             return torch.ones(pd.shape, dtype=dtype, device=dev)
-        if pd.init == "ssm_a":
+        if pd.init == "lru":
+            # a in (0.9, 0.999): softplus(lam) = -ln(a) / 8
+            t = torch.log(torch.expm1(-torch.log(uniform(pd.shape, 0.9, 0.999))
+                                      / 8.0))
+        elif pd.init == "ssm_a":
             t = torch.log(uniform(pd.shape, 1.0, 16.0))
         elif pd.init == "dtbias":
             t = torch.log(torch.expm1(uniform(pd.shape, 1e-3, 0.1)))  # inv-softplus
@@ -191,13 +254,15 @@ def count_params(cfg: ModelConfig) -> int:
 
 
 # ---------------------------------------------------------------------------
-# forward
+# forward helpers
 # ---------------------------------------------------------------------------
 
 @dataclass
 class Ctx:
-    """Per-call context shared across layers."""
+    """Per-call context shared across layers: the RoPE angles (B, S, half)."""
     cfg: ModelConfig
+    cos: Optional[torch.Tensor] = None
+    sin: Optional[torch.Tensor] = None
 
 
 def _proj(x, w, b=None):
@@ -206,6 +271,59 @@ def _proj(x, w, b=None):
         y = y + b.to(x.dtype)
     return y
 
+
+def _heads(x, n, d):
+    return x.reshape(x.shape[0], x.shape[1], n, d)
+
+
+def _rope_ctx(cfg: ModelConfig, positions, head_dim):
+    return L.rope_angles(positions, head_dim, cfg.rope_theta)
+
+
+# --- GQA attention block -------------------------------------------------------
+
+def attn_forward(cfg: ModelConfig, p, x, ctx: Ctx, *, window=0):
+    """Causal GQA attention over the whole block, windowed if ``window``."""
+    Dh = cfg.resolved_head_dim
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    q = _heads(_proj(h, p["wq"]), H, Dh)
+    k = _heads(_proj(h, p["wk"]), KV, Dh)
+    v = _heads(_proj(h, p["wv"]), KV, Dh)
+    if cfg.rope == "rope":
+        q = L.apply_rope(q, ctx.cos, ctx.sin)
+        k = L.apply_rope(k, ctx.cos, ctx.sin)
+    o = L.blocked_attention(q, k, v, causal=True, window=window,
+                            chunk=cfg.attn_chunk, unroll=cfg.attn_unroll)
+    o = o.reshape(x.shape[0], x.shape[1], H * v.shape[-1])
+    return x + _proj(o, p["wo"])
+
+
+# --- FFN -------------------------------------------------------------------------
+
+def ffn_forward(cfg: ModelConfig, p, x, ctx: Ctx):
+    """The dense gated MLP (MoE: ``check_supported``)."""
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    a = L.act_fn(cfg.act)(_proj(h, p["w1"]))
+    y = _proj(a * _proj(h, p["w3"]), p["w2"])
+    return x + y
+
+
+# --- RG-LRU block --------------------------------------------------------------
+
+def rglru_forward(cfg: ModelConfig, p, x, ctx: Ctx, h0=None, conv0=None):
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    gate = L.act_fn("gelu")(_proj(h, p["wy"]))
+    xb = _proj(h, p["wx"])
+    xb, conv_state = L.causal_conv1d(xb, p["conv_w"], conv0)
+    ga = _proj(xb, p["wga"], p["bga"])
+    gx = _proj(xb, p["wgx"], p["bgx"])
+    seq, h_last = L.rglru(xb, gx, ga, p["log_a"], h0)
+    y = _proj(seq * gate, p["wo"])
+    return x + y, (h_last, conv_state)
+
+
+# --- Mamba-2 SSD block -----------------------------------------------------------
 
 def ssd_forward(cfg: ModelConfig, p, x, ctx: Ctx, h0=None, conv0=None):
     D = cfg.d_model
@@ -233,9 +351,20 @@ def ssd_forward(cfg: ModelConfig, p, x, ctx: Ctx, h0=None, conv0=None):
     return x + _proj(y, p["out_proj"]), (h_last, conv_state)
 
 
+# ---------------------------------------------------------------------------
+# full forward (prefill, no cache)
+# ---------------------------------------------------------------------------
+
 def apply_block(cfg: ModelConfig, kind: str, p, x, ctx: Ctx):
-    check_kind(kind)
-    x, _ = ssd_forward(cfg, p["ssd"], x, ctx)
+    if kind == "attn":
+        window = cfg.sliding_window if cfg.family == "hybrid" else 0
+        x = attn_forward(cfg, p["attn"], x, ctx, window=window)
+    elif kind == "rglru":
+        x, _ = rglru_forward(cfg, p["rec"], x, ctx)
+    elif kind == "ssd":
+        x, _ = ssd_forward(cfg, p["ssd"], x, ctx)
+    if "ffn" in p:
+        x = ffn_forward(cfg, p["ffn"], x, ctx)
     return x
 
 
@@ -261,7 +390,13 @@ def run_decoder_blocks(cfg: ModelConfig, params, x, ctx: Ctx):
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens):
-    return params["embed"][tokens]
+    x = params["embed"][tokens]
+    if cfg.family == "hybrid":                       # gemma-style embed scale
+        # the scale rounded to the model's dtype first (bf16: 50.5, not
+        # 50.596 at d_model 2560), as the JAX package does
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
 
 
 def unembed(cfg: ModelConfig, params, x):
@@ -277,8 +412,18 @@ def unembed(cfg: ModelConfig, params, x):
     return logits
 
 
+def rope_ctx(cfg: ModelConfig, positions) -> Ctx:
+    """The context of a block of tokens at ``positions`` (B, S)."""
+    ctx = Ctx(cfg=cfg)
+    if cfg.rope == "rope":
+        ctx.cos, ctx.sin = _rope_ctx(cfg, positions, cfg.resolved_head_dim)
+    return ctx
+
+
 def forward(cfg: ModelConfig, params, tokens) -> torch.Tensor:
     """Full forward over a token block -> logits (B, S, padded vocab)."""
+    B, S = tokens.shape
     x = embed_tokens(cfg, params, tokens)
-    x = run_decoder_blocks(cfg, params, x, Ctx(cfg=cfg))
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    x = run_decoder_blocks(cfg, params, x, rope_ctx(cfg, positions))
     return unembed(cfg, params, x)

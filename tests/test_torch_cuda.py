@@ -20,6 +20,7 @@ from repro_torch.core.function import standard_pipeline
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.lindley import lindley_scan, lindley_scan_plain
+from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
 from repro_torch.kernels.ssd import ssd_scan, ssd_scan_plain
 from repro_torch.kernels.systolic_matmul import (_ACTS, systolic_matmul,
                                                  systolic_matmul_plain)
@@ -246,3 +247,104 @@ def test_ssd_scan_refuses_what_it_cannot_run(cuda):
     with pytest.raises(TypeError, match="dt must be float32"):
         ssd_scan(x, dt.bfloat16(), A, Bm, Cm, chunk=32)
     assert ssd_scan.launches == before
+
+
+def _rglru_inputs(b, s, w, dtype, dev, seed=0):
+    """tests/test_kernels.py::test_rglru_kernel's distributions, from numpy."""
+    rng = np.random.default_rng(seed)
+    x = _randn(rng, (b, s, w), torch.float32, dev) * 0.2
+    gx, ga = (_randn(rng, (b, s, w), torch.float32, dev) for _ in range(2))
+    la = _randn(rng, (w,), torch.float32, dev)
+    h0 = _randn(rng, (b, w), torch.float32, dev) * 0.1
+    return x.to(dtype), gx.to(dtype), ga.to(dtype), la, h0
+
+
+# tests/test_kernels.py::test_rglru_kernel's shapes, a ragged one (neither S
+# nor W a multiple of a tile) and RecurrentGemma-2B's layer shape
+RGLRU_SHAPES = [(2, 64, 128), (4, 128, 256), (1, 32, 128), (3, 77, 200),
+                (4, 1024, 2560)]
+
+
+@pytest.mark.parametrize("b,s,w", RGLRU_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_matches_plain(cuda, b, s, w, dtype, with_h0):
+    """fp32 within tests/test_kernels.py's rtol/atol 1e-4; bf16 y within
+    one bf16 rounding (1e-2): the state is fp32 in both."""
+    x, gx, ga, la, h0 = _rglru_inputs(b, s, w, dtype, cuda)
+    if not with_h0:
+        h0 = torch.zeros_like(h0)
+    before = rglru_scan.launches
+    got = rglru_scan(x, gx, ga, la, h0)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 1
+    want = rglru_scan_plain(x, gx, ga, la, h0)
+    assert got.dtype == dtype and got.shape == (b, s, w)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_ops_rglru_launches_the_kernel_for_cuda_tensors(cuda):
+    x, gx, ga, la, h0 = _rglru_inputs(2, 40, 48, torch.float32, cuda)
+    before = rglru_scan.launches
+    # a non-contiguous view, as a transposed projection would hand it over
+    got = ops.rglru(x.transpose(0, 1).contiguous().transpose(0, 1), gx, ga,
+                    la, h0)
+    assert rglru_scan.launches == before + 1
+    torch.testing.assert_close(got, rglru_scan_plain(x, gx, ga, la, h0),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_rglru_scan_refuses_what_it_cannot_run(cuda):
+    x, gx, ga, la, h0 = _rglru_inputs(2, 40, 48, torch.float32, cuda)
+    before = rglru_scan.launches
+    with pytest.raises(ValueError, match="runs on a CUDA tensor"):
+        rglru_scan(x.cpu(), gx.cpu(), ga.cpu(), la.cpu(), h0.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan(x.transpose(0, 1).contiguous().transpose(0, 1), gx, ga, la,
+                   h0)
+    with pytest.raises(ValueError, match="do not match"):
+        rglru_scan(x, gx[:, :39], ga, la, h0)
+    with pytest.raises(TypeError, match="differ in dtype"):
+        rglru_scan(x, gx.bfloat16(), ga, la, h0)
+    with pytest.raises(TypeError, match="h0 must be float32"):
+        rglru_scan(x, gx, ga, la, h0.bfloat16())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rglru_scan(x.half(), gx.half(), ga.half(), la, h0)
+    assert rglru_scan.launches == before
+
+
+@pytest.mark.parametrize("b,sq,skv", [(1, 300, 300), (2, 100, 70),
+                                      (1, 33, 1)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_head_dim_256_matches_plain(cuda, b, sq, skv, causal,
+                                                    window, dtype):
+    """K5 at RecurrentGemma-2B's head dim (10 heads, one KV head), with and
+    without a window that masks."""
+    rng = np.random.default_rng(3)
+    q = _randn(rng, (b, 10, sq, 256), dtype, cuda)
+    k, v = (_randn(rng, (b, 1, skv, 256), dtype, cuda) for _ in range(2))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    bf = dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=0.05 if bf else 1e-3,
+                               atol=0.03 if bf else 2e-4)
+
+
+def test_serve_recurrentgemma_launches_k7_and_k5(cuda):
+    """The reduced RecurrentGemma served on the card: one K7 launch per
+    rglru layer and one K5 launch per attention layer of the prefill, and
+    none in decode."""
+    from repro_torch.launch.serve import serve
+    counts = (rglru_scan.launches, flash_attention.launches)
+    out = serve("recurrentgemma-2b", smoke=True, batch=2, prompt=32, gen=4)
+    assert (rglru_scan.launches - counts[0],
+            flash_attention.launches - counts[1]) == (2, 1)
+    assert out["generated"].shape == (2, 4)
+    assert ((0 <= out["generated"]) & (out["generated"] < 512)).all()

@@ -148,7 +148,8 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.kernels.ref, repro_torch.kernels.ops, "
             "repro_torch.core.sharding, repro_torch.core.engine, "
             "repro_torch.core.lindley, repro_torch.kernels.lindley, "
-            "repro_torch.kernels.ssd, repro_torch.configs, "
+            "repro_torch.kernels.ssd, repro_torch.kernels.rglru, "
+            "repro_torch.configs, "
             "repro_torch.data.pipeline, repro_torch.models.decode, "
             "repro_torch.launch.steps, repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
