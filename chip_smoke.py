@@ -28,7 +28,18 @@ bf16, batch 4, 1024-token prompts, 32 new tokens) with K7 launched once per
 rglru layer and K5 once per attention layer, profiled, and again with
 4096-token prompts past the 2048-token window (the ring cache); at fp32 the
 served prefill against one with K7's and K5's plain versions swapped in,
-and decode == forward.  Any failed
+and decode == forward.  Phase 10, the training slice: K3 and K4, int8
+quantize and dequantize, byte for byte against their plain versions (one
+row of 215,482,368 elements among them, the stacked in_proj's gradient);
+K8b, the SSD scan's gradient, against its plain version at
+``tests/test_kernels.py``'s shapes in fp32 and at the layer shape in bf16;
+the full model's loss and every gradient leaf at fp32 with K8/K8b and with
+their plain versions; 10 AdamW steps of Mamba-2 370M at full width and
+depth (bf16, batch 8 x 1024 tokens, int8 gradient compression) with 48 K8
+and 48 K8b launches and one K3 and one K4 call per gradient leaf each
+step (a K3 call launches two kernels, its absmax and quantize passes),
+profiled; the launcher's ``train`` with a checkpoint that restores
+byte for byte; and K7 refusing to cut an autograd graph.  Any failed
 check raises, so the exit code is non-zero.  fp32 products and
 convolutions run without TF32 throughout (``allow_tf32 = False`` for both
 cuBLAS and cuDNN), so the plain versions are true fp32 references.
@@ -85,6 +96,16 @@ K7_LAYER = (4, 1024, 2560)
 K7_OPS = 17                 # fp32 operations a K7 element (gates, a, b, FMA)
 K5_GEMMA = [(4, 10, 1, 1024, 1024, 256), (1, 10, 1, 4096, 4096, 256)]
 GEMMA_WINDOW = 2048
+# Mamba-2 370M trained at full width and depth: bf16, batch 8 of 1024
+# tokens (chunk 256), int8 gradient compression, 10 steps of a 10-step
+# cosine schedule with 2 warm-up steps; the fp32 gradient check at batch 2;
+# the launcher's run; K8b's layer shape (B, S, H, P, G, N); K3's largest
+# row, the stacked in_proj's gradient (48 x 1024 x 4384) as one row.
+TRAIN = {"batch": 8, "seq": 1024, "steps": 10, "warmup": 2}
+GRAD_CHECK = {"batch": 2, "seq": 1024}
+LAUNCHER = {"steps": 2, "batch": 2, "seq": 1024}
+K8B_LAYER = (8, 1024, 32, 64, 1, 128)
+K3_ROW = 48 * 1024 * 4384
 
 
 def bound(nbytes, ops_, dtype):
@@ -420,55 +441,61 @@ def check_k8(dev, time_ms, call_ms, max_err):
     return worst, times
 
 
-def profile_serving(cfg, params, tok, cache, nxt, kernels):
-    """Profile one prefill of ``tok`` and four decode steps of ``nxt`` on
-    ``cache``: device busy time, idle share, launches a step, and device
-    ms by kind (``kernels`` names the port's, by substrings of their
-    kernel names; then GEMMs, copies and PyTorch's other kernels)."""
+def profile_run(what, run, steps, kernels, unit):
+    """Run ``run`` ``steps`` times under the profiler and print the device
+    busy time, idle share, launches a ``unit`` and device ms by kind
+    (``kernels`` names the port's, by substrings of their kernel names, in
+    the order to match them; then GEMMs, copies and PyTorch's other
+    kernels)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3 / steps
+    if busy == 0:
+        print(f"profile {what}): device time not measured (the profiler saw "
+              f"none)")
+        return
+    top = "; ".join(
+        f"{e.key[:40]} x{e.count // steps} "
+        f"{e.self_device_time_total / 1e3 / steps:.3f} ms"
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8])
+    kinds = {**kernels, "copies": ("Memcpy", "Memset"),
+             "GEMMs": ("nvjet", "gemm", "cutlass", "xmma")}
+    by_kind = dict.fromkeys([*kinds, "other PyTorch kernels"], 0.0)
+    for e in rows:
+        kind = next((k for k, names in kinds.items()
+                     if any(n in e.key for n in names)),
+                    "other PyTorch kernels")
+        by_kind[kind] += e.self_device_time_total / 1e3 / steps
+    top = "; ".join(f"{k} {v:.3f} ms" for k, v in by_kind.items()) + \
+        "; by kernel: " + top
+    launches_ = sum(e.count for e in prof.key_averages()
+                    if e.key == "cudaLaunchKernel") // steps
+    print(f"profile {what}, profiler on, host wall {wall:.3f} ms a {unit}): "
+          f"device busy {busy:.3f} ms (idle share {1 - busy / wall:.3f}); "
+          f"cudaLaunchKernel x{launches_}; kernels by device time: {top}")
+
+
+def profile_serving(cfg, params, tok, cache, nxt, kernels):
+    """Profile one prefill of ``tok`` and four decode steps of ``nxt`` on
+    ``cache`` (``profile_run``'s line for each)."""
     from repro_torch.models import decode as DE
     B, S = tok.shape
-    for phase, steps in (("prefill", 1), ("decode", 4)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                if phase == "prefill":
-                    DE.prefill(cfg, params, tok)
-                else:
-                    DE.decode_step(cfg, params, cache, nxt)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / steps
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in rows) / 1e3 / steps
-        if busy == 0:
-            print(f"profile {phase}: device time not measured (the profiler "
-                  f"saw none)")
-            continue
-        top = "; ".join(
-            f"{e.key[:40]} x{e.count // steps} "
-            f"{e.self_device_time_total / 1e3 / steps:.3f} ms"
-            for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8])
-        kinds = {**kernels, "copies": ("Memcpy", "Memset"),
-                 "GEMMs": ("nvjet", "gemm", "cutlass", "xmma")}
-        by_kind = dict.fromkeys([*kinds, "other PyTorch kernels"], 0.0)
-        for e in rows:
-            kind = next((k for k, names in kinds.items()
-                         if any(n in e.key for n in names)),
-                        "other PyTorch kernels")
-            by_kind[kind] += e.self_device_time_total / 1e3 / steps
-        top = "; ".join(f"{k} {v:.3f} ms" for k, v in by_kind.items()) + \
-            "; by kernel: " + top
-        launches_ = sum(e.count for e in prof.key_averages()
-                        if e.key == "cudaLaunchKernel") // steps
-        print(f"profile {phase} (B={B}, S={S}, profiler on, host wall "
-              f"{wall:.3f} ms a {'call' if steps == 1 else 'step'}): device "
-              f"busy {busy:.3f} ms (idle share {1 - busy / wall:.3f}); "
-              f"cudaLaunchKernel x{launches_}; kernels by device time: {top}")
+    profile_run(f"prefill (B={B}, S={S}", lambda: DE.prefill(cfg, params, tok),
+                1, kernels, "call")
+    profile_run(f"decode (B={B}, S={S}",
+                lambda: DE.decode_step(cfg, params, cache, nxt), 4, kernels,
+                "step")
 
 
 def drive_lm(dev, counters):
@@ -481,7 +508,6 @@ def drive_lm(dev, counters):
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import RequestStream
     from repro_torch.kernels import ops
     from repro_torch.kernels.ssd import ssd_scan, ssd_scan_plain
@@ -489,12 +515,7 @@ def drive_lm(dev, counters):
     from repro_torch.models import decode as DE
     from repro_torch.models import transformer as T
 
-    cfg = get_arch(MAMBA)
-    shape = (cfg.num_layers, cfg.d_model, cfg.ssm_expand * cfg.d_model,
-             cfg.ssm_state, cfg.ssm_chunk, cfg.vocab_size, cfg.padded_vocab,
-             cfg.dtype)
-    if shape != (48, 1024, 2048, 128, 256, 50280, 50432, "bfloat16"):
-        raise AssertionError(f"{MAMBA}: config {shape}")
+    cfg = mamba_config()
     pbytes = sum(t.numel() * t.element_size()
                  for t in T.tree_leaves(T.param_shapes(cfg)))
     B, S, G_ = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
@@ -876,6 +897,425 @@ def drive_gemma(dev, counters, time_ms, call_ms, max_err, randn):
             **k7_times[torch.bfloat16], "library_ms": None}
 
 
+def k8b_bound(B, S, H, P, G, N, dtype):
+    """K8b at one shape.  Bytes: the gradient's inputs (x, dy, B and C in
+    ``dtype``, dt fp32) read once and its outputs (dx, dB, dC in ``dtype``;
+    ddt, dA and dh0 fp32) written once.  Operations of the kernel's 64-row
+    chunks, an FMA counted as two: per row and head, C.B^T and dy.x^T over
+    the causal pairs, C S_in^T and B G^T, the weights on dy, the two
+    (P, N)-sized products each of dC and dB, and the update of G."""
+    import torch
+    esz = torch.empty((), dtype=dtype).element_size()
+    nbytes = (esz * (3 * B * S * H * P + 4 * B * S * G * N)
+              + 4 * (2 * B * S * H + 2 * H + B * H * P * N))
+    ops_ = B * H * S * ((K8_CHUNK + 1) * (3 * N + 2 * P) + 10 * P * N)
+    return bound(nbytes, ops_, dtype)
+
+
+def check_k3_k4(dev, time_ms):
+    """Phase 10(a): K3 and K4 byte for byte against their plain versions,
+    on the card and, for the small shapes, on a CPU copy; their times on
+    the training path's largest leaf, one fp32 row of K3_ROW elements.
+    Returns K3's and K4's entries of the kernels line, all but
+    ``launches``."""
+    import torch
+    from repro_torch.kernels import vector_engine as VE
+    gen = torch.Generator(device=dev).manual_seed(10)
+    cases = [((128, 256), 3.0, torch.float32), ((128, 256), 3.0,
+                                                torch.bfloat16),
+             ((3, 1000), 1.0, torch.float32), ((3, 1000), 1.0, torch.bfloat16),
+             ((4, 512), 0.0, torch.float32), ((1, K3_ROW), 1e-3,
+                                              torch.float32)]
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    for shape, scale, dtype in cases:
+        x = (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+        q, s = VE.quantize_int8(x)
+        wants = [VE.quantize_int8_plain(x)]
+        if x.numel() < 1 << 20:
+            wants.append(VE.quantize_int8_plain(x.cpu()))
+        for wq, ws in wants:
+            if not (torch.equal(q.to(wq.device), wq) and torch.equal(
+                    s.to(ws.device).view(torch.int32), ws.view(torch.int32))):
+                raise AssertionError(
+                    f"K3 {shape} {dtype}: codes or scales not byte-equal to "
+                    f"the plain version on {wq.device}")
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = VE.dequantize_int8(q, s, out_dtype=out_dtype)
+            want = VE.dequantize_int8_plain(q, s, out_dtype=out_dtype)
+            if not torch.equal(got.view(bits[out_dtype]),
+                               want.view(bits[out_dtype])):
+                raise AssertionError(f"K4 {shape} -> {out_dtype}: not "
+                                     f"byte-equal to the plain version")
+        print(f"K3/K4 {shape} {dtype} x{scale}: codes, scales and the "
+              f"dequantized float32 and bfloat16 values byte-equal to the "
+              f"plain versions (on the card"
+              f"{' and on a CPU copy' if len(wants) > 1 else ''})")
+    del wants, want, got
+    # a NaN and a -Inf in row 0 (the -Inf in its last block): codes 0, a NaN
+    # scale and an all-NaN dequantized row, NaN for NaN as the plain version
+    for shape, dtype in (((3, 1000), torch.float32),
+                         ((3, 1000), torch.bfloat16),
+                         ((1, (1 << 22) + 3), torch.float32)):
+        bad = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+        bad[0, shape[1] // 3] = float("nan")
+        bad[0, -1] = float("-inf")
+        bq, bs = VE.quantize_int8(bad)
+        wq, ws = VE.quantize_int8_plain(bad)
+        ok = (torch.equal(bq, wq) and not bool(bq[0].any())
+              and bool(bs[0].isnan()) and torch.equal(bs[1:], ws[1:])
+              and bool(ws[0].isnan()))
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = VE.dequantize_int8(bq, bs, out_dtype=out_dtype)
+            want = VE.dequantize_int8_plain(wq, ws, out_dtype=out_dtype)
+            ok = ok and bool(got[0].isnan().all()) and torch.equal(
+                got[1:].view(bits[out_dtype]), want[1:].view(bits[out_dtype]))
+        if not ok:
+            raise AssertionError(f"K3/K4 {shape} {dtype} with a NaN and an "
+                                 f"Inf: not the plain version's NaN row")
+        print(f"K3/K4 {shape} {dtype} with a NaN and a -Inf in row 0: codes "
+              f"0, scale NaN, dequantized row NaN, as the plain version")
+    del bad, bq, bs, wq, ws, want, got
+    # times at the training path's largest leaf (x, q, s: the last case)
+    k3 = {"ms": time_ms(lambda: VE.quantize_int8(x), reps=3),
+          "plain_ms": time_ms(lambda: VE.quantize_int8_plain(x), reps=2)}
+    k3["bound_ms"], k3["bound_by"] = bound(5 * K3_ROW + 4, 5 * K3_ROW,
+                                           torch.float32)
+    k4 = {"ms": time_ms(lambda: VE.dequantize_int8(q, s), reps=3),
+          "plain_ms": time_ms(lambda: VE.dequantize_int8_plain(q, s), reps=2),
+          "library_ms": time_ms(lambda: torch.mul(q, s), reps=3)}
+    k4["bound_ms"], k4["bound_by"] = bound(5 * K3_ROW + 4, K3_ROW,
+                                           torch.float32)
+    for name, t in (("K3 quantize_int8", k3), ("K4 dequantize_int8", k4)):
+        lib = t.get("library_ms")
+        print(f"{name} (1, {K3_ROW}) float32 (the stacked in_proj's gradient "
+              f"as one row): ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+              f"library_ms{'(torch.mul)=%.4f' % lib if lib else '=none'} "
+              f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
+    del x, q, s
+    torch.cuda.empty_cache()
+    return {"max_abs_err": 0.0, **k3}, {"max_abs_err": 0.0, **k4}
+
+
+def check_k8b(dev, time_ms, call_ms, max_err):
+    """Phase 10(b): K8b against its plain version at tests/test_kernels.py's
+    shapes with h0 and a nonzero dstate in fp32 (K8's card bar), and at the
+    training layer shape in bf16 (relative Frobenius error 1e-2 for each
+    gradient); its times there.  Returns K8b's entry of the kernels line,
+    all but ``launches``."""
+    import torch
+    from repro_torch.kernels import ssd as SSD
+    names = ("dx", "ddt", "dA", "dBm", "dCm", "dh0")
+    worst = 0.0
+    for i, (shape, chunk) in enumerate([((2, 128, 4, 32, 2, 16), 32),
+                                        ((1, 256, 2, 16, 1, 8), 64),
+                                        ((2, 64, 4, 16, 4, 16), 64)]):
+        x, dt, A, Bm, Cm = ssd_inputs(shape, torch.float32, dev, seed=20 + i)
+        b, s, h, p, g, n = shape
+        gen = torch.Generator(device=dev).manual_seed(30 + i)
+        h0 = torch.randn(b, h, p, n, generator=gen, device=dev) * 0.5
+        dy = torch.randn(b, s, h, p, generator=gen, device=dev)
+        dstate = torch.randn(b, h, p, n, generator=gen, device=dev) * 0.1
+        states = SSD.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0,
+                              keep_states=True)[2]
+        got = SSD.ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dstate, chunk=chunk,
+                               states=states)
+        want = SSD.ssd_scan_bwd_plain(x, dt, A, Bm, Cm, h0, dy, dstate,
+                                      chunk=chunk)
+        err = max(max_err(gg, ww, 1e-3, 1e-4, f"K8b {shape} {name}")
+                  for name, gg, ww in zip(names, got, want))
+        worst = max(worst, err)
+        print(f"K8b ssd_scan_bwd B,S,H,P,G,N={shape} chunk={chunk} float32 "
+              f"h0 and dstate: six gradients max_abs_err={err:.3e} "
+              f"(rtol=1e-3 atol=1e-4)")
+    gen = torch.Generator(device=dev).manual_seed(33)
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x, dt, A, Bm, Cm = ssd_inputs(K8B_LAYER, dtype, dev, seed=23)
+        dy = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+        _, _, states = SSD.ssd_scan(x, dt, A, Bm, Cm, chunk=MAMBA_CHUNK,
+                                    keep_states=True)
+        run = lambda: SSD.ssd_scan_bwd(x, dt, A, Bm, Cm, None, dy, None,
+                                       chunk=MAMBA_CHUNK, states=states)
+        line = f"K8b ssd_scan_bwd B,S,H,P,G,N={K8B_LAYER} {dtype}"
+        if dtype == torch.bfloat16:
+            got = run()
+            want = SSD.ssd_scan_bwd_plain(x, dt, A, Bm, Cm, None, dy, None,
+                                          chunk=MAMBA_CHUNK)
+            rels = {name: ((gg.float() - ww.float()).norm()
+                           / ww.float().norm()).item()
+                    for name, gg, ww in zip(names, got, want)}
+            if not all(torch.isfinite(gg).all() for gg in got) or \
+                    max(rels.values()) > 1e-2:
+                raise AssertionError(f"K8b at the layer shape in bf16: rel "
+                                     f"Frobenius errors {rels} (limit 1e-2)")
+            del got, want
+            line += ": rel Frobenius err " + ", ".join(
+                f"{k} {v:.2e}" for k, v in rels.items()) + " (limit 1e-2)"
+        ms = time_ms(run, reps=3)
+        plain = call_ms(lambda: SSD.ssd_scan_bwd_plain(
+            x, dt, A, Bm, Cm, None, dy, None, chunk=MAMBA_CHUNK), reps=2)
+        bnd, by = k8b_bound(*K8B_LAYER, dtype)
+        times[dtype] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd,
+                        "bound_by": by}
+        print(f"{line}; ms={ms:.4f} (with K8's kept chunk states, "
+              f"{states.numel() * 4} bytes) plain_ms(per Python call, "
+              f"autograd through the plain scan)={plain:.4f} library_ms=none "
+              f"bound_ms={bnd:.4f} ({by})")
+        del x, dt, A, Bm, Cm, dy, states, run
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, **times[torch.bfloat16]}
+
+
+def mamba_config():
+    """Mamba-2 370M as the port's registry gives it, checked to be the
+    full-width, full-depth model."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(MAMBA)
+    shape = (cfg.num_layers, cfg.d_model, cfg.ssm_expand * cfg.d_model,
+             cfg.ssm_state, cfg.ssm_chunk, cfg.vocab_size, cfg.padded_vocab,
+             cfg.dtype)
+    if shape != (48, 1024, 2048, 128, 256, 50280, 50432, "bfloat16"):
+        raise AssertionError(f"{MAMBA}: config {shape}")
+    return cfg
+
+
+def drive_train(dev, counters, time_ms, call_ms, max_err):
+    """Phase 10: the training slice.  K3/K4 and K8b against their plain
+    versions; the full model's fp32 loss and gradients with K8/K8b and with
+    their plain versions swapped in; 10 train steps of Mamba-2 370M at full
+    width and depth in bf16 with int8 gradient compression, counted and
+    profiled; the launcher's ``train`` and a byte-exact restore; K7's
+    refusal under autograd.  Returns the K3, K4 and K8b entries of the
+    kernels line."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels import vector_engine as VE
+    from repro_torch.kernels.rglru import rglru_scan
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    # ---- 10(a), 10(b): K3 and K4; K8b -----------------------------------
+    k3_entry, k4_entry = check_k3_k4(dev, time_ms)
+    k8b_entry = check_k8b(dev, time_ms, call_ms, max_err)
+    cfg = mamba_config()
+    n_leaves = len(T.tree_leaves(T.param_shapes(cfg)))
+
+    # ---- 10(c): fp32, TF32 off: the gradients against the plain versions --
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = T.init_params(cfg32, torch.Generator(device=dev).manual_seed(1),
+                             device=dev)
+    batch = TokenStream(cfg, GRAD_CHECK["batch"], GRAD_CHECK["seq"], 0,
+                        device=dev).batch_at(0)
+    real = (SSD.ssd_scan, SSD.ssd_scan_bwd)
+
+    def plain_fwd(x, dt, A, Bm, Cm, *, chunk, h0, keep_states=False):
+        y, hf = SSD.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+        return (y, hf, None) if keep_states else (y, hf)
+
+    def plain_bwd(x, dt, A, Bm, Cm, h0, dy, dstate, *, states, chunk):
+        return SSD.ssd_scan_bwd_plain(x, dt, A, Bm, Cm, h0, dy, dstate,
+                                      chunk=chunk)
+
+    runs = {}
+    for name in ("kernel", "plain"):
+        before = (real[0].launches, real[1].launches)
+        if name == "plain":
+            SSD.ssd_scan, SSD.ssd_scan_bwd = plain_fwd, plain_bwd
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = ST.value_and_grad(cfg32, params32, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            SSD.ssd_scan, SSD.ssd_scan_bwd = real
+        n = (real[0].launches - before[0], real[1].launches - before[1])
+        if n != ((cfg.num_layers,) * 2 if name == "kernel" else (0, 0)):
+            raise AssertionError(f"fp32 gradients ({name}): K8/K8b launches "
+                                 f"{n}")
+        runs[name] = (loss.item(), T.tree_leaves(grads), ms)
+    (lk, gk, ms_k), (lp, gp, ms_p) = runs["kernel"], runs["plain"]
+    rel_loss = abs(lk - lp) / abs(lp)
+    rels = [((a - b).norm() / b.norm()).item() for a, b in zip(gk, gp)]
+    finite = all(torch.isfinite(a).all() for a in gk)
+    if not (finite and rel_loss <= 1e-5 and max(rels) <= 1e-3):
+        raise AssertionError(f"fp32 gradients, K8/K8b vs plain: loss rel err "
+                             f"{rel_loss:.3e} (limit 1e-5), leaf rel errs "
+                             f"{[f'{r:.2e}' for r in rels]} (limit 1e-3)")
+    print(f"fp32 gradients {MAMBA} (TF32 off, batch {GRAD_CHECK['batch']}, "
+          f"seq {GRAD_CHECK['seq']}, {cfg.num_layers} layers): loss {lk:.6f}, "
+          f"K8/K8b vs "
+          f"their plain versions: loss rel err {rel_loss:.3e} (limit 1e-5), "
+          f"{len(rels)} gradient leaves, worst rel Frobenius err "
+          f"{max(rels):.3e} (limit 1e-3); host ms kernel {ms_k:.3f}, plain "
+          f"{ms_p:.3f}")
+    del params32, batch, runs, gk, gp, grads, loss
+    torch.cuda.empty_cache()
+
+    # ---- 10(d): the fifth path, Mamba-2 370M training on K8, K8b, K3, K4 --
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    opt = adamw.init(params)
+    tcfg = TrainConfig(grad_compression="int8", warmup_steps=TRAIN["warmup"],
+                       total_steps=TRAIN["steps"])
+    step_fn = ST.make_train_step(cfg, tcfg)
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    stream = TokenStream(cfg, B, S, 0, device=dev)
+    counted = counters + (VE.quantize_int8, VE.dequantize_int8,
+                          SSD.ssd_scan_bwd)
+    names = ("K1", "K2", "K5", "K6", "K8", "K7", "K3", "K4", "K8b")
+    want = dict.fromkeys(names, 0)
+    want.update(K8=cfg.num_layers, K8b=cfg.num_layers, K3=n_leaves,
+                K4=n_leaves)
+    batches = [stream.batch_at(i) for i in range(TRAIN["steps"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counted:
+        c.launches = 0
+    losses, step_ms, per_step = [], [], []
+    for i in range(TRAIN["steps"]):
+        before = [c.launches for c in counted]
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batches[i])
+        losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(dict(zip(names, (c.launches - b for c, b in
+                                         zip(counted, before)))))
+    launches = dict(zip(names, (c.launches for c in counted)))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, n in enumerate(per_step):
+        if n != want:
+            raise AssertionError(f"train step {i + 1}: launches {n}, want "
+                                 f"{want}")
+    if not (all(math.isfinite(l) for l in losses) and losses[-1] < losses[0]
+            and int(opt.step) == TRAIN["steps"]):
+        raise AssertionError(f"train: losses {losses}, step {int(opt.step)}")
+    med = statistics.median(step_ms[2:])
+    print(f"train {MAMBA} ({cfg.num_layers} layers, {cfg.dtype}, "
+          f"{T.count_params(cfg)} "
+          f"parameters, AdamW with fp32 moments, int8 error-feedback "
+          f"gradients, warm-up {TRAIN['warmup']} of {TRAIN['steps']} steps): "
+          f"batch {B} x seq {S}, {TRAIN['steps']} steps: losses "
+          f"{[round(l, 4) for l in losses]}; step ms "
+          f"{[round(t, 3) for t in step_ms]}; median of steps 3-"
+          f"{TRAIN['steps']} {med:.3f} ms, {B * S / med * 1e3:.1f} tokens/s; "
+          f"peak memory {peak_gb:.2f} GB; launches a step K8 "
+          f"{want['K8']}, K8b {want['K8b']}, K3 {want['K3']} and K4 "
+          f"{want['K4']} (one call each per gradient leaf; a K3 call is two "
+          f"kernel launches, absmax and quantize), K1/K2/K5/K6/K7 none; "
+          f"in all {launches}")
+    profile_run(f"train step (B={B}, S={S}",
+                lambda: step_fn(params, opt, batches[0])[2]["loss"].item(), 1,
+                {"K8b": ("ssd_bwd_kernel",), "K8": ("ssd_kernel",),
+                 "K4": ("dequantize_kernel",),
+                 "K3": ("absmax_kernel", "quantize_kernel")}, "step")
+    del params, opt, batches, metrics
+    torch.cuda.empty_cache()
+
+    # ---- 10(e): the launcher, with a checkpoint restored byte for byte ----
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    saved = {}
+    real_save = ckpt.save
+
+    def recording_save(d, step, tree, **kw):
+        saved[step] = [t.detach().clone() for t in T.tree_leaves(tree)]
+        return real_save(d, step, tree, **kw)
+
+    ckpt.save = recording_save
+    try:
+        t0 = time.perf_counter()
+        tl = TR.train(MAMBA, smoke=False, steps=LAUNCHER["steps"],
+                      batch=LAUNCHER["batch"], seq=LAUNCHER["seq"],
+                      ckpt_dir=str(ckpt_dir), checkpoint_every=2, log_every=1)
+        wall = time.perf_counter() - t0
+    finally:
+        ckpt.save = real_save
+    meta = lambda dtype: (lambda p: torch.empty(p.shape, dtype=dtype,
+                                                device="meta"))
+    shapes = T.param_shapes(cfg)
+    template = (shapes, adamw.AdamWState(
+        torch.empty((), dtype=torch.int32, device="meta"),
+        T.tree_map(meta(torch.float32), shapes),
+        T.tree_map(meta(torch.float32), shapes)))
+    t0 = time.perf_counter()
+    restored, step, extras = ckpt.restore(str(ckpt_dir), template)
+    t_restore = time.perf_counter() - t0
+    got = T.tree_leaves(restored)
+    ibits = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+             torch.int32: torch.int32}
+    exact = (sorted(saved) == [LAUNCHER["steps"]] and step == LAUNCHER["steps"]
+             and len(got) == len(saved[step]) == 1 + 3 * n_leaves
+             and all(a.dtype == b.dtype and a.device == b.device and
+                     torch.equal(a.view(ibits[a.dtype]),
+                                 b.view(ibits[b.dtype]))
+                     for a, b in zip(got, saved[step])))
+    nbytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*.npy"))
+    if not (exact and len(tl) == LAUNCHER["steps"]
+            and all(math.isfinite(l) for l in tl)
+            and extras == {"arch": MAMBA, "seed": 0}):
+        raise AssertionError(f"launcher: losses {tl}, checkpoint steps "
+                             f"{sorted(saved)}, restore step {step}, "
+                             f"byte-equal {exact}, extras {extras}")
+    shutil.rmtree(ckpt_dir)
+    print(f"train() launcher {MAMBA} (smoke=False, {LAUNCHER['steps']} "
+          f"steps, batch {LAUNCHER['batch']} x seq {LAUNCHER['seq']}): "
+          f"losses {[round(l, 4) for l in tl]} in {wall:.1f} s; checkpoint "
+          f"of step {step}: {1 + 3 * n_leaves} leaves, {nbytes} bytes, "
+          f"restored in {t_restore:.1f} s, parameters and moments byte-equal "
+          f"to what was saved")
+    del restored, got, saved
+    torch.cuda.empty_cache()
+
+    # ---- 10(f): a kernel without a backward refuses to cut the graph ------
+    gen = torch.Generator(device=dev).manual_seed(40)
+    x, gx, ga = (torch.randn(1, 16, 32, generator=gen, device=dev)
+                 for _ in range(3))
+    la = torch.randn(32, generator=gen, device=dev).requires_grad_()
+    h0 = torch.zeros(1, 32, device=dev)
+    before = rglru_scan.launches
+    try:
+        ops.rglru(x, gx, ga, la, h0)
+    except NotImplementedError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("ops.rglru under requires_grad returned a tensor "
+                             "cut off from the autograd graph")
+    if rglru_scan.launches != before:
+        raise AssertionError("ops.rglru launched K7 under requires_grad")
+    print(f"K7 under requires_grad: NotImplementedError, no launch "
+          f"({msg.split(';')[0]})")
+
+    # ---- 10(g): the kernels line's entries --------------------------------
+    # K3's launches count quantize_int8 calls: each one launches two
+    # kernels, absmax_kernel and quantize_kernel (after a memset)
+    src = "src/repro_torch/kernels/csrc/"
+    return [
+        {"name": "quantize_int8", "route": "cuda",
+         "source": src + "vector_engine.cu",
+         "replaces": "src/repro/kernels/vector_engine.py:69",
+         "launches": launches["K3"], **k3_entry, "library_ms": None},
+        {"name": "dequantize_int8", "route": "cuda",
+         "source": src + "vector_engine.cu",
+         "replaces": "src/repro/kernels/vector_engine.py:91",
+         "launches": launches["K4"], **k4_entry},
+        {"name": "ssd_scan_bwd", "route": "cuda", "source": src + "ssd.cu",
+         "replaces": "src/repro/kernels/ssd.py:87",
+         "launches": launches["K8b"], **k8b_entry, "library_ms": None},
+    ]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1171,6 +1611,10 @@ def main() -> int:
     k7_entry = drive_gemma(dev, counters + (lindley_scan, ssd_scan,
                                             rglru_scan),
                            time_ms, call_ms, max_err, randn)
+    torch.cuda.empty_cache()
+    train_entries = drive_train(dev, counters + (lindley_scan, ssd_scan,
+                                                 rglru_scan),
+                                time_ms, call_ms, max_err)
 
     # ---- the kernels line: K1 over one request's 53 shapes ---------------
     k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
@@ -1231,6 +1675,7 @@ def main() -> int:
          "max_abs_err": k8_err, **{k: v for k, v in k8_times[
              torch.bfloat16].items() if k != "err"}, "library_ms": None},
         k7_entry,
+        *train_entries,
     ]
     print(f"elapsed {time.perf_counter() - t_start:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,8 @@ function, which the differential tests rely on.  A bfloat16 leaf (numpy's
 ``ml_dtypes.bfloat16``, which ``torch.tensor`` refuses) becomes a
 ``torch.bfloat16`` tensor with the same bits.  The LM trees of
 ``repro.models.transformer`` (stacked blocks, a ``rem`` list) map the same
-way.
+way, and so does a NamedTuple such as the JAX ``AdamWState``, rebuilt from
+positional arguments.
 """
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ def params_from_jax(tree: Any, device=None) -> Any:
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(conv(v) for v in node))     # a NamedTuple
         if isinstance(node, (list, tuple)):
             return type(node)(conv(v) for v in node)
         if isinstance(node, (int, np.integer)) or (

@@ -12,24 +12,64 @@ x64 context of the JAX package's ``lindley``: float64 is explicit here.
 the TPU kernel lacks and ``models.layers.ssd_chunked`` passes on; its
 ``chunk`` is checked as the JAX code checks it (the kernel walks its own
 chunks, which does not change the function).
+
+Gradients.  ``ssd`` is differentiable everywhere: when grad mode is on and
+an input requires grad it goes through ``SSDScan`` (K8 forward, K8b
+backward on the card; the plain versions on the CPU).  The other kernels
+have no backward yet, so on the card ``matmul``, ``affine_act``,
+``attention``, ``lindley`` and ``rglru`` raise ``NotImplementedError`` where
+autograd would need one, rather than return a tensor cut off from the
+graph; on the CPU their plain versions are differentiable.  ``quantize``
+and ``dequantize`` act on gradients and need none.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.lindley import lindley_scan, lindley_scan_plain
 from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
-from repro_torch.kernels.ssd import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd import SSDScan, ssd_scan, ssd_scan_plain
 from repro_torch.kernels.systolic_matmul import (systolic_matmul,
                                                  systolic_matmul_plain)
-from repro_torch.kernels.vector_engine import (fused_affine_act,
-                                               fused_affine_act_plain)
+from repro_torch.kernels.vector_engine import (dequantize_int8,
+                                               dequantize_int8_plain,
+                                               fused_affine_act,
+                                               fused_affine_act_plain,
+                                               quantize_int8,
+                                               quantize_int8_plain)
+
+# The slice of the port that brings each kernel's backward (ROADMAP.md).
+_BACKWARD_SLICE = {
+    "matmul": "a later slice (no training path runs K1 yet)",
+    "affine_act": "a later slice (no training path runs K2 yet)",
+    "attention": "the dense GQA or hybrid training slice",
+    "lindley": "none planned (the fleet simulator is not trained)",
+    "rglru": "the hybrid (RecurrentGemma) training slice",
+}
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _refuse_grad(op: str, *tensors) -> None:
+    """Raise if autograd would need the backward of a kernel that has none."""
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f"ops.{op}: the CUDA kernel has no backward yet, and an input "
+            f"requires grad; the backward comes with "
+            f"{_BACKWARD_SLICE[op]} (ROADMAP.md).  Run under "
+            f"torch.no_grad() or on the CPU.")
 
 
 def matmul(x, w, b=None, *, act="none", bm=128, bn=128, bk=128,
            out_dtype=None):
     if x.device.type == "cpu":
         return systolic_matmul_plain(x, w, b, act=act, out_dtype=out_dtype)
+    _refuse_grad("matmul", x, w, b)
     return systolic_matmul(x.contiguous(), w.contiguous(), b, act=act,
                            out_dtype=out_dtype)
 
@@ -45,6 +85,7 @@ def matmul_padded(x, w, b=None, *, act="none", bm=128, bn=128, bk=128,
 def attention(q, k, v, *, causal=True, window=0, bq=128, bk=128):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    _refuse_grad("attention", q, k, v)
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=causal, window=window)
 
@@ -53,6 +94,7 @@ def affine_act(x, scale, bias, *, act="none", out_dtype=None):
     if x.device.type == "cpu":
         return fused_affine_act_plain(x, scale, bias, act=act,
                                       out_dtype=out_dtype)
+    _refuse_grad("affine_act", x, scale, bias)
     return fused_affine_act(x.contiguous(), scale, bias, act=act,
                             out_dtype=out_dtype)
 
@@ -61,6 +103,7 @@ def lindley(t, s, *, br=128, bd=128):
     """Batched FCFS service starts in float64: t, s (R, W) -> (R, W)."""
     if t.device.type == "cpu":
         return lindley_scan_plain(t, s)
+    _refuse_grad("lindley", t, s)
     return lindley_scan(t.contiguous(), s.contiguous())
 
 
@@ -68,12 +111,31 @@ def rglru(x, gx, ga, log_a, h0):
     """RG-LRU: x/gx/ga (B,S,W), log_a (W,), h0 (B,W) -> (B,S,W), x's dtype."""
     if x.device.type == "cpu":
         return rglru_scan_plain(x, gx, ga, log_a, h0)
+    _refuse_grad("rglru", x, gx, ga, log_a, h0)
     return rglru_scan(x.contiguous(), gx.contiguous(), ga.contiguous(),
                       log_a.contiguous(), h0.contiguous())
 
 
+def quantize(x):
+    """Per-row symmetric int8: x (M, N) -> (int8 (M, N), fp32 (M, 1))."""
+    if x.device.type == "cpu":
+        return quantize_int8_plain(x)
+    return quantize_int8(x.contiguous())
+
+
+def dequantize(q, scales, *, out_dtype=None):
+    out_dtype = out_dtype or torch.float32
+    if q.device.type == "cpu":
+        return dequantize_int8_plain(q, scales, out_dtype=out_dtype)
+    return dequantize_int8(q.contiguous(), scales.contiguous(),
+                           out_dtype=out_dtype)
+
+
 def ssd(x, dt, A, Bm, Cm, *, chunk=128, h0=None):
     """Mamba-2 SSD: (y (B,S,H,P), final state (B,H,P,N) fp32)."""
+    if _needs_grad(x, dt, A, Bm, Cm, h0):
+        contig = lambda t: None if t is None else t.contiguous()
+        return SSDScan.apply(*map(contig, (x, dt, A, Bm, Cm, h0)), chunk)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
     return ssd_scan(x.contiguous(), dt.contiguous(), A.contiguous(),

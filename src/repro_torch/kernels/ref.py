@@ -10,7 +10,11 @@ from repro_torch.kernels.ssd import ssd_scan_plain as ssd_ref
 from repro_torch.kernels.systolic_matmul import (
     systolic_matmul_plain as matmul_ref)
 from repro_torch.kernels.vector_engine import (
+    dequantize_int8_plain as dequantize_int8_ref)
+from repro_torch.kernels.vector_engine import (
     fused_affine_act_plain as affine_act_ref)
+from repro_torch.kernels.vector_engine import (
+    quantize_int8_plain as quantize_int8_ref)
 
 __all__ = ["attention_ref", "matmul_ref", "affine_act_ref", "lindley_ref",
-           "rglru_ref", "ssd_ref"]
+           "rglru_ref", "ssd_ref", "quantize_int8_ref", "dequantize_int8_ref"]

@@ -1,4 +1,4 @@
-"""The Mamba-2 SSD chunk scan on Hopper (K8).
+"""The Mamba-2 SSD chunk scan on Hopper (K8) and its gradient (K8b).
 
 ``ssd_scan`` launches ``csrc/ssd.cu``: for x (B, S, H, P), dt (B, S, H), A
 (H,) and B/C (B, S, G, N), the selective state-space recurrence of Mamba-2
@@ -10,6 +10,16 @@ TPU kernel ``repro/kernels/ssd.py::ssd_scan`` and, like
 ``h0``.  ``ssd_scan_plain`` is the same function in plain PyTorch, chunked
 as the TPU kernel is: the CPU path of ``ops.ssd`` and the reference on the
 card.
+
+``ssd_scan_bwd`` launches K8b, the gradient of that function with respect
+to x, dt, A, B, C and h0, given dy and the final state's gradient.  The
+JAX package has no kernel for it (it differentiates ``ssd_chunked``);
+``ssd_scan_bwd_plain`` is ``torch.autograd.grad`` through
+``ssd_scan_plain``.  ``SSDScan`` ties the two directions into one
+``torch.autograd.Function``: K8 and K8b on the card, where K8 keeps the
+state entering each of its 64-row chunks for K8b (fp32, B * H * ceil(S /
+64) * P * N * 4 bytes: 134 MB a layer at (8, 1024, 32, 64, 128)), and the
+plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -21,6 +31,8 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_STATE = 128                 # N the CUDA kernel's register tiles cover
+KERNEL_CHUNK = 64               # rows of the chunks the CUDA kernels walk
+P_TILE = 64                     # columns of P one CUDA block holds
 
 
 def _chunk(S: int, chunk: int) -> int:
@@ -69,25 +81,42 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return torch.cat(ys, dim=1).to(x.dtype), state
 
 
+def ssd_scan_bwd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       Bm: torch.Tensor, Cm: torch.Tensor,
+                       h0: Optional[torch.Tensor], dy: torch.Tensor,
+                       dstate: Optional[torch.Tensor], *, chunk: int = 128
+                       ) -> Tuple[torch.Tensor, ...]:
+    """(dx, ddt, dA, dBm, dCm, dh0): ``torch.autograd.grad`` of
+    ``ssd_scan_plain``'s (y, final state) with cotangents (dy, dstate);
+    h0 None is zeros, dstate None adds nothing.  Each gradient has its
+    input's dtype (dh0 fp32)."""
+    with torch.enable_grad():
+        h = (torch.zeros(x.shape[0], x.shape[2], x.shape[3], Bm.shape[3],
+                         device=x.device) if h0 is None else h0)
+        ins = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm, h)]
+        y, hf = ssd_scan_plain(*ins[:5], chunk=chunk, h0=ins[5])
+        outs, cots = [y], [dy]
+        if dstate is not None:
+            outs.append(hf)
+            cots.append(dstate)
+        return torch.autograd.grad(outs, ins, cots)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd")
     if lib.ssd_scan.argtypes is None:
-        lib.ssd_scan.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        lib.ssd_scan.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                                  + [ctypes.c_void_p])
         lib.ssd_scan.restype = ctypes.c_int
+        lib.ssd_scan_bwd.argtypes = ([ctypes.c_void_p] * 14
+                                     + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.ssd_scan_bwd.restype = ctypes.c_int
     return lib
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
-             h0: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The same function on the card: x, Bm, Cm float32 or bfloat16 (one
-    dtype), dt, A and h0 float32.  The kernel walks its own 64-row chunks;
-    ``chunk`` is checked (S a multiple of min(chunk, S)) as the JAX code
-    asserts it, since chunking does not change the function."""
+def _check_args(name, x, dt, A, Bm, Cm, h0, chunk):
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 4:
-        raise ValueError(f"ssd_scan: x {tuple(x.shape)}, dt {tuple(dt.shape)},"
+        raise ValueError(f"{name}: x {tuple(x.shape)}, dt {tuple(dt.shape)},"
                          f" A {tuple(A.shape)}, Bm {tuple(Bm.shape)}: want "
                          f"(B,S,H,P), (B,S,H), (H,), (B,S,G,N)")
     Bsz, S, H, P = x.shape
@@ -95,35 +124,150 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if (dt.shape != (Bsz, S, H) or A.shape != (H,) or Bm.shape[:2] != (Bsz, S)
             or Cm.shape != Bm.shape or H % G
             or (h0 is not None and h0.shape != (Bsz, H, P, N))):
-        raise ValueError(f"ssd_scan: x {tuple(x.shape)}, dt {tuple(dt.shape)},"
+        raise ValueError(f"{name}: x {tuple(x.shape)}, dt {tuple(dt.shape)},"
                          f" A {tuple(A.shape)}, Bm {tuple(Bm.shape)}, Cm "
                          f"{tuple(Cm.shape)}, h0 "
                          f"{None if h0 is None else tuple(h0.shape)} do not "
                          f"match")
     if not 0 < N <= MAX_STATE:
-        raise ValueError(f"ssd_scan: state width {N} not in 1..{MAX_STATE}")
+        raise ValueError(f"{name}: state width {N} not in 1..{MAX_STATE}")
     if not x.dtype == Bm.dtype == Cm.dtype:
-        raise TypeError(f"ssd_scan: x, Bm and Cm differ in dtype ({x.dtype}, "
+        raise TypeError(f"{name}: x, Bm and Cm differ in dtype ({x.dtype}, "
                         f"{Bm.dtype}, {Cm.dtype})")
-    code = _build.dtype_code(x.dtype)
-    for name, t in (("dt", dt), ("A", A), ("h0", h0)):
+    _build.dtype_code(x.dtype)
+    for arg, t in (("dt", dt), ("A", A), ("h0", h0)):
         if t is not None and t.dtype != torch.float32:
-            raise TypeError(f"ssd_scan: {name} must be float32, not {t.dtype}")
+            raise TypeError(f"{name}: {arg} must be float32, not {t.dtype}")
     _chunk(S, chunk)
-    _build.require_cuda("ssd_scan", x, dt, A, Bm, Cm,
+    _build.require_cuda(name, x, dt, A, Bm, Cm,
                         *(() if h0 is None else (h0,)))
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
+             h0: Optional[torch.Tensor] = None, keep_states: bool = False
+             ) -> Tuple[torch.Tensor, ...]:
+    """The same function on the card: x, Bm, Cm float32 or bfloat16 (one
+    dtype), dt, A and h0 float32.  The kernel walks its own 64-row chunks;
+    ``chunk`` is checked (S a multiple of min(chunk, S)) as the JAX code
+    asserts it, since chunking does not change the function.  With
+    ``keep_states`` it also returns the fp32 state entering each of its
+    chunks, (B, H, ceil(S / 64), P, N), which ``ssd_scan_bwd`` reads."""
+    _check_args("ssd_scan", x, dt, A, Bm, Cm, h0, chunk)
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
     y = torch.empty_like(x)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    states = (torch.empty((Bsz, H, -(-S // KERNEL_CHUNK), P, N),
+                          dtype=torch.float32, device=x.device)
+              if keep_states else None)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.ssd_scan(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                            Bm.data_ptr(), Cm.data_ptr(),
                            None if h0 is None else h0.data_ptr(),
-                           y.data_ptr(), state.data_ptr(), Bsz, S, H, P, G, N,
-                           code, _build.stream_of(x))
+                           y.data_ptr(), state.data_ptr(),
+                           None if states is None else states.data_ptr(),
+                           Bsz, S, H, P, G, N, _build.dtype_code(x.dtype),
+                           _build.stream_of(x))
     _build.check(lib, err, "ssd_scan")
     ssd_scan.launches += 1
-    return y, state
+    return (y, state, states) if keep_states else (y, state)
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor,
+                 h0: Optional[torch.Tensor], dy: torch.Tensor,
+                 dstate: Optional[torch.Tensor], *, states: torch.Tensor,
+                 chunk: int = 128) -> Tuple[torch.Tensor, ...]:
+    """K8b on the card: (dx, ddt, dA, dBm, dCm, dh0), what
+    ``ssd_scan_bwd_plain`` computes, each in its input's dtype (dh0 fp32).
+    ``states`` are the chunk states ``ssd_scan(..., keep_states=True)``
+    returned for these inputs (h0 is their first).  dy has x's dtype;
+    dstate (fp32) None adds nothing."""
+    _check_args("ssd_scan_bwd", x, dt, A, Bm, Cm, h0, chunk)
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} {dy.dtype} is "
+                         f"not x's {tuple(x.shape)} {x.dtype}")
+    if dstate is not None and (dstate.shape != (Bsz, H, P, N)
+                               or dstate.dtype != torch.float32):
+        raise ValueError(f"ssd_scan_bwd: dstate {tuple(dstate.shape)} "
+                         f"{dstate.dtype}, want {(Bsz, H, P, N)} float32")
+    if states.shape != (Bsz, H, -(-S // KERNEL_CHUNK), P, N):
+        raise ValueError(f"ssd_scan_bwd: states {tuple(states.shape)} are "
+                         f"not these inputs' chunk states")
+    _build.require_cuda("ssd_scan_bwd", dy, states,
+                        *(() if dstate is None else (dstate,)))
+    npt = -(-P // P_TILE)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    ddt_p = torch.empty((npt, Bsz, S, H), **f32)
+    dA_p = torch.empty((npt, Bsz, H), **f32)
+    dB_p = torch.empty((npt, Bsz, S, H, N), **f32)
+    dC_p = torch.empty((npt, Bsz, S, H, N), **f32)
+    dh0 = torch.empty((Bsz, H, P, N), **f32)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.ssd_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), states.data_ptr(), dy.data_ptr(),
+            None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
+            ddt_p.data_ptr(), dA_p.data_ptr(), dB_p.data_ptr(),
+            dC_p.data_ptr(), dh0.data_ptr(), Bsz, S, H, P, G, N,
+            _build.dtype_code(x.dtype), _build.stream_of(x))
+    _build.check(lib, err, "ssd_scan_bwd")
+    ssd_scan_bwd.launches += 1
+
+    def per_group(t):      # (npt, B, S, H, N) -> (B, S, G, N), summed in fp32
+        return t.sum(0).view(Bsz, S, G, H // G, N).sum(3).to(Bm.dtype)
+
+    return (dx, ddt_p.sum(0), dA_p.sum((0, 1)), per_group(dB_p),
+            per_group(dC_p), dh0)
 
 
 ssd_scan.launches = 0
+ssd_scan_bwd.launches = 0
+
+
+class SSDScan(torch.autograd.Function):
+    """``ssd_scan`` with its gradient: K8 forward and K8b backward on the
+    card, ``ssd_scan_plain`` and ``ssd_scan_bwd_plain`` on the CPU.
+    Returns (y, final state) as ``ssd_scan`` does."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, h0, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
+        if x.device.type == "cpu":
+            y, state = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+            states = None
+        else:
+            y, state, states = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0,
+                                        keep_states=True)
+        ctx.has_h0 = h0 is not None
+        ctx.has_states = states is not None
+        ctx.save_for_backward(x, dt, A, Bm, Cm,
+                              *((h0,) if ctx.has_h0 else ()),
+                              *((states,) if ctx.has_states else ()))
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        saved = list(ctx.saved_tensors)
+        x, dt, A, Bm, Cm = saved[:5]
+        h0 = saved[5] if ctx.has_h0 else None
+        states = saved[-1] if ctx.has_states else None
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if x.device.type == "cpu":
+            grads = ssd_scan_bwd_plain(x, dt, A, Bm, Cm, h0, dy, dstate,
+                                       chunk=ctx.chunk)
+        else:
+            grads = ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy.contiguous(),
+                                 None if dstate is None
+                                 else dstate.contiguous(),
+                                 chunk=ctx.chunk, states=states)
+        dx, ddt, dA, dB, dC, dh0 = grads
+        return dx, ddt, dA, dB, dC, (dh0 if ctx.has_h0 else None), None

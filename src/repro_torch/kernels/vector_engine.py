@@ -1,16 +1,26 @@
-"""The DSA vector engine's fused affine pass on Hopper (K2).
+"""The DSA vector engine on Hopper: K2, K3 and K4.
 
-``fused_affine_act`` launches ``csrc/vector_engine.cu``:
-y = act(x * scale + bias) with per-column (N,) scale and bias, in fp32, cast
-to ``out_dtype``.  It replaces the Pallas TPU kernel
-``repro/kernels/vector_engine.py::fused_affine_act``; the TPU's
-``quantize_int8`` and ``dequantize_int8`` are not ported yet.
-``fused_affine_act_plain`` is the same function in plain PyTorch.
+Each wrapper launches its kernel in ``csrc/vector_engine.cu`` and has a
+plain PyTorch version of the same function beside it:
+
+- ``fused_affine_act`` (K2): y = act(x * scale + bias) with per-column (N,)
+  scale and bias, in fp32, cast to ``out_dtype``; replaces
+  ``repro/kernels/vector_engine.py::fused_affine_act``.
+- ``quantize_int8`` (K3): per-row symmetric int8, x (M, N) float32 or
+  bfloat16 -> (int8 (M, N), fp32 scales (M, 1)), the codes byte-equal to
+  the plain version; replaces ``repro/kernels/vector_engine.py::
+  quantize_int8``.
+- ``dequantize_int8`` (K4): q * scale in fp32, cast to ``out_dtype``;
+  replaces ``repro/kernels/vector_engine.py::dequantize_int8``.
+
+Any M and N are taken: the TPU kernels' ``M % bm == 0`` has no counterpart,
+the CUDA kernels mask the ragged edge.  K3 and K4 act on gradients, never
+on a tensor that requires one.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,6 +36,28 @@ def fused_affine_act_plain(x: torch.Tensor, scale: torch.Tensor,
     return _ACTS[act](y).to(out_dtype or x.dtype)
 
 
+def quantize_int8_plain(x: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (M, N) -> (int8 (M, N), fp32 row scales (M, 1)).  A NaN or Inf
+    in a row makes its scale NaN or Inf and each of its codes 0 (a NaN
+    quotient casts to 0, as XLA casts it), so the row dequantizes to NaN,
+    as in JAX."""
+    x32 = x.float()
+    absmax = x32.abs().amax(dim=-1, keepdim=True)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
+    # by its reciprocal, one ulp off the IEEE quotient K3 and the CPU give
+    scale = torch.clamp(absmax, min=1e-12) / torch.full_like(absmax, 127.0)
+    q = torch.nan_to_num(torch.clamp(torch.round(x32 / scale), -127, 127),
+                         nan=0.0).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8_plain(q: torch.Tensor, scales: torch.Tensor, *,
+                          out_dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
+    return (q.float() * scales).to(out_dtype)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("vector_engine")
     if lib.fused_affine_act.argtypes is None:
@@ -33,6 +65,14 @@ def _lib() -> ctypes.CDLL:
             [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4
             + [ctypes.c_void_p])
         lib.fused_affine_act.restype = ctypes.c_int
+        lib.quantize_int8.argtypes = ([ctypes.c_void_p] * 4
+                                      + [ctypes.c_longlong] * 2
+                                      + [ctypes.c_int, ctypes.c_void_p])
+        lib.quantize_int8.restype = ctypes.c_int
+        lib.dequantize_int8.argtypes = ([ctypes.c_void_p] * 3
+                                        + [ctypes.c_longlong] * 2
+                                        + [ctypes.c_int, ctypes.c_void_p])
+        lib.dequantize_int8.restype = ctypes.c_int
     return lib
 
 
@@ -65,3 +105,64 @@ def fused_affine_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 fused_affine_act.launches = 0
+
+
+def _rows(name: str, t: torch.Tensor) -> Tuple[int, int]:
+    if t.dim() != 2:
+        raise ValueError(f"{name} takes an (M, N) tensor, not "
+                         f"{tuple(t.shape)}")
+    return t.shape[0], t.shape[1]
+
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (M, N) float32 or bfloat16 on the card -> (int8 (M, N), fp32
+    scales (M, 1)), byte-equal to ``quantize_int8_plain``.  ``launches``
+    counts calls; each call launches two kernels, the absmax pass and the
+    quantize pass."""
+    M, N = _rows("quantize_int8", x)
+    if M == 0 or N == 0:
+        raise ValueError(f"quantize_int8: an empty row has no absmax "
+                         f"({tuple(x.shape)})")
+    code = _build.dtype_code(x.dtype)
+    _build.require_cuda("quantize_int8", x)
+    q = torch.empty((M, N), dtype=torch.int8, device=x.device)
+    scales = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    amax = torch.empty((M,), dtype=torch.int32, device=x.device)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.quantize_int8(x.data_ptr(), q.data_ptr(), scales.data_ptr(),
+                                amax.data_ptr(), M, N, code,
+                                _build.stream_of(x))
+    _build.check(lib, err, "quantize_int8")
+    quantize_int8.launches += 1
+    return q, scales
+
+
+def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, *,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """q (M, N) int8 and scales (M, 1) fp32 on the card -> q * scale,
+    cast to ``out_dtype`` (float32 or bfloat16)."""
+    M, N = _rows("dequantize_int8", q)
+    if q.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"dequantize_int8 takes int8 codes and float32 "
+                        f"scales, not {q.dtype} and {scales.dtype}")
+    if scales.numel() != M:
+        raise ValueError(f"dequantize_int8: scales {tuple(scales.shape)} for "
+                         f"{M} rows")
+    code = _build.dtype_code(out_dtype)
+    _build.require_cuda("dequantize_int8", q, scales)
+    out = torch.empty((M, N), dtype=out_dtype, device=q.device)
+    if M == 0 or N == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        err = lib.dequantize_int8(q.data_ptr(), scales.data_ptr(),
+                                  out.data_ptr(), M, N, code,
+                                  _build.stream_of(q))
+    _build.check(lib, err, "dequantize_int8")
+    dequantize_int8.launches += 1
+    return out
+
+
+quantize_int8.launches = 0
+dequantize_int8.launches = 0

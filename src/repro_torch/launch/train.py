@@ -1,0 +1,104 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch mamba2-370m``.
+
+The port of the JAX package's ``launch/train.py`` on one card: init from a
+seed, deterministic resumable data (``TokenStream``), AdamW train steps,
+periodic atomic checkpoints, crash-restart resume (``--resume``) and step
+timing logs.  ``--smoke`` (the default, as in the JAX launcher) takes the
+reduced config, ``--full`` the published one; ``--device cpu`` runs the
+plain PyTorch path on the CPU, and without it the run needs the card.
+Each step's loss is read on the host, which waits for the card, so the
+logged ms a step is the card's time.  The ``ssm`` family (Mamba-2) trains;
+the others raise ``NotImplementedError`` naming their slice.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
+
+import torch
+
+from repro_torch.checkpoint import manager as ckpt
+from repro_torch.configs import TrainConfig, get_arch
+from repro_torch.data.pipeline import TokenStream
+from repro_torch.device import resolve
+from repro_torch.launch import steps as ST
+from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
+
+# checkpoints go inside the checkout unless the caller names a directory
+DEFAULT_CKPT_DIR = str(Path(__file__).resolve().parents[3] / "build" / "ckpt")
+
+
+def train(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
+          seq: int = 128, ckpt_dir: str = DEFAULT_CKPT_DIR,
+          resume: bool = False, checkpoint_every: int = 20,
+          log_every: int = 10, microbatches: int = 1, seed: int = 0,
+          stop_at: int = 0, device=None):
+    """``stop_at`` simulates a crash: run ends early but the LR schedule
+    and checkpoints are laid out for the full ``steps`` run, so a resumed
+    run continues the exact trajectory.  ``device=None`` means the card
+    (and raises without CUDA).  Returns the loss of every step run."""
+    dev = resolve(device)
+    cfg = get_arch(arch)
+    if smoke:
+        cfg = cfg.reduced()
+    tcfg = TrainConfig(total_steps=steps, warmup_steps=max(2, steps // 10),
+                       microbatches=microbatches,
+                       checkpoint_every=checkpoint_every, checkpoint_dir=ckpt_dir)
+
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    opt_state = adamw.init(params)
+    start_step = 0
+    if resume and ckpt.latest_step(ckpt_dir) is not None:
+        (params, opt_state), start_step, _ = ckpt.restore(
+            ckpt_dir, (params, opt_state), device=dev)
+        print(f"[train] resumed from step {start_step}")
+
+    step_fn = ST.make_train_step(cfg, tcfg)
+    stream = TokenStream(cfg, batch, seq, seed, device=dev)
+
+    losses = []
+    t_last = time.time()
+    end = min(steps, stop_at) if stop_at else steps
+    for step in range(start_step, end):
+        batch_data = stream.batch_at(step)
+        params, opt_state, metrics = step_fn(params, opt_state, batch_data)
+        losses.append(float(metrics["loss"]))
+        if (step + 1) % log_every == 0 or step == end - 1:
+            dt = (time.time() - t_last) / log_every
+            print(f"[train] step {step + 1}/{steps} "
+                  f"loss={losses[-1]:.4f} gnorm={float(metrics['grad_norm']):.3f} "
+                  f"lr={float(metrics['lr']):.2e} {dt * 1e3:.0f} ms/step",
+                  flush=True)
+            t_last = time.time()
+        if (step + 1) % checkpoint_every == 0 or step == end - 1:
+            ckpt.save(ckpt_dir, step + 1, (params, opt_state),
+                      extras={"arch": arch, "seed": seed})
+    return losses
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR)
+    ap.add_argument("--device", default=None,
+                    help="cpu for the plain PyTorch path (default: the card)")
+    args = ap.parse_args()
+    losses = train(args.arch, smoke=args.smoke, steps=args.steps,
+                   batch=args.batch, seq=args.seq, resume=args.resume,
+                   microbatches=args.microbatches, ckpt_dir=args.ckpt_dir,
+                   device=args.device)
+    print(f"[train] first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -10,7 +10,7 @@ the place of ``lax.scan``; ``remat``, ``scan_layers`` and activation
 sharding have no counterpart on one card.  qk-norm, QKV bias, MLA, M-RoPE,
 learned positions, MoE, cross-attention, the encoder and the frontends
 raise ``NotImplementedError``: they come with later slices of the port
-(ROADMAP.md, queue 1).
+(ROADMAP.md, queue 1).  ``softmax_xent`` is the training loss.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
+from repro_torch.tree import tree_leaves, tree_map
 
 Pytree = Any
 
@@ -162,23 +163,6 @@ def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 # whole-model param definitions
 # ---------------------------------------------------------------------------
-
-def tree_map(fn, tree):
-    """``jax.tree.map`` over the dicts and lists of a parameter tree."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def tree_leaves(tree):
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, list):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
-
 
 def param_defs(cfg: ModelConfig) -> Pytree:
     D = cfg.d_model
@@ -427,3 +411,15 @@ def forward(cfg: ModelConfig, params, tokens) -> torch.Tensor:
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = run_decoder_blocks(cfg, params, x, rope_ctx(cfg, positions))
     return unembed(cfg, params, x)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy in fp32, as the JAX package computes it: the max
+    is detached (``stop_gradient``), and the label's logit is taken with
+    ``gather``, the same number as JAX's one-hot sum, which adds only
+    zeros to it."""
+    lg = logits.float()
+    m = lg.amax(dim=-1, keepdim=True).detach()
+    lse = m[..., 0] + torch.log(torch.exp(lg - m).sum(dim=-1))
+    lab = lg.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - lab).mean()

@@ -1,0 +1,86 @@
+"""Functional AdamW + cosine schedule + gradient clipping.
+
+The port of the JAX package's ``optim/adamw.py``, with the same formulas
+and defaults: the state is shaped like the params (mu/nu fp32) plus an
+int32 step, the schedule and the bias corrections (``b1 ** t`` included)
+are fp32 tensors on the parameters' device, so a step never waits on the
+host.  Nothing is updated in place: ``apply`` returns new trees, as the
+JAX version does.  Gradient accumulation and the optional int8 compression
+live in ``launch.steps.make_train_step``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+Pytree = Any
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor         # int32 scalar
+    mu: Pytree                 # fp32
+    nu: Pytree                 # fp32
+
+
+def init(params: Pytree) -> AdamWState:
+    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device), params)
+    device = tree_leaves(params)[0].device
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
+                      mu=zeros, nu=tree_map(torch.clone, zeros))
+
+
+def cosine_schedule(lr: float, warmup: int, total: int
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+    def sched(step):
+        s = step.float()
+        warm = lr * (s + 1.0) / max(warmup, 1)
+        frac = torch.clamp((s - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = 0.5 * lr * (1.0 + torch.cos(math.pi * frac))
+        return torch.where(s < warmup, warm, cos)
+    return sched
+
+
+def global_norm(tree: Pytree) -> torch.Tensor:
+    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    return torch.sqrt(sum(leaves))
+
+
+def clip_by_global_norm(grads: Pytree, max_norm: float
+                        ) -> Tuple[Pytree, torch.Tensor]:
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return tree_map(lambda g: g.float() * scale, grads), norm
+
+
+def apply(params: Pytree, grads: Pytree, state: AdamWState, *,
+          sched: Callable[[torch.Tensor], torch.Tensor], b1=0.9, b2=0.95,
+          eps=1e-8, weight_decay=0.1, grad_clip=1.0
+          ) -> Tuple[Pytree, AdamWState, dict]:
+    grads, gnorm = clip_by_global_norm(grads, grad_clip)
+    step = state.step + 1
+    lr = sched(state.step)
+    t = step.float()
+    bc1 = 1.0 - torch.pow(b1, t)
+    bc2 = 1.0 - torch.pow(b2, t)
+
+    def upd(p, g, m, v):
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * torch.square(g)
+        mh = m / bc1
+        vh = v / bc2
+        delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p.float()
+        return (p.float() - lr * delta).to(p.dtype), m, v
+
+    leaves = [upd(*a) for a in zip(tree_leaves(params), tree_leaves(grads),
+                                   tree_leaves(state.mu),
+                                   tree_leaves(state.nu))]
+    new_p, new_m, new_v = ([o[i] for o in leaves] for i in range(3))
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    return (tree_unflatten(params, new_p),
+            AdamWState(step, tree_unflatten(params, new_m),
+                       tree_unflatten(params, new_v)), metrics)

@@ -21,11 +21,16 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.lindley import lindley_scan, lindley_scan_plain
 from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
-from repro_torch.kernels.ssd import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd import (ssd_scan, ssd_scan_bwd,
+                                     ssd_scan_bwd_plain, ssd_scan_plain)
 from repro_torch.kernels.systolic_matmul import (_ACTS, systolic_matmul,
                                                  systolic_matmul_plain)
-from repro_torch.kernels.vector_engine import (fused_affine_act,
-                                               fused_affine_act_plain)
+from repro_torch.kernels.vector_engine import (dequantize_int8,
+                                               dequantize_int8_plain,
+                                               fused_affine_act,
+                                               fused_affine_act_plain,
+                                               quantize_int8,
+                                               quantize_int8_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -348,3 +353,235 @@ def test_serve_recurrentgemma_launches_k7_and_k5(cuda):
             flash_attention.launches - counts[1]) == (2, 1)
     assert out["generated"].shape == (2, 4)
     assert ((0 <= out["generated"]) & (out["generated"] < 512)).all()
+
+
+# ---- K3, K4: int8 quantize and dequantize, byte for byte -------------------
+
+QUANT_SHAPES = [(128, 256), (3, 1000), (1, 4096), (2, 64), (5, 1),
+                (1, (1 << 22) + 3), (3000, 40)]
+
+
+def _quant_input(m, n, dtype, dev):
+    rng = np.random.default_rng(m * 7 + n)
+    x = _randn(rng, (m, n), torch.float32, dev) * 3.0
+    if (m, n) == (2, 64):
+        x[0] = 0.0                                  # an all-zero row
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("m,n", QUANT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_int8_bytes_equal_plain(cuda, m, n, dtype):
+    """Codes and scales byte-equal to the plain version, on the card and on
+    a CPU copy (tests/test_kernels.py:85's demand of the TPU kernel)."""
+    x = _quant_input(m, n, dtype, cuda)
+    before = quantize_int8.launches
+    q, s = quantize_int8(x)
+    torch.cuda.synchronize()
+    assert quantize_int8.launches == before + 1
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert q.shape == (m, n) and s.shape == (m, 1)
+    for want_q, want_s in (quantize_int8_plain(x),
+                           quantize_int8_plain(x.cpu())):
+        assert torch.equal(q.cpu(), want_q.cpu())
+        assert torch.equal(s.cpu().view(torch.int32),
+                           want_s.cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("m,n", QUANT_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_dequantize_int8_bytes_equal_plain(cuda, m, n, out_dtype):
+    q, s = quantize_int8_plain(_quant_input(m, n, torch.float32, cuda))
+    before = dequantize_int8.launches
+    got = dequantize_int8(q, s, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert dequantize_int8.launches == before + 1
+    want = dequantize_int8_plain(q, s, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    bits = torch.int32 if out_dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.parametrize("m,n", [(3, 1000), (1, (1 << 22) + 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_nan_and_inf_propagate_as_plain(cuda, m, n, dtype):
+    """Row 0 holds one NaN and one -Inf, the last one in the row's last
+    block: K3 -> K4 gives the plain version's codes (0), scale (NaN) and
+    dequantized values (all NaN), NaN for NaN; other rows stay finite."""
+    x = _quant_input(m, n, dtype, cuda)
+    x[0, n // 3] = float("nan")
+    x[0, n - 1] = float("-inf")
+    q, s = quantize_int8(x)
+    wq, ws = quantize_int8_plain(x)
+    assert torch.equal(q, wq) and not bool(q[0].any())
+    torch.testing.assert_close(s, ws, rtol=0, atol=0, equal_nan=True)
+    assert bool(s[0].isnan()) and bool(torch.isfinite(s[1:]).all())
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = dequantize_int8(q, s, out_dtype=out_dtype)
+        want = dequantize_int8_plain(wq, ws, out_dtype=out_dtype)
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+        assert bool(got[0].isnan().all())
+        assert bool(torch.isfinite(got[1:]).all())
+
+
+def test_ops_quantize_and_compress_grads_launch_k3_k4(cuda):
+    from repro_torch.distributed import compression as C
+    g = {"a": torch.randn(33, 17, device=cuda).bfloat16(),
+         "b": [torch.randn(5, device=cuda)]}
+    err = C.init_error_state(g)
+    counts = (quantize_int8.launches, dequantize_int8.launches)
+    deq, new_err = C.compress_grads(g, err)
+    assert (quantize_int8.launches - counts[0],
+            dequantize_int8.launches - counts[1]) == (2, 2)
+    cpu = {"a": g["a"].cpu(), "b": [g["b"][0].cpu()]}
+    want, want_err = C.compress_grads(cpu, C.init_error_state(cpu))
+    assert torch.equal(deq["a"].cpu(), want["a"])
+    assert torch.equal(new_err["b"][0].cpu(), want_err["b"][0])
+
+
+def test_quantize_refuses_what_it_cannot_run(cuda):
+    before = quantize_int8.launches, dequantize_int8.launches
+    x = torch.randn(4, 8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        quantize_int8(x.t())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        quantize_int8(x.half())
+    q = torch.zeros(4, 8, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="scales"):
+        dequantize_int8(q, torch.ones(3, 1, device=cuda))
+    assert (quantize_int8.launches, dequantize_int8.launches) == before
+
+
+# ---- K8b: the SSD scan's gradient ------------------------------------------
+
+def _bwd_inputs(b, s, h, p, g, n, dtype, dev, seed=0):
+    x, dt, A, Bm, Cm = _ssd_inputs(b, s, h, p, g, n, dtype, dev, seed)
+    rng = np.random.default_rng(seed + 100)
+    h0 = _randn(rng, (b, h, p, n), torch.float32, dev) * 0.5
+    dy = _randn(rng, (b, s, h, p), torch.float32, dev).to(dtype)
+    dstate = _randn(rng, (b, h, p, n), torch.float32, dev) * 0.1
+    return x, dt, A, Bm, Cm, h0, dy, dstate
+
+
+BWD_NAMES = ("dx", "ddt", "dA", "dBm", "dCm", "dh0")
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_SHAPES[:5])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_scan_bwd_matches_plain(cuda, b, s, h, p, g, n, chunk, with_h0):
+    """fp32, within K8's card bar (rtol 1e-3, atol 1e-4): the kernel walks
+    64-row chunks, the plain version autograd through the caller's."""
+    x, dt, A, Bm, Cm, h0, dy, dstate = _bwd_inputs(b, s, h, p, g, n,
+                                                   torch.float32, cuda)
+    h0 = h0 if with_h0 else None
+    dstate = dstate if with_h0 else None
+    before = (ssd_scan.launches, ssd_scan_bwd.launches)
+    _, _, states = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0,
+                            keep_states=True)
+    got = ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dstate, chunk=chunk,
+                       states=states)
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, ssd_scan_bwd.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    want = ssd_scan_bwd_plain(x, dt, A, Bm, Cm, h0, dy, dstate, chunk=chunk)
+    for name, gg, ww in zip(BWD_NAMES, got, want):
+        assert gg.dtype == ww.dtype and gg.shape == ww.shape, name
+        torch.testing.assert_close(gg, ww, rtol=1e-3, atol=1e-4, msg=name)
+    again = ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dstate, chunk=chunk,
+                         states=states)
+    for gg, aa in zip(got, again):
+        assert torch.equal(gg, aa)             # no float atomics: repeatable
+
+
+def test_ssd_scan_keeps_the_chunk_states(cuda):
+    """states[:, :, c] is the state entering row 64c: h0 for c = 0, the
+    plain scan's final state over the first 64c rows after."""
+    x, dt, A, Bm, Cm, h0, _, _ = _bwd_inputs(2, 200, 4, 32, 2, 16,
+                                             torch.float32, cuda)
+    y, hf, states = ssd_scan(x, dt, A, Bm, Cm, chunk=200, h0=h0,
+                             keep_states=True)
+    assert states.shape == (2, 4, 4, 32, 16)
+    assert torch.equal(states[:, :, 0], h0)
+    for c in (1, 3):
+        r = 64 * c
+        _, hp = ssd_scan_plain(x[:, :r], dt[:, :r], A, Bm[:, :r], Cm[:, :r],
+                               chunk=r, h0=h0)
+        torch.testing.assert_close(states[:, :, c], hp, rtol=1e-3, atol=1e-4)
+
+
+def test_ssd_scan_bwd_bf16_at_the_layer_shape(cuda):
+    """Mamba-2 370M's layer at batch 1 in bf16: each gradient within 1e-2
+    relative Frobenius error of the plain version."""
+    x, dt, A, Bm, Cm, _, dy, _ = _bwd_inputs(1, 1024, 32, 64, 1, 128,
+                                             torch.bfloat16, cuda)
+    _, _, states = ssd_scan(x, dt, A, Bm, Cm, chunk=256, keep_states=True)
+    got = ssd_scan_bwd(x, dt, A, Bm, Cm, None, dy, None, chunk=256,
+                       states=states)
+    want = ssd_scan_bwd_plain(x, dt, A, Bm, Cm, None, dy, None, chunk=256)
+    for name, gg, ww in zip(BWD_NAMES, got, want):
+        assert gg.dtype == ww.dtype, name
+        rel = ((gg.float() - ww.float()).norm() / ww.float().norm()).item()
+        assert rel <= 1e-2, (name, rel)
+
+
+def test_ops_ssd_under_grad_runs_k8_and_k8b(cuda):
+    x, dt, A, Bm, Cm, h0, dy, dstate = _bwd_inputs(2, 128, 4, 32, 2, 16,
+                                                   torch.float32, cuda)
+    ins = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm, h0)]
+    before = (ssd_scan.launches, ssd_scan_bwd.launches)
+    y, hf = ops.ssd(*ins[:5], chunk=32, h0=ins[5])
+    got = torch.autograd.grad([y, hf], ins, [dy, dstate])
+    assert (ssd_scan.launches - before[0],
+            ssd_scan_bwd.launches - before[1]) == (1, 1)
+    want = ssd_scan_bwd_plain(x, dt, A, Bm, Cm, h0, dy, dstate, chunk=32)
+    for name, gg, ww in zip(BWD_NAMES, got, want):
+        torch.testing.assert_close(gg, ww, rtol=1e-3, atol=1e-4, msg=name)
+
+
+def test_ssd_scan_bwd_refuses_what_it_cannot_run(cuda):
+    x, dt, A, Bm, Cm, h0, dy, dstate = _bwd_inputs(1, 64, 4, 16, 2, 8,
+                                                   torch.float32, cuda)
+    states = ssd_scan(x, dt, A, Bm, Cm, chunk=32, h0=h0, keep_states=True)[2]
+    before = ssd_scan_bwd.launches
+    with pytest.raises(ValueError, match="dy"):
+        ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy.bfloat16(), dstate, chunk=32,
+                     states=states)
+    with pytest.raises(ValueError, match="dstate"):
+        ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dstate[..., :4], chunk=32,
+                     states=states)
+    with pytest.raises(ValueError, match="chunk states"):
+        ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dstate, chunk=32,
+                     states=torch.zeros(1, 4, 2, 16, 8, device=cuda))
+    assert ssd_scan_bwd.launches == before
+
+
+# ---- the kernels without a backward refuse to cut the graph ----------------
+
+def test_kernels_without_a_backward_raise_under_grad(cuda):
+    rng = np.random.default_rng(9)
+    w = _randn(rng, (16, 8), torch.float32, cuda).requires_grad_()
+    x = _randn(rng, (4, 16), torch.float32, cuda)
+    s, b = (_randn(rng, (16,), torch.float32, cuda) for _ in range(2))
+    q = _randn(rng, (1, 2, 8, 32), torch.float32, cuda).requires_grad_()
+    k, v = (_randn(rng, (1, 2, 8, 32), torch.float32, cuda) for _ in range(2))
+    t = torch.sort(torch.rand(2, 8, device=cuda, dtype=torch.float64))[0]
+    sv = torch.rand(2, 8, device=cuda, dtype=torch.float64).requires_grad_()
+    rx, gx, ga, la, h0 = _rglru_inputs(1, 16, 32, torch.float32, cuda)
+    la.requires_grad_()
+    calls = {"matmul": lambda: ops.matmul(x, w),
+             "affine_act": lambda: ops.affine_act(x, s.requires_grad_(), b),
+             "attention": lambda: ops.attention(q, k, v),
+             "lindley": lambda: ops.lindley(t, sv),
+             "rglru": lambda: ops.rglru(rx, gx, ga, la, h0)}
+    counters = (systolic_matmul, fused_affine_act, flash_attention,
+                lindley_scan, rglru_scan)
+    before = [c.launches for c in counters]
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError, match=f"ops.{name}:.*"
+                           "no backward"):
+            call()
+    assert [c.launches for c in counters] == before
+    with torch.no_grad():              # no graph to cut: the kernels run
+        for call in calls.values():
+            call()
+    assert [c.launches - n for c, n in zip(counters, before)] == [1] * 5

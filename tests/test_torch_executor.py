@@ -151,7 +151,10 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.kernels.ssd, repro_torch.kernels.rglru, "
             "repro_torch.configs, "
             "repro_torch.data.pipeline, repro_torch.models.decode, "
-            "repro_torch.launch.steps, repro_torch.launch.serve; "
+            "repro_torch.launch.steps, repro_torch.launch.serve, "
+            "repro_torch.launch.train, repro_torch.optim.adamw, "
+            "repro_torch.checkpoint.manager, "
+            "repro_torch.distributed.compression; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
