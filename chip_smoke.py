@@ -629,11 +629,33 @@ def attn_pairs(Sq, Skv, causal, window):
     return keep
 
 
+def k5_tiles(Sq, Skv, causal, window, dtype):
+    """(KV tiles K5 walks, KV tiles there are) for one (batch, head), by
+    the kernel's rule (csrc/flash_attention.cu, ``tile_range``): a query
+    tile of bq rows walks from the key tile holding q0 - window + 1 to the
+    one ending at min(Skv, q0 + bq), or every tile where it holds a row
+    that sees no key.  bf16 takes 128-query, 64-key tiles; fp32 32-query
+    tiles of 32 keys (16 at D = 256 are not counted here)."""
+    import torch
+    bq, bk = (128, 64) if dtype == torch.bfloat16 else (32, 32)
+    n_kv = -(-Skv // bk)
+    walked = 0
+    for q0 in range(0, Sq, bq):
+        q_last = min(q0 + bq, Sq) - 1
+        full = bool(window) and q_last >= Skv + window - 1
+        lo = max(0, q0 - window + 1) if window and not full else 0
+        hi = min(Skv, q_last + 1) if causal and not full else Skv
+        walked += -(-hi // bk) - lo // bk
+    return walked, -(-Sq // bq) * n_kv
+
+
 def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
                   max_err):
     """K5 at one shape (B, H, KV, Sq, Skv, D) against its plain version,
     and its times beside F.scaled_dot_product_attention's and its bound.
-    Returns (err, ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    Where the window masks nothing, SDPA is timed both with the mask and
+    with ``is_causal=True``, and the faster is ``library_ms``.  Returns a
+    dict of the kernels line's keys (``library`` holds each SDPA form)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -652,18 +674,27 @@ def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
                                          window=window))
     plain = time_ms(lambda: flash_attention_plain(
         q, k, v, causal=causal, window=window))
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, enable_gqa=KV != H))
+    libs = {"sdpa_mask": time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=KV != H))}
+    if causal and (not window or Sq <= window):   # the window masks nothing
+        libs["sdpa_is_causal"] = time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=KV != H))
     esz = q.element_size()
     bnd, by = bound((2 * q.numel() + 2 * k.numel()) * esz,
                     4 * B * H * D * int(keep.sum()), dtype)
+    walked, tiles = k5_tiles(Sq, Skv, causal, window, dtype)
     print(f"K5 flash_attention B={B} H={H} KV={KV} Sq={Sq} Skv={Skv} "
           f"D={D} causal={causal} window={window} {dtype}: "
           f"max_abs_err={err:.3e} rtol={rtol} atol={atol}; "
           f"ms={ms:.4f} (per Python call {call_ms(lambda: flash_attention(q, k, v, causal=causal, window=window)):.4f}) "
-          f"plain_ms={plain:.4f} library_ms(sdpa)={lib:.4f} "
-          f"bound_ms={bnd:.4f} ({by})")
-    return err, ms, plain, lib, bnd, by
+          f"plain_ms={plain:.4f} library_ms "
+          + " ".join(f"({name}) {t:.4f}" for name, t in libs.items())
+          + f" bound_ms={bnd:.4f} ({by}); KV tiles walked {walked} of "
+          f"{tiles} a (batch, head)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": min(libs.values()), "library": libs}
 
 
 def k7_bound(B, S, W, dtype):
@@ -744,7 +775,8 @@ def drive_gemma(dev, counters, time_ms, call_ms, max_err, randn):
     a profile of a prefill and a decode step; the ring cache's run at a
     4096-token prompt; at fp32 the served prefill against one with K7's
     and K5's plain versions swapped in, and decode == forward.  Returns
-    K7's entry of the kernels line."""
+    K7's entry of the kernels line and K5's at the serving shape (bf16,
+    launches a ``serve``), which K5's entry carries as ``serving``."""
     import dataclasses
 
     import numpy as np
@@ -761,10 +793,13 @@ def drive_gemma(dev, counters, time_ms, call_ms, max_err, randn):
 
     # ---- 9(a), 9(b): K7, and K5 at head dim 256 ---------------------------
     k7_err, k7_times = check_k7(dev, time_ms, call_ms, max_err)
+    k5_serving = {}
     for shape in K5_GEMMA:
         for dtype in (torch.float32, torch.bfloat16):
-            check_k5_case(shape, True, GEMMA_WINDOW, dtype, randn, time_ms,
-                          call_ms, max_err)
+            row = check_k5_case(shape, True, GEMMA_WINDOW, dtype, randn,
+                                time_ms, call_ms, max_err)
+            if dtype == torch.bfloat16:
+                k5_serving[shape] = row
 
     # ---- 9(c): the fourth path, RecurrentGemma-2B serving on K7 and K5 ----
     cfg = gemma_config()
@@ -776,6 +811,7 @@ def drive_gemma(dev, counters, time_ms, call_ms, max_err, randn):
     pbytes = sum(t.numel() * t.element_size()
                  for t in T.tree_leaves(T.param_shapes(cfg)))
     names = ("K1", "K2", "K5", "K6", "K8", "K7")
+    k5_launches = []
 
     def counted_serve(run):
         for c in counters:
@@ -783,6 +819,7 @@ def drive_gemma(dev, counters, time_ms, call_ms, max_err, randn):
         out = serve(GEMMA, smoke=False, batch=run["batch"],
                     prompt=run["prompt"], gen=run["gen"])
         launches = [c.launches for c in counters]
+        k5_launches.append(launches[names.index("K5")])
         gen_tok = out["generated"]
         if launches != want:
             raise AssertionError(f"serve {run}: launches "
@@ -824,7 +861,8 @@ def drive_gemma(dev, counters, time_ms, call_ms, max_err, randn):
     DE.decode_step(cfg, params, cache, nxt)
     torch.cuda.synchronize()
     profile_serving(cfg, params, tok, cache, nxt,
-                    {"K7": ("rglru_kernel",), "K5": ("flash_kernel",)})
+                    {"K7": ("rglru_kernel",),
+                     "K5": ("flash_bf16_kernel", "flash_f32_kernel")})
     del params, cache
 
     # ---- 9(d): the ring cache, prompt past the window ---------------------
@@ -889,12 +927,19 @@ def drive_gemma(dev, counters, time_ms, call_ms, max_err, randn):
           f"(rtol 2e-2 atol 2e-3)")
     del params32, cache, full
 
-    # ---- 9(f): K7's entry of the kernels line (bf16, the serving dtype) ---
-    return {"name": "rglru_scan", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/rglru.cu",
-            "replaces": "src/repro/kernels/rglru.py:54",
-            "launches": k7_launches, "max_abs_err": k7_err,
-            **k7_times[torch.bfloat16], "library_ms": None}
+    # ---- 9(f): K7's entry of the kernels line (bf16, the serving dtype),
+    # and K5's at the serving shape (bf16, 1024 tokens; launches a serve)
+    k7_entry = {"name": "rglru_scan", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/rglru.cu",
+                "replaces": "src/repro/kernels/rglru.py:54",
+                "launches": k7_launches, "max_abs_err": k7_err,
+                **k7_times[torch.bfloat16], "library_ms": None}
+    k5_entry = {"shape": list(K5_GEMMA[0]), "dtype": "bfloat16",
+                "causal": True, "window": GEMMA_WINDOW,
+                "launches": k5_launches[0], **k5_serving[K5_GEMMA[0]],
+                "at_4096": {k: v for k, v in k5_serving[K5_GEMMA[1]].items()
+                            if k != "library"}}
+    return k7_entry, k5_entry
 
 
 def k8b_bound(B, S, H, P, G, N, dtype):
@@ -1462,7 +1507,8 @@ def main() -> int:
     k5_rows = {}
     for (B, H, KV, Sq, Skv, D, causal, window) in [
             (1, 4, 4, 17, 17, 32, False, 0), (1, 4, 4, 122, 122, 32, False, 0),
-            (2, 8, 2, 512, 512, 64, True, 128)]:
+            (2, 8, 2, 512, 512, 64, True, 128),
+            (1, 2, 2, 128, 32, 64, False, 16)]:      # rows that see no key
         for dtype in (torch.float32, torch.bfloat16):
             k5_rows[(Sq, dtype)] = check_k5_case(
                 (B, H, KV, Sq, Skv, D), causal, window, dtype, randn,
@@ -1608,9 +1654,9 @@ def main() -> int:
 
     k6_entry = drive_fleet(dev, time_ms)
     k8_launches = drive_lm(dev, counters + (lindley_scan, ssd_scan))
-    k7_entry = drive_gemma(dev, counters + (lindley_scan, ssd_scan,
-                                            rglru_scan),
-                           time_ms, call_ms, max_err, randn)
+    k7_entry, k5_serving = drive_gemma(
+        dev, counters + (lindley_scan, ssd_scan, rglru_scan), time_ms,
+        call_ms, max_err, randn)
     torch.cuda.empty_cache()
     train_entries = drive_train(dev, counters + (lindley_scan, ssd_scan,
                                                  rglru_scan),
@@ -1666,9 +1712,9 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": src + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:86",
-         "launches": launches[2], "max_abs_err": k5[0], "ms": k5[1],
-         "plain_ms": k5[2], "bound_ms": k5[4], "bound_by": k5[5],
-         "library_ms": k5[3]},
+         "launches": launches[2],
+         **{k: v for k, v in k5.items() if k != "library"},
+         "serving": k5_serving},
         {**k6_entry, "max_abs_err": k6_err},
         {"name": "ssd_scan", "route": "cuda", "source": src + "ssd.cu",
          "replaces": "src/repro/kernels/ssd.py:87", "launches": k8_launches,

@@ -9,8 +9,11 @@ Leaves are numbered in ``tree_leaves`` order (dict keys sorted, lists,
 tuples and NamedTuples in order), the JAX package's.  Writes go to
 ``step_<N>.tmp`` and are atomically renamed, so a crash mid-save never
 corrupts the latest checkpoint (restart safety).  A bfloat16 leaf, which
-numpy has no type for, is stored as its int16 bits with ``"bfloat16"`` in
-``index.json``.  ``restore`` puts every leaf on one named device (None: the
+numpy has no type for, is stored as the JAX package stores it: a 2-byte
+void (``<V2``) ``.npy`` of its bits with ``"bfloat16"`` in ``index.json``,
+so the two packages' files are byte-equal.  ``restore`` reads those bits as
+int16 first, which also takes the ``<i2`` files of the port's older
+checkpoints.  ``restore`` puts every leaf on one named device (None: the
 card); there is no mesh to re-shard onto.  ``keep`` bounds disk usage.
 """
 from __future__ import annotations
@@ -35,6 +38,17 @@ def _treedef(tree: Pytree) -> str:
     return str(tree_map(lambda _: "*", tree))
 
 
+def _save_bf16_bits(path: Path, bits: np.ndarray) -> None:
+    """``np.save`` of bf16 bits with the header that numpy writes for an
+    ``ml_dtypes.bfloat16`` array (descr ``<V2``), which plain numpy cannot
+    make: a ``V2`` view alone would say ``|V2``."""
+    bits = np.ascontiguousarray(bits)
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False, "shape": bits.shape})
+        f.write(bits.tobytes())
+
+
 def save(ckpt_dir: str, step: int, tree: Pytree, *,
          extras: Optional[Dict] = None, keep: int = 3) -> str:
     base = Path(ckpt_dir)
@@ -56,8 +70,12 @@ def save(ckpt_dir: str, step: int, tree: Pytree, *,
     for i, leaf in enumerate(leaves):
         t = torch.as_tensor(leaf).detach().cpu()
         dtype = str(t.dtype).split(".")[1]
-        arr = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
-        np.save(tmp / f"leaf_{i}.npy", arr)
+        if t.dtype == torch.bfloat16:
+            arr = t.view(torch.int16).numpy()
+            _save_bf16_bits(tmp / f"leaf_{i}.npy", arr)
+        else:
+            arr = t.numpy()
+            np.save(tmp / f"leaf_{i}.npy", arr)
         meta["leaves"].append({"shape": list(arr.shape), "dtype": dtype})
     (tmp / "index.json").write_text(json.dumps(meta))
     if final.exists():
@@ -104,8 +122,9 @@ def restore(ckpt_dir: str, template: Pytree, *, step: Optional[int] = None,
         expect = tuple(getattr(tmpl, "shape", arr.shape))
         if tuple(arr.shape) != expect:
             raise ValueError(f"leaf {i}: shape {arr.shape}, want {expect}")
-        t = torch.from_numpy(arr)
         if info["dtype"] == "bfloat16":
-            t = t.view(torch.bfloat16)
+            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
         out.append(t.to(dev))
     return tree_unflatten(template, out), step, meta["extras"]

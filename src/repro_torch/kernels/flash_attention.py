@@ -2,9 +2,11 @@
 
 ``flash_attention`` launches ``csrc/flash_attention.cu``: online-softmax
 attention with fp32 m, l and accumulator, GQA (head h reads KV head
-h // (H / KV)), causal masking and a sliding window.  It replaces the Pallas
-TPU kernel ``repro/kernels/flash_attention.py::flash_attention``; unlike
-that kernel it needs no tile to divide Sq or Skv.
+h // (H / KV)), causal masking and a sliding window, walking only the key
+tiles the masks leave.  bf16 runs both products on the tensor cores
+(``wgmma``), fp32 on the CUDA cores.  It replaces the Pallas TPU kernel
+``repro/kernels/flash_attention.py::flash_attention``; unlike that kernel it
+needs no tile to divide Sq or Skv.
 ``flash_attention_plain`` is the same function as one dense masked softmax.
 """
 from __future__ import annotations
@@ -65,6 +67,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError("flash_attention: q, k and v differ in dtype")
     _build.require_cuda("flash_attention", q, k, v)
+    # the kernel copies 16 bytes at a time: a view at an odd offset is copied
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

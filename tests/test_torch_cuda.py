@@ -17,7 +17,7 @@ from repro_torch.core import lindley as core_lindley
 from repro_torch.core.arrivals import PoissonProcess
 from repro_torch.core.engine import ClusterEngine
 from repro_torch.core.function import standard_pipeline
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.lindley import lindley_scan, lindley_scan_plain
 from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
@@ -340,6 +340,106 @@ def test_flash_attention_head_dim_256_matches_plain(cuda, b, sq, skv, causal,
     torch.testing.assert_close(got.float(), want.float(),
                                rtol=0.05 if bf else 1e-3,
                                atol=0.03 if bf else 2e-4)
+
+
+def _k5_case(cuda, b, h, kv, sq, skv, d, causal, window, dtype, seed=4):
+    """K5 against its plain version at one shape; returns (q, k, v, got)."""
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, (b, h, sq, d), dtype, cuda)
+    k, v = (_randn(rng, (b, kv, skv, d), dtype, cuda) for _ in range(2))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    bf = dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=0.05 if bf else 1e-3,
+                               atol=0.03 if bf else 2e-4)
+    return q, k, v, got
+
+
+# Sq and Skv at and around the 64-key tile, Skv > Sq and Sq > Skv; windows
+# that are no multiple of a tile.
+K5_LENGTHS = [(1, 1), (63, 64), (64, 63), (65, 200), (200, 65), (1, 200),
+              (200, 1)]
+K5_MASKS = [(True, 0), (False, 0), (True, 37), (False, 45)]
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("sq,skv", K5_LENGTHS)
+@pytest.mark.parametrize("causal,window", K5_MASKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_every_head_dim_and_length_matches_plain(
+        cuda, d, sq, skv, causal, window, dtype):
+    _k5_case(cuda, 1, 2, 1, sq, skv, d, causal, window, dtype)
+
+
+@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2), (10, 1)])
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gqa_groups_match_plain(cuda, h, kv, d, dtype):
+    """GQA groups of 1, 2 and 10 query heads a KV head, two sequences."""
+    _k5_case(cuda, 2, h, kv, 130, 130, d, True, 100, dtype)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("causal,sq,skv,window", [(False, 128, 32, 16),
+                                                  (True, 300, 40, 30)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_fully_masked_rows_get_the_mean_of_v(
+        cuda, d, causal, sq, skv, window, dtype):
+    """Rows at or past Skv + window - 1 see no key: like the TPU kernel and
+    the plain version, K5 gives them the mean of V over all Skv keys."""
+    _, _, v, got = _k5_case(cuda, 1, 2, 2, sq, skv, d, causal, window, dtype)
+    mean = v.float().mean(dim=2, keepdim=True)
+    rows = got[:, :, skv + window - 1:].float()
+    torch.testing.assert_close(rows, mean.expand_as(rows), rtol=0.01,
+                               atol=0.01)
+
+
+@pytest.mark.parametrize("d", [32, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_repeats_bit_for_bit(cuda, d, dtype):
+    q, k, v, got = _k5_case(cuda, 4, 10, 1, 300, 300, d, True, 200, dtype)
+    again = flash_attention(q, k, v, causal=True, window=200)
+    assert torch.equal(got, again)
+
+
+def test_flash_attention_bf16_one_tile_is_the_softmax_of_q_kt(cuda):
+    """One 64-key tile with V the identity: O is P itself, so this holds
+    S = Q.K^T's fragment layout apart from the P.V product."""
+    rng = np.random.default_rng(5)
+    q = _randn(rng, (1, 1, 64, 64), torch.bfloat16, cuda)
+    k = _randn(rng, (1, 1, 64, 64), torch.bfloat16, cuda)
+    v = torch.eye(64, device=cuda, dtype=torch.bfloat16)[None, None]
+    got = flash_attention(q, k, v, causal=False)
+    p = torch.softmax(q[0, 0].float() @ k[0, 0].float().T / 8.0, dim=-1)
+    torch.testing.assert_close(got[0, 0].float(), p, rtol=0.05, atol=0.01)
+
+
+def test_flash_attention_bf16_zero_q_is_the_mean_of_v(cuda):
+    """Q = 0 makes every weight equal: O is the mean of V, which holds the
+    P.V product's layout apart from S."""
+    rng = np.random.default_rng(6)
+    q = torch.zeros((1, 1, 64, 256), device=cuda, dtype=torch.bfloat16)
+    k, v = (_randn(rng, (1, 1, 64, 256), torch.bfloat16, cuda)
+            for _ in range(2))
+    got = flash_attention(q, k, v, causal=False)
+    mean = v[0, 0].float().mean(dim=0, keepdim=True).expand(64, 256)
+    torch.testing.assert_close(got[0, 0].float(), mean, rtol=0.02, atol=0.01)
+
+
+def test_flash_attention_takes_a_view_at_an_odd_offset(cuda):
+    rng = np.random.default_rng(7)
+    flat = _randn(rng, (3 * 64 * 16 + 4,), torch.bfloat16, cuda)
+    q, k, v = (flat[4 + i * 64 * 16:4 + (i + 1) * 64 * 16].view(1, 1, 64, 16)
+               for i in range(3))
+    assert q.data_ptr() % 16
+    torch.testing.assert_close(
+        flash_attention(q, k, v).float(),
+        flash_attention_plain(q, k, v).float(), rtol=0.05, atol=0.03)
 
 
 def test_serve_recurrentgemma_launches_k7_and_k5(cuda):

@@ -96,6 +96,22 @@ def test_attention_matches_jax(b, h, kv, sq, skv, d, causal, window):
     _close(got, want, rtol=1e-3, atol=2e-4)
 
 
+def test_attention_fully_masked_rows_match_jax():
+    """Non-causal with a window and Sq > Skv + window: the rows past
+    Skv + window - 1 see no key.  Both packages give such a row the mean of
+    V over all Skv keys (every score the finite NEG_INF), not 0."""
+    rng = np.random.default_rng(10)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(rng.standard_normal(s, dtype=np.float32))
+        for s in ((1, 2, 128, 32), (1, 2, 32, 32), (1, 2, 32, 32)))
+    want = jops.attention(jq, jk, jv, causal=False, window=16, bq=32, bk=32)
+    got = ops.attention(tq, tk, tv, causal=False, window=16, bq=32, bk=32)
+    _close(got, want, rtol=1e-3, atol=2e-4)
+    masked = got[:, :, 32 + 16 - 1:]
+    _close(masked, np.broadcast_to(np.asarray(jv).mean(axis=2, keepdims=True),
+                                   masked.shape), rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_dtype_matches_jax(dtype):
     rng = np.random.default_rng(4)

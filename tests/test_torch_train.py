@@ -300,16 +300,65 @@ def test_checkpoint_roundtrip_and_retention(tmp_path):
         ckpt.restore(str(tmp_path), {"a": tree["a"]}, device="cpu")
 
 
+def _bf16_values():
+    """(2, 3) values that bf16 holds exactly, with signs and a fraction."""
+    return np.array([[-2.0, -0.62890625, 0.73828125],
+                     [2.109375, 3.484375, 4.84375]], np.float32)
+
+
 def test_checkpoint_layout_reads_as_the_jax_package_writes_it(tmp_path):
-    """A tree saved by the JAX package's manager restores in the port."""
+    """A tree saved by the JAX package's manager restores in the port, its
+    bf16 leaf (a ``|V2`` ``.npy``) bit for bit."""
     from repro.checkpoint import manager as jckpt
-    jtree = {"a": jnp.arange(6.0).reshape(2, 3), "b": [jnp.ones(4)]}
+    h = jnp.asarray(_bf16_values()).astype(jnp.bfloat16)
+    jtree = {"a": jnp.arange(6.0).reshape(2, 3), "b": [jnp.ones(4)], "h": h}
     jckpt.save(str(tmp_path), 3, jtree)
-    tmpl = {"a": torch.zeros(2, 3), "b": [torch.zeros(4)]}
+    tmpl = {"a": torch.zeros(2, 3), "b": [torch.zeros(4)],
+            "h": torch.zeros(2, 3, dtype=torch.bfloat16)}
     got, step, _ = ckpt.restore(str(tmp_path), tmpl, device="cpu")
     assert step == 3
     assert torch.equal(got["a"], torch.arange(6.0).reshape(2, 3))
     assert torch.equal(got["b"][0], torch.ones(4))
+    assert got["h"].dtype == torch.bfloat16
+    jbits = np.asarray(h).view(np.int16)
+    assert np.array_equal(got["h"].view(torch.int16).numpy(), jbits)
+
+
+def test_checkpoint_bf16_leaf_is_written_as_the_jax_package_writes_it(
+        tmp_path):
+    """A bf16 leaf saved by the port is the JAX package's file, byte for
+    byte: a ``|V2`` ``.npy`` of the bits, ``"bfloat16"`` in the index."""
+    import json
+
+    from repro.checkpoint import manager as jckpt
+    vals = _bf16_values()
+    jckpt.save(str(tmp_path / "jax"), 1,
+               {"h": jnp.asarray(vals).astype(jnp.bfloat16)})
+    ckpt.save(str(tmp_path / "port"), 1,
+              {"h": torch.from_numpy(vals).bfloat16()})
+    files = [tmp_path / side / "step_00000001" / "leaf_0.npy"
+             for side in ("jax", "port")]
+    jarr, parr = (np.load(f) for f in files)
+    assert jarr.dtype == parr.dtype == np.dtype("V2")
+    assert files[0].read_bytes() == files[1].read_bytes()
+    for side in ("jax", "port"):
+        meta = json.loads((tmp_path / side / "step_00000001" /
+                           "index.json").read_text())
+        assert meta["leaves"] == [{"shape": [2, 3], "dtype": "bfloat16"}]
+
+
+def test_checkpoint_restores_a_bf16_leaf_stored_as_int16_bits(tmp_path):
+    """The port's older layout, bf16 bits as an ``<i2`` ``.npy``, still
+    restores."""
+    bits = torch.from_numpy(_bf16_values()).bfloat16().view(torch.int16)
+    ckpt.save(str(tmp_path), 1, {"h": bits})
+    index = tmp_path / "step_00000001" / "index.json"
+    index.write_text(index.read_text().replace('"int16"', '"bfloat16"'))
+    got, _, _ = ckpt.restore(str(tmp_path),
+                             {"h": torch.zeros(2, 3, dtype=torch.bfloat16)},
+                             device="cpu")
+    assert got["h"].dtype == torch.bfloat16
+    assert torch.equal(got["h"].view(torch.int16), bits)
 
 
 def test_train_crash_restart_resumes_identically(tmp_path):
