@@ -39,7 +39,10 @@ depth (bf16, batch 8 x 1024 tokens, int8 gradient compression) with 48 K8
 and 48 K8b launches and one K3 and one K4 call per gradient leaf each
 step (a K3 call launches two kernels, its absmax and quantize passes),
 profiled; the launcher's ``train`` with a checkpoint that restores
-byte for byte; and K7 refusing to cut an autograd graph.  Any failed
+byte for byte; and K7 refusing to cut an autograd graph.  Last, K1 (3xTF32
+``wgmma``) at each distinct shape of a ResNet-50 request, with w in the
+layout the request hands over, beside ``torch.matmul``, its tile plan and
+both bounds (3xTF32 and the fp32 FMA pipes).  Any failed
 check raises, so the exit code is non-zero.  fp32 products and
 convolutions run without TF32 throughout (``allow_tf32 = False`` for both
 cuBLAS and cuDNN), so the plain versions are true fp32 references.
@@ -55,6 +58,7 @@ import cProfile
 import json
 import math
 import pstats
+import re
 import statistics
 import subprocess
 import sys
@@ -64,6 +68,7 @@ from pathlib import Path
 # H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12,     # fp32 FMA pipes, no tensor cores
+                  "tf32": 495e12,       # tensor cores, TF32
                   "bfloat16": 989e12,   # tensor cores
                   "float64": 34e12}     # fp64 FMA pipes, no tensor cores
 REQUESTS = 8
@@ -109,10 +114,41 @@ K3_ROW = 48 * 1024 * 4384
 
 
 def bound(nbytes, ops_, dtype):
-    """(least ms for the work, "bytes" or "operations")."""
+    """(least ms for the work, "bytes" or "operations"); dtype a torch dtype
+    or a key of PEAK_OPS_PER_S."""
+    key = dtype if isinstance(dtype, str) else str(dtype).split(".")[1]
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * ops_ / PEAK_OPS_PER_S[str(dtype).split(".")[1]]
+    t_ops = 1e3 * ops_ / PEAK_OPS_PER_S[key]
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bounds(M, K, N, dtype):
+    """K1's bound for the work it does, (ms, by): fp32 as three TF32
+    products on the tensor cores (3xTF32), bf16 as one bf16 product; and
+    the fp32 FMA pipes' bound of the same product (None for bf16)."""
+    import torch
+    esz = 4 if dtype == torch.float32 else 2
+    nbytes, flops = (M * K + K * N + M * N) * esz, 2 * M * N * K
+    if dtype != torch.float32:
+        return bound(nbytes, flops, dtype), None
+    return bound(nbytes, 3 * flops, "tf32"), bound(nbytes, flops, dtype)
+
+
+def k1_ptxas(log):
+    """{(dtype name, BM, BN): (registers, spilled bytes)} of each K1
+    instance, from ptxas's -v lines."""
+    out, key, spill = {}, None, 0
+    for ln in log.splitlines():
+        m = re.search(r"matmul_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d+)E", ln)
+        if m:
+            key = ("float32" if m[1] == "f" else "bfloat16",
+                   64 * int(m[2]), int(m[3]))
+        elif key and "spill" in ln:
+            spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill", ln))
+        elif key and "Used" in ln:
+            out[key] = (int(re.search(r"Used (\d+) registers", ln)[1]), spill)
+            key = None
+    return out
 
 
 def k6_bound(R, W):
@@ -1373,7 +1409,7 @@ def main() -> int:
     from repro_torch.kernels.lindley import lindley_scan
     from repro_torch.kernels.rglru import rglru_scan
     from repro_torch.kernels.ssd import ssd_scan
-    from repro_torch.kernels.systolic_matmul import (_ACTS, k_splits,
+    from repro_torch.kernels.systolic_matmul import (_ACTS, _lib, tile_plan,
                                                      systolic_matmul,
                                                      systolic_matmul_plain)
     from repro_torch.kernels.vector_engine import (fused_affine_act,
@@ -1407,6 +1443,20 @@ def main() -> int:
                      and " 0 bytes spill stores, 0 bytes spill loads" not in ln
                      for ln in log.splitlines())
         print(f"  {name}: ptxas {', '.join(regs)}; spills: {spills}")
+    k1_regs = k1_ptxas(logs.get("systolic_matmul", ""))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def k1_design(M, K, N, dtype):
+        """K1's plan for a shape and its instance's ptxas counts."""
+        esz = torch.tensor([], dtype=dtype).element_size()
+        bm, bn, sl = tile_plan(M, K, N, sms, bk=128 // esz)
+        name = str(dtype).split(".")[1]
+        regs, spill = k1_regs.get((name, bm, bn), ("(not rebuilt)", "?"))
+        smem = _lib().systolic_matmul_smem_bytes(bm, bn,
+                                                 _build.dtype_code(dtype))
+        kind = "3xtf32" if dtype == torch.float32 else "bf16"
+        return (f"{kind}-wgmma tile {bm}x{bn} cluster {sl}; ptxas {regs} "
+                f"registers, {spill} B spilled, {smem} B shared")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -1478,14 +1528,15 @@ def main() -> int:
             ms = time_ms(lambda: systolic_matmul(x, w))
             plain = time_ms(lambda: systolic_matmul_plain(x, w))
             lib = time_ms(lambda: torch.matmul(x, w))
-            esz = x.element_size()
-            bnd, by = bound((M * K + K * N + M * N) * esz, 2 * M * N * K, dtype)
+            (bnd, by), fma = k1_bounds(M, K, N, dtype)
+            fma = "" if fma is None else \
+                f" bound_fma_ms={fma[0]:.4f} ({fma[1]})"
             print(f"K1 systolic_matmul M={M} K={K} N={N} {dtype}: 12 cases "
                   f"(6 acts x bias) max_abs_err={err:.3e} rtol={rtol} "
                   f"atol={atol:.0e}; ms={ms:.4f} (per Python call "
                   f"{call_ms(lambda: systolic_matmul(x, w)):.4f}) plain_ms={plain:.4f} "
                   f"library_ms(torch.matmul)={lib:.4f} bound_ms={bnd:.4f} "
-                  f"({by})")
+                  f"({by}){fma}; {k1_design(M, K, N, dtype)}")
 
     k2_rows = {}
     for (M, N) in [(1, 150528), (256, 1024)]:
@@ -1567,7 +1618,8 @@ def main() -> int:
     real = ops.matmul_padded
 
     def record(x, w, *a, **kw):
-        k1_shapes.append((x.shape[0], x.shape[1], w.shape[1]))
+        k1_shapes.append((x.shape[0], x.shape[1], w.shape[1],
+                          not w.is_contiguous()))
         return real(x, w, *a, **kw)
 
     ops.matmul_padded = record
@@ -1663,35 +1715,49 @@ def main() -> int:
                                 time_ms, call_ms, max_err)
 
     # ---- the kernels line: K1 over one request's 53 shapes ---------------
+    # Each distinct shape is checked and timed once, with w in the layout the
+    # request hands over (K-major for the 3x3 and 7x7 convolutions), and
+    # counted as often as the request runs it.
     k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-          "err": 0.0, "bytes": 0.0, "operations": 0.0, "call_ms": 0.0}
+          "bound_fma_ms": 0.0, "err": 0.0, "bytes": 0.0, "operations": 0.0,
+          "call_ms": 0.0}
     per_shape = []
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rtol, atol = k1_tol(torch.float32, 1)
-    for (M, K, N) in k1_shapes:
+    counts = {}
+    for shape in k1_shapes:
+        counts[shape] = counts.get(shape, 0) + 1
+    for (M, K, N, kmajor), n in counts.items():
         x, w = randn(M, K), randn(K, N, std=math.sqrt(2.0 / K))
+        if kmajor:
+            w = w.t().contiguous().t()
         k1["err"] = max(k1["err"], max_err(
             systolic_matmul(x, w), systolic_matmul_plain(x, w), rtol,
             atol * max(1, K // 64), f"K1 request shape {(M, K, N)}"))
         ms = time_ms(lambda: systolic_matmul(x, w))
-        per_shape.append((ms, M, K, N, k_splits(M, N, K, sms)))
-        k1["ms"] += ms
-        k1["call_ms"] += call_ms(lambda: systolic_matmul(x, w), reps=10)
-        k1["plain_ms"] += time_ms(lambda: systolic_matmul_plain(x, w))
-        k1["library_ms"] += time_ms(lambda: torch.matmul(x, w))
-        bnd, by = bound((M * K + K * N + M * N) * 4, 2 * M * N * K,
-                        torch.float32)
-        k1["bound_ms"] += bnd
-        k1[by] += bnd
+        lib = time_ms(lambda: torch.matmul(x, w))
+        per_shape.append((M, K, N, kmajor, n, ms, lib))
+        k1["ms"] += n * ms
+        k1["library_ms"] += n * lib
+        k1["call_ms"] += n * call_ms(lambda: systolic_matmul(x, w), reps=10)
+        k1["plain_ms"] += n * time_ms(lambda: systolic_matmul_plain(x, w))
+        (bnd, by), (fma, _) = k1_bounds(M, K, N, torch.float32)
+        k1["bound_ms"] += n * bnd
+        k1[by] += n * bnd
+        k1["bound_fma_ms"] += n * fma
     k1_by = "bytes" if k1["bytes"] > k1["operations"] else "operations"
-    slow = "; ".join(f"M={M} K={K} N={N} splits={sp} {ms:.4f} ms"
-                     for ms, M, K, N, sp in sorted(per_shape)[::-1][:5])
+    shapes = "; ".join(
+        f"({M}, {K}, {N}){' K-major w' if kmajor else ''} x{n} {ms:.4f} ms "
+        f"torch.matmul {lib:.4f} "
+        f"{k1_design(M, K, N, torch.float32).split(';')[0]}"
+        for M, K, N, kmajor, n, ms, lib in per_shape)
     print(f"K1 over the {len(k1_shapes)} GEMMs of one ResNet-50 request "
-          f"(float32): ms={k1['ms']:.4f} (per Python call "
-          f"{k1['call_ms']:.4f}) plain_ms={k1['plain_ms']:.4f} "
+          f"(float32, {len(counts)} distinct): ms={k1['ms']:.4f} (per Python "
+          f"call {k1['call_ms']:.4f}) plain_ms={k1['plain_ms']:.4f} "
           f"library_ms={k1['library_ms']:.4f} bound_ms={k1['bound_ms']:.4f} "
-          f"({k1_by}: {k1['operations']:.4f} ms of it operations-bound) "
-          f"max_abs_err={k1['err']:.3e}; slowest: {slow}")
+          f"(3xTF32; {k1_by}: {k1['operations']:.4f} ms of it "
+          f"operations-bound) bound_fma_ms={k1['bound_fma_ms']:.4f} "
+          f"max_abs_err={k1['err']:.3e}; per shape (M, K, N) x count: "
+          f"{shapes}")
 
     k2 = k2_rows[(1, 224 * 224 * 3)]
     k5 = k5_rows[(122, torch.float32)]
@@ -1702,7 +1768,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/systolic_matmul.py:92",
          "launches": launches[0], "max_abs_err": k1["err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-         "bound_by": k1_by, "library_ms": k1["library_ms"]},
+         "bound_by": k1_by, "library_ms": k1["library_ms"],
+         "bound_fma_ms": k1["bound_fma_ms"]},
         {"name": "fused_affine_act", "route": "cuda",
          "source": src + "vector_engine.cu",
          "replaces": "src/repro/kernels/vector_engine.py:41",

@@ -65,6 +65,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -229,10 +230,6 @@ constexpr int BK = 64;           // keys a KV tile
 constexpr int THREADS = 256;
 constexpr int BLOCK_BYTES = 64 * 128;  // 64 rows x 64 bf16 columns, swizzled
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16 bytes global -> shared, zero-filled where !ok (src is then not read).
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool ok) {
@@ -247,39 +244,6 @@ __device__ __forceinline__ void publish_copies() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
-}
-
-// A wgmma shared-memory descriptor, 128-byte swizzle.  lbo and sbo in bytes.
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N committed groups of products are still running.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving reads or writes of registers that a
-// product in flight uses across the asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int h = 0; h < 4; ++h) asm volatile("" : "+r"(r[i][h])::"memory");
 }
 
 __device__ __forceinline__ float ex2(float x) {  // 2^x, -inf -> 0

@@ -70,7 +70,9 @@ def matmul(x, w, b=None, *, act="none", bm=128, bn=128, bk=128,
     if x.device.type == "cpu":
         return systolic_matmul_plain(x, w, b, act=act, out_dtype=out_dtype)
     _refuse_grad("matmul", x, w, b)
-    return systolic_matmul(x.contiguous(), w.contiguous(), b, act=act,
+    if not w.t().is_contiguous():     # K1 takes w row-major or K-major
+        w = w.contiguous()
+    return systolic_matmul(x.contiguous(), w, b, act=act,
                            out_dtype=out_dtype)
 
 

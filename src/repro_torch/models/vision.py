@@ -57,7 +57,12 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
         xc = _pad_same(x.permute(0, 3, 1, 2), kh, kw, stride)
         cols = F.unfold(xc, (kh, kw), stride=stride)          # (B, K, H'*W')
         patches = cols.transpose(1, 2).reshape(B * H2 * W2, c * kh * kw)
-    w2 = w.permute(2, 0, 1, 3).reshape(c * kh * kw, o)
+    if kh == kw == 1:
+        w2 = w.reshape(c, o)                    # a view: no copy
+    else:
+        # (K, N) K-major, as K1 stores its operands: the reshape copies
+        # either way, in F.unfold's (C, kh, kw) order
+        w2 = w.permute(3, 2, 0, 1).reshape(o, c * kh * kw).t()
     out = ops.matmul_padded(patches, w2)
     return out.reshape(B, H2, W2, o)
 

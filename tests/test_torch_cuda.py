@@ -99,6 +99,154 @@ def test_flash_attention_matches_plain(cuda, b, h, kv, sq, skv, d, causal,
                                atol=0.03 if bf else 2e-4)
 
 
+# The 20 distinct (M, K, N) of the 53 GEMMs of one ResNet-50 request at
+# 224x224, batch 1 (im2col convolutions).
+REQUEST_SHAPES = [
+    (12544, 147, 64), (3136, 64, 256), (3136, 64, 64), (3136, 576, 64),
+    (3136, 256, 64), (3136, 256, 128), (784, 256, 512), (784, 1152, 128),
+    (784, 128, 512), (784, 512, 128), (784, 512, 256), (196, 512, 1024),
+    (196, 2304, 256), (196, 256, 1024), (196, 1024, 256), (196, 1024, 512),
+    (49, 1024, 2048), (49, 4608, 512), (49, 512, 2048), (49, 2048, 512)]
+
+
+def tf32_split(a: torch.Tensor):
+    """fp32 -> (hi, lo) as K1 splits it: hi is a with its low 13 mantissa
+    bits cleared (TF32 by truncation), lo is a - hi cleared the same way."""
+    hi = (a.view(torch.int32) & -8192).view(torch.float32)
+    lo = ((a - hi).view(torch.int32) & -8192).view(torch.float32)
+    return hi, lo
+
+
+def tf32_product(x: torch.Tensor, w: torch.Tensor, terms: int) -> torch.Tensor:
+    """x @ w in fp32 from TF32 operands: one product (1xTF32) or K1's three
+    (3xTF32: hi.hi + hi.lo + lo.hi)."""
+    xh, xl = tf32_split(x)
+    wh, wl = tf32_split(w)
+    if terms == 1:
+        return xh @ wh
+    return xl @ wh + xh @ wl + xh @ wh
+
+
+def rel_frobenius(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double(), want.double()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def _k1_close(got, want, k):
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=2e-4 * max(1, k // 64))
+
+
+@pytest.mark.parametrize("m,k,n", REQUEST_SHAPES)
+def test_systolic_matmul_request_shapes_match_plain(cuda, m, k, n):
+    rng = np.random.default_rng(m + k + n)
+    x, w = _randn(rng, (m, k), torch.float32, cuda), \
+        _randn(rng, (k, n), torch.float32, cuda)
+    _k1_close(systolic_matmul(x, w), systolic_matmul_plain(x, w), k)
+
+
+def test_systolic_matmul_is_3xtf32_not_1xtf32(cuda):
+    """At N(0, 1) inputs one TF32 product is off by ~7.7e-4 (relative
+    Frobenius, against fp64); K1's three products by ~5e-7."""
+    rng = np.random.default_rng(17)
+    m, k, n = 196, 2304, 256
+    x, w = _randn(rng, (m, k), torch.float32, cuda), \
+        _randn(rng, (k, n), torch.float32, cuda)
+    exact = x.double() @ w.double()
+    assert rel_frobenius(systolic_matmul(x, w), exact) < 1e-5
+    assert rel_frobenius(tf32_product(x, w, 1), exact) > 1e-4
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 147, 53), (196, 2304, 256),
+                                   (49, 4608, 512)])
+def test_systolic_matmul_non_finite_as_plain(cuda, m, k, n):
+    """Exactly the plain version's non-finite outputs are non-finite; NaN
+    may stand for +-inf (a cross term inf * lo with lo = 0)."""
+    rng = np.random.default_rng(5)
+    x, w = _randn(rng, (m, k), torch.float32, cuda), \
+        _randn(rng, (k, n), torch.float32, cuda)
+    x[3, 5] = float("inf")
+    x[7, k - 1] = float("nan")
+    w[k // 2, 2] = -float("inf")
+    got, want = systolic_matmul(x, w), systolic_matmul_plain(x, w)
+    bad = ~torch.isfinite(want)
+    assert bad.any() and torch.equal(~torch.isfinite(got), bad)
+    assert torch.isnan(got[torch.isnan(want)]).all()
+    inf = torch.isinf(want)
+    assert ((got[inf] == want[inf]) | torch.isnan(got[inf])).all()
+    _k1_close(got[~bad], want[~bad], k)
+
+
+def test_systolic_matmul_split_k_repeats_bit_for_bit(cuda):
+    from repro_torch.kernels.systolic_matmul import tile_plan
+    m, k, n = 49, 4608, 512
+    assert tile_plan(m, k, n, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)[2] > 1
+    rng = np.random.default_rng(3)
+    x, w = _randn(rng, (m, k), torch.float32, cuda), \
+        _randn(rng, (k, n), torch.float32, cuda)
+    assert torch.equal(systolic_matmul(x, w), systolic_matmul(x, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_systolic_matmul_takes_views_at_a_4_byte_offset(cuda, dtype):
+    """K = 147 and bases 4 bytes off 16: the element-wise load path."""
+    rng = np.random.default_rng(11)
+    m, k, n = 300, 147, 130
+    skip = 4 // torch.tensor([], dtype=dtype).element_size()
+    fx = _randn(rng, (m * k + skip,), dtype, cuda)
+    fw = _randn(rng, (k * n + skip,), dtype, cuda)
+    x, w = fx[skip:].view(m, k), fw[skip:].view(k, n)
+    assert x.data_ptr() % 16 == 4 and w.data_ptr() % 16 == 4
+    got = systolic_matmul(x, w, act="relu")
+    want = systolic_matmul_plain(x, w, act="relu")
+    bf = dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=0.05 if bf else 1e-4,
+                               atol=(2e-2 if bf else 2e-4) * max(1, k // 64))
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 147, 53), (300, 576, 64),
+                                   (196, 2304, 256), (49, 4608, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_systolic_matmul_takes_a_k_major_w(cuda, m, k, n, dtype):
+    """w as the transpose of a contiguous (N, K) tensor, as models/vision.py
+    hands over a 3x3 or 7x7 convolution's weight, straight to the kernel."""
+    rng = np.random.default_rng(13)
+    x = _randn(rng, (m, k), dtype, cuda)
+    w = _randn(rng, (n, k), dtype, cuda).t()
+    b = _randn(rng, (n,), dtype, cuda)
+    assert not w.is_contiguous()
+    before = systolic_matmul.launches
+    got = ops.matmul(x, w, b, act="silu")
+    assert systolic_matmul.launches == before + 1
+    want = systolic_matmul_plain(x, w, b, act="silu")
+    bf = dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=0.05 if bf else 1e-4,
+                               atol=(2e-2 if bf else 2e-4) * max(1, k // 64))
+
+
+def test_systolic_matmul_is_one_launch_without_a_reduce(cuda):
+    """Split-K is summed inside the launch: the profiler sees one kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(4)
+    x, w = _randn(rng, (49, 4608), torch.float32, cuda), \
+        _randn(rng, (4608, 512), torch.float32, cuda)
+    systolic_matmul(x, w)                          # built and loaded
+    torch.cuda.synchronize()
+    before = systolic_matmul.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        systolic_matmul(x, w)
+        torch.cuda.synchronize()
+    assert systolic_matmul.launches == before + 1
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "matmul_kernel" in kernels[0].name, \
+        [e.name for e in kernels]
+
+
 def test_ops_launch_kernels_for_cuda_tensors(cuda):
     x = torch.ones((4, 8), device=cuda)
     w = torch.ones((8, 3), device=cuda)

@@ -16,9 +16,11 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.systolic_matmul import (_ACTS, k_splits,
-                                                 systolic_matmul)
+from repro_torch.kernels.systolic_matmul import (_ACTS, systolic_matmul,
+                                                 tile_plan)
 from repro_torch.kernels.vector_engine import fused_affine_act
+from test_torch_cuda import (REQUEST_SHAPES, rel_frobenius, tf32_product,
+                             tf32_split)
 
 _DTYPES = {"float32": (jnp.float32, torch.float32),
            "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -184,11 +186,33 @@ def test_cuda_wrappers_validate_shapes():
         flash_attention(*(torch.ones((1, 1, 4, 24)),) * 3)
 
 
-@pytest.mark.parametrize("m,k,n,want", [
-    (12544, 147, 64, 1),   # ResNet-50 stem: 196 tiles fill 132 SMs
-    (3136, 576, 64, 4),    # stage 1 3x3: 49 tiles, K in 4 slices of 144
-    (49, 4608, 512, 33),   # stage 4 3x3: 8 tiles, about 2 blocks per SM
-    (49, 100, 40, 1),      # K too short to split
-])
-def test_k_splits_fill_the_card(m, k, n, want):
-    assert k_splits(m, n, k, sms=132) == want
+@pytest.mark.parametrize("m,k,n", REQUEST_SHAPES)
+def test_tile_plan_fills_the_card(m, k, n):
+    """K1's picker on 132 SMs: a cluster of at most 8 k-slices, at least 128
+    of K a slice where K is split, and at least half a wave of blocks where
+    the shape allows one."""
+    bm, bn, s = tile_plan(m, k, n, sms=132)
+    assert bm in (64, 128) and bn in (32, 64, 128) and 1 <= s <= 8
+    if s > 1:
+        assert -(-k // s) >= 128
+    most = max(-(-m // tm) * -(-n // tn) for tm in (64, 128)
+               for tn in (32, 64, 128)) * max(1, min(8, k // 128))
+    if most >= 66:
+        assert -(-m // bm) * -(-n // bn) * s >= 66
+
+
+def test_3xtf32_emulation_is_fp32_accurate():
+    """K1's arithmetic in plain PyTorch at (196, 2304, 256), N(0, 1): three
+    TF32 products (low 13 mantissa bits cleared) are within 1e-5 of fp64,
+    one is not within 1e-4; the split loses nothing of a finite value
+    beyond lo's own truncation."""
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.standard_normal((196, 2304), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((2304, 256), dtype=np.float32))
+    exact = x.double() @ w.double()
+    assert rel_frobenius(tf32_product(x, w, 3), exact) < 1e-5
+    assert rel_frobenius(tf32_product(x, w, 1), exact) > 1e-4
+    hi, lo = tf32_split(x)
+    assert not (hi.view(torch.int32) & 8191).any()
+    assert ((x.double() - hi.double() - lo.double()).abs()
+            <= x.double().abs() * 2.0 ** -21).all()

@@ -142,3 +142,26 @@ def test_port_initialisers_match_jax_shapes(model):
     assert jdef == tdef
     for a, b in zip(jleaves, tleaves):
         assert tuple(a.shape) == tuple(getattr(b, "shape", ()))
+
+
+def test_conv2d_hands_k1_its_weight_layout(monkeypatch):
+    """A 3x3 or 7x7 weight reaches K1 K-major (the copy its reshape makes
+    either way), a 1x1 weight as a row-major view of itself, and the result
+    is the same convolution."""
+    seen = []
+    real = vision.ops.matmul_padded
+
+    def record(x, w, *a, **kw):
+        seen.append((w.is_contiguous(), w.t().is_contiguous()))
+        return real(x, w, *a, **kw)
+
+    monkeypatch.setattr(vision.ops, "matmul_padded", record)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 9, 9, 4, generator=gen)
+    for k, stride in ((1, 1), (3, 2), (7, 2)):
+        w = torch.randn(k, k, 4, 5, generator=gen)
+        torch.testing.assert_close(
+            vision.conv2d(x, w, stride, use_kernel=True),
+            vision.conv2d(x, w, stride, use_kernel=False),
+            rtol=1e-5, atol=1e-5)
+    assert seen == [(True, False), (False, True), (False, True)]
