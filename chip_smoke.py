@@ -16,7 +16,8 @@ cuda traces byte-identical to the numpy ones and K6 launched once for each
 length bucket; and the Zipf-skewed solver of ``lindley-zipf-1m``.  The LM
 slice last: K8, the Mamba-2 SSD chunk scan, against its plain version at
 ``tests/test_kernels.py``'s shapes, with h0, and at Mamba-2 370M's layer
-shape in bf16 and fp32; ``serve("mamba2-370m", smoke=False)`` at full width
+shape in bf16 and fp32, with the grid that spreads its chunks over
+clusters of blocks; ``serve("mamba2-370m", smoke=False)`` at full width
 and depth (48 layers, bf16, batch 4, 1024-token prompts, 32 new tokens)
 with K8 launched once per layer; at fp32 the served prefill against one
 with K8's plain version swapped in, and decode == forward.  Phase 9, the
@@ -32,7 +33,8 @@ and decode == forward.  Phase 10, the training slice: K3 and K4, int8
 quantize and dequantize, byte for byte against their plain versions (one
 row of 215,482,368 elements among them, the stacked in_proj's gradient);
 K8b, the SSD scan's gradient, against its plain version at
-``tests/test_kernels.py``'s shapes in fp32 and at the layer shape in bf16;
+``tests/test_kernels.py``'s shapes in fp32 and at the layer shape in bf16,
+and its grid;
 the full model's loss and every gradient leaf at fp32 with K8/K8b and with
 their plain versions; 10 AdamW steps of Mamba-2 370M at full width and
 depth (bf16, batch 8 x 1024 tokens, int8 gradient compression) with 48 K8
@@ -474,7 +476,25 @@ def check_k8(dev, time_ms, call_ms, max_err):
                      f"plain_ms={plain:.4f} library_ms=none bound_ms={bnd:.4f} "
                      f"({by})")
         print(line)
+    print_ssd_launch("K8", K8_LAYER, backward=False)
     return worst, times
+
+
+def print_ssd_launch(name, shape, backward):
+    """The grid K8 (K8b) launches at a layer shape, as the library
+    computes it: the chunks of one (batch row, head) spread over a
+    cluster of blocks."""
+    import torch
+    from repro_torch.kernels.ssd import launch_shape
+    for dtype in (torch.bfloat16, torch.float32):
+        ls = launch_shape(*shape, dtype, backward=backward)
+        heads = (f", {ls['heads_per_block']} heads a block" if backward
+                 else "")
+        print(f"{name} launch B,S,H,P,G,N={shape} {dtype}: grid "
+              f"{ls['grid']}, {ls['blocks']} blocks in clusters of "
+              f"{ls['cluster']} along y (the 64-row chunks of one batch row "
+              f"and head spread over a cluster{heads}), "
+              f"{ls['smem_bytes']} bytes of shared memory a block")
 
 
 def profile_run(what, run, steps, kernels, unit):
@@ -1144,6 +1164,7 @@ def check_k8b(dev, time_ms, call_ms, max_err):
               f"bound_ms={bnd:.4f} ({by})")
         del x, dt, A, Bm, Cm, dy, states, run
         torch.cuda.empty_cache()
+    print_ssd_launch("K8b", K8B_LAYER, backward=True)
     return {"max_abs_err": worst, **times[torch.bfloat16]}
 
 

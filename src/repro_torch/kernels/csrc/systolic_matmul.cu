@@ -64,6 +64,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -186,41 +187,6 @@ constexpr int smem_bytes() {
   return (ring > partial ? ring : partial) + 1024;   // + 1 KB to align
 }
 
-// v = hi + lo + (what is dropped, ~2^-22 |v|), hi and lo TF32 values.
-__device__ __forceinline__ void split_tf32(uint32_t bits, uint32_t& hi,
-                                           uint32_t& lo) {
-  if ((bits & 0x7f800000u) == 0x7f800000u) {     // inf or NaN
-    hi = (bits & 0x007fffffu) ? 0x7fffffffu : bits;
-    lo = 0u;
-    return;
-  }
-  hi = bits & 0xffffe000u;
-  lo = __float_as_uint(__uint_as_float(bits) - __uint_as_float(hi)) &
-       0xffffe000u;
-}
-
-__device__ __forceinline__ uint4 ldg16(const void* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
-
-// One 16-byte chunk read element by element: the first `n` elements (zeros
-// past them), for rows and bases that 16-byte loads cannot take.
-__device__ __forceinline__ uint4 ld_chunk(const float* p, int n) {
-  uint32_t v[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = j < n ? __float_as_uint(p[j]) : 0u;
-  return make_uint4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ uint4 ld_chunk(const __nv_bfloat16* p, int n) {
-  const uint16_t* q = reinterpret_cast<const uint16_t*>(p);
-  uint32_t v[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    v[j] = (2 * j < n ? q[2 * j] : 0u) |
-           ((2 * j + 1 < n ? static_cast<uint32_t>(q[2 * j + 1]) : 0u) << 16);
-  return make_uint4(v[0], v[1], v[2], v[3]);
-}
-
 __device__ __forceinline__ void st_shared16(uint32_t a, uint32_t x0,
                                             uint32_t x1, uint32_t x2,
                                             uint32_t x3) {
@@ -238,32 +204,6 @@ __device__ __forceinline__ void st_shared2(uint32_t a, uint16_t v) {
 // Byte offset of 16-byte chunk c of row r in a 128-byte swizzled tile.
 __device__ __forceinline__ uint32_t swz(int r, int c) {
   return r * ROW_BYTES + ((c ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// 16 bytes at shared address `addr` of cluster rank `rank`.
-__device__ __forceinline__ float4 ld_cluster16(uint32_t addr, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(addr), "r"(rank));
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(remote)
-               : "memory");
-  return v;
 }
 
 // Elements o[0 .. W) of a row of the output at `at`, of which only the

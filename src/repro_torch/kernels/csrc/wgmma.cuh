@@ -1,15 +1,13 @@
 // Hopper warpgroup matrix-multiply (wgmma) helpers shared by the kernels
 // that run on the tensor cores (flash_attention.cu, systolic_matmul.cu):
-// shared-memory addresses and descriptors for the 128-byte swizzled layout
+// shared-memory descriptors for the 128-byte swizzled layout
 // (16-byte chunk c of a 128-byte row r at chunk c ^ (r % 8), 8-row groups
 // 1 KB apart), and the fence, commit and wait of the asynchronous products.
 #pragma once
 
 #include <cstdint>
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+#include "common.cuh"
 
 // A wgmma shared-memory descriptor, 128-byte swizzle.  lbo and sbo in bytes.
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,

@@ -20,6 +20,13 @@ JAX package has no kernel for it (it differentiates ``ssd_chunked``);
 state entering each of its 64-row chunks for K8b (fp32, B * H * ceil(S /
 64) * P * N * 4 bytes: 134 MB a layer at (8, 1024, 32, 64, 128)), and the
 plain versions on the CPU.
+
+Both kernels spread the chunks of one (batch row, head) over a
+thread-block cluster of up to 8 blocks and run their products on the
+tensor cores (``csrc/ssd.cu``'s note); ``launch_shape`` gives the grid.
+K8b sums dB and dC over the heads a block takes (2 in bf16, 1 in fp32), so
+its partials are (B, S, H / heads, N) a P tile, which the wrapper sums in
+a fixed order.
 """
 from __future__ import annotations
 
@@ -105,6 +112,9 @@ def ssd_scan_bwd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd")
     if lib.ssd_scan.argtypes is None:
+        lib.ssd_launch_shape.argtypes = ([ctypes.c_int] * 8
+                                         + [ctypes.POINTER(ctypes.c_int)])
+        lib.ssd_launch_shape.restype = ctypes.c_int
         lib.ssd_scan.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                                  + [ctypes.c_void_p])
         lib.ssd_scan.restype = ctypes.c_int
@@ -112,6 +122,24 @@ def _lib() -> ctypes.CDLL:
                                      + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.ssd_scan_bwd.restype = ctypes.c_int
     return lib
+
+
+def launch_shape(B: int, S: int, H: int, P: int, G: int, N: int,
+                 dtype: torch.dtype, backward: bool = False) -> dict:
+    """K8's (or, with ``backward``, K8b's) launch at these sizes, as the
+    library computes it: ``grid`` (x, y, z), the ``cluster`` of blocks
+    along y that share one (batch row, head) or (batch row, heads), the
+    ``blocks``, each block's dynamic shared memory ``smem_bytes`` and K8b's
+    ``heads_per_block``."""
+    out = (ctypes.c_int * 5)()
+    lib = _lib()
+    err = lib.ssd_launch_shape(B, S, H, P, G, N, _build.dtype_code(dtype),
+                               int(backward), out)
+    _build.check(lib, err, "ssd_launch_shape")
+    grid = tuple(out[:3])
+    return {"grid": grid, "cluster": grid[1],
+            "blocks": grid[0] * grid[1] * grid[2], "smem_bytes": out[3],
+            "heads_per_block": out[4]}
 
 
 def _check_args(name, x, dt, A, Bm, Cm, h0, chunk):
@@ -201,12 +229,15 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _build.require_cuda("ssd_scan_bwd", dy, states,
                         *(() if dstate is None else (dstate,)))
     npt = -(-P // P_TILE)
+    nc = -(-S // KERNEL_CHUNK)
+    hbg = -(-(H // G) // launch_shape(Bsz, S, H, P, G, N, x.dtype,
+                                      backward=True)["heads_per_block"])
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     ddt_p = torch.empty((npt, Bsz, S, H), **f32)
-    dA_p = torch.empty((npt, Bsz, H), **f32)
-    dB_p = torch.empty((npt, Bsz, S, H, N), **f32)
-    dC_p = torch.empty((npt, Bsz, S, H, N), **f32)
+    dA_p = torch.empty((npt, Bsz, nc, H), **f32)
+    dB_p = torch.empty((npt, Bsz, S, G * hbg, N), **f32)
+    dC_p = torch.empty((npt, Bsz, S, G * hbg, N), **f32)
     dh0 = torch.empty((Bsz, H, P, N), **f32)
     lib = _lib()
     with torch.cuda.device(x.device):
@@ -220,11 +251,11 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _build.check(lib, err, "ssd_scan_bwd")
     ssd_scan_bwd.launches += 1
 
-    def per_group(t):      # (npt, B, S, H, N) -> (B, S, G, N), summed in fp32
-        return t.sum(0).view(Bsz, S, G, H // G, N).sum(3).to(Bm.dtype)
+    def per_group(t):   # (npt, B, S, G * hbg, N) -> (B, S, G, N), in fp32
+        return t.view(npt, Bsz, S, G, hbg, N).sum((0, 4)).to(Bm.dtype)
 
-    return (dx, ddt_p.sum(0), dA_p.sum((0, 1)), per_group(dB_p),
-            per_group(dC_p), dh0)
+    return (dx, ddt_p[0] if npt == 1 else ddt_p.sum(0), dA_p.sum((0, 1, 2)),
+            per_group(dB_p), per_group(dC_p), dh0)
 
 
 ssd_scan.launches = 0

@@ -342,11 +342,18 @@ def _ssd_inputs(b, s, h, p, g, n, dtype, dev, seed=0):
     return x, dt, A, Bm, Cm
 
 
+# the edges of the kernels' cluster of chunks: S < 64 (1 and 17 rows), 9
+# chunks (runs of 2 over 5 blocks), 64 chunks (runs of 8 over 8 blocks),
+# H / G = 3 heads in K8b's blocks of 2 (bf16), N of 8, 16 and 32
+SSD_EDGES = [(1, 1, 2, 16, 1, 16, 1), (2, 17, 4, 32, 2, 8, 17),
+             (1, 576, 4, 64, 1, 32, 64), (1, 4096, 4, 64, 1, 16, 256),
+             (2, 320, 6, 64, 2, 32, 64)]
 # tests/test_kernels.py::test_ssd_kernel's shapes, a ragged 63-row tail, a
-# P wider than one tile, and Mamba-2 370M's layer at batch 1
+# P wider than one tile, Mamba-2 370M's layer at batch 1, and the edges
 SSD_SHAPES = [(2, 128, 4, 32, 2, 16, 32), (1, 256, 2, 16, 1, 8, 64),
               (2, 64, 4, 16, 4, 16, 64), (2, 255, 4, 64, 1, 128, 256),
-              (1, 96, 2, 80, 2, 32, 96), (1, 1024, 32, 64, 1, 128, 256)]
+              (1, 96, 2, 80, 2, 32, 96),
+              (1, 1024, 32, 64, 1, 128, 256)] + SSD_EDGES
 
 
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_SHAPES)
@@ -370,6 +377,8 @@ def test_ssd_scan_matches_plain(cuda, b, s, h, p, g, n, chunk, dtype,
     torch.testing.assert_close(y.float(), yp.float(), rtol=1e-2 if bf else 1e-3,
                                atol=1e-2 if bf else 1e-4)
     torch.testing.assert_close(hf, hp, rtol=1e-3, atol=1e-4)
+    y2, hf2 = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    assert torch.equal(y, y2) and torch.equal(hf, hf2)   # no float atomics
 
 
 def test_ops_ssd_launches_the_kernel_for_cuda_tensors(cuda):
@@ -714,7 +723,7 @@ def _bwd_inputs(b, s, h, p, g, n, dtype, dev, seed=0):
 BWD_NAMES = ("dx", "ddt", "dA", "dBm", "dCm", "dh0")
 
 
-@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_SHAPES[:5])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_SHAPES[:5] + SSD_EDGES)
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_ssd_scan_bwd_matches_plain(cuda, b, s, h, p, g, n, chunk, with_h0):
     """fp32, within K8's card bar (rtol 1e-3, atol 1e-4): the kernel walks
@@ -770,6 +779,40 @@ def test_ssd_scan_bwd_bf16_at_the_layer_shape(cuda):
         assert gg.dtype == ww.dtype, name
         rel = ((gg.float() - ww.float()).norm() / ww.float().norm()).item()
         assert rel <= 1e-2, (name, rel)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_EDGES)
+def test_ssd_scan_bwd_bf16_at_the_edges(cuda, b, s, h, p, g, n, chunk):
+    """bf16 with h0 and dstate at the cluster's edges: each gradient within
+    1e-2 relative Frobenius error of the plain version (the layer shape's
+    bar), and the same bytes from run to run."""
+    x, dt, A, Bm, Cm, h0, dy, dstate = _bwd_inputs(b, s, h, p, g, n,
+                                                   torch.bfloat16, cuda)
+    _, _, states = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0,
+                            keep_states=True)
+    got = ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dstate, chunk=chunk,
+                       states=states)
+    want = ssd_scan_bwd_plain(x, dt, A, Bm, Cm, h0, dy, dstate, chunk=chunk)
+    for name, gg, ww in zip(BWD_NAMES, got, want):
+        assert gg.dtype == ww.dtype and gg.shape == ww.shape, name
+        rel = ((gg.float() - ww.float()).norm() / ww.float().norm()).item()
+        assert rel <= 1e-2, (name, rel)
+    again = ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dstate, chunk=chunk,
+                         states=states)
+    for gg, aa in zip(got, again):
+        assert torch.equal(gg, aa)
+
+
+def test_ssd_launch_spreads_the_chunks(cuda):
+    """K8 and K8b at the layer shapes: a cluster of 8 blocks a (batch row,
+    head), two heads a K8b block in bf16."""
+    from repro_torch.kernels.ssd import launch_shape
+    fwd = launch_shape(4, 1024, 32, 64, 1, 128, torch.bfloat16)
+    bwd = launch_shape(8, 1024, 32, 64, 1, 128, torch.bfloat16,
+                       backward=True)
+    assert fwd["grid"] == (128, 8, 1) and fwd["blocks"] == 1024
+    assert bwd["grid"] == (128, 8, 1) and bwd["heads_per_block"] == 2
+    assert launch_shape(1, 576, 4, 64, 1, 32, torch.float32)["cluster"] == 5
 
 
 def test_ops_ssd_under_grad_runs_k8_and_k8b(cuda):

@@ -213,6 +213,199 @@ def test_ssd_scan_bwd_refuses_cpu_tensors_and_bad_arguments():
     assert ssd_scan_bwd.launches == before
 
 
+# ---- the chunk-parallel split of K8 and K8b, modelled in plain PyTorch ----
+# csrc/ssd.cu spreads the chunks of one (batch row, head) over a cluster of
+# blocks: block k takes a run of chunks, forms its run-local state (or, in
+# the backward, its run-local gradient Delta) from zero, and the state
+# entering its run is the decayed prefix over the runs before it (the
+# gradient leaving it the decayed suffix over the runs after it).  K8b sums
+# dB and dC over the heads a block takes.  The model below is that algebra
+# at small sizes (chunks of T rows, clusters of up to CLUSTER blocks), held
+# to the JAX package, so that a derivation error shows before the card.
+
+SPLIT_T, SPLIT_CLUSTER = 16, 4
+# (B, S, H, P, G, N, heads a block, the reference's chunk): several runs
+# with a ragged last chunk (S 102: 7 chunks of 16, runs of 2, the last run
+# one chunk) and H / G = 3 heads in blocks of 2 and 1; S < T; runs of 1.
+SPLIT_SHAPES = [(2, 102, 6, 8, 2, 4, 2, 34), (1, 12, 2, 8, 1, 8, 2, 12),
+                (1, 64, 4, 4, 2, 8, 1, 32)]
+
+
+def _plan(S):
+    nc = -(-S // SPLIT_T)
+    run = -(-nc // SPLIT_CLUSTER)
+    return nc, run, -(-nc // run)
+
+
+def _chunks(x, dt, A, Bm, Cm, dy=None):
+    """Per chunk of SPLIT_T rows (zeros past S): x, dy, B, C by head, dt,
+    cum (the running sum of dt A), its last value cl, the masked decays
+    L[b, i, j, h] (masked before exp), exp(cum) and exp(cl - cum)."""
+    Bsz, S, H, P = x.shape
+    rep = H // Bm.shape[2]
+    nc = -(-S // SPLIT_T)
+    pad = lambda t: torch.nn.functional.pad(
+        t, (0, 0) * (t.dim() - 2) + (0, nc * SPLIT_T - S))
+    Bh, Ch = (pad(t.repeat_interleave(rep, dim=2)) for t in (Bm, Cm))
+    xs, dts = pad(x), pad(dt)
+    dys = pad(dy) if dy is not None else None
+    upper = ~torch.ones(SPLIT_T, SPLIT_T, dtype=torch.bool).tril()
+    out = []
+    for c in range(nc):
+        r = slice(c * SPLIT_T, (c + 1) * SPLIT_T)
+        cum = torch.cumsum(dts[:, r] * A, dim=1)
+        cl = cum[:, -1]
+        diff = (cum[:, :, None] - cum[:, None, :]).masked_fill(
+            upper[None, :, :, None], float("-inf"))
+        out.append(dict(x=xs[:, r], dy=None if dys is None else dys[:, r],
+                        B=Bh[:, r], C=Ch[:, r], dt=dts[:, r], cum=cum, cl=cl,
+                        L=torch.exp(diff), ecum=torch.exp(cum),
+                        el=torch.exp(cl[:, None] - cum)))
+    return out
+
+
+def _local_state(ch, st):
+    """exp(cl) st + sum_j exp(cl - cum_j) dt_j x_j B_j^T."""
+    return (torch.exp(ch["cl"])[..., None, None] * st + torch.einsum(
+        "bjhp,bjhn->bhpn", ch["x"] * (ch["dt"] * ch["el"])[..., None],
+        ch["B"]))
+
+
+def _split_forward(x, dt, A, Bm, Cm, h0):
+    """K8's split: (y, final state, the state entering each chunk)."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[3]
+    chunks = _chunks(x, dt, A, Bm, Cm)
+    nc, run, R = _plan(S)
+    runs = [range(k * run, min(nc, (k + 1) * run)) for k in range(R)]
+    zero = torch.zeros(Bsz, H, P, N)
+    loc, ld = [], []
+    for k in range(R):                        # each block, independently
+        st, l = zero, torch.zeros(Bsz, H)
+        for c in runs[k]:
+            st = _local_state(chunks[c], st)
+            l = l + chunks[c]["cl"]
+        loc.append(st)
+        ld.append(l)
+    ys, states = [], []
+    for k in range(R):
+        st = zero if h0 is None else h0       # the decayed prefix
+        for j in range(k):
+            st = torch.exp(ld[j])[..., None, None] * st + loc[j]
+        for c in runs[k]:
+            ch = chunks[c]
+            states.append(st)
+            W = (torch.einsum("bihn,bjhn->bijh", ch["C"], ch["B"]) * ch["L"]
+                 * ch["dt"][:, None])
+            ys.append(torch.einsum("bijh,bjhp->bihp", W, ch["x"])
+                      + ch["ecum"][..., None]
+                      * torch.einsum("bihn,bhpn->bihp", ch["C"], st))
+            st = _local_state(ch, st)
+    return torch.cat(ys, 1)[:, :S], st, torch.stack(states, 2)
+
+
+def _split_backward(x, dt, A, Bm, Cm, states, dy, dstate, hpb):
+    """K8b's split from K8's kept chunk states: (dx, ddt, dA, dBm, dCm,
+    dh0), dB and dC summed over blocks of ``hpb`` heads of a group, then
+    over the blocks."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    HG = H // G
+    chunks = _chunks(x, dt, A, Bm, Cm, dy)
+    nc, run, R = _plan(S)
+    runs = [range(k * run, min(nc, (k + 1) * run)) for k in range(R)]
+    g_in = lambda ch, g: (torch.exp(ch["cl"])[..., None, None] * g
+                          + torch.einsum("bihp,bihn->bhpn",
+                                         ch["dy"] * ch["ecum"][..., None],
+                                         ch["C"]))
+    zero = torch.zeros(Bsz, H, P, N)
+    delta, ld = [], []
+    for k in range(R):                        # run-local gradients
+        g, l = zero, torch.zeros(Bsz, H)
+        for c in reversed(runs[k]):
+            g = g_in(chunks[c], g)
+            l = l + chunks[c]["cl"]
+        delta.append(g)
+        ld.append(l)
+    dx, ddt = torch.zeros(Bsz, nc * SPLIT_T, H, P), torch.zeros(
+        Bsz, nc * SPLIT_T, H)
+    dB_h, dC_h = (torch.zeros(Bsz, nc * SPLIT_T, H, N) for _ in range(2))
+    dA = torch.zeros(H)
+    for k in range(R):
+        g = zero if dstate is None else dstate   # the decayed suffix
+        for j in range(R - 1, k, -1):
+            g = torch.exp(ld[j])[..., None, None] * g + delta[j]
+        for c in reversed(runs[k]):
+            ch, s_in = chunks[c], states[:, :, c]
+            r = slice(c * SPLIT_T, (c + 1) * SPLIT_T)
+            d, el, ecum = ch["dt"], ch["el"], ch["ecum"]
+            M = torch.einsum("bihn,bjhn->bijh", ch["C"], ch["B"]) * ch["L"]
+            DX = torch.einsum("bihp,bjhp->bijh", ch["dy"], ch["x"])
+            Q = ch["L"] * DX
+            Rp = M * DX
+            BG = torch.einsum("bihn,bhpn->bihp", ch["B"], g)
+            u = (ch["x"] * BG).sum(-1)
+            v = (ch["dy"] * torch.einsum("bihn,bhpn->bihp", ch["C"],
+                                         s_in)).sum(-1)
+            w = (g * s_in).sum((-2, -1))
+            rowR = torch.einsum("bijh,bjh->bih", Rp, d)
+            colR = Rp.sum(1)
+            dcum = rowR - d * colR + ecum * v - el * d * u
+            dcum[:, -1] += (torch.exp(ch["cl"]) * w
+                            + (el * d * u).sum(1))
+            suffix = dcum.flip(1).cumsum(1).flip(1)
+            ddt[:, r] = colR + el * u + A * suffix
+            dA = dA + (d * suffix).sum((0, 1))
+            dx[:, r] = d[..., None] * (el[..., None] * BG + torch.einsum(
+                "bith,bihp->bthp", M, ch["dy"]))
+            dC_h[:, r] = (ecum[..., None] * torch.einsum(
+                "bthp,bhpn->bthn", ch["dy"], s_in) + torch.einsum(
+                "btjh,bjhn->bthn", Q * d[:, None], ch["B"]))
+            dB_h[:, r] = d[..., None] * (el[..., None] * torch.einsum(
+                "bthp,bhpn->bthn", ch["x"], g) + torch.einsum(
+                "bith,bihn->bthn", Q, ch["C"]))
+            g = g_in(ch, g)
+        if k == 0:
+            dh0 = g                           # the first run's block
+    # per block of heads, then over the blocks of a group
+    blocks = [(grp * HG + lo, grp * HG + min(HG, lo + hpb))
+              for grp in range(G) for lo in range(0, HG, hpb)]
+    per_block = lambda t: torch.stack(
+        [t[:, :, a:e].sum(2) for a, e in blocks], 2)
+    per_group = lambda t: per_block(t)[:, :S].view(
+        Bsz, S, G, -(-HG // hpb), N).sum(3)
+    return (dx[:, :S], ddt[:, :S], dA, per_group(dB_h), per_group(dC_h),
+            dh0)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,hpb,chunk", SPLIT_SHAPES)
+def test_chunk_parallel_split_matches_jax(b, s, h, p, g, n, hpb, chunk):
+    """The split's forward against the JAX package's Pallas kernel
+    (interpret mode) and ssd_chunked with h0; its backward, from the
+    chunk states its forward kept, against jax.vjp of ssd_chunked, with h0
+    and dstate, at this file's tolerances."""
+    from repro.kernels.ssd import ssd_scan as pallas_ssd_scan
+    args, dy, dstate = _inputs(b, s, h, p, g, n, seed=6)
+    t = [torch.from_numpy(a) for a in args]
+    y, hf, _ = _split_forward(*t[:5], None)
+    yj, hj = pallas_ssd_scan(*map(jnp.asarray, args[:5]), chunk=chunk,
+                             interpret=True)
+    _close(y, yj, "y (Pallas)")
+    _close(hf, hj, "final state (Pallas)")
+    y, hf, states = _split_forward(*t)
+    yj, hj = JL.ssd_chunked(*map(jnp.asarray, args[:5]), chunk=chunk,
+                            h0=jnp.asarray(args[5]))
+    _close(y, yj, "y (ssd_chunked, h0)")
+    _close(hf, hj, "final state (ssd_chunked, h0)")
+    assert torch.equal(states[:, :, 0], t[5])
+    got = _split_backward(*t[:5], states, torch.from_numpy(dy),
+                          torch.from_numpy(dstate), hpb)
+    want = _jax_vjp(args, dy, dstate, chunk)
+    for name, gg, ww, a in zip(NAMES, got, want, args):
+        assert gg.shape == a.shape, name
+        _close(gg, ww, name)
+
+
 # ---- the rest of the Mamba block: nothing in place, gradients as in JAX ---
 
 def test_causal_conv1d_and_rms_norm_gradients_match_jax():
