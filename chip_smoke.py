@@ -22,8 +22,9 @@ and depth (48 layers, bf16, batch 4, 1024-token prompts, 32 new tokens)
 with K8 launched once per layer; at fp32 the served prefill against one
 with K8's plain version swapped in, and decode == forward.  Phase 9, the
 RecurrentGemma slice: K7, the RG-LRU scan, against its plain version at
-``tests/test_kernels.py``'s shapes, a ragged one and the layer shape
-(4, 1024, 2560) in fp32 and bf16; K5 at head dim 256; ``serve
+``tests/test_kernels.py``'s shapes, ragged ones, the layer shape (4, 1024,
+2560) in fp32 and bf16 and (4, 4096, 2560) in bf16, with the grid that
+spreads the time axis over clusters of blocks; K5 at head dim 256; ``serve
 ("recurrentgemma-2b", smoke=False)`` at full width and depth (26 layers,
 bf16, batch 4, 1024-token prompts, 32 new tokens) with K7 launched once per
 rglru layer and K5 once per attention layer, profiled, and again with
@@ -39,7 +40,8 @@ the full model's loss and every gradient leaf at fp32 with K8/K8b and with
 their plain versions; 10 AdamW steps of Mamba-2 370M at full width and
 depth (bf16, batch 8 x 1024 tokens, int8 gradient compression) with 48 K8
 and 48 K8b launches and one K3 and one K4 call per gradient leaf each
-step (a K3 call launches two kernels, its absmax and quantize passes),
+step (a K3 call is one cooperative launch; K3 timed over a step's ten
+leaves too),
 profiled; the launcher's ``train`` with a checkpoint that restores
 byte for byte; and K7 refusing to cut an autograd graph.  Last, K1 (3xTF32
 ``wgmma``) at each distinct shape of a ResNet-50 request, with w in the
@@ -98,9 +100,14 @@ K8_CHUNK = 64                           # rows a K8 block walks at a time
 GEMMA = "recurrentgemma-2b"
 GEMMA_SERVE = {"batch": 4, "prompt": 1024, "gen": 32}
 GEMMA_RING = {"batch": 4, "prompt": 4096, "gen": 16}
-K7_SHAPES = [(2, 64, 128), (4, 128, 256), (1, 32, 128), (3, 77, 200)]
+K7_SHAPES = [(2, 64, 128), (4, 128, 256), (1, 32, 128), (3, 77, 200),
+             (2, 1, 256), (2, 31, 201), (2, 255, 200)]
 K7_LAYER = (4, 1024, 2560)
+K7_RING = (4, 4096, 2560)   # the ring serve's prefill
 K7_OPS = 17                 # fp32 operations a K7 element (gates, a, b, FMA)
+K7_SFU = 7                  # of them on the SFU: 4 exp2, 2 reciprocals, rsqrt
+SFU_PER_CLOCK = 16          # SFU operations an SM a clock (Hopper)
+BOOST_HZ = 1.98e9           # H100 SXM boost clock
 K5_GEMMA = [(4, 10, 1, 1024, 1024, 256), (1, 10, 1, 4096, 4096, 256)]
 GEMMA_WINDOW = 2048
 # Mamba-2 370M trained at full width and depth: bf16, batch 8 of 1024
@@ -139,17 +146,13 @@ def k1_bounds(M, K, N, dtype):
 def k1_ptxas(log):
     """{(dtype name, BM, BN): (registers, spilled bytes)} of each K1
     instance, from ptxas's -v lines."""
-    out, key, spill = {}, None, 0
-    for ln in log.splitlines():
-        m = re.search(r"matmul_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d+)E", ln)
+    from repro_torch.kernels import _build
+    out = {}
+    for row in _build.ptxas_counts(log, "matmul_kernel"):
+        m = re.match(r"I(f|13__nv_bfloat16)Li(\d)ELi(\d+)E", row["instance"])
         if m:
-            key = ("float32" if m[1] == "f" else "bfloat16",
-                   64 * int(m[2]), int(m[3]))
-        elif key and "spill" in ln:
-            spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill", ln))
-        elif key and "Used" in ln:
-            out[key] = (int(re.search(r"Used (\d+) registers", ln)[1]), spill)
-            key = None
+            out[("float32" if m[1] == "f" else "bfloat16", 64 * int(m[2]),
+                 int(m[3]))] = (row["registers"], row["spilled"])
     return out
 
 
@@ -535,11 +538,15 @@ def profile_run(what, run, steps, kernels, unit):
         by_kind[kind] += e.self_device_time_total / 1e3 / steps
     top = "; ".join(f"{k} {v:.3f} ms" for k, v in by_kind.items()) + \
         "; by kernel: " + top
+    # cudaLaunchKernelExC: the cluster (K1, K7, K8) and cooperative (K3)
+    # launches; cudaLaunchKernel: the rest
     launches_ = sum(e.count for e in prof.key_averages()
-                    if e.key == "cudaLaunchKernel") // steps
+                    if e.key.startswith(("cudaLaunchKernel",
+                                         "cudaLaunchCooperativeKernel"))
+                    ) // steps
     print(f"profile {what}, profiler on, host wall {wall:.3f} ms a {unit}): "
           f"device busy {busy:.3f} ms (idle share {1 - busy / wall:.3f}); "
-          f"cudaLaunchKernel x{launches_}; kernels by device time: {top}")
+          f"kernel launches x{launches_}; kernels by device time: {top}")
 
 
 def profile_serving(cfg, params, tok, cache, nxt, kernels):
@@ -775,13 +782,17 @@ def rglru_inputs(shape, dtype, dev, seed):
 
 def check_k7(dev, time_ms, call_ms, max_err):
     """Phase 9(a): K7 against its plain version at tests/test_kernels.py's
-    shapes and a ragged one in fp32, and at RecurrentGemma-2B's layer shape
-    in fp32 and bf16, all with h0; the layer shape's times by dtype.
-    Returns (largest abs err, {dtype: times})."""
+    shapes and ragged ones (S 1, 31, 77, 255; W 200, 201) in fp32, and at
+    RecurrentGemma-2B's layer shape in fp32 and bf16 and the ring serve's
+    4096-token shape in bf16, all with h0; those three timed, with the
+    launch that spreads their time axis over a cluster.  Returns (largest
+    abs err, {(shape, dtype): times})."""
     import torch
-    from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
-    cases = [(shape, torch.float32) for shape in K7_SHAPES] + [
-        (K7_LAYER, torch.float32), (K7_LAYER, torch.bfloat16)]
+    from repro_torch.kernels.rglru import (launch_plan, launch_shape,
+                                           rglru_scan, rglru_scan_plain)
+    timed = [(K7_LAYER, torch.float32), (K7_LAYER, torch.bfloat16),
+             (K7_RING, torch.bfloat16)]
+    cases = [(shape, torch.float32) for shape in K7_SHAPES] + timed
     worst, times = 0.0, {}
     for i, (shape, dtype) in enumerate(cases):
         args = rglru_inputs(shape, dtype, dev, seed=i)
@@ -794,16 +805,27 @@ def check_k7(dev, time_ms, call_ms, max_err):
         worst = max(worst, err)
         line = (f"K7 rglru_scan B,S,W={shape} {dtype} h0=True: "
                 f"max_abs_err={err:.3e} (rtol={tol} atol={tol})")
-        if shape == K7_LAYER:
+        if (shape, dtype) in timed:
             ms = time_ms(lambda: rglru_scan(*args))
             plain = time_ms(lambda: rglru_scan_plain(*args), reps=3)
             bnd, by = k7_bound(*shape, dtype)
-            times[dtype] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd,
-                            "bound_by": by}
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            sfu = 1e3 * K7_SFU * math.prod(shape) / (SFU_PER_CLOCK * sms
+                                                     * BOOST_HZ)
+            times[(shape, dtype)] = {"ms": ms, "plain_ms": plain,
+                                     "bound_ms": bnd, "bound_by": by,
+                                     "bound_sfu_ms": sfu}
+            plan, launch = launch_plan(*shape), launch_shape(*shape, dtype)
             line += (f"; ms={ms:.4f} (per Python call "
                      f"{call_ms(lambda: rglru_scan(*args)):.4f}) "
                      f"plain_ms={plain:.4f} library_ms=none "
-                     f"bound_ms={bnd:.4f} ({by})")
+                     f"bound_ms={bnd:.4f} ({by}) bound_sfu_ms={sfu:.4f}; "
+                     f"grid {launch['grid']} of "
+                     f"{launch['threads']} threads: {plan['items']} items "
+                     f"(batch row, channel tile) over {launch['grid'][1]} "
+                     f"clusters of {plan['cluster']} blocks along x, "
+                     f"{plan['windows']} window(s) an item, "
+                     f"{launch['smem_bytes']} bytes of shared memory a block")
         print(line)
     return worst, times
 
@@ -917,7 +939,7 @@ def drive_gemma(dev, counters, time_ms, call_ms, max_err, randn):
     DE.decode_step(cfg, params, cache, nxt)
     torch.cuda.synchronize()
     profile_serving(cfg, params, tok, cache, nxt,
-                    {"K7": ("rglru_kernel",),
+                    {"K7": ("rglru_chunked_kernel",),
                      "K5": ("flash_bf16_kernel", "flash_f32_kernel")})
     del params, cache
 
@@ -989,7 +1011,9 @@ def drive_gemma(dev, counters, time_ms, call_ms, max_err, randn):
                 "source": "src/repro_torch/kernels/csrc/rglru.cu",
                 "replaces": "src/repro/kernels/rglru.py:54",
                 "launches": k7_launches, "max_abs_err": k7_err,
-                **k7_times[torch.bfloat16], "library_ms": None}
+                **k7_times[(K7_LAYER, torch.bfloat16)], "library_ms": None,
+                "float32": k7_times[(K7_LAYER, torch.float32)],
+                "at_4096": k7_times[(K7_RING, torch.bfloat16)]}
     k5_entry = {"shape": list(K5_GEMMA[0]), "dtype": "bfloat16",
                 "causal": True, "window": GEMMA_WINDOW,
                 "launches": k5_launches[0], **k5_serving[K5_GEMMA[0]],
@@ -1013,12 +1037,13 @@ def k8b_bound(B, S, H, P, G, N, dtype):
     return bound(nbytes, ops_, dtype)
 
 
-def check_k3_k4(dev, time_ms):
+def check_k3_k4(dev, time_ms, leaves):
     """Phase 10(a): K3 and K4 byte for byte against their plain versions,
     on the card and, for the small shapes, on a CPU copy; their times on
-    the training path's largest leaf, one fp32 row of K3_ROW elements.
-    Returns K3's and K4's entries of the kernels line, all but
-    ``launches``."""
+    the training path's largest leaf, one fp32 row of K3_ROW elements, and
+    K3's summed over a train step's ``leaves`` (element counts, each one
+    row, as ``distributed/compression.py`` hands them over).  Returns K3's
+    and K4's entries of the kernels line, all but ``launches``."""
     import torch
     from repro_torch.kernels import vector_engine as VE
     gen = torch.Generator(device=dev).manual_seed(10)
@@ -1081,6 +1106,12 @@ def check_k3_k4(dev, time_ms):
           "plain_ms": time_ms(lambda: VE.quantize_int8_plain(x), reps=2)}
     k3["bound_ms"], k3["bound_by"] = bound(5 * K3_ROW + 4, 5 * K3_ROW,
                                            torch.float32)
+    plan = VE.quantize_plan(1, K3_ROW, torch.float32)
+    print(f"K3 quantize_int8 launch at (1, {K3_ROW}) float32: grid "
+          f"({plan['grid']},) of {plan['threads']} threads, cooperative "
+          f"({plan['resident']} blocks co-resident), {plan['segs']} items a "
+          f"row, {plan['stash_bytes']} bytes a block kept in shared memory "
+          f"across the grid barrier")
     k4 = {"ms": time_ms(lambda: VE.dequantize_int8(q, s), reps=3),
           "plain_ms": time_ms(lambda: VE.dequantize_int8_plain(q, s), reps=2),
           "library_ms": time_ms(lambda: torch.mul(q, s), reps=3)}
@@ -1094,7 +1125,26 @@ def check_k3_k4(dev, time_ms):
               f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
     del x, q, s
     torch.cuda.empty_cache()
-    return {"max_abs_err": 0.0, **k3}, {"max_abs_err": 0.0, **k4}
+    # K3 over one train step's leaves, each checked and timed, the bound
+    # summed the same way
+    step = {"ms": 0.0, "bound_ms": 0.0, "leaves": len(leaves)}
+    for n in leaves:
+        x = torch.randn(1, n, generator=gen, device=dev) * 1e-3
+        q, s = VE.quantize_int8(x)
+        wq, ws = VE.quantize_int8_plain(x)
+        if not (torch.equal(q, wq) and torch.equal(s.view(torch.int32),
+                                                    ws.view(torch.int32))):
+            raise AssertionError(f"K3 (1, {n}): not byte-equal")
+        step["ms"] += time_ms(lambda: VE.quantize_int8(x), reps=3)
+        step["bound_ms"] += bound(5 * n + 4, 5 * n, torch.float32)[0]
+    del x, q, s, wq, ws
+    torch.cuda.empty_cache()
+    print(f"K3 quantize_int8 over a train step's {len(leaves)} leaves "
+          f"({sum(leaves)} fp32 elements, each leaf one row, byte-equal to "
+          f"the plain version): ms={step['ms']:.4f} "
+          f"bound_ms={step['bound_ms']:.4f} (bytes)")
+    return ({"max_abs_err": 0.0, **k3, "step": step},
+            {"max_abs_err": 0.0, **k4})
 
 
 def check_k8b(dev, time_ms, call_ms, max_err):
@@ -1207,10 +1257,11 @@ def drive_train(dev, counters, time_ms, call_ms, max_err):
     from repro_torch.optim import adamw
 
     # ---- 10(a), 10(b): K3 and K4; K8b -----------------------------------
-    k3_entry, k4_entry = check_k3_k4(dev, time_ms)
-    k8b_entry = check_k8b(dev, time_ms, call_ms, max_err)
     cfg = mamba_config()
-    n_leaves = len(T.tree_leaves(T.param_shapes(cfg)))
+    leaves = [t.numel() for t in T.tree_leaves(T.param_shapes(cfg))]
+    n_leaves = len(leaves)
+    k3_entry, k4_entry = check_k3_k4(dev, time_ms, leaves)
+    k8b_entry = check_k8b(dev, time_ms, call_ms, max_err)
 
     # ---- 10(c): fp32, TF32 off: the gradients against the plain versions --
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -1314,14 +1365,14 @@ def drive_train(dev, counters, time_ms, call_ms, max_err):
           f"{TRAIN['steps']} {med:.3f} ms, {B * S / med * 1e3:.1f} tokens/s; "
           f"peak memory {peak_gb:.2f} GB; launches a step K8 "
           f"{want['K8']}, K8b {want['K8b']}, K3 {want['K3']} and K4 "
-          f"{want['K4']} (one call each per gradient leaf; a K3 call is two "
-          f"kernel launches, absmax and quantize), K1/K2/K5/K6/K7 none; "
+          f"{want['K4']} (one call each per gradient leaf; a K3 call is one "
+          f"cooperative kernel launch), K1/K2/K5/K6/K7 none; "
           f"in all {launches}")
     profile_run(f"train step (B={B}, S={S}",
                 lambda: step_fn(params, opt, batches[0])[2]["loss"].item(), 1,
                 {"K8b": ("ssd_bwd_kernel",), "K8": ("ssd_kernel",),
                  "K4": ("dequantize_kernel",),
-                 "K3": ("absmax_kernel", "quantize_kernel")}, "step")
+                 "K3": ("quantize_int8_kernel",)}, "step")
     del params, opt, batches, metrics
     torch.cuda.empty_cache()
 
@@ -1400,8 +1451,7 @@ def drive_train(dev, counters, time_ms, call_ms, max_err):
           f"({msg.split(';')[0]})")
 
     # ---- 10(g): the kernels line's entries --------------------------------
-    # K3's launches count quantize_int8 calls: each one launches two
-    # kernels, absmax_kernel and quantize_kernel (after a memset)
+    # K3's launches count quantize_int8 calls, each one kernel launch
     src = "src/repro_torch/kernels/csrc/"
     return [
         {"name": "quantize_int8", "route": "cuda",
@@ -1464,6 +1514,12 @@ def main() -> int:
                      and " 0 bytes spill stores, 0 bytes spill loads" not in ln
                      for ln in log.splitlines())
         print(f"  {name}: ptxas {', '.join(regs)}; spills: {spills}")
+    for kernel, source in (("quantize_int8_kernel", "vector_engine"),
+                           ("rglru_chunked_kernel", "rglru")):
+        for row in _build.ptxas_counts(logs.get(source, ""), kernel):
+            print(f"  {kernel}{row['instance'][:24]}: ptxas "
+                  f"{row['registers']} registers, {row['smem']} bytes shared "
+                  f"memory, {row['spilled']} bytes spilled")
     k1_regs = k1_ptxas(logs.get("systolic_matmul", ""))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -1569,12 +1625,21 @@ def main() -> int:
         plain = time_ms(lambda: fused_affine_act_plain(x, s, b))
         lib = time_ms(lambda: torch.addcmul(b, x, s))
         bnd, by = bound((2 * M * N + 2 * N) * 4, 2 * M * N, torch.float32)
-        k2_rows[(M, N)] = (err, ms, plain, lib, bnd, by)
+        # K2 and torch.addcmul in turns (K2, addcmul, addcmul, K2) x 5
+        turns = {"kernel": [], "library": []}
+        for _ in range(5):
+            for who in ("kernel", "library", "library", "kernel"):
+                turns[who].append(time_ms(
+                    (lambda: fused_affine_act(x, s, b)) if who == "kernel"
+                    else (lambda: torch.addcmul(b, x, s))))
+        turns = {k: statistics.median(v) for k, v in turns.items()}
+        k2_rows[(M, N)] = (err, ms, plain, lib, bnd, by, turns)
         print(f"K2 fused_affine_act M={M} N={N} float32: 6 acts "
               f"max_abs_err={err:.3e} rtol=1e-5 atol=1e-5; ms={ms:.4f} "
               f"(per Python call {call_ms(lambda: fused_affine_act(x, s, b)):.4f}) "
               f"plain_ms={plain:.4f} library_ms(torch.addcmul)={lib:.4f} "
-              f"bound_ms={bnd:.4f} ({by})")
+              f"bound_ms={bnd:.4f} ({by}); in turns, medians of 10: K2 "
+              f"{turns['kernel']:.4f}, torch.addcmul {turns['library']:.4f}")
 
     k5_rows = {}
     for (B, H, KV, Sq, Skv, D, causal, window) in [
@@ -1796,7 +1861,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/vector_engine.py:41",
          "launches": launches[1], "max_abs_err": k2[0], "ms": k2[1],
          "plain_ms": k2[2], "bound_ms": k2[4], "bound_by": k2[5],
-         "library_ms": k2[3]},
+         "library_ms": k2[3], "in_turns": k2[6]},
         {"name": "flash_attention", "route": "cuda",
          "source": src + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:86",

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -80,6 +81,28 @@ def build_all() -> Dict[str, str]:
             raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                                + "\n".join(logs[n] for n in failed))
         return logs
+
+
+def ptxas_counts(log: str, kernel: str) -> list:
+    """What ``ptxas -v`` said (a ``build_all`` log) of each entry function
+    whose mangled name holds ``kernel``: [{"instance": the rest of the
+    name, "registers", "spilled" bytes (stores and loads), "smem" bytes}]."""
+    rows, name, spill = [], None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m[1].split(kernel, 1)[1] if kernel in m[1] else None
+        elif name is not None and "spill" in ln:
+            spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill", ln))
+        elif name is not None and "Used" in ln:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            rows.append({"instance": name,
+                         "registers": int(re.search(r"Used (\d+) registers",
+                                                    ln)[1]),
+                         "spilled": spill,
+                         "smem": int(smem[1]) if smem else 0})
+            name, spill = None, 0
+    return rows
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,8 +1,9 @@
 // Shared helpers of the port's hand-written Hopper kernels: element types,
-// the vector engine's activation table, thread-block cluster barriers and
-// distributed shared-memory loads, and the error string every library
-// exports.  Each kernel source includes this header and is built into its own
-// shared library with a plain C interface (see kernels/_build.py).
+// the vector engine's activation table, 16-byte asynchronous copies,
+// thread-block cluster barriers and distributed shared-memory loads, and
+// the error string every library exports.  Each kernel source includes this
+// header and is built into its own shared library with a plain C interface
+// (see kernels/_build.py).
 #pragma once
 
 #include <cstdint>
@@ -79,6 +80,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// 16 bytes global -> shared, zero-filled where !ok (src is then not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cluster_sync() {
   asm volatile(
       "barrier.cluster.arrive.release.aligned;\n"
@@ -107,6 +116,17 @@ __device__ __forceinline__ float4 ld_cluster16(uint32_t addr, uint32_t rank) {
   float4 v;
   asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
                : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// 8 bytes at shared address `addr` of cluster rank `rank`.
+__device__ __forceinline__ float2 ld_cluster8(uint32_t addr, uint32_t rank) {
+  const uint32_t remote = cluster_addr(addr, rank);
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
                : "r"(remote)
                : "memory");
   return v;

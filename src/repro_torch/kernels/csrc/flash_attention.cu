@@ -230,14 +230,6 @@ constexpr int BK = 64;           // keys a KV tile
 constexpr int THREADS = 256;
 constexpr int BLOCK_BYTES = 64 * 128;  // 64 rows x 64 bf16 columns, swizzled
 
-// 16 bytes global -> shared, zero-filled where !ok (src is then not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
 // This thread's copies have landed; make them visible to the tensor cores'
 // (async proxy) reads, then wait for every thread of the block.
 __device__ __forceinline__ void publish_copies() {

@@ -17,126 +17,365 @@
 //
 // What bounds it on the H100: the bytes are x, gx, ga read once and y
 // written once, 8 B an element in bf16 (84 MB at RecurrentGemma-2B's layer
-// shape B 4, S 1024, W 2560: 0.025 ms at 3.35 TB/s); the arithmetic is some
-// 30 operations an element, far below the card's rate.  What holds it back
-// is the chain: every channel's recurrence is serial in time, and the
-// serving shape has only B * W = 10,240 chains, 320 warps on 132 SMs, too
-// few to hide the memory's latency.
+// shape B 4, S 1024, W 2560: 0.025 ms at 3.35 TB/s).  The arithmetic comes
+// close: an element takes seven SFU operations (four exp2, two
+// reciprocals and an rsqrt), 16 a clock on an SM: 0.018 ms at that shape
+// at 1.98 GHz.  The recurrence is serial in time, and the layer shape has
+// only B * W = 10,240 chains: one thread a chain (this kernel's first
+// version, 0.26 ms) gives 320 warps, too few to hide the memory's latency.
 //
-// What the design does about it (a simple first kernel; a chunked two-pass
-// scan over time that fills the card is later work):
-// - One thread per chain (b, w), one warp per block over 32 neighbouring
-//   channels, so every load and store of a time step is coalesced along W
-//   and the grid (ceil(W / 32), B) spreads the 320 warps of the serving
-//   shape over all the SMs.  The TPU's sequential grid axis becomes a loop
-//   over time inside the thread; the state stays in a register.
-// - The loop walks time tiles of TS = 32 steps in two phases, as the TPU
-//   kernel does a block: first the tile's 3 * 32 loads are issued together,
-//   into registers, before any is used (a first version that loaded each
-//   step under its own `if (i < n)` kept one load in flight a thread and
-//   took 1.36 ms at the layer shape in bf16, against 0.26 ms for this
-//   one), and every a_t and b_t computed (independent work); then the
-//   32 dependent steps h = a * h + b (one FMA each) are taken and their y
-//   stored.  softplus(log_a) is computed once per thread.
-// - No tile has to divide S, W or B: a last, short time tile and the
-//   channels past W are masked, so S = 31 or 255 (decode == forward) and
-//   W = 200 take the same path.
+// What the design does about it: a chunked scan over time, in one launch.
+// - A block takes CH = 32 channels of one batch row (a lane each, so a
+//   warp's loads and stores of a step are one contiguous row) and SUB x
+//   STEPS steps (warp j takes sub-chunk j).  A thread-block cluster of
+//   R <= 8 blocks along grid x spans R x SUB x STEPS steps of the time
+//   axis, a window; a longer S is walked window by window, the state
+//   carried from one to the next.
+// - As many clusters as the card holds at once (the occupancy API's
+//   count, at most one an item) each walk their items (batch row,
+//   32-channel tile), one unit (item, window) after another.  A unit's x,
+//   gx and ga tiles are copied into shared memory by cp.async while the
+//   unit before it computes (two buffers), so the loads' latency hides
+//   behind the arithmetic and the barriers.
+// - Pass 1: each thread computes its steps' a_t and b_t into registers and
+//   its sub-chunk's composite (prod a, h from 0).  The composites of the
+//   block's sub-chunks are folded in shared memory (each thread folds
+//   those before its own: its prefix), and the block's own composite is
+//   published to the cluster.  After one cluster barrier, warp 0 reads
+//   the R published composites through distributed shared memory and
+//   folds the window's carry-in (h0 in an item's first window) through
+//   those before its block: the block's carry-in; through all R: the next
+//   window's.
+// - Pass 2: each thread starts from prefix(carry-in) and walks its steps
+//   again out of registers, storing y.  Each input byte is read once and y
+//   written once.
+// - Small blocks (4 warps) and few registers, so that 8 blocks share an
+//   SM and one's barriers overlap another's arithmetic; the sizes were
+//   chosen by tools/k7_ablate.py.
+// - Ragged edges: channels past W and steps past S take a = 1, b = 0 and
+//   store nothing, so no tile has to divide S or W (S = 1, 31, 77, 255 and
+//   W = 200 take the same kernel).  Where W is not a multiple of a 16-byte
+//   chunk, or a base is not aligned to one, the tiles are staged one
+//   element at a time.
+// - Numerics: the TPU kernel's formula, exp(2 log_a_t) inside the square
+//   root (not a_t^2: 1 - a^2 cancels near a = 1), both exponentials as
+//   accurate expf; the gates' sigmoids with __expf and __fdividef and the
+//   square root as an rsqrt and a Newton step, a few ulp apart from the
+//   IEEE forms, whose slow paths' calls spilled registers (the IEEE forms
+//   took 0.076 ms against 0.060 on an H100, tools/k7_ablate.py).  The fold
+//   re-associates fp32 products, as the plain version's doubling scan
+//   does.
 #include "common.cuh"
 
 namespace {
 
-constexpr int WT = 32;   // channels (threads) per block
-constexpr int TS = 32;   // time steps per tile
+constexpr int CH = 32;                  // channels a block, a lane each
+constexpr int SUB = 4;                  // sub-chunks a block, a warp each
+constexpr int STEPS = 8;                // steps a sub-chunk
+constexpr int THREADS = CH * SUB;
+constexpr int MIN_BLOCKS = 8;           // resident blocks an SM, at least
+constexpr int SPAN = SUB * STEPS;       // steps a block takes a window
+constexpr int MAX_CLUSTER = 8;          // the portable cluster size
+
+// A block's dynamic shared memory: the (A, H) composites of each sub-chunk
+// of a channel, the block's own composite of a unit (two buffers, by unit
+// parity) and the carries warp 0 forms (the block's, the next window's);
+// then two buffers of a unit's x, gx and ga tiles, SPAN steps x CH
+// channels each.
+constexpr int COMP_BYTES = (SUB + 3) * CH * 8;
+template <typename E>
+constexpr int smem_bytes() {
+  return COMP_BYTES + 2 * 3 * SPAN * CH * static_cast<int>(sizeof(E));
+}
 
 // jax.nn.softplus: log(1 + exp(v)), computed without overflow.
 __device__ __forceinline__ float softplus_f32(float v) {
   return fmaxf(v, 0.0f) + log1pf(expf(-fabsf(v)));
 }
 
-template <typename E>
-__global__ void __launch_bounds__(WT)
-rglru_kernel(const E* __restrict__ x, const E* __restrict__ gx,
-             const E* __restrict__ ga, const float* __restrict__ log_a,
-             const float* __restrict__ h0, E* __restrict__ y, int S, int W) {
-  const int w = blockIdx.x * WT + threadIdx.x;
-  const int b = blockIdx.y;
-  if (w >= W) return;
-  const float c = -8.0f;
-  const float sp = c * softplus_f32(log_a[w]);
-  float h = h0[static_cast<long long>(b) * W + w];
-  const long long base = static_cast<long long>(b) * S * W + w;
+// The gates' sigmoid on the SFU (exp2 and an approximate reciprocal): a few
+// ulp from 1 / (1 + exp(-v)) and no call into the IEEE division's slow
+// path, whose saved registers spilled (tools/k7_ablate.py).
+__device__ __forceinline__ float sigmoid_sfu(float v) {
+  return __fdividef(1.0f, 1.0f + __expf(-v));
+}
 
-  for (int t0 = 0; t0 < S; t0 += TS) {
-    const int n = min(TS, S - t0);
-    const E* xp = x + base + static_cast<long long>(t0) * W;
-    const E* gxp = gx + base + static_cast<long long>(t0) * W;
-    const E* gap = ga + base + static_cast<long long>(t0) * W;
-    // phase 1: the tile's 3 * TS loads, all issued before any is used (a
-    // short last tile loads zeros past S), then every a_t and b_t
-    float xr[TS], gxr[TS], gar[TS];
-    if (n == TS) {
-#pragma unroll
-      for (int i = 0; i < TS; ++i) {
-        const long long off = static_cast<long long>(i) * W;
-        xr[i] = to_f32(xp[off]);
-        gxr[i] = to_f32(gxp[off]);
-        gar[i] = to_f32(gap[off]);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < TS; ++i) {
-        const long long off = static_cast<long long>(i) * W;
-        xr[i] = i < n ? to_f32(xp[off]) : 0.0f;
-        gxr[i] = i < n ? to_f32(gxp[off]) : 0.0f;
-        gar[i] = i < n ? to_f32(gap[off]) : 0.0f;
-      }
+// sqrt(v) for v >= 1e-12: the SFU's rsqrt and one Newton step (within an
+// ulp), with no slow path.
+__device__ __forceinline__ float sqrt_sfu(float v) {
+  const float r = rsqrtf(v);
+  const float s = v * r;
+  return fmaf(fmaf(-s, s, v), 0.5f * r, s);
+}
+
+// (A, H) then (a, b): the composite of two runs of steps.
+__device__ __forceinline__ void fold(float& A, float& H, float a, float b) {
+  H = fmaf(a, H, b);
+  A *= a;
+}
+
+struct Args {
+  const void* x;
+  const void* gx;
+  const void* ga;
+  const float* log_a;
+  const float* h0;
+  void* y;
+  int S, W, tiles, items, windows;
+  bool vec;           // 16-byte rows: copied asynchronously
+};
+
+// One unit's tiles: steps [tb, tb + SPAN) of channels [c0, c0 + CH) of x,
+// gx and ga (batch row b) into `tile`, zeros past S and W; asynchronous
+// 16-byte copies where a.vec, else one element at a time.
+template <typename E>
+__device__ __forceinline__ void stage(E* tile, const Args& a, long long b,
+                                      int tb, int c0) {
+  const E* const src[3] = {static_cast<const E*>(a.x),
+                           static_cast<const E*>(a.gx),
+                           static_cast<const E*>(a.ga)};
+  constexpr int PER = 16 / sizeof(E);   // elements a chunk
+  constexpr int ROW = CH / PER;         // chunks a step
+  if (a.vec) {
+    for (int c = threadIdx.x; c < 3 * SPAN * ROW; c += THREADS) {
+      const int arr = c / (SPAN * ROW), r = c / ROW % SPAN, k = c % ROW;
+      const int t = tb + r, w = c0 + k * PER;
+      const bool ok = t < a.S && w < a.W;
+      const E* g = ok ? src[arr] + (b * a.S + t) * a.W + w : src[arr];
+      cp_async16(smem_u32(tile + (arr * SPAN + r) * CH + k * PER), g, ok);
     }
-#pragma unroll
-    for (int i = 0; i < TS; ++i) {
-      const float log_at = sp * sigmoid_f32(gar[i]);
-      const float mult = sqrtf(fmaxf(1.0f - expf(2.0f * log_at), 1e-12f));
-      gar[i] = expf(log_at);                          // a_t
-      xr[i] = mult * sigmoid_f32(gxr[i]) * xr[i];     // b_t
-    }
-    // phase 2: the serial chain, one FMA a step
-    E* yp = y + base + static_cast<long long>(t0) * W;
-#pragma unroll
-    for (int i = 0; i < TS; ++i) {
-      if (i < n) {
-        h = fmaf(gar[i], h, xr[i]);
-        yp[static_cast<long long>(i) * W] = from_f32<E>(h);
-      }
+  } else {
+    for (int e = threadIdx.x; e < 3 * SPAN * CH; e += THREADS) {
+      const int arr = e / (SPAN * CH), r = e / CH % SPAN, k = e % CH;
+      const int t = tb + r, w = c0 + k;
+      tile[e] = t < a.S && w < a.W ? src[arr][(b * a.S + t) * a.W + w]
+                                   : from_f32<E>(0.0f);
     }
   }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 template <typename E>
-int launch(const void* x, const void* gx, const void* ga, const float* log_a,
-           const float* h0, void* y, int B, int S, int W, cudaStream_t stream) {
-  const dim3 grid((W + WT - 1) / WT, B);
-  rglru_kernel<E><<<grid, WT, 0, stream>>>(
-      static_cast<const E*>(x), static_cast<const E*>(gx),
-      static_cast<const E*>(ga), log_a, h0, static_cast<E*>(y), S, W);
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+rglru_chunked_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2(*comp)[CH] = reinterpret_cast<float2(*)[CH]>(smem);
+  float2(*pub)[CH] = comp + SUB;
+  float2* carry = comp[SUB + 2];
+  E* tiles = reinterpret_cast<E*>(smem + COMP_BYTES);
+  E* y = static_cast<E*>(a.y);
+  const int c = threadIdx.x % CH;
+  const int j = threadIdx.x / CH;
+  const int R = gridDim.x;              // the cluster spans grid x
+  const int rank = blockIdx.x;
+  // this cluster's units: its items (batch row, channel tile), each the
+  // time axis's windows in order
+  const int mine = (a.items - blockIdx.y + gridDim.y - 1) / gridDim.y;
+  const int units = mine * a.windows;
+  auto unit_tb = [&](int u) { return (u % a.windows * R + rank) * SPAN; };
+  auto unit_item = [&](int u) {
+    return blockIdx.y + u / a.windows * gridDim.y;
+  };
+  if (units > 0) {
+    const int it = unit_item(0);
+    stage(tiles, a, it / a.tiles, unit_tb(0), it % a.tiles * CH);
+  }
+  float sp = 0.0f, hw = 0.0f;           // softplus term, window carry-in
+  for (int u = 0; u < units; ++u) {
+    const int it = unit_item(u), win = u % a.windows;
+    const long long b = it / a.tiles;
+    const int w = it % a.tiles * CH + c;
+    const bool inw = w < a.W;
+    if (win == 0) {
+      sp = inw ? -8.0f * softplus_f32(a.log_a[w]) : 0.0f;
+      hw = inw ? a.h0[b * a.W + w] : 0.0f;
+    }
+    // the next unit's tiles into the other buffer, while this one computes
+    if (u + 1 < units) {
+      const int nit = unit_item(u + 1);
+      stage(tiles + ((u + 1) & 1) * 3 * SPAN * CH, a, nit / a.tiles,
+            unit_tb(u + 1), nit % a.tiles * CH);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    const E* tile = tiles + (u & 1) * 3 * SPAN * CH;
+    const int t0 = unit_tb(u) + j * STEPS;
+    // pass 1: a_t, b_t of this thread's steps and their composite
+    float av[STEPS], bv[STEPS];
+    float A = 1.0f, H = 0.0f;
+#pragma unroll
+    for (int i = 0; i < STEPS; ++i) {
+      const int off = (j * STEPS + i) * CH + c;
+      const float xi = to_f32(tile[off]);
+      const float gxi = to_f32(tile[SPAN * CH + off]);
+      const float gai = to_f32(tile[2 * SPAN * CH + off]);
+      const float l = sp * sigmoid_sfu(gai);
+      const float m = sqrt_sfu(fmaxf(1.0f - expf(2.0f * l), 1e-12f));
+      // a_t and b_t; the identity past S
+      const bool in = t0 + i < a.S;
+      av[i] = in ? expf(l) : 1.0f;
+      bv[i] = in ? m * sigmoid_sfu(gxi) * xi : 0.0f;
+      fold(A, H, av[i], bv[i]);
+    }
+    comp[j][c] = make_float2(A, H);
+    __syncthreads();
+    // this thread's prefix: the block's sub-chunks before its own
+    float PA = 1.0f, PH = 0.0f;
+#pragma unroll
+    for (int k = 0; k < SUB - 1; ++k)
+      if (k < j) fold(PA, PH, comp[k][c].x, comp[k][c].y);
+    if (j == SUB - 1) {
+      float TA = PA, TH = PH;
+      fold(TA, TH, A, H);
+      pub[u & 1][c] = make_float2(TA, TH);
+    }
+    cluster_sync();                     // every block's composite published
+    if (j == 0) {
+      // the window's carry-in through the blocks before this one, and
+      // through all R for the next window
+      float2 e[MAX_CLUSTER];
+      const uint32_t addr = smem_u32(&pub[u & 1][c]);
+#pragma unroll
+      for (int r = 0; r < MAX_CLUSTER; ++r)
+        if (r < R) e[r] = ld_cluster8(addr, r);
+      float h = hw, hin = hw;
+#pragma unroll
+      for (int r = 0; r < MAX_CLUSTER; ++r) {
+        if (r < R) {
+          if (r == rank) hin = h;
+          h = fmaf(e[r].x, h, e[r].y);
+        }
+      }
+      carry[c] = make_float2(hin, h);
+    }
+    __syncthreads();
+    const float2 cr = carry[c];
+    hw = cr.y;
+    // pass 2: from this thread's carry-in, out of registers
+    float h = fmaf(PA, cr.x, PH);
+    E* yp = y + (b * a.S + t0) * a.W + w;
+#pragma unroll
+    for (int i = 0; i < STEPS; ++i) {
+      h = fmaf(av[i], h, bv[i]);
+      if (inw && t0 + i < a.S)
+        yp[static_cast<long long>(i) * a.W] = from_f32<E>(h);
+    }
+  }
+  if (R > 1) cluster_sync();            // no block leaves while read remotely
+}
+
+// The launch: clusters of R blocks along x, as many along y as the card
+// holds at once (at most one an item), each walking its items.  Fills
+// `cfg` (its cluster attribute in `cluster`).
+template <typename E>
+int configure(const Args& a, int R, cudaStream_t stream,
+              cudaLaunchConfig_t& cfg, cudaLaunchAttribute& cluster) {
+  auto kernel = rglru_chunked_kernel<E>;
+  // Raise the dynamic shared memory limit once, so that a launch captured
+  // in a CUDA graph makes no such call.
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<E>());
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cfg = {};
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem_bytes<E>();
+  cfg.stream = stream;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = R;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  static int resident[MAX_CLUSTER + 1] = {};   // clusters at once, by R
+  if (resident[R] == 0) {
+    cfg.gridDim = dim3(R, 1, 1);
+    const cudaError_t err =
+        cudaOccupancyMaxActiveClusters(&resident[R], kernel, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (resident[R] < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  cfg.gridDim = dim3(R, a.items < resident[R] ? a.items : resident[R], 1);
+  return 0;
+}
+
+template <typename E>
+int launch(const Args& a, int R, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute cluster;
+  const int err = configure<E>(a, R, stream, cfg, cluster);
+  if (err != 0) return err;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, rglru_chunked_kernel<E>, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+bool bad_args(int B, int S, int W, int cluster, int dtype) {
+  return B <= 0 || S <= 0 || W <= 0 || cluster < 1 ||
+         cluster > MAX_CLUSTER || (dtype != DTYPE_F32 && dtype != DTYPE_BF16) ||
+         static_cast<long long>(B) * ((W + CH - 1) / CH) > 0x7fffffffLL;
+}
+
+Args make_args(const void* x, const void* gx, const void* ga,
+               const float* log_a, const float* h0, void* y, int B, int S,
+               int W, int cluster, int dtype) {
+  const int per = dtype == DTYPE_F32 ? 4 : 8;   // elements a 16-byte chunk
+  const int tiles = (W + CH - 1) / CH;
+  return {x, gx, ga, log_a, h0, y, S, W, tiles, B * tiles,
+          (S + cluster * SPAN - 1) / (cluster * SPAN),
+          W % per == 0 && aligned16(x) && aligned16(gx) && aligned16(ga)};
 }
 
 }  // namespace
 
+// The block's shape, into out[0..2]: channels, sub-chunks and steps a
+// sub-chunk (kernels/rglru.py plans the cluster with the same numbers).
+extern "C" int rglru_block_shape(int* out) {
+  out[0] = CH;
+  out[1] = SUB;
+  out[2] = STEPS;
+  return 0;
+}
+
+// K7's launch at (B, S, W) with `cluster` blocks along the time axis, into
+// out[0..3]: grid x (the cluster) and y (the clusters, each walking its
+// items), the threads a block and its dynamic shared memory in bytes.
+extern "C" int rglru_launch_shape(int B, int S, int W, int cluster,
+                                  int dtype, int* out) {
+  if (bad_args(B, S, W, cluster, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr,
+                           nullptr, B, S, W, cluster, dtype);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const int err = dtype == DTYPE_F32
+                      ? configure<float>(a, cluster, nullptr, cfg, attr)
+                      : configure<__nv_bfloat16>(a, cluster, nullptr, cfg,
+                                                 attr);
+  out[0] = cfg.gridDim.x;
+  out[1] = cfg.gridDim.y;
+  out[2] = cfg.blockDim.x;
+  out[3] = static_cast<int>(cfg.dynamicSmemBytes);
+  return err;
+}
+
 // x, gx, ga, y (B, S, W) of one element type (`dtype`, common.cuh's code),
-// log_a (W,) and h0 (B, W) fp32, all row-major on the device.  Launches on
-// `stream` and returns cudaGetLastError().
+// log_a (W,) and h0 (B, W) fp32, all row-major on the device; `cluster`
+// blocks (1..8) along the time axis, as kernels/rglru.py::launch_plan gives
+// them.  Launches on `stream` and returns cudaGetLastError().
 extern "C" int rglru_scan(const void* x, const void* gx, const void* ga,
                           const float* log_a, const float* h0, void* y, int B,
-                          int S, int W, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || W <= 0 || B > 65535)
+                          int S, int W, int cluster, int dtype, void* stream) {
+  if (bad_args(B, S, W, cluster, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Args a =
+      make_args(x, gx, ga, log_a, h0, y, B, S, W, cluster, dtype);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case DTYPE_F32:
-      return launch<float>(x, gx, ga, log_a, h0, y, B, S, W, s);
-    case DTYPE_BF16:
-      return launch<__nv_bfloat16>(x, gx, ga, log_a, h0, y, B, S, W, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dtype == DTYPE_F32 ? launch<float>(a, cluster, s)
+                            : launch<__nv_bfloat16>(a, cluster, s);
 }

@@ -85,34 +85,65 @@ extern "C" int fused_affine_act(const void* x, const float* scale,
 // What bounds them on the H100: bytes.  K3 reads each element (4 or 2
 // bytes) and writes one byte; K4 reads one byte and writes 4 or 2; a few
 // operations an element.  The training path hands K3 each gradient leaf
-// flattened to ONE row, up to 215,482,368 fp32 elements (Mamba-2 370M's
-// stacked in_proj), far more than a block can hold or walk alone.
+// flattened to ONE row, ten leaves a step, up to 215,482,368 fp32 elements
+// (Mamba-2 370M's stacked in_proj: 862 MB, far more than the card holds on
+// chip), and seven of the ten leaves are small enough that a launch's
+// latency is all they cost.
 //
-// What the design does about it:
-// - A row is cut into `segs` segments, one block each, in a flat grid of
-//   M * segs blocks (M may exceed the 65,535 of gridDim.y), with 64-bit
-//   offsets throughout.  Many rows get few segments, one huge row many.
-// - K3 is two passes.  Pass 1: each block's absmax, reduced in the block
-//   with warp shuffles and folded into the row's word with atomicMax, all
-//   on the bits of |x|, which order exactly as the floats do for values
-//   >= 0, so the result is the row's exact max whatever the order.  Pass 2
-//   re-reads the row and writes the codes; segment 0 writes the scale.
-// - NaN and Inf propagate as in the plain version and in JAX: |NaN|'s bits
-//   exceed those of every other value, so a row holding a NaN gets a NaN
-//   absmax and scale (fmaxf would drop a NaN), an element whose quotient is
-//   NaN gets code 0 (as XLA's and PyTorch's float-to-int casts give it),
-//   and K4's 0 * NaN or 0 * Inf then makes the whole row NaN.
-// - Bit-exact arithmetic: the scale and x / scale are IEEE divisions
-//   (__fdiv_rn, never a multiply by the reciprocal; the build has no fast
-//   math), rintf rounds half to even as jnp.round and torch.round do, and
-//   the clamp comes before the cast.  K4 is one rounded multiply, cast with
-//   round-to-nearest-even.
+// K3's design: one persistent, cooperative launch a call.
+// - The grid is at most the co-resident blocks (SMs x the occupancy of 256
+//   threads), launched with the cooperative attribute, which guarantees
+//   they all run at once or refuses the launch.  Each row is cut into
+//   `segs` items of whole 16-byte vectors (a row with few vectors is one
+//   item; many rows give one item each), and block b takes items b, b+G,
+//   b+2G, ...  A grid barrier parts the two phases:
+//   phase 1 takes each item's absmax into `part[item]`, phase 2 takes the
+//   row's absmax from its items' words and writes the codes and the scale.
+//   Every word of `part` is written before the barrier and read after it,
+//   so no memset comes first; the barrier's own two words (arrivals and
+//   generation, a __device__ global) return to rest in every launch, so a
+//   CUDA graph replays the launch as it is.  Two K3 launches must not run
+//   at once on one device (they share the barrier): PyTorch's current
+//   stream orders them on every path of the port.
+// - 16-byte loads (4 fp32 or 8 bf16, each asking L2 for the 256 bytes
+//   around it) and 4- or 8-byte stores of the codes, four vectors in
+//   flight a thread.  A row's head (up to the first 16-byte
+//   boundary) and tail (past its last whole vector) are taken one element
+//   at a time by the row's first and last items, so any base offset and
+//   any N take the same kernel.  Where x's base is not 16-byte aligned the
+//   codes of the vectors are stored a byte at a time.
+// - Read once where it fits: each block keeps the first 24 KB of its share
+//   in shared memory across the barrier (the whole share of a row up to
+//   ~6,000 fp32 elements an item: every small leaf and every short row).
+//   Phase 2 walks the rest of its share in the reverse of phase 1's order,
+//   so its first reloads are what phase 1 read last, still in the 50 MB L2.
+//   The code stores are marked evict-first (the reloads are not: marked so
+//   they took 0.757 ms at the largest leaf on an H100, against 0.714
+//   unmarked, tools/k3_ablate.py).
+// - The arithmetic is the plain version's, byte for byte: the absmax
+//   is taken on the bits of |x|, which order exactly as the floats do for
+//   values >= 0, so it is the row's exact max in any order, and |NaN|'s
+//   bits exceed every other value's, so a row holding a NaN gets a NaN
+//   absmax and scale (fmaxf would drop a NaN); the scale and x / scale are
+//   IEEE divisions (__fdiv_rn, never a multiply by the reciprocal; the
+//   build has no fast math); rintf rounds half to even as jnp.round and
+//   torch.round do; the clamp comes before the cast; a NaN quotient gets
+//   code 0 (as XLA's and PyTorch's float-to-int casts give it), and K4's
+//   0 * NaN or 0 * Inf then makes the whole row NaN.
+//
+// K4's design: a row is cut into `segs` segments, one block each, in a
+// flat grid of M * segs blocks, one rounded multiply an element, cast with
+// round-to-nearest-even.  It runs at ~80% of its bound and is left so.
 namespace {
 
 constexpr int QTHREADS = 256;
+constexpr int QUNROLL = 4;                    // vectors in flight a thread
+constexpr int STASH_BYTES = 24 * 1024;        // a block's share kept on chip
+constexpr int STASH_VECS = STASH_BYTES / 16;
+constexpr long long MIN_ITEM_VECS = 2LL * QTHREADS;
 
-// Segments a row is cut into: enough blocks in all to fill the card, none
-// with fewer than ~16 elements a thread.
+// K4's segments a row: enough blocks in all to fill the card, none with
+// fewer than ~16 elements a thread.
 __host__ int row_segments(long long M, long long N) {
   const long long per_block = 16LL * QTHREADS;
   long long segs = (N + per_block - 1) / per_block;
@@ -122,52 +153,245 @@ __host__ int row_segments(long long M, long long N) {
   return static_cast<int>(segs < 1 ? 1 : segs);
 }
 
+// 16 bytes through the read-only path, asking L2 to fetch the 256 bytes
+// around them (0.714 -> 0.691 ms at the largest leaf on an H100,
+// tools/k3_ablate.py).
+__device__ __forceinline__ uint4 ldg16_l2(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
 __device__ __forceinline__ float quant_scale(float absmax) {
   return __fdiv_rn(isnan(absmax) ? absmax : fmaxf(absmax, 1e-12f), 127.0f);
 }
 
-template <typename E>
-__global__ void __launch_bounds__(QTHREADS)
-absmax_kernel(const E* __restrict__ x, unsigned int* __restrict__ amax,
-              long long N, int segs) {
-  const long long row = blockIdx.x / segs;
-  const int seg = static_cast<int>(blockIdx.x - row * segs);
-  const E* xr = x + row * N;
-  unsigned int m = 0u;                  // the bits of the largest |x|
-  const long long stride = static_cast<long long>(segs) * QTHREADS;
-  for (long long i = static_cast<long long>(seg) * QTHREADS + threadIdx.x;
-       i < N; i += stride)
-    m = max(m, __float_as_uint(fabsf(to_f32(xr[i]))));
+__device__ __forceinline__ int quant1(float v, float scale) {
+  const float r = rintf(__fdiv_rn(v, scale));
+  return isnan(r) ? 0 : static_cast<int>(fminf(fmaxf(r, -127.0f), 127.0f));
+}
+
+// The grid barrier of K3's launch: arrivals and generation.
+__device__ unsigned int g_quant_barrier[2];
+
+// Every block of the grid arrives; none leaves before all have.  Thread 0
+// of the last block to arrive puts the count back to 0 and moves the
+// generation on, so the words are at rest again after the launch.
+__device__ void grid_sync() {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned int* gen = &g_quant_barrier[1];
+    const unsigned int g = *gen;
+    __threadfence();
+    if (atomicAdd(&g_quant_barrier[0], 1u) == gridDim.x - 1) {
+      atomicExch(&g_quant_barrier[0], 0u);
+      __threadfence();
+      atomicAdd(&g_quant_barrier[1], 1u);
+    } else {
+      while (*gen == g) __nanosleep(64);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The max of `m` over the block, in every thread.
+__device__ __forceinline__ unsigned int block_max(unsigned int m,
+                                                  unsigned int* red) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
-  __shared__ unsigned int warp_max[QTHREADS / 32];
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < QTHREADS / 32; ++w) m = max(m, warp_max[w]);
-    atomicMax(amax + row, m);
-  }
+  m = red[0];
+#pragma unroll
+  for (int w = 1; w < QTHREADS / 32; ++w) m = max(m, red[w]);
+  __syncthreads();
+  return m;
 }
 
-template <typename E>
-__global__ void __launch_bounds__(QTHREADS)
-quantize_kernel(const E* __restrict__ x, const unsigned int* __restrict__ amax,
-                signed char* __restrict__ q, float* __restrict__ scales,
-                long long N, int segs) {
-  const long long row = blockIdx.x / segs;
-  const int seg = static_cast<int>(blockIdx.x - row * segs);
-  const float scale = quant_scale(__uint_as_float(amax[row]));
-  if (seg == 0 && threadIdx.x == 0) scales[row] = scale;
-  const E* xr = x + row * N;
-  signed char* qr = q + row * N;
-  const long long stride = static_cast<long long>(segs) * QTHREADS;
-  for (long long i = static_cast<long long>(seg) * QTHREADS + threadIdx.x;
-       i < N; i += stride) {
-    const float v = rintf(__fdiv_rn(to_f32(xr[i]), scale));
-    qr[i] = isnan(v) ? static_cast<signed char>(0)
-                     : static_cast<signed char>(static_cast<int>(
-                           fminf(fmaxf(v, -127.0f), 127.0f)));
+// Per element type: the bits of |x| folded into a running max (bf16 as
+// two packed 16-bit maxima, unpacked by `finish`), one element's value,
+// and a vector's codes.
+template <typename E> struct Quant;
+
+template <> struct Quant<float> {
+  static constexpr int VEC = 4;
+  using Codes = unsigned int;
+  __device__ static unsigned int fold(unsigned int m, uint4 v) {
+    m = max(m, v.x & 0x7fffffffu);
+    m = max(m, v.y & 0x7fffffffu);
+    m = max(m, v.z & 0x7fffffffu);
+    return max(m, v.w & 0x7fffffffu);
+  }
+  __device__ static unsigned int fold1(unsigned int m, float e) {
+    return max(m, __float_as_uint(e) & 0x7fffffffu);
+  }
+  __device__ static unsigned int finish(unsigned int m) { return m; }
+  __device__ static float value(float e) { return e; }
+  __device__ static Codes codes(uint4 v, float s) {
+    return (quant1(__uint_as_float(v.x), s) & 0xff) |
+           (quant1(__uint_as_float(v.y), s) & 0xff) << 8 |
+           (quant1(__uint_as_float(v.z), s) & 0xff) << 16 |
+           static_cast<unsigned int>(quant1(__uint_as_float(v.w), s)) << 24;
+  }
+};
+
+template <> struct Quant<__nv_bfloat16> {
+  static constexpr int VEC = 8;
+  using Codes = uint2;
+  __device__ static unsigned int fold(unsigned int m, uint4 v) {
+    m = __vmaxu2(m, v.x & 0x7fff7fffu);
+    m = __vmaxu2(m, v.y & 0x7fff7fffu);
+    m = __vmaxu2(m, v.z & 0x7fff7fffu);
+    return __vmaxu2(m, v.w & 0x7fff7fffu);
+  }
+  __device__ static unsigned int fold1(unsigned int m, __nv_bfloat16 e) {
+    return __vmaxu2(m, __bfloat16_as_ushort(e) & 0x7fffu);
+  }
+  // the larger half, as the bits of the fp32 value (exact: bf16 -> fp32
+  // appends 16 zero bits)
+  __device__ static unsigned int finish(unsigned int m) {
+    return max(m & 0xffffu, m >> 16) << 16;
+  }
+  __device__ static float value(__nv_bfloat16 e) { return to_f32(e); }
+  __device__ static unsigned int pair(unsigned int w, float s) {
+    return (quant1(__uint_as_float(w << 16), s) & 0xff) |
+           (quant1(__uint_as_float(w & 0xffff0000u), s) & 0xff) << 8;
+  }
+  __device__ static Codes codes(uint4 v, float s) {
+    return make_uint2(pair(v.x, s) | pair(v.y, s) << 16,
+                      pair(v.z, s) | pair(v.w, s) << 16);
+  }
+};
+
+// An item: the vectors [v0, v1) of row `row`'s body, which starts `h`
+// elements in (the row's head, up to the first 16-byte boundary of x); the
+// row's tail starts at element `tail`.  The first item of a row also takes
+// its head, the last its tail.
+struct Item {
+  long long row, v0, v1, h, tail;
+  bool first, last;
+};
+
+template <int VEC>
+__device__ __forceinline__ Item item_of(long long it, long long N, int segs,
+                                        int xoff) {
+  Item s;
+  s.row = it / segs;
+  const long long seg = it - s.row * segs;
+  const long long a = (xoff + s.row * N) % VEC;
+  s.h = a ? VEC - a : 0;
+  if (s.h > N) s.h = N;
+  const long long nv = (N - s.h) / VEC;
+  s.v0 = nv * seg / segs;
+  s.v1 = nv * (seg + 1) / segs;
+  s.tail = s.h + nv * VEC;
+  s.first = seg == 0;
+  s.last = seg == segs - 1;
+  return s;
+}
+
+// x (M, N) -> q (M, N), scales (M,); part (M * segs) 32-bit scratch.
+// xoff: x's base address modulo 16, in elements.  QV: the codes of a
+// vector go out in one store (x's base is 16-byte aligned).
+template <typename E, bool QV>
+__global__ void __launch_bounds__(QTHREADS, 4)
+quantize_int8_kernel(const E* __restrict__ x, signed char* __restrict__ q,
+                     float* __restrict__ scales, unsigned int* part,
+                     long long M, long long N, int segs, int xoff) {
+  using Q = Quant<E>;
+  constexpr int VEC = Q::VEC;
+  constexpr long long STEP = static_cast<long long>(QTHREADS) * QUNROLL;
+  __shared__ uint4 stash[STASH_VECS];
+  __shared__ unsigned int red[QTHREADS / 32];
+  const long long items = M * segs;
+  const long long G = gridDim.x;
+  const int tid = threadIdx.x;
+
+  // ---- phase 1: each item's absmax; the first STASH_VECS of the block's
+  // vectors kept in shared memory
+  long long sbase = 0;                  // the block's vectors so far
+  for (long long it = blockIdx.x; it < items; it += G) {
+    const Item s = item_of<VEC>(it, N, segs, xoff);
+    const E* xr = x + s.row * N;
+    unsigned int m = 0u;
+    if (s.first)
+      for (long long e = tid; e < s.h; e += QTHREADS) m = Q::fold1(m, xr[e]);
+    if (s.last)
+      for (long long e = s.tail + tid; e < N; e += QTHREADS)
+        m = Q::fold1(m, xr[e]);
+    const uint4* xv = reinterpret_cast<const uint4*>(xr + s.h) + s.v0;
+    const long long nv = s.v1 - s.v0;
+    for (long long k0 = 0; k0 < nv; k0 += STEP) {
+      uint4 v[QUNROLL];
+#pragma unroll
+      for (int u = 0; u < QUNROLL; ++u) {
+        const long long k = k0 + u * QTHREADS + tid;
+        v[u] = k < nv ? ldg16_l2(xv + k) : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < QUNROLL; ++u) {
+        const long long k = k0 + u * QTHREADS + tid;
+        m = Q::fold(m, v[u]);           // a zero vector leaves m as it is
+        if (k < nv && sbase + k < STASH_VECS) stash[sbase + k] = v[u];
+      }
+    }
+    m = block_max(Q::finish(m), red);
+    if (tid == 0) part[it] = m;
+    sbase += nv;
+  }
+
+  grid_sync();
+
+  // ---- phase 2: the block's items and vectors in reverse order
+  const long long mine = (items - blockIdx.x + G - 1) / G;
+  for (long long it = blockIdx.x + (mine - 1) * G; it >= 0; it -= G) {
+    const Item s = item_of<VEC>(it, N, segs, xoff);
+    const long long nv = s.v1 - s.v0;
+    sbase -= nv;
+    unsigned int m = 0u;
+    const unsigned int* pr = part + s.row * segs;
+    for (int i = tid; i < segs; i += QTHREADS) m = max(m, __ldcg(pr + i));
+    const float scale = quant_scale(__uint_as_float(block_max(m, red)));
+    if (s.first && tid == 0) scales[s.row] = scale;
+    const E* xr = x + s.row * N;
+    signed char* qr = q + s.row * N;
+    const uint4* xv = reinterpret_cast<const uint4*>(xr + s.h) + s.v0;
+    signed char* qv = qr + s.h + s.v0 * VEC;
+    for (long long k0 = nv > 0 ? (nv - 1) / STEP * STEP : -1; k0 >= 0;
+         k0 -= STEP) {
+      uint4 v[QUNROLL];
+#pragma unroll
+      for (int u = QUNROLL - 1; u >= 0; --u) {
+        const long long k = k0 + u * QTHREADS + tid;
+        if (k < nv)
+          v[u] = sbase + k < STASH_VECS ? stash[sbase + k]
+                                        : ldg16_l2(xv + k);
+      }
+#pragma unroll
+      for (int u = QUNROLL - 1; u >= 0; --u) {
+        const long long k = k0 + u * QTHREADS + tid;
+        if (k >= nv) continue;
+        const typename Q::Codes c = Q::codes(v[u], scale);
+        if constexpr (QV) {
+          __stcs(reinterpret_cast<typename Q::Codes*>(qv) + k, c);
+        } else {
+          const unsigned char* b = reinterpret_cast<const unsigned char*>(&c);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            qv[k * VEC + i] = static_cast<signed char>(b[i]);
+        }
+      }
+    }
+    if (s.first)
+      for (long long e = tid; e < s.h; e += QTHREADS)
+        qr[e] = static_cast<signed char>(quant1(Q::value(xr[e]), scale));
+    if (s.last)
+      for (long long e = s.tail + tid; e < N; e += QTHREADS)
+        qr[e] = static_cast<signed char>(quant1(Q::value(xr[e]), scale));
   }
 }
 
@@ -188,39 +412,121 @@ dequantize_kernel(const signed char* __restrict__ q,
         __fmul_rn(static_cast<float>(qr[i]), scale));
 }
 
-template <typename E>
+// K3's plan at (M, N): the co-resident blocks, the items a row and the
+// grid.  The occupancy is read once per kernel instance and device 0's SM
+// count is taken for every device (the port runs on one kind of card).
+struct QuantPlan {
+  long long resident, segs, grid;
+};
+
+template <typename E, bool QV>
+long long resident_blocks() {
+  static const long long n = [] {
+    auto kernel = quantize_int8_kernel<E, QV>;
+    cudaFuncSetAttribute(kernel,
+                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, QTHREADS,
+                                                  0);
+    return static_cast<long long>(sms) * per_sm;
+  }();
+  return n;
+}
+
+template <typename E, bool QV>
+QuantPlan quant_plan(long long M, long long N) {
+  QuantPlan p;
+  p.resident = resident_blocks<E, QV>();
+  const long long nv = N / Quant<E>::VEC;
+  long long segs = (nv + MIN_ITEM_VECS - 1) / MIN_ITEM_VECS;
+  long long cap = p.resident / M;
+  if (cap < 1) cap = 1;
+  if (segs > cap) segs = cap;
+  p.segs = segs < 1 ? 1 : segs;
+  p.grid = M * p.segs < p.resident ? M * p.segs : p.resident;
+  return p;
+}
+
+template <typename E, bool QV>
 int launch_quantize(const void* x, signed char* q, float* scales,
-                    unsigned int* amax, long long M, long long N,
-                    cudaStream_t stream) {
-  const int segs = row_segments(M, N);
-  const unsigned blocks = static_cast<unsigned>(M * segs);
-  cudaError_t err = cudaMemsetAsync(amax, 0, M * sizeof(unsigned int), stream);
+                    unsigned int* part, long long M, long long N, int xoff,
+                    long long segs, cudaStream_t stream) {
+  const QuantPlan p = quant_plan<E, QV>(M, N);
+  if (p.resident <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (p.segs != segs) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(p.grid));
+  cfg.blockDim = dim3(QTHREADS);
+  cfg.stream = stream;
+  cudaLaunchAttribute coop;
+  coop.id = cudaLaunchAttributeCooperative;
+  coop.val.cooperative = 1;
+  cfg.attrs = &coop;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, quantize_int8_kernel<E, QV>, static_cast<const E*>(x), q, scales,
+      part, M, N, static_cast<int>(p.segs), xoff);
   if (err != cudaSuccess) return static_cast<int>(err);
-  absmax_kernel<E><<<blocks, QTHREADS, 0, stream>>>(static_cast<const E*>(x),
-                                                   amax, N, segs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  quantize_kernel<E><<<blocks, QTHREADS, 0, stream>>>(
-      static_cast<const E*>(x), amax, q, scales, N, segs);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+QuantPlan plan_for(long long M, long long N, bool qv) {
+  return qv ? quant_plan<E, true>(M, N) : quant_plan<E, false>(M, N);
 }
 
 }  // namespace
 
-// x (M, N) row-major of `dtype` (common.cuh's code); q (M, N) int8, scales
-// (M,) fp32; amax (M,) 32-bit scratch.  M * segments must stay below 2^31
-// blocks.  Two launches on `stream`; returns cudaGetLastError().
-extern "C" int quantize_int8(const void* x, signed char* q, float* scales,
-                             unsigned int* amax, long long M, long long N,
-                             int dtype, void* stream) {
-  if (M <= 0 || N <= 0 || M * row_segments(M, N) > 0x7fffffffLL)
+// K3's launch at (M, N) for `dtype`, into out[0..4]: the grid, the items a
+// row (the scratch `part` of quantize_int8 holds M times as many words),
+// the co-resident blocks, the threads a block and the shared memory a
+// block keeps across the barrier.  `aligned`: x's base is 16-byte aligned.
+extern "C" int quantize_int8_plan(long long M, long long N, int dtype,
+                                  int aligned, long long* out) {
+  if (M <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  QuantPlan p;
+  if (dtype == DTYPE_F32)
+    p = plan_for<float>(M, N, aligned != 0);
+  else if (dtype == DTYPE_BF16)
+    p = plan_for<__nv_bfloat16>(M, N, aligned != 0);
+  else
     return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = p.grid;
+  out[1] = p.segs;
+  out[2] = p.resident;
+  out[3] = QTHREADS;
+  out[4] = STASH_BYTES;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (M, N) row-major of `dtype` (common.cuh's code), any base offset;
+// q (M, N) int8 with a 16-byte aligned base, scales (M,) fp32; part
+// (M * segs) 32-bit scratch, segs from quantize_int8_plan.  One launch on
+// `stream`; returns cudaGetLastError().
+extern "C" int quantize_int8(const void* x, signed char* q, float* scales,
+                             unsigned int* part, long long M, long long N,
+                             long long segs, int dtype, void* stream) {
+  const int esz = dtype == DTYPE_BF16 ? 2 : 4;
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  if (M <= 0 || N <= 0 || segs <= 0 || xa % esz != 0 ||
+      reinterpret_cast<uintptr_t>(q) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int xoff = static_cast<int>(xa % 16) / esz;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case DTYPE_F32:
-      return launch_quantize<float>(x, q, scales, amax, M, N, s);
+      return xoff ? launch_quantize<float, false>(x, q, scales, part, M, N,
+                                                  xoff, segs, s)
+                  : launch_quantize<float, true>(x, q, scales, part, M, N,
+                                                 xoff, segs, s);
     case DTYPE_BF16:
-      return launch_quantize<__nv_bfloat16>(x, q, scales, amax, M, N, s);
+      return xoff ? launch_quantize<__nv_bfloat16, false>(
+                        x, q, scales, part, M, N, xoff, segs, s)
+                  : launch_quantize<__nv_bfloat16, true>(
+                        x, q, scales, part, M, N, xoff, segs, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -13,6 +13,12 @@ needs no tile to divide S, W or B.  ``rglru_scan_plain`` is the same
 function in plain PyTorch, a log-depth doubling scan with
 ``models/layers.py::rglru``'s combine: the CPU path of ``ops.rglru`` and the
 reference on the card.
+
+The kernel walks the time axis in windows of a cluster of blocks (its size
+from ``launch_plan``), each block ``SUBCHUNKS`` sub-chunks of
+``SUB_STEPS`` steps over ``CHANNELS`` channels;
+``tests/test_torch_rglru_chunks.py`` holds a plain model of that
+decomposition against the JAX package.
 """
 from __future__ import annotations
 
@@ -24,6 +30,21 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 C = -8.0
+# The kernel's block (csrc/rglru.cu, checked against the library at load):
+# channels, sub-chunks (a warp each) and steps a sub-chunk; and the most
+# blocks a cluster spans along the time axis.
+CHANNELS, SUBCHUNKS, SUB_STEPS = 32, 4, 8
+MAX_CLUSTER = 8
+
+
+def launch_plan(B: int, S: int, W: int) -> dict:
+    """K7's plan at (B, S, W): the ``cluster`` of blocks that spans a
+    window of the time axis, the ``windows`` a cluster walks one after
+    another for each of the ``items`` (batch row, channel tile)."""
+    span = SUBCHUNKS * SUB_STEPS
+    cluster = max(1, min(MAX_CLUSTER, -(-S // span)))
+    return {"cluster": cluster, "windows": -(-S // (cluster * span)),
+            "items": B * -(-W // CHANNELS)}
 
 
 def rglru_scan_plain(x: torch.Tensor, gx: torch.Tensor, ga: torch.Tensor,
@@ -44,12 +65,34 @@ def rglru_scan_plain(x: torch.Tensor, gx: torch.Tensor, ga: torch.Tensor,
     return b.to(x.dtype)
 
 
+def launch_shape(B: int, S: int, W: int, dtype: torch.dtype) -> dict:
+    """The launch the library makes at (B, S, W) on the current device:
+    the ``grid`` (cluster, clusters), each cluster walking
+    ``items / grid[1]`` items, the ``threads`` a block and its dynamic
+    shared memory ``smem_bytes``."""
+    out = (ctypes.c_int * 4)()
+    lib = _lib()
+    err = lib.rglru_launch_shape(B, S, W, launch_plan(B, S, W)["cluster"],
+                                 _build.dtype_code(dtype), out)
+    _build.check(lib, err, "rglru_launch_shape")
+    return {"grid": (out[0], out[1]), "threads": out[2],
+            "smem_bytes": out[3]}
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("rglru")
     if lib.rglru_scan.argtypes is None:
-        lib.rglru_scan.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+        shape, want = (ctypes.c_int * 3)(), (CHANNELS, SUBCHUNKS, SUB_STEPS)
+        lib.rglru_block_shape(shape)
+        if tuple(shape) != want:
+            raise RuntimeError(f"rglru.cu's block {tuple(shape)} is not "
+                               f"launch_plan's {want}")
+        lib.rglru_scan.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                                    + [ctypes.c_void_p])
         lib.rglru_scan.restype = ctypes.c_int
+        lib.rglru_launch_shape.argtypes = [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        lib.rglru_launch_shape.restype = ctypes.c_int
     return lib
 
 
@@ -74,8 +117,6 @@ def rglru_scan(x: torch.Tensor, gx: torch.Tensor, ga: torch.Tensor,
         if t.dtype != torch.float32:
             raise TypeError(f"rglru_scan: {name} must be float32, not "
                             f"{t.dtype}")
-    if B > 65535:
-        raise ValueError(f"rglru_scan: batch {B} over the grid's 65535")
     _build.require_cuda("rglru_scan", x, gx, ga, log_a, h0)
     y = torch.empty_like(x)
     if x.numel() == 0:
@@ -84,7 +125,8 @@ def rglru_scan(x: torch.Tensor, gx: torch.Tensor, ga: torch.Tensor,
     with torch.cuda.device(x.device):
         err = lib.rglru_scan(x.data_ptr(), gx.data_ptr(), ga.data_ptr(),
                              log_a.data_ptr(), h0.data_ptr(), y.data_ptr(),
-                             B, S, W, code, _build.stream_of(x))
+                             B, S, W, launch_plan(B, S, W)["cluster"], code,
+                             _build.stream_of(x))
     _build.check(lib, err, "rglru_scan")
     rglru_scan.launches += 1
     return y

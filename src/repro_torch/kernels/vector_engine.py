@@ -65,8 +65,12 @@ def _lib() -> ctypes.CDLL:
             [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4
             + [ctypes.c_void_p])
         lib.fused_affine_act.restype = ctypes.c_int
+        lib.quantize_int8_plan.argtypes = ([ctypes.c_longlong] * 2
+                                           + [ctypes.c_int] * 2
+                                           + [ctypes.c_void_p])
+        lib.quantize_int8_plan.restype = ctypes.c_int
         lib.quantize_int8.argtypes = ([ctypes.c_void_p] * 4
-                                      + [ctypes.c_longlong] * 2
+                                      + [ctypes.c_longlong] * 3
                                       + [ctypes.c_int, ctypes.c_void_p])
         lib.quantize_int8.restype = ctypes.c_int
         lib.dequantize_int8.argtypes = ([ctypes.c_void_p] * 3
@@ -114,11 +118,27 @@ def _rows(name: str, t: torch.Tensor) -> Tuple[int, int]:
     return t.shape[0], t.shape[1]
 
 
+def quantize_plan(M: int, N: int, dtype: torch.dtype,
+                  aligned: bool = True) -> dict:
+    """K3's launch at (M, N) as the library plans it on the current
+    device: the ``grid`` (at most the ``resident`` blocks, launched
+    cooperatively), the ``segs`` items a row, the ``threads`` a block and
+    the ``stash_bytes`` of its share a block keeps in shared memory across
+    the grid barrier.  ``aligned``: x's base is 16-byte aligned."""
+    out = (ctypes.c_longlong * 5)()
+    lib = _lib()
+    err = lib.quantize_int8_plan(M, N, _build.dtype_code(dtype), int(aligned),
+                                 out)
+    _build.check(lib, err, "quantize_int8_plan")
+    return dict(zip(("grid", "segs", "resident", "threads", "stash_bytes"),
+                    out))
+
+
 def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (M, N) float32 or bfloat16 on the card -> (int8 (M, N), fp32
-    scales (M, 1)), byte-equal to ``quantize_int8_plain``.  ``launches``
-    counts calls; each call launches two kernels, the absmax pass and the
-    quantize pass."""
+    scales (M, 1)), byte-equal to ``quantize_int8_plain``.  One kernel
+    launch a call (``launches`` counts them): absmax and codes in one
+    cooperative grid, parted by a grid barrier."""
     M, N = _rows("quantize_int8", x)
     if M == 0 or N == 0:
         raise ValueError(f"quantize_int8: an empty row has no absmax "
@@ -127,11 +147,12 @@ def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     _build.require_cuda("quantize_int8", x)
     q = torch.empty((M, N), dtype=torch.int8, device=x.device)
     scales = torch.empty((M, 1), dtype=torch.float32, device=x.device)
-    amax = torch.empty((M,), dtype=torch.int32, device=x.device)
-    lib = _lib()
     with torch.cuda.device(x.device):
+        segs = quantize_plan(M, N, x.dtype, x.data_ptr() % 16 == 0)["segs"]
+        part = torch.empty((M * segs,), dtype=torch.int32, device=x.device)
+        lib = _lib()
         err = lib.quantize_int8(x.data_ptr(), q.data_ptr(), scales.data_ptr(),
-                                amax.data_ptr(), M, N, code,
+                                part.data_ptr(), M, N, segs, code,
                                 _build.stream_of(x))
     _build.check(lib, err, "quantize_int8")
     quantize_int8.launches += 1

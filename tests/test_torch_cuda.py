@@ -476,6 +476,60 @@ def test_rglru_scan_refuses_what_it_cannot_run(cuda):
     assert rglru_scan.launches == before
 
 
+def _graph_replays(fn):
+    """fn's outputs after each of two replays of one CUDA graph that
+    captured it (the outputs are the graph's own, read between replays)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    outs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append([t.clone() for t in
+                     (out if isinstance(out, tuple) else (out,))])
+    return outs
+
+
+# K7's new edges: one step, the 4096-token prompt (four windows of a
+# cluster of 8), an odd W (the pair loads give way to single ones)
+@pytest.mark.parametrize("b,s,w", [(2, 1, 256), (1, 4096, 256), (2, 300, 201),
+                                   (1, 129, 63)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_edges_match_plain(cuda, b, s, w, dtype):
+    x, gx, ga, la, h0 = _rglru_inputs(b, s, w, dtype, cuda, seed=s + w)
+    got = rglru_scan(x, gx, ga, la, h0)
+    want = rglru_scan_plain(x, gx, ga, la, h0)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_rglru_scan_graph_replays_are_equal(cuda):
+    x, gx, ga, la, h0 = _rglru_inputs(4, 1024, 2560, torch.bfloat16, cuda)
+    first, second = _graph_replays(lambda: rglru_scan(x, gx, ga, la, h0))
+    assert torch.equal(first[0], second[0])
+    torch.testing.assert_close(first[0].float(),
+                               rglru_scan_plain(x, gx, ga, la, h0).float(),
+                               rtol=1e-2, atol=1e-2)
+
+
+def test_rglru_launch_at_the_layer_shapes(cuda):
+    """Clusters of 8 blocks along the time axis, no more clusters than the
+    items (the library's block is checked against the plan at load)."""
+    from repro_torch.kernels.rglru import launch_plan, launch_shape
+    for s in (1024, 4096):
+        for dtype in (torch.float32, torch.bfloat16):
+            shape = launch_shape(4, s, 2560, dtype)
+            assert shape["grid"][0] == launch_plan(4, s, 2560)["cluster"] == 8
+            assert 1 <= shape["grid"][1] <= launch_plan(4, s, 2560)["items"]
+    assert launch_shape(2, 1, 256, torch.bfloat16)["grid"][0] == 1
+
+
 @pytest.mark.parametrize("b,sq,skv", [(1, 300, 300), (2, 100, 70),
                                       (1, 33, 1)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
@@ -679,6 +733,71 @@ def test_quantize_nan_and_inf_propagate_as_plain(cuda, m, n, dtype):
         torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
         assert bool(got[0].isnan().all())
         assert bool(torch.isfinite(got[1:]).all())
+
+
+def _assert_quantize_bytes_equal(x):
+    q, s = quantize_int8(x)
+    wq, ws = quantize_int8_plain(x)
+    assert torch.equal(q, wq)
+    assert torch.equal(s.view(torch.int32), ws.view(torch.int32))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 5])
+@pytest.mark.parametrize("m,n", [(1, 4099), (3, 1001), (2, 20000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_int8_at_an_unaligned_base(cuda, offset, m, n, dtype):
+    """x a contiguous view `offset` elements into its storage: the rows'
+    heads and tails are taken one element at a time and the codes stored a
+    byte at a time, and N is no multiple of 16."""
+    rng = np.random.default_rng(offset * 31 + n)
+    flat = _randn(rng, (m * n + offset,), torch.float32, cuda).to(dtype)
+    x = flat[offset:].view(m, n)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    _assert_quantize_bytes_equal(x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_int8_more_rows_than_the_grid(cuda, dtype):
+    from repro_torch.kernels.vector_engine import quantize_plan
+    resident = quantize_plan(1, 40, dtype)["resident"]
+    m = 2 * resident + 3
+    plan = quantize_plan(m, 40, dtype)
+    assert plan["grid"] == resident and plan["segs"] == 1
+    _assert_quantize_bytes_equal(_quant_input(m, 40, dtype, cuda))
+
+
+def test_quantize_int8_spreads_one_long_row_over_the_grid(cuda):
+    from repro_torch.kernels.vector_engine import quantize_plan
+    plan = quantize_plan(1, 48 * 1024 * 4384, torch.float32)
+    assert plan["grid"] == plan["resident"] == plan["segs"]
+    assert plan["resident"] >= torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+
+
+@pytest.mark.parametrize("m,n", [(1, (1 << 22) + 3), (3000, 40), (2, 64)])
+def test_quantize_int8_graph_replays_are_byte_equal(cuda, m, n):
+    """The grid barrier and the absmax scratch come back to rest inside
+    the launch: a second replay of one graph gives the first's bytes."""
+    x = _quant_input(m, n, torch.float32, cuda)
+    first, second = _graph_replays(lambda: quantize_int8(x))
+    wq, ws = quantize_int8_plain(x)
+    for q, s in (first, second):
+        assert torch.equal(q, wq)
+        assert torch.equal(s.view(torch.int32), ws.view(torch.int32))
+
+
+def test_quantize_int8_is_one_launch(cuda):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = _quant_input(1, 1 << 20, torch.float32, cuda)
+    quantize_int8(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        quantize_int8(x)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "quantize_int8_kernel" in names[0], names
 
 
 def test_ops_quantize_and_compress_grads_launch_k3_k4(cuda):
