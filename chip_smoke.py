@@ -9,11 +9,13 @@ DSCS executor for every non-LM workload, and then serves the main path: 8
 requests to a full-width ResNet-50 at 224x224 (``asset_damage``) and 8 to
 the ViT of ``remote_sensing`` at 176x176, with every launch counter set to 0
 just before and read just after.  The fleet slice follows: K6, the fp64
-Lindley scan, byte for byte against its plain version; the sharded fleet
-engine at the size of ``poisson-1m-f1024`` (10^6 requests, 1024 drives and
-1024 CPU nodes, 8 shards), run ``segmented, cuda, cuda, segmented`` with the
-cuda traces byte-identical to the numpy ones and K6 launched once for each
-length bucket; and the Zipf-skewed solver of ``lindley-zipf-1m``.  The LM
+Lindley scan, byte for byte against its plain version (NaN rows and ragged
+flat solves among the cases); the sharded fleet engine at the size of
+``poisson-1m-f1024`` (10^6 requests, 1024 drives and 1024 CPU nodes, 8
+shards), run ``segmented, cuda, cuda, segmented`` with the cuda traces
+byte-identical to the numpy ones and K6 launched once for each solve, then
+timed over that run's solves beside its byte and chain bounds; and the
+Zipf-skewed solve of ``lindley-zipf-1m``, one launch.  The LM
 slice last: K8, the Mamba-2 SSD chunk scan, against its plain version at
 ``tests/test_kernels.py``'s shapes, with h0, and at Mamba-2 370M's layer
 shape in bf16 and fp32, with the grid that spreads its chunks over
@@ -156,11 +158,41 @@ def k1_ptxas(log):
     return out
 
 
-def k6_bound(R, W):
-    """K6 at (R, W): 24 B an element (t, s read, the start written) and 6
-    fp64 operations; the serial chain along W is no part of this bound."""
+def k6_bound(n, n_seg=0):
+    """K6 over n elements (and n_seg + 1 fenceposts, if any): 24 B an
+    element (t, s read, the start written) and 6 fp64 operations; the
+    serial chain is no part of this bound (see k6_chain_ms)."""
     import torch
-    return bound(24 * R * W, 6 * R * W, torch.float64)
+    return bound(24 * n + (8 * (n_seg + 1) if n_seg else 0), 6 * n,
+                 torch.float64)
+
+
+def k6_chain_ms(longest, add_ns):
+    """K6's chain bound for a solve: its longest queue's steps, each one
+    dependent fp64 add of ``add_ns`` (as lindley_add_latency measured)."""
+    return longest * add_ns * 1e-6
+
+
+def flat_solve(lens, seed, nan=None):
+    """CPU float64 (seg, t, s) of a flat solve with queues of ``lens``:
+    sorted arrivals a queue; ``nan`` ("t" or "s") puts a NaN into the
+    longest queue ("2": a second NaN arrival of other bits after it,
+    numpy's and x86's)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    lens = np.asarray(lens, dtype=np.int64)
+    seg = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    t = np.concatenate([np.sort(rng.uniform(0.0, 1e3, n)) for n in lens]
+                       + [np.empty(0)])
+    s = rng.uniform(1e-4, 2.0, int(seg[-1]))
+    if nan:
+        j = int(np.argmax(lens))
+        (t if nan != "s" else s)[seg[j] + lens[j] // 3] = np.nan
+    if nan == "2":                   # x86's inf - inf, later in the queue
+        t[seg[j] + 2 * lens[j] // 3] = np.array(
+            [0xfff8000000000000], dtype=np.uint64).view(np.float64)[0]
+    return tuple(torch.from_numpy(a) for a in (seg, t, s))
 
 
 def lindley_inputs(R, W, seed):
@@ -181,31 +213,55 @@ def lindley_inputs(R, W, seed):
 def check_k6(dev, time_ms, call_ms):
     """K6 byte for byte against its plain version on a CPU copy of the
     inputs (torch.cumsum on the card re-associates; on the CPU it gives
-    numpy's bytes), and its times.  Returns the largest abs error (0)."""
-    from repro_torch.kernels.lindley import lindley_scan, lindley_scan_plain
+    numpy's bytes), and its times: (R, W) calls, then flat solves, ragged
+    and with NaN rows.  Returns the largest abs error (0; NaN = NaN)."""
+    import torch
+    from repro_torch.kernels.lindley import (lindley_scan, lindley_scan_plain,
+                                             lindley_scan_segments,
+                                             lindley_scan_segments_plain)
+
+    def same(got, want, what):
+        if got.numpy().tobytes() != want.numpy().tobytes():
+            raise AssertionError(
+                f"K6 {what}: not byte-equal to the plain version, max abs "
+                f"err {(got - want).abs().nan_to_num(float('inf')).max():.3e}")
+        return (got - want).nan_to_num(0.0).abs().max().item()
+
     k6_err = 0.0
     for (R, W) in [(3, 17), (128, 1024), (257, 4096), (1, 1 << 19)]:
         t_cpu, s_cpu = lindley_inputs(R, W, R + W)
         t, s = t_cpu.to(dev), s_cpu.to(dev)
-        got = lindley_scan(t, s).cpu()
-        want = lindley_scan_plain(t_cpu, s_cpu)
-        if got.numpy().tobytes() != want.numpy().tobytes():
-            raise AssertionError(
-                f"K6 ({R}, {W}): not byte-equal to the plain version, max "
-                f"abs err {(got - want).abs().max().item():.3e}")
-        k6_err = max(k6_err, (got - want).abs().max().item())
+        k6_err = max(k6_err, same(lindley_scan(t, s).cpu(),
+                                  lindley_scan_plain(t_cpu, s_cpu),
+                                  f"({R}, {W})"))
         ms = time_ms(lambda: lindley_scan(t, s))
         plain = time_ms(lambda: lindley_scan_plain(t, s))
-        bnd, by = k6_bound(R, W)
+        bnd, by = k6_bound(R * W)
         print(f"K6 lindley_scan R={R} W={W} float64: byte-equal to the plain "
               f"version on a CPU copy (max_abs_err {k6_err:.1e}); ms={ms:.4f} "
               f"(per Python call {call_ms(lambda: lindley_scan(t, s)):.4f}) "
               f"plain_ms(on the card)={plain:.4f} library_ms=none "
               f"bound_ms={bnd:.4f} ({by})")
+    ragged = [1000, 3, 257, 0, 1, 513, 1, 0, 2048, 255, 256, 4097]
+    for name, lens, nan in [("ragged", ragged, None), ("nan_t", ragged, "t"),
+                            ("nan_s", ragged, "s"), ("nan_2", ragged, "2"),
+                            ("empty_and_one", [0, 1, 0, 0, 1, 1, 0], None),
+                            ("5000 short", [(j * 7919) % 61
+                                            for j in range(5000)], None)]:
+        seg_c, t_c, s_c = flat_solve(lens, len(name), nan)
+        got = lindley_scan_segments(*(a.to(dev) for a in (seg_c, t_c, s_c)))
+        k6_err = max(k6_err, same(got.cpu(), lindley_scan_segments_plain(
+            seg_c, t_c, s_c), name))
+        nans = int(torch.isnan(got).sum())
+        if (nans > 0) != (nan is not None):
+            raise AssertionError(f"K6 {name}: {nans} NaN starts")
+        print(f"K6 lindley_scan_segments {name} ({len(lens)} queues, "
+              f"{t_c.numel()} steps, {nans} NaN starts): byte-equal to the "
+              f"plain version on a CPU copy")
     return k6_err
 
 
-def drive_fleet(dev, time_ms):
+def drive_fleet(dev, time_ms, call_ms):
     """The fleet slice's path at real size, on K6; returns K6's entry of
     the kernels line, all but its max_abs_err (check_k6's)."""
     import numpy as np
@@ -214,7 +270,9 @@ def drive_fleet(dev, time_ms):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.lindley import lindley_scan, lindley_scan_plain
+    from repro_torch.kernels.lindley import (add_latency, lindley_scan,
+                                             lindley_scan_segments,
+                                             lindley_scan_segments_plain)
     from repro_torch.kernels.systolic_matmul import systolic_matmul
     from repro_torch.kernels.vector_engine import fused_affine_act
 
@@ -246,13 +304,14 @@ def drive_fleet(dev, time_ms):
         torch.cuda.synchronize()
         return eng, tr, time.perf_counter() - t0
 
-    # the segment lengths of every solve, recorded in the first (numpy) run:
-    # the cuda runs must launch K6 once for each non-empty length bucket
-    seg_lens = []
+    # every solve's (seg, t, s), recorded in the first (numpy) run: the cuda
+    # runs must launch K6 once for each solve with a non-empty input
+    solves = []
     real_solve = L.solve_segments
 
     def record_solve(seg, t, s, start, fin, *, backend):
-        seg_lens.append(np.diff(seg))
+        if t.size:
+            solves.append((seg.copy(), t.copy(), s.copy()))
         return real_solve(seg, t, s, start, fin, backend=backend)
 
     L.solve_segments = record_solve
@@ -261,13 +320,6 @@ def drive_fleet(dev, time_ms):
     finally:
         L.solve_segments = real_solve
 
-    def bucket_shapes(lens):
-        """(rows, width) of each non-empty power-of-two length bucket."""
-        b = np.array([(int(v) - 1).bit_length() for v in lens[lens > 0]])
-        return [(int(np.count_nonzero(b == w)), 1 << int(w))
-                for w in np.unique(b)]
-
-    buckets = [shp for lens in seg_lens for shp in bucket_shapes(lens)]
     fleet_launches = []
     for backend in ("cuda", "cuda", "segmented"):
         if backend == "cuda":
@@ -276,8 +328,8 @@ def drive_fleet(dev, time_ms):
         runs.append(fleet(backend))
         if backend == "cuda":
             fleet_launches.append([c.launches for c in all_counters])
-    want_fleet = [0, 0, 0, len(buckets)]
-    if any(n != want_fleet for n in fleet_launches) or not buckets:
+    want_fleet = [0, 0, 0, len(solves)]
+    if any(n != want_fleet for n in fleet_launches) or not solves:
         raise AssertionError(f"fleet launches K1/K2/K5/K6 {fleet_launches}, "
                              f"want {want_fleet} per cuda run")
     base_eng, base_tr, _ = runs[0]
@@ -307,8 +359,8 @@ def drive_fleet(dev, time_ms):
           f"segmented {walls[0]:.3f}, cuda {walls[1]:.3f}, cuda "
           f"{walls[2]:.3f}, segmented {walls[3]:.3f}; cuda traces, queue "
           f"and power books and counters byte-identical to segmented; K6 "
-          f"launches {fleet_launches[0][3]} per run = the {len(buckets)} "
-          f"non-empty length buckets of {len(seg_lens)} solves; p50/p99 "
+          f"launches {fleet_launches[0][3]} per run = its {len(solves)} "
+          f"solves with a non-empty input; p50/p99 "
           f"latency {np.percentile(lat, 50):.6f}/{np.percentile(lat, 99):.6f}"
           f" s; hedged {int(base_tr.hedged.sum())}; DSCS max depth "
           f"{qs['dscs']['max_depth']}")
@@ -353,28 +405,34 @@ def drive_fleet(dev, time_ms):
         print(f"host profile fleet {backend} run (cProfile on, wall "
               f"{wall * 1e3:.1f} ms), cumulative ms by function: {top}")
 
-    # K6 over the fleet run's buckets, at their (rows, width) shapes
-    k6 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    shapes = {}
-    for shp in buckets:
-        shapes[shp] = shapes.get(shp, 0) + 1
-    for (R, W), count in sorted(shapes.items()):
-        t_cpu, s_cpu = lindley_inputs(R, W, R * W)
-        t, s = t_cpu.to(dev), s_cpu.to(dev)
-        if lindley_scan(t, s).cpu().numpy().tobytes() != \
-                lindley_scan_plain(t_cpu, s_cpu).numpy().tobytes():
-            raise AssertionError(f"K6 fleet shape ({R}, {W}) not byte-equal")
-        k6["ms"] += count * time_ms(lambda: lindley_scan(t, s), reps=5)
-        k6["plain_ms"] += count * time_ms(lambda: lindley_scan_plain(t, s),
-                                          reps=5)
-        k6["bound_ms"] += count * k6_bound(R, W)[0]
-    print(f"K6 over the {len(buckets)} buckets of one fleet run "
-          f"({len(shapes)} shapes, widest {max(w for _, w in shapes)}, most "
-          f"rows {max(r for r, _ in shapes)}): ms={k6['ms']:.4f} "
-          f"plain_ms={k6['plain_ms']:.4f} bound_ms={k6['bound_ms']:.4f} "
-          f"(bytes) library_ms=none; byte-equal to the plain version")
+    # K6 over the fleet run's solves, at their own inputs
+    add = add_latency(dev)
+    k6 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "chain_bound_ms": 0.0}
+    steps = longest = 0
+    for seg_np, t_np, s_np in solves:
+        cols = [torch.from_numpy(a) for a in (seg_np, t_np, s_np)]
+        seg, t, s = (a.to(dev) for a in cols)
+        if lindley_scan_segments(seg, t, s).cpu().numpy().tobytes() != \
+                lindley_scan_segments_plain(*cols).numpy().tobytes():
+            raise AssertionError("K6 on a fleet solve: not byte-equal")
+        lens = np.diff(seg_np)
+        k6["ms"] += time_ms(lambda: lindley_scan_segments(seg, t, s))
+        k6["plain_ms"] += call_ms(
+            lambda: lindley_scan_segments_plain(seg, t, s), reps=3)
+        k6["bound_ms"] += k6_bound(t_np.size, lens.size)[0]
+        k6["chain_bound_ms"] += k6_chain_ms(int(lens.max()), add["ns"])
+        steps += t_np.size
+        longest = max(longest, int(lens.max()))
+    print(f"K6 over the {len(solves)} solves of one fleet run ({steps} "
+          f"steps, {solves[0][0].size - 1} queues a solve, longest "
+          f"{longest}): ms={k6['ms']:.4f} plain_ms(per Python call, "
+          f"bucketed on the card)={k6['plain_ms']:.4f} bound_ms="
+          f"{k6['bound_ms']:.4f} (bytes) chain_bound_ms="
+          f"{k6['chain_bound_ms']:.4f} (the longest queue a solve x one "
+          f"dependent fp64 add, {add['clocks']:.3f} clocks = {add['ns']:.4f} "
+          f"ns) library_ms=none; byte-equal to the plain version")
 
-    # ---- 7. the Zipf-skewed solver (lindley-zipf-1m) ----------------------
+    # ---- 7. the Zipf-skewed solve (lindley-zipf-1m), one launch ----------
     rng = np.random.default_rng(0)
     ranks = np.arange(1, ZIPF["n_servers"] + 1, dtype=np.float64)
     p = ranks ** -ZIPF["zipf_s"]
@@ -387,25 +445,38 @@ def drive_fleet(dev, time_ms):
     zipf_out, zipf_s = {}, {"segmented": [], "cuda": []}
     for backend in ("segmented", "cuda", "cuda", "segmented"):
         start, fin = np.empty(n), np.empty(n)
+        before = lindley_scan.launches
         t0 = time.perf_counter()
         L.solve_segments(seg, zt, zs, start, fin, backend=backend)
         zipf_s[backend].append(time.perf_counter() - t0)
+        if lindley_scan.launches - before != (backend == "cuda"):
+            raise AssertionError(f"zipf {backend}: K6 launched "
+                                 f"{lindley_scan.launches - before} times")
         zipf_out.setdefault(backend, (start.tobytes(), fin.tobytes()))
         if (start.tobytes(), fin.tobytes()) != zipf_out[backend]:
             raise AssertionError(f"zipf {backend}: reruns differ")
     if zipf_out["cuda"] != zipf_out["segmented"]:
         raise AssertionError("zipf: cuda starts not byte-equal to segmented")
+    zseg, zt_d, zs_d = (torch.from_numpy(a).to(dev) for a in (seg, zt, zs))
+    lens = np.diff(seg)
+    zipf_ms = time_ms(lambda: lindley_scan_segments(zseg, zt_d, zs_d), reps=3)
+    zipf_plain = call_ms(lambda: lindley_scan_segments_plain(zseg, zt_d, zs_d),
+                         reps=3)
     print(f"zipf lindley-zipf-1m: {n} requests over {ZIPF['n_servers']} "
-          f"servers, longest queue {int(np.diff(seg).max())}; cuda byte-equal "
-          f"to segmented; solve s segmented "
-          f"{[round(x, 4) for x in zipf_s['segmented']]}, cuda "
-          f"{[round(x, 4) for x in zipf_s['cuda']]}")
+          f"servers, longest queue {int(lens.max())} (next "
+          f"{int(np.sort(lens)[-2])}); cuda byte-equal to segmented, one K6 "
+          f"launch a solve; K6 ms={zipf_ms:.4f} plain_ms(per Python call)="
+          f"{zipf_plain:.4f} bound_ms={k6_bound(n, lens.size)[0]:.4f} (bytes) "
+          f"chain_bound_ms={k6_chain_ms(int(lens.max()), add['ns']):.4f}; "
+          f"solve s segmented {[round(x, 4) for x in zipf_s['segmented']]}, "
+          f"cuda {[round(x, 4) for x in zipf_s['cuda']]}")
     return {"name": "lindley_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/lindley.cu",
             "replaces": "src/repro/kernels/lindley.py:66",
             "launches": fleet_launches[0][3], "ms": k6["ms"],
             "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
-            "bound_by": "bytes", "library_ms": None}
+            "bound_by": "bytes", "library_ms": None,
+            "chain_bound_ms": k6["chain_bound_ms"], "zipf_ms": zipf_ms}
 
 
 def k8_bound(B, S, H, P, G, N, dtype):
@@ -1640,6 +1711,19 @@ def main() -> int:
               f"plain_ms={plain:.4f} library_ms(torch.addcmul)={lib:.4f} "
               f"bound_ms={bnd:.4f} ({by}); in turns, medians of 10: K2 "
               f"{turns['kernel']:.4f}, torch.addcmul {turns['library']:.4f}")
+    # K2 off the 16-byte vector: an N no multiple of 4, an x base one
+    # element past a fresh allocation
+    for (M, N, off) in [(1, 150527, 0), (1, 150528, 1), (256, 1023, 0)]:
+        x = randn(M * N + off)[off:].view(M, N)
+        s, b = randn(N), randn(N)
+        err = max(max_err(fused_affine_act(x, s, b, act=a),
+                          fused_affine_act_plain(x, s, b, act=a), 1e-5, 1e-5,
+                          f"K2 {M}x{N} offset {off} {a}") for a in _ACTS)
+        print(f"K2 fused_affine_act M={M} N={N} x at element offset {off} "
+              f"float32: 6 acts max_abs_err={err:.3e} rtol=1e-5 atol=1e-5; "
+              f"ms={time_ms(lambda: fused_affine_act(x, s, b)):.4f} "
+              f"library_ms(torch.addcmul)="
+              f"{time_ms(lambda: torch.addcmul(b, x, s)):.4f}")
 
     k5_rows = {}
     for (B, H, KV, Sq, Skv, D, causal, window) in [
@@ -1790,7 +1874,7 @@ def main() -> int:
         print(f"profile ResNet-50 request (profiler on): host self time by "
               f"op: {host_top}")
 
-    k6_entry = drive_fleet(dev, time_ms)
+    k6_entry = drive_fleet(dev, time_ms, call_ms)
     k8_launches = drive_lm(dev, counters + (lindley_scan, ssd_scan))
     k7_entry, k5_serving = drive_gemma(
         dev, counters + (lindley_scan, ssd_scan, rglru_scan), time_ms,

@@ -33,16 +33,19 @@ Two backends evaluate the identity over the contiguous flat layout:
     would have broken the bit-identity gate.
 
 ``torch`` / ``cuda``
-    The same bucketed recurrence through
-    :func:`repro_torch.kernels.ops.lindley`, one call per bucket on
-    float64 tensors.  ``cuda`` (the default,
-    :data:`DEFAULT_BACKEND`) puts each bucket on the card and runs the
-    hand-written fp64 scan of :mod:`repro_torch.kernels.lindley`, which
-    walks each row in order with the same fp64 operations; it raises
-    where CUDA is absent.  ``torch`` keeps the bucket on the CPU and runs
-    the kernel's plain PyTorch version, the numpy op sequence.  Both are
-    byte-equal to the numpy backend (pinned in
-    ``tests/test_torch_lindley.py``).
+    The same recurrence through
+    :func:`repro_torch.kernels.ops.lindley_segments`, one call per solve
+    on the flat float64 columns and the fenceposts, with no buckets and
+    no pads.  ``cuda`` (the default, :data:`DEFAULT_BACKEND`) copies them
+    to the card once, runs the hand-written fp64 scan of
+    :mod:`repro_torch.kernels.lindley` once over every segment (the
+    cumsum rounded step by step in order, the running max a scan in
+    numpy's order of operands) and copies the starts back once; it
+    raises where CUDA is absent.  ``torch`` stays on the CPU and runs the
+    kernel's plain PyTorch version, the numpy op sequence on the same
+    length buckets.  Both are byte-equal to the numpy backend (pinned in
+    ``tests/test_torch_lindley.py`` and
+    ``tests/test_torch_lindley_segments.py``).
 
 ``dense``
     The legacy zero-padded ``(n_servers, longest_queue)`` layout, kept
@@ -136,7 +139,15 @@ def _bucket_rows(lens: np.ndarray):
 def _solve_segmented(seg: np.ndarray, t: np.ndarray, s: np.ndarray,
                      start: np.ndarray,
                      device: Optional[torch.device] = None) -> None:
-    """Bucketed evaluation over the flat layout; fills ``start``."""
+    """Bucketed evaluation over the flat layout; fills ``start``.  On a
+    ``device``, one ``ops.lindley_segments`` call over the flat layout."""
+    if device is not None:
+        seg = np.asarray(seg, dtype=np.int64)
+        ops.check_fenceposts(seg, t.size)
+        col = lambda a: torch.from_numpy(a).to(device)
+        start[:] = ops.lindley_segments(col(seg), col(t),
+                                        col(s)).cpu().numpy()
+        return
     lens = np.diff(seg)
     order, bounds, widths = _bucket_rows(lens)
     for bi in range(bounds.size - 1):
@@ -157,13 +168,6 @@ def _solve_segmented(seg: np.ndarray, t: np.ndarray, s: np.ndarray,
         S.fill(0.0)
         T[rr, pp] = t[flat]
         S[rr, pp] = s[flat]
-        if device is not None:
-            # T/S are pooled scratch the next bucket overwrites: copy the
-            # result back synchronously before moving on
-            st = ops.lindley(torch.from_numpy(T).to(device),
-                             torch.from_numpy(S).to(device)).cpu().numpy()
-            start[flat] = st[rr, pp]
-            continue
         C = _scratch("C", r * w)[:r * w].reshape(r, w)
         P = _scratch("P", r * w)[:r * w].reshape(r, w)
         np.cumsum(S, axis=1, out=C)

@@ -8,67 +8,256 @@
 // of bm rows with all N columns in VMEM.
 //
 // What bounds it on the H100: bytes.  It reads each x element once and
-// writes one output for 2 flops, so it runs at the memory rate.
+// writes one output for 2 flops, so it runs at the memory rate; at the
+// request's shape, (1, 150528) with f1's per-column scale and bias as long
+// as x, the call moves 2.4 MB (0.0007 ms), less than a launch's fixed cost.
 //
-// What the design does about it: the DSCS executor calls it with M=1 and
-// N=H*W*3 (150,528 columns at 224x224), where the TPU's one-row-block grid
-// would be a single block and a whole row would not fit in shared memory.
-// So the kernel tiles the flat M*N range instead: a grid-stride loop with
-// one element a thread, consecutive threads on consecutive addresses, and
-// scale/bias read from the (L2-resident) column vectors.  Multiply and add
-// are rounded separately, as the plain PyTorch version's two operations are.
+// What the design does about it:
+// - Two-dimensional indexing.  blockIdx.x takes a slab of THREADS vectors of
+//   columns, blockIdx.y a group of rows walked with a stride of gridDim.y:
+//   a thread's columns come from its position, so no element pays a
+//   division, and it reads its scale and bias once and reuses them on every
+//   row it walks (at (256, 1024) they are read once a block, not once an
+//   element).
+// - 16-byte vectors: 4 fp32 or 8 bf16 of x a load, the outputs in one
+//   8-byte (fp32 in, bf16 out), one or two 16-byte stores.  A vector's
+//   columns start at a multiple of its width, where scale and bias (16-byte
+//   aligned, as the wrapper hands them over) are aligned.  A row whose x or
+//   output is not aligned there (an unaligned base, or an N no multiple of
+//   the vector) is read or written element by element in that row, and the
+//   columns past a row's last whole vector are taken by one more thread,
+//   element by element.
+// - One wave: the grid is at most the blocks the card holds at once; a
+//   thread with many rows issues the loads of ROW_UNROLL rows before it
+//   computes any, and one with a few takes them one at a time.
+// Multiply and add are rounded separately, as the plain PyTorch version's
+// two operations are.
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr long long MAX_BLOCKS = 132 * 16;
+constexpr int THREADS = 128;
+constexpr int ROW_UNROLL = 4;                 // rows a thread loads at once
+constexpr int BLOCKS_PER_SM = 2048 / THREADS;
 
-template <typename Tin, typename Tout>
+template <typename T>
+constexpr int VEC_OF = static_cast<int>(16 / sizeof(T));  // a 16-byte vector
+
+// One vector of x (aligned: one 16-byte load) or its first n elements.
+template <int V>
+__device__ __forceinline__ void load_x(const float* p, bool aligned, int n,
+                                       float (&v)[V]) {
+  if (aligned) {
+    const uint4 w = ldg16(p);
+    v[0] = __uint_as_float(w.x);
+    v[1] = __uint_as_float(w.y);
+    v[2] = __uint_as_float(w.z);
+    v[3] = __uint_as_float(w.w);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = j < n ? __ldg(p + j) : 0.0f;
+}
+template <int V>
+__device__ __forceinline__ void load_x(const __nv_bfloat16* p, bool aligned,
+                                       int n, float (&v)[V]) {
+  if (aligned) {
+    const uint4 w = ldg16(p);
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j] = __uint_as_float(u[j] << 16);
+      v[2 * j + 1] = __uint_as_float(u[j] & 0xffff0000u);
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = j < n ? to_f32(p[j]) : 0.0f;
+}
+
+// V outputs (aligned: in vector stores) or their first n.
+template <int V>
+__device__ __forceinline__ void store_out(float* p, bool aligned, int n,
+                                          const float (&v)[V]) {
+  if (aligned) {
+#pragma unroll
+    for (int j = 0; j < V; j += 4)
+      *reinterpret_cast<float4*>(p + j) =
+          make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    if (j < n) p[j] = v[j];
+}
+template <int V>
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, bool aligned,
+                                          int n, const float (&v)[V]) {
+  if (aligned) {
+    uint32_t u[V / 2];
+#pragma unroll
+    for (int j = 0; j < V / 2; ++j) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+      u[j] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    if constexpr (V == 4)
+      *reinterpret_cast<uint2*>(p) = make_uint2(u[0], u[1]);
+    else
+      *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    if (j < n) p[j] = from_f32<__nv_bfloat16>(v[j]);
+}
+
+template <typename T>
+__device__ __forceinline__ bool aligned_to(const T* p, int bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+// One row's vector (or the tail's n < V elements) from its x values.
+template <int ACT, typename Tout, int V>
+__device__ __forceinline__ void affine_row(Tout* orow, int n,
+                                           const float (&sc)[V],
+                                           const float (&bi)[V],
+                                           const float (&xv)[V]) {
+  constexpr int OUT_ALIGN = V * sizeof(Tout) < 16 ? V * sizeof(Tout) : 16;
+  float v[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    v[j] = apply_act(ACT, __fadd_rn(__fmul_rn(xv[j], sc[j]), bi[j]));
+  store_out(orow, n == V && aligned_to(orow, OUT_ALIGN), n, v);
+}
+
+template <int ACT, typename Tin, typename Tout>
 __global__ void __launch_bounds__(THREADS)
 affine_act_kernel(const Tin* __restrict__ x, const float* __restrict__ scale,
                   const float* __restrict__ bias, Tout* __restrict__ out,
-                  long long total, int N, int act) {
-  const long long stride = (long long)gridDim.x * THREADS;
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < total;
-       i += stride) {
-    const int col = (int)(i % N);
-    const float v = __fadd_rn(__fmul_rn(to_f32(x[i]), scale[col]), bias[col]);
-    out[i] = from_f32<Tout>(apply_act(act, v));
+                  long long M, int N) {
+  constexpr int V = VEC_OF<Tin>;
+  const int nvec = N / V;                     // whole vectors a row
+  const int k = blockIdx.x * THREADS + threadIdx.x;
+  const int n = k < nvec ? V : N - nvec * V;  // the tail's thread: N % V
+  if (k > nvec || n == 0) return;
+  const int c0 = k * V;
+  float sc[V], bi[V];
+  if (n == V) {
+#pragma unroll
+    for (int j = 0; j < V; j += 4) {
+      const uint4 a = ldg16(scale + c0 + j), b = ldg16(bias + c0 + j);
+      sc[j] = __uint_as_float(a.x), sc[j + 1] = __uint_as_float(a.y);
+      sc[j + 2] = __uint_as_float(a.z), sc[j + 3] = __uint_as_float(a.w);
+      bi[j] = __uint_as_float(b.x), bi[j + 1] = __uint_as_float(b.y);
+      bi[j + 2] = __uint_as_float(b.z), bi[j + 3] = __uint_as_float(b.w);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      sc[j] = j < n ? __ldg(scale + c0 + j) : 0.0f;
+      bi[j] = j < n ? __ldg(bias + c0 + j) : 0.0f;
+    }
+  }
+  const long long gy = gridDim.y;
+  long long r = blockIdx.y;
+  // whole groups of ROW_UNROLL rows: every load issued before any is used
+  for (; r + (ROW_UNROLL - 1) * gy < M; r += ROW_UNROLL * gy) {
+    float xv[ROW_UNROLL][V];
+#pragma unroll
+    for (int u = 0; u < ROW_UNROLL; ++u) {
+      const Tin* xr = x + (r + u * gy) * N + c0;
+      load_x(xr, n == V && aligned_to(xr, 16), n, xv[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < ROW_UNROLL; ++u)
+      affine_row<ACT>(out + (r + u * gy) * N + c0, n, sc, bi, xv[u]);
+  }
+  for (; r < M; r += gy) {                    // the rest, a row at a time
+    float xv[V];
+    const Tin* xr = x + r * N + c0;
+    load_x(xr, n == V && aligned_to(xr, 16), n, xv);
+    affine_row<ACT>(out + r * N + c0, n, sc, bi, xv);
   }
 }
 
+// The blocks the current device holds at once, for THREADS-thread blocks.
+__host__ long long affine_grid_blocks() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return static_cast<long long>(sms) * BLOCKS_PER_SM;
+}
+
+template <int ACT, typename Tin, typename Tout>
+void launch_act(dim3 grid, const void* x, const float* scale,
+                const float* bias, void* out, long long M, int N,
+                cudaStream_t stream) {
+  affine_act_kernel<ACT, Tin, Tout><<<grid, THREADS, 0, stream>>>(
+      static_cast<const Tin*>(x), scale, bias, static_cast<Tout*>(out), M, N);
+}
+
+// The activation is a template argument, so no element pays a switch.
 template <typename Tin, typename Tout>
-void launch(const void* x, const float* scale, const float* bias, void* out,
-            long long M, int N, int act, cudaStream_t stream) {
-  const long long total = M * N;
-  long long blocks = (total + THREADS - 1) / THREADS;
-  if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
-  affine_act_kernel<Tin, Tout><<<(unsigned)blocks, THREADS, 0, stream>>>(
-      static_cast<const Tin*>(x), scale, bias, static_cast<Tout*>(out), total,
-      N, act);
+int launch(const void* x, const float* scale, const float* bias, void* out,
+           long long M, int N, int act, cudaStream_t stream) {
+  constexpr int V = VEC_OF<Tin>;
+  const long long slots = N / V + (N % V ? 1 : 0);
+  const long long gx = (slots + THREADS - 1) / THREADS;
+  long long gy = affine_grid_blocks() / gx;
+  if (gy < 1) gy = 1;
+  if (gy > M) gy = M;
+  if (gy > 65535) gy = 65535;
+  if (gx > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
+  switch (act) {
+    case ACT_NONE:
+      launch_act<ACT_NONE, Tin, Tout>(grid, x, scale, bias, out, M, N, stream);
+      break;
+    case ACT_RELU:
+      launch_act<ACT_RELU, Tin, Tout>(grid, x, scale, bias, out, M, N, stream);
+      break;
+    case ACT_GELU:
+      launch_act<ACT_GELU, Tin, Tout>(grid, x, scale, bias, out, M, N, stream);
+      break;
+    case ACT_SILU:
+      launch_act<ACT_SILU, Tin, Tout>(grid, x, scale, bias, out, M, N, stream);
+      break;
+    case ACT_TANH:
+      launch_act<ACT_TANH, Tin, Tout>(grid, x, scale, bias, out, M, N, stream);
+      break;
+    case ACT_SIGMOID:
+      launch_act<ACT_SIGMOID, Tin, Tout>(grid, x, scale, bias, out, M, N,
+                                         stream);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x (M,N) row-major of in_dtype; scale, bias (N,) fp32; out (M,N) row-major
-// of out_dtype.  Launches on `stream` and returns cudaGetLastError().
+// x (M,N) row-major of in_dtype, at any base; scale, bias (N,) fp32,
+// 16-byte aligned; out (M,N) row-major of out_dtype.  Launches on `stream`
+// and returns cudaGetLastError().
 extern "C" int fused_affine_act(const void* x, const float* scale,
                                 const float* bias, void* out, long long M,
                                 int N, int in_dtype, int out_dtype, int act,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((reinterpret_cast<uintptr_t>(scale) | reinterpret_cast<uintptr_t>(bias)) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (M <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
   if (in_dtype == DTYPE_F32 && out_dtype == DTYPE_F32)
-    launch<float, float>(x, scale, bias, out, M, N, act, s);
-  else if (in_dtype == DTYPE_F32 && out_dtype == DTYPE_BF16)
-    launch<float, __nv_bfloat16>(x, scale, bias, out, M, N, act, s);
-  else if (in_dtype == DTYPE_BF16 && out_dtype == DTYPE_F32)
-    launch<__nv_bfloat16, float>(x, scale, bias, out, M, N, act, s);
-  else if (in_dtype == DTYPE_BF16 && out_dtype == DTYPE_BF16)
-    launch<__nv_bfloat16, __nv_bfloat16>(x, scale, bias, out, M, N, act, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return launch<float, float>(x, scale, bias, out, M, N, act, s);
+  if (in_dtype == DTYPE_F32 && out_dtype == DTYPE_BF16)
+    return launch<float, __nv_bfloat16>(x, scale, bias, out, M, N, act, s);
+  if (in_dtype == DTYPE_BF16 && out_dtype == DTYPE_F32)
+    return launch<__nv_bfloat16, float>(x, scale, bias, out, M, N, act, s);
+  if (in_dtype == DTYPE_BF16 && out_dtype == DTYPE_BF16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(x, scale, bias, out, M, N, act,
+                                                s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K3 and K4: per-row symmetric int8 quantization and its inverse.

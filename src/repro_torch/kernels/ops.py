@@ -17,10 +17,11 @@ Gradients.  ``ssd`` is differentiable everywhere: when grad mode is on and
 an input requires grad it goes through ``SSDScan`` (K8 forward, K8b
 backward on the card; the plain versions on the CPU).  The other kernels
 have no backward yet, so on the card ``matmul``, ``affine_act``,
-``attention``, ``lindley`` and ``rglru`` raise ``NotImplementedError`` where
-autograd would need one, rather than return a tensor cut off from the
-graph; on the CPU their plain versions are differentiable.  ``quantize``
-and ``dequantize`` act on gradients and need none.
+``attention``, ``lindley``, ``lindley_segments`` and ``rglru`` raise
+``NotImplementedError`` where autograd would need one, rather than return a
+tensor cut off from the graph; on the CPU their plain versions are
+differentiable.  ``quantize`` and ``dequantize`` act on gradients and need
+none.
 """
 from __future__ import annotations
 
@@ -28,7 +29,10 @@ import torch
 
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.lindley import lindley_scan, lindley_scan_plain
+from repro_torch.kernels.lindley import (check_fenceposts, lindley_scan,
+                                         lindley_scan_plain,
+                                         lindley_scan_segments,
+                                         lindley_scan_segments_plain)
 from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
 from repro_torch.kernels.ssd import SSDScan, ssd_scan, ssd_scan_plain
 from repro_torch.kernels.systolic_matmul import (systolic_matmul,
@@ -107,6 +111,19 @@ def lindley(t, s, *, br=128, bd=128):
         return lindley_scan_plain(t, s)
     _refuse_grad("lindley", t, s)
     return lindley_scan(t.contiguous(), s.contiguous())
+
+
+def lindley_segments(seg, t, s):
+    """``lindley`` over the flat layout of a solve, one launch for all its
+    queues: seg (n_seg + 1,) int64 fenceposts from 0 to n, t and s (n,)
+    float64 -> the starts (n,).  The JAX package has no counterpart: its
+    solver calls ``lindley`` once for each length bucket.  On the card the
+    fenceposts are not checked: check them first (``check_fenceposts``)."""
+    if t.device.type == "cpu":
+        return lindley_scan_segments_plain(seg, t, s)
+    _refuse_grad("lindley", t, s)
+    return lindley_scan_segments(seg.contiguous(), t.contiguous(),
+                                 s.contiguous())
 
 
 def rglru(x, gx, ga, log_a, h0):

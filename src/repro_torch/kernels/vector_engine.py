@@ -83,13 +83,16 @@ def _lib() -> ctypes.CDLL:
 def fused_affine_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      *, act: str = "none",
                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """x (M, N); scale and bias (N,) broadcast per column; on the card."""
+    """x (M, N), at any base; scale and bias (N,) broadcast per column;
+    on the card.  scale and bias go to the kernel as fp32 at a 16-byte
+    aligned base (copied where they are not)."""
     M, N = x.shape
     if act not in _ACT_CODES:
         raise ValueError(f"fused_affine_act: unknown activation {act!r}")
     out_dtype = out_dtype or x.dtype
-    scale = scale.to(torch.float32).contiguous()
-    bias = bias.to(torch.float32).contiguous()
+    scale, bias = (v.to(torch.float32).contiguous() for v in (scale, bias))
+    scale, bias = (v if v.data_ptr() % 16 == 0 else v.clone()
+                   for v in (scale, bias))
     _build.require_cuda("fused_affine_act", x, scale, bias)
     if scale.shape != (N,) or bias.shape != (N,):
         raise ValueError(f"fused_affine_act: scale {tuple(scale.shape)} and "

@@ -19,7 +19,9 @@ from repro_torch.core.engine import ClusterEngine
 from repro_torch.core.function import standard_pipeline
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.lindley import lindley_scan, lindley_scan_plain
+from repro_torch.kernels.lindley import (lindley_scan, lindley_scan_plain,
+                                         lindley_scan_segments,
+                                         lindley_scan_segments_plain)
 from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
 from repro_torch.kernels.ssd import (ssd_scan, ssd_scan_bwd,
                                      ssd_scan_bwd_plain, ssd_scan_plain)
@@ -77,6 +79,40 @@ def test_fused_affine_act_matches_plain(cuda, m, n, act):
     s, b = (_randn(rng, (n,), torch.float32, cuda) for _ in range(2))
     torch.testing.assert_close(fused_affine_act(x, s, b, act=act),
                                fused_affine_act_plain(x, s, b, act=act),
+                               rtol=1e-5, atol=1e-5)
+
+
+# K2's edges: an x base off the 16-byte vector, N no multiple of the
+# vector (the row's tail and the unaligned rows), bf16 in and out, and
+# more rows than the grid (rows walked with a stride)
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("m,n", [(1, 150527), (1, 150528), (7, 1001),
+                                 (5000, 64), (3, 5)])
+@pytest.mark.parametrize("dt_in,dt_out", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)])
+def test_fused_affine_act_edges_match_plain(cuda, offset, m, n, dt_in,
+                                            dt_out):
+    rng = np.random.default_rng(m * n + offset)
+    base = _randn(rng, (m * n + offset,), dt_in, cuda)
+    x = base[offset:].view(m, n)
+    s, b = (_randn(rng, (n,), torch.float32, cuda) for _ in range(2))
+    before = fused_affine_act.launches
+    got = fused_affine_act(x, s, b, act="silu", out_dtype=dt_out)
+    assert fused_affine_act.launches == before + 1
+    want = fused_affine_act_plain(x, s, b, act="silu", out_dtype=dt_out)
+    assert got.dtype == dt_out and got.shape == (m, n)
+    tol = 1e-2 if dt_out == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_fused_affine_act_takes_unaligned_scale_and_bias(cuda):
+    rng = np.random.default_rng(2)
+    x = _randn(rng, (4, 1024), torch.float32, cuda)
+    s = _randn(rng, (1025,), torch.float32, cuda)[1:]
+    b = _randn(rng, (1027,), torch.float32, cuda)[3:]
+    torch.testing.assert_close(fused_affine_act(x, s, b),
+                               fused_affine_act_plain(x, s, b),
                                rtol=1e-5, atol=1e-5)
 
 
@@ -288,29 +324,40 @@ def test_lindley_scan_bytes_equal_plain_on_cpu(cuda, r, w):
     assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
 
 
-def test_solver_cuda_bytes_equal_segmented_on_zipf(cuda):
+def _zipf_solve(n=200_000, nserv=128):
     rng = np.random.default_rng(0)
-    n, nserv = 200_000, 128
     p = np.arange(1, nserv + 1, dtype=np.float64) ** -1.2
     p /= p.sum()
     keys = np.sort(rng.choice(nserv, size=n, p=p))
     t = np.sort(rng.uniform(0.0, n / 1e4, size=n))
     s = rng.uniform(1e-4, 2e-3, size=n)
-    seg = core_lindley.segment_fenceposts(keys, 0, nserv)
+    return core_lindley.segment_fenceposts(keys, 0, nserv), t, s
+
+
+def test_solver_cuda_bytes_equal_segmented_on_zipf(cuda):
+    seg, t, s = _zipf_solve()
+    n = t.size
     out = {}
     before = lindley_scan.launches
     for backend in ("segmented", "cuda"):
         start, fin = np.empty(n), np.empty(n)
         core_lindley.solve_segments(seg, t, s, start, fin, backend=backend)
         out[backend] = (start.tobytes(), fin.tobytes())
-    assert lindley_scan.launches > before
+    assert lindley_scan.launches == before + 1          # one a solve
     assert out["cuda"] == out["segmented"]
 
 
-def test_fleet_cuda_bytes_equal_segmented(cuda):
+def test_fleet_cuda_bytes_equal_segmented(cuda, monkeypatch):
     pipes = [standard_pipeline(n) for n in ("asset_damage",
                                             "content_moderation")]
-    runs = {}
+    runs, solves = {}, []
+    real = core_lindley.solve_segments
+
+    def count(seg, t, s, start, fin, *, backend):
+        solves.append((backend, t.size > 0))
+        return real(seg, t, s, start, fin, backend=backend)
+
+    monkeypatch.setattr(core_lindley, "solve_segments", count)
     for backend in ("segmented", "cuda"):
         eng = ClusterEngine(n_dscs=64, n_cpu=64, hedge_budget_s=0.08, seed=0)
         before = lindley_scan.launches
@@ -320,13 +367,120 @@ def test_fleet_cuda_bytes_equal_segmented(cuda):
         runs[backend] = (eng, tr, lindley_scan.launches - before)
     (es, ts, n_seg), (ec, tc, n_cuda) = runs["segmented"], runs["cuda"]
     assert ec.last_shard_stats["path"] == "partitioned"
-    assert n_seg == 0 and n_cuda > 0
+    # one launch for each solve with a non-empty input
+    assert n_seg == 0 and n_cuda == solves.count(("cuda", True)) > 0
+    assert solves.count(("cuda", True)) == solves.count(("segmented", True))
     for col in ("arrival", "finish", "winner", "drive", "start", "service",
                 "hedged", "dscs_finish", "cpu_finish"):
         assert getattr(ts, col).tobytes() == getattr(tc, col).tobytes(), col
     assert ts.events == tc.events
     assert es._qstate == ec._qstate and es._pstate == ec._pstate
     assert dict(es.telemetry.counters) == dict(ec.telemetry.counters)
+
+
+def _flat_solve(lens, seed, nan=None):
+    """Fenceposts and flat sorted arrivals and demands for queues of
+    ``lens``; ``nan`` ("t" or "s") puts a NaN into the longest queue ("2":
+    a second NaN arrival of other bits after it, numpy's and x86's)."""
+    rng = np.random.default_rng(seed)
+    lens = np.asarray(lens, dtype=np.int64)
+    seg = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    t = np.concatenate([np.sort(rng.uniform(0.0, 1e3, n)) for n in lens]
+                       + [np.empty(0)])
+    s = rng.uniform(1e-4, 2.0, int(seg[-1]))
+    if nan:
+        j = int(np.argmax(lens))
+        (t if nan != "s" else s)[seg[j] + lens[j] // 3] = np.nan
+    if nan == "2":                   # x86's inf - inf, later in the queue
+        t[seg[j] + 2 * lens[j] // 3] = np.array(
+            [0xfff8000000000000], dtype=np.uint64).view(np.float64)[0]
+    return seg, t, s
+
+
+def _k6_segments(seg, t, s, dev, offset=0):
+    """K6 on the card (t and s at ``offset`` elements past a fresh base)
+    and its plain version on a CPU copy, as numpy arrays; one launch."""
+    def col(a):
+        base = torch.empty(a.size + offset, dtype=torch.float64, device=dev)
+        base[offset:] = torch.from_numpy(a).to(dev)
+        return base[offset:]
+    before = lindley_scan.launches
+    got = lindley_scan_segments(torch.from_numpy(seg).to(dev), col(t), col(s))
+    torch.cuda.synchronize()
+    assert lindley_scan.launches == before + 1
+    want = lindley_scan_segments_plain(torch.from_numpy(seg),
+                                       torch.from_numpy(t), torch.from_numpy(s))
+    return got.cpu().numpy(), want.numpy()
+
+
+K6_SOLVES = {
+    "ragged": [1000, 3, 257, 0, 1, 513, 1, 0, 2048, 255, 256, 4097],
+    "empty_and_one": [0, 1, 0, 0, 1, 1, 0],
+    "fleet_like": [700 + (37 * j) % 390 for j in range(128)],
+    "many": [(j * 7919) % 61 for j in range(5000)],
+}
+
+
+@pytest.mark.parametrize("name", sorted(K6_SOLVES))
+@pytest.mark.parametrize("nan", [None, "t", "s", "2"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_lindley_segments_bytes_equal_plain_on_cpu(cuda, name, nan, offset):
+    seg, t, s = _flat_solve(K6_SOLVES[name], len(name), nan)
+    got, want = _k6_segments(seg, t, s, cuda, offset)
+    assert got.tobytes() == want.tobytes()
+    start, fin = np.empty(t.size), np.empty(t.size)
+    core_lindley.solve_segments(seg, t, s, start, fin, backend="segmented")
+    assert got.tobytes() == start.tobytes()            # numpy's bytes
+
+
+def test_lindley_segments_on_a_zipf_solve(cuda):
+    seg, t, s = _zipf_solve()
+    got, want = _k6_segments(seg, t, s, cuda, offset=1)
+    assert got.tobytes() == want.tobytes()
+
+
+def test_lindley_nan_row_gives_numpy_s_bytes(cuda):
+    t, s = np.array([[np.nan, 1.0]]), np.array([[1.0, 1.0]])
+    got = lindley_scan(torch.from_numpy(t).to(cuda),
+                       torch.from_numpy(s).to(cuda)).cpu().numpy()
+    start, fin = np.empty(2), np.empty(2)
+    core_lindley.solve_segments(np.array([0, 2]), t[0], s[0], start, fin,
+                                backend="segmented")
+    assert got[0].tobytes() == start.tobytes()
+    assert got.tobytes() == lindley_scan_plain(
+        torch.from_numpy(t), torch.from_numpy(s)).numpy().tobytes()
+
+
+def test_lindley_segments_graph_replays_are_equal(cuda):
+    seg, t, s = _flat_solve(K6_SOLVES["ragged"], 9)
+    sd, td, ssd = (torch.from_numpy(a).to(cuda) for a in (seg, t, s))
+    first, second = _graph_replays(lambda: lindley_scan_segments(sd, td, ssd))
+    assert torch.equal(first[0], second[0])
+    assert first[0].cpu().numpy().tobytes() == lindley_scan_segments_plain(
+        *(torch.from_numpy(a) for a in (seg, t, s))).numpy().tobytes()
+
+
+def test_lindley_segments_longest_first_past_the_resident_blocks(cuda):
+    from repro_torch.kernels.lindley import resident_blocks
+    n_seg = resident_blocks(cuda) + 7
+    lens = [3] * n_seg
+    lens[-1] = 5000
+    seg, t, s = _flat_solve(lens, 1)
+    got, want = _k6_segments(seg, t, s, cuda)
+    assert got.tobytes() == want.tobytes()
+
+
+def test_lindley_segments_refuses_what_it_cannot_run(cuda):
+    seg, t, s = (torch.from_numpy(a).to(cuda)
+                 for a in _flat_solve([3, 4], 0))
+    before = lindley_scan.launches
+    with pytest.raises(ValueError, match="int64"):
+        lindley_scan_segments(seg.int(), t, s)
+    with pytest.raises(TypeError, match="float64"):
+        lindley_scan_segments(seg, t.float(), s.float())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lindley_scan_segments(seg.cpu(), t, s)
+    assert lindley_scan.launches == before
 
 
 def _ssd_inputs(b, s, h, p, g, n, dtype, dev, seed=0):

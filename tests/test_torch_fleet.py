@@ -44,16 +44,19 @@ SEAMS = {
     Because the kernel performs the same fp64 operations in the same
     order, its output is bit-identical to the numpy backend (pinned in
     ``tests/test_kernels.py``).''', '''``torch`` / ``cuda``
-    The same bucketed recurrence through
-    :func:`repro_torch.kernels.ops.lindley`, one call per bucket on
-    float64 tensors.  ``cuda`` (the default,
-    :data:`DEFAULT_BACKEND`) puts each bucket on the card and runs the
-    hand-written fp64 scan of :mod:`repro_torch.kernels.lindley`, which
-    walks each row in order with the same fp64 operations; it raises
-    where CUDA is absent.  ``torch`` keeps the bucket on the CPU and runs
-    the kernel's plain PyTorch version, the numpy op sequence.  Both are
-    byte-equal to the numpy backend (pinned in
-    ``tests/test_torch_lindley.py``).'''),
+    The same recurrence through
+    :func:`repro_torch.kernels.ops.lindley_segments`, one call per solve
+    on the flat float64 columns and the fenceposts, with no buckets and
+    no pads.  ``cuda`` (the default, :data:`DEFAULT_BACKEND`) copies them
+    to the card once, runs the hand-written fp64 scan of
+    :mod:`repro_torch.kernels.lindley` once over every segment (the
+    cumsum rounded step by step in order, the running max a scan in
+    numpy's order of operands) and copies the starts back once; it
+    raises where CUDA is absent.  ``torch`` stays on the CPU and runs the
+    kernel's plain PyTorch version, the numpy op sequence on the same
+    length buckets.  Both are byte-equal to the numpy backend (pinned in
+    ``tests/test_torch_lindley.py`` and
+    ``tests/test_torch_lindley_segments.py``).'''),
         ('''from typing import Dict, List
 
 import numpy as np
@@ -79,14 +82,23 @@ DEFAULT_BACKEND = "cuda"'''),
         ('''                     start: np.ndarray, pallas: bool = False)''',
          '''                     start: np.ndarray,
                      device: Optional[torch.device] = None)'''),
+        ('''    """Bucketed evaluation over the flat layout; fills ``start``."""
+''', '''    """Bucketed evaluation over the flat layout; fills ``start``.  On a
+    ``device``, one ``ops.lindley_segments`` call over the flat layout."""
+    if device is not None:
+        seg = np.asarray(seg, dtype=np.int64)
+        ops.check_fenceposts(seg, t.size)
+        col = lambda a: torch.from_numpy(a).to(device)
+        start[:] = ops.lindley_segments(col(seg), col(t),
+                                        col(s)).cpu().numpy()
+        return
+'''),
         ('''        if pallas:
             from repro_torch.kernels import ops
-            st = np.asarray(ops.lindley(T, S))''',
-         '''        if device is not None:
-            # T/S are pooled scratch the next bucket overwrites: copy the
-            # result back synchronously before moving on
-            st = ops.lindley(torch.from_numpy(T).to(device),
-                             torch.from_numpy(S).to(device)).cpu().numpy()'''),
+            st = np.asarray(ops.lindley(T, S))
+            start[flat] = st[rr, pp]
+            continue
+''', ''),
         ('''backend: str = "segmented") -> None:''',
          '''backend: str = DEFAULT_BACKEND) -> None:'''),
         ('''All three backends''', '''All four backends'''),
@@ -243,7 +255,7 @@ def test_port_fleet_is_shard_count_independent():
 
 
 def test_cuda_route_runs_the_shards_in_one_process(monkeypatch):
-    """``cuda`` takes the bucket route of ``torch`` with the tensors on
+    """``cuda`` takes the one-call route of ``torch`` with the tensors on
     the card; here the card is stood in for by the CPU, which shows the
     route and its default of one process (the counters stay untouched:
     a CPU tensor takes the plain version)."""
