@@ -6,9 +6,11 @@
 It builds the port's hand-written kernels from ``src/repro_torch/kernels/
 csrc``, holds each against its plain PyTorch version on the card, runs the
 DSCS executor for every non-LM workload, and then serves the main path: 8
-requests to a full-width ResNet-50 at 224x224 (``asset_damage``) and 8 to
-the ViT of ``remote_sensing`` at 176x176, with every launch counter set to 0
-just before and read just after.  The fleet slice follows: K6, the fp64
+requests to a full-width ResNet-50 at 224x224 (``asset_damage``), 8 to
+the ViT of ``remote_sensing`` at 176x176 and 8 each to ``chatbot`` and
+``translation`` (the reduced qwen3-8b on 32 tokens, K5 in its two
+layers), with every launch counter set to 0 just before and read just
+after.  The fleet slice follows: K6, the fp64
 Lindley scan, byte for byte against its plain version (NaN rows and ragged
 flat solves among the cases); the sharded fleet engine at the size of
 ``poisson-1m-f1024`` (10^6 requests, 1024 drives and 1024 CPU nodes, 8
@@ -45,7 +47,15 @@ and 48 K8b launches and one K3 and one K4 call per gradient leaf each
 step (a K3 call is one cooperative launch; K3 timed over a step's ten
 leaves too),
 profiled; the launcher's ``train`` with a checkpoint that restores
-byte for byte; and K7 refusing to cut an autograd graph.  Last, K1 (3xTF32
+byte for byte; and K7 refusing to cut an autograd graph.  Phase 11, the
+Qwen decoders: K5 at their serving shapes (head dim 128; GQA 4:1, MHA
+20:20, GQA 16:1; 1024 causal tokens) in fp32 and bf16; ``serve`` of
+qwen3-8b (36 layers) and qwen1.5-4b (40) at full width and depth and of
+qwen3-moe-235b-a22b at full width over 4 of its 94 layers, bf16, batch 4,
+1024-token prompts, with K5 launched once per layer and no other kernel,
+qwen3-8b profiled and the MoE's routing printed; at fp32, cut in depth,
+each served prefill against one with K5's plain version swapped in, and
+decode == forward.  Last, K1 (3xTF32
 ``wgmma``) at each distinct shape of a ResNet-50 request, with w in the
 layout the request hands over, beside ``torch.matmul``, its tile plan and
 both bounds (3xTF32 and the fp32 FMA pipes).  Any failed
@@ -122,6 +132,32 @@ GRAD_CHECK = {"batch": 2, "seq": 1024}
 LAUNCHER = {"steps": 2, "batch": 2, "seq": 1024}
 K8B_LAYER = (8, 1024, 32, 64, 1, 128)
 K3_ROW = 48 * 1024 * 4384
+
+# The Qwen decoders (src/repro_torch/configs/qwen3_8b.py, qwen15_4b.py,
+# qwen3_moe_235b.py): qwen3-8b and qwen1.5-4b served at full width and
+# depth, qwen3-moe-235b-a22b at full width over MOE_LAYERS of its 94 layers
+# (about 11.2 B parameters, 22 GB in bf16: what one card holds with room to
+# run), batch 4 of 1024-token prompts; the fp32 checks at depth
+# QWEN_CHECK_LAYERS (MOE_CHECK_LAYERS), batch 2 of 256 tokens; K5's shapes
+# (B, H, KV, Sq, Skv, D) on those paths, causal with no window.
+QWEN_SERVE = {"qwen3-8b": {"batch": 4, "prompt": 1024, "gen": 32},
+              "qwen1.5-4b": {"batch": 4, "prompt": 1024, "gen": 8},
+              "qwen3-moe-235b-a22b": {"batch": 4, "prompt": 1024, "gen": 16}}
+MOE_LAYERS = 4
+QWEN_CHECK = {"batch": 2, "prompt": 256}
+QWEN_CHECK_LAYERS = 4
+MOE_CHECK_LAYERS = 2
+K5_QWEN = [(4, 32, 8, 1024, 1024, 128), (4, 20, 20, 1024, 1024, 128),
+           (4, 64, 4, 1024, 1024, 128)]
+QWEN_FULL = {   # (layers, d_model, heads, KV, head dim, (expert) d_ff,
+                #  experts, top-k, qk-norm, QKV bias, vocab, parameters)
+    "qwen3-8b": (36, 4096, 32, 8, 128, 12288, 0, 0, True, False, 151936,
+                 8_191_783_936),
+    "qwen1.5-4b": (40, 2560, 20, 20, 128, 6912, 0, 0, False, True, 151936,
+                   3_951_024_640),
+    "qwen3-moe-235b-a22b": (94, 4096, 64, 4, 128, 1536, 128, 8, True, False,
+                            151936, 235_094_683_136),
+}
 
 
 def bound(nbytes, ops_, dtype):
@@ -571,7 +607,7 @@ def print_ssd_launch(name, shape, backward):
               f"{ls['smem_bytes']} bytes of shared memory a block")
 
 
-def profile_run(what, run, steps, kernels, unit):
+def profile_run(what, run, steps, kernels, unit, card=None):
     """Run ``run`` ``steps`` times under the profiler and print the device
     busy time, idle share, launches a ``unit`` and device ms by kind
     (``kernels`` names the port's, by substrings of their kernel names, in
@@ -617,19 +653,20 @@ def profile_run(what, run, steps, kernels, unit):
                     ) // steps
     print(f"profile {what}, profiler on, host wall {wall:.3f} ms a {unit}): "
           f"device busy {busy:.3f} ms (idle share {1 - busy / wall:.3f}); "
-          f"kernel launches x{launches_}; kernels by device time: {top}")
+          f"kernel launches x{launches_}; kernels by device time: {top}"
+          + (f"; card {card}" if card else ""))
 
 
-def profile_serving(cfg, params, tok, cache, nxt, kernels):
+def profile_serving(cfg, params, tok, cache, nxt, kernels, card=None):
     """Profile one prefill of ``tok`` and four decode steps of ``nxt`` on
     ``cache`` (``profile_run``'s line for each)."""
     from repro_torch.models import decode as DE
     B, S = tok.shape
     profile_run(f"prefill (B={B}, S={S}", lambda: DE.prefill(cfg, params, tok),
-                1, kernels, "call")
+                1, kernels, "call", card)
     profile_run(f"decode (B={B}, S={S}",
                 lambda: DE.decode_step(cfg, params, cache, nxt), 4, kernels,
-                "step")
+                "step", card)
 
 
 def drive_lm(dev, counters):
@@ -784,7 +821,7 @@ def k5_tiles(Sq, Skv, causal, window, dtype):
 
 
 def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
-                  max_err):
+                  max_err, card=None):
     """K5 at one shape (B, H, KV, Sq, Skv, D) against its plain version,
     and its times beside F.scaled_dot_product_attention's and its bound.
     Where the window masks nothing, SDPA is timed both with the mask and
@@ -825,7 +862,7 @@ def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
           f"plain_ms={plain:.4f} library_ms "
           + " ".join(f"({name}) {t:.4f}" for name, t in libs.items())
           + f" bound_ms={bnd:.4f} ({by}); KV tiles walked {walked} of "
-          f"{tiles} a (batch, head)")
+          f"{tiles} a (batch, head)" + (f"; card {card}" if card else ""))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bnd, "bound_by": by,
             "library_ms": min(libs.values()), "library": libs}
@@ -1539,6 +1576,307 @@ def drive_train(dev, counters, time_ms, call_ms, max_err):
     ]
 
 
+def qwen_config(arch, layers=None):
+    """``arch`` as the port's registry gives it, checked to be the full
+    model, and cut to ``layers`` (None: full depth)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    cfg = get_arch(arch)
+    shape = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+             cfg.resolved_head_dim, cfg.moe_d_ff or cfg.d_ff,
+             cfg.num_experts, cfg.experts_per_token, cfg.qk_norm,
+             cfg.qkv_bias, cfg.vocab_size, T.count_params(cfg))
+    if shape != QWEN_FULL[arch] or cfg.dtype != "bfloat16":
+        raise AssertionError(f"{arch}: config {shape} {cfg.dtype}")
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def as_fp32(cfg, **kw):
+    import dataclasses
+    return dataclasses.replace(cfg, dtype="float32", **kw)
+
+
+def describe(cfg):
+    """One line of a Qwen config's shape, parameters and bytes."""
+    from repro_torch.models import transformer as T
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in T.tree_leaves(T.param_shapes(cfg)))
+    ffn = (f"{cfg.num_experts} experts of d_ff {cfg.moe_d_ff}, top-"
+           f"{cfg.experts_per_token}, capacity factor "
+           f"{cfg.moe_capacity_factor}" if cfg.num_experts
+           else f"d_ff {cfg.d_ff}")
+    extra = " qk-norm" * cfg.qk_norm + " QKV bias" * cfg.qkv_bias
+    return (f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.num_heads} heads x {cfg.resolved_head_dim} with "
+            f"{cfg.num_kv_heads} KV heads,{extra}, {ffn}, vocab "
+            f"{cfg.vocab_size} padded to {cfg.padded_vocab}, {cfg.dtype}, "
+            f"{T.count_params(cfg)} parameters, {nbytes} bytes")
+
+
+class serving_config:
+    """Within the block, ``serve`` builds ``cfg`` for ``cfg.name``: the
+    registered model's widths at a cut depth."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def __enter__(self):
+        from repro_torch.launch import serve as S
+        self.real = S.get_arch
+        S.get_arch = lambda name: (self.cfg if name == self.cfg.name
+                                   else self.real(name))
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import serve as S
+        S.get_arch = self.real
+
+
+def draw_attn_leaves(params, gen):
+    """The QKV biases (std 0.2) and qk-norm scales (std 0.5) drawn from
+    ``gen`` in place of ``init_params``'s zeros, which would hide a missing
+    bias or scale; returns their names."""
+    import torch
+    attn = params["blocks"]["b0_attn"]["attn"]
+    names = [n for n in ("bq", "bk", "bv", "qn", "kn") if n in attn]
+    for n in names:
+        t = attn[n]
+        t.copy_(torch.randn(t.shape, generator=gen, device=t.device)
+                * (0.2 if n.startswith("b") else 0.5))
+    return names
+
+
+def qwen_fp32_check(cfg32, dev, run, card):
+    """The served prefill at fp32 (TF32 off) against one with K5's plain
+    version swapped into ``ops.flash_attention``: last-position logits
+    within 1e-3 relative Frobenius, the same argmax; and decode == forward
+    (tests/test_models.py:80's tolerance)."""
+    import torch
+
+    from repro_torch.data.pipeline import RequestStream
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.launch.serve import _grow_cache
+    from repro_torch.models import decode as DE
+    from repro_torch.models import transformer as T
+
+    B, S = run["batch"], run["prompt"]
+    params = T.init_params(cfg32, torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    drawn = draw_attn_leaves(params, torch.Generator(device=dev).manual_seed(2))
+    tok = torch.from_numpy(RequestStream(cfg32, B, S, 0).requests_at(0)
+                           ["tokens"]).to(dev)
+    real = ops.flash_attention
+
+    def plain_k5(q, k, v, *, causal, window):
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+
+    runs = {}
+    for name in ("kernel", "plain", "kernel", "plain"):
+        before = flash_attention.launches
+        ops.flash_attention = plain_k5 if name == "plain" else real
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = DE.prefill(cfg32, params, tok)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            ops.flash_attention = real
+        n = flash_attention.launches - before
+        if n != (cfg32.num_layers if name == "kernel" else 0):
+            raise AssertionError(f"{cfg32.name} fp32 prefill ({name}): {n} "
+                                 f"K5 launches")
+        runs.setdefault(name, (logits[:, -1].float(), []))[1].append(ms)
+    (lk, ms_k), (lp, ms_p) = runs["kernel"], runs["plain"]
+    cols = slice(0, cfg32.vocab_size)
+    rel = ((lk[:, cols] - lp[:, cols]).norm() / lp[:, cols].norm()).item()
+    same = torch.equal(lk.argmax(-1), lp.argmax(-1))
+    if not (torch.isfinite(lk[:, cols]).all() and rel <= 1e-3 and same):
+        raise AssertionError(f"{cfg32.name} fp32 prefill: K5 vs plain rel "
+                             f"err {rel:.3e} (limit 1e-3), same argmax {same}")
+    print(f"fp32 prefill {cfg32.name} ({describe(cfg32)}; {drawn} drawn "
+          f"nonzero; TF32 off, B={B}, S={S}): last-position logits, K5 vs "
+          f"its plain version: rel Frobenius err {rel:.3e} (limit 1e-3), "
+          f"same argmax in all {B} rows; host ms kernel "
+          f"{[round(t, 3) for t in ms_k]}, plain {[round(t, 3) for t in ms_p]}"
+          f"; card {card}")
+
+    full = T.forward(cfg32, params, tok)
+    _, cache = DE.prefill(cfg32, params, tok[:, :S - 1])
+    cache = _grow_cache(cfg32, cache, B, S)
+    dl, cache = DE.decode_step(cfg32, params, cache, tok[:, S - 1:])
+    got, want = dl[:, 0, cols], full[:, S - 1, cols]
+    err = (got - want).abs()
+    share = (err / (2e-3 + 2e-2 * want.abs())).max().item()
+    if not (int(cache["pos"]) == S and torch.isfinite(got).all()
+            and share <= 1.0):
+        raise AssertionError(f"{cfg32.name} decode != forward: max abs err "
+                             f"{err.max().item():.3e}")
+    print(f"decode == forward {cfg32.name} (fp32, B={B}): prefill {S - 1} "
+          f"tokens + one decode_step vs forward on {S}: max abs err "
+          f"{err.max().item():.3e}, at most {share:.2e} of the limit "
+          f"(rtol 2e-2 atol 2e-3)")
+
+
+def moe_routing(cfg, dev):
+    """Route the served prompts (``serve``'s parameters and tokens, seed 0)
+    through a prefill with ``layers.moe_ffn`` wrapped to record, per layer,
+    the tokens, slots an expert, assignments dropped past them and the
+    least and most loaded expert."""
+    import torch
+
+    from repro_torch.data.pipeline import RequestStream
+    from repro_torch.models import decode as DE
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    run = QWEN_SERVE[cfg.name]
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    tok = torch.from_numpy(RequestStream(cfg, run["batch"], run["prompt"], 0)
+                           .requests_at(0)["tokens"]).to(dev)
+    real, rows = L.moe_ffn, []
+
+    def recording(x, gate_w, *args, num_experts, k, capacity_factor,
+                  block_tokens=0, **kw):
+        if block_tokens:
+            raise AssertionError("moe_routing reads one block of tokens")
+        top = torch.topk(torch.softmax((x @ gate_w).float(), -1), k).indices
+        load = torch.bincount(top.flatten(), minlength=num_experts)
+        C = max(8, int(math.ceil(x.shape[0] * k * capacity_factor
+                                 / num_experts)))
+        rows.append((x.shape[0], C, int((load - C).clamp(min=0).sum()),
+                     int(load.min()), int(load.max())))
+        return real(x, gate_w, *args, num_experts=num_experts, k=k,
+                    capacity_factor=capacity_factor,
+                    block_tokens=block_tokens, **kw)
+
+    L.moe_ffn = recording
+    try:
+        DE.prefill(cfg, params, tok)
+    finally:
+        L.moe_ffn = real
+    return rows
+
+
+def drive_qwen(dev, counters, time_ms, call_ms, max_err, randn, card):
+    """Phase 11: the Qwen decoders (dense GQA with qk-norm or QKV bias, and
+    the top-k MoE FFN).  K5 at their three serving shapes; ``serve`` of
+    qwen3-8b and qwen1.5-4b at full width and depth and qwen3-moe-235b at
+    full width over 4 of its 94 layers, each in bf16 with K5 launched once
+    per layer of the prefill and no other kernel, qwen3-8b profiled; at
+    fp32 each served prefill (cut in depth) against one with K5's plain
+    version, and decode == forward.  Every line with a time ends with
+    ``card``, the card's name and power limit.  Returns K5's entries at the
+    three shapes (bf16, with launches a ``serve``) for its kernels line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import RequestStream
+    from repro_torch.launch.serve import _grow_cache, serve
+    from repro_torch.models import decode as DE
+    from repro_torch.models import transformer as T
+
+    # ---- 11(a): K5 at the Qwen serving shapes ----------------------------
+    rows = {}
+    for shape in K5_QWEN:
+        for dtype in (torch.float32, torch.bfloat16):
+            rows[(shape, dtype)] = check_k5_case(
+                shape, True, 0, dtype, randn, time_ms, call_ms, max_err, card)
+
+    names = ("K1", "K2", "K5", "K6", "K8", "K7")
+    entries = {}
+
+    def counted_serve(cfg):
+        run = QWEN_SERVE[cfg.name]
+        with serving_config(cfg):
+            serve(cfg.name, smoke=False, batch=run["batch"], prompt=256,
+                  gen=2)                                     # warm-up
+            torch.cuda.synchronize()
+            for c in counters:
+                c.launches = 0
+            out = serve(cfg.name, smoke=False, **run)
+        launches = dict(zip(names, (c.launches for c in counters)))
+        want = {n: cfg.num_layers if n == "K5" else 0 for n in names}
+        gen_tok = out["generated"]
+        if launches != want:
+            raise AssertionError(f"serve {cfg.name} {run}: launches "
+                                 f"{launches}, want {want}")
+        if not (gen_tok.shape == (run["batch"], run["gen"])
+                and gen_tok.dtype == np.int32
+                and ((0 <= gen_tok) & (gen_tok < cfg.vocab_size)).all()):
+            raise AssertionError(f"serve {cfg.name}: generated "
+                                 f"{gen_tok.shape} {gen_tok.dtype}, range "
+                                 f"{gen_tok.min()}..{gen_tok.max()}")
+        print(f"serve {cfg.name} ({describe(cfg)}): batch {run['batch']}, "
+              f"prompt {run['prompt']}, gen {run['gen']}: prefill_ms="
+              f"{out['prefill_s'] * 1e3:.3f} decode_ms_per_token="
+              f"{out['decode_s_per_token'] * 1e3:.3f}; K5 launches "
+              f"{launches['K5']} (one per layer), K1/K2/K6/K7/K8 none; "
+              f"generated {gen_tok.shape} int32, first row "
+              f"{gen_tok[0, :8].tolist()}; card {card}")
+        return launches["K5"]
+
+    def entry(cfg, shape, launches):
+        entries[cfg.name] = {
+            "shape": list(shape), "dtype": "bfloat16", "causal": True,
+            "window": 0, "launches": launches,
+            **rows[(shape, torch.bfloat16)],
+            "float32": {k: v for k, v in rows[(shape, torch.float32)].items()
+                        if k != "library"}}
+
+    # ---- 11(b), 11(c): qwen3-8b, full width and depth; the fp32 check ----
+    cfg = qwen_config("qwen3-8b")
+    entry(cfg, K5_QWEN[0], counted_serve(cfg))
+    run = QWEN_SERVE[cfg.name]
+    B, S = run["batch"], run["prompt"]
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    tok = torch.from_numpy(RequestStream(cfg, B, S, 0).requests_at(0)
+                           ["tokens"]).to(dev)
+    _, cache = DE.prefill(cfg, params, tok)
+    cache = _grow_cache(cfg, cache, B, S + 8)
+    nxt = tok[:, -1:]
+    DE.decode_step(cfg, params, cache, nxt)
+    torch.cuda.synchronize()
+    profile_serving(cfg, params, tok, cache, nxt,
+                    {"K5": ("flash_bf16_kernel", "flash_f32_kernel")}, card)
+    del params, cache
+    torch.cuda.empty_cache()
+    qwen_fp32_check(as_fp32(qwen_config("qwen3-8b", QWEN_CHECK_LAYERS)), dev,
+                    QWEN_CHECK, card)
+    torch.cuda.empty_cache()
+
+    # ---- 11(d): qwen1.5-4b (MHA 20:20, QKV bias) --------------------------
+    cfg = qwen_config("qwen1.5-4b")
+    entry(cfg, K5_QWEN[1], counted_serve(cfg))
+    torch.cuda.empty_cache()
+    qwen_fp32_check(as_fp32(qwen_config("qwen1.5-4b", QWEN_CHECK_LAYERS)),
+                    dev, QWEN_CHECK, card)
+    torch.cuda.empty_cache()
+
+    # ---- 11(e): qwen3-moe-235b-a22b, full width, 4 of 94 layers ----------
+    cfg = qwen_config("qwen3-moe-235b-a22b", MOE_LAYERS)
+    print(f"{cfg.name} cut to {MOE_LAYERS} of 94 layers: what one card holds "
+          f"with room to run ({describe(cfg)})")
+    entry(cfg, K5_QWEN[2], counted_serve(cfg))
+    torch.cuda.empty_cache()
+    route = moe_routing(cfg, dev)
+    torch.cuda.empty_cache()
+    print(f"routing of the served prefill {cfg.name} (per layer: tokens, "
+          f"slots an expert, assignments dropped by capacity, least and most "
+          f"loaded expert): {route}; dropped {sum(r[2] for r in route)} of "
+          f"{sum(r[0] for r in route) * cfg.experts_per_token}")
+    qwen_fp32_check(as_fp32(qwen_config(cfg.name, MOE_CHECK_LAYERS),
+                            moe_capacity_factor=16.0), dev, QWEN_CHECK, card)
+    torch.cuda.empty_cache()
+    return entries
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1547,7 +1885,8 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import executor as E
     from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
     from repro_torch.kernels.lindley import lindley_scan
     from repro_torch.kernels.rglru import rglru_scan
     from repro_torch.kernels.ssd import ssd_scan
@@ -1772,13 +2111,14 @@ def main() -> int:
               f"K2={n[1]} K5={n[2]}; f2 kernel vs plain rel err {rel:.3e} "
               f"(limit 1e-4); out {tuple(got.shape)}")
 
-    # ---- 5. the main path: full-width ResNet-50 and the ViT --------------
+    # ---- 5. the main path: full-width ResNet-50, the ViT, the LM requests -
     resnet = E.DSCSExecutor("asset_damage", image_size=224)
     resnet.params = vision.resnet50_init(torch.Generator().manual_seed(0),
                                          width=1.0)
     vit = E.DSCSExecutor("remote_sensing", image_size=176)
+    lms = [E.DSCSExecutor(wl) for wl in E._LM_WORKLOADS]
     served = [(ex, [ex.make_request(torch.Generator().manual_seed(100 + i))
-                    for i in range(REQUESTS)]) for ex in (resnet, vit)]
+                    for i in range(REQUESTS)]) for ex in (resnet, vit, *lms)]
     for ex, reqs in served:                       # one warm request each
         ex(reqs[0])
     torch.cuda.synchronize()
@@ -1801,7 +2141,7 @@ def main() -> int:
 
     for c in counters:
         c.launches = 0
-    reports, ms_per = {}, {}
+    reports, ms_per, after = {}, {}, {}
     for ex, reqs in served:
         name = ex.pipeline.name
         reports[name], ms_per[name] = [], []
@@ -1811,41 +2151,64 @@ def main() -> int:
             torch.cuda.synchronize()
             ms_per[name].append((time.perf_counter() - t0) * 1e3)
             reports[name].append(rep)
-        if name == "asset_damage":
-            after_resnet = [c.launches for c in counters]
+        if name in ("asset_damage", "remote_sensing"):
+            after[name] = [c.launches for c in counters]
     launches = [c.launches for c in counters]
 
-    want_resnet = [RESNET_LAUNCHES * REQUESTS, REQUESTS, 0]
-    want_all = [RESNET_LAUNCHES * REQUESTS, 2 * REQUESTS, 4 * REQUESTS]
-    if after_resnet != want_resnet or launches != want_all:
+    # K5 a request: one a ViT layer (4), one a reduced qwen3-8b layer (2)
+    want = {"asset_damage": [RESNET_LAUNCHES * REQUESTS, REQUESTS, 0],
+            "remote_sensing": [RESNET_LAUNCHES * REQUESTS, 2 * REQUESTS,
+                               4 * REQUESTS]}
+    want_all = [RESNET_LAUNCHES * REQUESTS, 2 * REQUESTS,
+                (4 + 2 * len(lms)) * REQUESTS]
+    if after != want or launches != want_all:
         raise AssertionError(f"main path launches K1/K2/K5: after ResNet-50 "
-                             f"{after_resnet} (want {want_resnet}), in all "
+                             f"and the ViT {after} (want {want}), in all "
                              f"{launches} (want {want_all})")
+
+    def plain_k5(q, k, v, *, causal, window):
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+
     for ex, reqs in served:
         name = ex.pipeline.name
-        apply = E._MODEL_BUILDERS[name][1]
+        lm = name in E._LM_WORKLOADS
         worst = 0.0
         for r, rep in zip(reqs, reports[name]):
-            x = E._preprocess_vector_engine(r, use_kernel=False)
-            got = apply(ex.params, x, use_kernel=True)
-            want = apply(ex.params, x, use_kernel=False)
+            if lm:        # f2 with K5, and with its plain version swapped in
+                got = ex._apply(ex.params, r)
+                ops.flash_attention = plain_k5
+                try:
+                    want = ex._apply(ex.params, r)
+                finally:
+                    ops.flash_attention = flash_attention
+                shape = (1, 32, ex._cfg.padded_vocab)
+            else:
+                apply = E._MODEL_BUILDERS[name][1]
+                x = E._preprocess_vector_engine(r, use_kernel=False)
+                got = apply(ex.params, x, use_kernel=True)
+                want = apply(ex.params, x, use_kernel=False)
+                shape = (1, 1000)
             rel = ((got - want).norm() / want.norm()).item()
             worst = max(worst, rel)
             if not (torch.isfinite(got).all() and rel <= 1e-3
                     and torch.equal(rep.result, want.argmax(-1))
-                    and tuple(got.shape) == (1, 1000)):
+                    and tuple(got.shape) == shape):
                 raise AssertionError(
                     f"{name}: logits {tuple(got.shape)} rel err {rel:.3e} "
                     f"(limit 1e-3), class {rep.result.tolist()} vs plain "
                     f"{want.argmax(-1).tolist()}")
         ms = ms_per[name]
-        print(f"main path {name} image {ex.image_size}: {REQUESTS} requests, "
+        what = ("(1, 32) int32 tokens, reduced qwen3-8b" if lm
+                else f"image {ex.image_size}")
+        print(f"main path {name} {what}: {REQUESTS} requests, "
               f"ms per request {[round(t, 3) for t in ms]} "
               f"(median {statistics.median(ms):.3f}); logits vs plain "
-              f"path max rel err {worst:.3e} (limit 1e-3), same class")
+              f"path max rel err {worst:.3e} (limit 1e-3), same "
+              f"{'tokens' if lm else 'class'}; card {card}")
     print(f"main path launches: K1={launches[0]} ({launches[0] // REQUESTS} "
           f"per ResNet-50 request) K2={launches[1]} K5={launches[2]} "
-          f"({launches[2] // REQUESTS} per ViT request)")
+          f"(4 per ViT request, 2 per chatbot or translation request; "
+          f"K1/K2 none on those)")
 
     # where one ResNet-50 request's device time goes: kernel events only
     from torch.autograd import DeviceType
@@ -1883,6 +2246,9 @@ def main() -> int:
     train_entries = drive_train(dev, counters + (lindley_scan, ssd_scan,
                                                  rglru_scan),
                                 time_ms, call_ms, max_err)
+    torch.cuda.empty_cache()
+    k5_qwen = drive_qwen(dev, counters + (lindley_scan, ssd_scan, rglru_scan),
+                         time_ms, call_ms, max_err, randn, card)
 
     # ---- the kernels line: K1 over one request's 53 shapes ---------------
     # Each distinct shape is checked and timed once, with w in the layout the
@@ -1951,7 +2317,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:86",
          "launches": launches[2],
          **{k: v for k, v in k5.items() if k != "library"},
-         "serving": k5_serving},
+         "serving": k5_serving, "qwen": k5_qwen},
         {**k6_entry, "max_abs_err": k6_err},
         {"name": "ssd_scan", "route": "cuda", "source": src + "ssd.cu",
          "replaces": "src/repro/kernels/ssd.py:87", "launches": k8_launches,

@@ -5,7 +5,9 @@ simulated.  The port of the JAX package's ``core/executor.py``.
 
 f1 pre-processing runs on the vector engine (K2), f2 inference on the
 systolic kernel (K1) and, for ViT, flash attention (K5), f3 post-processing
-on the host -- matching Fig. 2 / Fig. 3(b).
+on the host -- matching Fig. 2 / Fig. 3(b).  The LM workloads (chatbot,
+translation) take int32 tokens with no f1, and run f2 as the reduced
+qwen3-8b's forward, its attention on K5.
 """
 from __future__ import annotations
 
@@ -14,12 +16,14 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.core.energy import pipeline_energy_j
 from repro_torch.core.function import standard_pipeline
 from repro_torch.core.latency import LatencyModel
 from repro_torch.core.platforms import PLATFORMS
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
+from repro_torch.models import transformer as T
 from repro_torch.models import vision
 
 
@@ -65,10 +69,6 @@ class DSCSExecutor:
 
     def __init__(self, workload_name: str, *, platform: str = "DSCS-Serverless",
                  image_size: int = 64, seed: int = 0, device=None):
-        if workload_name in _LM_WORKLOADS:
-            raise NotImplementedError(
-                f"{workload_name} runs a language model; the port's LM slice "
-                "(models/transformer.py, models/decode.py) is not done yet")
         self.pipeline = standard_pipeline(
             workload_name, accelerate=(platform == "DSCS-Serverless"))
         self.platform = PLATFORMS[platform]
@@ -80,6 +80,11 @@ class DSCSExecutor:
             init, apply, kw = _MODEL_BUILDERS[workload_name]
             self.params = init(gen, device=self.device, **kw)
             self._apply = apply
+        elif workload_name in _LM_WORKLOADS:  # the reduced qwen3-8b
+            self._cfg = get_arch("qwen3-8b").reduced()
+            self.params = T.init_params(self._cfg, gen, device=self.device)
+            self._apply = lambda p, x, use_kernel=False: T.forward(
+                self._cfg, p, x)
         else:  # credit_risk
             self.params = (torch.randn((200, 1), generator=gen) * 0.1).to(
                 self.device)
@@ -88,6 +93,9 @@ class DSCSExecutor:
     def make_request(self, gen: torch.Generator) -> torch.Tensor:
         if self.pipeline.name == "credit_risk":
             x = torch.randn((1, 200), generator=gen)
+        elif self.pipeline.name in _LM_WORKLOADS:
+            x = torch.randint(0, self._cfg.vocab_size, (1, 32), generator=gen,
+                              dtype=torch.int32)
         else:
             s = self.image_size
             x = torch.randint(0, 256, (1, s, s, 3), generator=gen,

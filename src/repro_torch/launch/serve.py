@@ -3,7 +3,8 @@
 ``python -m repro_torch.launch.serve --arch mamba2-370m --batch 4 --prompt 1024 --gen 32``
 
 The port of the JAX package's ``launch/serve.py`` on one card, for the
-Mamba-2 (``ssm``) and RecurrentGemma (``hybrid``) families.  Each phase's time is read from the host clock
+Mamba-2 (``ssm``), RecurrentGemma (``hybrid``), dense Qwen (``dense``)
+and MoE (``moe``) families.  Each phase's time is read from the host clock
 after ``torch.cuda.synchronize()``, so it is the card's time for the
 phase, not the time to enqueue it.
 """

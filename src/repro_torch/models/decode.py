@@ -123,13 +123,16 @@ def _ring_attend(q, kc, vc, kpos, pos, window):
 
 def attn_step(cfg: ModelConfig, p, x, cache, pos, ctx):
     """One token of GQA attention; writes its K/V (and ring slot) into
-    ``cache`` in place."""
+    ``cache`` in place.  K is qk-normed and rotated before it is cached."""
     Dh = cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    q = T._heads(T._proj(h, p["wq"]), H, Dh)
-    k = T._heads(T._proj(h, p["wk"]), KV, Dh)
-    v = T._heads(T._proj(h, p["wv"]), KV, Dh)
+    q = T._heads(T._proj(h, p["wq"], p.get("bq")), H, Dh)
+    k = T._heads(T._proj(h, p["wk"], p.get("bk")), KV, Dh)
+    v = T._heads(T._proj(h, p["wv"], p.get("bv")), KV, Dh)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["qn"], cfg.norm_eps)
+        k = L.rms_norm(k, p["kn"], cfg.norm_eps)
     if cfg.rope == "rope":
         q = L.apply_rope(q, ctx.cos, ctx.sin)
         k = L.apply_rope(k, ctx.cos, ctx.sin)
@@ -248,8 +251,10 @@ def decode_step(cfg: ModelConfig, params, cache, tokens
 def _attn_prefill_kv(cfg, p, h, ctx):
     Dh = cfg.resolved_head_dim
     KV = cfg.num_kv_heads
-    k = T._heads(T._proj(h, p["wk"]), KV, Dh)
-    v = T._heads(T._proj(h, p["wv"]), KV, Dh)
+    k = T._heads(T._proj(h, p["wk"], p.get("bk")), KV, Dh)
+    v = T._heads(T._proj(h, p["wv"], p.get("bv")), KV, Dh)
+    if cfg.qk_norm:
+        k = L.rms_norm(k, p["kn"], cfg.norm_eps)
     if cfg.rope == "rope":
         k = L.apply_rope(k, ctx.cos, ctx.sin)
     return k, v

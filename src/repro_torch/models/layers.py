@@ -7,8 +7,10 @@ JAX package has no kernel for it).  RecurrentGemma adds RoPE
 (``rope_angles``, ``apply_rope``), ``blocked_attention`` (K5 on the card
 through ``ops.attention``; the JAX package calls its pure-JAX version the
 analogue of that kernel), ``_attn_block`` (plain, for decode), ``rglru`` (K7
-on the card through ``ops.rglru``) and ``rglru_step`` (plain).  M-RoPE and
-MoE come with the slices that need them (ROADMAP.md, queue 1).
+on the card through ``ops.rglru``) and ``rglru_step`` (plain).  The MoE
+decoders add ``moe_ffn``, plain PyTorch as the JAX package has it (no
+Pallas kernel): the expert products are batched matrix products.  M-RoPE
+comes with the slice that needs it (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -119,6 +121,61 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
                       v.transpose(1, 2), causal=causal, window=window)
     return o.transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# MoE with capacity-based sort-free dispatch (gather/scatter, no one-hot GEMM)
+# ---------------------------------------------------------------------------
+
+def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, w1: torch.Tensor,
+            w3: torch.Tensor, w2: torch.Tensor, *, num_experts: int, k: int,
+            capacity_factor: float, act: str = "silu", block_tokens: int = 0
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE FFN.  x (T, D) -> (T, D), plus the aux load-balance loss.
+
+    Each token's top-k experts by softmax probability, their weights
+    renormalised to sum to 1; each expert holds C = max(8, ceil(Tb k cf /
+    E)) slots, filled in token order, and an assignment past them is
+    dropped (it scatters into the overflow row E*C and gathers zeros back).
+    ``block_tokens`` > 0 runs the tokens in sequential blocks (a Python
+    loop where the JAX package scans) and averages their aux losses.
+    """
+    T_, D = x.shape
+    E = num_experts
+    f = act_fn(act)
+
+    def one_block(xb):
+        Tb = xb.shape[0]
+        C = max(8, int(math.ceil(Tb * k * capacity_factor / E)))
+        probs = torch.softmax((xb @ gate_w).float(), dim=-1)
+        topv, topi = torch.topk(probs, k, dim=-1)               # (Tb, k)
+        topv = topv / topv.sum(-1, keepdim=True).clamp(min=1e-9)
+        flat_e = topi.reshape(-1)                               # (Tb*k,)
+        oh = F.one_hot(flat_e, E)
+        pos_in_e = ((oh.cumsum(0) - 1) * oh).sum(-1)            # (Tb*k,)
+        slot = torch.where(pos_in_e < C, flat_e * C + pos_in_e, E * C)
+        # dispatch: token rows into their slots; the overflow row E*C takes
+        # every dropped assignment, in no defined order on the card, and is
+        # never read
+        tok_idx = torch.arange(Tb, device=xb.device).repeat_interleave(k)
+        buf = torch.zeros((E * C + 1, D), dtype=xb.dtype, device=xb.device)
+        buf[slot] = xb[tok_idx]
+        xe = buf[:E * C].reshape(E, C, D)
+        h = f(torch.bmm(xe, w1)) * torch.bmm(xe, w3)
+        ye = torch.bmm(h, w2).reshape(E * C, D)
+        yflat = torch.cat([ye, ye.new_zeros((1, D))])
+        yk = yflat[slot].reshape(Tb, k, D)
+        out = torch.einsum("tkd,tk->td", yk, topv.to(yk.dtype))
+        # aux: load-balance loss (Switch-style)
+        ce = torch.bincount(flat_e, minlength=E).float() / (Tb * k)
+        aux = E * (probs.mean(dim=0) * ce).sum()
+        return out, aux
+
+    if block_tokens and T_ > block_tokens and T_ % block_tokens == 0:
+        outs, auxs = zip(*(one_block(xb)
+                           for xb in x.split(block_tokens, dim=0)))
+        return torch.cat(outs), torch.stack(auxs).mean()
+    return one_block(x)
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,20 @@
 """The JAX package's ``models/transformer.py`` for the Mamba-2 (``ssd``),
 RG-LRU (``rglru``) and GQA attention (``attn``) block kinds, with the dense
-MLP: the blocks of Mamba-2 370M and RecurrentGemma-2B.
+MLP or the top-k MoE FFN: the blocks of Mamba-2 370M, RecurrentGemma-2B,
+the dense Qwen decoders (qk-norm, QKV bias) and the MoE decoders
+(Qwen3-MoE, Llama 4 Maverick).
 
 Parameters keep the JAX tree: each block pattern group's leaves are stacked
 ``(groups, ...)`` under ``blocks["b{j}_{kind}"]``, pattern remainders are a
 list under ``rem``, so ``repro_torch.convert.params_from_jax`` carries a
 JAX tree across leaf for leaf.  A Python loop over the stacked groups takes
 the place of ``lax.scan``; ``remat``, ``scan_layers`` and activation
-sharding have no counterpart on one card.  qk-norm, QKV bias, MLA, M-RoPE,
-learned positions, MoE, cross-attention, the encoder and the frontends
-raise ``NotImplementedError``: they come with later slices of the port
-(ROADMAP.md, queue 1).  ``softmax_xent`` is the training loss.
+sharding have no counterpart on one card, and neither has the MoE FFN's
+expert-parallel path (``moe_ep``, a mesh): the port always takes the JAX
+package's gather path.  MLA, M-RoPE, learned positions, cross-attention,
+the encoder and the frontends raise ``NotImplementedError``: they come with
+later slices of the port (ROADMAP.md, queue 1).  ``softmax_xent`` is the
+training loss.
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ Pytree = Any
 def unsupported(what: str, slice_: str):
     return NotImplementedError(
         f"the port's LM stack runs the 'ssd', 'rglru' and GQA 'attn' blocks "
-        f"with a dense MLP; {what} comes with {slice_} (ROADMAP.md, queue 1)")
+        f"with a dense MLP or a top-k MoE FFN; {what} comes with {slice_} "
+        f"(ROADMAP.md, queue 1)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -44,14 +49,9 @@ def check_supported(cfg: ModelConfig) -> None:
          "a later slice"),
         (cfg.rope == "learned", "learned positions", "the Whisper slice"),
         (cfg.rope == "mrope", "M-RoPE", "a later slice"),
-        (cfg.num_experts, "MoE", "a later slice"),
     ]
     if "attn" in cfg.block_pattern:
-        later += [
-            (cfg.attention == "mla", "MLA", "a later slice"),
-            (cfg.qk_norm, "qk-norm", "the dense GQA slice"),
-            (cfg.qkv_bias, "QKV bias", "the dense GQA slice"),
-        ]
+        later.append((cfg.attention == "mla", "MLA", "a later slice"))
     for bad, what, slice_ in later:
         if bad:
             raise unsupported(what, slice_)
@@ -82,11 +82,12 @@ def _norm(d):
 
 
 def attn_defs(cfg: ModelConfig) -> Dict[str, PDef]:
-    """GQA attention (no qk-norm, no QKV bias: ``check_supported``)."""
+    """GQA attention, with the QKV bias and qk-norm scales where the
+    config has them."""
     D = cfg.d_model
     Dh = cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
-    return {
+    out = {
         "ln": _norm(D),
         "wq": _dense(D, H * Dh),
         "wk": _dense(D, KV * Dh),
@@ -94,6 +95,13 @@ def attn_defs(cfg: ModelConfig) -> Dict[str, PDef]:
         "wo": _dense(H * Dh, D, ax_in="tp", ax_out="fsdp",
                      scale=0.02 / math.sqrt(2 * max(cfg.num_layers, 1))),
     }
+    if cfg.qkv_bias:
+        out.update(bq=PDef((H * Dh,), ("tp",), "zeros"),
+                   bk=PDef((KV * Dh,), ("tp",), "zeros"),
+                   bv=PDef((KV * Dh,), ("tp",), "zeros"))
+    if cfg.qk_norm:
+        out.update(qn=_norm(Dh), kn=_norm(Dh))
+    return out
 
 
 def mlp_defs(cfg: ModelConfig) -> Dict[str, PDef]:
@@ -104,6 +112,19 @@ def mlp_defs(cfg: ModelConfig) -> Dict[str, PDef]:
         "w3": _dense(D, F_),
         "w2": _dense(F_, D, ax_in="tp", ax_out="fsdp",
                      scale=0.02 / math.sqrt(2 * max(cfg.num_layers, 1))),
+    }
+
+
+def moe_defs(cfg: ModelConfig) -> Dict[str, PDef]:
+    D = cfg.d_model
+    E, Fe = cfg.num_experts, (cfg.moe_d_ff or cfg.d_ff)
+    return {
+        "ln": _norm(D),
+        "wg": PDef((D, E), (None, None), "normal"),
+        "w1": PDef((E, D, Fe), ("expert", "fsdp", None), "normal"),
+        "w3": PDef((E, D, Fe), ("expert", "fsdp", None), "normal"),
+        "w2": PDef((E, Fe, D), ("expert", None, "fsdp"), "normal",
+                   0.02 / math.sqrt(2 * max(cfg.num_layers, 1))),
     }
 
 
@@ -156,7 +177,7 @@ def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     else:
         raise ValueError(kind)
     if kind != "ssd":  # mamba2 blocks have no separate FFN (d_ff = 0)
-        d["ffn"] = mlp_defs(cfg)
+        d["ffn"] = moe_defs(cfg) if cfg.num_experts else mlp_defs(cfg)
     return d
 
 
@@ -220,7 +241,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         elif pd.init == "dtbias":
             t = torch.log(torch.expm1(uniform(pd.shape, 1e-3, 0.1)))  # inv-softplus
         else:
-            t = torch.randn(pd.shape, generator=generator, device=gdev) * pd.scale
+            # scaled in place: one fp32 copy of a leaf at a time (an MoE
+            # layer group's experts are billions of elements)
+            t = torch.randn(pd.shape, generator=generator,
+                            device=gdev).mul_(pd.scale)
         return t.to(dev, dtype)
 
     return tree_map(mk, param_defs(cfg))
@@ -267,13 +291,18 @@ def _rope_ctx(cfg: ModelConfig, positions, head_dim):
 # --- GQA attention block -------------------------------------------------------
 
 def attn_forward(cfg: ModelConfig, p, x, ctx: Ctx, *, window=0):
-    """Causal GQA attention over the whole block, windowed if ``window``."""
+    """Causal GQA attention over the whole block, windowed if ``window``:
+    projections (with the QKV bias), then the qk-norm over the head dim,
+    then RoPE, in the JAX package's order."""
     Dh = cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    q = _heads(_proj(h, p["wq"]), H, Dh)
-    k = _heads(_proj(h, p["wk"]), KV, Dh)
-    v = _heads(_proj(h, p["wv"]), KV, Dh)
+    q = _heads(_proj(h, p["wq"], p.get("bq")), H, Dh)
+    k = _heads(_proj(h, p["wk"], p.get("bk")), KV, Dh)
+    v = _heads(_proj(h, p["wv"], p.get("bv")), KV, Dh)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["qn"], cfg.norm_eps)
+        k = L.rms_norm(k, p["kn"], cfg.norm_eps)
     if cfg.rope == "rope":
         q = L.apply_rope(q, ctx.cos, ctx.sin)
         k = L.apply_rope(k, ctx.cos, ctx.sin)
@@ -286,8 +315,24 @@ def attn_forward(cfg: ModelConfig, p, x, ctx: Ctx, *, window=0):
 # --- FFN -------------------------------------------------------------------------
 
 def ffn_forward(cfg: ModelConfig, p, x, ctx: Ctx):
-    """The dense gated MLP (MoE: ``check_supported``)."""
+    """The dense gated MLP, or the top-k MoE FFN over the flattened tokens
+    (the JAX package's gather path), in token blocks of
+    ``moe_block_tokens`` (halved until it divides B*S) past twice that
+    many tokens."""
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    if cfg.num_experts:
+        B, S, D = h.shape
+        bt = 0
+        if cfg.moe_block_tokens and B * S > 2 * cfg.moe_block_tokens:
+            bt = cfg.moe_block_tokens
+            while (B * S) % bt:
+                bt //= 2
+        y, _ = L.moe_ffn(
+            h.reshape(B * S, D), p["wg"].to(h.dtype), p["w1"], p["w3"],
+            p["w2"], num_experts=cfg.num_experts, k=cfg.experts_per_token,
+            capacity_factor=cfg.moe_capacity_factor, act=cfg.act,
+            block_tokens=bt)
+        return x + y.reshape(B, S, D)
     a = L.act_fn(cfg.act)(_proj(h, p["w1"]))
     y = _proj(a * _proj(h, p["w3"]), p["w2"])
     return x + y

@@ -1149,3 +1149,43 @@ def test_kernels_without_a_backward_raise_under_grad(cuda):
         for call in calls.values():
             call()
     assert [c.launches - n for c, n in zip(counters, before)] == [1] * 5
+
+
+# ---- the Qwen slice: K5 at head dim 128, the reduced decoders -------------
+
+# (B, H, KV, S, D) of the Qwen serving paths at 1024 causal tokens:
+# qwen3-8b (GQA 4:1), qwen1.5-4b (MHA 20:20), qwen3-moe-235b (GQA 16:1)
+K5_QWEN = [(4, 32, 8, 1024, 128), (4, 20, 20, 1024, 128),
+           (4, 64, 4, 1024, 128)]
+
+
+@pytest.mark.parametrize("b,h,kv,s,d", K5_QWEN)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_qwen_serving_shapes_match_plain(cuda, b, h, kv, s, d,
+                                                         dtype):
+    _k5_case(cuda, b, h, kv, s, s, d, True, 0, dtype)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "qwen1.5-4b"])
+def test_qwen_forward_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced model (fp32, QKV bias and qk-norm scales drawn nonzero)
+    on the card, K5 in its 2 attention layers, against the same forward on
+    the CPU (plain attention)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    cfg = get_arch(arch).reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    rng = np.random.default_rng(1)
+    for name, t in params["blocks"]["b0_attn"]["attn"].items():
+        if name in ("bq", "bk", "bv", "qn", "kn"):
+            t.copy_(torch.from_numpy(rng.normal(0, 0.3, t.shape)))
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 48))
+                           .astype(np.int32))
+    want = T.forward(cfg, params, tok)
+    before = flash_attention.launches
+    got = T.forward(cfg, T.tree_map(lambda t: t.to(cuda), params),
+                    tok.to(cuda))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

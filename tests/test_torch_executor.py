@@ -1,11 +1,13 @@
 """The port's DSCS executor against the JAX package's, on the CPU, and the
 port's package rules.
 
-For each non-LM Table I workload the JAX executor is built, its parameters
-move to the port with ``params_from_jax``, and one numpy-made request goes
+For each Table I workload the JAX executor is built, its parameters move
+to the port with ``params_from_jax``, and one numpy-made request goes
 through both on the DSCS deployment (the JAX kernel path in Pallas
 interpret mode): the latency and energy breakdowns must be equal (the port
-copies the numpy models verbatim) and so must the result.  The JAX
+copies the numpy models verbatim) and so must the result.  The LM
+workloads (chatbot, translation) run the reduced qwen3-8b on a (1, 32)
+int32 token request.  The JAX
 executor's vision initialiser is handed the port's draws (a seeded
 ``torch.Generator``) because jax.random's eager draws take about a minute
 on a CPU; the rest of its constructor and its request path run unchanged.
@@ -113,9 +115,31 @@ def test_executor_plain_and_dsa_paths_agree(platform):
 
 
 @pytest.mark.parametrize("workload", ["chatbot", "translation"])
-def test_lm_workloads_wait_for_the_lm_slice(workload):
-    with pytest.raises(NotImplementedError, match="LM slice"):
-        DSCSExecutor(workload, device="cpu")
+def test_lm_workloads_match_jax(workload):
+    jex = jexecutor.DSCSExecutor(workload)
+    ex = DSCSExecutor(workload, device="cpu")
+    ex.params = params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                       jex.params),
+                                device="cpu")
+    req = np.random.default_rng(12).integers(0, 512, (1, 32)).astype(np.int32)
+    want = jex(jnp.asarray(req))
+    got = ex(torch.from_numpy(req))
+    assert got.latency_breakdown == want.latency_breakdown
+    assert got.energy_breakdown == want.energy_breakdown
+    assert (got.platform, got.accelerated) == (want.platform, want.accelerated)
+    assert tuple(got.result.shape) == tuple(want.result.shape) == (1, 32)
+    np.testing.assert_array_equal(got.result.numpy(), np.asarray(want.result))
+
+
+@pytest.mark.parametrize("workload", ["chatbot", "translation"])
+def test_lm_request_is_32_int32_tokens(workload):
+    ex = DSCSExecutor(workload, device="cpu")
+    req = ex.make_request(torch.Generator().manual_seed(3))
+    assert req.shape == (1, 32) and req.dtype == torch.int32
+    assert req.device.type == "cpu"
+    assert 0 <= int(req.min()) and int(req.max()) < 512
+    rep = ex(req)
+    assert rep.result.shape == (1, 32) and rep.accelerated
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -153,7 +177,7 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.data.pipeline, repro_torch.models.decode, "
             "repro_torch.launch.steps, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.optim.adamw, "
-            "repro_torch.checkpoint.manager, "
+            "repro_torch.checkpoint.manager, repro_torch.serving.batcher, "
             "repro_torch.distributed.compression; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")

@@ -394,8 +394,8 @@ def test_train_needs_cuda_unless_asked_for_the_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ckpt.restore(str(tmp_path), {}, device=None)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train("qwen3-8b", steps=1, batch=1, seq=32, ckpt_dir=str(tmp_path),
-              device="cpu")
+        train("minicpm3-4b", steps=1, batch=1, seq=32,
+              ckpt_dir=str(tmp_path), device="cpu")
 
 
 def test_train_cli_on_the_cpu(tmp_path):
