@@ -46,8 +46,8 @@ depth (bf16, batch 8 x 1024 tokens, int8 gradient compression) with 48 K8
 and 48 K8b launches and one K3 and one K4 call per gradient leaf each
 step (a K3 call is one cooperative launch; K3 timed over a step's ten
 leaves too),
-profiled; the launcher's ``train`` with a checkpoint that restores
-byte for byte; and K7 refusing to cut an autograd graph.  Phase 11, the
+profiled; and the launcher's ``train`` with a checkpoint that restores
+byte for byte.  Phase 11, the
 Qwen decoders: K5 at their serving shapes (head dim 128; GQA 4:1, MHA
 20:20, GQA 16:1; 1024 causal tokens) in fp32 and bf16; ``serve`` of
 qwen3-8b (36 layers) and qwen1.5-4b (40) at full width and depth and of
@@ -55,7 +55,21 @@ qwen3-moe-235b-a22b at full width over 4 of its 94 layers, bf16, batch 4,
 1024-token prompts, with K5 launched once per layer and no other kernel,
 qwen3-8b profiled and the MoE's routing printed; at fp32, cut in depth,
 each served prefill against one with K5's plain version swapped in, and
-decode == forward.  Last, K1 (3xTF32
+decode == forward.  Phase 12, training beyond Mamba-2: K5's output and
+lse against the plain forward's, then K5b (flash attention's backward)
+against its plain version, in fp32 at ``tests/test_kernels.py``'s
+attention shapes and in bf16 at the training shapes (elementwise and by
+relative Frobenius error, beside two planted faults), timed in CUDA graphs
+beside SDPA's backward timed alike; K7 keeping its states against the
+plain forward, then K7b (the RG-LRU scan's backward), at phase 9's cases
+and the layer shape, each run twice byte for byte;
+RecurrentGemma-2B (one period) and qwen3-8b (2 layers) at full width, the
+fp32 loss and every gradient leaf with K5/K5b/K7/K7b and with their plain
+versions; ``launch.train.train`` of RecurrentGemma-2B at full width over 12
+of its 26 layers (10 bf16 steps, batch 4 x 1024, K7 8, K7b 8, K5 4 and K5b
+4 launches a step and no other kernel, profiled) and of qwen3-8b over 4 of
+36 (5 steps, K5 4 and K5b 4 a step); and K1 refusing to cut an autograd
+graph.  Last, K1 (3xTF32
 ``wgmma``) at each distinct shape of a ResNet-50 request, with w in the
 layout the request hands over, beside ``torch.matmul``, its tile plan and
 both bounds (3xTF32 and the fp32 FMA pipes).  Any failed
@@ -159,6 +173,36 @@ QWEN_FULL = {   # (layers, d_model, heads, KV, head dim, (expert) d_ff,
                             151936, 235_094_683_136),
 }
 
+
+# Phase 12, training beyond Mamba-2: K5b's shapes (B, H, KV, Sq, Skv, D,
+# causal, window) in bf16: RecurrentGemma-2B's training attention, its
+# 4096-token shape where the window bites, and qwen3-8b's; in fp32
+# tests/test_kernels.py's attention shapes and masks.  RecurrentGemma-2B
+# trained at full width over 12 of its 26 layers (four (R, R, A) periods:
+# 1.69 B parameters, about 44 GB at the optimizer's peak at 26 bytes a
+# parameter; all 26 need about 75 GB before activations) and qwen3-8b over 4
+# of 36 (2.02 B, about 52 GB; all 36 need about 213 GB): bf16, fp32 AdamW
+# moments, no gradient compression, batch 4 of 1024 tokens; the fp32
+# gradient checks over one period (3 layers) and 2 layers, batch 2.
+K5B_TRAIN = [((4, 10, 1, 1024, 1024, 256), True, GEMMA_WINDOW),
+             ((1, 10, 1, 4096, 4096, 256), True, GEMMA_WINDOW),
+             ((4, 32, 8, 1024, 1024, 128), True, 0)]
+K5B_FP32 = [(2, 8, 2, 128, 128, 64), (1, 4, 1, 64, 128, 32),
+            (2, 4, 4, 128, 64, 64)]
+K5B_MASKS = [(True, 0), (False, 0), (True, 48)]
+# K5b's bar beside the elementwise one: each of dq, dk, dv within this
+# relative Frobenius error of the plain version (tests/test_torch_cuda.py
+# holds the card tests to the same), the norm floored at an rms of
+# K5B_REL_FLOOR where a gradient cancels to ~0 (one key: dQ = dK = 0, fp32
+# residues of ~2e-7); a planted fault (dQ x 0.9, one 64-key tile dropped)
+# must read above it
+K5B_REL = {"bfloat16": 2e-2, "float32": 1e-4}
+K5B_REL_FLOOR = 1e-2
+K7B_OPS = 32                # fp32 operations a K7b element
+GEMMA_TRAIN = {"layers": 12, "batch": 4, "seq": 1024, "steps": 10}
+QWEN_TRAIN = {"layers": 4, "batch": 4, "seq": 1024, "steps": 5}
+GEMMA_GRAD = {"layers": 3, "batch": 2, "seq": 1024}
+QWEN_GRAD = {"layers": 2, "batch": 2, "seq": 1024}
 
 def bound(nbytes, ops_, dtype):
     """(least ms for the work, "bytes" or "operations"); dtype a torch dtype
@@ -1344,9 +1388,8 @@ def drive_train(dev, counters, time_ms, call_ms, max_err):
     versions; the full model's fp32 loss and gradients with K8/K8b and with
     their plain versions swapped in; 10 train steps of Mamba-2 370M at full
     width and depth in bf16 with int8 gradient compression, counted and
-    profiled; the launcher's ``train`` and a byte-exact restore; K7's
-    refusal under autograd.  Returns the K3, K4 and K8b entries of the
-    kernels line."""
+    profiled; the launcher's ``train`` and a byte-exact restore.  Returns
+    the K3, K4 and K8b entries of the kernels line."""
     import dataclasses
     import shutil
 
@@ -1355,10 +1398,8 @@ def drive_train(dev, counters, time_ms, call_ms, max_err):
     from repro_torch.checkpoint import manager as ckpt
     from repro_torch.configs import TrainConfig
     from repro_torch.data.pipeline import TokenStream
-    from repro_torch.kernels import ops
     from repro_torch.kernels import ssd as SSD
     from repro_torch.kernels import vector_engine as VE
-    from repro_torch.kernels.rglru import rglru_scan
     from repro_torch.launch import steps as ST
     from repro_torch.launch import train as TR
     from repro_torch.models import transformer as T
@@ -1539,26 +1580,7 @@ def drive_train(dev, counters, time_ms, call_ms, max_err):
     del restored, got, saved
     torch.cuda.empty_cache()
 
-    # ---- 10(f): a kernel without a backward refuses to cut the graph ------
-    gen = torch.Generator(device=dev).manual_seed(40)
-    x, gx, ga = (torch.randn(1, 16, 32, generator=gen, device=dev)
-                 for _ in range(3))
-    la = torch.randn(32, generator=gen, device=dev).requires_grad_()
-    h0 = torch.zeros(1, 32, device=dev)
-    before = rglru_scan.launches
-    try:
-        ops.rglru(x, gx, ga, la, h0)
-    except NotImplementedError as e:
-        msg = str(e)
-    else:
-        raise AssertionError("ops.rglru under requires_grad returned a tensor "
-                             "cut off from the autograd graph")
-    if rglru_scan.launches != before:
-        raise AssertionError("ops.rglru launched K7 under requires_grad")
-    print(f"K7 under requires_grad: NotImplementedError, no launch "
-          f"({msg.split(';')[0]})")
-
-    # ---- 10(g): the kernels line's entries --------------------------------
+    # ---- 10(f): the kernels line's entries --------------------------------
     # K3's launches count quantize_int8 calls, each one kernel launch
     src = "src/repro_torch/kernels/csrc/"
     return [
@@ -1611,7 +1633,8 @@ def describe(cfg):
     extra = " qk-norm" * cfg.qk_norm + " QKV bias" * cfg.qkv_bias
     return (f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
             f"{cfg.num_heads} heads x {cfg.resolved_head_dim} with "
-            f"{cfg.num_kv_heads} KV heads,{extra}, {ffn}, vocab "
+            f"{cfg.num_kv_heads} KV heads{',' + extra if extra else ''}, "
+            f"{ffn}, vocab "
             f"{cfg.vocab_size} padded to {cfg.padded_vocab}, {cfg.dtype}, "
             f"{T.count_params(cfg)} parameters, {nbytes} bytes")
 
@@ -1877,6 +1900,624 @@ def drive_qwen(dev, counters, time_ms, call_ms, max_err, randn, card):
     return entries
 
 
+def k5b_bound(B, H, KV, Sq, Skv, D, causal, window, dtype):
+    """K5b at one shape: q, k, v, o, dO read and dq, dk, dv written once in
+    ``dtype``, the lse read in fp32; the least work is five products (S,
+    dP, dV, dK, dQ) over the pairs the masks leave, 2.5 times the
+    forward's, an FMA counted as two."""
+    import torch
+    esz = torch.empty((), dtype=dtype).element_size()
+    nbytes = esz * (4 * B * H * Sq * D + 4 * B * KV * Skv * D) + 4 * B * H * Sq
+    pairs = int(attn_pairs(Sq, Skv, causal, window).sum())
+    return bound(nbytes, 10 * B * H * D * pairs, dtype)
+
+
+def k7b_bound(B, S, W, dtype):
+    """K7b at (B, S, W): x, gx, ga, dy read and dx, dgx, dga written in
+    ``dtype``, the fp32 states h32 read; log_a and h0 read, dlog_a and dh0
+    written in fp32; K7B_OPS fp32 operations an element."""
+    import torch
+    esz = torch.empty((), dtype=dtype).element_size()
+    nbytes = (7 * esz + 4) * B * S * W + 4 * (2 * W + 2 * B * W)
+    return bound(nbytes, K7B_OPS * B * S * W, torch.float32)
+
+
+def graph_windows_ms(fn, reps=5, windows=5, stream=None):
+    """Device ms a call of ``fn`` in each of ``windows`` windows: ``reps``
+    calls captured in one CUDA graph on ``stream`` (a new side stream when
+    None), replayed five times a window after a warm-up replay."""
+    import torch
+    side = stream or torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    out = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(5):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / (5 * reps))
+    del graph
+    return out
+
+
+def sdpa_bwd_windows(q, k, v, do, causal, window):
+    """(form, ms of each window) of the backward alone of
+    F.scaled_dot_product_attention on the same inputs, timed as
+    ``graph_windows_ms`` times K5b: the forward runs once on a side stream,
+    ``autograd.grad`` of it is captured there.  ``is_causal`` where the
+    window masks nothing, else the explicit mask."""
+    import torch
+    import torch.nn.functional as F
+    B, H, Sq, D = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        if causal and (not window or Sq <= window):
+            form = "sdpa_is_causal"
+            out = F.scaled_dot_product_attention(*ins, is_causal=True,
+                                                 enable_gqa=KV != H)
+        else:
+            form = "sdpa_mask"
+            mask = attn_pairs(Sq, Skv, causal, window).to(q.device)
+            out = F.scaled_dot_product_attention(*ins, attn_mask=mask,
+                                                 enable_gqa=KV != H)
+    windows = graph_windows_ms(
+        lambda: torch.autograd.grad(out, ins, do, retain_graph=True),
+        stream=side)
+    return form, windows
+
+
+def rel_frobenius(got, want):
+    """||got - want|| / ||want|| in fp32, the norm floored at an rms of
+    K5B_REL_FLOOR."""
+    got, want = got.float(), want.float()
+    floor = K5B_REL_FLOOR * math.sqrt(want.numel())
+    return ((got - want).norm() / want.norm().clamp_min(floor)).item()
+
+
+def k5b_planted(q, k, v, o, lse, do, causal, window, got, want):
+    """Readings of two planted faults against the plain version ``want``:
+    K5b's dQ scaled by 0.9, and the plain version with the 64-key tile in
+    the middle of the keys dropped from every sum (the dQ pass's, the
+    dK/dV blocks'), one reading for each of dq, dk, dv."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    Skv = k.shape[2]
+    t0 = Skv // 2 // 64 * 64
+    real = FA._mask
+
+    def dropped(Sq, Skv_, causal_, window_, device):
+        keep = real(Sq, Skv_, causal_, window_, device)
+        keep[:, t0:t0 + 64] = False
+        return keep
+
+    FA._mask = dropped
+    try:
+        drop = FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                            causal=causal, window=window)
+    finally:
+        FA._mask = real
+    out = {"dq x 0.9": rel_frobenius(got[0] * 0.9, want[0])}
+    for name, gg, ww in zip(("dq", "dk", "dv"), drop, want):
+        out[f"keys {t0}-{t0 + 63} dropped, {name}"] = rel_frobenius(gg, ww)
+    del drop
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_k5b(time_ms, call_ms, max_err, randn, card):
+    """Phase 12(a): K5's output and log-sum-exp against its plain version's,
+    then K5b against its plain version, both fed K5's output and lse: fp32
+    at tests/test_kernels.py's attention shapes and masks, bf16 at the
+    training shapes, with K5's elementwise tolerances and K5B_REL's
+    relative Frobenius bar; at the training shapes two planted faults read
+    against that bar, and the times (K5b and SDPA's backward each in CUDA
+    graphs, five windows) beside the bound.  Returns K5b's entry of the
+    kernels line (the first training shape), all but ``launches``."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    worst, rows, sound = 0.0, {}, {}
+    cases = [(shape, causal, window, torch.float32)
+             for shape in K5B_FP32 for causal, window in K5B_MASKS]
+    cases += [(shape, causal, window, torch.bfloat16)
+              for shape, causal, window in K5B_TRAIN]
+    for shape, causal, window, dtype in cases:
+        B, H, KV, Sq, Skv, D = shape
+        q = randn(B, H, Sq, D, dtype=dtype)
+        k, v = (randn(B, KV, Skv, D, dtype=dtype) for _ in range(2))
+        do = randn(B, H, Sq, D, dtype=dtype)
+        bf = dtype == torch.bfloat16
+        rtol, atol = (0.05, 0.03) if bf else (1e-3, 2e-4)
+        tag = f"{shape} {dtype}"
+        # the forward that training runs: o at K5's bar, the lse (fp32 in
+        # both) as the card tests hold it, rows that saw no key alike
+        o, lse = FA.flash_attention(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+        want_o, want_lse = FA.flash_attention_plain(
+            q, k, v, causal=causal, window=window, return_lse=True)
+        o_err = max_err(o, want_o, rtol, atol, f"K5 {tag} o")
+        lse_err = max_err(lse, want_lse, 1e-5, 1e-4, f"K5 {tag} lse")
+        if not torch.equal(lse == FA.NEG_INF, want_lse == FA.NEG_INF):
+            raise AssertionError(f"K5 {tag}: rows that saw no key differ")
+        del want_o, want_lse
+        run = lambda: FA.flash_attention_bwd(q, k, v, o, lse, do,
+                                             causal=causal, window=window)
+        got = run()
+        want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                            causal=causal, window=window)
+        err = max(max_err(gg, ww, rtol, atol, f"K5b {tag} {name}")
+                  for name, gg, ww in zip(("dq", "dk", "dv"), got, want))
+        limit = K5B_REL[str(dtype).split(".")[1]]
+        rel = {name: rel_frobenius(gg, ww)
+               for name, gg, ww in zip(("dq", "dk", "dv"), got, want)}
+        if max(rel.values()) > limit:
+            raise AssertionError(f"K5b {tag}: relative Frobenius errors "
+                                 f"{rel}, limit {limit}")
+        sound[tag] = rel
+        worst = max(worst, err)
+        again = run()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not same:
+            raise AssertionError(f"K5b {tag}: two calls differ")
+        line = (f"K5b flash_attention_bwd B={B} H={H} KV={KV} Sq={Sq} "
+                f"Skv={Skv} D={D} causal={causal} window={window} {dtype}: "
+                f"K5's o max_abs_err={o_err:.3e}, lse {lse_err:.3e} (rtol "
+                f"1e-5 atol 1e-4); dq, dk, dv max_abs_err={err:.3e} "
+                f"rtol={rtol} atol={atol}, relative Frobenius "
+                + ", ".join(f"{n} {r:.3e}" for n, r in rel.items())
+                + f" (limit {limit}); a second call byte-equal")
+        del again
+        if bf:
+            planted = k5b_planted(q, k, v, o, lse, do, causal, window, got,
+                                  want)
+            if min(planted.values()) <= limit:
+                raise AssertionError(f"K5b {tag}: a planted fault reads "
+                                     f"within the bar: {planted}, limit "
+                                     f"{limit}")
+            line += ("; planted faults read " + ", ".join(
+                f"{n} {r:.3e}" for n, r in planted.items()))
+            del got, want
+            wins = graph_windows_ms(run)
+            ms = statistics.median(wins)
+            plain = time_ms(lambda: FA.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal=causal, window=window), reps=2)
+            form, lib_wins = sdpa_bwd_windows(q, k, v, do, causal, window)
+            lib = statistics.median(lib_wins)
+            bnd, by = k5b_bound(*shape, causal, window, dtype)
+            rows[(shape, window)] = {
+                "ms": ms, "ms_spread": [min(wins), max(wins)],
+                "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+                "library_ms": lib, "library": form,
+                "library_spread": [min(lib_wins), max(lib_wins)],
+                "planted": planted}
+            line += (f"; ms={ms:.4f} (CUDA graph, median of 5 windows, "
+                     f"{min(wins):.4f}-{max(wins):.4f}; per Python call "
+                     f"{call_ms(run, reps=20):.4f}) plain_ms={plain:.4f} "
+                     f"library_ms ({form} backward alone, timed the same "
+                     f"way) {lib:.4f} ({min(lib_wins):.4f}-"
+                     f"{max(lib_wins):.4f}) bound_ms={bnd:.4f} ({by}); card "
+                     f"{card}")
+        else:
+            del got, want
+        print(line)
+        del q, k, v, do, o, lse, run
+        torch.cuda.empty_cache()
+    first = rows[(K5B_TRAIN[0][0], K5B_TRAIN[0][2])]
+    return {"max_abs_err": worst, **first,
+            "rel_frobenius_worst": max(max(r.values())
+                                       for r in sound.values()),
+            "at_4096": rows[(K5B_TRAIN[1][0], K5B_TRAIN[1][2])],
+            "qwen": rows[(K5B_TRAIN[2][0], K5B_TRAIN[2][2])]}
+
+
+def check_k7b(dev, time_ms, call_ms, max_err, card):
+    """Phase 12(b): K7 keeping its fp32 states against its plain version,
+    then K7b against its plain version, both fed K7's states, at phase 9's
+    K7 cases in fp32 (h0 nonzero) and at the layer shape in fp32 and bf16,
+    each run twice and compared byte for byte; its times at the layer
+    shape.  Returns K7b's entry of the kernels line
+    (bf16), all but ``launches``."""
+    import torch
+    from repro_torch.kernels import rglru as RG
+    names = ("dx", "dgx", "dga", "dlog_a", "dh0")
+    cases = [(shape, torch.float32) for shape in K7_SHAPES] + [
+        (K7_LAYER, torch.float32), (K7_LAYER, torch.bfloat16)]
+    worst, times = 0.0, {}
+    for i, (shape, dtype) in enumerate(cases):
+        x, gx, ga, la, h0 = rglru_inputs(shape, dtype, dev, seed=50 + i)
+        gen = torch.Generator(device=dev).manual_seed(70 + i)
+        dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        bf = dtype == torch.bfloat16
+        # the forward that training runs (K7 keeping its fp32 states, its
+        # own template instance): y at K7's bar and equal to the serving
+        # instance's, the states within K7's fp32 bar, as the card tests
+        y, h32 = RG.rglru_scan(x, gx, ga, la, h0, keep_states=True)
+        want_y, want_h = RG.rglru_scan_plain(x, gx, ga, la, h0,
+                                             keep_states=True)
+        ytol = 1e-2 if bf else 1e-4
+        y_err = max_err(y, want_y, ytol, ytol, f"K7 {shape} {dtype} y")
+        h_err = max_err(h32, want_h, 1e-4, 1e-4, f"K7 {shape} {dtype} h32")
+        if not torch.equal(y, RG.rglru_scan(x, gx, ga, la, h0)):
+            raise AssertionError(f"K7 {shape} {dtype}: y keeping the states "
+                                 f"differs from the serving instance's")
+        del y, want_y, want_h
+        run = lambda: RG.rglru_scan_bwd(x, gx, ga, la, h0, h32, dy)
+        got, again = run(), run()
+        want = RG.rglru_scan_bwd_plain(x, gx, ga, la, h0, h32, dy)
+        err = 0.0
+        for name, gg, ww in zip(names, got, want):
+            # fp32: K7's bar (1e-4; dlog_a, a sum of B x S terms in another
+            # order, 1e-3 relative); bf16 outputs one rounding apart (1e-2)
+            tol = (1e-3 if name in ("dlog_a", "dh0") else 1e-2) if bf \
+                else 1e-4
+            rtol = 1e-3 if name == "dlog_a" else tol
+            err = max(err, max_err(gg, ww, rtol, tol,
+                                   f"K7b {shape} {dtype} {name}"))
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K7b {shape} {dtype}: two calls differ")
+        worst = max(worst, err)
+        line = (f"K7b rglru_scan_bwd B,S,W={shape} {dtype} h0=True: K7 "
+                f"keeping its states: y max_abs_err={y_err:.3e} (rtol=atol="
+                f"{ytol}), equal to the serving instance's, h32 "
+                f"{h_err:.3e} (1e-4); five gradients max_abs_err="
+                f"{err:.3e}; a second call byte-equal")
+        if shape == K7_LAYER:
+            ms = time_ms(run, reps=5)
+            plain = time_ms(lambda: RG.rglru_scan_bwd_plain(
+                x, gx, ga, la, h0, h32, dy), reps=2)
+            bnd, by = k7b_bound(*shape, dtype)
+            times[dtype] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd,
+                            "bound_by": by}
+            line += (f"; ms={ms:.4f} (per Python call "
+                     f"{call_ms(run, reps=5):.4f}) plain_ms={plain:.4f} "
+                     f"library_ms=none bound_ms={bnd:.4f} ({by}); one "
+                     f"thread a (batch row, channel); card {card}")
+        print(line)
+    return {"max_abs_err": worst, **times[torch.bfloat16],
+            "library_ms": None, "float32": times[torch.float32]}
+
+
+class training_config:
+    """Within the block, ``launch.train.train`` builds ``cfg`` for
+    ``cfg.name`` (the registered model's widths at a cut depth), and each
+    step it runs is timed (host clock to a synchronize) and its kernel
+    launches counted by ``counters``; checkpoints are recorded, not written
+    (phase 10(e) holds a written one to its bytes)."""
+
+    def __init__(self, cfg, counters):
+        self.cfg, self.counters = cfg, counters
+        self.step_ms, self.launches, self.saved = [], [], []
+        self.last = None
+
+    def __enter__(self):
+        import torch
+        from repro_torch.launch import train as TR
+        self.real = (TR.get_arch, TR.ST.make_train_step, TR.ckpt.save)
+        TR.get_arch = lambda name: (self.cfg if name == self.cfg.name
+                                    else self.real[0](name))
+
+        def make_train_step(cfg, tcfg):
+            step = self.real[1](cfg, tcfg)
+
+            def timed(params, opt, batch):
+                before = [c.launches for c in self.counters]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(params, opt, batch)
+                torch.cuda.synchronize()
+                self.step_ms.append((time.perf_counter() - t0) * 1e3)
+                self.launches.append([c.launches - b for c, b in
+                                      zip(self.counters, before)])
+                self.last = (step, out[0], out[1], batch)
+                return out
+            return timed
+
+        TR.ST.make_train_step = make_train_step
+        TR.ckpt.save = lambda d, step, tree, **kw: self.saved.append(step)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import train as TR
+        TR.get_arch, TR.ST.make_train_step, TR.ckpt.save = self.real
+
+
+class plain_versions:
+    """Within the block K5, K5b, K7 and K7b are their plain versions,
+    swapped into ``kernels.flash_attention`` and ``kernels.rglru``, where
+    ``FlashAttention`` and ``RGLRUScan`` look them up."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.kernels import rglru as RG
+        self.real = (FA.flash_attention, FA.flash_attention_bwd,
+                     RG.rglru_scan, RG.rglru_scan_bwd)
+
+        def plain_fwd(q, k, v, *, causal, window, return_lse=False):
+            return FA.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window,
+                                            return_lse=return_lse)
+
+        FA.flash_attention = plain_fwd
+        FA.flash_attention_bwd = FA.flash_attention_bwd_plain
+        RG.rglru_scan = RG.rglru_scan_plain
+        RG.rglru_scan_bwd = RG.rglru_scan_bwd_plain
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.kernels import rglru as RG
+        (FA.flash_attention, FA.flash_attention_bwd, RG.rglru_scan,
+         RG.rglru_scan_bwd) = self.real
+
+
+def grad_check(cfg32, batch, dev, counted, want_n, what, card):
+    """Phase 12(c): the loss and every gradient leaf of ``value_and_grad``
+    at fp32 with K5/K5b/K7/K7b, and with their plain versions swapped into
+    ``kernels.flash_attention`` and ``kernels.rglru``: loss within 1e-5,
+    leaves within 1e-3 relative Frobenius (phase 10(c)'s bars).
+    ``counted`` are the four kernels, ``want_n`` their launches."""
+    import contextlib
+
+    import torch
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    params = T.init_params(cfg32, torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    drawn = (draw_attn_leaves(params, torch.Generator(device=dev)
+                              .manual_seed(2)) if cfg32.qk_norm else [])
+    runs = {}
+    for name in ("kernel", "plain"):
+        before = [c.launches for c in counted]
+        with (plain_versions() if name == "plain"
+              else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = ST.value_and_grad(cfg32, params, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        n = [c.launches - b for c, b in zip(counted, before)]
+        if n != (want_n if name == "kernel" else [0] * len(counted)):
+            raise AssertionError(f"{what} fp32 gradients ({name}): K5/K5b/"
+                                 f"K7/K7b launches {n}")
+        runs[name] = (loss.item(), T.tree_leaves(grads), ms)
+        del loss, grads
+    (lk, gk, ms_k), (lp, gp, ms_p) = runs["kernel"], runs["plain"]
+    rel_loss = abs(lk - lp) / abs(lp)
+    rels = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            for a, b in zip(gk, gp)]
+    finite = all(torch.isfinite(a).all() for a in gk)
+    if not (finite and rel_loss <= 1e-5 and max(rels) <= 1e-3):
+        raise AssertionError(f"{what} fp32 gradients, kernels vs plain: loss "
+                             f"rel err {rel_loss:.3e} (limit 1e-5), leaf rel "
+                             f"errs {[f'{r:.2e}' for r in rels]} (limit "
+                             f"1e-3)")
+    B, S = batch["tokens"].shape
+    print(f"fp32 gradients {what} ({describe(cfg32)}"
+          f"{f'; {drawn} drawn nonzero' if drawn else ''}; TF32 off, batch "
+          f"{B}, seq {S}): loss {lk:.6f}, K5/K5b/K7/K7b (launches {want_n}) "
+          f"vs their plain versions: loss rel err {rel_loss:.3e} (limit "
+          f"1e-5), {len(rels)} gradient leaves, worst rel Frobenius err "
+          f"{max(rels):.3e} (limit 1e-3); host ms kernel {ms_k:.3f}, plain "
+          f"{ms_p:.3f}; card {card}")
+
+
+def drive_train_hybrid(dev, counters, time_ms, call_ms, max_err, randn,
+                       card):
+    """Phase 12: training beyond Mamba-2.  K5b and K7b against their plain
+    versions; RecurrentGemma-2B (one period) and qwen3-8b (2 layers) at
+    full width, their fp32 loss and gradients with K5/K5b/K7/K7b and with
+    the plain versions; ``launch.train.train`` of RecurrentGemma-2B at full
+    width over 12 of 26 layers (10 bf16 steps, K7 8, K7b 8, K5 4, K5b 4
+    launches a step and no other kernel, profiled) and of qwen3-8b over 4
+    of 36 (5 steps, K5 4 and K5b 4 a step); K1 refusing to cut an autograd
+    graph.  ``counters`` are main's launch counters (K1, K2, K5, K6, K8,
+    K7).  Returns (K5b's and K7b's entries of the kernels line, K5's and
+    K7's launches on this phase's training paths)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels import vector_engine as VE
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rglru import rglru_scan, rglru_scan_bwd
+    from repro_torch.kernels.systolic_matmul import systolic_matmul
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+
+    def lap(what):
+        print(f"phase 12: {what} in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 12(a), 12(b): K5b and K7b ---------------------------------------
+    k5b_entry = check_k5b(time_ms, call_ms, max_err, randn, card)
+    torch.cuda.empty_cache()
+    lap("12(a), K5b")
+    k7b_entry = check_k7b(dev, time_ms, call_ms, max_err, card)
+    torch.cuda.empty_cache()
+    lap("12(a)-(b), K5b and K7b")
+
+    # ---- 12(c): fp32, TF32 off: the gradients against the plain versions --
+    four = (flash_attention, flash_attention_bwd, rglru_scan, rglru_scan_bwd)
+    gemma = gemma_config()
+    cfg32 = dataclasses.replace(gemma, num_layers=GEMMA_GRAD["layers"],
+                                dtype="float32")
+    batch = TokenStream(gemma, GEMMA_GRAD["batch"], GEMMA_GRAD["seq"], 0,
+                        device=dev).batch_at(0)
+    grad_check(cfg32, batch, dev, four, [1, 1, 2, 2],
+               f"{GEMMA} (one period)", card)
+    torch.cuda.empty_cache()
+    qwen = qwen_config("qwen3-8b")
+    cfg32 = as_fp32(qwen_config("qwen3-8b", QWEN_GRAD["layers"]))
+    batch = TokenStream(qwen, QWEN_GRAD["batch"], QWEN_GRAD["seq"], 0,
+                        device=dev).batch_at(0)
+    grad_check(cfg32, batch, dev, four, [2, 2, 0, 0], "qwen3-8b", card)
+    del batch
+    torch.cuda.empty_cache()
+    lap("12(a)-(c), with the fp32 gradients")
+
+    # ---- 12(d), 12(e): the sixth path, training through launch.train -----
+    counted = counters + (flash_attention_bwd, rglru_scan_bwd,
+                          SSD.ssd_scan_bwd, VE.quantize_int8,
+                          VE.dequantize_int8)
+    names = ("K1", "K2", "K5", "K6", "K8", "K7", "K5b", "K7b", "K8b", "K3",
+             "K4")
+    path_launches = {"K5": 0, "K7": 0, "K5b": 0, "K7b": 0}
+
+    def counted_train(cfg, run, what, falling=True):
+        kinds = [cfg.block_pattern[j % len(cfg.block_pattern)]
+                 for j in range(cfg.num_layers)]
+        want = dict.fromkeys(names, 0)
+        want.update(K5=kinds.count("attn"), K5b=kinds.count("attn"),
+                    K7=kinds.count("rglru"), K7b=kinds.count("rglru"))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counted:
+            c.launches = 0
+        with training_config(cfg, counted) as rec:
+            t0 = time.perf_counter()
+            losses = TR.train(cfg.name, smoke=False, steps=run["steps"],
+                              batch=run["batch"], seq=run["seq"],
+                              log_every=run["steps"])
+            wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for i, n in enumerate(rec.launches):
+            if dict(zip(names, n)) != want:
+                raise AssertionError(f"train {what} step {i + 1}: launches "
+                                     f"{dict(zip(names, n))}, want {want}")
+        total = dict(zip(names, (c.launches for c in counted)))
+        for k in path_launches:
+            path_launches[k] += total[k]
+        if not (len(losses) == run["steps"]
+                and all(math.isfinite(l) for l in losses)
+                and (losses[-1] < losses[0] or not falling)
+                and rec.saved == [run["steps"]]):
+            raise AssertionError(f"train {what}: losses {losses}, "
+                                 f"checkpoints {rec.saved}")
+        B, S = run["batch"], run["seq"]
+        med = statistics.median(rec.step_ms[2:])
+        print(f"train {what} through launch.train.train(smoke=False) ("
+              f"{describe(cfg)}; AdamW with fp32 moments, no "
+              f"gradient compression, warm-up 2 of {run['steps']} steps): "
+              f"batch {B} x seq {S}: losses {[round(l, 4) for l in losses]}; "
+              f"step ms {[round(t, 3) for t in rec.step_ms]}; median of "
+              f"steps 3-{run['steps']} {med:.3f} ms, "
+              f"{B * S / med * 1e3:.1f} tokens/s; peak memory "
+              f"{peak_gb:.2f} GB; {wall:.1f} s in train(); launches a step "
+              f"K5 {want['K5']}, K5b {want['K5b']}, K7 {want['K7']}, K7b "
+              f"{want['K7b']}, no other kernel; card {card}")
+        return rec, losses
+
+    gcfg = dataclasses.replace(gemma, num_layers=GEMMA_TRAIN["layers"])
+    print(f"{GEMMA} cut to {GEMMA_TRAIN['layers']} of 26 layers for training "
+          f"({GEMMA_TRAIN['layers'] // 3} (R, R, A) periods; "
+          f"{T.count_params(gcfg)} parameters, about "
+          f"{26 * T.count_params(gcfg) / 1e9:.1f} GB at the optimizer's peak "
+          f"at 26 bytes a parameter, where all 26 layers need "
+          f"{26 * T.count_params(gemma) / 1e9:.1f} GB)")
+    rec, _ = counted_train(gcfg, GEMMA_TRAIN,
+                           f"{GEMMA} ({GEMMA_TRAIN['layers']} layers)")
+    step, params, opt, batch = rec.last
+    B, S = GEMMA_TRAIN["batch"], GEMMA_TRAIN["seq"]
+    profile_run(f"train step {GEMMA} {GEMMA_TRAIN['layers']} layers (B={B}, "
+                f"S={S}",
+                lambda: step(params, opt, batch)[2]["loss"].item(), 1,
+                {"K5b": ("flash_bwd",), "K5": ("flash_bf16_kernel",),
+                 "K7b": ("rglru_bwd",), "K7": ("rglru_chunked_kernel",)},
+                "step", card)
+    del rec, step, params, opt, batch
+    torch.cuda.empty_cache()
+    lap("12(a)-(d), with RecurrentGemma-2B's training")
+
+    qcfg = qwen_config("qwen3-8b", QWEN_TRAIN["layers"])
+    print(f"qwen3-8b cut to {QWEN_TRAIN['layers']} of 36 layers for training "
+          f"({T.count_params(qcfg)} parameters, about "
+          f"{26 * T.count_params(qcfg) / 1e9:.1f} GB at the optimizer's peak; "
+          f"all 36 layers need {26 * T.count_params(qwen) / 1e9:.1f} GB)")
+    what = f"qwen3-8b ({QWEN_TRAIN['layers']} layers)"
+    rec, losses = counted_train(qcfg, QWEN_TRAIN, what, falling=False)
+    step, params, opt, batch = rec.last
+    profile_run(f"train step {what} (B={QWEN_TRAIN['batch']}, "
+                f"S={QWEN_TRAIN['seq']}",
+                lambda: step(params, opt, batch)[2]["loss"].item(), 1,
+                {"K5b": ("flash_bwd",), "K5": ("flash_bf16_kernel",)},
+                "step", card)
+    del rec, step, params, opt, batch
+    torch.cuda.empty_cache()
+    # Its first two steps again with K5/K5b's plain versions: the same
+    # schedule (warm-up 2) and batches, so the same losses up to bf16's
+    # rounding, whatever way the loss then moves
+    before = [c.launches for c in counted]
+    with plain_versions(), training_config(qcfg, counted):
+        plain = TR.train(qcfg.name, smoke=False, steps=2,
+                         batch=QWEN_TRAIN["batch"], seq=QWEN_TRAIN["seq"],
+                         log_every=2)
+    n = [c.launches - b for c, b in zip(counted, before)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+    if any(n) or not (rel[0] <= 1e-2 and rel[1] <= 5e-2):
+        raise AssertionError(f"train {what}: losses {losses[:2]} with K5/K5b "
+                             f"against {plain} with their plain versions "
+                             f"(limits 1e-2, 5e-2 relative), launches {n}")
+    print(f"train {what}, first two steps with K5/K5b's plain versions "
+          f"swapped in: losses {[round(l, 4) for l in plain]} against "
+          f"{[round(l, 4) for l in losses[:2]]} (rel {rel[0]:.2e}, "
+          f"{rel[1]:.2e}; limits 1e-2, 5e-2): K5/K5b do not set the "
+          f"loss's course")
+    torch.cuda.empty_cache()
+
+    # ---- 12(f): a kernel without a backward refuses to cut the graph ------
+    gen = torch.Generator(device=dev).manual_seed(40)
+    x = torch.randn(64, 32, generator=gen, device=dev)
+    w = torch.randn(32, 16, generator=gen, device=dev).requires_grad_()
+    before = systolic_matmul.launches
+    try:
+        ops.matmul(x, w)
+    except NotImplementedError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("ops.matmul under requires_grad returned a "
+                             "tensor cut off from the autograd graph")
+    if systolic_matmul.launches != before:
+        raise AssertionError("ops.matmul launched K1 under requires_grad")
+    print(f"K1 under requires_grad: NotImplementedError, no launch "
+          f"({msg.split(';')[0]})")
+
+    src = "src/repro_torch/kernels/csrc/"
+    entries = [
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": src + "flash_attention.cu",
+         "replaces": "src/repro/models/layers.py:129",
+         "launches": path_launches["K5b"],
+         "shape": list(K5B_TRAIN[0][0]), "dtype": "bfloat16",
+         "causal": True, "window": GEMMA_WINDOW, **k5b_entry},
+        {"name": "rglru_scan_bwd", "route": "cuda", "source": src + "rglru.cu",
+         "replaces": "src/repro/models/layers.py:253",
+         "launches": path_launches["K7b"], "shape": list(K7_LAYER),
+         "dtype": "bfloat16", **k7b_entry},
+    ]
+    return entries, path_launches["K5"], path_launches["K7"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2074,10 +2715,15 @@ def main() -> int:
                 (B, H, KV, Sq, Skv, D), causal, window, dtype, randn,
                 time_ms, call_ms, max_err)
 
+    def mark(phase):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {phase}", flush=True)
+
+    mark("K6 and K8 against their plain versions")
     k6_err = check_k6(dev, time_ms, call_ms)
     k8_err, k8_times = check_k8(dev, time_ms, call_ms, max_err)
 
     # ---- 4. the executor for every non-LM workload -----------------------
+    mark("4, the executor")
     for wl in list(E._MODEL_BUILDERS) + ["credit_risk"]:
         ex = E.DSCSExecutor(wl)
         req = ex.make_request(torch.Generator().manual_seed(1))
@@ -2112,6 +2758,7 @@ def main() -> int:
               f"(limit 1e-4); out {tuple(got.shape)}")
 
     # ---- 5. the main path: full-width ResNet-50, the ViT, the LM requests -
+    mark("5, the main path")
     resnet = E.DSCSExecutor("asset_damage", image_size=224)
     resnet.params = vision.resnet50_init(torch.Generator().manual_seed(0),
                                          width=1.0)
@@ -2237,18 +2884,29 @@ def main() -> int:
         print(f"profile ResNet-50 request (profiler on): host self time by "
               f"op: {host_top}")
 
+    mark("6-7, the fleet")
     k6_entry = drive_fleet(dev, time_ms, call_ms)
+    mark("8, Mamba-2 serving")
     k8_launches = drive_lm(dev, counters + (lindley_scan, ssd_scan))
+    mark("9, RecurrentGemma-2B serving")
     k7_entry, k5_serving = drive_gemma(
         dev, counters + (lindley_scan, ssd_scan, rglru_scan), time_ms,
         call_ms, max_err, randn)
     torch.cuda.empty_cache()
+    mark("10, Mamba-2 training")
     train_entries = drive_train(dev, counters + (lindley_scan, ssd_scan,
                                                  rglru_scan),
                                 time_ms, call_ms, max_err)
     torch.cuda.empty_cache()
+    mark("11, the Qwen decoders")
     k5_qwen = drive_qwen(dev, counters + (lindley_scan, ssd_scan, rglru_scan),
                          time_ms, call_ms, max_err, randn, card)
+    torch.cuda.empty_cache()
+    mark("12, training beyond Mamba-2")
+    train12_entries, k5_train, k7_train = drive_train_hybrid(
+        dev, counters + (lindley_scan, ssd_scan, rglru_scan), time_ms,
+        call_ms, max_err, randn, card)
+    mark("the kernels line")
 
     # ---- the kernels line: K1 over one request's 53 shapes ---------------
     # Each distinct shape is checked and timed once, with w in the layout the
@@ -2315,16 +2973,19 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": src + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:86",
-         "launches": launches[2],
+         "launches": launches[2] + k5_train,
          **{k: v for k, v in k5.items() if k != "library"},
+         "main_path_launches": launches[2], "train_launches": k5_train,
          "serving": k5_serving, "qwen": k5_qwen},
         {**k6_entry, "max_abs_err": k6_err},
         {"name": "ssd_scan", "route": "cuda", "source": src + "ssd.cu",
          "replaces": "src/repro/kernels/ssd.py:87", "launches": k8_launches,
          "max_abs_err": k8_err, **{k: v for k, v in k8_times[
              torch.bfloat16].items() if k != "err"}, "library_ms": None},
-        k7_entry,
+        {**k7_entry, "launches": k7_entry["launches"] + k7_train,
+         "serve_launches": k7_entry["launches"], "train_launches": k7_train},
         *train_entries,
+        *train12_entries,
     ]
     print(f"elapsed {time.perf_counter() - t_start:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
 // K5: blocked (flash) attention with an online softmax, GQA, causal masking
 // and a sliding window.  q (B,H,Sq,D); k, v (B,KV,Skv,D) -> o (B,H,Sq,D).
+// K5b, its backward, is the second half of the file.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention
 // (_flash_kernel), the Pallas TPU kernel whose grid (B*H, Sq/bq, Skv/bk)
@@ -65,12 +66,14 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "mma.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Query tile `qi` of `nq` (counted from the last tile under causal masking,
 // so that the tiles with the most keys go out first) of head bh, [q0, q0 +
@@ -104,6 +107,14 @@ __device__ __forceinline__ bool tile_masked(int k0, int BK, int q_first,
          (window && q_last - k0 >= window);
 }
 
+// The log-sum-exp of a row's scaled scores, m + log l (m in the scaled
+// units), which K5b reads to recompute P.  A row that saw no key (m the
+// mask value) gets exactly NEG_INF, what m + log l rounds to in fp32: K5b
+// gives such a row the weight 1 / Skv on every key, as the forward does.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m == NEG_INF ? NEG_INF : m + logf(l);
+}
+
 // ---------------------------------------------------------------------------
 // fp32 on the CUDA cores.
 constexpr int F32_BQ = 32;
@@ -117,8 +128,9 @@ constexpr int F32_BQ = 32;
 template <int D, int LANES, int BKV, bool SKIP>
 __global__ void __launch_bounds__(F32_BQ * LANES)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int H,
-                 int KV, int Sq, int Skv, float scale, int causal, int window) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int H, int KV, int Sq, int Skv,
+                 float scale, int causal, int window) {
   constexpr int DP = D / LANES;
   constexpr int THREADS = F32_BQ * LANES;
   __shared__ float ks[BKV][D];
@@ -200,13 +212,15 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < DP; ++i) o[q_off + lane + LANES * i] = acc[i] / denom;
+    if (lse != nullptr && lane == 0)
+      lse[(size_t)bh * Sq + qpos] = row_lse(m, l);
   }
 }
 
 template <int D, int LANES = 4, int BKV = 32>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int KV, int Sq, int Skv, float scale, int causal,
-               int window, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int KV, int Sq, int Skv, float scale,
+               int causal, int window, cudaStream_t stream) {
   const int nq = (Sq + F32_BQ - 1) / F32_BQ;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -215,11 +229,11 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   if (causal || window)
     flash_f32_kernel<D, LANES, BKV, true><<<dim3(B * H, nq), F32_BQ * LANES,
                                             0, stream>>>(
-        qf, kf, vf, of, H, KV, Sq, Skv, scale, causal, window);
+        qf, kf, vf, of, lse, H, KV, Sq, Skv, scale, causal, window);
   else
     flash_f32_kernel<D, LANES, BKV, false><<<dim3(nq, B * H), F32_BQ * LANES,
                                              0, stream>>>(
-        qf, kf, vf, of, H, KV, Sq, Skv, scale, causal, window);
+        qf, kf, vf, of, lse, H, KV, Sq, Skv, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -454,8 +468,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, int B, int H, int KV, int Sq,
-                  int Skv, float scale_log2, int causal, int window) {
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  int B, int H, int KV, int Sq, int Skv, float scale_log2,
+                  int causal, int window) {
   constexpr int NDB = D < 64 ? 1 : D / 64;  // 64-column blocks of D
   constexpr int TILE = NDB * BLOCK_BYTES;   // one 64-row K or V tile
   extern __shared__ uint8_t smem_raw[];
@@ -617,6 +632,15 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.0f / fmaxf(l[r], 1e-30f);
   }
+  if (lse != nullptr && lane % 4 == 0) {
+    // m is in the scores' own units: scale it (scale_log2 * ln 2 = scale)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (qpos[r] < Sq)
+        lse[(size_t)t.bh * Sq + qpos[r]] =
+            row_lse(m[r] == NEG_INF ? NEG_INF : m[r] * (scale_log2 * LN2),
+                    l[r]);
+  }
   // O in bf16 goes through the warpgroup's Q tile (its last S has run), in
   // Q's swizzled layout, so that the rows leave in whole 16-byte chunks.
   uint8_t* const o_tile = smem_raw + (base - smem_u32(smem_raw)) + wg * TILE;
@@ -648,9 +672,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int KV, int Sq, int Skv, float scale, int causal,
-                int window, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int H, int KV, int Sq, int Skv, float scale,
+                int causal, int window, cudaStream_t stream) {
   constexpr int smem = bf16_smem_bytes<D>();
   static bool configured = false;  // once per head dim and process
   if (!configured) {
@@ -663,8 +687,594 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   flash_bf16_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), B,
-      H, KV, Sq, Skv, scale * LOG2E, causal, window);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      B, H, KV, Sq, Skv, scale * LOG2E, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// K5b: the backward, FlashAttention-2's decomposition.
+//
+// Replaces: no TPU kernel.  The JAX package differentiates
+// src/repro/models/layers.py::blocked_attention by autodiff; the port
+// routes attention through K5, so its gradient needs a kernel of its own.
+//
+// What bounds it on the H100: five products over the pairs the masks leave
+// (S, dP, dV, dK, dQ: 2.5 times the forward's operations), bf16 on the
+// tensor cores; at the training shapes far above the bytes.
+//
+// With S = scale Q K^T (masked), P = softmax(S) = exp(S - lse) recomputed
+// from the forward's lse, Delta = rowsum(dO o O):
+//   dV = P^T dO,   dP = dO V^T,   dS = P o (dP - Delta) (0 where masked),
+//   dK = scale dS^T Q,   dQ = scale dS K,
+// dK and dV summed over the G = H / KV query heads of a KV head.  A row that
+// saw no key (lse == NEG_INF) weighs every key 1 / Skv, as the forward gave
+// it the mean of V, and passes nothing to dQ or dK (its scores are the
+// constant mask value).  Three launches on one stream: Delta; one block per
+// (b, KV head, key tile) walking the G heads and the query tiles the masks
+// leave, accumulating dK and dV in fp32 registers and writing them once (no
+// atomics: deterministic); one block per (b, head, query tile) walking the
+// key tiles, accumulating dQ.  Both recompute S and dP, so the backward runs
+// seven products where the least is five (dQ's atomics are the price of
+// five).
+
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;
+  const float* delta;
+  void* dq;
+  void* dk;
+  void* dv;
+  int H, KV, Sq, Skv;
+  float scale;
+  int causal, window;
+};
+
+// Delta = rowsum(dO o O) in fp32, a warp a row.
+template <typename E>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const E* __restrict__ o, const E* __restrict__ dout,
+                       float* __restrict__ delta, int rows, int D) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;      // the whole warp
+  const E* op = o + (size_t)row * D;
+  const E* gp = dout + (size_t)row * D;
+  float sum = 0.0f;
+  for (int d = lane; d < D; d += 32) sum = fmaf(to_f32(op[d]), to_f32(gp[d]), sum);
+#pragma unroll
+  for (int off = 16; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) delta[row] = sum;
+}
+
+// The query rows [q_lo, q_hi) that see any of keys [k0, k0 + BK): causal
+// rows from k0 on, with a window those before k0 + BK - 1 + window; every
+// row to Sq where rows that see no key exist (Sq >= Skv + window), since
+// they weigh every key.
+__device__ __forceinline__ void query_range(int k0, int BK, int Sq, int Skv,
+                                            int causal, int window, int& q_lo,
+                                            int& q_hi) {
+  q_lo = causal ? k0 : 0;
+  q_hi = (window && Sq < Skv + window) ? min(Sq, k0 + BK - 1 + window) : Sq;
+}
+
+// P and dS * scale of one (query, key) pair from the recomputed score s (in
+// the scores' own units, unscaled) and dP; l2 is the row's lse * log2(e),
+// -inf for a row that saw no key.
+__device__ __forceinline__ void pair_grads(float s, float dp, int qi, int kj,
+                                           float l2, float delta,
+                                           const BwdArgs& a, float scale_log2,
+                                           float inv_skv, float& p, float& ds) {
+  const bool valid = qi < a.Sq && kj < a.Skv;
+  p = 0.0f;
+  ds = 0.0f;
+  if (l2 == -INFINITY) {
+    p = valid ? inv_skv : 0.0f;
+  } else if (valid && !(a.causal && kj > qi) &&
+             !(a.window && qi - kj >= a.window)) {
+    p = exp2f(fmaf(s, scale_log2, -l2));
+    ds = p * (dp - delta) * a.scale;
+  }
+}
+
+__device__ __forceinline__ float lse_log2(float lse) {
+  return lse == NEG_INF ? -INFINITY : lse * LOG2E;
+}
+
+// ---- bf16 on the tensor cores (mma.sync m16n8k16, fp32 accumulation) -----
+// A block's "own" rows (BO keys of a KV head for dK/dV, BO query rows of a
+// head for dQ) stay in shared memory with their second operand (V, dO); the
+// "other" side streams through in tiles of BT rows (Q and dO, or K and V).
+// Per tile, phase 1: S and dP (own x other, over D) on the tensor cores,
+// warps 2 or 4 along the own rows; P and dS rounded to bf16 into shared
+// memory.  Phase 2: acc1 += dS . other1 (dK or dQ) and, for dK/dV, acc2 +=
+// P . other2 (dV), over the tile's BT rows, warps splitting D.  Rows are
+// padded by 16 bytes so that the eight rows an ldmatrix reads fall in
+// distinct banks.  At D = 256, BO = 32: 64 accumulator registers a thread
+// and 111 KB of shared memory, two blocks an SM; else BO = 64.
+constexpr int BT = 64;
+constexpr int BWD_THREADS = 256;
+constexpr int PAD = 8;
+
+template <int D>
+constexpr int bwd_own_rows() {
+  return D >= 256 ? 32 : 64;
+}
+
+template <int D, int BO>
+constexpr int bwd_smem_bytes() {
+  return (2 * BO + 2 * BT) * (D + PAD) * 2 + 2 * BO * (BT + PAD) * 2 +
+         2 * BT * 4;
+}
+
+// Rows [row0, row0 + ROWS) of a (rows_valid, D) bf16 matrix into a tile of
+// padded rows, zeros past rows_valid.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(uint32_t dst,
+                                          const __nv_bfloat16* g, int row0,
+                                          int rows_valid) {
+  constexpr int CH = D / 8;          // 16-byte chunks a row
+  constexpr int RS = (D + PAD) * 2;
+  for (int e = threadIdx.x; e < ROWS * CH; e += BWD_THREADS) {
+    const int r = e / CH, c = e % CH;
+    const bool ok = row0 + r < rows_valid;
+    cp_async16(dst + r * RS + c * 16,
+               ok ? g + (size_t)(row0 + r) * D + c * 8 : g, ok);
+  }
+}
+
+template <int D, int BO, bool KVM>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_bf16_kernel(const BwdArgs a) {
+  constexpr int RS = (D + PAD) * 2;        // bytes a Q/K/V/dO tile row
+  constexpr int PS = (BT + PAD) * 2;       // bytes a P/dS row
+  constexpr int RW = BO / 16;              // warps along the own rows
+  constexpr int CW = 8 / RW;               // warps along the columns
+  constexpr int NB1 = BT / CW / 8;         // n8 blocks a warp: S, dP
+  constexpr int NB2 = D / CW / 8;          // n8 blocks a warp: gradients
+  static_assert(NB1 % 2 == 0 && NB2 >= 1 && (NB2 == 1 || NB2 % 2 == 0),
+                "the warps' tiles");
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t own1 = smem_u32(smem), own2 = own1 + BO * RS;
+  const uint32_t oth1 = own2 + BO * RS, oth2 = oth1 + BT * RS;
+  const uint32_t ps = oth2 + BT * RS, dss = ps + BO * PS;
+  uint8_t* const ps_p = smem + (2 * BO + 2 * BT) * RS;
+  uint8_t* const dss_p = ps_p + BO * PS;
+  float* const lse_s = reinterpret_cast<float*>(dss_p + BO * PS);
+  float* const delta_s = lse_s + BT;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = warp % RW, wc = warp / RW;
+  const int G = a.H / a.KV;
+  const float scale_log2 = a.scale * LOG2E;
+  const float inv_skv = 1.0f / a.Skv;
+  const bf16* const Q = static_cast<const bf16*>(a.q);
+  const bf16* const K = static_cast<const bf16*>(a.k);
+  const bf16* const V = static_cast<const bf16*>(a.v);
+  const bf16* const dO = static_cast<const bf16*>(a.dout);
+
+  int b, kvh, own0, bh_own = 0;
+  TileRange t{};
+  if constexpr (KVM) {
+    b = blockIdx.x / a.KV;
+    kvh = blockIdx.x % a.KV;
+    own0 = blockIdx.y * BO;
+    const size_t kv_off = (size_t)blockIdx.x * a.Skv * D;
+    load_rows<D, BO>(own1, K + kv_off, own0, a.Skv);
+    load_rows<D, BO>(own2, V + kv_off, own0, a.Skv);
+  } else {
+    t = tile_range(blockIdx.y, gridDim.y, blockIdx.x, BO, a.Sq, a.Skv,
+                   a.causal, a.window);
+    bh_own = t.bh;
+    b = t.bh / a.H;
+    kvh = (t.bh % a.H) / G;
+    own0 = t.q0;
+    load_rows<D, BO>(own1, Q + (size_t)t.bh * a.Sq * D, own0, a.Sq);
+    load_rows<D, BO>(own2, dO + (size_t)t.bh * a.Sq * D, own0, a.Sq);
+    for (int i = threadIdx.x; i < BO; i += BWD_THREADS) {
+      const int r = own0 + i;
+      const size_t at = (size_t)t.bh * a.Sq + r;
+      lse_s[i] = r < a.Sq ? lse_log2(a.lse[at]) : 0.0f;
+      delta_s[i] = r < a.Sq ? a.delta[at] : 0.0f;
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  float acc1[NB2][4], acc2[KVM ? NB2 : 1][4];
+#pragma unroll
+  for (int n = 0; n < NB2; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc1[n][i] = 0.0f;
+#pragma unroll
+  for (int n = 0; n < (KVM ? NB2 : 1); ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc2[n][i] = 0.0f;
+
+  // One tile of the other side: rows [o0, o0 + BT) of head bh.
+  auto step = [&](int bh, int o0) {
+    const bf16* o1g;
+    const bf16* o2g;
+    int valid;
+    if constexpr (KVM) {
+      o1g = Q + (size_t)bh * a.Sq * D;
+      o2g = dO + (size_t)bh * a.Sq * D;
+      valid = a.Sq;
+    } else {
+      const size_t kv_off = ((size_t)b * a.KV + kvh) * a.Skv * D;
+      o1g = K + kv_off;
+      o2g = V + kv_off;
+      valid = a.Skv;
+    }
+    __syncthreads();               // the last tile's phase 2 is done
+    load_rows<D, BT>(oth1, o1g, o0, valid);
+    load_rows<D, BT>(oth2, o2g, o0, valid);
+    if constexpr (KVM) {
+      for (int i = threadIdx.x; i < BT; i += BWD_THREADS) {
+        const int r = o0 + i;
+        const size_t at = (size_t)bh * a.Sq + r;
+        lse_s[i] = r < a.Sq ? lse_log2(a.lse[at]) : 0.0f;
+        delta_s[i] = r < a.Sq ? a.delta[at] : 0.0f;
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+
+    // phase 1: S and dP, own rows x other rows, over D
+    float sc[NB1][4], dp[NB1][4];
+#pragma unroll
+    for (int n = 0; n < NB1; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] = dp[n][i] = 0.0f;
+    const int arow = wr * 16 + lane % 16, acol = 8 * (lane / 16);
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16) {
+      uint32_t a1[4], a2[4];
+      ldsm_x4(a1, own1 + arow * RS + (kk + acol) * 2);
+      ldsm_x4(a2, own2 + arow * RS + (kk + acol) * 2);
+#pragma unroll
+      for (int nb = 0; nb < NB1; nb += 2) {
+        const int n = wc * NB1 * 8 + nb * 8 + lane % 8 + 8 * (lane / 16);
+        const int kc = kk + 8 * ((lane / 8) % 2);
+        uint32_t b1[4], b2[4];
+        ldsm_x4(b1, oth1 + n * RS + kc * 2);
+        ldsm_x4(b2, oth2 + n * RS + kc * 2);
+        const uint32_t b10[2] = {b1[0], b1[1]}, b11[2] = {b1[2], b1[3]};
+        const uint32_t b20[2] = {b2[0], b2[1]}, b21[2] = {b2[2], b2[3]};
+        mma_bf16(sc[nb], a1, b10);
+        mma_bf16(sc[nb + 1], a1, b11);
+        mma_bf16(dp[nb], a2, b20);
+        mma_bf16(dp[nb + 1], a2, b21);
+      }
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB1; ++nb)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int ro = wr * 16 + lane / 4 + 8 * hh;
+        const int co = wc * NB1 * 8 + nb * 8 + 2 * (lane % 4);
+        float pv[2], dv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qloc = KVM ? co + e : ro;
+          const int qi = KVM ? o0 + co + e : own0 + ro;
+          const int kj = KVM ? own0 + ro : o0 + co + e;
+          pair_grads(sc[nb][2 * hh + e], dp[nb][2 * hh + e], qi, kj,
+                     lse_s[qloc], delta_s[qloc], a, scale_log2, inv_skv,
+                     pv[e], dv[e]);
+        }
+        if constexpr (KVM)
+          *reinterpret_cast<__nv_bfloat162*>(ps_p + ro * PS + co * 2) =
+              __floats2bfloat162_rn(pv[0], pv[1]);
+        *reinterpret_cast<__nv_bfloat162*>(dss_p + ro * PS + co * 2) =
+            __floats2bfloat162_rn(dv[0], dv[1]);
+      }
+    __syncthreads();
+
+    // phase 2: acc1 += dS . other1, acc2 += P . other2, over the tile's rows
+    const int prow = wr * 16 + lane % 16, pcol = 8 * (lane / 16);
+#pragma unroll
+    for (int kk = 0; kk < BT; kk += 16) {
+      uint32_t ad[4], ap[4];
+      ldsm_x4(ad, dss + prow * PS + (kk + pcol) * 2);
+      if constexpr (KVM) ldsm_x4(ap, ps + prow * PS + (kk + pcol) * 2);
+      if constexpr (NB2 == 1) {
+        uint32_t bb[2];
+        ldsm_b_trans(bb, oth1 + (kk + lane % 16) * RS + wc * 16);
+        mma_bf16(acc1[0], ad, bb);
+        if constexpr (KVM) {
+          ldsm_b_trans(bb, oth2 + (kk + lane % 16) * RS + wc * 16);
+          mma_bf16(acc2[0], ap, bb);
+        }
+      } else {
+        const int krow = kk + lane % 8 + 8 * ((lane / 8) % 2);
+#pragma unroll
+        for (int nb = 0; nb < NB2; nb += 2) {
+          const int n = wc * NB2 * 8 + nb * 8 + 8 * (lane / 16);
+          uint32_t bb[4];
+          ldsm_a_trans(bb, oth1 + krow * RS + n * 2);
+          const uint32_t b0[2] = {bb[0], bb[1]}, b1[2] = {bb[2], bb[3]};
+          mma_bf16(acc1[nb], ad, b0);
+          mma_bf16(acc1[nb + 1], ad, b1);
+          if constexpr (KVM) {
+            ldsm_a_trans(bb, oth2 + krow * RS + n * 2);
+            const uint32_t c0[2] = {bb[0], bb[1]}, c1[2] = {bb[2], bb[3]};
+            mma_bf16(acc2[nb], ap, c0);
+            mma_bf16(acc2[nb + 1], ap, c1);
+          }
+        }
+      }
+    }
+  };
+
+  if constexpr (KVM) {
+    int q_lo, q_hi;
+    query_range(own0, BO, a.Sq, a.Skv, a.causal, a.window, q_lo, q_hi);
+    for (int g = 0; g < G; ++g)
+      for (int o0 = q_lo / BT * BT; o0 < q_hi; o0 += BT)
+        step((b * a.H + kvh * G + g), o0);
+  } else {
+    for (int o0 = t.k_lo / BT * BT; o0 < t.k_hi; o0 += BT) step(bh_own, o0);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+  // acc1 is dK (or dQ), acc2 dV: rows of the own tile, in bf16
+  bf16* out1;
+  bf16* out2 = nullptr;
+  int valid;
+  if constexpr (KVM) {
+    const size_t kv_off = (size_t)blockIdx.x * a.Skv * D;
+    out1 = static_cast<bf16*>(a.dk) + kv_off;
+    out2 = static_cast<bf16*>(a.dv) + kv_off;
+    valid = a.Skv;
+  } else {
+    out1 = static_cast<bf16*>(a.dq) + (size_t)bh_own * a.Sq * D;
+    valid = a.Sq;
+  }
+#pragma unroll
+  for (int nb = 0; nb < NB2; ++nb)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = own0 + wr * 16 + lane / 4 + 8 * hh;
+      const int col = wc * NB2 * 8 + nb * 8 + 2 * (lane % 4);
+      if (row < valid) {
+        *reinterpret_cast<__nv_bfloat162*>(out1 + (size_t)row * D + col) =
+            __floats2bfloat162_rn(acc1[nb][2 * hh], acc1[nb][2 * hh + 1]);
+        if constexpr (KVM)
+          *reinterpret_cast<__nv_bfloat162*>(out2 + (size_t)row * D + col) =
+              __floats2bfloat162_rn(acc2[nb][2 * hh], acc2[nb][2 * hh + 1]);
+      }
+    }
+}
+
+// ---- fp32 on the CUDA cores -----------------------------------------------
+// The same two modes with 32-row own and other tiles of fp32 in shared
+// memory (the other tile's rows padded to D + 1 words, conflict-free when a
+// warp reads one column of 32 rows).  Phase 1: a thread four (own, other)
+// pairs, one other row a lane; phase 2: a thread D / 8 elements of each
+// gradient, consecutive columns a warp.
+constexpr int F_BO = 32, F_BT = 32;
+
+template <int D>
+constexpr int bwd_f32_smem_bytes() {
+  return (2 * F_BO * D + 2 * F_BT * (D + 1) + 2 * F_BO * (F_BT + 1) + 2 * F_BT) *
+         4;
+}
+
+template <int D, bool KVM>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_f32_kernel(const BwdArgs a) {
+  constexpr int OS = D + 1;                 // words an other-tile row
+  constexpr int PS = F_BT + 1;              // words a P/dS row
+  constexpr int NE = F_BO * D / BWD_THREADS;
+  extern __shared__ float fsm[];
+  float* const own1 = fsm;
+  float* const own2 = own1 + F_BO * D;
+  float* const oth1 = own2 + F_BO * D;
+  float* const oth2 = oth1 + F_BT * OS;
+  float* const ps = oth2 + F_BT * OS;
+  float* const dss = ps + F_BO * PS;
+  float* const lse_s = dss + F_BO * PS;
+  float* const delta_s = lse_s + F_BT;
+  const float* const Q = static_cast<const float*>(a.q);
+  const float* const K = static_cast<const float*>(a.k);
+  const float* const V = static_cast<const float*>(a.v);
+  const float* const dO = static_cast<const float*>(a.dout);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int G = a.H / a.KV;
+  const float scale_log2 = a.scale * LOG2E;
+  const float inv_skv = 1.0f / a.Skv;
+  int b, kvh, own0, bh_own = 0;
+  TileRange t{};
+  const float* own1g;
+  const float* own2g;
+  int own_valid;
+  if constexpr (KVM) {
+    b = blockIdx.x / a.KV;
+    kvh = blockIdx.x % a.KV;
+    own0 = blockIdx.y * F_BO;
+    own1g = K + (size_t)blockIdx.x * a.Skv * D;
+    own2g = V + (size_t)blockIdx.x * a.Skv * D;
+    own_valid = a.Skv;
+  } else {
+    t = tile_range(blockIdx.y, gridDim.y, blockIdx.x, F_BO, a.Sq, a.Skv,
+                   a.causal, a.window);
+    bh_own = t.bh;
+    b = t.bh / a.H;
+    kvh = (t.bh % a.H) / G;
+    own0 = t.q0;
+    own1g = Q + (size_t)t.bh * a.Sq * D;
+    own2g = dO + (size_t)t.bh * a.Sq * D;
+    own_valid = a.Sq;
+    for (int i = tid; i < F_BO; i += BWD_THREADS) {
+      const int r = own0 + i;
+      const size_t at = (size_t)t.bh * a.Sq + r;
+      lse_s[i] = r < a.Sq ? lse_log2(a.lse[at]) : 0.0f;
+      delta_s[i] = r < a.Sq ? a.delta[at] : 0.0f;
+    }
+  }
+  for (int e = tid; e < F_BO * D; e += BWD_THREADS) {
+    const int r = e / D;
+    const bool ok = own0 + r < own_valid;
+    const size_t g = (size_t)own0 * D + e;
+    own1[e] = ok ? own1g[g] : 0.0f;
+    own2[e] = ok ? own2g[g] : 0.0f;
+  }
+  float acc1[NE], acc2[NE];
+#pragma unroll
+  for (int j = 0; j < NE; ++j) acc1[j] = acc2[j] = 0.0f;
+
+  auto step = [&](int bh, int o0) {
+    const float* o1g;
+    const float* o2g;
+    int valid;
+    if constexpr (KVM) {
+      o1g = Q + (size_t)bh * a.Sq * D;
+      o2g = dO + (size_t)bh * a.Sq * D;
+      valid = a.Sq;
+    } else {
+      const size_t kv_off = ((size_t)b * a.KV + kvh) * a.Skv * D;
+      o1g = K + kv_off;
+      o2g = V + kv_off;
+      valid = a.Skv;
+    }
+    __syncthreads();
+    for (int e = tid; e < F_BT * D; e += BWD_THREADS) {
+      const int r = e / D, c = e % D;
+      const bool ok = o0 + r < valid;
+      const size_t g = (size_t)o0 * D + e;
+      oth1[r * OS + c] = ok ? o1g[g] : 0.0f;
+      oth2[r * OS + c] = ok ? o2g[g] : 0.0f;
+    }
+    if constexpr (KVM) {
+      for (int i = tid; i < F_BT; i += BWD_THREADS) {
+        const int r = o0 + i;
+        const size_t at = (size_t)bh * a.Sq + r;
+        lse_s[i] = r < a.Sq ? lse_log2(a.lse[at]) : 0.0f;
+        delta_s[i] = r < a.Sq ? a.delta[at] : 0.0f;
+      }
+    }
+    __syncthreads();
+    float sv[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dpv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const float x1 = oth1[lane * OS + d], x2 = oth2[lane * OS + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sv[i] = fmaf(own1[(warp + 8 * i) * D + d], x1, sv[i]);
+        dpv[i] = fmaf(own2[(warp + 8 * i) * D + d], x2, dpv[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = warp + 8 * i;
+      const int qloc = KVM ? lane : r;
+      const int qi = KVM ? o0 + lane : own0 + r;
+      const int kj = KVM ? own0 + r : o0 + lane;
+      float p, ds;
+      pair_grads(sv[i], dpv[i], qi, kj, lse_s[qloc], delta_s[qloc], a,
+                 scale_log2, inv_skv, p, ds);
+      ps[r * PS + lane] = p;
+      dss[r * PS + lane] = ds;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NE; ++j) {
+      const int e = tid + BWD_THREADS * j;
+      const int r = e / D, d = e % D;
+#pragma unroll 8
+      for (int c = 0; c < F_BT; ++c) {
+        acc1[j] = fmaf(dss[r * PS + c], oth1[c * OS + d], acc1[j]);
+        if constexpr (KVM)
+          acc2[j] = fmaf(ps[r * PS + c], oth2[c * OS + d], acc2[j]);
+      }
+    }
+  };
+
+  if constexpr (KVM) {
+    int q_lo, q_hi;
+    query_range(own0, F_BO, a.Sq, a.Skv, a.causal, a.window, q_lo, q_hi);
+    for (int g = 0; g < G; ++g)
+      for (int o0 = q_lo / F_BT * F_BT; o0 < q_hi; o0 += F_BT)
+        step(b * a.H + kvh * G + g, o0);
+  } else {
+    for (int o0 = t.k_lo / F_BT * F_BT; o0 < t.k_hi; o0 += F_BT)
+      step(bh_own, o0);
+  }
+
+  float* out1;
+  float* out2 = nullptr;
+  if constexpr (KVM) {
+    out1 = static_cast<float*>(a.dk) + (size_t)blockIdx.x * a.Skv * D;
+    out2 = static_cast<float*>(a.dv) + (size_t)blockIdx.x * a.Skv * D;
+  } else {
+    out1 = static_cast<float*>(a.dq) + (size_t)bh_own * a.Sq * D;
+  }
+#pragma unroll
+  for (int j = 0; j < NE; ++j) {
+    const int e = tid + BWD_THREADS * j;
+    if (own0 + e / D < own_valid) {
+      out1[(size_t)own0 * D + e] = acc1[j];
+      if constexpr (KVM) out2[(size_t)own0 * D + e] = acc2[j];
+    }
+  }
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, int bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+// The three launches of K5b at head dim D; `bf16` picks the tensor-core
+// kernels.  The shared-memory limits are raised once a kernel and process.
+template <int D, bool BF16>
+int launch_bwd(const BwdArgs& a, const void* o, float* delta, int B,
+               cudaStream_t stream) {
+  const int rows = B * a.H * a.Sq;
+  if (BF16)
+    flash_bwd_delta_kernel<__nv_bfloat16><<<(rows + 7) / 8, 256, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(o),
+        static_cast<const __nv_bfloat16*>(a.dout), delta, rows, D);
+  else
+    flash_bwd_delta_kernel<float><<<(rows + 7) / 8, 256, 0, stream>>>(
+        static_cast<const float*>(o), static_cast<const float*>(a.dout), delta,
+        rows, D);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  if constexpr (BF16) {
+    constexpr int BO = bwd_own_rows<D>();
+    constexpr int smem = bwd_smem_bytes<D, BO>();
+    static const int attr_kv = set_smem(flash_bwd_bf16_kernel<D, BO, true>, smem);
+    static const int attr_q = set_smem(flash_bwd_bf16_kernel<D, BO, false>, smem);
+    if (attr_kv) return attr_kv;
+    if (attr_q) return attr_q;
+    flash_bwd_bf16_kernel<D, BO, true>
+        <<<dim3(B * a.KV, (a.Skv + BO - 1) / BO), BWD_THREADS, smem, stream>>>(a);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+    flash_bwd_bf16_kernel<D, BO, false>
+        <<<dim3(B * a.H, (a.Sq + BO - 1) / BO), BWD_THREADS, smem, stream>>>(a);
+  } else {
+    constexpr int smem = bwd_f32_smem_bytes<D>();
+    static const int attr_kv = set_smem(flash_bwd_f32_kernel<D, true>, smem);
+    static const int attr_q = set_smem(flash_bwd_f32_kernel<D, false>, smem);
+    if (attr_kv) return attr_kv;
+    if (attr_q) return attr_q;
+    flash_bwd_f32_kernel<D, true>
+        <<<dim3(B * a.KV, (a.Skv + F_BO - 1) / F_BO), BWD_THREADS, smem,
+           stream>>>(a);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+    flash_bwd_f32_kernel<D, false>
+        <<<dim3(B * a.H, (a.Sq + F_BO - 1) / F_BO), BWD_THREADS, smem,
+           stream>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -672,13 +1282,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 
 // q (B,H,Sq,D), k and v (B,KV,Skv,D), o (B,H,Sq,D), all contiguous of
 // dtype (fp32 or bf16) and 16-byte aligned; D in {16, 32, 64, 128, 256}; H
-// a multiple of KV.  Launches on `stream` and returns cudaGetLastError().
+// a multiple of KV.  `lse`, fp32 (B,H,Sq), receives each row's m + log l
+// (row_lse) where it is not null.  Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int B, int H, int KV, int Sq, int Skv,
-                               int D, float scale, int causal, int window,
-                               int dtype, void* stream) {
+                               void* o, float* lse, int B, int H, int KV,
+                               int Sq, int Skv, int D, float scale, int causal,
+                               int window, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ARGS q, k, v, o, B, H, KV, Sq, Skv, scale, causal, window, s
+#define ARGS q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal, window, s
   if (dtype == DTYPE_F32) {
     switch (D) {
       case 16: return launch_f32<16>(ARGS);
@@ -697,5 +1309,40 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     }
   }
 #undef ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K5b.  q, o, dout, dq (B,H,Sq,D); k, v, dk, dv (B,KV,Skv,D), all contiguous
+// of dtype (fp32 or bf16) and 16-byte aligned; lse fp32 (B,H,Sq) as
+// flash_attention wrote it for these inputs; delta fp32 (B,H,Sq) scratch.
+// dq, dk and dv are written whole (zeros where no pair reaches them).
+// Launches three kernels on `stream` and returns cudaGetLastError().
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
+                                   const void* o, const float* lse,
+                                   const void* dout, float* delta, void* dq,
+                                   void* dk, void* dv, int B, int H, int KV,
+                                   int Sq, int Skv, int D, float scale,
+                                   int causal, int window, int dtype,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, H, KV, Sq, Skv,
+                  scale, causal, window};
+  if (dtype == DTYPE_F32) {
+    switch (D) {
+      case 16: return launch_bwd<16, false>(a, o, delta, B, s);
+      case 32: return launch_bwd<32, false>(a, o, delta, B, s);
+      case 64: return launch_bwd<64, false>(a, o, delta, B, s);
+      case 128: return launch_bwd<128, false>(a, o, delta, B, s);
+      case 256: return launch_bwd<256, false>(a, o, delta, B, s);
+    }
+  } else if (dtype == DTYPE_BF16) {
+    switch (D) {
+      case 16: return launch_bwd<16, true>(a, o, delta, B, s);
+      case 32: return launch_bwd<32, true>(a, o, delta, B, s);
+      case 64: return launch_bwd<64, true>(a, o, delta, B, s);
+      case 128: return launch_bwd<128, true>(a, o, delta, B, s);
+      case 256: return launch_bwd<256, true>(a, o, delta, B, s);
+    }
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

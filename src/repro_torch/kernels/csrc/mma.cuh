@@ -1,8 +1,8 @@
 // Tensor-core operands shared by the kernels: the splits that carry fp32
 // values through 10-bit (TF32) and 8-bit (bf16) mantissas as hi + lo pairs
 // (systolic_matmul.cu's wgmma, ssd.cu's mma.sync), the warp-level mma.sync
-// products ssd.cu runs, and the ldmatrix loads of A and B fragments stored
-// k-row by k-row.
+// products ssd.cu and flash_attention.cu's backward run, and the ldmatrix
+// loads of A and B fragments.
 //
 // Fragments of mma.sync (PTX ISA, "warp-level matrix fragments"), lane l,
 // g = l / 4, t = l % 4:
@@ -62,9 +62,23 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Four 8 x 8 bf16 matrices, not transposed (16-byte aligned rows): the A
+// fragment (16 rows x k 16) of a tile stored row by row, `addr` this lane's
+// row r0 + lane % 16 at column k0 + 8 (lane / 16); or the B fragments of two
+// n-blocks of a tile stored n-row by n-row, `addr` this lane's row
+// n0 + lane % 8 + 8 (lane / 16) at column k0 + 8 ((lane / 8) % 2).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 // The bf16 A fragment (16 rows x k 16) of a tile stored k-row by k-row:
 // `addr` is this lane's k row, k0 + lane % 8 + 8 (lane / 16), at column
-// r0 + 8 ((lane / 8) % 2) (16-byte aligned).
+// r0 + 8 ((lane / 8) % 2) (16-byte aligned).  With the lanes' k rows
+// k0 + lane % 8 + 8 ((lane / 8) % 2) at column n0 + 8 (lane / 16), the B
+// fragments of two n-blocks of a tile stored k-row by k-row.
 __device__ __forceinline__ void ldsm_a_trans(uint32_t (&a)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"

@@ -121,6 +121,7 @@ struct Args {
   const float* log_a;
   const float* h0;
   void* y;
+  float* h32;         // the fp32 states, (B, S, W), where not null
   int S, W, tiles, items, windows;
   bool vec;           // 16-byte rows: copied asynchronously
 };
@@ -155,7 +156,9 @@ __device__ __forceinline__ void stage(E* tile, const Args& a, long long b,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <typename E>
+// KEEP: also store every state in fp32 (a.h32), for K7b; the serving
+// instance (KEEP false) has no such store.
+template <typename E, bool KEEP>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 rglru_chunked_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -261,6 +264,10 @@ rglru_chunked_kernel(const Args a) {
       h = fmaf(av[i], h, bv[i]);
       if (inw && t0 + i < a.S)
         yp[static_cast<long long>(i) * a.W] = from_f32<E>(h);
+      if constexpr (KEEP) {
+        if (inw && t0 + i < a.S)
+          a.h32[(b * a.S + t0 + i) * a.W + w] = h;
+      }
     }
   }
   if (R > 1) cluster_sync();            // no block leaves while read remotely
@@ -269,10 +276,10 @@ rglru_chunked_kernel(const Args a) {
 // The launch: clusters of R blocks along x, as many along y as the card
 // holds at once (at most one an item), each walking its items.  Fills
 // `cfg` (its cluster attribute in `cluster`).
-template <typename E>
+template <typename E, bool KEEP>
 int configure(const Args& a, int R, cudaStream_t stream,
               cudaLaunchConfig_t& cfg, cudaLaunchAttribute& cluster) {
-  auto kernel = rglru_chunked_kernel<E>;
+  auto kernel = rglru_chunked_kernel<E, KEEP>;
   // Raise the dynamic shared memory limit once, so that a launch captured
   // in a CUDA graph makes no such call.
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -300,13 +307,14 @@ int configure(const Args& a, int R, cudaStream_t stream,
   return 0;
 }
 
-template <typename E>
+template <typename E, bool KEEP>
 int launch(const Args& a, int R, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute cluster;
-  const int err = configure<E>(a, R, stream, cfg, cluster);
+  const int err = configure<E, KEEP>(a, R, stream, cfg, cluster);
   if (err != 0) return err;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, rglru_chunked_kernel<E>, a);
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, rglru_chunked_kernel<E, KEEP>, a);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -322,13 +330,130 @@ bool bad_args(int B, int S, int W, int cluster, int dtype) {
 }
 
 Args make_args(const void* x, const void* gx, const void* ga,
-               const float* log_a, const float* h0, void* y, int B, int S,
-               int W, int cluster, int dtype) {
+               const float* log_a, const float* h0, void* y, float* h32,
+               int B, int S, int W, int cluster, int dtype) {
   const int per = dtype == DTYPE_F32 ? 4 : 8;   // elements a 16-byte chunk
   const int tiles = (W + CH - 1) / CH;
-  return {x, gx, ga, log_a, h0, y, S, W, tiles, B * tiles,
+  return {x, gx, ga, log_a, h0, y, h32, S, W, tiles, B * tiles,
           (S + cluster * SPAN - 1) / (cluster * SPAN),
           W % per == 0 && aligned16(x) && aligned16(gx) && aligned16(ga)};
+}
+
+// ---------------------------------------------------------------------------
+// K7b: the gradient of the scan.
+//
+// Replaces: no TPU kernel.  The JAX package differentiates
+// src/repro/models/layers.py::rglru by autodiff.
+//
+// What bounds it on the H100: the bytes, x, gx, ga, dy read and dx, dgx,
+// dga written in x's type and the fp32 states read once (18 B an element in
+// bf16: 189 MB at B 4, S 1024, W 2560, 0.056 ms at 3.35 TB/s).  This first
+// version is latency-bound instead: one thread a chain gives the layer
+// shape 10,240 threads; the forward's chunked scan over a cluster fits the
+// reverse recurrence and is later work.
+//
+// With g_t = dy_t + a_{t+1} g_{t+1} (the reverse recurrence, g past the
+// end 0), r = sigmoid(ga), i = sigmoid(gx), L = -8 r softplus(log_a),
+// u = 1 - exp(2 L), m = sqrt(max(u, 1e-12)):
+//   dx = g m i,   dgx = g m x i (1 - i),
+//   dL = g h_{t-1} a + (u > 1e-12 ? -g i x exp(2 L) / m : 0),
+//   dga = dL (-8 softplus(log_a)) r (1 - r),   dh0 = a_0 g_0,
+//   dlog_a = -8 sigmoid(log_a) sum_{b,t} dL r,
+// the clip's derivative 0 where it holds, as JAX takes it; h_{t-1} the
+// forward's fp32 state (K7's h32; h0 before the first step).  One thread a
+// (batch row, channel), neighbouring threads neighbouring channels, walks
+// time backward, BWD_STEPS steps' loads issued ahead of their arithmetic; it
+// writes its share of dlog_a's sum, and a second launch sums the batch rows
+// in order (deterministic: no atomics).  The exponentials, sigmoids and
+// the square root are the IEEE forms.
+constexpr int BWD_BLOCK = 64;
+constexpr int BWD_STEPS = 8;
+
+struct BwdArgs {
+  const void* x;
+  const void* gx;
+  const void* ga;
+  const void* dy;
+  const float* log_a;
+  const float* h0;
+  const float* h32;
+  void* dx;
+  void* dgx;
+  void* dga;
+  float* dh0;
+  float* dla;         // (B, W): sum over t of dL r, this row's share
+  int B, S, W;
+};
+
+template <typename E>
+__global__ void __launch_bounds__(BWD_BLOCK)
+rglru_bwd_kernel(const BwdArgs a) {
+  const long long idx = static_cast<long long>(blockIdx.x) * BWD_BLOCK +
+                        threadIdx.x;
+  if (idx >= static_cast<long long>(a.B) * a.W) return;
+  const int w = static_cast<int>(idx % a.W);
+  const long long b = idx / a.W;
+  const E* const X = static_cast<const E*>(a.x);
+  const E* const GX = static_cast<const E*>(a.gx);
+  const E* const GA = static_cast<const E*>(a.ga);
+  const E* const DY = static_cast<const E*>(a.dy);
+  E* const DX = static_cast<E*>(a.dx);
+  E* const DGX = static_cast<E*>(a.dgx);
+  E* const DGA = static_cast<E*>(a.dga);
+  const float c_sp = -8.0f * softplus_f32(a.log_a[w]);
+  const long long row = b * a.S * a.W + w;     // element (b, 0, w)
+  float carry = 0.0f, sum = 0.0f;              // a_{t+1} g_{t+1}; sum dL r
+  for (int t1 = a.S; t1 > 0; t1 -= BWD_STEPS) {
+    // steps t1 - 1 down to t1 - BWD_STEPS: every load first
+    float xv[BWD_STEPS], gxv[BWD_STEPS], gav[BWD_STEPS], dyv[BWD_STEPS],
+        hv[BWD_STEPS];
+#pragma unroll
+    for (int i = 0; i < BWD_STEPS; ++i) {
+      const int t = t1 - 1 - i;
+      if (t >= 0) {
+        const long long o = row + static_cast<long long>(t) * a.W;
+        xv[i] = to_f32(X[o]);
+        gxv[i] = to_f32(GX[o]);
+        gav[i] = to_f32(GA[o]);
+        dyv[i] = to_f32(DY[o]);
+        hv[i] = t > 0 ? a.h32[o - a.W] : a.h0[b * a.W + w];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BWD_STEPS; ++i) {
+      const int t = t1 - 1 - i;
+      if (t >= 0) {
+        const float r = sigmoid_f32(gav[i]), ig = sigmoid_f32(gxv[i]);
+        const float L = c_sp * r;
+        const float av = expf(L), e2 = expf(2.0f * L);
+        const float u = 1.0f - e2;
+        const float m = sqrtf(fmaxf(u, 1e-12f));
+        const float g = dyv[i] + carry;
+        const float gi = g * ig;
+        const float dL = g * hv[i] * av +
+                         (u > 1e-12f ? -gi * xv[i] * e2 / m : 0.0f);
+        const long long o = row + static_cast<long long>(t) * a.W;
+        DX[o] = from_f32<E>(gi * m);
+        DGX[o] = from_f32<E>(gi * m * xv[i] * (1.0f - ig));
+        DGA[o] = from_f32<E>(dL * c_sp * r * (1.0f - r));
+        sum = fmaf(dL, r, sum);
+        carry = av * g;
+      }
+    }
+  }
+  a.dh0[b * a.W + w] = carry;
+  a.dla[b * a.W + w] = sum;
+}
+
+__global__ void __launch_bounds__(256)
+rglru_bwd_log_a_kernel(const float* __restrict__ dla,
+                       const float* __restrict__ log_a,
+                       float* __restrict__ dlog_a, int B, int W) {
+  const int w = blockIdx.x * 256 + threadIdx.x;
+  if (w >= W) return;
+  float sum = 0.0f;
+  for (int b = 0; b < B; ++b) sum += dla[static_cast<long long>(b) * W + w];
+  dlog_a[w] = -8.0f * sigmoid_f32(log_a[w]) * sum;
 }
 
 }  // namespace
@@ -350,13 +475,13 @@ extern "C" int rglru_launch_shape(int B, int S, int W, int cluster,
   if (bad_args(B, S, W, cluster, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr,
-                           nullptr, B, S, W, cluster, dtype);
+                           nullptr, nullptr, B, S, W, cluster, dtype);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  const int err = dtype == DTYPE_F32
-                      ? configure<float>(a, cluster, nullptr, cfg, attr)
-                      : configure<__nv_bfloat16>(a, cluster, nullptr, cfg,
-                                                 attr);
+  const int err =
+      dtype == DTYPE_F32
+          ? configure<float, false>(a, cluster, nullptr, cfg, attr)
+          : configure<__nv_bfloat16, false>(a, cluster, nullptr, cfg, attr);
   out[0] = cfg.gridDim.x;
   out[1] = cfg.gridDim.y;
   out[2] = cfg.blockDim.x;
@@ -367,15 +492,49 @@ extern "C" int rglru_launch_shape(int B, int S, int W, int cluster,
 // x, gx, ga, y (B, S, W) of one element type (`dtype`, common.cuh's code),
 // log_a (W,) and h0 (B, W) fp32, all row-major on the device; `cluster`
 // blocks (1..8) along the time axis, as kernels/rglru.py::launch_plan gives
-// them.  Launches on `stream` and returns cudaGetLastError().
+// them.  Where `h32` is not null it receives every state h_t in fp32
+// (B, S, W), what K7b reads.  Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int rglru_scan(const void* x, const void* gx, const void* ga,
-                          const float* log_a, const float* h0, void* y, int B,
-                          int S, int W, int cluster, int dtype, void* stream) {
+                          const float* log_a, const float* h0, void* y,
+                          float* h32, int B, int S, int W, int cluster,
+                          int dtype, void* stream) {
   if (bad_args(B, S, W, cluster, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a =
-      make_args(x, gx, ga, log_a, h0, y, B, S, W, cluster, dtype);
+      make_args(x, gx, ga, log_a, h0, y, h32, B, S, W, cluster, dtype);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == DTYPE_F32 ? launch<float>(a, cluster, s)
-                            : launch<__nv_bfloat16>(a, cluster, s);
+  if (h32 != nullptr)
+    return dtype == DTYPE_F32 ? launch<float, true>(a, cluster, s)
+                              : launch<__nv_bfloat16, true>(a, cluster, s);
+  return dtype == DTYPE_F32 ? launch<float, false>(a, cluster, s)
+                            : launch<__nv_bfloat16, false>(a, cluster, s);
+}
+
+// K7b.  x, gx, ga, dy, dx, dgx, dga (B, S, W) of one element type; log_a
+// (W,), h0 (B, W), h32 (B, S, W) (K7's kept states for these inputs), dh0
+// and dla (B, W), dlog_a (W,) fp32; all row-major on the device.  Launches
+// two kernels on `stream` and returns cudaGetLastError().
+extern "C" int rglru_scan_bwd(const void* x, const void* gx, const void* ga,
+                              const float* log_a, const float* h0,
+                              const float* h32, const void* dy, void* dx,
+                              void* dgx, void* dga, float* dh0, float* dla,
+                              float* dlog_a, int B, int S, int W, int dtype,
+                              void* stream) {
+  if (bad_args(B, S, W, 1, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdArgs a{x, gx, ga, dy, log_a, h0, h32, dx, dgx, dga, dh0, dla,
+                  B, S, W};
+  const long long chains = static_cast<long long>(B) * W;
+  const int blocks = static_cast<int>((chains + BWD_BLOCK - 1) / BWD_BLOCK);
+  if (dtype == DTYPE_F32)
+    rglru_bwd_kernel<float><<<blocks, BWD_BLOCK, 0, s>>>(a);
+  else
+    rglru_bwd_kernel<__nv_bfloat16><<<blocks, BWD_BLOCK, 0, s>>>(a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rglru_bwd_log_a_kernel<<<(W + 255) / 256, 256, 0, s>>>(dla, log_a, dlog_a,
+                                                         B, W);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -8,6 +8,20 @@ tiles the masks leave.  bf16 runs both products on the tensor cores
 ``repro/kernels/flash_attention.py::flash_attention``; unlike that kernel it
 needs no tile to divide Sq or Skv.
 ``flash_attention_plain`` is the same function as one dense masked softmax.
+
+``flash_attention_bwd`` launches K5b, the gradient (dQ, dK, dV) by
+FlashAttention-2's decomposition: P recomputed from the forward's
+log-sum-exp (``return_lse``), Delta = rowsum(dO o O), dK and dV summed over
+each KV head's query heads inside the kernel, no atomics.  bf16 runs its
+products on ``mma.sync``, fp32 on the CUDA cores.  The TPU side has no such
+kernel: the JAX package differentiates ``models/layers.py::
+blocked_attention`` by autodiff.  ``flash_attention_bwd_plain`` is the same
+arithmetic in fp32 PyTorch, and ``FlashAttention`` the autograd function
+that runs K5 and K5b on the card and the plain versions on the CPU.  A row
+that sees no key (rows at or past Skv + window - 1 with a window) has the
+log-sum-exp NEG_INF: its weights are 1 / Skv on every key, as the forward
+gives it the mean of V, and its scores, the constant mask value, pass no
+gradient to Q or K.
 """
 from __future__ import annotations
 
@@ -22,65 +36,194 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
+def _mask(Sq: int, Skv: int, causal: bool, window: int, device
+          ) -> torch.Tensor:
+    """(Sq, Skv) bool: the pairs that attend (both sequences from 0)."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= (qpos - kpos) < window
+    return mask
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, window: int = 0
-                          ) -> torch.Tensor:
-    """q (B,H,Sq,D); k/v (B,KV,Skv,D) -- dense masked softmax."""
+                          *, causal: bool = True, window: int = 0,
+                          return_lse: bool = False):
+    """q (B,H,Sq,D); k/v (B,KV,Skv,D) -- dense masked softmax.  With
+    ``return_lse`` also each row's log-sum-exp of its scaled, masked
+    scores, fp32 (B,H,Sq)."""
     B, H, Sq, D = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     G = H // KV
     qg = q.reshape(B, KV, G, Sq, D).float()
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) / math.sqrt(D)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window:
-        mask &= (qpos - kpos) < window
+    mask = _mask(Sq, Skv, causal, window, q.device)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", w, v.float())
-    return o.reshape(B, H, Sq, D).to(q.dtype)
+    o = o.reshape(B, H, Sq, D).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    return o
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              window: int = 0):
+    """K5b's arithmetic in fp32 PyTorch: (dQ, dK, dV) in the inputs'
+    dtypes from the forward's output ``o`` and log-sum-exp ``lse`` (B,H,Sq)
+    and the output's cotangent ``do``.  P = exp(S - lse) where the mask
+    keeps a pair, 1 / Skv on every key of a row with lse NEG_INF (it saw
+    no key); dS = P o (dO V^T - rowsum(dO o O)) where the mask keeps a
+    pair of a row that saw a key, else 0; dV = P^T dO and dK = scale dS^T Q
+    summed over the query heads of a KV head, dQ = scale dS K."""
+    B, H, Sq, D = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, KV, G, Sq, D).float()
+    dog = do.reshape(B, KV, G, Sq, D).float()
+    og = o.reshape(B, KV, G, Sq, D).float()
+    kf, vf = k.float(), v.float()
+    mask = _mask(Sq, Skv, causal, window, q.device)
+    dead = (lse.reshape(B, KV, G, Sq, 1) == NEG_INF)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, kf) * scale
+    p = torch.where(mask, torch.exp(s - lse.reshape(B, KV, G, Sq, 1)), 0.0)
+    p = torch.where(dead, 1.0 / Skv, p)
+    delta = (dog * og).sum(-1, keepdim=True)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dog, vf)
+    ds = torch.where(mask & ~dead, p * (dp - delta), 0.0) * scale
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dog)
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qg)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf)
+    return (dq.reshape(B, H, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if lib.flash_attention.argtypes is None:
         lib.flash_attention.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.flash_attention.restype = ctypes.c_int
+        lib.flash_attention_bwd.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float]
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.flash_attention_bwd.restype = ctypes.c_int
     return lib
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B, H, Sq, D); k/v (B, KV, Skv, D) -> (B, H, Sq, D), on the card."""
+def _check_qkv(kernel: str, q, k, v) -> None:
     B, H, Sq, D = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     if k.shape != (B, KV, Skv, D) or v.shape != k.shape or H % KV:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+        raise ValueError(f"{kernel}: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+        raise ValueError(f"{kernel}: head dim {D} not in {HEAD_DIMS}")
     if not q.dtype == k.dtype == v.dtype:
-        raise ValueError("flash_attention: q, k and v differ in dtype")
+        raise ValueError(f"{kernel}: q, k and v differ in dtype")
+
+
+def _aligned(*tensors):
+    """The kernels copy 16 bytes at a time: a view at an odd offset is
+    copied."""
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    return_lse: bool = False):
+    """q (B, H, Sq, D); k/v (B, KV, Skv, D) -> (B, H, Sq, D), on the card;
+    with ``return_lse`` also each row's log-sum-exp, fp32 (B, H, Sq), which
+    ``flash_attention_bwd`` reads."""
+    _check_qkv("flash_attention", q, k, v)
+    B, H, Sq, D = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
     _build.require_cuda("flash_attention", q, k, v)
-    # the kernel copies 16 bytes at a time: a view at an odd offset is copied
-    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    q, k, v = _aligned(q, k, v)
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if q.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib = _lib()
     with torch.cuda.device(q.device):
         code = lib.flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV,
-            Sq, Skv, D, 1.0 / math.sqrt(D), int(causal), int(window),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, H, KV, Sq, Skv, D,
+            1.0 / math.sqrt(D), int(causal), int(window),
             _build.dtype_code(q.dtype), _build.stream_of(q))
     _build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0):
+    """K5b on the card: (dQ, dK, dV), what ``flash_attention_bwd_plain``
+    computes, each in q's dtype with fp32 accumulation.  ``o`` and ``lse``
+    are what ``flash_attention(..., return_lse=True)`` returned for these
+    inputs; ``do`` has o's shape and dtype."""
+    _check_qkv("flash_attention_bwd", q, k, v)
+    B, H, Sq, D = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention_bwd: {name} "
+                             f"{tuple(t.shape)} {t.dtype} is not q's "
+                             f"{tuple(q.shape)} {q.dtype}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype}, want {(B, H, Sq)} float32")
+    _build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
+    q, k, v, o, do = _aligned(q, k, v, o, do)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        code = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, KV, Sq, Skv, D,
+            1.0 / math.sqrt(D), int(causal), int(window),
+            _build.dtype_code(q.dtype), _build.stream_of(q))
+    _build.check(lib, code, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its gradient: K5 forward (keeping the
+    log-sum-exp) and K5b backward on the card, ``flash_attention_plain``
+    and ``flash_attention_bwd_plain`` on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.causal, ctx.window = causal, window
+        if q.device.type == "cpu":
+            o, lse = flash_attention_plain(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
+        else:
+            o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = (flash_attention_bwd_plain if q.device.type == "cpu"
+               else flash_attention_bwd)
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
+                         window=ctx.window)
+        return dq, dk, dv, None, None

@@ -13,11 +13,12 @@ the TPU kernel lacks and ``models.layers.ssd_chunked`` passes on; its
 ``chunk`` is checked as the JAX code checks it (the kernel walks its own
 chunks, which does not change the function).
 
-Gradients.  ``ssd`` is differentiable everywhere: when grad mode is on and
-an input requires grad it goes through ``SSDScan`` (K8 forward, K8b
-backward on the card; the plain versions on the CPU).  The other kernels
-have no backward yet, so on the card ``matmul``, ``affine_act``,
-``attention``, ``lindley``, ``lindley_segments`` and ``rglru`` raise
+Gradients.  ``ssd``, ``attention`` and ``rglru`` are differentiable
+everywhere: when grad mode is on and an input requires grad they go through
+``SSDScan`` (K8 forward, K8b backward), ``FlashAttention`` (K5, K5b) and
+``RGLRUScan`` (K7, K7b) on the card, and the same functions over the plain
+versions on the CPU.  The other kernels have no backward yet, so on the
+card ``matmul``, ``affine_act``, ``lindley`` and ``lindley_segments`` raise
 ``NotImplementedError`` where autograd would need one, rather than return a
 tensor cut off from the graph; on the CPU their plain versions are
 differentiable.  ``quantize`` and ``dequantize`` act on gradients and need
@@ -27,13 +28,15 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.lindley import (check_fenceposts, lindley_scan,
                                          lindley_scan_plain,
                                          lindley_scan_segments,
                                          lindley_scan_segments_plain)
-from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
+from repro_torch.kernels.rglru import (RGLRUScan, rglru_scan,
+                                       rglru_scan_plain)
 from repro_torch.kernels.ssd import SSDScan, ssd_scan, ssd_scan_plain
 from repro_torch.kernels.systolic_matmul import (systolic_matmul,
                                                  systolic_matmul_plain)
@@ -48,9 +51,7 @@ from repro_torch.kernels.vector_engine import (dequantize_int8,
 _BACKWARD_SLICE = {
     "matmul": "a later slice (no training path runs K1 yet)",
     "affine_act": "a later slice (no training path runs K2 yet)",
-    "attention": "the dense GQA or hybrid training slice",
     "lindley": "none planned (the fleet simulator is not trained)",
-    "rglru": "the hybrid (RecurrentGemma) training slice",
 }
 
 
@@ -89,9 +90,11 @@ def matmul_padded(x, w, b=None, *, act="none", bm=128, bn=128, bk=128,
 
 
 def attention(q, k, v, *, causal=True, window=0, bq=128, bk=128):
+    if _needs_grad(q, k, v):
+        return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal, window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
-    _refuse_grad("attention", q, k, v)
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=causal, window=window)
 
@@ -128,9 +131,12 @@ def lindley_segments(seg, t, s):
 
 def rglru(x, gx, ga, log_a, h0):
     """RG-LRU: x/gx/ga (B,S,W), log_a (W,), h0 (B,W) -> (B,S,W), x's dtype."""
+    if _needs_grad(x, gx, ga, log_a, h0):
+        return RGLRUScan.apply(x.contiguous(), gx.contiguous(),
+                               ga.contiguous(), log_a.contiguous(),
+                               h0.contiguous())
     if x.device.type == "cpu":
         return rglru_scan_plain(x, gx, ga, log_a, h0)
-    _refuse_grad("rglru", x, gx, ga, log_a, h0)
     return rglru_scan(x.contiguous(), gx.contiguous(), ga.contiguous(),
                       log_a.contiguous(), h0.contiguous())
 

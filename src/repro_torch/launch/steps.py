@@ -4,7 +4,8 @@
 
 There is no mesh and no sharding rules: the port runs on one card.  The
 training step takes the gradient with ``torch.autograd.grad`` over the
-parameter leaves (the SSD scan's through K8b on the card), accumulates
+parameter leaves (on the card the SSD scan's through K8b, attention's
+through K5b and the RG-LRU's through K7b), accumulates
 microbatches in a Python loop where the JAX package scans, applies the
 int8 wire transform of ``distributed.compression`` (K3 and K4 on the card)
 when ``tcfg.grad_compression == "int8"``, then AdamW.

@@ -5,9 +5,10 @@ The vision models use ``rms_norm`` and ``act_fn``; the Mamba-2 blocks add
 through ``ops.ssd``) and ``ssd_step`` (one decode token, plain PyTorch: the
 JAX package has no kernel for it).  RecurrentGemma adds RoPE
 (``rope_angles``, ``apply_rope``), ``blocked_attention`` (K5 on the card
-through ``ops.attention``; the JAX package calls its pure-JAX version the
-analogue of that kernel), ``_attn_block`` (plain, for decode), ``rglru`` (K7
-on the card through ``ops.rglru``) and ``rglru_step`` (plain).  The MoE
+through ``ops.attention``, K5b for its gradient; the JAX package calls its
+pure-JAX version the analogue of that kernel), ``_attn_block`` (plain, for
+decode), ``rglru`` (K7 on the card through ``ops.rglru``, K7b for its
+gradient) and ``rglru_step`` (plain).  The MoE
 decoders add ``moe_ffn``, plain PyTorch as the JAX package has it (no
 Pallas kernel): the expert products are batched matrix products.  M-RoPE
 comes with the slice that needs it (ROADMAP.md, queue 1).

@@ -14,7 +14,10 @@ expert-parallel path (``moe_ep``, a mesh): the port always takes the JAX
 package's gather path.  MLA, M-RoPE, learned positions, cross-attention,
 the encoder and the frontends raise ``NotImplementedError``: they come with
 later slices of the port (ROADMAP.md, queue 1).  ``softmax_xent`` is the
-training loss.
+training loss.  ``forward`` differentiates everywhere: on the card the
+attention blocks' gradient runs K5b and the RG-LRU blocks' K7b (through
+``ops.attention``, ``ops.rglru``), so the Mamba-2, hybrid and dense families
+train with no plain path.
 """
 from __future__ import annotations
 

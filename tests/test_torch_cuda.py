@@ -8,6 +8,14 @@ skip.  On the card:
 This file imports no JAX, so it runs where only PyTorch is installed.
 fp32 products run without TF32 so that the plain versions are fp32.
 """
+import json
+import math
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -18,11 +26,14 @@ from repro_torch.core.arrivals import PoissonProcess
 from repro_torch.core.engine import ClusterEngine
 from repro_torch.core.function import standard_pipeline
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_plain,
                                                  flash_attention_plain)
 from repro_torch.kernels.lindley import (lindley_scan, lindley_scan_plain,
                                          lindley_scan_segments,
                                          lindley_scan_segments_plain)
-from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
+from repro_torch.kernels.rglru import (rglru_scan, rglru_scan_bwd,
+                                       rglru_scan_bwd_plain, rglru_scan_plain)
 from repro_torch.kernels.ssd import (ssd_scan, ssd_scan_bwd,
                                      ssd_scan_bwd_plain, ssd_scan_plain)
 from repro_torch.kernels.systolic_matmul import (_ACTS, systolic_matmul,
@@ -807,6 +818,229 @@ def test_flash_attention_takes_a_view_at_an_odd_offset(cuda):
         flash_attention_plain(q, k, v).float(), rtol=0.05, atol=0.03)
 
 
+# ---- K5b: flash attention's backward ---------------------------------------
+
+# K5b's bar beside K5's elementwise tolerances, as chip_smoke.py holds it:
+# each gradient within this relative Frobenius error of the plain version,
+# the norm floored at an rms of 1e-2 where a gradient cancels to ~0 (one
+# key: dQ = dK = 0, fp32 residues of ~2e-7).  A planted fault (dQ x 0.9, one 64-key tile dropped) reads
+# above it.
+K5B_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _rel_frobenius(got, want):
+    got, want = got.float(), want.float()
+    floor = 1e-2 * math.sqrt(want.numel())
+    return ((got - want).norm() / want.norm().clamp_min(floor)).item()
+
+
+def _k5b_case(cuda, b, h, kv, sq, skv, d, causal, window, dtype, seed=5):
+    """K5 (with its lse) and K5b against their plain versions at one shape,
+    both fed the kernel's o and lse; the elementwise tolerances are K5's,
+    with K5B_REL beside them.  Returns (inputs, K5b's gradients)."""
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, (b, h, sq, d), dtype, cuda)
+    k, v = (_randn(rng, (b, kv, skv, d), dtype, cuda) for _ in range(2))
+    do = _randn(rng, (b, h, sq, d), dtype, cuda)
+    o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                             return_lse=True)
+    _, want_lse = flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    # the lse of a row that saw no key is the mask value, as in the plain
+    # version: K5b reads that to give the row its weights 1 / Skv
+    assert torch.equal(lse == -1e30, want_lse == -1e30)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                              window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                     window=window)
+    bf = dtype == torch.bfloat16
+    for name, gg, ww in zip(("dq", "dk", "dv"), got, want):
+        assert gg.dtype == dtype and gg.shape == ww.shape, name
+        torch.testing.assert_close(gg.float(), ww.float(),
+                                   rtol=0.05 if bf else 1e-3,
+                                   atol=0.03 if bf else 2e-4, msg=name)
+        rel = _rel_frobenius(gg, ww)
+        assert rel <= K5B_REL[dtype], (name, rel)
+    return (q, k, v, o, lse, do), got
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("sq,skv", [(1, 1), (63, 64), (65, 200), (200, 65),
+                                    (130, 130)])
+@pytest.mark.parametrize("causal,window", K5_MASKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_matches_plain(cuda, d, sq, skv, causal, window,
+                                           dtype):
+    """Every head dim, Sq and Skv around the tiles, Sq != Skv, windows off
+    the tile, causal or not; GQA 2:1."""
+    _k5b_case(cuda, 1, 4, 2, sq, skv, d, causal, window, dtype)
+
+
+@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2), (10, 1), (8, 2)])
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_gqa_groups_match_plain(cuda, h, kv, d, dtype):
+    """dK and dV summed over GQA groups of 1, 2, 4 and 10 query heads."""
+    _k5b_case(cuda, 2, h, kv, 300, 300, d, True, 100, dtype)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("causal,sq,skv,window", [(False, 128, 32, 16),
+                                                  (True, 300, 40, 30)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_fully_masked_rows(cuda, d, causal, sq, skv,
+                                               window, dtype):
+    """Rows that see no key: no gradient to their queries, 1 / Skv of their
+    dO to every value row."""
+    _, (dq, _, _) = _k5b_case(cuda, 1, 2, 2, sq, skv, d, causal, window,
+                              dtype)
+    assert not dq[:, :, skv + window - 1:].any()
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_repeats_bit_for_bit(cuda, d, dtype):
+    """dK and dV are summed over the group inside the kernel, in a fixed
+    order (no atomics): two calls give the same bytes."""
+    args, got = _k5b_case(cuda, 2, 8, 2, 257, 257, d, True, 0, dtype)
+    again = flash_attention_bwd(*args, causal=True, window=0)
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+
+
+def test_ops_attention_under_grad_runs_k5_and_k5b(cuda):
+    """ops.attention under grad: one K5 launch forward, one K5b backward,
+    and the gradients of autograd through the plain version (fp32)."""
+    rng = np.random.default_rng(11)
+    q = _randn(rng, (2, 8, 150, 64), torch.float32, cuda)
+    k, v = (_randn(rng, (2, 2, 150, 64), torch.float32, cuda)
+            for _ in range(2))
+    do = _randn(rng, (2, 8, 150, 64), torch.float32, cuda)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    got = torch.autograd.grad(ops.attention(*ins, causal=True, window=40),
+                              ins, do)
+    assert (flash_attention.launches - before[0],
+            flash_attention_bwd.launches - before[1]) == (1, 1)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        flash_attention_plain(*ref, causal=True, window=40), ref, do)
+    for gg, ww in zip(got, want):
+        torch.testing.assert_close(gg, ww, rtol=1e-3, atol=2e-4)
+
+
+def test_flash_attention_bwd_refuses_what_it_cannot_run(cuda):
+    rng = np.random.default_rng(12)
+    q = _randn(rng, (1, 2, 64, 32), torch.float32, cuda)
+    k, v = (_randn(rng, (1, 1, 64, 32), torch.float32, cuda)
+            for _ in range(2))
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    before = flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, o, lse[:, :, :8], o)
+    with pytest.raises(ValueError, match="do "):
+        flash_attention_bwd(q, k, v, o, lse, o.bfloat16())
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd(q[..., :24], k[..., :24], v[..., :24],
+                            o[..., :24], lse, o[..., :24])
+    with pytest.raises(ValueError, match="runs on a CUDA tensor"):
+        flash_attention_bwd(q, k, v, o, lse.cpu(), o)
+    assert flash_attention_bwd.launches == before
+
+
+# ---- K7b: the RG-LRU scan's backward ---------------------------------------
+
+def _k7b_case(cuda, b, s, w, dtype, with_h0=True, seed=0, log_a_shift=0.0):
+    """K7 (keeping its fp32 states) and K7b against their plain versions.
+    fp32: the states within K7's bar (1e-4), the gradients within 1e-4
+    (dlog_a, a sum over B x S terms in another order, 1e-3 relative); bf16:
+    dx, dgx, dga one bf16 rounding apart (1e-2), the fp32 outputs 1e-3
+    relative.  Returns (inputs, K7b's gradients)."""
+    x, gx, ga, la, h0 = _rglru_inputs(b, s, w, dtype, cuda, seed=seed)
+    la = la + log_a_shift
+    if not with_h0:
+        h0 = torch.zeros_like(h0)
+    dy = _randn(np.random.default_rng(seed + 1), (b, s, w), dtype, cuda)
+    y, h32 = rglru_scan(x, gx, ga, la, h0, keep_states=True)
+    want_y, want_h = rglru_scan_plain(x, gx, ga, la, h0, keep_states=True)
+    assert h32.dtype == torch.float32 and h32.shape == (b, s, w)
+    assert torch.equal(y, rglru_scan(x, gx, ga, la, h0))
+    torch.testing.assert_close(h32, want_h, rtol=1e-4, atol=1e-4)
+    before = rglru_scan_bwd.launches
+    got = rglru_scan_bwd(x, gx, ga, la, h0, h32, dy)
+    torch.cuda.synchronize()
+    assert rglru_scan_bwd.launches == before + 1
+    want = rglru_scan_bwd_plain(x, gx, ga, la, h0, h32, dy)
+    bf = dtype == torch.bfloat16
+    for name, gg, ww in zip(("dx", "dgx", "dga", "dlog_a", "dh0"), got,
+                            want):
+        assert gg.dtype == ww.dtype and gg.shape == ww.shape, name
+        fp32_out = name in ("dlog_a", "dh0")
+        tol = (1e-3 if fp32_out else 1e-2) if bf else 1e-4
+        rtol = 1e-3 if name == "dlog_a" else tol
+        torch.testing.assert_close(gg.float(), ww.float(), rtol=rtol,
+                                   atol=tol, msg=name)
+    return (x, gx, ga, la, h0, h32, dy), got
+
+
+@pytest.mark.parametrize("b,s,w", RGLRU_SHAPES + [(2, 1, 256), (2, 31, 201),
+                                                  (2, 255, 200)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_bwd_matches_plain(cuda, b, s, w, dtype, with_h0):
+    _k7b_case(cuda, b, s, w, dtype, with_h0)
+
+
+def test_rglru_scan_bwd_where_the_clip_holds(cuda):
+    """softplus(log_a) ~ 1e-13: 1 - exp(2 log_a_t) rounds to 0, below the
+    clip at 1e-12, which passes no gradient."""
+    _k7b_case(cuda, 2, 64, 40, torch.float32, log_a_shift=-30.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_bwd_repeats_bit_for_bit(cuda, dtype):
+    """dlog_a is summed over B and S in a fixed order: two calls give the
+    same bytes."""
+    args, got = _k7b_case(cuda, 4, 300, 520, dtype)
+    again = rglru_scan_bwd(*args)
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+
+
+def test_ops_rglru_under_grad_runs_k7_and_k7b(cuda):
+    """ops.rglru under grad: one K7 launch forward, one K7b backward, and
+    the gradients of autograd through the plain version (fp32)."""
+    x, gx, ga, la, h0 = _rglru_inputs(2, 100, 72, torch.float32, cuda)
+    dy = _randn(np.random.default_rng(3), (2, 100, 72), torch.float32, cuda)
+    ins = [t.clone().requires_grad_() for t in (x, gx, ga, la, h0)]
+    before = (rglru_scan.launches, rglru_scan_bwd.launches)
+    got = torch.autograd.grad(ops.rglru(*ins), ins, dy)
+    assert (rglru_scan.launches - before[0],
+            rglru_scan_bwd.launches - before[1]) == (1, 1)
+    ref = [t.clone().requires_grad_() for t in (x, gx, ga, la, h0)]
+    want = torch.autograd.grad(rglru_scan_plain(*ref), ref, dy)
+    for gg, ww in zip(got, want):
+        torch.testing.assert_close(gg, ww, rtol=1e-3, atol=1e-4)
+
+
+def test_rglru_scan_bwd_refuses_what_it_cannot_run(cuda):
+    x, gx, ga, la, h0 = _rglru_inputs(2, 40, 48, torch.float32, cuda)
+    _, h32 = rglru_scan(x, gx, ga, la, h0, keep_states=True)
+    before = rglru_scan_bwd.launches
+    with pytest.raises(ValueError, match="h32"):
+        rglru_scan_bwd(x, gx, ga, la, h0, h32.bfloat16(), x)
+    with pytest.raises(ValueError, match="dy"):
+        rglru_scan_bwd(x, gx, ga, la, h0, h32, x.bfloat16())
+    with pytest.raises(ValueError, match="runs on a CUDA tensor"):
+        rglru_scan_bwd(x, gx, ga, la, h0, h32.cpu(), x)
+    assert rglru_scan_bwd.launches == before
+
+
 def test_serve_recurrentgemma_launches_k7_and_k5(cuda):
     """The reduced RecurrentGemma served on the card: one K7 launch per
     rglru layer and one K5 launch per attention layer of the prefill, and
@@ -941,16 +1175,32 @@ def test_quantize_int8_graph_replays_are_byte_equal(cuda, m, n):
 
 
 def test_quantize_int8_is_one_launch(cuda):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    x = _quant_input(1, 1 << 20, torch.float32, cuda)
-    quantize_int8(x)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    """The profile of one quantize_int8 call holds one kernel, K3's.  The
+    profiled call runs in a fresh process: in a process that has run other
+    card tests first, torch.profiler can read no CUDA event at all, which
+    says nothing of K3."""
+    code = textwrap.dedent("""
+        import json
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.kernels.vector_engine import quantize_int8
+        x = torch.randn(1, 1 << 20, device="cuda")
         quantize_int8(x)
         torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            quantize_int8(x)
+            torch.cuda.synchronize()
+        print(json.dumps([e.key for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA]))
+    """)
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    path = os.pathsep.join(filter(None, [src, os.environ.get("PYTHONPATH")]))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": path})
+    assert out.returncode == 0, out.stderr
+    names = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(names) == 1 and "quantize_int8_kernel" in names[0], names
 
 
@@ -1122,6 +1372,9 @@ def test_ssd_scan_bwd_refuses_what_it_cannot_run(cuda):
 # ---- the kernels without a backward refuse to cut the graph ----------------
 
 def test_kernels_without_a_backward_raise_under_grad(cuda):
+    """K1, K2 and K6 have no backward: under grad they raise and launch
+    nothing.  K5 and K7 have theirs (K5b, K7b): under grad they keep the
+    graph, and the gradient reaches the input that asked for it."""
     rng = np.random.default_rng(9)
     w = _randn(rng, (16, 8), torch.float32, cuda).requires_grad_()
     x = _randn(rng, (4, 16), torch.float32, cuda)
@@ -1134,11 +1387,8 @@ def test_kernels_without_a_backward_raise_under_grad(cuda):
     la.requires_grad_()
     calls = {"matmul": lambda: ops.matmul(x, w),
              "affine_act": lambda: ops.affine_act(x, s.requires_grad_(), b),
-             "attention": lambda: ops.attention(q, k, v),
-             "lindley": lambda: ops.lindley(t, sv),
-             "rglru": lambda: ops.rglru(rx, gx, ga, la, h0)}
-    counters = (systolic_matmul, fused_affine_act, flash_attention,
-                lindley_scan, rglru_scan)
+             "lindley": lambda: ops.lindley(t, sv)}
+    counters = (systolic_matmul, fused_affine_act, lindley_scan)
     before = [c.launches for c in counters]
     for name, call in calls.items():
         with pytest.raises(NotImplementedError, match=f"ops.{name}:.*"
@@ -1148,7 +1398,18 @@ def test_kernels_without_a_backward_raise_under_grad(cuda):
     with torch.no_grad():              # no graph to cut: the kernels run
         for call in calls.values():
             call()
-    assert [c.launches - n for c, n in zip(counters, before)] == [1] * 5
+    assert [c.launches - n for c, n in zip(counters, before)] == [1] * 3
+    kept = {"attention": (lambda: ops.attention(q, k, v), q,
+                          (flash_attention, flash_attention_bwd)),
+            "rglru": (lambda: ops.rglru(rx, gx, ga, la, h0), la,
+                      (rglru_scan, rglru_scan_bwd))}
+    for name, (call, leaf, (fwd, bwd)) in kept.items():
+        n = (fwd.launches, bwd.launches)
+        out = call()
+        assert out.requires_grad and out.grad_fn is not None, name
+        (g,) = torch.autograd.grad(out.sum(), leaf)
+        assert (fwd.launches - n[0], bwd.launches - n[1]) == (1, 1), name
+        assert g.shape == leaf.shape and torch.isfinite(g).all(), name
 
 
 # ---- the Qwen slice: K5 at head dim 128, the reduced decoders -------------

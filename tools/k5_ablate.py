@@ -153,13 +153,13 @@ def main() -> int:
         row = []
         for name in names:
             fn = ctypes.CDLL(str(OUT / f"{name}.so")).flash_attention
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                            + [ctypes.c_float] + [ctypes.c_int] * 3
                            + [ctypes.c_void_p])
 
             def run(fn=fn):
                 code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          o.data_ptr(), B, H, KV, Sq, Skv, D,
+                          o.data_ptr(), None, B, H, KV, Sq, Skv, D,
                           1.0 / math.sqrt(D), 1, WINDOW, 1,
                           torch.cuda.current_stream().cuda_stream)
                 if code:
