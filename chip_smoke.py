@@ -2099,7 +2099,10 @@ def check_k5b(time_ms, call_ms, max_err, randn, card):
             form, lib_wins = sdpa_bwd_windows(q, k, v, do, causal, window)
             lib = statistics.median(lib_wins)
             bnd, by = k5b_bound(*shape, causal, window, dtype)
+            cluster = FA.bwd_plan(B, H, KV, Sq, Skv, D, causal, window,
+                                  FA._sms(q.device))["cluster"]
             rows[(shape, window)] = {
+                "cluster": cluster,
                 "ms": ms, "ms_spread": [min(wins), max(wins)],
                 "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
                 "library_ms": lib, "library": form,
@@ -2110,8 +2113,8 @@ def check_k5b(time_ms, call_ms, max_err, randn, card):
                      f"{call_ms(run, reps=20):.4f}) plain_ms={plain:.4f} "
                      f"library_ms ({form} backward alone, timed the same "
                      f"way) {lib:.4f} ({min(lib_wins):.4f}-"
-                     f"{max(lib_wins):.4f}) bound_ms={bnd:.4f} ({by}); card "
-                     f"{card}")
+                     f"{max(lib_wins):.4f}) bound_ms={bnd:.4f} ({by}); "
+                     f"wgmma, dK/dV over clusters of {cluster}; card {card}")
         else:
             del got, want
         print(line)
@@ -2185,8 +2188,9 @@ def check_k7b(dev, time_ms, call_ms, max_err, card):
                             "bound_by": by}
             line += (f"; ms={ms:.4f} (per Python call "
                      f"{call_ms(run, reps=5):.4f}) plain_ms={plain:.4f} "
-                     f"library_ms=none bound_ms={bnd:.4f} ({by}); one "
-                     f"thread a (batch row, channel); card {card}")
+                     f"library_ms=none bound_ms={bnd:.4f} ({by}); K7's "
+                     f"chunked scan walked backward, plan "
+                     f"{RG.launch_plan(*shape)}; card {card}")
         print(line)
     return {"max_abs_err": worst, **times[torch.bfloat16],
             "library_ms": None, "float32": times[torch.float32]}
@@ -2566,11 +2570,19 @@ def main() -> int:
                      for ln in log.splitlines())
         print(f"  {name}: ptxas {', '.join(regs)}; spills: {spills}")
     for kernel, source in (("quantize_int8_kernel", "vector_engine"),
-                           ("rglru_chunked_kernel", "rglru")):
+                           ("rglru_chunked_kernel", "rglru"),
+                           ("rglru_bwd_chunked_kernel", "rglru"),
+                           ("flash_bwd_bf16_kernel", "flash_attention")):
         for row in _build.ptxas_counts(logs.get(source, ""), kernel):
             print(f"  {kernel}{row['instance'][:24]}: ptxas "
                   f"{row['registers']} registers, {row['smem']} bytes shared "
                   f"memory, {row['spilled']} bytes spilled")
+    bwd_ptxas = {name: [{k: row[k] for k in ("registers", "spilled")}
+                        for row in _build.ptxas_counts(logs.get(src, ""), kernel)]
+                 for name, kernel, src in (
+                     ("flash_attention_bwd", "flash_bwd_bf16_kernel",
+                      "flash_attention"),
+                     ("rglru_scan_bwd", "rglru_bwd_chunked_kernel", "rglru"))}
     k1_regs = k1_ptxas(logs.get("systolic_matmul", ""))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -2906,6 +2918,8 @@ def main() -> int:
     train12_entries, k5_train, k7_train = drive_train_hybrid(
         dev, counters + (lindley_scan, ssd_scan, rglru_scan), time_ms,
         call_ms, max_err, randn, card)
+    for entry in train12_entries:       # ptxas of each template instance
+        entry["ptxas"] = bwd_ptxas[entry["name"]]
     mark("the kernels line")
 
     # ---- the kernels line: K1 over one request's 53 shapes ---------------

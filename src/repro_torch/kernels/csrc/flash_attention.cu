@@ -64,9 +64,9 @@
 // shared memory).  Without causal masking or a window (the ViT) it walks
 // every key, as it did before tile skipping (see flash_f32_kernel).
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
-#include "mma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -710,11 +710,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 // dK and dV summed over the G = H / KV query heads of a KV head.  A row that
 // saw no key (lse == NEG_INF) weighs every key 1 / Skv, as the forward gave
 // it the mean of V, and passes nothing to dQ or dK (its scores are the
-// constant mask value).  Three launches on one stream: Delta; one block per
-// (b, KV head, key tile) walking the G heads and the query tiles the masks
-// leave, accumulating dK and dV in fp32 registers and writing them once (no
-// atomics: deterministic); one block per (b, head, query tile) walking the
-// key tiles, accumulating dQ.  Both recompute S and dP, so the backward runs
+// constant mask value).  Two passes on one stream: the dK/dV pass, one
+// block per (b, KV head, key tile) and, in bf16, per rank of a cluster
+// that splits the G heads, walking its heads and the query tiles the masks
+// leave; the dQ pass, one block per (b, head, query tile) walking the key
+// tiles.  Delta comes first: in bf16 the dQ pass computes its rows' and
+// runs first, in fp32 a launch of its own.  dK, dV and dQ each accumulate
+// in registers and are written once, in a fixed order (no atomics:
+// deterministic); both passes recompute S and dP, so the backward runs
 // seven products where the least is five (dQ's atomics are the price of
 // five).
 
@@ -723,8 +726,9 @@ struct BwdArgs {
   const void* k;
   const void* v;
   const void* dout;
+  const void* o;
   const float* lse;
-  const float* delta;
+  float* delta;       // written by the bf16 dQ pass or the fp32 Delta launch
   void* dq;
   void* dk;
   void* dv;
@@ -733,7 +737,8 @@ struct BwdArgs {
   int causal, window;
 };
 
-// Delta = rowsum(dO o O) in fp32, a warp a row.
+// Delta = rowsum(dO o O) in fp32, a warp a row (fp32; the bf16 dQ pass
+// computes its own).
 template <typename E>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const E* __restrict__ o, const E* __restrict__ dout,
@@ -784,71 +789,167 @@ __device__ __forceinline__ float lse_log2(float lse) {
   return lse == NEG_INF ? -INFINITY : lse * LOG2E;
 }
 
-// ---- bf16 on the tensor cores (mma.sync m16n8k16, fp32 accumulation) -----
-// A block's "own" rows (BO keys of a KV head for dK/dV, BO query rows of a
-// head for dQ) stay in shared memory with their second operand (V, dO); the
-// "other" side streams through in tiles of BT rows (Q and dO, or K and V).
-// Per tile, phase 1: S and dP (own x other, over D) on the tensor cores,
-// warps 2 or 4 along the own rows; P and dS rounded to bf16 into shared
-// memory.  Phase 2: acc1 += dS . other1 (dK or dQ) and, for dK/dV, acc2 +=
-// P . other2 (dV), over the tile's BT rows, warps splitting D.  Rows are
-// padded by 16 bytes so that the eight rows an ldmatrix reads fall in
-// distinct banks.  At D = 256, BO = 32: 64 accumulator registers a thread
-// and 111 KB of shared memory, two blocks an SM; else BO = 64.
-constexpr int BT = 64;
+// ---- bf16 on the tensor cores (wgmma) -------------------------------------
+// A block owns 64 or 128 rows (keys of a KV head for dK/dV, query rows of
+// a head for dQ) and keeps them in shared memory with their second operand
+// (V, dO) for the whole walk; the other side (Q and dO, or K and V)
+// streams through in 64-row tiles.  Tiles are K5's 128-byte-swizzled
+// 64-column blocks, copied by K5's load_tile (cp.async, 16 bytes a thread,
+// zeros past the rows and past D), so that every product is a wgmma with
+// fp32 accumulators: S and dP (own . other^T) with both operands in shared
+// memory, dV += P^T dO, dK += dS^T Q and dQ += dS K with P or dS, the
+// accumulator fragment rounded to bf16, as A and the other tile read as an
+// MN-major B (K5's P.V).
+// - D <= 128 (SOLO): each warpgroup owns 64 of the block's 128 rows and
+//   runs all of its products (S, dP, then dV and dK, or dQ) with no
+//   hand-over, so each other tile serves 128 rows and one warpgroup's
+//   softmax runs while the other's products do.  dK/dV at D 128: 64 + 64
+//   accumulator registers a thread, so dV's product runs while dS is
+//   formed and dK's A fragments take P's registers once it is done.
+// - D = 256: dK and dV alone take 128 registers a thread, so the two
+//   warpgroups split the products of a step, not the rows: both take the
+//   block's 64 rows as the M side; warpgroup 0 runs S and forms P =
+//   exp(S - lse), warpgroup 1 runs dP and, once warpgroup 0 has left P in
+//   shared memory (a named barrier, arrive/sync), forms dS = P (dP -
+//   Delta) scale.  Their fragments match element for element, so P passes
+//   in fragment order.  Warpgroup 0 accumulates dV, warpgroup 1 dK; dQ's
+//   columns split in two halves (warpgroup 1 leaves dS's fragments in
+//   shared memory for warpgroup 0).
+// - Copies behind products: two stages of the other side's tiles (and, for
+//   dK/dV, its rows' lse and Delta, 4-byte cp.async).  The block barrier
+//   that opens step s publishes step s's tiles and frees the stage of step
+//   s - 1, and step s + 1's copies go out before step s's products.
+// - dK/dV spread over a cluster: the G query heads of a KV head split over
+//   the R ranks of a thread-block cluster (rank r takes heads r, r + R,
+//   ...; R <= 8 from kernels/flash_attention.py::bwd_plan).  Each rank
+//   accumulates its heads' dK and dV in a fixed order, leaves the fp32
+//   partials in its shared memory, and after a cluster barrier each rank
+//   sums a slice of the rows over the ranks in rank order (distributed
+//   shared memory) and writes it: no atomics, the same bytes every call.
+//   Key tiles go out heaviest first (under causal masking the first).
+// - dQ stays its own deterministic pass, one block a (b, head, own query
+//   rows), the heaviest query tiles first.  It runs first and computes
+//   Delta = rowsum(dO o O) of its rows on the way (for itself, and into
+//   the scratch the dK/dV pass reads), so no launch of its own reads O.
+// - Masking as K5: only tiles that cross the causal diagonal, the window's
+//   edge, the end of either sequence or hold a row that sees no key are
+//   masked pair by pair, with selects, in a copy of the step of their own,
+//   so that the other tiles' copy has no masking code (and no registers
+//   for it).  A warpgroup whose 64 rows keep no pair of a tile (SOLO: the
+//   first query tile of the upper keys, the last key tile of the lower
+//   query rows) skips it.
+// At D 256 a block holds 218 KB of shared memory (own 64 KB, two stages of
+// 64 KB, P 16 KB, dS 8 KB, the rows' lse and Delta), at D 128 133 KB (own
+// 64 KB, two stages of 32 KB, which the fp32 partials outgrow at the end):
+// one block an SM.
 constexpr int BWD_THREADS = 256;
-constexpr int PAD = 8;
+constexpr int MAX_CLUSTER = 8;
+
+// Own rows a block: 64 a warpgroup (SOLO, D <= 128) or 64 shared.
+template <int D>
+__host__ __device__ constexpr int bwd_rows() {
+  return D <= 128 ? 128 : 64;
+}
+
+// Stages of the other side's tiles: two (a third at D <= 128 bought nothing,
+// tools/k5b_ablate.py; at D 256 shared memory holds no more).
+template <int D>
+__host__ __device__ constexpr int bwd_stages() {
+  return 2;
+}
 
 template <int D>
-constexpr int bwd_own_rows() {
-  return D >= 256 ? 32 : 64;
+constexpr int bwd_bf16_smem_bytes() {
+  constexpr int tile = (D < 64 ? 1 : D / 64) * BLOCK_BYTES;
+  constexpr int nst = bwd_stages<D>();
+  // SOLO: own (2 x 2), the stages of other (2 each) tiles and of 64 lse
+  // and 64 Delta; else own (2), stages (2 x 2), P fp32 64 x 64, dS's bf16
+  // fragments and the stages' rows; the rank's fp32 dK/dV partials reuse
+  // the tiles; 1 KB to align
+  constexpr int main = D <= 128
+      ? (4 + 2 * nst) * tile + nst * 512
+      : (2 + 2 * nst) * tile + 64 * 64 * 4 + 64 * 64 * 2 + nst * 512;
+  constexpr int red = 2 * bwd_rows<D>() * (D + 4) * 4;
+  return (main > red ? main : red) + 1024;
 }
 
-template <int D, int BO>
-constexpr int bwd_smem_bytes() {
-  return (2 * BO + 2 * BT) * (D + PAD) * 2 + 2 * BO * (BT + PAD) * 2 +
-         2 * BT * 4;
+// Every copy group but the last N has landed: made visible to the tensor
+// cores' (async proxy) reads, then a barrier of the block.
+template <int N>
+__device__ __forceinline__ void publish_stage() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
 }
 
-// Rows [row0, row0 + ROWS) of a (rows_valid, D) bf16 matrix into a tile of
-// padded rows, zeros past rows_valid.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(uint32_t dst,
-                                          const __nv_bfloat16* g, int row0,
-                                          int rows_valid) {
-  constexpr int CH = D / 8;          // 16-byte chunks a row
-  constexpr int RS = (D + PAD) * 2;
-  for (int e = threadIdx.x; e < ROWS * CH; e += BWD_THREADS) {
-    const int r = e / CH, c = e % CH;
-    const bool ok = row0 + r < rows_valid;
-    cp_async16(dst + r * RS + c * 16,
-               ok ? g + (size_t)(row0 + r) * D + c * 8 : g, ok);
-  }
+// 4 bytes global -> shared, zero-filled where !ok (src is then not read).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
 }
 
-template <int D, int BO, bool KVM>
-__global__ void __launch_bounds__(BWD_THREADS)
+// Named barrier `id` over the block's 256 threads: one warpgroup arrives
+// (its writes before are seen), the other waits.
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_wait(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// True when no pair of keys [k0, k0 + 64) and queries [q0, q0 + 64) is
+// kept: the tile lies past either sequence's end, above the causal
+// diagonal or beyond the window.
+__device__ __forceinline__ bool pair_tile_empty(int k0, int q0,
+                                                const BwdArgs& a) {
+  return k0 >= a.Skv || q0 >= a.Sq || (a.causal && k0 > q0 + 63) ||
+         (a.window && q0 - k0 - 63 >= a.window);
+}
+
+// True when keys [k0, k0 + 64) and queries [q0, q0 + 64) need per-pair
+// masking: the tile crosses the causal diagonal or the window's edge, runs
+// past Skv or Sq, or holds a query row that sees no key.
+__device__ __forceinline__ bool pair_tile_masked(int k0, int q0,
+                                                 const BwdArgs& a) {
+  return k0 + 64 > a.Skv || q0 + 64 > a.Sq || (a.causal && k0 + 63 > q0) ||
+         (a.window &&
+          (q0 + 63 - k0 >= a.window || q0 + 63 >= a.Skv + a.window - 1));
+}
+
+template <int D, bool KVM>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_bwd_bf16_kernel(const BwdArgs a) {
-  constexpr int RS = (D + PAD) * 2;        // bytes a Q/K/V/dO tile row
-  constexpr int PS = (BT + PAD) * 2;       // bytes a P/dS row
-  constexpr int RW = BO / 16;              // warps along the own rows
-  constexpr int CW = 8 / RW;               // warps along the columns
-  constexpr int NB1 = BT / CW / 8;         // n8 blocks a warp: S, dP
-  constexpr int NB2 = D / CW / 8;          // n8 blocks a warp: gradients
-  static_assert(NB1 % 2 == 0 && NB2 >= 1 && (NB2 == 1 || NB2 % 2 == 0),
-                "the warps' tiles");
+  constexpr int NDB = D < 64 ? 1 : D / 64;  // 64-column blocks of D
+  constexpr int TILE = NDB * BLOCK_BYTES;   // one 64-row tile
+  constexpr bool SOLO = D <= 128;           // a warpgroup its own 64 rows
+  constexpr int ROWS = bwd_rows<D>();       // own rows a block
+  constexpr int OWN = SOLO ? 2 : 1;         // own tiles of each operand
+  constexpr int NST = bwd_stages<D>();      // stages of the other tiles
+  // dQ's columns split over the warpgroups at D 256
+  constexpr bool SPLIT = !KVM && !SOLO;
+  constexpr int NACC = SPLIT ? NDB * 16 : NDB * 32;
   using bf16 = __nv_bfloat16;
-  extern __shared__ __align__(16) uint8_t smem[];
-  const uint32_t own1 = smem_u32(smem), own2 = own1 + BO * RS;
-  const uint32_t oth1 = own2 + BO * RS, oth2 = oth1 + BT * RS;
-  const uint32_t ps = oth2 + BT * RS, dss = ps + BO * PS;
-  uint8_t* const ps_p = smem + (2 * BO + 2 * BT) * RS;
-  uint8_t* const dss_p = ps_p + BO * PS;
-  float* const lse_s = reinterpret_cast<float*>(dss_p + BO * PS);
-  float* const delta_s = lse_s + BT;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  uint8_t* const base_p = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t own1 = base, own2 = base + OWN * TILE;
+  // stage s: other1 at oth + 2 s TILE, other2 a TILE after it
+  const uint32_t oth = base + 2 * OWN * TILE;
+  uint8_t* const after = base_p + 2 * (OWN + NST) * TILE;  // the tiles' end
+  float* const xp = reinterpret_cast<float*>(after);
+  uint32_t* const xd = reinterpret_cast<uint32_t*>(after + 16384);
+  float* const rows_s =
+      reinterpret_cast<float*>(SOLO ? after : after + 24576);
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp % RW, wc = warp / RW;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, t = tid % 128;
+  const int warp = t / 32, lane = tid % 32;
+  // this thread's fragment: own rows rr0 + 8 h (h = (i / 2) % 2) of its
+  // warpgroup's 64, other columns col0 + 8 (i / 4) + (i % 2) for register i
+  const int rr0 = warp * 16 + lane / 4, col0 = 2 * (lane % 4);
+  const int wrow = SOLO ? wg * 64 : 0;      // the warpgroup's first own row
   const int G = a.H / a.KV;
   const float scale_log2 = a.scale * LOG2E;
   const float inv_skv = 1.0f / a.Skv;
@@ -857,198 +958,356 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
   const bf16* const V = static_cast<const bf16*>(a.v);
   const bf16* const dO = static_cast<const bf16*>(a.dout);
 
-  int b, kvh, own0, bh_own = 0;
-  TileRange t{};
+  int b, kvh, own0, n_steps;
+  // dK/dV: the rank, its heads' first query tile and tiles a head
+  int R = 1, rank = 0, qt_lo = 0, nqt = 1;
+  // dQ: the own head, its first key tile, the own rows' lse and Delta
+  int bh_own = 0, j_lo = 0;
+  float l2own[2] = {0.0f, 0.0f}, dlown[2] = {0.0f, 0.0f};
   if constexpr (KVM) {
-    b = blockIdx.x / a.KV;
-    kvh = blockIdx.x % a.KV;
-    own0 = blockIdx.y * BO;
-    const size_t kv_off = (size_t)blockIdx.x * a.Skv * D;
-    load_rows<D, BO>(own1, K + kv_off, own0, a.Skv);
-    load_rows<D, BO>(own2, V + kv_off, own0, a.Skv);
+    R = gridDim.x;                          // the cluster spans grid x
+    rank = blockIdx.x;
+    b = blockIdx.y / a.KV;
+    kvh = blockIdx.y % a.KV;
+    // key tiles heaviest first: under causal masking the first (they see
+    // the most query rows), else the last (a window leaves them the most)
+    own0 = (a.causal ? blockIdx.z : gridDim.z - 1 - blockIdx.z) * ROWS;
+    int q_lo, q_hi;
+    query_range(own0, ROWS, a.Sq, a.Skv, a.causal, a.window, q_lo, q_hi);
+    qt_lo = q_lo / 64;
+    nqt = q_hi > q_lo ? (q_hi + 63) / 64 - qt_lo : 0;
+    const int heads = rank < G ? (G - rank + R - 1) / R : 0;
+    n_steps = heads * nqt;
+    const size_t kv_off = (size_t)blockIdx.y * a.Skv * D;
+    load_tile<ROWS, NDB>(own1, K + kv_off, own0, a.Skv, D);
+    load_tile<ROWS, NDB>(own2, V + kv_off, own0, a.Skv, D);
   } else {
-    t = tile_range(blockIdx.y, gridDim.y, blockIdx.x, BO, a.Sq, a.Skv,
-                   a.causal, a.window);
-    bh_own = t.bh;
-    b = t.bh / a.H;
-    kvh = (t.bh % a.H) / G;
-    own0 = t.q0;
-    load_rows<D, BO>(own1, Q + (size_t)t.bh * a.Sq * D, own0, a.Sq);
-    load_rows<D, BO>(own2, dO + (size_t)t.bh * a.Sq * D, own0, a.Sq);
-    for (int i = threadIdx.x; i < BO; i += BWD_THREADS) {
-      const int r = own0 + i;
-      const size_t at = (size_t)t.bh * a.Sq + r;
-      lse_s[i] = r < a.Sq ? lse_log2(a.lse[at]) : 0.0f;
-      delta_s[i] = r < a.Sq ? a.delta[at] : 0.0f;
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-
-  float acc1[NB2][4], acc2[KVM ? NB2 : 1][4];
+    const TileRange tr = tile_range(blockIdx.y, gridDim.y, blockIdx.x, ROWS,
+                                    a.Sq, a.Skv, a.causal, a.window);
+    bh_own = tr.bh;
+    b = tr.bh / a.H;
+    kvh = (tr.bh % a.H) / G;
+    own0 = tr.q0;
+    j_lo = tr.k_lo / 64;
+    n_steps = max(0, (tr.k_hi + 63) / 64 - j_lo);
+    load_tile<ROWS, NDB>(own1, Q + (size_t)tr.bh * a.Sq * D, own0, a.Sq, D);
+    load_tile<ROWS, NDB>(own2, dO + (size_t)tr.bh * a.Sq * D, own0, a.Sq, D);
+    // Delta = rowsum(dO o O) of the own rows in fp32, TPR threads a row,
+    // each over D / TPR columns, then added across them; written for the
+    // dK/dV pass, which runs after this one.
+    constexpr int TPR = BWD_THREADS / ROWS;
+    {
+      const int row = tid / TPR, r = own0 + row;
+      const size_t at = ((size_t)tr.bh * a.Sq + r) * D + tid % TPR * (D / TPR);
+      float sum = 0.0f;
+      if (r < a.Sq) {
 #pragma unroll
-  for (int n = 0; n < NB2; ++n)
+        for (int j = 0; j < D / TPR; j += 8) {
+          const uint4 ov = ldg16(static_cast<const bf16*>(a.o) + at + j);
+          const uint4 gv = ldg16(dO + at + j);
+          const auto* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const auto* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc1[n][i] = 0.0f;
-#pragma unroll
-  for (int n = 0; n < (KVM ? NB2 : 1); ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc2[n][i] = 0.0f;
-
-  // One tile of the other side: rows [o0, o0 + BT) of head bh.
-  auto step = [&](int bh, int o0) {
-    const bf16* o1g;
-    const bf16* o2g;
-    int valid;
-    if constexpr (KVM) {
-      o1g = Q + (size_t)bh * a.Sq * D;
-      o2g = dO + (size_t)bh * a.Sq * D;
-      valid = a.Sq;
-    } else {
-      const size_t kv_off = ((size_t)b * a.KV + kvh) * a.Skv * D;
-      o1g = K + kv_off;
-      o2g = V + kv_off;
-      valid = a.Skv;
-    }
-    __syncthreads();               // the last tile's phase 2 is done
-    load_rows<D, BT>(oth1, o1g, o0, valid);
-    load_rows<D, BT>(oth2, o2g, o0, valid);
-    if constexpr (KVM) {
-      for (int i = threadIdx.x; i < BT; i += BWD_THREADS) {
-        const int r = o0 + i;
-        const size_t at = (size_t)bh * a.Sq + r;
-        lse_s[i] = r < a.Sq ? lse_log2(a.lse[at]) : 0.0f;
-        delta_s[i] = r < a.Sq ? a.delta[at] : 0.0f;
-      }
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();
-
-    // phase 1: S and dP, own rows x other rows, over D
-    float sc[NB1][4], dp[NB1][4];
-#pragma unroll
-    for (int n = 0; n < NB1; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[n][i] = dp[n][i] = 0.0f;
-    const int arow = wr * 16 + lane % 16, acol = 8 * (lane / 16);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a1[4], a2[4];
-      ldsm_x4(a1, own1 + arow * RS + (kk + acol) * 2);
-      ldsm_x4(a2, own2 + arow * RS + (kk + acol) * 2);
-#pragma unroll
-      for (int nb = 0; nb < NB1; nb += 2) {
-        const int n = wc * NB1 * 8 + nb * 8 + lane % 8 + 8 * (lane / 16);
-        const int kc = kk + 8 * ((lane / 8) % 2);
-        uint32_t b1[4], b2[4];
-        ldsm_x4(b1, oth1 + n * RS + kc * 2);
-        ldsm_x4(b2, oth2 + n * RS + kc * 2);
-        const uint32_t b10[2] = {b1[0], b1[1]}, b11[2] = {b1[2], b1[3]};
-        const uint32_t b20[2] = {b2[0], b2[1]}, b21[2] = {b2[2], b2[3]};
-        mma_bf16(sc[nb], a1, b10);
-        mma_bf16(sc[nb + 1], a1, b11);
-        mma_bf16(dp[nb], a2, b20);
-        mma_bf16(dp[nb + 1], a2, b21);
-      }
-    }
-#pragma unroll
-    for (int nb = 0; nb < NB1; ++nb)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int ro = wr * 16 + lane / 4 + 8 * hh;
-        const int co = wc * NB1 * 8 + nb * 8 + 2 * (lane % 4);
-        float pv[2], dv[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int qloc = KVM ? co + e : ro;
-          const int qi = KVM ? o0 + co + e : own0 + ro;
-          const int kj = KVM ? own0 + ro : o0 + co + e;
-          pair_grads(sc[nb][2 * hh + e], dp[nb][2 * hh + e], qi, kj,
-                     lse_s[qloc], delta_s[qloc], a, scale_log2, inv_skv,
-                     pv[e], dv[e]);
-        }
-        if constexpr (KVM)
-          *reinterpret_cast<__nv_bfloat162*>(ps_p + ro * PS + co * 2) =
-              __floats2bfloat162_rn(pv[0], pv[1]);
-        *reinterpret_cast<__nv_bfloat162*>(dss_p + ro * PS + co * 2) =
-            __floats2bfloat162_rn(dv[0], dv[1]);
-      }
-    __syncthreads();
-
-    // phase 2: acc1 += dS . other1, acc2 += P . other2, over the tile's rows
-    const int prow = wr * 16 + lane % 16, pcol = 8 * (lane / 16);
-#pragma unroll
-    for (int kk = 0; kk < BT; kk += 16) {
-      uint32_t ad[4], ap[4];
-      ldsm_x4(ad, dss + prow * PS + (kk + pcol) * 2);
-      if constexpr (KVM) ldsm_x4(ap, ps + prow * PS + (kk + pcol) * 2);
-      if constexpr (NB2 == 1) {
-        uint32_t bb[2];
-        ldsm_b_trans(bb, oth1 + (kk + lane % 16) * RS + wc * 16);
-        mma_bf16(acc1[0], ad, bb);
-        if constexpr (KVM) {
-          ldsm_b_trans(bb, oth2 + (kk + lane % 16) * RS + wc * 16);
-          mma_bf16(acc2[0], ap, bb);
-        }
-      } else {
-        const int krow = kk + lane % 8 + 8 * ((lane / 8) % 2);
-#pragma unroll
-        for (int nb = 0; nb < NB2; nb += 2) {
-          const int n = wc * NB2 * 8 + nb * 8 + 8 * (lane / 16);
-          uint32_t bb[4];
-          ldsm_a_trans(bb, oth1 + krow * RS + n * 2);
-          const uint32_t b0[2] = {bb[0], bb[1]}, b1[2] = {bb[2], bb[3]};
-          mma_bf16(acc1[nb], ad, b0);
-          mma_bf16(acc1[nb + 1], ad, b1);
-          if constexpr (KVM) {
-            ldsm_a_trans(bb, oth2 + krow * RS + n * 2);
-            const uint32_t c0[2] = {bb[0], bb[1]}, c1[2] = {bb[2], bb[3]};
-            mma_bf16(acc2[nb], ap, c0);
-            mma_bf16(acc2[nb + 1], ap, c1);
+          for (int e = 0; e < 4; ++e) {
+            const float2 of = __bfloat1622float2(o2[e]);
+            const float2 gf = __bfloat1622float2(g2[e]);
+            sum = fmaf(of.x, gf.x, sum);
+            sum = fmaf(of.y, gf.y, sum);
           }
         }
       }
+#pragma unroll
+      for (int off = TPR / 2; off; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (tid % TPR == 0) {
+        rows_s[row] = sum;
+        if (r < a.Sq) a.delta[(size_t)tr.bh * a.Sq + r] = sum;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = own0 + wrow + rr0 + 8 * h;
+      l2own[h] = r < a.Sq ? lse_log2(a.lse[(size_t)tr.bh * a.Sq + r]) : 0.0f;
+      dlown[h] = rows_s[wrow + rr0 + 8 * h];
+    }
+  }
+
+  // Step s's other tiles into stage st: (head, query tile) s of this rank
+  // for dK/dV, key tile j_lo + s for dQ.
+  auto other_row0 = [&](int s) {
+    return KVM ? (qt_lo + s % nqt) * 64 : (j_lo + s) * 64;
+  };
+  auto load_step = [&](int s, int st) {
+    const uint32_t o1 = oth + st * 2 * TILE, o2 = o1 + TILE;
+    const int o0 = other_row0(s);
+    if constexpr (KVM) {
+      const size_t bh = (size_t)b * a.H + kvh * G + rank + R * (s / nqt);
+      load_tile<64, NDB>(o1, Q + bh * a.Sq * D, o0, a.Sq, D);
+      load_tile<64, NDB>(o2, dO + bh * a.Sq * D, o0, a.Sq, D);
+      if (tid < 128) {
+        const int r = o0 + tid % 64;
+        const float* src = (tid < 64 ? a.lse : a.delta) + bh * a.Sq + r;
+        cp_async4(smem_u32(rows_s + st * 128 + tid), r < a.Sq ? src : a.lse,
+                  r < a.Sq);
+      }
+    } else {
+      const size_t kv_off = ((size_t)b * a.KV + kvh) * a.Skv * D;
+      load_tile<64, NDB>(o1, K + kv_off, o0, a.Skv, D);
+      load_tile<64, NDB>(o2, V + kv_off, o0, a.Skv, D);
     }
   };
+  // the first NST - 1 steps' tiles, one copy group each (the first with
+  // the own tiles)
+#pragma unroll
+  for (int i = 0; i < NST - 1; ++i) {
+    if (i < n_steps) load_step(i, i);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
 
-  if constexpr (KVM) {
-    int q_lo, q_hi;
-    query_range(own0, BO, a.Sq, a.Skv, a.causal, a.window, q_lo, q_hi);
-    for (int g = 0; g < G; ++g)
-      for (int o0 = q_lo / BT * BT; o0 < q_hi; o0 += BT)
-        step((b * a.H + kvh * G + g), o0);
-  } else {
-    for (int o0 = t.k_lo / BT * BT; o0 < t.k_hi; o0 += BT) step(bh_own, o0);
+  float acc[NACC];              // dV (or dQ); dK where SOLO
+  float acc2[SOLO && KVM ? NACC : 1];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < (SOLO && KVM ? NACC : 1); ++i) acc2[i] = 0.0f;
+  // S then P, and dP then dS (SOLO); else x: S then P (warpgroup 0) or dP
+  // then dS (1)
+  float x[32], y[SOLO ? 32 : 1];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < (SOLO ? 32 : 1); ++i) y[i] = 0.0f;
+  uint32_t f[4][4];             // P or dS in bf16: the A fragments
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int st = s % NST;
+    // step s's tiles have landed; every product of step s - 1 is done,
+    // so its stage is free for step s + NST - 1's copies
+    publish_stage<NST - 2>();
+    if (s + NST - 1 < n_steps) load_step(s + NST - 1, (s + NST - 1) % NST);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const uint32_t o1 = oth + st * 2 * TILE, o2 = o1 + TILE;
+    const int o0 = other_row0(s);
+    const int k0 = KVM ? own0 + wrow : o0, q0 = KVM ? o0 : own0 + wrow;
+    // one copy of the step for the tiles masked pair by pair, one for the
+    // rest (with no masking code in it)
+    auto step = [&](auto masked_flag) {
+      constexpr bool MASKED = decltype(masked_flag)::value;
+      fence_regs(x);
+      fence_regs(y);
+      wgmma_fence();
+      if constexpr (SOLO) {
+        qk_products<NDB * 4>(x, wgmma_desc(own1 + wg * TILE, 16, 1024),
+                             wgmma_desc(o1, 16, 1024));
+        qk_products<NDB * 4>(y, wgmma_desc(own2 + wg * TILE, 16, 1024),
+                             wgmma_desc(o2, 16, 1024));
+      } else {
+        qk_products<NDB * 4>(x, wgmma_desc(wg ? own2 : own1, 16, 1024),
+                             wgmma_desc(wg ? o2 : o1, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(x);
+      fence_regs(y);
+
+      // rows in the tile that see no key (lse NEG_INF): weights 1 / Skv on
+      // every key, no gradient to Q or K
+      const bool dead_rows =
+          MASKED && a.window && q0 + 63 >= a.Skv + a.window - 1;
+      const float* const lse_s = rows_s + st * 128;
+      // P = exp(S - lse), in x (SOLO, or warpgroup 0)
+      auto form_p = [&]() {
+        // each row's lse in log2 units: the other side's 16 columns of this
+        // thread (dK/dV), the own two rows (dQ)
+        float l2c[16];
+#pragma unroll
+        for (int n = 0; n < 16; ++n)
+          l2c[n] = KVM ? lse_log2(lse_s[col0 + 8 * (n / 2) + (n % 2)]) : 0.0f;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = rr0 + 8 * ((i / 2) % 2);
+          const int c = col0 + 8 * (i / 4) + (i % 2);
+          const float l2 =
+              KVM ? l2c[2 * (i / 4) + (i % 2)] : l2own[(i / 2) % 2];
+          float p = ex2(fmaf(x[i], scale_log2, -l2));
+          if constexpr (MASKED) {
+            const int qi = KVM ? q0 + c : q0 + r, kj = KVM ? k0 + r : k0 + c;
+            const bool valid = qi < a.Sq && kj < a.Skv;
+            const bool keep = valid && !(a.causal && kj > qi) &&
+                              !(a.window && qi - kj >= a.window);
+            p = keep ? p : 0.0f;
+            if (dead_rows && l2 == -INFINITY) p = valid ? inv_skv : 0.0f;
+          }
+          x[i] = p;
+        }
+      };
+      // dS = P (dP - Delta) scale from P in p(i) and dP in d, into d
+      auto form_ds = [&](auto p, float (&d)[32]) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int c = col0 + 8 * (i / 4) + (i % 2);
+          const float dl = KVM ? lse_s[64 + c] : dlown[(i / 2) % 2];
+          float ds = p(i) * (d[i] - dl) * a.scale;
+          if (dead_rows &&
+              (KVM ? lse_s[c] == NEG_INF : l2own[(i / 2) % 2] == -INFINITY))
+            ds = 0.0f;
+          d[i] = ds;
+        }
+      };
+      auto pack = [&](uint32_t (&fr)[4][4], const float (&v)[32]) {
+        fence_regs(fr);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int h = 0; h < 4; ++h)
+            fr[kk][h] = pack_bf16(v[8 * kk + 2 * h], v[8 * kk + 2 * h + 1]);
+      };
+      if constexpr (SOLO) {
+        form_p();
+        if constexpr (KVM) {
+          // dV += P^T dO runs while dS is formed; then dK += dS^T Q, its A
+          // fragments in the same registers once dV's product is done
+          pack(f, x);
+          fence_regs(acc);
+          wgmma_fence();
+          pv_product<NDB>(acc, f, o2);
+          form_ds([&](int i) { return x[i]; }, y);
+          wgmma_wait<0>();
+          fence_regs(acc);
+          pack(f, y);
+          fence_regs(acc2);
+          wgmma_fence();
+          pv_product<NDB>(acc2, f, o1);
+          wgmma_wait<0>();
+          fence_regs(acc2);
+        } else {
+          form_ds([&](int i) { return x[i]; }, y);
+          pack(f, y);
+          fence_regs(acc);
+          wgmma_fence();
+          pv_product<NDB>(acc, f, o1);  // dQ += dS K
+          wgmma_wait<0>();
+          fence_regs(acc);
+        }
+      } else {
+        if (wg == 0) {
+          form_p();
+#pragma unroll
+          for (int i = 0; i < 32; ++i) xp[i * 128 + t] = x[i];
+          bar_arrive(1);
+          pack(f, x);             // P, for dV
+        } else {
+          bar_wait(1);
+          form_ds([&](int i) { return xp[i * 128 + t]; }, x);
+          pack(f, x);             // dS, for dK or dQ
+        }
+        if constexpr (KVM) {
+          // warpgroup 0: dV += P^T dO; warpgroup 1: dK += dS^T Q
+          fence_regs(acc);
+          wgmma_fence();
+          pv_product<NDB>(acc, f, wg ? o1 : o2);
+          wgmma_wait<0>();
+          fence_regs(acc);
+        } else {
+          // dQ += dS K, warpgroup w taking D / 2 columns from w D / 2
+          if (wg == 1) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+              for (int h = 0; h < 4; ++h) xd[(kk * 4 + h) * 128 + t] = f[kk][h];
+            bar_arrive(2);
+          } else {
+            bar_wait(2);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+              for (int h = 0; h < 4; ++h) f[kk][h] = xd[(kk * 4 + h) * 128 + t];
+          }
+          fence_regs(acc);
+          fence_regs(f);
+          wgmma_fence();
+          pv_product<NDB / 2>(acc, f, o1 + wg * (NDB / 2) * BLOCK_BYTES);
+          wgmma_wait<0>();
+          fence_regs(acc);
+        }
+      }
+    };
+    // a warpgroup whose 64 rows keep no pair of the tile skips it, unless
+    // a row there sees no key
+    if (!pair_tile_masked(k0, q0, a))
+      step(std::false_type{});
+    else if (!SOLO || !pair_tile_empty(k0, q0, a) ||
+             (a.window && q0 + 63 >= a.Skv + a.window - 1))
+      step(std::true_type{});
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 
-  // acc1 is dK (or dQ), acc2 dV: rows of the own tile, in bf16
-  bf16* out1;
-  bf16* out2 = nullptr;
-  int valid;
   if constexpr (KVM) {
-    const size_t kv_off = (size_t)blockIdx.x * a.Skv * D;
-    out1 = static_cast<bf16*>(a.dk) + kv_off;
-    out2 = static_cast<bf16*>(a.dv) + kv_off;
-    valid = a.Skv;
-  } else {
-    out1 = static_cast<bf16*>(a.dq) + (size_t)bh_own * a.Sq * D;
-    valid = a.Sq;
-  }
+    // This rank's partials in fp32 over the tiles (every product and read
+    // of them is done): dV rows then dK rows, ROWS each, of D + 4.
+    constexpr int RS = D + 4;
+    float* const red = reinterpret_cast<float*>(base_p);
+    __syncthreads();
 #pragma unroll
-  for (int nb = 0; nb < NB2; ++nb)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = own0 + wr * 16 + lane / 4 + 8 * hh;
-      const int col = wc * NB2 * 8 + nb * 8 + 2 * (lane % 4);
-      if (row < valid) {
-        *reinterpret_cast<__nv_bfloat162*>(out1 + (size_t)row * D + col) =
-            __floats2bfloat162_rn(acc1[nb][2 * hh], acc1[nb][2 * hh + 1]);
-        if constexpr (KVM)
-          *reinterpret_cast<__nv_bfloat162*>(out2 + (size_t)row * D + col) =
-              __floats2bfloat162_rn(acc2[nb][2 * hh], acc2[nb][2 * hh + 1]);
+    for (int i = 0; i < NACC; i += 2) {
+      const int r = rr0 + 8 * ((i / 2) % 2);
+      const int col = 8 * (i / 4) + col0;
+      if (col < D) {
+        if constexpr (SOLO) {
+          *reinterpret_cast<float2*>(red + (wrow + r) * RS + col) =
+              make_float2(acc[i], acc[i + 1]);
+          *reinterpret_cast<float2*>(red + (ROWS + wrow + r) * RS + col) =
+              make_float2(acc2[i], acc2[i + 1]);
+        } else {
+          *reinterpret_cast<float2*>(red + (wg * 64 + r) * RS + col) =
+              make_float2(acc[i], acc[i + 1]);
+        }
       }
     }
+    cluster_sync();
+    // Rank `rank` sums its slice of the rows' 4-column chunks over the
+    // ranks in rank order and writes them.
+    constexpr int N4 = 2 * ROWS * D / 4;
+    const int lo = rank * N4 / R, hi = (rank + 1) * N4 / R;
+    const size_t kv_off = (size_t)blockIdx.y * a.Skv * D;
+    for (int e = lo + tid; e < hi; e += BWD_THREADS) {
+      const int m = e * 4 / D, col = e * 4 % D;
+      const uint32_t addr = smem_u32(red + m * RS + col);
+      float4 v = ld_cluster16(addr, 0);
+      for (int q = 1; q < R; ++q) {
+        const float4 w = ld_cluster16(addr, q);
+        v.x += w.x;
+        v.y += w.y;
+        v.z += w.z;
+        v.w += w.w;
+      }
+      const int row = own0 + m % ROWS;
+      if (row < a.Skv) {
+        bf16* const out = static_cast<bf16*>(m < ROWS ? a.dv : a.dk) +
+                          kv_off + (size_t)row * D + col;
+        const __nv_bfloat162 lo2 = __floats2bfloat162_rn(v.x, v.y);
+        const __nv_bfloat162 hi2 = __floats2bfloat162_rn(v.z, v.w);
+        uint2 packed;
+        packed.x = *reinterpret_cast<const uint32_t*>(&lo2);
+        packed.y = *reinterpret_cast<const uint32_t*>(&hi2);
+        *reinterpret_cast<uint2*>(out) = packed;
+      }
+    }
+    cluster_sync();             // no block leaves while read remotely
+  } else {
+    // each warpgroup its own rows (SOLO) or its half of the columns
+    const int cb = SPLIT ? wg * (D / 2) : 0;
+    bf16* const out = static_cast<bf16*>(a.dq) + (size_t)bh_own * a.Sq * D;
+#pragma unroll
+    for (int i = 0; i < NACC; i += 2) {
+      const int row = own0 + wrow + rr0 + 8 * ((i / 2) % 2);
+      const int col = cb + 8 * (i / 4) + col0;
+      if (row < a.Sq && col < D)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * D + col) =
+            __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    }
+  }
 }
 
 // ---- fp32 on the CUDA cores -----------------------------------------------
@@ -1232,35 +1491,46 @@ int set_smem(Kernel kernel, int bytes) {
 }
 
 // The three launches of K5b at head dim D; `bf16` picks the tensor-core
-// kernels.  The shared-memory limits are raised once a kernel and process.
+// kernels, whose dK/dV pass runs in clusters of `cluster` blocks.  The
+// shared-memory limits are raised once a kernel and process.
 template <int D, bool BF16>
 int launch_bwd(const BwdArgs& a, const void* o, float* delta, int B,
-               cudaStream_t stream) {
-  const int rows = B * a.H * a.Sq;
-  if (BF16)
-    flash_bwd_delta_kernel<__nv_bfloat16><<<(rows + 7) / 8, 256, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(o),
-        static_cast<const __nv_bfloat16*>(a.dout), delta, rows, D);
-  else
+               int cluster, cudaStream_t stream) {
+  int err;
+  if constexpr (BF16) {
+    constexpr int smem = bwd_bf16_smem_bytes<D>();
+    static const int attr_kv = set_smem(flash_bwd_bf16_kernel<D, true>, smem);
+    static const int attr_q = set_smem(flash_bwd_bf16_kernel<D, false>, smem);
+    if (attr_kv) return attr_kv;
+    if (attr_q) return attr_q;
+    constexpr int rows = bwd_rows<D>();
+    // the dQ pass first: it writes Delta, which the dK/dV pass reads
+    flash_bwd_bf16_kernel<D, false>
+        <<<dim3(B * a.H, (a.Sq + rows - 1) / rows), BWD_THREADS, smem,
+           stream>>>(a);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster, B * a.KV, (a.Skv + rows - 1) / rows);
+    cfg.blockDim = dim3(BWD_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = static_cast<int>(
+        cudaLaunchKernelEx(&cfg, flash_bwd_bf16_kernel<D, true>, a));
+  } else {
+    const int rows = B * a.H * a.Sq;
     flash_bwd_delta_kernel<float><<<(rows + 7) / 8, 256, 0, stream>>>(
         static_cast<const float*>(o), static_cast<const float*>(a.dout), delta,
         rows, D);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  if constexpr (BF16) {
-    constexpr int BO = bwd_own_rows<D>();
-    constexpr int smem = bwd_smem_bytes<D, BO>();
-    static const int attr_kv = set_smem(flash_bwd_bf16_kernel<D, BO, true>, smem);
-    static const int attr_q = set_smem(flash_bwd_bf16_kernel<D, BO, false>, smem);
-    if (attr_kv) return attr_kv;
-    if (attr_q) return attr_q;
-    flash_bwd_bf16_kernel<D, BO, true>
-        <<<dim3(B * a.KV, (a.Skv + BO - 1) / BO), BWD_THREADS, smem, stream>>>(a);
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
-    flash_bwd_bf16_kernel<D, BO, false>
-        <<<dim3(B * a.H, (a.Sq + BO - 1) / BO), BWD_THREADS, smem, stream>>>(a);
-  } else {
     constexpr int smem = bwd_f32_smem_bytes<D>();
     static const int attr_kv = set_smem(flash_bwd_f32_kernel<D, true>, smem);
     static const int attr_q = set_smem(flash_bwd_f32_kernel<D, false>, smem);
@@ -1275,6 +1545,7 @@ int launch_bwd(const BwdArgs& a, const void* o, float* delta, int B,
         <<<dim3(B * a.H, (a.Sq + F_BO - 1) / F_BO), BWD_THREADS, smem,
            stream>>>(a);
   }
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1314,35 +1585,42 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
 
 // K5b.  q, o, dout, dq (B,H,Sq,D); k, v, dk, dv (B,KV,Skv,D), all contiguous
 // of dtype (fp32 or bf16) and 16-byte aligned; lse fp32 (B,H,Sq) as
-// flash_attention wrote it for these inputs; delta fp32 (B,H,Sq) scratch.
-// dq, dk and dv are written whole (zeros where no pair reaches them).
-// Launches three kernels on `stream` and returns cudaGetLastError().
+// flash_attention wrote it for these inputs; delta fp32 (B,H,Sq) scratch;
+// `cluster` (1..8) the ranks that split a KV head's query heads in the
+// bf16 dK/dV pass, as kernels/flash_attention.py::bwd_plan gives it.  dq,
+// dk and dv are written whole (zeros where no pair reaches them).  Launches
+// two kernels (bf16) or three (fp32) on `stream` and returns
+// cudaGetLastError().
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const float* lse,
                                    const void* dout, float* delta, void* dq,
                                    void* dk, void* dv, int B, int H, int KV,
                                    int Sq, int Skv, int D, float scale,
-                                   int causal, int window, int dtype,
-                                   void* stream) {
+                                   int causal, int window, int cluster,
+                                   int dtype, void* stream) {
+  if (cluster < 1 || cluster > MAX_CLUSTER)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, H, KV, Sq, Skv,
+  const BwdArgs a{q, k, v, dout, o, lse, delta, dq, dk, dv, H, KV, Sq, Skv,
                   scale, causal, window};
+#define ARGS a, o, delta, B, cluster, s
   if (dtype == DTYPE_F32) {
     switch (D) {
-      case 16: return launch_bwd<16, false>(a, o, delta, B, s);
-      case 32: return launch_bwd<32, false>(a, o, delta, B, s);
-      case 64: return launch_bwd<64, false>(a, o, delta, B, s);
-      case 128: return launch_bwd<128, false>(a, o, delta, B, s);
-      case 256: return launch_bwd<256, false>(a, o, delta, B, s);
+      case 16: return launch_bwd<16, false>(ARGS);
+      case 32: return launch_bwd<32, false>(ARGS);
+      case 64: return launch_bwd<64, false>(ARGS);
+      case 128: return launch_bwd<128, false>(ARGS);
+      case 256: return launch_bwd<256, false>(ARGS);
     }
   } else if (dtype == DTYPE_BF16) {
     switch (D) {
-      case 16: return launch_bwd<16, true>(a, o, delta, B, s);
-      case 32: return launch_bwd<32, true>(a, o, delta, B, s);
-      case 64: return launch_bwd<64, true>(a, o, delta, B, s);
-      case 128: return launch_bwd<128, true>(a, o, delta, B, s);
-      case 256: return launch_bwd<256, true>(a, o, delta, B, s);
+      case 16: return launch_bwd<16, true>(ARGS);
+      case 32: return launch_bwd<32, true>(ARGS);
+      case 64: return launch_bwd<64, true>(ARGS);
+      case 128: return launch_bwd<128, true>(ARGS);
+      case 256: return launch_bwd<256, true>(ARGS);
     }
   }
+#undef ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

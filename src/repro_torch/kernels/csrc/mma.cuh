@@ -1,8 +1,7 @@
 // Tensor-core operands shared by the kernels: the splits that carry fp32
 // values through 10-bit (TF32) and 8-bit (bf16) mantissas as hi + lo pairs
 // (systolic_matmul.cu's wgmma, ssd.cu's mma.sync), the warp-level mma.sync
-// products ssd.cu and flash_attention.cu's backward run, and the ldmatrix
-// loads of A and B fragments.
+// products ssd.cu runs, and the ldmatrix loads of A and B fragments.
 //
 // Fragments of mma.sync (PTX ISA, "warp-level matrix fragments"), lane l,
 // g = l / 4, t = l % 4:

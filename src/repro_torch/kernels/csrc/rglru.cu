@@ -273,9 +273,36 @@ rglru_chunked_kernel(const Args a) {
   if (R > 1) cluster_sync();            // no block leaves while read remotely
 }
 
-// The launch: clusters of R blocks along x, as many along y as the card
-// holds at once (at most one an item), each walking its items.  Fills
-// `cfg` (its cluster attribute in `cluster`).
+// The launch of `kernel` (its dynamic shared memory `smem`): clusters of R
+// blocks along x, as many along y as the card holds at once (at most one
+// an item), each walking its items.  Fills `cfg` (its cluster attribute in
+// `cluster`); `resident` caches the occupancy API's count by R.
+template <typename Kernel>
+int configure_kernel(Kernel kernel, int smem, int items, int R,
+                     cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                     cudaLaunchAttribute& cluster,
+                     int (&resident)[MAX_CLUSTER + 1]) {
+  cfg = {};
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = R;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  if (resident[R] == 0) {
+    cfg.gridDim = dim3(R, 1, 1);
+    const cudaError_t err =
+        cudaOccupancyMaxActiveClusters(&resident[R], kernel, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (resident[R] < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  cfg.gridDim = dim3(R, items < resident[R] ? items : resident[R], 1);
+  return 0;
+}
+
 template <typename E, bool KEEP>
 int configure(const Args& a, int R, cudaStream_t stream,
               cudaLaunchConfig_t& cfg, cudaLaunchAttribute& cluster) {
@@ -285,26 +312,9 @@ int configure(const Args& a, int R, cudaStream_t stream,
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<E>());
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  cfg = {};
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem_bytes<E>();
-  cfg.stream = stream;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = R;
-  cluster.val.clusterDim.y = 1;
-  cluster.val.clusterDim.z = 1;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
   static int resident[MAX_CLUSTER + 1] = {};   // clusters at once, by R
-  if (resident[R] == 0) {
-    cfg.gridDim = dim3(R, 1, 1);
-    const cudaError_t err =
-        cudaOccupancyMaxActiveClusters(&resident[R], kernel, &cfg);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (resident[R] < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  cfg.gridDim = dim3(R, a.items < resident[R] ? a.items : resident[R], 1);
-  return 0;
+  return configure_kernel(kernel, smem_bytes<E>(), a.items, R, stream, cfg,
+                          cluster, resident);
 }
 
 template <typename E, bool KEEP>
@@ -347,10 +357,9 @@ Args make_args(const void* x, const void* gx, const void* ga,
 //
 // What bounds it on the H100: the bytes, x, gx, ga, dy read and dx, dgx,
 // dga written in x's type and the fp32 states read once (18 B an element in
-// bf16: 189 MB at B 4, S 1024, W 2560, 0.056 ms at 3.35 TB/s).  This first
-// version is latency-bound instead: one thread a chain gives the layer
-// shape 10,240 threads; the forward's chunked scan over a cluster fits the
-// reverse recurrence and is later work.
+// bf16: 189 MB at B 4, S 1024, W 2560, 0.056 ms at 3.35 TB/s).  The
+// recurrence is serial in time, and the layer shape has 10,240 chains: one
+// thread a chain (this kernel's first version, 0.81 ms) is latency-bound.
 //
 // With g_t = dy_t + a_{t+1} g_{t+1} (the reverse recurrence, g past the
 // end 0), r = sigmoid(ga), i = sigmoid(gx), L = -8 r softplus(log_a),
@@ -360,14 +369,37 @@ Args make_args(const void* x, const void* gx, const void* ga,
 //   dga = dL (-8 softplus(log_a)) r (1 - r),   dh0 = a_0 g_0,
 //   dlog_a = -8 sigmoid(log_a) sum_{b,t} dL r,
 // the clip's derivative 0 where it holds, as JAX takes it; h_{t-1} the
-// forward's fp32 state (K7's h32; h0 before the first step).  One thread a
-// (batch row, channel), neighbouring threads neighbouring channels, walks
-// time backward, BWD_STEPS steps' loads issued ahead of their arithmetic; it
-// writes its share of dlog_a's sum, and a second launch sums the batch rows
-// in order (deterministic: no atomics).  The exponentials, sigmoids and
-// the square root are the IEEE forms.
-constexpr int BWD_BLOCK = 64;
-constexpr int BWD_STEPS = 8;
+// forward's fp32 state (K7's h32; h0 before the first step).
+//
+// What the design does about it: K7's chunked scan run backward in time.
+// The carry c_t = a_t g_t obeys c_{t-1} = a_t (c_t + dy_t): per step the
+// affine map (a_t, a_t dy_t), the forward's algebra with time reversed.
+// - Blocks, clusters and items as K7's: 32 channels (a lane each) x SUB
+//   sub-chunks (a warp each) of STEPS steps, clusters of R <= 8 blocks
+//   spanning a window, as many clusters as the card holds walking their
+//   items (batch row, 32-channel tile); each item's windows from the last
+//   to the first, the carry handed from one window to the one before it.
+// - Staging: x, gx, ga, dy and h_{t-1} (h32 one step earlier, h0 before
+//   step 0) tiles of the next unit copied by 16-byte cp.async into the
+//   other of two buffers while this unit computes.
+// - Pass 1: each thread forms a_t and r_t of its steps and its sub-chunk's
+//   composite from its last step to its first; the block folds the
+//   sub-chunks after each one (its suffix) in shared memory, publishes its
+//   own composite, and after one cluster barrier warp 0 folds the window's
+//   carry-in through the blocks after its own: the block's carry-in;
+//   through all R: the window before's.
+// - Pass 2: each thread walks its steps again, last to first, out of
+//   registers and the staged tile, writing dx, dgx, dga (and dh0 at step
+//   0) and summing dL r.
+// - dlog_a in a fixed order (no atomics): each thread's steps, the block's
+//   sub-chunks in order, published with the next unit's composite; rank 0
+//   adds the ranks in order and then the windows, writing the batch row's
+//   sum into dla (B, W); a second launch adds the batch rows in order.
+// - Numerics: the gates' sigmoids and the square root in K7's SFU forms
+//   (sigmoid_sfu, sqrt_sfu), exp(L) and exp(2 L) as accurate expf.
+// - Four blocks an SM at least: 128 registers a thread, no spill (two,
+//   three and six blocks were slower, tools/k7b_ablate.py).
+constexpr int BWD_MIN_BLOCKS = 4;       // resident blocks an SM, at least
 
 struct BwdArgs {
   const void* x;
@@ -381,68 +413,248 @@ struct BwdArgs {
   void* dgx;
   void* dga;
   float* dh0;
-  float* dla;         // (B, W): sum over t of dL r, this row's share
-  int B, S, W;
+  float* dla;         // (B, W): sum over t of dL r, each batch row's
+  int S, W, tiles, items, windows;
+  bool vec;           // 16-byte rows: copied asynchronously
 };
 
+// A block's dynamic shared memory: the (A, H) composites of each
+// sub-chunk, the block's published (A, H, sum of dL r of the unit before,
+// 0) by unit parity, the carries warp 0 forms, each thread's sum of dL r;
+// then two buffers of a unit's x, gx, ga, dy tiles (x's type) and its
+// h_{t-1} tile (fp32), SPAN steps x CH channels each.
+constexpr int BWD_HEAD_BYTES =
+    SUB * CH * 8 + 2 * CH * 16 + CH * 8 + SUB * CH * 4;
 template <typename E>
-__global__ void __launch_bounds__(BWD_BLOCK)
-rglru_bwd_kernel(const BwdArgs a) {
-  const long long idx = static_cast<long long>(blockIdx.x) * BWD_BLOCK +
-                        threadIdx.x;
-  if (idx >= static_cast<long long>(a.B) * a.W) return;
-  const int w = static_cast<int>(idx % a.W);
-  const long long b = idx / a.W;
-  const E* const X = static_cast<const E*>(a.x);
-  const E* const GX = static_cast<const E*>(a.gx);
-  const E* const GA = static_cast<const E*>(a.ga);
-  const E* const DY = static_cast<const E*>(a.dy);
+__host__ __device__ constexpr int bwd_buf_bytes() {
+  return SPAN * CH * (4 * static_cast<int>(sizeof(E)) + 4);
+}
+template <typename E>
+constexpr int bwd_smem_bytes() {
+  return BWD_HEAD_BYTES + 2 * bwd_buf_bytes<E>();
+}
+
+// One unit's tiles: steps [tb, tb + SPAN) of channels [c0, c0 + CH) of x,
+// gx, ga, dy and the states one step earlier (h0 for step 0) of batch row
+// b into `buf`, zeros past S and W.
+template <typename E>
+__device__ __forceinline__ void stage_bwd(unsigned char* buf,
+                                          const BwdArgs& a, long long b,
+                                          int tb, int c0) {
+  E* const tile = reinterpret_cast<E*>(buf);
+  float* const ht = reinterpret_cast<float*>(buf + 4 * SPAN * CH * sizeof(E));
+  const E* const src[4] = {
+      static_cast<const E*>(a.x), static_cast<const E*>(a.gx),
+      static_cast<const E*>(a.ga), static_cast<const E*>(a.dy)};
+  constexpr int PER = 16 / sizeof(E);   // elements a chunk
+  constexpr int ROW = CH / PER;         // chunks a step
+  if (a.vec) {
+    for (int c = threadIdx.x; c < 4 * SPAN * ROW; c += THREADS) {
+      const int arr = c / (SPAN * ROW), r = c / ROW % SPAN, k = c % ROW;
+      const int t = tb + r, w = c0 + k * PER;
+      const bool ok = t < a.S && w < a.W;
+      const E* g = ok ? src[arr] + (b * a.S + t) * a.W + w : src[arr];
+      cp_async16(smem_u32(tile + (arr * SPAN + r) * CH + k * PER), g, ok);
+    }
+    for (int c = threadIdx.x; c < SPAN * (CH / 4); c += THREADS) {
+      const int r = c / (CH / 4), k = c % (CH / 4);
+      const int t = tb + r - 1, w = c0 + k * 4;
+      const bool ok = t < a.S && w < a.W;
+      const float* g = !ok ? a.h0
+                       : t < 0 ? a.h0 + b * a.W + w
+                               : a.h32 + (b * a.S + t) * a.W + w;
+      cp_async16(smem_u32(ht + r * CH + k * 4), g, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < 4 * SPAN * CH; e += THREADS) {
+      const int arr = e / (SPAN * CH), r = e / CH % SPAN, k = e % CH;
+      const int t = tb + r, w = c0 + k;
+      tile[e] = t < a.S && w < a.W ? src[arr][(b * a.S + t) * a.W + w]
+                                   : from_f32<E>(0.0f);
+    }
+    for (int e = threadIdx.x; e < SPAN * CH; e += THREADS) {
+      const int r = e / CH, k = e % CH;
+      const int t = tb + r - 1, w = c0 + k;
+      ht[e] = !(t < a.S && w < a.W) ? 0.0f
+              : t < 0 ? a.h0[b * a.W + w]
+                      : a.h32[(b * a.S + t) * a.W + w];
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <typename E>
+__global__ void __launch_bounds__(THREADS, BWD_MIN_BLOCKS)
+rglru_bwd_chunked_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2(*comp)[CH] = reinterpret_cast<float2(*)[CH]>(smem);
+  float4(*pub)[CH] = reinterpret_cast<float4(*)[CH]>(smem + SUB * CH * 8);
+  float2* carry = reinterpret_cast<float2*>(smem + SUB * CH * 8 + 2 * CH * 16);
+  float(*psum)[CH] = reinterpret_cast<float(*)[CH]>(
+      smem + SUB * CH * 8 + 2 * CH * 16 + CH * 8);
+  unsigned char* const bufs = smem + BWD_HEAD_BYTES;
+  constexpr int BUF = bwd_buf_bytes<E>();
   E* const DX = static_cast<E*>(a.dx);
   E* const DGX = static_cast<E*>(a.dgx);
   E* const DGA = static_cast<E*>(a.dga);
-  const float c_sp = -8.0f * softplus_f32(a.log_a[w]);
-  const long long row = b * a.S * a.W + w;     // element (b, 0, w)
-  float carry = 0.0f, sum = 0.0f;              // a_{t+1} g_{t+1}; sum dL r
-  for (int t1 = a.S; t1 > 0; t1 -= BWD_STEPS) {
-    // steps t1 - 1 down to t1 - BWD_STEPS: every load first
-    float xv[BWD_STEPS], gxv[BWD_STEPS], gav[BWD_STEPS], dyv[BWD_STEPS],
-        hv[BWD_STEPS];
+  const int c = threadIdx.x % CH;
+  const int j = threadIdx.x / CH;
+  const int R = gridDim.x;              // the cluster spans grid x
+  const int rank = blockIdx.x;
+  // this cluster's units: its items, each the time axis's windows from the
+  // last to the first
+  const int mine = (a.items - blockIdx.y + gridDim.y - 1) / gridDim.y;
+  const int units = mine * a.windows;
+  auto unit_tb = [&](int u) {
+    return ((a.windows - 1 - u % a.windows) * R + rank) * SPAN;
+  };
+  auto unit_item = [&](int u) {
+    return blockIdx.y + u / a.windows * gridDim.y;
+  };
+  // rank 0, warp 0: the item's sum of dL r so far, over ranks and windows;
+  // its channel in dla written when the item's last unit is summed
+  float dsum = 0.0f;
+  auto add_sums = [&](int u, const float4 (&e)[MAX_CLUSTER]) {
+    float s = 0.0f;
 #pragma unroll
-    for (int i = 0; i < BWD_STEPS; ++i) {
-      const int t = t1 - 1 - i;
-      if (t >= 0) {
-        const long long o = row + static_cast<long long>(t) * a.W;
-        xv[i] = to_f32(X[o]);
-        gxv[i] = to_f32(GX[o]);
-        gav[i] = to_f32(GA[o]);
-        dyv[i] = to_f32(DY[o]);
-        hv[i] = t > 0 ? a.h32[o - a.W] : a.h0[b * a.W + w];
+    for (int r = 0; r < MAX_CLUSTER; ++r)
+      if (r < R) s += e[r].z;
+    dsum += s;
+    if (u % a.windows == a.windows - 1) {     // the item's first window
+      const int it = unit_item(u);
+      const int w = it % a.tiles * CH + c;
+      if (w < a.W) a.dla[static_cast<long long>(it / a.tiles) * a.W + w] = dsum;
+      dsum = 0.0f;
+    }
+  };
+  if (units > 0) {
+    const int it = unit_item(0);
+    stage_bwd<E>(bufs, a, it / a.tiles, unit_tb(0), it % a.tiles * CH);
+  }
+  float sp = 0.0f, cw = 0.0f;           // -8 softplus; window carry-in
+  for (int u = 0; u < units; ++u) {
+    const int it = unit_item(u);
+    const long long b = it / a.tiles;
+    const int w = it % a.tiles * CH + c;
+    const bool inw = w < a.W;
+    if (u % a.windows == 0) {
+      sp = inw ? -8.0f * softplus_f32(a.log_a[w]) : 0.0f;
+      cw = 0.0f;
+    }
+    if (u + 1 < units) {
+      const int nit = unit_item(u + 1);
+      stage_bwd<E>(bufs + ((u + 1) & 1) * BUF, a, nit / a.tiles,
+                   unit_tb(u + 1), nit % a.tiles * CH);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    const unsigned char* const buf = bufs + (u & 1) * BUF;
+    const E* const tile = reinterpret_cast<const E*>(buf);
+    const float* const ht =
+        reinterpret_cast<const float*>(buf + 4 * SPAN * CH * sizeof(E));
+    const int t0 = unit_tb(u) + j * STEPS;
+    // pass 1: a_t, r_t of this thread's steps and their composite, from
+    // the last step to the first; past S a = 1 and dy = 0, the identity
+    float av[STEPS], rv[STEPS];
+    float A = 1.0f, H = 0.0f;
+#pragma unroll
+    for (int i = STEPS - 1; i >= 0; --i) {
+      const int off = (j * STEPS + i) * CH + c;
+      rv[i] = sigmoid_sfu(to_f32(tile[2 * SPAN * CH + off]));
+      av[i] = t0 + i < a.S ? expf(sp * rv[i]) : 1.0f;
+      fold(A, H, av[i], av[i] * to_f32(tile[3 * SPAN * CH + off]));
+    }
+    comp[j][c] = make_float2(A, H);
+    __syncthreads();
+    // this thread's suffix: the block's sub-chunks after its own
+    float PA = 1.0f, PH = 0.0f;
+#pragma unroll
+    for (int k = SUB - 1; k > 0; --k)
+      if (k > j) fold(PA, PH, comp[k][c].x, comp[k][c].y);
+    if (j == 0) {
+      float TA = PA, TH = PH;
+      fold(TA, TH, A, H);
+      // with it, the block's sum of dL r of the unit before, sub-chunks in
+      // order (psum is written after this unit's barriers)
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < SUB; ++k) s += psum[k][c];
+      pub[u & 1][c] = make_float4(TA, TH, s, 0.0f);
+    }
+    cluster_sync();                     // every block's composite published
+    if (j == 0) {
+      float4 e[MAX_CLUSTER];
+      const uint32_t addr = smem_u32(&pub[u & 1][c]);
+#pragma unroll
+      for (int r = 0; r < MAX_CLUSTER; ++r)
+        if (r < R) e[r] = ld_cluster16(addr, r);
+      // the window's carry through the blocks after this one, and through
+      // all R for the window before
+      float h = cw, hin = cw;
+#pragma unroll
+      for (int r = MAX_CLUSTER - 1; r >= 0; --r) {
+        if (r < R) {
+          if (r == rank) hin = h;
+          h = fmaf(e[r].x, h, e[r].y);
+        }
+      }
+      carry[c] = make_float2(hin, h);
+      if (rank == 0 && u > 0) add_sums(u - 1, e);
+    }
+    __syncthreads();
+    const float2 cr = carry[c];
+    cw = cr.y;
+    // pass 2: from this sub-chunk's carry-in, its steps last to first
+    float cc = fmaf(PA, cr.x, PH);
+    float part = 0.0f;
+#pragma unroll
+    for (int i = STEPS - 1; i >= 0; --i) {
+      const int t = t0 + i;
+      const int off = (j * STEPS + i) * CH + c;
+      const float xi = to_f32(tile[off]);
+      const float ig = sigmoid_sfu(to_f32(tile[SPAN * CH + off]));
+      const float g = to_f32(tile[3 * SPAN * CH + off]) + cc;
+      const float L = sp * rv[i];
+      const float e2 = expf(2.0f * L);
+      const float uu = 1.0f - e2;
+      const float m = sqrt_sfu(fmaxf(uu, 1e-12f));
+      const float gi = g * ig;
+      const float dL = g * ht[(j * STEPS + i) * CH + c] * av[i] +
+                       (uu > 1e-12f ? -gi * xi * __fdividef(e2, m) : 0.0f);
+      cc = av[i] * g;
+      if (inw && t < a.S) {
+        const long long o = (b * a.S + t) * a.W + w;
+        DX[o] = from_f32<E>(gi * m);
+        DGX[o] = from_f32<E>(gi * m * xi * (1.0f - ig));
+        DGA[o] = from_f32<E>(dL * sp * rv[i] * (1.0f - rv[i]));
+        part = fmaf(dL, rv[i], part);
+        if (t == 0) a.dh0[b * a.W + w] = cc;
       }
     }
+    psum[j][c] = part;
+  }
+  if (units > 0) {
+    // the last unit's sums, published alone
+    __syncthreads();
+    if (j == 0) {
+      float s = 0.0f;
 #pragma unroll
-    for (int i = 0; i < BWD_STEPS; ++i) {
-      const int t = t1 - 1 - i;
-      if (t >= 0) {
-        const float r = sigmoid_f32(gav[i]), ig = sigmoid_f32(gxv[i]);
-        const float L = c_sp * r;
-        const float av = expf(L), e2 = expf(2.0f * L);
-        const float u = 1.0f - e2;
-        const float m = sqrtf(fmaxf(u, 1e-12f));
-        const float g = dyv[i] + carry;
-        const float gi = g * ig;
-        const float dL = g * hv[i] * av +
-                         (u > 1e-12f ? -gi * xv[i] * e2 / m : 0.0f);
-        const long long o = row + static_cast<long long>(t) * a.W;
-        DX[o] = from_f32<E>(gi * m);
-        DGX[o] = from_f32<E>(gi * m * xv[i] * (1.0f - ig));
-        DGA[o] = from_f32<E>(dL * c_sp * r * (1.0f - r));
-        sum = fmaf(dL, r, sum);
-        carry = av * g;
-      }
+      for (int k = 0; k < SUB; ++k) s += psum[k][c];
+      pub[units & 1][c].z = s;
+    }
+    cluster_sync();
+    if (j == 0 && rank == 0) {
+      float4 e[MAX_CLUSTER];
+      const uint32_t addr = smem_u32(&pub[units & 1][c]);
+#pragma unroll
+      for (int r = 0; r < MAX_CLUSTER; ++r)
+        if (r < R) e[r] = ld_cluster16(addr, r);
+      add_sums(units - 1, e);
     }
   }
-  a.dh0[b * a.W + w] = carry;
-  a.dla[b * a.W + w] = sum;
+  cluster_sync();                       // no block leaves while read remotely
 }
 
 __global__ void __launch_bounds__(256)
@@ -454,6 +666,24 @@ rglru_bwd_log_a_kernel(const float* __restrict__ dla,
   float sum = 0.0f;
   for (int b = 0; b < B; ++b) sum += dla[static_cast<long long>(b) * W + w];
   dlog_a[w] = -8.0f * sigmoid_f32(log_a[w]) * sum;
+}
+
+template <typename E>
+int launch_bwd(const BwdArgs& a, int R, cudaStream_t stream) {
+  auto kernel = rglru_bwd_chunked_kernel<E>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_smem_bytes<E>());
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static int resident[MAX_CLUSTER + 1] = {};
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute cluster;
+  const int err = configure_kernel(kernel, bwd_smem_bytes<E>(), a.items, R,
+                                   stream, cfg, cluster, resident);
+  if (err != 0) return err;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -513,27 +743,26 @@ extern "C" int rglru_scan(const void* x, const void* gx, const void* ga,
 
 // K7b.  x, gx, ga, dy, dx, dgx, dga (B, S, W) of one element type; log_a
 // (W,), h0 (B, W), h32 (B, S, W) (K7's kept states for these inputs), dh0
-// and dla (B, W), dlog_a (W,) fp32; all row-major on the device.  Launches
+// and dla (B, W, scratch), dlog_a (W,) fp32; all row-major on the device;
+// `cluster` blocks (1..8) along the time axis, as K7 takes it.  Launches
 // two kernels on `stream` and returns cudaGetLastError().
 extern "C" int rglru_scan_bwd(const void* x, const void* gx, const void* ga,
                               const float* log_a, const float* h0,
                               const float* h32, const void* dy, void* dx,
                               void* dgx, void* dga, float* dh0, float* dla,
-                              float* dlog_a, int B, int S, int W, int dtype,
-                              void* stream) {
-  if (bad_args(B, S, W, 1, dtype))
+                              float* dlog_a, int B, int S, int W, int cluster,
+                              int dtype, void* stream) {
+  if (bad_args(B, S, W, cluster, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args f = make_args(x, gx, ga, log_a, h0, nullptr, nullptr, B, S, W,
+                           cluster, dtype);
   const BwdArgs a{x, gx, ga, dy, log_a, h0, h32, dx, dgx, dga, dh0, dla,
-                  B, S, W};
-  const long long chains = static_cast<long long>(B) * W;
-  const int blocks = static_cast<int>((chains + BWD_BLOCK - 1) / BWD_BLOCK);
-  if (dtype == DTYPE_F32)
-    rglru_bwd_kernel<float><<<blocks, BWD_BLOCK, 0, s>>>(a);
-  else
-    rglru_bwd_kernel<__nv_bfloat16><<<blocks, BWD_BLOCK, 0, s>>>(a);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+                  S, W, f.tiles, f.items, f.windows,
+                  f.vec && aligned16(dy) && aligned16(h0) && aligned16(h32)};
+  const int err = dtype == DTYPE_F32 ? launch_bwd<float>(a, cluster, s)
+                                     : launch_bwd<__nv_bfloat16>(a, cluster, s);
+  if (err != 0) return err;
   rglru_bwd_log_a_kernel<<<(W + 255) / 256, 256, 0, s>>>(dla, log_a, dlog_a,
                                                          B, W);
   return static_cast<int>(cudaGetLastError());

@@ -13,7 +13,11 @@ needs no tile to divide Sq or Skv.
 FlashAttention-2's decomposition: P recomputed from the forward's
 log-sum-exp (``return_lse``), Delta = rowsum(dO o O), dK and dV summed over
 each KV head's query heads inside the kernel, no atomics.  bf16 runs its
-products on ``mma.sync``, fp32 on the CUDA cores.  The TPU side has no such
+products on ``wgmma`` with the other side's tiles copied one step ahead,
+its dK/dV pass splitting a KV head's query heads over the ranks of a
+thread-block cluster (``bwd_plan``; ``tests/test_torch_attention_bwd_split.py``
+holds a plain model of that split against the JAX package); fp32 runs on
+the CUDA cores.  The TPU side has no such
 kernel: the JAX package differentiates ``models/layers.py::
 blocked_attention`` by autodiff.  ``flash_attention_bwd_plain`` is the same
 arithmetic in fp32 PyTorch, and ``FlashAttention`` the autograd function
@@ -26,6 +30,7 @@ gradient to Q or K.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -34,6 +39,13 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
+# K5b's bf16 kernels (csrc/flash_attention.cu): rows of an other-side tile
+# (and of the own tile at head dim 256; 128 own rows, 64 a warpgroup,
+# below); the most ranks a cluster of the dK/dV pass has; the SMs the plan
+# assumes where it is not told the card's (an H100 SXM's).
+BWD_TILE = 64
+MAX_CLUSTER = 8
+SMS = 132
 
 
 def _mask(Sq: int, Skv: int, causal: bool, window: int, device
@@ -102,6 +114,59 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
             dv.to(v.dtype))
 
 
+def bwd_rows(D: int) -> int:
+    """Own rows of a K5b bf16 block at head dim D: keys of the dK/dV
+    pass, query rows of the dQ pass."""
+    return 2 * BWD_TILE if D <= 128 else BWD_TILE
+
+
+def bwd_query_tiles(kt: int, Sq: int, Skv: int, causal: bool, window: int,
+                    rows: int = BWD_TILE) -> range:
+    """The 64-row query tiles K5b's dK/dV pass walks for the key tile
+    ``kt`` of ``rows`` keys: the rows that see any of its keys (causal rows
+    from its first key on, with a window those before its last key +
+    window), every row where some row sees no key (it weighs every key)."""
+    k0 = kt * rows
+    q_lo = k0 if causal else 0
+    q_hi = (min(Sq, k0 + rows - 1 + window)
+            if window and Sq < Skv + window else Sq)
+    if q_hi <= q_lo:
+        return range(0)
+    return range(q_lo // BWD_TILE, -(-q_hi // BWD_TILE))
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(B: int, H: int, KV: int, Sq: int, Skv: int, D: int,
+             causal: bool = True, window: int = 0, sms: int = SMS,
+             cluster: int = 0) -> dict:
+    """K5b's bf16 dK/dV pass at these shapes: the ``cluster`` of R ranks
+    that split each KV head's G = H / KV query heads (rank r takes
+    ``heads[r]`` = r, r + R, ...), the key tiles of ``key_rows`` keys in
+    launch order (``key_tiles``, the heaviest first) and the
+    ``query_tiles`` each walks.  A block is (b, KV head, key tile, rank)
+    and walks its heads' query tiles; R is ``cluster`` where given, else
+    the smallest that brings the longest such walk down to the card's
+    share of all of them (``sms`` blocks at once), or as near as R <=
+    min(8, G) comes."""
+    G = H // KV
+    rows = bwd_rows(D)
+    nk = -(-Skv // rows)
+    tiles = tuple(tuple(bwd_query_tiles(kt, Sq, Skv, causal, window, rows))
+                  for kt in range(nk))
+    longest = max(map(len, tiles))
+    share = B * KV * G * sum(map(len, tiles)) / sms
+    if not 0 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"bwd_plan: cluster {cluster}, want 1..{MAX_CLUSTER}")
+    cluster = cluster or min(range(1, min(MAX_CLUSTER, G) + 1),
+                             key=lambda r: (max(-(-G // r) * longest, share),
+                                            r))
+    order = tuple(range(nk)) if causal else tuple(reversed(range(nk)))
+    return {"cluster": cluster,
+            "heads": tuple(tuple(range(r, G, cluster))
+                           for r in range(cluster)),
+            "key_rows": rows, "key_tiles": order, "query_tiles": tiles}
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if lib.flash_attention.argtypes is None:
@@ -111,9 +176,14 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention.restype = ctypes.c_int
         lib.flash_attention_bwd.argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float]
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.flash_attention_bwd.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_qkv(kernel: str, q, k, v) -> None:
@@ -185,13 +255,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    cluster = (bwd_plan(B, H, KV, Sq, Skv, D, bool(causal), int(window),
+                        _sms(q.device))["cluster"]
+               if q.dtype == torch.bfloat16 else 1)
     lib = _lib()
     with torch.cuda.device(q.device):
         code = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, H, KV, Sq, Skv, D,
-            1.0 / math.sqrt(D), int(causal), int(window),
+            1.0 / math.sqrt(D), int(causal), int(window), cluster,
             _build.dtype_code(q.dtype), _build.stream_of(q))
     _build.check(lib, code, "flash_attention_bwd")
     flash_attention_bwd.launches += 1

@@ -21,9 +21,12 @@ from ``launch_plan``), each block ``SUBCHUNKS`` sub-chunks of
 decomposition against the JAX package.
 
 ``rglru_scan_bwd`` launches K7b, the scan's gradient: the reverse
-recurrence g_t = dy_t + a_{t+1} g_{t+1} in fp32, one thread a (batch row,
-channel), giving dx, dgx, dga, dh0 and dlog_a (summed over B and S in a
-fixed order).  It reads the forward's fp32 states (``rglru_scan(...,
+recurrence g_t = dy_t + a_{t+1} g_{t+1} in fp32, as K7's chunked scan run
+backward in time (the same block, plan and cluster; each item's windows
+from the last to the first), giving dx, dgx, dga, dh0 and dlog_a (summed
+over B and S in a fixed order: each thread's steps, the sub-chunks, the
+ranks, the windows, the batch rows); ``tests/test_torch_rglru_bwd_chunks.py``
+holds a plain model of that decomposition against the JAX package.  It reads the forward's fp32 states (``rglru_scan(...,
 keep_states=True)``), as JAX's autodiff of ``models/layers.py::rglru``
 keeps them.  The TPU side has no such kernel.  ``rglru_scan_bwd_plain`` is
 the same gradient in fp32 PyTorch (the reverse recurrence as the forward's
@@ -138,7 +141,7 @@ def _lib() -> ctypes.CDLL:
                                    + [ctypes.c_void_p])
         lib.rglru_scan.restype = ctypes.c_int
         lib.rglru_scan_bwd.argtypes = ([ctypes.c_void_p] * 13
-                                       + [ctypes.c_int] * 4
+                                       + [ctypes.c_int] * 5
                                        + [ctypes.c_void_p])
         lib.rglru_scan_bwd.restype = ctypes.c_int
         lib.rglru_launch_shape.argtypes = [ctypes.c_int] * 5 + [
@@ -219,8 +222,8 @@ def rglru_scan_bwd(x, gx, ga, log_a, h0, h32, dy):
             x.data_ptr(), gx.data_ptr(), ga.data_ptr(), log_a.data_ptr(),
             h0.data_ptr(), h32.data_ptr(), dy.data_ptr(), dx.data_ptr(),
             dgx.data_ptr(), dga.data_ptr(), dh0.data_ptr(), dla.data_ptr(),
-            dlog_a.data_ptr(), B, S, W, _build.dtype_code(x.dtype),
-            _build.stream_of(x))
+            dlog_a.data_ptr(), B, S, W, launch_plan(B, S, W)["cluster"],
+            _build.dtype_code(x.dtype), _build.stream_of(x))
     _build.check(lib, err, "rglru_scan_bwd")
     rglru_scan_bwd.launches += 1
     return dx, dgx, dga, dlog_a, dh0

@@ -913,6 +913,27 @@ def test_flash_attention_bwd_repeats_bit_for_bit(cuda, d, dtype):
         assert torch.equal(a, b_)
 
 
+# K5b's head split at its edges: RecurrentGemma's G = 10 query heads of one
+# KV head over clusters that do not divide it (rank r takes heads r, r + R,
+# ...), Skv no multiple of the 64-key tile, masks that leave the key tiles
+# unequal walks
+@pytest.mark.parametrize("cluster,d,skv,causal,window", [
+    (3, 256, 200, True, 0), (4, 256, 1000, True, 300),
+    (8, 128, 333, False, 0), (7, 64, 130, True, 0)])
+def test_flash_attention_bwd_head_split_over_a_cluster(cuda, monkeypatch,
+                                                       cluster, d, skv,
+                                                       causal, window):
+    from repro_torch.kernels import flash_attention as FA
+    plan = FA.bwd_plan
+    monkeypatch.setattr(FA, "bwd_plan",
+                        lambda *a, **kw: plan(*a, **kw, cluster=cluster))
+    args, got = _k5b_case(cuda, 2, 10, 1, skv, skv, d, causal, window,
+                          torch.bfloat16)
+    again = flash_attention_bwd(*args, causal=causal, window=window)
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+
+
 def test_ops_attention_under_grad_runs_k5_and_k5b(cuda):
     """ops.attention under grad: one K5 launch forward, one K5b backward,
     and the gradients of autograd through the plain version (fp32)."""
@@ -994,6 +1015,17 @@ def _k7b_case(cuda, b, s, w, dtype, with_h0=True, seed=0, log_a_shift=0.0):
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_rglru_scan_bwd_matches_plain(cuda, b, s, w, dtype, with_h0):
     _k7b_case(cuda, b, s, w, dtype, with_h0)
+
+
+# K7b's windows: S one cluster window (8 blocks of 32 steps) less one, one
+# and one more, and 4096 (16 windows walked from the last), W a multiple of
+# the 32-channel tile, W = 200 (the last tile ragged) and W = 201 (no
+# 16-byte rows: the tiles staged element by element)
+@pytest.mark.parametrize("s", [255, 256, 257, 4096])
+@pytest.mark.parametrize("w", [256, 200, 201])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_bwd_windows_match_plain(cuda, s, w, dtype):
+    _k7b_case(cuda, 2, s, w, dtype, seed=s + w)
 
 
 def test_rglru_scan_bwd_where_the_clip_holds(cuda):
