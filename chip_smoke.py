@@ -69,7 +69,17 @@ versions; ``launch.train.train`` of RecurrentGemma-2B at full width over 12
 of its 26 layers (10 bf16 steps, batch 4 x 1024, K7 8, K7b 8, K5 4 and K5b
 4 launches a step and no other kernel, profiled) and of qwen3-8b over 4 of
 36 (5 steps, K5 4 and K5b 4 a step); and K1 refusing to cut an autograd
-graph.  Last, K1 (3xTF32
+graph.  Phase 13, Whisper and the paper's own LMs: K5 at their head dim 64
+shapes (Whisper's 1500-frame non-causal encoder, its cross-attention of
+384 decoder rows over 1500 keys, its decoder; GPT-2 1.5B's 25 heads over
+992 tokens; BERT-base) in fp32 and bf16, elementwise and by relative
+Frobenius error, beside three planted faults; whisper-medium, gpt2-1.5b and
+bert-base served at full width and depth in bf16 (batch 4, prompts 384,
+992 and 480, 32 new tokens), by ``serve`` and through the step functions
+with Whisper's frames drawn as ``TokenStream`` draws them, with 72, 48 and
+12 K5 launches a prefill and no plain attention there, Whisper profiled;
+at fp32, full depth and the served batch each prefill against one with
+K5's plain version, and decode == forward.  Last, K1 (3xTF32
 ``wgmma``) at each distinct shape of a ResNet-50 request, with w in the
 layout the request hands over, beside ``torch.matmul``, its tile plan and
 both bounds (3xTF32 and the fp32 FMA pipes).  Any failed
@@ -172,6 +182,36 @@ QWEN_FULL = {   # (layers, d_model, heads, KV, head dim, (expert) d_ff,
     "qwen3-moe-235b-a22b": (94, 4096, 64, 4, 128, 1536, 128, 8, True, False,
                             151936, 235_094_683_136),
 }
+
+# Phase 13, Whisper and the paper's own LMs (src/repro_torch/configs/
+# whisper_medium.py, paper_suite.py): each served at full width and depth in
+# bf16, batch 4: whisper-medium with 1500 encoder frames and a 384-token
+# prompt + 32 (416 of Whisper's published 448-token text context,
+# arXiv:2212.04356), gpt2-1.5b 992 + 32 (its 1024 learned positions),
+# bert-base 480 + 32 (its 512); the fp32 checks at full depth on the served
+# batch and prompt.  K5's shapes (B, H, KV, Sq, Skv,
+# D) and causality on those paths, all at head dim 64, KV = H.
+PAPER_SERVE = {"whisper-medium": {"batch": 4, "prompt": 384, "gen": 32},
+               "gpt2-1.5b": {"batch": 4, "prompt": 992, "gen": 32},
+               "bert-base": {"batch": 4, "prompt": 480, "gen": 32}}
+K5_PAPER = {  # name: (shape, causal, the model, launches a prefill)
+    "whisper_encoder": ((4, 16, 16, 1500, 1500, 64), False,
+                        "whisper-medium", 24),
+    "whisper_cross": ((4, 16, 16, 384, 1500, 64), False, "whisper-medium",
+                      24),
+    "whisper_decoder": ((4, 16, 16, 384, 384, 64), True, "whisper-medium",
+                        24),
+    "gpt2": ((4, 25, 25, 992, 992, 64), True, "gpt2-1.5b", 48),
+    "bert": ((4, 12, 12, 480, 480, 64), True, "bert-base", 12),
+}
+# K5's output at those shapes within this relative Frobenius error of its
+# plain version, beside the elementwise tolerances (the same bar as
+# K5B_REL): at std-1 inputs over 1500 keys a row's |o| is about 0.04, so
+# the elementwise atol of 0.03 alone would pass a dropped key tile.  Three
+# planted faults (o x 0.9; the plain version with a key tile dropped, the
+# ragged last one where no mask hides it, the middle one under the causal
+# mask; the last query tile zeroed) must read above it.
+K5_REL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 
 # Phase 12, training beyond Mamba-2: K5b's shapes (B, H, KV, Sq, Skv, D,
@@ -865,12 +905,15 @@ def k5_tiles(Sq, Skv, causal, window, dtype):
 
 
 def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
-                  max_err, card=None):
+                  max_err, card=None, planted=False):
     """K5 at one shape (B, H, KV, Sq, Skv, D) against its plain version,
     and its times beside F.scaled_dot_product_attention's and its bound.
     Where the window masks nothing, SDPA is timed both with the mask and
-    with ``is_causal=True``, and the faster is ``library_ms``.  Returns a
-    dict of the kernels line's keys (``library`` holds each SDPA form)."""
+    with ``is_causal=True``, and the faster is ``library_ms``.  With
+    ``planted``, the output is also held to K5_REL's relative Frobenius
+    bar, and in bf16 the planted faults of ``k5_planted`` must read above
+    it.  Returns a dict of the kernels line's keys (``library`` holds each
+    SDPA form; ``rel_frobenius`` and ``planted`` their readings)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -879,10 +922,26 @@ def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
     q = randn(B, H, Sq, D, dtype=dtype)
     k, v = randn(B, KV, Skv, D, dtype=dtype), randn(B, KV, Skv, D, dtype=dtype)
     rtol, atol = (0.05, 0.03) if dtype == torch.bfloat16 else (1e-3, 2e-4)
-    err = max_err(flash_attention(q, k, v, causal=causal, window=window),
-                  flash_attention_plain(q, k, v, causal=causal,
-                                        window=window),
-                  rtol, atol, f"K5 {(B, H, KV, Sq, Skv, D)} {dtype}")
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    tag = f"K5 {(B, H, KV, Sq, Skv, D)} {dtype}"
+    err = max_err(got, want, rtol, atol, tag)
+    checked = {}
+    if planted:
+        limit = K5_REL[str(dtype).split(".")[1]]
+        rel = rel_frobenius(got, want)
+        if rel > limit:
+            raise AssertionError(f"{tag}: relative Frobenius error "
+                                 f"{rel:.3e}, limit {limit}")
+        checked = {"rel_frobenius": rel, "rel_limit": limit}
+        if dtype == torch.bfloat16:
+            faults = k5_planted(q, k, v, causal, window, got, want)
+            if min(faults.values()) <= limit:
+                raise AssertionError(f"{tag}: a planted fault reads within "
+                                     f"the bar: {faults}, limit {limit}")
+            checked["planted"] = faults
+    del got, want
+    torch.cuda.empty_cache()
     keep = attn_pairs(Sq, Skv, causal, window)
     mask = keep.to(q.device) if (causal or window) else None
     ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
@@ -906,10 +965,49 @@ def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
           f"plain_ms={plain:.4f} library_ms "
           + " ".join(f"({name}) {t:.4f}" for name, t in libs.items())
           + f" bound_ms={bnd:.4f} ({by}); KV tiles walked {walked} of "
-          f"{tiles} a (batch, head)" + (f"; card {card}" if card else ""))
+          f"{tiles} a (batch, head)"
+          + (f"; relative Frobenius err {checked['rel_frobenius']:.3e} "
+             f"(limit {checked['rel_limit']})" if checked else "")
+          + ("; planted faults read " + ", ".join(
+              f"{n} {r:.3e}" for n, r in checked["planted"].items())
+             if "planted" in checked else "")
+          + (f"; card {card}" if card else ""))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bnd, "bound_by": by,
-            "library_ms": min(libs.values()), "library": libs}
+            "library_ms": min(libs.values()), "library": libs, **checked}
+
+
+def k5_planted(q, k, v, causal, window, got, want):
+    """Readings against the plain version ``want`` of three planted faults
+    in K5's output: ``got`` x 0.9; the plain version with one 64-key tile
+    dropped from every row (the ragged last tile where the mask hides no
+    key, else the middle tile); ``got`` with its last 128-query tile
+    zeroed, the rows of bf16 K5's last query tile."""
+    from repro_torch.kernels import flash_attention as FA
+    Sq, Skv = q.shape[2], k.shape[2]
+    t0 = ((Skv - 1) // 64 if not (causal or window) else Skv // 2 // 64) * 64
+    t1 = min(t0 + 64, Skv)
+    real = FA._mask
+
+    def dropped(Sq_, Skv_, causal_, window_, device):
+        keep = real(Sq_, Skv_, causal_, window_, device)
+        keep[:, t0:t1] = False
+        return keep
+
+    FA._mask = dropped
+    try:
+        drop = FA.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
+    finally:
+        FA._mask = real
+    r0 = (Sq - 1) // 128 * 128
+    zeroed = got.clone()
+    zeroed[:, :, r0:] = 0
+    out = {"o x 0.9": rel_frobenius(got * 0.9, want),
+           f"keys {t0}-{t1 - 1} dropped": rel_frobenius(drop, want),
+           f"rows {r0}-{Sq - 1} zeroed": rel_frobenius(zeroed, want)}
+    del drop, zeroed
+    return out
 
 
 def k7_bound(B, S, W, dtype):
@@ -1671,11 +1769,19 @@ def draw_attn_leaves(params, gen):
     return names
 
 
-def qwen_fp32_check(cfg32, dev, run, card):
+def k5_per_prefill(cfg):
+    """K5's launches in one prefill of ``cfg``: one a decoder layer, one
+    more where it cross-attends, one an encoder layer."""
+    return (cfg.num_layers * (2 if cfg.cross_attention else 1)
+            + cfg.encoder_layers)
+
+
+def fp32_prefill_check(cfg32, dev, run, card, frames=None):
     """The served prefill at fp32 (TF32 off) against one with K5's plain
     version swapped into ``ops.flash_attention``: last-position logits
     within 1e-3 relative Frobenius, the same argmax; and decode == forward
-    (tests/test_models.py:80's tolerance)."""
+    (tests/test_models.py:80's tolerance).  ``frames`` (B, encoder_seq, D)
+    feed an encoder-decoder's encoder."""
     import torch
 
     from repro_torch.data.pipeline import RequestStream
@@ -1704,13 +1810,13 @@ def qwen_fp32_check(cfg32, dev, run, card):
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, _ = DE.prefill(cfg32, params, tok)
+            logits, _ = DE.prefill(cfg32, params, tok, encoder_frames=frames)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
         finally:
             ops.flash_attention = real
         n = flash_attention.launches - before
-        if n != (cfg32.num_layers if name == "kernel" else 0):
+        if n != (k5_per_prefill(cfg32) if name == "kernel" else 0):
             raise AssertionError(f"{cfg32.name} fp32 prefill ({name}): {n} "
                                  f"K5 launches")
         runs.setdefault(name, (logits[:, -1].float(), []))[1].append(ms)
@@ -1721,15 +1827,17 @@ def qwen_fp32_check(cfg32, dev, run, card):
     if not (torch.isfinite(lk[:, cols]).all() and rel <= 1e-3 and same):
         raise AssertionError(f"{cfg32.name} fp32 prefill: K5 vs plain rel "
                              f"err {rel:.3e} (limit 1e-3), same argmax {same}")
-    print(f"fp32 prefill {cfg32.name} ({describe(cfg32)}; {drawn} drawn "
-          f"nonzero; TF32 off, B={B}, S={S}): last-position logits, K5 vs "
+    print(f"fp32 prefill {cfg32.name} ({describe(cfg32)}; "
+          f"{f'{drawn} drawn nonzero' if drawn else 'no bias or norm drawn'}"
+          f"; TF32 off, B={B}, S={S}): last-position logits, K5 vs "
           f"its plain version: rel Frobenius err {rel:.3e} (limit 1e-3), "
           f"same argmax in all {B} rows; host ms kernel "
           f"{[round(t, 3) for t in ms_k]}, plain {[round(t, 3) for t in ms_p]}"
           f"; card {card}")
 
-    full = T.forward(cfg32, params, tok)
-    _, cache = DE.prefill(cfg32, params, tok[:, :S - 1])
+    full = T.forward(cfg32, params, tok, encoder_frames=frames)
+    _, cache = DE.prefill(cfg32, params, tok[:, :S - 1],
+                          encoder_frames=frames)
     cache = _grow_cache(cfg32, cache, B, S)
     dl, cache = DE.decode_step(cfg32, params, cache, tok[:, S - 1:])
     got, want = dl[:, 0, cols], full[:, S - 1, cols]
@@ -1870,7 +1978,7 @@ def drive_qwen(dev, counters, time_ms, call_ms, max_err, randn, card):
                     {"K5": ("flash_bf16_kernel", "flash_f32_kernel")}, card)
     del params, cache
     torch.cuda.empty_cache()
-    qwen_fp32_check(as_fp32(qwen_config("qwen3-8b", QWEN_CHECK_LAYERS)), dev,
+    fp32_prefill_check(as_fp32(qwen_config("qwen3-8b", QWEN_CHECK_LAYERS)), dev,
                     QWEN_CHECK, card)
     torch.cuda.empty_cache()
 
@@ -1878,7 +1986,7 @@ def drive_qwen(dev, counters, time_ms, call_ms, max_err, randn, card):
     cfg = qwen_config("qwen1.5-4b")
     entry(cfg, K5_QWEN[1], counted_serve(cfg))
     torch.cuda.empty_cache()
-    qwen_fp32_check(as_fp32(qwen_config("qwen1.5-4b", QWEN_CHECK_LAYERS)),
+    fp32_prefill_check(as_fp32(qwen_config("qwen1.5-4b", QWEN_CHECK_LAYERS)),
                     dev, QWEN_CHECK, card)
     torch.cuda.empty_cache()
 
@@ -1894,10 +2002,200 @@ def drive_qwen(dev, counters, time_ms, call_ms, max_err, randn, card):
           f"slots an expert, assignments dropped by capacity, least and most "
           f"loaded expert): {route}; dropped {sum(r[2] for r in route)} of "
           f"{sum(r[0] for r in route) * cfg.experts_per_token}")
-    qwen_fp32_check(as_fp32(qwen_config(cfg.name, MOE_CHECK_LAYERS),
+    fp32_prefill_check(as_fp32(qwen_config(cfg.name, MOE_CHECK_LAYERS),
                             moe_capacity_factor=16.0), dev, QWEN_CHECK, card)
     torch.cuda.empty_cache()
     return entries
+
+
+def paper_config(name, dtype=None):
+    """``name`` (whisper-medium from the port's registry, the paper's LMs
+    from ``configs.paper_suite``) at full size; in ``dtype`` where given."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.paper_suite import PAPER_LM_SUITE
+    cfg = {**PAPER_LM_SUITE, **ARCHS}[name]
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def paper_frames(cfg, batch, seq, dev):
+    """Frame embeddings (batch, encoder_seq, d_model) in the model's dtype,
+    drawn as ``TokenStream`` draws them (normal(0, 0.02), seed 0); None for
+    a model without the audio frontend."""
+    import torch
+
+    from repro_torch.data.pipeline import TokenStream
+    if cfg.frontend != "audio_frames":
+        return None
+    frames = TokenStream(cfg, batch, seq, 0, device=dev).batch_at(0)[
+        "encoder_frames"]
+    return frames.to(getattr(torch, cfg.dtype))
+
+
+def drive_paper(dev, counters, time_ms, call_ms, max_err, randn, card):
+    """Phase 13: Whisper's encoder-decoder and the paper's own GPT-2 1.5B
+    and BERT-base, all on K5 at head dim 64.  (d) K5 at each of their
+    shapes in fp32 and bf16, elementwise and within K5_REL, beside planted
+    faults that must read above it; (a) whisper-medium served at full width
+    and depth in bf16, first by ``launch.serve.serve`` (its stub frontend's
+    zero frames), then through ``ST.make_prefill_step`` and
+    ``make_decode_step`` with frames drawn as ``TokenStream`` draws them,
+    timed, K5 launched 72 times a prefill (24 encoder, 24 self- and 24
+    cross-attention layers) and no plain attention there, profiled; (b) its
+    fp32 prefill at full depth and the served batch against one with K5's
+    plain version, and decode == forward; (c) gpt2-1.5b and bert-base the
+    same way (48 and 12 K5 launches).  Every
+    line with a time ends with ``card``.  Returns K5's entries at the five
+    shapes (bf16, with launches a prefill) for its kernels line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import RequestStream
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.serve import _grow_cache, serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    # ---- 13(d): K5 at the shapes of the three models' prefills -----------
+    rows = {}
+    for name, (shape, causal, _, _) in K5_PAPER.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            rows[(name, dtype)] = check_k5_case(
+                shape, causal, 0, dtype, randn, time_ms, call_ms, max_err,
+                card, planted=True)
+
+    names = ("K1", "K2", "K5", "K6", "K8", "K7")
+    launched = lambda: dict(zip(names, (c.launches for c in counters)))
+    real_block = L._attn_block
+    plain = [0]
+
+    def counting_block(*args, **kw):
+        plain[0] += 1
+        return real_block(*args, **kw)
+
+    prefill_launches = {}
+
+    def served(cfg):
+        """``serve``, then the step functions' serving loop, counted."""
+        run = PAPER_SERVE[cfg.name]
+        B, S, G_ = run["batch"], run["prompt"], run["gen"]
+        want = {n: k5_per_prefill(cfg) if n == "K5" else 0 for n in names}
+        with serving_config(cfg):
+            for c in counters:
+                c.launches = 0
+            warm = serve(cfg.name, smoke=False, batch=B, prompt=S, gen=2)
+        if launched() != want or warm["generated"].shape != (B, 2):
+            raise AssertionError(f"serve {cfg.name} {run}: launches "
+                                 f"{launched()}, want {want}")
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            0), device=dev)
+        batch_in = {"tokens": torch.from_numpy(RequestStream(
+            cfg, B, S, 0).requests_at(0)["tokens"]).to(dev)}
+        frames = paper_frames(cfg, B, S, dev)
+        if frames is not None:
+            batch_in["encoder_frames"] = frames
+        prefill_fn, decode_fn = (ST.make_prefill_step(cfg),
+                                 ST.make_decode_step(cfg))
+        L._attn_block = counting_block
+        try:
+            for c in counters:
+                c.launches = 0
+            plain[0] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill_fn(params, batch_in)
+            cache = _grow_cache(cfg, cache, B, S + G_)
+            torch.cuda.synchronize()
+            t_prefill = time.perf_counter() - t0
+            at_prefill, plain_prefill = launched(), plain[0]
+            tokens = torch.argmax(logits[:, -1], dim=-1)[:, None].to(
+                torch.int32)
+            out = [tokens]
+            t0 = time.perf_counter()
+            for _ in range(G_ - 1):
+                logits, cache = decode_fn(params, cache, {"tokens": tokens})
+                tokens = torch.argmax(logits[:, -1], dim=-1)[:, None].to(
+                    torch.int32)
+                out.append(tokens)
+            torch.cuda.synchronize()
+            t_decode = (time.perf_counter() - t0) / (G_ - 1)
+        finally:
+            L._attn_block = real_block
+        gen_tok = torch.cat(out, dim=1).cpu().numpy()
+        per_step = cfg.num_layers * (2 if cfg.cross_attention else 1)
+        if (at_prefill != want or launched() != want or plain_prefill
+                or plain[0] != per_step * (G_ - 1)):
+            raise AssertionError(
+                f"{cfg.name} served through the step functions: launches "
+                f"after the prefill {at_prefill}, after decode {launched()} "
+                f"(want {want} for both); plain attention calls in the "
+                f"prefill {plain_prefill} (want 0), in decode "
+                f"{plain[0] - plain_prefill} (want {per_step * (G_ - 1)})")
+        if not (gen_tok.shape == (B, G_) and gen_tok.dtype == np.int32
+                and ((0 <= gen_tok) & (gen_tok < cfg.vocab_size)).all()):
+            raise AssertionError(f"{cfg.name}: generated {gen_tok.shape} "
+                                 f"{gen_tok.dtype}, range {gen_tok.min()}.."
+                                 f"{gen_tok.max()}")
+        prefill_launches[cfg.name] = at_prefill["K5"]
+        enc = (f", {cfg.encoder_layers} encoder layers over "
+               f"{cfg.encoder_seq} frames (TokenStream's draw)"
+               if cfg.encoder_layers else "")
+        print(f"serve {cfg.name} ({describe(cfg)}{enc}): batch {B}, prompt "
+              f"{S}, gen {G_}, through ST.make_prefill_step and "
+              f"make_decode_step: prefill_ms={t_prefill * 1e3:.3f} "
+              f"decode_ms_per_token={t_decode * 1e3:.3f}; K5 launches "
+              f"{want['K5']} a prefill (`serve` with the stub frontend's "
+              f"zero frames: the same), K1/K2/K6/K7/K8 none; plain attention "
+              f"none in the prefill, {per_step} calls a decode step (plain "
+              f"_attn_block, as the JAX package decodes); generated "
+              f"{gen_tok.shape} int32, first row {gen_tok[0, :8].tolist()}; "
+              f"card {card}")
+        return params, batch_in
+
+    def entry(name):
+        shape, causal, model, n = K5_PAPER[name]
+        return {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
+                "window": 0, "model": model, "launches": n,
+                "model_prefill_launches": prefill_launches[model],
+                **rows[(name, torch.bfloat16)],
+                "float32": {k: v for k, v in rows[(name, torch.float32)]
+                            .items() if k != "library"}}
+
+    # ---- 13(a): whisper-medium served, profiled --------------------------
+    cfg = paper_config("whisper-medium")
+    params, batch_in = served(cfg)
+    B, S = batch_in["tokens"].shape
+    prefill_fn = ST.make_prefill_step(cfg)
+    decode_fn = ST.make_decode_step(cfg)
+    _, cache = prefill_fn(params, batch_in)
+    cache = _grow_cache(cfg, cache, B, S + 8)
+    nxt = {"tokens": batch_in["tokens"][:, -1:]}
+    decode_fn(params, cache, nxt)
+    torch.cuda.synchronize()
+    kernels = {"K5": ("flash_bf16_kernel", "flash_f32_kernel")}
+    profile_run(f"prefill whisper-medium (B={B}, S={S}, "
+                f"{cfg.encoder_seq} frames", lambda: prefill_fn(params,
+                                                               batch_in),
+                1, kernels, "call", card)
+    profile_run(f"decode whisper-medium (B={B}, S={S}",
+                lambda: decode_fn(params, cache, nxt), 4, kernels, "step",
+                card)
+    del params, batch_in, cache
+    torch.cuda.empty_cache()
+
+    # ---- 13(b), 13(c): each model's fp32 check at full depth, after the
+    # paper's LMs are served as Whisper was --------------------------------
+    for name in ("whisper-medium", "gpt2-1.5b", "bert-base"):
+        if name != "whisper-medium":
+            served(paper_config(name))
+            torch.cuda.empty_cache()
+        cfg32 = paper_config(name, "float32")
+        run = PAPER_SERVE[name]
+        fp32_prefill_check(cfg32, dev, run, card, frames=paper_frames(
+            cfg32, run["batch"], run["prompt"], dev))
+        torch.cuda.empty_cache()
+    return {name: entry(name) for name in K5_PAPER}
 
 
 def k5b_bound(B, H, KV, Sq, Skv, D, causal, window, dtype):
@@ -2920,6 +3218,12 @@ def main() -> int:
         call_ms, max_err, randn, card)
     for entry in train12_entries:       # ptxas of each template instance
         entry["ptxas"] = bwd_ptxas[entry["name"]]
+    torch.cuda.empty_cache()
+    mark("13, Whisper and the paper's LMs")
+    k5_paper = drive_paper(dev, counters + (lindley_scan, ssd_scan,
+                                            rglru_scan),
+                           time_ms, call_ms, max_err, randn, card)
+    torch.cuda.empty_cache()
     mark("the kernels line")
 
     # ---- the kernels line: K1 over one request's 53 shapes ---------------
@@ -2990,7 +3294,7 @@ def main() -> int:
          "launches": launches[2] + k5_train,
          **{k: v for k, v in k5.items() if k != "library"},
          "main_path_launches": launches[2], "train_launches": k5_train,
-         "serving": k5_serving, "qwen": k5_qwen},
+         "serving": k5_serving, "qwen": k5_qwen, "paper": k5_paper},
         {**k6_entry, "max_abs_err": k6_err},
         {"name": "ssd_scan", "route": "cuda", "source": src + "ssd.cu",
          "replaces": "src/repro/kernels/ssd.py:87", "launches": k8_launches,

@@ -9,8 +9,8 @@ OIHW where it calls ``F.conv2d``.  Both packages then compute the same
 function, which the differential tests rely on.  A bfloat16 leaf (numpy's
 ``ml_dtypes.bfloat16``, which ``torch.tensor`` refuses) becomes a
 ``torch.bfloat16`` tensor with the same bits.  The LM trees of
-``repro.models.transformer`` (stacked blocks, a ``rem`` list) map the same
-way, and so does a NamedTuple such as the JAX ``AdamWState``, rebuilt from
+``repro.models.transformer`` (stacked blocks, a ``rem`` list, Whisper's
+``encoder`` subtree with its own stack, ``pos_embed``) map the same way, and so does a NamedTuple such as the JAX ``AdamWState``, rebuilt from
 positional arguments.
 """
 from __future__ import annotations

@@ -3,10 +3,11 @@
 ``python -m repro_torch.launch.serve --arch mamba2-370m --batch 4 --prompt 1024 --gen 32``
 
 The port of the JAX package's ``launch/serve.py`` on one card, for the
-Mamba-2 (``ssm``), RecurrentGemma (``hybrid``), dense Qwen (``dense``)
-and MoE (``moe``) families.  Each phase's time is read from the host clock
-after ``torch.cuda.synchronize()``, so it is the card's time for the
-phase, not the time to enqueue it.
+Mamba-2 (``ssm``), RecurrentGemma (``hybrid``), dense (``dense``: Qwen,
+BERT-base, GPT-2 1.5B), MoE (``moe``) and Whisper (``audio``) families.
+Each phase's time is read from the host clock after
+``torch.cuda.synchronize()``, so it is the card's time for the phase, not
+the time to enqueue it.
 """
 from __future__ import annotations
 
@@ -48,6 +49,11 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt: int = 64,
     decode_fn = ST.make_decode_step(cfg)
     reqs = RequestStream(cfg, batch, prompt, seed).requests_at(0)
     batch_in = {"tokens": torch.from_numpy(reqs["tokens"]).to(dev)}
+    if cfg.frontend == "audio_frames":
+        # the stub frontend, as the JAX package's: zero frame embeddings
+        batch_in["encoder_frames"] = torch.zeros(
+            (batch, cfg.encoder_seq, cfg.d_model),
+            dtype=getattr(torch, cfg.dtype), device=dev)
 
     _sync(dev)
     t0 = time.perf_counter()
@@ -76,8 +82,8 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt: int = 64,
 
 def _grow_cache(cfg, cache, batch: int, capacity: int):
     """Re-embed a prompt-sized cache into a ``capacity``-sized one (prefix
-    copy along the seq dim; ring/state caches, ``kpos`` included, are
-    size-invariant).
+    copy along the seq dim; ring/state caches, ``kpos`` included, and the
+    encoder's ``xk``/``xv`` are size-invariant).
 
     A prompt within the sliding window whose ``capacity`` outgrows it would
     turn a full K/V cache into a ring; the JAX package's version breaks

@@ -22,7 +22,8 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
-    logits = T.forward(cfg, params, batch["tokens"])
+    logits = T.forward(cfg, params, batch["tokens"],
+                       encoder_frames=batch.get("encoder_frames"))
     return T.softmax_xent(logits, batch["labels"])
 
 
@@ -76,7 +77,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
 
 def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, batch):
-        return DE.prefill(cfg, params, batch["tokens"])
+        return DE.prefill(cfg, params, batch["tokens"],
+                          encoder_frames=batch.get("encoder_frames"))
 
     return prefill_step
 

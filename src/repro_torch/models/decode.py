@@ -1,6 +1,6 @@
 """The JAX package's ``models/decode.py`` serving path for the ``ssd``,
-``rglru`` and GQA ``attn`` block kinds: cache construction, prefill and
-single-token decode.
+``rglru`` and GQA ``attn`` block kinds and Whisper's cross-attention:
+cache construction, prefill and single-token decode.
 
 The cache mirrors the parameter layout: a pattern group's leaves are
 stacked ``(groups, ...)`` under ``blocks["b{j}_{kind}"]``, remainders are
@@ -13,6 +13,8 @@ batch.  Per block kind:
            sliding window W
   rglru  : recurrent state ``h`` (B, W) fp32 + conv tail ``conv`` (B, 3, W)
   ssd    : SSM state ``h`` (B, H, P, N) fp32 + conv tail
+  cross  : the encoder's K/V ``xk``/``xv`` (B, encoder_seq, KV, Dh),
+           computed once at prefill (Whisper)
 
 Unlike the JAX package, ``decode_step`` writes into the cache it is given:
 the new K/V row at ``pos`` (``pos % W`` in the ring) with ``index_copy_``
@@ -52,26 +54,33 @@ def layer_cache_def(cfg: ModelConfig, kind: str, batch: int,
     dt = getattr(torch, cfg.dtype)
     Dh = cfg.resolved_head_dim
     KV = cfg.num_kv_heads
+    out: Dict[str, torch.Tensor] = {}
     if kind == "attn":
         if _use_ring(cfg, seq):
             W = cfg.sliding_window
-            return {"k": _meta((batch, W, KV, Dh), dt),
-                    "v": _meta((batch, W, KV, Dh), dt),
-                    "kpos": _meta((W,), torch.int32)}
-        return {"k": _meta((batch, seq, KV, Dh), dt),
-                "v": _meta((batch, seq, KV, Dh), dt)}
-    if kind == "rglru":
+            out["k"] = _meta((batch, W, KV, Dh), dt)
+            out["v"] = _meta((batch, W, KV, Dh), dt)
+            out["kpos"] = _meta((W,), torch.int32)
+        else:
+            out["k"] = _meta((batch, seq, KV, Dh), dt)
+            out["v"] = _meta((batch, seq, KV, Dh), dt)
+    elif kind == "rglru":
         W = cfg.d_model
-        return {"h": _meta((batch, W), torch.float32),
-                "conv": _meta((batch, 3, W), dt)}
-    if kind == "ssd":
+        out["h"] = _meta((batch, W), torch.float32)
+        out["conv"] = _meta((batch, 3, W), dt)
+    elif kind == "ssd":
         din = cfg.ssm_expand * cfg.d_model
         H = din // cfg.ssm_head_dim
         conv_ch = din + 2 * cfg.ssm_ngroups * cfg.ssm_state
-        return {"h": _meta((batch, H, cfg.ssm_head_dim, cfg.ssm_state),
-                           torch.float32),
-                "conv": _meta((batch, cfg.ssm_conv - 1, conv_ch), dt)}
-    raise ValueError(kind)
+        out["h"] = _meta((batch, H, cfg.ssm_head_dim, cfg.ssm_state),
+                         torch.float32)
+        out["conv"] = _meta((batch, cfg.ssm_conv - 1, conv_ch), dt)
+    else:
+        raise ValueError(kind)
+    if cfg.cross_attention:
+        out["xk"] = _meta((batch, cfg.encoder_seq, KV, Dh), dt)
+        out["xv"] = _meta((batch, cfg.encoder_seq, KV, Dh), dt)
+    return out
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> Pytree:
@@ -153,6 +162,18 @@ def attn_step(cfg: ModelConfig, p, x, cache, pos, ctx):
     return x + T._proj(o.reshape(x.shape[0], 1, H * Dh), p["wo"])
 
 
+def cross_step(cfg: ModelConfig, p, x, cache, ctx):
+    """One token's cross-attention over the encoder's cached K/V: the plain
+    ``_attn_block``, as the JAX package's decode has it."""
+    Dh = cfg.resolved_head_dim
+    H = cfg.num_heads
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    q = T._heads(T._proj(h, p["wq"]), H, Dh)
+    o = L._attn_block(q, cache["xk"], cache["xv"], q_start=0, kv_start=0,
+                      causal=False, window=0, kv_len=None)
+    return x + T._proj(o.reshape(x.shape[0], 1, H * Dh), p["wo"])
+
+
 def rglru_step_block(cfg: ModelConfig, p, x, cache, ctx):
     """One token through an RG-LRU mixer; returns (x, new h and conv).  The
     new state is ``rglru_step``'s, in x's dtype, stored as fp32: in bf16
@@ -211,6 +232,8 @@ def block_step(cfg: ModelConfig, kind: str, p, x, cache, pos, ctx):
             raise ValueError(kind)
         cache["h"].copy_(new["h"])
         cache["conv"].copy_(new["conv"])
+    if "xattn" in p and "xk" in cache:
+        x = cross_step(cfg, p["xattn"], x, cache, ctx)
     if "ffn" in p:
         x = T.ffn_forward(cfg, p["ffn"], x, ctx)
     return x, cache
@@ -230,6 +253,10 @@ def decode_step(cfg: ModelConfig, params, cache, tokens
     pos = cache["pos"]
     B = tokens.shape[0]
     x = T.embed_tokens(cfg, params, tokens)
+    if cfg.rope == "learned":
+        # clamped as JAX's gather clamps, so no step reads pos on the host
+        at = pos.reshape(1).clamp(max=cfg.max_position - 1).long()
+        x = x + params["pos_embed"].index_select(0, at).to(x.dtype)[None]
     ctx = T.rope_ctx(cfg, pos.expand(B, 1))
     pattern = cfg.block_pattern
     blocks = params["blocks"]
@@ -288,17 +315,29 @@ def block_prefill(cfg: ModelConfig, kind: str, p, x, ctx: T.Ctx):
         cache["h"], cache["conv"] = hl, conv
     else:
         raise ValueError(kind)
+    if "xattn" in p and ctx.enc_out is not None:
+        # the encoder's K/V once, into the cache; the prompt attends to them
+        # through K5 (non-causal)
+        xp = p["xattn"]
+        cache["xk"], cache["xv"] = T.cross_kv(cfg, xp, ctx)
+        x = T.attn_forward(cfg, xp, x, ctx,
+                           kv_override=(cache["xk"], cache["xv"]), cross=True)
     if "ffn" in p:
         x = T.ffn_forward(cfg, p["ffn"], x, ctx)
     return x, cache
 
 
-def prefill(cfg: ModelConfig, params, tokens):
-    """Run the prompt, returning (logits_last (B,1,V), cache)."""
+def prefill(cfg: ModelConfig, params, tokens, *, encoder_frames=None):
+    """Run the prompt, returning (logits_last (B,1,V), cache).  With
+    ``encoder_frames`` the encoder runs first and each block's ``xk``/``xv``
+    hold its K/V; without them they stay zero and decode's cross-attention
+    adds nothing, as the JAX package's cache, which then has no such
+    leaves, gives it."""
     B, S = tokens.shape
-    x = T.embed_tokens(cfg, params, tokens)
+    x = T.add_positions(cfg, params, T.embed_tokens(cfg, params, tokens))
     ctx = T.rope_ctx(cfg, torch.arange(S, device=tokens.device)[None]
                      .expand(B, S))
+    ctx = T.encoder_ctx(cfg, params, ctx, encoder_frames, x.dtype)
     pattern = cfg.block_pattern
     cache = init_cache(cfg, B, S, device=tokens.device)
     cache["pos"].fill_(S)

@@ -1,23 +1,27 @@
 """The JAX package's ``models/transformer.py`` for the Mamba-2 (``ssd``),
 RG-LRU (``rglru``) and GQA attention (``attn``) block kinds, with the dense
 MLP or the top-k MoE FFN: the blocks of Mamba-2 370M, RecurrentGemma-2B,
-the dense Qwen decoders (qk-norm, QKV bias) and the MoE decoders
-(Qwen3-MoE, Llama 4 Maverick).
+the dense Qwen decoders (qk-norm, QKV bias), the MoE decoders (Qwen3-MoE,
+Llama 4 Maverick), Whisper's encoder-decoder (the bidirectional ``encode``,
+cross-attention over its output, learned positions) and the paper's own
+BERT-base and GPT-2 1.5B (learned positions, gelu).
 
-Parameters keep the JAX tree: each block pattern group's leaves are stacked
-``(groups, ...)`` under ``blocks["b{j}_{kind}"]``, pattern remainders are a
-list under ``rem``, so ``repro_torch.convert.params_from_jax`` carries a
-JAX tree across leaf for leaf.  A Python loop over the stacked groups takes
-the place of ``lax.scan``; ``remat``, ``scan_layers`` and activation
-sharding have no counterpart on one card, and neither has the MoE FFN's
-expert-parallel path (``moe_ep``, a mesh): the port always takes the JAX
-package's gather path.  MLA, M-RoPE, learned positions, cross-attention,
-the encoder and the frontends raise ``NotImplementedError``: they come with
-later slices of the port (ROADMAP.md, queue 1).  ``softmax_xent`` is the
-training loss.  ``forward`` differentiates everywhere: on the card the
-attention blocks' gradient runs K5b and the RG-LRU blocks' K7b (through
-``ops.attention``, ``ops.rglru``), so the Mamba-2, hybrid and dense families
-train with no plain path.
+Parameters keep the JAX tree: each block pattern group's leaves are
+stacked ``(groups, ...)`` under ``blocks["b{j}_{kind}"]``, pattern
+remainders are a list under ``rem``, so
+``repro_torch.convert.params_from_jax`` carries a JAX tree across leaf for
+leaf.  A Python loop over the stacked groups takes the place of
+``lax.scan``; ``remat``, ``scan_layers`` and activation sharding have no
+counterpart on one card, and neither has the MoE FFN's expert-parallel
+path (``moe_ep``, a mesh): the port always takes the JAX package's gather
+path.  MLA, M-RoPE and the ``vision_patches`` frontend raise
+``NotImplementedError``: they come with later slices of the port
+(ROADMAP.md, queue 1).  Whisper's ``audio_frames`` frontend is a stub in
+both packages: the caller hands ``forward`` the frame embeddings.
+``softmax_xent`` is the training loss.  ``forward`` differentiates
+everywhere: on the card the attention blocks' gradient runs K5b and the
+RG-LRU blocks' K7b (through ``ops.attention``, ``ops.rglru``), so the
+Mamba-2, hybrid and dense families train with no plain path.
 """
 from __future__ import annotations
 
@@ -39,22 +43,20 @@ Pytree = Any
 def unsupported(what: str, slice_: str):
     return NotImplementedError(
         f"the port's LM stack runs the 'ssd', 'rglru' and GQA 'attn' blocks "
-        f"with a dense MLP or a top-k MoE FFN; {what} comes with {slice_} "
+        f"with a dense MLP or a top-k MoE FFN, the Whisper encoder and "
+        f"cross-attention and learned positions; {what} comes with {slice_} "
         f"(ROADMAP.md, queue 1)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a feature of ``cfg`` that the port does not run yet."""
     later = [
-        (cfg.encoder_layers, "the encoder", "the Whisper slice"),
-        (cfg.cross_attention, "cross-attention", "the Whisper slice"),
-        (cfg.frontend != "none", f"the {cfg.frontend} frontend",
-         "a later slice"),
-        (cfg.rope == "learned", "learned positions", "the Whisper slice"),
-        (cfg.rope == "mrope", "M-RoPE", "a later slice"),
+        (cfg.frontend == "vision_patches", "the vision_patches frontend",
+         "the ViT-632M and qwen2-vl slice"),
+        (cfg.rope == "mrope", "M-RoPE", "the qwen2-vl slice"),
     ]
     if "attn" in cfg.block_pattern:
-        later.append((cfg.attention == "mla", "MLA", "a later slice"))
+        later.append((cfg.attention == "mla", "MLA", "the MLA slice"))
     for bad, what, slice_ in later:
         if bad:
             raise unsupported(what, slice_)
@@ -84,9 +86,9 @@ def _norm(d):
     return PDef((d,), (None,), "zeros")
 
 
-def attn_defs(cfg: ModelConfig) -> Dict[str, PDef]:
+def attn_defs(cfg: ModelConfig, cross: bool = False) -> Dict[str, PDef]:
     """GQA attention, with the QKV bias and qk-norm scales where the
-    config has them."""
+    config has them; cross-attention (``cross``) has neither."""
     D = cfg.d_model
     Dh = cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
@@ -98,11 +100,11 @@ def attn_defs(cfg: ModelConfig) -> Dict[str, PDef]:
         "wo": _dense(H * Dh, D, ax_in="tp", ax_out="fsdp",
                      scale=0.02 / math.sqrt(2 * max(cfg.num_layers, 1))),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         out.update(bq=PDef((H * Dh,), ("tp",), "zeros"),
                    bk=PDef((KV * Dh,), ("tp",), "zeros"),
                    bv=PDef((KV * Dh,), ("tp",), "zeros"))
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         out.update(qn=_norm(Dh), kn=_norm(Dh))
     return out
 
@@ -169,7 +171,8 @@ def ssd_defs(cfg: ModelConfig) -> Dict[str, PDef]:
 
 
 def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
-    """One block = mixer (+ FFN)."""
+    """One decoder block = mixer (+ cross-attn) (+ FFN); the encoder's
+    blocks are built in ``param_defs``."""
     d: Dict[str, Any] = {}
     if kind == "attn":
         d["attn"] = attn_defs(cfg)
@@ -179,6 +182,8 @@ def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
         d["ssd"] = ssd_defs(cfg)
     else:
         raise ValueError(kind)
+    if cfg.cross_attention:
+        d["xattn"] = attn_defs(cfg, cross=True)
     if kind != "ssd":  # mamba2 blocks have no separate FFN (d_ff = 0)
         d["ffn"] = moe_defs(cfg) if cfg.num_experts else mlp_defs(cfg)
     return d
@@ -187,6 +192,10 @@ def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 # whole-model param definitions
 # ---------------------------------------------------------------------------
+
+def _stack_tree(tree: Pytree, n: int) -> Pytree:
+    return tree_map(lambda pd: pd.with_stack(n), tree)
+
 
 def param_defs(cfg: ModelConfig) -> Pytree:
     D = cfg.d_model
@@ -201,12 +210,22 @@ def param_defs(cfg: ModelConfig) -> Pytree:
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = PDef((D, Vp), (None, "vocab"), "normal")
+    if cfg.rope == "learned":
+        defs["pos_embed"] = PDef((cfg.max_position, D), (None, None), "normal",
+                                 0.01)
     group_tree = {f"b{j}_{kind}": block_defs(cfg, kind)
                   for j, kind in enumerate(cfg.block_pattern)}
-    defs["blocks"] = (tree_map(lambda pd: pd.with_stack(groups), group_tree)
-                      if groups else {})
+    defs["blocks"] = _stack_tree(group_tree, groups) if groups else {}
     defs["rem"] = [block_defs(cfg, cfg.block_pattern[j % period])
                    for j in range(rem)]
+    if cfg.encoder_layers:
+        enc_block = {"attn": attn_defs(cfg), "ffn": mlp_defs(cfg)}
+        defs["encoder"] = {
+            "blocks": _stack_tree(enc_block, cfg.encoder_layers),
+            "final_norm": _norm(D),
+            "pos_embed": PDef((cfg.encoder_seq, D), (None, None), "normal",
+                              0.01),
+        }
     return defs
 
 
@@ -270,10 +289,13 @@ def count_params(cfg: ModelConfig) -> int:
 
 @dataclass
 class Ctx:
-    """Per-call context shared across layers: the RoPE angles (B, S, half)."""
+    """Per-call context shared across layers: the RoPE angles (B, S, half)
+    and the encoder's output (B, encoder_seq, D) that cross-attention
+    reads."""
     cfg: ModelConfig
     cos: Optional[torch.Tensor] = None
     sin: Optional[torch.Tensor] = None
+    enc_out: Optional[torch.Tensor] = None
 
 
 def _proj(x, w, b=None):
@@ -293,23 +315,31 @@ def _rope_ctx(cfg: ModelConfig, positions, head_dim):
 
 # --- GQA attention block -------------------------------------------------------
 
-def attn_forward(cfg: ModelConfig, p, x, ctx: Ctx, *, window=0):
+def attn_forward(cfg: ModelConfig, p, x, ctx: Ctx, *, window=0,
+                 kv_override=None, cross=False):
     """Causal GQA attention over the whole block, windowed if ``window``:
     projections (with the QKV bias), then the qk-norm over the head dim,
-    then RoPE, in the JAX package's order."""
+    then RoPE, in the JAX package's order.  ``kv_override``: (k, v) for
+    cross-attention (``cross``), which is non-causal, with no qk-norm and
+    no RoPE."""
     Dh = cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     q = _heads(_proj(h, p["wq"], p.get("bq")), H, Dh)
-    k = _heads(_proj(h, p["wk"], p.get("bk")), KV, Dh)
-    v = _heads(_proj(h, p["wv"], p.get("bv")), KV, Dh)
-    if cfg.qk_norm:
+    if kv_override is None:
+        k = _heads(_proj(h, p["wk"], p.get("bk")), KV, Dh)
+        v = _heads(_proj(h, p["wv"], p.get("bv")), KV, Dh)
+    else:
+        k, v = kv_override
+    if cfg.qk_norm and not cross:
         q = L.rms_norm(q, p["qn"], cfg.norm_eps)
-        k = L.rms_norm(k, p["kn"], cfg.norm_eps)
-    if cfg.rope == "rope":
+        if kv_override is None:
+            k = L.rms_norm(k, p["kn"], cfg.norm_eps)
+    if cfg.rope == "rope" and not cross:
         q = L.apply_rope(q, ctx.cos, ctx.sin)
-        k = L.apply_rope(k, ctx.cos, ctx.sin)
-    o = L.blocked_attention(q, k, v, causal=True, window=window,
+        if kv_override is None:
+            k = L.apply_rope(k, ctx.cos, ctx.sin)
+    o = L.blocked_attention(q, k, v, causal=not cross, window=window,
                             chunk=cfg.attn_chunk, unroll=cfg.attn_unroll)
     o = o.reshape(x.shape[0], x.shape[1], H * v.shape[-1])
     return x + _proj(o, p["wo"])
@@ -395,9 +425,22 @@ def apply_block(cfg: ModelConfig, kind: str, p, x, ctx: Ctx):
         x, _ = rglru_forward(cfg, p["rec"], x, ctx)
     elif kind == "ssd":
         x, _ = ssd_forward(cfg, p["ssd"], x, ctx)
+    if "xattn" in p and ctx.enc_out is not None:
+        xp = p["xattn"]
+        x = attn_forward(cfg, xp, x, ctx, kv_override=cross_kv(cfg, xp, ctx),
+                         cross=True)
     if "ffn" in p:
         x = ffn_forward(cfg, p["ffn"], x, ctx)
     return x
+
+
+def cross_kv(cfg: ModelConfig, xp, ctx: Ctx):
+    """Cross-attention's K and V (B, encoder_seq, KV, Dh), from the
+    encoder's output under the block's ``xattn`` norm."""
+    hk = L.rms_norm(ctx.enc_out, xp["ln"], cfg.norm_eps)
+    k = _heads(_proj(hk, xp["wk"]), cfg.num_kv_heads, cfg.resolved_head_dim)
+    v = _heads(_proj(hk, xp["wv"]), cfg.num_kv_heads, cfg.resolved_head_dim)
+    return k, v
 
 
 def group_params(blocks: Pytree, g: int) -> Pytree:
@@ -419,6 +462,29 @@ def run_decoder_blocks(cfg: ModelConfig, params, x, ctx: Ctx):
     for j, lp in enumerate(params["rem"]):
         x = apply_block(cfg, pattern[j % len(pattern)], lp, x, ctx)
     return x
+
+
+def encode(cfg: ModelConfig, params, frames):
+    """Whisper-style bidirectional encoder over precomputed frame
+    embeddings (B, S_enc, D): each block non-causal attention (K5 on the
+    card) and the FFN, then the final norm."""
+    enc = params["encoder"]
+    x = frames + enc["pos_embed"][None, : frames.shape[1]].to(frames.dtype)
+    ctx = Ctx(cfg=cfg)
+    Dh = cfg.resolved_head_dim
+    blocks = enc["blocks"]
+    for g in range(num_groups(blocks)):
+        bp = group_params(blocks, g)
+        h = L.rms_norm(x, bp["attn"]["ln"], cfg.norm_eps)
+        q = _heads(_proj(h, bp["attn"]["wq"]), cfg.num_heads, Dh)
+        k = _heads(_proj(h, bp["attn"]["wk"]), cfg.num_kv_heads, Dh)
+        v = _heads(_proj(h, bp["attn"]["wv"]), cfg.num_kv_heads, Dh)
+        o = L.blocked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk,
+                                unroll=cfg.attn_unroll)
+        o = o.reshape(x.shape[0], x.shape[1], cfg.num_heads * Dh)
+        x = x + _proj(o, bp["attn"]["wo"])
+        x = ffn_forward(cfg, bp["ffn"], x, ctx)
+    return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens):
@@ -452,12 +518,41 @@ def rope_ctx(cfg: ModelConfig, positions) -> Ctx:
     return ctx
 
 
-def forward(cfg: ModelConfig, params, tokens) -> torch.Tensor:
-    """Full forward over a token block -> logits (B, S, padded vocab)."""
+def add_positions(cfg: ModelConfig, params, x):
+    """x (B, S, D) plus the learned positions 0..S-1, where the config
+    has them.  A block longer than ``max_position`` is refused here (JAX's
+    gather would clamp the index; a card's would fault)."""
+    if cfg.rope != "learned":
+        return x
+    S = x.shape[1]
+    if S > cfg.max_position:
+        raise ValueError(f"{cfg.name}: {S} tokens, past the {cfg.max_position}"
+                         f" learned positions")
+    return x + params["pos_embed"][:S].to(x.dtype)
+
+
+def encoder_ctx(cfg: ModelConfig, params, ctx: Ctx, encoder_frames, dtype):
+    """Set ``ctx.enc_out`` from ``encoder_frames`` (None: no
+    cross-attention), as the JAX package's forward and prefill do; with
+    cross-attention and no encoder the frames pass through."""
+    if encoder_frames is not None and (cfg.encoder_layers
+                                       or cfg.cross_attention):
+        ctx.enc_out = (encode(cfg, params, encoder_frames)
+                       if cfg.encoder_layers else encoder_frames.to(dtype))
+    return ctx
+
+
+def forward(cfg: ModelConfig, params, tokens, *,
+            encoder_frames=None) -> torch.Tensor:
+    """Full forward over a token block -> logits (B, S, padded vocab);
+    ``encoder_frames`` (B, encoder_seq, D) feed the encoder and
+    cross-attention."""
     B, S = tokens.shape
-    x = embed_tokens(cfg, params, tokens)
+    x = add_positions(cfg, params, embed_tokens(cfg, params, tokens))
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = run_decoder_blocks(cfg, params, x, rope_ctx(cfg, positions))
+    ctx = encoder_ctx(cfg, params, rope_ctx(cfg, positions), encoder_frames,
+                      x.dtype)
+    x = run_decoder_blocks(cfg, params, x, ctx)
     return unembed(cfg, params, x)
 
 

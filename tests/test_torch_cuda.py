@@ -129,7 +129,10 @@ def test_fused_affine_act_takes_unaligned_scale_and_bias(cuda):
 
 @pytest.mark.parametrize("b,h,kv,sq,skv,d", [
     (2, 8, 2, 128, 128, 64), (1, 4, 1, 64, 128, 32), (1, 4, 4, 17, 17, 32),
-    (2, 4, 2, 100, 70, 128), (1, 2, 2, 50, 40, 16)])
+    (2, 4, 2, 100, 70, 128), (1, 2, 2, 50, 40, 16),
+    # Whisper's cross-attention in small: Sq < Skv, Skv three tiles and a
+    # part; GPT-2's odd head count
+    (1, 3, 3, 40, 150, 64), (2, 25, 25, 70, 70, 64)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 48),
                                            (False, 20)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -718,8 +721,17 @@ def test_flash_attention_head_dim_256_matches_plain(cuda, b, sq, skv, causal,
                                atol=0.03 if bf else 2e-4)
 
 
-def _k5_case(cuda, b, h, kv, sq, skv, d, causal, window, dtype, seed=4):
-    """K5 against its plain version at one shape; returns (q, k, v, got)."""
+# K5's bar beside its elementwise tolerances at Whisper's and the paper LMs'
+# shapes, as chip_smoke.py holds it (the same as K5B_REL below): at std-1
+# inputs over 1500 keys a row's |o| is about 0.04, so the elementwise atol
+# of 0.03 alone would pass a dropped key tile.
+K5_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _k5_case(cuda, b, h, kv, sq, skv, d, causal, window, dtype, seed=4,
+             rel=False):
+    """K5 against its plain version at one shape; with ``rel`` also within
+    K5_REL's relative Frobenius error.  Returns (q, k, v, got, want)."""
     rng = np.random.default_rng(seed)
     q = _randn(rng, (b, h, sq, d), dtype, cuda)
     k, v = (_randn(rng, (b, kv, skv, d), dtype, cuda) for _ in range(2))
@@ -733,7 +745,9 @@ def _k5_case(cuda, b, h, kv, sq, skv, d, causal, window, dtype, seed=4):
     torch.testing.assert_close(got.float(), want.float(),
                                rtol=0.05 if bf else 1e-3,
                                atol=0.03 if bf else 2e-4)
-    return q, k, v, got
+    if rel:
+        assert _rel_frobenius(got, want) <= K5_REL[dtype]
+    return q, k, v, got, want
 
 
 # Sq and Skv at and around the 64-key tile, Skv > Sq and Sq > Skv; windows
@@ -768,7 +782,8 @@ def test_flash_attention_fully_masked_rows_get_the_mean_of_v(
         cuda, d, causal, sq, skv, window, dtype):
     """Rows at or past Skv + window - 1 see no key: like the TPU kernel and
     the plain version, K5 gives them the mean of V over all Skv keys."""
-    _, _, v, got = _k5_case(cuda, 1, 2, 2, sq, skv, d, causal, window, dtype)
+    _, _, v, got, _ = _k5_case(cuda, 1, 2, 2, sq, skv, d, causal, window,
+                               dtype)
     mean = v.float().mean(dim=2, keepdim=True)
     rows = got[:, :, skv + window - 1:].float()
     torch.testing.assert_close(rows, mean.expand_as(rows), rtol=0.01,
@@ -778,7 +793,8 @@ def test_flash_attention_fully_masked_rows_get_the_mean_of_v(
 @pytest.mark.parametrize("d", [32, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_repeats_bit_for_bit(cuda, d, dtype):
-    q, k, v, got = _k5_case(cuda, 4, 10, 1, 300, 300, d, True, 200, dtype)
+    q, k, v, got, _ = _k5_case(cuda, 4, 10, 1, 300, 300, d, True, 200,
+                               dtype)
     again = flash_attention(q, k, v, causal=True, window=200)
     assert torch.equal(got, again)
 
@@ -1475,6 +1491,90 @@ def test_qwen_forward_on_the_card_matches_the_cpu(cuda, arch):
             t.copy_(torch.from_numpy(rng.normal(0, 0.3, t.shape)))
     tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 48))
                            .astype(np.int32))
+    want = T.forward(cfg, params, tok)
+    before = flash_attention.launches
+    got = T.forward(cfg, T.tree_map(lambda t: t.to(cuda), params),
+                    tok.to(cuda))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# ---- Whisper and the paper's LMs: K5 at head dim 64 ------------------------
+
+@pytest.mark.parametrize("b,h,sq,skv,causal", [
+    (2, 16, 150, 1500, False), (1, 16, 1500, 1500, False),
+    (1, 25, 992, 992, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_paper_serving_shapes_match_plain(
+        cuda, monkeypatch, b, h, sq, skv, causal, dtype):
+    """Whisper's encoder (1500 = 23 tiles of 64 and 28 keys, non-causal)
+    and cross-attention (fewer queries than keys), GPT-2's 25 heads: within
+    K5_REL, and in bf16 with planted faults (o x 0.9, the plain version
+    without a key tile, the last query tile zeroed) reading above it."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v, got, want = _k5_case(cuda, b, h, h, sq, skv, 64, causal, 0,
+                                  dtype, rel=True)
+    if dtype != torch.bfloat16:
+        return
+    t0 = (skv // 2 if causal else skv - 1) // 64 * 64
+    real = FA._mask
+
+    def dropped(*args):
+        keep = real(*args)
+        keep[:, t0:t0 + 64] = False
+        return keep
+
+    monkeypatch.setattr(FA, "_mask", dropped)
+    drop = flash_attention_plain(q, k, v, causal=causal)
+    monkeypatch.undo()
+    zeroed = got.clone()
+    zeroed[:, :, (sq - 1) // 128 * 128:] = 0
+    for fault in (got * 0.9, drop, zeroed):
+        assert _rel_frobenius(fault, want) > K5_REL[dtype]
+
+
+def test_whisper_prefill_on_the_card_matches_the_cpu(cuda):
+    """The reduced Whisper's prefill with frames on the card (K5 in its 2
+    encoder, 2 self- and 2 cross-attention layers) against the same
+    prefill on the CPU (plain attention): logits and the xk/xv cache."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import decode as DE
+    from repro_torch.models import transformer as T
+    cfg = get_arch("whisper-medium").reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    rng = np.random.default_rng(1)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40))
+                           .astype(np.int32))
+    frames = torch.from_numpy(rng.normal(0, 0.02, (2, cfg.encoder_seq,
+                                                   cfg.d_model))
+                              .astype(np.float32))
+    want, want_cache = DE.prefill(cfg, params, tok, encoder_frames=frames)
+    before = flash_attention.launches
+    got, cache = DE.prefill(cfg, T.tree_map(lambda t: t.to(cuda), params),
+                            tok.to(cuda), encoder_frames=frames.to(cuda))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + (2 * cfg.num_layers
+                                                 + cfg.encoder_layers)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for name in ("k", "v", "xk", "xv"):
+        torch.testing.assert_close(cache["blocks"]["b0_attn"][name].cpu(),
+                                   want_cache["blocks"]["b0_attn"][name],
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["gpt2-1.5b", "bert-base"])
+def test_paper_lm_forward_on_the_card_matches_the_cpu(cuda, name):
+    """The reduced GPT-2 and BERT (learned positions, gelu) on the card, K5
+    in their 2 layers, against the same forward on the CPU."""
+    from repro_torch.configs.paper_suite import PAPER_LM_SUITE
+    from repro_torch.models import transformer as T
+    cfg = PAPER_LM_SUITE[name].reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32))
     want = T.forward(cfg, params, tok)
     before = flash_attention.launches
     got = T.forward(cfg, T.tree_map(lambda t: t.to(cuda), params),

@@ -65,8 +65,7 @@ def _close(got: torch.Tensor, want, rtol=RTOL, atol=ATOL):
 # ---- copies -----------------------------------------------------------------
 
 def test_config_copies_cover_the_jax_package():
-    want = sorted(p.name for p in (ROOT / "src/repro/configs").glob("*.py")
-                  if p.name != "paper_suite.py")
+    want = sorted(p.name for p in (ROOT / "src/repro/configs").glob("*.py"))
     assert CONFIG_FILES == want
 
 
@@ -148,7 +147,7 @@ def test_params_from_jax_carries_bf16_bit_for_bit():
 
 
 def test_unsupported_architectures_raise():
-    for arch in ("minicpm3-4b", "qwen2-vl-72b", "whisper-medium"):
+    for arch in ("minicpm3-4b", "qwen2-vl-72b"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             T.param_defs(get_arch(arch).reduced())
 
