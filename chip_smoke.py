@@ -79,7 +79,16 @@ bert-base served at full width and depth in bf16 (batch 4, prompts 384,
 with Whisper's frames drawn as ``TokenStream`` draws them, with 72, 48 and
 12 K5 launches a prefill and no plain attention there, Whisper profiled;
 at fp32, full depth and the served batch each prefill against one with
-K5's plain version, and decode == forward.  Last, K1 (3xTF32
+K5's plain version, and decode == forward.  Phase 14, MLA and the vision
+frontend: K5 at minicpm3-4b's q/k 96 with v 64 and at ViT-632M's head dim
+80 in fp32 and bf16, elementwise and within K5_REL beside three planted
+faults, timed in CUDA graphs beside each of SDPA's fused backends alone;
+minicpm3-4b (MLA) and ViT-632M (the patch frontend) served at full width
+and depth and qwen2-vl-72b (M-RoPE, 1024 patch positions + 256 tokens) at
+full width over 8 of its 80 layers, bf16, batch 4, with 62, 32 and 8 K5
+launches a prefill and no plain attention there, each profiled; at fp32
+over 4 layers each prefill against one with K5's plain version, and
+decode == forward.  Last, K1 (3xTF32
 ``wgmma``) at each distinct shape of a ResNet-50 request, with w in the
 layout the request hands over, beside ``torch.matmul``, its tile plan and
 both bounds (3xTF32 and the fp32 FMA pipes).  Any failed
@@ -212,6 +221,36 @@ K5_PAPER = {  # name: (shape, causal, the model, launches a prefill)
 # ragged last one where no mask hides it, the middle one under the causal
 # mask; the last query tile zeroed) must read above it.
 K5_REL = {"bfloat16": 2e-2, "float32": 1e-4}
+# Phase 14, MLA and the vision frontend (src/repro_torch/configs/
+# minicpm3_4b.py, qwen2_vl_72b.py, paper_suite.py), each served in bf16 at
+# batch 4 with 32 new tokens: minicpm3-4b at full width and depth (62
+# layers, 4.07 B parameters, 8.1 GB) on a 1024-token prompt; qwen2-vl-72b at
+# full width over VLM_LAYERS of its 80 layers (9.58 B parameters, 19.2 GB in
+# bf16 with its untied 152064-token embedding and head: what one card holds
+# with room to run; all 80 are 72.8 B, 146 GB) on 1024 patch positions (its
+# frontend_seq) + 256 text tokens; ViT-632M at full width and depth (32
+# layers) on its 256 patch positions + 256 tokens, within its 1024 learned
+# positions.  The patch embeddings: serve's stub zeros, then drawn as
+# TokenStream draws them.  The fp32 checks at VLM_CHECK_LAYERS of each,
+# batch 2, on the served prompt.  K5's shapes (B, H, KV, Sq, Skv, Dqk, Dv)
+# new to this phase, causal: minicpm3's (q/k 96 = nope 64 + rope 32, v 64)
+# and the ViT's (head dim 80); qwen2-vl's head dim 128 is phase 11's.
+VLM_SERVE = {"minicpm3-4b": {"batch": 4, "prompt": 1024, "gen": 32},
+             "qwen2-vl-72b": {"batch": 4, "prompt": 1280, "gen": 32},
+             "vit-632m": {"batch": 4, "prompt": 512, "gen": 32}}
+VLM_LAYERS = 8
+VLM_CHECK = {"layers": 4, "batch": 2}
+VLM_FULL = {   # (layers, d_model, heads, KV, q/k head dim, v head dim,
+    #           d_ff, vocab, frontend positions, parameters)
+    "minicpm3-4b": (62, 2560, 40, 40, 96, 64, 6400, 73448, 0, 4073937408),
+    "qwen2-vl-72b": (80, 8192, 64, 8, 128, 0, 29568, 152064, 1024,
+                     72773312512),
+    "vit-632m": (32, 1280, 16, 16, 80, 0, 5120, 1000, 256, 844514560),
+}
+K5_VLM = {  # name: (shape, the model, launches a prefill)
+    "minicpm3": ((4, 40, 40, 1024, 1024, 96, 64), "minicpm3-4b", 62),
+    "vit": ((4, 16, 16, 512, 512, 80, 80), "vit-632m", 32),
+}
 
 
 # Phase 12, training beyond Mamba-2: K5b's shapes (B, H, KV, Sq, Skv, D,
@@ -905,26 +944,32 @@ def k5_tiles(Sq, Skv, causal, window, dtype):
 
 
 def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
-                  max_err, card=None, planted=False):
-    """K5 at one shape (B, H, KV, Sq, Skv, D) against its plain version,
-    and its times beside F.scaled_dot_product_attention's and its bound.
-    Where the window masks nothing, SDPA is timed both with the mask and
-    with ``is_causal=True``, and the faster is ``library_ms``.  With
-    ``planted``, the output is also held to K5_REL's relative Frobenius
-    bar, and in bf16 the planted faults of ``k5_planted`` must read above
-    it.  Returns a dict of the kernels line's keys (``library`` holds each
-    SDPA form; ``rel_frobenius`` and ``planted`` their readings)."""
+                  max_err, card=None, planted=False, backends=False):
+    """K5 at one shape (B, H, KV, Sq, Skv, D), or (..., D, Dv) with v's
+    own head dim, against its plain version, and its times beside
+    F.scaled_dot_product_attention's and its bound.  Where the window masks
+    nothing, SDPA is timed both with the mask and with ``is_causal=True``,
+    and the faster is ``library_ms``.  With ``planted``, the output is also
+    held to K5_REL's relative Frobenius bar, and in bf16 the planted faults
+    of ``k5_planted`` must read above it.  With ``backends``, K5 and each
+    of SDPA's fused backends alone (``sdpa_backends``) are also timed in
+    CUDA graphs, among the forms ``library_ms`` takes the fastest of.
+    Returns a dict of the kernels line's keys
+    (``library`` holds each SDPA form; ``rel_frobenius`` and ``planted``
+    their readings)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    B, H, KV, Sq, Skv, D = shape
+    B, H, KV, Sq, Skv, D, *rest = shape
+    Dv = rest[0] if rest else D
     q = randn(B, H, Sq, D, dtype=dtype)
-    k, v = randn(B, KV, Skv, D, dtype=dtype), randn(B, KV, Skv, D, dtype=dtype)
+    k, v = randn(B, KV, Skv, D, dtype=dtype), randn(B, KV, Skv, Dv,
+                                                    dtype=dtype)
     rtol, atol = (0.05, 0.03) if dtype == torch.bfloat16 else (1e-3, 2e-4)
     got = flash_attention(q, k, v, causal=causal, window=window)
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
-    tag = f"K5 {(B, H, KV, Sq, Skv, D)} {dtype}"
+    tag = f"K5 {tuple(shape)} {dtype}"
     err = max_err(got, want, rtol, atol, tag)
     checked = {}
     if planted:
@@ -955,11 +1000,30 @@ def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
             lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=KV != H))
     esz = q.element_size()
-    bnd, by = bound((2 * q.numel() + 2 * k.numel()) * esz,
-                    4 * B * H * D * int(keep.sum()), dtype)
+    bnd, by = bound((B * H * Sq + B * KV * Skv) * (D + Dv) * esz,
+                    2 * B * H * (D + Dv) * int(keep.sum()), dtype)
     walked, tiles = k5_tiles(Sq, Skv, causal, window, dtype)
+    graphs = ""
+    if backends:
+        wins = graph_windows_ms(lambda: flash_attention(
+            q, k, v, causal=causal, window=window))
+        sdpa = sdpa_backends(q, k, v, causal)
+        ran = {n: statistics.median(w) for n, w in sdpa.items()
+               if not isinstance(w, str)}
+        checked.update(ms_graph=statistics.median(wins),
+                       ms_spread=[min(wins), max(wins)],
+                       sdpa_backends={n: (statistics.median(w)
+                                          if n in ran else w)
+                                      for n, w in sdpa.items()})
+        libs.update({f"sdpa {n} alone": t for n, t in ran.items()})
+        graphs = (f"; in CUDA graphs (median of 5 windows) K5 "
+                  f"{checked['ms_graph']:.4f} ({min(wins):.4f}-"
+                  f"{max(wins):.4f}), SDPA by backend: " + "; ".join(
+                      f"{n} {ran[n]:.4f}" if n in ran else f"{n} {w}"
+                      for n, w in sdpa.items()))
     print(f"K5 flash_attention B={B} H={H} KV={KV} Sq={Sq} Skv={Skv} "
-          f"D={D} causal={causal} window={window} {dtype}: "
+          f"D={D}{f' Dv={Dv}' if Dv != D else ''} causal={causal} "
+          f"window={window} {dtype}: "
           f"max_abs_err={err:.3e} rtol={rtol} atol={atol}; "
           f"ms={ms:.4f} (per Python call {call_ms(lambda: flash_attention(q, k, v, causal=causal, window=window)):.4f}) "
           f"plain_ms={plain:.4f} library_ms "
@@ -967,14 +1031,40 @@ def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
           + f" bound_ms={bnd:.4f} ({by}); KV tiles walked {walked} of "
           f"{tiles} a (batch, head)"
           + (f"; relative Frobenius err {checked['rel_frobenius']:.3e} "
-             f"(limit {checked['rel_limit']})" if checked else "")
+             f"(limit {checked['rel_limit']})" if "rel_limit" in checked
+             else "")
           + ("; planted faults read " + ", ".join(
               f"{n} {r:.3e}" for n, r in checked["planted"].items())
              if "planted" in checked else "")
-          + (f"; card {card}" if card else ""))
+          + graphs + (f"; card {card}" if card else ""))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bnd, "bound_by": by,
-            "library_ms": min(libs.values()), "library": libs, **checked}
+            "library_ms": min(libs.values()), "library": libs,
+            **checked}
+
+
+def sdpa_backends(q, k, v, causal):
+    """Each of F.scaled_dot_product_attention's fused backends alone on
+    q, k, v (``is_causal``), timed as ``graph_windows_ms`` times K5: its
+    windows, or why it did not run (flash needs v's head dim to be q's)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    gqa = k.shape[1] != q.shape[1]
+    out = {}
+    run = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=causal, enable_gqa=gqa)
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                run()
+                torch.cuda.synchronize()
+                out[name] = graph_windows_ms(run)
+        except RuntimeError as e:
+            out[name] = "unavailable (" + str(e).strip().splitlines()[0][
+                :80].replace(";", ",") + ")"
+            torch.cuda.synchronize()
+    return out
 
 
 def k5_planted(q, k, v, causal, window, got, want):
@@ -1756,12 +1846,14 @@ class serving_config:
 
 
 def draw_attn_leaves(params, gen):
-    """The QKV biases (std 0.2) and qk-norm scales (std 0.5) drawn from
-    ``gen`` in place of ``init_params``'s zeros, which would hide a missing
-    bias or scale; returns their names."""
+    """The QKV biases (std 0.2) and qk-norm scales (MLA: its latent norms'
+    scales; std 0.5) drawn from ``gen`` in place of ``init_params``'s
+    zeros, which would hide a missing bias or scale; returns their
+    names."""
     import torch
     attn = params["blocks"]["b0_attn"]["attn"]
-    names = [n for n in ("bq", "bk", "bv", "qn", "kn") if n in attn]
+    names = [n for n in ("bq", "bk", "bv", "qn", "kn", "q_ln", "kv_ln")
+             if n in attn]
     for n in names:
         t = attn[n]
         t.copy_(torch.randn(t.shape, generator=gen, device=t.device)
@@ -1776,12 +1868,13 @@ def k5_per_prefill(cfg):
             + cfg.encoder_layers)
 
 
-def fp32_prefill_check(cfg32, dev, run, card, frames=None):
+def fp32_prefill_check(cfg32, dev, run, card, inputs=None):
     """The served prefill at fp32 (TF32 off) against one with K5's plain
     version swapped into ``ops.flash_attention``: last-position logits
     within 1e-3 relative Frobenius, the same argmax; and decode == forward
-    (tests/test_models.py:80's tolerance).  ``frames`` (B, encoder_seq, D)
-    feed an encoder-decoder's encoder."""
+    (tests/test_models.py:80's tolerance).  ``inputs``: the frontend's
+    keyword arguments of ``prefill`` and ``forward`` (``paper_inputs``),
+    an encoder-decoder's frames or the patch embeddings."""
     import torch
 
     from repro_torch.data.pipeline import RequestStream
@@ -1793,6 +1886,7 @@ def fp32_prefill_check(cfg32, dev, run, card, frames=None):
     from repro_torch.models import transformer as T
 
     B, S = run["batch"], run["prompt"]
+    inputs = inputs or {}
     params = T.init_params(cfg32, torch.Generator(device=dev).manual_seed(1),
                            device=dev)
     drawn = draw_attn_leaves(params, torch.Generator(device=dev).manual_seed(2))
@@ -1810,7 +1904,7 @@ def fp32_prefill_check(cfg32, dev, run, card, frames=None):
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, _ = DE.prefill(cfg32, params, tok, encoder_frames=frames)
+            logits, _ = DE.prefill(cfg32, params, tok, **inputs)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
         finally:
@@ -1835,9 +1929,8 @@ def fp32_prefill_check(cfg32, dev, run, card, frames=None):
           f"{[round(t, 3) for t in ms_k]}, plain {[round(t, 3) for t in ms_p]}"
           f"; card {card}")
 
-    full = T.forward(cfg32, params, tok, encoder_frames=frames)
-    _, cache = DE.prefill(cfg32, params, tok[:, :S - 1],
-                          encoder_frames=frames)
+    full = T.forward(cfg32, params, tok, **inputs)
+    _, cache = DE.prefill(cfg32, params, tok[:, :S - 1], **inputs)
     cache = _grow_cache(cfg32, cache, B, S)
     dl, cache = DE.decode_step(cfg32, params, cache, tok[:, S - 1:])
     got, want = dl[:, 0, cols], full[:, S - 1, cols]
@@ -2019,18 +2112,136 @@ def paper_config(name, dtype=None):
     return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
 
 
-def paper_frames(cfg, batch, seq, dev):
-    """Frame embeddings (batch, encoder_seq, d_model) in the model's dtype,
-    drawn as ``TokenStream`` draws them (normal(0, 0.02), seed 0); None for
-    a model without the audio frontend."""
+def paper_inputs(cfg, batch, seq, dev):
+    """The frontend's inputs of ``prefill`` in the model's dtype, drawn as
+    ``TokenStream`` draws them (normal(0, 0.02), seed 0): the frame
+    embeddings (batch, encoder_seq, d_model) of the audio frontend, the
+    patch embeddings (batch, frontend_seq, d_model) of the vision one, or
+    none."""
     import torch
 
     from repro_torch.data.pipeline import TokenStream
-    if cfg.frontend != "audio_frames":
-        return None
-    frames = TokenStream(cfg, batch, seq, 0, device=dev).batch_at(0)[
-        "encoder_frames"]
-    return frames.to(getattr(torch, cfg.dtype))
+    names = {"audio_frames": "encoder_frames",
+             "vision_patches": "frontend_embeds"}
+    if cfg.frontend not in names:
+        return {}
+    name = names[cfg.frontend]
+    drawn = TokenStream(cfg, batch, seq, 0, device=dev).batch_at(0)[name]
+    return {name: drawn.to(getattr(torch, cfg.dtype))}
+
+
+def serve_counted(cfg, run, dev, counters, card):
+    """``cfg`` served in its dtype: ``launch.serve.serve`` (its stub
+    frontend's zeros), then through ``ST.make_prefill_step`` and
+    ``make_decode_step`` with the frontend's inputs drawn as ``TokenStream``
+    draws them (``paper_inputs``), timed; ``counters`` (K1, K2, K5, K6, K8,
+    K7) must read K5 ``k5_per_prefill(cfg)`` times a prefill and no other
+    kernel, with no plain attention in the prefill and one a layer (and
+    cross-attention) a decode step: ``layers._attn_block``, or MLA's
+    absorbed ``decode.mla_step``, as the JAX package decodes.  Prints one
+    line ending with ``card``; returns (params, the batch, K5's launches a
+    prefill)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import RequestStream
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.serve import _grow_cache, serve
+    from repro_torch.models import decode as DE
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    names = ("K1", "K2", "K5", "K6", "K8", "K7")
+    launched = lambda: dict(zip(names, (c.launches for c in counters)))
+    B, S, G_ = run["batch"], run["prompt"], run["gen"]
+    want = {n: k5_per_prefill(cfg) if n == "K5" else 0 for n in names}
+    with serving_config(cfg):
+        for c in counters:
+            c.launches = 0
+        warm = serve(cfg.name, smoke=False, batch=B, prompt=S, gen=2)
+    if launched() != want or warm["generated"].shape != (B, 2):
+        raise AssertionError(f"serve {cfg.name} {run}: launches "
+                             f"{launched()}, want {want}")
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    batch_in = {"tokens": torch.from_numpy(RequestStream(
+        cfg, B, S, 0).requests_at(0)["tokens"]).to(dev),
+        **paper_inputs(cfg, B, S, dev)}
+    prefill_fn, decode_fn = (ST.make_prefill_step(cfg),
+                             ST.make_decode_step(cfg))
+    mla = cfg.attention == "mla"
+    plain_name = "mla_step" if mla else "_attn_block"
+    module = DE if mla else L
+    real = getattr(module, plain_name)
+    plain = [0]
+
+    def counting(*args, **kw):
+        plain[0] += 1
+        return real(*args, **kw)
+
+    setattr(module, plain_name, counting)
+    try:
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill_fn(params, batch_in)
+        cache = _grow_cache(cfg, cache, B, S + G_)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        at_prefill, plain_prefill = launched(), plain[0]
+        tokens = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        out = [tokens]
+        t0 = time.perf_counter()
+        for _ in range(G_ - 1):
+            logits, cache = decode_fn(params, cache, {"tokens": tokens})
+            tokens = torch.argmax(logits[:, -1], dim=-1)[:, None].to(
+                torch.int32)
+            out.append(tokens)
+        torch.cuda.synchronize()
+        t_decode = (time.perf_counter() - t0) / (G_ - 1)
+    finally:
+        setattr(module, plain_name, real)
+    gen_tok = torch.cat(out, dim=1).cpu().numpy()
+    per_step = cfg.num_layers * (2 if cfg.cross_attention else 1)
+    if (at_prefill != want or launched() != want or plain_prefill
+            or plain[0] != per_step * (G_ - 1)):
+        raise AssertionError(
+            f"{cfg.name} served through the step functions: launches "
+            f"after the prefill {at_prefill}, after decode {launched()} "
+            f"(want {want} for both); plain attention calls in the "
+            f"prefill {plain_prefill} (want 0), in decode "
+            f"{plain[0] - plain_prefill} (want {per_step * (G_ - 1)})")
+    if not (gen_tok.shape == (B, G_) and gen_tok.dtype == np.int32
+            and ((0 <= gen_tok) & (gen_tok < cfg.vocab_size)).all()):
+        raise AssertionError(f"{cfg.name}: generated {gen_tok.shape} "
+                             f"{gen_tok.dtype}, range {gen_tok.min()}.."
+                             f"{gen_tok.max()}")
+    front = (f", {cfg.encoder_layers} encoder layers over "
+             f"{cfg.encoder_seq} frames (TokenStream's draw)"
+             if cfg.encoder_layers else
+             f", {cfg.frontend_seq} patch positions of the prompt "
+             f"(TokenStream's draw){', M-RoPE' * (cfg.rope == 'mrope')}"
+             if cfg.frontend == "vision_patches" else "")
+    if mla:
+        front += (f", MLA (q latent {cfg.q_lora_rank}, kv latent "
+                  f"{cfg.kv_lora_rank}, q/k {cfg.nope_head_dim} + "
+                  f"{cfg.rope_head_dim}, v {cfg.v_head_dim})")
+    stub = (" with the stub frontend's zero frames"
+            if cfg.frontend == "audio_frames" else
+            " with the stub frontend's zero patch embeddings"
+            if cfg.frontend == "vision_patches" else "")
+    print(f"serve {cfg.name} ({describe(cfg)}{front}): batch {B}, prompt "
+          f"{S}, gen {G_}, through ST.make_prefill_step and "
+          f"make_decode_step: prefill_ms={t_prefill * 1e3:.3f} "
+          f"decode_ms_per_token={t_decode * 1e3:.3f}; K5 launches "
+          f"{want['K5']} a prefill (`serve`{stub}: the same), "
+          f"K1/K2/K6/K7/K8 none; plain attention "
+          f"none in the prefill, {per_step} calls a decode step (plain "
+          f"{plain_name}, as the JAX package decodes); generated "
+          f"{gen_tok.shape} int32, first row {gen_tok[0, :8].tolist()}; "
+          f"card {card}")
+    return params, batch_in, at_prefill["K5"]
 
 
 def drive_paper(dev, counters, time_ms, call_ms, max_err, randn, card):
@@ -2048,14 +2259,10 @@ def drive_paper(dev, counters, time_ms, call_ms, max_err, randn, card):
     same way (48 and 12 K5 launches).  Every
     line with a time ends with ``card``.  Returns K5's entries at the five
     shapes (bf16, with launches a prefill) for its kernels line."""
-    import numpy as np
     import torch
 
-    from repro_torch.data.pipeline import RequestStream
     from repro_torch.launch import steps as ST
-    from repro_torch.launch.serve import _grow_cache, serve
-    from repro_torch.models import layers as L
-    from repro_torch.models import transformer as T
+    from repro_torch.launch.serve import _grow_cache
 
     # ---- 13(d): K5 at the shapes of the three models' prefills -----------
     rows = {}
@@ -2065,92 +2272,11 @@ def drive_paper(dev, counters, time_ms, call_ms, max_err, randn, card):
                 shape, causal, 0, dtype, randn, time_ms, call_ms, max_err,
                 card, planted=True)
 
-    names = ("K1", "K2", "K5", "K6", "K8", "K7")
-    launched = lambda: dict(zip(names, (c.launches for c in counters)))
-    real_block = L._attn_block
-    plain = [0]
-
-    def counting_block(*args, **kw):
-        plain[0] += 1
-        return real_block(*args, **kw)
-
     prefill_launches = {}
 
     def served(cfg):
-        """``serve``, then the step functions' serving loop, counted."""
-        run = PAPER_SERVE[cfg.name]
-        B, S, G_ = run["batch"], run["prompt"], run["gen"]
-        want = {n: k5_per_prefill(cfg) if n == "K5" else 0 for n in names}
-        with serving_config(cfg):
-            for c in counters:
-                c.launches = 0
-            warm = serve(cfg.name, smoke=False, batch=B, prompt=S, gen=2)
-        if launched() != want or warm["generated"].shape != (B, 2):
-            raise AssertionError(f"serve {cfg.name} {run}: launches "
-                                 f"{launched()}, want {want}")
-        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
-            0), device=dev)
-        batch_in = {"tokens": torch.from_numpy(RequestStream(
-            cfg, B, S, 0).requests_at(0)["tokens"]).to(dev)}
-        frames = paper_frames(cfg, B, S, dev)
-        if frames is not None:
-            batch_in["encoder_frames"] = frames
-        prefill_fn, decode_fn = (ST.make_prefill_step(cfg),
-                                 ST.make_decode_step(cfg))
-        L._attn_block = counting_block
-        try:
-            for c in counters:
-                c.launches = 0
-            plain[0] = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, cache = prefill_fn(params, batch_in)
-            cache = _grow_cache(cfg, cache, B, S + G_)
-            torch.cuda.synchronize()
-            t_prefill = time.perf_counter() - t0
-            at_prefill, plain_prefill = launched(), plain[0]
-            tokens = torch.argmax(logits[:, -1], dim=-1)[:, None].to(
-                torch.int32)
-            out = [tokens]
-            t0 = time.perf_counter()
-            for _ in range(G_ - 1):
-                logits, cache = decode_fn(params, cache, {"tokens": tokens})
-                tokens = torch.argmax(logits[:, -1], dim=-1)[:, None].to(
-                    torch.int32)
-                out.append(tokens)
-            torch.cuda.synchronize()
-            t_decode = (time.perf_counter() - t0) / (G_ - 1)
-        finally:
-            L._attn_block = real_block
-        gen_tok = torch.cat(out, dim=1).cpu().numpy()
-        per_step = cfg.num_layers * (2 if cfg.cross_attention else 1)
-        if (at_prefill != want or launched() != want or plain_prefill
-                or plain[0] != per_step * (G_ - 1)):
-            raise AssertionError(
-                f"{cfg.name} served through the step functions: launches "
-                f"after the prefill {at_prefill}, after decode {launched()} "
-                f"(want {want} for both); plain attention calls in the "
-                f"prefill {plain_prefill} (want 0), in decode "
-                f"{plain[0] - plain_prefill} (want {per_step * (G_ - 1)})")
-        if not (gen_tok.shape == (B, G_) and gen_tok.dtype == np.int32
-                and ((0 <= gen_tok) & (gen_tok < cfg.vocab_size)).all()):
-            raise AssertionError(f"{cfg.name}: generated {gen_tok.shape} "
-                                 f"{gen_tok.dtype}, range {gen_tok.min()}.."
-                                 f"{gen_tok.max()}")
-        prefill_launches[cfg.name] = at_prefill["K5"]
-        enc = (f", {cfg.encoder_layers} encoder layers over "
-               f"{cfg.encoder_seq} frames (TokenStream's draw)"
-               if cfg.encoder_layers else "")
-        print(f"serve {cfg.name} ({describe(cfg)}{enc}): batch {B}, prompt "
-              f"{S}, gen {G_}, through ST.make_prefill_step and "
-              f"make_decode_step: prefill_ms={t_prefill * 1e3:.3f} "
-              f"decode_ms_per_token={t_decode * 1e3:.3f}; K5 launches "
-              f"{want['K5']} a prefill (`serve` with the stub frontend's "
-              f"zero frames: the same), K1/K2/K6/K7/K8 none; plain attention "
-              f"none in the prefill, {per_step} calls a decode step (plain "
-              f"_attn_block, as the JAX package decodes); generated "
-              f"{gen_tok.shape} int32, first row {gen_tok[0, :8].tolist()}; "
-              f"card {card}")
+        params, batch_in, prefill_launches[cfg.name] = serve_counted(
+            cfg, PAPER_SERVE[cfg.name], dev, counters, card)
         return params, batch_in
 
     def entry(name):
@@ -2192,10 +2318,102 @@ def drive_paper(dev, counters, time_ms, call_ms, max_err, randn, card):
             torch.cuda.empty_cache()
         cfg32 = paper_config(name, "float32")
         run = PAPER_SERVE[name]
-        fp32_prefill_check(cfg32, dev, run, card, frames=paper_frames(
+        fp32_prefill_check(cfg32, dev, run, card, inputs=paper_inputs(
             cfg32, run["batch"], run["prompt"], dev))
         torch.cuda.empty_cache()
     return {name: entry(name) for name in K5_PAPER}
+
+
+def vlm_config(name, layers=None, dtype=None):
+    """``name`` (minicpm3-4b or qwen2-vl-72b from the port's registry,
+    vit-632m from ``configs.paper_suite``), checked to be the full model,
+    cut to ``layers`` (None: full depth), in ``dtype`` where given."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.paper_suite import PAPER_LM_SUITE
+    from repro_torch.models import transformer as T
+    cfg = {**PAPER_LM_SUITE, **ARCHS}[name]
+    shape = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+             cfg.resolved_head_dim, cfg.v_head_dim, cfg.d_ff,
+             cfg.vocab_size, cfg.frontend_seq, T.count_params(cfg))
+    if shape != VLM_FULL[name] or cfg.dtype != "bfloat16":
+        raise AssertionError(f"{name}: config {shape} {cfg.dtype}")
+    return dataclasses.replace(cfg, num_layers=layers or cfg.num_layers,
+                               dtype=dtype or cfg.dtype)
+
+
+def drive_vlm(dev, counters, time_ms, call_ms, max_err, randn, card):
+    """Phase 14: MLA (minicpm3-4b) and the vision frontend (qwen2-vl-72b's
+    M-RoPE, ViT-632M), every prefill attention on K5.  (a) K5 at its new
+    shapes (minicpm3's q/k 96 with v 64, the ViT's 80), causal, in fp32 and
+    bf16: elementwise and within K5_REL, beside planted faults that must
+    read above it, and timed in CUDA graphs beside each of SDPA's fused
+    backends alone; (b) each model served in bf16 at VLM_SERVE's sizes
+    (``serve_counted``: K5 62, 8 and 32 times a prefill, no plain attention
+    there; minicpm3 decoding by the absorbed ``mla_step``), its prefill and
+    four decode steps profiled; (c) each at fp32 over VLM_CHECK's layers
+    and batch with patch embeddings drawn as ``TokenStream`` draws them:
+    the prefill against one with K5's plain version, and decode == forward.
+    Returns K5's entries at the two new shapes (bf16, with launches a
+    prefill) and qwen2-vl's launches, for the kernels line."""
+    import torch
+
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.serve import _grow_cache
+
+    # ---- 14(a): K5 at the new shapes -------------------------------------
+    rows = {}
+    for name, (shape, _, _) in K5_VLM.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            rows[(name, dtype)] = check_k5_case(
+                shape, True, 0, dtype, randn, time_ms, call_ms, max_err,
+                card, planted=True, backends=True)
+            torch.cuda.empty_cache()
+
+    # ---- 14(b), 14(c): each model served, profiled, then its fp32 check ---
+    kernels = {"K5": ("flash_bf16_kernel", "flash_f32_kernel")}
+    launches = {}
+    for name, run in VLM_SERVE.items():
+        cfg = vlm_config(name, VLM_LAYERS if name == "qwen2-vl-72b" else None)
+        params, batch_in, launches[name] = serve_counted(cfg, run, dev,
+                                                         counters, card)
+        B, S = batch_in["tokens"].shape
+        prefill_fn = ST.make_prefill_step(cfg)
+        decode_fn = ST.make_decode_step(cfg)
+        _, cache = prefill_fn(params, batch_in)
+        cache = _grow_cache(cfg, cache, B, S + 8)
+        nxt = {"tokens": batch_in["tokens"][:, -1:]}
+        decode_fn(params, cache, nxt)
+        torch.cuda.synchronize()
+        profile_run(f"prefill {name} ({cfg.num_layers} layers, B={B}, "
+                    f"S={S}", lambda: prefill_fn(params, batch_in), 1,
+                    kernels, "call", card)
+        profile_run(f"decode {name} ({cfg.num_layers} layers, B={B}, "
+                    f"S={S}", lambda: decode_fn(params, cache, nxt), 4,
+                    kernels, "step", card)
+        del params, batch_in, cache
+        torch.cuda.empty_cache()
+        cfg32 = vlm_config(name, VLM_CHECK["layers"], "float32")
+        check = {"batch": VLM_CHECK["batch"], "prompt": run["prompt"]}
+        fp32_prefill_check(cfg32, dev, check, card, inputs=paper_inputs(
+            cfg32, check["batch"], check["prompt"], dev))
+        torch.cuda.empty_cache()
+
+    def entry(name):
+        shape, model, n = K5_VLM[name]
+        if launches[model] != n:
+            raise AssertionError(f"{model}: {launches[model]} K5 launches "
+                                 f"a prefill, want {n}")
+        return {"shape": list(shape), "dtype": "bfloat16", "causal": True,
+                "window": 0, "model": model, "launches": n,
+                "model_prefill_launches": launches[model],
+                **rows[(name, torch.bfloat16)],
+                "float32": {k: v for k, v in rows[(name, torch.float32)]
+                            .items() if k != "library"}}
+
+    return {**{name: entry(name) for name in K5_VLM},
+            "qwen2-vl-72b_prefill_launches": launches["qwen2-vl-72b"]}
 
 
 def k5b_bound(B, H, KV, Sq, Skv, D, causal, window, dtype):
@@ -3224,6 +3442,10 @@ def main() -> int:
                                             rglru_scan),
                            time_ms, call_ms, max_err, randn, card)
     torch.cuda.empty_cache()
+    mark("14, MLA and the vision frontend")
+    k5_vlm = drive_vlm(dev, counters + (lindley_scan, ssd_scan, rglru_scan),
+                       time_ms, call_ms, max_err, randn, card)
+    torch.cuda.empty_cache()
     mark("the kernels line")
 
     # ---- the kernels line: K1 over one request's 53 shapes ---------------
@@ -3294,7 +3516,8 @@ def main() -> int:
          "launches": launches[2] + k5_train,
          **{k: v for k, v in k5.items() if k != "library"},
          "main_path_launches": launches[2], "train_launches": k5_train,
-         "serving": k5_serving, "qwen": k5_qwen, "paper": k5_paper},
+         "serving": k5_serving, "qwen": k5_qwen, "paper": k5_paper,
+         "mla_vlm": k5_vlm},
         {**k6_entry, "max_abs_err": k6_err},
         {"name": "ssd_scan", "route": "cuda", "source": src + "ssd.cu",
          "replaces": "src/repro/kernels/ssd.py:87", "launches": k8_launches,

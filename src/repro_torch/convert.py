@@ -10,7 +10,8 @@ function, which the differential tests rely on.  A bfloat16 leaf (numpy's
 ``ml_dtypes.bfloat16``, which ``torch.tensor`` refuses) becomes a
 ``torch.bfloat16`` tensor with the same bits.  The LM trees of
 ``repro.models.transformer`` (stacked blocks, a ``rem`` list, Whisper's
-``encoder`` subtree with its own stack, ``pos_embed``) map the same way, and so does a NamedTuple such as the JAX ``AdamWState``, rebuilt from
+``encoder`` subtree with its own stack, ``pos_embed``, MLA's latent
+projections and norms, ``patch_proj``) map the same way, and so does a NamedTuple such as the JAX ``AdamWState``, rebuilt from
 positional arguments.
 """
 from __future__ import annotations

@@ -1,13 +1,14 @@
 // K5: blocked (flash) attention with an online softmax, GQA, causal masking
-// and a sliding window.  q (B,H,Sq,D); k, v (B,KV,Skv,D) -> o (B,H,Sq,D).
-// K5b, its backward, is the second half of the file.
+// and a sliding window.  q (B,H,Sq,Dqk), k (B,KV,Skv,Dqk), v (B,KV,Skv,Dv)
+// -> o (B,H,Sq,Dv), scores scaled by 1/sqrt(Dqk).  K5b, its backward, is the
+// second half of the file.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention
 // (_flash_kernel), the Pallas TPU kernel whose grid (B*H, Sq/bq, Skv/bk)
 // carries m, l and acc in VMEM scratch across the sequential KV dimension.
 //
-// What bounds it on the H100: the 4*Sq*Skv*D operations of the two products
-// over the key range the masks leave (bf16 on the tensor cores at long
+// What bounds it on the H100: the 2*Sq*Skv*(Dqk + Dv) operations of the two
+// products over the key range the masks leave (bf16 on the tensor cores at long
 // sequences, RecurrentGemma-2B's D = 256); at the ViT's shapes (fp32, D = 32,
 // 5 to 197 tokens) the launch and the per-block loads.
 //
@@ -37,31 +38,47 @@
 // both operands in shared memory (Q stays there, not in registers, to leave
 // them for O); P is rounded to bf16 in registers, where S's accumulator
 // fragment is already the A fragment of O += P.V, one m64nNk16 a k16 step
-// over all N = D columns (V from shared memory).  Each warpgroup issues
+// over all of V's columns (V from shared memory).  Each warpgroup issues
 // S_j, moves O to tile j - 1's maximum while S_j runs, issues O += P_{j-1}.
 // V_{j-1}, and runs tile j's softmax while that product runs.  The online
 // softmax runs in fp32 with ex2 and log2(e) folded into the scale (one FFMA
 // an element on unmasked tiles); m and l are reduced across the four
 // threads that share a row of the fragment.  K and V arrive through
 // two-stage rings filled by cp.async (16 bytes a thread, zero-filled past
-// Skv and past D), V one tile behind K: the copies of K_{j+1} and V_j go
+// Skv and past the head dim), V one tile behind K: the copies of K_{j+1} and V_j go
 // out while the products on tile j run, and one block barrier a tile both
 // publishes K_j and V_{j-1} and frees the stages they overwrite.  Every
 // thread both copies and computes, so the barrier costs what an mbarrier
 // round would; a TMA producer warp with setmaxnreg and ping-pong between
 // the warpgroups is later work.  O leaves through the warpgroup's Q tile,
 // in the same swizzled layout, so that its rows are written in whole 16-byte
-// chunks.  D < 64 is padded to 64 columns of zeros in shared memory.  At
-// D = 256 the block holds 193 KB (Q 64 KB, two stages of K and V 128 KB, 1 KB
-// to align): one block an SM.
+// chunks.  At D = 256 the block holds 193 KB (Q 64 KB, two stages of K and
+// V 128 KB, 1 KB to align): one block an SM.
+//
+// Head dims.  The kernels are templates on (DQK, DV), the head dims of q/k
+// and of v, instantiated for the pairs the port's models run (flash_attention
+// below): the square 16..256, MLA's (96, 64) (minicpm3-4b: nope 64 + rope
+// 32 against v 64), ViT-632M's (80, 80) and (32, 16), the CPU tests' reduced
+// MLA.  In bf16, Q and K take ceil(DQK / 64) swizzled 64-column blocks and
+// S = Q.K^T runs DQK / 16 k16 steps, so no product reads the zero columns
+// past DQK (6 at 96, 5 at 80); V, O and the accumulator take ceil(DV / 64)
+// blocks, and P.V runs m64nNk16 over N = 64 ceil(DV / 64) columns: at DV = 80
+// a PV<128> over 48 zero-filled columns, 37% more P.V products than an
+// m64n80k16 would run, taken because it is the product D = 128 already runs
+// (no second fragment layout in the epilogue) and P.V is half the work of
+// one tile at most.  A 16-byte chunk of a row never straddles a block edge:
+// DQK and DV are multiples of 16 and the chunks start at multiples of 8
+// columns, so a chunk lies wholly before or wholly past the dim, which the
+// copies zero-fill.  O goes out through the warpgroup's Q tile, so DV needs
+// no more blocks than DQK.
 //
 // fp32 (flash_f32_kernel): the CUDA cores, so that fp32 stays fp32 (the
 // serving checks' 1e-3 bar; TF32 would eat into it).  One block per 32-query
 // tile; LANES threads own one query row, each with 1/LANES of its head
 // dimension in registers, and combine their partial q.k with log2(LANES)
-// warp shuffles.  D <= 128 takes 4 lanes and 32-key tiles; D = 256 takes 8
-// lanes and 16-key tiles (two [16][256] fp32 tiles are 32 KB of static
-// shared memory).  Without causal masking or a window (the ViT) it walks
+// warp shuffles; each lane also holds 1/LANES of o's DV columns.  DQK <= 128
+// takes 4 lanes and 32-key tiles; DQK = 256 takes 8 lanes and 16-key tiles
+// (two [16][256] fp32 tiles are 32 KB of static shared memory).  Without causal masking or a window (the ViT) it walks
 // every key, as it did before tile skipping (see flash_f32_kernel).
 #include <cstdint>
 #include <type_traits>
@@ -125,16 +142,18 @@ constexpr int F32_BQ = 32;
 // block walks every key: the range's few dependent operations ahead of the
 // first copy, or other code in place of the plain loop, cost 3-23% at the
 // ViT's 122 tokens (tools/k5_ab.py).
-template <int D, int LANES, int BKV, bool SKIP>
+template <int DQK, int DV, int LANES, int BKV, bool SKIP>
 __global__ void __launch_bounds__(F32_BQ * LANES)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int H, int KV, int Sq, int Skv,
                  float scale, int causal, int window) {
-  constexpr int DP = D / LANES;
+  constexpr int DP = DQK / LANES;   // q.k columns a lane
+  constexpr int VP = DV / LANES;    // o columns a lane
+  static_assert(DQK % LANES == 0 && DV % LANES == 0, "whole columns a lane");
   constexpr int THREADS = F32_BQ * LANES;
-  __shared__ float ks[BKV][D];
-  __shared__ float vs[BKV][D];
+  __shared__ float ks[BKV][DQK];
+  __shared__ float vs[BKV][DV];
   int bh = blockIdx.y, q0 = blockIdx.x * F32_BQ, k_lo = 0, k_hi = Skv;
   if constexpr (SKIP) {
     const TileRange t = tile_range(blockIdx.y, gridDim.y, blockIdx.x, F32_BQ,
@@ -150,24 +169,27 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = bh / H;
   const int kvh = (bh % H) / (H / KV);
   const int qpos = q0 + row;
-  const size_t q_off = ((size_t)bh * Sq + qpos) * D;
-  const size_t kv_base = ((size_t)b * KV + kvh) * Skv * D;
+  const size_t q_off = ((size_t)bh * Sq + qpos) * DQK;
+  const size_t o_off = ((size_t)bh * Sq + qpos) * DV;
+  const size_t k_base = ((size_t)b * KV + kvh) * Skv * DQK;
+  const size_t v_base = ((size_t)b * KV + kvh) * Skv * DV;
 
-  float qr[DP], acc[DP];
+  float qr[DP], acc[VP];
 #pragma unroll
-  for (int i = 0; i < DP; ++i) {
+  for (int i = 0; i < DP; ++i)
     qr[i] = qpos < Sq ? q[q_off + lane + LANES * i] : 0.0f;
-    acc[i] = 0.0f;
-  }
+#pragma unroll
+  for (int i = 0; i < VP; ++i) acc[i] = 0.0f;
   float m = NEG_INF, l = 0.0f;
 
   for (int k0 = k_lo; k0 < k_hi; k0 += BKV) {
-    for (int e = tid; e < BKV * D; e += THREADS) {
-      const int r = e / D, c = e % D;
-      const bool ok = k0 + r < Skv;
-      const size_t g = kv_base + (size_t)(k0 + r) * D + c;
-      ks[r][c] = ok ? k[g] : 0.0f;
-      vs[r][c] = ok ? v[g] : 0.0f;
+    for (int e = tid; e < BKV * DQK; e += THREADS) {
+      const int r = e / DQK, c = e % DQK;
+      ks[r][c] = k0 + r < Skv ? k[k_base + (size_t)(k0 + r) * DQK + c] : 0.0f;
+    }
+    for (int e = tid; e < BKV * DV; e += THREADS) {
+      const int r = e / DV, c = e % DV;
+      vs[r][c] = k0 + r < Skv ? v[v_base + (size_t)(k0 + r) * DV + c] : 0.0f;
     }
     __syncthreads();
 
@@ -200,24 +222,24 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l = l * alpha + psum;
     m = m_new;
 #pragma unroll
-    for (int i = 0; i < DP; ++i) acc[i] *= alpha;
+    for (int i = 0; i < VP; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int j = 0; j < BKV; ++j)
 #pragma unroll
-      for (int i = 0; i < DP; ++i) acc[i] = fmaf(s[j], vs[j][lane + LANES * i], acc[i]);
+      for (int i = 0; i < VP; ++i) acc[i] = fmaf(s[j], vs[j][lane + LANES * i], acc[i]);
     __syncthreads();
   }
 
   if (qpos < Sq) {
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < DP; ++i) o[q_off + lane + LANES * i] = acc[i] / denom;
+    for (int i = 0; i < VP; ++i) o[o_off + lane + LANES * i] = acc[i] / denom;
     if (lse != nullptr && lane == 0)
       lse[(size_t)bh * Sq + qpos] = row_lse(m, l);
   }
 }
 
-template <int D, int LANES = 4, int BKV = 32>
+template <int DQK, int DV, int LANES = 4, int BKV = 32>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int H, int KV, int Sq, int Skv, float scale,
                int causal, int window, cudaStream_t stream) {
@@ -227,12 +249,12 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(o);
   if (causal || window)
-    flash_f32_kernel<D, LANES, BKV, true><<<dim3(B * H, nq), F32_BQ * LANES,
-                                            0, stream>>>(
+    flash_f32_kernel<DQK, DV, LANES, BKV, true>
+        <<<dim3(B * H, nq), F32_BQ * LANES, 0, stream>>>(
         qf, kf, vf, of, lse, H, KV, Sq, Skv, scale, causal, window);
   else
-    flash_f32_kernel<D, LANES, BKV, false><<<dim3(nq, B * H), F32_BQ * LANES,
-                                             0, stream>>>(
+    flash_f32_kernel<DQK, DV, LANES, BKV, false>
+        <<<dim3(nq, B * H), F32_BQ * LANES, 0, stream>>>(
         qf, kf, vf, of, lse, H, KV, Sq, Skv, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -290,7 +312,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
 
 // d (64xN, fp32) += A (64x16, bf16 in registers) . B (16xN, shared,
 // MN-major), B's descriptor a base plus OFF_B (16-byte units): the P.V
-// product over all N = 64 * NDB columns of D at once.
+// product over all N = 64 * NDB columns of V's blocks at once.
 template <int N>
 struct PV;
 
@@ -418,7 +440,7 @@ __device__ __forceinline__ void qk_products(float (&s)[32], uint64_t qd,
 }
 
 // O += P . V, committed as one group: V's key rows are an MN-major B over
-// the NDB 64-column blocks of D (LBO one block); a k16 step is 16 rows, 2 KB.
+// its NDB 64-column blocks (LBO one block); a k16 step is 16 rows, 2 KB.
 template <int NDB>
 __device__ __forceinline__ void pv_product(float (&acc)[NDB * 32],
                                            const uint32_t (&p)[4][4],
@@ -457,13 +479,19 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
   }
 }
 
-template <int D>
-constexpr int bf16_smem_bytes() {
-  // Q (two warpgroups), two stages of K and V, and 1 KB to align to 1 KB.
-  return (D < 64 ? 1 : D / 64) * BLOCK_BYTES * (2 + 2 * 2) + 1024;
+// 64-column swizzled blocks a row of a head dim D.
+__host__ __device__ constexpr int col_blocks(int D) {
+  return (D + 63) / 64;
 }
 
-template <int D>
+template <int DQK, int DV>
+constexpr int bf16_smem_bytes() {
+  // Q (two warpgroups) and two stages of K, two stages of V, and 1 KB to
+  // align to 1 KB.
+  return (4 * col_blocks(DQK) + 2 * col_blocks(DV)) * BLOCK_BYTES + 1024;
+}
+
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -471,13 +499,17 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                   int B, int H, int KV, int Sq, int Skv, float scale_log2,
                   int causal, int window) {
-  constexpr int NDB = D < 64 ? 1 : D / 64;  // 64-column blocks of D
-  constexpr int TILE = NDB * BLOCK_BYTES;   // one 64-row K or V tile
+  constexpr int NDQ = col_blocks(DQK);     // 64-column blocks of q and k
+  constexpr int NDV = col_blocks(DV);      // of v and o
+  static_assert(DQK % 16 == 0 && DV % 16 == 0 && NDV <= NDQ,
+                "k16 steps over q.k; O leaves through Q's tile");
+  constexpr int TILE = NDQ * BLOCK_BYTES;    // one 64-row Q or K tile
+  constexpr int TILE_V = NDV * BLOCK_BYTES;  // one 64-row V tile
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t q_smem = base;                   // 2 x TILE
   const uint32_t k_smem = base + 2 * TILE;        // 2 stages x TILE
-  const uint32_t v_smem = base + 4 * TILE;        // 2 stages x TILE
+  const uint32_t v_smem = base + 4 * TILE;        // 2 stages x TILE_V
 
   // Grid (B*H, query tiles): every head's tile qi goes out before any
   // head's tile qi + 1, the heaviest first under causal masking.
@@ -485,9 +517,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                  Skv, causal, window);
   const int b = t.bh / H;
   const int kvh = (t.bh % H) / (H / KV);
-  const __nv_bfloat16* qg = q + (size_t)t.bh * Sq * D;
-  const __nv_bfloat16* kg = k + ((size_t)b * KV + kvh) * Skv * D;
-  const __nv_bfloat16* vg = v + ((size_t)b * KV + kvh) * Skv * D;
+  const __nv_bfloat16* qg = q + (size_t)t.bh * Sq * DQK;
+  const __nv_bfloat16* kg = k + ((size_t)b * KV + kvh) * Skv * DQK;
+  const __nv_bfloat16* vg = v + ((size_t)b * KV + kvh) * Skv * DV;
 
   const int wg = threadIdx.x / 128;              // warpgroup: 64 query rows
   const int warp = (threadIdx.x % 128) / 32;
@@ -502,9 +534,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int j_lo = t.k_lo / BK;
   const int j_hi = (t.k_hi + BK - 1) / BK;
 
-  float acc[NDB * 32];          // O, 64 x D a warpgroup
+  float acc[NDV * 32];          // O, 64 x 64 NDV a warpgroup
 #pragma unroll
-  for (int i = 0; i < NDB * 32; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < NDV * 32; ++i) acc[i] = 0.0f;
   float s[32];                  // S of a tile, then P, in fp32
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.0f;
@@ -514,8 +546,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   float alpha[2] = {1.0f, 1.0f};
 
   if (j_lo < j_hi) {
-    load_tile<BQ, NDB>(q_smem, qg, t.q0, Sq, D);
-    load_tile<BK, NDB>(k_smem, kg, j_lo * BK, Skv, D);
+    load_tile<BQ, NDQ>(q_smem, qg, t.q0, Sq, DQK);
+    load_tile<BK, NDQ>(k_smem, kg, j_lo * BK, Skv, DQK);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 
@@ -530,21 +562,22 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     publish_copies();
     fence_regs(s);
     wgmma_fence();
-    qk_products<NDB * 4>(s, qd, wgmma_desc(k_smem + stage * TILE, 16, 1024));
+    qk_products<DQK / 16>(s, qd, wgmma_desc(k_smem + stage * TILE, 16, 1024));
     wgmma_commit();
     // The next copies go out while S_j runs.
     if (j + 1 < j_hi)
-      load_tile<BK, NDB>(k_smem + (stage ^ 1) * TILE, kg, (j + 1) * BK, Skv, D);
-    load_tile<BK, NDB>(v_smem + stage * TILE, vg, j * BK, Skv, D);
+      load_tile<BK, NDQ>(k_smem + (stage ^ 1) * TILE, kg, (j + 1) * BK, Skv,
+                         DQK);
+    load_tile<BK, NDV>(v_smem + stage * TILE_V, vg, j * BK, Skv, DV);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     if (j > j_lo) {
       if (__any_sync(0xffffffffu, alpha[0] != 1.0f || alpha[1] != 1.0f)) {
 #pragma unroll
-        for (int i = 0; i < NDB * 32; ++i) acc[i] *= alpha[(i / 2) % 2];
+        for (int i = 0; i < NDV * 32; ++i) acc[i] *= alpha[(i / 2) % 2];
       }
       fence_regs(acc);
       wgmma_fence();
-      pv_product<NDB>(acc, p, v_smem + (stage ^ 1) * TILE);
+      pv_product<NDV>(acc, p, v_smem + (stage ^ 1) * TILE_V);
       wgmma_wait<1>();          // S_j done; P_{j-1}.V_{j-1} may still run
     } else {
       wgmma_wait<0>();
@@ -552,7 +585,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     fence_regs(s);
 
     // Online softmax in fp32: m in the scores' units, 2^(s * c - m * c)
-    // with c = log2(e) / sqrt(D), one FFMA and one ex2 an element where no
+    // with c = log2(e) / sqrt(DQK), one FFMA and one ex2 an element where no
     // score is masked.
     const int k0 = j * BK;
     const bool masked = tile_masked(k0, BK, wq0, wq0 + 63, Skv, causal,
@@ -617,10 +650,10 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   publish_copies();
   if (j_lo < j_hi) {
 #pragma unroll
-    for (int i = 0; i < NDB * 32; ++i) acc[i] *= alpha[(i / 2) % 2];
+    for (int i = 0; i < NDV * 32; ++i) acc[i] *= alpha[(i / 2) % 2];
     fence_regs(acc);
     wgmma_fence();
-    pv_product<NDB>(acc, p, v_smem + ((j_hi - 1 - j_lo) & 1) * TILE);
+    pv_product<NDV>(acc, p, v_smem + ((j_hi - 1 - j_lo) & 1) * TILE_V);
     wgmma_wait<0>();
     fence_regs(acc);
   }
@@ -645,7 +678,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   // Q's swizzled layout, so that the rows leave in whole 16-byte chunks.
   uint8_t* const o_tile = smem_raw + (base - smem_u32(smem_raw)) + wg * TILE;
 #pragma unroll
-  for (int i = 0; i < NDB * 32; i += 2) {
+  for (int i = 0; i < NDV * 32; i += 2) {
     const int r = (i / 2) % 2;
     const int row = warp * 16 + lane / 4 + 8 * r;
     const int chunk = (i / 4) % 8;
@@ -658,34 +691,34 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     asm volatile("bar.sync 1, 128;\n" ::: "memory");
   else
     asm volatile("bar.sync 2, 128;\n" ::: "memory");
-  constexpr int CH = NDB * 8;                    // 16-byte chunks a row
+  constexpr int CH = NDV * 8;                    // 16-byte chunks a row
 #pragma unroll
   for (int it = 0; it < 64 * CH / 128; ++it) {
     const int e = it * 128 + threadIdx.x % 128;
     const int row = e / CH, db = (e % CH) / 8, c = e % 8;
     const int col = db * 64 + c * 8;
-    if (wq0 + row < Sq && col < D)
-      *reinterpret_cast<uint4*>(o + ((size_t)t.bh * Sq + wq0 + row) * D + col) =
+    if (wq0 + row < Sq && col < DV)
+      *reinterpret_cast<uint4*>(o + ((size_t)t.bh * Sq + wq0 + row) * DV + col) =
           *reinterpret_cast<const uint4*>(o_tile + db * BLOCK_BYTES + row * 128 +
                                           ((c ^ (row % 8)) * 16));
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int H, int KV, int Sq, int Skv, float scale,
                 int causal, int window, cudaStream_t stream) {
-  constexpr int smem = bf16_smem_bytes<D>();
-  static bool configured = false;  // once per head dim and process
+  constexpr int smem = bf16_smem_bytes<DQK, DV>();
+  static bool configured = false;  // once per head-dim pair and process
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        flash_bf16_kernel<DQK, DV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  flash_bf16_kernel<D><<<grid, THREADS, smem, stream>>>(
+  flash_bf16_kernel<DQK, DV><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
       B, H, KV, Sq, Skv, scale * LOG2E, causal, window);
@@ -1551,34 +1584,43 @@ int launch_bwd(const BwdArgs& a, const void* o, float* delta, int B,
 
 }  // namespace
 
-// q (B,H,Sq,D), k and v (B,KV,Skv,D), o (B,H,Sq,D), all contiguous of
-// dtype (fp32 or bf16) and 16-byte aligned; D in {16, 32, 64, 128, 256}; H
-// a multiple of KV.  `lse`, fp32 (B,H,Sq), receives each row's m + log l
-// (row_lse) where it is not null.  Launches on `stream` and returns
-// cudaGetLastError().
+// q (B,H,Sq,D), k (B,KV,Skv,D), v (B,KV,Skv,Dv), o (B,H,Sq,Dv), all
+// contiguous of dtype (fp32 or bf16) and 16-byte aligned; (D, Dv) one of the
+// pairs below (kernels/flash_attention.py::HEAD_DIM_PAIRS); H a multiple of
+// KV.  `lse`, fp32 (B,H,Sq), receives each row's m + log l (row_lse) where
+// it is not null.  Launches on `stream` and returns cudaGetLastError().
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, float* lse, int B, int H, int KV,
-                               int Sq, int Skv, int D, float scale, int causal,
-                               int window, int dtype, void* stream) {
+                               int Sq, int Skv, int D, int Dv, float scale,
+                               int causal, int window, int dtype,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal, window, s
+#define PAIR(a, b) ((a) * 1024 + (b))
   if (dtype == DTYPE_F32) {
-    switch (D) {
-      case 16: return launch_f32<16>(ARGS);
-      case 32: return launch_f32<32>(ARGS);
-      case 64: return launch_f32<64>(ARGS);
-      case 128: return launch_f32<128>(ARGS);
-      case 256: return launch_f32<256, 8, 16>(ARGS);
+    switch (PAIR(D, Dv)) {
+      case PAIR(16, 16): return launch_f32<16, 16>(ARGS);
+      case PAIR(32, 32): return launch_f32<32, 32>(ARGS);
+      case PAIR(64, 64): return launch_f32<64, 64>(ARGS);
+      case PAIR(128, 128): return launch_f32<128, 128>(ARGS);
+      case PAIR(256, 256): return launch_f32<256, 256, 8, 16>(ARGS);
+      case PAIR(96, 64): return launch_f32<96, 64>(ARGS);
+      case PAIR(80, 80): return launch_f32<80, 80>(ARGS);
+      case PAIR(32, 16): return launch_f32<32, 16>(ARGS);
     }
   } else if (dtype == DTYPE_BF16) {
-    switch (D) {
-      case 16: return launch_bf16<16>(ARGS);
-      case 32: return launch_bf16<32>(ARGS);
-      case 64: return launch_bf16<64>(ARGS);
-      case 128: return launch_bf16<128>(ARGS);
-      case 256: return launch_bf16<256>(ARGS);
+    switch (PAIR(D, Dv)) {
+      case PAIR(16, 16): return launch_bf16<16, 16>(ARGS);
+      case PAIR(32, 32): return launch_bf16<32, 32>(ARGS);
+      case PAIR(64, 64): return launch_bf16<64, 64>(ARGS);
+      case PAIR(128, 128): return launch_bf16<128, 128>(ARGS);
+      case PAIR(256, 256): return launch_bf16<256, 256>(ARGS);
+      case PAIR(96, 64): return launch_bf16<96, 64>(ARGS);
+      case PAIR(80, 80): return launch_bf16<80, 80>(ARGS);
+      case PAIR(32, 16): return launch_bf16<32, 16>(ARGS);
     }
   }
+#undef PAIR
 #undef ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,7 +3,9 @@
 ``flash_attention`` launches ``csrc/flash_attention.cu``: online-softmax
 attention with fp32 m, l and accumulator, GQA (head h reads KV head
 h // (H / KV)), causal masking and a sliding window, walking only the key
-tiles the masks leave.  bf16 runs both products on the tensor cores
+tiles the masks leave.  q and k share a head dim Dqk, v has its own Dv
+(MLA: q/k 96 = nope 64 + rope 32, v 64), and the scores are scaled by
+1 / sqrt(Dqk); the kernel is built for the pairs in ``HEAD_DIM_PAIRS``.  bf16 runs both products on the tensor cores
 (``wgmma``), fp32 on the CUDA cores.  It replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention``; unlike that kernel it
 needs no tile to divide Sq or Skv.
@@ -25,7 +27,8 @@ that runs K5 and K5b on the card and the plain versions on the CPU.  A row
 that sees no key (rows at or past Skv + window - 1 with a window) has the
 log-sum-exp NEG_INF: its weights are 1 / Skv on every key, as the forward
 gives it the mean of V, and its scores, the constant mask value, pass no
-gradient to Q or K.
+gradient to Q or K.  K5b takes square head dims in ``HEAD_DIMS`` only and
+refuses MLA's and ViT-632M's (``check_bwd_dims``).
 """
 from __future__ import annotations
 
@@ -38,7 +41,11 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
+# Square head dims K5 and K5b take, and K5's (Dqk, Dv) pairs: those, MLA's
+# (minicpm3-4b), ViT-632M's and the CPU tests' reduced MLA.
 HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((96, 64), (80, 80),
+                                                     (32, 16))
 # K5b's bf16 kernels (csrc/flash_attention.cu): rows of an other-side tile
 # (and of the own tile at head dim 256; 128 own rows, 64 a warpgroup,
 # below); the most ranks a cluster of the dK/dV pass has; the SMs the plan
@@ -64,7 +71,8 @@ def _mask(Sq: int, Skv: int, causal: bool, window: int, device
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
                           return_lse: bool = False):
-    """q (B,H,Sq,D); k/v (B,KV,Skv,D) -- dense masked softmax.  With
+    """q (B,H,Sq,D); k (B,KV,Skv,D); v (B,KV,Skv,Dv) -- dense masked
+    softmax of the scores scaled by 1 / sqrt(D) -> (B,H,Sq,Dv).  With
     ``return_lse`` also each row's log-sum-exp of its scaled, masked
     scores, fp32 (B,H,Sq)."""
     B, H, Sq, D = q.shape
@@ -76,7 +84,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", w, v.float())
-    o = o.reshape(B, H, Sq, D).to(q.dtype)
+    o = o.reshape(B, H, Sq, v.shape[-1]).to(q.dtype)
     if return_lse:
         return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
     return o
@@ -171,7 +179,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if lib.flash_attention.argtypes is None:
         lib.flash_attention.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.flash_attention.restype = ctypes.c_int
         lib.flash_attention_bwd.argtypes = (
@@ -187,15 +195,30 @@ def _sms(device: torch.device) -> int:
 
 
 def _check_qkv(kernel: str, q, k, v) -> None:
+    """q (B,H,Sq,D), k (B,KV,Skv,D), v (B,KV,Skv,Dv) with H a multiple of
+    KV, (D, Dv) in ``HEAD_DIM_PAIRS``, one dtype."""
     B, H, Sq, D = q.shape
-    KV, Skv = k.shape[1], k.shape[2]
-    if k.shape != (B, KV, Skv, D) or v.shape != k.shape or H % KV:
+    KV, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if k.shape != (B, KV, Skv, D) or v.shape != (B, KV, Skv, Dv) or H % KV:
         raise ValueError(f"{kernel}: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{kernel}: head dim {D} not in {HEAD_DIMS}")
+    if (D, Dv) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"{kernel}: head dims (q/k {D}, v {Dv}) not in "
+                         f"{HEAD_DIM_PAIRS}")
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"{kernel}: q, k and v differ in dtype")
+
+
+def check_bwd_dims(kernel: str, q, v) -> None:
+    """K5b (and ``FlashAttention``, on the CPU too) takes one head dim of
+    ``HEAD_DIMS`` for q, k and v."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    if D != Dv or D not in HEAD_DIMS:
+        raise ValueError(f"{kernel}: head dims (q/k {D}, v {Dv}): K5b takes "
+                         f"one head dim of {HEAD_DIMS} for q, k and v; the "
+                         f"backward at MLA's and ViT-632M's head dims comes "
+                         f"with ROADMAP.md queue 1's item 'MLA and ViT-632M "
+                         f"training'")
 
 
 def _aligned(*tensors):
@@ -207,15 +230,15 @@ def _aligned(*tensors):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     return_lse: bool = False):
-    """q (B, H, Sq, D); k/v (B, KV, Skv, D) -> (B, H, Sq, D), on the card;
-    with ``return_lse`` also each row's log-sum-exp, fp32 (B, H, Sq), which
-    ``flash_attention_bwd`` reads."""
+    """q (B, H, Sq, D); k (B, KV, Skv, D); v (B, KV, Skv, Dv) -> (B, H, Sq,
+    Dv), on the card; with ``return_lse`` also each row's log-sum-exp, fp32
+    (B, H, Sq), which ``flash_attention_bwd`` reads."""
     _check_qkv("flash_attention", q, k, v)
     B, H, Sq, D = q.shape
-    KV, Skv = k.shape[1], k.shape[2]
+    KV, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     _build.require_cuda("flash_attention", q, k, v)
     q, k, v = _aligned(q, k, v)
-    out = torch.empty_like(q)
+    out = q.new_empty((B, H, Sq, Dv))
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if q.numel() == 0:
@@ -225,7 +248,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         code = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), B, H, KV, Sq, Skv, D,
-            1.0 / math.sqrt(D), int(causal), int(window),
+            Dv, 1.0 / math.sqrt(D), int(causal), int(window),
             _build.dtype_code(q.dtype), _build.stream_of(q))
     _build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
@@ -239,6 +262,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     are what ``flash_attention(..., return_lse=True)`` returned for these
     inputs; ``do`` has o's shape and dtype."""
     _check_qkv("flash_attention_bwd", q, k, v)
+    check_bwd_dims("flash_attention_bwd", q, v)
     B, H, Sq, D = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     for name, t in (("o", o), ("do", do)):
@@ -282,6 +306,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
+        check_bwd_dims("FlashAttention", q, v)
         ctx.causal, ctx.window = causal, window
         if q.device.type == "cpu":
             o, lse = flash_attention_plain(q, k, v, causal=causal,

@@ -4,7 +4,8 @@
 
 The port of the JAX package's ``launch/serve.py`` on one card, for the
 Mamba-2 (``ssm``), RecurrentGemma (``hybrid``), dense (``dense``: Qwen,
-BERT-base, GPT-2 1.5B), MoE (``moe``) and Whisper (``audio``) families.
+BERT-base, GPT-2 1.5B, MiniCPM3's MLA), MoE (``moe``), Whisper (``audio``)
+and vision-language (``vlm``: qwen2-vl, ViT-632M) families.
 Each phase's time is read from the host clock after
 ``torch.cuda.synchronize()``, so it is the card's time for the phase, not
 the time to enqueue it.
@@ -36,8 +37,9 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt: int = 64,
     from ``RequestStream``, then ``gen`` tokens each.  ``device=None``
     means the card (and raises without CUDA).  As in the JAX package, a
     Mamba-2 prompt longer than the config's ``ssm_chunk`` must be a
-    multiple of it, and a prompt within a sliding window that the
-    generated tokens outgrow is refused (``_grow_cache``).  Returns ``generated`` int32 (batch, gen), ``prefill_s`` and
+    multiple of it, a prompt within a sliding window that the
+    generated tokens outgrow is refused (``_grow_cache``), and so is a
+    prompt shorter than a patch frontend's ``frontend_seq``.  Returns ``generated`` int32 (batch, gen), ``prefill_s`` and
     ``decode_s_per_token``."""
     dev = resolve(device)
     cfg = get_arch(arch)
@@ -53,6 +55,12 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt: int = 64,
         # the stub frontend, as the JAX package's: zero frame embeddings
         batch_in["encoder_frames"] = torch.zeros(
             (batch, cfg.encoder_seq, cfg.d_model),
+            dtype=getattr(torch, cfg.dtype), device=dev)
+    if cfg.frontend == "vision_patches":
+        # the stub frontend, as the JAX package's: zero patch embeddings in
+        # the prompt's first frontend_seq positions
+        batch_in["frontend_embeds"] = torch.zeros(
+            (batch, cfg.frontend_seq, cfg.d_model),
             dtype=getattr(torch, cfg.dtype), device=dev)
 
     _sync(dev)

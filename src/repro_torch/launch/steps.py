@@ -23,6 +23,7 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
     logits = T.forward(cfg, params, batch["tokens"],
+                       frontend_embeds=batch.get("frontend_embeds"),
                        encoder_frames=batch.get("encoder_frames"))
     return T.softmax_xent(logits, batch["labels"])
 
@@ -78,7 +79,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
 def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, batch):
         return DE.prefill(cfg, params, batch["tokens"],
-                          encoder_frames=batch.get("encoder_frames"))
+                          encoder_frames=batch.get("encoder_frames"),
+                          frontend_embeds=batch.get("frontend_embeds"))
 
     return prefill_step
 

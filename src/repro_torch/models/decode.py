@@ -1,6 +1,7 @@
 """The JAX package's ``models/decode.py`` serving path for the ``ssd``,
-``rglru`` and GQA ``attn`` block kinds and Whisper's cross-attention:
-cache construction, prefill and single-token decode.
+``rglru`` and ``attn`` (GQA or MLA) block kinds, Whisper's cross-attention,
+M-RoPE and the ``vision_patches`` frontend: cache construction, prefill and
+single-token decode.
 
 The cache mirrors the parameter layout: a pattern group's leaves are
 stacked ``(groups, ...)`` under ``blocks["b{j}_{kind}"]``, remainders are
@@ -11,14 +12,18 @@ batch.  Per block kind:
   attn+sw: ring buffer (B, W, KV, Dh) + slot->position map ``kpos`` (W,)
            int32, -1 for an empty slot, when the sequence outgrows the
            sliding window W
+  mla    : the normed latent ``lat`` (B, S, kv_lora_rank) + the roped
+           shared key ``kr`` (B, S, rope_head_dim); decode attends in
+           latent space (``mla_step``, the absorbed form)
   rglru  : recurrent state ``h`` (B, W) fp32 + conv tail ``conv`` (B, 3, W)
   ssd    : SSM state ``h`` (B, H, P, N) fp32 + conv tail
   cross  : the encoder's K/V ``xk``/``xv`` (B, encoder_seq, KV, Dh),
            computed once at prefill (Whisper)
 
 Unlike the JAX package, ``decode_step`` writes into the cache it is given:
-the new K/V row at ``pos`` (``pos % W`` in the ring) with ``index_copy_``
-on the 0-d ``pos`` tensor, so no step reads ``pos`` back to the host.
+the new K/V (or latent) row at ``pos`` (``pos % W`` in the ring) with
+``index_copy_`` on the 0-d ``pos`` tensor, so no step reads ``pos`` back to
+the host.
 """
 from __future__ import annotations
 
@@ -56,7 +61,10 @@ def layer_cache_def(cfg: ModelConfig, kind: str, batch: int,
     KV = cfg.num_kv_heads
     out: Dict[str, torch.Tensor] = {}
     if kind == "attn":
-        if _use_ring(cfg, seq):
+        if cfg.attention == "mla":
+            out["lat"] = _meta((batch, seq, cfg.kv_lora_rank), dt)
+            out["kr"] = _meta((batch, seq, cfg.rope_head_dim), dt)
+        elif _use_ring(cfg, seq):
             W = cfg.sliding_window
             out["k"] = _meta((batch, W, KV, Dh), dt)
             out["v"] = _meta((batch, W, KV, Dh), dt)
@@ -85,7 +93,6 @@ def layer_cache_def(cfg: ModelConfig, kind: str, batch: int,
 
 def cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> Pytree:
     """The cache tree as ``meta`` tensors (no storage)."""
-    T.check_supported(cfg)
     period = len(cfg.block_pattern)
     groups, rem = divmod(cfg.num_layers, period)
     group_tree = {f"b{j}_{kind}": layer_cache_def(cfg, kind, batch, seq)
@@ -142,7 +149,7 @@ def attn_step(cfg: ModelConfig, p, x, cache, pos, ctx):
     if cfg.qk_norm:
         q = L.rms_norm(q, p["qn"], cfg.norm_eps)
         k = L.rms_norm(k, p["kn"], cfg.norm_eps)
-    if cfg.rope == "rope":
+    if cfg.rope in ("rope", "mrope"):
         q = L.apply_rope(q, ctx.cos, ctx.sin)
         k = L.apply_rope(k, ctx.cos, ctx.sin)
     window = cfg.sliding_window if cfg.family == "hybrid" else 0
@@ -160,6 +167,40 @@ def attn_step(cfg: ModelConfig, p, x, cache, pos, ctx):
         o = L._attn_block(q, cache["k"], cache["v"], q_start=pos, kv_start=0,
                           causal=True, window=window, kv_len=pos + 1)
     return x + T._proj(o.reshape(x.shape[0], 1, H * Dh), p["wo"])
+
+
+def mla_step(cfg: ModelConfig, p, x, cache, pos, ctx):
+    """One token of MLA in the absorbed form: writes its latent and rope
+    key into ``cache`` in place, folds ``wk_b`` into q, takes the scores and
+    the context in latent space over positions 0..pos, then ``wv_b``.  Plain
+    einsums, as the JAX package decodes every attention plainly."""
+    H = cfg.num_heads
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    B = x.shape[0]
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    cq = L.rms_norm(T._proj(h, p["wq_a"]), p["q_ln"], cfg.norm_eps)
+    q = T._heads(T._proj(cq, p["wq_b"]), H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = L.apply_rope(q_rope, ctx.cos_r, ctx.sin_r)
+    lat_t, kr_t = T.mla_latent(cfg, p, h, ctx)
+    at = pos.reshape(1).long()
+    cache["lat"].index_copy_(1, at, lat_t)
+    cache["kr"].index_copy_(1, at, kr_t)
+    lat, kr = cache["lat"], cache["kr"]
+    wk = p["wk_b"].reshape(r, H, dn)
+    wv = p["wv_b"].reshape(r, H, dv)
+    # absorb wk into q: q_lat (B,1,H,r)
+    q_lat = torch.einsum("bchn,rhn->bchr", q_nope, wk.to(q_nope.dtype))
+    s = (torch.einsum("bchr,bsr->bhcs", q_lat, lat)
+         + torch.einsum("bchp,bsp->bhcs", q_rope, kr)).float()
+    s = s / math.sqrt(dn + dr)
+    valid = torch.arange(lat.shape[1], device=x.device) <= pos
+    s = s.masked_fill(~valid, -1e30)
+    w = torch.softmax(s, dim=-1)
+    ctx_lat = torch.einsum("bhcs,bsr->bchr", w.to(lat.dtype), lat)
+    o = torch.einsum("bchr,rhv->bchv", ctx_lat, wv.to(ctx_lat.dtype))
+    return x + T._proj(o.reshape(B, 1, H * dv), p["wo"])
 
 
 def cross_step(cfg: ModelConfig, p, x, cache, ctx):
@@ -222,7 +263,8 @@ def block_step(cfg: ModelConfig, kind: str, p, x, cache, pos, ctx):
     """One token through one block; writes the block's new state into
     ``cache`` (its tensors, in place) and returns (x, cache)."""
     if kind == "attn":
-        x = attn_step(cfg, p["attn"], x, cache, pos, ctx)
+        step = mla_step if cfg.attention == "mla" else attn_step
+        x = step(cfg, p["attn"], x, cache, pos, ctx)
     else:
         if kind == "rglru":
             x, new = rglru_step_block(cfg, p["rec"], x, cache, ctx)
@@ -257,7 +299,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens
         # clamped as JAX's gather clamps, so no step reads pos on the host
         at = pos.reshape(1).clamp(max=cfg.max_position - 1).long()
         x = x + params["pos_embed"].index_select(0, at).to(x.dtype)[None]
-    ctx = T.rope_ctx(cfg, pos.expand(B, 1))
+    ctx = T.rope_ctx(cfg, T.default_positions(cfg, pos.expand(B, 1)))
     pattern = cfg.block_pattern
     blocks = params["blocks"]
     for g in range(T.num_groups(blocks)):
@@ -282,7 +324,7 @@ def _attn_prefill_kv(cfg, p, h, ctx):
     v = T._heads(T._proj(h, p["wv"], p.get("bv")), KV, Dh)
     if cfg.qk_norm:
         k = L.rms_norm(k, p["kn"], cfg.norm_eps)
-    if cfg.rope == "rope":
+    if cfg.rope in ("rope", "mrope"):
         k = L.apply_rope(k, ctx.cos, ctx.sin)
     return k, v
 
@@ -291,7 +333,11 @@ def block_prefill(cfg: ModelConfig, kind: str, p, x, ctx: T.Ctx):
     """Forward one block over the full prompt, returning its cache entry."""
     S = x.shape[1]
     cache: Dict[str, torch.Tensor] = {}
-    if kind == "attn":
+    if kind == "attn" and cfg.attention == "mla":
+        h = L.rms_norm(x, p["attn"]["ln"], cfg.norm_eps)
+        cache["lat"], cache["kr"] = T.mla_latent(cfg, p["attn"], h, ctx)
+        x = T.mla_forward(cfg, p["attn"], x, ctx)
+    elif kind == "attn":
         h = L.rms_norm(x, p["attn"]["ln"], cfg.norm_eps)
         k, v = _attn_prefill_kv(cfg, p["attn"], h, ctx)
         if _use_ring(cfg, S):
@@ -327,16 +373,21 @@ def block_prefill(cfg: ModelConfig, kind: str, p, x, ctx: T.Ctx):
     return x, cache
 
 
-def prefill(cfg: ModelConfig, params, tokens, *, encoder_frames=None):
+def prefill(cfg: ModelConfig, params, tokens, *, encoder_frames=None,
+            frontend_embeds=None):
     """Run the prompt, returning (logits_last (B,1,V), cache).  With
     ``encoder_frames`` the encoder runs first and each block's ``xk``/``xv``
     hold its K/V; without them they stay zero and decode's cross-attention
     adds nothing, as the JAX package's cache, which then has no such
-    leaves, gives it."""
+    leaves, gives it.  ``frontend_embeds`` (B, F, D), the patch embeddings,
+    replace the prompt's first F positions (``T.splice_frontend``); the
+    rotary positions are 0..S-1, on all three channels for M-RoPE."""
     B, S = tokens.shape
-    x = T.add_positions(cfg, params, T.embed_tokens(cfg, params, tokens))
-    ctx = T.rope_ctx(cfg, torch.arange(S, device=tokens.device)[None]
-                     .expand(B, S))
+    x = T.splice_frontend(cfg, params, T.embed_tokens(cfg, params, tokens),
+                          frontend_embeds)
+    x = T.add_positions(cfg, params, x)
+    ctx = T.rope_ctx(cfg, T.default_positions(
+        cfg, torch.arange(S, device=tokens.device)[None].expand(B, S)))
     ctx = T.encoder_ctx(cfg, params, ctx, encoder_frames, x.dtype)
     pattern = cfg.block_pattern
     cache = init_cache(cfg, B, S, device=tokens.device)

@@ -10,8 +10,10 @@ pure-JAX version the analogue of that kernel), ``_attn_block`` (plain, for
 decode), ``rglru`` (K7 on the card through ``ops.rglru``, K7b for its
 gradient) and ``rglru_step`` (plain).  The MoE
 decoders add ``moe_ffn``, plain PyTorch as the JAX package has it (no
-Pallas kernel): the expert products are batched matrix products.  M-RoPE
-comes with the slice that needs it (ROADMAP.md, queue 1).
+Pallas kernel): the expert products are batched matrix products.
+qwen2-vl adds M-RoPE (``mrope_angles``: the frequency bands split over the
+t/h/w position channels), and MLA (minicpm3-4b) a value head dim of its own
+in ``blocked_attention``.
 """
 from __future__ import annotations
 
@@ -48,6 +50,29 @@ def rope_angles(positions: torch.Tensor, head_dim: int,
     freqs = theta ** (-torch.arange(half, dtype=torch.float32,
                                     device=positions.device) / half)
     ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections=(1, 1, 1)) -> Tuple[torch.Tensor, torch.Tensor]:
+    """M-RoPE: positions (B, S, 3) (t/h/w ids) -> cos/sin (B, S,
+    head_dim//2), fp32; frequency band i takes the position channel of the
+    section it falls in, the bands split over the three sections in
+    proportion to ``sections``."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    total = sum(sections)
+    band = torch.zeros(half, dtype=torch.long)
+    prev = acc = 0
+    for i, sec in enumerate(sections):
+        acc += sec
+        bound = (half * acc) // total
+        band[prev:bound] = i
+        prev = bound
+    # pick the position channel (t/h/w) for each frequency band
+    pos = positions.float()[..., band.to(positions.device)]    # (B, S, half)
+    ang = pos * freqs
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -101,8 +126,9 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = 0, chunk: int = 512,
                       unroll: bool = True, q_offset: int = 0,
                       kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Attention of q (B, Sq, H, Dh) over k/v (B, Skv, KV, Dh), causal
-    and windowed as asked, through ``ops.attention`` (K5 on the card).
+    """Attention of q (B, Sq, H, Dh) over k (B, Skv, KV, Dh) and v (B,
+    Skv, KV, Dv) -> (B, Sq, H, Dv), causal and windowed as asked, through
+    ``ops.attention`` (K5 on the card).
 
     The JAX package's version loops over query chunks; ``chunk`` and
     ``unroll`` only shape that loop, so they are accepted and unused here,

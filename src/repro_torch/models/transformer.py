@@ -1,10 +1,15 @@
 """The JAX package's ``models/transformer.py`` for the Mamba-2 (``ssd``),
-RG-LRU (``rglru``) and GQA attention (``attn``) block kinds, with the dense
-MLP or the top-k MoE FFN: the blocks of Mamba-2 370M, RecurrentGemma-2B,
-the dense Qwen decoders (qk-norm, QKV bias), the MoE decoders (Qwen3-MoE,
-Llama 4 Maverick), Whisper's encoder-decoder (the bidirectional ``encode``,
-cross-attention over its output, learned positions) and the paper's own
-BERT-base and GPT-2 1.5B (learned positions, gelu).
+RG-LRU (``rglru``) and attention (``attn``: GQA, or MLA) block kinds, with
+the dense MLP or the top-k MoE FFN: the blocks of Mamba-2 370M,
+RecurrentGemma-2B, the dense Qwen decoders (qk-norm, QKV bias), the MoE
+decoders (Qwen3-MoE, Llama 4 Maverick), MiniCPM3-4B (MLA: latent q and kv
+projections, q/k head dim nope + rope against a value head dim of its own),
+Whisper's encoder-decoder (the bidirectional ``encode``, cross-attention
+over its output, learned positions), qwen2-vl (M-RoPE over (B, S, 3) t/h/w
+positions, and the ``vision_patches`` frontend: precomputed patch
+embeddings, projected by ``patch_proj``, replace the prompt's leading
+positions) and the paper's own BERT-base, GPT-2 1.5B and ViT-632M (learned
+positions, gelu; the ViT through the patch frontend).
 
 Parameters keep the JAX tree: each block pattern group's leaves are
 stacked ``(groups, ...)`` under ``blocks["b{j}_{kind}"]``, pattern
@@ -14,14 +19,13 @@ leaf.  A Python loop over the stacked groups takes the place of
 ``lax.scan``; ``remat``, ``scan_layers`` and activation sharding have no
 counterpart on one card, and neither has the MoE FFN's expert-parallel
 path (``moe_ep``, a mesh): the port always takes the JAX package's gather
-path.  MLA, M-RoPE and the ``vision_patches`` frontend raise
-``NotImplementedError``: they come with later slices of the port
-(ROADMAP.md, queue 1).  Whisper's ``audio_frames`` frontend is a stub in
-both packages: the caller hands ``forward`` the frame embeddings.
-``softmax_xent`` is the training loss.  ``forward`` differentiates
-everywhere: on the card the attention blocks' gradient runs K5b and the
-RG-LRU blocks' K7b (through ``ops.attention``, ``ops.rglru``), so the
-Mamba-2, hybrid and dense families train with no plain path.
+path.  Whisper's ``audio_frames`` and the ``vision_patches`` frontends are
+stubs in both packages: the caller hands ``forward`` the frame or patch
+embeddings.  ``softmax_xent`` is the training loss.  ``forward``
+differentiates everywhere but through MLA (``unsupported``): on the card
+the attention blocks' gradient runs K5b and the RG-LRU blocks' K7b (through
+``ops.attention``, ``ops.rglru``), so the Mamba-2, hybrid and dense
+families train with no plain path.
 """
 from __future__ import annotations
 
@@ -40,26 +44,10 @@ from repro_torch.tree import tree_leaves, tree_map
 Pytree = Any
 
 
-def unsupported(what: str, slice_: str):
+def unsupported(what: str, item: str):
     return NotImplementedError(
-        f"the port's LM stack runs the 'ssd', 'rglru' and GQA 'attn' blocks "
-        f"with a dense MLP or a top-k MoE FFN, the Whisper encoder and "
-        f"cross-attention and learned positions; {what} comes with {slice_} "
-        f"(ROADMAP.md, queue 1)")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a feature of ``cfg`` that the port does not run yet."""
-    later = [
-        (cfg.frontend == "vision_patches", "the vision_patches frontend",
-         "the ViT-632M and qwen2-vl slice"),
-        (cfg.rope == "mrope", "M-RoPE", "the qwen2-vl slice"),
-    ]
-    if "attn" in cfg.block_pattern:
-        later.append((cfg.attention == "mla", "MLA", "the MLA slice"))
-    for bad, what, slice_ in later:
-        if bad:
-            raise unsupported(what, slice_)
+        f"{what} is not ported yet: it comes with ROADMAP.md queue 1's item "
+        f"'{item}'")
 
 
 # ---------------------------------------------------------------------------
@@ -88,17 +76,34 @@ def _norm(d):
 
 def attn_defs(cfg: ModelConfig, cross: bool = False) -> Dict[str, PDef]:
     """GQA attention, with the QKV bias and qk-norm scales where the
-    config has them; cross-attention (``cross``) has neither."""
+    config has them; cross-attention (``cross``) has neither.  MLA: the
+    latent q projection (``wq_a``, its norm ``q_ln``, ``wq_b`` to the heads'
+    nope + rope dims), the latent kv projection (``wkv_a`` to the latent
+    and the shared rope key, its norm ``kv_ln``), ``wk_b`` and ``wv_b`` from
+    the latent to the heads' nope keys and values, ``wo``."""
     D = cfg.d_model
     Dh = cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
+    wo_scale = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
+    if cfg.attention == "mla" and not cross:
+        qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+        dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+        return {
+            "ln": _norm(D),
+            "wq_a": _dense(D, qr), "q_ln": _norm(qr),
+            "wq_b": _dense(qr, H * (dn + dr)),
+            "wkv_a": _dense(D, kvr + dr, ax_out=None), "kv_ln": _norm(kvr),
+            "wk_b": _dense(kvr, H * dn),
+            "wv_b": _dense(kvr, H * dv),
+            "wo": _dense(H * dv, D, ax_in="tp", ax_out="fsdp",
+                         scale=wo_scale),
+        }
     out = {
         "ln": _norm(D),
         "wq": _dense(D, H * Dh),
         "wk": _dense(D, KV * Dh),
         "wv": _dense(D, KV * Dh),
-        "wo": _dense(H * Dh, D, ax_in="tp", ax_out="fsdp",
-                     scale=0.02 / math.sqrt(2 * max(cfg.num_layers, 1))),
+        "wo": _dense(H * Dh, D, ax_in="tp", ax_out="fsdp", scale=wo_scale),
     }
     if cfg.qkv_bias and not cross:
         out.update(bq=PDef((H * Dh,), ("tp",), "zeros"),
@@ -201,7 +206,6 @@ def param_defs(cfg: ModelConfig) -> Pytree:
     D = cfg.d_model
     period = len(cfg.block_pattern)
     groups, rem = divmod(cfg.num_layers, period)
-    check_supported(cfg)
 
     Vp = cfg.padded_vocab      # Megatron-style padding, as the JAX tree has it
     defs: Dict[str, Any] = {
@@ -226,6 +230,9 @@ def param_defs(cfg: ModelConfig) -> Pytree:
             "pos_embed": PDef((cfg.encoder_seq, D), (None, None), "normal",
                               0.01),
         }
+    if cfg.frontend == "vision_patches":
+        # early-fusion projection of the precomputed patch embeddings
+        defs["patch_proj"] = _dense(D, D)
     return defs
 
 
@@ -289,12 +296,14 @@ def count_params(cfg: ModelConfig) -> int:
 
 @dataclass
 class Ctx:
-    """Per-call context shared across layers: the RoPE angles (B, S, half)
-    and the encoder's output (B, encoder_seq, D) that cross-attention
-    reads."""
+    """Per-call context shared across layers: the RoPE (or M-RoPE) angles
+    (B, S, half), MLA's over its rope dims (``cos_r``, ``sin_r``), and the
+    encoder's output (B, encoder_seq, D) that cross-attention reads."""
     cfg: ModelConfig
     cos: Optional[torch.Tensor] = None
     sin: Optional[torch.Tensor] = None
+    cos_r: Optional[torch.Tensor] = None
+    sin_r: Optional[torch.Tensor] = None
     enc_out: Optional[torch.Tensor] = None
 
 
@@ -310,6 +319,9 @@ def _heads(x, n, d):
 
 
 def _rope_ctx(cfg: ModelConfig, positions, head_dim):
+    if cfg.rope == "mrope":
+        return L.mrope_angles(positions, head_dim, cfg.rope_theta,
+                              sections=(1, 1, 1))
     return L.rope_angles(positions, head_dim, cfg.rope_theta)
 
 
@@ -335,13 +347,54 @@ def attn_forward(cfg: ModelConfig, p, x, ctx: Ctx, *, window=0,
         q = L.rms_norm(q, p["qn"], cfg.norm_eps)
         if kv_override is None:
             k = L.rms_norm(k, p["kn"], cfg.norm_eps)
-    if cfg.rope == "rope" and not cross:
+    if cfg.rope in ("rope", "mrope") and not cross:
         q = L.apply_rope(q, ctx.cos, ctx.sin)
         if kv_override is None:
             k = L.apply_rope(k, ctx.cos, ctx.sin)
     o = L.blocked_attention(q, k, v, causal=not cross, window=window,
                             chunk=cfg.attn_chunk, unroll=cfg.attn_unroll)
     o = o.reshape(x.shape[0], x.shape[1], H * v.shape[-1])
+    return x + _proj(o, p["wo"])
+
+
+# --- MLA attention block ---------------------------------------------------------
+
+def mla_latent(cfg: ModelConfig, p, h, ctx: Ctx):
+    """The normed kv latent (B, S, r) and the roped key its heads share
+    (B, S, dr) of the normed block input ``h``: what the MLA cache holds."""
+    r = cfg.kv_lora_rank
+    kv = _proj(h, p["wkv_a"])
+    lat = L.rms_norm(kv[..., :r], p["kv_ln"], cfg.norm_eps)
+    kr = L.apply_rope(kv[..., r:][:, :, None, :], ctx.cos_r, ctx.sin_r)
+    return lat, kr[:, :, 0]
+
+
+def mla_forward(cfg: ModelConfig, p, x, ctx: Ctx):
+    """Multi-head latent attention over the whole block, causal: q from the
+    normed q latent, the heads' nope keys and values from the normed kv
+    latent, one rope key shared by the heads; each head attends with q/k
+    head dim nope + rope and v head dim ``v_head_dim`` (K5 on the card, at
+    minicpm3-4b's (96, 64)).  Its gradient is not ported (``unsupported``):
+    K5b has no (96, 64) instance."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *p.values())):
+        raise unsupported("MLA training", "MLA and ViT-632M training")
+    H = cfg.num_heads
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    cq = L.rms_norm(_proj(h, p["wq_a"]), p["q_ln"], cfg.norm_eps)
+    q = _heads(_proj(cq, p["wq_b"]), H, dn + dr)
+    q_nope = q[..., :dn]
+    q_rope = L.apply_rope(q[..., dn:], ctx.cos_r, ctx.sin_r)
+    lat, k_rope = mla_latent(cfg, p, h, ctx)
+    k_nope = _heads(_proj(lat, p["wk_b"]), H, dn)
+    v = _heads(_proj(lat, p["wv_b"]), H, dv)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope[:, :, None].expand(*k_nope.shape[:3], dr)],
+                   dim=-1)
+    o = L.blocked_attention(qf, kf, v, causal=True, chunk=cfg.attn_chunk,
+                            unroll=cfg.attn_unroll)
+    o = o.reshape(x.shape[0], x.shape[1], H * dv)
     return x + _proj(o, p["wo"])
 
 
@@ -419,8 +472,11 @@ def ssd_forward(cfg: ModelConfig, p, x, ctx: Ctx, h0=None, conv0=None):
 
 def apply_block(cfg: ModelConfig, kind: str, p, x, ctx: Ctx):
     if kind == "attn":
-        window = cfg.sliding_window if cfg.family == "hybrid" else 0
-        x = attn_forward(cfg, p["attn"], x, ctx, window=window)
+        if cfg.attention == "mla":
+            x = mla_forward(cfg, p["attn"], x, ctx)
+        else:
+            window = cfg.sliding_window if cfg.family == "hybrid" else 0
+            x = attn_forward(cfg, p["attn"], x, ctx, window=window)
     elif kind == "rglru":
         x, _ = rglru_forward(cfg, p["rec"], x, ctx)
     elif kind == "ssd":
@@ -510,12 +566,41 @@ def unembed(cfg: ModelConfig, params, x):
     return logits
 
 
+def default_positions(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
+    """The rotary positions of tokens at ``pos`` (B, S): those, or for
+    M-RoPE the same position on all three t/h/w channels (B, S, 3), as the
+    JAX package sets them where the caller gives none."""
+    return pos[..., None].expand(*pos.shape, 3) if cfg.rope == "mrope" else pos
+
+
 def rope_ctx(cfg: ModelConfig, positions) -> Ctx:
-    """The context of a block of tokens at ``positions`` (B, S)."""
+    """The context of a block of tokens at ``positions`` (B, S), or (B, S,
+    3) for M-RoPE; MLA rotates only its rope dims (``cos_r``, ``sin_r``)."""
     ctx = Ctx(cfg=cfg)
-    if cfg.rope == "rope":
-        ctx.cos, ctx.sin = _rope_ctx(cfg, positions, cfg.resolved_head_dim)
+    if cfg.rope in ("rope", "mrope"):
+        if cfg.attention == "mla":
+            ctx.cos_r, ctx.sin_r = _rope_ctx(cfg, positions,
+                                             cfg.rope_head_dim)
+        else:
+            ctx.cos, ctx.sin = _rope_ctx(cfg, positions,
+                                         cfg.resolved_head_dim)
     return ctx
+
+
+def splice_frontend(cfg: ModelConfig, params, x, frontend_embeds):
+    """Early fusion: the patch embeddings (B, F, D), projected by
+    ``patch_proj``, replace the first F of x's S positions, where the
+    config has the ``vision_patches`` frontend and the caller gives them.
+    F > S is refused (the JAX package's concatenation would return F
+    positions where S were asked)."""
+    if cfg.frontend != "vision_patches" or frontend_embeds is None:
+        return x
+    F_, S = frontend_embeds.shape[1], x.shape[1]
+    if F_ > S:
+        raise ValueError(f"{cfg.name}: {F_} frontend positions, past the "
+                         f"{S}-token prompt they would replace")
+    pe = _proj(frontend_embeds.to(x.dtype), params["patch_proj"])
+    return torch.cat([pe, x[:, F_:]], dim=1)
 
 
 def add_positions(cfg: ModelConfig, params, x):
@@ -542,14 +627,21 @@ def encoder_ctx(cfg: ModelConfig, params, ctx: Ctx, encoder_frames, dtype):
     return ctx
 
 
-def forward(cfg: ModelConfig, params, tokens, *,
-            encoder_frames=None) -> torch.Tensor:
-    """Full forward over a token block -> logits (B, S, padded vocab);
+def forward(cfg: ModelConfig, params, tokens, *, positions=None,
+            frontend_embeds=None, encoder_frames=None) -> torch.Tensor:
+    """Full forward over a token block -> logits (B, S, padded vocab).
+    ``positions``: the rotary positions, (B, S), or (B, S, 3) t/h/w for
+    M-RoPE (None: 0..S-1 on every channel); ``frontend_embeds`` (B, F, D)
+    the patch embeddings that replace the first F positions;
     ``encoder_frames`` (B, encoder_seq, D) feed the encoder and
     cross-attention."""
     B, S = tokens.shape
-    x = add_positions(cfg, params, embed_tokens(cfg, params, tokens))
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    x = splice_frontend(cfg, params, embed_tokens(cfg, params, tokens),
+                        frontend_embeds)
+    x = add_positions(cfg, params, x)
+    if positions is None:
+        positions = default_positions(
+            cfg, torch.arange(S, device=tokens.device)[None].expand(B, S))
     ctx = encoder_ctx(cfg, params, rope_ctx(cfg, positions), encoder_frames,
                       x.dtype)
     x = run_decoder_blocks(cfg, params, x, ctx)

@@ -729,17 +729,20 @@ K5_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 def _k5_case(cuda, b, h, kv, sq, skv, d, causal, window, dtype, seed=4,
-             rel=False):
-    """K5 against its plain version at one shape; with ``rel`` also within
-    K5_REL's relative Frobenius error.  Returns (q, k, v, got, want)."""
+             rel=False, dv=None):
+    """K5 against its plain version at one shape (v's head dim ``dv``, d
+    where None); with ``rel`` also within K5_REL's relative Frobenius
+    error.  Returns (q, k, v, got, want)."""
     rng = np.random.default_rng(seed)
+    dv = dv or d
     q = _randn(rng, (b, h, sq, d), dtype, cuda)
-    k, v = (_randn(rng, (b, kv, skv, d), dtype, cuda) for _ in range(2))
+    k = _randn(rng, (b, kv, skv, d), dtype, cuda)
+    v = _randn(rng, (b, kv, skv, dv), dtype, cuda)
     before = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
-    assert got.dtype == dtype and got.shape == q.shape
+    assert got.dtype == dtype and got.shape == (b, h, sq, dv)
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     bf = dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(),
@@ -1582,3 +1585,120 @@ def test_paper_lm_forward_on_the_card_matches_the_cpu(cuda, name):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + cfg.num_layers
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# ---- MLA and the vision frontend: K5 at (Dqk, Dv) pairs -------------------
+
+# minicpm3-4b's (96, 64), ViT-632M's 80, the reduced MLA's (32, 16)
+K5_PAIRS = [(96, 64), (80, 80), (32, 16)]
+
+
+@pytest.mark.parametrize("d,dv", K5_PAIRS)
+@pytest.mark.parametrize("sq,skv", K5_LENGTHS)
+@pytest.mark.parametrize("causal,window", K5_MASKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_head_dim_pairs_match_plain(cuda, d, dv, sq, skv,
+                                                    causal, window, dtype):
+    """A value head dim of its own: Sq and Skv around the tiles (ragged
+    Skv), windows off the tile; scores scaled by 1 / sqrt(Dqk)."""
+    _k5_case(cuda, 1, 2, 1, sq, skv, d, causal, window, dtype, dv=dv)
+
+
+@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2), (16, 4), (10, 1)])
+@pytest.mark.parametrize("d,dv", [(80, 80), (96, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_head_dim_pairs_gqa_match_plain(cuda, h, kv, d, dv,
+                                                        dtype):
+    """GQA groups of 1 to 10 query heads at ViT-632M's and MLA's dims, a
+    ragged 300 keys."""
+    _k5_case(cuda, 2, h, kv, 300, 300, d, True, 0, dtype, rel=True, dv=dv)
+
+
+@pytest.mark.parametrize("b,h,s,d,dv", [(4, 40, 1024, 96, 64),
+                                        (4, 16, 512, 80, 80)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_mla_and_vit_serving_shapes_match_plain(
+        cuda, monkeypatch, b, h, s, d, dv, dtype):
+    """minicpm3-4b's prefill attention (40 heads, KV 40, q/k 96, v 64) and
+    ViT-632M's (16 heads of 80), causal: within K5_REL, and in bf16 with
+    planted faults (o x 0.9, the plain version without a key tile, the
+    last query tile zeroed) reading above it."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v, got, want = _k5_case(cuda, b, h, h, s, s, d, True, 0, dtype,
+                                  rel=True, dv=dv)
+    if dtype != torch.bfloat16:
+        return
+    t0 = s // 2 // 64 * 64
+    real = FA._mask
+
+    def dropped(*args):
+        keep = real(*args)
+        keep[:, t0:t0 + 64] = False
+        return keep
+
+    monkeypatch.setattr(FA, "_mask", dropped)
+    drop = flash_attention_plain(q, k, v, causal=True)
+    monkeypatch.undo()
+    zeroed = got.clone()
+    zeroed[:, :, (s - 1) // 128 * 128:] = 0
+    for fault in (got * 0.9, drop, zeroed):
+        assert _rel_frobenius(fault, want) > K5_REL[dtype]
+
+
+def test_flash_attention_bwd_refuses_head_dim_pairs(cuda):
+    """K5b is built for square head dims only: MLA's (96, 64) and ViT's 80
+    raise naming their ROADMAP item, before any launch."""
+    rng = np.random.default_rng(3)
+    for d, dv in ((96, 64), (80, 80)):
+        q, k = (_randn(rng, (1, 2, 64, d), torch.bfloat16, cuda)
+                for _ in range(2))
+        v = _randn(rng, (1, 2, 64, dv), torch.bfloat16, cuda)
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        before = flash_attention_bwd.launches
+        with pytest.raises(ValueError, match="MLA and ViT-632M training"):
+            flash_attention_bwd(q, k, v, o, lse, o)
+        assert flash_attention_bwd.launches == before
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "qwen2-vl-72b", "vit-632m"])
+def test_mla_and_vlm_prefill_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced MLA (v head dim 16: K5 at (32, 16)), qwen2-vl (M-RoPE)
+    and ViT-632M with random patch embeddings: the prefill on the card (K5
+    once a layer) against the same prefill on the CPU (plain attention),
+    logits and every cache leaf; then one decode step each."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.paper_suite import PAPER_LM_SUITE
+    from repro_torch.models import decode as DE
+    from repro_torch.models import transformer as T
+    cfg = {**PAPER_LM_SUITE}.get(arch) or get_arch(arch)
+    cfg = cfg.reduced()
+    if cfg.attention == "mla":
+        cfg = dataclasses.replace(cfg, v_head_dim=16)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    rng = np.random.default_rng(1)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40))
+                           .astype(np.int32))
+    kw = {}
+    if cfg.frontend == "vision_patches":
+        kw["frontend_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.frontend_seq, cfg.d_model)).astype(np.float32))
+    want, want_cache = DE.prefill(cfg, params, tok, **kw)
+    on_card = T.tree_map(lambda t: t.to(cuda), params)
+    before = flash_attention.launches
+    got, cache = DE.prefill(cfg, on_card, tok.to(cuda),
+                            **{k: t.to(cuda) for k, t in kw.items()})
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for a, b_ in zip(T.tree_leaves(cache), T.tree_leaves(want_cache)):
+        torch.testing.assert_close(a.cpu(), b_, rtol=1e-4, atol=1e-4)
+    nxt = torch.argmax(want[:, -1], dim=-1)[:, None].to(torch.int32)
+    from repro_torch.launch.serve import _grow_cache
+    dl, _ = DE.decode_step(cfg, on_card, _grow_cache(cfg, cache, 2, 41),
+                           nxt.to(cuda))
+    wl, _ = DE.decode_step(cfg, params, _grow_cache(cfg, want_cache, 2, 41),
+                           nxt)
+    torch.testing.assert_close(dl.cpu(), wl, rtol=1e-4, atol=1e-4)

@@ -7,8 +7,10 @@ embeddings, as the JAX package defines them (gated MLP, RMSNorm, causal).
 Their reduced configs (2 layers, d_model 128, 4 heads of 32, d_ff 256,
 vocab 512, fp32) take parameters from the JAX package's ``init_params``
 through ``params_from_jax``; the same tokens go through both packages'
-``forward``, ``prefill`` and ``decode_step``.  ViT-632M waits for the
-``vision_patches`` frontend and is refused by name.
+``forward``, ``prefill`` and ``decode_step``.  ViT-632M, through the
+``vision_patches`` frontend, is held to the JAX package in
+``tests/test_torch_vlm.py``; its training at full width (K5b at head dim
+80) is refused by name.
 """
 import dataclasses
 import pathlib
@@ -25,6 +27,7 @@ from repro.models import decode as JDE
 from repro.models import transformer as JT
 from repro_torch.configs.paper_suite import PAPER_LM_SUITE as SUITE
 from repro_torch.convert import params_from_jax
+from repro_torch.kernels import ops
 from repro_torch.launch import serve as S
 from repro_torch.launch.serve import _grow_cache
 from repro_torch.models import decode as DE
@@ -101,10 +104,15 @@ def test_param_tree_dtypes_and_count_match_jax(name, full):
 
 
 def test_vit_632m_raises_naming_its_slice():
+    """ViT-632M builds; its attention's gradient at full width (head dim
+    80, which K5b is not built for) raises naming its ROADMAP.md item."""
     for cfg in (SUITE["vit-632m"], SUITE["vit-632m"].reduced()):
-        with pytest.raises(NotImplementedError,
-                           match="vision_patches frontend.*ViT-632M"):
-            T.param_defs(cfg)
+        assert "patch_proj" in T.param_defs(cfg)
+    D = SUITE["vit-632m"].resolved_head_dim
+    q = torch.ones((1, 2, 8, D), requires_grad=True)
+    with pytest.raises(ValueError, match=r"\(q/k 80, v 80\).*ROADMAP.md.*"
+                                         r"'MLA and ViT-632M training'"):
+        ops.attention(q, q.detach(), q.detach())
 
 
 # ---- the models against the JAX package -------------------------------------

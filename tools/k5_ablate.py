@@ -46,20 +46,21 @@ def variants(src):
     softmax = between(src, "    // Online softmax in fp32: m in",
                       "    // P_j in bf16 once")
     in_loop_loads = (
-        "    if (j + 1 < j_hi)\n      load_tile<BK, NDB>(k_smem + (stage ^ 1)"
-        " * TILE, kg, (j + 1) * BK, Skv, D);\n    load_tile<BK, NDB>(v_smem +"
-        " stage * TILE, vg, j * BK, Skv, D);\n")
-    store = "    if (wq0 + row < Sq && col < D)\n"
+        "    if (j + 1 < j_hi)\n      load_tile<BK, NDQ>(k_smem + (stage ^ 1)"
+        " * TILE, kg, (j + 1) * BK, Skv,\n                         DQK);\n"
+        "    load_tile<BK, NDV>(v_smem + stage * TILE_V, vg, j * BK, Skv, DV);"
+        "\n")
+    store = "    if (wq0 + row < Sq && col < DV)\n"
     return {
         "base": [],
         "noload": [(in_loop_loads, "")],
         "loadsonly": [
-            ("    qk_products<NDB * 4>(s, qd, wgmma_desc(k_smem + stage * "
+            ("    qk_products<DQK / 16>(s, qd, wgmma_desc(k_smem + stage * "
              "TILE, 16, 1024));\n", ""),
-            ("      pv_product<NDB>(acc, p, v_smem + (stage ^ 1) * TILE);\n",
-             ""),
-            ("    pv_product<NDB>(acc, p, v_smem + ((j_hi - 1 - j_lo) & 1) * "
-             "TILE);\n", ""),
+            ("      pv_product<NDV>(acc, p, v_smem + (stage ^ 1) * TILE_V);"
+             "\n", ""),
+            ("    pv_product<NDV>(acc, p, v_smem + ((j_hi - 1 - j_lo) & 1) * "
+             "TILE_V);\n", ""),
             (softmax, "")],
         "nosoftmax": [(softmax, "")],
         "norescale": [("      if (__any_sync(0xffffffffu, alpha[0] != 1.0f || "
@@ -153,13 +154,13 @@ def main() -> int:
         row = []
         for name in names:
             fn = ctypes.CDLL(str(OUT / f"{name}.so")).flash_attention
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                            + [ctypes.c_float] + [ctypes.c_int] * 3
                            + [ctypes.c_void_p])
 
             def run(fn=fn):
                 code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          o.data_ptr(), None, B, H, KV, Sq, Skv, D,
+                          o.data_ptr(), None, B, H, KV, Sq, Skv, D, D,
                           1.0 / math.sqrt(D), 1, WINDOW, 1,
                           torch.cuda.current_stream().cuda_stream)
                 if code:
