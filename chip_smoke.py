@@ -88,7 +88,20 @@ and depth and qwen2-vl-72b (M-RoPE, 1024 patch positions + 256 tokens) at
 full width over 8 of its 80 layers, bf16, batch 4, with 62, 32 and 8 K5
 launches a prefill and no plain attention there, each profiled; at fp32
 over 4 layers each prefill against one with K5's plain version, and
-decode == forward.  Last, K1 (3xTF32
+decode == forward.  Phase 15, training of MLA, ViT-632M and Whisper: K5b
+at the (Dqk, Dv) pairs (96, 64), (80, 80) and (32, 16) in fp32 and at
+the training shapes in bf16 (minicpm3-4b's q/k 96 with v 64, the ViT's
+80, Whisper's encoder, cross-attention and decoder at 64), elementwise
+and within K5B_REL beside two planted faults, timed in CUDA graphs beside
+SDPA's backward and each of its fused backends alone; the fp32 loss and
+every gradient leaf of minicpm3-4b (2 layers), ViT-632M (4) and
+Whisper-medium (2 + 2) at full width with K5/K5b and with their plain
+versions; minicpm3-4b trained at full width over 32 of its 62 layers
+through ``launch.train.train``, ViT-632M and Whisper-medium whole through
+``ST.make_train_step`` (bf16, batch 4, 5 steps; K5 and K5b 32, 32 and 72
+launches a step, no other kernel and no plain attention), each profiled
+and its first two losses against a run with the plain versions.  Last,
+K1 (3xTF32
 ``wgmma``) at each distinct shape of a ResNet-50 request, with w in the
 layout the request hands over, beside ``torch.matmul``, its tile plan and
 both bounds (3xTF32 and the fp32 FMA pipes).  Any failed
@@ -282,6 +295,40 @@ GEMMA_TRAIN = {"layers": 12, "batch": 4, "seq": 1024, "steps": 10}
 QWEN_TRAIN = {"layers": 4, "batch": 4, "seq": 1024, "steps": 5}
 GEMMA_GRAD = {"layers": 3, "batch": 2, "seq": 1024}
 QWEN_GRAD = {"layers": 2, "batch": 2, "seq": 1024}
+# Phase 15, training of MLA, ViT-632M and Whisper-medium.  K5b's shapes
+# (B, H, KV, Sq, Skv, Dqk, Dv) and causality in bf16 on those training
+# paths: minicpm3-4b's (q/k 96, v 64), ViT-632M's (80), and Whisper's three
+# at head dim 64 (the encoder's 1500 frames and cross-attention over them,
+# non-causal, with a ragged last key tile; the decoder's 384 tokens,
+# causal); in fp32 K5B_FP32's shapes and K5B_MASKS at each new pair.
+# minicpm3-4b trained at full width through launch.train.train over
+# MLA_TRAIN_LAYERS of its 62 layers (2,193,689,088 parameters, about 57.0
+# GB at the optimizer's ~26 bytes a parameter; all 62 need ~106 GB): at
+# 20 layers the step's peak was 44.00 GB, ~1.96 GB a layer, so 32 peak
+# near 67.5 GB, under 75;
+# ViT-632M (32 layers, 844,514,560) and Whisper-medium (24 + 24,
+# 1,027,954,688) whole, also through launch.train.train, fed TokenStream's
+# patch embeddings or frames (the port casts both to bf16); bf16, fp32
+# AdamW moments, batch 4, 5 steps.  The fp32 gradient checks at full width
+# over VLM_GRAD's layers, batch 2.
+K5B_PAIRS = [(96, 64), (80, 80), (32, 16)]
+K5B_VLM = {  # name: (shape, causal, the model)
+    "minicpm3": ((4, 40, 40, 1024, 1024, 96, 64), True, "minicpm3-4b"),
+    "vit": ((4, 16, 16, 512, 512, 80, 80), True, "vit-632m"),
+    "whisper_encoder": ((4, 16, 16, 1500, 1500, 64, 64), False,
+                        "whisper-medium"),
+    "whisper_cross": ((4, 16, 16, 384, 1500, 64, 64), False,
+                      "whisper-medium"),
+    "whisper_decoder": ((4, 16, 16, 384, 384, 64, 64), True,
+                        "whisper-medium"),
+}
+MLA_TRAIN_LAYERS = 32
+VLM_TRAIN = {"minicpm3-4b": {"batch": 4, "seq": 1024, "steps": 5},
+             "vit-632m": {"batch": 4, "seq": 512, "steps": 5},
+             "whisper-medium": {"batch": 4, "seq": 384, "steps": 5}}
+VLM_GRAD = {"minicpm3-4b": {"num_layers": 2},
+            "vit-632m": {"num_layers": 4},
+            "whisper-medium": {"num_layers": 2, "encoder_layers": 2}}
 
 def bound(nbytes, ops_, dtype):
     """(least ms for the work, "bytes" or "operations"); dtype a torch dtype
@@ -2416,16 +2463,19 @@ def drive_vlm(dev, counters, time_ms, call_ms, max_err, randn, card):
             "qwen2-vl-72b_prefill_launches": launches["qwen2-vl-72b"]}
 
 
-def k5b_bound(B, H, KV, Sq, Skv, D, causal, window, dtype):
-    """K5b at one shape: q, k, v, o, dO read and dq, dk, dv written once in
-    ``dtype``, the lse read in fp32; the least work is five products (S,
-    dP, dV, dK, dQ) over the pairs the masks leave, 2.5 times the
-    forward's, an FMA counted as two."""
+def k5b_bound(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv=None):
+    """K5b at one shape (q/k head dim D, v's Dv, D where None): q, k, v, o,
+    dO read and dq, dk, dv written once in ``dtype``, the lse read in fp32;
+    the least work is five products over the pairs the masks leave, S, dQ
+    and dK over D, dP and dV over Dv (2.5 times the forward's at D = Dv),
+    an FMA counted as two."""
     import torch
+    Dv = Dv or D
     esz = torch.empty((), dtype=dtype).element_size()
-    nbytes = esz * (4 * B * H * Sq * D + 4 * B * KV * Skv * D) + 4 * B * H * Sq
+    nbytes = (esz * (2 * B * H * Sq + 2 * B * KV * Skv) * (D + Dv)
+              + 4 * B * H * Sq)
     pairs = int(attn_pairs(Sq, Skv, causal, window).sum())
-    return bound(nbytes, 10 * B * H * D * pairs, dtype)
+    return bound(nbytes, 2 * (3 * D + 2 * Dv) * B * H * pairs, dtype)
 
 
 def k7b_bound(B, S, W, dtype):
@@ -2474,7 +2524,8 @@ def sdpa_bwd_windows(q, k, v, do, causal, window):
     F.scaled_dot_product_attention on the same inputs, timed as
     ``graph_windows_ms`` times K5b: the forward runs once on a side stream,
     ``autograd.grad`` of it is captured there.  ``is_causal`` where the
-    window masks nothing, else the explicit mask."""
+    window masks nothing, no mask where nothing is masked, else the
+    explicit mask."""
     import torch
     import torch.nn.functional as F
     B, H, Sq, D = q.shape
@@ -2487,6 +2538,9 @@ def sdpa_bwd_windows(q, k, v, do, causal, window):
             form = "sdpa_is_causal"
             out = F.scaled_dot_product_attention(*ins, is_causal=True,
                                                  enable_gqa=KV != H)
+        elif not causal and not window:
+            form = "sdpa_no_mask"
+            out = F.scaled_dot_product_attention(*ins, enable_gqa=KV != H)
         else:
             form = "sdpa_mask"
             mask = attn_pairs(Sq, Skv, causal, window).to(q.device)
@@ -2496,6 +2550,24 @@ def sdpa_bwd_windows(q, k, v, do, causal, window):
         lambda: torch.autograd.grad(out, ins, do, retain_graph=True),
         stream=side)
     return form, windows
+
+
+def sdpa_bwd_backends(q, k, v, do, causal):
+    """Each of F.scaled_dot_product_attention's fused backends alone, its
+    backward timed as ``sdpa_bwd_windows`` times it: its windows, or why it
+    did not run (flash needs v's head dim to be q's)."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                out[name] = sdpa_bwd_windows(q, k, v, do, causal, 0)[1]
+        except RuntimeError as e:
+            out[name] = "unavailable (" + str(e).strip().splitlines()[0][
+                :80].replace(";", ",") + ")"
+        torch.cuda.synchronize()
+    return out
 
 
 def rel_frobenius(got, want):
@@ -2536,106 +2608,129 @@ def k5b_planted(q, k, v, o, lse, do, causal, window, got, want):
     return out
 
 
-def check_k5b(time_ms, call_ms, max_err, randn, card):
-    """Phase 12(a): K5's output and log-sum-exp against its plain version's,
-    then K5b against its plain version, both fed K5's output and lse: fp32
-    at tests/test_kernels.py's attention shapes and masks, bf16 at the
-    training shapes, with K5's elementwise tolerances and K5B_REL's
-    relative Frobenius bar; at the training shapes two planted faults read
-    against that bar, and the times (K5b and SDPA's backward each in CUDA
-    graphs, five windows) beside the bound.  Returns K5b's entry of the
-    kernels line (the first training shape), all but ``launches``."""
+def k5b_case(shape, causal, window, dtype, time_ms, call_ms, max_err, randn,
+             card, backends=False):
+    """K5's output and log-sum-exp against its plain version's, then K5b
+    against its plain version, both fed K5's output and lse, at one shape
+    (B, H, KV, Sq, Skv, D) or (..., D, Dv): K5's elementwise tolerances and
+    K5B_REL's relative Frobenius bar, two calls byte-equal; in bf16 two
+    planted faults read against that bar, and the times (K5b and SDPA's
+    backward each in CUDA graphs, five windows; with ``backends`` also each
+    of SDPA's fused backends alone) beside the bound.  Prints one line;
+    returns (max abs error, the relative errors, the bf16 row of times or
+    None)."""
     import torch
     from repro_torch.kernels import flash_attention as FA
+    B, H, KV, Sq, Skv, D = shape[:6]
+    Dv = shape[6] if len(shape) > 6 else D
+    q = randn(B, H, Sq, D, dtype=dtype)
+    k = randn(B, KV, Skv, D, dtype=dtype)
+    v = randn(B, KV, Skv, Dv, dtype=dtype)
+    do = randn(B, H, Sq, Dv, dtype=dtype)
+    bf = dtype == torch.bfloat16
+    rtol, atol = (0.05, 0.03) if bf else (1e-3, 2e-4)
+    tag = f"{shape} {dtype}"
+    # the forward that training runs: o at K5's bar, the lse (fp32 in
+    # both) as the card tests hold it, rows that saw no key alike
+    o, lse = FA.flash_attention(q, k, v, causal=causal, window=window,
+                                return_lse=True)
+    want_o, want_lse = FA.flash_attention_plain(
+        q, k, v, causal=causal, window=window, return_lse=True)
+    o_err = max_err(o, want_o, rtol, atol, f"K5 {tag} o")
+    lse_err = max_err(lse, want_lse, 1e-5, 1e-4, f"K5 {tag} lse")
+    if not torch.equal(lse == FA.NEG_INF, want_lse == FA.NEG_INF):
+        raise AssertionError(f"K5 {tag}: rows that saw no key differ")
+    del want_o, want_lse
+    run = lambda: FA.flash_attention_bwd(q, k, v, o, lse, do,  # noqa: E731
+                                         causal=causal, window=window)
+    got = run()
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                        window=window)
+    err = max(max_err(gg, ww, rtol, atol, f"K5b {tag} {name}")
+              for name, gg, ww in zip(("dq", "dk", "dv"), got, want))
+    limit = K5B_REL[str(dtype).split(".")[1]]
+    rel = {name: rel_frobenius(gg, ww)
+           for name, gg, ww in zip(("dq", "dk", "dv"), got, want)}
+    if max(rel.values()) > limit:
+        raise AssertionError(f"K5b {tag}: relative Frobenius errors {rel}, "
+                             f"limit {limit}")
+    again = run()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K5b {tag}: two calls differ")
+    del again
+    line = (f"K5b flash_attention_bwd B={B} H={H} KV={KV} Sq={Sq} Skv={Skv} "
+            f"D={D}{f' Dv={Dv}' if Dv != D else ''} causal={causal} "
+            f"window={window} {dtype}: K5's o max_abs_err={o_err:.3e}, lse "
+            f"{lse_err:.3e} (rtol 1e-5 atol 1e-4); dq, dk, dv "
+            f"max_abs_err={err:.3e} rtol={rtol} atol={atol}, relative "
+            f"Frobenius " + ", ".join(f"{n} {r:.3e}" for n, r in rel.items())
+            + f" (limit {limit}); a second call byte-equal")
+    row = None
+    if bf:
+        planted = k5b_planted(q, k, v, o, lse, do, causal, window, got, want)
+        if min(planted.values()) <= limit:
+            raise AssertionError(f"K5b {tag}: a planted fault reads within "
+                                 f"the bar: {planted}, limit {limit}")
+        line += "; planted faults read " + ", ".join(
+            f"{n} {r:.3e}" for n, r in planted.items())
+        del got, want
+        wins = graph_windows_ms(run)
+        ms = statistics.median(wins)
+        plain = time_ms(lambda: FA.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal=causal, window=window), reps=2)
+        form, lib_wins = sdpa_bwd_windows(q, k, v, do, causal, window)
+        lib = statistics.median(lib_wins)
+        bnd, by = k5b_bound(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv)
+        cluster = FA.bwd_plan(B, H, KV, Sq, Skv, D, causal, window,
+                              FA._sms(q.device))["cluster"]
+        row = {"cluster": cluster,
+               "ms": ms, "ms_spread": [min(wins), max(wins)],
+               "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+               "library_ms": lib, "library": form,
+               "library_spread": [min(lib_wins), max(lib_wins)],
+               "planted": planted}
+        line += (f"; ms={ms:.4f} (CUDA graph, median of 5 windows, "
+                 f"{min(wins):.4f}-{max(wins):.4f}; per Python call "
+                 f"{call_ms(run, reps=20):.4f}) plain_ms={plain:.4f} "
+                 f"library_ms ({form} backward alone, timed the same way) "
+                 f"{lib:.4f} ({min(lib_wins):.4f}-{max(lib_wins):.4f}) "
+                 f"bound_ms={bnd:.4f} ({by}); wgmma, dK/dV over clusters of "
+                 f"{cluster}")
+        if backends:
+            alone = sdpa_bwd_backends(q, k, v, do, causal)
+            row["backends"] = {
+                n: statistics.median(w) if isinstance(w, list) else w
+                for n, w in alone.items()}
+            line += "; backward alone by backend: " + ", ".join(
+                f"{n} {statistics.median(w):.4f}" if isinstance(w, list)
+                else f"{n} {w}" for n, w in alone.items())
+        line += f"; card {card}"
+    else:
+        del got, want
+    print(line)
+    del q, k, v, do, o, lse, run
+    torch.cuda.empty_cache()
+    return err, rel, row
+
+
+def check_k5b(time_ms, call_ms, max_err, randn, card):
+    """Phase 12(a): ``k5b_case`` in fp32 at tests/test_kernels.py's
+    attention shapes and masks and in bf16 at the training shapes.
+    Returns K5b's entry of the kernels line (the first training shape),
+    all but ``launches``."""
+    import torch
     worst, rows, sound = 0.0, {}, {}
     cases = [(shape, causal, window, torch.float32)
              for shape in K5B_FP32 for causal, window in K5B_MASKS]
     cases += [(shape, causal, window, torch.bfloat16)
               for shape, causal, window in K5B_TRAIN]
     for shape, causal, window, dtype in cases:
-        B, H, KV, Sq, Skv, D = shape
-        q = randn(B, H, Sq, D, dtype=dtype)
-        k, v = (randn(B, KV, Skv, D, dtype=dtype) for _ in range(2))
-        do = randn(B, H, Sq, D, dtype=dtype)
-        bf = dtype == torch.bfloat16
-        rtol, atol = (0.05, 0.03) if bf else (1e-3, 2e-4)
-        tag = f"{shape} {dtype}"
-        # the forward that training runs: o at K5's bar, the lse (fp32 in
-        # both) as the card tests hold it, rows that saw no key alike
-        o, lse = FA.flash_attention(q, k, v, causal=causal, window=window,
-                                    return_lse=True)
-        want_o, want_lse = FA.flash_attention_plain(
-            q, k, v, causal=causal, window=window, return_lse=True)
-        o_err = max_err(o, want_o, rtol, atol, f"K5 {tag} o")
-        lse_err = max_err(lse, want_lse, 1e-5, 1e-4, f"K5 {tag} lse")
-        if not torch.equal(lse == FA.NEG_INF, want_lse == FA.NEG_INF):
-            raise AssertionError(f"K5 {tag}: rows that saw no key differ")
-        del want_o, want_lse
-        run = lambda: FA.flash_attention_bwd(q, k, v, o, lse, do,
-                                             causal=causal, window=window)
-        got = run()
-        want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                            causal=causal, window=window)
-        err = max(max_err(gg, ww, rtol, atol, f"K5b {tag} {name}")
-                  for name, gg, ww in zip(("dq", "dk", "dv"), got, want))
-        limit = K5B_REL[str(dtype).split(".")[1]]
-        rel = {name: rel_frobenius(gg, ww)
-               for name, gg, ww in zip(("dq", "dk", "dv"), got, want)}
-        if max(rel.values()) > limit:
-            raise AssertionError(f"K5b {tag}: relative Frobenius errors "
-                                 f"{rel}, limit {limit}")
-        sound[tag] = rel
+        err, rel, row = k5b_case(shape, causal, window, dtype, time_ms,
+                                 call_ms, max_err, randn, card)
         worst = max(worst, err)
-        again = run()
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        if not same:
-            raise AssertionError(f"K5b {tag}: two calls differ")
-        line = (f"K5b flash_attention_bwd B={B} H={H} KV={KV} Sq={Sq} "
-                f"Skv={Skv} D={D} causal={causal} window={window} {dtype}: "
-                f"K5's o max_abs_err={o_err:.3e}, lse {lse_err:.3e} (rtol "
-                f"1e-5 atol 1e-4); dq, dk, dv max_abs_err={err:.3e} "
-                f"rtol={rtol} atol={atol}, relative Frobenius "
-                + ", ".join(f"{n} {r:.3e}" for n, r in rel.items())
-                + f" (limit {limit}); a second call byte-equal")
-        del again
-        if bf:
-            planted = k5b_planted(q, k, v, o, lse, do, causal, window, got,
-                                  want)
-            if min(planted.values()) <= limit:
-                raise AssertionError(f"K5b {tag}: a planted fault reads "
-                                     f"within the bar: {planted}, limit "
-                                     f"{limit}")
-            line += ("; planted faults read " + ", ".join(
-                f"{n} {r:.3e}" for n, r in planted.items()))
-            del got, want
-            wins = graph_windows_ms(run)
-            ms = statistics.median(wins)
-            plain = time_ms(lambda: FA.flash_attention_bwd_plain(
-                q, k, v, o, lse, do, causal=causal, window=window), reps=2)
-            form, lib_wins = sdpa_bwd_windows(q, k, v, do, causal, window)
-            lib = statistics.median(lib_wins)
-            bnd, by = k5b_bound(*shape, causal, window, dtype)
-            cluster = FA.bwd_plan(B, H, KV, Sq, Skv, D, causal, window,
-                                  FA._sms(q.device))["cluster"]
-            rows[(shape, window)] = {
-                "cluster": cluster,
-                "ms": ms, "ms_spread": [min(wins), max(wins)],
-                "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-                "library_ms": lib, "library": form,
-                "library_spread": [min(lib_wins), max(lib_wins)],
-                "planted": planted}
-            line += (f"; ms={ms:.4f} (CUDA graph, median of 5 windows, "
-                     f"{min(wins):.4f}-{max(wins):.4f}; per Python call "
-                     f"{call_ms(run, reps=20):.4f}) plain_ms={plain:.4f} "
-                     f"library_ms ({form} backward alone, timed the same "
-                     f"way) {lib:.4f} ({min(lib_wins):.4f}-"
-                     f"{max(lib_wins):.4f}) bound_ms={bnd:.4f} ({by}); "
-                     f"wgmma, dK/dV over clusters of {cluster}; card {card}")
-        else:
-            del got, want
-        print(line)
-        del q, k, v, do, o, lse, run
-        torch.cuda.empty_cache()
+        sound[(shape, causal, window, dtype)] = rel
+        if row is not None:
+            rows[(shape, window)] = row
     first = rows[(K5B_TRAIN[0][0], K5B_TRAIN[0][2])]
     return {"max_abs_err": worst, **first,
             "rel_frobenius_worst": max(max(r.values())
@@ -2799,7 +2894,8 @@ def grad_check(cfg32, batch, dev, counted, want_n, what, card):
     params = T.init_params(cfg32, torch.Generator(device=dev).manual_seed(1),
                            device=dev)
     drawn = (draw_attn_leaves(params, torch.Generator(device=dev)
-                              .manual_seed(2)) if cfg32.qk_norm else [])
+                              .manual_seed(2))
+             if cfg32.qk_norm or cfg32.attention == "mla" else [])
     runs = {}
     for name in ("kernel", "plain"):
         before = [c.launches for c in counted]
@@ -2834,6 +2930,82 @@ def grad_check(cfg32, batch, dev, counted, want_n, what, card):
           f"1e-5), {len(rels)} gradient leaves, worst rel Frobenius err "
           f"{max(rels):.3e} (limit 1e-3); host ms kernel {ms_k:.3f}, plain "
           f"{ms_p:.3f}; card {card}")
+
+
+class plain_attention_counted:
+    """Within the block, calls of the plain attention (K5's and K5b's plain
+    versions, ``layers._attn_block``) are counted in ``calls``."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.models import layers as L
+        self.calls = 0
+        self.real = [(m, n, getattr(m, n)) for m, n in (
+            (FA, "flash_attention_plain"), (FA, "flash_attention_bwd_plain"),
+            (L, "_attn_block"))]
+        for m, n, fn in self.real:
+            setattr(m, n, self.counting(fn))
+        return self
+
+    def counting(self, fn):
+        def run(*args, **kw):
+            self.calls += 1
+            return fn(*args, **kw)
+        return run
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.real:
+            setattr(m, n, fn)
+
+
+def train_counted(cfg, run, what, counted, names, want, card, falling=True):
+    """``launch.train.train(cfg.name, smoke=False)`` within
+    ``training_config`` (and ``plain_attention_counted``): every step's
+    launches of the ``counted`` kernels (``names``) must be ``want``, no
+    plain attention may run, the losses must be finite (and fall, where
+    ``falling``) and the last step checkpointed.  Prints the losses, step
+    times, tokens/s and peak memory; returns (the record, the losses, the
+    launches in all by name)."""
+    import torch
+    from repro_torch.launch import train as TR
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counted:
+        c.launches = 0
+    with training_config(cfg, counted) as rec, \
+            plain_attention_counted() as plain:
+        t0 = time.perf_counter()
+        losses = TR.train(cfg.name, smoke=False, steps=run["steps"],
+                          batch=run["batch"], seq=run["seq"],
+                          log_every=run["steps"])
+        wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, n in enumerate(rec.launches):
+        if dict(zip(names, n)) != want:
+            raise AssertionError(f"train {what} step {i + 1}: launches "
+                                 f"{dict(zip(names, n))}, want {want}")
+    total = dict(zip(names, (c.launches for c in counted)))
+    if not (len(losses) == run["steps"]
+            and all(math.isfinite(l) for l in losses)
+            and (losses[-1] < losses[0] or not falling)
+            and rec.saved == [run["steps"]] and plain.calls == 0):
+        raise AssertionError(f"train {what}: losses {losses}, checkpoints "
+                             f"{rec.saved}, plain attention calls "
+                             f"{plain.calls}")
+    B, S = run["batch"], run["seq"]
+    med = statistics.median(rec.step_ms[2:])
+    print(f"train {what} through launch.train.train(smoke=False) ("
+          f"{describe(cfg)}; AdamW with fp32 moments, no "
+          f"gradient compression, warm-up 2 of {run['steps']} steps): "
+          f"batch {B} x seq {S}: losses {[round(l, 4) for l in losses]}; "
+          f"step ms {[round(t, 3) for t in rec.step_ms]}; median of "
+          f"steps 3-{run['steps']} {med:.3f} ms, "
+          f"{B * S / med * 1e3:.1f} tokens/s; peak memory "
+          f"{peak_gb:.2f} GB; {wall:.1f} s in train(); launches a step "
+          + ", ".join(f"{k} {v}" for k, v in want.items() if v)
+          + f", no other kernel, no plain attention; card {card}")
+    return rec, losses, total
 
 
 def drive_train_hybrid(dev, counters, time_ms, call_ms, max_err, randn,
@@ -2909,43 +3081,10 @@ def drive_train_hybrid(dev, counters, time_ms, call_ms, max_err, randn,
         want = dict.fromkeys(names, 0)
         want.update(K5=kinds.count("attn"), K5b=kinds.count("attn"),
                     K7=kinds.count("rglru"), K7b=kinds.count("rglru"))
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        for c in counted:
-            c.launches = 0
-        with training_config(cfg, counted) as rec:
-            t0 = time.perf_counter()
-            losses = TR.train(cfg.name, smoke=False, steps=run["steps"],
-                              batch=run["batch"], seq=run["seq"],
-                              log_every=run["steps"])
-            wall = time.perf_counter() - t0
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        for i, n in enumerate(rec.launches):
-            if dict(zip(names, n)) != want:
-                raise AssertionError(f"train {what} step {i + 1}: launches "
-                                     f"{dict(zip(names, n))}, want {want}")
-        total = dict(zip(names, (c.launches for c in counted)))
+        rec, losses, total = train_counted(cfg, run, what, counted, names,
+                                           want, card, falling)
         for k in path_launches:
             path_launches[k] += total[k]
-        if not (len(losses) == run["steps"]
-                and all(math.isfinite(l) for l in losses)
-                and (losses[-1] < losses[0] or not falling)
-                and rec.saved == [run["steps"]]):
-            raise AssertionError(f"train {what}: losses {losses}, "
-                                 f"checkpoints {rec.saved}")
-        B, S = run["batch"], run["seq"]
-        med = statistics.median(rec.step_ms[2:])
-        print(f"train {what} through launch.train.train(smoke=False) ("
-              f"{describe(cfg)}; AdamW with fp32 moments, no "
-              f"gradient compression, warm-up 2 of {run['steps']} steps): "
-              f"batch {B} x seq {S}: losses {[round(l, 4) for l in losses]}; "
-              f"step ms {[round(t, 3) for t in rec.step_ms]}; median of "
-              f"steps 3-{run['steps']} {med:.3f} ms, "
-              f"{B * S / med * 1e3:.1f} tokens/s; peak memory "
-              f"{peak_gb:.2f} GB; {wall:.1f} s in train(); launches a step "
-              f"K5 {want['K5']}, K5b {want['K5b']}, K7 {want['K7']}, K7b "
-              f"{want['K7b']}, no other kernel; card {card}")
         return rec, losses
 
     gcfg = dataclasses.replace(gemma, num_layers=GEMMA_TRAIN["layers"])
@@ -3036,6 +3175,192 @@ def drive_train_hybrid(dev, counters, time_ms, call_ms, max_err, randn,
          "dtype": "bfloat16", **k7b_entry},
     ]
     return entries, path_launches["K5"], path_launches["K7"]
+
+
+class k5b_shapes:
+    """Within the block, K5b's launches at each of K5B_VLM's shapes are
+    counted, one counter a shape whose ``launches`` ``train_counted`` reads
+    a step as it reads the kernels' own.  The wrapper swapped into
+    ``kernels.flash_attention``, where ``FlashAttention`` looks K5b up,
+    adds one where K5b launched."""
+
+    def __init__(self):
+        import types
+        self.counters = {name: types.SimpleNamespace(launches=0)
+                         for name in K5B_VLM}
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as FA
+        real = self.real = FA.flash_attention_bwd
+        by_shape = {shape: self.counters[name]
+                    for name, (shape, _, _) in K5B_VLM.items()}
+
+        def counting(q, k, v, *args, **kw):
+            # K5b counts its launch on the module's name, which is this
+            # wrapper while the block runs: carry the count over to K5b's
+            counting.launches = real.launches
+            out = real(q, k, v, *args, **kw)
+            n, real.launches = (counting.launches - real.launches,
+                                counting.launches)
+            key = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                   q.shape[3], v.shape[3])
+            if key in by_shape:
+                by_shape[key].launches += n
+            return out
+        FA.flash_attention_bwd = counting
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import flash_attention as FA
+        FA.flash_attention_bwd = self.real
+
+
+def drive_train_vlm(dev, counters, time_ms, call_ms, max_err, randn, card):
+    """Phase 15: training of MLA (minicpm3-4b), ViT-632M and Whisper-medium,
+    every attention gradient on K5b.  (a) ``k5b_case`` in fp32 at
+    K5B_FP32's shapes and masks with each new (Dqk, Dv) pair and in bf16 at
+    K5B_VLM's training shapes (planted faults, SDPA's backward and each of
+    its fused backends alone); (b) the fp32 loss and every gradient leaf of
+    each model at full width over VLM_GRAD's layers with K5/K5b and with
+    their plain versions (``grad_check``); (c) each trained in bf16 at full
+    width through ``launch.train.train`` (``train_counted``), batch 4, 5
+    steps: minicpm3-4b over MLA_TRAIN_LAYERS of its 62 layers, ViT-632M and
+    Whisper-medium whole, K5 and K5b launched once an attention a step (32,
+    32 and 72), each of K5B_VLM's shapes counted on its own
+    (``k5b_shapes``), no other kernel and no plain attention, each
+    profiled, and its first two steps again with K5/K5b's plain versions.
+    ``counters`` are main's launch counters (K1, K2, K5, K6, K8, K7).
+    Returns (K5b's rows at K5B_VLM's shapes with their counted launches,
+    K5's and K5b's launches on this phase's training paths)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rglru import rglru_scan, rglru_scan_bwd
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+
+    def lap(what):
+        print(f"phase 15: {what} in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 15(a): K5b at the new pairs and the training shapes -------------
+    worst, sound, rows = 0.0, {}, {}
+    cases = [(shape[:5] + pair, causal, window, torch.float32)
+             for pair in K5B_PAIRS for shape in K5B_FP32
+             for causal, window in K5B_MASKS]
+    cases += [(shape, causal, 0, torch.bfloat16)
+              for shape, causal, _ in K5B_VLM.values()]
+    for shape, causal, window, dtype in cases:
+        err, rel, row = k5b_case(shape, causal, window, dtype, time_ms,
+                                 call_ms, max_err, randn, card,
+                                 backends=True)
+        worst = max(worst, err)
+        sound[(shape, causal, window, dtype)] = max(rel.values())
+        if row is not None:
+            rows[shape] = row
+    print(f"K5b at the new pairs {K5B_PAIRS}: {len(cases)} cases, "
+          f"max_abs_err={worst:.3e}, worst relative Frobenius fp32 "
+          f"{max(v for k, v in sound.items() if k[3] == torch.float32):.3e}"
+          f", bf16 "
+          f"{max(v for k, v in sound.items() if k[3] == torch.bfloat16):.3e}"
+          f" (limits {K5B_REL['float32']}, {K5B_REL['bfloat16']})")
+    lap("15(a), K5b")
+
+    # ---- 15(b): fp32, TF32 off: the gradients against the plain versions --
+    four = (flash_attention, flash_attention_bwd, rglru_scan, rglru_scan_bwd)
+    full = {name: (vlm_config(name) if name != "whisper-medium"
+                   else paper_config(name)) for name in VLM_TRAIN}
+    for name, cut in VLM_GRAD.items():
+        cfg32 = as_fp32(full[name], **cut)
+        run = VLM_TRAIN[name]
+        batch = TokenStream(cfg32, 2, run["seq"], 0,
+                            device=dev).batch_at(0)
+        n = k5_per_prefill(cfg32)
+        grad_check(cfg32, batch, dev, four, [n, n, 0, 0],
+                   f"{name} ({', '.join(f'{k} {v}' for k, v in cut.items())})",
+                   card)
+        del batch
+        torch.cuda.empty_cache()
+    lap("15(a)-(b), with the fp32 gradients")
+
+    # ---- 15(c): bf16 training at full width -------------------------------
+    shapes = k5b_shapes()
+    counted = counters + (flash_attention_bwd,) + tuple(
+        shapes.counters.values())
+    names = ("K1", "K2", "K5", "K6", "K8", "K7", "K5b") + tuple(
+        f"K5b@{name}" for name in K5B_VLM)
+    path = {"K5": 0, "K5b": 0}
+    out = {}
+    kernels = {"K5b": ("flash_bwd",), "K5": ("flash_bf16_kernel",)}
+    for name, run in VLM_TRAIN.items():
+        cfg = full[name]
+        if name == "minicpm3-4b":
+            cfg = dataclasses.replace(cfg, num_layers=MLA_TRAIN_LAYERS)
+            print(f"{name} cut to {MLA_TRAIN_LAYERS} of 62 layers for "
+                  f"training ({T.count_params(cfg)} parameters, about "
+                  f"{26 * T.count_params(cfg) / 1e9:.1f} GB at the "
+                  f"optimizer's peak at 26 bytes a parameter; all 62 need "
+                  f"{26 * T.count_params(full[name]) / 1e9:.1f} GB)")
+        n = k5_per_prefill(cfg)
+        want = dict.fromkeys(names, 0)
+        want.update(K5=n, K5b=n)
+        for shape_name, (_, _, model) in K5B_VLM.items():
+            if model == name:
+                want[f"K5b@{shape_name}"] = (
+                    cfg.encoder_layers if shape_name == "whisper_encoder"
+                    else cfg.num_layers)
+        what = f"{name} ({cfg.num_layers} layers" + (
+            f" + {cfg.encoder_layers} encoder layers" * bool(
+                cfg.encoder_layers)) + ")"
+        with shapes:
+            rec, losses, total = train_counted(cfg, run, what, counted,
+                                               names, want, card,
+                                               falling=False)
+        for k in path:
+            path[k] += total[k]
+        for shape_name, (shape, causal, model) in K5B_VLM.items():
+            if model == name:
+                key = f"K5b@{shape_name}"
+                out[shape_name] = {
+                    "shape": list(shape), "dtype": "bfloat16",
+                    "causal": causal, "window": 0, "model": model,
+                    "launches_a_step": rec.launches[-1][names.index(key)],
+                    "launches": total[key], **rows[shape]}
+        step, params, opt, batch = rec.last
+        B, S = run["batch"], run["seq"]
+        profile_run(f"train step {what} (B={B}, S={S}",
+                    lambda: step(params, opt, batch)[2]["loss"].item(), 1,
+                    kernels, "step", card)
+        del rec, step, params, opt, batch
+        torch.cuda.empty_cache()
+        # the first two steps again with K5/K5b's plain versions: the same
+        # schedule and batches, so the same losses up to bf16's rounding
+        before = [c.launches for c in counted]
+        with plain_versions(), training_config(cfg, counted):
+            plain = TR.train(cfg.name, smoke=False, steps=2, batch=B, seq=S,
+                             log_every=2)
+        n_plain = [c.launches - b for c, b in zip(counted, before)]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+        if any(n_plain) or not (rel[0] <= 1e-2 and rel[1] <= 5e-2):
+            raise AssertionError(f"train {what}: losses {losses[:2]} with "
+                                 f"K5/K5b against {plain} with their plain "
+                                 f"versions (limits 1e-2, 5e-2 relative), "
+                                 f"launches {n_plain}")
+        print(f"train {what}, first two steps with K5/K5b's plain versions "
+              f"swapped in: losses {[round(l, 4) for l in plain]} against "
+              f"{[round(l, 4) for l in losses[:2]]} (rel {rel[0]:.2e}, "
+              f"{rel[1]:.2e}; limits 1e-2, 5e-2)")
+        torch.cuda.empty_cache()
+        lap(f"15(a)-(c), with {name}'s training")
+
+    out["max_abs_err"] = worst
+    out["rel_frobenius_worst"] = max(sound.values())
+    return out, path["K5"], path["K5b"]
 
 
 def main() -> int:
@@ -3445,6 +3770,16 @@ def main() -> int:
     mark("14, MLA and the vision frontend")
     k5_vlm = drive_vlm(dev, counters + (lindley_scan, ssd_scan, rglru_scan),
                        time_ms, call_ms, max_err, randn, card)
+    torch.cuda.empty_cache()
+    mark("15, training of MLA, ViT-632M and Whisper")
+    k5b_vlm, k5_train15, k5b_train15 = drive_train_vlm(
+        dev, counters + (lindley_scan, ssd_scan, rglru_scan), time_ms,
+        call_ms, max_err, randn, card)
+    k5_train += k5_train15
+    k5b_entry = train12_entries[0]
+    k5b_entry.update(launches=k5b_entry["launches"] + k5b_train15,
+                     train12_launches=k5b_entry["launches"],
+                     train15_launches=k5b_train15, mla_vit_whisper=k5b_vlm)
     torch.cuda.empty_cache()
     mark("the kernels line")
 

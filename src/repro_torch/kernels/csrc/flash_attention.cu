@@ -770,8 +770,8 @@ struct BwdArgs {
   int causal, window;
 };
 
-// Delta = rowsum(dO o O) in fp32, a warp a row (fp32; the bf16 dQ pass
-// computes its own).
+// Delta = rowsum(dO o O) over the Dv columns of O and dO in fp32, a warp a
+// row (fp32; the bf16 dQ pass computes its own).
 template <typename E>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const E* __restrict__ o, const E* __restrict__ dout,
@@ -871,38 +871,56 @@ __device__ __forceinline__ float lse_log2(float lse) {
 //   for it).  A warpgroup whose 64 rows keep no pair of a tile (SOLO: the
 //   first query tile of the upper keys, the last key tile of the lower
 //   query rows) skips it.
+// - Head dims (DQK, DV), the pairs of kernels/flash_attention.py::
+//   HEAD_DIM_PAIRS, as K5's forward: the square 16..256, MLA's (96, 64),
+//   ViT-632M's (80, 80) and (32, 16).  Q, K, dQ and dK take ceil(DQK / 64)
+//   swizzled 64-column blocks, V, O, dO and dV ceil(DV / 64).  S = Q K^T runs
+//   DQK / 16 k16 steps and dP = dO V^T DV / 16, so no product's depth reads
+//   the zero columns past a dim.  dV = P^T dO and dK = dS^T Q (dQ = dS K)
+//   run m64nNk16 over N = 64 ceil(DV / 64) (64 ceil(DQK / 64)) columns, the
+//   products and fragment layouts of the square dims: at 80 and 96 a
+//   PV<128> over 48 or 32 zero-filled columns, which the epilogue does not
+//   write.  Up to 128 both dims are SOLO; D 256 is square.
 // At D 256 a block holds 218 KB of shared memory (own 64 KB, two stages of
-// 64 KB, P 16 KB, dS 8 KB, the rows' lse and Delta), at D 128 133 KB (own
-// 64 KB, two stages of 32 KB, which the fp32 partials outgrow at the end):
-// one block an SM.
+// 64 KB, P 16 KB, dS 8 KB, the rows' lse and Delta), at D 128 and (80, 80)
+// 133 KB (own 64 KB, two stages of 32 KB, which the fp32 partials outgrow
+// at the end), at (96, 64) 97 KB of tiles and 84 KB of partials: one block
+// an SM.
 constexpr int BWD_THREADS = 256;
 constexpr int MAX_CLUSTER = 8;
 
-// Own rows a block: 64 a warpgroup (SOLO, D <= 128) or 64 shared.
-template <int D>
+// A warpgroup owns 64 rows of its own (SOLO) up to head dims of 128.
+template <int DQK, int DV>
+__host__ __device__ constexpr bool bwd_solo() {
+  return DQK <= 128 && DV <= 128;
+}
+
+// Own rows a block: 64 a warpgroup (SOLO) or 64 shared.
+template <int DQK, int DV>
 __host__ __device__ constexpr int bwd_rows() {
-  return D <= 128 ? 128 : 64;
+  return bwd_solo<DQK, DV>() ? 128 : 64;
 }
 
 // Stages of the other side's tiles: two (a third at D <= 128 bought nothing,
 // tools/k5b_ablate.py; at D 256 shared memory holds no more).
-template <int D>
+template <int DQK>
 __host__ __device__ constexpr int bwd_stages() {
   return 2;
 }
 
-template <int D>
+template <int DQK, int DV>
 constexpr int bwd_bf16_smem_bytes() {
-  constexpr int tile = (D < 64 ? 1 : D / 64) * BLOCK_BYTES;
-  constexpr int nst = bwd_stages<D>();
-  // SOLO: own (2 x 2), the stages of other (2 each) tiles and of 64 lse
-  // and 64 Delta; else own (2), stages (2 x 2), P fp32 64 x 64, dS's bf16
-  // fragments and the stages' rows; the rank's fp32 dK/dV partials reuse
-  // the tiles; 1 KB to align
-  constexpr int main = D <= 128
-      ? (4 + 2 * nst) * tile + nst * 512
-      : (2 + 2 * nst) * tile + 64 * 64 * 4 + 64 * 64 * 2 + nst * 512;
-  constexpr int red = 2 * bwd_rows<D>() * (D + 4) * 4;
+  // a 64-row tile of each side's pair: (Q or K) and (dO or V)
+  constexpr int pair = (col_blocks(DQK) + col_blocks(DV)) * BLOCK_BYTES;
+  constexpr int nst = bwd_stages<DQK>();
+  // SOLO: own (2 x the pair), the stages of other (a pair each) tiles and
+  // of 64 lse and 64 Delta; else own (a pair), stages, P fp32 64 x 64, dS's
+  // bf16 fragments and the stages' rows; the rank's fp32 dV and dK
+  // partials reuse the tiles; 1 KB to align
+  constexpr int main = bwd_solo<DQK, DV>()
+      ? (2 + nst) * pair + nst * 512
+      : (1 + nst) * pair + 64 * 64 * 4 + 64 * 64 * 2 + nst * 512;
+  constexpr int red = bwd_rows<DQK, DV>() * (DV + 4 + DQK + 4) * 4;
   return (main > red ? main : red) + 1024;
 }
 
@@ -951,26 +969,33 @@ __device__ __forceinline__ bool pair_tile_masked(int k0, int q0,
           (q0 + 63 - k0 >= a.window || q0 + 63 >= a.Skv + a.window - 1));
 }
 
-template <int D, bool KVM>
+template <int DQK, int DV, bool KVM>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_bwd_bf16_kernel(const BwdArgs a) {
-  constexpr int NDB = D < 64 ? 1 : D / 64;  // 64-column blocks of D
-  constexpr int TILE = NDB * BLOCK_BYTES;   // one 64-row tile
-  constexpr bool SOLO = D <= 128;           // a warpgroup its own 64 rows
-  constexpr int ROWS = bwd_rows<D>();       // own rows a block
+  constexpr int NDQ = col_blocks(DQK);      // 64-column blocks of q, k
+  constexpr int NDV = col_blocks(DV);       // of v, o, dO
+  constexpr int TQ = NDQ * BLOCK_BYTES;     // one 64-row tile of Q or K
+  constexpr int TV = NDV * BLOCK_BYTES;     // of dO or V
+  constexpr bool SOLO = bwd_solo<DQK, DV>();  // a warpgroup its own 64 rows
+  static_assert(DQK % 16 == 0 && DV % 16 == 0 && (SOLO || DQK == DV),
+                "k16 steps over each dim; D 256 square");
+  constexpr int ROWS = bwd_rows<DQK, DV>();   // own rows a block
   constexpr int OWN = SOLO ? 2 : 1;         // own tiles of each operand
-  constexpr int NST = bwd_stages<D>();      // stages of the other tiles
+  constexpr int NST = bwd_stages<DQK>();    // stages of the other tiles
   // dQ's columns split over the warpgroups at D 256
   constexpr bool SPLIT = !KVM && !SOLO;
-  constexpr int NACC = SPLIT ? NDB * 16 : NDB * 32;
+  // dV's accumulator (dK's too at D 256), or dQ's
+  constexpr int NACC = KVM ? NDV * 32 : (SPLIT ? NDQ * 16 : NDQ * 32);
   using bf16 = __nv_bfloat16;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   uint8_t* const base_p = smem_raw + (base - smem_u32(smem_raw));
-  const uint32_t own1 = base, own2 = base + OWN * TILE;
-  // stage s: other1 at oth + 2 s TILE, other2 a TILE after it
-  const uint32_t oth = base + 2 * OWN * TILE;
-  uint8_t* const after = base_p + 2 * (OWN + NST) * TILE;  // the tiles' end
+  // own1 holds K (dK/dV) or Q (dQ), own2 V or dO
+  const uint32_t own1 = base, own2 = base + OWN * TQ;
+  // stage s: other1 (Q or K) at oth + s (TQ + TV), other2 (dO or V) a TQ
+  // after it
+  const uint32_t oth = base + OWN * (TQ + TV);
+  uint8_t* const after = base_p + (OWN + NST) * (TQ + TV);  // the tiles' end
   float* const xp = reinterpret_cast<float*>(after);
   uint32_t* const xd = reinterpret_cast<uint32_t*>(after + 16384);
   float* const rows_s =
@@ -1011,9 +1036,10 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
     nqt = q_hi > q_lo ? (q_hi + 63) / 64 - qt_lo : 0;
     const int heads = rank < G ? (G - rank + R - 1) / R : 0;
     n_steps = heads * nqt;
-    const size_t kv_off = (size_t)blockIdx.y * a.Skv * D;
-    load_tile<ROWS, NDB>(own1, K + kv_off, own0, a.Skv, D);
-    load_tile<ROWS, NDB>(own2, V + kv_off, own0, a.Skv, D);
+    load_tile<ROWS, NDQ>(own1, K + (size_t)blockIdx.y * a.Skv * DQK, own0,
+                         a.Skv, DQK);
+    load_tile<ROWS, NDV>(own2, V + (size_t)blockIdx.y * a.Skv * DV, own0,
+                         a.Skv, DV);
   } else {
     const TileRange tr = tile_range(blockIdx.y, gridDim.y, blockIdx.x, ROWS,
                                     a.Sq, a.Skv, a.causal, a.window);
@@ -1023,19 +1049,23 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
     own0 = tr.q0;
     j_lo = tr.k_lo / 64;
     n_steps = max(0, (tr.k_hi + 63) / 64 - j_lo);
-    load_tile<ROWS, NDB>(own1, Q + (size_t)tr.bh * a.Sq * D, own0, a.Sq, D);
-    load_tile<ROWS, NDB>(own2, dO + (size_t)tr.bh * a.Sq * D, own0, a.Sq, D);
+    load_tile<ROWS, NDQ>(own1, Q + (size_t)tr.bh * a.Sq * DQK, own0, a.Sq,
+                         DQK);
+    load_tile<ROWS, NDV>(own2, dO + (size_t)tr.bh * a.Sq * DV, own0, a.Sq,
+                         DV);
     // Delta = rowsum(dO o O) of the own rows in fp32, TPR threads a row,
-    // each over D / TPR columns, then added across them; written for the
+    // each over DV / TPR columns, then added across them; written for the
     // dK/dV pass, which runs after this one.
     constexpr int TPR = BWD_THREADS / ROWS;
+    static_assert(DV / TPR % 8 == 0, "whole 16-byte chunks a thread");
     {
       const int row = tid / TPR, r = own0 + row;
-      const size_t at = ((size_t)tr.bh * a.Sq + r) * D + tid % TPR * (D / TPR);
+      const size_t at =
+          ((size_t)tr.bh * a.Sq + r) * DV + tid % TPR * (DV / TPR);
       float sum = 0.0f;
       if (r < a.Sq) {
 #pragma unroll
-        for (int j = 0; j < D / TPR; j += 8) {
+        for (int j = 0; j < DV / TPR; j += 8) {
           const uint4 ov = ldg16(static_cast<const bf16*>(a.o) + at + j);
           const uint4 gv = ldg16(dO + at + j);
           const auto* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
@@ -1072,12 +1102,12 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
     return KVM ? (qt_lo + s % nqt) * 64 : (j_lo + s) * 64;
   };
   auto load_step = [&](int s, int st) {
-    const uint32_t o1 = oth + st * 2 * TILE, o2 = o1 + TILE;
+    const uint32_t o1 = oth + st * (TQ + TV), o2 = o1 + TQ;
     const int o0 = other_row0(s);
     if constexpr (KVM) {
       const size_t bh = (size_t)b * a.H + kvh * G + rank + R * (s / nqt);
-      load_tile<64, NDB>(o1, Q + bh * a.Sq * D, o0, a.Sq, D);
-      load_tile<64, NDB>(o2, dO + bh * a.Sq * D, o0, a.Sq, D);
+      load_tile<64, NDQ>(o1, Q + bh * a.Sq * DQK, o0, a.Sq, DQK);
+      load_tile<64, NDV>(o2, dO + bh * a.Sq * DV, o0, a.Sq, DV);
       if (tid < 128) {
         const int r = o0 + tid % 64;
         const float* src = (tid < 64 ? a.lse : a.delta) + bh * a.Sq + r;
@@ -1085,9 +1115,9 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
                   r < a.Sq);
       }
     } else {
-      const size_t kv_off = ((size_t)b * a.KV + kvh) * a.Skv * D;
-      load_tile<64, NDB>(o1, K + kv_off, o0, a.Skv, D);
-      load_tile<64, NDB>(o2, V + kv_off, o0, a.Skv, D);
+      const size_t kv = (size_t)b * a.KV + kvh;
+      load_tile<64, NDQ>(o1, K + kv * a.Skv * DQK, o0, a.Skv, DQK);
+      load_tile<64, NDV>(o2, V + kv * a.Skv * DV, o0, a.Skv, DV);
     }
   };
   // the first NST - 1 steps' tiles, one copy group each (the first with
@@ -1098,12 +1128,13 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
 
+  constexpr int NACC2 = SOLO && KVM ? NDQ * 32 : 1;
   float acc[NACC];              // dV (or dQ); dK where SOLO
-  float acc2[SOLO && KVM ? NACC : 1];
+  float acc2[NACC2];
 #pragma unroll
   for (int i = 0; i < NACC; ++i) acc[i] = 0.0f;
 #pragma unroll
-  for (int i = 0; i < (SOLO && KVM ? NACC : 1); ++i) acc2[i] = 0.0f;
+  for (int i = 0; i < NACC2; ++i) acc2[i] = 0.0f;
   // S then P, and dP then dS (SOLO); else x: S then P (warpgroup 0) or dP
   // then dS (1)
   float x[32], y[SOLO ? 32 : 1];
@@ -1120,7 +1151,7 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
     publish_stage<NST - 2>();
     if (s + NST - 1 < n_steps) load_step(s + NST - 1, (s + NST - 1) % NST);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
-    const uint32_t o1 = oth + st * 2 * TILE, o2 = o1 + TILE;
+    const uint32_t o1 = oth + st * (TQ + TV), o2 = o1 + TQ;
     const int o0 = other_row0(s);
     const int k0 = KVM ? own0 + wrow : o0, q0 = KVM ? o0 : own0 + wrow;
     // one copy of the step for the tiles masked pair by pair, one for the
@@ -1131,13 +1162,13 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
       fence_regs(y);
       wgmma_fence();
       if constexpr (SOLO) {
-        qk_products<NDB * 4>(x, wgmma_desc(own1 + wg * TILE, 16, 1024),
-                             wgmma_desc(o1, 16, 1024));
-        qk_products<NDB * 4>(y, wgmma_desc(own2 + wg * TILE, 16, 1024),
+        qk_products<DQK / 16>(x, wgmma_desc(own1 + wg * TQ, 16, 1024),
+                              wgmma_desc(o1, 16, 1024));
+        qk_products<DV / 16>(y, wgmma_desc(own2 + wg * TV, 16, 1024),
                              wgmma_desc(o2, 16, 1024));
       } else {
-        qk_products<NDB * 4>(x, wgmma_desc(wg ? own2 : own1, 16, 1024),
-                             wgmma_desc(wg ? o2 : o1, 16, 1024));
+        qk_products<DQK / 16>(x, wgmma_desc(wg ? own2 : own1, 16, 1024),
+                              wgmma_desc(wg ? o2 : o1, 16, 1024));
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -1204,14 +1235,14 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
           pack(f, x);
           fence_regs(acc);
           wgmma_fence();
-          pv_product<NDB>(acc, f, o2);
+          pv_product<NDV>(acc, f, o2);
           form_ds([&](int i) { return x[i]; }, y);
           wgmma_wait<0>();
           fence_regs(acc);
           pack(f, y);
           fence_regs(acc2);
           wgmma_fence();
-          pv_product<NDB>(acc2, f, o1);
+          pv_product<NDQ>(acc2, f, o1);
           wgmma_wait<0>();
           fence_regs(acc2);
         } else {
@@ -1219,7 +1250,7 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
           pack(f, y);
           fence_regs(acc);
           wgmma_fence();
-          pv_product<NDB>(acc, f, o1);  // dQ += dS K
+          pv_product<NDQ>(acc, f, o1);  // dQ += dS K
           wgmma_wait<0>();
           fence_regs(acc);
         }
@@ -1239,7 +1270,7 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
           // warpgroup 0: dV += P^T dO; warpgroup 1: dK += dS^T Q
           fence_regs(acc);
           wgmma_fence();
-          pv_product<NDB>(acc, f, wg ? o1 : o2);
+          pv_product<NDQ>(acc, f, wg ? o1 : o2);
           wgmma_wait<0>();
           fence_regs(acc);
         } else {
@@ -1260,7 +1291,7 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
           fence_regs(acc);
           fence_regs(f);
           wgmma_fence();
-          pv_product<NDB / 2>(acc, f, o1 + wg * (NDB / 2) * BLOCK_BYTES);
+          pv_product<NDQ / 2>(acc, f, o1 + wg * (NDQ / 2) * BLOCK_BYTES);
           wgmma_wait<0>();
           fence_regs(acc);
         }
@@ -1278,35 +1309,49 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
 
   if constexpr (KVM) {
     // This rank's partials in fp32 over the tiles (every product and read
-    // of them is done): dV rows then dK rows, ROWS each, of D + 4.
-    constexpr int RS = D + 4;
-    float* const red = reinterpret_cast<float*>(base_p);
+    // of them is done): ROWS dV rows of DV + 4, then ROWS dK rows of DQK +
+    // 4; the zero columns past a dim are not kept.
+    constexpr int RSV = DV + 4, RSK = DQK + 4;
+    float* const red_v = reinterpret_cast<float*>(base_p);
+    float* const red_k = red_v + ROWS * RSV;
     __syncthreads();
+    if constexpr (SOLO) {
 #pragma unroll
-    for (int i = 0; i < NACC; i += 2) {
-      const int r = rr0 + 8 * ((i / 2) % 2);
-      const int col = 8 * (i / 4) + col0;
-      if (col < D) {
-        if constexpr (SOLO) {
-          *reinterpret_cast<float2*>(red + (wrow + r) * RS + col) =
+      for (int i = 0; i < NACC; i += 2) {
+        const int r = rr0 + 8 * ((i / 2) % 2);
+        const int col = 8 * (i / 4) + col0;
+        if (col < DV)
+          *reinterpret_cast<float2*>(red_v + (wrow + r) * RSV + col) =
               make_float2(acc[i], acc[i + 1]);
-          *reinterpret_cast<float2*>(red + (ROWS + wrow + r) * RS + col) =
+      }
+#pragma unroll
+      for (int i = 0; i < NACC2; i += 2) {
+        const int r = rr0 + 8 * ((i / 2) % 2);
+        const int col = 8 * (i / 4) + col0;
+        if (col < DQK)
+          *reinterpret_cast<float2*>(red_k + (wrow + r) * RSK + col) =
               make_float2(acc2[i], acc2[i + 1]);
-        } else {
-          *reinterpret_cast<float2*>(red + (wg * 64 + r) * RS + col) =
-              make_float2(acc[i], acc[i + 1]);
-        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NACC; i += 2) {
+        const int r = rr0 + 8 * ((i / 2) % 2);
+        const int col = 8 * (i / 4) + col0;
+        *reinterpret_cast<float2*>((wg ? red_k + r * RSK : red_v + r * RSV) +
+                                   col) = make_float2(acc[i], acc[i + 1]);
       }
     }
     cluster_sync();
-    // Rank `rank` sums its slice of the rows' 4-column chunks over the
-    // ranks in rank order and writes them.
-    constexpr int N4 = 2 * ROWS * D / 4;
+    // Rank `rank` sums its slice of the rows' 4-column chunks (dV's, then
+    // dK's) over the ranks in rank order and writes them.
+    constexpr int NV4 = ROWS * DV / 4, N4 = NV4 + ROWS * DQK / 4;
     const int lo = rank * N4 / R, hi = (rank + 1) * N4 / R;
-    const size_t kv_off = (size_t)blockIdx.y * a.Skv * D;
     for (int e = lo + tid; e < hi; e += BWD_THREADS) {
-      const int m = e * 4 / D, col = e * 4 % D;
-      const uint32_t addr = smem_u32(red + m * RS + col);
+      const bool is_v = e < NV4;
+      const int d = is_v ? DV : DQK, e4 = (is_v ? e : e - NV4) * 4;
+      const int m = e4 / d, col = e4 % d;
+      const uint32_t addr =
+          smem_u32((is_v ? red_v + m * RSV : red_k + m * RSK) + col);
       float4 v = ld_cluster16(addr, 0);
       for (int q = 1; q < R; ++q) {
         const float4 w = ld_cluster16(addr, q);
@@ -1315,10 +1360,10 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
         v.z += w.z;
         v.w += w.w;
       }
-      const int row = own0 + m % ROWS;
+      const int row = own0 + m;
       if (row < a.Skv) {
-        bf16* const out = static_cast<bf16*>(m < ROWS ? a.dv : a.dk) +
-                          kv_off + (size_t)row * D + col;
+        bf16* const out = static_cast<bf16*>(is_v ? a.dv : a.dk) +
+                          ((size_t)blockIdx.y * a.Skv + row) * d + col;
         const __nv_bfloat162 lo2 = __floats2bfloat162_rn(v.x, v.y);
         const __nv_bfloat162 hi2 = __floats2bfloat162_rn(v.z, v.w);
         uint2 packed;
@@ -1330,14 +1375,14 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
     cluster_sync();             // no block leaves while read remotely
   } else {
     // each warpgroup its own rows (SOLO) or its half of the columns
-    const int cb = SPLIT ? wg * (D / 2) : 0;
-    bf16* const out = static_cast<bf16*>(a.dq) + (size_t)bh_own * a.Sq * D;
+    const int cb = SPLIT ? wg * (DQK / 2) : 0;
+    bf16* const out = static_cast<bf16*>(a.dq) + (size_t)bh_own * a.Sq * DQK;
 #pragma unroll
     for (int i = 0; i < NACC; i += 2) {
       const int row = own0 + wrow + rr0 + 8 * ((i / 2) % 2);
       const int col = cb + 8 * (i / 4) + col0;
-      if (row < a.Sq && col < D)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * D + col) =
+      if (row < a.Sq && col < DQK)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * DQK + col) =
             __floats2bfloat162_rn(acc[i], acc[i + 1]);
     }
   }
@@ -1345,30 +1390,35 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
 
 // ---- fp32 on the CUDA cores -----------------------------------------------
 // The same two modes with 32-row own and other tiles of fp32 in shared
-// memory (the other tile's rows padded to D + 1 words, conflict-free when a
-// warp reads one column of 32 rows).  Phase 1: a thread four (own, other)
-// pairs, one other row a lane; phase 2: a thread D / 8 elements of each
-// gradient, consecutive columns a warp.
+// memory (the other tiles' rows padded to DQK + 1 and DV + 1 words,
+// conflict-free when a warp reads one column of 32 rows).  Phase 1: a
+// thread four (own, other) pairs, one other row a lane, S over DQK and dP
+// over DV; phase 2: a thread DQK / 8 elements of dK (or dQ) and DV / 8 of
+// dV, consecutive columns a warp.
 constexpr int F_BO = 32, F_BT = 32;
 
-template <int D>
+template <int DQK, int DV>
 constexpr int bwd_f32_smem_bytes() {
-  return (2 * F_BO * D + 2 * F_BT * (D + 1) + 2 * F_BO * (F_BT + 1) + 2 * F_BT) *
+  return (F_BO * (DQK + DV) + F_BT * (DQK + 1 + DV + 1) +
+          2 * F_BO * (F_BT + 1) + 2 * F_BT) *
          4;
 }
 
-template <int D, bool KVM>
+template <int DQK, int DV, bool KVM>
 __global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_f32_kernel(const BwdArgs a) {
-  constexpr int OS = D + 1;                 // words an other-tile row
+  constexpr int OSQ = DQK + 1, OSV = DV + 1;  // words an other-tile row
   constexpr int PS = F_BT + 1;              // words a P/dS row
-  constexpr int NE = F_BO * D / BWD_THREADS;
+  constexpr int NEQ = F_BO * DQK / BWD_THREADS;  // dK or dQ a thread
+  constexpr int NEV = F_BO * DV / BWD_THREADS;   // dV a thread
+  static_assert(F_BO * DQK % BWD_THREADS == 0 && F_BO * DV % BWD_THREADS == 0,
+                "whole rows a pass");
   extern __shared__ float fsm[];
-  float* const own1 = fsm;
-  float* const own2 = own1 + F_BO * D;
-  float* const oth1 = own2 + F_BO * D;
-  float* const oth2 = oth1 + F_BT * OS;
-  float* const ps = oth2 + F_BT * OS;
+  float* const own1 = fsm;                  // K or Q
+  float* const own2 = own1 + F_BO * DQK;    // V or dO
+  float* const oth1 = own2 + F_BO * DV;     // Q or K
+  float* const oth2 = oth1 + F_BT * OSQ;    // dO or V
+  float* const ps = oth2 + F_BT * OSV;
   float* const dss = ps + F_BO * PS;
   float* const lse_s = dss + F_BO * PS;
   float* const delta_s = lse_s + F_BT;
@@ -1390,8 +1440,8 @@ flash_bwd_f32_kernel(const BwdArgs a) {
     b = blockIdx.x / a.KV;
     kvh = blockIdx.x % a.KV;
     own0 = blockIdx.y * F_BO;
-    own1g = K + (size_t)blockIdx.x * a.Skv * D;
-    own2g = V + (size_t)blockIdx.x * a.Skv * D;
+    own1g = K + (size_t)blockIdx.x * a.Skv * DQK;
+    own2g = V + (size_t)blockIdx.x * a.Skv * DV;
     own_valid = a.Skv;
   } else {
     t = tile_range(blockIdx.y, gridDim.y, blockIdx.x, F_BO, a.Sq, a.Skv,
@@ -1400,8 +1450,8 @@ flash_bwd_f32_kernel(const BwdArgs a) {
     b = t.bh / a.H;
     kvh = (t.bh % a.H) / G;
     own0 = t.q0;
-    own1g = Q + (size_t)t.bh * a.Sq * D;
-    own2g = dO + (size_t)t.bh * a.Sq * D;
+    own1g = Q + (size_t)t.bh * a.Sq * DQK;
+    own2g = dO + (size_t)t.bh * a.Sq * DV;
     own_valid = a.Sq;
     for (int i = tid; i < F_BO; i += BWD_THREADS) {
       const int r = own0 + i;
@@ -1410,38 +1460,38 @@ flash_bwd_f32_kernel(const BwdArgs a) {
       delta_s[i] = r < a.Sq ? a.delta[at] : 0.0f;
     }
   }
-  for (int e = tid; e < F_BO * D; e += BWD_THREADS) {
-    const int r = e / D;
-    const bool ok = own0 + r < own_valid;
-    const size_t g = (size_t)own0 * D + e;
-    own1[e] = ok ? own1g[g] : 0.0f;
-    own2[e] = ok ? own2g[g] : 0.0f;
-  }
-  float acc1[NE], acc2[NE];
+  for (int e = tid; e < F_BO * DQK; e += BWD_THREADS)
+    own1[e] = own0 + e / DQK < own_valid ? own1g[(size_t)own0 * DQK + e] : 0.0f;
+  for (int e = tid; e < F_BO * DV; e += BWD_THREADS)
+    own2[e] = own0 + e / DV < own_valid ? own2g[(size_t)own0 * DV + e] : 0.0f;
+  float acc1[NEQ], acc2[KVM ? NEV : 1];
 #pragma unroll
-  for (int j = 0; j < NE; ++j) acc1[j] = acc2[j] = 0.0f;
+  for (int j = 0; j < NEQ; ++j) acc1[j] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < (KVM ? NEV : 1); ++j) acc2[j] = 0.0f;
 
   auto step = [&](int bh, int o0) {
     const float* o1g;
     const float* o2g;
     int valid;
     if constexpr (KVM) {
-      o1g = Q + (size_t)bh * a.Sq * D;
-      o2g = dO + (size_t)bh * a.Sq * D;
+      o1g = Q + (size_t)bh * a.Sq * DQK;
+      o2g = dO + (size_t)bh * a.Sq * DV;
       valid = a.Sq;
     } else {
-      const size_t kv_off = ((size_t)b * a.KV + kvh) * a.Skv * D;
-      o1g = K + kv_off;
-      o2g = V + kv_off;
+      const size_t kv = (size_t)b * a.KV + kvh;
+      o1g = K + kv * a.Skv * DQK;
+      o2g = V + kv * a.Skv * DV;
       valid = a.Skv;
     }
     __syncthreads();
-    for (int e = tid; e < F_BT * D; e += BWD_THREADS) {
-      const int r = e / D, c = e % D;
-      const bool ok = o0 + r < valid;
-      const size_t g = (size_t)o0 * D + e;
-      oth1[r * OS + c] = ok ? o1g[g] : 0.0f;
-      oth2[r * OS + c] = ok ? o2g[g] : 0.0f;
+    for (int e = tid; e < F_BT * DQK; e += BWD_THREADS) {
+      const int r = e / DQK, c = e % DQK;
+      oth1[r * OSQ + c] = o0 + r < valid ? o1g[(size_t)o0 * DQK + e] : 0.0f;
+    }
+    for (int e = tid; e < F_BT * DV; e += BWD_THREADS) {
+      const int r = e / DV, c = e % DV;
+      oth2[r * OSV + c] = o0 + r < valid ? o2g[(size_t)o0 * DV + e] : 0.0f;
     }
     if constexpr (KVM) {
       for (int i = tid; i < F_BT; i += BWD_THREADS) {
@@ -1454,13 +1504,18 @@ flash_bwd_f32_kernel(const BwdArgs a) {
     __syncthreads();
     float sv[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dpv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float x1 = oth1[lane * OS + d], x2 = oth2[lane * OS + d];
+    for (int d = 0; d < DQK; ++d) {
+      const float x1 = oth1[lane * OSQ + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        sv[i] = fmaf(own1[(warp + 8 * i) * D + d], x1, sv[i]);
-        dpv[i] = fmaf(own2[(warp + 8 * i) * D + d], x2, dpv[i]);
-      }
+      for (int i = 0; i < 4; ++i)
+        sv[i] = fmaf(own1[(warp + 8 * i) * DQK + d], x1, sv[i]);
+    }
+#pragma unroll 4
+    for (int d = 0; d < DV; ++d) {
+      const float x2 = oth2[lane * OSV + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        dpv[i] = fmaf(own2[(warp + 8 * i) * DV + d], x2, dpv[i]);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -1476,14 +1531,21 @@ flash_bwd_f32_kernel(const BwdArgs a) {
     }
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < NE; ++j) {
+    for (int j = 0; j < NEQ; ++j) {
       const int e = tid + BWD_THREADS * j;
-      const int r = e / D, d = e % D;
+      const int r = e / DQK, d = e % DQK;
 #pragma unroll 8
-      for (int c = 0; c < F_BT; ++c) {
-        acc1[j] = fmaf(dss[r * PS + c], oth1[c * OS + d], acc1[j]);
-        if constexpr (KVM)
-          acc2[j] = fmaf(ps[r * PS + c], oth2[c * OS + d], acc2[j]);
+      for (int c = 0; c < F_BT; ++c)
+        acc1[j] = fmaf(dss[r * PS + c], oth1[c * OSQ + d], acc1[j]);
+    }
+    if constexpr (KVM) {
+#pragma unroll
+      for (int j = 0; j < NEV; ++j) {
+        const int e = tid + BWD_THREADS * j;
+        const int r = e / DV, d = e % DV;
+#pragma unroll 8
+        for (int c = 0; c < F_BT; ++c)
+          acc2[j] = fmaf(ps[r * PS + c], oth2[c * OSV + d], acc2[j]);
       }
     }
   };
@@ -1499,20 +1561,23 @@ flash_bwd_f32_kernel(const BwdArgs a) {
       step(bh_own, o0);
   }
 
-  float* out1;
-  float* out2 = nullptr;
-  if constexpr (KVM) {
-    out1 = static_cast<float*>(a.dk) + (size_t)blockIdx.x * a.Skv * D;
-    out2 = static_cast<float*>(a.dv) + (size_t)blockIdx.x * a.Skv * D;
-  } else {
-    out1 = static_cast<float*>(a.dq) + (size_t)bh_own * a.Sq * D;
-  }
+  // dK (or dQ), then dV
+  float* const out1 = KVM ? static_cast<float*>(a.dk) +
+                                (size_t)blockIdx.x * a.Skv * DQK
+                          : static_cast<float*>(a.dq) +
+                                (size_t)bh_own * a.Sq * DQK;
 #pragma unroll
-  for (int j = 0; j < NE; ++j) {
+  for (int j = 0; j < NEQ; ++j) {
     const int e = tid + BWD_THREADS * j;
-    if (own0 + e / D < own_valid) {
-      out1[(size_t)own0 * D + e] = acc1[j];
-      if constexpr (KVM) out2[(size_t)own0 * D + e] = acc2[j];
+    if (own0 + e / DQK < own_valid) out1[(size_t)own0 * DQK + e] = acc1[j];
+  }
+  if constexpr (KVM) {
+    float* const out2 = static_cast<float*>(a.dv) +
+                        (size_t)blockIdx.x * a.Skv * DV;
+#pragma unroll
+    for (int j = 0; j < NEV; ++j) {
+      const int e = tid + BWD_THREADS * j;
+      if (own0 + e / DV < own_valid) out2[(size_t)own0 * DV + e] = acc2[j];
     }
   }
 }
@@ -1523,22 +1588,24 @@ int set_smem(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-// The three launches of K5b at head dim D; `bf16` picks the tensor-core
+// The launches of K5b at head dims (DQK, DV); `bf16` picks the tensor-core
 // kernels, whose dK/dV pass runs in clusters of `cluster` blocks.  The
 // shared-memory limits are raised once a kernel and process.
-template <int D, bool BF16>
+template <int DQK, int DV, bool BF16>
 int launch_bwd(const BwdArgs& a, const void* o, float* delta, int B,
                int cluster, cudaStream_t stream) {
   int err;
   if constexpr (BF16) {
-    constexpr int smem = bwd_bf16_smem_bytes<D>();
-    static const int attr_kv = set_smem(flash_bwd_bf16_kernel<D, true>, smem);
-    static const int attr_q = set_smem(flash_bwd_bf16_kernel<D, false>, smem);
+    constexpr int smem = bwd_bf16_smem_bytes<DQK, DV>();
+    static const int attr_kv =
+        set_smem(flash_bwd_bf16_kernel<DQK, DV, true>, smem);
+    static const int attr_q =
+        set_smem(flash_bwd_bf16_kernel<DQK, DV, false>, smem);
     if (attr_kv) return attr_kv;
     if (attr_q) return attr_q;
-    constexpr int rows = bwd_rows<D>();
+    constexpr int rows = bwd_rows<DQK, DV>();
     // the dQ pass first: it writes Delta, which the dK/dV pass reads
-    flash_bwd_bf16_kernel<D, false>
+    flash_bwd_bf16_kernel<DQK, DV, false>
         <<<dim3(B * a.H, (a.Sq + rows - 1) / rows), BWD_THREADS, smem,
            stream>>>(a);
     err = static_cast<int>(cudaGetLastError());
@@ -1556,25 +1623,27 @@ int launch_bwd(const BwdArgs& a, const void* o, float* delta, int B,
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
     err = static_cast<int>(
-        cudaLaunchKernelEx(&cfg, flash_bwd_bf16_kernel<D, true>, a));
+        cudaLaunchKernelEx(&cfg, flash_bwd_bf16_kernel<DQK, DV, true>, a));
   } else {
     const int rows = B * a.H * a.Sq;
     flash_bwd_delta_kernel<float><<<(rows + 7) / 8, 256, 0, stream>>>(
         static_cast<const float*>(o), static_cast<const float*>(a.dout), delta,
-        rows, D);
+        rows, DV);
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
-    constexpr int smem = bwd_f32_smem_bytes<D>();
-    static const int attr_kv = set_smem(flash_bwd_f32_kernel<D, true>, smem);
-    static const int attr_q = set_smem(flash_bwd_f32_kernel<D, false>, smem);
+    constexpr int smem = bwd_f32_smem_bytes<DQK, DV>();
+    static const int attr_kv =
+        set_smem(flash_bwd_f32_kernel<DQK, DV, true>, smem);
+    static const int attr_q =
+        set_smem(flash_bwd_f32_kernel<DQK, DV, false>, smem);
     if (attr_kv) return attr_kv;
     if (attr_q) return attr_q;
-    flash_bwd_f32_kernel<D, true>
+    flash_bwd_f32_kernel<DQK, DV, true>
         <<<dim3(B * a.KV, (a.Skv + F_BO - 1) / F_BO), BWD_THREADS, smem,
            stream>>>(a);
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
-    flash_bwd_f32_kernel<D, false>
+    flash_bwd_f32_kernel<DQK, DV, false>
         <<<dim3(B * a.H, (a.Sq + F_BO - 1) / F_BO), BWD_THREADS, smem,
            stream>>>(a);
   }
@@ -1620,24 +1689,24 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
       case PAIR(32, 16): return launch_bf16<32, 16>(ARGS);
     }
   }
-#undef PAIR
 #undef ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K5b.  q, o, dout, dq (B,H,Sq,D); k, v, dk, dv (B,KV,Skv,D), all contiguous
-// of dtype (fp32 or bf16) and 16-byte aligned; lse fp32 (B,H,Sq) as
-// flash_attention wrote it for these inputs; delta fp32 (B,H,Sq) scratch;
-// `cluster` (1..8) the ranks that split a KV head's query heads in the
-// bf16 dK/dV pass, as kernels/flash_attention.py::bwd_plan gives it.  dq,
-// dk and dv are written whole (zeros where no pair reaches them).  Launches
-// two kernels (bf16) or three (fp32) on `stream` and returns
-// cudaGetLastError().
+// K5b.  q, dq (B,H,Sq,D); k, dk (B,KV,Skv,D); v, dv (B,KV,Skv,Dv); o, dout
+// (B,H,Sq,Dv), all contiguous of dtype (fp32 or bf16) and 16-byte aligned;
+// (D, Dv) one of the pairs below (kernels/flash_attention.py::
+// HEAD_DIM_PAIRS), any other refused; lse fp32 (B,H,Sq) as flash_attention
+// wrote it for these inputs; delta fp32 (B,H,Sq) scratch; `cluster` (1..8)
+// the ranks that split a KV head's query heads in the bf16 dK/dV pass, as
+// kernels/flash_attention.py::bwd_plan gives it.  dq, dk and dv are written
+// whole (zeros where no pair reaches them).  Launches two kernels (bf16) or
+// three (fp32) on `stream` and returns cudaGetLastError().
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const float* lse,
                                    const void* dout, float* delta, void* dq,
                                    void* dk, void* dv, int B, int H, int KV,
-                                   int Sq, int Skv, int D, float scale,
+                                   int Sq, int Skv, int D, int Dv, float scale,
                                    int causal, int window, int cluster,
                                    int dtype, void* stream) {
   if (cluster < 1 || cluster > MAX_CLUSTER)
@@ -1647,22 +1716,29 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                   scale, causal, window};
 #define ARGS a, o, delta, B, cluster, s
   if (dtype == DTYPE_F32) {
-    switch (D) {
-      case 16: return launch_bwd<16, false>(ARGS);
-      case 32: return launch_bwd<32, false>(ARGS);
-      case 64: return launch_bwd<64, false>(ARGS);
-      case 128: return launch_bwd<128, false>(ARGS);
-      case 256: return launch_bwd<256, false>(ARGS);
+    switch (PAIR(D, Dv)) {
+      case PAIR(16, 16): return launch_bwd<16, 16, false>(ARGS);
+      case PAIR(32, 32): return launch_bwd<32, 32, false>(ARGS);
+      case PAIR(64, 64): return launch_bwd<64, 64, false>(ARGS);
+      case PAIR(128, 128): return launch_bwd<128, 128, false>(ARGS);
+      case PAIR(256, 256): return launch_bwd<256, 256, false>(ARGS);
+      case PAIR(96, 64): return launch_bwd<96, 64, false>(ARGS);
+      case PAIR(80, 80): return launch_bwd<80, 80, false>(ARGS);
+      case PAIR(32, 16): return launch_bwd<32, 16, false>(ARGS);
     }
   } else if (dtype == DTYPE_BF16) {
-    switch (D) {
-      case 16: return launch_bwd<16, true>(ARGS);
-      case 32: return launch_bwd<32, true>(ARGS);
-      case 64: return launch_bwd<64, true>(ARGS);
-      case 128: return launch_bwd<128, true>(ARGS);
-      case 256: return launch_bwd<256, true>(ARGS);
+    switch (PAIR(D, Dv)) {
+      case PAIR(16, 16): return launch_bwd<16, 16, true>(ARGS);
+      case PAIR(32, 32): return launch_bwd<32, 32, true>(ARGS);
+      case PAIR(64, 64): return launch_bwd<64, 64, true>(ARGS);
+      case PAIR(128, 128): return launch_bwd<128, 128, true>(ARGS);
+      case PAIR(256, 256): return launch_bwd<256, 256, true>(ARGS);
+      case PAIR(96, 64): return launch_bwd<96, 64, true>(ARGS);
+      case PAIR(80, 80): return launch_bwd<80, 80, true>(ARGS);
+      case PAIR(32, 16): return launch_bwd<32, 16, true>(ARGS);
     }
   }
 #undef ARGS
+#undef PAIR
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -19,7 +19,9 @@ products on ``wgmma`` with the other side's tiles copied one step ahead,
 its dK/dV pass splitting a KV head's query heads over the ranks of a
 thread-block cluster (``bwd_plan``; ``tests/test_torch_attention_bwd_split.py``
 holds a plain model of that split against the JAX package); fp32 runs on
-the CUDA cores.  The TPU side has no such
+the CUDA cores.  K5b is built for the same (Dqk, Dv) pairs as K5
+(``check_bwd_dims``): S and dQ, dK run over Dqk, dP, dV and Delta over Dv.
+The TPU side has no such
 kernel: the JAX package differentiates ``models/layers.py::
 blocked_attention`` by autodiff.  ``flash_attention_bwd_plain`` is the same
 arithmetic in fp32 PyTorch, and ``FlashAttention`` the autograd function
@@ -27,8 +29,7 @@ that runs K5 and K5b on the card and the plain versions on the CPU.  A row
 that sees no key (rows at or past Skv + window - 1 with a window) has the
 log-sum-exp NEG_INF: its weights are 1 / Skv on every key, as the forward
 gives it the mean of V, and its scores, the constant mask value, pass no
-gradient to Q or K.  K5b takes square head dims in ``HEAD_DIMS`` only and
-refuses MLA's and ViT-632M's (``check_bwd_dims``).
+gradient to Q or K.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-# Square head dims K5 and K5b take, and K5's (Dqk, Dv) pairs: those, MLA's
+# Square head dims K5 and K5b take, and their (Dqk, Dv) pairs: those, MLA's
 # (minicpm3-4b), ViT-632M's and the CPU tests' reduced MLA.
 HEAD_DIMS = (16, 32, 64, 128, 256)
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((96, 64), (80, 80),
@@ -94,7 +95,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
                               window: int = 0):
     """K5b's arithmetic in fp32 PyTorch: (dQ, dK, dV) in the inputs'
     dtypes from the forward's output ``o`` and log-sum-exp ``lse`` (B,H,Sq)
-    and the output's cotangent ``do``.  P = exp(S - lse) where the mask
+    and the output's cotangent ``do`` (both (B,H,Sq,Dv)).  P = exp(S - lse) where the mask
     keeps a pair, 1 / Skv on every key of a row with lse NEG_INF (it saw
     no key); dS = P o (dO V^T - rowsum(dO o O)) where the mask keeps a
     pair of a row that saw a key, else 0; dV = P^T dO and dK = scale dS^T Q
@@ -104,8 +105,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     G = H // KV
     scale = 1.0 / math.sqrt(D)
     qg = q.reshape(B, KV, G, Sq, D).float()
-    dog = do.reshape(B, KV, G, Sq, D).float()
-    og = o.reshape(B, KV, G, Sq, D).float()
+    Dv = v.shape[-1]
+    dog = do.reshape(B, KV, G, Sq, Dv).float()
+    og = o.reshape(B, KV, G, Sq, Dv).float()
     kf, vf = k.float(), v.float()
     mask = _mask(Sq, Skv, causal, window, q.device)
     dead = (lse.reshape(B, KV, G, Sq, 1) == NEG_INF)
@@ -123,8 +125,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 def bwd_rows(D: int) -> int:
-    """Own rows of a K5b bf16 block at head dim D: keys of the dK/dV
-    pass, query rows of the dQ pass."""
+    """Own rows of a K5b bf16 block at q/k head dim D (Dv is never
+    larger): keys of the dK/dV pass, query rows of the dQ pass."""
     return 2 * BWD_TILE if D <= 128 else BWD_TILE
 
 
@@ -147,7 +149,8 @@ def bwd_query_tiles(kt: int, Sq: int, Skv: int, causal: bool, window: int,
 def bwd_plan(B: int, H: int, KV: int, Sq: int, Skv: int, D: int,
              causal: bool = True, window: int = 0, sms: int = SMS,
              cluster: int = 0) -> dict:
-    """K5b's bf16 dK/dV pass at these shapes: the ``cluster`` of R ranks
+    """K5b's bf16 dK/dV pass at these shapes (D q/k's head dim): the
+    ``cluster`` of R ranks
     that split each KV head's G = H / KV query heads (rank r takes
     ``heads[r]`` = r, r + R, ...), the key tiles of ``key_rows`` keys in
     launch order (``key_tiles``, the heaviest first) and the
@@ -183,7 +186,7 @@ def _lib() -> ctypes.CDLL:
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.flash_attention.restype = ctypes.c_int
         lib.flash_attention_bwd.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float]
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float]
             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.flash_attention_bwd.restype = ctypes.c_int
     return lib
@@ -210,15 +213,12 @@ def _check_qkv(kernel: str, q, k, v) -> None:
 
 
 def check_bwd_dims(kernel: str, q, v) -> None:
-    """K5b (and ``FlashAttention``, on the CPU too) takes one head dim of
-    ``HEAD_DIMS`` for q, k and v."""
+    """K5b (and ``FlashAttention``, on the CPU too) takes the (Dqk, Dv)
+    pairs of ``HEAD_DIM_PAIRS``, as K5 does, and refuses any other."""
     D, Dv = q.shape[-1], v.shape[-1]
-    if D != Dv or D not in HEAD_DIMS:
-        raise ValueError(f"{kernel}: head dims (q/k {D}, v {Dv}): K5b takes "
-                         f"one head dim of {HEAD_DIMS} for q, k and v; the "
-                         f"backward at MLA's and ViT-632M's head dims comes "
-                         f"with ROADMAP.md queue 1's item 'MLA and ViT-632M "
-                         f"training'")
+    if (D, Dv) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"{kernel}: head dims (q/k {D}, v {Dv}): K5b is "
+                         f"built for the pairs {HEAD_DIM_PAIRS}")
 
 
 def _aligned(*tensors):
@@ -260,16 +260,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     """K5b on the card: (dQ, dK, dV), what ``flash_attention_bwd_plain``
     computes, each in q's dtype with fp32 accumulation.  ``o`` and ``lse``
     are what ``flash_attention(..., return_lse=True)`` returned for these
-    inputs; ``do`` has o's shape and dtype."""
+    inputs; ``do`` has o's shape (B, H, Sq, Dv) and dtype."""
     _check_qkv("flash_attention_bwd", q, k, v)
     check_bwd_dims("flash_attention_bwd", q, v)
     B, H, Sq, D = q.shape
-    KV, Skv = k.shape[1], k.shape[2]
+    KV, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != q.dtype:
+        if tuple(t.shape) != (B, H, Sq, Dv) or t.dtype != q.dtype:
             raise ValueError(f"flash_attention_bwd: {name} "
-                             f"{tuple(t.shape)} {t.dtype} is not q's "
-                             f"{tuple(q.shape)} {q.dtype}")
+                             f"{tuple(t.shape)} {t.dtype}, want "
+                             f"{(B, H, Sq, Dv)} {q.dtype}")
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
                          f"{lse.dtype}, want {(B, H, Sq)} float32")
@@ -287,7 +287,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         code = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, H, KV, Sq, Skv, D,
+            dk.data_ptr(), dv.data_ptr(), B, H, KV, Sq, Skv, D, Dv,
             1.0 / math.sqrt(D), int(causal), int(window), cluster,
             _build.dtype_code(q.dtype), _build.stream_of(q))
     _build.check(lib, code, "flash_attention_bwd")

@@ -7,12 +7,15 @@ timing logs.  ``--smoke`` (the default, as in the JAX launcher) takes the
 reduced config, ``--full`` the published one; ``--device cpu`` runs the
 plain PyTorch path on the CPU, and without it the run needs the card.
 Each step's loss is read on the host, which waits for the card, so the
-logged ms a step is the card's time.  The ``ssm`` (Mamba-2), ``hybrid``
-(RecurrentGemma) and dense GQA families train, their scans and attention
-differentiated by K8b, K7b and K5b on the card; the features the port lacks
-raise ``NotImplementedError`` naming their slice.  A model too
-deep for one card trains cut in depth: pass ``train`` a config whose
-``get_arch`` returns it (``chip_smoke.py`` does so).
+logged ms a step is the card's time.  Every family of the registry trains
+(Mamba-2, RecurrentGemma, the dense and MoE GQA decoders, MLA's
+minicpm3-4b, Whisper, qwen2-vl), its scans and attention differentiated
+by K8b, K7b and K5b on the card; ``TokenStream``'s fp32 frames and patch
+embeddings are cast to the model's dtype in the model
+(``transformer.encoder_ctx``, ``splice_frontend``).  A model too deep for
+one card trains cut in depth, and one outside the registry (the paper
+suite's ViT-632M) trains too: pass ``train`` a config whose ``get_arch``
+returns it (``chip_smoke.py`` does so).
 """
 from __future__ import annotations
 

@@ -22,10 +22,11 @@ path (``moe_ep``, a mesh): the port always takes the JAX package's gather
 path.  Whisper's ``audio_frames`` and the ``vision_patches`` frontends are
 stubs in both packages: the caller hands ``forward`` the frame or patch
 embeddings.  ``softmax_xent`` is the training loss.  ``forward``
-differentiates everywhere but through MLA (``unsupported``): on the card
-the attention blocks' gradient runs K5b and the RG-LRU blocks' K7b (through
-``ops.attention``, ``ops.rglru``), so the Mamba-2, hybrid and dense
-families train with no plain path.
+differentiates everywhere: on the card the attention blocks' gradient
+(GQA, MLA at its (96, 64) head dims, the ViT's 80, Whisper's encoder and
+cross-attention) runs K5b and the RG-LRU blocks' K7b (through
+``ops.attention``, ``ops.rglru``), so every family trains with no plain
+attention or scan.
 """
 from __future__ import annotations
 
@@ -42,12 +43,6 @@ from repro_torch.models import layers as L
 from repro_torch.tree import tree_leaves, tree_map
 
 Pytree = Any
-
-
-def unsupported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with ROADMAP.md queue 1's item "
-        f"'{item}'")
 
 
 # ---------------------------------------------------------------------------
@@ -374,11 +369,9 @@ def mla_forward(cfg: ModelConfig, p, x, ctx: Ctx):
     normed q latent, the heads' nope keys and values from the normed kv
     latent, one rope key shared by the heads; each head attends with q/k
     head dim nope + rope and v head dim ``v_head_dim`` (K5 on the card, at
-    minicpm3-4b's (96, 64)).  Its gradient is not ported (``unsupported``):
-    K5b has no (96, 64) instance."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, *p.values())):
-        raise unsupported("MLA training", "MLA and ViT-632M training")
+    minicpm3-4b's (96, 64); under autograd K5b at the same pair).  The
+    gradient flows through the latents' norms and the rope key, which
+    ``expand`` shares over the heads (its gradient the sum over them)."""
     H = cfg.num_heads
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
@@ -619,11 +612,14 @@ def add_positions(cfg: ModelConfig, params, x):
 def encoder_ctx(cfg: ModelConfig, params, ctx: Ctx, encoder_frames, dtype):
     """Set ``ctx.enc_out`` from ``encoder_frames`` (None: no
     cross-attention), as the JAX package's forward and prefill do; with
-    cross-attention and no encoder the frames pass through."""
+    cross-attention and no encoder the frames pass through.  The frames
+    are cast to the model's ``dtype`` first, so a bf16 Whisper takes
+    ``TokenStream``'s fp32 frames (the JAX package raises on them)."""
     if encoder_frames is not None and (cfg.encoder_layers
                                        or cfg.cross_attention):
-        ctx.enc_out = (encode(cfg, params, encoder_frames)
-                       if cfg.encoder_layers else encoder_frames.to(dtype))
+        frames = encoder_frames.to(dtype)
+        ctx.enc_out = (encode(cfg, params, frames) if cfg.encoder_layers
+                       else frames)
     return ctx
 
 

@@ -9,7 +9,8 @@ takes (B, S, H, D); the port's kernels take (B, H, S, D)) and through
 log-sum-exp, as K5b is fed K5's.  Both sides are fp32 on one CPU and differ
 only in the order of fp32 sums, hence rtol 1e-4, atol 1e-5.  Shapes are
 ``tests/test_kernels.py``'s attention shapes plus a GQA 2:1 one with
-Sq != Skv, causal or not, with and without a window that bites; then rows
+Sq != Skv, causal or not, with and without a window that bites, at square
+head dims and at the (Dqk, Dv) pairs of ``HEAD_DIM_PAIRS``; then rows
 that see no key (Sq past Skv + window - 1), whose queries get no gradient
 and whose dO reaches every value row at 1 / Skv.  ``ops.attention`` goes
 through ``FlashAttention`` whenever autograd needs it; on the CPU its two
@@ -38,14 +39,20 @@ RTOL, ATOL = 1e-4, 1e-5
 SHAPES = [(2, 8, 2, 128, 128, 64), (1, 4, 1, 64, 128, 32),
           (2, 4, 4, 128, 64, 64), (1, 4, 2, 96, 80, 32)]
 MASKS = [(True, 0), (False, 0), (True, 48), (False, 20)]
+# (Dqk, Dv) pairs K5b takes beside the square dims: the reduced MLA's, MLA's
+# (minicpm3-4b) and ViT-632M's; shapes (B, H, KV, Sq, Skv), GQA 2:1 with
+# Sq != Skv and a ragged last tile
+PAIR_SHAPES = [(1, 4, 2, 96, 80), (2, 2, 2, 70, 70)]
+PAIRS = [(32, 16), (96, 64), (80, 80)]
 
 
-def _inputs(b, h, kv, sq, skv, d, seed=0):
+def _inputs(b, h, kv, sq, skv, d, seed=0, dv=None):
+    dv = dv or d
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, h, sq, d), dtype=np.float32)
     k = rng.standard_normal((b, kv, skv, d), dtype=np.float32)
-    v = rng.standard_normal((b, kv, skv, d), dtype=np.float32)
-    do = rng.standard_normal((b, h, sq, d), dtype=np.float32)
+    v = rng.standard_normal((b, kv, skv, dv), dtype=np.float32)
+    do = rng.standard_normal((b, h, sq, dv), dtype=np.float32)
     return q, k, v, do
 
 
@@ -85,6 +92,23 @@ def test_attention_bwd_plain_matches_jax_vjp(b, h, kv, sq, skv, d, causal,
     want = _jax_vjp(q, k, v, do, causal, window)
     o, lse, *got = _port(q, k, v, do, causal, window)
     assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    _close(o, want[0], msg="o")
+    for name, gg, ww in zip(("dq", "dk", "dv"), got, want[1:]):
+        assert gg.dtype == torch.float32 and gg.shape == ww.shape
+        _close(gg, ww, msg=name)
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv", PAIR_SHAPES)
+@pytest.mark.parametrize("d,dv", PAIRS)
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_attention_bwd_plain_matches_jax_vjp_at_head_dim_pairs(
+        b, h, kv, sq, skv, d, dv, causal, window):
+    """A value head dim of its own (dO, O and dV of Dv columns; S, dQ and
+    dK over Dqk, scaled by 1 / sqrt(Dqk)), causal or not, windowed."""
+    q, k, v, do = _inputs(b, h, kv, sq, skv, d, seed=4, dv=dv)
+    want = _jax_vjp(q, k, v, do, causal, window)
+    o, lse, *got = _port(q, k, v, do, causal, window)
+    assert o.shape == (b, h, sq, dv)
     _close(o, want[0], msg="o")
     for name, gg, ww in zip(("dq", "dk", "dv"), got, want[1:]):
         assert gg.dtype == torch.float32 and gg.shape == ww.shape

@@ -853,14 +853,18 @@ def _rel_frobenius(got, want):
     return ((got - want).norm() / want.norm().clamp_min(floor)).item()
 
 
-def _k5b_case(cuda, b, h, kv, sq, skv, d, causal, window, dtype, seed=5):
-    """K5 (with its lse) and K5b against their plain versions at one shape,
-    both fed the kernel's o and lse; the elementwise tolerances are K5's,
-    with K5B_REL beside them.  Returns (inputs, K5b's gradients)."""
+def _k5b_case(cuda, b, h, kv, sq, skv, d, causal, window, dtype, seed=5,
+              dv=None):
+    """K5 (with its lse) and K5b against their plain versions at one shape
+    (v's head dim ``dv``, d where None), both fed the kernel's o and lse;
+    the elementwise tolerances are K5's, with K5B_REL beside them.  Returns
+    (inputs, K5b's gradients, the plain version's)."""
+    dv = dv or d
     rng = np.random.default_rng(seed)
     q = _randn(rng, (b, h, sq, d), dtype, cuda)
-    k, v = (_randn(rng, (b, kv, skv, d), dtype, cuda) for _ in range(2))
-    do = _randn(rng, (b, h, sq, d), dtype, cuda)
+    k = _randn(rng, (b, kv, skv, d), dtype, cuda)
+    v = _randn(rng, (b, kv, skv, dv), dtype, cuda)
+    do = _randn(rng, (b, h, sq, dv), dtype, cuda)
     o, lse = flash_attention(q, k, v, causal=causal, window=window,
                              return_lse=True)
     _, want_lse = flash_attention_plain(q, k, v, causal=causal,
@@ -885,7 +889,7 @@ def _k5b_case(cuda, b, h, kv, sq, skv, d, causal, window, dtype, seed=5):
                                    atol=0.03 if bf else 2e-4, msg=name)
         rel = _rel_frobenius(gg, ww)
         assert rel <= K5B_REL[dtype], (name, rel)
-    return (q, k, v, o, lse, do), got
+    return (q, k, v, o, lse, do), got, want
 
 
 @pytest.mark.parametrize("d", HEAD_DIMS)
@@ -916,8 +920,8 @@ def test_flash_attention_bwd_fully_masked_rows(cuda, d, causal, sq, skv,
                                                window, dtype):
     """Rows that see no key: no gradient to their queries, 1 / Skv of their
     dO to every value row."""
-    _, (dq, _, _) = _k5b_case(cuda, 1, 2, 2, sq, skv, d, causal, window,
-                              dtype)
+    _, (dq, _, _), _ = _k5b_case(cuda, 1, 2, 2, sq, skv, d, causal, window,
+                                 dtype)
     assert not dq[:, :, skv + window - 1:].any()
 
 
@@ -926,7 +930,7 @@ def test_flash_attention_bwd_fully_masked_rows(cuda, d, causal, sq, skv,
 def test_flash_attention_bwd_repeats_bit_for_bit(cuda, d, dtype):
     """dK and dV are summed over the group inside the kernel, in a fixed
     order (no atomics): two calls give the same bytes."""
-    args, got = _k5b_case(cuda, 2, 8, 2, 257, 257, d, True, 0, dtype)
+    args, got, _ = _k5b_case(cuda, 2, 8, 2, 257, 257, d, True, 0, dtype)
     again = flash_attention_bwd(*args, causal=True, window=0)
     for a, b_ in zip(got, again):
         assert torch.equal(a, b_)
@@ -946,8 +950,8 @@ def test_flash_attention_bwd_head_split_over_a_cluster(cuda, monkeypatch,
     plan = FA.bwd_plan
     monkeypatch.setattr(FA, "bwd_plan",
                         lambda *a, **kw: plan(*a, **kw, cluster=cluster))
-    args, got = _k5b_case(cuda, 2, 10, 1, skv, skv, d, causal, window,
-                          torch.bfloat16)
+    args, got, _ = _k5b_case(cuda, 2, 10, 1, skv, skv, d, causal, window,
+                             torch.bfloat16)
     again = flash_attention_bwd(*args, causal=causal, window=window)
     for a, b_ in zip(got, again):
         assert torch.equal(a, b_)
@@ -1646,8 +1650,10 @@ def test_flash_attention_mla_and_vit_serving_shapes_match_plain(
 
 
 def test_flash_attention_bwd_refuses_head_dim_pairs(cuda):
-    """K5b is built for square head dims only: MLA's (96, 64) and ViT's 80
-    raise naming their ROADMAP item, before any launch."""
+    """K5b is built for the pairs of HEAD_DIM_PAIRS, MLA's (96, 64) and
+    ViT's 80 among them (one launch each, a gradient of q's, k's and v's
+    shapes), and refuses any other pair, (32, 24) here, by name before a
+    launch."""
     rng = np.random.default_rng(3)
     for d, dv in ((96, 64), (80, 80)):
         q, k = (_randn(rng, (1, 2, 64, d), torch.bfloat16, cuda)
@@ -1655,9 +1661,114 @@ def test_flash_attention_bwd_refuses_head_dim_pairs(cuda):
         v = _randn(rng, (1, 2, 64, dv), torch.bfloat16, cuda)
         o, lse = flash_attention(q, k, v, return_lse=True)
         before = flash_attention_bwd.launches
-        with pytest.raises(ValueError, match="MLA and ViT-632M training"):
-            flash_attention_bwd(q, k, v, o, lse, o)
-        assert flash_attention_bwd.launches == before
+        got = flash_attention_bwd(q, k, v, o, lse, o)
+        assert flash_attention_bwd.launches == before + 1
+        assert [tuple(g.shape) for g in got] == [tuple(q.shape),
+                                                 tuple(k.shape),
+                                                 tuple(v.shape)]
+    q, k = (_randn(rng, (1, 2, 64, 32), torch.bfloat16, cuda)
+            for _ in range(2))
+    v = _randn(rng, (1, 2, 64, 24), torch.bfloat16, cuda)
+    lse = torch.zeros((1, 2, 64), device=cuda)
+    before = flash_attention_bwd.launches
+    with pytest.raises(ValueError, match=r"\(q/k 32, v 24\)"):
+        flash_attention_bwd(q, k, v, v, lse, v)
+    assert flash_attention_bwd.launches == before
+
+
+@pytest.mark.parametrize("d,dv", K5_PAIRS)
+@pytest.mark.parametrize("sq,skv", [(1, 1), (63, 64), (65, 200), (200, 65),
+                                    (130, 130)])
+@pytest.mark.parametrize("causal,window", K5_MASKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_head_dim_pairs_match_plain(cuda, d, dv, sq, skv,
+                                                        causal, window,
+                                                        dtype):
+    """K5b at a value head dim of its own (MLA's (96, 64), the reduced
+    MLA's (32, 16)) and at ViT-632M's 80: Sq and Skv around the tiles,
+    windows off the tile, causal or not; GQA 2:1."""
+    _k5b_case(cuda, 1, 4, 2, sq, skv, d, causal, window, dtype, dv=dv)
+
+
+@pytest.mark.parametrize("h,kv", [(4, 4), (16, 4), (10, 1)])
+@pytest.mark.parametrize("d,dv", [(80, 80), (96, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_head_dim_pairs_gqa_match_plain(cuda, h, kv, d,
+                                                            dv, dtype):
+    """dK and dV summed over GQA groups of 1, 4 and 10 query heads (a
+    cluster of ranks splits them in bf16) at the new pairs, a ragged 300
+    keys, twice byte for byte."""
+    args, got, _ = _k5b_case(cuda, 2, h, kv, 300, 300, d, True, 0, dtype,
+                             dv=dv)
+    again = flash_attention_bwd(*args, causal=True, window=0)
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("b,h,s,d,dv", [(4, 40, 1024, 96, 64),
+                                        (4, 16, 512, 80, 80)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_mla_and_vit_training_shapes_match_plain(
+        cuda, monkeypatch, b, h, s, d, dv, dtype):
+    """minicpm3-4b's training attention (40 heads, KV 40, q/k 96, v 64) and
+    ViT-632M's (16 heads of 80), causal: within K5B_REL, and in bf16 with
+    planted faults (dQ x 0.9, the plain version without a 64-key tile)
+    reading above it."""
+    from repro_torch.kernels import flash_attention as FA
+    args, got, want = _k5b_case(cuda, b, h, h, s, s, d, True, 0, dtype,
+                                dv=dv)
+    if dtype != torch.bfloat16:
+        return
+    t0 = s // 2 // 64 * 64
+    real = FA._mask
+
+    def dropped(*a):
+        keep = real(*a)
+        keep[:, t0:t0 + 64] = False
+        return keep
+
+    monkeypatch.setattr(FA, "_mask", dropped)
+    drop = flash_attention_bwd_plain(*args, causal=True, window=0)
+    monkeypatch.undo()
+    assert _rel_frobenius(got[0] * 0.9, want[0]) > K5B_REL[dtype]
+    for gg, ww in zip(drop, want):
+        assert _rel_frobenius(gg, ww) > K5B_REL[dtype]
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "vit-632m"])
+def test_mla_and_vit_training_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced MLA (v head dim 16: K5 and K5b at (32, 16)) and the
+    reduced ViT-632M at its head dim 80 (K5 and K5b at (80, 80)), fp32:
+    the loss and every gradient leaf of ``launch.steps.value_and_grad`` on
+    the card (K5 and K5b once a layer) against the same on the CPU (the
+    plain versions), at the fp32 gradient checks' bars (loss 1e-5, leaves
+    1e-3 relative Frobenius)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.paper_suite import PAPER_LM_SUITE
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    cfg = ({**PAPER_LM_SUITE}.get(arch) or get_arch(arch)).reduced()
+    cfg = dataclasses.replace(
+        cfg, **({"v_head_dim": 16} if cfg.attention == "mla"
+                else {"head_dim": 80}))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    batch = TokenStream(cfg, 2, 100, 0, device="cpu").batch_at(0)
+    want_loss, want = ST.value_and_grad(cfg, params, batch)
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    loss, got = ST.value_and_grad(
+        cfg, T.tree_map(lambda t: t.to(cuda), params),
+        {k: t.to(cuda) for k, t in batch.items()})
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - before[0],
+            flash_attention_bwd.launches - before[1]) == (cfg.num_layers,) * 2
+    assert abs(loss.item() - want_loss.item()) <= 1e-5 * abs(want_loss.item())
+    for a, b_ in zip(T.tree_leaves(got), T.tree_leaves(want)):
+        assert torch.isfinite(a).all()
+        assert ((a.cpu() - b_).norm() / b_.norm().clamp_min(1e-30)) <= 1e-3
 
 
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "qwen2-vl-72b", "vit-632m"])

@@ -110,7 +110,8 @@ def test_attention_with_its_own_value_dim_matches_jax(S):
 def test_k5_refuses_what_it_was_not_built_for():
     """The card's wrapper takes (Dqk, Dv) pairs it was built for and checks
     them before the device; K5b (and ``FlashAttention``, on the CPU too)
-    refuses a value head dim of its own, naming its ROADMAP item."""
+    takes the same pairs, (32, 16) among them, and refuses any other by
+    name, (32, 24) here."""
     q, k = torch.ones((1, 2, 8, 32)), torch.ones((1, 2, 8, 32))
     with pytest.raises(ValueError, match=r"head dims \(q/k 32, v 24\)"):
         flash_attention(q, k, torch.ones((1, 2, 8, 24)))
@@ -119,10 +120,15 @@ def test_k5_refuses_what_it_was_not_built_for():
     with pytest.raises(ValueError, match="runs on a CUDA tensor"):
         flash_attention(q, k, torch.ones((1, 2, 8, 16)))
     v = torch.ones((1, 2, 8, 16))
-    with pytest.raises(ValueError, match="MLA and ViT-632M training"):
-        FlashAttention.apply(q.requires_grad_(), k, v, True, 0)
-    with pytest.raises(ValueError, match="MLA and ViT-632M training"):
-        ops.attention(q, k, v)
+    out = FlashAttention.apply(q.requires_grad_(), k, v, True, 0)
+    assert out.shape == (1, 2, 8, 16)
+    assert torch.autograd.grad(out.sum(), q)[0].shape == q.shape
+    bad = torch.ones((1, 2, 8, 24))
+    with pytest.raises(ValueError, match=r"FlashAttention: head dims "
+                                         r"\(q/k 32, v 24\): K5b is built"):
+        FlashAttention.apply(q, k, bad, True, 0)
+    with pytest.raises(ValueError, match=r"\(q/k 32, v 24\): K5b is built"):
+        ops.attention(q, k, bad)
 
 
 # ---- the model against the JAX package --------------------------------------
@@ -211,11 +217,25 @@ def test_decode_matches_forward(model):
 
 
 def test_mla_training_raises_naming_its_item(model):
+    """MLA's training, once refused by name, runs: under autograd the
+    forward is the one served (the same logits), its attention goes
+    through ``FlashAttention`` once a layer, and every leaf gets a finite
+    gradient (tests/test_torch_train_mla.py holds them to JAX's)."""
     cfg, _, _, params = model
     tok = torch.from_numpy(_tokens(cfg, 1, 8))
     leaves = [p.detach().requires_grad_() for p in T.tree_leaves(params)]
-    with pytest.raises(NotImplementedError,
-                       match="MLA training.*ROADMAP.md.*'MLA and ViT-632M"):
-        T.forward(cfg, tree_unflatten(params, leaves), tok)
+    logits = T.forward(cfg, tree_unflatten(params, leaves), tok)
+    nodes, todo = set(), [logits.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is not None and fn not in nodes:
+            nodes.add(fn)
+            todo.extend(f for f, _ in fn.next_functions)
+    assert sum(type(f).__name__ == "FlashAttentionBackward"
+               for f in nodes) == cfg.num_layers
+    grads = torch.autograd.grad(logits.square().mean(), leaves)
+    assert all(torch.isfinite(g).all() for g in grads)
     with torch.no_grad():                       # serving is untouched
-        T.forward(cfg, tree_unflatten(params, leaves), tok)
+        torch.testing.assert_close(
+            T.forward(cfg, tree_unflatten(params, leaves), tok), logits,
+            rtol=0, atol=0)

@@ -9,8 +9,8 @@ vocab 512, fp32) take parameters from the JAX package's ``init_params``
 through ``params_from_jax``; the same tokens go through both packages'
 ``forward``, ``prefill`` and ``decode_step``.  ViT-632M, through the
 ``vision_patches`` frontend, is held to the JAX package in
-``tests/test_torch_vlm.py``; its training at full width (K5b at head dim
-80) is refused by name.
+``tests/test_torch_vlm.py``, its training at head dim 80 in
+``tests/test_torch_train_mla.py``.
 """
 import dataclasses
 import pathlib
@@ -28,6 +28,7 @@ from repro.models import transformer as JT
 from repro_torch.configs.paper_suite import PAPER_LM_SUITE as SUITE
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.launch import serve as S
 from repro_torch.launch.serve import _grow_cache
 from repro_torch.models import decode as DE
@@ -105,14 +106,24 @@ def test_param_tree_dtypes_and_count_match_jax(name, full):
 
 def test_vit_632m_raises_naming_its_slice():
     """ViT-632M builds; its attention's gradient at full width (head dim
-    80, which K5b is not built for) raises naming its ROADMAP.md item."""
+    80), once refused naming its slice, now runs through
+    ``FlashAttention`` (K5b's (80, 80) on the card) and matches autograd
+    through the plain forward; tests/test_torch_train_mla.py trains the
+    ViT at head dim 80 against JAX."""
     for cfg in (SUITE["vit-632m"], SUITE["vit-632m"].reduced()):
         assert "patch_proj" in T.param_defs(cfg)
     D = SUITE["vit-632m"].resolved_head_dim
-    q = torch.ones((1, 2, 8, D), requires_grad=True)
-    with pytest.raises(ValueError, match=r"\(q/k 80, v 80\).*ROADMAP.md.*"
-                                         r"'MLA and ViT-632M training'"):
-        ops.attention(q, q.detach(), q.detach())
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 8, D))
+                                .astype(np.float32)).requires_grad_()
+               for _ in range(3))
+    out = ops.attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    got = torch.autograd.grad(out.square().sum(), (q, k, v))
+    want = torch.autograd.grad(
+        flash_attention_plain(q, k, v).square().sum(), (q, k, v))
+    for gg, ww in zip(got, want):
+        torch.testing.assert_close(gg, ww, rtol=1e-4, atol=1e-5)
 
 
 # ---- the models against the JAX package -------------------------------------

@@ -60,32 +60,33 @@ def variants():
                      '    asm volatile("cp.async.wait_group 0;\\n" ::: "memory");\n')],
         "stages3": [("__host__ __device__ constexpr int bwd_stages() {\n  return 2;",
                      "__host__ __device__ constexpr int bwd_stages() {\n"
-                     "  return D <= 128 ? 3 : 2;")],
+                     "  return DQK <= 128 ? 3 : 2;")],
         "nomask": [("    if (!pair_tile_masked(k0, q0, a))\n",
                     "    if (true)\n")],
         "noexchange": [("        bar_wait(1);\n", "")],
         "noss": [
-            ("        qk_products<NDB * 4>(x, wgmma_desc(own1 + wg * TILE, 16, "
-             "1024),\n                             wgmma_desc(o1, 16, 1024));\n",
+            ("        qk_products<DQK / 16>(x, wgmma_desc(own1 + wg * TQ, 16, "
+             "1024),\n                              wgmma_desc(o1, 16, 1024));\n",
              ""),
-            ("        qk_products<NDB * 4>(y, wgmma_desc(own2 + wg * TILE, 16, "
+            ("        qk_products<DV / 16>(y, wgmma_desc(own2 + wg * TV, 16, "
              "1024),\n                             wgmma_desc(o2, 16, 1024));\n",
              ""),
-            ("        qk_products<NDB * 4>(x, wgmma_desc(wg ? own2 : own1, 16, "
-             "1024),\n                             wgmma_desc(wg ? o2 : o1, 16, "
+            ("        qk_products<DQK / 16>(x, wgmma_desc(wg ? own2 : own1, 16, "
+             "1024),\n                              wgmma_desc(wg ? o2 : o1, 16, "
              "1024));\n", "")],
-        "nors": [("          pv_product<NDB>(acc, f, o2);\n", ""),
-                 ("          pv_product<NDB>(acc2, f, o1);\n", ""),
-                 ("          pv_product<NDB>(acc, f, o1);  // dQ += dS K\n", ""),
-                 ("          pv_product<NDB>(acc, f, wg ? o1 : o2);\n", ""),
-                 ("          pv_product<NDB / 2>(acc, f, o1 + wg * (NDB / 2) * "
+        "nors": [("          pv_product<NDV>(acc, f, o2);\n", ""),
+                 ("          pv_product<NDQ>(acc2, f, o1);\n", ""),
+                 ("          pv_product<NDQ>(acc, f, o1);  // dQ += dS K\n", ""),
+                 ("          pv_product<NDQ>(acc, f, wg ? o1 : o2);\n", ""),
+                 ("          pv_product<NDQ / 2>(acc, f, o1 + wg * (NDQ / 2) * "
                   "BLOCK_BYTES);\n", "")],
         "noexp": [("          float p = ex2(fmaf(x[i], scale_log2, -l2));",
                    "          float p = x[i] - l2;")],
         "noload": [('    if (s + NST - 1 < n_steps) load_step(s + NST - 1, '
                     '(s + NST - 1) % NST);\n', "")],
-        "nodq": [("    flash_bwd_bf16_kernel<D, false>\n        <<<",
-                  "    if (B < 0) flash_bwd_bf16_kernel<D, false>\n        <<<")],
+        "nodq": [("    flash_bwd_bf16_kernel<DQK, DV, false>\n        <<<",
+                  "    if (B < 0) flash_bwd_bf16_kernel<DQK, DV, false>\n"
+                  "        <<<")],
         "nodkdv": [("    err = static_cast<int>(\n        cudaLaunchKernelEx(",
                     "    if (B < 0) err = static_cast<int>(\n        cudaLaunchKernelEx(")],
     }
