@@ -100,7 +100,18 @@ versions; minicpm3-4b trained at full width over 32 of its 62 layers
 through ``launch.train.train``, ViT-632M and Whisper-medium whole through
 ``ST.make_train_step`` (bf16, batch 4, 5 steps; K5 and K5b 32, 32 and 72
 launches a step, no other kernel and no plain attention), each profiled
-and its first two losses against a run with the plain versions.  Last,
+and its first two losses against a run with the plain versions.  Phase
+16, the mesh: qwen3-moe-235b-a22b at full width served over (1, 4) and
+(2, 2) meshes of 4 ranks, processes sharing the card through a gloo group
+(expert-parallel ``moe_ffn_ep``, and ``moe_ffn_ep_resident`` on (2, 2)):
+(a) at fp32 over 2 layers, batch 4 x 1024, each mesh's prefill and 4
+decode steps against the one-card gather path on the same weights, no
+expert past its capacity; (b) at the config's capacity factor, (1, 4)
+and the resident form against the one-card path over the batch, (2, 2)
+against it over each data block; (c) ``serve`` in bf16 over 4 layers, the
+(1, 4) mesh's first greedy tokens equal to the one-card ``serve``'s and
+its prefill logits within MESH_REL, K5 once a layer in every rank's
+prefill, with each mesh's times, collectives and memory.  Last,
 K1 (3xTF32
 ``wgmma``) at each distinct shape of a ResNet-50 request, with w in the
 layout the request hands over, beside ``torch.matmul``, its tile plan and
@@ -1514,7 +1525,8 @@ def check_k3_k4(dev, time_ms, leaves):
     torch.cuda.empty_cache()
     # K3 over one train step's leaves, each checked and timed, the bound
     # summed the same way
-    step = {"ms": 0.0, "bound_ms": 0.0, "leaves": len(leaves)}
+    step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "leaves": len(leaves)}
     for n in leaves:
         x = torch.randn(1, n, generator=gen, device=dev) * 1e-3
         q, s = VE.quantize_int8(x)
@@ -1523,12 +1535,14 @@ def check_k3_k4(dev, time_ms, leaves):
                                                     ws.view(torch.int32))):
             raise AssertionError(f"K3 (1, {n}): not byte-equal")
         step["ms"] += time_ms(lambda: VE.quantize_int8(x), reps=3)
+        step["plain_ms"] += time_ms(lambda: VE.quantize_int8_plain(x), reps=1)
         step["bound_ms"] += bound(5 * n + 4, 5 * n, torch.float32)[0]
     del x, q, s, wq, ws
     torch.cuda.empty_cache()
     print(f"K3 quantize_int8 over a train step's {len(leaves)} leaves "
           f"({sum(leaves)} fp32 elements, each leaf one row, byte-equal to "
           f"the plain version): ms={step['ms']:.4f} "
+          f"plain_ms={step['plain_ms']:.4f} "
           f"bound_ms={step['bound_ms']:.4f} (bytes)")
     return ({"max_abs_err": 0.0, **k3, "step": step},
             {"max_abs_err": 0.0, **k4})
@@ -3363,6 +3377,502 @@ def drive_train_vlm(dev, counters, time_ms, call_ms, max_err, randn, card):
     return out, path["K5"], path["K5b"]
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 16: the mesh — qwen3-moe-235b-a22b served over meshes of ranks
+# ---------------------------------------------------------------------------
+
+# qwen3-moe-235b-a22b (hf:Qwen/Qwen3-30B-A3B family) at full width over
+# meshes of ranks that share the one card: 4 processes, a gloo group on
+# CUDA tensors (NCCL refuses two ranks on one device).  Each mesh and its
+# MoE form: (1, 4) moe_ffn_ep (32 experts a rank, the whole batch), (2, 2)
+# moe_ffn_ep (64 experts a rank, a data block of 2 prompts, capacity
+# counted over the block), (2, 2) moe_ffn_ep_resident (64 experts' halves
+# of F a rank).
+MESH_MODEL = "qwen3-moe-235b-a22b"
+MESH_CASES = [((1, 4), "ep"), ((2, 2), "ep"), ((2, 2), "ep_resident")]
+# (a) and (b), fp32 with TF32 off: 2 layers, batch 4 x 1024 prompt, 4
+# decode steps fed the one-card run's greedy tokens.  Weights from seed 1.
+# (a)'s capacity factor is 8, not 16: at 16 the (2, 2) ep ranks would hold
+# 4 x (2 layers' 64 experts, 9.66 GB, + the 4.98 GB embedding and head,
+# fp32) = 61 GB plus a 2.15 GB dispatch buffer each, past the card with
+# four CUDA contexts.  At 8 the one-card run checks that no expert's load
+# passes its capacity, over the batch and over each data block, so nothing
+# drops and the result is 16's (and any larger factor's).  (b) at the
+# config's own 1.25, where assignments drop.
+MESH_EXACT = {"layers": 2, "batch": 4, "prompt": 1024, "decode": 4,
+              "capacity": 8.0, "seed": 1}
+# (c), bf16, served by launch.serve.serve: depth 4 of 94 layers, from the
+# memory each mesh needs on the one card.  A rank holds the 2.49 GB
+# embedding and head plus, a layer, its experts (1.21 GB at (1, 4), 2.42 at
+# (2, 2) ep, 1.21 resident) and 0.15 GB of attention; (2, 2) ep binds: 4 x
+# (2.49 + 2.57 L) GB, and while a rank places its weights one stacked
+# expert leaf of all L layers in fp32 (3.22 L GB) and its bf16 copy: at L =
+# 4, 51.3 + 19.3 GB, under 80 with four contexts.  The one-card reference:
+# 2.49 + 4.98 L = 22.4 GB.
+MESH_SERVE = {"layers": 4, "batch": 4, "prompt": 1024, "gen": 16}
+# The bars: fp32, phase 11's 1e-3 relative Frobenius over the
+# last-position logits and the same argmax; bf16, 2e-2 (K5_REL's bf16
+# bar).  In bf16 the expert-parallel path rounds each MoE output element
+# more often than one card does: each weighted expert output, the rank's
+# partial sum, then each add of gloo's ring (3 over 4 ranks), up to 2^-9
+# each, where (a) reads ~1e-6 in fp32 from the order of the sums alone;
+# through 4 layers' residual stream that comes to about 1e-2 of the
+# logits on an H100 (PERF.md).
+MESH_REL = {"float32": 1e-3, "bfloat16": 2e-2}
+MESH_TIMEOUT_S = 900
+
+
+def mesh_config(layers, dtype=None, **kw):
+    """qwen3-moe-235b-a22b at full width over ``layers`` of its 94, in
+    ``dtype`` where given, with ``kw`` replaced."""
+    import dataclasses
+    cfg = qwen_config(MESH_MODEL, layers)
+    return dataclasses.replace(cfg, dtype=dtype or cfg.dtype, **kw)
+
+
+class collectives_counted:
+    """Within the block every ``dist.all_reduce`` and ``dist.all_gather``
+    is counted: calls, bytes of the tensor each is given, and the host's
+    seconds inside it between two synchronizes of the card (so the time is
+    the collective's, not the card's queued work)."""
+
+    def __init__(self, sync):
+        self.sync, self.calls, self.nbytes, self.s = sync, 0, 0, 0.0
+
+    def snap(self):
+        return (self.calls, self.nbytes, self.s)
+
+    def since(self, snap):
+        return {"calls": self.calls - snap[0], "bytes": self.nbytes - snap[1],
+                "host_ms": (self.s - snap[2]) * 1e3}
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.real = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+
+        def wrap(name, fn):
+            def counted(*args, **kw):
+                t = args[0] if name == "all_reduce" else args[1]
+                self.sync()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                self.sync()
+                self.s += time.perf_counter() - t0
+                self.calls += 1
+                self.nbytes += t.numel() * t.element_size()
+                return out
+            return counted
+
+        for name, fn in self.real.items():
+            setattr(dist, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, fn in self.real.items():
+            setattr(dist, name, fn)
+
+
+def in_turns(place, dev, stats=None):
+    """``place`` (``transformer.place_params``) run by one rank after the
+    other: ranks sharing a card draw their weights one at a time, each
+    holding one whole fp32 leaf at a time, and hand back the cache before
+    the next starts.  ``stats`` gets the bytes of the rank's tree and its
+    peak while placing."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.tree import tree_leaves
+
+    def run(*args, **kw):
+        out = None
+        for r in range(dist.get_world_size()):
+            if r == dist.get_rank():
+                if dev.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats()
+                out = place(*args, **kw)
+                if stats is not None:
+                    stats["param_bytes"] = sum(t.numel() * t.element_size()
+                                               for t in tree_leaves(out))
+                    stats["place_peak_gb"] = (
+                        torch.cuda.max_memory_allocated() / 1e9
+                        if dev.type == "cuda" else 0.0)
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+        return out
+    return run
+
+
+def serve_recorded(cfg, run, dev, mesh=None):
+    """``launch.serve.serve`` of ``cfg`` (its registry name patched to
+    ``cfg``) on one card, or over ``mesh`` from a rank (its weights placed
+    ``in_turns``), after a warm-up serve of at most 256 tokens and 2, with
+    what the step functions saw: the prefill's last-position logits (the
+    whole batch, fp32, on the host), K5's launches and the collectives
+    (calls, bytes, host ms) of the prefill and of each decode step, and
+    the peak memory while serving."""
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve as SV
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    rec = {"decode": []}
+    coll = collectives_counted(sync)
+    steps, real_place = SV.ST, SV.T.place_params
+    real_p, real_d = steps.make_prefill_step, steps.make_decode_step
+
+    def recorded(make, what):
+        def made(*args, **kw):
+            step = make(*args, **kw)
+
+            def call(*a):
+                c0, k0 = coll.snap(), flash_attention.launches
+                out = step(*a)
+                row = {"k5": flash_attention.launches - k0, **coll.since(c0)}
+                if what == "prefill":
+                    rec["prefill"] = row
+                    rec["logits"] = out[0][:, -1].float()
+                else:
+                    rec["decode"].append(row)
+                return out
+            return call
+        return made
+
+    stats = {}
+    steps.make_prefill_step = recorded(real_p, "prefill")
+    steps.make_decode_step = recorded(real_d, "decode")
+    if mesh is not None:
+        SV.T.place_params = in_turns(real_place, dev, stats)
+    try:
+        with serving_config(cfg), coll:
+            SV.serve(cfg.name, smoke=False, device=dev, mesh=mesh,
+                     batch=run["batch"], prompt=min(256, run["prompt"]),
+                     gen=2)
+            rec["decode"] = []
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            out = SV.serve(cfg.name, smoke=False, device=dev, mesh=mesh,
+                           **run)
+            logits = rec["logits"]
+            if mesh is not None:
+                logits = SV.gather_batch(logits, mesh, SH.batch_axes(
+                    run["batch"], SH.TRAIN_RULES, mesh))
+    finally:
+        steps.make_prefill_step, steps.make_decode_step = real_p, real_d
+        SV.T.place_params = real_place
+    return {"generated": torch.from_numpy(out["generated"]),
+            "prefill_ms": out["prefill_s"] * 1e3,
+            "decode_ms": out["decode_s_per_token"] * 1e3,
+            "logits": logits.cpu(), "prefill": rec["prefill"],
+            "decode": rec["decode"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda
+            else 0.0, **stats}
+
+
+def exact_reference(cfg, tok, n, dev, low):
+    """(a) and (b) on one card: the gather path's prefill of ``tok`` (fp32,
+    weights from ``MESH_EXACT``'s seed), ``n`` greedy decode steps (the
+    tokens fed and each step's logits), each layer's most loaded expert
+    over the batch and over each half (the (2, 2) meshes' data blocks),
+    then the prefill at capacity factor ``low`` over the batch and over
+    each half on its own.  Logits on the host, weights freed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.serve import _grow_cache
+    from repro_torch.models import decode as DE
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        MESH_EXACT["seed"]), device=dev)
+    tok = tok.to(dev)
+    B, S = tok.shape
+    real, loads = L.moe_ffn, []
+
+    def recording(x, gate_w, *args, num_experts, k, **kw):
+        top = torch.topk(torch.softmax((x @ gate_w).float(), -1), k).indices
+        half = top.shape[0] // 2
+        loads.append([int(torch.bincount(t.flatten(), minlength=num_experts)
+                          .max()) for t in (top, top[:half], top[half:])])
+        return real(x, gate_w, *args, num_experts=num_experts, k=k, **kw)
+
+    out = {}
+    L.moe_ffn = recording
+    try:
+        with torch.no_grad():
+            logits, cache = DE.prefill(cfg, params, tok)
+    finally:
+        L.moe_ffn = real
+    out["loads"] = loads
+    with torch.no_grad():
+        out["prefill"] = logits[:, -1].float().cpu()
+        cache = _grow_cache(cfg, cache, B, S + n)
+        feed = []
+        for i in range(n):
+            feed.append(logits[:, -1].argmax(-1)[:, None].to(torch.int32))
+            logits, cache = DE.decode_step(cfg, params, cache, feed[-1])
+            out[f"decode{i}"] = logits[:, -1].float().cpu()
+        out["feed"] = torch.cat(feed, dim=1).cpu()
+        del cache
+        cfg_low = dataclasses.replace(cfg, moe_capacity_factor=low)
+        out["prefill_low"] = DE.prefill(cfg_low, params, tok)[0][:, -1] \
+            .float().cpu()
+        out["prefill_low_blocks"] = torch.cat(
+            [DE.prefill(cfg_low, params, part)[0][:, -1].float().cpu()
+             for part in tok.split(B // 2)])
+    del params, logits
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def exact_on_mesh(cfg, tok, feed, low, mesh, dev):
+    """(a) and (b) on this rank: weights placed in turns from the seed the
+    one-card run drew from, the prefill of the rank's block of ``tok``,
+    decode steps fed the rank's block of ``feed``, then the prefill at
+    capacity factor ``low``; every logits row gathered over the batch's
+    blocks (fp32, host)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+
+    rules = SH.TRAIN_RULES
+    B, S = tok.shape
+    baxes = SH.batch_axes(B, rules, mesh)
+    params = in_turns(T.place_params, dev)(
+        cfg, torch.Generator(device=dev).manual_seed(MESH_EXACT["seed"]),
+        mesh, batch_axes=baxes, device=dev)
+    spec = SH.batch_spec((B, S), rules, mesh)
+    tl = SH.local_block(tok, spec, mesh).to(dev)
+    fl = SH.local_block(feed, spec, mesh).to(dev)
+    gather = lambda lg: SV.gather_batch(lg[:, -1].float(), mesh, baxes)
+    kw = dict(mesh=mesh, batch_axes=baxes)
+    out = {}
+    with torch.no_grad():
+        logits, cache = ST.make_prefill_step(cfg, **kw)(params, {"tokens": tl})
+        out["prefill"] = gather(logits)
+        cache = SV._grow_cache(cfg, cache, tl.shape[0], S + feed.shape[1])
+        step = ST.make_decode_step(cfg, **kw)
+        for i in range(feed.shape[1]):
+            logits, cache = step(params, cache, {"tokens": fl[:, i:i + 1]})
+            out[f"decode{i}"] = gather(logits)
+        del cache
+        cfg_low = dataclasses.replace(cfg, moe_capacity_factor=low)
+        out["prefill_low"] = gather(ST.make_prefill_step(cfg_low, **kw)(
+            params, {"tokens": tl})[0])
+    del params, logits
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(rank, world, store_dir, job):
+    """One rank of a phase 16 mesh (started by ``launch.mesh.run_ranks``):
+    on the card's one device, in a gloo group, (a) and (b)
+    (``exact_on_mesh``), then (c) (``serve_recorded``); its results to
+    ``job["out"]/rank<r>.pt``."""
+    import os
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    sys.path.insert(0, job["src"])
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as M
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    M.init_group(store_dir, rank, world, "gloo", timeout_s=MESH_TIMEOUT_S)
+    mesh = M.make_mesh(job["shape"], ("data", "model"), device=job["device"])
+    res = {"exact": exact_on_mesh(job["exact_cfg"], job["tokens"],
+                                  job["feed"], job["low"], mesh, dev)}
+    res["serve"] = serve_recorded(job["serve_cfg"], job["serve_run"], dev,
+                                  mesh)
+    torch.save(res, os.path.join(job["out"], f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def drive_mesh(dev, card):
+    """Phase 16: qwen3-moe-235b-a22b at full width over (1, 4) ``ep``,
+    (2, 2) ``ep`` and (2, 2) ``ep_resident`` meshes of 4 ranks sharing the
+    card (``mesh_rank``; gloo; the kernels built here first).  (a) fp32,
+    ``MESH_EXACT``: each mesh's prefill and decode logits against the
+    one-card gather path on the same weights and tokens, nothing dropped;
+    (b) at capacity factor 1.25, (1, 4) ``ep`` and (2, 2) resident against
+    the one-card path over the batch, (2, 2) ``ep`` against it over each
+    data block; (c) bf16 ``serve`` at ``MESH_SERVE``: the (1, 4) ``ep``
+    mesh's first greedy tokens equal to the one-card ``serve``'s and its
+    prefill logits within ``MESH_REL``, K5 once a layer in every rank's
+    prefill, and the times, collectives and memory of each mesh.  Returns
+    K5's launches in the meshes' served prefills, summed over ranks."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.data.pipeline import RequestStream
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as M
+
+    _build.build_all()
+    root = Path(__file__).resolve().parent
+    run_c = {k: MESH_SERVE[k] for k in ("batch", "prompt", "gen")}
+    B, S, n = MESH_EXACT["batch"], MESH_EXACT["prompt"], MESH_EXACT["decode"]
+    cfg32 = mesh_config(MESH_EXACT["layers"], "float32",
+                        moe_capacity_factor=MESH_EXACT["capacity"])
+    low = qwen_config(MESH_MODEL).moe_capacity_factor
+    tok = torch.from_numpy(RequestStream(cfg32, B, S, 0).requests_at(0)
+                           ["tokens"])
+    t0 = time.perf_counter()
+    ref = exact_reference(cfg32, tok, n, dev, low)
+    E, k = cfg32.num_experts, cfg32.experts_per_token
+    cap = lambda T_: max(8, math.ceil(T_ * k * MESH_EXACT["capacity"] / E))
+    over = [row for row in ref["loads"]
+            if row[0] > cap(B * S) or max(row[1:]) > cap(B * S // 2)]
+    if over:
+        raise AssertionError(f"phase 16(a): an expert's load passes its "
+                             f"capacity ({cap(B * S)} over the batch, "
+                             f"{cap(B * S // 2)} over a data block): most "
+                             f"loaded per layer {ref['loads']}")
+    print(f"phase 16 one-card fp32 reference {cfg32.name} "
+          f"({describe(cfg32)}; TF32 off, B={B}, S={S}, weights seed "
+          f"{MESH_EXACT['seed']}): most loaded expert per layer over the "
+          f"batch / each data block {ref['loads']}, capacity "
+          f"{cap(B * S)} / {cap(B * S // 2)} at factor "
+          f"{MESH_EXACT['capacity']}: nothing drops; {n} greedy decode "
+          f"steps; prefills at factor {low} over the batch and over each "
+          f"block; {time.perf_counter() - t0:.1f} s")
+    cfg16 = mesh_config(MESH_SERVE["layers"])
+    one = serve_recorded(cfg16, run_c, dev)
+    if one["prefill"]["k5"] != cfg16.num_layers:
+        raise AssertionError(f"phase 16 one-card serve: K5 "
+                             f"{one['prefill']['k5']} a prefill")
+    print(f"phase 16 one-card serve {cfg16.name} ({describe(cfg16)}): batch "
+          f"{run_c['batch']}, prompt {run_c['prompt']}, gen {run_c['gen']}: "
+          f"prefill_ms={one['prefill_ms']:.3f} decode_ms_per_token="
+          f"{one['decode_ms']:.3f}; K5 {one['prefill']['k5']} a prefill; "
+          f"peak {one['peak_gb']:.2f} GB; first tokens "
+          f"{one['generated'][:, 0].tolist()}; card {card}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    vocab = slice(0, cfg32.vocab_size)
+
+    def held(got, want, bar, what):
+        got, want = got[:, vocab], want[:, vocab]
+        rel = ((got - want).norm() / want.norm()).item()
+        same = torch.equal(got.argmax(-1), want.argmax(-1))
+        if not (torch.isfinite(got).all() and rel <= bar and same):
+            raise AssertionError(f"phase 16 {what}: rel Frobenius err "
+                                 f"{rel:.3e} (limit {bar}), same argmax "
+                                 f"{same}")
+        return rel
+
+    k5_mesh = 0
+    for shape, impl in MESH_CASES:
+        name = f"({shape[0]}, {shape[1]}) {impl}"
+        out = root / "build" / "phase16"
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        job = {"src": str(root / "src"), "device": str(dev), "shape": shape,
+               "exact_cfg": dataclasses.replace(cfg32, moe_impl=impl),
+               "tokens": tok, "feed": ref["feed"], "low": low,
+               "serve_cfg": dataclasses.replace(cfg16, moe_impl=impl),
+               "serve_run": run_c, "out": str(out)}
+        t0 = time.perf_counter()
+        M.run_ranks(mesh_rank, math.prod(shape), job,
+                    timeout_s=MESH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(out / f"rank{r}.pt")
+                 for r in range(math.prod(shape))]
+        shutil.rmtree(out, ignore_errors=True)
+        ex = ranks[0]["exact"]
+        # (a): the one-card path, nothing dropped
+        rel_a = [held(ex["prefill"], ref["prefill"], MESH_REL["float32"],
+                      f"(a) {name} prefill")]
+        rel_a += [held(ex[f"decode{i}"], ref[f"decode{i}"],
+                       MESH_REL["float32"], f"(a) {name} decode step {i}")
+                  for i in range(n)]
+        # (b): capacity 1.25, against its counterpart
+        blocks = shape[0] > 1 and impl == "ep"
+        rel_b = held(ex["prefill_low"], ref["prefill_low_blocks" if blocks
+                                            else "prefill_low"],
+                     MESH_REL["float32"], f"(b) {name}")
+        # (c): served in bf16
+        sv = [r["serve"] for r in ranks]
+        for r, s in enumerate(sv):
+            if not torch.equal(s["generated"], sv[0]["generated"]):
+                raise AssertionError(f"phase 16(c) {name}: rank {r}'s tokens "
+                                     f"differ from rank 0's")
+            if s["prefill"]["k5"] != cfg16.num_layers or any(
+                    d["k5"] for d in s["decode"]):
+                raise AssertionError(f"phase 16(c) {name} rank {r}: K5 "
+                                     f"{s['prefill']['k5']} a prefill (want "
+                                     f"{cfg16.num_layers}), decode "
+                                     f"{[d['k5'] for d in s['decode']]}")
+        gen_tok = sv[0]["generated"]
+        if not (gen_tok.shape == (run_c["batch"], run_c["gen"])
+                and ((0 <= gen_tok) & (gen_tok < cfg16.vocab_size)).all()):
+            raise AssertionError(f"phase 16(c) {name}: generated "
+                                 f"{tuple(gen_tok.shape)}")
+        got, want = sv[0]["logits"][:, vocab], one["logits"][:, vocab]
+        rel_c = ((got - want).norm() / want.norm()).item()
+        first = torch.equal(gen_tok[:, 0], one["generated"][:, 0])
+        agree = float((gen_tok == one["generated"]).float().mean())
+        if shape == (1, 4) and not (rel_c <= MESH_REL["bfloat16"] and first):
+            raise AssertionError(f"phase 16(c) {name}: prefill logits rel "
+                                 f"err {rel_c:.3e} (limit "
+                                 f"{MESH_REL['bfloat16']}), first tokens "
+                                 f"{gen_tok[:, 0].tolist()} vs one card "
+                                 f"{one['generated'][:, 0].tolist()}")
+        k5_mesh += sum(s["prefill"]["k5"] for s in sv)
+        bar = (f" (limit {MESH_REL['bfloat16']})" if shape == (1, 4)
+               else " (not held: capacity or F split apart from one card's)")
+        pre = sv[0]["prefill"]
+        dec = sv[0]["decode"][-1]
+        print(f"phase 16 {name}, {math.prod(shape)} ranks on the one card "
+              f"(gloo): (a) fp32 prefill and {n} decode steps vs one card "
+              f"rel Frobenius err max {max(rel_a):.3e} (limit "
+              f"{MESH_REL['float32']}), same argmax; (b) at capacity factor "
+              f"{low} vs the one-card path "
+              f"{'over each data block' if blocks else 'over the batch'}: "
+              f"{rel_b:.3e}, same argmax; (c) bf16 serve, batch "
+              f"{run_c['batch']}, prompt {run_c['prompt']}, gen "
+              f"{run_c['gen']}: prefill_ms per rank "
+              f"{[round(s['prefill_ms'], 3) for s in sv]} "
+              f"decode_ms_per_token {[round(s['decode_ms'], 3) for s in sv]}"
+              f"; prefill logits vs one card rel err {rel_c:.3e}{bar}"
+              f", first tokens {'equal' if first else 'differ'} "
+              f"({gen_tok[:, 0].tolist()}), {agree:.3f} of all tokens equal; "
+              f"K5 launches a prefill per rank "
+              f"{[s['prefill']['k5'] for s in sv]} (one a layer), none in "
+              f"decode; collectives a prefill {pre['calls']} "
+              f"({pre['bytes']} bytes, host ms {pre['host_ms']:.3f}), a "
+              f"decode step {dec['calls']} ({dec['bytes']} bytes, host ms "
+              f"{dec['host_ms']:.3f}); rank 0's weights "
+              f"{sv[0]['param_bytes'] / 1e9:.2f} GB, peak placing / serving "
+              f"per rank {[round(s['place_peak_gb'], 2) for s in sv]} / "
+              f"{[round(s['peak_gb'], 2) for s in sv]} GB; "
+              f"{wall:.1f} s with the ranks' start; card {card}")
+    return k5_mesh
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3781,6 +4291,9 @@ def main() -> int:
                      train12_launches=k5b_entry["launches"],
                      train15_launches=k5b_train15, mla_vit_whisper=k5b_vlm)
     torch.cuda.empty_cache()
+    mark("16, the mesh")
+    k5_mesh = drive_mesh(dev, card)
+    torch.cuda.empty_cache()
     mark("the kernels line")
 
     # ---- the kernels line: K1 over one request's 53 shapes ---------------
@@ -3848,9 +4361,10 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": src + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:86",
-         "launches": launches[2] + k5_train,
+         "launches": launches[2] + k5_train + k5_mesh,
          **{k: v for k, v in k5.items() if k != "library"},
          "main_path_launches": launches[2], "train_launches": k5_train,
+         "mesh_launches": k5_mesh,
          "serving": k5_serving, "qwen": k5_qwen, "paper": k5_paper,
          "mla_vlm": k5_vlm},
         {**k6_entry, "max_abs_err": k6_err},

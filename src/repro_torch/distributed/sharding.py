@@ -1,0 +1,217 @@
+"""Logical-axis -> mesh-axis sharding rules.
+
+The port of the JAX package's ``distributed/sharding.py``.  Params carry
+*logical* axis names (``models.transformer.PDef``); this module resolves
+them against a mesh with divisibility filtering, so the same rules work
+across all ten architectures (40 heads don't divide a 16-way model axis ->
+that dim falls back to replicated, while the flat H*Dh projection dim
+still shards).
+
+Rule sets:
+  TRAIN_RULES  : FSDP ("fsdp"->data) + TP ("tp"->model) + EP ("expert"->model)
+  TP_RULES     : pure tensor parallel (no FSDP)
+  SEQPAR_RULES : TRAIN_RULES + the residual stream sharded over model along
+                 the sequence
+  DECODE_RULES : weights 2-D resident, the residual stream sharded over data
+                 along the hidden dim
+
+A mesh is a ``torch.distributed.DeviceMesh`` over an initialised process
+group, or anything whose ``.shape`` is a ``{name: size}`` dict (the tests'
+fake meshes); ``mesh_shape`` reads either.  ``P`` stands in for JAX's
+``PartitionSpec``: a tuple of mesh-axis names, ``None`` or tuples of names,
+trimmed of trailing ``None``s, equal to ``tuple(jax P)`` of the same spec.
+
+The port runs a mesh as explicit SPMD: every rank holds its own block of
+each tensor and runs the model on it.  Where JAX's activation constraint
+steers GSPMD's layout, the local block already is the layout, so nothing
+is left of the callback but what the MoE FFN reads to take the
+expert-parallel path (``distributed.moe_ep``): ``make_act_sharder`` gives
+an ``ActSharder``, the mesh and the axes the batch was split over.
+``local_block`` cuts a rank's block of a tensor out of the whole by its
+spec.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_unflatten
+
+Pytree = Any
+
+TRAIN_RULES: Dict[str, Tuple[str, ...]] = {
+    "vocab": ("model",),
+    "fsdp": ("data",),
+    "tp": ("model",),
+    "expert": ("model",),
+    "layer": (),
+    "batch": ("pod", "data"),
+    "cache_batch": ("pod", "data"),
+    "cache_seq": ("model",),
+    "heads": ("model",),
+    "act_seq": (),            # sequence-parallel residual stream (off)
+}
+
+TP_RULES: Dict[str, Tuple[str, ...]] = dict(TRAIN_RULES, fsdp=())
+
+SEQPAR_RULES: Dict[str, Tuple[str, ...]] = dict(TRAIN_RULES,
+                                                act_seq=("model",))
+
+DECODE_RULES: Dict[str, Tuple[str, ...]] = dict(
+    TRAIN_RULES, batch=("pod",), cache_batch=("pod", "data"),
+    act_hidden=("data",),
+)
+
+
+class P(tuple):
+    """A partition spec: one entry a dim, a mesh-axis name, a tuple of
+    names (the dim split over their product, the first the major) or
+    ``None`` (replicated); trailing ``None``s are dropped."""
+
+    def __new__(cls, *parts):
+        parts = list(parts)
+        while parts and parts[-1] is None:
+            parts.pop()
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, P)
+
+
+def is_axes(x) -> bool:
+    """A logical-axes leaf: a tuple of names and ``None``s."""
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` or a fake mesh."""
+    if isinstance(mesh.shape, dict):
+        return dict(mesh.shape)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def mesh_size(mesh) -> int:
+    return math.prod(mesh_shape(mesh).values())
+
+
+def _fit_axes(dim: int, names: Sequence[str], mesh) -> Tuple[str, ...]:
+    """Longest prefix of mesh axes whose size product divides ``dim``."""
+    shape = mesh_shape(mesh)
+    out = []
+    prod = 1
+    for n in names:
+        if n not in shape:
+            continue
+        sz = shape[n]
+        if dim % (prod * sz) != 0:
+            break
+        out.append(n)
+        prod *= sz
+    return tuple(out)
+
+
+def spec_for(shape: Tuple[int, ...], axes: Tuple[Optional[str], ...],
+             rules: Dict[str, Tuple[str, ...]], mesh) -> P:
+    used: set = set()
+    parts = []
+    for dim, ax in zip(shape, axes):
+        if ax is None or ax not in rules:
+            parts.append(None)
+            continue
+        cand = tuple(a for a in rules[ax] if a not in used)
+        fit = _fit_axes(dim, cand, mesh)
+        used.update(fit)
+        if len(fit) == 0:
+            parts.append(None)
+        elif len(fit) == 1:
+            parts.append(fit[0])
+        else:
+            parts.append(fit)
+    return P(*parts)
+
+
+def param_spec_tree(shape_tree: Pytree, axes_tree: Pytree,
+                    rules: Dict[str, Tuple[str, ...]], mesh) -> Pytree:
+    """``shape_tree``'s structure with a ``P`` for each leaf (a tensor, a
+    meta tensor, anything with ``.shape``), resolved from the logical axes
+    at the same place in ``axes_tree``."""
+    flat_s = tree_leaves(shape_tree)
+    flat_a = tree_leaves(axes_tree, is_leaf=is_axes)
+    assert len(flat_s) == len(flat_a), (len(flat_s), len(flat_a))
+    specs = [spec_for(tuple(s.shape), a, rules, mesh)
+             for s, a in zip(flat_s, flat_a)]
+    return tree_unflatten(shape_tree, specs)
+
+
+def batch_axes(batch: int, rules, mesh) -> Tuple[str, ...]:
+    """The mesh axes a leading batch dim of ``batch`` splits over."""
+    shape = mesh_shape(mesh)
+    return _fit_axes(batch, [a for a in rules.get("batch", ()) if a in shape],
+                     mesh)
+
+
+def batch_spec(shape: Tuple[int, ...], rules, mesh) -> P:
+    """(B, ...) arrays: shard the leading batch dim."""
+    fit = batch_axes(shape[0], rules, mesh)
+    if not fit:
+        return P()
+    return P(fit if len(fit) > 1 else fit[0])
+
+
+@dataclass(frozen=True)
+class ActSharder:
+    """The port's activation sharding: under explicit SPMD a rank's
+    activations are its batch block already, so what is left of the JAX
+    package's callback is what the MoE FFN reads: the ``mesh`` and the
+    ``batch_axes`` the caller split the whole batch over (``batch_axes``
+    of it; () when every rank holds it whole).  JAX reads the latter from
+    the global array's shape, which a rank's block cannot tell: a block of
+    1 on a data axis of 2 may be a batch of 1 or the half of 2."""
+    mesh: Any
+    batch_axes: Tuple[str, ...] = ()
+
+
+def make_act_sharder(mesh, batch_axes: Sequence[str] = ()) -> ActSharder:
+    return ActSharder(mesh, tuple(batch_axes))
+
+
+def mesh_coords(mesh) -> Dict[str, int]:
+    """This rank's index along each axis of a ``DeviceMesh``."""
+    return {name: mesh.get_local_rank(name) for name in mesh.mesh_dim_names}
+
+
+def block_index(part, mesh, coords: Dict[str, int]) -> Tuple[int, int]:
+    """(index of the block, number of blocks) of a spec entry ``part``: a
+    name, or a tuple of names whose first is the major."""
+    shape = mesh_shape(mesh)
+    idx, n = 0, 1
+    for a in ((part,) if isinstance(part, str) else part):
+        idx = idx * shape[a] + coords[a]
+        n *= shape[a]
+    return idx, n
+
+
+def local_block(t: torch.Tensor, spec: P, mesh,
+                coords: Optional[Dict[str, int]] = None) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` under ``spec`` (a view);
+    ``coords`` the rank's index along each axis (default: the
+    ``DeviceMesh``'s own)."""
+    coords = mesh_coords(mesh) if coords is None else coords
+    for dim, part in enumerate(spec):
+        if part is None:
+            continue
+        i, n = block_index(part, mesh, coords)
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                             f"into {n} blocks ({spec})")
+        size = t.shape[dim] // n
+        t = t.narrow(dim, i * size, size)
+    return t

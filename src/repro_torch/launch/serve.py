@@ -7,50 +7,96 @@ Mamba-2 (``ssm``), RecurrentGemma (``hybrid``), dense (``dense``: Qwen,
 BERT-base, GPT-2 1.5B, MiniCPM3's MLA), MoE (``moe``), Whisper (``audio``)
 and vision-language (``vlm``: qwen2-vl, ViT-632M) families.
 Each phase's time is read from the host clock after
-``torch.cuda.synchronize()``, so it is the card's time for the phase, not
-the time to enqueue it.
+``torch.cuda.synchronize()`` (and, over a mesh, a barrier of every rank),
+so it is the card's time for the phase, not the time to enqueue it.
+
+``serve(..., mesh=mesh)`` serves over a mesh of ranks (``launch.mesh``):
+every rank calls it with the same arguments, draws the same whole batch,
+keeps its ``batch_spec`` block, holds its blocks of the expert weights
+(``transformer.place_params``, drawn leaf by leaf from the seed's
+generator: the one-card run's weights), prefills and decodes through the
+sharded steps, and gathers the greedy tokens of every block, so every
+rank returns the whole batch's.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import RequestStream
 from repro_torch.device import resolve
+from repro_torch.distributed import sharding as SH
 from repro_torch.launch import steps as ST
 from repro_torch.models import decode as DE
 from repro_torch.models import transformer as T
 
 
-def _sync(dev: torch.device) -> None:
+def _sync(dev: torch.device, mesh=None) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    if mesh is not None:
+        dist.barrier()
+
+
+def gather_batch(local: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The whole batch from each rank's block along ``axes`` (a CPU tensor;
+    the blocks in their order along the axes, the first rank of each),
+    gathered on the blocks' own device (NCCL gathers no CPU tensor)."""
+    if not axes:
+        return local.cpu()
+    local = local.contiguous()
+    parts = [torch.empty_like(local) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, local)
+    parts = [p.cpu() for p in parts]
+    names = mesh.mesh_dim_names
+    blocks = {}
+    for coord in itertools.product(*map(range, mesh.shape)):
+        rank = int(mesh.mesh[coord])
+        i, _ = SH.block_index(tuple(axes), mesh, dict(zip(names, coord)))
+        blocks.setdefault(i, parts[rank])
+    return torch.cat([blocks[i] for i in sorted(blocks)], dim=0)
 
 
 def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt: int = 64,
-          gen: int = 16, seed: int = 0, greedy: bool = True, device=None):
+          gen: int = 16, seed: int = 0, greedy: bool = True, device=None,
+          mesh=None, rules=None):
     """Random weights from ``seed``, ``batch`` prompts of ``prompt`` tokens
     from ``RequestStream``, then ``gen`` tokens each.  ``device=None``
     means the card (and raises without CUDA).  As in the JAX package, a
     Mamba-2 prompt longer than the config's ``ssm_chunk`` must be a
     multiple of it, a prompt within a sliding window that the
     generated tokens outgrow is refused (``_grow_cache``), and so is a
-    prompt shorter than a patch frontend's ``frontend_seq``.  Returns ``generated`` int32 (batch, gen), ``prefill_s`` and
-    ``decode_s_per_token``."""
+    prompt shorter than a patch frontend's ``frontend_seq``.  ``mesh``:
+    serve over it (every rank the same call; ``rules`` the sharding rules,
+    default ``TRAIN_RULES``).  Returns ``generated`` int32 (batch, gen),
+    ``prefill_s`` and ``decode_s_per_token``."""
     dev = resolve(device)
     cfg = get_arch(arch)
     if smoke:
         cfg = cfg.reduced()
-    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
-                           device=dev)
-    prefill_fn = ST.make_prefill_step(cfg)
-    decode_fn = ST.make_decode_step(cfg)
+    gen_w = torch.Generator(device=dev).manual_seed(seed)
     reqs = RequestStream(cfg, batch, prompt, seed).requests_at(0)
-    batch_in = {"tokens": torch.from_numpy(reqs["tokens"]).to(dev)}
+    tokens = torch.from_numpy(reqs["tokens"])
+    baxes = ()
+    if mesh is None:
+        params = T.init_params(cfg, gen_w, device=dev)
+    else:
+        rules = rules or SH.TRAIN_RULES
+        baxes = SH.batch_axes(batch, rules, mesh)
+        params = T.place_params(cfg, gen_w, mesh, batch_axes=baxes,
+                                device=dev)
+        tokens = SH.local_block(tokens, SH.batch_spec(tuple(tokens.shape),
+                                                      rules, mesh), mesh)
+        batch = tokens.shape[0]
+    prefill_fn = ST.make_prefill_step(cfg, mesh=mesh, batch_axes=baxes)
+    decode_fn = ST.make_decode_step(cfg, mesh=mesh, batch_axes=baxes)
+    batch_in = {"tokens": tokens.to(dev)}
     if cfg.frontend == "audio_frames":
         # the stub frontend, as the JAX package's: zero frame embeddings
         batch_in["encoder_frames"] = torch.zeros(
@@ -63,12 +109,12 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt: int = 64,
             (batch, cfg.frontend_seq, cfg.d_model),
             dtype=getattr(torch, cfg.dtype), device=dev)
 
-    _sync(dev)
+    _sync(dev, mesh)
     t0 = time.perf_counter()
     logits, cache = prefill_fn(params, batch_in)
     # grow the cache to prompt+gen capacity for attention layers
     cache = _grow_cache(cfg, cache, batch, prompt + gen)
-    _sync(dev)
+    _sync(dev, mesh)
     t_prefill = time.perf_counter() - t0
 
     tokens = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
@@ -79,10 +125,13 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt: int = 64,
         tokens = (torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
                   if greedy else tokens)
         out.append(tokens)
-    _sync(dev)
+    _sync(dev, mesh)
     t_decode = time.perf_counter() - t0
+    generated = torch.cat(out, dim=1)
+    if mesh is not None:
+        generated = gather_batch(generated, mesh, baxes)
     return {
-        "generated": torch.cat(out, dim=1).cpu().numpy(),
+        "generated": generated.cpu().numpy(),
         "prefill_s": t_prefill,
         "decode_s_per_token": t_decode / max(gen - 1, 1),
     }

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -104,6 +105,50 @@ def cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> Pytree:
         "rem": [layer_cache_def(cfg, cfg.block_pattern[j % period], batch, seq)
                 for j in range(rem)],
         "pos": _meta((), torch.int32),
+    }
+
+
+def layer_cache_axes(cfg: ModelConfig, kind: str, batch: int,
+                     seq: int) -> Dict[str, tuple]:
+    """Logical sharding axes mirroring ``layer_cache_def`` leaf for leaf."""
+    out: Dict[str, tuple] = {}
+    if kind == "attn":
+        if cfg.attention == "mla":
+            out["lat"] = ("cache_batch", "cache_seq", None)
+            out["kr"] = ("cache_batch", "cache_seq", None)
+        elif _use_ring(cfg, seq):
+            out["k"] = ("cache_batch", "cache_seq", None, None)  # ring W/model
+            out["v"] = ("cache_batch", "cache_seq", None, None)
+            out["kpos"] = (None,)
+        else:
+            out["k"] = ("cache_batch", "cache_seq", None, None)
+            out["v"] = ("cache_batch", "cache_seq", None, None)
+    elif kind == "rglru":
+        out["h"] = ("cache_batch", None)
+        out["conv"] = ("cache_batch", None, None)
+    elif kind == "ssd":
+        out["h"] = ("cache_batch", "heads", None, None)
+        out["conv"] = ("cache_batch", None, None)
+    if cfg.cross_attention:
+        out["xk"] = ("cache_batch", "cache_seq", None, None)
+        out["xv"] = ("cache_batch", "cache_seq", None, None)
+    return out
+
+
+def cache_logical_axes(cfg: ModelConfig, batch: int, seq: int) -> Pytree:
+    """The cache tree's logical axes (a tuple a leaf; walk with
+    ``is_leaf=sharding.is_axes``)."""
+    period = len(cfg.block_pattern)
+    groups, rem = divmod(cfg.num_layers, period)
+    group_tree = {f"b{j}_{kind}": layer_cache_axes(cfg, kind, batch, seq)
+                  for j, kind in enumerate(cfg.block_pattern)}
+    stacked = T.tree_map(lambda ax: ("layer",) + ax, group_tree,
+                         is_leaf=SH.is_axes) if groups else {}
+    return {
+        "blocks": stacked,
+        "rem": [layer_cache_axes(cfg, cfg.block_pattern[j % period], batch,
+                                 seq) for j in range(rem)],
+        "pos": (None,),   # scalar; zip-trimmed to P()
     }
 
 
@@ -285,13 +330,14 @@ def block_step(cfg: ModelConfig, kind: str, p, x, cache, pos, ctx):
 # decode step (one new token for the whole batch)
 # ---------------------------------------------------------------------------
 
-def decode_step(cfg: ModelConfig, params, cache, tokens
-                ) -> Tuple[torch.Tensor, Pytree]:
+def decode_step(cfg: ModelConfig, params, cache, tokens, *,
+                shard=None) -> Tuple[torch.Tensor, Pytree]:
     """tokens (B, 1) at position cache['pos'] -> (logits (B,1,V), cache).
 
     The cache is updated in place (the JAX package returns a new tree):
     every layer's state, conv tail and K/V row, and ``pos``, which advances
-    by one.  The returned cache is the one passed in."""
+    by one.  The returned cache is the one passed in.  ``shard``: a
+    mesh's ``sharding.ActSharder``, as ``T.forward`` takes it."""
     pos = cache["pos"]
     B = tokens.shape[0]
     x = T.embed_tokens(cfg, params, tokens)
@@ -300,6 +346,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens
         at = pos.reshape(1).clamp(max=cfg.max_position - 1).long()
         x = x + params["pos_embed"].index_select(0, at).to(x.dtype)[None]
     ctx = T.rope_ctx(cfg, T.default_positions(cfg, pos.expand(B, 1)))
+    ctx.shard = shard
     pattern = cfg.block_pattern
     blocks = params["blocks"]
     for g in range(T.num_groups(blocks)):
@@ -374,20 +421,23 @@ def block_prefill(cfg: ModelConfig, kind: str, p, x, ctx: T.Ctx):
 
 
 def prefill(cfg: ModelConfig, params, tokens, *, encoder_frames=None,
-            frontend_embeds=None):
+            frontend_embeds=None, shard=None):
     """Run the prompt, returning (logits_last (B,1,V), cache).  With
     ``encoder_frames`` the encoder runs first and each block's ``xk``/``xv``
     hold its K/V; without them they stay zero and decode's cross-attention
     adds nothing, as the JAX package's cache, which then has no such
     leaves, gives it.  ``frontend_embeds`` (B, F, D), the patch embeddings,
     replace the prompt's first F positions (``T.splice_frontend``); the
-    rotary positions are 0..S-1, on all three channels for M-RoPE."""
+    rotary positions are 0..S-1, on all three channels for M-RoPE.
+    ``shard``: a mesh's ``sharding.ActSharder``, as ``T.forward`` takes
+    it."""
     B, S = tokens.shape
     x = T.splice_frontend(cfg, params, T.embed_tokens(cfg, params, tokens),
                           frontend_embeds)
     x = T.add_positions(cfg, params, x)
     ctx = T.rope_ctx(cfg, T.default_positions(
         cfg, torch.arange(S, device=tokens.device)[None].expand(B, S)))
+    ctx.shard = shard
     ctx = T.encoder_ctx(cfg, params, ctx, encoder_frames, x.dtype)
     pattern = cfg.block_pattern
     cache = init_cache(cfg, B, S, device=tokens.device)

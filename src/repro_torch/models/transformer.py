@@ -16,11 +16,16 @@ stacked ``(groups, ...)`` under ``blocks["b{j}_{kind}"]``, pattern
 remainders are a list under ``rem``, so
 ``repro_torch.convert.params_from_jax`` carries a JAX tree across leaf for
 leaf.  A Python loop over the stacked groups takes the place of
-``lax.scan``; ``remat``, ``scan_layers`` and activation sharding have no
-counterpart on one card, and neither has the MoE FFN's expert-parallel
-path (``moe_ep``, a mesh): the port always takes the JAX package's gather
-path.  Whisper's ``audio_frames`` and the ``vision_patches`` frontends are
-stubs in both packages: the caller hands ``forward`` the frame or patch
+``lax.scan``; ``remat`` and ``scan_layers`` have no counterpart.  Over a
+mesh of ranks (``launch.mesh``) every rank runs the model on its own batch
+block, which already is the layout the JAX package's activation
+constraints ask for; ``shard`` (``forward``'s keyword, carried on ``Ctx``
+as in the JAX package; a ``sharding.ActSharder``) gives the MoE FFN the
+mesh and the batch's axes: with a ``model`` axis larger than 1 it takes
+the JAX package's expert-parallel path (``distributed.moe_ep``; the rank
+holds its experts' blocks, ``place_params``), else the gather path.
+Whisper's ``audio_frames`` and the ``vision_patches`` frontends are stubs
+in both packages: the caller hands ``forward`` the frame or patch
 embeddings.  ``softmax_xent`` is the training loss.  ``forward``
 differentiates everywhere: on the card the attention blocks' gradient
 (GQA, MLA at its (96, 64) head dims, the ViT's 80, Whisper's encoder and
@@ -32,13 +37,15 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.distributed import moe_ep
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -237,6 +244,41 @@ def _dtype(pd: PDef, cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def _draw(pd: PDef, cfg: ModelConfig, generator: torch.Generator,
+          dev: torch.device, cut: Optional[Callable] = None) -> torch.Tensor:
+    """One leaf as ``init_params`` draws it from ``generator``; ``cut``
+    takes a block of the fp32 draw (a view) before it is cast and copied
+    to ``dev``."""
+    dtype = _dtype(pd, cfg)
+    gdev = generator.device
+
+    def uniform(shape, lo, hi):
+        return torch.empty(shape, device=gdev).uniform_(lo, hi,
+                                                        generator=generator)
+
+    if pd.init == "zeros":
+        return torch.zeros(pd.shape, dtype=dtype, device=dev)
+    if pd.init == "ones":
+        return torch.ones(pd.shape, dtype=dtype, device=dev)
+    if pd.init == "lru":
+        # a in (0.9, 0.999): softplus(lam) = -ln(a) / 8
+        t = torch.log(torch.expm1(-torch.log(uniform(pd.shape, 0.9, 0.999))
+                                  / 8.0))
+    elif pd.init == "ssm_a":
+        t = torch.log(uniform(pd.shape, 1.0, 16.0))
+    elif pd.init == "dtbias":
+        t = torch.log(torch.expm1(uniform(pd.shape, 1e-3, 0.1)))  # inv-softplus
+    else:
+        # scaled in place: one fp32 copy of a leaf at a time (an MoE
+        # layer group's experts are billions of elements)
+        t = torch.randn(pd.shape, generator=generator,
+                        device=gdev).mul_(pd.scale)
+    if cut is None:
+        return t.to(dev, dtype)
+    block = cut(t)
+    return torch.empty(block.shape, dtype=dtype, device=dev).copy_(block)
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Pytree:
     """Random parameters with the JAX package's initialisers, drawn from
@@ -244,34 +286,60 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     card).  The numbers differ from ``jax.random``'s; tests carry JAX
     trees across with ``params_from_jax`` instead."""
     dev = resolve(device)
-    gdev = generator.device
+    return tree_map(lambda pd: _draw(pd, cfg, generator, dev),
+                    param_defs(cfg))
 
-    def uniform(shape, lo, hi):
-        return torch.empty(shape, device=gdev).uniform_(lo, hi,
-                                                        generator=generator)
 
-    def mk(pd: PDef):
-        dtype = _dtype(pd, cfg)
-        if pd.init == "zeros":
-            return torch.zeros(pd.shape, dtype=dtype, device=dev)
-        if pd.init == "ones":
-            return torch.ones(pd.shape, dtype=dtype, device=dev)
-        if pd.init == "lru":
-            # a in (0.9, 0.999): softplus(lam) = -ln(a) / 8
-            t = torch.log(torch.expm1(-torch.log(uniform(pd.shape, 0.9, 0.999))
-                                      / 8.0))
-        elif pd.init == "ssm_a":
-            t = torch.log(uniform(pd.shape, 1.0, 16.0))
-        elif pd.init == "dtbias":
-            t = torch.log(torch.expm1(uniform(pd.shape, 1e-3, 0.1)))  # inv-softplus
-        else:
-            # scaled in place: one fp32 copy of a leaf at a time (an MoE
-            # layer group's experts are billions of elements)
-            t = torch.randn(pd.shape, generator=generator,
-                            device=gdev).mul_(pd.scale)
-        return t.to(dev, dtype)
+def expert_spec(pd: PDef, layout: Optional[str]) -> SH.P:
+    """The block of a leaf that a rank holds under the MoE ``layout``
+    (``moe_ep.moe_layout``): the expert leaves split on their expert dim
+    over ``model`` (``moe_ffn_ep``'s in_specs), for ``ep_resident`` also on
+    the expert width over ``data``; every other leaf whole."""
+    if layout is None or "expert" not in pd.axes:
+        return SH.P()
+    e = pd.axes.index("expert")
+    parts = [None] * len(pd.axes)
+    parts[e] = "model"
+    if layout == "ep_resident":
+        parts[pd.axes.index(None, e + 1)] = "data"    # F: w1/w3 last, w2 -2
+    return SH.P(*parts)
 
-    return tree_map(mk, param_defs(cfg))
+
+def place_params(cfg: ModelConfig, source, mesh, *,
+                 batch_axes: Tuple[str, ...], device=None) -> Pytree:
+    """This rank's parameters on ``mesh``, the counterpart of the JAX
+    package's ``jit(init_params, out_shardings=...)``: the rank's block of
+    each expert leaf (``expert_spec`` of the layout that ``ffn_forward``
+    takes for a batch split over ``batch_axes``: the steps must be given
+    the same, or the MoE FFN refuses the blocks), every other leaf whole,
+    on ``device`` (None: the card).  ``source`` is a whole tree (on the
+    CPU or the card), or a ``torch.Generator`` drawn from leaf by leaf
+    exactly as ``init_params`` draws, each expert block cut from its fp32
+    draw, so the rank never holds more than one whole leaf."""
+    dev = resolve(device)
+    layout = moe_ep.moe_layout(cfg, mesh, batch_axes)
+    coords = SH.mesh_coords(mesh) if layout else None
+
+    def cutter(pd):
+        spec = expert_spec(pd, layout)
+        if not spec:
+            return None
+        return lambda t: SH.local_block(t, spec, mesh, coords)
+
+    defs = param_defs(cfg)
+    if isinstance(source, torch.Generator):
+        return tree_map(lambda pd: _draw(pd, cfg, source, dev, cutter(pd)),
+                        defs)
+
+    def keep(pd, t):
+        cut = cutter(pd)
+        if cut is None:
+            return t.to(dev)
+        block = cut(t)
+        return torch.empty(block.shape, dtype=t.dtype,
+                           device=dev).copy_(block)
+
+    return tree_map(keep, defs, source)
 
 
 def param_shapes(cfg: ModelConfig) -> Pytree:
@@ -279,6 +347,12 @@ def param_shapes(cfg: ModelConfig) -> Pytree:
     (no storage), the counterpart of the JAX package's ShapeDtypeStructs."""
     return tree_map(lambda pd: torch.empty(pd.shape, dtype=_dtype(pd, cfg),
                                            device="meta"), param_defs(cfg))
+
+
+def param_logical_axes(cfg: ModelConfig) -> Pytree:
+    """The logical axis names of every parameter (a tuple a leaf; walk
+    with ``is_leaf=sharding.is_axes``)."""
+    return tree_map(lambda pd: pd.axes, param_defs(cfg))
 
 
 def count_params(cfg: ModelConfig) -> int:
@@ -292,14 +366,17 @@ def count_params(cfg: ModelConfig) -> int:
 @dataclass
 class Ctx:
     """Per-call context shared across layers: the RoPE (or M-RoPE) angles
-    (B, S, half), MLA's over its rope dims (``cos_r``, ``sin_r``), and the
-    encoder's output (B, encoder_seq, D) that cross-attention reads."""
+    (B, S, half), MLA's over its rope dims (``cos_r``, ``sin_r``), the
+    encoder's output (B, encoder_seq, D) that cross-attention reads, and
+    over a mesh ``shard``, its mesh and batch axes
+    (``sharding.make_act_sharder``)."""
     cfg: ModelConfig
     cos: Optional[torch.Tensor] = None
     sin: Optional[torch.Tensor] = None
     cos_r: Optional[torch.Tensor] = None
     sin_r: Optional[torch.Tensor] = None
     enc_out: Optional[torch.Tensor] = None
+    shard: Optional[SH.ActSharder] = None
 
 
 def _proj(x, w, b=None):
@@ -394,13 +471,27 @@ def mla_forward(cfg: ModelConfig, p, x, ctx: Ctx):
 # --- FFN -------------------------------------------------------------------------
 
 def ffn_forward(cfg: ModelConfig, p, x, ctx: Ctx):
-    """The dense gated MLP, or the top-k MoE FFN over the flattened tokens
-    (the JAX package's gather path), in token blocks of
+    """The dense gated MLP, or the top-k MoE FFN: over a mesh whose
+    ``model`` axis is larger than 1 the expert-parallel path (``moe_ep``,
+    under the JAX package's conditions: ``moe_ep.moe_layout``), else over
+    the flattened tokens (the gather path), in token blocks of
     ``moe_block_tokens`` (halved until it divides B*S) past twice that
     many tokens."""
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     if cfg.num_experts:
         B, S, D = h.shape
+        sh = ctx.shard
+        layout = (moe_ep.moe_layout(cfg, sh.mesh, sh.batch_axes)
+                  if sh is not None else None)
+        if layout is not None:
+            fn = (moe_ep.moe_ffn_ep_resident if layout == "ep_resident"
+                  else moe_ep.moe_ffn_ep)
+            y, _ = fn(h, p["wg"], p["w1"], p["w3"], p["w2"],
+                      num_experts=cfg.num_experts,
+                      d_ff=cfg.moe_d_ff or cfg.d_ff, k=cfg.experts_per_token,
+                      capacity_factor=cfg.moe_capacity_factor, act=cfg.act,
+                      mesh=sh.mesh, batch_axes=sh.batch_axes)
+            return x + y
         bt = 0
         if cfg.moe_block_tokens and B * S > 2 * cfg.moe_block_tokens:
             bt = cfg.moe_block_tokens
@@ -513,13 +604,13 @@ def run_decoder_blocks(cfg: ModelConfig, params, x, ctx: Ctx):
     return x
 
 
-def encode(cfg: ModelConfig, params, frames):
+def encode(cfg: ModelConfig, params, frames, shard=None):
     """Whisper-style bidirectional encoder over precomputed frame
     embeddings (B, S_enc, D): each block non-causal attention (K5 on the
     card) and the FFN, then the final norm."""
     enc = params["encoder"]
     x = frames + enc["pos_embed"][None, : frames.shape[1]].to(frames.dtype)
-    ctx = Ctx(cfg=cfg)
+    ctx = Ctx(cfg=cfg, shard=shard)
     Dh = cfg.resolved_head_dim
     blocks = enc["blocks"]
     for g in range(num_groups(blocks)):
@@ -618,19 +709,20 @@ def encoder_ctx(cfg: ModelConfig, params, ctx: Ctx, encoder_frames, dtype):
     if encoder_frames is not None and (cfg.encoder_layers
                                        or cfg.cross_attention):
         frames = encoder_frames.to(dtype)
-        ctx.enc_out = (encode(cfg, params, frames) if cfg.encoder_layers
-                       else frames)
+        ctx.enc_out = (encode(cfg, params, frames, ctx.shard)
+                       if cfg.encoder_layers else frames)
     return ctx
 
 
 def forward(cfg: ModelConfig, params, tokens, *, positions=None,
-            frontend_embeds=None, encoder_frames=None) -> torch.Tensor:
+            frontend_embeds=None, encoder_frames=None,
+            shard=None) -> torch.Tensor:
     """Full forward over a token block -> logits (B, S, padded vocab).
     ``positions``: the rotary positions, (B, S), or (B, S, 3) t/h/w for
     M-RoPE (None: 0..S-1 on every channel); ``frontend_embeds`` (B, F, D)
     the patch embeddings that replace the first F positions;
     ``encoder_frames`` (B, encoder_seq, D) feed the encoder and
-    cross-attention."""
+    cross-attention; ``shard`` a mesh's ``sharding.ActSharder``."""
     B, S = tokens.shape
     x = splice_frontend(cfg, params, embed_tokens(cfg, params, tokens),
                         frontend_embeds)
@@ -638,8 +730,9 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
     if positions is None:
         positions = default_positions(
             cfg, torch.arange(S, device=tokens.device)[None].expand(B, S))
-    ctx = encoder_ctx(cfg, params, rope_ctx(cfg, positions), encoder_frames,
-                      x.dtype)
+    ctx = rope_ctx(cfg, positions)
+    ctx.shard = shard
+    ctx = encoder_ctx(cfg, params, ctx, encoder_frames, x.dtype)
     x = run_decoder_blocks(cfg, params, x, ctx)
     return unembed(cfg, params, x)
 

@@ -34,6 +34,15 @@ def init(params: Pytree) -> AdamWState:
                       mu=zeros, nu=tree_map(torch.clone, zeros))
 
 
+def state_shapes(param_shapes: Pytree) -> AdamWState:
+    """The state's shapes and dtypes as ``meta`` tensors (no storage), the
+    counterpart of the JAX package's ShapeDtypeStructs."""
+    meta = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      mu=tree_map(meta, param_shapes),
+                      nu=tree_map(meta, param_shapes))
+
+
 def cosine_schedule(lr: float, warmup: int, total: int
                     ) -> Callable[[torch.Tensor], torch.Tensor]:
     def sched(step):

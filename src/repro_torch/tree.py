@@ -13,24 +13,30 @@ def _rebuild(node, children):
     return type(node)(children)
 
 
-def tree_map(fn, tree, *rest):
+def tree_map(fn, tree, *rest, is_leaf=None):
     """``jax.tree.map``: ``rest`` are trees of ``tree``'s structure, whose
-    leaves are passed to ``fn`` beside ``tree``'s."""
+    leaves are passed to ``fn`` beside ``tree``'s.  ``is_leaf(node)`` true
+    stops the walk at ``node`` (a logical-axes tuple, a partition spec)."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return _rebuild(tree, [tree_map(fn, v, *(r[i] for r in rest))
+        return _rebuild(tree, [tree_map(fn, v, *(r[i] for r in rest),
+                                        is_leaf=is_leaf)
                                for i, v in enumerate(tree)])
     return fn(tree, *rest)
 
 
-def tree_leaves(tree):
+def tree_leaves(tree, is_leaf=None):
     """The leaves in ``jax.tree.leaves``'s order: dict keys sorted."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k], is_leaf)]
     if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
+        return [x for v in tree for x in tree_leaves(v, is_leaf)]
     return [tree]
 
 

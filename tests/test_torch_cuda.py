@@ -1813,3 +1813,41 @@ def test_mla_and_vlm_prefill_on_the_card_matches_the_cpu(cuda, arch):
     wl, _ = DE.decode_step(cfg, params, _grow_cache(cfg, want_cache, 2, 41),
                            nxt)
     torch.testing.assert_close(dl.cpu(), wl, rtol=1e-4, atol=1e-4)
+
+
+# ---- expert-parallel MoE over ranks sharing the card --------------------------
+
+def test_moe_ffn_ep_over_two_ranks_on_the_card_is_the_gather_path(cuda,
+                                                                   tmp_path):
+    """A 2-rank gloo (1, 2) mesh on the card (the ranks share it; gloo
+    carries CUDA tensors) runs ``moe_ffn_ep`` at a reduced width, each rank
+    4 of 8 experts: within 1e-5 (fp32, TF32 off) of the gather path
+    (``layers.moe_ffn``) on the card, at a capacity factor where nothing
+    drops and at 1.25, where both drop the same assignments."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import layers as L
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from torch_mesh_ranks import EP_CAPACITY, ep_card_rank
+    rng = np.random.default_rng(0)
+    f = lambda *s, std=1.0: (rng.standard_normal(s) * std).astype(np.float32)
+    B, S, D, E, F_, K = 2, 64, 128, 8, 64, 2
+    inputs = {"x": f(B, S, D), "wg": f(D, E, std=0.3),
+              "w1": f(E, D, F_, std=0.1), "w3": f(E, D, F_, std=0.1),
+              "w2": f(E, F_, D, std=0.1), "k": np.int32(K)}
+    np.savez(tmp_path / "inputs.npz", **inputs)
+    (tmp_path / "ranks").mkdir()
+    M.run_ranks(ep_card_rank, 2, str(tmp_path / "inputs.npz"),
+                str(tmp_path / "ranks"), timeout_s=300)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in inputs.items()
+         if k != "k"}
+    for cf in EP_CAPACITY:
+        want, aux = L.moe_ffn(t["x"].reshape(B * S, D), t["wg"], t["w1"],
+                              t["w3"], t["w2"], num_experts=E, k=K,
+                              capacity_factor=cf)
+        for r in range(2):
+            got = np.load(tmp_path / "ranks" / f"rank{r}.npz")
+            np.testing.assert_allclose(got[f"ep_{cf}"].reshape(B * S, D),
+                                       want.cpu().numpy(), rtol=1e-5,
+                                       atol=1e-5)
+            np.testing.assert_allclose(got[f"ep_{cf}_aux"], aux.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-5)

@@ -1,0 +1,359 @@
+"""The port's sharding rules, logical axes and shape trees against the JAX
+package's, on the CPU.
+
+For every architecture of ``ARCHS`` (full widths), all four rule sets and
+the fake meshes below, ``spec_for`` through ``param_spec_tree`` must give
+the JAX package's partition specs leaf for leaf (compared as tuples), and
+so must ``batch_spec`` and the cache's spec tree; ``param_logical_axes``,
+``cache_logical_axes``, ``adamw.state_shapes`` and ``specs.input_specs``
+must give its axes, shapes and dtypes.  ``shardings_for`` is held to JAX's
+on its one-device local mesh.  Nothing here needs a process group: a fake
+mesh is a ``{name: size}`` dict, as ``tests/test_distributed.py`` fakes
+one.  Mesh entry points without a group raise.
+"""
+import math
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as JP
+
+from repro.configs import SHAPES, get_arch as jget_arch
+from repro.distributed import sharding as JSH
+from repro.launch import specs as JSP
+from repro.launch import steps as JST
+from repro.launch.mesh import make_local_mesh as jlocal_mesh
+from repro.models import decode as JDE
+from repro.models import transformer as JT
+from repro.optim import adamw as JA
+from repro_torch.configs import ARCHS, get_arch
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch import mesh as M
+from repro_torch.launch import specs as SP
+from repro_torch.launch import steps as ST
+from repro_torch.models import decode as DE
+from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
+
+
+class _FakeMesh:
+    """Just enough of a mesh for the spec functions (both packages)."""
+
+    def __init__(self, shape):
+        self.shape = shape
+        self.size = int(np.prod(list(shape.values())))
+
+
+MESHES = {
+    "16x16": {"data": 16, "model": 16},
+    "2x16x16": {"pod": 2, "data": 16, "model": 16},
+    "2x4": {"data": 2, "model": 4},
+    "1x4": {"data": 1, "model": 4},
+    "2x2": {"data": 2, "model": 2},
+    "1x1": {"data": 1, "model": 1},
+}
+RULES = {"train": "TRAIN_RULES", "tp": "TP_RULES", "seqpar": "SEQPAR_RULES",
+         "decode": "DECODE_RULES"}
+DECODE_SHAPES = [s for s in SHAPES if s.kind == "decode"]
+
+
+def _walk(tree, path):
+    for k in path:
+        if hasattr(k, "key"):
+            tree = tree[k.key]
+        elif hasattr(k, "idx"):
+            tree = tree[k.idx]
+        else:
+            tree = getattr(tree, k.name)
+    return tree
+
+
+def _specs_equal(jspecs, specs):
+    """Every JAX spec leaf equals the port's at the same path."""
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        jspecs, is_leaf=lambda x: isinstance(x, JP))
+    assert flat
+    for path, jsp in flat:
+        got = _walk(specs, path)
+        assert isinstance(got, SH.P), (path, got)
+        assert tuple(got) == tuple(jsp), (path, got, jsp)
+    assert len(T.tree_leaves(specs, is_leaf=SH.is_spec)) == len(flat)
+
+
+def _shapes_equal(jshapes, shapes):
+    flat, _ = jax.tree_util.tree_flatten_with_path(jshapes)
+    for path, s in flat:
+        t = _walk(shapes, path)
+        assert tuple(t.shape) == tuple(s.shape) and t.device.type == "meta"
+        assert str(t.dtype).split(".")[1] == str(s.dtype), path
+    assert len(T.tree_leaves(shapes)) == len(flat)
+
+
+def test_rule_sets_are_jax_s():
+    for name in RULES.values():
+        assert getattr(SH, name) == getattr(JSH, name)
+
+
+# ---- tests/test_distributed.py:28 and :39, on the port -----------------------
+
+def test_spec_divisibility_filtering():
+    mesh = _FakeMesh({"data": 16, "model": 16})
+    # 40 heads * 96 = 3840 divides 16 -> shard; 40 alone does not
+    sp = SH.spec_for((2560, 3840), ("fsdp", "tp"), SH.TRAIN_RULES, mesh)
+    assert sp == SH.P("data", "model") == ("data", "model")
+    sp = SH.spec_for((40, 96), ("tp", None), SH.TRAIN_RULES, mesh)
+    assert sp == SH.P() == ()                # 40 % 16 != 0 -> replicated
+    sp = SH.spec_for((256, 4096), ("batch", None), SH.TRAIN_RULES, mesh)
+    assert sp == SH.P("data")
+    mesh = _FakeMesh({"pod": 2, "data": 16, "model": 16})
+    sp = SH.spec_for((256, 4096), ("batch", None), SH.TRAIN_RULES, mesh)
+    assert sp == SH.P(("pod", "data"))
+
+
+def test_spec_no_axis_reuse():
+    mesh = _FakeMesh({"data": 4, "model": 4})
+    sp = SH.spec_for((64, 64, 64), ("tp", "tp", "fsdp"), SH.TRAIN_RULES, mesh)
+    flat = [a for part in sp if part for a in
+            (part if isinstance(part, tuple) else (part,))]
+    assert len(flat) == len(set(flat))   # each mesh axis used at most once
+    assert sp == JSH.spec_for((64, 64, 64), ("tp", "tp", "fsdp"),
+                              JSH.TRAIN_RULES, mesh)
+
+
+def test_partition_spec_trims_trailing_nones():
+    assert SH.P("model", None, None) == ("model",) == tuple(JP("model"))
+    assert SH.P(None, "model", None, "data") == (None, "model", None, "data")
+    assert SH.P(None, None) == ()
+
+
+# ---- every arch, rule set and mesh -------------------------------------------
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_param_specs_match_jax(arch):
+    cfg, jcfg = get_arch(arch), jget_arch(arch)
+    shapes, jshapes = T.param_shapes(cfg), JT.param_shapes(jcfg)
+    axes = T.param_logical_axes(cfg)
+    jaxes = JT.param_logical_axes(jcfg)
+    _shapes_equal(jshapes, shapes)
+    flat, _ = jax.tree_util.tree_flatten_with_path(jaxes, is_leaf=SH.is_axes)
+    for path, ax in flat:
+        assert _walk(axes, path) == ax, path
+    for mname, mshape in MESHES.items():
+        mesh = _FakeMesh(mshape)
+        for rname in RULES.values():
+            rules, jrules = getattr(SH, rname), getattr(JSH, rname)
+            _specs_equal(JSH.param_spec_tree(jshapes, jaxes, jrules, mesh),
+                         SH.param_spec_tree(shapes, axes, rules, mesh))
+            for B in (1, 4, 6, 256):
+                assert (SH.batch_spec((B, 4096), rules, mesh)
+                        == tuple(JSH.batch_spec((B, 4096), jrules, mesh))), \
+                    (mname, rname, B)
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_cache_axes_and_specs_match_jax(arch):
+    cfg, jcfg = get_arch(arch), jget_arch(arch)
+    for shape in DECODE_SHAPES + [SHAPES[0]]:
+        B, S = shape.global_batch, shape.seq_len
+        cshapes, jcshapes = (DE.cache_shapes(cfg, B, S),
+                             JDE.cache_shapes(jcfg, B, S))
+        _shapes_equal(jcshapes, cshapes)
+        caxes, jcaxes = (DE.cache_logical_axes(cfg, B, S),
+                         JDE.cache_logical_axes(jcfg, B, S))
+        flat, _ = jax.tree_util.tree_flatten_with_path(jcaxes,
+                                                       is_leaf=SH.is_axes)
+        for path, ax in flat:
+            assert _walk(caxes, path) == ax, path
+        for mshape in MESHES.values():
+            mesh = _FakeMesh(mshape)
+            for rname in RULES.values():
+                _specs_equal(
+                    JSH.param_spec_tree(jcshapes, jcaxes,
+                                        getattr(JSH, rname), mesh),
+                    SH.param_spec_tree(cshapes, caxes, getattr(SH, rname),
+                                       mesh))
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_state_and_input_shapes_match_jax(arch):
+    cfg, jcfg = get_arch(arch), jget_arch(arch)
+    st = adamw.state_shapes(T.param_shapes(cfg))
+    jst = JA.state_shapes(JT.param_shapes(jcfg))
+    _shapes_equal(jst, st)
+    assert st.step.dtype == torch.int32 and st.step.shape == ()
+    for shape in SHAPES:
+        got, want = SP.input_specs(cfg, shape), JSP.input_specs(jcfg, shape)
+        assert list(got) == list(want)
+        _shapes_equal(want, got)
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_shardings_for_match_jax_on_a_one_device_mesh(arch):
+    cfg, jcfg = get_arch(arch), jget_arch(arch)
+    jmesh = jlocal_mesh()
+    mesh = _FakeMesh(dict(jmesh.shape))
+    ns = lambda t: jax.tree.map(lambda s: s.spec, t)
+    for shape in SHAPES:
+        want = JST.shardings_for(jcfg, jmesh, shape, with_opt=True)
+        got = ST.shardings_for(cfg, mesh, shape, with_opt=True)
+        assert sorted(got) == sorted(want)
+        _specs_equal(ns(want["params"]), got["params"])
+        _specs_equal(ns(want["batch"]), got["batch"])
+        _specs_equal(ns(want["opt"]), got["opt"])
+        _shapes_equal(want["param_shapes"], got["param_shapes"])
+        _shapes_equal(want["batch_shapes"], got["batch_shapes"])
+        _shapes_equal(want["opt_shapes"], got["opt_shapes"])
+        if shape.kind == "decode":
+            _specs_equal(ns(want["cache"]), got["cache"])
+            _shapes_equal(want["cache_shapes"], got["cache_shapes"])
+
+
+def test_make_batch_matches_input_specs_and_its_generator():
+    cfg = get_arch("whisper-medium").reduced()
+    shape = SHAPES[0].__class__("t", "train", 16, 2)
+    b1 = SP.make_batch(cfg, shape, torch.Generator().manual_seed(3), "cpu")
+    b2 = SP.make_batch(cfg, shape, torch.Generator().manual_seed(3), "cpu")
+    specs = SP.input_specs(cfg, shape)
+    assert list(b1) == list(specs) == ["tokens", "labels", "encoder_frames"]
+    for k, s in specs.items():
+        assert b1[k].shape == s.shape and b1[k].dtype == s.dtype
+        assert torch.equal(b1[k], b2[k])
+    assert 0 <= int(b1["tokens"].min()) and int(b1["tokens"].max()) < 512
+
+
+# ---- blocks of a tensor -------------------------------------------------------
+
+def test_local_block_takes_the_rank_s_block():
+    mesh = _FakeMesh({"pod": 2, "data": 2, "model": 2})
+    t = torch.arange(8 * 6).reshape(8, 6)
+    blocks = {}
+    for pod in range(2):
+        for data in range(2):
+            for model in range(2):
+                c = {"pod": pod, "data": data, "model": model}
+                blocks[(pod, data, model)] = SH.local_block(
+                    t, SH.P(("pod", "data"), "model"), mesh, c)
+    # ("pod", "data") splits rows 4 ways with pod the major; model cols 2
+    assert torch.equal(blocks[(0, 0, 0)], t[0:2, 0:3])
+    assert torch.equal(blocks[(0, 1, 1)], t[2:4, 3:6])
+    assert torch.equal(blocks[(1, 0, 0)], t[4:6, 0:3])
+    assert torch.equal(blocks[(1, 1, 1)], t[6:8, 3:6])
+    with pytest.raises(ValueError):
+        SH.local_block(torch.zeros(3, 2), SH.P("data"), mesh,
+                       {"pod": 0, "data": 0, "model": 0})
+
+
+@pytest.mark.parametrize("impl,shape,layout", [
+    ("ep", {"data": 2, "model": 4}, "ep"),
+    ("ep_resident", {"data": 2, "model": 4}, "ep_resident"),
+    ("ep_resident", {"data": 1, "model": 4}, "ep"),
+    ("gather", {"data": 2, "model": 4}, None),
+    ("ep", {"data": 4, "model": 1}, None),
+])
+def test_moe_layout_and_expert_specs(impl, shape, layout):
+    import dataclasses
+
+    from repro_torch.distributed import moe_ep
+    cfg = dataclasses.replace(get_arch("qwen3-moe-235b-a22b"), moe_impl=impl)
+    mesh = _FakeMesh(shape)
+    assert moe_ep.moe_layout(cfg, mesh, ("data",)) == layout
+    if impl == "ep_resident" and layout == "ep_resident":
+        # a batch not split over data stays on the plain EP form
+        assert moe_ep.moe_layout(cfg, mesh, ()) == "ep"
+    w1 = T.param_defs(cfg)["blocks"]["b0_attn"]["ffn"]["w1"]
+    w2 = T.param_defs(cfg)["blocks"]["b0_attn"]["ffn"]["w2"]
+    want1 = {None: (), "ep": (None, "model"),
+             "ep_resident": (None, "model", None, "data")}[layout]
+    want2 = {None: (), "ep": (None, "model"),
+             "ep_resident": (None, "model", "data")}[layout]
+    assert T.expert_spec(w1, layout) == want1
+    assert T.expert_spec(w2, layout) == want2
+
+
+def test_mesh_entry_points_raise_without_a_process_group():
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="no process group"):
+        M.make_mesh((1, 4), ("data", "model"), device="cpu")
+    with pytest.raises(RuntimeError, match="no process group"):
+        M.make_local_mesh(device="cpu")
+    assert M.production_mesh_shape() == ((16, 16), ("data", "model"))
+    assert M.production_mesh_shape(True) == ((2, 16, 16),
+                                             ("pod", "data", "model"))
+
+
+def test_train_step_over_more_than_one_rank_is_refused():
+    from repro_torch.configs import TrainConfig
+    cfg = get_arch("qwen3-8b").reduced()
+    with pytest.raises(NotImplementedError, match="next slice"):
+        ST.make_train_step(cfg, TrainConfig(), mesh=_FakeMesh(
+            {"data": 2, "model": 1}))
+    ST.make_train_step(cfg, TrainConfig(), mesh=_FakeMesh(
+        {"data": 1, "model": 1}))
+
+
+class _RankMesh(_FakeMesh):
+    """A fake mesh seen from one rank: its index along each axis."""
+
+    def __init__(self, shape, coords):
+        super().__init__(shape)
+        self.mesh_dim_names = tuple(shape)
+        self.coords = coords
+
+    def get_local_rank(self, name):
+        return self.coords[name]
+
+
+@pytest.mark.parametrize("impl,shape", [("ep", {"data": 1, "model": 4}),
+                                        ("ep", {"data": 2, "model": 2}),
+                                        ("ep_resident",
+                                         {"data": 2, "model": 2})])
+def test_place_params_keeps_the_rank_s_expert_blocks(impl, shape):
+    """From a generator (leaf by leaf, the block cut from each fp32 draw)
+    and from a whole tree: the rank's blocks of ``init_params``' expert
+    leaves under ``expert_spec``, every other leaf whole and equal."""
+    import dataclasses
+    cfg = dataclasses.replace(get_arch("qwen3-moe-235b-a22b").reduced(),
+                              moe_impl=impl)
+    whole = T.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    defs = T.param_defs(cfg)
+    layout = {"ep": "ep", "ep_resident": "ep_resident"}[impl]
+    for data in range(shape["data"]):
+        for model in range(shape["model"]):
+            mesh = _RankMesh(shape, {"data": data, "model": model})
+            drawn = T.place_params(cfg, torch.Generator().manual_seed(5), mesh,
+                                   batch_axes=("data",), device="cpu")
+            given = T.place_params(cfg, whole, mesh, batch_axes=("data",),
+                                   device="cpu")
+            leaves = zip(T.tree_leaves(defs), T.tree_leaves(whole),
+                         T.tree_leaves(drawn), T.tree_leaves(given))
+            n_expert = 0
+            for pd, w, d, g in leaves:
+                spec = T.expert_spec(pd, layout)
+                want = SH.local_block(w, spec, mesh, mesh.coords)
+                n_expert += bool(spec)
+                assert torch.equal(d, want) and torch.equal(g, want)
+                assert d.is_contiguous() and d.numel() * math.prod(
+                    mesh.shape[a] for part in spec if part for a in
+                    ((part,) if isinstance(part, str) else part)) == w.numel()
+            assert n_expert == 3           # the stacked w1, w3, w2
+
+
+@pytest.mark.parametrize("placed,run", [(("data",), ()), ((), ("data",))])
+def test_blocks_placed_for_another_layout_are_refused(placed, run):
+    """On a (2, 2) ``ep_resident`` mesh the batch's axes decide the layout:
+    split over data, the experts' width is cut over data too; not split,
+    every rank holds the whole width (``ep``).  Blocks placed for one and
+    run by the other would sum two whole widths, or leave half of one
+    out, in the collectives: the MoE FFN refuses them before any."""
+    import dataclasses
+    cfg = dataclasses.replace(get_arch("qwen3-moe-235b-a22b").reduced(),
+                              moe_impl="ep_resident", dtype="float32")
+    mesh = _RankMesh({"data": 2, "model": 2}, {"data": 0, "model": 0})
+    params = T.place_params(cfg, torch.Generator().manual_seed(0), mesh,
+                            batch_axes=placed, device="cpu")
+    step = ST.make_prefill_step(cfg, mesh=mesh, batch_axes=run)
+    tokens = torch.zeros((2, 8), dtype=torch.int32)
+    with torch.no_grad(), pytest.raises(ValueError, match="expert width"):
+        step(params, {"tokens": tokens})
