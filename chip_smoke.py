@@ -2840,8 +2840,8 @@ class training_config:
         TR.get_arch = lambda name: (self.cfg if name == self.cfg.name
                                     else self.real[0](name))
 
-        def make_train_step(cfg, tcfg):
-            step = self.real[1](cfg, tcfg)
+        def make_train_step(cfg, tcfg, **kw):
+            step = self.real[1](cfg, tcfg, **kw)
 
             def timed(params, opt, batch):
                 before = [c.launches for c in self.counters]
@@ -3873,6 +3873,717 @@ def drive_mesh(dev, card):
     return k5_mesh
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 17: training over a mesh — the gradient of qwen3-moe-235b-a22b over
+# meshes of ranks, Mamba-2 370M trained over two
+# ---------------------------------------------------------------------------
+
+# (a) fp32, TF32 off: qwen3-moe-235b-a22b at full width over 1 of its 94
+# layers, a (1, 4) ep mesh, a global batch of 2 x 256.  At capacity factor
+# 16 an expert's C = ceil(T k 16 / E) = T slots (k 8, E 128): no
+# assignment can drop, so the mesh's function is the one-card gather
+# path's.  Memory, a rank: the 1,316,052,992 whole parameters (embedding
+# and head 622,329,856 each, attention 71.4 M, the gate and norms) and 32
+# of the 128 experts (603,979,776), 1.92 G in all: 7.68 GB of fp32 weights
+# and 7.68 of fp32 gradients, ~17 GB with the activations; four ranks ~70
+# GB.  The one-card reference (3.73 G parameters, 14.9 GB, its gradient
+# too) runs first on rank 0 alone and waits on the host; rank 0 hands each
+# rank its reference blocks over the group.
+MESH_GRAD = {"layers": 1, "batch": 2, "seq": 256, "capacity": 16.0,
+             "seed": 2}
+MESH_GRAD_BAR = {"loss": 1e-5, "leaf": 1e-4}
+# (b) bf16, int8 gradients: (2, 2) ep and ep_resident, a global batch of 4
+# x 1024 (a data block of 2 x 1024 a rank), capacity factor 16 as in (a).
+# A (2, 2) ep rank: 1.32 G whole and 64 experts (1.21 G): 5.06 GB of bf16
+# weights, the bf16 gradient, then the reduced fp32 one (10.1 GB), and
+# ~9 GB of activations at the backward's peak (the MoE's 2,048 slots an
+# expert, the logits in fp32): ~19 GB, ~76 GB for four ranks.  Held to the
+# one-card bf16 gradient: the loss, and each leaf of the reduced gradient
+# where the step hands it to the int8 transform, within MESH_REL's bf16
+# bar in relative Frobenius error (a second, untimed call of the step
+# compares them there).  The transformed leaves' errors against one
+# card's transformed leaves are printed, not held: a code one apart
+# wherever an element sits near a rounding boundary makes them several
+# times the bf16 gradients' (the codes themselves are K3's, held
+# byte-equal to the plain version in phase 10 and below).
+MESH_GRAD16 = {"layers": 1, "batch": 4, "seq": 1024, "capacity": 16.0,
+               "seed": 2}
+MESH_GRAD16_CASES = [((2, 2), "ep"), ((2, 2), "ep_resident")]
+# (c) Mamba-2 370M at full width and depth, bf16, int8 gradients, through
+# launch.train.train(mesh=) over a (2, 1) data mesh: a global batch of
+# 8 x 1024, 4 x 1024 a rank, 5 steps of a 5-step schedule, seed 0, held to
+# the one-card launcher's 5 steps (phase 12's bars for 5-step cells).
+MESH_DP = {"shape": (2, 1), "batch": 8, "seq": 1024, "steps": 5}
+MESH_DP_BARS = (1e-2, 5e-2)
+
+
+def leaf_names(tree, prefix=""):
+    """The '/'-joined dict keys and list indices of each leaf, in
+    ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def leaf_digests(leaves, chunk=1 << 24):
+    """An int64 a leaf from its bits and their positions (sums that wrap),
+    computed on the leaves' device a chunk at a time: two ranks' trees
+    with equal digests hold the same bytes, short of a collision."""
+    import torch
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for t in leaves:
+        flat = t.detach().reshape(-1)
+        bits = flat.view(ints[flat.element_size()])
+        acc = torch.zeros((), dtype=torch.int64, device=flat.device)
+        for i in range(0, bits.numel(), chunk):
+            b = bits[i:i + chunk].to(torch.int64)
+            w = torch.arange(i, i + b.numel(), device=b.device,
+                             dtype=torch.int64) % 1_000_003 + 1
+            acc += (b * w).sum()
+        out.append(acc)
+    return torch.stack(out)
+
+
+class reduce_counted:
+    """Within the block every ``collectives.reduce_`` call (the gradient's
+    reduction, the loss's, the norm's and the absmax's) is counted: calls,
+    bytes of the tensor, and host seconds between two synchronizes of the
+    card."""
+
+    def __init__(self, sync):
+        self.sync, self.calls, self.nbytes, self.s = sync, 0, 0, 0.0
+
+    def row(self):
+        return {"calls": self.calls, "bytes": self.nbytes,
+                "host_ms": self.s * 1e3}
+
+    def __enter__(self):
+        from repro_torch.distributed import collectives as coll
+        self.real = coll.reduce_
+
+        def counted(t, mesh, axes, *args, **kw):
+            live = coll.live_axes(mesh, axes)
+            self.sync()
+            t0 = time.perf_counter()
+            out = self.real(t, mesh, axes, *args, **kw)
+            self.sync()
+            self.s += time.perf_counter() - t0
+            self.calls += len(live)
+            self.nbytes += len(live) * t.numel() * t.element_size()
+            return out
+
+        coll.reduce_ = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.distributed import collectives as coll
+        coll.reduce_ = self.real
+
+
+def rank_coords(mesh, r):
+    """Rank ``r``'s index along each axis of ``mesh``."""
+    where = (mesh.mesh == r).nonzero()[0].tolist()
+    return dict(zip(mesh.mesh_dim_names, where))
+
+
+def held_to_reference(leaves, specs, ref, mesh, dev):
+    """Each leaf's relative Frobenius error against the reference's.  Rank
+    0 holds the whole reference leaves on the host and sends every other
+    rank its block of each split leaf; a whole leaf is compared on rank 0,
+    and held byte-equal across the ranks by digest.  Returns, on rank 0,
+    each rank's errors by leaf (None for a whole leaf off rank 0), else
+    None; and whether the whole leaves agreed."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as SH
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mine = []
+
+    def rel(a, b, chunk=1 << 24):
+        """A chunk at a time: the whole leaves leave little of the card."""
+        a, b = a.reshape(-1), b.reshape(-1)
+        num = den = 0.0
+        for i in range(0, b.numel(), chunk):
+            bi = b[i:i + chunk].double()
+            num += (a[i:i + chunk].double() - bi).square_().sum().item()
+            den += bi.square().sum().item()
+        return math.sqrt(num / den)
+
+    for j, (leaf, spec) in enumerate(zip(leaves, specs)):
+        if not spec:
+            mine.append(rel(leaf, ref[j].to(dev)) if rank == 0 else None)
+            continue
+        if rank == 0:
+            for r in range(1, world):
+                dist.send(SH.local_block(ref[j], spec, mesh, rank_coords(
+                    mesh, r)).contiguous(), dst=r)
+            want = SH.local_block(ref[j], spec, mesh).to(dev)
+        else:
+            want = torch.empty(leaf.shape, dtype=torch.float32)
+            dist.recv(want, src=0)
+            want = want.to(dev)
+        mine.append(rel(leaf, want))
+        del want
+    whole = [t for t, sp in zip(leaves, specs) if not sp]
+    dig = leaf_digests(whole)
+    digs = [torch.empty_like(dig) for _ in range(world)]
+    dist.all_gather(digs, dig)
+    same = all(torch.equal(d, digs[0]) for d in digs)
+    rows = [None] * world
+    dist.all_gather_object(rows, mine)
+    return (rows if rank == 0 else None), same
+
+
+def grad_on_mesh(job, dev):
+    """Phase 17(a) or (b) on this rank: the one-card reference on rank 0
+    (its gradient leaves kept on the host), then for each mesh of
+    ``job["cases"]`` the weights placed ``in_turns`` from the same seed,
+    ``steps.make_grad_fn`` on the rank's block of the batch (launches,
+    time, the reduction's collectives, peak memory), its leaves held to
+    the reference's; with int8 also, in a second untimed call, the
+    reduced leaves before the transform to the reference's before it;
+    and where ``job["fault"]`` the same with ``collectives.psum``'s
+    backward sum left out."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import compression as GC
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import vector_engine as VE
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves
+    cfg, run = job["cfg"], job["run"]
+    tcfg = TrainConfig(grad_compression=job["compression"])
+    rank = dist.get_rank()
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    peak = lambda: torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    counted = {"K5": FA.flash_attention, "K5b": FA.flash_attention_bwd,
+               "K3": VE.quantize_int8, "K4": VE.dequantize_int8}
+    B, S = run["batch"], run["seq"]
+    batch = TokenStream(cfg, B, S, run["seed"], device=dev).batch_at(0)
+    gen = lambda: torch.Generator(device=dev).manual_seed(run["seed"])
+    out = {"cases": []}
+    ref = None
+    wire = GC.wire_transform
+    ref_pre = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, gen(), device=dev)
+
+        def keep(leaves, absmax=None):
+            nonlocal ref_pre
+            ref_pre = [g.float().cpu() for g in leaves]
+            wire(leaves, absmax)
+
+        GC.wire_transform = keep
+        try:
+            loss, grads = ST.make_grad_fn(cfg, tcfg)(params, batch)
+        finally:
+            GC.wire_transform = wire
+        out["ref"] = {"loss": loss.item(),
+                      "norm": adamw.global_norm(grads).item()}
+        ref = [g.float().cpu() for g in tree_leaves(grads)]
+        del params, grads, loss
+        out["ref"]["s"] = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    names = leaf_names(T.param_defs(cfg))
+    for shape, impl in job["cases"]:
+        cfg_m = dataclasses.replace(cfg, moe_impl=impl)
+        mesh = M.make_mesh(shape, ("data", "model"), device=dev.type)
+        baxes = SH.batch_axes(B, SH.TRAIN_RULES, mesh)
+        stats = {}
+        params = in_turns(T.place_params, dev, stats)(
+            cfg_m, gen(), mesh, batch_axes=baxes, device=dev)
+        local = {k: SH.local_block(v, SH.batch_spec(tuple(v.shape),
+                                                    SH.TRAIN_RULES, mesh),
+                                   mesh) for k, v in batch.items()}
+        grad_fn = ST.make_grad_fn(cfg_m, tcfg, mesh=mesh, batch_axes=baxes)
+        specs = tree_leaves(T.param_block_specs(cfg_m, mesh,
+                                                batch_axes=baxes),
+                            is_leaf=SH.is_spec)
+        before = {k: c.launches for k, c in counted.items()}
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        with reduce_counted(sync) as red, \
+                collectives_counted(sync) as coll_all:
+            t0 = time.perf_counter()
+            loss, grads = grad_fn(params, local)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+        gnorm = adamw.global_norm(grads, ST.norm_reduction(
+            cfg_m, mesh, baxes)).item()
+        row = {"shape": shape, "impl": impl, "loss": loss.item(),
+               "norm": gnorm, "ms": ms, "reduce": red.row(),
+               "collectives": {"calls": coll_all.calls,
+                               "bytes": coll_all.nbytes,
+                               "host_ms": coll_all.s * 1e3},
+               "launches": {k: c.launches - before[k]
+                            for k, c in counted.items()},
+               "peak_gb": peak(), "leaves": len(specs), "names": names,
+               "specs": specs,
+               **stats}
+        leaves = tree_leaves(grads)
+        del grads
+        int8 = job["compression"] == "int8"
+        key = "wire_rels" if int8 else "rels"
+        row[key], row["whole_equal"] = held_to_reference(
+            leaves, specs, ref, mesh, dev)
+        del leaves, loss
+        if cuda:
+            torch.cuda.empty_cache()
+        if int8:
+            # the reduced gradient itself, before the int8 transform, held
+            # to one card's: once more, untimed, its leaves compared where
+            # the step hands them to the transform
+            def check(leaves, absmax=None):
+                row["rels"], same = held_to_reference(leaves, specs,
+                                                      ref_pre, mesh, dev)
+                row["whole_equal"] = row["whole_equal"] and same
+                wire(leaves, absmax)
+
+            GC.wire_transform = check
+            try:
+                grad_fn(params, local)
+            finally:
+                GC.wire_transform = wire
+            if cuda:
+                torch.cuda.empty_cache()
+        if job["fault"]:
+            # planted: psum's backward without its all-reduce, so the
+            # cotangent of each rank's partial output misses the other
+            # ranks' share
+            real = coll._Psum.backward
+            coll._Psum.backward = staticmethod(
+                lambda ctx, g: (g.contiguous().clone(), None))
+            try:
+                _, grads = grad_fn(params, local)
+            finally:
+                coll._Psum.backward = real
+            leaves = tree_leaves(grads)
+            del grads
+            row["fault_rels"], _ = held_to_reference(leaves, specs, ref,
+                                                     mesh, dev)
+            del leaves
+        del params
+        if cuda:
+            torch.cuda.empty_cache()
+        dist.barrier()
+        out["cases"].append(row)
+    return out
+
+
+def train_on_mesh(job, dev):
+    """Phase 17(c) on this rank: ``launch.train.train`` of Mamba-2 370M
+    over the (2, 1) mesh, each step timed, its launches counted, the
+    reduction's collectives timed and every leaf of the parameters and the
+    optimizer state compared across the ranks by digest after it;
+    checkpoints recorded, not written."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels import vector_engine as VE
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as TR
+    from repro_torch.tree import tree_leaves
+    run = job["run"]
+    mesh = M.make_mesh(run["shape"], ("data", "model"), device=dev.type)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    counted = {"K8": SSD.ssd_scan, "K8b": SSD.ssd_scan_bwd,
+               "K3": VE.quantize_int8, "K4": VE.dequantize_int8}
+    rec = {"step_ms": [], "launches": [], "reduce": [], "same": [],
+           "saved": []}
+    real = (TR.ST.make_train_step, TR.ckpt.save)
+
+    def make_train_step(cfg, tcfg, **kw):
+        step = real[0](cfg, tcfg, **kw)
+
+        def timed(params, opt, batch):
+            before = {k: c.launches for k, c in counted.items()}
+            sync()
+            with reduce_counted(sync) as red:
+                t0 = time.perf_counter()
+                out = step(params, opt, batch)
+                sync()
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["launches"].append({k: c.launches - before[k]
+                                    for k, c in counted.items()})
+            rec["reduce"].append(red.row())
+            dig = leaf_digests(tree_leaves((out[0], out[1])))
+            digs = [torch.empty_like(dig)
+                    for _ in range(dist.get_world_size())]
+            dist.all_gather(digs, dig)
+            rec["same"].append(all(torch.equal(d, digs[0]) for d in digs))
+            return out
+        return timed
+
+    TR.ST.make_train_step = make_train_step
+    TR.ckpt.save = lambda d, step, tree, **kw: rec["saved"].append(step)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        rec["losses"] = TR.train(MAMBA, smoke=False, steps=run["steps"],
+                                 batch=run["batch"], seq=run["seq"], seed=0,
+                                 device=dev, mesh=mesh, log_every=run["steps"],
+                                 grad_compression="int8")
+        rec["wall_s"] = time.perf_counter() - t0
+    finally:
+        TR.ST.make_train_step, TR.ckpt.save = real
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    return rec
+
+
+def mesh_train_rank(rank, world, store_dir, job):
+    """One rank of a phase 17 mesh (started by ``launch.mesh.run_ranks``):
+    on the card's one device, in a gloo group, ``grad_on_mesh`` or
+    ``train_on_mesh``; its results to ``job["out"]/rank<r>.pt``."""
+    import os
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    sys.path.insert(0, job["src"])
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as M
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    M.init_group(store_dir, rank, world, "gloo", timeout_s=MESH_TIMEOUT_S)
+    fn = train_on_mesh if job["kind"] == "train" else grad_on_mesh
+    res = fn(job, dev)
+    torch.save(res, os.path.join(job["out"], f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_mesh_job(job, world, dev):
+    """``mesh_train_rank`` on ``world`` ranks on ``dev``; their results by
+    rank."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch import mesh as M
+    out = Path(__file__).resolve().parent / "build" / "phase17"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    job = {"src": str(Path(__file__).resolve().parent / "src"),
+           "device": str(dev), "out": str(out), **job}
+    if dev.type == "cuda":        # the ranks share the card with this process
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    M.run_ranks(mesh_train_rank, world, job, timeout_s=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
+             for r in range(world)]
+    shutil.rmtree(out, ignore_errors=True)
+    return ranks, wall
+
+
+def _by_leaf(rels, n):
+    """The worst of the ranks' relative errors for each of ``n`` leaves."""
+    return [max(r[j] for r in rels if r[j] is not None) for j in range(n)]
+
+
+def check_mesh_grads(ranks, bar, what, card):
+    """The loss, each rank's leaves and (where planted) the fault of one
+    ``grad_on_mesh`` job against its bars (``bar["leaf"]``: on each
+    leaf's relative Frobenius error; with int8, the reduced gradient's
+    before the transform, and the transformed leaves' errors printed);
+    returns the case rows."""
+    ref = ranks[0]["ref"]
+    rows = []
+    for i, row in enumerate(ranks[0]["cases"]):
+        name = f"({row['shape'][0]}, {row['shape'][1]}) {row['impl']}"
+        rel = _by_leaf(row["rels"], row["leaves"])
+        loss_rel = abs(row["loss"] - ref["loss"]) / abs(ref["loss"])
+        norm_rel = abs(row["norm"] - ref["norm"]) / ref["norm"]
+        same_loss = all(r["cases"][i]["loss"] == row["loss"] for r in ranks)
+        whole = all(r["cases"][i]["whole_equal"] for r in ranks)
+        if not (loss_rel <= bar["loss"] and max(rel) <= bar["leaf"]
+                and same_loss and whole and math.isfinite(row["loss"])):
+            raise AssertionError(
+                f"phase 17{what} {name}: loss {row['loss']} vs one card "
+                f"{ref['loss']} (rel {loss_rel:.3e}, limit {bar['loss']}), "
+                f"leaves' rel Frobenius errs "
+                + ", ".join(f"{n} {r:.2e}" for n, r in
+                            zip(row["names"], rel))
+                + f" (limit {bar['leaf']}), every rank's loss equal "
+                f"{same_loss}, whole leaves byte-equal across ranks {whole}")
+        top = sorted(zip(rel, row["names"]), reverse=True)[:3]
+        line = (f"phase 17{what} {name}: loss {row['loss']:.6f} vs one card "
+                f"{ref['loss']:.6f} (rel {loss_rel:.3e}, limit "
+                f"{bar['loss']}); grad norm rel {norm_rel:.3e}; "
+                f"{row['leaves']} leaves, each rank's block"
+                + (" of the reduced gradient before int8" if "wire_rels"
+                   in row else "")
+                + f" within {max(rel):.3e} in rel Frobenius err (limit "
+                f"{bar['leaf']}; worst "
+                + ", ".join(f"{n} {r:.2e}" for r, n in top)
+                + "); whole leaves byte-equal on every rank")
+        if "wire_rels" in row:
+            wrel = _by_leaf(row["wire_rels"], row["leaves"])
+            wtop = sorted(zip(wrel, row["names"]), reverse=True)[:3]
+            line += ("; after the int8 transform (K3, K4) within "
+                     f"{max(wrel):.3e} of one card's (worst "
+                     + ", ".join(f"{n} {r:.2e}" for r, n in wtop) + ")")
+        if "fault_rels" in row:
+            by_leaf = _by_leaf(row["fault_rels"], row["leaves"])
+            hit = {n: v for n, v in zip(row["names"], by_leaf)
+                   if n.endswith(("/wg", "/w1", "/w2", "/w3"))}
+            if not (hit and min(hit.values()) > bar["leaf"]):
+                raise AssertionError(f"phase 17{what} {name}: the planted "
+                                     f"fault reads {hit}, not above "
+                                     f"{bar['leaf']}")
+            line += ("; planted fault (psum's backward sum left out): "
+                     + ", ".join(f"{n.rsplit('/', 1)[1]} {v:.3e}"
+                                 for n, v in hit.items())
+                     + f", worst {max(by_leaf):.3e}, all above the bar")
+        print(line + f"; card {card}")
+        rows.append(row)
+    return rows
+
+
+def check_k3_given(dev, time_ms, n):
+    """K3 given the row's absmax (the whole leaf's, larger than the
+    block's own), at one (2, 2) ep rank's block of a stacked expert leaf
+    (``n`` fp32 elements): byte-equal to the plain version given the same,
+    timed beside K3 finding its own and the plain version; the bound as
+    phase 10's (each element read and its code written once)."""
+    import torch
+
+    from repro_torch.kernels import vector_engine as VE
+    x = torch.randn(1, n, generator=torch.Generator(device=dev).manual_seed(
+        17), device=dev) * 1e-3
+    absmax = x.abs().amax(dim=-1) * 1.25
+    q, s = VE.quantize_int8(x, absmax)
+    wq, ws = VE.quantize_int8_plain(x, absmax)
+    if not (torch.equal(q, wq) and torch.equal(s.view(torch.int32),
+                                                ws.view(torch.int32))):
+        raise AssertionError(f"K3 given absmax (1, {n}): not byte-equal to "
+                             f"the plain version")
+    # the library's one call for the same function: codes round(x / s)
+    # at the scale s = absmax / 127, timed only
+    scale = (absmax / 127).item()
+    lq = torch.quantize_per_tensor(x, scale, 0, torch.qint8).int_repr()
+    differ = (lq != q).sum().item()
+    del q, s, wq, ws, lq
+    out = {"shape": (1, n), "max_abs_err": 0.0,
+           "ms": time_ms(lambda: VE.quantize_int8(x, absmax), reps=3),
+           "own_ms": time_ms(lambda: VE.quantize_int8(x), reps=3),
+           "plain_ms": time_ms(lambda: VE.quantize_int8_plain(x, absmax),
+                               reps=2),
+           "library_ms": time_ms(lambda: torch.quantize_per_tensor(
+               x, scale, 0, torch.qint8), reps=3)}
+    out["bound_ms"], out["bound_by"] = bound(5 * n + 8, 5 * n,
+                                             torch.float32)
+    del x
+    torch.cuda.empty_cache()
+    print(f"K3 quantize_int8 given the absmax, (1, {n}) float32 (one (2, 2) "
+          f"ep rank's block of a stacked expert leaf): byte-equal to the "
+          f"plain version given the same; ms={out['ms']:.4f} (finding its "
+          f"own {out['own_ms']:.4f}) plain_ms={out['plain_ms']:.4f} "
+          f"library_ms(torch.quantize_per_tensor)={out['library_ms']:.4f} "
+          f"({differ} of its codes differ from K3's) "
+          f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']})")
+    return out
+
+
+def mesh_grad_fp32(dev, card, total):
+    """Phase 17(a): the fp32 gradient of qwen3-moe-235b-a22b over a (1, 4)
+    ``ep`` mesh against the one-card gather path's, with a planted fault;
+    K5's and K5b's launches added to ``total``."""
+    g = MESH_GRAD
+    cfg32 = mesh_config(g["layers"], "float32",
+                        moe_capacity_factor=g["capacity"])
+    ranks, wall = run_mesh_job({
+        "kind": "grad", "cfg": cfg32, "run": g, "compression": "none",
+        "cases": [((1, 4), "ep")], "fault": True}, 4, dev)
+    (row,) = check_mesh_grads(ranks, MESH_GRAD_BAR, "(a)", card)
+    n = [r["cases"][0]["launches"] for r in ranks]
+    if any(x["K5"] != cfg32.num_layers or x["K5b"] != cfg32.num_layers
+           for x in n):
+        raise AssertionError(f"phase 17(a): K5/K5b launches per rank {n}")
+    for x in n:
+        for k in ("K5", "K5b"):
+            total[k] += x[k]
+    print(f"phase 17(a) {cfg32.name} ({describe(cfg32)}; TF32 off) over "
+          f"(1, 4) ep, 4 ranks on the one card: batch {g['batch']} x "
+          f"{g['seq']} (the whole batch a rank), one-card reference "
+          f"{ranks[0]['ref']['s']:.1f} s on rank 0; the mesh's gradient "
+          f"step ms per rank {[round(r['cases'][0]['ms'], 3) for r in ranks]}"
+          f"; its reduction {row['reduce']['calls']} all-reduces, "
+          f"{row['reduce']['bytes']} bytes, host ms "
+          f"{row['reduce']['host_ms']:.3f}; weights "
+          f"{row['param_bytes'] / 1e9:.2f} GB a rank, peak per rank "
+          f"{[round(r['cases'][0]['peak_gb'], 2) for r in ranks]} GB; "
+          f"{wall:.1f} s with the ranks' start; card {card}")
+
+
+
+def mesh_grad_bf16(dev, card, time_ms, total):
+    """Phase 17(b): the bf16 int8 gradient over (2, 2) ``ep`` and
+    ``ep_resident`` against one card's, then K3 given the absmax at a
+    rank's expert block; the launches added to ``total``.  Returns K3's
+    given-absmax entry."""
+    from repro_torch.models import transformer as T
+    g = MESH_GRAD16
+    cfg16 = mesh_config(g["layers"], moe_capacity_factor=g["capacity"])
+    n_leaves = len(T.tree_leaves(T.param_shapes(cfg16)))
+    ranks, wall = run_mesh_job({
+        "kind": "grad", "cfg": cfg16, "run": g, "compression": "int8",
+        "cases": MESH_GRAD16_CASES, "fault": False}, 4, dev)
+    bar = {"loss": MESH_REL["bfloat16"], "leaf": MESH_REL["bfloat16"]}
+    rows = check_mesh_grads(ranks, bar, "(b)", card)
+    want = {"K5": cfg16.num_layers, "K5b": cfg16.num_layers, "K3": n_leaves,
+            "K4": n_leaves}
+    given = 0
+    for i, row in enumerate(rows):
+        name = f"({row['shape'][0]}, {row['shape'][1]}) {row['impl']}"
+        given += len(ranks) * sum(1 for sp in row["specs"] if sp)
+        n = [r["cases"][i]["launches"] for r in ranks]
+        if any(x != want for x in n):
+            raise AssertionError(f"phase 17(b) {name}: launches per rank {n}"
+                                 f", want {want}")
+        for x in n:
+            for k, v in x.items():
+                total[k] += v
+        c = row["collectives"]
+        print(f"phase 17(b) {name} ({describe(cfg16)}), int8 gradients: "
+              f"batch {g['batch']} x {g['seq']} (a data block of "
+              f"{g['batch'] // 2} a rank); gradient step ms per rank "
+              f"{[round(r['cases'][i]['ms'], 3) for r in ranks]} (counted "
+              f"collectives synchronize the card); launches a rank K5 "
+              f"{want['K5']}, K5b {want['K5b']}, K3 {want['K3']}, K4 "
+              f"{want['K4']} (one a leaf the rank compresses); the "
+              f"gradient's reduction alone {row['reduce']['calls']} "
+              f"all-reduces, {row['reduce']['bytes']} bytes, host ms "
+              f"{row['reduce']['host_ms']:.3f}; all the step's collectives "
+              f"{c['calls']}, {c['bytes']} bytes, host ms "
+              f"{c['host_ms']:.3f}; weights {row['param_bytes'] / 1e9:.2f} "
+              f"GB a rank, peak placing / step per rank "
+              f"{[round(r['cases'][i]['place_peak_gb'], 2) for r in ranks]}"
+              f" / {[round(r['cases'][i]['peak_gb'], 2) for r in ranks]} GB"
+              f"; card {card}")
+    print(f"phase 17(b) one-card bf16 reference on rank 0: "
+          f"{ranks[0]['ref']['s']:.1f} s; both meshes {wall:.1f} s with the "
+          f"ranks' start; K3 given the whole leaf's absmax {given} times "
+          f"(each rank's expert blocks)")
+    ep = MESH_GRAD16_CASES[0][0]
+    k3_given = check_k3_given(dev, time_ms, cfg16.num_experts // ep[1]
+                              * cfg16.d_model * cfg16.moe_d_ff)
+    k3_given["mesh_launches"] = given
+    return k3_given
+
+
+
+def mesh_train_dp(dev, card, total):
+    """Phase 17(c): Mamba-2 370M trained over a (2, 1) mesh through
+    ``launch.train.train`` against the one-card launcher; the launches
+    added to ``total``."""
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels import vector_engine as VE
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
+    run = MESH_DP
+    cfg = mamba_config()
+    counted = (SSD.ssd_scan, SSD.ssd_scan_bwd, VE.quantize_int8,
+               VE.dequantize_int8)
+    with training_config(cfg, counted) as one:
+        t0 = time.perf_counter()
+        ref = TR.train(MAMBA, smoke=False, steps=run["steps"],
+                       batch=run["batch"], seq=run["seq"], seed=0,
+                       device=dev, log_every=run["steps"],
+                       grad_compression="int8")
+        one_s = time.perf_counter() - t0
+    world = math.prod(run["shape"])
+    ranks, wall = run_mesh_job({"kind": "train", "run": run}, world, dev)
+    n_leaves = len(T.tree_leaves(T.param_shapes(cfg)))
+    want = {"K8": cfg.num_layers, "K8b": cfg.num_layers, "K3": n_leaves,
+            "K4": n_leaves}
+    losses = ranks[0]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[:2], ref[:2])]
+    for r, rec in enumerate(ranks):
+        bad = [x for x in rec["launches"] if x != want]
+        if (bad or rec["losses"] != losses or not all(rec["same"])
+                or rec["saved"] != [run["steps"]]):
+            raise AssertionError(f"phase 17(c) rank {r}: launches "
+                                 f"{rec['launches']} (want {want} a step), "
+                                 f"losses {rec['losses']} vs rank 0's "
+                                 f"{losses}, leaves byte-equal across ranks "
+                                 f"after each step {rec['same']}, "
+                                 f"checkpoints {rec['saved']}")
+        for x in rec["launches"]:
+            for k, v in x.items():
+                total[k] += v
+    if not (len(losses) == run["steps"] and all(map(math.isfinite, losses))
+            and losses[-1] < losses[0] and rel[0] <= MESH_DP_BARS[0]
+            and rel[1] <= MESH_DP_BARS[1]):
+        raise AssertionError(f"phase 17(c): losses {losses} vs one card "
+                             f"{ref} (first two rel {rel}, limits "
+                             f"{MESH_DP_BARS})")
+    B, S = run["batch"], run["seq"]
+    r0 = ranks[0]
+    med = statistics.median(r0["step_ms"][2:])
+    red = r0["reduce"][-1]
+    print(f"phase 17(c) {MAMBA} ({cfg.num_layers} layers, {cfg.dtype}, "
+          f"{T.count_params(cfg)} parameters) through launch.train.train("
+          f"mesh=) over {run['shape']}, {world} ranks on the one card: global"
+          f" batch {B} x {S} ({B // world} x {S} a rank), int8 gradients, "
+          f"{run['steps']} steps: losses {[round(l, 4) for l in losses]} vs "
+          f"one card {[round(l, 4) for l in ref]} (first two rel "
+          f"{rel[0]:.2e}, {rel[1]:.2e}; limits {MESH_DP_BARS}), every leaf "
+          f"of the parameters and moments byte-equal on both ranks after "
+          f"each step; step ms rank 0 {[round(t, 3) for t in r0['step_ms']]}"
+          f", rank 1 {[round(t, 3) for t in ranks[1]['step_ms']]} (median of "
+          f"steps 3-{run['steps']} {med:.3f}, {B * S / med * 1e3:.1f} "
+          f"tokens/s over both); one card "
+          f"{[round(t, 3) for t in one.step_ms]}; the reduction a step "
+          f"{red['calls']} all-reduces, {red['bytes']} bytes, host ms per "
+          f"step {[round(x['host_ms'], 3) for x in r0['reduce']]}; launches "
+          f"a step per rank K8 {want['K8']}, K8b {want['K8b']}, K3 "
+          f"{want['K3']}, K4 {want['K4']}; peak per rank "
+          f"{[round(x['peak_gb'], 2) for x in ranks]} GB; one card "
+          f"{one_s:.1f} s, the mesh {wall:.1f} s with the ranks' start; "
+          f"card {card}")
+
+
+def drive_mesh_train(dev, card, time_ms):
+    """Phase 17: training over a mesh of ranks sharing the card (gloo):
+    ``mesh_grad_fp32``, ``mesh_grad_bf16``, ``mesh_train_dp``.  Returns the
+    launches of K3, K4, K5, K5b, K8 and K8b in its mesh runs, summed over
+    the ranks, and K3's given-absmax entry."""
+    from repro_torch.kernels import _build
+    _build.build_all()
+    total = dict.fromkeys(("K3", "K4", "K5", "K5b", "K8", "K8b"), 0)
+    mesh_grad_fp32(dev, card, total)
+    k3_given = mesh_grad_bf16(dev, card, time_ms, total)
+    mesh_train_dp(dev, card, total)
+    return total, k3_given
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4294,6 +5005,18 @@ def main() -> int:
     mark("16, the mesh")
     k5_mesh = drive_mesh(dev, card)
     torch.cuda.empty_cache()
+    mark("17, training over a mesh")
+    mesh17, k3_given = drive_mesh_train(dev, card, time_ms)
+    torch.cuda.empty_cache()
+    k3_entry, k4_entry, k8b_entry = train_entries
+    k3_entry.update(launches=k3_entry["launches"] + mesh17["K3"],
+                    mesh_train_launches=mesh17["K3"], given_absmax=k3_given)
+    k4_entry.update(launches=k4_entry["launches"] + mesh17["K4"],
+                    mesh_train_launches=mesh17["K4"])
+    k8b_entry.update(launches=k8b_entry["launches"] + mesh17["K8b"],
+                     mesh_train_launches=mesh17["K8b"])
+    k5b_entry.update(launches=k5b_entry["launches"] + mesh17["K5b"],
+                     mesh_train_launches=mesh17["K5b"])
     mark("the kernels line")
 
     # ---- the kernels line: K1 over one request's 53 shapes ---------------
@@ -4361,15 +5084,17 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": src + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:86",
-         "launches": launches[2] + k5_train + k5_mesh,
+         "launches": launches[2] + k5_train + k5_mesh + mesh17["K5"],
          **{k: v for k, v in k5.items() if k != "library"},
          "main_path_launches": launches[2], "train_launches": k5_train,
-         "mesh_launches": k5_mesh,
+         "mesh_launches": k5_mesh, "mesh_train_launches": mesh17["K5"],
          "serving": k5_serving, "qwen": k5_qwen, "paper": k5_paper,
          "mla_vlm": k5_vlm},
         {**k6_entry, "max_abs_err": k6_err},
         {"name": "ssd_scan", "route": "cuda", "source": src + "ssd.cu",
-         "replaces": "src/repro/kernels/ssd.py:87", "launches": k8_launches,
+         "replaces": "src/repro/kernels/ssd.py:87",
+         "launches": k8_launches + mesh17["K8"],
+         "mesh_train_launches": mesh17["K8"],
          "max_abs_err": k8_err, **{k: v for k, v in k8_times[
              torch.bfloat16].items() if k != "err"}, "library_ms": None},
         {**k7_entry, "launches": k7_entry["launches"] + k7_train,

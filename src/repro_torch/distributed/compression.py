@@ -15,12 +15,16 @@ quantized by ``kernels.ops.quantize`` and restored by ``ops.dequantize``,
 so on the card each leaf runs K3 and K4 (``kernels/csrc/vector_engine.cu``)
 once, and on the CPU their plain versions; a per-tensor absmax is that
 row's absmax, so the codes are the JAX package's.  The error state is as
-stateless as the JAX package's training step makes it
-(``launch.steps.make_train_step`` passes zeros every step).
+stateless as the JAX package's training step makes it: zeros every step,
+the residual dropped, so the step applies ``wire_transform``, the
+transform ``compress_grads`` wraps in error feedback.  Over a mesh a rank that holds one block
+of a split leaf quantizes it against the whole leaf's absmax (``absmax``,
+an all-reduce MAX over the blocks: ``launch.steps``), so its codes are the
+whole leaf's codes, block for block.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,8 +34,12 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 Pytree = Any
 
 
-def _quantize_leaf(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    return ops.quantize(g.reshape(1, -1))
+def _quantize_leaf(g: torch.Tensor, absmax: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The leaf as one row; ``absmax`` a 0-d or (1,) fp32 tensor, the whole
+    leaf's where ``g`` is a block of it."""
+    return ops.quantize(g.reshape(1, -1),
+                        None if absmax is None else absmax.reshape(1))
 
 
 def init_error_state(params: Pytree) -> Pytree:
@@ -44,18 +52,28 @@ def compress_grads(grads: Pytree, error: Pytree) -> Tuple[Pytree, Pytree]:
 
     The returned grads are exactly what a receiver of the int8 payload
     would reconstruct; ``new_error`` is the residual to feed back next step.
+    The JAX package's API with error feedback; the training step, whose
+    error state is zeros, calls ``wire_transform`` alone.
     """
-    def one(g, e):
-        g32 = g.float() + e
-        q, scale = _quantize_leaf(g32)
-        deq = ops.dequantize(q, scale).view_as(g32)
-        return deq, g32 - deq
+    g32 = [g.float() + e for g, e in zip(tree_leaves(grads),
+                                         tree_leaves(error))]
+    deq = list(g32)
+    wire_transform(deq)
+    return (tree_unflatten(grads, deq),
+            tree_unflatten(grads, [g - d for g, d in zip(g32, deq)]))
 
-    pairs = [one(g, e) for g, e in zip(tree_leaves(grads),
-                                        tree_leaves(error))]
-    deq = tree_unflatten(grads, [d for d, _ in pairs])
-    err = tree_unflatten(grads, [e for _, e in pairs])
-    return deq, err
+
+def wire_transform(grads: List[torch.Tensor],
+                   absmax: Optional[Sequence[Optional[torch.Tensor]]] = None
+                   ) -> None:
+    """The int8 quantize -> dequantize transform in place on a list of
+    leaves, one leaf at a time (each fp32 leaf replaced by its dequantized
+    codes, so no more than one extra leaf is held).  ``absmax[i]``: leaf
+    i's whole absmax where it is a block of a split leaf, else None."""
+    for i, g in enumerate(grads):
+        q, scale = _quantize_leaf(g.float(),
+                                  None if absmax is None else absmax[i])
+        grads[i] = ops.dequantize(q, scale).view(g.shape)
 
 
 def wire_bytes(params: Pytree, dtype_bytes: int = 4) -> Tuple[int, int]:

@@ -12,13 +12,15 @@ model, the hidden F over data) and moves activations instead: an
 all-gather of the tokens over data, an all-reduce of the F partials over
 data and one of the outputs over model.
 
-JAX's collectives map one for one: ``lax.psum`` is ``dist.all_reduce``
-over the axis's group, ``lax.all_gather(..., tiled=True)`` is
-``dist.all_gather`` then ``torch.cat`` (the group's ranks in the axis's
-order), ``lax.axis_index`` is ``mesh.get_local_rank``.  No other
-collective is used (gloo on CUDA tensors has neither reduce-scatter nor
-all-to-all).  ``dist.all_reduce`` has no gradient, so both functions
-refuse an input that requires one while grad is enabled.
+JAX's collectives map one for one onto ``distributed.collectives``:
+``lax.psum`` is ``psum`` over the axis's group, ``lax.all_gather(...,
+tiled=True)`` is ``all_gather_tiled`` (the group's ranks in the axis's
+order), ``lax.axis_index`` is ``mesh.get_local_rank``.  Both carry the
+gradient as JAX's transposes do, so the gradient flows into x, the gate
+and the rank's expert blocks as the gather path's (``layers.moe_ffn``)
+does: through the kept assignments' weights ``topv``, zero for a dropped
+one.  The training step sums each leaf's gradient over the ranks that
+hold the same block (``launch.steps``).
 
 Each function takes the rank's blocks: x (B_local, S, D), the gate
 replicated, w1/w3 (E_local, D, F[_local]) and w2 (E_local, F[_local], D),
@@ -35,9 +37,9 @@ import math
 from typing import Optional, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.sharding import mesh_shape
 from repro_torch.models.layers import act_fn
 
@@ -63,14 +65,6 @@ def moe_layout(cfg, mesh, batch_axes) -> Optional[str]:
     return "ep"
 
 
-def _refuse_grad(*tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "expert-parallel MoE has no backward: dist.all_reduce carries no "
-            "gradient (training over a mesh, with autograd-aware "
-            "collectives, is not ported yet); run it under torch.no_grad()")
-
-
 def _route(xf: torch.Tensor, gate_w: torch.Tensor, k: int):
     """Softmax probabilities (T, E) fp32, the renormalised top-k weights
     and the flat expert ids (T*k,)."""
@@ -94,20 +88,19 @@ def _local_experts(x_all: torch.Tensor, keep: torch.Tensor,
     token rows of ``x_all`` scattered into their slots (JAX scatters the
     others into an overflow row that is never read), the gated FFN, and
     the outputs as an (E_local * C + 1, D) table whose last row is zero,
-    for the combine's gather.  Large intermediates go as soon as they
-    are used."""
+    for the combine's gather.  No operation is in place, so autograd
+    takes the same code."""
     E_loc, D = w1.shape[0], x_all.shape[1]
     n_slots = E_loc * C
     buf = x_all.new_zeros((n_slots, D))
     idx = keep.nonzero()[:, 0]
     buf[slot[idx]] = x_all[idx // k]
     xe = buf.view(E_loc, C, D)
-    h = act_fn(act)(torch.bmm(xe, w1))
-    h.mul_(torch.bmm(xe, w3))
-    del xe, buf
-    yflat = h.new_zeros((n_slots + 1, D))
-    torch.bmm(h, w2, out=yflat[:n_slots].view(E_loc, C, D))
-    return yflat
+    del buf
+    h = act_fn(act)(torch.bmm(xe, w1)) * torch.bmm(xe, w3)
+    del xe
+    y = torch.bmm(h, w2).view(n_slots, D)
+    return torch.cat([y, y.new_zeros((1, D))])
 
 
 def _combine(yflat: torch.Tensor, slot: torch.Tensor, wts: torch.Tensor,
@@ -115,14 +108,6 @@ def _combine(yflat: torch.Tensor, slot: torch.Tensor, wts: torch.Tensor,
     """Each token's k expert outputs, weighted, summed in k's order."""
     yk = yflat[slot] * wts.to(yflat.dtype)[:, None]
     return yk.view(T, k, yflat.shape[1]).sum(dim=1)
-
-
-def _all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """``lax.all_gather(x, axis, axis=0, tiled=True)``."""
-    group = mesh.get_group(axis)
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=0)
 
 
 def _check_blocks(x, w1, w2, E_loc: int, F_loc: int, layout: str) -> None:
@@ -155,7 +140,6 @@ def moe_ffn_ep(x: torch.Tensor, gate_w: torch.Tensor, w1: torch.Tensor,
     as JAX's shard does.
     ``batch_axes``: the axes the batch was split over (JAX's in_specs;
     the rank's block is what it is given)."""
-    _refuse_grad(x, gate_w, w1, w3, w2)
     E = num_experts
     ep = mesh_shape(mesh)[ep_axis]
     assert E % ep == 0, (E, ep)
@@ -176,7 +160,7 @@ def moe_ffn_ep(x: torch.Tensor, gate_w: torch.Tensor, w1: torch.Tensor,
     wts = torch.where(keep, topv.reshape(-1), 0.0)
     out = _combine(yflat, slot, wts, T, k)
     del yflat
-    dist.all_reduce(out, group=mesh.get_group(ep_axis))   # combine shards
+    out = coll.psum(out, mesh, ep_axis)                    # combine shards
     return out.reshape(Bl, S, D), _aux(probs, flat_e, E)
 
 
@@ -211,7 +195,6 @@ def moe_ffn_ep_resident(x: torch.Tensor, gate_w: torch.Tensor,
     and the
     capacity C = max(8, ceil(T_all k cf / E)) count the gathered T_all
     tokens, so they are the one-card path's over the same batch."""
-    _refuse_grad(x, gate_w, w1, w3, w2)
     E = num_experts
     shape = mesh_shape(mesh)
     ep, dp = shape[ep_axis], shape[fsdp_axis]
@@ -223,7 +206,8 @@ def moe_ffn_ep_resident(x: torch.Tensor, gate_w: torch.Tensor,
     _check_blocks(x, w1, w2, E_loc, d_ff // dp, "ep_resident")
     Bl, S, D = x.shape
     T = Bl * S
-    x_all = _all_gather(x.reshape(T, D), mesh, fsdp_axis)   # (T_all, D)
+    x_all = coll.all_gather_tiled(x.reshape(T, D), mesh,
+                                  fsdp_axis)             # (T_all, D)
     T_all = T * dp
     probs, topv, flat_e = _route(x_all, gate_w, k)
     C = max(8, int(math.ceil(T_all * k * capacity_factor / E)))
@@ -233,7 +217,7 @@ def moe_ffn_ep_resident(x: torch.Tensor, gate_w: torch.Tensor,
     slot = torch.where(keep, (flat_e % E_loc) * C + pos_in_e, E_loc * C)
     yflat = _local_experts(x_all, keep, slot, k, C, w1, w3, w2, act)
     del x_all
-    dist.all_reduce(yflat, group=mesh.get_group(fsdp_axis))  # F-combine
+    yflat = coll.psum(yflat, mesh, fsdp_axis)              # F-combine
     wts = torch.where(keep, topv.reshape(-1), 0.0)
     # combine only the local token block, then sum over the experts' axis
     mine = slice(mesh.get_local_rank(fsdp_axis) * T,
@@ -241,5 +225,5 @@ def moe_ffn_ep_resident(x: torch.Tensor, gate_w: torch.Tensor,
     out = _combine(yflat, slot.view(T_all, k)[mine].reshape(-1),
                    wts.view(T_all, k)[mine].reshape(-1), T, k)
     del yflat
-    dist.all_reduce(out, group=mesh.get_group(ep_axis))   # expert-combine
+    out = coll.psum(out, mesh, ep_axis)                    # expert-combine
     return out.reshape(Bl, S, D), _aux(probs, flat_e, E)

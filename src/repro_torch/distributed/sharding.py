@@ -80,6 +80,10 @@ class P(tuple):
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"
 
+    def __reduce__(self):
+        # a tuple subclass otherwise pickles as P(<its tuple>): one entry
+        return (P, tuple(self))
+
 
 def is_spec(x) -> bool:
     return isinstance(x, P)
@@ -186,6 +190,11 @@ def make_act_sharder(mesh, batch_axes: Sequence[str] = ()) -> ActSharder:
 def mesh_coords(mesh) -> Dict[str, int]:
     """This rank's index along each axis of a ``DeviceMesh``."""
     return {name: mesh.get_local_rank(name) for name in mesh.mesh_dim_names}
+
+
+def is_first_rank(mesh) -> bool:
+    """This rank is at index 0 along every axis of the ``DeviceMesh``."""
+    return all(i == 0 for i in mesh_coords(mesh).values())
 
 
 def block_index(part, mesh, coords: Dict[str, int]) -> Tuple[int, int]:

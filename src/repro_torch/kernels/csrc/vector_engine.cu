@@ -306,6 +306,13 @@ extern "C" int fused_affine_act(const void* x, const float* scale,
 //   ~6,000 fp32 elements an item: every small leaf and every short row).
 //   Phase 2 walks the rest of its share in the reverse of phase 1's order,
 //   so its first reloads are what phase 1 read last, still in the 50 MB L2.
+// - Given absmax (GIVEN): the caller hands each row's absmax, as a
+//   rank holding one block of a gradient leaf that is split over a mesh
+//   does with the whole leaf's (an all-reduce MAX over the blocks), so
+//   that its codes are the whole leaf's, block for block.  Phase 1 and
+//   the grid barrier go; the same grid walks phase 2, reading x from
+//   global memory, in an ordinary (not cooperative) launch, and `part`
+//   is not touched.
 //   The code stores are marked evict-first (the reloads are not: marked so
 //   they took 0.757 ms at the largest leaf on an H100, against 0.714
 //   unmarked, tools/k3_ablate.py).
@@ -485,12 +492,15 @@ __device__ __forceinline__ Item item_of(long long it, long long N, int segs,
 
 // x (M, N) -> q (M, N), scales (M,); part (M * segs) 32-bit scratch.
 // xoff: x's base address modulo 16, in elements.  QV: the codes of a
-// vector go out in one store (x's base is 16-byte aligned).
-template <typename E, bool QV>
+// vector go out in one store (x's base is 16-byte aligned).  GIVEN: the
+// rows' absmax is read from `given` (M,), and neither phase 1 nor the
+// barrier runs.
+template <typename E, bool QV, bool GIVEN>
 __global__ void __launch_bounds__(QTHREADS, 4)
 quantize_int8_kernel(const E* __restrict__ x, signed char* __restrict__ q,
                      float* __restrict__ scales, unsigned int* part,
-                     long long M, long long N, int segs, int xoff) {
+                     const float* __restrict__ given, long long M,
+                     long long N, int segs, int xoff) {
   using Q = Quant<E>;
   constexpr int VEC = Q::VEC;
   constexpr long long STEP = static_cast<long long>(QTHREADS) * QUNROLL;
@@ -503,7 +513,7 @@ quantize_int8_kernel(const E* __restrict__ x, signed char* __restrict__ q,
   // ---- phase 1: each item's absmax; the first STASH_VECS of the block's
   // vectors kept in shared memory
   long long sbase = 0;                  // the block's vectors so far
-  for (long long it = blockIdx.x; it < items; it += G) {
+  for (long long it = blockIdx.x; !GIVEN && it < items; it += G) {
     const Item s = item_of<VEC>(it, N, segs, xoff);
     const E* xr = x + s.row * N;
     unsigned int m = 0u;
@@ -533,7 +543,7 @@ quantize_int8_kernel(const E* __restrict__ x, signed char* __restrict__ q,
     sbase += nv;
   }
 
-  grid_sync();
+  if constexpr (!GIVEN) grid_sync();
 
   // ---- phase 2: the block's items and vectors in reverse order
   const long long mine = (items - blockIdx.x + G - 1) / G;
@@ -541,10 +551,16 @@ quantize_int8_kernel(const E* __restrict__ x, signed char* __restrict__ q,
     const Item s = item_of<VEC>(it, N, segs, xoff);
     const long long nv = s.v1 - s.v0;
     sbase -= nv;
-    unsigned int m = 0u;
-    const unsigned int* pr = part + s.row * segs;
-    for (int i = tid; i < segs; i += QTHREADS) m = max(m, __ldcg(pr + i));
-    const float scale = quant_scale(__uint_as_float(block_max(m, red)));
+    float absmax;
+    if constexpr (GIVEN) {
+      absmax = __ldg(given + s.row);
+    } else {
+      unsigned int m = 0u;
+      const unsigned int* pr = part + s.row * segs;
+      for (int i = tid; i < segs; i += QTHREADS) m = max(m, __ldcg(pr + i));
+      absmax = __uint_as_float(block_max(m, red));
+    }
+    const float scale = quant_scale(absmax);
     if (s.first && tid == 0) scales[s.row] = scale;
     const E* xr = x + s.row * N;
     signed char* qr = q + s.row * N;
@@ -557,8 +573,8 @@ quantize_int8_kernel(const E* __restrict__ x, signed char* __restrict__ q,
       for (int u = QUNROLL - 1; u >= 0; --u) {
         const long long k = k0 + u * QTHREADS + tid;
         if (k < nv)
-          v[u] = sbase + k < STASH_VECS ? stash[sbase + k]
-                                        : ldg16_l2(xv + k);
+          v[u] = !GIVEN && sbase + k < STASH_VECS ? stash[sbase + k]
+                                                  : ldg16_l2(xv + k);
       }
 #pragma unroll
       for (int u = QUNROLL - 1; u >= 0; --u) {
@@ -611,7 +627,7 @@ struct QuantPlan {
 template <typename E, bool QV>
 long long resident_blocks() {
   static const long long n = [] {
-    auto kernel = quantize_int8_kernel<E, QV>;
+    auto kernel = quantize_int8_kernel<E, QV, false>;
     cudaFuncSetAttribute(kernel,
                          cudaFuncAttributePreferredSharedMemoryCarveout,
                          cudaSharedmemCarveoutMaxShared);
@@ -639,10 +655,13 @@ QuantPlan quant_plan(long long M, long long N) {
   return p;
 }
 
+// The plan is the cooperative kernel's for either form, so a given
+// absmax walks the same items with the same grid.
 template <typename E, bool QV>
 int launch_quantize(const void* x, signed char* q, float* scales,
-                    unsigned int* part, long long M, long long N, int xoff,
-                    long long segs, cudaStream_t stream) {
+                    unsigned int* part, const float* given, long long M,
+                    long long N, int xoff, long long segs,
+                    cudaStream_t stream) {
   const QuantPlan p = quant_plan<E, QV>(M, N);
   if (p.resident <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   if (p.segs != segs) return static_cast<int>(cudaErrorInvalidValue);
@@ -653,11 +672,15 @@ int launch_quantize(const void* x, signed char* q, float* scales,
   cudaLaunchAttribute coop;
   coop.id = cudaLaunchAttributeCooperative;
   coop.val.cooperative = 1;
-  cfg.attrs = &coop;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, quantize_int8_kernel<E, QV>, static_cast<const E*>(x), q, scales,
-      part, M, N, static_cast<int>(p.segs), xoff);
+  cfg.attrs = given ? nullptr : &coop;
+  cfg.numAttrs = given ? 0 : 1;
+  const E* xe = static_cast<const E*>(x);
+  const int sg = static_cast<int>(p.segs);
+  const cudaError_t err =
+      given ? cudaLaunchKernelEx(&cfg, quantize_int8_kernel<E, QV, true>, xe,
+                                 q, scales, part, given, M, N, sg, xoff)
+            : cudaLaunchKernelEx(&cfg, quantize_int8_kernel<E, QV, false>,
+                                 xe, q, scales, part, given, M, N, sg, xoff);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -693,29 +716,31 @@ extern "C" int quantize_int8_plan(long long M, long long N, int dtype,
 
 // x (M, N) row-major of `dtype` (common.cuh's code), any base offset;
 // q (M, N) int8 with a 16-byte aligned base, scales (M,) fp32; part
-// (M * segs) 32-bit scratch, segs from quantize_int8_plan.  One launch on
-// `stream`; returns cudaGetLastError().
+// (M * segs) 32-bit scratch, segs from quantize_int8_plan; absmax null, or
+// the rows' (M,) fp32 absmax, given (then part may be null).  One launch
+// on `stream`; returns cudaGetLastError().
 extern "C" int quantize_int8(const void* x, signed char* q, float* scales,
-                             unsigned int* part, long long M, long long N,
-                             long long segs, int dtype, void* stream) {
+                             unsigned int* part, const float* absmax,
+                             long long M, long long N, long long segs,
+                             int dtype, void* stream) {
   const int esz = dtype == DTYPE_BF16 ? 2 : 4;
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
   if (M <= 0 || N <= 0 || segs <= 0 || xa % esz != 0 ||
-      reinterpret_cast<uintptr_t>(q) % 16 != 0)
+      reinterpret_cast<uintptr_t>(q) % 16 != 0 || (!part && !absmax))
     return static_cast<int>(cudaErrorInvalidValue);
   const int xoff = static_cast<int>(xa % 16) / esz;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case DTYPE_F32:
-      return xoff ? launch_quantize<float, false>(x, q, scales, part, M, N,
-                                                  xoff, segs, s)
-                  : launch_quantize<float, true>(x, q, scales, part, M, N,
-                                                 xoff, segs, s);
+      return xoff ? launch_quantize<float, false>(x, q, scales, part, absmax,
+                                                  M, N, xoff, segs, s)
+                  : launch_quantize<float, true>(x, q, scales, part, absmax,
+                                                 M, N, xoff, segs, s);
     case DTYPE_BF16:
       return xoff ? launch_quantize<__nv_bfloat16, false>(
-                        x, q, scales, part, M, N, xoff, segs, s)
+                        x, q, scales, part, absmax, M, N, xoff, segs, s)
                   : launch_quantize<__nv_bfloat16, true>(
-                        x, q, scales, part, M, N, xoff, segs, s);
+                        x, q, scales, part, absmax, M, N, xoff, segs, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -141,11 +141,13 @@ def rglru(x, gx, ga, log_a, h0):
                       log_a.contiguous(), h0.contiguous())
 
 
-def quantize(x):
-    """Per-row symmetric int8: x (M, N) -> (int8 (M, N), fp32 (M, 1))."""
+def quantize(x, absmax=None):
+    """Per-row symmetric int8: x (M, N) -> (int8 (M, N), fp32 (M, 1));
+    ``absmax``: the rows' (M,) fp32 absmax, given (a split leaf's whole
+    absmax), else x's own."""
     if x.device.type == "cpu":
-        return quantize_int8_plain(x)
-    return quantize_int8(x.contiguous())
+        return quantize_int8_plain(x, absmax)
+    return quantize_int8(x.contiguous(), absmax)
 
 
 def dequantize(q, scales, *, out_dtype=None):

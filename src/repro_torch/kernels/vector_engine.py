@@ -9,7 +9,9 @@ plain PyTorch version of the same function beside it:
 - ``quantize_int8`` (K3): per-row symmetric int8, x (M, N) float32 or
   bfloat16 -> (int8 (M, N), fp32 scales (M, 1)), the codes byte-equal to
   the plain version; replaces ``repro/kernels/vector_engine.py::
-  quantize_int8``.
+  quantize_int8``.  Given each row's absmax (a rank's block of a leaf
+  split over a mesh takes the whole leaf's), it uses that one instead of
+  its own, and skips the pass that finds it.
 - ``dequantize_int8`` (K4): q * scale in fp32, cast to ``out_dtype``;
   replaces ``repro/kernels/vector_engine.py::dequantize_int8``.
 
@@ -36,20 +38,33 @@ def fused_affine_act_plain(x: torch.Tensor, scale: torch.Tensor,
     return _ACTS[act](y).to(out_dtype or x.dtype)
 
 
-def quantize_int8_plain(x: torch.Tensor
+def quantize_int8_plain(x: torch.Tensor,
+                        absmax: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (M, N) -> (int8 (M, N), fp32 row scales (M, 1)).  A NaN or Inf
     in a row makes its scale NaN or Inf and each of its codes 0 (a NaN
     quotient casts to 0, as XLA casts it), so the row dequantizes to NaN,
-    as in JAX."""
+    as in JAX.  ``absmax``: the rows' (M,) or (M, 1) fp32 absmax, taken in
+    place of x's own."""
     x32 = x.float()
-    absmax = x32.abs().amax(dim=-1, keepdim=True)
+    if absmax is None:
+        absmax = x32.abs().amax(dim=-1, keepdim=True)
+    else:
+        absmax = _given_absmax(absmax, x.shape[0])
     # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
     # by its reciprocal, one ulp off the IEEE quotient K3 and the CPU give
     scale = torch.clamp(absmax, min=1e-12) / torch.full_like(absmax, 127.0)
     q = torch.nan_to_num(torch.clamp(torch.round(x32 / scale), -127, 127),
                          nan=0.0).to(torch.int8)
     return q, scale
+
+
+def _given_absmax(absmax: torch.Tensor, M: int) -> torch.Tensor:
+    """A given absmax as an (M, 1) fp32 column."""
+    if absmax.dtype != torch.float32 or absmax.numel() != M:
+        raise ValueError(f"absmax {absmax.dtype} {tuple(absmax.shape)} for "
+                         f"{M} rows: want {M} float32 values")
+    return absmax.reshape(M, 1)
 
 
 def dequantize_int8_plain(q: torch.Tensor, scales: torch.Tensor, *,
@@ -69,7 +84,7 @@ def _lib() -> ctypes.CDLL:
                                            + [ctypes.c_int] * 2
                                            + [ctypes.c_void_p])
         lib.quantize_int8_plan.restype = ctypes.c_int
-        lib.quantize_int8.argtypes = ([ctypes.c_void_p] * 4
+        lib.quantize_int8.argtypes = ([ctypes.c_void_p] * 5
                                       + [ctypes.c_longlong] * 3
                                       + [ctypes.c_int, ctypes.c_void_p])
         lib.quantize_int8.restype = ctypes.c_int
@@ -137,26 +152,36 @@ def quantize_plan(M: int, N: int, dtype: torch.dtype,
                     out))
 
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor, absmax: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (M, N) float32 or bfloat16 on the card -> (int8 (M, N), fp32
-    scales (M, 1)), byte-equal to ``quantize_int8_plain``.  One kernel
-    launch a call (``launches`` counts them): absmax and codes in one
-    cooperative grid, parted by a grid barrier."""
+    scales (M, 1)), byte-equal to ``quantize_int8_plain`` (given the same
+    ``absmax``).  One kernel launch a call (``launches`` counts them):
+    absmax and codes in one cooperative grid, parted by a grid barrier;
+    with ``absmax`` ((M,) or (M, 1) fp32 on the card) the codes alone, in
+    an ordinary launch of the same grid."""
     M, N = _rows("quantize_int8", x)
     if M == 0 or N == 0:
         raise ValueError(f"quantize_int8: an empty row has no absmax "
                          f"({tuple(x.shape)})")
     code = _build.dtype_code(x.dtype)
-    _build.require_cuda("quantize_int8", x)
+    if absmax is not None:
+        absmax = _given_absmax(absmax, M).contiguous()
+        _build.require_cuda("quantize_int8", x, absmax)
+    else:
+        _build.require_cuda("quantize_int8", x)
     q = torch.empty((M, N), dtype=torch.int8, device=x.device)
     scales = torch.empty((M, 1), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         segs = quantize_plan(M, N, x.dtype, x.data_ptr() % 16 == 0)["segs"]
-        part = torch.empty((M * segs,), dtype=torch.int32, device=x.device)
+        part = (torch.empty((M * segs,), dtype=torch.int32, device=x.device)
+                if absmax is None else None)
         lib = _lib()
-        err = lib.quantize_int8(x.data_ptr(), q.data_ptr(), scales.data_ptr(),
-                                part.data_ptr(), M, N, segs, code,
-                                _build.stream_of(x))
+        err = lib.quantize_int8(
+            x.data_ptr(), q.data_ptr(), scales.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if absmax is None else absmax.data_ptr(), M, N, segs, code,
+            _build.stream_of(x))
     _build.check(lib, err, "quantize_int8")
     quantize_int8.launches += 1
     return q, scales

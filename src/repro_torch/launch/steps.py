@@ -7,21 +7,34 @@ rank calls the step on its own blocks: the batch's and cache's block along
 ``batch_axes`` (the axes ``sharding.batch_axes`` gives the whole batch
 under the caller's rules), the parameters ``transformer.place_params``
 placed for the same ``batch_axes``; the ``sharding.ActSharder`` of the
-mesh and those axes sends the MoE FFN down the expert-parallel path.
-Training over more than one rank (the gradient's
-reduction over data, the experts' backward) is not ported: such a train
-step raises. The training step takes the gradient with
-``torch.autograd.grad`` over the parameter leaves (on the card the SSD
-scan's through K8b, attention's through K5b and the RG-LRU's through K7b),
-accumulates microbatches in a Python loop where the JAX package scans,
-applies the int8 wire transform of ``distributed.compression`` (K3 and K4
-on the card) when ``tcfg.grad_compression == "int8"``, then AdamW.
+mesh and those axes sends the MoE FFN down the expert-parallel path.  The
+training step takes the gradient with ``torch.autograd.grad`` over the
+parameter leaves (on the card the SSD scan's through K8b, attention's
+through K5b and the RG-LRU's through K7b, the expert-parallel MoE's
+through ``distributed.collectives``), accumulates microbatches in a
+Python loop where the JAX package scans, applies the int8 wire transform
+of ``distributed.compression`` (K3 and K4 on the card) when
+``tcfg.grad_compression == "int8"``, then AdamW.
+
+Over a mesh the step computes the function JAX's jitted step computes on
+the global batch: each rank scales its loss by 1 / (the mesh's ranks),
+and after the backward (microbatches accumulated within the rank) each
+leaf's gradient is summed in fp32 over the ranks that hold the same block
+of it (``leaf_axes``): a whole leaf over every rank, an ``ep`` expert
+block over ``data``, an ``ep_resident`` one over nothing.  The int8
+transform then acts on the reduced gradient, a split leaf's blocks
+against the whole leaf's absmax; the global norm counts each block once;
+``metrics["loss"]`` is the global mean.
 """
 from __future__ import annotations
 
+from typing import List, Tuple
+
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import decode as DE
 from repro_torch.models import transformer as T
@@ -37,13 +50,16 @@ def loss_fn(cfg: ModelConfig, params, batch, shard=None) -> torch.Tensor:
     return T.softmax_xent(logits, batch["labels"])
 
 
-def value_and_grad(cfg: ModelConfig, params, batch, shard=None):
+def value_and_grad(cfg: ModelConfig, params, batch, shard=None,
+                   scale: float = 1.0):
     """(loss, grads) of ``loss_fn`` in the parameters, grads in each
-    parameter's dtype, as ``jax.value_and_grad`` gives them."""
+    parameter's dtype, as ``jax.value_and_grad`` gives them; ``scale``
+    multiplies the loss that is differentiated (not the one returned)."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
         loss = loss_fn(cfg, tree_unflatten(params, leaves), batch, shard)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss * scale if scale != 1.0 else loss,
+                                    leaves)
     return loss.detach(), tree_unflatten(params, list(grads))
 
 
@@ -52,18 +68,47 @@ def _sharder(mesh, batch_axes):
     return None if mesh is None else SH.make_act_sharder(mesh, batch_axes)
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None):
-    """The train step; ``mesh``: one of a single rank (more raise
-    ``NotImplementedError``)."""
-    if mesh is not None and SH.mesh_size(mesh) > 1:
-        raise NotImplementedError(
-            "make_train_step: training over a mesh of more than one rank is "
-            "the next slice of the port (the data-parallel gradient "
-            "reduction and the expert-parallel backward)")
-    shard = _sharder(mesh, ())
-    sched = adamw.cosine_schedule(tcfg.lr, tcfg.warmup_steps, tcfg.total_steps)
+def leaf_axes(cfg: ModelConfig, mesh, batch_axes: Tuple[str, ...]
+              ) -> List[Tuple[Tuple[str, ...], Tuple[str, ...]]]:
+    """For each parameter leaf, in ``tree_leaves`` order: (the mesh axes
+    its block is split over, the axes of more than one rank its gradient
+    is summed over: every other axis), from
+    ``transformer.param_block_specs``."""
+    specs = tree_leaves(T.param_block_specs(cfg, mesh, batch_axes=batch_axes),
+                        is_leaf=SH.is_spec)
+    names = tuple(SH.mesh_shape(mesh))
+    out = []
+    for spec in specs:
+        split = coll.split_axes(spec)
+        out.append((split, coll.live_axes(
+            mesh, [a for a in names if a not in split])))
+    return out
 
-    def train_step(params, opt_state, batch):
+
+def _reduce_grouped(values: torch.Tensor, groups, mesh, op) -> torch.Tensor:
+    """``values`` (n,): entry i reduced over the axes ``groups[i]``, one
+    collective a distinct group and axis."""
+    for axes in sorted(set(groups)):
+        if not coll.live_axes(mesh, axes):
+            continue
+        idx = torch.tensor([i for i, g in enumerate(groups) if g == axes],
+                           device=values.device)
+        values[idx] = coll.reduce_(values[idx], mesh, axes, op)
+    return values
+
+
+def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
+                 batch_axes: Tuple[str, ...] = ()):
+    """``(params, batch) -> (loss, grads)``: the train step's loss and the
+    gradient it hands AdamW (microbatches accumulated; over a mesh the
+    global mean's, each leaf reduced as ``leaf_axes`` says, in fp32; int8
+    when ``tcfg`` asks)."""
+    shard = _sharder(mesh, batch_axes)
+    world = 1 if mesh is None else SH.mesh_size(mesh)
+    axes = leaf_axes(cfg, mesh, batch_axes) if world > 1 else None
+    scale = 1.0 / world
+
+    def grad_fn(params, batch):
         if tcfg.microbatches > 1:
             # gradient accumulation over microbatches, in fp32
             n = tcfg.microbatches
@@ -75,24 +120,79 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None):
             for i in range(n):
                 l, g = value_and_grad(cfg, params,
                                        {k: v[i] for k, v in mb.items()},
-                                       shard)
+                                       shard, scale)
                 lsum = lsum + l
                 gsum = tree_map(torch.add, gsum, g)
             loss = lsum / n
             grads = tree_map(lambda g: g / n, gsum)
         else:
-            loss, grads = value_and_grad(cfg, params, batch, shard)
+            loss, grads = value_and_grad(cfg, params, batch, shard, scale)
+        leaves = tree_leaves(grads)
+        del grads
+        if axes is not None:
+            # the global mean's gradient: each leaf summed over the ranks
+            # that hold its block, in fp32, one leaf at a time
+            for i, (_, over) in enumerate(axes):
+                leaves[i] = coll.reduce_(leaves[i].float(), mesh, over)
+            loss = coll.reduce_(loss * scale, mesh, tuple(SH.mesh_shape(mesh)))
         if tcfg.grad_compression == "int8":
             # int8 + error-feedback DP gradient compression: stateless per
             # step, as in the JAX package (zeros in, the residual dropped);
             # the quantize -> dequantize wire transform runs K3 and K4
             from repro_torch.distributed import compression as GC
-            err = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
-                                                 device=g.device), grads)
-            grads, _ = GC.compress_grads(grads, err)
+            GC.wire_transform(leaves, None if axes is None else
+                              _whole_absmax(leaves, axes, mesh))
+        return loss, tree_unflatten(params, leaves)
+
+    return grad_fn
+
+
+def norm_reduction(cfg: ModelConfig, mesh=None,
+                   batch_axes: Tuple[str, ...] = ()):
+    """The ``reduce_sq`` of ``adamw.global_norm`` for a gradient tree of
+    ``make_grad_fn`` over ``mesh``: each split leaf's sum of squares summed
+    over the axes it is split on, so each block counts once.  None off a
+    mesh of more than one rank."""
+    if mesh is None or SH.mesh_size(mesh) == 1:
+        return None
+    split = [s for s, _ in leaf_axes(cfg, mesh, batch_axes)]
+    return lambda sq: _reduce_grouped(sq, split, mesh, dist.ReduceOp.SUM)
+
+
+def _whole_absmax(leaves, axes, mesh):
+    """Each leaf's whole absmax where this rank holds a block of it (the
+    blocks' maxima, reduced MAX over the split axes), else None."""
+    split = [coll.live_axes(mesh, s) for s, _ in axes]
+    if not any(split):
+        return None
+
+    def local(g):
+        lo, hi = torch.aminmax(g)
+        return torch.maximum(-lo, hi).float()
+
+    zero = leaves[0].new_zeros((), dtype=torch.float32)
+    amax = torch.stack([local(g) if s else zero
+                        for g, s in zip(leaves, split)])
+    amax = _reduce_grouped(amax, split, mesh, dist.ReduceOp.MAX)
+    return [amax[i] if s else None for i, s in enumerate(split)]
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
+                    batch_axes: Tuple[str, ...] = ()):
+    """The train step; on ``mesh`` each rank passes its blocks of the
+    parameters (``transformer.place_params`` for the same ``batch_axes``)
+    and of a batch split over ``batch_axes``, and gets its blocks of the
+    updated tree; the metrics are the whole tree's, equal on every rank."""
+    grad_fn = make_grad_fn(cfg, tcfg, mesh=mesh, batch_axes=batch_axes)
+    reduce_sq = norm_reduction(cfg, mesh, batch_axes)
+    sched = adamw.cosine_schedule(tcfg.lr, tcfg.warmup_steps, tcfg.total_steps)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = grad_fn(params, batch)
         params, opt_state, metrics = adamw.apply(
             params, grads, opt_state, sched=sched, b1=tcfg.b1, b2=tcfg.b2,
-            weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip)
+            weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip,
+            reduce_sq=reduce_sq)
         metrics["loss"] = loss
         return params, opt_state, metrics
 

@@ -1,9 +1,16 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch mamba2-370m``.
 
-The port of the JAX package's ``launch/train.py`` on one card: init from a
-seed, deterministic resumable data (``TokenStream``), AdamW train steps,
+The port of the JAX package's ``launch/train.py``, on one card or over a
+mesh of ranks (``mesh=``: every rank calls ``train``): init from a seed,
+deterministic resumable data (``TokenStream``), AdamW train steps,
 periodic atomic checkpoints, crash-restart resume (``--resume``) and step
-timing logs.  ``--smoke`` (the default, as in the JAX launcher) takes the
+timing logs.  Over a mesh each rank takes its block of the stream's global
+batch and places its blocks of the parameters from the seed's generator
+(``transformer.place_params``, which draws as ``init_params`` does), the
+step reduces the gradient over the ranks (``launch.steps``), the mesh's
+first rank logs and writes the whole tree to the checkpoints and
+``restore`` gives each rank its blocks, so a resumed run continues the
+exact trajectory.  ``--smoke`` (the default, as in the JAX launcher) takes the
 reduced config, ``--full`` the published one; ``--device cpu`` runs the
 plain PyTorch path on the CPU, and without it the run needs the card.
 Each step's loss is read on the host, which waits for the card, so the
@@ -29,6 +36,7 @@ from repro_torch.checkpoint import manager as ckpt
 from repro_torch.configs import TrainConfig, get_arch
 from repro_torch.data.pipeline import TokenStream
 from repro_torch.device import resolve
+from repro_torch.distributed import sharding as SH
 from repro_torch.launch import steps as ST
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
@@ -41,39 +49,60 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
           seq: int = 128, ckpt_dir: str = DEFAULT_CKPT_DIR,
           resume: bool = False, checkpoint_every: int = 20,
           log_every: int = 10, microbatches: int = 1, seed: int = 0,
-          stop_at: int = 0, device=None):
+          stop_at: int = 0, device=None, mesh=None, batch_axes=None,
+          grad_compression: str = "none"):
     """``stop_at`` simulates a crash: run ends early but the LR schedule
     and checkpoints are laid out for the full ``steps`` run, so a resumed
     run continues the exact trajectory.  ``device=None`` means the card
-    (and raises without CUDA).  Returns the loss of every step run."""
+    (and raises without CUDA).  ``mesh``: train over it, ``batch`` the
+    global batch split over ``batch_axes`` (None: ``sharding.batch_axes``
+    under ``TRAIN_RULES``).  ``grad_compression``: ``TrainConfig``'s
+    (``"int8"``: the wire transform of the reduced gradient).  Returns the
+    (global) loss of every step run."""
     dev = resolve(device)
     cfg = get_arch(arch)
     if smoke:
         cfg = cfg.reduced()
     tcfg = TrainConfig(total_steps=steps, warmup_steps=max(2, steps // 10),
                        microbatches=microbatches,
-                       checkpoint_every=checkpoint_every, checkpoint_dir=ckpt_dir)
+                       checkpoint_every=checkpoint_every, checkpoint_dir=ckpt_dir,
+                       grad_compression=grad_compression)
 
-    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
-                           device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if mesh is None:
+        baxes, on_mesh = (), {}
+        params = T.init_params(cfg, gen, device=dev)
+    else:
+        baxes = (SH.batch_axes(batch, SH.TRAIN_RULES, mesh)
+                 if batch_axes is None else tuple(batch_axes))
+        pspecs = T.param_block_specs(cfg, mesh, batch_axes=baxes)
+        specs = (pspecs, adamw.AdamWState(SH.P(), pspecs, pspecs))
+        on_mesh = {"mesh": mesh, "specs": specs}
+        params = T.place_params(cfg, gen, mesh, batch_axes=baxes, device=dev)
     opt_state = adamw.init(params)
+    logs = mesh is None or SH.is_first_rank(mesh)
     start_step = 0
     if resume and ckpt.latest_step(ckpt_dir) is not None:
         (params, opt_state), start_step, _ = ckpt.restore(
-            ckpt_dir, (params, opt_state), device=dev)
-        print(f"[train] resumed from step {start_step}")
+            ckpt_dir, (params, opt_state), device=dev, **on_mesh)
+        if logs:
+            print(f"[train] resumed from step {start_step}")
 
-    step_fn = ST.make_train_step(cfg, tcfg)
+    step_fn = ST.make_train_step(cfg, tcfg, mesh=mesh, batch_axes=baxes)
     stream = TokenStream(cfg, batch, seq, seed, device=dev)
+    bspec = SH.P(baxes if len(baxes) > 1 else baxes[0]) if baxes else SH.P()
 
     losses = []
     t_last = time.time()
     end = min(steps, stop_at) if stop_at else steps
     for step in range(start_step, end):
         batch_data = stream.batch_at(step)
+        if mesh is not None:
+            batch_data = {k: SH.local_block(v, bspec, mesh)
+                          for k, v in batch_data.items()}
         params, opt_state, metrics = step_fn(params, opt_state, batch_data)
         losses.append(float(metrics["loss"]))
-        if (step + 1) % log_every == 0 or step == end - 1:
+        if logs and ((step + 1) % log_every == 0 or step == end - 1):
             dt = (time.time() - t_last) / log_every
             print(f"[train] step {step + 1}/{steps} "
                   f"loss={losses[-1]:.4f} gnorm={float(metrics['grad_norm']):.3f} "
@@ -82,7 +111,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
             t_last = time.time()
         if (step + 1) % checkpoint_every == 0 or step == end - 1:
             ckpt.save(ckpt_dir, step + 1, (params, opt_state),
-                      extras={"arch": arch, "seed": seed})
+                      extras={"arch": arch, "seed": seed}, **on_mesh)
     return losses
 
 
@@ -96,6 +125,8 @@ def main():
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--grad-compression", default="none",
+                    choices=("none", "int8"))
     ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR)
     ap.add_argument("--device", default=None,
                     help="cpu for the plain PyTorch path (default: the card)")
@@ -103,6 +134,7 @@ def main():
     losses = train(args.arch, smoke=args.smoke, steps=args.steps,
                    batch=args.batch, seq=args.seq, resume=args.resume,
                    microbatches=args.microbatches, ckpt_dir=args.ckpt_dir,
+                   grad_compression=args.grad_compression,
                    device=args.device)
     print(f"[train] first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
 

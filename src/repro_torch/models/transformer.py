@@ -305,6 +305,15 @@ def expert_spec(pd: PDef, layout: Optional[str]) -> SH.P:
     return SH.P(*parts)
 
 
+def param_block_specs(cfg: ModelConfig, mesh, *,
+                      batch_axes: Tuple[str, ...]) -> Pytree:
+    """The spec of the block of each leaf that ``place_params`` gives a
+    rank on ``mesh`` for a batch split over ``batch_axes`` (``P()`` for a
+    whole leaf)."""
+    layout = moe_ep.moe_layout(cfg, mesh, batch_axes)
+    return tree_map(lambda pd: expert_spec(pd, layout), param_defs(cfg))
+
+
 def place_params(cfg: ModelConfig, source, mesh, *,
                  batch_axes: Tuple[str, ...], device=None) -> Pytree:
     """This rank's parameters on ``mesh``, the counterpart of the JAX
@@ -627,8 +636,38 @@ def encode(cfg: ModelConfig, params, frames, shard=None):
     return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
+class _TokenRows(torch.autograd.Function):
+    """``table[tokens]``, whose gradient sums the rows of a repeated token
+    in fp32 and rounds once to the table's dtype.  Indexing's own backward
+    accumulates in the table's dtype: in bf16 a token seen N times takes
+    up to N roundings, and the frequent tokens of a Zipf stream are seen
+    hundreds of times a batch (on an H100, qwen3-moe's bf16 embedding
+    gradient at 4 x 1024 tokens moved 16% between one card and a mesh
+    that split the batch over two ranks, the rest of the tree 0.2%).  The
+    fp32 sums are held for the batch's distinct tokens only, not the whole
+    table."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.shape, ctx.dtype = table.shape, table.dtype
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        rows, inv = torch.unique(tokens.reshape(-1).long(),
+                                 return_inverse=True)
+        acc = g.new_zeros((rows.numel(), ctx.shape[-1]), dtype=torch.float32)
+        acc.index_put_((inv,), g.reshape(-1, ctx.shape[-1]).float(),
+                       accumulate=True)
+        out = g.new_zeros(ctx.shape, dtype=ctx.dtype)
+        out[rows] = acc.to(ctx.dtype)
+        return out, None
+
+
 def embed_tokens(cfg: ModelConfig, params, tokens):
-    x = params["embed"][tokens]
+    x = _TokenRows.apply(params["embed"], tokens)
     if cfg.family == "hybrid":                       # gemma-style embed scale
         # the scale rounded to the model's dtype first (bf16: 50.5, not
         # 50.596 at d_model 2560), as the JAX package does

@@ -6,12 +6,16 @@ int32 step, the schedule and the bias corrections (``b1 ** t`` included)
 are fp32 tensors on the parameters' device, so a step never waits on the
 host.  Nothing is updated in place: ``apply`` returns new trees, as the
 JAX version does.  Gradient accumulation and the optional int8 compression
-live in ``launch.steps.make_train_step``.
+live in ``launch.steps.make_train_step``.  Over a mesh a rank may hold one
+block of a leaf: the global norm then sums each split leaf's squares over
+the ranks of its blocks (the ``reduce_sq`` that ``launch.steps`` gives
+``apply``), so the clip and the reported norm are the whole tree's; the
+update of a block stays local.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,23 +58,36 @@ def cosine_schedule(lr: float, warmup: int, total: int
     return sched
 
 
-def global_norm(tree: Pytree) -> torch.Tensor:
+def global_norm(tree: Pytree,
+                reduce_sq: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                = None) -> torch.Tensor:
+    """sqrt of the sum of the leaves' sums of squares, in leaf order (the
+    JAX package's order).  ``reduce_sq``: given the (n_leaves,) fp32 sums
+    of this rank's leaves, the whole leaves' sums (each split leaf's summed
+    over its blocks)."""
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    if reduce_sq is not None:
+        leaves = list(reduce_sq(torch.stack(leaves)).unbind())
     return torch.sqrt(sum(leaves))
 
 
-def clip_by_global_norm(grads: Pytree, max_norm: float
+def clip_by_global_norm(grads: Pytree, max_norm: float,
+                        reduce_sq: Optional[Callable[[torch.Tensor],
+                                                     torch.Tensor]] = None
                         ) -> Tuple[Pytree, torch.Tensor]:
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return tree_map(lambda g: g.float() * scale, grads), norm
+    gnorm = global_norm(grads, reduce_sq)
+    scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
+    return tree_map(lambda g: g.float() * scale, grads), gnorm
 
 
 def apply(params: Pytree, grads: Pytree, state: AdamWState, *,
           sched: Callable[[torch.Tensor], torch.Tensor], b1=0.9, b2=0.95,
-          eps=1e-8, weight_decay=0.1, grad_clip=1.0
+          eps=1e-8, weight_decay=0.1, grad_clip=1.0,
+          reduce_sq: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
           ) -> Tuple[Pytree, AdamWState, dict]:
-    grads, gnorm = clip_by_global_norm(grads, grad_clip)
+    """One AdamW step; ``reduce_sq`` as ``global_norm``'s (over a mesh, so
+    the norm is the whole tree's)."""
+    grads, gnorm = clip_by_global_norm(grads, grad_clip, reduce_sq)
     step = state.step + 1
     lr = sched(state.step)
     t = step.float()

@@ -1,0 +1,114 @@
+"""The pieces of training over a mesh, on a gloo group of 4 ranks on the
+CPU (``launch.mesh.run_ranks``, one spawn for the module; the rank
+function is ``torch_mesh_ranks.units_rank``).
+
+- ``collectives.psum`` and ``all_gather_tiled`` over each axis of a (2, 2)
+  mesh: each rank differentiates sum(y * w_r) in its x_r; the forward must
+  be the sum (the concatenation in the axis's order) of the group's x, and
+  x_r's gradient autograd's gradient of the sum over all ranks of
+  sum(y_r * w_r) in x_r, computed here in one process (fp32, 1e-6).
+- The global norm AdamW takes with ``launch.steps.norm_reduction``, over
+  the reduced qwen3-moe's placed parameters (``ep``: experts split over
+  model; ``ep_resident``: also their width over data): each block counted
+  once, so it is the whole tree's norm (1e-6 relative).
+- The launcher over a mesh: the reduced qwen3-moe (``ep_resident``) over
+  (2, 2) and the reduced Mamba-2 over a (2, 1) mesh of two ranks train
+  4 steps straight and as 2 + a crash + a resume of 2, which must give
+  the same losses exactly (JAX's ``test_train_crash_restart_resumes_
+  identically``, on a mesh); the straight losses are one process's within
+  1e-5 (fp32; the sums run in another order), and the mesh's step-2
+  checkpoint, restored in one process, continues to the mesh's last two
+  losses within 1e-5.
+"""
+import dataclasses
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.checkpoint import manager as ckpt
+from repro_torch.configs import get_arch
+from repro_torch.launch import mesh as M
+from repro_torch.launch import train as TR
+from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
+from torch_mesh_ranks import UNIT_MOE, UNIT_TRAIN, units_rank
+
+SHAPE = {"data": 2, "model": 2}
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    out = tmp_path_factory.mktemp("mesh_units")
+    M.run_ranks(units_rank, 4, str(out), timeout_s=300)
+    return out, [dict(np.load(out / f"rank{r}.npz")) for r in range(4)]
+
+
+def _groups(axis):
+    """The ranks of each group along ``axis`` of the (2, 2) mesh, in the
+    axis's order (rank = 2 * data + model)."""
+    if axis == "model":
+        return [[0, 1], [2, 3]]
+    return [[0, 2], [1, 3]]
+
+
+@pytest.mark.parametrize("axis", ["data", "model"])
+@pytest.mark.parametrize("name", ["psum", "gather"])
+def test_a_collectives_backward_is_autograd_of_the_sum_over_ranks(
+        ranks, name, axis):
+    got = ranks[1]
+    key = f"{name}_{axis}"
+    xs = [torch.from_numpy(r[f"{key}_x"]).requires_grad_() for r in got]
+    total = 0.0
+    for group in _groups(axis):
+        if name == "psum":
+            y = sum(xs[r] for r in group)
+        else:
+            y = torch.cat([xs[r] for r in group])
+        for r in group:
+            np.testing.assert_allclose(got[r][f"{key}_y"],
+                                       y.detach().numpy(), rtol=1e-6,
+                                       atol=1e-6)
+            total = total + (y * torch.from_numpy(got[r][f"{key}_w"])).sum()
+    want = torch.autograd.grad(total, xs)
+    for r in range(4):
+        np.testing.assert_allclose(got[r][f"{key}_dx"], want[r].numpy(),
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("impl", ["ep", "ep_resident"])
+def test_the_mesh_global_norm_counts_each_block_once(ranks, impl):
+    cfg = dataclasses.replace(get_arch(UNIT_MOE).reduced(), moe_impl=impl)
+    whole = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    want = adamw.global_norm(whole).item()
+    for r in ranks[1]:
+        np.testing.assert_allclose(float(r[f"norm_{impl}"]), want,
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("tag,arch,world", [("moe", UNIT_MOE, 4),
+                                            ("mamba", "mamba2-370m", 2)])
+def test_a_mesh_run_resumes_identically_and_is_one_process(
+        ranks, tmp_path, tag, arch, world):
+    out, got = ranks
+    straight = got[0][f"{tag}_straight"]
+    for r in got[:world]:
+        np.testing.assert_array_equal(r[f"{tag}_straight"], straight)
+        np.testing.assert_array_equal(r[f"{tag}_resumed"], straight)
+    assert np.isfinite(straight).all() and straight[-1] < straight[0]
+    one = TR.train(arch, ckpt_dir=str(tmp_path / "one"), **UNIT_TRAIN)
+    np.testing.assert_allclose(straight, one, rtol=1e-5)
+    # the mesh's step-2 checkpoint, restored in one process, continues
+    shutil.copytree(out / f"{tag}_b" / "step_00000002",
+                    tmp_path / "half" / "step_00000002")
+    cont = TR.train(arch, ckpt_dir=str(tmp_path / "half"), resume=True,
+                    **UNIT_TRAIN)
+    np.testing.assert_allclose(cont, straight[2:], rtol=1e-5)
+    cfg = get_arch(arch).reduced()
+    tmpl = T.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    (p, o), step, _ = ckpt.restore(str(out / f"{tag}_a"),
+                                   (tmpl, adamw.init(tmpl)), device="cpu")
+    assert step == 4 and int(o.step) == 4
+    for a, b in zip(T.tree_leaves(p), T.tree_leaves(tmpl)):
+        assert a.shape == b.shape and torch.isfinite(a).all()

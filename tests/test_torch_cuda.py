@@ -1185,6 +1185,34 @@ def _assert_quantize_bytes_equal(x):
     assert torch.equal(s.view(torch.int32), ws.view(torch.int32))
 
 
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("m,n", [(1, (1 << 22) + 3), (3, 1001), (3000, 40),
+                                 (2, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_int8_given_absmax_bytes_equal_plain(cuda, offset, m, n,
+                                                      dtype):
+    """K3 given each row's absmax (a block of a split leaf takes the whole
+    leaf's: here 1.5 times the row's own, one row NaN and one 0): one
+    launch, codes and scales byte-equal to the plain version given the
+    same, at an aligned and an unaligned base."""
+    rng = np.random.default_rng(m + n + offset)
+    flat = _randn(rng, (m * n + offset,), torch.float32, cuda).to(dtype)
+    x = flat[offset:].view(m, n)
+    absmax = x.float().abs().amax(dim=-1) * 1.5
+    if m > 2:
+        absmax[1] = float("nan")
+        absmax[2] = 0.0
+    before = quantize_int8.launches
+    q, s = quantize_int8(x, absmax)
+    torch.cuda.synchronize()
+    assert quantize_int8.launches == before + 1
+    wq, ws = quantize_int8_plain(x, absmax)
+    assert torch.equal(q, wq)
+    assert torch.equal(s.view(torch.int32), ws.view(torch.int32))
+    own, _ = quantize_int8(x)
+    assert not torch.equal(own, q)
+
+
 @pytest.mark.parametrize("offset", [1, 2, 3, 5])
 @pytest.mark.parametrize("m,n", [(1, 4099), (3, 1001), (2, 20000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -16,6 +16,14 @@ relies on: on a (1, 8) mesh ``moe_ffn_ep`` is the gather path
 (2, 4); ``moe_ffn_ep`` on (2, 4) is the gather path over each data block
 on its own, its capacity counting the block.  JAX's ``aux`` is compared
 where it is defined (the resident form); ``moe_ffn_ep``'s each rank's own.
+
+The gradients: each rank differentiates its share of sum(out * c) (a data
+block's share split evenly over the model axis) through the collectives'
+backward (``distributed.collectives``); summed over the ranks that hold
+the same block (x over the model axis, the gate over every rank, an
+``ep`` expert block over the data axis, a resident block over none) they
+must be autograd's gradient of the gather path at the same bar, at both
+capacity factors (a dropped assignment passes no gradient).
 """
 import math
 import os
@@ -27,7 +35,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.distributed import moe_ep
 from repro_torch.launch import mesh as M
 from repro_torch.models import layers as L
 from torch_mesh_ranks import EP_CAPACITY, ep_rank
@@ -67,7 +74,7 @@ def runs(tmp_path_factory):
     f = lambda *s, std=1.0: (rng.standard_normal(s) * std).astype(np.float32)
     inputs = {"x": f(B, S, D), "wg": f(D, E), "w1": f(E, D, F_, std=0.1),
               "w3": f(E, D, F_, std=0.1), "w2": f(E, F_, D, std=0.1),
-              "k": np.int32(K)}
+              "k": np.int32(K), "c": f(B, S, D)}
     np.savez(tmp / "inputs.npz", **inputs)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
@@ -168,18 +175,54 @@ def test_a_mesh_the_world_does_not_fill_raises(runs):
     assert all(int(r["mismatch_raises"]) == 1 for r in runs[2])
 
 
-class _FakeMesh:
-    shape = {"data": 1, "model": 2}
+MESH_FORMS = [((2, 4), "ep"), ((2, 4), "resident"), ((1, 8), "ep")]
 
 
-@pytest.mark.parametrize("fn", [moe_ep.moe_ffn_ep, moe_ep.moe_ffn_ep_resident])
-def test_a_gradient_is_refused(fn):
-    """``dist.all_reduce`` carries no gradient: refused before any
-    collective, so a fake mesh will do."""
-    x = torch.randn(1, 4, D, requires_grad=True)
-    w1, w3 = torch.randn(4, D, F_), torch.randn(4, D, F_)
-    w2 = torch.randn(4, F_, D)
-    kw = dict(num_experts=E, d_ff=F_, k=K, capacity_factor=1.25,
-              act="silu", mesh=_FakeMesh(), batch_axes=())
-    with pytest.raises(RuntimeError, match="no backward"):
-        fn(x, torch.randn(D, E), w1, w3, w2, **kw)
+def _gather_grads(inputs, cf, blocks):
+    """Autograd's gradient of sum(out * c) through the gather path, over
+    the whole batch or (``blocks``) over each data block on its own."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    args = [t(inputs[n]).requires_grad_()
+            for n in ("x", "wg", "w1", "w3", "w2")]
+    parts = args[0].split(B // 2) if blocks else [args[0]]
+    cs = t(inputs["c"]).split(B // 2) if blocks else [t(inputs["c"])]
+    loss = 0.0
+    for xb, cb in zip(parts, cs):
+        out, _ = L.moe_ffn(xb.reshape(-1, D), *args[1:], num_experts=E, k=K,
+                           capacity_factor=cf)
+        loss = loss + (out.reshape(xb.shape) * cb).sum()
+    return dict(zip(("x", "wg", "w1", "w3", "w2"),
+                    (g.numpy() for g in torch.autograd.grad(loss, args))))
+
+
+def _reduced(ranks, key, shape, name):
+    """The ranks' gradients summed over the ranks of each block and put
+    together into whole tensors."""
+    data, model = shape
+    at = lambda di, mi, n: ranks[di * model + mi][f"{key}_d{n}"]
+    out = {"x": np.concatenate([sum(at(di, mi, "x") for mi in range(model))
+                                for di in range(data)]),
+           "wg": sum(r[f"{key}_dwg"] for r in ranks)}
+    for n in ("w1", "w3", "w2"):
+        if name == "ep":
+            out[n] = np.concatenate([sum(at(di, mi, n) for di in range(data))
+                                     for mi in range(model)])
+        else:       # F split over data: w1/w3's last dim, w2's middle one
+            fdim = 2 if n != "w2" else 1
+            out[n] = np.concatenate([
+                np.concatenate([at(di, mi, n) for di in range(data)],
+                               axis=fdim) for mi in range(model)])
+    return out
+
+
+@pytest.mark.parametrize("cf", EP_CAPACITY)
+@pytest.mark.parametrize("shape,name", MESH_FORMS)
+def test_gradients_summed_over_the_ranks_are_the_gather_paths(runs, shape,
+                                                              name, cf):
+    inputs, _, ranks = runs
+    got = _reduced(ranks, f"{shape[0]}x{shape[1]}_{name}_{cf}", shape, name)
+    want = _gather_grads(inputs, cf, blocks=shape[0] > 1 and name == "ep")
+    for n in want:
+        assert got[n].shape == want[n].shape, n
+        np.testing.assert_allclose(got[n], want[n], err_msg=n, **TOL)
+        assert np.abs(want[n]).max() > 0, n

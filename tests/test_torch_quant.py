@@ -32,6 +32,7 @@ from repro.kernels import ref as jref
 from repro_torch.distributed import compression as C
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.vector_engine import dequantize_int8, quantize_int8
+from repro_torch.models import transformer as T
 
 
 def _case(name, dtype, seed=0):
@@ -221,6 +222,77 @@ def test_compress_grads_takes_bf16_grads():
     for tree, jtree in ((deq, jdeq), (err, jerr)):
         for got, want in _pairs(tree, jtree):
             assert got.numpy().tobytes() == want.tobytes()
+
+
+SPLITS = [  # (whole shape, blocks: (dim, count) a split, major first)
+    ((8, 16, 12), [(0, 4)]),                 # ep: experts over model
+    ((8, 16, 12), [(0, 2), (2, 2)]),         # ep_resident: and F over data
+    ((8, 12, 16), [(0, 2), (1, 3)]),
+]
+
+
+def _blocks(x, splits):
+    """Every block of ``x`` under ``splits``, in index order."""
+    out = [x]
+    for dim, n in splits:
+        out = [part for t in out for part in t.chunk(n, dim=dim)]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,splits", SPLITS)
+def test_given_absmax_gives_each_block_the_whole_leafs_codes(shape, splits,
+                                                             dtype):
+    """K3's plain version given the whole leaf's absmax: each block's codes
+    are the whole leaf's codes of that block, byte for byte, and the
+    whole leaf's are JAX's ``compression._quantize_leaf``'s."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * 2.0
+                         ).to(dtype)
+    q, s = ops.quantize(x.reshape(1, -1))
+    jq, _ = JC._quantize_leaf(jnp.asarray(x.float().numpy()))
+    assert q.numpy().tobytes() == np.asarray(jq).reshape(1, -1).tobytes()
+    absmax = x.float().abs().amax().reshape(1)
+    qw = q.reshape(shape)
+    # the block holding the leaf's absmax would find it by itself; the
+    # others' own absmax is smaller, so their codes differ without it
+    differs = 0
+    for blk, want in zip(_blocks(x, splits), _blocks(qw, splits)):
+        got, gs = ops.quantize(blk.reshape(1, -1), absmax)
+        assert got.numpy().tobytes() == want.reshape(1, -1).numpy().tobytes()
+        assert gs.numpy().tobytes() == s.numpy().tobytes()
+        own, _ = ops.quantize(blk.reshape(1, -1))
+        differs += int(not torch.equal(own, got))
+    assert differs >= len(_blocks(x, splits)) - 1 > 0
+
+
+def test_a_given_absmax_must_be_one_fp32_value_a_row():
+    x = torch.randn(3, 8)
+    with pytest.raises(ValueError, match="absmax"):
+        ops.quantize(x, torch.ones(2))
+    with pytest.raises(ValueError, match="absmax"):
+        ops.quantize(x, torch.ones(3, dtype=torch.float64))
+    q, s = ops.quantize(x, x.abs().amax(dim=-1))
+    wq, ws = ops.quantize(x)
+    assert torch.equal(q, wq) and torch.equal(s, ws)
+
+
+def test_wire_transform_is_compress_grads_with_zero_error():
+    """The train step's stateless transform, in place on a list of leaves,
+    against ``compress_grads`` with a zero error tree and against JAX's,
+    byte for byte."""
+    import jax
+    g, _ = _grad_trees(5)
+    tg = _to_torch(g)
+    want, _ = C.compress_grads(tg, C.init_error_state(tg))
+    jwant, _ = JC.compress_grads(g, jax.tree.map(np.zeros_like, g))
+    leaves = T.tree_leaves(tg)
+    C.wire_transform(leaves)
+    jleaves = [np.asarray(x) for x in jax.tree.leaves(jwant)]
+    assert len(leaves) == len(jleaves) == 5
+    for got, w, jw in zip(leaves, T.tree_leaves(want), jleaves):
+        assert got.dtype == torch.float32
+        assert got.numpy().tobytes() == w.numpy().tobytes() == jw.tobytes()
 
 
 def test_init_error_state_is_fp32_zeros():

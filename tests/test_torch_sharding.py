@@ -283,14 +283,42 @@ def test_mesh_entry_points_raise_without_a_process_group():
                                              ("pod", "data", "model"))
 
 
-def test_train_step_over_more_than_one_rank_is_refused():
-    from repro_torch.configs import TrainConfig
-    cfg = get_arch("qwen3-8b").reduced()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ST.make_train_step(cfg, TrainConfig(), mesh=_FakeMesh(
-            {"data": 2, "model": 1}))
-    ST.make_train_step(cfg, TrainConfig(), mesh=_FakeMesh(
-        {"data": 1, "model": 1}))
+@pytest.mark.parametrize("spec", [SH.P(), SH.P("model"),
+                                  SH.P("model", None, "data"),
+                                  SH.P(("pod", "data"), None)])
+def test_a_spec_survives_pickling(spec):
+    """Specs cross processes (a rank's results, ``all_gather_object``)."""
+    import pickle
+    back = pickle.loads(pickle.dumps(spec))
+    assert type(back) is SH.P and back == spec and bool(back) == bool(spec)
+
+
+LEAF_AXES = [  # (arch, impl, mesh): (an expert leaf's, any other leaf's)
+    ("qwen3-moe-235b-a22b", "ep", "1x4", ((("model",), ()),
+                                          ((), ("model",)))),
+    ("qwen3-moe-235b-a22b", "ep", "2x2", ((("model",), ("data",)),
+                                          ((), ("data", "model")))),
+    ("qwen3-moe-235b-a22b", "ep_resident", "2x2",
+     ((("model", "data"), ()), ((), ("data", "model")))),
+    ("qwen3-8b", "ep", "2x2", (None, ((), ("data", "model")))),
+    ("mamba2-370m", "ep", "2x2", (None, ((), ("data", "model")))),
+]
+
+
+@pytest.mark.parametrize("arch,impl,mesh,want", LEAF_AXES)
+def test_leaf_axes_say_where_each_gradient_is_summed(arch, impl, mesh, want):
+    """A whole leaf's gradient is summed over every axis of more than one
+    rank; an expert block's over the axes it is not split over (none for
+    ``ep_resident``), so each block counts each rank's share once."""
+    import dataclasses
+    cfg = dataclasses.replace(get_arch(arch).reduced(), moe_impl=impl)
+    fake = _FakeMesh(MESHES[mesh])
+    axes = ST.leaf_axes(cfg, fake, ("data",))
+    defs = T.tree_leaves(T.param_defs(cfg))
+    assert len(axes) == len(defs)
+    expert, other = want
+    for pd, got in zip(defs, axes):
+        assert got == (expert if "expert" in pd.axes else other), pd
 
 
 class _RankMesh(_FakeMesh):

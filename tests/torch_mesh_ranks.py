@@ -16,7 +16,10 @@ def ep_rank(rank, world, store_dir, inputs, out_dir):
     """``moe_ffn_ep`` on (2, 4) and (1, 8) meshes and
     ``moe_ffn_ep_resident`` on (2, 4), at each capacity factor, on this
     rank's blocks of ``inputs`` (x (B, S, D), wg, w1, w3, w2); and whether
-    a mesh the world does not fill raises."""
+    a mesh the world does not fill raises.  Then the same under autograd:
+    the gradients of this rank's share of sum(out * c) (c from ``inputs``,
+    each data block's share split evenly over the model axis) in x, the
+    gate and the expert blocks."""
     from repro_torch.distributed import moe_ep
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch import mesh as M
@@ -40,18 +43,25 @@ def ep_rank(rank, world, store_dir, inputs, out_dir):
             s1 = SH.P("model", None, "data") if res_ else SH.P("model")
             s2 = SH.P("model", "data") if res_ else SH.P("model")
             fn = moe_ep.moe_ffn_ep_resident if res_ else moe_ep.moe_ffn_ep
+            blocks = [SH.local_block(d["w1"], s1, mesh),
+                      SH.local_block(d["w3"], s1, mesh),
+                      SH.local_block(d["w2"], s2, mesh)]
+            kw = dict(num_experts=E, d_ff=d["w1"].shape[2], k=int(d["k"]),
+                      act="silu", mesh=mesh, batch_axes=("data",))
             for cf in EP_CAPACITY:
-                with torch.no_grad():
-                    out, aux = fn(
-                        x, d["wg"], SH.local_block(d["w1"], s1, mesh),
-                        SH.local_block(d["w3"], s1, mesh),
-                        SH.local_block(d["w2"], s2, mesh), num_experts=E,
-                        d_ff=d["w1"].shape[2], k=int(d["k"]),
-                        capacity_factor=cf, act="silu", mesh=mesh,
-                        batch_axes=("data",))
                 key = f"{shape[0]}x{shape[1]}_{name}_{cf}"
+                with torch.no_grad():
+                    out, aux = fn(x, d["wg"], *blocks, capacity_factor=cf,
+                                  **kw)
                 res[key] = out.numpy()
                 res[key + "_aux"] = aux.numpy()
+                args = [t.clone().requires_grad_()
+                        for t in [x, d["wg"], *blocks]]
+                out, _ = fn(*args, capacity_factor=cf, **kw)
+                c = SH.local_block(d["c"], SH.P("data"), mesh)
+                grads = torch.autograd.grad((out * c).sum() / shape[1], args)
+                for n, g in zip(("x", "wg", "w1", "w3", "w2"), grads):
+                    res[f"{key}_d{n}"] = g.numpy()
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     dist.destroy_process_group()
 
@@ -118,5 +128,222 @@ def ep_card_rank(rank, world, store_dir, inputs, out_dir):
                 act="silu", mesh=mesh, batch_axes=())
         res[f"ep_{cf}"] = out.cpu().numpy()
         res[f"ep_{cf}_aux"] = aux.cpu().numpy()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
+    dist.destroy_process_group()
+
+
+UNIT_MOE = "qwen3-moe-235b-a22b"
+UNIT_TRAIN = dict(smoke=True, steps=4, batch=4, seq=32, checkpoint_every=2,
+                  log_every=100, device="cpu")
+
+
+def units_rank(rank, world, store_dir, out_dir):
+    """On a (2, 2) mesh of 4 ranks: ``collectives.psum`` and
+    ``all_gather_tiled`` over each axis under autograd (inputs and weights
+    drawn from the rank's seed), the mesh global norm of the reduced
+    qwen3-moe's placed parameters (``ep`` and ``ep_resident``), and the
+    launcher: the reduced qwen3-moe (``ep_resident``) over the mesh and the
+    reduced Mamba-2 over a (2, 1) mesh of ranks 0 and 1, each straight and
+    as a crash and a resume, with the final blocks."""
+    import dataclasses
+    import math
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves
+    torch.set_num_threads(1)
+    M.init_group(store_dir, rank, world, "gloo")
+    mesh = M.make_mesh((2, 2), ("data", "model"), device="cpu")
+    res = {}
+    g = torch.Generator().manual_seed(rank)
+    for axis in ("data", "model"):
+        for name, fn, wrows in (("psum", coll.psum, 3),
+                                ("gather", coll.all_gather_tiled, 6)):
+            x = torch.randn(3, 5, generator=g, requires_grad=True)
+            w = torch.randn(wrows, 5, generator=g)
+            y = fn(x, mesh, axis)
+            (dx,) = torch.autograd.grad((y * w).sum(), [x])
+            key = f"{name}_{axis}"
+            res.update({f"{key}_x": x.detach().numpy(), f"{key}_w": w.numpy(),
+                        f"{key}_y": y.detach().numpy(),
+                        f"{key}_dx": dx.numpy()})
+    for impl in ("ep", "ep_resident"):
+        cfg = dataclasses.replace(get_arch(UNIT_MOE).reduced(),
+                                  moe_impl=impl)
+        params = T.place_params(cfg, torch.Generator().manual_seed(0), mesh,
+                                batch_axes=("data",), device="cpu")
+        res[f"norm_{impl}"] = adamw.global_norm(params, ST.norm_reduction(
+            cfg, mesh, ("data",))).numpy()
+
+    real = TR.get_arch
+    TR.get_arch = lambda name: dataclasses.replace(real(name),
+                                                   moe_impl="ep_resident")
+    for tag, arch, m, kw in (
+            ("moe", UNIT_MOE, mesh, {}),
+            ("mamba", "mamba2-370m", DeviceMesh(
+                "cpu", torch.arange(2).view(2, 1),
+                mesh_dim_names=("data", "model")), {})):
+        if rank >= math.prod(SH.mesh_shape(m).values()):
+            continue
+        base = os.path.join(out_dir, tag)
+        straight = TR.train(arch, ckpt_dir=base + "_a", mesh=m, **UNIT_TRAIN,
+                            **kw)
+        part1 = TR.train(arch, ckpt_dir=base + "_b", mesh=m, stop_at=2,
+                         **UNIT_TRAIN, **kw)
+        part2 = TR.train(arch, ckpt_dir=base + "_b", mesh=m, resume=True,
+                         **UNIT_TRAIN, **kw)
+        res[f"{tag}_straight"] = np.array(straight)
+        res[f"{tag}_resumed"] = np.array(part1 + part2)
+    TR.get_arch = real
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
+    dist.destroy_process_group()
+
+
+TRAIN_B, TRAIN_S, TRAIN_SEED, TRAIN_STEPS = 4, 32, 1, 3
+TRAIN_KW = dict(lr=1e-3, warmup_steps=2, total_steps=6)
+MOE_MESHES = [((2, 4), "ep"), ((2, 4), "ep_resident"), ((1, 8), "ep")]
+MOE_CF = (8.0, 1.25)
+COMPRESSION = ("none", "int8")
+# (arch, mesh, compression, microbatches), each held to JAX's one-device
+# step with the same compression
+DP_CASES = [("qwen3-8b", (2, 1), "none", 1), ("qwen3-8b", (4, 1), "none", 1),
+            ("mamba2-370m", (2, 1), "int8", 1),
+            ("mamba2-370m", (4, 1), "int8", 1),
+            ("mamba2-370m", (2, 1), "int8", 2)]
+# where the int8 codes of the split expert leaves are kept, step 1
+CODES_CASES = [((2, 4), "ep_resident"), ((1, 8), "ep")]
+
+
+def moe_key(shape, impl, cf, comp):
+    return f"{shape[0]}x{shape[1]}_{impl}_{cf}_{comp}"
+
+
+def dp_key(arch, shape, comp, mb):
+    return f"{arch}_{shape[0]}x{shape[1]}_{comp}_{mb}"
+
+
+def _train_case(cfg, mesh, whole, comp, mb, key, res, first):
+    """``TRAIN_STEPS`` steps of ``make_train_step`` over ``mesh`` from the
+    whole tree ``whole``, on this rank's blocks of ``TokenStream``'s
+    batches: each step's loss and grad norm, the final blocks of the split
+    leaves, the whole leaves on the first rank, and a digest of every
+    leaf's bytes."""
+    import hashlib
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves
+    rules = SH.TRAIN_RULES
+    baxes = SH.batch_axes(TRAIN_B, rules, mesh)
+    params = T.place_params(cfg, whole, mesh, batch_axes=baxes, device="cpu")
+    step = ST.make_train_step(cfg, TrainConfig(
+        grad_compression=comp, microbatches=mb, **TRAIN_KW), mesh=mesh,
+        batch_axes=baxes)
+    opt = adamw.init(params)
+    spec = SH.batch_spec((TRAIN_B, TRAIN_S), rules, mesh)
+    for i in range(TRAIN_STEPS):
+        b = TokenStream(cfg, TRAIN_B, TRAIN_S, TRAIN_SEED,
+                        device="cpu").batch_at(i)
+        b = {k: SH.local_block(v, spec, mesh) for k, v in b.items()}
+        params, opt, m = step(params, opt, b)
+        res[f"{key}_loss{i}"] = m["loss"].numpy()
+        res[f"{key}_gnorm{i}"] = m["grad_norm"].numpy()
+    specs = tree_leaves(T.param_block_specs(cfg, mesh, batch_axes=baxes),
+                        is_leaf=SH.is_spec)
+    for j, (leaf, sp) in enumerate(zip(tree_leaves(params), specs)):
+        if sp or first:
+            res[f"{key}_p{j}"] = leaf.numpy()
+        res[f"{key}_h{j}"] = np.array(
+            hashlib.sha1(leaf.numpy().tobytes()).hexdigest())
+
+
+def _codes_case(cfg, mesh, whole, key, res):
+    """Step 1's reduced fp32 gradient blocks of the split leaves and their
+    int8 codes against the whole leaf's absmax."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.distributed import compression as GC
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    rules = SH.TRAIN_RULES
+    baxes = SH.batch_axes(TRAIN_B, rules, mesh)
+    params = T.place_params(cfg, whole, mesh, batch_axes=baxes, device="cpu")
+    grad_fn = ST.make_grad_fn(cfg, TrainConfig(**TRAIN_KW), mesh=mesh,
+                                 batch_axes=baxes)
+    b = TokenStream(cfg, TRAIN_B, TRAIN_S, TRAIN_SEED,
+                    device="cpu").batch_at(0)
+    spec = SH.batch_spec((TRAIN_B, TRAIN_S), rules, mesh)
+    _, grads = grad_fn(params, {k: SH.local_block(v, spec, mesh)
+                                for k, v in b.items()})
+    leaves = tree_leaves(grads)
+    axes = ST.leaf_axes(cfg, mesh, baxes)
+    absmax = ST._whole_absmax(leaves, axes, mesh)
+    for j, g in enumerate(leaves):
+        if absmax[j] is not None:
+            q, _ = GC._quantize_leaf(g, absmax[j])
+            res[f"{key}_g{j}"] = g.numpy()
+            res[f"{key}_q{j}"] = q.reshape(g.shape).numpy()
+
+
+def train_mesh_rank(rank, world, store_dir, inputs, out_dir):
+    """The reduced qwen3-moe trained over ``MOE_MESHES`` at each capacity
+    factor, with and without int8 (``_train_case``), its split leaves'
+    step-1 codes (``_codes_case``), then ``DP_CASES`` over meshes of the
+    first 2 or 4 ranks; ``inputs`` holds each arch's whole tree, the JAX
+    package's init carried over, leaf by leaf."""
+    import dataclasses
+    import math
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    torch.set_num_threads(1)          # the ranks share the host's cores
+    M.init_group(store_dir, rank, world, "gloo")
+    d = np.load(inputs)
+
+    def whole(arch, cfg):
+        shapes = T.param_shapes(cfg)
+        return tree_unflatten(shapes, [
+            torch.from_numpy(d[f"{arch}_{j}"])
+            for j in range(len(tree_leaves(shapes)))])
+
+    res = {}
+    moe = "qwen3-moe-235b-a22b"
+    for shape, impl in MOE_MESHES:
+        mesh = M.make_mesh(shape, ("data", "model"), device="cpu")
+        for cf in MOE_CF:
+            cfg = dataclasses.replace(get_arch(moe).reduced(), moe_impl=impl,
+                                      moe_capacity_factor=cf)
+            for comp in COMPRESSION:
+                _train_case(cfg, mesh, whole(moe, cfg), comp, 1,
+                            moe_key(shape, impl, cf, comp), res, rank == 0)
+            if (shape, impl) in CODES_CASES and cf == MOE_CF[0]:
+                _codes_case(cfg, mesh, whole(moe, cfg),
+                            moe_key(shape, impl, cf, "codes"), res)
+    for arch, shape, comp, mb in DP_CASES:
+        n = math.prod(shape)
+        mesh = DeviceMesh("cpu", torch.arange(n).view(shape),
+                          mesh_dim_names=("data", "model"))
+        if rank < n:
+            cfg = get_arch(arch).reduced()
+            _train_case(cfg, mesh, whole(arch, cfg), comp, mb,
+                        dp_key(arch, shape, comp, mb), res, rank == 0)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     dist.destroy_process_group()

@@ -67,7 +67,8 @@ def variants():
                      "reinterpret_cast<typename Q::Codes*>(qv)[k] = c;")],
         "noreload": [(": ldg16_l2(xv + k);", ": stash[k & (STASH_VECS - 1)];")],
         "nocodes": [("        if (k >= nv) continue;", "        if (k >= 0) continue;")],
-        "phase1": [("  grid_sync();\n\n", "  grid_sync();\n  if (N > 0) return;\n")],
+        "phase1": [("  if constexpr (!GIVEN) grid_sync();\n\n",
+                    "  if constexpr (!GIVEN) grid_sync();\n  if (N > 0) return;\n")],
     }
 
 
