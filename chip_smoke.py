@@ -128,6 +128,7 @@ of the repository beside it, it exits non-zero before printing a result.
 from __future__ import annotations
 
 import cProfile
+import gc
 import json
 import math
 import pstats
@@ -3391,26 +3392,34 @@ def drive_train_vlm(dev, counters, time_ms, call_ms, max_err, randn, card):
 # of F a rank).
 MESH_MODEL = "qwen3-moe-235b-a22b"
 MESH_CASES = [((1, 4), "ep"), ((2, 2), "ep"), ((2, 2), "ep_resident")]
-# (a) and (b), fp32 with TF32 off: 2 layers, batch 4 x 1024 prompt, 4
-# decode steps fed the one-card run's greedy tokens.  Weights from seed 1.
-# (a)'s capacity factor is 8, not 16: at 16 the (2, 2) ep ranks would hold
-# 4 x (2 layers' 64 experts, 9.66 GB, + the 4.98 GB embedding and head,
-# fp32) = 61 GB plus a 2.15 GB dispatch buffer each, past the card with
-# four CUDA contexts.  At 8 the one-card run checks that no expert's load
-# passes its capacity, over the batch and over each data block, so nothing
-# drops and the result is 16's (and any larger factor's).  (b) at the
-# config's own 1.25, where assignments drop.
-MESH_EXACT = {"layers": 2, "batch": 4, "prompt": 1024, "decode": 4,
+# (a) and (b), fp32 with TF32 off: 1 layer, batch 4 x 1024 prompt, 1
+# decode step fed the one-card run's greedy token.  Cut from 2 layers and 4
+# decode steps: every call over a mesh gathers every split leaf of every
+# layer (at 2 layers 4.16 GB received at (1, 4) and 7.75 GB at (2, 2) in
+# fp32, 0.37-0.48 GB/s over gloo on an H100's host).  Weights from seed
+# 1.  (a)'s capacity factor is 8, not 16: at 16 the (2, 2) ep ranks would
+# each add a 2.15 GB dispatch buffer to their stored blocks and one
+# layer's gathered leaves (4.83 GB of experts; the 2.49 GB head), near the
+# card's 80 GB with four CUDA contexts.  At 8 the one-card run checks that
+# no expert's load passes its capacity, over the batch and over each data
+# block, so nothing drops and the result is 16's (and any larger
+# factor's).  (b) at the config's own 1.25, where assignments drop.
+MESH_EXACT = {"layers": 1, "batch": 4, "prompt": 1024, "decode": 1,
               "capacity": 8.0, "seed": 1}
-# (c), bf16, served by launch.serve.serve: depth 4 of 94 layers, from the
-# memory each mesh needs on the one card.  A rank holds the 2.49 GB
-# embedding and head plus, a layer, its experts (1.21 GB at (1, 4), 2.42 at
-# (2, 2) ep, 1.21 resident) and 0.15 GB of attention; (2, 2) ep binds: 4 x
-# (2.49 + 2.57 L) GB, and while a rank places its weights one stacked
-# expert leaf of all L layers in fp32 (3.22 L GB) and its bf16 copy: at L =
-# 4, 51.3 + 19.3 GB, under 80 with four contexts.  The one-card reference:
-# 2.49 + 4.98 L = 22.4 GB.
-MESH_SERVE = {"layers": 4, "batch": 4, "prompt": 1024, "gen": 16}
+# (c), bf16, served by launch.serve.serve: depth 1 of 94 layers (cut from
+# 4: with 2 a (2, 2) call took 12 s, at 0.33 GB/s of gathers).  A rank
+# stores its TRAIN_RULES block of every leaf: at (1, 4) the embedding and
+# head over model and a layer's experts over model, at (2, 2) the experts
+# over model and their D over data too, and gathers one layer at a time
+# as it runs it (at 4 layers 2.30 GB received a call at (1, 4), 6.51 GB at
+# (2, 2); 1.25 GB of it the embedding and head).
+# While a rank places its weights it draws one stacked expert leaf of all
+# L layers in fp32 (3.22 L GB) and cuts its block.  The one card serves
+# gen tokens; a mesh serves mesh_gen (cut from 16: each token gathers
+# every layer's split leaves again), after a warm-up prefill (the first
+# call pins gloo's host buffers: 16.0 s against 6.1 s warm at (1, 4)).
+MESH_SERVE = {"layers": 1, "batch": 4, "prompt": 1024, "gen": 16,
+              "mesh_gen": 2}
 # The bars: fp32, phase 11's 1e-3 relative Frobenius over the
 # last-position logits and the same argmax; bf16, 2e-2 (K5_REL's bf16
 # bar).  In bf16 the expert-parallel path rounds each MoE output element
@@ -3435,17 +3444,23 @@ class collectives_counted:
     """Within the block every ``dist.all_reduce`` and ``dist.all_gather``
     is counted: calls, bytes of the tensor each is given, and the host's
     seconds inside it between two synchronizes of the card (so the time is
-    the collective's, not the card's queued work)."""
+    the collective's, not the card's queued work); the all-gathers (the
+    placement's reshards) also on their own (``gathers``: calls, bytes
+    given, seconds)."""
 
     def __init__(self, sync):
         self.sync, self.calls, self.nbytes, self.s = sync, 0, 0, 0.0
+        self.gathers = [0, 0, 0.0]
 
     def snap(self):
-        return (self.calls, self.nbytes, self.s)
+        return (self.calls, self.nbytes, self.s) + tuple(self.gathers)
 
     def since(self, snap):
         return {"calls": self.calls - snap[0], "bytes": self.nbytes - snap[1],
-                "host_ms": (self.s - snap[2]) * 1e3}
+                "host_ms": (self.s - snap[2]) * 1e3,
+                "gather_calls": self.gathers[0] - snap[3],
+                "gather_bytes": self.gathers[1] - snap[4],
+                "gather_ms": (self.gathers[2] - snap[5]) * 1e3}
 
     def __enter__(self):
         import torch.distributed as dist
@@ -3458,9 +3473,14 @@ class collectives_counted:
                 t0 = time.perf_counter()
                 out = fn(*args, **kw)
                 self.sync()
-                self.s += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                self.s += dt
                 self.calls += 1
                 self.nbytes += t.numel() * t.element_size()
+                if name == "all_gather":
+                    self.gathers[0] += 1
+                    self.gathers[1] += t.numel() * t.element_size()
+                    self.gathers[2] += dt
                 return out
             return counted
 
@@ -3472,6 +3492,41 @@ class collectives_counted:
         import torch.distributed as dist
         for name, fn in self.real.items():
             setattr(dist, name, fn)
+
+
+def spec_bytes(cfg, mesh, batch_axes):
+    """(the bytes of a rank's blocks of every parameter under
+    ``TRAIN_RULES``, the same at 4 bytes an element (an fp32 gradient or
+    moment), and the bytes the placement before the spec's held:
+    every dense leaf whole, each expert leaf in the MoE layout's compute
+    block) on ``mesh`` for a batch split over ``batch_axes``."""
+    import torch
+
+    from repro_torch.distributed import moe_ep
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import transformer as T
+    shape = SH.mesh_shape(mesh)
+    layout = moe_ep.moe_layout(cfg, mesh, batch_axes)
+
+    def blocks(spec):
+        return math.prod(shape[a] for part in spec if part is not None
+                         for a in ((part,) if isinstance(part, str)
+                                   else part))
+
+    stored = stored32 = before = 0
+    for pd in T.tree_leaves(T.param_defs(cfg)):
+        ls = SH.leaf_specs(pd.shape, pd.axes, SH.TRAIN_RULES, mesh, layout)
+        n = math.prod(pd.shape)
+        size = torch.empty((), dtype=T._dtype(pd, cfg)).element_size()
+        stored += n // blocks(ls.storage) * size
+        stored32 += n // blocks(ls.storage) * 4
+        before += n // blocks(ls.compute) * size
+    return stored, stored32, before
+
+
+def tree_bytes(tree):
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
 def in_turns(place, dev, stats=None):
@@ -3509,11 +3564,14 @@ def in_turns(place, dev, stats=None):
 def serve_recorded(cfg, run, dev, mesh=None):
     """``launch.serve.serve`` of ``cfg`` (its registry name patched to
     ``cfg``) on one card, or over ``mesh`` from a rank (its weights placed
-    ``in_turns``), after a warm-up serve of at most 256 tokens and 2, with
-    what the step functions saw: the prefill's last-position logits (the
-    whole batch, fp32, on the host), K5's launches and the collectives
-    (calls, bytes, host ms) of the prefill and of each decode step, and
-    the peak memory while serving."""
+    ``in_turns``, each rank's bytes held to the sum of its spec blocks),
+    after a warm-up serve of at most 256 tokens and 2 (over a mesh 1: a
+    prefill alone; every call there is bound by the layers' all-gathers),
+    with what the step functions saw: the prefill's last-position logits
+    (the whole batch, fp32, on the host), K5's launches and the
+    collectives (calls, bytes, host ms; the reshards' all-gathers apart)
+    of the prefill and of each decode step, and the peak memory while
+    serving."""
     import torch
 
     from repro_torch.distributed import sharding as SH
@@ -3553,7 +3611,7 @@ def serve_recorded(cfg, run, dev, mesh=None):
         with serving_config(cfg), coll:
             SV.serve(cfg.name, smoke=False, device=dev, mesh=mesh,
                      batch=run["batch"], prompt=min(256, run["prompt"]),
-                     gen=2)
+                     gen=2 if mesh is None else 1)
             rec["decode"] = []
             if cuda:
                 torch.cuda.empty_cache()
@@ -3562,8 +3620,15 @@ def serve_recorded(cfg, run, dev, mesh=None):
                            **run)
             logits = rec["logits"]
             if mesh is not None:
-                logits = SV.gather_batch(logits, mesh, SH.batch_axes(
-                    run["batch"], SH.TRAIN_RULES, mesh))
+                baxes = SH.batch_axes(run["batch"], SH.TRAIN_RULES, mesh)
+                logits = SV.gather_batch(logits, mesh, baxes)
+                (stats["spec_bytes"], _,
+                 stats["whole_leaf_bytes"]) = spec_bytes(cfg, mesh, baxes)
+                if stats["param_bytes"] != stats["spec_bytes"]:
+                    raise AssertionError(
+                        f"phase 16(c): a rank holds {stats['param_bytes']} "
+                        f"bytes of weights, its spec blocks "
+                        f"{stats['spec_bytes']}")
     finally:
         steps.make_prefill_step, steps.make_decode_step = real_p, real_d
         SV.T.place_params = real_place
@@ -3655,7 +3720,7 @@ def exact_on_mesh(cfg, tok, feed, low, mesh, dev):
     baxes = SH.batch_axes(B, rules, mesh)
     params = in_turns(T.place_params, dev)(
         cfg, torch.Generator(device=dev).manual_seed(MESH_EXACT["seed"]),
-        mesh, batch_axes=baxes, device=dev)
+        mesh, device=dev)
     spec = SH.batch_spec((B, S), rules, mesh)
     tl = SH.local_block(tok, spec, mesh).to(dev)
     fl = SH.local_block(feed, spec, mesh).to(dev)
@@ -3681,9 +3746,13 @@ def exact_on_mesh(cfg, tok, feed, low, mesh, dev):
 
 
 def mesh_rank(rank, world, store_dir, job):
-    """One rank of a phase 16 mesh (started by ``launch.mesh.run_ranks``):
-    on the card's one device, in a gloo group, (a) and (b)
-    (``exact_on_mesh``), then (c) (``serve_recorded``); its results to
+    """One rank of phase 16's meshes (started once by
+    ``launch.mesh.run_ranks`` for all of ``job["cases"]``, so the ranks
+    start once): on the card's one device, in a gloo group, for each mesh
+    (a) and (b) (``exact_on_mesh``), then (c) (``serve_recorded``,
+    ``mesh_gen`` tokens), timed, the pinned host cache emptied after each
+    (four ranks' caches of every mesh's buffers and the parent passed the
+    96 GiB of host memory of an H100 host); its results to
     ``job["out"]/rank<r>.pt``."""
     import os
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -3698,11 +3767,21 @@ def mesh_rank(rank, world, store_dir, job):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     M.init_group(store_dir, rank, world, "gloo", timeout_s=MESH_TIMEOUT_S)
-    mesh = M.make_mesh(job["shape"], ("data", "model"), device=job["device"])
-    res = {"exact": exact_on_mesh(job["exact_cfg"], job["tokens"],
-                                  job["feed"], job["low"], mesh, dev)}
-    res["serve"] = serve_recorded(job["serve_cfg"], job["serve_run"], dev,
-                                  mesh)
+    res = []
+    for case in job["cases"]:
+        t0 = time.perf_counter()
+        mesh = M.make_mesh(case["shape"], ("data", "model"),
+                           device=job["device"])
+        row = {"exact": exact_on_mesh(case["exact_cfg"], job["tokens"],
+                                      job["feed"], job["low"], mesh, dev)}
+        empty_host_cache()
+        row["serve"] = serve_recorded(case["serve_cfg"], job["serve_run"],
+                                      dev, mesh)
+        row["host_gb"] = host_available_gb()
+        empty_host_cache()
+        dist.barrier()
+        row["s"] = time.perf_counter() - t0
+        res.append(row)
     torch.save(res, os.path.join(job["out"], f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -3716,11 +3795,14 @@ def drive_mesh(dev, card):
     one-card gather path on the same weights and tokens, nothing dropped;
     (b) at capacity factor 1.25, (1, 4) ``ep`` and (2, 2) resident against
     the one-card path over the batch, (2, 2) ``ep`` against it over each
-    data block; (c) bf16 ``serve`` at ``MESH_SERVE``: the (1, 4) ``ep``
-    mesh's first greedy tokens equal to the one-card ``serve``'s and its
-    prefill logits within ``MESH_REL``, K5 once a layer in every rank's
-    prefill, and the times, collectives and memory of each mesh.  Returns
-    K5's launches in the meshes' served prefills, summed over ranks."""
+    data block; (c) bf16 ``serve`` at ``MESH_SERVE`` (``mesh_gen`` tokens
+    over a mesh): the (1, 4) ``ep`` mesh's first greedy tokens equal to
+    the one-card ``serve``'s and its prefill logits within ``MESH_REL``,
+    K5 once a layer in every rank's prefill, each rank's weight bytes
+    equal to its ``TRAIN_RULES`` blocks (beside the whole-leaf placement's
+    figure), and the times, gathers, collectives and memory of each mesh.
+    Returns K5's launches in the meshes' served prefills, summed over
+    ranks."""
     import dataclasses
     import shutil
 
@@ -3733,6 +3815,7 @@ def drive_mesh(dev, card):
     _build.build_all()
     root = Path(__file__).resolve().parent
     run_c = {k: MESH_SERVE[k] for k in ("batch", "prompt", "gen")}
+    run_m = dict(run_c, gen=MESH_SERVE["mesh_gen"])
     B, S, n = MESH_EXACT["batch"], MESH_EXACT["prompt"], MESH_EXACT["decode"]
     cfg32 = mesh_config(MESH_EXACT["layers"], "float32",
                         moe_capacity_factor=MESH_EXACT["capacity"])
@@ -3785,23 +3868,31 @@ def drive_mesh(dev, card):
         return rel
 
     k5_mesh = 0
-    for shape, impl in MESH_CASES:
+    world = math.prod(MESH_CASES[0][0])
+    assert all(math.prod(shape) == world for shape, _ in MESH_CASES)
+    out = root / "build" / "phase16"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    job = {"src": str(root / "src"), "device": str(dev), "tokens": tok,
+           "feed": ref["feed"], "low": low, "serve_run": run_m,
+           "out": str(out),
+           "cases": [{"shape": shape,
+                      "exact_cfg": dataclasses.replace(cfg32, moe_impl=impl),
+                      "serve_cfg": dataclasses.replace(cfg16, moe_impl=impl)}
+                     for shape, impl in MESH_CASES]}
+    host0 = host_available_gb()
+    t0 = time.perf_counter()
+    M.run_ranks(mesh_rank, world, job, timeout_s=MESH_TIMEOUT_S)
+    print(f"phase 16 meshes: {len(MESH_CASES)} meshes of {world} ranks on "
+          f"the one card (gloo), one start of the ranks: "
+          f"{time.perf_counter() - t0:.1f} s; host memory available before "
+          f"{host0:.1f} GB; card {card}")
+    by_rank = [torch.load(out / f"rank{r}.pt") for r in range(world)]
+    shutil.rmtree(out, ignore_errors=True)
+    for i, (shape, impl) in enumerate(MESH_CASES):
         name = f"({shape[0]}, {shape[1]}) {impl}"
-        out = root / "build" / "phase16"
-        shutil.rmtree(out, ignore_errors=True)
-        out.mkdir(parents=True)
-        job = {"src": str(root / "src"), "device": str(dev), "shape": shape,
-               "exact_cfg": dataclasses.replace(cfg32, moe_impl=impl),
-               "tokens": tok, "feed": ref["feed"], "low": low,
-               "serve_cfg": dataclasses.replace(cfg16, moe_impl=impl),
-               "serve_run": run_c, "out": str(out)}
-        t0 = time.perf_counter()
-        M.run_ranks(mesh_rank, math.prod(shape), job,
-                    timeout_s=MESH_TIMEOUT_S)
-        wall = time.perf_counter() - t0
-        ranks = [torch.load(out / f"rank{r}.pt")
-                 for r in range(math.prod(shape))]
-        shutil.rmtree(out, ignore_errors=True)
+        ranks = [r[i] for r in by_rank]
+        wall = ranks[0]["s"]
         ex = ranks[0]["exact"]
         # (a): the one-card path, nothing dropped
         rel_a = [held(ex["prefill"], ref["prefill"], MESH_REL["float32"],
@@ -3827,14 +3918,15 @@ def drive_mesh(dev, card):
                                      f"{cfg16.num_layers}), decode "
                                      f"{[d['k5'] for d in s['decode']]}")
         gen_tok = sv[0]["generated"]
-        if not (gen_tok.shape == (run_c["batch"], run_c["gen"])
+        if not (gen_tok.shape == (run_m["batch"], run_m["gen"])
                 and ((0 <= gen_tok) & (gen_tok < cfg16.vocab_size)).all()):
             raise AssertionError(f"phase 16(c) {name}: generated "
                                  f"{tuple(gen_tok.shape)}")
         got, want = sv[0]["logits"][:, vocab], one["logits"][:, vocab]
         rel_c = ((got - want).norm() / want.norm()).item()
         first = torch.equal(gen_tok[:, 0], one["generated"][:, 0])
-        agree = float((gen_tok == one["generated"]).float().mean())
+        agree = float((gen_tok == one["generated"][:, :run_m["gen"]])
+                      .float().mean())
         if shape == (1, 4) and not (rel_c <= MESH_REL["bfloat16"] and first):
             raise AssertionError(f"phase 16(c) {name}: prefill logits rel "
                                  f"err {rel_c:.3e} (limit "
@@ -3847,14 +3939,15 @@ def drive_mesh(dev, card):
         pre = sv[0]["prefill"]
         dec = sv[0]["decode"][-1]
         print(f"phase 16 {name}, {math.prod(shape)} ranks on the one card "
-              f"(gloo): (a) fp32 prefill and {n} decode steps vs one card "
+              f"(gloo): (a) fp32 prefill and {n} decode step(s) vs one "
+              f"card "
               f"rel Frobenius err max {max(rel_a):.3e} (limit "
               f"{MESH_REL['float32']}), same argmax; (b) at capacity factor "
               f"{low} vs the one-card path "
               f"{'over each data block' if blocks else 'over the batch'}: "
               f"{rel_b:.3e}, same argmax; (c) bf16 serve, batch "
-              f"{run_c['batch']}, prompt {run_c['prompt']}, gen "
-              f"{run_c['gen']}: prefill_ms per rank "
+              f"{run_m['batch']}, prompt {run_m['prompt']}, gen "
+              f"{run_m['gen']}: prefill_ms per rank "
               f"{[round(s['prefill_ms'], 3) for s in sv]} "
               f"decode_ms_per_token {[round(s['decode_ms'], 3) for s in sv]}"
               f"; prefill logits vs one card rel err {rel_c:.3e}{bar}"
@@ -3863,13 +3956,22 @@ def drive_mesh(dev, card):
               f"K5 launches a prefill per rank "
               f"{[s['prefill']['k5'] for s in sv]} (one a layer), none in "
               f"decode; collectives a prefill {pre['calls']} "
-              f"({pre['bytes']} bytes, host ms {pre['host_ms']:.3f}), a "
-              f"decode step {dec['calls']} ({dec['bytes']} bytes, host ms "
-              f"{dec['host_ms']:.3f}); rank 0's weights "
-              f"{sv[0]['param_bytes'] / 1e9:.2f} GB, peak placing / serving "
-              f"per rank {[round(s['place_peak_gb'], 2) for s in sv]} / "
-              f"{[round(s['peak_gb'], 2) for s in sv]} GB; "
-              f"{wall:.1f} s with the ranks' start; card {card}")
+              f"({pre['bytes']} bytes, host ms {pre['host_ms']:.3f}; of them "
+              f"the reshards' all-gathers {pre['gather_calls']}, "
+              f"{pre['gather_bytes']} bytes given, host ms "
+              f"{pre['gather_ms']:.3f}), a decode step {dec['calls']} "
+              f"({dec['bytes']} bytes, host ms {dec['host_ms']:.3f}; "
+              f"all-gathers {dec['gather_calls']}, {dec['gather_bytes']} "
+              f"bytes, host ms {dec['gather_ms']:.3f}); each rank's weights "
+              f"{[s['param_bytes'] for s in sv]} bytes, equal to its "
+              f"TRAIN_RULES spec blocks ({sv[0]['spec_bytes']} at rank 0; "
+              f"the whole-leaf placement held {sv[0]['whole_leaf_bytes']}, "
+              f"{sv[0]['whole_leaf_bytes'] / sv[0]['spec_bytes'] - 1:.1%} "
+              f"more); peak placing / serving per rank "
+              f"{[round(s['place_peak_gb'], 2) for s in sv]} / "
+              f"{[round(s['peak_gb'], 2) for s in sv]} GB; host memory "
+              f"available after the serve {ranks[0]['host_gb']:.1f} GB; "
+              f"{wall:.1f} s on the ranks; card {card}")
     return k5_mesh
 
 
@@ -3901,10 +4003,11 @@ MESH_GRAD_BAR = {"loss": 1e-5, "leaf": 1e-4}
 # expert, the logits in fp32): ~19 GB, ~76 GB for four ranks.  Held to the
 # one-card bf16 gradient: the loss, and each leaf of the reduced gradient
 # where the step hands it to the int8 transform, within MESH_REL's bf16
-# bar in relative Frobenius error (a second, untimed call of the step
-# compares them there).  The transformed leaves' errors against one
-# card's transformed leaves are printed, not held: a code one apart
-# wherever an element sits near a rounding boundary makes them several
+# bar in relative Frobenius error (compared inside the step's call, the
+# check's time and collectives taken out of the step's).  The transformed
+# leaves' errors against one card's transformed leaves are printed, not
+# held: a code one apart wherever an element sits near a rounding
+# boundary makes them several
 # times the bf16 gradients' (the codes themselves are K3's, held
 # byte-equal to the plain version in phase 10 and below).
 MESH_GRAD16 = {"layers": 1, "batch": 4, "seq": 1024, "capacity": 16.0,
@@ -3986,6 +4089,25 @@ class reduce_counted:
         coll.reduce_ = self.real
 
 
+def host_available_gb():
+    """The host's available memory (``MemAvailable``), GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def empty_host_cache():
+    """Return the pinned host blocks that gloo's copies of CUDA tensors
+    left in PyTorch's host cache (four ranks' caches and the reference on
+    rank 0 passed the 96 GiB of host memory of an H100 host)."""
+    import torch
+    fn = getattr(torch._C, "_host_emptyCache", None)
+    if fn is not None and torch.cuda.is_available():
+        fn()
+
+
 def rank_coords(mesh, r):
     """Rank ``r``'s index along each axis of ``mesh``."""
     where = (mesh.mesh == r).nonzero()[0].tolist()
@@ -3995,8 +4117,9 @@ def rank_coords(mesh, r):
 def held_to_reference(leaves, specs, ref, mesh, dev):
     """Each leaf's relative Frobenius error against the reference's.  Rank
     0 holds the whole reference leaves on the host and sends every other
-    rank its block of each split leaf; a whole leaf is compared on rank 0,
-    and held byte-equal across the ranks by digest.  Returns, on rank 0,
+    rank its block of each split leaf, in the reference's own dtype; a
+    whole leaf is compared on rank 0, and held byte-equal across the ranks
+    by digest.  Returns, on rank 0,
     each rank's errors by leaf (None for a whole leaf off rank 0), else
     None; and whether the whole leaves agreed."""
     import torch
@@ -4005,6 +4128,8 @@ def held_to_reference(leaves, specs, ref, mesh, dev):
     from repro_torch.distributed import sharding as SH
     rank, world = dist.get_rank(), dist.get_world_size()
     mine = []
+    dtypes = [[t.dtype for t in ref] if rank == 0 else None]
+    dist.broadcast_object_list(dtypes, src=0)
 
     def rel(a, b, chunk=1 << 24):
         """A chunk at a time: the whole leaves leave little of the card."""
@@ -4026,7 +4151,7 @@ def held_to_reference(leaves, specs, ref, mesh, dev):
                     mesh, r)).contiguous(), dst=r)
             want = SH.local_block(ref[j], spec, mesh).to(dev)
         else:
-            want = torch.empty(leaf.shape, dtype=torch.float32)
+            want = torch.empty(leaf.shape, dtype=dtypes[0][j])
             dist.recv(want, src=0)
             want = want.to(dev)
         mine.append(rel(leaf, want))
@@ -4044,13 +4169,19 @@ def held_to_reference(leaves, specs, ref, mesh, dev):
 def grad_on_mesh(job, dev):
     """Phase 17(a) or (b) on this rank: the one-card reference on rank 0
     (its gradient leaves kept on the host), then for each mesh of
-    ``job["cases"]`` the weights placed ``in_turns`` from the same seed,
-    ``steps.make_grad_fn`` on the rank's block of the batch (launches,
-    time, the reduction's collectives, peak memory), its leaves held to
-    the reference's; with int8 also, in a second untimed call, the
-    reduced leaves before the transform to the reference's before it;
-    and where ``job["fault"]`` the same with ``collectives.psum``'s
-    backward sum left out."""
+    ``job["cases"]`` the weights placed ``in_turns`` from the same seed
+    (each rank its ``TRAIN_RULES`` blocks, their bytes and the reduced
+    gradient's held to the spec's), ``steps.make_grad_fn`` on the rank's
+    block of the batch (launches, time, the reduction's collectives, the
+    reshards' all-gathers, peak memory), its leaves held to the
+    reference's; with int8 also, in the same call, the reduced leaves
+    before the transform to the reference's before it (that check's own
+    time and collectives taken out of the step's); and where
+    ``job["fault"]`` the same with ``collectives.psum``'s backward sum
+    left out.  Rank 0 keeps the reference's leaves on the host in the
+    model's dtype, and each rank empties the pinned host cache that gloo's
+    copies of CUDA tensors fill after each call; the host's available
+    memory is read after each call."""
     import dataclasses
 
     import torch
@@ -4089,7 +4220,7 @@ def grad_on_mesh(job, dev):
 
         def keep(leaves, absmax=None):
             nonlocal ref_pre
-            ref_pre = [g.float().cpu() for g in leaves]
+            ref_pre = [g.cpu() for g in leaves]
             wire(leaves, absmax)
 
         GC.wire_transform = keep
@@ -4099,7 +4230,11 @@ def grad_on_mesh(job, dev):
             GC.wire_transform = wire
         out["ref"] = {"loss": loss.item(),
                       "norm": adamw.global_norm(grads).item()}
-        ref = [g.float().cpu() for g in tree_leaves(grads)]
+        # in the model's dtype: the int8 run's transformed leaves (fp32)
+        # are compared only for the printed errors, and rounded to bf16
+        # they halve what rank 0 keeps on the host
+        ref = [g.to(getattr(torch, cfg.dtype)).cpu()
+               for g in tree_leaves(grads)]
         del params, grads, loss
         out["ref"]["s"] = time.perf_counter() - t0
     if cuda:
@@ -4112,62 +4247,85 @@ def grad_on_mesh(job, dev):
         baxes = SH.batch_axes(B, SH.TRAIN_RULES, mesh)
         stats = {}
         params = in_turns(T.place_params, dev, stats)(
-            cfg_m, gen(), mesh, batch_axes=baxes, device=dev)
+            cfg_m, gen(), mesh, device=dev)
         local = {k: SH.local_block(v, SH.batch_spec(tuple(v.shape),
                                                     SH.TRAIN_RULES, mesh),
                                    mesh) for k, v in batch.items()}
         grad_fn = ST.make_grad_fn(cfg_m, tcfg, mesh=mesh, batch_axes=baxes)
-        specs = tree_leaves(T.param_block_specs(cfg_m, mesh,
-                                                batch_axes=baxes),
+        specs = tree_leaves(T.param_block_specs(cfg_m, mesh),
                             is_leaf=SH.is_spec)
+        (stats["spec_bytes"], spec32,
+         stats["whole_leaf_bytes"]) = spec_bytes(cfg_m, mesh, baxes)
+        int8 = job["compression"] == "int8"
+        row = {}
+        check = {"s": 0.0, "coll": None}
+
+        def held_before_int8(leaves, absmax=None):
+            # the reduced gradient where the step hands it to the int8
+            # transform, held to one card's; timed and counted apart
+            sync()
+            t_in, c_in = time.perf_counter(), coll_all.snap()
+            row["rels"], row["pre_equal"] = held_to_reference(
+                leaves, specs, ref_pre, mesh, dev)
+            sync()
+            check["s"] = time.perf_counter() - t_in
+            check["coll"] = coll_all.since(c_in)
+            wire(leaves, absmax)
+
         before = {k: c.launches for k, c in counted.items()}
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         sync()
-        with reduce_counted(sync) as red, \
-                collectives_counted(sync) as coll_all:
-            t0 = time.perf_counter()
-            loss, grads = grad_fn(params, local)
-            sync()
-            ms = (time.perf_counter() - t0) * 1e3
+        if int8:
+            GC.wire_transform = held_before_int8
+        try:
+            with reduce_counted(sync) as red, \
+                    collectives_counted(sync) as coll_all:
+                t0 = time.perf_counter()
+                loss, grads = grad_fn(params, local)
+                sync()
+                ms = (time.perf_counter() - t0 - check["s"]) * 1e3
+        finally:
+            GC.wire_transform = wire
+        minus = check["coll"] or dict.fromkeys(
+            ("calls", "bytes", "host_ms", "gather_calls", "gather_bytes",
+             "gather_ms"), 0)
+        empty_host_cache()
         gnorm = adamw.global_norm(grads, ST.norm_reduction(
-            cfg_m, mesh, baxes)).item()
-        row = {"shape": shape, "impl": impl, "loss": loss.item(),
-               "norm": gnorm, "ms": ms, "reduce": red.row(),
-               "collectives": {"calls": coll_all.calls,
-                               "bytes": coll_all.nbytes,
-                               "host_ms": coll_all.s * 1e3},
-               "launches": {k: c.launches - before[k]
-                            for k, c in counted.items()},
-               "peak_gb": peak(), "leaves": len(specs), "names": names,
-               "specs": specs,
-               **stats}
+            cfg_m, mesh)).item()
+        stats["grad_bytes"] = tree_bytes(grads)
+        if (stats["param_bytes"], stats["grad_bytes"]) != (
+                stats["spec_bytes"], spec32):
+            raise AssertionError(
+                f"phase 17 {shape} {impl}: a rank holds "
+                f"{stats['param_bytes']} bytes of weights and "
+                f"{stats['grad_bytes']} of reduced gradient, its spec "
+                f"blocks {stats['spec_bytes']} and {spec32}")
+        row.update({
+            "shape": shape, "impl": impl, "loss": loss.item(),
+            "norm": gnorm, "ms": ms, "reduce": red.row(),
+            "collectives": {"calls": coll_all.calls - minus["calls"],
+                            "bytes": coll_all.nbytes - minus["bytes"],
+                            "host_ms": coll_all.s * 1e3 - minus["host_ms"]},
+            "gathers": {"calls": coll_all.gathers[0] - minus["gather_calls"],
+                        "bytes": coll_all.gathers[1] - minus["gather_bytes"],
+                        "host_ms": (coll_all.gathers[2] * 1e3
+                                    - minus["gather_ms"])},
+            "check_ms": check["s"] * 1e3, "host_gb": host_available_gb(),
+            "launches": {k: c.launches - before[k]
+                         for k, c in counted.items()},
+            "peak_gb": peak(), "leaves": len(specs), "names": names,
+            "specs": specs, **stats})
         leaves = tree_leaves(grads)
         del grads
-        int8 = job["compression"] == "int8"
         key = "wire_rels" if int8 else "rels"
         row[key], row["whole_equal"] = held_to_reference(
             leaves, specs, ref, mesh, dev)
+        row["whole_equal"] = row["whole_equal"] and row.get("pre_equal",
+                                                            True)
         del leaves, loss
         if cuda:
             torch.cuda.empty_cache()
-        if int8:
-            # the reduced gradient itself, before the int8 transform, held
-            # to one card's: once more, untimed, its leaves compared where
-            # the step hands them to the transform
-            def check(leaves, absmax=None):
-                row["rels"], same = held_to_reference(leaves, specs,
-                                                      ref_pre, mesh, dev)
-                row["whole_equal"] = row["whole_equal"] and same
-                wire(leaves, absmax)
-
-            GC.wire_transform = check
-            try:
-                grad_fn(params, local)
-            finally:
-                GC.wire_transform = wire
-            if cuda:
-                torch.cuda.empty_cache()
         if job["fault"]:
             # planted: psum's backward without its all-reduce, so the
             # cotangent of each rank's partial output misses the other
@@ -4184,6 +4342,7 @@ def grad_on_mesh(job, dev):
             row["fault_rels"], _ = held_to_reference(leaves, specs, ref,
                                                      mesh, dev)
             del leaves
+            empty_host_cache()
         del params
         if cuda:
             torch.cuda.empty_cache()
@@ -4194,17 +4353,23 @@ def grad_on_mesh(job, dev):
 
 def train_on_mesh(job, dev):
     """Phase 17(c) on this rank: ``launch.train.train`` of Mamba-2 370M
-    over the (2, 1) mesh, each step timed, its launches counted, the
-    reduction's collectives timed and every leaf of the parameters and the
-    optimizer state compared across the ranks by digest after it;
+    over the (2, 1) mesh (each rank its ``TRAIN_RULES`` blocks: FSDP over
+    data), each step timed, its launches counted, the reduction's
+    collectives and the reshards' all-gathers timed and every unsplit leaf
+    of the parameters and the optimizer state compared across the ranks by
+    digest after it; then the parameter and moment bytes held to the
+    spec's, and the final parameters gathered whole onto rank 0 (host);
     checkpoints recorded, not written."""
     import torch
     import torch.distributed as dist
 
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as SH
     from repro_torch.kernels import ssd as SSD
     from repro_torch.kernels import vector_engine as VE
     from repro_torch.launch import mesh as M
     from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves
     run = job["run"]
     mesh = M.make_mesh(run["shape"], ("data", "model"), device=dev.type)
@@ -4212,17 +4377,27 @@ def train_on_mesh(job, dev):
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     counted = {"K8": SSD.ssd_scan, "K8b": SSD.ssd_scan_bwd,
                "K3": VE.quantize_int8, "K4": VE.dequantize_int8}
-    rec = {"step_ms": [], "launches": [], "reduce": [], "same": [],
-           "saved": []}
+    rec = {"step_ms": [], "launches": [], "reduce": [], "gathers": [],
+           "same": [], "saved": []}
     real = (TR.ST.make_train_step, TR.ckpt.save)
+    last = {}
 
     def make_train_step(cfg, tcfg, **kw):
         step = real[0](cfg, tcfg, **kw)
+        specs = tree_leaves(T.param_block_specs(cfg, mesh),
+                            is_leaf=SH.is_spec)
+        # the leaves no axis of more than one rank splits, in (params,
+        # AdamWState(step, mu, nu))
+        one = [not coll.live_axes(mesh, coll.split_axes(sp)) for sp in specs]
+        whole = one + [True] + one * 2
+        last["cfg"], last["specs"], last["split"] = cfg, specs, len(one) - sum(
+            one)
 
         def timed(params, opt, batch):
             before = {k: c.launches for k, c in counted.items()}
             sync()
-            with reduce_counted(sync) as red:
+            with reduce_counted(sync) as red, \
+                    collectives_counted(sync) as every:
                 t0 = time.perf_counter()
                 out = step(params, opt, batch)
                 sync()
@@ -4230,11 +4405,16 @@ def train_on_mesh(job, dev):
             rec["launches"].append({k: c.launches - before[k]
                                     for k, c in counted.items()})
             rec["reduce"].append(red.row())
-            dig = leaf_digests(tree_leaves((out[0], out[1])))
+            rec["gathers"].append({"calls": every.gathers[0],
+                                   "bytes": every.gathers[1],
+                                   "host_ms": every.gathers[2] * 1e3})
+            dig = leaf_digests([t for t, w in zip(
+                tree_leaves((out[0], out[1])), whole) if w])
             digs = [torch.empty_like(dig)
                     for _ in range(dist.get_world_size())]
             dist.all_gather(digs, dig)
             rec["same"].append(all(torch.equal(d, digs[0]) for d in digs))
+            last["out"] = out
             return out
         return timed
 
@@ -4252,6 +4432,17 @@ def train_on_mesh(job, dev):
     finally:
         TR.ST.make_train_step, TR.ckpt.save = real
     rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    params, opt = last["out"][:2]
+    rec["param_bytes"], rec["moment_bytes"] = (tree_bytes(params),
+                                               tree_bytes((opt.mu, opt.nu)))
+    (rec["spec_bytes"], spec32, rec["whole_leaf_bytes"]) = spec_bytes(
+        last["cfg"], mesh, ("data",))
+    rec["spec_moment_bytes"] = 2 * spec32
+    final = [coll.gather_block(t, sp, mesh) for t, sp in zip(
+        tree_leaves(params), last["specs"])]
+    rec["final"] = ([t.cpu() for t in final] if dist.get_rank() == 0
+                    else None)
+    rec["split"] = last["split"]
     return rec
 
 
@@ -4332,7 +4523,7 @@ def check_mesh_grads(ranks, bar, what, card):
                 + ", ".join(f"{n} {r:.2e}" for n, r in
                             zip(row["names"], rel))
                 + f" (limit {bar['leaf']}), every rank's loss equal "
-                f"{same_loss}, whole leaves byte-equal across ranks {whole}")
+                f"{same_loss}, unsplit leaves byte-equal across ranks {whole}")
         top = sorted(zip(rel, row["names"]), reverse=True)[:3]
         line = (f"phase 17{what} {name}: loss {row['loss']:.6f} vs one card "
                 f"{ref['loss']:.6f} (rel {loss_rel:.3e}, limit "
@@ -4343,12 +4534,13 @@ def check_mesh_grads(ranks, bar, what, card):
                 + f" within {max(rel):.3e} in rel Frobenius err (limit "
                 f"{bar['leaf']}; worst "
                 + ", ".join(f"{n} {r:.2e}" for r, n in top)
-                + "); whole leaves byte-equal on every rank")
+                + "); unsplit leaves byte-equal on every rank")
         if "wire_rels" in row:
             wrel = _by_leaf(row["wire_rels"], row["leaves"])
             wtop = sorted(zip(wrel, row["names"]), reverse=True)[:3]
             line += ("; after the int8 transform (K3, K4) within "
-                     f"{max(wrel):.3e} of one card's (worst "
+                     f"{max(wrel):.3e} of one card's, rounded to the "
+                     f"model's dtype (worst "
                      + ", ".join(f"{n} {r:.2e}" for r, n in wtop) + ")")
         if "fault_rels" in row:
             by_leaf = _by_leaf(row["fault_rels"], row["leaves"])
@@ -4369,8 +4561,9 @@ def check_mesh_grads(ranks, bar, what, card):
 
 def check_k3_given(dev, time_ms, n):
     """K3 given the row's absmax (the whole leaf's, larger than the
-    block's own), at one (2, 2) ep rank's block of a stacked expert leaf
-    (``n`` fp32 elements): byte-equal to the plain version given the same,
+    block's own), at one (2, 2) rank's stored block of a stacked expert
+    leaf (``n`` fp32 elements: its experts over model, their D over data):
+    byte-equal to the plain version given the same,
     timed beside K3 finding its own and the plain version; the bound as
     phase 10's (each element read and its code written once)."""
     import torch
@@ -4403,13 +4596,27 @@ def check_k3_given(dev, time_ms, n):
     del x
     torch.cuda.empty_cache()
     print(f"K3 quantize_int8 given the absmax, (1, {n}) float32 (one (2, 2) "
-          f"ep rank's block of a stacked expert leaf): byte-equal to the "
+          f"rank's stored block of a stacked expert leaf): byte-equal to "
+          f"the "
           f"plain version given the same; ms={out['ms']:.4f} (finding its "
           f"own {out['own_ms']:.4f}) plain_ms={out['plain_ms']:.4f} "
           f"library_ms(torch.quantize_per_tensor)={out['library_ms']:.4f} "
           f"({differ} of its codes differ from K3's) "
           f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']})")
     return out
+
+
+def held_line(row):
+    """A ``grad_on_mesh`` row's bytes a rank against its spec blocks and
+    the whole-leaf placement's, and the reshards' all-gathers."""
+    g = row["gathers"]
+    return (f"weights {row['param_bytes']} bytes a rank and the reduced "
+            f"gradient {row['grad_bytes']} (fp32), equal to the TRAIN_RULES "
+            f"spec blocks (the whole-leaf placement held "
+            f"{row['whole_leaf_bytes']} bytes of weights, "
+            f"{row['whole_leaf_bytes'] / row['param_bytes'] - 1:.1%} more); "
+            f"the reshards' all-gathers {g['calls']}, {g['bytes']} bytes "
+            f"given, host ms {g['host_ms']:.3f}")
 
 
 def mesh_grad_fp32(dev, card, total):
@@ -4424,9 +4631,11 @@ def mesh_grad_fp32(dev, card, total):
         "cases": [((1, 4), "ep")], "fault": True}, 4, dev)
     (row,) = check_mesh_grads(ranks, MESH_GRAD_BAR, "(a)", card)
     n = [r["cases"][0]["launches"] for r in ranks]
-    if any(x["K5"] != cfg32.num_layers or x["K5b"] != cfg32.num_layers
-           for x in n):
-        raise AssertionError(f"phase 17(a): K5/K5b launches per rank {n}")
+    # under remat each layer's forward runs again in the backward
+    k5 = (2 if cfg32.remat else 1) * cfg32.num_layers
+    if any(x["K5"] != k5 or x["K5b"] != cfg32.num_layers for x in n):
+        raise AssertionError(f"phase 17(a): K5/K5b launches per rank {n} "
+                             f"(want {k5}, {cfg32.num_layers})")
     for x in n:
         for k in ("K5", "K5b"):
             total[k] += x[k]
@@ -4437,8 +4646,8 @@ def mesh_grad_fp32(dev, card, total):
           f"step ms per rank {[round(r['cases'][0]['ms'], 3) for r in ranks]}"
           f"; its reduction {row['reduce']['calls']} all-reduces, "
           f"{row['reduce']['bytes']} bytes, host ms "
-          f"{row['reduce']['host_ms']:.3f}; weights "
-          f"{row['param_bytes'] / 1e9:.2f} GB a rank, peak per rank "
+          f"{row['reduce']['host_ms']:.3f}; {held_line(row)}; K5 {k5} "
+          f"(remat), K5b {cfg32.num_layers} a rank; peak per rank "
           f"{[round(r['cases'][0]['peak_gb'], 2) for r in ranks]} GB; "
           f"{wall:.1f} s with the ranks' start; card {card}")
 
@@ -4458,12 +4667,18 @@ def mesh_grad_bf16(dev, card, time_ms, total):
         "cases": MESH_GRAD16_CASES, "fault": False}, 4, dev)
     bar = {"loss": MESH_REL["bfloat16"], "leaf": MESH_REL["bfloat16"]}
     rows = check_mesh_grads(ranks, bar, "(b)", card)
-    want = {"K5": cfg16.num_layers, "K5b": cfg16.num_layers, "K3": n_leaves,
-            "K4": n_leaves}
+    want = {"K5": (2 if cfg16.remat else 1) * cfg16.num_layers,
+            "K5b": cfg16.num_layers, "K3": n_leaves, "K4": n_leaves}
     given = 0
     for i, row in enumerate(rows):
         name = f"({row['shape'][0]}, {row['shape'][1]}) {row['impl']}"
-        given += len(ranks) * sum(1 for sp in row["specs"] if sp)
+        # K3 takes the whole leaf's absmax where a leaf is split over an
+        # axis of more than one rank (expert and dense leaves alike)
+        sizes = dict(zip(("data", "model"), row["shape"]))
+        split = sum(1 for sp in row["specs"] if any(
+            sizes[a] > 1 for part in sp if part is not None
+            for a in ((part,) if isinstance(part, str) else part)))
+        given += len(ranks) * split
         n = [r["cases"][i]["launches"] for r in ranks]
         if any(x != want for x in n):
             raise AssertionError(f"phase 17(b) {name}: launches per rank {n}"
@@ -4476,25 +4691,30 @@ def mesh_grad_bf16(dev, card, time_ms, total):
               f"batch {g['batch']} x {g['seq']} (a data block of "
               f"{g['batch'] // 2} a rank); gradient step ms per rank "
               f"{[round(r['cases'][i]['ms'], 3) for r in ranks]} (counted "
-              f"collectives synchronize the card); launches a rank K5 "
-              f"{want['K5']}, K5b {want['K5b']}, K3 {want['K3']}, K4 "
-              f"{want['K4']} (one a leaf the rank compresses); the "
-              f"gradient's reduction alone {row['reduce']['calls']} "
-              f"all-reduces, {row['reduce']['bytes']} bytes, host ms "
+              f"collectives synchronize the card; the check before int8 "
+              f"inside it, {row['check_ms']:.3f} ms on rank 0, taken out); "
+              f"launches a rank K5 "
+              f"{want['K5']} (remat), K5b {want['K5b']}, K3 {want['K3']} "
+              f"({split} given the whole leaf's absmax), K4 {want['K4']} "
+              f"(one a leaf the rank compresses); the gradient's reduction "
+              f"alone {row['reduce']['calls']} all-reduces, "
+              f"{row['reduce']['bytes']} bytes, host ms "
               f"{row['reduce']['host_ms']:.3f}; all the step's collectives "
               f"{c['calls']}, {c['bytes']} bytes, host ms "
-              f"{c['host_ms']:.3f}; weights {row['param_bytes'] / 1e9:.2f} "
-              f"GB a rank, peak placing / step per rank "
+              f"{c['host_ms']:.3f}; {held_line(row)}; peak placing / step "
+              f"per rank "
               f"{[round(r['cases'][i]['place_peak_gb'], 2) for r in ranks]}"
               f" / {[round(r['cases'][i]['peak_gb'], 2) for r in ranks]} GB"
+              f"; host memory available after the step "
+              f"{row['host_gb']:.1f} GB"
               f"; card {card}")
     print(f"phase 17(b) one-card bf16 reference on rank 0: "
           f"{ranks[0]['ref']['s']:.1f} s; both meshes {wall:.1f} s with the "
           f"ranks' start; K3 given the whole leaf's absmax {given} times "
-          f"(each rank's expert blocks)")
+          f"(each rank's split leaves, dense and expert)")
     ep = MESH_GRAD16_CASES[0][0]
     k3_given = check_k3_given(dev, time_ms, cfg16.num_experts // ep[1]
-                              * cfg16.d_model * cfg16.moe_d_ff)
+                              * cfg16.d_model // ep[0] * cfg16.moe_d_ff)
     k3_given["mesh_launches"] = given
     return k3_given
 
@@ -4502,8 +4722,12 @@ def mesh_grad_bf16(dev, card, time_ms, total):
 
 def mesh_train_dp(dev, card, total):
     """Phase 17(c): Mamba-2 370M trained over a (2, 1) mesh through
-    ``launch.train.train`` against the one-card launcher; the launches
-    added to ``total``."""
+    ``launch.train.train`` against the one-card launcher: the losses, the
+    unsplit leaves byte-equal on both ranks, each rank's parameter and
+    moment bytes equal to its spec blocks, and the final parameters,
+    gathered from the blocks, held to one card's (``MESH_REL``'s bf16 bar
+    over the whole tree in relative Frobenius error); the launches added
+    to ``total``."""
     from repro_torch.kernels import ssd as SSD
     from repro_torch.kernels import vector_engine as VE
     from repro_torch.launch import train as TR
@@ -4519,23 +4743,32 @@ def mesh_train_dp(dev, card, total):
                        device=dev, log_every=run["steps"],
                        grad_compression="int8")
         one_s = time.perf_counter() - t0
+    one_final = [t.detach().float().cpu() for t in T.tree_leaves(one.last[1])]
+    del one.last
     world = math.prod(run["shape"])
     ranks, wall = run_mesh_job({"kind": "train", "run": run}, world, dev)
     n_leaves = len(T.tree_leaves(T.param_shapes(cfg)))
-    want = {"K8": cfg.num_layers, "K8b": cfg.num_layers, "K3": n_leaves,
-            "K4": n_leaves}
+    # under remat each layer's forward (K8) runs again in the backward
+    want = {"K8": (2 if cfg.remat else 1) * cfg.num_layers,
+            "K8b": cfg.num_layers, "K3": n_leaves, "K4": n_leaves}
     losses = ranks[0]["losses"]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses[:2], ref[:2])]
     for r, rec in enumerate(ranks):
         bad = [x for x in rec["launches"] if x != want]
+        held = (rec["param_bytes"] == rec["spec_bytes"]
+                and rec["moment_bytes"] == rec["spec_moment_bytes"])
         if (bad or rec["losses"] != losses or not all(rec["same"])
-                or rec["saved"] != [run["steps"]]):
+                or rec["saved"] != [run["steps"]] or not held):
             raise AssertionError(f"phase 17(c) rank {r}: launches "
                                  f"{rec['launches']} (want {want} a step), "
                                  f"losses {rec['losses']} vs rank 0's "
-                                 f"{losses}, leaves byte-equal across ranks "
-                                 f"after each step {rec['same']}, "
-                                 f"checkpoints {rec['saved']}")
+                                 f"{losses}, unsplit leaves byte-equal across "
+                                 f"ranks after each step {rec['same']}, "
+                                 f"checkpoints {rec['saved']}, bytes "
+                                 f"{rec['param_bytes']} / "
+                                 f"{rec['moment_bytes']} vs the spec's "
+                                 f"{rec['spec_bytes']} / "
+                                 f"{rec['spec_moment_bytes']}")
         for x in rec["launches"]:
             for k, v in x.items():
                 total[k] += v
@@ -4547,25 +4780,54 @@ def mesh_train_dp(dev, card, total):
                              f"{MESH_DP_BARS})")
     B, S = run["batch"], run["seq"]
     r0 = ranks[0]
+    names = leaf_names(T.param_defs(cfg))
+    num = den = 0.0
+    leaf_rel = []
+    for got, want_t in zip(r0["final"], one_final):
+        d = (got.float() - want_t).double().square().sum().item()
+        w = want_t.double().square().sum().item()
+        num, den = num + d, den + w
+        leaf_rel.append(math.sqrt(d / w) if w else math.sqrt(d))
+    tree_rel = math.sqrt(num / den)
+    worst = sorted(zip(leaf_rel, names), reverse=True)[:3]
+    if not tree_rel <= MESH_REL["bfloat16"]:
+        raise AssertionError(f"phase 17(c): the gathered parameters after "
+                             f"{run['steps']} steps are {tree_rel:.3e} from "
+                             f"one card's (limit {MESH_REL['bfloat16']}); "
+                             f"worst leaves {worst}")
+    del r0["final"], one_final
     med = statistics.median(r0["step_ms"][2:])
     red = r0["reduce"][-1]
+    gat = r0["gathers"][-1]
     print(f"phase 17(c) {MAMBA} ({cfg.num_layers} layers, {cfg.dtype}, "
           f"{T.count_params(cfg)} parameters) through launch.train.train("
           f"mesh=) over {run['shape']}, {world} ranks on the one card: global"
           f" batch {B} x {S} ({B // world} x {S} a rank), int8 gradients, "
           f"{run['steps']} steps: losses {[round(l, 4) for l in losses]} vs "
           f"one card {[round(l, 4) for l in ref]} (first two rel "
-          f"{rel[0]:.2e}, {rel[1]:.2e}; limits {MESH_DP_BARS}), every leaf "
-          f"of the parameters and moments byte-equal on both ranks after "
-          f"each step; step ms rank 0 {[round(t, 3) for t in r0['step_ms']]}"
+          f"{rel[0]:.2e}, {rel[1]:.2e}; limits {MESH_DP_BARS}); "
+          f"{r0['split']} of {n_leaves} leaves stored split (FSDP over data),"
+          f" the other leaves of the parameters and moments byte-equal on "
+          f"both ranks after each step; the final parameters, gathered, "
+          f"within {tree_rel:.3e} of one card's over the tree (limit "
+          f"{MESH_REL['bfloat16']}; worst leaves "
+          + ", ".join(f"{n} {v:.2e}" for v, n in worst)
+          + f"); a rank's parameters {r0['param_bytes']} and moments "
+          f"{r0['moment_bytes']} bytes, equal to its spec blocks (the "
+          f"whole-leaf placement held {r0['whole_leaf_bytes']} bytes of "
+          f"parameters); the reshards' all-gathers a step {gat['calls']}, "
+          f"{gat['bytes']} bytes given, host ms per step "
+          f"{[round(x['host_ms'], 3) for x in r0['gathers']]}; "
+          f"step ms rank 0 {[round(t, 3) for t in r0['step_ms']]}"
           f", rank 1 {[round(t, 3) for t in ranks[1]['step_ms']]} (median of "
           f"steps 3-{run['steps']} {med:.3f}, {B * S / med * 1e3:.1f} "
           f"tokens/s over both); one card "
           f"{[round(t, 3) for t in one.step_ms]}; the reduction a step "
           f"{red['calls']} all-reduces, {red['bytes']} bytes, host ms per "
           f"step {[round(x['host_ms'], 3) for x in r0['reduce']]}; launches "
-          f"a step per rank K8 {want['K8']}, K8b {want['K8b']}, K3 "
-          f"{want['K3']}, K4 {want['K4']}; peak per rank "
+          f"a step per rank K8 {want['K8']} (remat), K8b {want['K8b']}, K3 "
+          f"{want['K3']} ({r0['split']} given the whole leaf's absmax), K4 "
+          f"{want['K4']}; peak per rank "
           f"{[round(x['peak_gb'], 2) for x in ranks]} GB; one card "
           f"{one_s:.1f} s, the mesh {wall:.1f} s with the ranks' start; "
           f"card {card}")
@@ -5002,9 +5264,15 @@ def main() -> int:
                      train12_launches=k5b_entry["launches"],
                      train15_launches=k5b_train15, mla_vit_whisper=k5b_vlm)
     torch.cuda.empty_cache()
+    # the mesh phases' ranks take most of the host's memory: free what
+    # this process no longer needs first
+    gc.collect()
+    empty_host_cache()
     mark("16, the mesh")
     k5_mesh = drive_mesh(dev, card)
     torch.cuda.empty_cache()
+    gc.collect()
+    empty_host_cache()
     mark("17, training over a mesh")
     mesh17, k3_given = drive_mesh_train(dev, card, time_ms)
     torch.cuda.empty_cache()

@@ -23,13 +23,16 @@ one.  The training step sums each leaf's gradient over the ranks that
 hold the same block (``launch.steps``).
 
 Each function takes the rank's blocks: x (B_local, S, D), the gate
-replicated, w1/w3 (E_local, D, F[_local]) and w2 (E_local, F[_local], D),
-and returns this rank's (B_local, S, D) and the aux loss of its own
-tokens.  That aux is JAX's where JAX's is defined: on every rank of a
-mesh whose batch is not split over data, and always for the resident
-form, which routes the gathered batch; with the batch split over data,
-``moe_ffn_ep``'s shards differ and JAX returns one of them, the port
-each rank's own.
+replicated, w1/w3 (E_local, D, F[_local]) and w2 (E_local, F[_local], D)
+(the JAX package's in_specs, ``moe_ffn_ep``'s at ``:76`` and the resident
+form's at ``:167-168``; a rank stores its experts' D over data too under
+``TRAIN_RULES``, and ``transformer.Placement`` reshards a layer's stored
+blocks to these), and returns this rank's (B_local, S, D) and the aux
+loss of its own tokens.  That aux is JAX's where JAX's is defined: on
+every rank of a mesh whose batch is not split over data, and always for
+the resident form, which routes the gathered batch; with the batch split
+over data, ``moe_ffn_ep``'s shards differ and JAX returns one of them,
+the port each rank's own.
 """
 from __future__ import annotations
 
@@ -111,10 +114,11 @@ def _combine(yflat: torch.Tensor, slot: torch.Tensor, wts: torch.Tensor,
 
 
 def _check_blocks(x, w1, w2, E_loc: int, F_loc: int, layout: str) -> None:
-    """The blocks must be the ones ``layout`` places: E_loc experts of
-    width F_loc.  Blocks placed for the other form (the whole width where
-    ``ep_resident`` wants a slice of it, or the other way round) would
-    give a wrong sum, not an error, in the collectives."""
+    """The blocks must be the ones ``layout`` computes with: E_loc experts
+    of d_model and width F_loc.  Blocks of the other form (the whole width
+    where ``ep_resident`` wants a slice of it, or the other way round) or
+    stored blocks not resharded (D split over data) would give a wrong
+    sum, not an error, in the collectives."""
     D = x.shape[-1]
     if w1.shape[0] != E_loc or w1.shape[1] != D or w2.shape[0] != E_loc:
         raise ValueError(f"expert blocks w1 {tuple(w1.shape)}, w2 "
@@ -123,9 +127,9 @@ def _check_blocks(x, w1, w2, E_loc: int, F_loc: int, layout: str) -> None:
     if w1.shape[2] != F_loc or w2.shape[1] != F_loc:
         raise ValueError(f"expert blocks w1 {tuple(w1.shape)}, w2 "
                          f"{tuple(w2.shape)}: {layout} wants an expert width "
-                         f"of {F_loc} on each rank (were they placed for "
-                         f"another layout? place_params and the step must "
-                         f"be given the same batch_axes)")
+                         f"of {F_loc} on each rank (were they resharded "
+                         f"for another layout? transformer.placement takes "
+                         f"the layout from the step's batch_axes)")
 
 
 def moe_ffn_ep(x: torch.Tensor, gate_w: torch.Tensor, w1: torch.Tensor,

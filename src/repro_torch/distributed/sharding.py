@@ -22,18 +22,25 @@ fake meshes); ``mesh_shape`` reads either.  ``P`` stands in for JAX's
 trimmed of trailing ``None``s, equal to ``tuple(jax P)`` of the same spec.
 
 The port runs a mesh as explicit SPMD: every rank holds its own block of
-each tensor and runs the model on it.  Where JAX's activation constraint
-steers GSPMD's layout, the local block already is the layout, so nothing
-is left of the callback but what the MoE FFN reads to take the
-expert-parallel path (``distributed.moe_ep``): ``make_act_sharder`` gives
-an ``ActSharder``, the mesh and the axes the batch was split over.
-``local_block`` cuts a rank's block of a tensor out of the whole by its
-spec.
+each tensor and runs the model on it.  A parameter has two blocks
+(``leaf_specs``): the one a rank stores, its spec under the rules (JAX's
+``param_spec_tree``: FSDP over data, TP and the vocabulary over model,
+experts over model), and the one a layer computes with: dense leaves
+whole, expert leaves in the in_specs of the MoE layout
+(``compute_spec``).  The model reshards one into the other a layer at a
+time (``models.transformer.Placement``).  Where JAX's activation
+constraint steers GSPMD's layout, the local batch block already is the
+layout, so nothing is left of the callback but what the model reads:
+``make_act_sharder`` gives an ``ActSharder``, the mesh, the axes the batch
+was split over and the rules.  ``resolve_rules`` refuses the two rule
+sets whose activation layouts (``act_seq``, ``act_hidden``) are not
+ported.  ``local_block`` cuts a rank's block of a tensor out of the whole
+by its spec.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -142,6 +149,53 @@ def spec_for(shape: Tuple[int, ...], axes: Tuple[Optional[str], ...],
     return P(*parts)
 
 
+def resolve_rules(rules=None) -> Dict[str, Tuple[str, ...]]:
+    """``rules``, ``TRAIN_RULES`` where None.  ``SEQPAR_RULES`` and
+    ``DECODE_RULES`` are refused by name: their residual-stream layouts
+    (``act_seq`` over model, ``act_hidden`` over data) are not ported, and
+    run as ``TRAIN_RULES`` they would hide that (ROADMAP, queue 1)."""
+    if rules is None:
+        return TRAIN_RULES
+    for name in ("SEQPAR_RULES", "DECODE_RULES"):
+        if rules == globals()[name]:
+            raise NotImplementedError(
+                f"{name}: its activation layout is not ported yet (ROADMAP "
+                f"queue 1, item 1); TRAIN_RULES and TP_RULES run")
+    return rules
+
+
+def compute_spec(axes: Tuple[Optional[str], ...], layout: Optional[str]) -> P:
+    """The block of a leaf of logical ``axes`` that a layer computes with
+    under the MoE ``layout`` (``moe_ep.moe_layout``): an expert leaf split
+    on its expert dim over ``model`` (``moe_ffn_ep``'s in_specs), for
+    ``ep_resident`` also on the expert width over ``data``; every other
+    leaf whole."""
+    if layout is None or "expert" not in axes:
+        return P()
+    e = axes.index("expert")
+    parts = [None] * len(axes)
+    parts[e] = "model"
+    if layout == "ep_resident":
+        parts[axes.index(None, e + 1)] = "data"      # F: w1/w3 last, w2 -2
+    return P(*parts)
+
+
+@dataclass(frozen=True)
+class LeafSpecs:
+    """A parameter's block as a rank stores it and as a layer computes
+    with it."""
+    storage: P
+    compute: P
+
+
+def leaf_specs(shape: Tuple[int, ...], axes: Tuple[Optional[str], ...],
+               rules, mesh, layout: Optional[str]) -> LeafSpecs:
+    """The storage spec (``spec_for`` under ``rules``) and the compute
+    spec (``compute_spec`` of ``layout``) of one leaf."""
+    return LeafSpecs(spec_for(shape, axes, rules, mesh),
+                     compute_spec(axes, layout))
+
+
 def param_spec_tree(shape_tree: Pytree, axes_tree: Pytree,
                     rules: Dict[str, Tuple[str, ...]], mesh) -> Pytree:
     """``shape_tree``'s structure with a ``P`` for each leaf (a tensor, a
@@ -174,17 +228,22 @@ def batch_spec(shape: Tuple[int, ...], rules, mesh) -> P:
 class ActSharder:
     """The port's activation sharding: under explicit SPMD a rank's
     activations are its batch block already, so what is left of the JAX
-    package's callback is what the MoE FFN reads: the ``mesh`` and the
+    package's callback is what the model reads: the ``mesh``, the
     ``batch_axes`` the caller split the whole batch over (``batch_axes``
-    of it; () when every rank holds it whole).  JAX reads the latter from
-    the global array's shape, which a rank's block cannot tell: a block of
-    1 on a data axis of 2 may be a batch of 1 or the half of 2."""
+    of it; () when every rank holds it whole) and the ``rules`` the
+    parameters were placed by (JAX's ``shard.rules``).  JAX reads the
+    batch's axes from the global array's shape, which a rank's block
+    cannot tell: a block of 1 on a data axis of 2 may be a batch of 1 or
+    the half of 2."""
     mesh: Any
     batch_axes: Tuple[str, ...] = ()
+    rules: Dict[str, Tuple[str, ...]] = field(
+        default_factory=lambda: TRAIN_RULES)
 
 
-def make_act_sharder(mesh, batch_axes: Sequence[str] = ()) -> ActSharder:
-    return ActSharder(mesh, tuple(batch_axes))
+def make_act_sharder(mesh, batch_axes: Sequence[str] = (),
+                     rules=None) -> ActSharder:
+    return ActSharder(mesh, tuple(batch_axes), resolve_rules(rules))
 
 
 def mesh_coords(mesh) -> Dict[str, int]:

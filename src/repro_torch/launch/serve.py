@@ -10,13 +10,15 @@ Each phase's time is read from the host clock after
 ``torch.cuda.synchronize()`` (and, over a mesh, a barrier of every rank),
 so it is the card's time for the phase, not the time to enqueue it.
 
-``serve(..., mesh=mesh)`` serves over a mesh of ranks (``launch.mesh``):
-every rank calls it with the same arguments, draws the same whole batch,
-keeps its ``batch_spec`` block, holds its blocks of the expert weights
-(``transformer.place_params``, drawn leaf by leaf from the seed's
-generator: the one-card run's weights), prefills and decodes through the
-sharded steps, and gathers the greedy tokens of every block, so every
-rank returns the whole batch's.
+``serve(..., mesh=mesh, rules=rules)`` serves over a mesh of ranks
+(``launch.mesh``): every rank calls it with the same arguments, draws the
+same whole batch, keeps its ``batch_spec`` block, holds its block of
+every weight under ``rules`` (``transformer.place_params``, drawn leaf by
+leaf from the seed's generator: the one-card run's weights), prefills and
+decodes through the sharded steps, which gather each layer's blocks as
+they take it (every token gathers every split leaf once), and gathers
+the greedy tokens of every block, so every rank returns the whole
+batch's.
 """
 from __future__ import annotations
 
@@ -74,8 +76,8 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt: int = 64,
     generated tokens outgrow is refused (``_grow_cache``), and so is a
     prompt shorter than a patch frontend's ``frontend_seq``.  ``mesh``:
     serve over it (every rank the same call; ``rules`` the sharding rules,
-    default ``TRAIN_RULES``).  Returns ``generated`` int32 (batch, gen),
-    ``prefill_s`` and ``decode_s_per_token``."""
+    default ``TRAIN_RULES``, or ``TP_RULES``).  Returns ``generated``
+    int32 (batch, gen), ``prefill_s`` and ``decode_s_per_token``."""
     dev = resolve(device)
     cfg = get_arch(arch)
     if smoke:
@@ -84,18 +86,19 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt: int = 64,
     reqs = RequestStream(cfg, batch, prompt, seed).requests_at(0)
     tokens = torch.from_numpy(reqs["tokens"])
     baxes = ()
+    rules = SH.resolve_rules(rules)
     if mesh is None:
         params = T.init_params(cfg, gen_w, device=dev)
     else:
-        rules = rules or SH.TRAIN_RULES
         baxes = SH.batch_axes(batch, rules, mesh)
-        params = T.place_params(cfg, gen_w, mesh, batch_axes=baxes,
-                                device=dev)
+        params = T.place_params(cfg, gen_w, mesh, rules=rules, device=dev)
         tokens = SH.local_block(tokens, SH.batch_spec(tuple(tokens.shape),
                                                       rules, mesh), mesh)
         batch = tokens.shape[0]
-    prefill_fn = ST.make_prefill_step(cfg, mesh=mesh, batch_axes=baxes)
-    decode_fn = ST.make_decode_step(cfg, mesh=mesh, batch_axes=baxes)
+    prefill_fn = ST.make_prefill_step(cfg, mesh=mesh, batch_axes=baxes,
+                                      rules=rules)
+    decode_fn = ST.make_decode_step(cfg, mesh=mesh, batch_axes=baxes,
+                                    rules=rules)
     batch_in = {"tokens": tokens.to(dev)}
     if cfg.frontend == "audio_frames":
         # the stub frontend, as the JAX package's: zero frame embeddings

@@ -5,26 +5,31 @@
 Without a mesh a step runs on one card.  With one (``launch.mesh``), every
 rank calls the step on its own blocks: the batch's and cache's block along
 ``batch_axes`` (the axes ``sharding.batch_axes`` gives the whole batch
-under the caller's rules), the parameters ``transformer.place_params``
-placed for the same ``batch_axes``; the ``sharding.ActSharder`` of the
-mesh and those axes sends the MoE FFN down the expert-parallel path.  The
-training step takes the gradient with ``torch.autograd.grad`` over the
-parameter leaves (on the card the SSD scan's through K8b, attention's
-through K5b and the RG-LRU's through K7b, the expert-parallel MoE's
-through ``distributed.collectives``), accumulates microbatches in a
-Python loop where the JAX package scans, applies the int8 wire transform
-of ``distributed.compression`` (K3 and K4 on the card) when
-``tcfg.grad_compression == "int8"``, then AdamW.
+under the caller's rules), and its block of every parameter under
+``rules`` (``transformer.place_params``; ``TRAIN_RULES`` where None,
+``TP_RULES`` too; ``SEQPAR_RULES`` and ``DECODE_RULES`` are refused by
+name, ``sharding.resolve_rules``).  The ``sharding.ActSharder`` of the
+mesh, those axes and the rules lets the model reshard each layer to the
+blocks it computes with and sends the MoE FFN down the expert-parallel
+path.  The training step takes the gradient with ``torch.autograd.grad``
+over the parameter leaves (on the card the SSD scan's through K8b,
+attention's through K5b and the RG-LRU's through K7b, the
+expert-parallel MoE's through ``distributed.collectives``), accumulates
+microbatches in a Python loop where the JAX package scans, applies the
+int8 wire transform of ``distributed.compression`` (K3 and K4 on the
+card) when ``tcfg.grad_compression == "int8"``, then AdamW.
 
 Over a mesh the step computes the function JAX's jitted step computes on
-the global batch: each rank scales its loss by 1 / (the mesh's ranks),
-and after the backward (microbatches accumulated within the rank) each
-leaf's gradient is summed in fp32 over the ranks that hold the same block
-of it (``leaf_axes``): a whole leaf over every rank, an ``ep`` expert
-block over ``data``, an ``ep_resident`` one over nothing.  The int8
-transform then acts on the reduced gradient, a split leaf's blocks
-against the whole leaf's absmax; the global norm counts each block once;
-``metrics["loss"]`` is the global mean.
+the global batch: each rank scales its loss by 1 / (the mesh's ranks).
+The backward of each layer's reshard sums the cotangent of a gathered
+block in fp32 over the axes it was gathered over; then (microbatches
+accumulated within the rank) each leaf's gradient is summed in fp32 over
+the rest of the ranks that hold the same block of it (``leaf_axes``: the
+axes its stored block is not split over), so a rank ends with the
+gradient of its own blocks.  The int8 transform then acts on the reduced
+gradient, every split leaf's block (dense or expert) against the whole
+leaf's absmax (K3's given-absmax mode); the global norm counts each block
+once; ``metrics["loss"]`` is the global mean.
 """
 from __future__ import annotations
 
@@ -63,18 +68,19 @@ def value_and_grad(cfg: ModelConfig, params, batch, shard=None,
     return loss.detach(), tree_unflatten(params, list(grads))
 
 
-def _sharder(mesh, batch_axes):
+def _sharder(mesh, batch_axes, rules):
     """No mesh: None (the one-card path as it was)."""
-    return None if mesh is None else SH.make_act_sharder(mesh, batch_axes)
+    return (None if mesh is None
+            else SH.make_act_sharder(mesh, batch_axes, rules))
 
 
-def leaf_axes(cfg: ModelConfig, mesh, batch_axes: Tuple[str, ...]
+def leaf_axes(cfg: ModelConfig, mesh, rules=None
               ) -> List[Tuple[Tuple[str, ...], Tuple[str, ...]]]:
     """For each parameter leaf, in ``tree_leaves`` order: (the mesh axes
-    its block is split over, the axes of more than one rank its gradient
-    is summed over: every other axis), from
-    ``transformer.param_block_specs``."""
-    specs = tree_leaves(T.param_block_specs(cfg, mesh, batch_axes=batch_axes),
+    its stored block is split over, the axes of more than one rank its
+    gradient is summed over: every other axis), from
+    ``transformer.param_block_specs`` of ``rules``."""
+    specs = tree_leaves(T.param_block_specs(cfg, mesh, rules),
                         is_leaf=SH.is_spec)
     names = tuple(SH.mesh_shape(mesh))
     out = []
@@ -98,14 +104,15 @@ def _reduce_grouped(values: torch.Tensor, groups, mesh, op) -> torch.Tensor:
 
 
 def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
-                 batch_axes: Tuple[str, ...] = ()):
+                 batch_axes: Tuple[str, ...] = (), rules=None):
     """``(params, batch) -> (loss, grads)``: the train step's loss and the
     gradient it hands AdamW (microbatches accumulated; over a mesh the
     global mean's, each leaf reduced as ``leaf_axes`` says, in fp32; int8
     when ``tcfg`` asks)."""
-    shard = _sharder(mesh, batch_axes)
+    rules = SH.resolve_rules(rules)
+    shard = _sharder(mesh, batch_axes, rules)
     world = 1 if mesh is None else SH.mesh_size(mesh)
-    axes = leaf_axes(cfg, mesh, batch_axes) if world > 1 else None
+    axes = leaf_axes(cfg, mesh, rules) if world > 1 else None
     scale = 1.0 / world
 
     def grad_fn(params, batch):
@@ -147,15 +154,14 @@ def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
     return grad_fn
 
 
-def norm_reduction(cfg: ModelConfig, mesh=None,
-                   batch_axes: Tuple[str, ...] = ()):
+def norm_reduction(cfg: ModelConfig, mesh=None, rules=None):
     """The ``reduce_sq`` of ``adamw.global_norm`` for a gradient tree of
     ``make_grad_fn`` over ``mesh``: each split leaf's sum of squares summed
     over the axes it is split on, so each block counts once.  None off a
     mesh of more than one rank."""
     if mesh is None or SH.mesh_size(mesh) == 1:
         return None
-    split = [s for s, _ in leaf_axes(cfg, mesh, batch_axes)]
+    split = [s for s, _ in leaf_axes(cfg, mesh, rules)]
     return lambda sq: _reduce_grouped(sq, split, mesh, dist.ReduceOp.SUM)
 
 
@@ -178,13 +184,15 @@ def _whole_absmax(leaves, axes, mesh):
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
-                    batch_axes: Tuple[str, ...] = ()):
+                    batch_axes: Tuple[str, ...] = (), rules=None):
     """The train step; on ``mesh`` each rank passes its blocks of the
-    parameters (``transformer.place_params`` for the same ``batch_axes``)
-    and of a batch split over ``batch_axes``, and gets its blocks of the
-    updated tree; the metrics are the whole tree's, equal on every rank."""
-    grad_fn = make_grad_fn(cfg, tcfg, mesh=mesh, batch_axes=batch_axes)
-    reduce_sq = norm_reduction(cfg, mesh, batch_axes)
+    parameters and of the AdamW state (``transformer.place_params`` under
+    the same ``rules``) and of a batch split over ``batch_axes``, and gets
+    its blocks of the updated tree; the metrics are the whole tree's,
+    equal on every rank."""
+    grad_fn = make_grad_fn(cfg, tcfg, mesh=mesh, batch_axes=batch_axes,
+                           rules=rules)
+    reduce_sq = norm_reduction(cfg, mesh, rules)
     sched = adamw.cosine_schedule(tcfg.lr, tcfg.warmup_steps, tcfg.total_steps)
 
     def train_step(params, opt_state, batch):
@@ -199,10 +207,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, *, mesh=None, batch_axes=()):
-    """The prefill step; on ``mesh`` each rank passes its block of a batch
-    split over ``batch_axes``."""
-    shard = _sharder(mesh, batch_axes)
+def make_prefill_step(cfg: ModelConfig, *, mesh=None, batch_axes=(),
+                      rules=None):
+    """The prefill step; on ``mesh`` each rank passes its blocks of the
+    parameters under ``rules`` and its block of a batch split over
+    ``batch_axes``."""
+    shard = _sharder(mesh, batch_axes, SH.resolve_rules(rules))
 
     def prefill_step(params, batch):
         return DE.prefill(cfg, params, batch["tokens"],
@@ -213,9 +223,10 @@ def make_prefill_step(cfg: ModelConfig, *, mesh=None, batch_axes=()):
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, *, mesh=None, batch_axes=()):
+def make_decode_step(cfg: ModelConfig, *, mesh=None, batch_axes=(),
+                     rules=None):
     """The decode step; on ``mesh`` as ``make_prefill_step``."""
-    shard = _sharder(mesh, batch_axes)
+    shard = _sharder(mesh, batch_axes, SH.resolve_rules(rules))
 
     def decode_step(params, cache, batch):
         return DE.decode_step(cfg, params, cache, batch["tokens"],

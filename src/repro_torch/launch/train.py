@@ -5,14 +5,18 @@ mesh of ranks (``mesh=``: every rank calls ``train``): init from a seed,
 deterministic resumable data (``TokenStream``), AdamW train steps,
 periodic atomic checkpoints, crash-restart resume (``--resume``) and step
 timing logs.  Over a mesh each rank takes its block of the stream's global
-batch and places its blocks of the parameters from the seed's generator
-(``transformer.place_params``, which draws as ``init_params`` does), the
-step reduces the gradient over the ranks (``launch.steps``), the mesh's
-first rank logs and writes the whole tree to the checkpoints and
-``restore`` gives each rank its blocks, so a resumed run continues the
-exact trajectory.  ``--smoke`` (the default, as in the JAX launcher) takes the
-reduced config, ``--full`` the published one; ``--device cpu`` runs the
-plain PyTorch path on the CPU, and without it the run needs the card.
+batch and places its block of every parameter under ``rules``
+(``TRAIN_RULES`` where None, or ``TP_RULES``) from the seed's generator
+(``transformer.place_params``, which draws as ``init_params`` does); its
+AdamW moments take the same blocks.  The step reshards each layer as it
+runs it and reduces the gradient over the ranks (``launch.steps``), the
+mesh's first rank logs and writes the whole tree, gathered from the
+blocks, to the checkpoints, and ``restore`` gives each rank its blocks,
+so a resumed run continues the exact trajectory, and a checkpoint written
+over one mesh restores onto another or onto one card.  ``--smoke`` (the
+default, as in the JAX launcher) takes the reduced config, ``--full`` the
+published one; ``--device cpu`` runs the plain PyTorch path on the CPU,
+and without it the run needs the card.
 Each step's loss is read on the host, which waits for the card, so the
 logged ms a step is the card's time.  Every family of the registry trains
 (Mamba-2, RecurrentGemma, the dense and MoE GQA decoders, MLA's
@@ -50,16 +54,18 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
           resume: bool = False, checkpoint_every: int = 20,
           log_every: int = 10, microbatches: int = 1, seed: int = 0,
           stop_at: int = 0, device=None, mesh=None, batch_axes=None,
-          grad_compression: str = "none"):
+          rules=None, grad_compression: str = "none"):
     """``stop_at`` simulates a crash: run ends early but the LR schedule
     and checkpoints are laid out for the full ``steps`` run, so a resumed
     run continues the exact trajectory.  ``device=None`` means the card
-    (and raises without CUDA).  ``mesh``: train over it, ``batch`` the
+    (and raises without CUDA).  ``mesh``: train over it, the parameters
+    and moments placed by ``rules`` (None: ``TRAIN_RULES``), ``batch`` the
     global batch split over ``batch_axes`` (None: ``sharding.batch_axes``
-    under ``TRAIN_RULES``).  ``grad_compression``: ``TrainConfig``'s
+    under ``rules``).  ``grad_compression``: ``TrainConfig``'s
     (``"int8"``: the wire transform of the reduced gradient).  Returns the
     (global) loss of every step run."""
     dev = resolve(device)
+    rules = SH.resolve_rules(rules)
     cfg = get_arch(arch)
     if smoke:
         cfg = cfg.reduced()
@@ -73,12 +79,12 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
         baxes, on_mesh = (), {}
         params = T.init_params(cfg, gen, device=dev)
     else:
-        baxes = (SH.batch_axes(batch, SH.TRAIN_RULES, mesh)
+        baxes = (SH.batch_axes(batch, rules, mesh)
                  if batch_axes is None else tuple(batch_axes))
-        pspecs = T.param_block_specs(cfg, mesh, batch_axes=baxes)
+        pspecs = T.param_block_specs(cfg, mesh, rules)
         specs = (pspecs, adamw.AdamWState(SH.P(), pspecs, pspecs))
         on_mesh = {"mesh": mesh, "specs": specs}
-        params = T.place_params(cfg, gen, mesh, batch_axes=baxes, device=dev)
+        params = T.place_params(cfg, gen, mesh, rules=rules, device=dev)
     opt_state = adamw.init(params)
     logs = mesh is None or SH.is_first_rank(mesh)
     start_step = 0
@@ -88,7 +94,8 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
         if logs:
             print(f"[train] resumed from step {start_step}")
 
-    step_fn = ST.make_train_step(cfg, tcfg, mesh=mesh, batch_axes=baxes)
+    step_fn = ST.make_train_step(cfg, tcfg, mesh=mesh, batch_axes=baxes,
+                                 rules=rules)
     stream = TokenStream(cfg, batch, seq, seed, device=dev)
     bspec = SH.P(baxes if len(baxes) > 1 else baxes[0]) if baxes else SH.P()
 

@@ -337,27 +337,41 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, *,
     The cache is updated in place (the JAX package returns a new tree):
     every layer's state, conv tail and K/V row, and ``pos``, which advances
     by one.  The returned cache is the one passed in.  ``shard``: a
-    mesh's ``sharding.ActSharder``, as ``T.forward`` takes it."""
+    mesh's ``sharding.ActSharder``, as ``T.forward`` takes it; each
+    layer's blocks are resharded as the loop runs it (``_layers``), so a
+    token gathers every split leaf once."""
     pos = cache["pos"]
     B = tokens.shape[0]
-    x = T.embed_tokens(cfg, params, tokens)
+    place = T.placement(cfg, shard)
+    x = T.embed_tokens(cfg, params, tokens, place)
     if cfg.rope == "learned":
         # clamped as JAX's gather clamps, so no step reads pos on the host
         at = pos.reshape(1).clamp(max=cfg.max_position - 1).long()
-        x = x + params["pos_embed"].index_select(0, at).to(x.dtype)[None]
+        x = x + T.computed(params["pos_embed"], place,
+                           "pos_embed").index_select(0, at).to(x.dtype)[None]
     ctx = T.rope_ctx(cfg, T.default_positions(cfg, pos.expand(B, 1)))
-    ctx.shard = shard
+    ctx.shard, ctx.place = shard, place
+    for kind, lp, path, lc in _layers(cfg, params, cache):
+        x, _ = block_step(cfg, kind, T.computed(lp, place, *path), x, lc,
+                          pos, ctx)
+    pos.add_(1)
+    return T.unembed(cfg, params, x, place), cache
+
+
+def _layers(cfg: ModelConfig, params, cache):
+    """(kind, the layer's stored leaves, their path in the parameters, its
+    cache entry) of every layer in order.  The loops reshard a layer's
+    leaves as they call its block (``T.computed``), so its gathered leaves
+    are a temporary: a rank holds one layer's at a time."""
     pattern = cfg.block_pattern
     blocks = params["blocks"]
     for g in range(T.num_groups(blocks)):
         gp, gc = T.group_params(blocks, g), T.group_params(cache["blocks"], g)
         for j, kind in enumerate(pattern):
             key = f"b{j}_{kind}"
-            x, _ = block_step(cfg, kind, gp[key], x, gc[key], pos, ctx)
+            yield kind, gp[key], ("blocks", key), gc[key]
     for j, (lp, lc) in enumerate(zip(params["rem"], cache["rem"])):
-        x, _ = block_step(cfg, pattern[j % len(pattern)], lp, x, lc, pos, ctx)
-    pos.add_(1)
-    return T.unembed(cfg, params, x), cache
+        yield pattern[j % len(pattern)], lp, ("rem", j), lc
 
 
 # ---------------------------------------------------------------------------
@@ -430,29 +444,22 @@ def prefill(cfg: ModelConfig, params, tokens, *, encoder_frames=None,
     replace the prompt's first F positions (``T.splice_frontend``); the
     rotary positions are 0..S-1, on all three channels for M-RoPE.
     ``shard``: a mesh's ``sharding.ActSharder``, as ``T.forward`` takes
-    it."""
+    it; each layer resharded as the loop runs it (``_layers``)."""
     B, S = tokens.shape
-    x = T.splice_frontend(cfg, params, T.embed_tokens(cfg, params, tokens),
-                          frontend_embeds)
-    x = T.add_positions(cfg, params, x)
+    place = T.placement(cfg, shard)
+    x = T.splice_frontend(cfg, params, T.embed_tokens(cfg, params, tokens,
+                                                      place),
+                          frontend_embeds, place)
+    x = T.add_positions(cfg, params, x, place)
     ctx = T.rope_ctx(cfg, T.default_positions(
         cfg, torch.arange(S, device=tokens.device)[None].expand(B, S)))
-    ctx.shard = shard
+    ctx.shard, ctx.place = shard, place
     ctx = T.encoder_ctx(cfg, params, ctx, encoder_frames, x.dtype)
-    pattern = cfg.block_pattern
     cache = init_cache(cfg, B, S, device=tokens.device)
     cache["pos"].fill_(S)
-    blocks = params["blocks"]
-    for g in range(T.num_groups(blocks)):
-        gp, gc = T.group_params(blocks, g), T.group_params(cache["blocks"], g)
-        for j, kind in enumerate(pattern):
-            key = f"b{j}_{kind}"
-            x, c = block_prefill(cfg, kind, gp[key], x, ctx)
-            for name, t in c.items():
-                gc[key][name].copy_(t)
-    for j, (lp, lc) in enumerate(zip(params["rem"], cache["rem"])):
-        x, c = block_prefill(cfg, pattern[j % len(pattern)], lp, x, ctx)
+    for kind, lp, path, lc in _layers(cfg, params, cache):
+        x, c = block_prefill(cfg, kind, T.computed(lp, place, *path), x, ctx)
         for name, t in c.items():
             lc[name].copy_(t)
-    logits = T.unembed(cfg, params, x[:, -1:])
+    logits = T.unembed(cfg, params, x[:, -1:], place)
     return logits, cache

@@ -16,14 +16,25 @@ stacked ``(groups, ...)`` under ``blocks["b{j}_{kind}"]``, pattern
 remainders are a list under ``rem``, so
 ``repro_torch.convert.params_from_jax`` carries a JAX tree across leaf for
 leaf.  A Python loop over the stacked groups takes the place of
-``lax.scan``; ``remat`` and ``scan_layers`` have no counterpart.  Over a
-mesh of ranks (``launch.mesh``) every rank runs the model on its own batch
-block, which already is the layout the JAX package's activation
-constraints ask for; ``shard`` (``forward``'s keyword, carried on ``Ctx``
-as in the JAX package; a ``sharding.ActSharder``) gives the MoE FFN the
-mesh and the batch's axes: with a ``model`` axis larger than 1 it takes
-the JAX package's expert-parallel path (``distributed.moe_ep``; the rank
-holds its experts' blocks, ``place_params``), else the gather path.
+``lax.scan`` (``scan_layers`` has no counterpart).  Over a mesh of ranks
+(``launch.mesh``) every rank runs the model on its own batch block, which
+already is the layout the JAX package's activation constraints ask for,
+and holds only its block of every parameter under the rules' spec
+(``place_params``: FSDP over data, TP and the vocabulary over model,
+experts over model).  ``shard`` (``forward``'s keyword, carried on
+``Ctx`` as in the JAX package; a ``sharding.ActSharder``) gives the mesh,
+the batch's axes and the rules; from them ``placement`` reshards each
+layer's blocks, where a loop takes the layer, to the blocks it computes
+with (``collectives.reshard``): dense leaves whole, expert leaves in the
+in_specs of the JAX package's expert-parallel path (``distributed.moe_ep``,
+taken with a ``model`` axis larger than 1; else the gather path).  The
+leaves outside the blocks (the embedding, the head, the patch projection,
+the positions, the encoder's) are resharded where they are used.  Under
+``cfg.remat`` (the JAX package's ``jax.checkpoint`` of each group and
+``rem`` layer) a mesh runs each layer, its reshard included, under
+``torch.utils.checkpoint``, so the backward gathers it again and a rank
+keeps at most one layer's gathered weights; on one card, where no leaf
+moves, ``remat`` still has no counterpart.
 Whisper's ``audio_frames`` and the ``vision_patches`` frontends are stubs
 in both packages: the caller hands ``forward`` the frame or patch
 embeddings.  ``softmax_xent`` is the training loss.  ``forward``
@@ -44,6 +55,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import moe_ep
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
@@ -256,10 +268,11 @@ def _draw(pd: PDef, cfg: ModelConfig, generator: torch.Generator,
         return torch.empty(shape, device=gdev).uniform_(lo, hi,
                                                         generator=generator)
 
-    if pd.init == "zeros":
-        return torch.zeros(pd.shape, dtype=dtype, device=dev)
-    if pd.init == "ones":
-        return torch.ones(pd.shape, dtype=dtype, device=dev)
+    if pd.init in ("zeros", "ones"):
+        shape = pd.shape if cut is None else cut(
+            torch.empty(pd.shape, device="meta")).shape
+        fill = torch.zeros if pd.init == "zeros" else torch.ones
+        return fill(shape, dtype=dtype, device=dev)
     if pd.init == "lru":
         # a in (0.9, 0.999): softplus(lam) = -ln(a) / 8
         t = torch.log(torch.expm1(-torch.log(uniform(pd.shape, 0.9, 0.999))
@@ -290,65 +303,111 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                     param_defs(cfg))
 
 
-def expert_spec(pd: PDef, layout: Optional[str]) -> SH.P:
-    """The block of a leaf that a rank holds under the MoE ``layout``
-    (``moe_ep.moe_layout``): the expert leaves split on their expert dim
-    over ``model`` (``moe_ffn_ep``'s in_specs), for ``ep_resident`` also on
-    the expert width over ``data``; every other leaf whole."""
-    if layout is None or "expert" not in pd.axes:
-        return SH.P()
-    e = pd.axes.index("expert")
-    parts = [None] * len(pd.axes)
-    parts[e] = "model"
-    if layout == "ep_resident":
-        parts[pd.axes.index(None, e + 1)] = "data"    # F: w1/w3 last, w2 -2
-    return SH.P(*parts)
+def param_block_specs(cfg: ModelConfig, mesh, rules=None) -> Pytree:
+    """The spec of the block of each leaf that a rank stores on ``mesh``
+    under ``rules`` (None: ``TRAIN_RULES``): the JAX package's
+    ``param_spec_tree`` (``P()`` for a whole leaf).  The AdamW moments and
+    the reduced gradient take the same blocks."""
+    rules = SH.resolve_rules(rules)
+    return tree_map(lambda pd: SH.spec_for(pd.shape, pd.axes, rules, mesh),
+                    param_defs(cfg))
 
 
-def param_block_specs(cfg: ModelConfig, mesh, *,
-                      batch_axes: Tuple[str, ...]) -> Pytree:
-    """The spec of the block of each leaf that ``place_params`` gives a
-    rank on ``mesh`` for a batch split over ``batch_axes`` (``P()`` for a
-    whole leaf)."""
-    layout = moe_ep.moe_layout(cfg, mesh, batch_axes)
-    return tree_map(lambda pd: expert_spec(pd, layout), param_defs(cfg))
-
-
-def place_params(cfg: ModelConfig, source, mesh, *,
-                 batch_axes: Tuple[str, ...], device=None) -> Pytree:
+def place_params(cfg: ModelConfig, source, mesh, *, rules=None,
+                 device=None) -> Pytree:
     """This rank's parameters on ``mesh``, the counterpart of the JAX
     package's ``jit(init_params, out_shardings=...)``: the rank's block of
-    each expert leaf (``expert_spec`` of the layout that ``ffn_forward``
-    takes for a batch split over ``batch_axes``: the steps must be given
-    the same, or the MoE FFN refuses the blocks), every other leaf whole,
-    on ``device`` (None: the card).  ``source`` is a whole tree (on the
-    CPU or the card), or a ``torch.Generator`` drawn from leaf by leaf
-    exactly as ``init_params`` draws, each expert block cut from its fp32
-    draw, so the rank never holds more than one whole leaf."""
+    each leaf under ``param_block_specs`` of ``rules``, on ``device``
+    (None: the card).  ``source`` is a whole tree (on the CPU or the
+    card), or a ``torch.Generator`` drawn from leaf by leaf exactly as
+    ``init_params`` draws, each block cut from its fp32 draw, so the rank
+    never holds more than one whole leaf."""
     dev = resolve(device)
-    layout = moe_ep.moe_layout(cfg, mesh, batch_axes)
-    coords = SH.mesh_coords(mesh) if layout else None
+    specs = param_block_specs(cfg, mesh, rules)
+    coords = SH.mesh_coords(mesh)
 
-    def cutter(pd):
-        spec = expert_spec(pd, layout)
+    def cutter(spec):
         if not spec:
             return None
         return lambda t: SH.local_block(t, spec, mesh, coords)
 
     defs = param_defs(cfg)
     if isinstance(source, torch.Generator):
-        return tree_map(lambda pd: _draw(pd, cfg, source, dev, cutter(pd)),
-                        defs)
+        return tree_map(lambda pd, sp: _draw(pd, cfg, source, dev,
+                                             cutter(sp)), defs, specs)
 
-    def keep(pd, t):
-        cut = cutter(pd)
+    def keep(t, sp):
+        cut = cutter(sp)
         if cut is None:
             return t.to(dev)
         block = cut(t)
         return torch.empty(block.shape, dtype=t.dtype,
                            device=dev).copy_(block)
 
-    return tree_map(keep, defs, source)
+    return tree_map(keep, source, specs)
+
+
+@dataclass(frozen=True)
+class Placement:
+    """A mesh's two layouts of the parameters (``param_defs``' structure,
+    a ``sharding.LeafSpecs`` a leaf): the block each rank stores and the
+    block a layer computes with; ``remat``: a layer runs under
+    ``torch.utils.checkpoint`` when a gradient is taken."""
+    mesh: Any
+    specs: Pytree
+    remat: bool
+
+    def compute(self, tree: Pytree, *path) -> Pytree:
+        """``tree``, the stored blocks of the subtree at ``path`` of the
+        parameters, resharded to their compute blocks.  Under a ``blocks``
+        key ``tree`` is a layer group's slice of stacked leaves, whose
+        specs lose the layer dim (never split: ``layer`` maps to no
+        axis)."""
+        specs = self.specs
+        for k in path:
+            specs = specs[k]
+        stacked = "blocks" in path
+
+        def one(t, ls):
+            src, dst = ls.storage, ls.compute
+            if stacked:
+                src, dst = SH.P(*src[1:]), SH.P(*dst[1:])
+            return coll.reshard(t, src, dst, self.mesh)
+        return tree_map(one, tree, specs)
+
+
+def placement(cfg: ModelConfig, shard) -> Optional[Placement]:
+    """The ``Placement`` of a mesh's ``sharding.ActSharder``: storage under
+    its rules, compute in the MoE layout of its batch's axes; None on one
+    card, and on a mesh where every stored block is its compute block."""
+    if shard is None:
+        return None
+    layout = moe_ep.moe_layout(cfg, shard.mesh, shard.batch_axes)
+    defs = param_defs(cfg)
+    specs = tree_map(lambda pd: SH.leaf_specs(pd.shape, pd.axes, shard.rules,
+                                              shard.mesh, layout), defs)
+    if not any(coll.moves(len(pd.shape), ls.storage, ls.compute, shard.mesh)
+               for pd, ls in zip(tree_leaves(defs), tree_leaves(specs))):
+        return None
+    return Placement(shard.mesh, specs, cfg.remat)
+
+
+def computed(tree: Pytree, place: Optional[Placement], *path) -> Pytree:
+    """``tree``, the parameters' subtree (or leaf) at ``path``, as a layer
+    computes with it: on a mesh (``place``) its stored blocks resharded
+    (``Placement.compute``), a temporary that the caller drops after the
+    layer, on one card ``tree`` itself."""
+    return tree if place is None else place.compute(tree, *path)
+
+
+def _remat(place: Optional[Placement], fn: Callable, *args):
+    """``fn(*args)``; under ``torch.utils.checkpoint`` where ``place``
+    remats and a gradient is taken, so that what ``fn`` gathers is not
+    kept for the backward but gathered again."""
+    if place is not None and place.remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def param_shapes(cfg: ModelConfig) -> Pytree:
@@ -377,8 +436,9 @@ class Ctx:
     """Per-call context shared across layers: the RoPE (or M-RoPE) angles
     (B, S, half), MLA's over its rope dims (``cos_r``, ``sin_r``), the
     encoder's output (B, encoder_seq, D) that cross-attention reads, and
-    over a mesh ``shard``, its mesh and batch axes
-    (``sharding.make_act_sharder``)."""
+    over a mesh ``shard``, its mesh, batch axes and rules
+    (``sharding.make_act_sharder``), and ``place``, the ``placement`` of
+    the parameters it gives."""
     cfg: ModelConfig
     cos: Optional[torch.Tensor] = None
     sin: Optional[torch.Tensor] = None
@@ -386,6 +446,7 @@ class Ctx:
     sin_r: Optional[torch.Tensor] = None
     enc_out: Optional[torch.Tensor] = None
     shard: Optional[SH.ActSharder] = None
+    place: Optional[Placement] = None
 
 
 def _proj(x, w, b=None):
@@ -602,28 +663,44 @@ def num_groups(blocks: Pytree) -> int:
 
 
 def run_decoder_blocks(cfg: ModelConfig, params, x, ctx: Ctx):
+    """Every layer in order; on a mesh each block's stored blocks
+    resharded as it runs (``computed``), each group and ``rem`` layer
+    under remat where it applies (the JAX package's ``jax.checkpoint``
+    of ``group_fn`` and ``rem_fn``)."""
     pattern = cfg.block_pattern
+    place = ctx.place
+
+    def group(gp, x):
+        for j, kind in enumerate(pattern):
+            key = f"b{j}_{kind}"
+            x = apply_block(cfg, kind, computed(gp[key], place, "blocks",
+                                                key), x, ctx)
+        return x
+
     blocks = params["blocks"]
     for g in range(num_groups(blocks)):
-        gp = group_params(blocks, g)
-        for j, kind in enumerate(pattern):
-            x = apply_block(cfg, kind, gp[f"b{j}_{kind}"], x, ctx)
+        x = _remat(place, group, group_params(blocks, g), x)
     for j, lp in enumerate(params["rem"]):
-        x = apply_block(cfg, pattern[j % len(pattern)], lp, x, ctx)
+        kind = pattern[j % len(pattern)]
+        x = _remat(place, lambda p, x, kind=kind, j=j: apply_block(
+            cfg, kind, computed(p, place, "rem", j), x, ctx), lp, x)
     return x
 
 
 def encode(cfg: ModelConfig, params, frames, shard=None):
     """Whisper-style bidirectional encoder over precomputed frame
     embeddings (B, S_enc, D): each block non-causal attention (K5 on the
-    card) and the FFN, then the final norm."""
+    card) and the FFN, then the final norm; on a mesh each block resharded
+    as it runs, under remat where it applies."""
     enc = params["encoder"]
-    x = frames + enc["pos_embed"][None, : frames.shape[1]].to(frames.dtype)
-    ctx = Ctx(cfg=cfg, shard=shard)
+    place = placement(cfg, shard)
+    ctx = Ctx(cfg=cfg, shard=shard, place=place)
+    pos = computed(enc["pos_embed"], place, "encoder", "pos_embed")
+    x = frames + pos[None, : frames.shape[1]].to(frames.dtype)
     Dh = cfg.resolved_head_dim
-    blocks = enc["blocks"]
-    for g in range(num_groups(blocks)):
-        bp = group_params(blocks, g)
+
+    def block(bp, x):
+        bp = computed(bp, place, "encoder", "blocks")
         h = L.rms_norm(x, bp["attn"]["ln"], cfg.norm_eps)
         q = _heads(_proj(h, bp["attn"]["wq"]), cfg.num_heads, Dh)
         k = _heads(_proj(h, bp["attn"]["wk"]), cfg.num_kv_heads, Dh)
@@ -632,8 +709,13 @@ def encode(cfg: ModelConfig, params, frames, shard=None):
                                 unroll=cfg.attn_unroll)
         o = o.reshape(x.shape[0], x.shape[1], cfg.num_heads * Dh)
         x = x + _proj(o, bp["attn"]["wo"])
-        x = ffn_forward(cfg, bp["ffn"], x, ctx)
-    return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
+        return ffn_forward(cfg, bp["ffn"], x, ctx)
+
+    blocks = enc["blocks"]
+    for g in range(num_groups(blocks)):
+        x = _remat(place, block, group_params(blocks, g), x)
+    return L.rms_norm(x, computed(enc["final_norm"], place, "encoder",
+                                  "final_norm"), cfg.norm_eps)
 
 
 class _TokenRows(torch.autograd.Function):
@@ -666,8 +748,12 @@ class _TokenRows(torch.autograd.Function):
         return out, None
 
 
-def embed_tokens(cfg: ModelConfig, params, tokens):
-    x = _TokenRows.apply(params["embed"], tokens)
+def embed_tokens(cfg: ModelConfig, params, tokens, place=None):
+    """The token rows of the embedding; on a mesh (``place``) of the
+    table gathered over its vocabulary blocks.  The gathered table is no
+    input of a saved tensor (``_TokenRows`` keeps the tokens), so nothing
+    of it is kept for the backward."""
+    x = _TokenRows.apply(computed(params["embed"], place, "embed"), tokens)
     if cfg.family == "hybrid":                       # gemma-style embed scale
         # the scale rounded to the model's dtype first (bf16: 50.5, not
         # 50.596 at d_model 2560), as the JAX package does
@@ -676,17 +762,25 @@ def embed_tokens(cfg: ModelConfig, params, tokens):
     return x
 
 
-def unembed(cfg: ModelConfig, params, x):
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head.to(x.dtype)
-    if cfg.padded_vocab != cfg.vocab_size:
-        # mask the padding columns with an additive bias
-        cols = torch.arange(cfg.padded_vocab, device=logits.device)
-        pad_mask = torch.where(cols < cfg.vocab_size, 0.0, -1e30).to(
-            logits.dtype)
-        logits = logits + pad_mask[None, None, :]
-    return logits
+def unembed(cfg: ModelConfig, params, x, place=None):
+    """The final norm and the head (the embedding's transpose where tied);
+    on a mesh (``place``) the head gathered, under remat where it
+    applies."""
+    key = "embed" if cfg.tie_embeddings else "lm_head"
+
+    def run(head, norm, x):
+        head = computed(head, place, key)
+        x = L.rms_norm(x, computed(norm, place, "final_norm"), cfg.norm_eps)
+        logits = x @ (head.T if cfg.tie_embeddings else head).to(x.dtype)
+        if cfg.padded_vocab != cfg.vocab_size:
+            # mask the padding columns with an additive bias
+            cols = torch.arange(cfg.padded_vocab, device=logits.device)
+            pad_mask = torch.where(cols < cfg.vocab_size, 0.0, -1e30).to(
+                logits.dtype)
+            logits = logits + pad_mask[None, None, :]
+        return logits
+
+    return _remat(place, run, params[key], params["final_norm"], x)
 
 
 def default_positions(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
@@ -710,33 +804,38 @@ def rope_ctx(cfg: ModelConfig, positions) -> Ctx:
     return ctx
 
 
-def splice_frontend(cfg: ModelConfig, params, x, frontend_embeds):
+def splice_frontend(cfg: ModelConfig, params, x, frontend_embeds,
+                    place=None):
     """Early fusion: the patch embeddings (B, F, D), projected by
-    ``patch_proj``, replace the first F of x's S positions, where the
-    config has the ``vision_patches`` frontend and the caller gives them.
-    F > S is refused (the JAX package's concatenation would return F
-    positions where S were asked)."""
+    ``patch_proj`` (on a mesh, ``place``, gathered, under remat where it
+    applies), replace the first F of x's S positions, where the config
+    has the ``vision_patches`` frontend and the caller gives them.  F > S
+    is refused (the JAX package's concatenation would return F positions
+    where S were asked)."""
     if cfg.frontend != "vision_patches" or frontend_embeds is None:
         return x
     F_, S = frontend_embeds.shape[1], x.shape[1]
     if F_ > S:
         raise ValueError(f"{cfg.name}: {F_} frontend positions, past the "
                          f"{S}-token prompt they would replace")
-    pe = _proj(frontend_embeds.to(x.dtype), params["patch_proj"])
+    pe = _remat(place, lambda w, fe: _proj(fe.to(x.dtype), computed(
+        w, place, "patch_proj")), params["patch_proj"], frontend_embeds)
     return torch.cat([pe, x[:, F_:]], dim=1)
 
 
-def add_positions(cfg: ModelConfig, params, x):
+def add_positions(cfg: ModelConfig, params, x, place=None):
     """x (B, S, D) plus the learned positions 0..S-1, where the config
-    has them.  A block longer than ``max_position`` is refused here (JAX's
-    gather would clamp the index; a card's would fault)."""
+    has them (on a mesh, ``place``, resharded).  A block longer than
+    ``max_position`` is refused here (JAX's gather would clamp the index;
+    a card's would fault)."""
     if cfg.rope != "learned":
         return x
     S = x.shape[1]
     if S > cfg.max_position:
         raise ValueError(f"{cfg.name}: {S} tokens, past the {cfg.max_position}"
                          f" learned positions")
-    return x + params["pos_embed"][:S].to(x.dtype)
+    return x + computed(params["pos_embed"], place, "pos_embed")[:S].to(
+        x.dtype)
 
 
 def encoder_ctx(cfg: ModelConfig, params, ctx: Ctx, encoder_frames, dtype):
@@ -763,17 +862,18 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
     ``encoder_frames`` (B, encoder_seq, D) feed the encoder and
     cross-attention; ``shard`` a mesh's ``sharding.ActSharder``."""
     B, S = tokens.shape
-    x = splice_frontend(cfg, params, embed_tokens(cfg, params, tokens),
-                        frontend_embeds)
-    x = add_positions(cfg, params, x)
+    place = placement(cfg, shard)
+    x = splice_frontend(cfg, params, embed_tokens(cfg, params, tokens, place),
+                        frontend_embeds, place)
+    x = add_positions(cfg, params, x, place)
     if positions is None:
         positions = default_positions(
             cfg, torch.arange(S, device=tokens.device)[None].expand(B, S))
     ctx = rope_ctx(cfg, positions)
-    ctx.shard = shard
+    ctx.shard, ctx.place = shard, place
     ctx = encoder_ctx(cfg, params, ctx, encoder_frames, x.dtype)
     x = run_decoder_blocks(cfg, params, x, ctx)
-    return unembed(cfg, params, x)
+    return unembed(cfg, params, x, place)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

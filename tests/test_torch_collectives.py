@@ -7,6 +7,20 @@ function is ``torch_mesh_ranks.units_rank``).
   be the sum (the concatenation in the axis's order) of the group's x, and
   x_r's gradient autograd's gradient of the sum over all ranks of
   sum(y_r * w_r) in x_r, computed here in one process (fp32, 1e-6).
+- ``collectives.reshard`` from a stored block to a computed one
+  (``RESHARD_CASES``: gathered whole, the resident experts' move of the
+  split from D to F, a swap of axes, a cut alone): the forward must be
+  the rank's block of the whole tensor under the target spec, and the
+  sum of the gradients of the ranks holding the same stored block
+  autograd's gradient of the sum over ranks in one process, cut to that
+  block (fp32, 1e-6).  In bf16 the backward sums in fp32: cotangents 1,
+  2^-8, 2^-8, 0 give 1 + 2^-7, where bf16 adds over model, then data,
+  give 1.
+- ``cfg.remat`` on the reduced qwen3-moe over the mesh (every leaf stored
+  split but the norms, gate and positions): with it on, no tensor kept
+  for the backward outside a checkpoint has the whole per-layer shape of
+  a split leaf; with it off some do (the probe sees them); the gradients
+  agree within 1e-6.
 - The global norm AdamW takes with ``launch.steps.norm_reduction``, over
   the reduced qwen3-moe's placed parameters (``ep``: experts split over
   model; ``ep_resident``: also their width over data): each block counted
@@ -21,6 +35,7 @@ function is ``torch_mesh_ranks.units_rank``).
   losses within 1e-5.
 """
 import dataclasses
+import math
 import shutil
 
 import numpy as np
@@ -33,7 +48,9 @@ from repro_torch.launch import mesh as M
 from repro_torch.launch import train as TR
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
-from torch_mesh_ranks import UNIT_MOE, UNIT_TRAIN, units_rank
+from repro_torch.distributed import sharding as SH
+from torch_mesh_ranks import (BF16_COTANGENTS, RESHARD_CASES, UNIT_MOE,
+                              UNIT_TRAIN, units_rank)
 
 SHAPE = {"data": 2, "model": 2}
 
@@ -75,6 +92,69 @@ def test_a_collectives_backward_is_autograd_of_the_sum_over_ranks(
     for r in range(4):
         np.testing.assert_allclose(got[r][f"{key}_dx"], want[r].numpy(),
                                    rtol=1e-6, atol=1e-6)
+
+
+class _At:
+    """The (2, 2) mesh as ``local_block`` sees it from rank ``r``."""
+    shape = SHAPE
+
+    def __init__(self, r):
+        self.coords = {"data": r // 2, "model": r % 2}
+
+
+def _block(t, spec, r):
+    at = _At(r)
+    return SH.local_block(t, SH.P(*spec), at, at.coords)
+
+
+@pytest.mark.parametrize("case", RESHARD_CASES, ids=[c[0] for c in
+                                                     RESHARD_CASES])
+def test_reshard_backward_is_autograd_of_the_sum_over_ranks(ranks, case):
+    name, shape, src, dst = case
+    got = ranks[1]
+    whole = torch.from_numpy(got[0][f"rs_{name}_whole"]).requires_grad_()
+    total = 0.0
+    for r in range(4):
+        y = _block(whole, dst, r)
+        np.testing.assert_array_equal(got[r][f"rs_{name}_y"],
+                                      y.detach().numpy())
+        total = total + (y * torch.from_numpy(got[r][f"rs_{name}_w"])).sum()
+    (want,) = torch.autograd.grad(total, [whole])
+    held = {}
+    for r in range(4):              # ranks that hold the same stored block
+        key = _block(torch.arange(whole.numel()).view(shape), src, r)
+        held.setdefault(tuple(key.flatten().tolist()), []).append(r)
+    assert len(held) == math.prod(2 for part in src if part is not None)
+    for rs in held.values():
+        dx = sum(torch.from_numpy(got[r][f"rs_{name}_dx"]) for r in rs)
+        np.testing.assert_allclose(dx.numpy(), _block(want, src,
+                                                      rs[0]).numpy(),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_reshard_backward_sums_bf16_in_fp32(ranks):
+    got = ranks[1]
+    c = [torch.tensor(v, dtype=torch.bfloat16) for v in BF16_COTANGENTS]
+    in_bf16 = float((c[0] + c[1]) + (c[2] + c[3]))
+    assert in_bf16 == 1.0
+    assert float(got[0]["rs_bf16_dx"][0, 0]) == 1.0 + 2.0 ** -7
+
+
+def test_remat_keeps_no_whole_split_leaf_for_the_backward(ranks):
+    got = ranks[1]
+    for r in got:
+        split = set(r["remat_split_shapes"].tolist())
+        assert "(8, 128, 64)" in split and "(512, 128)" in split
+        on = set(r["remat1_kept"].tolist())
+        off = set(r["remat0_kept"].tolist())
+        assert not split & on, split & on
+        assert split & off                       # the probe sees them
+        assert r["remat1_loss"] == r["remat0_loss"]
+        n = sum(1 for k in r if k.startswith("remat1_g"))
+        assert n == sum(1 for k in r if k.startswith("remat0_g")) > 10
+        for j in range(n):
+            np.testing.assert_allclose(r[f"remat1_g{j}"], r[f"remat0_g{j}"],
+                                       rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("impl", ["ep", "ep_resident"])

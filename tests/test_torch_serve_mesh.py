@@ -10,9 +10,13 @@ experts, the whole batch), a (2, 2) mesh with ``moe_impl="ep_resident"``
 whole batch at the config's capacity factor (1.25), as one process does;
 the third caps each data block on its own, so it is served at capacity
 factor 16, where nothing drops, and held to one process at the same.
-Every rank must return the one-process greedy tokens, and the prefill
-step's last-position logits, gathered over the batch's blocks, must be
-within 1e-5 (fp32; the sums run in another order).
+Each rank holds its ``TRAIN_RULES`` block of every weight and the steps
+gather each layer as they take it; one more case serves the reduced
+qwen3-moe over (2, 2) ``ep_resident`` under ``TP_RULES`` (no FSDP: the
+experts stored whole in width, cut over data to compute).  Every rank
+must return the one-process greedy tokens, and the prefill step's
+last-position logits, gathered over the batch's blocks, must be within
+1e-5 (fp32; the sums run in another order).
 """
 import dataclasses
 
@@ -32,10 +36,11 @@ ARCHS = ["qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"]
 MESHES = [((1, 4), {}), ((2, 2), {"moe_impl": "ep_resident"}),
           ((2, 2), {"moe_capacity_factor": 16.0})]
 SERVE = {"batch": 4, "prompt": 32, "gen": 8, "seed": 0, "smoke": False}
-CASES = [(arch, shape, over, SERVE) for arch in ARCHS
-         for shape, over in MESHES]
+CASES = [(arch, shape, over, SERVE, "TRAIN_RULES") for arch in ARCHS
+         for shape, over in MESHES] + [
+    (ARCHS[0], (2, 2), {"moe_impl": "ep_resident"}, SERVE, "TP_RULES")]
 IDS = [f"{a.split('-')[0]}-{s[0]}x{s[1]}-{'-'.join(o) or 'ep'}"
-       for a, s, o, _ in CASES]
+       + ("" if r == "TRAIN_RULES" else f"-{r}") for a, s, o, _, r in CASES]
 
 
 @pytest.fixture(scope="module")
@@ -64,7 +69,7 @@ def _one_process(arch, over):
 
 @pytest.mark.parametrize("i", range(len(CASES)), ids=IDS)
 def test_serve_over_a_mesh_is_the_one_process_serve(ranks, i):
-    arch, shape, over, _ = CASES[i]
+    arch, shape, over, _, _ = CASES[i]
     gen, logits = _one_process(arch, over)
     assert gen.shape == (SERVE["batch"], SERVE["gen"])
     for r in ranks:

@@ -7,9 +7,14 @@ the JAX package's partition specs leaf for leaf (compared as tuples), and
 so must ``batch_spec`` and the cache's spec tree; ``param_logical_axes``,
 ``cache_logical_axes``, ``adamw.state_shapes`` and ``specs.input_specs``
 must give its axes, shapes and dtypes.  ``shardings_for`` is held to JAX's
-on its one-device local mesh.  Nothing here needs a process group: a fake
-mesh is a ``{name: size}`` dict, as ``tests/test_distributed.py`` fakes
-one.  Mesh entry points without a group raise.
+on its one-device local mesh, and ``transformer.param_block_specs`` (the
+blocks a rank stores) to JAX's ``param_spec_tree`` under ``TRAIN_RULES``
+and ``TP_RULES`` on the (2, 4), (4, 2) and (1, 8) meshes of the host-mesh
+tests.  Nothing here needs a process group: a fake mesh is a ``{name:
+size}`` dict, as ``tests/test_distributed.py`` fakes one.  Mesh entry
+points without a group raise, and so do the step makers given
+``SEQPAR_RULES`` or ``DECODE_RULES``, whose activation layouts are not
+ported.
 """
 import math
 
@@ -151,6 +156,50 @@ def test_param_specs_match_jax(arch):
                     (mname, rname, B)
 
 
+STORAGE_MESHES = {"2x4": {"data": 2, "model": 4},
+                  "4x2": {"data": 4, "model": 2},
+                  "1x8": {"data": 1, "model": 8}}
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_param_block_specs_are_jax_s_param_spec_tree(arch):
+    """The block of every leaf a rank stores, dense leaves included, is
+    JAX's spec of it: FSDP over data and TP over model under
+    ``TRAIN_RULES``, TP alone under ``TP_RULES``."""
+    cfg, jcfg = get_arch(arch), jget_arch(arch)
+    jshapes, jaxes = JT.param_shapes(jcfg), JT.param_logical_axes(jcfg)
+    split = 0
+    for mshape in STORAGE_MESHES.values():
+        mesh = _FakeMesh(mshape)
+        for rname in ("TRAIN_RULES", "TP_RULES"):
+            got = T.param_block_specs(cfg, mesh, getattr(SH, rname))
+            _specs_equal(JSH.param_spec_tree(jshapes, jaxes,
+                                             getattr(JSH, rname), mesh), got)
+            split += sum(bool(sp) for sp in
+                         T.tree_leaves(got, is_leaf=SH.is_spec))
+    assert split                           # some leaf is split somewhere
+    assert T.param_block_specs(cfg, mesh) == T.param_block_specs(
+        cfg, mesh, SH.TRAIN_RULES)
+
+
+@pytest.mark.parametrize("name", ["SEQPAR_RULES", "DECODE_RULES"])
+@pytest.mark.parametrize("maker", ["make_grad_fn", "make_train_step",
+                                   "make_prefill_step", "make_decode_step"])
+def test_unported_rule_sets_are_refused_by_name(name, maker):
+    """Their residual-stream layouts are not ported: run as
+    ``TRAIN_RULES`` they would hide that."""
+    from repro_torch.configs import TrainConfig
+    cfg = get_arch("qwen3-8b").reduced()
+    mesh = _FakeMesh({"data": 2, "model": 2})
+    args = (cfg, TrainConfig()) if maker in ("make_grad_fn",
+                                             "make_train_step") else (cfg,)
+    with pytest.raises(NotImplementedError, match=name):
+        getattr(ST, maker)(*args, mesh=mesh, batch_axes=("data",),
+                           rules=getattr(SH, name))
+    with pytest.raises(NotImplementedError, match=name):
+        SH.make_act_sharder(mesh, ("data",), getattr(SH, name))
+
+
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_cache_axes_and_specs_match_jax(arch):
     cfg, jcfg = get_arch(arch), jget_arch(arch)
@@ -267,8 +316,16 @@ def test_moe_layout_and_expert_specs(impl, shape, layout):
              "ep_resident": (None, "model", None, "data")}[layout]
     want2 = {None: (), "ep": (None, "model"),
              "ep_resident": (None, "model", "data")}[layout]
-    assert T.expert_spec(w1, layout) == want1
-    assert T.expert_spec(w2, layout) == want2
+    # the blocks a layer computes with: moe_ep's in_specs
+    assert SH.compute_spec(w1.axes, layout) == want1
+    assert SH.compute_spec(w2.axes, layout) == want2
+    # the blocks a rank stores, whatever the layout: TRAIN_RULES' spec
+    specs = SH.leaf_specs(w1.shape, w1.axes, SH.TRAIN_RULES, mesh, layout)
+    assert specs.compute == want1
+    assert specs.storage == SH.spec_for(w1.shape, w1.axes, SH.TRAIN_RULES,
+                                        mesh)
+    if shape["model"] > 1:
+        assert specs.storage[1] == "model"
 
 
 def test_mesh_entry_points_raise_without_a_process_group():
@@ -293,32 +350,70 @@ def test_a_spec_survives_pickling(spec):
     assert type(back) is SH.P and back == spec and bool(back) == bool(spec)
 
 
-LEAF_AXES = [  # (arch, impl, mesh): (an expert leaf's, any other leaf's)
-    ("qwen3-moe-235b-a22b", "ep", "1x4", ((("model",), ()),
-                                          ((), ("model",)))),
-    ("qwen3-moe-235b-a22b", "ep", "2x2", ((("model",), ("data",)),
-                                          ((), ("data", "model")))),
-    ("qwen3-moe-235b-a22b", "ep_resident", "2x2",
-     ((("model", "data"), ()), ((), ("data", "model")))),
-    ("qwen3-8b", "ep", "2x2", (None, ((), ("data", "model")))),
-    ("mamba2-370m", "ep", "2x2", (None, ((), ("data", "model")))),
+LEAF_AXES = [  # (arch, impl, mesh, rules): {leaf path: (split, summed)}
+    ("qwen3-moe-235b-a22b", "ep", "1x4", "TRAIN_RULES", {
+        # JAX's spec keeps a data axis of one rank: nothing to sum over it
+        "/blocks/b0_attn/ffn/w1": (("model", "data"), ()),
+        "/blocks/b0_attn/attn/wq": (("data", "model"), ()),
+        "/blocks/b0_attn/attn/ln": ((), ("model",)),
+        "/embed": (("model",), ())}),
+    ("qwen3-moe-235b-a22b", "ep", "2x2", "TRAIN_RULES", {
+        "/blocks/b0_attn/ffn/w1": (("model", "data"), ()),
+        "/blocks/b0_attn/ffn/w2": (("model", "data"), ()),
+        "/blocks/b0_attn/ffn/wg": ((), ("data", "model")),
+        "/blocks/b0_attn/attn/wo": (("model", "data"), ()),
+        "/lm_head": (("model",), ("data",))}),
+    ("qwen3-moe-235b-a22b", "ep_resident", "2x2", "TP_RULES", {
+        "/blocks/b0_attn/ffn/w1": (("model",), ("data",)),
+        "/blocks/b0_attn/attn/wq": (("model",), ("data",)),
+        "/final_norm": ((), ("data", "model"))}),
+    ("qwen3-8b", "ep", "2x2", "TRAIN_RULES", {
+        "/blocks/b0_attn/ffn/w1": (("data", "model"), ()),
+        "/blocks/b0_attn/attn/wo": (("model", "data"), ()),
+        "/blocks/b0_attn/attn/qn": ((), ("data", "model"))}),
+    ("mamba2-370m", "ep", "2x2", "TRAIN_RULES", {
+        "/blocks/b0_ssd/ssd/in_proj": (("data", "model"), ()),
+        "/blocks/b0_ssd/ssd/conv_w": (("model",), ("data",)),
+        "/blocks/b0_ssd/ssd/a_log": ((), ("data", "model"))}),
 ]
 
 
-@pytest.mark.parametrize("arch,impl,mesh,want", LEAF_AXES)
-def test_leaf_axes_say_where_each_gradient_is_summed(arch, impl, mesh, want):
-    """A whole leaf's gradient is summed over every axis of more than one
-    rank; an expert block's over the axes it is not split over (none for
-    ``ep_resident``), so each block counts each rank's share once."""
+def _leaf_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_paths(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+@pytest.mark.parametrize("arch,impl,mesh,rules,want", LEAF_AXES)
+def test_leaf_axes_say_where_each_gradient_is_summed(arch, impl, mesh, rules,
+                                                     want):
+    """A leaf's gradient is summed over the axes of more than one rank
+    that its stored block is not split over (the reshard's backward has
+    summed it over those it is gathered over), so each block counts each
+    rank's share once, whatever the MoE layout."""
     import dataclasses
     cfg = dataclasses.replace(get_arch(arch).reduced(), moe_impl=impl)
     fake = _FakeMesh(MESHES[mesh])
-    axes = ST.leaf_axes(cfg, fake, ("data",))
-    defs = T.tree_leaves(T.param_defs(cfg))
-    assert len(axes) == len(defs)
-    expert, other = want
-    for pd, got in zip(defs, axes):
-        assert got == (expert if "expert" in pd.axes else other), pd
+    axes = ST.leaf_axes(cfg, fake, getattr(SH, rules))
+    specs = T.tree_leaves(T.param_block_specs(cfg, fake, getattr(SH, rules)),
+                          is_leaf=SH.is_spec)
+    paths = _leaf_paths(T.param_defs(cfg))
+    assert len(axes) == len(specs) == len(paths)
+    names = tuple(MESHES[mesh])
+    for path, sp, (split, over) in zip(paths, specs, axes):
+        live = [a for a in names if MESHES[mesh][a] > 1]
+        assert set(split) | set(over) >= set(live) and not set(split) & set(
+            over), path
+        assert tuple(split) == tuple(a for part in sp if part for a in
+                                     ((part,) if isinstance(part, str)
+                                      else part)), path
+        if path in want:
+            assert (split, over) == want[path], (path, split, over)
+    assert set(want) <= set(paths)
 
 
 class _RankMesh(_FakeMesh):
@@ -339,49 +434,69 @@ class _RankMesh(_FakeMesh):
                                          {"data": 2, "model": 2})])
 def test_place_params_keeps_the_rank_s_expert_blocks(impl, shape):
     """From a generator (leaf by leaf, the block cut from each fp32 draw)
-    and from a whole tree: the rank's blocks of ``init_params``' expert
-    leaves under ``expert_spec``, every other leaf whole and equal."""
+    and from a whole tree: the rank's block of every leaf of
+    ``init_params`` under ``param_block_specs`` (the expert leaves' and
+    the dense leaves' alike, whatever the MoE layout), equal to the
+    whole leaf's block; zero and one leaves (the QKV biases) at the
+    block's shape."""
     import dataclasses
     cfg = dataclasses.replace(get_arch("qwen3-moe-235b-a22b").reduced(),
-                              moe_impl=impl)
+                              moe_impl=impl, qkv_bias=True)
     whole = T.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
     defs = T.param_defs(cfg)
-    layout = {"ep": "ep", "ep_resident": "ep_resident"}[impl]
+    specs = T.tree_leaves(T.param_block_specs(cfg, _FakeMesh(shape)),
+                          is_leaf=SH.is_spec)
     for data in range(shape["data"]):
         for model in range(shape["model"]):
             mesh = _RankMesh(shape, {"data": data, "model": model})
             drawn = T.place_params(cfg, torch.Generator().manual_seed(5), mesh,
-                                   batch_axes=("data",), device="cpu")
-            given = T.place_params(cfg, whole, mesh, batch_axes=("data",),
                                    device="cpu")
-            leaves = zip(T.tree_leaves(defs), T.tree_leaves(whole),
+            given = T.place_params(cfg, whole, mesh, device="cpu")
+            leaves = zip(T.tree_leaves(defs), specs, T.tree_leaves(whole),
                          T.tree_leaves(drawn), T.tree_leaves(given))
-            n_expert = 0
-            for pd, w, d, g in leaves:
-                spec = T.expert_spec(pd, layout)
+            n_expert = n_split = 0
+            for pd, spec, w, d, g in leaves:
                 want = SH.local_block(w, spec, mesh, mesh.coords)
-                n_expert += bool(spec)
+                n_expert += "expert" in pd.axes and bool(spec)
+                n_split += bool(spec)
                 assert torch.equal(d, want) and torch.equal(g, want)
                 assert d.is_contiguous() and d.numel() * math.prod(
                     mesh.shape[a] for part in spec if part for a in
                     ((part,) if isinstance(part, str) else part)) == w.numel()
             assert n_expert == 3           # the stacked w1, w3, w2
+            assert n_split > n_expert      # the dense leaves too
 
 
 @pytest.mark.parametrize("placed,run", [(("data",), ()), ((), ("data",))])
 def test_blocks_placed_for_another_layout_are_refused(placed, run):
     """On a (2, 2) ``ep_resident`` mesh the batch's axes decide the layout:
     split over data, the experts' width is cut over data too; not split,
-    every rank holds the whole width (``ep``).  Blocks placed for one and
-    run by the other would sum two whole widths, or leave half of one
-    out, in the collectives: the MoE FFN refuses them before any."""
+    every rank holds the whole width (``ep``).  Expert blocks laid out for
+    one (``SH.compute_spec`` of the layout of ``placed``) and run by the
+    other would sum two whole widths, or leave half of one out, in the
+    collectives: the MoE FFN refuses them before any.  So does a stored
+    block (D split over data) that was not resharded."""
     import dataclasses
+
+    from repro_torch.distributed import moe_ep
     cfg = dataclasses.replace(get_arch("qwen3-moe-235b-a22b").reduced(),
                               moe_impl="ep_resident", dtype="float32")
     mesh = _RankMesh({"data": 2, "model": 2}, {"data": 0, "model": 0})
-    params = T.place_params(cfg, torch.Generator().manual_seed(0), mesh,
-                            batch_axes=placed, device="cpu")
-    step = ST.make_prefill_step(cfg, mesh=mesh, batch_axes=run)
-    tokens = torch.zeros((2, 8), dtype=torch.int32)
+    whole = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    ffn = T.group_params(whole["blocks"], 0)["b0_attn"]["ffn"]
+    defs = T.param_defs(cfg)["blocks"]["b0_attn"]["ffn"]
+    layout = moe_ep.moe_layout(cfg, mesh, placed)
+
+    def blocks(spec_of):
+        return {k: (SH.local_block(v, SH.P(*spec_of(defs[k])[1:]), mesh,
+                                   mesh.coords) if k in ("w1", "w2", "w3")
+                    else v) for k, v in ffn.items()}
+
+    x = torch.zeros((2, 8, cfg.d_model))
+    ctx = T.Ctx(cfg=cfg, shard=SH.make_act_sharder(mesh, run))
     with torch.no_grad(), pytest.raises(ValueError, match="expert width"):
-        step(params, {"tokens": tokens})
+        T.ffn_forward(cfg, blocks(lambda pd: SH.compute_spec(pd.axes,
+                                                              layout)), x, ctx)
+    with torch.no_grad(), pytest.raises(ValueError, match="d_model"):
+        T.ffn_forward(cfg, blocks(lambda pd: SH.spec_for(
+            pd.shape, pd.axes, SH.TRAIN_RULES, mesh)), x, ctx)

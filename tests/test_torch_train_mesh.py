@@ -14,7 +14,15 @@ parameters placed by ``TRAIN_RULES``; both start from the JAX package's
 each rank its block.  The reduced qwen3-8b and Mamba-2 train over (2, 1)
 and (4, 1) meshes (Mamba-2 also with 2 microbatches a rank, held to JAX's
 2 microbatches of the global batch: the same mean), held to JAX's step on
-one device over the global batch.
+one device over the global batch.  Every rank stores only its block of
+each leaf under the rules (FSDP over data, TP and the vocabulary over
+model); the step reshards a layer at a time, under remat (the configs'
+default).  ``SHARD_CASES`` train the reduced qwen3-8b and Mamba-2 over
+the whole (2, 4) mesh, and qwen3-8b under ``TP_RULES``, beside JAX's step
+on the same host mesh; there, and in the MoE's (2, 4) cases at capacity
+factor 8 without int8, each rank's parameter and AdamW moment blocks must
+have the shape of JAX's ``addressable_shards`` at the same mesh
+coordinates and hold their values at the bars below.
 
 Bars (fp32 on both sides; the sums run in other orders, and gloo's ring
 adds the ranks' shares in its own): the first loss 1e-5 and its grad norm
@@ -51,9 +59,9 @@ from repro_torch.distributed import sharding as SH
 from repro_torch.launch import mesh as M
 from repro_torch.models import transformer as T
 from torch_mesh_ranks import (CODES_CASES, COMPRESSION, DP_CASES, MOE_CF,
-                              MOE_MESHES, TRAIN_B, TRAIN_KW, TRAIN_S,
-                              TRAIN_SEED, TRAIN_STEPS, dp_key, moe_key,
-                              train_mesh_rank)
+                              MOE_MESHES, SHARD_CASES, SHARD_MOE, TRAIN_B,
+                              TRAIN_KW, TRAIN_S, TRAIN_SEED, TRAIN_STEPS,
+                              dp_key, moe_key, shard_key, train_mesh_rank)
 
 MOE = "qwen3-moe-235b-a22b"
 ARCHS = [MOE, "qwen3-8b", "mamba2-370m"]
@@ -72,10 +80,18 @@ _JAX = textwrap.dedent("""
     d = dict(np.load(sys.argv[1]))
     c = json.loads(sys.argv[3])
     _at = getattr(jax.sharding, "AxisType", None)
-    rules = SH.TRAIN_RULES
     out = {}
 
-    def run(cfg, mesh, comp, mb, arch, key):
+    def dump(tree, tag, key, mesh):
+        # each device's shard of each leaf, by its mesh coordinates
+        at = {dv.id: ix for ix, dv in np.ndenumerate(mesh.devices)}
+        for j, leaf in enumerate(jax.tree.leaves(tree)):
+            for sh in leaf.addressable_shards:
+                dd, mm = at[sh.device.id]
+                out[f"{key}_s{tag}{j}_{dd}_{mm}"] = np.asarray(sh.data)
+
+    def run(cfg, mesh, comp, mb, arch, key, rules=SH.TRAIN_RULES,
+            shards=False):
         shapes = T.param_shapes(cfg)
         n = len(jax.tree.leaves(shapes))
         tree = jax.tree.unflatten(jax.tree.structure(shapes),
@@ -102,14 +118,24 @@ _JAX = textwrap.dedent("""
                 out[f"{key}_gnorm{i}"] = np.asarray(m["grad_norm"])
         for j, leaf in enumerate(jax.tree.leaves(params)):
             out[f"{key}_p{j}"] = np.asarray(leaf)
+        if shards:
+            dump(params, "p", key, mesh)
+            dump(opt.mu, "mu", key, mesh)
+            dump(opt.nu, "nu", key, mesh)
 
-    for shape, impl, cf, comp, key in c["moe"]:
-        mesh = jax.make_mesh(tuple(shape), ("data", "model"),
+    def host_mesh(shape):
+        return jax.make_mesh(tuple(shape), ("data", "model"),
                              **({"axis_types": (_at.Auto,) * 2} if _at
                                 else {}))
+
+    for shape, impl, cf, comp, key, shards in c["moe"]:
         cfg = dataclasses.replace(get_arch(c["moe_arch"]).reduced(),
                                   moe_impl=impl, moe_capacity_factor=cf)
-        run(cfg, mesh, comp, 1, c["moe_arch"], key)
+        run(cfg, host_mesh(shape), comp, 1, c["moe_arch"], key,
+            shards=shards)
+    for arch, shape, rname, comp, key in c["shard"]:
+        run(get_arch(arch).reduced(), host_mesh(shape), comp, 1, arch, key,
+            getattr(SH, rname), shards=True)
     one = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
     for arch, comp, mb, key in c["dp"]:
         run(get_arch(arch).reduced(), one, comp, mb, arch, key)
@@ -136,16 +162,20 @@ def runs(tmp_path_factory):
     cases = {
         "moe_arch": MOE, "B": TRAIN_B, "S": TRAIN_S, "seed": TRAIN_SEED,
         "steps": TRAIN_STEPS, "kw": TRAIN_KW,
-        "moe": [(shape, impl, cf, comp, moe_key(shape, impl, cf, comp))
+        "moe": [(shape, impl, cf, comp, moe_key(shape, impl, cf, comp),
+                 (shape, impl, cf, comp) in SHARD_MOE)
                 for shape, impl in MOE_MESHES for cf in MOE_CF
                 for comp in COMPRESSION],
+        "shard": [(arch, shape, rname, comp,
+                   shard_key(arch, shape, rname, comp))
+                  for arch, shape, rname, comp in SHARD_CASES],
         "dp": sorted({(arch, comp, mb, _jax_dp_key(arch, comp, mb))
                       for arch, _, comp, mb in DP_CASES})}
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
     # JAX's cases in two processes beside the ranks: its compiles bind
     halves = [dict(cases, moe=cases["moe"][:6], dp=[]),
-              dict(cases, moe=cases["moe"][6:])]
+              dict(cases, moe=cases["moe"][6:], shard=[])]
     jax_runs = [subprocess.Popen(
         [sys.executable, "-c", _JAX, str(tmp / "inputs.npz"),
          str(tmp / f"jax{i}.npz"), json.dumps(half)], env=env, cwd=root,
@@ -173,12 +203,11 @@ def _rel(got, want) -> float:
                                                   1e-30))
 
 
-def _specs(cfg, shape):
-    """Each leaf's block spec on a (data, model) mesh of ``shape``, and the
-    mesh as the spec functions see it."""
+def _specs(cfg, shape, rules=None):
+    """Each leaf's stored block spec on a (data, model) mesh of ``shape``
+    under ``rules``, and the mesh as the spec functions see it."""
     fake = type("Fake", (), {"shape": {"data": shape[0], "model": shape[1]}})
-    baxes = SH.batch_axes(TRAIN_B, SH.TRAIN_RULES, fake)
-    return (T.tree_leaves(T.param_block_specs(cfg, fake, batch_axes=baxes),
+    return (T.tree_leaves(T.param_block_specs(cfg, fake, rules),
                           is_leaf=SH.is_spec), fake)
 
 
@@ -214,7 +243,7 @@ def _leaf_held(got, want, int8) -> bool:
             and off.max() <= TRAIN_KW["lr"])
 
 
-def _held(jx, ranks, key, jkey, cfg, shape, int8):
+def _held(jx, ranks, key, jkey, cfg, shape, int8, rules=None):
     n = math.prod(shape)
     for i in range(TRAIN_STEPS):
         for r in ranks[:n]:       # the metrics are global: equal everywhere
@@ -226,7 +255,7 @@ def _held(jx, ranks, key, jkey, cfg, shape, int8):
         np.testing.assert_allclose(ranks[0][f"{key}_gnorm{i}"],
                                    jx[f"{jkey}_gnorm{i}"],
                                    rtol=1e-6 if i == 0 else 1e-4)
-    specs, fake = _specs(cfg, shape)
+    specs, fake = _specs(cfg, shape, rules)
     for j, spec in enumerate(specs):
         if spec:
             got = _assemble([r[f"{key}_p{j}"] for r in ranks[:n]], spec,
@@ -263,6 +292,50 @@ def test_data_parallel_steps_match_jax_on_one_device(runs, case):
     arch, shape, comp, mb = case
     _held(jx, ranks, dp_key(*case), _jax_dp_key(arch, comp, mb),
           get_arch(arch).reduced(), shape, comp == "int8")
+
+
+SHARD_IDS = [shard_key(*c) for c in SHARD_CASES]
+
+
+@pytest.mark.parametrize("case", SHARD_CASES, ids=SHARD_IDS)
+def test_whole_mesh_train_steps_match_jax_on_the_same_mesh(runs, case):
+    jx, ranks = runs
+    arch, shape, rname, comp = case
+    key = shard_key(*case)
+    _held(jx, ranks, key, key, get_arch(arch).reduced(), shape,
+          comp == "int8", getattr(SH, rname))
+
+
+@pytest.mark.parametrize("case", [("moe",) + c for c in SHARD_MOE]
+                         + [("dense",) + c for c in SHARD_CASES],
+                         ids=[moe_key(*c) for c in SHARD_MOE] + SHARD_IDS)
+def test_each_rank_holds_jax_s_addressable_shards(runs, case):
+    """Every rank's block of every parameter and AdamW moment after the
+    steps has the shape of the shard JAX's device at the same (data,
+    model) coordinates holds, and its values (``_leaf_held``'s bars)."""
+    import dataclasses
+    jx, ranks = runs
+    if case[0] == "moe":
+        shape, impl, cf, comp = case[1:]
+        key, rules = moe_key(*case[1:]), None
+        cfg = dataclasses.replace(get_arch(MOE).reduced(), moe_impl=impl,
+                                  moe_capacity_factor=cf)
+    else:
+        arch, shape, rname, comp = case[1:]
+        key, rules = shard_key(*case[1:]), getattr(SH, rname)
+        cfg = get_arch(arch).reduced()
+    specs, _ = _specs(cfg, shape, rules)
+    assert any(specs) and sum(bool(sp) for sp in specs) > sum(
+        "expert" in pd.axes for pd in T.tree_leaves(T.param_defs(cfg)))
+    for r, got in enumerate(ranks[:math.prod(shape)]):
+        at = f"{r // shape[1]}_{r % shape[1]}"
+        for j in range(len(specs)):
+            for tag in ("p", "mu", "nu"):
+                want = jx[f"{key}_s{tag}{j}_{at}"]
+                mine = got[f"{key}_{tag}{j}"]
+                assert mine.shape == want.shape, (r, tag, j)
+                assert _leaf_held(mine, want, comp == "int8"), (
+                    r, tag, j, _rel(mine, want))
 
 
 @pytest.mark.parametrize("shape,impl", CODES_CASES)

@@ -67,9 +67,10 @@ def ep_rank(rank, world, store_dir, inputs, out_dir):
 
 
 def serve_rank(rank, world, store_dir, cases, out_dir):
-    """For each case (arch, mesh shape, config overrides, serve keywords):
-    ``serve`` over the mesh, and the prefill step on this rank's block of
-    the served batch (the logits gathered over the batch's axes)."""
+    """For each case (arch, mesh shape, config overrides, serve keywords,
+    the rules' name): ``serve`` over the mesh, and the prefill step on
+    this rank's block of the served batch (the logits gathered over the
+    batch's axes)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -83,21 +84,22 @@ def serve_rank(rank, world, store_dir, cases, out_dir):
     M.init_group(store_dir, rank, world, "gloo")
     real = SV.get_arch
     res = {}
-    for i, (arch, shape, over, kw) in enumerate(cases):
+    for i, (arch, shape, over, kw, rname) in enumerate(cases):
         cfg = dataclasses.replace(get_arch(arch).reduced(), **over)
         SV.get_arch = lambda name, cfg=cfg: cfg
         mesh = M.make_mesh(shape, ("data", "model"), device="cpu")
+        rules = getattr(SH, rname)
         res[f"{i}_generated"] = SV.serve(arch, device="cpu", mesh=mesh,
-                                         **kw)["generated"]
-        rules = SH.TRAIN_RULES
+                                         rules=rules, **kw)["generated"]
         B, S = kw["batch"], kw["prompt"]
         baxes = SH.batch_axes(B, rules, mesh)
         params = T.place_params(cfg, torch.Generator().manual_seed(
-            kw.get("seed", 0)), mesh, batch_axes=baxes, device="cpu")
+            kw.get("seed", 0)), mesh, rules=rules, device="cpu")
         tok = torch.from_numpy(RequestStream(cfg, B, S, kw.get("seed", 0))
                                .requests_at(0)["tokens"])
         tok = SH.local_block(tok, SH.batch_spec((B, S), rules, mesh), mesh)
-        step = ST.make_prefill_step(cfg, mesh=mesh, batch_axes=baxes)
+        step = ST.make_prefill_step(cfg, mesh=mesh, batch_axes=baxes,
+                                    rules=rules)
         with torch.no_grad():
             logits, _ = step(params, {"tokens": tok})
         res[f"{i}_logits"] = SV.gather_batch(logits, mesh, baxes).numpy()
@@ -137,14 +139,103 @@ UNIT_TRAIN = dict(smoke=True, steps=4, batch=4, seq=32, checkpoint_every=2,
                   log_every=100, device="cpu")
 
 
+# ``collectives.reshard`` on the (2, 2) mesh: (name, whole shape, the
+# stored block's spec, the computed block's), the specs as tuples
+RESHARD_CASES = [
+    ("dense", (4, 6), ("data", "model"), ()),
+    ("resident", (4, 6, 8), ("model", "data"), ("model", None, "data")),
+    ("swap", (4, 6), (None, "model"), ("data",)),
+    ("cut", (4, 6, 8), (), ("model", None, "data")),
+]
+
+
+def _reshard_cases(mesh, res):
+    """Each of ``RESHARD_CASES`` on this rank: the whole tensor (seed 0,
+    the same on every rank), its stored block resharded under autograd,
+    the weights (the rank's seed) and the gradient of sum(y * w) in the
+    block.  Then bf16: the gradient of a (2, 2) tensor gathered whole,
+    where element (0, 0) takes the cotangents 1, 2^-8, 2^-8 and 0 of
+    ranks 0-3 (``BF16_COTANGENTS``): summed in fp32 that is 1 + 2^-7,
+    summed in bf16 pairwise (over model, then data) 1."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as SH
+    rank = dist.get_rank()
+    for name, shape, src, dst in RESHARD_CASES:
+        src, dst = SH.P(*src), SH.P(*dst)
+        whole = torch.randn(shape, generator=torch.Generator().manual_seed(0))
+        x = SH.local_block(whole, src, mesh).clone().requires_grad_()
+        y = coll.reshard(x, src, dst, mesh)
+        w = torch.randn(y.shape, generator=torch.Generator().manual_seed(
+            100 + rank))
+        (dx,) = torch.autograd.grad((y * w).sum(), [x])
+        res.update({f"rs_{name}_whole": whole.numpy(),
+                    f"rs_{name}_y": y.detach().numpy(),
+                    f"rs_{name}_w": w.numpy(), f"rs_{name}_dx": dx.numpy()})
+    x = torch.ones((1, 1), dtype=torch.bfloat16, requires_grad=True)
+    y = coll.reshard(x, SH.P("data", "model"), SH.P(), mesh)
+    w = torch.zeros((2, 2), dtype=torch.bfloat16)
+    w[0, 0] = BF16_COTANGENTS[rank]
+    (dx,) = torch.autograd.grad((y * w).sum(), [x])
+    res["rs_bf16_dx"] = dx.float().numpy()
+
+
+BF16_COTANGENTS = (1.0, 2.0 ** -8, 2.0 ** -8, 0.0)
+
+
+def _remat_case(mesh, res):
+    """The reduced qwen3-moe (``ep_resident``, fp32) placed on the mesh and
+    its gradient (``make_grad_fn``) with ``remat`` on and off, under
+    ``saved_tensors_hooks`` that record the shape of every tensor autograd
+    keeps for the backward outside a checkpoint; and the whole per-layer
+    shapes of the leaves a rank stores split."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    base = dataclasses.replace(get_arch(UNIT_MOE).reduced(),
+                               moe_impl="ep_resident", moe_capacity_factor=8.0)
+    specs = tree_leaves(T.param_block_specs(base, mesh), is_leaf=SH.is_spec)
+    stacked = [len(pd.axes) and pd.axes[0] == "layer"
+               for pd in tree_leaves(T.param_defs(base))]
+    split = {tuple(pd.shape[1:] if st else pd.shape) for pd, sp, st in zip(
+        tree_leaves(T.param_defs(base)), specs, stacked) if sp}
+    res["remat_split_shapes"] = np.array(sorted(map(str, split)))
+    batch = TokenStream(base, 4, 32, 1, device="cpu").batch_at(0)
+    spec = SH.batch_spec((4, 32), SH.TRAIN_RULES, mesh)
+    local = {k: SH.local_block(v, spec, mesh) for k, v in batch.items()}
+    for remat in (True, False):
+        cfg = dataclasses.replace(base, remat=remat)
+        params = T.place_params(cfg, torch.Generator().manual_seed(0), mesh,
+                                device="cpu")
+        kept = []
+
+        def pack(t):
+            kept.append(str(tuple(t.shape)))
+            return t
+
+        fn = ST.make_grad_fn(cfg, TrainConfig(), mesh=mesh,
+                             batch_axes=("data",))
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss, grads = fn(params, local)
+        res[f"remat{int(remat)}_kept"] = np.array(sorted(set(kept)))
+        res[f"remat{int(remat)}_loss"] = loss.numpy()
+        for j, g in enumerate(tree_leaves(grads)):
+            res[f"remat{int(remat)}_g{j}"] = g.numpy()
+
+
 def units_rank(rank, world, store_dir, out_dir):
-    """On a (2, 2) mesh of 4 ranks: ``collectives.psum`` and
-    ``all_gather_tiled`` over each axis under autograd (inputs and weights
-    drawn from the rank's seed), the mesh global norm of the reduced
-    qwen3-moe's placed parameters (``ep`` and ``ep_resident``), and the
-    launcher: the reduced qwen3-moe (``ep_resident``) over the mesh and the
-    reduced Mamba-2 over a (2, 1) mesh of ranks 0 and 1, each straight and
-    as a crash and a resume, with the final blocks."""
+    """On a (2, 2) mesh of 4 ranks: ``collectives.psum``,
+    ``all_gather_tiled`` and ``reshard`` under autograd (inputs and weights
+    drawn from the rank's seed), the gradient with ``remat`` on and off
+    (``_remat_case``), the mesh global norm of the reduced qwen3-moe's
+    placed parameters (``ep`` and ``ep_resident``), and the launcher: the
+    reduced qwen3-moe (``ep_resident``) over the mesh and the reduced
+    Mamba-2 over a (2, 1) mesh of ranks 0 and 1, each straight and as a
+    crash and a resume, with the final blocks."""
     import dataclasses
     import math
 
@@ -175,13 +266,15 @@ def units_rank(rank, world, store_dir, out_dir):
             res.update({f"{key}_x": x.detach().numpy(), f"{key}_w": w.numpy(),
                         f"{key}_y": y.detach().numpy(),
                         f"{key}_dx": dx.numpy()})
+    _reshard_cases(mesh, res)
+    _remat_case(mesh, res)
     for impl in ("ep", "ep_resident"):
         cfg = dataclasses.replace(get_arch(UNIT_MOE).reduced(),
                                   moe_impl=impl)
         params = T.place_params(cfg, torch.Generator().manual_seed(0), mesh,
-                                batch_axes=("data",), device="cpu")
+                                device="cpu")
         res[f"norm_{impl}"] = adamw.global_norm(params, ST.norm_reduction(
-            cfg, mesh, ("data",))).numpy()
+            cfg, mesh)).numpy()
 
     real = TR.get_arch
     TR.get_arch = lambda name: dataclasses.replace(real(name),
@@ -218,8 +311,17 @@ DP_CASES = [("qwen3-8b", (2, 1), "none", 1), ("qwen3-8b", (4, 1), "none", 1),
             ("mamba2-370m", (2, 1), "int8", 1),
             ("mamba2-370m", (4, 1), "int8", 1),
             ("mamba2-370m", (2, 1), "int8", 2)]
-# where the int8 codes of the split expert leaves are kept, step 1
+# where the int8 codes of the split leaves are kept, step 1
 CODES_CASES = [((2, 4), "ep_resident"), ((1, 8), "ep")]
+# (arch, mesh, rules, compression): trained over the whole (2, 4) mesh and
+# held to JAX's step on the same host mesh, every rank's parameter and
+# moment blocks to JAX's addressable shards; the MoE's (2, 4) cases at
+# capacity factor 8 without int8 keep their moments too (``SHARD_MOE``)
+SHARD_CASES = [("qwen3-8b", (2, 4), "TRAIN_RULES", "none"),
+               ("mamba2-370m", (2, 4), "TRAIN_RULES", "none"),
+               ("qwen3-8b", (2, 4), "TP_RULES", "none")]
+SHARD_MOE = [((2, 4), "ep", 8.0, "none"), ((2, 4), "ep_resident", 8.0,
+                                           "none")]
 
 
 def moe_key(shape, impl, cf, comp):
@@ -230,12 +332,18 @@ def dp_key(arch, shape, comp, mb):
     return f"{arch}_{shape[0]}x{shape[1]}_{comp}_{mb}"
 
 
-def _train_case(cfg, mesh, whole, comp, mb, key, res, first):
-    """``TRAIN_STEPS`` steps of ``make_train_step`` over ``mesh`` from the
-    whole tree ``whole``, on this rank's blocks of ``TokenStream``'s
-    batches: each step's loss and grad norm, the final blocks of the split
-    leaves, the whole leaves on the first rank, and a digest of every
-    leaf's bytes."""
+def shard_key(arch, shape, rules, comp):
+    return f"{arch}_{shape[0]}x{shape[1]}_{rules}_{comp}"
+
+
+def _train_case(cfg, mesh, whole, comp, mb, key, res, first, rules=None,
+                moments=False):
+    """``TRAIN_STEPS`` steps of ``make_train_step`` over ``mesh`` under
+    ``rules`` (None: ``TRAIN_RULES``) from the whole tree ``whole``, on
+    this rank's blocks of ``TokenStream``'s batches: each step's loss and
+    grad norm, the final blocks of the split leaves, the whole leaves on
+    the first rank, and a digest of every leaf's bytes; with ``moments``
+    every leaf's block and its AdamW moments' on every rank."""
     import hashlib
 
     from repro_torch.configs import TrainConfig
@@ -245,12 +353,12 @@ def _train_case(cfg, mesh, whole, comp, mb, key, res, first):
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
     from repro_torch.tree import tree_leaves
-    rules = SH.TRAIN_RULES
+    rules = SH.resolve_rules(rules)
     baxes = SH.batch_axes(TRAIN_B, rules, mesh)
-    params = T.place_params(cfg, whole, mesh, batch_axes=baxes, device="cpu")
+    params = T.place_params(cfg, whole, mesh, rules=rules, device="cpu")
     step = ST.make_train_step(cfg, TrainConfig(
         grad_compression=comp, microbatches=mb, **TRAIN_KW), mesh=mesh,
-        batch_axes=baxes)
+        batch_axes=baxes, rules=rules)
     opt = adamw.init(params)
     spec = SH.batch_spec((TRAIN_B, TRAIN_S), rules, mesh)
     for i in range(TRAIN_STEPS):
@@ -260,13 +368,17 @@ def _train_case(cfg, mesh, whole, comp, mb, key, res, first):
         params, opt, m = step(params, opt, b)
         res[f"{key}_loss{i}"] = m["loss"].numpy()
         res[f"{key}_gnorm{i}"] = m["grad_norm"].numpy()
-    specs = tree_leaves(T.param_block_specs(cfg, mesh, batch_axes=baxes),
+    specs = tree_leaves(T.param_block_specs(cfg, mesh, rules),
                         is_leaf=SH.is_spec)
     for j, (leaf, sp) in enumerate(zip(tree_leaves(params), specs)):
-        if sp or first:
+        if sp or first or moments:
             res[f"{key}_p{j}"] = leaf.numpy()
         res[f"{key}_h{j}"] = np.array(
             hashlib.sha1(leaf.numpy().tobytes()).hexdigest())
+    if moments:
+        for j, (mu, nu) in enumerate(zip(tree_leaves(opt.mu),
+                                         tree_leaves(opt.nu))):
+            res[f"{key}_mu{j}"], res[f"{key}_nu{j}"] = mu.numpy(), nu.numpy()
 
 
 def _codes_case(cfg, mesh, whole, key, res):
@@ -281,16 +393,16 @@ def _codes_case(cfg, mesh, whole, key, res):
     from repro_torch.tree import tree_leaves
     rules = SH.TRAIN_RULES
     baxes = SH.batch_axes(TRAIN_B, rules, mesh)
-    params = T.place_params(cfg, whole, mesh, batch_axes=baxes, device="cpu")
+    params = T.place_params(cfg, whole, mesh, device="cpu")
     grad_fn = ST.make_grad_fn(cfg, TrainConfig(**TRAIN_KW), mesh=mesh,
-                                 batch_axes=baxes)
+                              batch_axes=baxes)
     b = TokenStream(cfg, TRAIN_B, TRAIN_S, TRAIN_SEED,
                     device="cpu").batch_at(0)
     spec = SH.batch_spec((TRAIN_B, TRAIN_S), rules, mesh)
     _, grads = grad_fn(params, {k: SH.local_block(v, spec, mesh)
                                 for k, v in b.items()})
     leaves = tree_leaves(grads)
-    axes = ST.leaf_axes(cfg, mesh, baxes)
+    axes = ST.leaf_axes(cfg, mesh)
     absmax = ST._whole_absmax(leaves, axes, mesh)
     for j, g in enumerate(leaves):
         if absmax[j] is not None:
@@ -302,15 +414,17 @@ def _codes_case(cfg, mesh, whole, key, res):
 def train_mesh_rank(rank, world, store_dir, inputs, out_dir):
     """The reduced qwen3-moe trained over ``MOE_MESHES`` at each capacity
     factor, with and without int8 (``_train_case``), its split leaves'
-    step-1 codes (``_codes_case``), then ``DP_CASES`` over meshes of the
-    first 2 or 4 ranks; ``inputs`` holds each arch's whole tree, the JAX
-    package's init carried over, leaf by leaf."""
+    step-1 codes (``_codes_case``), then ``SHARD_CASES`` over the whole
+    mesh and ``DP_CASES`` over meshes of the first 2 or 4 ranks; ``inputs``
+    holds each arch's whole tree, the JAX package's init carried over,
+    leaf by leaf."""
     import dataclasses
     import math
 
     from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as SH
     from repro_torch.launch import mesh as M
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves, tree_unflatten
@@ -333,10 +447,17 @@ def train_mesh_rank(rank, world, store_dir, inputs, out_dir):
                                       moe_capacity_factor=cf)
             for comp in COMPRESSION:
                 _train_case(cfg, mesh, whole(moe, cfg), comp, 1,
-                            moe_key(shape, impl, cf, comp), res, rank == 0)
+                            moe_key(shape, impl, cf, comp), res, rank == 0,
+                            moments=(shape, impl, cf, comp) in SHARD_MOE)
             if (shape, impl) in CODES_CASES and cf == MOE_CF[0]:
                 _codes_case(cfg, mesh, whole(moe, cfg),
                             moe_key(shape, impl, cf, "codes"), res)
+    for arch, shape, rname, comp in SHARD_CASES:
+        mesh = M.make_mesh(shape, ("data", "model"), device="cpu")
+        cfg = get_arch(arch).reduced()
+        _train_case(cfg, mesh, whole(arch, cfg), comp, 1,
+                    shard_key(arch, shape, rname, comp), res, rank == 0,
+                    rules=getattr(SH, rname), moments=True)
     for arch, shape, comp, mb in DP_CASES:
         n = math.prod(shape)
         mesh = DeviceMesh("cpu", torch.arange(n).view(shape),
