@@ -111,7 +111,21 @@ and the resident form against the one-card path over the batch, (2, 2)
 against it over each data block; (c) ``serve`` in bf16 over 4 layers, the
 (1, 4) mesh's first greedy tokens equal to the one-card ``serve``'s and
 its prefill logits within MESH_REL, K5 once a layer in every rank's
-prefill, with each mesh's times, collectives and memory.  Last,
+prefill, with each mesh's times, collectives and memory.  Phase 17,
+training over a mesh: qwen3-moe's gradient over (1, 4) and (2, 2) meshes
+against one card's, each rank's weights, reduced gradient and train-step
+arguments equal in bytes to the dry run's blocks of it
+(``launch.dryrun.cell_blocks``), and Mamba-2 370M trained over two ranks.
+Phase 18: (a) phase 6's fleet through the façade,
+``core.scheduler.ClusterSim.run_sharded``, ``segmented, cuda, cuda,
+segmented``, the cuda runs' traces and books byte-identical to the numpy
+one's and K6 launched once a solve, K6's device time over one cuda run
+by CUDA events; (b) the dry run (``python -m repro_torch.launch.dryrun``) of
+qwen3-moe-235b-a22b's ``train_4k`` and qwen3-8b's ``prefill_32k`` on the
+single-pod mesh, each a subprocess with the card hidden, started before
+phase 16 and waited for after (a): exit 0, status ok, no kernel launched or
+built, CUDA never initialised, its roofline line printed; (c) phase 17's
+train-step argument bytes of each rank against the dry run's.  Last,
 K1 (3xTF32
 ``wgmma``) at each distinct shape of a ResNet-50 request, with w in the
 layout the request hands over, beside ``torch.matmul``, its tile plan and
@@ -136,15 +150,17 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W power limit).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12,     # fp32 FMA pipes, no tensor cores
-                  "tf32": 495e12,       # tensor cores, TF32
-                  "bfloat16": 989e12,   # tensor cores
-                  "float64": 34e12}     # fp64 FMA pipes, no tensor cores
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# The kernels' work and least times at an H100 SXM's peaks (NVIDIA data
+# sheet, dense, at a 700 W power limit): one count with the dry run's.
+from repro_torch.analysis.roofline import (  # noqa: E402
+    k1_bounds, k2_bound, k3_bound, k4_bound, k5_bound, k5b_bound, k6_bound,
+    k7_bound, k7b_bound, k8_bound, k8b_bound)
+
 REQUESTS = 8
 RESNET_LAUNCHES = 53                    # convolutions per ResNet-50 request
 # The fleet at the size of benchmarks/bench_engine.py's poisson-1m-f1024:
@@ -161,7 +177,6 @@ MAMBA = "mamba2-370m"
 SERVE = {"batch": 4, "prompt": 1024, "gen": 32}
 MAMBA_CHUNK = 256
 K8_LAYER = (4, 1024, 32, 64, 1, 128)
-K8_CHUNK = 64                           # rows a K8 block walks at a time
 # RecurrentGemma-2B at full width and depth (src/repro_torch/configs/
 # recurrentgemma_2b.py), served at batch 4 with 1024-token prompts and 32
 # new tokens, and with 4096-token prompts (past the 2048-token window: the
@@ -174,7 +189,6 @@ K7_SHAPES = [(2, 64, 128), (4, 128, 256), (1, 32, 128), (3, 77, 200),
              (2, 1, 256), (2, 31, 201), (2, 255, 200)]
 K7_LAYER = (4, 1024, 2560)
 K7_RING = (4, 4096, 2560)   # the ring serve's prefill
-K7_OPS = 17                 # fp32 operations a K7 element (gates, a, b, FMA)
 K7_SFU = 7                  # of them on the SFU: 4 exp2, 2 reciprocals, rsqrt
 SFU_PER_CLOCK = 16          # SFU operations an SM a clock (Hopper)
 BOOST_HZ = 1.98e9           # H100 SXM boost clock
@@ -302,7 +316,6 @@ K5B_MASKS = [(True, 0), (False, 0), (True, 48)]
 # must read above it
 K5B_REL = {"bfloat16": 2e-2, "float32": 1e-4}
 K5B_REL_FLOOR = 1e-2
-K7B_OPS = 32                # fp32 operations a K7b element
 GEMMA_TRAIN = {"layers": 12, "batch": 4, "seq": 1024, "steps": 10}
 QWEN_TRAIN = {"layers": 4, "batch": 4, "seq": 1024, "steps": 5}
 GEMMA_GRAD = {"layers": 3, "batch": 2, "seq": 1024}
@@ -342,27 +355,6 @@ VLM_GRAD = {"minicpm3-4b": {"num_layers": 2},
             "vit-632m": {"num_layers": 4},
             "whisper-medium": {"num_layers": 2, "encoder_layers": 2}}
 
-def bound(nbytes, ops_, dtype):
-    """(least ms for the work, "bytes" or "operations"); dtype a torch dtype
-    or a key of PEAK_OPS_PER_S."""
-    key = dtype if isinstance(dtype, str) else str(dtype).split(".")[1]
-    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * ops_ / PEAK_OPS_PER_S[key]
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def k1_bounds(M, K, N, dtype):
-    """K1's bound for the work it does, (ms, by): fp32 as three TF32
-    products on the tensor cores (3xTF32), bf16 as one bf16 product; and
-    the fp32 FMA pipes' bound of the same product (None for bf16)."""
-    import torch
-    esz = 4 if dtype == torch.float32 else 2
-    nbytes, flops = (M * K + K * N + M * N) * esz, 2 * M * N * K
-    if dtype != torch.float32:
-        return bound(nbytes, flops, dtype), None
-    return bound(nbytes, 3 * flops, "tf32"), bound(nbytes, flops, dtype)
-
-
 def k1_ptxas(log):
     """{(dtype name, BM, BN): (registers, spilled bytes)} of each K1
     instance, from ptxas's -v lines."""
@@ -374,15 +366,6 @@ def k1_ptxas(log):
             out[("float32" if m[1] == "f" else "bfloat16", 64 * int(m[2]),
                  int(m[3]))] = (row["registers"], row["spilled"])
     return out
-
-
-def k6_bound(n, n_seg=0):
-    """K6 over n elements (and n_seg + 1 fenceposts, if any): 24 B an
-    element (t, s read, the start written) and 6 fp64 operations; the
-    serial chain is no part of this bound (see k6_chain_ms)."""
-    import torch
-    return bound(24 * n + (8 * (n_seg + 1) if n_seg else 0), 6 * n,
-                 torch.float64)
 
 
 def k6_chain_ms(longest, add_ns):
@@ -695,20 +678,6 @@ def drive_fleet(dev, time_ms, call_ms):
             "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
             "chain_bound_ms": k6["chain_bound_ms"], "zipf_ms": zipf_ms}
-
-
-def k8_bound(B, S, H, P, G, N, dtype):
-    """K8 at one shape.  Bytes: x and y, B and C in ``dtype``, dt and the
-    final state in fp32.  Operations of the kernel's 64-row chunks, an FMA
-    counted as two: C.B^T once per group over the causal pairs, W @ x over
-    the same pairs, and the two (P, N) state products of every row."""
-    import torch
-    esz = torch.empty((), dtype=dtype).element_size()
-    nbytes = (esz * (2 * B * S * H * P + 2 * B * S * G * N)
-              + 4 * (B * S * H + H + B * H * P * N))
-    ops_ = (B * G * S * (K8_CHUNK + 1) * N + B * H * S * (K8_CHUNK + 1) * P
-            + 4 * B * H * S * P * N)
-    return bound(nbytes, ops_, dtype)
 
 
 def ssd_inputs(shape, dtype, dev, seed):
@@ -1058,9 +1027,7 @@ def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
         libs["sdpa_is_causal"] = time_ms(
             lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=KV != H))
-    esz = q.element_size()
-    bnd, by = bound((B * H * Sq + B * KV * Skv) * (D + Dv) * esz,
-                    2 * B * H * (D + Dv) * int(keep.sum()), dtype)
+    bnd, by = k5_bound(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv)
     walked, tiles = k5_tiles(Sq, Skv, causal, window, dtype)
     graphs = ""
     if backends:
@@ -1157,16 +1124,6 @@ def k5_planted(q, k, v, causal, window, got, want):
            f"rows {r0}-{Sq - 1} zeroed": rel_frobenius(zeroed, want)}
     del drop, zeroed
     return out
-
-
-def k7_bound(B, S, W, dtype):
-    """K7 at (B, S, W): x, gx, ga read and y written in ``dtype``, log_a and
-    h0 in fp32; K7_OPS fp32 operations an element (the state and all the
-    arithmetic are fp32 whatever the input type)."""
-    import torch
-    esz = torch.empty((), dtype=dtype).element_size()
-    nbytes = 4 * B * S * W * esz + 4 * (W + B * W)
-    return bound(nbytes, K7_OPS * B * S * W, torch.float32)
 
 
 def rglru_inputs(shape, dtype, dev, seed):
@@ -1421,21 +1378,6 @@ def drive_gemma(dev, counters, time_ms, call_ms, max_err, randn):
     return k7_entry, k5_entry
 
 
-def k8b_bound(B, S, H, P, G, N, dtype):
-    """K8b at one shape.  Bytes: the gradient's inputs (x, dy, B and C in
-    ``dtype``, dt fp32) read once and its outputs (dx, dB, dC in ``dtype``;
-    ddt, dA and dh0 fp32) written once.  Operations of the kernel's 64-row
-    chunks, an FMA counted as two: per row and head, C.B^T and dy.x^T over
-    the causal pairs, C S_in^T and B G^T, the weights on dy, the two
-    (P, N)-sized products each of dC and dB, and the update of G."""
-    import torch
-    esz = torch.empty((), dtype=dtype).element_size()
-    nbytes = (esz * (3 * B * S * H * P + 4 * B * S * G * N)
-              + 4 * (2 * B * S * H + 2 * H + B * H * P * N))
-    ops_ = B * H * S * ((K8_CHUNK + 1) * (3 * N + 2 * P) + 10 * P * N)
-    return bound(nbytes, ops_, dtype)
-
-
 def check_k3_k4(dev, time_ms, leaves):
     """Phase 10(a): K3 and K4 byte for byte against their plain versions,
     on the card and, for the small shapes, on a CPU copy; their times on
@@ -1503,8 +1445,7 @@ def check_k3_k4(dev, time_ms, leaves):
     # times at the training path's largest leaf (x, q, s: the last case)
     k3 = {"ms": time_ms(lambda: VE.quantize_int8(x), reps=3),
           "plain_ms": time_ms(lambda: VE.quantize_int8_plain(x), reps=2)}
-    k3["bound_ms"], k3["bound_by"] = bound(5 * K3_ROW + 4, 5 * K3_ROW,
-                                           torch.float32)
+    k3["bound_ms"], k3["bound_by"] = k3_bound(1, K3_ROW, torch.float32)
     plan = VE.quantize_plan(1, K3_ROW, torch.float32)
     print(f"K3 quantize_int8 launch at (1, {K3_ROW}) float32: grid "
           f"({plan['grid']},) of {plan['threads']} threads, cooperative "
@@ -1514,8 +1455,7 @@ def check_k3_k4(dev, time_ms, leaves):
     k4 = {"ms": time_ms(lambda: VE.dequantize_int8(q, s), reps=3),
           "plain_ms": time_ms(lambda: VE.dequantize_int8_plain(q, s), reps=2),
           "library_ms": time_ms(lambda: torch.mul(q, s), reps=3)}
-    k4["bound_ms"], k4["bound_by"] = bound(5 * K3_ROW + 4, K3_ROW,
-                                           torch.float32)
+    k4["bound_ms"], k4["bound_by"] = k4_bound(1, K3_ROW)
     for name, t in (("K3 quantize_int8", k3), ("K4 dequantize_int8", k4)):
         lib = t.get("library_ms")
         print(f"{name} (1, {K3_ROW}) float32 (the stacked in_proj's gradient "
@@ -1537,7 +1477,7 @@ def check_k3_k4(dev, time_ms, leaves):
             raise AssertionError(f"K3 (1, {n}): not byte-equal")
         step["ms"] += time_ms(lambda: VE.quantize_int8(x), reps=3)
         step["plain_ms"] += time_ms(lambda: VE.quantize_int8_plain(x), reps=1)
-        step["bound_ms"] += bound(5 * n + 4, 5 * n, torch.float32)[0]
+        step["bound_ms"] += k3_bound(1, n, torch.float32)[0]
     del x, q, s, wq, ws
     torch.cuda.empty_cache()
     print(f"K3 quantize_int8 over a train step's {len(leaves)} leaves "
@@ -2476,31 +2416,6 @@ def drive_vlm(dev, counters, time_ms, call_ms, max_err, randn, card):
 
     return {**{name: entry(name) for name in K5_VLM},
             "qwen2-vl-72b_prefill_launches": launches["qwen2-vl-72b"]}
-
-
-def k5b_bound(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv=None):
-    """K5b at one shape (q/k head dim D, v's Dv, D where None): q, k, v, o,
-    dO read and dq, dk, dv written once in ``dtype``, the lse read in fp32;
-    the least work is five products over the pairs the masks leave, S, dQ
-    and dK over D, dP and dV over Dv (2.5 times the forward's at D = Dv),
-    an FMA counted as two."""
-    import torch
-    Dv = Dv or D
-    esz = torch.empty((), dtype=dtype).element_size()
-    nbytes = (esz * (2 * B * H * Sq + 2 * B * KV * Skv) * (D + Dv)
-              + 4 * B * H * Sq)
-    pairs = int(attn_pairs(Sq, Skv, causal, window).sum())
-    return bound(nbytes, 2 * (3 * D + 2 * Dv) * B * H * pairs, dtype)
-
-
-def k7b_bound(B, S, W, dtype):
-    """K7b at (B, S, W): x, gx, ga, dy read and dx, dgx, dga written in
-    ``dtype``, the fp32 states h32 read; log_a and h0 read, dlog_a and dh0
-    written in fp32; K7B_OPS fp32 operations an element."""
-    import torch
-    esz = torch.empty((), dtype=dtype).element_size()
-    nbytes = (7 * esz + 4) * B * S * W + 4 * (2 * W + 2 * B * W)
-    return bound(nbytes, K7B_OPS * B * S * W, torch.float32)
 
 
 def graph_windows_ms(fn, reps=5, windows=5, stream=None):
@@ -3494,34 +3409,32 @@ class collectives_counted:
             setattr(dist, name, fn)
 
 
-def spec_bytes(cfg, mesh, batch_axes):
-    """(the bytes of a rank's blocks of every parameter under
-    ``TRAIN_RULES``, the same at 4 bytes an element (an fp32 gradient or
-    moment), and the bytes the placement before the spec's held:
-    every dense leaf whole, each expert leaf in the MoE layout's compute
-    block) on ``mesh`` for a batch split over ``batch_axes``."""
-    import torch
-
+def rank_bytes(cfg, mesh, batch_axes, batch, seq, kind="train"):
+    """The dry run's count of what a rank holds on ``mesh`` for a ``kind``
+    step of ``batch`` x ``seq`` tokens under ``TRAIN_RULES``
+    (``launch.dryrun.cell_blocks``): ``params``, the bytes of its blocks of
+    every parameter; ``moment``, of one fp32 AdamW moment (the reduced
+    gradient's blocks), for a train step; ``arguments``, of the step's
+    arguments (parameters, for a train step the AdamW state, and the
+    batch); and ``whole_leaf``, the bytes the placement before the spec's
+    held: every dense leaf whole, each expert leaf in the MoE layout's
+    compute block for a batch split over ``batch_axes``."""
+    from repro_torch.configs import ShapeConfig
     from repro_torch.distributed import moe_ep
     from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as DR
     from repro_torch.models import transformer as T
-    shape = SH.mesh_shape(mesh)
+    blocks = DR.cell_blocks(cfg, ShapeConfig("rank", kind, seq, batch), mesh)
+    out = {"params": DR.tree_nbytes(blocks["params"]),
+           "arguments": DR.tree_nbytes(blocks)}
+    if kind == "train":
+        out["moment"] = DR.tree_nbytes(blocks["opt"].mu)
     layout = moe_ep.moe_layout(cfg, mesh, batch_axes)
-
-    def blocks(spec):
-        return math.prod(shape[a] for part in spec if part is not None
-                         for a in ((part,) if isinstance(part, str)
-                                   else part))
-
-    stored = stored32 = before = 0
-    for pd in T.tree_leaves(T.param_defs(cfg)):
-        ls = SH.leaf_specs(pd.shape, pd.axes, SH.TRAIN_RULES, mesh, layout)
-        n = math.prod(pd.shape)
-        size = torch.empty((), dtype=T._dtype(pd, cfg)).element_size()
-        stored += n // blocks(ls.storage) * size
-        stored32 += n // blocks(ls.storage) * 4
-        before += n // blocks(ls.compute) * size
-    return stored, stored32, before
+    out["whole_leaf"] = sum(
+        math.prod(DR.block_shape(pd.shape, SH.compute_spec(pd.axes, layout),
+                                 mesh)) * T._dtype(pd, cfg).itemsize
+        for pd in T.tree_leaves(T.param_defs(cfg)))
+    return out
 
 
 def tree_bytes(tree):
@@ -3622,8 +3535,10 @@ def serve_recorded(cfg, run, dev, mesh=None):
             if mesh is not None:
                 baxes = SH.batch_axes(run["batch"], SH.TRAIN_RULES, mesh)
                 logits = SV.gather_batch(logits, mesh, baxes)
-                (stats["spec_bytes"], _,
-                 stats["whole_leaf_bytes"]) = spec_bytes(cfg, mesh, baxes)
+                held = rank_bytes(cfg, mesh, baxes, run["batch"],
+                                  run["prompt"], "prefill")
+                stats["spec_bytes"] = held["params"]
+                stats["whole_leaf_bytes"] = held["whole_leaf"]
                 if stats["param_bytes"] != stats["spec_bytes"]:
                     raise AssertionError(
                         f"phase 16(c): a rank holds {stats['param_bytes']} "
@@ -4254,8 +4169,20 @@ def grad_on_mesh(job, dev):
         grad_fn = ST.make_grad_fn(cfg_m, tcfg, mesh=mesh, batch_axes=baxes)
         specs = tree_leaves(T.param_block_specs(cfg_m, mesh),
                             is_leaf=SH.is_spec)
-        (stats["spec_bytes"], spec32,
-         stats["whole_leaf_bytes"]) = spec_bytes(cfg_m, mesh, baxes)
+        held = rank_bytes(cfg_m, mesh, baxes, B, S)
+        stats["spec_bytes"], spec32 = held["params"], held["moment"]
+        stats["whole_leaf_bytes"] = held["whole_leaf"]
+        stats["dryrun_argument_bytes"] = held["arguments"]
+        # a train step's arguments as this rank holds them: its parameter
+        # and batch blocks and the AdamW state adamw.init builds on them,
+        # freed before the step
+        opt = adamw.init(params)
+        stats["argument_bytes"] = tree_bytes((params, opt, local))
+        stats["moment_bytes"] = tree_bytes(opt.mu)
+        del opt
+        if cuda:
+            torch.cuda.empty_cache()
+        dist.barrier()
         int8 = job["compression"] == "int8"
         row = {}
         check = {"s": 0.0, "coll": None}
@@ -4294,13 +4221,18 @@ def grad_on_mesh(job, dev):
         gnorm = adamw.global_norm(grads, ST.norm_reduction(
             cfg_m, mesh)).item()
         stats["grad_bytes"] = tree_bytes(grads)
-        if (stats["param_bytes"], stats["grad_bytes"]) != (
-                stats["spec_bytes"], spec32):
+        if (stats["param_bytes"], stats["grad_bytes"], stats["moment_bytes"],
+                stats["argument_bytes"]) != (
+                stats["spec_bytes"], spec32, spec32,
+                stats["dryrun_argument_bytes"]):
             raise AssertionError(
                 f"phase 17 {shape} {impl}: a rank holds "
-                f"{stats['param_bytes']} bytes of weights and "
-                f"{stats['grad_bytes']} of reduced gradient, its spec "
-                f"blocks {stats['spec_bytes']} and {spec32}")
+                f"{stats['param_bytes']} bytes of weights, "
+                f"{stats['grad_bytes']} of reduced gradient, "
+                f"{stats['moment_bytes']} of an AdamW moment and "
+                f"{stats['argument_bytes']} of a train step's arguments; "
+                f"the dry run's blocks {stats['spec_bytes']}, {spec32}, "
+                f"{spec32} and {stats['dryrun_argument_bytes']}")
         row.update({
             "shape": shape, "impl": impl, "loss": loss.item(),
             "norm": gnorm, "ms": ms, "reduce": red.row(),
@@ -4435,9 +4367,11 @@ def train_on_mesh(job, dev):
     params, opt = last["out"][:2]
     rec["param_bytes"], rec["moment_bytes"] = (tree_bytes(params),
                                                tree_bytes((opt.mu, opt.nu)))
-    (rec["spec_bytes"], spec32, rec["whole_leaf_bytes"]) = spec_bytes(
-        last["cfg"], mesh, ("data",))
-    rec["spec_moment_bytes"] = 2 * spec32
+    held = rank_bytes(last["cfg"], mesh, ("data",), run["batch"],
+                      run["seq"])
+    rec["spec_bytes"], rec["whole_leaf_bytes"] = (held["params"],
+                                                  held["whole_leaf"])
+    rec["spec_moment_bytes"] = 2 * held["moment"]
     final = [coll.gather_block(t, sp, mesh) for t, sp in zip(
         tree_leaves(params), last["specs"])]
     rec["final"] = ([t.cpu() for t in final] if dist.get_rank() == 0
@@ -4591,8 +4525,8 @@ def check_k3_given(dev, time_ms, n):
                                reps=2),
            "library_ms": time_ms(lambda: torch.quantize_per_tensor(
                x, scale, 0, torch.qint8), reps=3)}
-    out["bound_ms"], out["bound_by"] = bound(5 * n + 8, 5 * n,
-                                             torch.float32)
+    out["bound_ms"], out["bound_by"] = k3_bound(1, n, torch.float32,
+                                                given=True)
     del x
     torch.cuda.empty_cache()
     print(f"K3 quantize_int8 given the absmax, (1, {n}) float32 (one (2, 2) "
@@ -4607,16 +4541,28 @@ def check_k3_given(dev, time_ms, n):
 
 
 def held_line(row):
-    """A ``grad_on_mesh`` row's bytes a rank against its spec blocks and
-    the whole-leaf placement's, and the reshards' all-gathers."""
+    """A ``grad_on_mesh`` row's bytes a rank against the dry run's blocks
+    and the whole-leaf placement's, and the reshards' all-gathers."""
     g = row["gathers"]
     return (f"weights {row['param_bytes']} bytes a rank and the reduced "
-            f"gradient {row['grad_bytes']} (fp32), equal to the TRAIN_RULES "
-            f"spec blocks (the whole-leaf placement held "
+            f"gradient {row['grad_bytes']} (fp32) and an AdamW moment "
+            f"{row['moment_bytes']} (adamw.init on the rank's blocks), and "
+            f"a train step's arguments {row['argument_bytes']}, equal to "
+            f"the dry run's "
+            f"TRAIN_RULES blocks (launch.dryrun.cell_blocks; "
+            f"argument_bytes {row['dryrun_argument_bytes']}; the whole-leaf "
+            f"placement held "
             f"{row['whole_leaf_bytes']} bytes of weights, "
             f"{row['whole_leaf_bytes'] / row['param_bytes'] - 1:.1%} more); "
             f"the reshards' all-gathers {g['calls']}, {g['bytes']} bytes "
             f"given, host ms {g['host_ms']:.3f}")
+
+
+def argument_bytes(row):
+    """(mesh, MoE form, a rank's train-step argument bytes, the dry
+    run's) of a ``grad_on_mesh`` row, for phase 18(c)."""
+    return (row["shape"], row["impl"], row["argument_bytes"],
+            row["dryrun_argument_bytes"])
 
 
 def mesh_grad_fp32(dev, card, total):
@@ -4630,6 +4576,7 @@ def mesh_grad_fp32(dev, card, total):
         "kind": "grad", "cfg": cfg32, "run": g, "compression": "none",
         "cases": [((1, 4), "ep")], "fault": True}, 4, dev)
     (row,) = check_mesh_grads(ranks, MESH_GRAD_BAR, "(a)", card)
+    total["argument_bytes"].append(argument_bytes(row))
     n = [r["cases"][0]["launches"] for r in ranks]
     # under remat each layer's forward runs again in the backward
     k5 = (2 if cfg32.remat else 1) * cfg32.num_layers
@@ -4671,6 +4618,7 @@ def mesh_grad_bf16(dev, card, time_ms, total):
             "K5b": cfg16.num_layers, "K3": n_leaves, "K4": n_leaves}
     given = 0
     for i, row in enumerate(rows):
+        total["argument_bytes"].append(argument_bytes(row))
         name = f"({row['shape'][0]}, {row['shape'][1]}) {row['impl']}"
         # K3 takes the whole leaf's absmax where a leaf is split over an
         # axis of more than one rank (expert and dense leaves alike)
@@ -4837,21 +4785,213 @@ def drive_mesh_train(dev, card, time_ms):
     """Phase 17: training over a mesh of ranks sharing the card (gloo):
     ``mesh_grad_fp32``, ``mesh_grad_bf16``, ``mesh_train_dp``.  Returns the
     launches of K3, K4, K5, K5b, K8 and K8b in its mesh runs, summed over
-    the ranks, and K3's given-absmax entry."""
+    the ranks (and each (a)/(b) case's ``argument_bytes`` under that
+    key), and K3's given-absmax entry."""
     from repro_torch.kernels import _build
     _build.build_all()
     total = dict.fromkeys(("K3", "K4", "K5", "K5b", "K8", "K8b"), 0)
+    total["argument_bytes"] = []
     mesh_grad_fp32(dev, card, total)
     k3_given = mesh_grad_bf16(dev, card, time_ms, total)
     mesh_train_dp(dev, card, total)
     return total, k3_given
+
+# ---------------------------------------------------------------------------
+# Phase 18: the fleet's ClusterSim and the dry run
+# ---------------------------------------------------------------------------
+
+# (b): the dry run's cells, each a subprocess with the card hidden from it
+DRYRUN_CELLS = [("qwen3-moe-235b-a22b", "train_4k"), ("qwen3-8b", "prefill_32k")]
+DRYRUN_TIMEOUT_S = 300
+# (a): clocks a spin holds the stream before each timed K6 launch (~1 ms,
+# several times the host's time to issue the events and the launch)
+SPIN_CYCLES = 2_000_000
+
+
+def start_dryruns(out_dir):
+    """Phase 18(b), started: ``python -m repro_torch.launch.dryrun`` for
+    each of DRYRUN_CELLS on the single-pod mesh under TRAIN_RULES, each in
+    its own process with CUDA_VISIBLE_DEVICES empty, writing its record
+    under ``out_dir``; returns the processes, which are killed at exit if
+    still running (a phase before 18 failed)."""
+    import atexit
+    import os
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    procs = [(cell, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--mesh", "single", "--rules", "train",
+         "--out", str(out_dir), "--force"], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cell in DRYRUN_CELLS]
+    atexit.register(lambda: [p.kill() for _, p in procs if p.poll() is None])
+    return procs
+
+
+def finish_dryruns(procs, out_dir, card):
+    """Phase 18(b): each dry run exits 0 with status ok, no kernel
+    launched, no kernel library loaded or built (the build directory as it
+    was) and CUDA never initialised; prints its roofline line."""
+    from repro_torch.kernels import _build
+    built = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
+    for (arch, shape), proc in procs:
+        try:
+            out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        path = out_dir / f"{arch}__{shape}__single__train.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        if proc.returncode != 0 or rec.get("status") != "ok":
+            raise AssertionError(f"phase 18(b) dry run {arch} {shape}: exit "
+                                 f"{proc.returncode}, status "
+                                 f"{rec.get('status')}: {out[-3000:]}")
+        launched = {k: v for k, v in rec["kernel_launches"].items() if v}
+        if (launched or rec["libraries_loaded"] or rec["cuda_initialized"]
+                or rec["raw"]["real"]["card_tensor_ops"]):
+            raise AssertionError(f"phase 18(b) dry run {arch} {shape}: "
+                                 f"launches {launched}, libraries "
+                                 f"{rec['libraries_loaded']}, CUDA "
+                                 f"initialised {rec['cuda_initialized']}")
+        t, m = rec["roofline"], rec["memory"]
+        print(f"phase 18(b) dry run {arch} {shape} single (16, 16) train "
+              f"rules, meta tensors over a fake group of 256 ranks, card "
+              f"hidden: exit 0, status ok, no kernel launched, no library "
+              f"loaded, CUDA not initialised; flops/chip "
+              f"{t['flops_per_chip']:.4e} bytes/chip "
+              f"{t['bytes_per_chip']:.4e} coll/chip "
+              f"{t['coll_bytes_per_chip']:.4e}; roofline at the H100's "
+              f"peaks (analytic, not measured): compute {t['compute_s']:.4f} "
+              f"s memory {t['memory_s']:.4f} s collective "
+              f"{t['collective_s']:.4f} s dominant {t['dominant']} useful "
+              f"ratio {t['useful_ratio']:.3f} roofline fraction "
+              f"{t['roofline_fraction']:.4f}; argument_bytes "
+              f"{m['argument_bytes']} peak_bytes {m['peak_bytes']}; wall "
+              f"{rec['wall_s']:.1f} s")
+    if sorted(p.name for p in _build.BUILD_DIR.glob("*.so")) != built:
+        raise AssertionError("phase 18(b): the build directory changed")
+
+
+def drive_sim(dev, card):
+    """Phase 18(a): phase 6's fleet (FLEET) through the façade,
+    ``core.scheduler.ClusterSim.run_sharded``, run ``segmented, cuda, cuda,
+    segmented``: each cuda run's trace and its queue, power and fault
+    books and telemetry byte-identical to the first segmented run's, K6
+    launched once for each of its solves; then one cuda run with each K6
+    launch between two CUDA events, for K6's device time (the profiler
+    sees no device time in this process after phases 16-17's ranks): a
+    spin on the stream first holds it while the host issues the events
+    and the launch, so they bracket the kernel alone.  Returns the
+    launches a cuda run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import lindley as L
+    from repro_torch.core.arrivals import make_arrivals
+    from repro_torch.core.function import standard_pipeline
+    from repro_torch.core.latency import LatencyModel
+    from repro_torch.core.platforms import PLATFORMS
+    from repro_torch.core.scheduler import ClusterSim
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lindley import lindley_scan
+
+    pipes = [standard_pipeline(n)
+             for n in ("asset_damage", "content_moderation")]
+    lm = LatencyModel()
+    svc = sum(lm.e2e(PLATFORMS["DSCS-Serverless"], p.workload, q=0.5)
+              for p in pipes) / len(pipes)
+    rate = FLEET["utilization"] * FLEET["n_dscs"] / svc
+    duration = FLEET["requests"] / rate
+
+    def run(backend):
+        sim = ClusterSim(n_dscs=FLEET["n_dscs"], n_cpu=FLEET["n_cpu"],
+                         hedge_budget_s=FLEET["hedge_budget_s"], seed=0)
+        before = lindley_scan.launches
+        t0 = time.perf_counter()
+        tr = sim.run_sharded(pipes, arrivals=make_arrivals("poisson", rate),
+                             duration_s=duration, n_shards=FLEET["n_shards"],
+                             processes=1, backend=backend)
+        torch.cuda.synchronize()
+        return (sim, tr, time.perf_counter() - t0,
+                lindley_scan.launches - before)
+
+    def books(sim):
+        return repr((sim.queue_stats(), sim.engine.power_stats(),
+                     sim.fault_stats(), dict(sim.telemetry.counters)))
+
+    solves = []
+    real_solve = L.solve_segments
+
+    def record_solve(seg, t, s, start, fin, *, backend):
+        solves.append(t.size)
+        return real_solve(seg, t, s, start, fin, backend=backend)
+
+    L.solve_segments = record_solve
+    try:
+        runs = [run("segmented")]
+    finally:
+        L.solve_segments = real_solve
+    want = sum(1 for n in solves if n)
+    order = ("cuda", "cuda", "segmented")
+    runs += [run(b) for b in order]
+    base, base_tr = runs[0][0], runs[0][1]
+    for (sim, tr, _, n), backend in zip(runs[1:], order):
+        for col in ("arrival", "finish", "winner", "drive", "start",
+                    "service", "hedged", "dscs_finish", "cpu_finish"):
+            if getattr(tr, col).tobytes() != getattr(base_tr, col).tobytes():
+                raise AssertionError(f"phase 18(a) ClusterSim {backend}: "
+                                     f"column {col} differs from segmented")
+        if tr.events != base_tr.events or books(sim) != books(base):
+            raise AssertionError(f"phase 18(a) ClusterSim {backend}: books "
+                                 f"differ from segmented")
+        if n != (want if backend == "cuda" else 0) or not want:
+            raise AssertionError(f"phase 18(a) ClusterSim {backend}: K6 "
+                                 f"launched {n} times for {want} solves")
+    lat = base_tr.latency[base_tr.completed]
+    if not (np.isfinite(lat).all() and base_tr.n > 0.99 * FLEET["requests"]
+            and base.engine.last_shard_stats["path"] == "partitioned"):
+        raise AssertionError(f"phase 18(a): {lat.size} of {base_tr.n} "
+                             f"requests completed")
+    events = []
+    launch = ops.lindley_scan_segments
+
+    def timed(seg, t, s):
+        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda._sleep(SPIN_CYCLES)
+        pair[0].record()
+        out = launch(seg, t, s)
+        pair[1].record()
+        events.append(pair)
+        return out
+
+    ops.lindley_scan_segments = timed
+    try:
+        _, _, timed_wall, _ = run("cuda")
+    finally:
+        ops.lindley_scan_segments = launch
+    k6_ms = sum(a.elapsed_time(b) for a, b in events)
+    walls = [w for _, _, w, _ in runs]
+    print(f"phase 18(a) ClusterSim.run_sharded poisson-1m-f1024: "
+          f"{base_tr.n} requests, {FLEET['n_dscs']} DSCS + {FLEET['n_cpu']} "
+          f"CPU, {FLEET['n_shards']} shards, processes=1; host wall s "
+          f"segmented {walls[0]:.3f}, cuda {walls[1]:.3f}, cuda "
+          f"{walls[2]:.3f}, segmented {walls[3]:.3f}; cuda traces, queue, "
+          f"power and fault books and telemetry byte-identical to "
+          f"segmented; K6 launches {want} per cuda run = its solves with a "
+          f"non-empty input; K6 device ms over a cuda run's {len(events)} "
+          f"launches (CUDA events around each, the stream held by a spin "
+          f"while they are issued; wall {timed_wall * 1e3:.1f} ms): "
+          f"{k6_ms:.4f}; card {card}")
+    return want
+
 
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import executor as E
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -5011,7 +5151,7 @@ def main() -> int:
         ms = time_ms(lambda: fused_affine_act(x, s, b))
         plain = time_ms(lambda: fused_affine_act_plain(x, s, b))
         lib = time_ms(lambda: torch.addcmul(b, x, s))
-        bnd, by = bound((2 * M * N + 2 * N) * 4, 2 * M * N, torch.float32)
+        bnd, by = k2_bound(M, N, torch.float32)
         # K2 and torch.addcmul in turns (K2, addcmul, addcmul, K2) x 5
         turns = {"kernel": [], "library": []}
         for _ in range(5):
@@ -5268,6 +5408,10 @@ def main() -> int:
     # this process no longer needs first
     gc.collect()
     empty_host_cache()
+    # phase 18(b)'s dry runs need no card: started here, on the host's
+    # spare cores beside phases 16-17, and read in phase 18
+    dryrun_dir = tempfile.TemporaryDirectory()
+    dryruns = start_dryruns(Path(dryrun_dir.name))
     mark("16, the mesh")
     k5_mesh = drive_mesh(dev, card)
     torch.cuda.empty_cache()
@@ -5285,6 +5429,26 @@ def main() -> int:
                      mesh_train_launches=mesh17["K8b"])
     k5b_entry.update(launches=k5b_entry["launches"] + mesh17["K5b"],
                      mesh_train_launches=mesh17["K5b"])
+    gc.collect()
+    empty_host_cache()
+    mark("18, ClusterSim and the dry run")
+    with dryrun_dir:
+        try:
+            k6_entry["clustersim_launches"] = drive_sim(dev, card)
+        finally:
+            finish_dryruns(dryruns, Path(dryrun_dir.name), card)
+    held = mesh17["argument_bytes"]
+    if (not any(tuple(r[0]) == (2, 2) for r in held)
+            or any(r[2] != r[3] for r in held)):
+        raise AssertionError(f"phase 18(c): a rank's train-step argument "
+                             f"bytes against the dry run's: {held}")
+    print("phase 18(c) the dry run's argument_bytes (launch.dryrun."
+          "cell_blocks) against a real rank's holdings in phase 17 (its "
+          "placed weights, batch block and the AdamW state adamw.init "
+          "builds on the card), qwen3-moe-235b-a22b at 1 layer: "
+          + "; ".join(
+              f"{shape} {impl} real {real} dry run {dry}"
+              for shape, impl, real, dry in held) + ", equal")
     mark("the kernels line")
 
     # ---- the kernels line: K1 over one request's 53 shapes ---------------

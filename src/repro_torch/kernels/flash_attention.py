@@ -39,7 +39,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, shape_only
 
 NEG_INF = -1e30
 # Square head dims K5 and K5b take, and their (Dqk, Dv) pairs: those, MLA's
@@ -234,6 +234,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Dv), on the card; with ``return_lse`` also each row's log-sum-exp, fp32
     (B, H, Sq), which ``flash_attention_bwd`` reads."""
     _check_qkv("flash_attention", q, k, v)
+    if shape_only.is_fake(q, k, v):
+        out, lse = torch.ops.repro_torch.flash_attention(q, k, v, causal,
+                                                         window, return_lse)
+        return (out, lse) if return_lse else out
     B, H, Sq, D = q.shape
     KV, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     _build.require_cuda("flash_attention", q, k, v)
@@ -273,6 +277,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
                          f"{lse.dtype}, want {(B, H, Sq)} float32")
+    if shape_only.is_fake(q, k, v, o, lse, do):
+        return torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, lse, do,
+                                                         causal, window)
     _build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
     q, k, v, o, do = _aligned(q, k, v, o, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

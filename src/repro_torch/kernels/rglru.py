@@ -40,7 +40,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, shape_only
 
 C = -8.0
 # The kernel's block (csrc/rglru.cu, checked against the library at load):
@@ -177,6 +177,10 @@ def rglru_scan(x: torch.Tensor, gx: torch.Tensor, ga: torch.Tensor,
     dtype), log_a and h0 float32.  With ``keep_states`` also every state
     in fp32 (B, S, W), which ``rglru_scan_bwd`` reads."""
     _check_args("rglru_scan", x, gx, ga, log_a, h0)
+    if shape_only.is_fake(x, gx, ga, log_a, h0):
+        y, h32 = torch.ops.repro_torch.rglru_scan(x, gx, ga, log_a, h0,
+                                                  keep_states)
+        return (y, h32) if keep_states else y
     B, S, W = x.shape
     _build.require_cuda("rglru_scan", x, gx, ga, log_a, h0)
     y = torch.empty_like(x)
@@ -209,6 +213,9 @@ def rglru_scan_bwd(x, gx, ga, log_a, h0, h32, dy):
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"rglru_scan_bwd: dy {tuple(dy.shape)} {dy.dtype} "
                          f"is not x's {tuple(x.shape)} {x.dtype}")
+    if shape_only.is_fake(x, gx, ga, log_a, h0, h32, dy):
+        return torch.ops.repro_torch.rglru_scan_bwd(x, gx, ga, log_a, h0, h32,
+                                                    dy)
     _build.require_cuda("rglru_scan_bwd", x, gx, ga, log_a, h0, h32, dy)
     dx, dgx, dga = (torch.empty_like(x) for _ in range(3))
     f32 = dict(dtype=torch.float32, device=x.device)

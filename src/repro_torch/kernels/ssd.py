@@ -35,7 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, shape_only
 
 MAX_STATE = 128                 # N the CUDA kernel's register tiles cover
 KERNEL_CHUNK = 64               # rows of the chunks the CUDA kernels walk
@@ -167,8 +167,9 @@ def _check_args(name, x, dt, A, Bm, Cm, h0, chunk):
         if t is not None and t.dtype != torch.float32:
             raise TypeError(f"{name}: {arg} must be float32, not {t.dtype}")
     _chunk(S, chunk)
-    _build.require_cuda(name, x, dt, A, Bm, Cm,
-                        *(() if h0 is None else (h0,)))
+    if not shape_only.is_fake(x, dt, A, Bm, Cm, h0):
+        _build.require_cuda(name, x, dt, A, Bm, Cm,
+                            *(() if h0 is None else (h0,)))
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -182,6 +183,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``keep_states`` it also returns the fp32 state entering each of its
     chunks, (B, H, ceil(S / 64), P, N), which ``ssd_scan_bwd`` reads."""
     _check_args("ssd_scan", x, dt, A, Bm, Cm, h0, chunk)
+    if shape_only.is_fake(x, dt, A, Bm, Cm, h0):
+        y, state, states = torch.ops.repro_torch.ssd_scan(
+            x, dt, A, Bm, Cm, chunk, h0, keep_states)
+        return (y, state, states) if keep_states else (y, state)
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     y = torch.empty_like(x)
@@ -226,6 +231,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if states.shape != (Bsz, H, -(-S // KERNEL_CHUNK), P, N):
         raise ValueError(f"ssd_scan_bwd: states {tuple(states.shape)} are "
                          f"not these inputs' chunk states")
+    if shape_only.is_fake(x, dy, states, dstate):
+        return torch.ops.repro_torch.ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy,
+                                                  dstate, states, chunk)
     _build.require_cuda("ssd_scan_bwd", dy, states,
                         *(() if dstate is None else (dstate,)))
     npt = -(-P // P_TILE)

@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, shape_only
 
 _ACTS = {
     "none": lambda x: x,
@@ -120,6 +120,8 @@ def systolic_matmul(x: torch.Tensor, w: torch.Tensor,
                          f"w {tuple(w.shape)} {w.dtype} do not chain")
     if act not in _ACT_CODES:
         raise ValueError(f"systolic_matmul: unknown activation {act!r}")
+    if shape_only.is_fake(x, w, b):
+        return torch.ops.repro_torch.systolic_matmul(x, w, b, act, out_dtype)
     out_dtype = out_dtype or x.dtype
     bias = None if b is None else b.to(torch.float32).contiguous()
     w_kmajor = not w.is_contiguous() and w.t().is_contiguous()

@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, shape_only
 from repro_torch.kernels.systolic_matmul import _ACT_CODES, _ACTS
 
 
@@ -104,6 +104,9 @@ def fused_affine_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     M, N = x.shape
     if act not in _ACT_CODES:
         raise ValueError(f"fused_affine_act: unknown activation {act!r}")
+    if shape_only.is_fake(x, scale, bias):
+        return torch.ops.repro_torch.fused_affine_act(x, scale, bias, act,
+                                                      out_dtype)
     out_dtype = out_dtype or x.dtype
     scale, bias = (v.to(torch.float32).contiguous() for v in (scale, bias))
     scale, bias = (v if v.data_ptr() % 16 == 0 else v.clone()
@@ -164,6 +167,8 @@ def quantize_int8(x: torch.Tensor, absmax: Optional[torch.Tensor] = None
     if M == 0 or N == 0:
         raise ValueError(f"quantize_int8: an empty row has no absmax "
                          f"({tuple(x.shape)})")
+    if shape_only.is_fake(x, absmax):
+        return torch.ops.repro_torch.quantize_int8(x, absmax)
     code = _build.dtype_code(x.dtype)
     if absmax is not None:
         absmax = _given_absmax(absmax, M).contiguous()
@@ -199,6 +204,8 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, *,
         raise ValueError(f"dequantize_int8: scales {tuple(scales.shape)} for "
                          f"{M} rows")
     code = _build.dtype_code(out_dtype)
+    if shape_only.is_fake(q, scales):
+        return torch.ops.repro_torch.dequantize_int8(q, scales, out_dtype)
     _build.require_cuda("dequantize_int8", q, scales)
     out = torch.empty((M, N), dtype=out_dtype, device=q.device)
     if M == 0 or N == 0:

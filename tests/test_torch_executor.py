@@ -178,7 +178,12 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.launch.steps, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.optim.adamw, "
             "repro_torch.checkpoint.manager, repro_torch.serving.batcher, "
-            "repro_torch.distributed.compression; "
+            "repro_torch.distributed.compression, "
+            "repro_torch.core.placement, repro_torch.core.cost, "
+            "repro_torch.core.dse, repro_torch.core.autoscale, "
+            "repro_torch.core.engine_ref, repro_torch.core.scheduler, "
+            "repro_torch.analysis.roofline, repro_torch.analysis.report, "
+            "repro_torch.analysis.collectives, repro_torch.launch.dryrun; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -3,8 +3,9 @@
 The port's ``core`` modules of the fleet slice are copies of the JAX
 package's numpy modules with ``repro.`` renamed to ``repro_torch.``; the
 only other differences are the Lindley solver's backends (``torch`` and
-``cuda`` in place of ``pallas``, ``cuda`` the default) and the fork rule
-that comes with ``cuda``.  :data:`SEAMS` lists them, and the copies are
+``cuda`` in place of ``pallas``, ``cuda`` the default, in the engine and
+in ``ClusterSim.run_sharded``) and the fork rule that comes with
+``cuda``.  :data:`SEAMS` lists them, and the copies are
 held to that list word for word.  Then whole runs: the port's
 ``run_sharded(n_shards=2, backend="torch")`` must give the JAX package's
 ``run_sharded(backend="segmented")`` trace byte for byte, with equal queue,
@@ -157,9 +158,24 @@ from repro_torch.core.lindley import DEFAULT_BACKEND
         ``n_shards=1`` and the shard-isolated fallback run the classic
         event loop and ignore it).'''),
     ],
+    "scheduler": [
+        ('''from repro_torch.core.latency import LatencyModel
+''', '''from repro_torch.core.latency import LatencyModel
+from repro_torch.core.lindley import DEFAULT_BACKEND
+'''),
+        ('''                    backend: str = "segmented") -> EngineTrace:''',
+         '''                    backend: str = DEFAULT_BACKEND) -> EngineTrace:'''),
+        ('''        the merged fleet view afterwards.  ``backend`` selects the fast
+        path's Lindley solver (:mod:`repro_torch.core.lindley`).''',
+         '''        the merged fleet view afterwards.  ``backend`` selects the fast
+        path's Lindley solver (:mod:`repro_torch.core.lindley`; ``cuda``,
+        the default, runs K6 on the card, raises without one and needs
+        ``processes=1``).'''),
+    ],
 }
 VERBATIM = ("arrivals", "faults", "overload", "tenancy", "tiering",
-            "function", "latency", "platforms", "workloads")
+            "function", "latency", "platforms", "workloads", "placement",
+            "cost", "dse", "autoscale", "engine_ref")
 
 
 @pytest.mark.parametrize("name", sorted(SEAMS) + list(VERBATIM))

@@ -468,3 +468,46 @@ def train_mesh_rank(rank, world, store_dir, inputs, out_dir):
                         dp_key(arch, shape, comp, mb), res, rank == 0)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     dist.destroy_process_group()
+
+
+def held_bytes_rank(rank, world, store_dir, cases, out_dir):
+    """For each case (arch, mesh shape, config overrides, batch, seq): the
+    bytes this rank holds for a train step under ``TRAIN_RULES`` (its
+    placed parameter blocks, its block of a ``TokenStream`` batch and the
+    AdamW state ``adamw.init`` gives them), its reduced gradient's bytes
+    from ``make_grad_fn``, and the dry run's count of both
+    (``launch.dryrun.cell_blocks`` on this mesh)."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_arch
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    torch.set_num_threads(1)          # the ranks share the host's cores
+    M.init_group(store_dir, rank, world, "gloo")
+    res = {}
+    for i, (arch, shape, over, B, S) in enumerate(cases):
+        cfg = dataclasses.replace(get_arch(arch).reduced(), **over)
+        mesh = M.make_mesh(shape, ("data", "model"), device="cpu")
+        baxes = SH.batch_axes(B, SH.TRAIN_RULES, mesh)
+        params = T.place_params(cfg, torch.Generator().manual_seed(0), mesh,
+                                device="cpu")
+        batch = {k: SH.local_block(v, SH.batch_spec(tuple(v.shape),
+                                                    SH.TRAIN_RULES, mesh),
+                                   mesh)
+                 for k, v in TokenStream(cfg, B, S, 0,
+                                         device="cpu").batch_at(0).items()}
+        held = (params, adamw.init(params), batch)
+        _, grads = ST.make_grad_fn(cfg, TrainConfig(), mesh=mesh,
+                                   batch_axes=baxes)(params, batch)
+        blocks = DR.cell_blocks(cfg, ShapeConfig("held", "train", S, B), mesh)
+        res[f"{i}"] = np.array([DR.tree_nbytes(held),
+                                DR.tree_nbytes(blocks),
+                                DR.tree_nbytes(grads),
+                                DR.tree_nbytes(blocks["opt"].mu)])
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
+    dist.destroy_process_group()
