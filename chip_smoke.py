@@ -42,10 +42,11 @@ K8b, the SSD scan's gradient, against its plain version at
 and its grid;
 the full model's loss and every gradient leaf at fp32 with K8/K8b and with
 their plain versions; 10 AdamW steps of Mamba-2 370M at full width and
-depth (bf16, batch 8 x 1024 tokens, int8 gradient compression) with 48 K8
-and 48 K8b launches and one K3 and one K4 call per gradient leaf each
-step (a K3 call is one cooperative launch; K3 timed over a step's ten
-leaves too),
+depth (bf16, batch 8 x 1024 tokens, int8 gradient compression, remat, the
+parameters and moments updated in place) with 96 K8 launches (each
+layer's forward and its recompute in the backward), 48 K8b and one K3 and
+one K4 call per gradient leaf each step (a K3 call is one cooperative
+launch; K3 timed over a step's ten leaves too),
 profiled; and the launcher's ``train`` with a checkpoint that restores
 byte for byte.  Phase 11, the
 Qwen decoders: K5 at their serving shapes (head dim 128; GQA 4:1, MHA
@@ -65,11 +66,12 @@ plain forward, then K7b (the RG-LRU scan's backward), at phase 9's cases
 and the layer shape, each run twice byte for byte;
 RecurrentGemma-2B (one period) and qwen3-8b (2 layers) at full width, the
 fp32 loss and every gradient leaf with K5/K5b/K7/K7b and with their plain
-versions; ``launch.train.train`` of RecurrentGemma-2B at full width over 12
-of its 26 layers (10 bf16 steps, batch 4 x 1024, K7 8, K7b 8, K5 4 and K5b
-4 launches a step and no other kernel, profiled) and of qwen3-8b over 4 of
-36 (5 steps, K5 4 and K5b 4 a step); and K1 refusing to cut an autograd
-graph.  Phase 13, Whisper and the paper's own LMs: K5 at their head dim 64
+versions; ``launch.train.train`` of RecurrentGemma-2B at full width and
+depth (26 layers, 10 bf16 steps, batch 4 x 1024, remat and the in-place
+AdamW, K7 36, K7b 18, K5 16 and K5b 8 launches a step and no other kernel,
+profiled) and of qwen3-8b over 4 of 36 (5 steps, K5 8 and K5b 4 a step);
+and K1 refusing to cut an autograd graph.  Phase 13, Whisper and the
+paper's own LMs: K5 at their head dim 64
 shapes (Whisper's 1500-frame non-causal encoder, its cross-attention of
 384 decoder rows over 1500 keys, its decoder; GPT-2 1.5B's 25 heads over
 992 tokens; BERT-base) in fp32 and bf16, elementwise and by relative
@@ -96,11 +98,11 @@ and within K5B_REL beside two planted faults, timed in CUDA graphs beside
 SDPA's backward and each of its fused backends alone; the fp32 loss and
 every gradient leaf of minicpm3-4b (2 layers), ViT-632M (4) and
 Whisper-medium (2 + 2) at full width with K5/K5b and with their plain
-versions; minicpm3-4b trained at full width over 32 of its 62 layers
-through ``launch.train.train``, ViT-632M and Whisper-medium whole through
-``ST.make_train_step`` (bf16, batch 4, 5 steps; K5 and K5b 32, 32 and 72
-launches a step, no other kernel and no plain attention), each profiled
-and its first two losses against a run with the plain versions.  Phase
+versions; minicpm3-4b, ViT-632M and Whisper-medium trained at full width
+and depth through ``launch.train.train`` (bf16, batch 4, 5 steps, remat
+and the in-place AdamW; K5 124, 64 and 144 and K5b 62, 32 and 72 launches
+a step, no other kernel and no plain attention), each profiled and its
+first two losses against a run with the plain versions.  Phase
 16, the mesh: qwen3-moe-235b-a22b at full width served over (1, 4) and
 (2, 2) meshes of 4 ranks, processes sharing the card through a gloo group
 (expert-parallel ``moe_ffn_ep``, and ``moe_ffn_ep_resident`` on (2, 2)):
@@ -296,12 +298,13 @@ K5_VLM = {  # name: (shape, the model, launches a prefill)
 # causal, window) in bf16: RecurrentGemma-2B's training attention, its
 # 4096-token shape where the window bites, and qwen3-8b's; in fp32
 # tests/test_kernels.py's attention shapes and masks.  RecurrentGemma-2B
-# trained at full width over 12 of its 26 layers (four (R, R, A) periods:
-# 1.69 B parameters, about 44 GB at the optimizer's peak at 26 bytes a
-# parameter; all 26 need about 75 GB before activations) and qwen3-8b over 4
-# of 36 (2.02 B, about 52 GB; all 36 need about 213 GB): bf16, fp32 AdamW
-# moments, no gradient compression, batch 4 of 1024 tokens; the fp32
-# gradient checks over one period (3 layers) and 2 layers, batch 2.
+# trained at full width and depth (26 layers, 2,894,528,000 parameters:
+# about 34.7 GB of parameters, gradients and moments at TRAIN_BYTES a
+# parameter before activations) and qwen3-8b over 4 of 36 layers (2.02 B;
+# all 36 need about 98 GB, past the card): bf16, fp32 AdamW moments
+# updated in place, remat, no gradient compression, batch 4 of 1024
+# tokens; the fp32 gradient checks over one period (3 layers) and 2
+# layers, batch 2.
 K5B_TRAIN = [((4, 10, 1, 1024, 1024, 256), True, GEMMA_WINDOW),
              ((1, 10, 1, 4096, 4096, 256), True, GEMMA_WINDOW),
              ((4, 32, 8, 1024, 1024, 128), True, 0)]
@@ -316,9 +319,13 @@ K5B_MASKS = [(True, 0), (False, 0), (True, 48)]
 # must read above it
 K5B_REL = {"bfloat16": 2e-2, "float32": 1e-4}
 K5B_REL_FLOOR = 1e-2
-GEMMA_TRAIN = {"layers": 12, "batch": 4, "seq": 1024, "steps": 10}
+GEMMA_TRAIN = {"batch": 4, "seq": 1024, "steps": 10}
 QWEN_TRAIN = {"layers": 4, "batch": 4, "seq": 1024, "steps": 5}
 GEMMA_GRAD = {"layers": 3, "batch": 2, "seq": 1024}
+# What a training step holds a parameter, with AdamW updating the
+# parameters and its fp32 moments in place (the JAX train step's
+# donation): the bf16 parameter and gradient and the two fp32 moments
+TRAIN_BYTES = 2 + 2 + 4 + 4
 QWEN_GRAD = {"layers": 2, "batch": 2, "seq": 1024}
 # Phase 15, training of MLA, ViT-632M and Whisper-medium.  K5b's shapes
 # (B, H, KV, Sq, Skv, Dqk, Dv) and causality in bf16 on those training
@@ -326,13 +333,11 @@ QWEN_GRAD = {"layers": 2, "batch": 2, "seq": 1024}
 # at head dim 64 (the encoder's 1500 frames and cross-attention over them,
 # non-causal, with a ragged last key tile; the decoder's 384 tokens,
 # causal); in fp32 K5B_FP32's shapes and K5B_MASKS at each new pair.
-# minicpm3-4b trained at full width through launch.train.train over
-# MLA_TRAIN_LAYERS of its 62 layers (2,193,689,088 parameters, about 57.0
-# GB at the optimizer's ~26 bytes a parameter; all 62 need ~106 GB): at
-# 20 layers the step's peak was 44.00 GB, ~1.96 GB a layer, so 32 peak
-# near 67.5 GB, under 75;
-# ViT-632M (32 layers, 844,514,560) and Whisper-medium (24 + 24,
-# 1,027,954,688) whole, also through launch.train.train, fed TokenStream's
+# minicpm3-4b trained at full width and depth through launch.train.train
+# (62 layers, 4,073,937,408 parameters, about 48.9 GB at TRAIN_BYTES a
+# parameter before activations); ViT-632M (32 layers, 844,514,560) and
+# Whisper-medium (24 + 24, 1,027,954,688) whole, also through
+# launch.train.train, fed TokenStream's
 # patch embeddings or frames (the port casts both to bf16); bf16, fp32
 # AdamW moments, batch 4, 5 steps.  The fp32 gradient checks at full width
 # over VLM_GRAD's layers, batch 2.
@@ -347,7 +352,6 @@ K5B_VLM = {  # name: (shape, causal, the model)
     "whisper_decoder": ((4, 16, 16, 384, 384, 64, 64), True,
                         "whisper-medium"),
 }
-MLA_TRAIN_LAYERS = 32
 VLM_TRAIN = {"minicpm3-4b": {"batch": 4, "seq": 1024, "steps": 5},
              "vit-632m": {"batch": 4, "seq": 512, "steps": 5},
              "whisper-medium": {"batch": 4, "seq": 384, "steps": 5}}
@@ -1573,12 +1577,13 @@ def mamba_config():
     return cfg
 
 
-def drive_train(dev, counters, time_ms, call_ms, max_err):
+def drive_train(dev, counters, time_ms, call_ms, max_err, card):
     """Phase 10: the training slice.  K3/K4 and K8b against their plain
     versions; the full model's fp32 loss and gradients with K8/K8b and with
     their plain versions swapped in; 10 train steps of Mamba-2 370M at full
-    width and depth in bf16 with int8 gradient compression, counted and
-    profiled; the launcher's ``train`` and a byte-exact restore.  Returns
+    width and depth in bf16 under remat with int8 gradient compression and
+    the in-place AdamW, counted and profiled (the profiled step trains on
+    in place); the launcher's ``train`` and a byte-exact restore.  Returns
     the K3, K4 and K8b entries of the kernels line."""
     import dataclasses
     import shutil
@@ -1632,9 +1637,11 @@ def drive_train(dev, counters, time_ms, call_ms, max_err):
         finally:
             SSD.ssd_scan, SSD.ssd_scan_bwd = real
         n = (real[0].launches - before[0], real[1].launches - before[1])
-        if n != ((cfg.num_layers,) * 2 if name == "kernel" else (0, 0)):
+        # under remat each layer's forward (K8) runs again in the backward
+        want_n = ((2 if cfg32.remat else 1) * cfg.num_layers, cfg.num_layers)
+        if n != (want_n if name == "kernel" else (0, 0)):
             raise AssertionError(f"fp32 gradients ({name}): K8/K8b launches "
-                                 f"{n}")
+                                 f"{n}, want {want_n}")
         runs[name] = (loss.item(), T.tree_leaves(grads), ms)
     (lk, gk, ms_k), (lp, gp, ms_p) = runs["kernel"], runs["plain"]
     rel_loss = abs(lk - lp) / abs(lp)
@@ -1645,8 +1652,8 @@ def drive_train(dev, counters, time_ms, call_ms, max_err):
                              f"{rel_loss:.3e} (limit 1e-5), leaf rel errs "
                              f"{[f'{r:.2e}' for r in rels]} (limit 1e-3)")
     print(f"fp32 gradients {MAMBA} (TF32 off, batch {GRAD_CHECK['batch']}, "
-          f"seq {GRAD_CHECK['seq']}, {cfg.num_layers} layers): loss {lk:.6f}, "
-          f"K8/K8b vs "
+          f"seq {GRAD_CHECK['seq']}, {cfg.num_layers} layers, remat "
+          f"{cfg32.remat}): loss {lk:.6f}, K8/K8b (launches {want_n}) vs "
           f"their plain versions: loss rel err {rel_loss:.3e} (limit 1e-5), "
           f"{len(rels)} gradient leaves, worst rel Frobenius err "
           f"{max(rels):.3e} (limit 1e-3); host ms kernel {ms_k:.3f}, plain "
@@ -1667,8 +1674,9 @@ def drive_train(dev, counters, time_ms, call_ms, max_err):
                           SSD.ssd_scan_bwd)
     names = ("K1", "K2", "K5", "K6", "K8", "K7", "K3", "K4", "K8b")
     want = dict.fromkeys(names, 0)
-    want.update(K8=cfg.num_layers, K8b=cfg.num_layers, K3=n_leaves,
-                K4=n_leaves)
+    # under remat each layer's forward (K8) runs again in the backward
+    want.update(K8=(2 if cfg.remat else 1) * cfg.num_layers,
+                K8b=cfg.num_layers, K3=n_leaves, K4=n_leaves)
     batches = [stream.batch_at(i) for i in range(TRAIN["steps"])]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1695,15 +1703,16 @@ def drive_train(dev, counters, time_ms, call_ms, max_err):
         raise AssertionError(f"train: losses {losses}, step {int(opt.step)}")
     med = statistics.median(step_ms[2:])
     print(f"train {MAMBA} ({cfg.num_layers} layers, {cfg.dtype}, "
-          f"{T.count_params(cfg)} "
-          f"parameters, AdamW with fp32 moments, int8 error-feedback "
+          f"{T.count_params(cfg)} parameters, remat {cfg.remat}, AdamW with "
+          f"fp32 moments updated in place, int8 error-feedback "
           f"gradients, warm-up {TRAIN['warmup']} of {TRAIN['steps']} steps): "
           f"batch {B} x seq {S}, {TRAIN['steps']} steps: losses "
           f"{[round(l, 4) for l in losses]}; step ms "
           f"{[round(t, 3) for t in step_ms]}; median of steps 3-"
           f"{TRAIN['steps']} {med:.3f} ms, {B * S / med * 1e3:.1f} tokens/s; "
-          f"peak memory {peak_gb:.2f} GB; launches a step K8 "
-          f"{want['K8']}, K8b {want['K8b']}, K3 {want['K3']} and K4 "
+          f"card {card}; peak memory {peak_gb:.2f} GB; launches a step K8 "
+          f"{want['K8']} (the forward and its recompute), K8b "
+          f"{want['K8b']}, K3 {want['K3']} and K4 "
           f"{want['K4']} (one call each per gradient leaf; a K3 call is one "
           f"cooperative kernel launch), K1/K2/K5/K6/K7 none; "
           f"in all {launches}")
@@ -2739,22 +2748,35 @@ def check_k7b(dev, time_ms, call_ms, max_err, card):
 
 class training_config:
     """Within the block, ``launch.train.train`` builds ``cfg`` for
-    ``cfg.name`` (the registered model's widths at a cut depth), and each
-    step it runs is timed (host clock to a synchronize) and its kernel
-    launches counted by ``counters``; checkpoints are recorded, not written
-    (phase 10(e) holds a written one to its bytes)."""
+    ``cfg.name`` (the registered model's widths, at its depth or a cut
+    one), and each step it runs is timed (host clock to a synchronize) and
+    its kernel launches counted by ``counters``; checkpoints are recorded,
+    not written (phase 10(e) holds a written one to its bytes).  ``last``
+    keeps the step and the trees it updated in place last, so a profiled
+    step after the run trains on from them.  ``grad_peak`` and
+    ``update_peak`` are each step's peak allocated GB up to its AdamW
+    update (the forward and backward) and within it."""
 
     def __init__(self, cfg, counters):
         self.cfg, self.counters = cfg, counters
         self.step_ms, self.launches, self.saved = [], [], []
+        self.grad_peak, self.update_peak = [], []
         self.last = None
 
     def __enter__(self):
         import torch
         from repro_torch.launch import train as TR
-        self.real = (TR.get_arch, TR.ST.make_train_step, TR.ckpt.save)
+        self.real = (TR.get_arch, TR.ST.make_train_step, TR.ckpt.save,
+                     TR.ST.adamw.apply_)
         TR.get_arch = lambda name: (self.cfg if name == self.cfg.name
                                     else self.real[0](name))
+
+        def update(*args, **kw):
+            self.grad_peak.append(torch.cuda.max_memory_allocated() / 1e9)
+            torch.cuda.reset_peak_memory_stats()
+            out = self.real[3](*args, **kw)
+            self.update_peak.append(torch.cuda.max_memory_allocated() / 1e9)
+            return out
 
         def make_train_step(cfg, tcfg, **kw):
             step = self.real[1](cfg, tcfg, **kw)
@@ -2762,6 +2784,7 @@ class training_config:
             def timed(params, opt, batch):
                 before = [c.launches for c in self.counters]
                 torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 out = step(params, opt, batch)
                 torch.cuda.synchronize()
@@ -2773,12 +2796,14 @@ class training_config:
             return timed
 
         TR.ST.make_train_step = make_train_step
+        TR.ST.adamw.apply_ = update
         TR.ckpt.save = lambda d, step, tree, **kw: self.saved.append(step)
         return self
 
     def __exit__(self, *exc):
         from repro_torch.launch import train as TR
-        TR.get_arch, TR.ST.make_train_step, TR.ckpt.save = self.real
+        (TR.get_arch, TR.ST.make_train_step, TR.ckpt.save,
+         TR.ST.adamw.apply_) = self.real
 
 
 class plain_versions:
@@ -2894,13 +2919,13 @@ def train_counted(cfg, run, what, counted, names, want, card, falling=True):
     launches of the ``counted`` kernels (``names``) must be ``want``, no
     plain attention may run, the losses must be finite (and fall, where
     ``falling``) and the last step checkpointed.  Prints the losses, step
-    times, tokens/s and peak memory; returns (the record, the losses, the
+    times, tokens/s and the steps' peak memory, up to the update and
+    within it; returns (the record, the losses, the
     launches in all by name)."""
     import torch
     from repro_torch.launch import train as TR
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     for c in counted:
         c.launches = 0
     with training_config(cfg, counted) as rec, \
@@ -2910,7 +2935,8 @@ def train_counted(cfg, run, what, counted, names, want, card, falling=True):
                           batch=run["batch"], seq=run["seq"],
                           log_every=run["steps"])
         wall = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    grad_gb, update_gb = max(rec.grad_peak), max(rec.update_peak)
+    peak_gb = max(grad_gb, update_gb)
     for i, n in enumerate(rec.launches):
         if dict(zip(names, n)) != want:
             raise AssertionError(f"train {what} step {i + 1}: launches "
@@ -2926,13 +2952,16 @@ def train_counted(cfg, run, what, counted, names, want, card, falling=True):
     B, S = run["batch"], run["seq"]
     med = statistics.median(rec.step_ms[2:])
     print(f"train {what} through launch.train.train(smoke=False) ("
-          f"{describe(cfg)}; AdamW with fp32 moments, no "
-          f"gradient compression, warm-up 2 of {run['steps']} steps): "
+          f"{describe(cfg)}; remat {cfg.remat}, AdamW with fp32 moments "
+          f"updated in place, no gradient compression, warm-up 2 of "
+          f"{run['steps']} steps): "
           f"batch {B} x seq {S}: losses {[round(l, 4) for l in losses]}; "
           f"step ms {[round(t, 3) for t in rec.step_ms]}; median of "
           f"steps 3-{run['steps']} {med:.3f} ms, "
           f"{B * S / med * 1e3:.1f} tokens/s; peak memory "
-          f"{peak_gb:.2f} GB; {wall:.1f} s in train(); launches a step "
+          f"{peak_gb:.2f} GB (the steps' forward and backward "
+          f"{grad_gb:.2f}, their in-place AdamW update {update_gb:.2f}); "
+          f"{wall:.1f} s in train(); launches a step "
           + ", ".join(f"{k} {v}" for k, v in want.items() if v)
           + f", no other kernel, no plain attention; card {card}")
     return rec, losses, total
@@ -2944,10 +2973,11 @@ def drive_train_hybrid(dev, counters, time_ms, call_ms, max_err, randn,
     versions; RecurrentGemma-2B (one period) and qwen3-8b (2 layers) at
     full width, their fp32 loss and gradients with K5/K5b/K7/K7b and with
     the plain versions; ``launch.train.train`` of RecurrentGemma-2B at full
-    width over 12 of 26 layers (10 bf16 steps, K7 8, K7b 8, K5 4, K5b 4
-    launches a step and no other kernel, profiled) and of qwen3-8b over 4
-    of 36 (5 steps, K5 4 and K5b 4 a step); K1 refusing to cut an autograd
-    graph.  ``counters`` are main's launch counters (K1, K2, K5, K6, K8,
+    width and depth (26 layers, 10 bf16 steps under remat, K7 36, K7b 18,
+    K5 16, K5b 8 launches a step: the forwards twice, with their recompute,
+    and no other kernel, profiled) and of qwen3-8b over 4 of 36 (5 steps,
+    K5 8 and K5b 4 a step); K1 refusing to cut an autograd graph.
+    ``counters`` are main's launch counters (K1, K2, K5, K6, K8,
     K7).  Returns (K5b's and K7b's entries of the kernels line, K5's and
     K7's launches on this phase's training paths)."""
     import dataclasses
@@ -2985,14 +3015,15 @@ def drive_train_hybrid(dev, counters, time_ms, call_ms, max_err, randn,
                                 dtype="float32")
     batch = TokenStream(gemma, GEMMA_GRAD["batch"], GEMMA_GRAD["seq"], 0,
                         device=dev).batch_at(0)
-    grad_check(cfg32, batch, dev, four, [1, 1, 2, 2],
+    r = 2 if cfg32.remat else 1       # K5's and K7's recompute under remat
+    grad_check(cfg32, batch, dev, four, [r, 1, 2 * r, 2],
                f"{GEMMA} (one period)", card)
     torch.cuda.empty_cache()
     qwen = qwen_config("qwen3-8b")
     cfg32 = as_fp32(qwen_config("qwen3-8b", QWEN_GRAD["layers"]))
     batch = TokenStream(qwen, QWEN_GRAD["batch"], QWEN_GRAD["seq"], 0,
                         device=dev).batch_at(0)
-    grad_check(cfg32, batch, dev, four, [2, 2, 0, 0], "qwen3-8b", card)
+    grad_check(cfg32, batch, dev, four, [2 * r, 2, 0, 0], "qwen3-8b", card)
     del batch
     torch.cuda.empty_cache()
     lap("12(a)-(c), with the fp32 gradients")
@@ -3008,28 +3039,27 @@ def drive_train_hybrid(dev, counters, time_ms, call_ms, max_err, randn,
     def counted_train(cfg, run, what, falling=True):
         kinds = [cfg.block_pattern[j % len(cfg.block_pattern)]
                  for j in range(cfg.num_layers)]
+        r = 2 if cfg.remat else 1     # the forward and its recompute
         want = dict.fromkeys(names, 0)
-        want.update(K5=kinds.count("attn"), K5b=kinds.count("attn"),
-                    K7=kinds.count("rglru"), K7b=kinds.count("rglru"))
+        want.update(K5=r * kinds.count("attn"), K5b=kinds.count("attn"),
+                    K7=r * kinds.count("rglru"), K7b=kinds.count("rglru"))
         rec, losses, total = train_counted(cfg, run, what, counted, names,
                                            want, card, falling)
         for k in path_launches:
             path_launches[k] += total[k]
         return rec, losses
 
-    gcfg = dataclasses.replace(gemma, num_layers=GEMMA_TRAIN["layers"])
-    print(f"{GEMMA} cut to {GEMMA_TRAIN['layers']} of 26 layers for training "
-          f"({GEMMA_TRAIN['layers'] // 3} (R, R, A) periods; "
-          f"{T.count_params(gcfg)} parameters, about "
-          f"{26 * T.count_params(gcfg) / 1e9:.1f} GB at the optimizer's peak "
-          f"at 26 bytes a parameter, where all 26 layers need "
-          f"{26 * T.count_params(gemma) / 1e9:.1f} GB)")
-    rec, _ = counted_train(gcfg, GEMMA_TRAIN,
-                           f"{GEMMA} ({GEMMA_TRAIN['layers']} layers)")
+    print(f"{GEMMA} trained at full width and depth ({gemma.num_layers} "
+          f"layers, {T.count_params(gemma)} parameters: "
+          f"{TRAIN_BYTES * T.count_params(gemma) / 1e9:.1f} GB of "
+          f"parameters, gradients and moments at {TRAIN_BYTES} bytes a "
+          f"parameter, updated in place, before activations; remat "
+          f"{gemma.remat})")
+    what = f"{GEMMA} ({gemma.num_layers} layers)"
+    rec, _ = counted_train(gemma, GEMMA_TRAIN, what)
     step, params, opt, batch = rec.last
     B, S = GEMMA_TRAIN["batch"], GEMMA_TRAIN["seq"]
-    profile_run(f"train step {GEMMA} {GEMMA_TRAIN['layers']} layers (B={B}, "
-                f"S={S}",
+    profile_run(f"train step {what} (B={B}, S={S}",
                 lambda: step(params, opt, batch)[2]["loss"].item(), 1,
                 {"K5b": ("flash_bwd",), "K5": ("flash_bf16_kernel",),
                  "K7b": ("rglru_bwd",), "K7": ("rglru_chunked_kernel",)},
@@ -3041,8 +3071,9 @@ def drive_train_hybrid(dev, counters, time_ms, call_ms, max_err, randn,
     qcfg = qwen_config("qwen3-8b", QWEN_TRAIN["layers"])
     print(f"qwen3-8b cut to {QWEN_TRAIN['layers']} of 36 layers for training "
           f"({T.count_params(qcfg)} parameters, about "
-          f"{26 * T.count_params(qcfg) / 1e9:.1f} GB at the optimizer's peak; "
-          f"all 36 layers need {26 * T.count_params(qwen) / 1e9:.1f} GB)")
+          f"{TRAIN_BYTES * T.count_params(qcfg) / 1e9:.1f} GB at "
+          f"{TRAIN_BYTES} bytes a parameter; all 36 layers need "
+          f"{TRAIN_BYTES * T.count_params(qwen) / 1e9:.1f} GB)")
     what = f"qwen3-8b ({QWEN_TRAIN['layers']} layers)"
     rec, losses = counted_train(qcfg, QWEN_TRAIN, what, falling=False)
     step, params, opt, batch = rec.last
@@ -3154,16 +3185,15 @@ def drive_train_vlm(dev, counters, time_ms, call_ms, max_err, randn, card):
     each model at full width over VLM_GRAD's layers with K5/K5b and with
     their plain versions (``grad_check``); (c) each trained in bf16 at full
     width through ``launch.train.train`` (``train_counted``), batch 4, 5
-    steps: minicpm3-4b over MLA_TRAIN_LAYERS of its 62 layers, ViT-632M and
-    Whisper-medium whole, K5 and K5b launched once an attention a step (32,
-    32 and 72), each of K5B_VLM's shapes counted on its own
+    steps under remat: minicpm3-4b, ViT-632M and Whisper-medium whole, K5
+    launched twice an attention a step (its forward and recompute: 124, 64
+    and 144) and K5b once (62, 32 and 72), each of K5B_VLM's shapes
+    counted on its own
     (``k5b_shapes``), no other kernel and no plain attention, each
     profiled, and its first two steps again with K5/K5b's plain versions.
     ``counters`` are main's launch counters (K1, K2, K5, K6, K8, K7).
     Returns (K5b's rows at K5B_VLM's shapes with their counted launches,
     K5's and K5b's launches on this phase's training paths)."""
-    import dataclasses
-
     import torch
 
     from repro_torch.data.pipeline import TokenStream
@@ -3211,7 +3241,8 @@ def drive_train_vlm(dev, counters, time_ms, call_ms, max_err, randn, card):
         batch = TokenStream(cfg32, 2, run["seq"], 0,
                             device=dev).batch_at(0)
         n = k5_per_prefill(cfg32)
-        grad_check(cfg32, batch, dev, four, [n, n, 0, 0],
+        r = 2 if cfg32.remat else 1   # K5's recompute under remat
+        grad_check(cfg32, batch, dev, four, [r * n, n, 0, 0],
                    f"{name} ({', '.join(f'{k} {v}' for k, v in cut.items())})",
                    card)
         del batch
@@ -3229,16 +3260,15 @@ def drive_train_vlm(dev, counters, time_ms, call_ms, max_err, randn, card):
     kernels = {"K5b": ("flash_bwd",), "K5": ("flash_bf16_kernel",)}
     for name, run in VLM_TRAIN.items():
         cfg = full[name]
-        if name == "minicpm3-4b":
-            cfg = dataclasses.replace(cfg, num_layers=MLA_TRAIN_LAYERS)
-            print(f"{name} cut to {MLA_TRAIN_LAYERS} of 62 layers for "
-                  f"training ({T.count_params(cfg)} parameters, about "
-                  f"{26 * T.count_params(cfg) / 1e9:.1f} GB at the "
-                  f"optimizer's peak at 26 bytes a parameter; all 62 need "
-                  f"{26 * T.count_params(full[name]) / 1e9:.1f} GB)")
+        print(f"{name} trained at full width and depth ({cfg.num_layers} "
+              f"layers, {T.count_params(cfg)} parameters: "
+              f"{TRAIN_BYTES * T.count_params(cfg) / 1e9:.1f} GB of "
+              f"parameters, gradients and moments at {TRAIN_BYTES} bytes a "
+              f"parameter, updated in place, before activations; remat "
+              f"{cfg.remat})")
         n = k5_per_prefill(cfg)
         want = dict.fromkeys(names, 0)
-        want.update(K5=n, K5b=n)
+        want.update(K5=(2 if cfg.remat else 1) * n, K5b=n)
         for shape_name, (_, _, model) in K5B_VLM.items():
             if model == name:
                 want[f"K5b@{shape_name}"] = (
@@ -4868,7 +4898,8 @@ def finish_dryruns(procs, out_dir, card):
               f"{t['collective_s']:.4f} s dominant {t['dominant']} useful "
               f"ratio {t['useful_ratio']:.3f} roofline fraction "
               f"{t['roofline_fraction']:.4f}; argument_bytes "
-              f"{m['argument_bytes']} peak_bytes {m['peak_bytes']}; wall "
+              f"{m['argument_bytes']} alias_bytes {m['alias_bytes']} "
+              f"peak_bytes {m['peak_bytes']}; wall "
               f"{rec['wall_s']:.1f} s")
     if sorted(p.name for p in _build.BUILD_DIR.glob("*.so")) != built:
         raise AssertionError("phase 18(b): the build directory changed")
@@ -5372,7 +5403,7 @@ def main() -> int:
     mark("10, Mamba-2 training")
     train_entries = drive_train(dev, counters + (lindley_scan, ssd_scan,
                                                  rglru_scan),
-                                time_ms, call_ms, max_err)
+                                time_ms, call_ms, max_err, card)
     torch.cuda.empty_cache()
     mark("11, the Qwen decoders")
     k5_qwen = drive_qwen(dev, counters + (lindley_scan, ssd_scan, rglru_scan),

@@ -179,6 +179,8 @@ def restore(ckpt_dir: str, template: Pytree, *, step: Optional[int] = None,
         expect = tuple(getattr(tmpl, "shape", arr.shape))
         if tuple(arr.shape) != expect:
             raise ValueError(f"leaf {i}: shape {arr.shape}, want {expect}")
+        if not arr.flags.writeable and dev.type == "cpu":
+            arr = np.array(arr)     # the train step writes a leaf in place
         if info["dtype"] == "bfloat16":
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:

@@ -11,7 +11,8 @@ For each cell this driver:
      storage): every parameter under ``transformer.param_block_specs``,
      the AdamW moments alike, the batch and cache under
      ``steps.shardings_for``'s batch specs;
-  3. runs the real step of ``steps.make_train_step``,
+  3. runs the real step of ``steps.make_train_step`` (whose AdamW
+     update writes the parameters and moments in place, JAX's donation),
      ``make_prefill_step`` or ``make_decode_step`` on them once, eagerly,
      and counts as it goes: FLOPs with ``torch.utils.flop_counter``
      (each hand-written kernel through its shape-only form at its
@@ -151,7 +152,9 @@ def tree_nbytes(tree) -> int:
 def alias_nbytes(out, args) -> int:
     """The bytes of ``out``'s tensors that share storage with a tensor of
     ``args``: a decode step hands back the cache it was given, updated in
-    place.  Storage identity holds on meta and fake tensors too."""
+    place, and a train step the parameters and the AdamW state (the JAX
+    package's train step donates both, ``donate_argnums=(0, 1)``).
+    Storage identity holds on meta and fake tensors too."""
     from torch.multiprocessing.reductions import StorageWeakRef
     held = {StorageWeakRef(t.untyped_storage()) for t in tree_leaves(args)
             if isinstance(t, torch.Tensor)}

@@ -17,7 +17,8 @@ attention's through K5b and the RG-LRU's through K7b, the
 expert-parallel MoE's through ``distributed.collectives``), accumulates
 microbatches in a Python loop where the JAX package scans, applies the
 int8 wire transform of ``distributed.compression`` (K3 and K4 on the
-card) when ``tcfg.grad_compression == "int8"``, then AdamW.
+card) when ``tcfg.grad_compression == "int8"``, then AdamW, in place
+(``adamw.apply_``).
 
 Over a mesh the step computes the function JAX's jitted step computes on
 the global batch: each rank scales its loss by 1 / (the mesh's ranks).
@@ -189,7 +190,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
     parameters and of the AdamW state (``transformer.place_params`` under
     the same ``rules``) and of a batch split over ``batch_axes``, and gets
     its blocks of the updated tree; the metrics are the whole tree's,
-    equal on every rank."""
+    equal on every rank.  The update is ``adamw.apply_``, in place, the
+    JAX train step's donation: the step returns the parameter and state
+    objects it was given, updated, and a caller that wants the old values
+    hands it a copy."""
     grad_fn = make_grad_fn(cfg, tcfg, mesh=mesh, batch_axes=batch_axes,
                            rules=rules)
     reduce_sq = norm_reduction(cfg, mesh, rules)
@@ -197,7 +201,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
 
     def train_step(params, opt_state, batch):
         loss, grads = grad_fn(params, batch)
-        params, opt_state, metrics = adamw.apply(
+        params, opt_state, metrics = adamw.apply_(
             params, grads, opt_state, sched=sched, b1=tcfg.b1, b2=tcfg.b2,
             weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip,
             reduce_sq=reduce_sq)

@@ -4,8 +4,12 @@ The port of the JAX package's ``launch/train.py``, on one card or over a
 mesh of ranks (``mesh=``: every rank calls ``train``): init from a seed,
 deterministic resumable data (``TokenStream``), AdamW train steps,
 periodic atomic checkpoints, crash-restart resume (``--resume``) and step
-timing logs.  Over a mesh each rank takes its block of the stream's global
-batch and places its block of every parameter under ``rules``
+timing logs.  Each step updates the parameters and the AdamW moments in
+place (``adamw.apply_``: the JAX launcher's step donates both), under
+``cfg.remat`` with each layer group, ``rem`` layer and encoder block
+recomputed in the backward.  Over a mesh each rank takes its block of
+the stream's global batch and places its block of every parameter under
+``rules``
 (``TRAIN_RULES`` where None, or ``TP_RULES``) from the seed's generator
 (``transformer.place_params``, which draws as ``init_params`` does); its
 AdamW moments take the same blocks.  The step reshards each layer as it

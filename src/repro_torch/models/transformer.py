@@ -31,10 +31,13 @@ taken with a ``model`` axis larger than 1; else the gather path).  The
 leaves outside the blocks (the embedding, the head, the patch projection,
 the positions, the encoder's) are resharded where they are used.  Under
 ``cfg.remat`` (the JAX package's ``jax.checkpoint`` of each group and
-``rem`` layer) a mesh runs each layer, its reshard included, under
-``torch.utils.checkpoint``, so the backward gathers it again and a rank
-keeps at most one layer's gathered weights; on one card, where no leaf
-moves, ``remat`` still has no counterpart.
+``rem`` layer, and of each encoder block) each of them runs under
+``torch.utils.checkpoint`` when a gradient is taken, on one card and over
+a mesh alike: the backward keeps only each one's input and runs its
+forward again, on a mesh its reshard included, so a rank keeps at most
+one layer's gathered weights.  The head and the patch projection run
+under it only on a mesh, where it drops a gathered leaf (the JAX package
+checkpoints neither).
 Whisper's ``audio_frames`` and the ``vision_patches`` frontends are stubs
 in both packages: the caller hands ``forward`` the frame or patch
 embeddings.  ``softmax_xent`` is the training loss.  ``forward``
@@ -351,11 +354,9 @@ def place_params(cfg: ModelConfig, source, mesh, *, rules=None,
 class Placement:
     """A mesh's two layouts of the parameters (``param_defs``' structure,
     a ``sharding.LeafSpecs`` a leaf): the block each rank stores and the
-    block a layer computes with; ``remat``: a layer runs under
-    ``torch.utils.checkpoint`` when a gradient is taken."""
+    block a layer computes with."""
     mesh: Any
     specs: Pytree
-    remat: bool
 
     def compute(self, tree: Pytree, *path) -> Pytree:
         """``tree``, the stored blocks of the subtree at ``path`` of the
@@ -389,7 +390,7 @@ def placement(cfg: ModelConfig, shard) -> Optional[Placement]:
     if not any(coll.moves(len(pd.shape), ls.storage, ls.compute, shard.mesh)
                for pd, ls in zip(tree_leaves(defs), tree_leaves(specs))):
         return None
-    return Placement(shard.mesh, specs, cfg.remat)
+    return Placement(shard.mesh, specs)
 
 
 def computed(tree: Pytree, place: Optional[Placement], *path) -> Pytree:
@@ -400,11 +401,13 @@ def computed(tree: Pytree, place: Optional[Placement], *path) -> Pytree:
     return tree if place is None else place.compute(tree, *path)
 
 
-def _remat(place: Optional[Placement], fn: Callable, *args):
-    """``fn(*args)``; under ``torch.utils.checkpoint`` where ``place``
-    remats and a gradient is taken, so that what ``fn`` gathers is not
-    kept for the backward but gathered again."""
-    if place is not None and place.remat and torch.is_grad_enabled():
+def _remat(on: bool, fn: Callable, *args):
+    """``fn(*args)``; under ``torch.utils.checkpoint`` where ``on`` and a
+    gradient is taken (grad mode on, an input that needs one), so that
+    the backward keeps only ``args`` and runs ``fn`` again (the JAX
+    package's ``jax.checkpoint``), what ``fn`` gathers included."""
+    if on and torch.is_grad_enabled() and any(
+            t.requires_grad for t in tree_leaves(args)):
         from torch.utils.checkpoint import checkpoint
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
@@ -665,7 +668,7 @@ def num_groups(blocks: Pytree) -> int:
 def run_decoder_blocks(cfg: ModelConfig, params, x, ctx: Ctx):
     """Every layer in order; on a mesh each block's stored blocks
     resharded as it runs (``computed``), each group and ``rem`` layer
-    under remat where it applies (the JAX package's ``jax.checkpoint``
+    under remat where ``cfg.remat`` (the JAX package's ``jax.checkpoint``
     of ``group_fn`` and ``rem_fn``)."""
     pattern = cfg.block_pattern
     place = ctx.place
@@ -679,10 +682,10 @@ def run_decoder_blocks(cfg: ModelConfig, params, x, ctx: Ctx):
 
     blocks = params["blocks"]
     for g in range(num_groups(blocks)):
-        x = _remat(place, group, group_params(blocks, g), x)
+        x = _remat(cfg.remat, group, group_params(blocks, g), x)
     for j, lp in enumerate(params["rem"]):
         kind = pattern[j % len(pattern)]
-        x = _remat(place, lambda p, x, kind=kind, j=j: apply_block(
+        x = _remat(cfg.remat, lambda p, x, kind=kind, j=j: apply_block(
             cfg, kind, computed(p, place, "rem", j), x, ctx), lp, x)
     return x
 
@@ -690,13 +693,22 @@ def run_decoder_blocks(cfg: ModelConfig, params, x, ctx: Ctx):
 def encode(cfg: ModelConfig, params, frames, shard=None):
     """Whisper-style bidirectional encoder over precomputed frame
     embeddings (B, S_enc, D): each block non-causal attention (K5 on the
-    card) and the FFN, then the final norm; on a mesh each block resharded
-    as it runs, under remat where it applies."""
+    card) and the FFN (``run_encoder_blocks``), then the final norm."""
     enc = params["encoder"]
     place = placement(cfg, shard)
     ctx = Ctx(cfg=cfg, shard=shard, place=place)
     pos = computed(enc["pos_embed"], place, "encoder", "pos_embed")
     x = frames + pos[None, : frames.shape[1]].to(frames.dtype)
+    x = run_encoder_blocks(cfg, enc["blocks"], x, ctx)
+    return L.rms_norm(x, computed(enc["final_norm"], place, "encoder",
+                                  "final_norm"), cfg.norm_eps)
+
+
+def run_encoder_blocks(cfg: ModelConfig, blocks, x, ctx: Ctx):
+    """Every encoder block in order (the stacked ``blocks``), each on a
+    mesh resharded as it runs and under remat where ``cfg.remat`` (the
+    JAX package's ``jax.checkpoint`` of ``block``)."""
+    place = ctx.place
     Dh = cfg.resolved_head_dim
 
     def block(bp, x):
@@ -711,11 +723,9 @@ def encode(cfg: ModelConfig, params, frames, shard=None):
         x = x + _proj(o, bp["attn"]["wo"])
         return ffn_forward(cfg, bp["ffn"], x, ctx)
 
-    blocks = enc["blocks"]
     for g in range(num_groups(blocks)):
-        x = _remat(place, block, group_params(blocks, g), x)
-    return L.rms_norm(x, computed(enc["final_norm"], place, "encoder",
-                                  "final_norm"), cfg.norm_eps)
+        x = _remat(cfg.remat, block, group_params(blocks, g), x)
+    return x
 
 
 class _TokenRows(torch.autograd.Function):
@@ -764,8 +774,8 @@ def embed_tokens(cfg: ModelConfig, params, tokens, place=None):
 
 def unembed(cfg: ModelConfig, params, x, place=None):
     """The final norm and the head (the embedding's transpose where tied);
-    on a mesh (``place``) the head gathered, under remat where it
-    applies."""
+    on a mesh (``place``) the head gathered, under remat where
+    ``cfg.remat``."""
     key = "embed" if cfg.tie_embeddings else "lm_head"
 
     def run(head, norm, x):
@@ -780,7 +790,8 @@ def unembed(cfg: ModelConfig, params, x, place=None):
             logits = logits + pad_mask[None, None, :]
         return logits
 
-    return _remat(place, run, params[key], params["final_norm"], x)
+    return _remat(cfg.remat and place is not None, run, params[key],
+                  params["final_norm"], x)
 
 
 def default_positions(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
@@ -807,8 +818,8 @@ def rope_ctx(cfg: ModelConfig, positions) -> Ctx:
 def splice_frontend(cfg: ModelConfig, params, x, frontend_embeds,
                     place=None):
     """Early fusion: the patch embeddings (B, F, D), projected by
-    ``patch_proj`` (on a mesh, ``place``, gathered, under remat where it
-    applies), replace the first F of x's S positions, where the config
+    ``patch_proj`` (on a mesh, ``place``, gathered, under remat where
+    ``cfg.remat``), replace the first F of x's S positions, where the config
     has the ``vision_patches`` frontend and the caller gives them.  F > S
     is refused (the JAX package's concatenation would return F positions
     where S were asked)."""
@@ -818,8 +829,10 @@ def splice_frontend(cfg: ModelConfig, params, x, frontend_embeds,
     if F_ > S:
         raise ValueError(f"{cfg.name}: {F_} frontend positions, past the "
                          f"{S}-token prompt they would replace")
-    pe = _remat(place, lambda w, fe: _proj(fe.to(x.dtype), computed(
-        w, place, "patch_proj")), params["patch_proj"], frontend_embeds)
+    pe = _remat(cfg.remat and place is not None,
+                lambda w, fe: _proj(fe.to(x.dtype), computed(
+                    w, place, "patch_proj")),
+                params["patch_proj"], frontend_embeds)
     return torch.cat([pe, x[:, F_:]], dim=1)
 
 

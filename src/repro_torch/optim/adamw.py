@@ -1,16 +1,20 @@
-"""Functional AdamW + cosine schedule + gradient clipping.
+"""AdamW + cosine schedule + gradient clipping.
 
 The port of the JAX package's ``optim/adamw.py``, with the same formulas
 and defaults: the state is shaped like the params (mu/nu fp32) plus an
 int32 step, the schedule and the bias corrections (``b1 ** t`` included)
 are fp32 tensors on the parameters' device, so a step never waits on the
-host.  Nothing is updated in place: ``apply`` returns new trees, as the
-JAX version does.  Gradient accumulation and the optional int8 compression
-live in ``launch.steps.make_train_step``.  Over a mesh a rank may hold one
-block of a leaf: the global norm then sums each split leaf's squares over
-the ranks of its blocks (the ``reduce_sq`` that ``launch.steps`` gives
-``apply``), so the clip and the reported norm are the whole tree's; the
-update of a block stays local.
+host.  ``apply`` returns new trees, as the JAX version's function does;
+``apply_``, which the train step calls, is the counterpart of the JAX
+train step's donation (``donate_argnums=(0, 1)``): it writes the same
+numbers into the parameters' and the moments' own storage, leaf by leaf,
+so a step holds no second tree of either.  Gradient accumulation and the
+optional int8 compression live in ``launch.steps.make_train_step``.
+Over a mesh a rank may hold one block of a leaf: the global norm then
+sums each split leaf's squares over the ranks of its blocks (the
+``reduce_sq`` that ``launch.steps`` gives ``apply_``), so the clip and
+the reported norm are the whole tree's; the update of a block stays
+local.
 """
 from __future__ import annotations
 
@@ -110,3 +114,39 @@ def apply(params: Pytree, grads: Pytree, state: AdamWState, *,
     return (tree_unflatten(params, new_p),
             AdamWState(step, tree_unflatten(params, new_m),
                        tree_unflatten(params, new_v)), metrics)
+
+
+def apply_(params: Pytree, grads: Pytree, state: AdamWState, *,
+           sched: Callable[[torch.Tensor], torch.Tensor], b1=0.9, b2=0.95,
+           eps=1e-8, weight_decay=0.1, grad_clip=1.0,
+           reduce_sq: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+           ) -> Tuple[Pytree, AdamWState, dict]:
+    """``apply`` in place: each parameter leaf, its two moments and the
+    step are written in their own storage, with ``apply``'s formulas,
+    dtypes and order of operations, so the same bytes.  The clip's scale
+    stays a device tensor and is folded into each leaf's fp32 gradient
+    (no clipped copy of the tree); each leaf's old value is read for the
+    weight decay before it is written; two fp32 temporaries of one leaf
+    live at a time.  Returns ``params`` and ``state``, updated, and the
+    metrics."""
+    gnorm = global_norm(grads, reduce_sq)
+    scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
+    lr = sched(state.step)
+    t = (state.step + 1).float()
+    bc1 = 1.0 - torch.pow(b1, t)
+    bc2 = 1.0 - torch.pow(b2, t)
+    with torch.no_grad():
+        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                              tree_leaves(state.mu), tree_leaves(state.nu)):
+            a, b = torch.empty_like(m), torch.empty_like(m)
+            a.copy_(g).mul_(scale)                      # the clipped g
+            m.mul_(b1).add_(torch.mul(a, 1 - b1, out=b))
+            v.mul_(b2).add_(torch.square(a, out=b).mul_(1 - b2))
+            torch.div(m, bc1, out=a)                    # mh
+            torch.div(v, bc2, out=b).sqrt_().add_(eps)
+            a.div_(b)
+            a.add_(b.copy_(p).mul_(weight_decay))       # delta, old p
+            p.copy_(b.copy_(p).sub_(a.mul_(lr)))
+            del a, b            # freed before the next leaf's are made
+        state.step.add_(1)
+    return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -91,12 +91,17 @@ _TORCH = textwrap.dedent("""
         rec = DR.run_cell(arch, shape, "x".join(map(str, mesh)), out, rules,
                           force=True, overrides=ov, mesh_shape=tuple(mesh))
         shp = DR.SHAPES_BY_NAME[shape]
-        if rec["status"] == "ok" and shp.kind == "decode":
-            # the cache block a rank is given, counted apart
+        if rec["status"] == "ok" and shp.kind in ("decode", "train"):
+            # the blocks a rank is given that the step hands back (the
+            # cache; the parameters and the AdamW state), counted apart
             cfg = dataclasses.replace(DR.get_arch(arch), **ov)
             blocks = DR.cell_blocks(cfg, shp, DR.fake_mesh(
                 tuple(mesh), ("data", "model")), DR.RULES[rules])
-            rec["cache_bytes"] = DR.tree_nbytes(blocks["cache"])
+            if shp.kind == "decode":
+                rec["cache_bytes"] = DR.tree_nbytes(blocks["cache"])
+            else:
+                rec["param_bytes"] = DR.tree_nbytes(blocks["params"])
+                rec["opt_bytes"] = DR.tree_nbytes(blocks["opt"])
         recs.append(rec)
     Path(sys.argv[1]).write_text(json.dumps(recs))
 """)
@@ -284,8 +289,18 @@ def test_every_arch_trains_in_the_dry_run(runs, arch):
     assert rec["status"] == "ok", rec.get("traceback", rec)
     real = rec["raw"]["real"]
     assert real["flops"] > 0 and real["bytes"] > 0
-    assert rec["memory"]["peak_bytes"] >= (rec["memory"]["argument_bytes"]
-                                           + rec["memory"]["output_bytes"])
+    # the step updates the parameters and the AdamW state in place and
+    # hands them back: the JAX package's donated train step
+    # (src/repro/launch/dryrun.py:64, donate_argnums=(0, 1)), whose
+    # outputs alias those arguments; JAX's peak = argument + temp + output
+    # - alias, with no negative term
+    m = rec["memory"]
+    assert m["alias_bytes"] == rec["param_bytes"] + rec["opt_bytes"] > 0
+    assert m["temp_bytes"] >= 0
+    assert m["peak_bytes"] == (m["argument_bytes"] + m["temp_bytes"]
+                               + m["output_bytes"] - m["alias_bytes"])
+    assert m["peak_bytes"] >= (m["argument_bytes"] + m["output_bytes"]
+                               - m["alias_bytes"])
     # over a (2, 4) mesh the step gathers and reduces over its ranks
     assert real["coll_bytes"] > 0 and "all-reduce" in real["coll_detail"]
 

@@ -217,7 +217,10 @@ def test_train_steps_match_jax(model, compression, microbatches):
     with mesh:
         jstep = jax.jit(JST.make_train_step(jcfg, mesh, JTrainConfig(**kw)))
         jp, jo = jparams, jadamw.init(jparams)
-        p, o = params, adamw.init(params)
+        # the step updates in place (JAX's donation): a copy of the
+        # module's tree, which the other cases start from
+        p = T.tree_map(torch.clone, params)
+        o = adamw.init(p)
         for step in range(3):
             batch, jbatch = _batch(cfg, jcfg, seed=1, step=step, batch=4)
             p, o, m = step_fn(p, o, batch)
@@ -267,7 +270,8 @@ def test_microbatches_match_one_batch(model):
     for n in (1, 2):
         fn = ST.make_train_step(cfg, TrainConfig(microbatches=n,
                                                  warmup_steps=1))
-        out[n] = fn(params, adamw.init(params), batch)
+        p = T.tree_map(torch.clone, params)     # updated in place
+        out[n] = fn(p, adamw.init(p), batch)
     (p1, _, m1), (p2, _, m2) = out[1], out[2]
     np.testing.assert_allclose(m2["loss"].item(), m1["loss"].item(),
                                rtol=1e-6)

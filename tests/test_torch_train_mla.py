@@ -142,7 +142,10 @@ def test_train_steps_match_jax(model):
     with mesh:
         jstep = jax.jit(JST.make_train_step(jcfg, mesh, JTrainConfig(**kw)))
         jp, jo = jparams, jadamw.init(jparams)
-        p, o = params, adamw.init(params)
+        # the step updates in place (JAX's donation): a copy of the
+        # module's tree, which the other tests read
+        p = T.tree_map(torch.clone, params)
+        o = adamw.init(p)
         for step in range(3):
             batch, jbatch = _batch(cfg, jcfg, seed=1, step=step, batch=4)
             p, o, m = step_fn(p, o, batch)

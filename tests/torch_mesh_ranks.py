@@ -355,7 +355,10 @@ def _train_case(cfg, mesh, whole, comp, mb, key, res, first, rules=None,
     from repro_torch.tree import tree_leaves
     rules = SH.resolve_rules(rules)
     baxes = SH.batch_axes(TRAIN_B, rules, mesh)
-    params = T.place_params(cfg, whole, mesh, rules=rules, device="cpu")
+    # a copy: an unsplit leaf would be ``whole``'s own tensor, which the
+    # step updates in place (JAX's donation) and the next case reads
+    params = T.place_params(cfg, T.tree_map(torch.clone, whole), mesh,
+                            rules=rules, device="cpu")
     step = ST.make_train_step(cfg, TrainConfig(
         grad_compression=comp, microbatches=mb, **TRAIN_KW), mesh=mesh,
         batch_axes=baxes, rules=rules)
