@@ -223,6 +223,12 @@ QWEN_CHECK_LAYERS = 4
 MOE_CHECK_LAYERS = 2
 K5_QWEN = [(4, 32, 8, 1024, 1024, 128), (4, 20, 20, 1024, 1024, 128),
            (4, 64, 4, 1024, 1024, 128)]
+# K5 at the shapes of a rank along ``model`` under TP's compute split
+# (phase 16's forwards): qwen3-8b's 32 heads and 8 kv heads over 4 ranks,
+# qwen3-moe's 64 and 4 over 4 and over 2, each at a batch of 4 (a (2, 2)
+# rank's data block is 2 prompts: the same heads at half the work).
+K5_TP = [(4, 8, 2, 1024, 1024, 128), (4, 16, 1, 1024, 1024, 128),
+         (4, 32, 2, 1024, 1024, 128)]
 QWEN_FULL = {   # (layers, d_model, heads, KV, head dim, (expert) d_ff,
                 #  experts, top-k, qk-norm, QKV bias, vocab, parameters)
     "qwen3-8b": (36, 4096, 32, 8, 128, 12288, 0, 0, True, False, 151936,
@@ -2018,7 +2024,7 @@ def drive_qwen(dev, counters, time_ms, call_ms, max_err, randn, card):
 
     # ---- 11(a): K5 at the Qwen serving shapes ----------------------------
     rows = {}
-    for shape in K5_QWEN:
+    for shape in K5_QWEN + K5_TP:
         for dtype in (torch.float32, torch.bfloat16):
             rows[(shape, dtype)] = check_k5_case(
                 shape, True, 0, dtype, randn, time_ms, call_ms, max_err, card)
@@ -2109,6 +2115,13 @@ def drive_qwen(dev, counters, time_ms, call_ms, max_err, randn, card):
     fp32_prefill_check(as_fp32(qwen_config(cfg.name, MOE_CHECK_LAYERS),
                             moe_capacity_factor=16.0), dev, QWEN_CHECK, card)
     torch.cuda.empty_cache()
+    # K5 at the TP ranks' shapes: launched in phase 16, whose count main
+    # adds to these rows
+    entries["tp_ranks"] = [
+        {"shape": list(shape), "dtype": "bfloat16", "causal": True,
+         "window": 0, **rows[(shape, torch.bfloat16)],
+         "float32": {k: v for k, v in rows[(shape, torch.float32)].items()
+                     if k != "library"}} for shape in K5_TP]
     return entries
 
 
@@ -3375,6 +3388,22 @@ MESH_SERVE = {"layers": 1, "batch": 4, "prompt": 1024, "gen": 16,
 # logits on an H100 (PERF.md).
 MESH_REL = {"float32": 1e-3, "bfloat16": 2e-2}
 MESH_TIMEOUT_S = 900
+# TP's compute split at full width: qwen3-8b (D 4096, 32 heads x 128 with
+# 8 kv heads, d_ff 12288, vocabulary 151,936 padded to 152,064) over 2 of
+# its 36 layers on (1, 4) under TP_RULES, weights from seed 0 as serve
+# draws them: a rank stores a quarter of every dense leaf (its heads,
+# channels and vocabulary block; the norms whole) and computes with it,
+# so a forward reshards nothing.  The forward over a batch of 4 x 1024
+# prompts in bf16 (K5 at (4, 8, KV 2, 1024, 128) a rank; its psums
+# counted), the fp32 forward's last-position logits against one card's
+# within TP_REL in relative Frobenius error (TF32 off; only the order of
+# the row-parallel sums differs), and serve's prefill and 8 greedy tokens
+# (decode keeps attention whole and gathers it a layer at a time) equal on
+# every rank to one card's.
+TP_MODEL = "qwen3-8b"
+TP_RUN = {"shape": (1, 4), "layers": 2, "batch": 4, "prompt": 1024,
+          "gen": 8}
+TP_REL = 1e-5
 
 
 def mesh_config(layers, dtype=None, **kw):
@@ -3439,9 +3468,10 @@ class collectives_counted:
             setattr(dist, name, fn)
 
 
-def rank_bytes(cfg, mesh, batch_axes, batch, seq, kind="train"):
+def rank_bytes(cfg, mesh, batch_axes, batch, seq, kind="train", rules=None):
     """The dry run's count of what a rank holds on ``mesh`` for a ``kind``
-    step of ``batch`` x ``seq`` tokens under ``TRAIN_RULES``
+    step of ``batch`` x ``seq`` tokens under ``rules`` (None:
+    ``TRAIN_RULES``)
     (``launch.dryrun.cell_blocks``): ``params``, the bytes of its blocks of
     every parameter; ``moment``, of one fp32 AdamW moment (the reduced
     gradient's blocks), for a train step; ``arguments``, of the step's
@@ -3454,7 +3484,8 @@ def rank_bytes(cfg, mesh, batch_axes, batch, seq, kind="train"):
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch import dryrun as DR
     from repro_torch.models import transformer as T
-    blocks = DR.cell_blocks(cfg, ShapeConfig("rank", kind, seq, batch), mesh)
+    blocks = DR.cell_blocks(cfg, ShapeConfig("rank", kind, seq, batch), mesh,
+                            rules)
     out = {"params": DR.tree_nbytes(blocks["params"]),
            "arguments": DR.tree_nbytes(blocks)}
     if kind == "train":
@@ -3472,12 +3503,12 @@ def tree_bytes(tree):
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
-def in_turns(place, dev, stats=None):
+def in_turns(place, dev, stats=None, keep=False):
     """``place`` (``transformer.place_params``) run by one rank after the
     other: ranks sharing a card draw their weights one at a time, each
     holding one whole fp32 leaf at a time, and hand back the cache before
     the next starts.  ``stats`` gets the bytes of the rank's tree and its
-    peak while placing."""
+    peak while placing, and with ``keep`` the tree (``"tree"``)."""
     import torch
     import torch.distributed as dist
 
@@ -3496,6 +3527,8 @@ def in_turns(place, dev, stats=None):
                     stats["place_peak_gb"] = (
                         torch.cuda.max_memory_allocated() / 1e9
                         if dev.type == "cuda" else 0.0)
+                    if keep:
+                        stats["tree"] = out
                 if dev.type == "cuda":
                     torch.cuda.empty_cache()
                     torch.cuda.reset_peak_memory_stats()
@@ -3504,17 +3537,72 @@ def in_turns(place, dev, stats=None):
     return run
 
 
-def serve_recorded(cfg, run, dev, mesh=None):
+class k5_shapes:
+    """Within the block, K5's launches outside autograd (``ops.attention``
+    calls ``ops.flash_attention``) counted by shape (B, H, KV, Sq, Skv,
+    D) in ``seen``."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        real = self.real = ops.flash_attention
+        self.seen = {}
+
+        def recording(q, k, v, *args, **kw):
+            key = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                   q.shape[3])
+            self.seen[key] = self.seen.get(key, 0) + 1
+            return real(q, k, v, *args, **kw)
+        ops.flash_attention = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.flash_attention = self.real
+
+
+def forward_recorded(cfg, params, tok, dev, shard=None):
+    """``transformer.forward`` of ``cfg`` over the prompts ``tok`` (over a
+    mesh, ``shard``, the rank's batch block and its blocks of the
+    weights), timed, with K5's launches by shape and the collectives
+    (calls, bytes, host ms; the reshards' all-gathers apart; counted
+    collectives synchronize the card), and the last position's logits
+    gathered whole over the vocabulary and the batch (fp32, host)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import transformer as T
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if shard is not None:
+        dist.barrier()
+    with torch.no_grad(), k5_shapes() as k5, collectives_counted(sync) as c:
+        sync()
+        c0, t0 = c.snap(), time.perf_counter()
+        logits = T.forward(cfg, params, tok, shard=shard)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        row = c.since(c0)
+        last = T.gather_vocab(cfg, logits[:, -1:], shard)[:, 0].float()
+    del logits
+    if shard is not None:
+        last = SV.gather_batch(last, shard.mesh, shard.batch_axes)
+    return {"ms": ms, "k5": dict(k5.seen), "logits": last.cpu(), **row}
+
+
+def serve_recorded(cfg, run, dev, mesh=None, rules=None, forward=False):
     """``launch.serve.serve`` of ``cfg`` (its registry name patched to
-    ``cfg``) on one card, or over ``mesh`` from a rank (its weights placed
-    ``in_turns``, each rank's bytes held to the sum of its spec blocks),
+    ``cfg``) on one card, or over ``mesh`` from a rank under ``rules``
+    (None: ``TRAIN_RULES``; its weights placed ``in_turns``, each rank's
+    bytes held to the sum of its spec blocks),
     after a warm-up serve of at most 256 tokens and 2 (over a mesh 1: a
     prefill alone; every call there is bound by the layers' all-gathers),
     with what the step functions saw: the prefill's last-position logits
     (the whole batch, fp32, on the host), K5's launches and the
     collectives (calls, bytes, host ms; the reshards' all-gathers apart)
     of the prefill and of each decode step, and the peak memory while
-    serving."""
+    serving; with ``forward``, then ``forward_recorded`` over the served
+    prompts with the served weights."""
     import torch
 
     from repro_torch.distributed import sharding as SH
@@ -3546,6 +3634,7 @@ def serve_recorded(cfg, run, dev, mesh=None):
         return made
 
     stats = {}
+    rules = SH.resolve_rules(rules)
     steps.make_prefill_step = recorded(real_p, "prefill")
     steps.make_decode_step = recorded(real_d, "decode")
     if mesh is not None:
@@ -3553,20 +3642,24 @@ def serve_recorded(cfg, run, dev, mesh=None):
     try:
         with serving_config(cfg), coll:
             SV.serve(cfg.name, smoke=False, device=dev, mesh=mesh,
-                     batch=run["batch"], prompt=min(256, run["prompt"]),
+                     rules=rules, batch=run["batch"],
+                     prompt=min(256, run["prompt"]),
                      gen=2 if mesh is None else 1)
             rec["decode"] = []
             if cuda:
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
+            if forward and mesh is not None:
+                SV.T.place_params = in_turns(real_place, dev, stats,
+                                             keep=True)
             out = SV.serve(cfg.name, smoke=False, device=dev, mesh=mesh,
-                           **run)
+                           rules=rules, **run)
             logits = rec["logits"]
             if mesh is not None:
-                baxes = SH.batch_axes(run["batch"], SH.TRAIN_RULES, mesh)
+                baxes = SH.batch_axes(run["batch"], rules, mesh)
                 logits = SV.gather_batch(logits, mesh, baxes)
                 held = rank_bytes(cfg, mesh, baxes, run["batch"],
-                                  run["prompt"], "prefill")
+                                  run["prompt"], "prefill", rules)
                 stats["spec_bytes"] = held["params"]
                 stats["whole_leaf_bytes"] = held["whole_leaf"]
                 if stats["param_bytes"] != stats["spec_bytes"]:
@@ -3577,7 +3670,39 @@ def serve_recorded(cfg, run, dev, mesh=None):
     finally:
         steps.make_prefill_step, steps.make_decode_step = real_p, real_d
         SV.T.place_params = real_place
+    fwd = None
+    if forward:
+        from repro_torch.data.pipeline import RequestStream
+        tok = torch.from_numpy(RequestStream(
+            cfg, run["batch"], run["prompt"], 0).requests_at(0)["tokens"])
+        shard = None
+        if mesh is None:
+            params = SV.T.init_params(cfg, torch.Generator(
+                device=dev).manual_seed(0), device=dev)
+        else:
+            params = stats.pop("tree")
+            shard = SH.make_act_sharder(mesh, baxes, rules)
+            tok = SH.local_block(tok, SH.batch_spec(tuple(tok.shape), rules,
+                                                    mesh), mesh)
+        fwd = forward_recorded(cfg, params, tok.to(dev), dev, shard)
+        if shard is not None:
+            # the split leaves' bytes a rank holds and the whole leaves'
+            from repro_torch.tree import tree_leaves
+            split = [(t, pd) for t, pd, sp in zip(
+                tree_leaves(params), tree_leaves(SV.T.param_defs(cfg)),
+                tree_leaves(SV.T.param_block_specs(cfg, mesh, rules),
+                            is_leaf=SH.is_spec)) if sp]
+            fwd.update(
+                placement_none=SV.T.placement(cfg, shard) is None,
+                split_bytes=sum(t.numel() * t.element_size()
+                                for t, _ in split),
+                whole_split_bytes=sum(math.prod(pd.shape) * t.element_size()
+                                      for t, pd in split))
+        del params
+        if cuda:
+            torch.cuda.empty_cache()
     return {"generated": torch.from_numpy(out["generated"]),
+            "forward": fwd,
             "prefill_ms": out["prefill_s"] * 1e3,
             "decode_ms": out["decode_s_per_token"] * 1e3,
             "logits": logits.cpu(), "prefill": rec["prefill"],
@@ -3690,6 +3815,37 @@ def exact_on_mesh(cfg, tok, feed, low, mesh, dev):
     return out
 
 
+def tp_on_mesh(tp, mesh, dev):
+    """Phase 16's TP case on this rank (``TP_RULES`` over ``mesh``): the
+    bf16 ``serve`` of ``tp["cfg"]`` and the forward over its prompts with
+    the served weights (``serve_recorded``), then the fp32 forward's
+    last-position logits with the fp32 weights placed in turns from the
+    same seed."""
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import transformer as T
+    rules = SH.TP_RULES
+    run = {k: tp["run"][k] for k in ("batch", "prompt", "gen")}
+    out = {"serve": serve_recorded(tp["cfg"], run, dev, mesh, rules,
+                                   forward=True)}
+    empty_host_cache()
+    cfg32 = tp["cfg32"]
+    B, S = run["batch"], run["prompt"]
+    baxes = SH.batch_axes(B, rules, mesh)
+    params = in_turns(T.place_params, dev)(
+        cfg32, torch.Generator(device=dev).manual_seed(0), mesh, rules=rules,
+        device=dev)
+    tok = SH.local_block(tp["tokens"], SH.batch_spec((B, S), rules, mesh),
+                         mesh).to(dev)
+    out["fp32"] = forward_recorded(cfg32, params, tok, dev,
+                                   SH.make_act_sharder(mesh, baxes, rules))
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def mesh_rank(rank, world, store_dir, job):
     """One rank of phase 16's meshes (started once by
     ``launch.mesh.run_ranks`` for all of ``job["cases"]``, so the ranks
@@ -3721,12 +3877,22 @@ def mesh_rank(rank, world, store_dir, job):
                                       job["feed"], job["low"], mesh, dev)}
         empty_host_cache()
         row["serve"] = serve_recorded(case["serve_cfg"], job["serve_run"],
-                                      dev, mesh)
+                                      dev, mesh, forward=True)
         row["host_gb"] = host_available_gb()
         empty_host_cache()
         dist.barrier()
         row["s"] = time.perf_counter() - t0
         res.append(row)
+    t0 = time.perf_counter()
+    tp = job["tp"]
+    mesh = M.make_mesh(tp["run"]["shape"], ("data", "model"),
+                       device=job["device"])
+    row = tp_on_mesh(tp, mesh, dev)
+    row["host_gb"] = host_available_gb()
+    empty_host_cache()
+    dist.barrier()
+    row["s"] = time.perf_counter() - t0
+    res.append(row)
     torch.save(res, os.path.join(job["out"], f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -3745,9 +3911,17 @@ def drive_mesh(dev, card):
     the one-card ``serve``'s and its prefill logits within ``MESH_REL``,
     K5 once a layer in every rank's prefill, each rank's weight bytes
     equal to its ``TRAIN_RULES`` blocks (beside the whole-leaf placement's
-    figure), and the times, gathers, collectives and memory of each mesh.
-    Returns K5's launches in the meshes' served prefills, summed over
-    ranks."""
+    figure), and the times, gathers, collectives and memory of each mesh;
+    then the forward over the served prompts with the served weights on
+    each rank (TP's compute split: K5 at the rank's heads, the last
+    position's logits within ``MESH_REL``'s bf16 bar of the served
+    prefill's).  (d) TP at full width (``TP_RUN``): qwen3-8b over (1, 4)
+    ``TP_RULES``, every rank's served tokens equal to one card's, the bf16
+    forward with K5 at (4, 8, KV 2) a rank and no reshard, each rank's
+    split leaves a quarter of the whole leaves' bytes, the fp32 forward's
+    last-position logits within ``TP_REL`` of one card's.  Returns K5's
+    launches in the meshes' served prefills and forwards, summed over
+    ranks, and those at the TP ranks' shapes by (H, KV, Sq, Skv, D)."""
     import dataclasses
     import shutil
 
@@ -3756,6 +3930,7 @@ def drive_mesh(dev, card):
     from repro_torch.data.pipeline import RequestStream
     from repro_torch.kernels import _build
     from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
 
     _build.build_all()
     root = Path(__file__).resolve().parent
@@ -3786,6 +3961,29 @@ def drive_mesh(dev, card):
           f"{MESH_EXACT['capacity']}: nothing drops; {n} greedy decode "
           f"steps; prefills at factor {low} over the batch and over each "
           f"block; {time.perf_counter() - t0:.1f} s")
+    # (d)'s one-card runs: the bf16 serve and forward, the fp32 forward
+    cfg_tp = qwen_config(TP_MODEL, TP_RUN["layers"])
+    cfg_tp32 = as_fp32(cfg_tp)
+    run_tp = {k: TP_RUN[k] for k in ("batch", "prompt", "gen")}
+    tok_tp = torch.from_numpy(RequestStream(cfg_tp, run_tp["batch"],
+                                            run_tp["prompt"], 0)
+                              .requests_at(0)["tokens"])
+    t0 = time.perf_counter()
+    one_tp = serve_recorded(cfg_tp, run_tp, dev, forward=True)
+    params = T.init_params(cfg_tp32, torch.Generator(device=dev).manual_seed(
+        0), device=dev)
+    one_tp32 = forward_recorded(cfg_tp32, params, tok_tp.to(dev), dev)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"phase 16(d) one card {cfg_tp.name} ({describe(cfg_tp)}): serve "
+          f"batch {run_tp['batch']}, prompt {run_tp['prompt']}, gen "
+          f"{run_tp['gen']}: prefill_ms={one_tp['prefill_ms']:.3f} "
+          f"decode_ms_per_token={one_tp['decode_ms']:.3f}; the bf16 "
+          f"forward over the prompts {one_tp['forward']['ms']:.3f} ms, K5 "
+          f"{one_tp['forward']['k5']}; the fp32 forward "
+          f"{one_tp32['ms']:.3f} ms; {time.perf_counter() - t0:.1f} s; "
+          f"card {card}")
     cfg16 = mesh_config(MESH_SERVE["layers"])
     one = serve_recorded(cfg16, run_c, dev)
     if one["prefill"]["k5"] != cfg16.num_layers:
@@ -3812,7 +4010,13 @@ def drive_mesh(dev, card):
                                  f"{same}")
         return rel
 
-    k5_mesh = 0
+    k5_mesh, k5_tp = 0, {}
+
+    def tp_launches(seen):
+        for (b, h, kv, sq, skv, d), n in seen.items():
+            key = (h, kv, sq, skv, d)
+            k5_tp[key] = k5_tp.get(key, 0) + n
+
     world = math.prod(MESH_CASES[0][0])
     assert all(math.prod(shape) == world for shape, _ in MESH_CASES)
     out = root / "build" / "phase16"
@@ -3824,7 +4028,9 @@ def drive_mesh(dev, card):
            "cases": [{"shape": shape,
                       "exact_cfg": dataclasses.replace(cfg32, moe_impl=impl),
                       "serve_cfg": dataclasses.replace(cfg16, moe_impl=impl)}
-                     for shape, impl in MESH_CASES]}
+                     for shape, impl in MESH_CASES],
+           "tp": {"run": TP_RUN, "cfg": cfg_tp, "cfg32": cfg_tp32,
+                  "tokens": tok_tp}}
     host0 = host_available_gb()
     t0 = time.perf_counter()
     M.run_ranks(mesh_rank, world, job, timeout_s=MESH_TIMEOUT_S)
@@ -3879,6 +4085,24 @@ def drive_mesh(dev, card):
                                  f"{gen_tok[:, 0].tolist()} vs one card "
                                  f"{one['generated'][:, 0].tolist()}")
         k5_mesh += sum(s["prefill"]["k5"] for s in sv)
+        # the forward over the served prompts: TP's compute split
+        want_k5 = {(run_m["batch"] // shape[0],
+                    cfg16.num_heads // shape[1],
+                    cfg16.num_kv_heads // shape[1], run_m["prompt"],
+                    run_m["prompt"], cfg16.resolved_head_dim):
+                   cfg16.num_layers}
+        fw = [s["forward"] for s in sv]
+        for r, f in enumerate(fw):
+            lg = sv[r]["logits"][:, vocab]
+            rel_f = ((f["logits"][:, vocab] - lg).norm() / lg.norm()).item()
+            if f["k5"] != want_k5 or not rel_f <= MESH_REL["bfloat16"]:
+                raise AssertionError(
+                    f"phase 16(c) {name} rank {r}: the forward's K5 "
+                    f"launches {f['k5']} (want {want_k5}), its last "
+                    f"logits vs the served prefill's rel err {rel_f:.3e} "
+                    f"(limit {MESH_REL['bfloat16']})")
+            k5_mesh += sum(f["k5"].values())
+            tp_launches(f["k5"])
         bar = (f" (limit {MESH_REL['bfloat16']})" if shape == (1, 4)
                else " (not held: capacity or F split apart from one card's)")
         pre = sv[0]["prefill"]
@@ -3917,7 +4141,90 @@ def drive_mesh(dev, card):
               f"{[round(s['peak_gb'], 2) for s in sv]} GB; host memory "
               f"available after the serve {ranks[0]['host_gb']:.1f} GB; "
               f"{wall:.1f} s on the ranks; card {card}")
-    return k5_mesh
+        f = fw[0]
+        print(f"phase 16(c) {name} forward over the served prompts (TP's "
+              f"compute split: attention's heads split over model, the "
+              f"head over the vocabulary): ms per rank "
+              f"{[round(x['ms'], 3) for x in fw]} (counted collectives "
+              f"synchronize the card); K5 a rank {f['k5']}; collectives "
+              f"{f['calls']} ({f['bytes']} bytes, host ms "
+              f"{f['host_ms']:.3f}; of them the reshards' all-gathers "
+              f"{f['gather_calls']}, {f['gather_bytes']} bytes, host ms "
+              f"{f['gather_ms']:.3f}); last logits within the bf16 bar of "
+              f"the served prefill's; card {card}")
+
+    # (d): TP's compute split at full width, qwen3-8b over (1, 4) TP_RULES
+    tp = [r[len(MESH_CASES)] for r in by_rank]
+    name = f"(d) {cfg_tp.name} ({TP_RUN['shape'][0]}, {TP_RUN['shape'][1]})"
+    m = TP_RUN["shape"][1]
+    want_k5 = {(run_tp["batch"], cfg_tp.num_heads // m,
+                cfg_tp.num_kv_heads // m, run_tp["prompt"], run_tp["prompt"],
+                cfg_tp.resolved_head_dim): cfg_tp.num_layers}
+    tpv = slice(0, cfg_tp.vocab_size)
+    rels = []
+    for r, row in enumerate(tp):
+        sv, fw, f32 = row["serve"], row["serve"]["forward"], row["fp32"]
+        got, want = f32["logits"][:, tpv], one_tp32["logits"][:, tpv]
+        rel = ((got - want).norm() / want.norm()).item()
+        rels.append(rel)
+        same = torch.equal(got.argmax(-1), want.argmax(-1))
+        problems = []
+        if not torch.equal(sv["generated"], one_tp["generated"]):
+            problems.append(f"tokens {sv['generated'].tolist()} vs one "
+                            f"card's {one_tp['generated'].tolist()}")
+        if fw["k5"] != want_k5 or f32["k5"] != want_k5:
+            problems.append(f"K5 {fw['k5']} (fp32 {f32['k5']}), want "
+                            f"{want_k5}")
+        if not (fw["placement_none"] and fw["gather_calls"] == 0
+                and f32["gather_calls"] == 0):
+            problems.append(f"a dense block leaf resharded: placement None "
+                            f"{fw['placement_none']}, all-gathers "
+                            f"{fw['gather_calls']}, fp32 "
+                            f"{f32['gather_calls']}")
+        if fw["split_bytes"] * m != fw["whole_split_bytes"]:
+            problems.append(f"split leaves {fw['split_bytes']} bytes of "
+                            f"{fw['whole_split_bytes']}")
+        if not (torch.isfinite(got).all() and rel <= TP_REL and same):
+            problems.append(f"fp32 last logits rel err {rel:.3e} (limit "
+                            f"{TP_REL}), same argmax {same}")
+        if problems:
+            raise AssertionError(f"phase 16{name} rank {r}: "
+                                 + "; ".join(problems))
+        k5_mesh += sum(fw["k5"].values()) + sum(f32["k5"].values()) + sv[
+            "prefill"]["k5"]
+        tp_launches(fw["k5"])
+        tp_launches(f32["k5"])
+    sv, fw, f32 = tp[0]["serve"], tp[0]["serve"]["forward"], tp[0]["fp32"]
+    pre = sv["prefill"]
+    print(f"phase 16{name} TP_RULES, {m} ranks on the one card (gloo), "
+          f"{describe(cfg_tp)}: serve batch {run_tp['batch']}, prompt "
+          f"{run_tp['prompt']}, gen {run_tp['gen']}: every rank's tokens "
+          f"equal to one card's ({one_tp['generated'][:, 0].tolist()} "
+          f"first); prefill_ms per rank "
+          f"{[round(x['serve']['prefill_ms'], 3) for x in tp]} "
+          f"(one card {one_tp['prefill_ms']:.3f}), decode_ms_per_token "
+          f"{[round(x['serve']['decode_ms'], 3) for x in tp]} (one card "
+          f"{one_tp['decode_ms']:.3f}); the prefill's collectives "
+          f"{pre['calls']} ({pre['bytes']} bytes, host ms "
+          f"{pre['host_ms']:.3f}; attention's all-gathers "
+          f"{pre['gather_calls']}, {pre['gather_bytes']} bytes); the bf16 "
+          f"forward over the prompts ms per rank "
+          f"{[round(x['serve']['forward']['ms'], 3) for x in tp]} (one "
+          f"card {one_tp['forward']['ms']:.3f}; counted collectives "
+          f"synchronize the card), no placement and no all-gather, its "
+          f"psums {fw['calls']} ({fw['bytes']} bytes, host ms "
+          f"{fw['host_ms']:.3f}), K5 a rank {fw['k5']}; each rank's split "
+          f"leaves {fw['split_bytes']} bytes, 1/{m} of the whole leaves' "
+          f"{fw['whole_split_bytes']}, all its weights "
+          f"{sv['param_bytes']} (its TP_RULES spec blocks); the fp32 "
+          f"forward ms per rank {[round(x['fp32']['ms'], 3) for x in tp]} "
+          f"(one card {one_tp32['ms']:.3f}), psums {f32['calls']} "
+          f"({f32['bytes']} bytes), last-position logits vs one card rel "
+          f"Frobenius err per rank {[f'{x:.3e}' for x in rels]} (limit "
+          f"{TP_REL}), same argmax; peak serving per rank "
+          f"{[round(x['serve']['peak_gb'], 2) for x in tp]} GB; "
+          f"{tp[0]['s']:.1f} s on the ranks; card {card}")
+    return k5_mesh, k5_tp
 
 
 
@@ -3940,6 +4247,12 @@ def drive_mesh(dev, card):
 MESH_GRAD = {"layers": 1, "batch": 2, "seq": 256, "capacity": 16.0,
              "seed": 2}
 MESH_GRAD_BAR = {"loss": 1e-5, "leaf": 1e-4}
+# (d) fp32, TF32 off: TP's compute split under autograd, phase 16(d)'s
+# qwen3-8b at full width over 2 of its 36 layers on (1, 4) under TP_RULES
+# (a rank stores and computes a quarter of every dense leaf), a global
+# batch of 2 x 256 on every rank, held to the one-card gradient at (a)'s
+# bars.
+TP_GRAD = {"layers": 2, "batch": 2, "seq": 256, "seed": 2}
 # (b) bf16, int8 gradients: (2, 2) ep and ep_resident, a global batch of 4
 # x 1024 (a data block of 2 x 1024 a rank), capacity factor 16 as in (a).
 # A (2, 2) ep rank: 1.32 G whole and 64 experts (1.21 G): 5.06 GB of bf16
@@ -4145,6 +4458,7 @@ def grad_on_mesh(job, dev):
     from repro_torch.optim import adamw
     from repro_torch.tree import tree_leaves
     cfg, run = job["cfg"], job["run"]
+    rules = getattr(SH, job.get("rules", "TRAIN_RULES"))
     tcfg = TrainConfig(grad_compression=job["compression"])
     rank = dist.get_rank()
     cuda = dev.type == "cuda"
@@ -4187,19 +4501,20 @@ def grad_on_mesh(job, dev):
     dist.barrier()
     names = leaf_names(T.param_defs(cfg))
     for shape, impl in job["cases"]:
-        cfg_m = dataclasses.replace(cfg, moe_impl=impl)
+        cfg_m = dataclasses.replace(cfg, moe_impl=impl) if impl else cfg
         mesh = M.make_mesh(shape, ("data", "model"), device=dev.type)
-        baxes = SH.batch_axes(B, SH.TRAIN_RULES, mesh)
+        baxes = SH.batch_axes(B, rules, mesh)
         stats = {}
         params = in_turns(T.place_params, dev, stats)(
-            cfg_m, gen(), mesh, device=dev)
+            cfg_m, gen(), mesh, rules=rules, device=dev)
         local = {k: SH.local_block(v, SH.batch_spec(tuple(v.shape),
-                                                    SH.TRAIN_RULES, mesh),
+                                                    rules, mesh),
                                    mesh) for k, v in batch.items()}
-        grad_fn = ST.make_grad_fn(cfg_m, tcfg, mesh=mesh, batch_axes=baxes)
-        specs = tree_leaves(T.param_block_specs(cfg_m, mesh),
+        grad_fn = ST.make_grad_fn(cfg_m, tcfg, mesh=mesh, batch_axes=baxes,
+                                  rules=rules)
+        specs = tree_leaves(T.param_block_specs(cfg_m, mesh, rules),
                             is_leaf=SH.is_spec)
-        held = rank_bytes(cfg_m, mesh, baxes, B, S)
+        held = rank_bytes(cfg_m, mesh, baxes, B, S, rules=rules)
         stats["spec_bytes"], spec32 = held["params"], held["moment"]
         stats["whole_leaf_bytes"] = held["whole_leaf"]
         stats["dryrun_argument_bytes"] = held["arguments"]
@@ -4249,7 +4564,7 @@ def grad_on_mesh(job, dev):
              "gather_ms"), 0)
         empty_host_cache()
         gnorm = adamw.global_norm(grads, ST.norm_reduction(
-            cfg_m, mesh)).item()
+            cfg_m, mesh, rules)).item()
         stats["grad_bytes"] = tree_bytes(grads)
         if (stats["param_bytes"], stats["grad_bytes"], stats["moment_bytes"],
                 stats["argument_bytes"]) != (
@@ -4264,7 +4579,8 @@ def grad_on_mesh(job, dev):
                 f"the dry run's blocks {stats['spec_bytes']}, {spec32}, "
                 f"{spec32} and {stats['dryrun_argument_bytes']}")
         row.update({
-            "shape": shape, "impl": impl, "loss": loss.item(),
+            "shape": shape, "impl": impl or job.get("rules", "TRAIN_RULES"),
+            "rules": job.get("rules", "TRAIN_RULES"), "loss": loss.item(),
             "norm": gnorm, "ms": ms, "reduce": red.row(),
             "collectives": {"calls": coll_all.calls - minus["calls"],
                             "bytes": coll_all.nbytes - minus["bytes"],
@@ -4579,7 +4895,7 @@ def held_line(row):
             f"{row['moment_bytes']} (adamw.init on the rank's blocks), and "
             f"a train step's arguments {row['argument_bytes']}, equal to "
             f"the dry run's "
-            f"TRAIN_RULES blocks (launch.dryrun.cell_blocks; "
+            f"{row['rules']} blocks (launch.dryrun.cell_blocks; "
             f"argument_bytes {row['dryrun_argument_bytes']}; the whole-leaf "
             f"placement held "
             f"{row['whole_leaf_bytes']} bytes of weights, "
@@ -4628,6 +4944,42 @@ def mesh_grad_fp32(dev, card, total):
           f"{[round(r['cases'][0]['peak_gb'], 2) for r in ranks]} GB; "
           f"{wall:.1f} s with the ranks' start; card {card}")
 
+
+
+def mesh_grad_tp(dev, card, total):
+    """Phase 17(d): the fp32 gradient of qwen3-8b at full width over a
+    (1, 4) mesh under ``TP_RULES`` (TP's compute split under autograd)
+    against one card's; K5's and K5b's launches added to ``total``."""
+    g = TP_GRAD
+    cfg32 = as_fp32(qwen_config(TP_MODEL, g["layers"]))
+    ranks, wall = run_mesh_job({
+        "kind": "grad", "cfg": cfg32, "run": g, "compression": "none",
+        "cases": [((1, 4), None)], "fault": False, "rules": "TP_RULES"},
+        4, dev)
+    (row,) = check_mesh_grads(ranks, MESH_GRAD_BAR, "(d)", card)
+    n = [r["cases"][0]["launches"] for r in ranks]
+    k5 = (2 if cfg32.remat else 1) * cfg32.num_layers
+    if any(x["K5"] != k5 or x["K5b"] != cfg32.num_layers for x in n):
+        raise AssertionError(f"phase 17(d): K5/K5b launches per rank {n} "
+                             f"(want {k5}, {cfg32.num_layers})")
+    for x in n:
+        for k in ("K5", "K5b"):
+            total[k] += x[k]
+    c = row["collectives"]
+    print(f"phase 17(d) {cfg32.name} ({describe(cfg32)}; TF32 off) over "
+          f"(1, 4) TP_RULES, 4 ranks on the one card: batch {g['batch']} x "
+          f"{g['seq']} (the whole batch a rank, {cfg32.num_heads // 4} "
+          f"heads and {cfg32.num_kv_heads // 4} kv heads a rank), one-card "
+          f"reference {ranks[0]['ref']['s']:.1f} s on rank 0; the mesh's "
+          f"gradient step ms per rank "
+          f"{[round(r['cases'][0]['ms'], 3) for r in ranks]} (counted "
+          f"collectives synchronize the card); all its collectives "
+          f"{c['calls']}, {c['bytes']} bytes, host ms {c['host_ms']:.3f}; "
+          f"the gradient's reduction {row['reduce']['calls']} all-reduces, "
+          f"{row['reduce']['bytes']} bytes; {held_line(row)}; K5 {k5} "
+          f"(remat), K5b {cfg32.num_layers} a rank; peak per rank "
+          f"{[round(r['cases'][0]['peak_gb'], 2) for r in ranks]} GB; "
+          f"{wall:.1f} s with the ranks' start; card {card}")
 
 
 def mesh_grad_bf16(dev, card, time_ms, total):
@@ -4813,7 +5165,8 @@ def mesh_train_dp(dev, card, total):
 
 def drive_mesh_train(dev, card, time_ms):
     """Phase 17: training over a mesh of ranks sharing the card (gloo):
-    ``mesh_grad_fp32``, ``mesh_grad_bf16``, ``mesh_train_dp``.  Returns the
+    ``mesh_grad_fp32``, ``mesh_grad_tp``, ``mesh_grad_bf16``,
+    ``mesh_train_dp``.  Returns the
     launches of K3, K4, K5, K5b, K8 and K8b in its mesh runs, summed over
     the ranks (and each (a)/(b) case's ``argument_bytes`` under that
     key), and K3's given-absmax entry."""
@@ -4822,6 +5175,7 @@ def drive_mesh_train(dev, card, time_ms):
     total = dict.fromkeys(("K3", "K4", "K5", "K5b", "K8", "K8b"), 0)
     total["argument_bytes"] = []
     mesh_grad_fp32(dev, card, total)
+    mesh_grad_tp(dev, card, total)
     k3_given = mesh_grad_bf16(dev, card, time_ms, total)
     mesh_train_dp(dev, card, total)
     return total, k3_given
@@ -5444,7 +5798,10 @@ def main() -> int:
     dryrun_dir = tempfile.TemporaryDirectory()
     dryruns = start_dryruns(Path(dryrun_dir.name))
     mark("16, the mesh")
-    k5_mesh = drive_mesh(dev, card)
+    k5_mesh, k5_tp = drive_mesh(dev, card)
+    for row in k5_qwen["tp_ranks"]:
+        b, h, kv, sq, skv, d = row["shape"]
+        row["launches"] = k5_tp.get((h, kv, sq, skv, d), 0)
     torch.cuda.empty_cache()
     gc.collect()
     empty_host_cache()

@@ -25,10 +25,13 @@ The port runs a mesh as explicit SPMD: every rank holds its own block of
 each tensor and runs the model on it.  A parameter has two blocks
 (``leaf_specs``): the one a rank stores, its spec under the rules (JAX's
 ``param_spec_tree``: FSDP over data, TP and the vocabulary over model,
-experts over model), and the one a layer computes with: dense leaves
-whole, expert leaves in the in_specs of the MoE layout
-(``compute_spec``).  The model reshards one into the other a layer at a
-time (``models.transformer.Placement``).  Where JAX's activation
+experts over model), and the one a layer computes with
+(``compute_spec``): a TP or vocabulary leaf its stored block without the
+data split (the column-parallel in and row-parallel out products XLA's
+partitioner makes of JAX's layout), a leaf the model keeps whole (its
+logical axes given without ``tp``: ``transformer.compute_defs``) whole,
+expert leaves in the in_specs of the MoE layout.  The model reshards one
+into the other a layer at a time (``models.transformer.Placement``).  Where JAX's activation
 constraint steers GSPMD's layout, the local batch block already is the
 layout, so nothing is left of the callback but what the model reads:
 ``make_act_sharder`` gives an ``ActSharder``, the mesh, the axes the batch
@@ -160,24 +163,31 @@ def resolve_rules(rules=None) -> Dict[str, Tuple[str, ...]]:
         if rules == globals()[name]:
             raise NotImplementedError(
                 f"{name}: its activation layout is not ported yet (ROADMAP "
-                f"queue 1, item 1); TRAIN_RULES and TP_RULES run")
+                f"queue 1); TRAIN_RULES and TP_RULES run")
     return rules
 
 
-def compute_spec(axes: Tuple[Optional[str], ...], layout: Optional[str]) -> P:
+def compute_spec(axes: Tuple[Optional[str], ...], layout: Optional[str],
+                 shape: Tuple[int, ...] = (), rules=None, mesh=None) -> P:
     """The block of a leaf of logical ``axes`` that a layer computes with
     under the MoE ``layout`` (``moe_ep.moe_layout``): an expert leaf split
     on its expert dim over ``model`` (``moe_ffn_ep``'s in_specs), for
-    ``ep_resident`` also on the expert width over ``data``; every other
-    leaf whole."""
-    if layout is None or "expert" not in axes:
+    ``ep_resident`` also on the expert width over ``data``, whole on the
+    gather path (``layout`` None); any other leaf of ``shape`` its spec
+    under ``rules`` without the FSDP split (``tp`` and ``vocab`` over
+    model), whole where no ``rules`` are given."""
+    if "expert" in axes:
+        if layout is None:
+            return P()
+        e = axes.index("expert")
+        parts = [None] * len(axes)
+        parts[e] = "model"
+        if layout == "ep_resident":
+            parts[axes.index(None, e + 1)] = "data"  # F: w1/w3 last, w2 -2
+        return P(*parts)
+    if rules is None:
         return P()
-    e = axes.index("expert")
-    parts = [None] * len(axes)
-    parts[e] = "model"
-    if layout == "ep_resident":
-        parts[axes.index(None, e + 1)] = "data"      # F: w1/w3 last, w2 -2
-    return P(*parts)
+    return spec_for(shape, axes, dict(rules, fsdp=()), mesh)
 
 
 @dataclass(frozen=True)
@@ -189,11 +199,17 @@ class LeafSpecs:
 
 
 def leaf_specs(shape: Tuple[int, ...], axes: Tuple[Optional[str], ...],
-               rules, mesh, layout: Optional[str]) -> LeafSpecs:
+               rules, mesh, layout: Optional[str],
+               compute_axes: Optional[Tuple[Optional[str], ...]] = None
+               ) -> LeafSpecs:
     """The storage spec (``spec_for`` under ``rules``) and the compute
-    spec (``compute_spec`` of ``layout``) of one leaf."""
+    spec (``compute_spec`` of ``layout`` and ``rules``, of
+    ``compute_axes``: ``axes`` without the splits a layer does not take;
+    ``axes`` where None) of one leaf."""
     return LeafSpecs(spec_for(shape, axes, rules, mesh),
-                     compute_spec(axes, layout))
+                     compute_spec(axes if compute_axes is None
+                                  else compute_axes, layout, shape, rules,
+                                  mesh))
 
 
 def param_spec_tree(shape_tree: Pytree, axes_tree: Pytree,

@@ -21,7 +21,10 @@ card) when ``tcfg.grad_compression == "int8"``, then AdamW, in place
 (``adamw.apply_``).
 
 Over a mesh the step computes the function JAX's jitted step computes on
-the global batch: each rank scales its loss by 1 / (the mesh's ranks).
+the global batch: ``loss_fn`` takes the loss over the rank's vocabulary
+block of the logits where they split over ``model``
+(``transformer.softmax_xent``'s vocabulary-parallel form), and each rank
+scales its loss by 1 / (the mesh's ranks).
 The backward of each layer's reshard sums the cotangent of a gathered
 block in fp32 over the axes it was gathered over; then (microbatches
 accumulated within the rank) each leaf's gradient is summed in fp32 over
@@ -53,7 +56,8 @@ def loss_fn(cfg: ModelConfig, params, batch, shard=None) -> torch.Tensor:
                        frontend_embeds=batch.get("frontend_embeds"),
                        encoder_frames=batch.get("encoder_frames"),
                        shard=shard)
-    return T.softmax_xent(logits, batch["labels"])
+    return T.softmax_xent(logits, batch["labels"],
+                          T.vocab_split(cfg, logits.shape[-1], shard))
 
 
 def value_and_grad(cfg: ModelConfig, params, batch, shard=None,

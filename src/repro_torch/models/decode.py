@@ -24,6 +24,15 @@ Unlike the JAX package, ``decode_step`` writes into the cache it is given:
 the new K/V (or latent) row at ``pos`` (``pos % W`` in the ring) with
 ``index_copy_`` on the 0-d ``pos`` tensor, so no step reads ``pos`` back to
 the host.
+
+Over a mesh (``shard``) the mixers keep their blocks whole
+(``transformer.placement(..., mixers=False)``): the cache splits no head
+(the JAX package's cache splits its sequence over ``model``,
+``cache_seq``, which is not ported), so attention, MLA's absorbed step,
+the RG-LRU, the SSD block and cross-attention run as on one card.  The
+FFN, the embedding and the head take TP's compute split, and both
+``prefill`` and ``decode_step`` return the last position's logits gathered
+whole over ``model`` (``transformer.gather_vocab``).
 """
 from __future__ import annotations
 
@@ -342,8 +351,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, *,
     token gathers every split leaf once."""
     pos = cache["pos"]
     B = tokens.shape[0]
-    place = T.placement(cfg, shard)
-    x = T.embed_tokens(cfg, params, tokens, place)
+    place = T.placement(cfg, shard, mixers=False)
+    x = T.embed_tokens(cfg, params, tokens, place, shard)
     if cfg.rope == "learned":
         # clamped as JAX's gather clamps, so no step reads pos on the host
         at = pos.reshape(1).clamp(max=cfg.max_position - 1).long()
@@ -355,7 +364,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, *,
         x, _ = block_step(cfg, kind, T.computed(lp, place, *path), x, lc,
                           pos, ctx)
     pos.add_(1)
-    return T.unembed(cfg, params, x, place), cache
+    return T.gather_vocab(cfg, T.unembed(cfg, params, x, place, shard),
+                          shard), cache
 
 
 def _layers(cfg: ModelConfig, params, cache):
@@ -446,9 +456,9 @@ def prefill(cfg: ModelConfig, params, tokens, *, encoder_frames=None,
     ``shard``: a mesh's ``sharding.ActSharder``, as ``T.forward`` takes
     it; each layer resharded as the loop runs it (``_layers``)."""
     B, S = tokens.shape
-    place = T.placement(cfg, shard)
+    place = T.placement(cfg, shard, mixers=False)
     x = T.splice_frontend(cfg, params, T.embed_tokens(cfg, params, tokens,
-                                                      place),
+                                                      place, shard),
                           frontend_embeds, place)
     x = T.add_positions(cfg, params, x, place)
     ctx = T.rope_ctx(cfg, T.default_positions(
@@ -461,5 +471,5 @@ def prefill(cfg: ModelConfig, params, tokens, *, encoder_frames=None,
         x, c = block_prefill(cfg, kind, T.computed(lp, place, *path), x, ctx)
         for name, t in c.items():
             lc[name].copy_(t)
-    logits = T.unembed(cfg, params, x[:, -1:], place)
-    return logits, cache
+    logits = T.unembed(cfg, params, x[:, -1:], place, shard)
+    return T.gather_vocab(cfg, logits, shard), cache

@@ -25,11 +25,24 @@ experts over model).  ``shard`` (``forward``'s keyword, carried on
 ``Ctx`` as in the JAX package; a ``sharding.ActSharder``) gives the mesh,
 the batch's axes and the rules; from them ``placement`` reshards each
 layer's blocks, where a loop takes the layer, to the blocks it computes
-with (``collectives.reshard``): dense leaves whole, expert leaves in the
-in_specs of the JAX package's expert-parallel path (``distributed.moe_ep``,
-taken with a ``model`` axis larger than 1; else the gather path).  The
-leaves outside the blocks (the embedding, the head, the patch projection,
-the positions, the encoder's) are resharded where they are used.  Under
+with (``collectives.reshard``), and the blocks compute with what they are
+given, their head and channel counts read from its shapes.  That is TP's
+compute split, the products XLA's partitioner makes of the JAX package's
+layout (the residual stream whole over ``model``, the logits split over
+the vocabulary): a rank along ``model`` computes attention's, MLA's, the
+MLP's and the RG-LRU's columns of its stored block less its FSDP split
+(``compute_defs``: the q side by heads, K/V where the kv heads divide
+too), and each row-parallel product (``wo``, ``w2``, the RG-LRU's gates
+and ``wo``) is summed over ``model`` (``collectives.psum``, in fp32); the
+embedding and the head are split over the vocabulary (the lookup summed
+over ``model``, the loss ``softmax_xent`` taken over the ranks' blocks).
+The SSD block, MLA's latent projections, ``patch_proj``, the positions,
+the norms and an attention whose heads do not divide over ``model`` are
+computed whole; expert leaves take the in_specs of the JAX package's
+expert-parallel path (``distributed.moe_ep``, taken with a ``model`` axis
+larger than 1; else the gather path).  The leaves outside the blocks (the
+embedding, the head, the patch projection, the positions, the encoder's)
+are resharded where they are used.  Under
 ``cfg.remat`` (the JAX package's ``jax.checkpoint`` of each group and
 ``rem`` layer, and of each encoder block) each of them runs under
 ``torch.utils.checkpoint`` when a gradient is taken, on one card and over
@@ -54,6 +67,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
@@ -350,6 +364,60 @@ def place_params(cfg: ModelConfig, source, mesh, *, rules=None,
     return tree_map(keep, source, specs)
 
 
+def compute_defs(cfg: ModelConfig, mesh, rules, *, mixers: bool = True
+                 ) -> Pytree:
+    """``param_defs`` with each leaf's logical axes as a layer computes
+    with it on ``mesh`` under ``rules`` (``sharding.leaf_specs``'
+    ``compute_axes``): ``tp`` kept where the split follows the heads or
+    channels, dropped (the leaf whole) for the SSD block (``in_proj``'s
+    flat split would cut across its z | x | B | C | dt segments), MLA's
+    ``wq_a`` (its latent is normed over the whole width), ``patch_proj``
+    (its output joins the residual stream), an attention block whose q
+    heads do not divide over ``tp``'s n ranks (or whose kv heads neither
+    divide over them nor divide n: a rank's q heads would straddle two kv
+    groups), K/V and their biases where the kv heads do not divide (each
+    rank then reads the one kv head of its q heads), and with ``mixers``
+    False every mixer of the decoder's blocks: attention, MLA, RG-LRU,
+    SSD, cross-attention (decode's, whose cache is not split by heads)."""
+    shape = SH.mesh_shape(mesh)
+    n = math.prod(shape.get(a, 1) for a in rules.get("tp", ()))
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    kv_heads = KV % n == 0
+    heads = H % n == 0 and (kv_heads or n % KV == 0)
+    kv_heads = heads and kv_heads
+
+    def whole(pd):
+        return PDef(pd.shape, tuple(None if a == "tp" else a
+                                    for a in pd.axes), pd.init, pd.scale)
+
+    def attn(d, split):
+        return {k: whole(pd) if not split or k == "wq_a" or (
+            not kv_heads and k in ("wk", "wv", "bk", "bv")) else pd
+            for k, pd in d.items()}
+
+    def block(d, split_mixers):
+        out = {}
+        for name, sub in d.items():
+            if name in ("attn", "xattn"):
+                out[name] = attn(sub, split_mixers and heads)
+            elif name == "ssd" or (name == "rec" and not split_mixers):
+                out[name] = tree_map(whole, sub)
+            else:
+                out[name] = sub
+        return out
+
+    defs = param_defs(cfg)
+    out = dict(defs, blocks={k: block(v, mixers)
+                             for k, v in defs["blocks"].items()},
+               rem=[block(v, mixers) for v in defs["rem"]])
+    if "encoder" in defs:
+        out["encoder"] = dict(defs["encoder"],
+                              blocks=block(defs["encoder"]["blocks"], True))
+    if "patch_proj" in defs:
+        out["patch_proj"] = whole(defs["patch_proj"])
+    return out
+
+
 @dataclass(frozen=True)
 class Placement:
     """A mesh's two layouts of the parameters (``param_defs``' structure,
@@ -377,16 +445,21 @@ class Placement:
         return tree_map(one, tree, specs)
 
 
-def placement(cfg: ModelConfig, shard) -> Optional[Placement]:
+def placement(cfg: ModelConfig, shard, *, mixers: bool = True
+              ) -> Optional[Placement]:
     """The ``Placement`` of a mesh's ``sharding.ActSharder``: storage under
-    its rules, compute in the MoE layout of its batch's axes; None on one
-    card, and on a mesh where every stored block is its compute block."""
+    its rules, compute by ``compute_defs`` (``mixers`` False: decode's,
+    every mixer whole) and in the MoE layout of its batch's axes; None on
+    one card, and on a mesh where every stored block is its compute block
+    (``TP_RULES`` on a dense model whose heads divide over ``model``)."""
     if shard is None:
         return None
     layout = moe_ep.moe_layout(cfg, shard.mesh, shard.batch_axes)
     defs = param_defs(cfg)
-    specs = tree_map(lambda pd: SH.leaf_specs(pd.shape, pd.axes, shard.rules,
-                                              shard.mesh, layout), defs)
+    cdefs = compute_defs(cfg, shard.mesh, shard.rules, mixers=mixers)
+    specs = tree_map(lambda pd, cd: SH.leaf_specs(
+        pd.shape, pd.axes, shard.rules, shard.mesh, layout, cd.axes), defs,
+        cdefs)
     if not any(coll.moves(len(pd.shape), ls.storage, ls.compute, shard.mesh)
                for pd, ls in zip(tree_leaves(defs), tree_leaves(specs))):
         return None
@@ -463,6 +536,37 @@ def _heads(x, n, d):
     return x.reshape(x.shape[0], x.shape[1], n, d)
 
 
+def _model_index(ctx: Ctx) -> int:
+    """This rank's index along ``model``."""
+    return ctx.shard.mesh.get_local_rank("model")
+
+
+def _row_parallel(a, w, ctx: Ctx, split: bool):
+    """``a @ w``; where ``split``, ``w`` is this rank's block of rows (the
+    contraction dim split over ``model``, ``a`` the matching columns) and
+    the ranks' partial products are summed over ``model``
+    (``collectives.psum``, whose backward all-reduces the cotangent: a
+    replicated activation's cotangent is a set of partials that sum to the
+    true one over the ranks, as the training step's loss × 1/ranks has it).
+    The partials are taken and summed in fp32 and rounded once to ``a``'s
+    dtype, as one card's GEMM accumulates its whole contraction."""
+    if not split:
+        return _proj(a, w)
+    y = a.float() @ w.float()
+    return coll.psum(y, ctx.shard.mesh, "model").to(a.dtype)
+
+
+def _rank_kv(cfg: ModelConfig, k, v, heads: int, ctx: Ctx):
+    """The kv head this rank's ``heads`` q heads read, where q is split
+    over ``model`` and K/V were computed whole (their heads do not divide
+    over it: RecurrentGemma's one, qwen3-8b's 8 over 16 ranks; the q heads
+    of a rank then lie in one kv group, ``compute_defs``)."""
+    if heads == cfg.num_heads or k.shape[2] < cfg.num_kv_heads:
+        return k, v
+    kv = _model_index(ctx) * heads // (cfg.num_heads // cfg.num_kv_heads)
+    return k[:, :, kv:kv + 1], v[:, :, kv:kv + 1]
+
+
 def _rope_ctx(cfg: ModelConfig, positions, head_dim):
     if cfg.rope == "mrope":
         return L.mrope_angles(positions, head_dim, cfg.rope_theta,
@@ -478,16 +582,19 @@ def attn_forward(cfg: ModelConfig, p, x, ctx: Ctx, *, window=0,
     projections (with the QKV bias), then the qk-norm over the head dim,
     then RoPE, in the JAX package's order.  ``kv_override``: (k, v) for
     cross-attention (``cross``), which is non-causal, with no qk-norm and
-    no RoPE."""
+    no RoPE.  The heads are the blocks': over ``model`` a rank's q heads
+    (and kv heads where they divide), ``wo`` row-parallel."""
     Dh = cfg.resolved_head_dim
-    H, KV = cfg.num_heads, cfg.num_kv_heads
+    H = p["wq"].shape[-1] // Dh
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     q = _heads(_proj(h, p["wq"], p.get("bq")), H, Dh)
     if kv_override is None:
+        KV = p["wk"].shape[-1] // Dh
         k = _heads(_proj(h, p["wk"], p.get("bk")), KV, Dh)
         v = _heads(_proj(h, p["wv"], p.get("bv")), KV, Dh)
     else:
         k, v = kv_override
+    k, v = _rank_kv(cfg, k, v, H, ctx)
     if cfg.qk_norm and not cross:
         q = L.rms_norm(q, p["qn"], cfg.norm_eps)
         if kv_override is None:
@@ -499,7 +606,7 @@ def attn_forward(cfg: ModelConfig, p, x, ctx: Ctx, *, window=0,
     o = L.blocked_attention(q, k, v, causal=not cross, window=window,
                             chunk=cfg.attn_chunk, unroll=cfg.attn_unroll)
     o = o.reshape(x.shape[0], x.shape[1], H * v.shape[-1])
-    return x + _proj(o, p["wo"])
+    return x + _row_parallel(o, p["wo"], ctx, H < cfg.num_heads)
 
 
 # --- MLA attention block ---------------------------------------------------------
@@ -521,9 +628,11 @@ def mla_forward(cfg: ModelConfig, p, x, ctx: Ctx):
     head dim nope + rope and v head dim ``v_head_dim`` (K5 on the card, at
     minicpm3-4b's (96, 64); under autograd K5b at the same pair).  The
     gradient flows through the latents' norms and the rope key, which
-    ``expand`` shares over the heads (its gradient the sum over them)."""
-    H = cfg.num_heads
+    ``expand`` shares over the heads (its gradient the sum over them).
+    Over ``model`` a rank takes its heads of ``wq_b``, ``wk_b``, ``wv_b``
+    and ``wo``; the latents are computed whole."""
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    H = p["wk_b"].shape[-1] // dn
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     cq = L.rms_norm(_proj(h, p["wq_a"]), p["q_ln"], cfg.norm_eps)
     q = _heads(_proj(cq, p["wq_b"]), H, dn + dr)
@@ -538,7 +647,7 @@ def mla_forward(cfg: ModelConfig, p, x, ctx: Ctx):
     o = L.blocked_attention(qf, kf, v, causal=True, chunk=cfg.attn_chunk,
                             unroll=cfg.attn_unroll)
     o = o.reshape(x.shape[0], x.shape[1], H * dv)
-    return x + _proj(o, p["wo"])
+    return x + _row_parallel(o, p["wo"], ctx, H < cfg.num_heads)
 
 
 # --- FFN -------------------------------------------------------------------------
@@ -577,21 +686,39 @@ def ffn_forward(cfg: ModelConfig, p, x, ctx: Ctx):
             block_tokens=bt)
         return x + y.reshape(B, S, D)
     a = L.act_fn(cfg.act)(_proj(h, p["w1"]))
-    y = _proj(a * _proj(h, p["w3"]), p["w2"])
+    y = _row_parallel(a * _proj(h, p["w3"]), p["w2"], ctx,
+                      p["w2"].shape[0] < cfg.d_ff)
     return x + y
 
 
 # --- RG-LRU block --------------------------------------------------------------
 
 def rglru_forward(cfg: ModelConfig, p, x, ctx: Ctx, h0=None, conv0=None):
+    """The RG-LRU block.  Over ``model`` a rank holds its channels of
+    ``wx``, ``wy``, ``conv_w`` and the rows of ``wga``, ``wgx`` and ``wo``:
+    the gates are computed as JAX's partitioner does, the rank's rows'
+    products summed over ``model`` (one ``psum`` for both) with the biases
+    added after the sum, then cut to the rank's channels, ``log_a`` with
+    them; ``wo`` is row-parallel."""
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     gate = L.act_fn("gelu")(_proj(h, p["wy"]))
     xb = _proj(h, p["wx"])
     xb, conv_state = L.causal_conv1d(xb, p["conv_w"], conv0)
-    ga = _proj(xb, p["wga"], p["bga"])
-    gx = _proj(xb, p["wgx"], p["bgx"])
-    seq, h_last = L.rglru(xb, gx, ga, p["log_a"], h0)
-    y = _proj(seq * gate, p["wo"])
+    Wl, W = xb.shape[-1], p["wga"].shape[-1]
+    if Wl == W:
+        ga = _proj(xb, p["wga"], p["bga"])
+        gx = _proj(xb, p["wgx"], p["bgx"])
+        log_a = p["log_a"]
+    else:
+        g = _row_parallel(xb, torch.cat([p["wga"], p["wgx"]], dim=1), ctx,
+                          True)
+        lo = _model_index(ctx) * Wl
+        cut = slice(lo, lo + Wl)
+        ga = g[..., cut] + p["bga"][cut].to(g.dtype)
+        gx = g[..., W:][..., cut] + p["bgx"][cut].to(g.dtype)
+        log_a = p["log_a"][cut]
+    seq, h_last = L.rglru(xb, gx, ga, log_a, h0)
+    y = _row_parallel(seq * gate, p["wo"], ctx, Wl < W)
     return x + y, (h_last, conv_state)
 
 
@@ -649,10 +776,13 @@ def apply_block(cfg: ModelConfig, kind: str, p, x, ctx: Ctx):
 
 def cross_kv(cfg: ModelConfig, xp, ctx: Ctx):
     """Cross-attention's K and V (B, encoder_seq, KV, Dh), from the
-    encoder's output under the block's ``xattn`` norm."""
+    encoder's output under the block's ``xattn`` norm; KV the block's kv
+    heads (over ``model`` a rank's, where they divide)."""
+    Dh = cfg.resolved_head_dim
+    KV = xp["wk"].shape[-1] // Dh
     hk = L.rms_norm(ctx.enc_out, xp["ln"], cfg.norm_eps)
-    k = _heads(_proj(hk, xp["wk"]), cfg.num_kv_heads, cfg.resolved_head_dim)
-    v = _heads(_proj(hk, xp["wv"]), cfg.num_kv_heads, cfg.resolved_head_dim)
+    k = _heads(_proj(hk, xp["wk"]), KV, Dh)
+    v = _heads(_proj(hk, xp["wv"]), KV, Dh)
     return k, v
 
 
@@ -707,20 +837,23 @@ def encode(cfg: ModelConfig, params, frames, shard=None):
 def run_encoder_blocks(cfg: ModelConfig, blocks, x, ctx: Ctx):
     """Every encoder block in order (the stacked ``blocks``), each on a
     mesh resharded as it runs and under remat where ``cfg.remat`` (the
-    JAX package's ``jax.checkpoint`` of ``block``)."""
+    JAX package's ``jax.checkpoint`` of ``block``); over ``model`` a rank
+    computes its heads, ``wo`` row-parallel."""
     place = ctx.place
     Dh = cfg.resolved_head_dim
 
     def block(bp, x):
         bp = computed(bp, place, "encoder", "blocks")
-        h = L.rms_norm(x, bp["attn"]["ln"], cfg.norm_eps)
-        q = _heads(_proj(h, bp["attn"]["wq"]), cfg.num_heads, Dh)
-        k = _heads(_proj(h, bp["attn"]["wk"]), cfg.num_kv_heads, Dh)
-        v = _heads(_proj(h, bp["attn"]["wv"]), cfg.num_kv_heads, Dh)
+        a = bp["attn"]
+        H, KV = a["wq"].shape[-1] // Dh, a["wk"].shape[-1] // Dh
+        h = L.rms_norm(x, a["ln"], cfg.norm_eps)
+        q = _heads(_proj(h, a["wq"]), H, Dh)
+        k, v = _rank_kv(cfg, _heads(_proj(h, a["wk"]), KV, Dh),
+                        _heads(_proj(h, a["wv"]), KV, Dh), H, ctx)
         o = L.blocked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk,
                                 unroll=cfg.attn_unroll)
-        o = o.reshape(x.shape[0], x.shape[1], cfg.num_heads * Dh)
-        x = x + _proj(o, bp["attn"]["wo"])
+        o = o.reshape(x.shape[0], x.shape[1], H * Dh)
+        x = x + _row_parallel(o, a["wo"], ctx, H < cfg.num_heads)
         return ffn_forward(cfg, bp["ffn"], x, ctx)
 
     for g in range(num_groups(blocks)):
@@ -758,12 +891,34 @@ class _TokenRows(torch.autograd.Function):
         return out, None
 
 
-def embed_tokens(cfg: ModelConfig, params, tokens, place=None):
+def vocab_split(cfg: ModelConfig, width: int, shard
+                ) -> Optional[Tuple[Any, int]]:
+    """(the mesh, the first vocabulary id of this rank's block) where a
+    rank computes a block of ``width`` of the padded vocabulary (the
+    embedding's rows, the head's and the logits' columns) over ``model``;
+    None where it computes them whole."""
+    if shard is None or width == cfg.padded_vocab:
+        return None
+    return shard.mesh, shard.mesh.get_local_rank("model") * width
+
+
+def embed_tokens(cfg: ModelConfig, params, tokens, place=None, shard=None):
     """The token rows of the embedding; on a mesh (``place``) of the
-    table gathered over its vocabulary blocks.  The gathered table is no
-    input of a saved tensor (``_TokenRows`` keeps the tokens), so nothing
-    of it is kept for the backward."""
-    x = _TokenRows.apply(computed(params["embed"], place, "embed"), tokens)
+    table's compute block.  The gathered table is no input of a saved
+    tensor (``_TokenRows`` keeps the tokens), so nothing of it is kept for
+    the backward.  Split over the vocabulary (``shard``, ``vocab_split``),
+    a rank looks up the tokens in its own rows, zeros for the others, and
+    the ranks' rows are summed over ``model``: one of them is not zero."""
+    table = computed(params["embed"], place, "embed")
+    split = vocab_split(cfg, table.shape[0], shard)
+    if split is None:
+        x = _TokenRows.apply(table, tokens)
+    else:
+        mesh, lo = split
+        local = tokens.long() - lo
+        mine = (local >= 0) & (local < table.shape[0])
+        x = _TokenRows.apply(table, torch.where(mine, local, 0))
+        x = coll.psum(torch.where(mine[..., None], x, 0), mesh, "model")
     if cfg.family == "hybrid":                       # gemma-style embed scale
         # the scale rounded to the model's dtype first (bf16: 50.5, not
         # 50.596 at d_model 2560), as the JAX package does
@@ -772,19 +927,24 @@ def embed_tokens(cfg: ModelConfig, params, tokens, place=None):
     return x
 
 
-def unembed(cfg: ModelConfig, params, x, place=None):
+def unembed(cfg: ModelConfig, params, x, place=None, shard=None):
     """The final norm and the head (the embedding's transpose where tied);
-    on a mesh (``place``) the head gathered, under remat where
-    ``cfg.remat``."""
+    on a mesh (``place``) the head's compute block, under remat where
+    ``cfg.remat``: split over the vocabulary (``shard``, ``vocab_split``),
+    the rank's columns of the logits (column-parallel), the padding mask
+    on its own."""
     key = "embed" if cfg.tie_embeddings else "lm_head"
 
     def run(head, norm, x):
         head = computed(head, place, key)
         x = L.rms_norm(x, computed(norm, place, "final_norm"), cfg.norm_eps)
-        logits = x @ (head.T if cfg.tie_embeddings else head).to(x.dtype)
+        w = head.T if cfg.tie_embeddings else head
+        logits = x @ w.to(x.dtype)
         if cfg.padded_vocab != cfg.vocab_size:
             # mask the padding columns with an additive bias
-            cols = torch.arange(cfg.padded_vocab, device=logits.device)
+            split = vocab_split(cfg, w.shape[-1], shard)
+            lo = 0 if split is None else split[1]
+            cols = torch.arange(lo, lo + w.shape[-1], device=logits.device)
             pad_mask = torch.where(cols < cfg.vocab_size, 0.0, -1e30).to(
                 logits.dtype)
             logits = logits + pad_mask[None, None, :]
@@ -873,10 +1033,14 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
     M-RoPE (None: 0..S-1 on every channel); ``frontend_embeds`` (B, F, D)
     the patch embeddings that replace the first F positions;
     ``encoder_frames`` (B, encoder_seq, D) feed the encoder and
-    cross-attention; ``shard`` a mesh's ``sharding.ActSharder``."""
+    cross-attention; ``shard`` a mesh's ``sharding.ActSharder``, where the
+    logits are the rank's block of the vocabulary (the JAX package's
+    ``"logits"`` layout; ``vocab_split``) wherever it splits over
+    ``model``."""
     B, S = tokens.shape
     place = placement(cfg, shard)
-    x = splice_frontend(cfg, params, embed_tokens(cfg, params, tokens, place),
+    x = splice_frontend(cfg, params,
+                        embed_tokens(cfg, params, tokens, place, shard),
                         frontend_embeds, place)
     x = add_positions(cfg, params, x, place)
     if positions is None:
@@ -886,16 +1050,42 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
     ctx.shard, ctx.place = shard, place
     ctx = encoder_ctx(cfg, params, ctx, encoder_frames, x.dtype)
     x = run_decoder_blocks(cfg, params, x, ctx)
-    return unembed(cfg, params, x, place)
+    return unembed(cfg, params, x, place, shard)
 
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def gather_vocab(cfg: ModelConfig, logits: torch.Tensor, shard
+                 ) -> torch.Tensor:
+    """``logits`` (B, S, block) whole over the vocabulary: the ranks'
+    blocks gathered over ``model`` where ``vocab_split`` says they are
+    split (no gradient), else ``logits`` itself."""
+    split = vocab_split(cfg, logits.shape[-1], shard)
+    if split is None:
+        return logits
+    return coll.gather_block(logits, SH.P(None, None, "model"), split[0])
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 vocab: Optional[Tuple[Any, int]] = None) -> torch.Tensor:
     """Mean cross-entropy in fp32, as the JAX package computes it: the max
     is detached (``stop_gradient``), and the label's logit is taken with
     ``gather``, the same number as JAX's one-hot sum, which adds only
-    zeros to it."""
+    zeros to it.  ``vocab`` (``vocab_split``: the mesh and the first id of
+    the rank's block) takes it over the logits' vocabulary blocks: the max
+    by an all-reduce MAX over ``model``, the sum of exponentials by
+    ``psum``, the label's logit by a gather from the rank that holds it,
+    zero elsewhere, and ``psum``."""
     lg = logits.float()
     m = lg.amax(dim=-1, keepdim=True).detach()
-    lse = m[..., 0] + torch.log(torch.exp(lg - m).sum(dim=-1))
-    lab = lg.gather(-1, labels.long()[..., None])[..., 0]
+    if vocab is None:
+        lse = m[..., 0] + torch.log(torch.exp(lg - m).sum(dim=-1))
+        lab = lg.gather(-1, labels.long()[..., None])[..., 0]
+        return (lse - lab).mean()
+    mesh, lo = vocab
+    m = coll.reduce_(m.contiguous(), mesh, ("model",), dist.ReduceOp.MAX)
+    lse = m[..., 0] + torch.log(coll.psum(torch.exp(lg - m).sum(dim=-1),
+                                          mesh, "model"))
+    local = labels.long() - lo
+    mine = (local >= 0) & (local < lg.shape[-1])
+    lab = lg.gather(-1, torch.where(mine, local, 0)[..., None])[..., 0]
+    lab = coll.psum(torch.where(mine, lab, 0.0), mesh, "model")
     return (lse - lab).mean()

@@ -936,6 +936,35 @@ def test_flash_attention_bwd_repeats_bit_for_bit(cuda, d, dtype):
         assert torch.equal(a, b_)
 
 
+# TP's compute split: the shapes of a rank along ``model`` (B, H, KV, S, D),
+# causal, at a batch of 4 prompts of 1024 tokens: qwen3-8b's 32 heads and 8
+# kv heads over 4 ranks, qwen3-moe's 64 and 4 over 4 and over 2
+TP_RANK_SHAPES = [(4, 8, 2, 1024, 128), (4, 16, 1, 1024, 128),
+                  (4, 32, 2, 1024, 128)]
+
+
+@pytest.mark.parametrize("b,h,kv,s,d", TP_RANK_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_the_tp_rank_shapes_matches_plain(cuda, b, h, kv,
+                                                             s, d, dtype):
+    rng = np.random.default_rng(4)
+    q = _randn(rng, (b, h, s, d), dtype, cuda)
+    k, v = (_randn(rng, (b, kv, s, d), dtype, cuda) for _ in range(2))
+    got = flash_attention(q, k, v, causal=True, window=0)
+    want = flash_attention_plain(q, k, v, causal=True, window=0)
+    bf = dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=0.05 if bf else 1e-3,
+                               atol=0.03 if bf else 2e-4)
+
+
+@pytest.mark.parametrize("b,h,kv,s,d", TP_RANK_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_at_the_tp_rank_shapes_matches_plain(
+        cuda, b, h, kv, s, d, dtype):
+    _k5b_case(cuda, b, h, kv, s, s, d, True, 0, dtype)
+
+
 # K5b's head split at its edges: RecurrentGemma's G = 10 query heads of one
 # KV head over clusters that do not divide it (rank r takes heads r, r + R,
 # ...), Skv no multiple of the 64-key tile, masks that leave the key tiles

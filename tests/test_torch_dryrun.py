@@ -103,7 +103,15 @@ _TORCH = textwrap.dedent("""
                 rec["param_bytes"] = DR.tree_nbytes(blocks["params"])
                 rec["opt_bytes"] = DR.tree_nbytes(blocks["opt"])
         recs.append(rec)
-    Path(sys.argv[1]).write_text(json.dumps(recs))
+    # the vocabulary-parallel loss on a (2, 4) fake mesh: its collectives
+    from repro_torch.analysis import collectives as CO
+    from repro_torch.models import transformer as T
+    mesh = DR.fake_mesh((2, 4), ("data", "model"))
+    with CO.CollectiveCounter() as counter:
+        T.softmax_xent(torch.zeros(2, 16, 8), torch.zeros(2, 16, dtype=
+                       torch.int32), (mesh, 0))
+    Path(sys.argv[1]).write_text(json.dumps(
+        {"recs": recs, "loss": [list(c) for c in counter.records]}))
 """)
 
 _JAX = textwrap.dedent("""
@@ -171,8 +179,9 @@ def runs(tmp_path_factory):
     outs = [p.communicate(timeout=300)[0] for p in (tp, jp)]
     assert tp.returncode == 0, outs[0][-4000:]
     assert jp.returncode == 0, outs[1][-4000:]
-    recs = json.loads((tmp / "torch.json").read_text())
-    return {"recs": recs, "cells": cells,
+    got = json.loads((tmp / "torch.json").read_text())
+    return {"recs": got["recs"], "cells": cells,
+            "loss_collectives": got["loss"],
             "jax_bytes": json.loads((tmp / "jax.json").read_text())}
 
 
@@ -335,18 +344,46 @@ def test_dense_prefill_flops_are_its_gemms_and_k5(runs):
 @pytest.mark.parametrize("arch", ["qwen3-8b", "qwen3-moe-235b-a22b"])
 def test_train_flops_lie_in_the_model_flops_band(runs, arch):
     """test_system.py's band for JAX's dry run: counted FLOPs x chips over
-    MODEL_FLOPS in (0.9, 12), over eight ranks of data.  Over (2, 4) the
-    ranks along ``model`` run the dense layers on the same batch block
-    with the whole weights gathered (TP's compute split is not ported):
-    a dense rank there does exactly the work of four ranks of (8, 1)."""
+    MODEL_FLOPS in (0.9, 12), over eight ranks of data and over (2, 4).
+    There TP's compute split gives a rank along ``model`` its heads,
+    columns and vocabulary block of the dense layers: a dense rank does
+    under 1.25 times the work of a rank of (8, 1) (before the split, with
+    every dense leaf gathered whole, exactly 4 times)."""
     want = RL.model_flops(get_arch(arch).reduced(),
                           SHAPES_BY_NAME["train_4k"])
     t = _rec(runs, arch, "train_4k", (8, 1))["roofline"]
-    assert t["model_flops_total"] == want
-    assert 0.9 < t["flops_per_chip"] * t["chips"] / want < 12
+    tp = _rec(runs, arch, "train_4k")["roofline"]
+    for r in (t, tp):
+        assert r["model_flops_total"] == want
+        assert 0.9 < r["flops_per_chip"] * r["chips"] / want < 12
     if not get_arch(arch).num_experts:
-        tp = _rec(runs, arch, "train_4k")["roofline"]
-        assert tp["flops_per_chip"] == 4 * t["flops_per_chip"]
+        assert tp["flops_per_chip"] < 1.25 * t["flops_per_chip"]
+
+
+def test_tp_collectives_are_counted(runs):
+    """A (2, 4) prefill of the reduced qwen3-8b sums over ``model`` once
+    for the vocabulary-parallel embedding and once for each layer's MLP
+    (``w2`` row-parallel; the prefill keeps attention whole, as decode's
+    cache splits no head), and gathers the last position's logits over
+    the vocabulary; at (1, 1) it issues no collective.
+    The vocabulary-parallel loss issues its MAX all-reduce and its two
+    ``psum``s, each of the (B, S) fp32 rows (``analysis.collectives``
+    counts all three)."""
+    cfg = get_arch("qwen3-8b").reduced()
+    rec = _rec(runs, "qwen3-8b", "prefill_32k")
+    det = rec["raw"]["real"]["coll_detail"]
+    assert det["all-reduce"]["count"] == 1 + cfg.num_layers
+    shape = SHAPES_BY_NAME["prefill_32k"]
+    act = shape.global_batch // MESH[0] * shape.seq_len * cfg.d_model
+    assert cfg.dtype == "float32"       # every sum of 4-byte elements
+    assert det["all-reduce"]["result_bytes"] == (
+        1 + cfg.num_layers) * act * 4
+    assert "all-gather" in det
+    one = _rec(runs, "qwen3-8b", "prefill_32k", (1, 1))["raw"]["real"]
+    assert one["coll_detail"] == {}
+    loss = runs["loss_collectives"]
+    assert [c[0] for c in loss] == ["all-reduce"] * 3
+    assert all(c[1] == 2 * 16 * 4 and c[2] == 4 for c in loss)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "qwen3-moe-235b-a22b",

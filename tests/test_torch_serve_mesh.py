@@ -13,7 +13,11 @@ factor 16, where nothing drops, and held to one process at the same.
 Each rank holds its ``TRAIN_RULES`` block of every weight and the steps
 gather each layer as they take it; one more case serves the reduced
 qwen3-moe over (2, 2) ``ep_resident`` under ``TP_RULES`` (no FSDP: the
-experts stored whole in width, cut over data to compute).  Every rank
+experts stored whole in width, cut over data to compute), and one the
+reduced qwen3-8b over (1, 4) under ``TP_RULES``, where every stored block
+is the block a rank computes with (TP's compute split: its heads and
+channels, its block of the vocabulary; decode keeps attention whole and
+gathers it).  Every rank
 must return the one-process greedy tokens, and the prefill step's
 last-position logits, gathered over the batch's blocks, must be within
 1e-5 (fp32; the sums run in another order).
@@ -38,8 +42,10 @@ MESHES = [((1, 4), {}), ((2, 2), {"moe_impl": "ep_resident"}),
 SERVE = {"batch": 4, "prompt": 32, "gen": 8, "seed": 0, "smoke": False}
 CASES = [(arch, shape, over, SERVE, "TRAIN_RULES") for arch in ARCHS
          for shape, over in MESHES] + [
-    (ARCHS[0], (2, 2), {"moe_impl": "ep_resident"}, SERVE, "TP_RULES")]
-IDS = [f"{a.split('-')[0]}-{s[0]}x{s[1]}-{'-'.join(o) or 'ep'}"
+    (ARCHS[0], (2, 2), {"moe_impl": "ep_resident"}, SERVE, "TP_RULES"),
+    ("qwen3-8b", (1, 4), {}, SERVE, "TP_RULES")]
+IDS = [(f"{a.split('-')[0]}-{s[0]}x{s[1]}-{'-'.join(o) or 'ep'}"
+        if get_arch(a).num_experts else f"{a}-{s[0]}x{s[1]}")
        + ("" if r == "TRAIN_RULES" else f"-{r}") for a, s, o, _, r in CASES]
 
 

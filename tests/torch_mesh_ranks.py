@@ -514,3 +514,58 @@ def held_bytes_rank(rank, world, store_dir, cases, out_dir):
                                 DR.tree_nbytes(blocks["opt"].mu)])
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     dist.destroy_process_group()
+
+
+def tp_rank(rank, world, store_dir, inputs, cases, out_dir):
+    """For each case (arch, config overrides, mesh shape, the rules' name):
+    the arch's whole tree from ``inputs`` (``{arch}_{j}``, leaf by leaf)
+    placed on the mesh under the rules, and on this rank's block of the
+    global batch (``{arch}_{key}``) the training step's loss and reduced
+    gradient blocks (``make_grad_fn``) and the forward's logits, gathered
+    over the vocabulary and the batch."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    torch.set_num_threads(1)          # the ranks share the host's cores
+    M.init_group(store_dir, rank, world, "gloo")
+    d = np.load(inputs)
+    res = {}
+    for i, (arch, over, shape, rname) in enumerate(cases):
+        cfg = dataclasses.replace(get_arch(arch).reduced(), **over)
+        shapes = T.param_shapes(cfg)
+        whole = tree_unflatten(shapes, [
+            torch.from_numpy(d[f"{arch}_{j}"])
+            for j in range(len(tree_leaves(shapes)))])
+        mesh = M.make_mesh(shape, ("data", "model"), device="cpu")
+        rules = getattr(SH, rname)
+        batch = {k[len(arch) + 1:]: torch.from_numpy(d[k]) for k in d.files
+                 if k.startswith(arch + "_") and not k[len(arch) + 1:]
+                 .isdigit()}
+        B = batch["tokens"].shape[0]
+        baxes = SH.batch_axes(B, rules, mesh)
+        local = {k: SH.local_block(v, SH.batch_spec(tuple(v.shape), rules,
+                                                    mesh), mesh)
+                 for k, v in batch.items()}
+        params = T.place_params(cfg, whole, mesh, rules=rules, device="cpu")
+        loss, grads = ST.make_grad_fn(cfg, TrainConfig(), mesh=mesh,
+                                      batch_axes=baxes, rules=rules)(
+            params, local)
+        res[f"{i}_loss"] = loss.numpy()
+        for j, g in enumerate(tree_leaves(grads)):
+            res[f"{i}_g{j}"] = g.numpy()
+        shard = SH.make_act_sharder(mesh, baxes, rules)
+        with torch.no_grad():
+            logits = T.forward(cfg, params, local["tokens"],
+                               frontend_embeds=local.get("frontend_embeds"),
+                               encoder_frames=local.get("encoder_frames"),
+                               shard=shard)
+        res[f"{i}_logits"] = SV.gather_batch(
+            T.gather_vocab(cfg, logits, shard), mesh, baxes).numpy()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
+    dist.destroy_process_group()
