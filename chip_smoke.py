@@ -113,7 +113,14 @@ and the resident form against the one-card path over the batch, (2, 2)
 against it over each data block; (c) ``serve`` in bf16 over 4 layers, the
 (1, 4) mesh's first greedy tokens equal to the one-card ``serve``'s and
 its prefill logits within MESH_REL, K5 once a layer in every rank's
-prefill, with each mesh's times, collectives and memory.  Phase 17,
+prefill, with each mesh's times, collectives and memory; (d) qwen3-8b
+over (1, 4) ``TP_RULES`` (TP's compute split; the served prefill's K5 on
+a rank's heads, no weight resharded in serving, the cache split along
+the sequence); (e) minicpm3-4b, Mamba-2 370M, RecurrentGemma-2B (a
+4096-token prompt, the ring) and Whisper-medium over the same ranks, the
+fp32 prefill logits within TP_REL of one card's and the greedy tokens
+equal, each rank's cache its spec blocks' bytes, a decode step
+resharding only what TP computes whole.  Phase 17,
 training over a mesh: qwen3-moe's gradient over (1, 4) and (2, 2) meshes
 against one card's, each rank's weights, reduced gradient and train-step
 arguments equal in bytes to the dry run's blocks of it
@@ -3397,13 +3404,82 @@ MESH_TIMEOUT_S = 900
 # prompts in bf16 (K5 at (4, 8, KV 2, 1024, 128) a rank; its psums
 # counted), the fp32 forward's last-position logits against one card's
 # within TP_REL in relative Frobenius error (TF32 off; only the order of
-# the row-parallel sums differs), and serve's prefill and 8 greedy tokens
-# (decode keeps attention whole and gathers it a layer at a time) equal on
-# every rank to one card's.
+# the row-parallel sums differs), and serve's prefill (K5 on the rank's
+# heads) and 8 greedy tokens, decode computing on the same blocks against
+# the cache split along the sequence (258 of the 1024 + 8 positions a
+# rank; no weight resharded): the bf16 tokens against one card's
+# reported, an fp32 serve of SPLIT_FP32_GEN tokens held equal to one
+# card's on every rank, its prefill logits within TP_REL.
 TP_MODEL = "qwen3-8b"
 TP_RUN = {"shape": (1, 4), "layers": 2, "batch": 4, "prompt": 1024,
           "gen": 8}
 TP_REL = 1e-5
+# (e) the families whose decode mixers compute on TP's blocks against the
+# cache split over model along the sequence, at full width over the same
+# (1, 4) TP_RULES ranks, weights from seed 0 as serve draws them: each
+# served in bf16 (timed, with no warm-up serve: the ranks' gloo buffers
+# are pinned by the cases before; its tokens against one card's
+# reported, not held) and in fp32 with TF32 off over SPLIT_FP32_GEN
+# tokens (the last prefill logits within TP_REL of one card's, every
+# rank's tokens equal to one card's).  Cut from 8 tokens and a warm-up
+# each: the run took 1,056 s on an H100 with them (1,050 s is the
+# aim).  minicpm3-4b over 2 of its 62 layers (40 heads, 10 a
+# rank; the latent cache 256 positions a rank), Mamba-2 370M over 2 of 48
+# (the SSD state's 32 heads, 8 a rank; a prompt of 4 ssm_chunk),
+# RecurrentGemma-2B over one pattern group (rglru, rglru, attn) at a
+# 4096-token prompt (the ring of W 2048, 512 slots a rank; its 10 heads
+# do not divide over 4, so attention is computed whole), Whisper-medium
+# over 2 decoder and 2 encoder layers (xk/xv's 1500 frames, 375 a rank;
+# zero frames, serve's stub).
+SPLIT_RUNS = {
+    "minicpm3-4b": {"layers": 2, "batch": 4, "prompt": 1024, "gen": 4},
+    "mamba2-370m": {"layers": 2, "batch": 4, "prompt": 1024, "gen": 4},
+    "recurrentgemma-2b": {"layers": 3, "batch": 4, "prompt": 4096,
+                          "gen": 4},
+    "whisper-medium": {"layers": 2, "batch": 4, "prompt": 384, "gen": 4},
+}
+SPLIT_FP32_GEN = 4
+
+
+def split_config(name, layers, dtype=None):
+    """A family of (e) at full width, checked as its phase checks it, cut
+    to ``layers`` (Whisper's encoder to as many), in ``dtype`` where
+    given."""
+    import dataclasses
+    if name == "minicpm3-4b":
+        return vlm_config(name, layers, dtype)
+    cfg = {"mamba2-370m": mamba_config, "recurrentgemma-2b": gemma_config,
+           "whisper-medium": lambda: paper_config(name)}[name]()
+    kw = {"encoder_layers": layers} if cfg.encoder_layers else {}
+    return dataclasses.replace(cfg, num_layers=layers,
+                               dtype=dtype or cfg.dtype, **kw)
+
+
+def decode_reshards(cfg, shard):
+    """The leaves a decode step over ``shard`` reshards: those whose
+    compute block is not the block a rank stores (``transformer.
+    placement``: only the leaves ``compute_defs`` keeps whole, and under
+    FSDP the data split), in the layers and the embedding, positions,
+    final norm and head it reads."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models import transformer as T
+    place = T.placement(cfg, shard)
+    if place is None:
+        return 0
+    defs = T.param_defs(cfg)
+    groups = cfg.num_layers // len(cfg.block_pattern)
+
+    def moved(d, ls, k=1):
+        return k * sum(C.moves(len(pd.shape), sp.storage, sp.compute,
+                               shard.mesh)
+                       for pd, sp in zip(T.tree_leaves(d),
+                                         T.tree_leaves(ls)))
+    top = ["embed", "final_norm",
+           "embed" if cfg.tie_embeddings else "lm_head"] + [
+               "pos_embed"] * (cfg.rope == "learned")
+    return (moved(defs["blocks"], place.specs["blocks"], groups)
+            + moved(defs["rem"], place.specs["rem"])
+            + sum(moved(defs[k], place.specs[k]) for k in top))
 
 
 def mesh_config(layers, dtype=None, **kw):
@@ -3418,27 +3494,47 @@ class collectives_counted:
     """Within the block every ``dist.all_reduce`` and ``dist.all_gather``
     is counted: calls, bytes of the tensor each is given, and the host's
     seconds inside it between two synchronizes of the card (so the time is
-    the collective's, not the card's queued work); the all-gathers (the
-    placement's reshards) also on their own (``gathers``: calls, bytes
-    given, seconds)."""
+    the collective's, not the card's queued work); the all-gathers also
+    on their own (``gathers``: calls, bytes given, seconds), and the
+    placement's reshards that move a weight's block (``reshards``: leaves
+    and the bytes of the blocks given)."""
 
     def __init__(self, sync):
         self.sync, self.calls, self.nbytes, self.s = sync, 0, 0, 0.0
         self.gathers = [0, 0, 0.0]
+        self.reshards = [0, 0]
 
     def snap(self):
-        return (self.calls, self.nbytes, self.s) + tuple(self.gathers)
+        return ((self.calls, self.nbytes, self.s) + tuple(self.gathers)
+                + tuple(self.reshards))
 
     def since(self, snap):
         return {"calls": self.calls - snap[0], "bytes": self.nbytes - snap[1],
                 "host_ms": (self.s - snap[2]) * 1e3,
                 "gather_calls": self.gathers[0] - snap[3],
                 "gather_bytes": self.gathers[1] - snap[4],
-                "gather_ms": (self.gathers[2] - snap[5]) * 1e3}
+                "gather_ms": (self.gathers[2] - snap[5]) * 1e3,
+                "reduce_calls": (self.calls - snap[0]) - (
+                    self.gathers[0] - snap[3]),
+                "reduce_bytes": (self.nbytes - snap[1]) - (
+                    self.gathers[1] - snap[4]),
+                "reshards": self.reshards[0] - snap[6],
+                "reshard_bytes": self.reshards[1] - snap[7]}
 
     def __enter__(self):
         import torch.distributed as dist
+
+        from repro_torch.distributed import collectives as C
         self.real = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+        self.real_reshard = real_reshard = C.reshard
+
+        def reshard(x, src, dst, mesh):
+            # a weight's stored block taken to another compute block
+            if C.moves(x.dim(), src, dst, mesh):
+                self.reshards[0] += 1
+                self.reshards[1] += x.numel() * x.element_size()
+            return real_reshard(x, src, dst, mesh)
+        C.reshard = reshard
 
         def wrap(name, fn):
             def counted(*args, **kw):
@@ -3464,8 +3560,11 @@ class collectives_counted:
 
     def __exit__(self, *exc):
         import torch.distributed as dist
+
+        from repro_torch.distributed import collectives as C
         for name, fn in self.real.items():
             setattr(dist, name, fn)
+        C.reshard = self.real_reshard
 
 
 def rank_bytes(cfg, mesh, batch_axes, batch, seq, kind="train", rules=None):
@@ -3492,7 +3591,7 @@ def rank_bytes(cfg, mesh, batch_axes, batch, seq, kind="train", rules=None):
         out["moment"] = DR.tree_nbytes(blocks["opt"].mu)
     layout = moe_ep.moe_layout(cfg, mesh, batch_axes)
     out["whole_leaf"] = sum(
-        math.prod(DR.block_shape(pd.shape, SH.compute_spec(pd.axes, layout),
+        math.prod(SH.block_shape(pd.shape, SH.compute_spec(pd.axes, layout),
                                  mesh)) * T._dtype(pd, cfg).itemsize
         for pd in T.tree_leaves(T.param_defs(cfg)))
     return out
@@ -3590,19 +3689,22 @@ def forward_recorded(cfg, params, tok, dev, shard=None):
     return {"ms": ms, "k5": dict(k5.seen), "logits": last.cpu(), **row}
 
 
-def serve_recorded(cfg, run, dev, mesh=None, rules=None, forward=False):
+def serve_recorded(cfg, run, dev, mesh=None, rules=None, forward=False,
+                   warm=True):
     """``launch.serve.serve`` of ``cfg`` (its registry name patched to
     ``cfg``) on one card, or over ``mesh`` from a rank under ``rules``
     (None: ``TRAIN_RULES``; its weights placed ``in_turns``, each rank's
     bytes held to the sum of its spec blocks),
     after a warm-up serve of at most 256 tokens and 2 (over a mesh 1: a
-    prefill alone; every call there is bound by the layers' all-gathers),
-    with what the step functions saw: the prefill's last-position logits
-    (the whole batch, fp32, on the host), K5's launches and the
-    collectives (calls, bytes, host ms; the reshards' all-gathers apart)
-    of the prefill and of each decode step, and the peak memory while
-    serving; with ``forward``, then ``forward_recorded`` over the served
-    prompts with the served weights."""
+    prefill alone; every call there is bound by the layers' all-gathers)
+    where ``warm``, with what the step functions saw: the prefill's
+    last-position logits (the whole batch, fp32, on the host), K5's
+    launches (the prefill's by shape too) and the collectives (calls,
+    bytes, host ms; the all-gathers and the reshards apart) of the
+    prefill and of each decode step, the bytes of the cache the decode
+    steps hold, and the peak memory while serving; with ``forward``,
+    then ``forward_recorded`` over the served prompts with the served
+    weights."""
     import torch
 
     from repro_torch.distributed import sharding as SH
@@ -3622,13 +3724,16 @@ def serve_recorded(cfg, run, dev, mesh=None, rules=None, forward=False):
 
             def call(*a):
                 c0, k0 = coll.snap(), flash_attention.launches
-                out = step(*a)
-                row = {"k5": flash_attention.launches - k0, **coll.since(c0)}
+                with k5_shapes() as k5:
+                    out = step(*a)
+                row = {"k5": flash_attention.launches - k0,
+                       "k5_shapes": dict(k5.seen), **coll.since(c0)}
                 if what == "prefill":
                     rec["prefill"] = row
                     rec["logits"] = out[0][:, -1].float()
                 else:
                     rec["decode"].append(row)
+                    rec["cache_bytes"] = tree_bytes(out[1])
                 return out
             return call
         return made
@@ -3641,10 +3746,11 @@ def serve_recorded(cfg, run, dev, mesh=None, rules=None, forward=False):
         SV.T.place_params = in_turns(real_place, dev, stats)
     try:
         with serving_config(cfg), coll:
-            SV.serve(cfg.name, smoke=False, device=dev, mesh=mesh,
-                     rules=rules, batch=run["batch"],
-                     prompt=min(256, run["prompt"]),
-                     gen=2 if mesh is None else 1)
+            if warm:
+                SV.serve(cfg.name, smoke=False, device=dev, mesh=mesh,
+                         rules=rules, batch=run["batch"],
+                         prompt=min(256, run["prompt"]),
+                         gen=2 if mesh is None else 1)
             rec["decode"] = []
             if cuda:
                 torch.cuda.empty_cache()
@@ -3706,7 +3812,7 @@ def serve_recorded(cfg, run, dev, mesh=None, rules=None, forward=False):
             "prefill_ms": out["prefill_s"] * 1e3,
             "decode_ms": out["decode_s_per_token"] * 1e3,
             "logits": logits.cpu(), "prefill": rec["prefill"],
-            "decode": rec["decode"],
+            "decode": rec["decode"], "cache_bytes": rec.get("cache_bytes"),
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda
             else 0.0, **stats}
 
@@ -3800,8 +3906,10 @@ def exact_on_mesh(cfg, tok, feed, low, mesh, dev):
     with torch.no_grad():
         logits, cache = ST.make_prefill_step(cfg, **kw)(params, {"tokens": tl})
         out["prefill"] = gather(logits)
-        cache = SV._grow_cache(cfg, cache, tl.shape[0], S + feed.shape[1])
-        step = ST.make_decode_step(cfg, **kw)
+        cache = SV._grow_cache(cfg, cache, tl.shape[0], S + feed.shape[1],
+                               shard=SH.make_act_sharder(mesh, baxes, rules),
+                               seq=S)
+        step = ST.make_decode_step(cfg, seq=S + feed.shape[1], **kw)
         for i in range(feed.shape[1]):
             logits, cache = step(params, cache, {"tokens": fl[:, i:i + 1]})
             out[f"decode{i}"] = gather(logits)
@@ -3818,9 +3926,9 @@ def exact_on_mesh(cfg, tok, feed, low, mesh, dev):
 def tp_on_mesh(tp, mesh, dev):
     """Phase 16's TP case on this rank (``TP_RULES`` over ``mesh``): the
     bf16 ``serve`` of ``tp["cfg"]`` and the forward over its prompts with
-    the served weights (``serve_recorded``), then the fp32 forward's
-    last-position logits with the fp32 weights placed in turns from the
-    same seed."""
+    the served weights (``serve_recorded``), the fp32 ``serve`` of
+    ``SPLIT_FP32_GEN`` tokens, then the fp32 forward's last-position
+    logits with the fp32 weights placed in turns from the same seed."""
     import torch
 
     from repro_torch.distributed import sharding as SH
@@ -3829,6 +3937,11 @@ def tp_on_mesh(tp, mesh, dev):
     run = {k: tp["run"][k] for k in ("batch", "prompt", "gen")}
     out = {"serve": serve_recorded(tp["cfg"], run, dev, mesh, rules,
                                    forward=True)}
+    out["serve"]["cache_spec_bytes"] = cache_spec_bytes(tp["cfg"], mesh, run,
+                                                        rules)
+    empty_host_cache()
+    out["serve32"] = serve_recorded(tp["cfg32"], dict(run, gen=SPLIT_FP32_GEN),
+                                    dev, mesh, rules, warm=False)
     empty_host_cache()
     cfg32 = tp["cfg32"]
     B, S = run["batch"], run["prompt"]
@@ -3843,6 +3956,41 @@ def tp_on_mesh(tp, mesh, dev):
     del params
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    return out
+
+
+def cache_spec_bytes(cfg, mesh, run, rules):
+    """The bytes of a rank's blocks of the cache of ``run``'s capacity
+    (prompt + gen) on ``mesh`` under ``rules``: the dry run's count
+    (``launch.dryrun.cell_blocks``, the JAX package's spec)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun as DR
+    return DR.tree_nbytes(DR.cell_blocks(
+        cfg, ShapeConfig("rank", "decode", run["prompt"] + run["gen"],
+                         run["batch"]), mesh, rules)["cache"])
+
+
+def split_on_mesh(split, mesh, dev):
+    """(e) on this rank (``TP_RULES`` over ``mesh``): for each family, the
+    bf16 ``serve`` (timed) and the fp32 one
+    (``SPLIT_FP32_GEN`` tokens), each with the bytes of the rank's cache
+    beside its spec blocks' (``launch.dryrun.cell_blocks``) and the
+    reshards a decode step should make (``decode_reshards``)."""
+    from repro_torch.distributed import sharding as SH
+    rules = SH.TP_RULES
+    out = []
+    for case in split:
+        row = {}
+        for key in ("bf16", "fp32"):
+            cfg, run = case[key], case[key + "_run"]
+            sv = serve_recorded(cfg, run, dev, mesh, rules, warm=False)
+            empty_host_cache()
+            baxes = SH.batch_axes(run["batch"], rules, mesh)
+            sv["cache_spec_bytes"] = cache_spec_bytes(cfg, mesh, run, rules)
+            sv["want_reshards"] = decode_reshards(
+                cfg, SH.make_act_sharder(mesh, baxes, rules))
+            row[key] = sv
+        out.append(row)
     return out
 
 
@@ -3893,6 +4041,11 @@ def mesh_rank(rank, world, store_dir, job):
     dist.barrier()
     row["s"] = time.perf_counter() - t0
     res.append(row)
+    t0 = time.perf_counter()
+    row = {"split": split_on_mesh(job["split"], mesh, dev)}
+    dist.barrier()
+    row["s"] = time.perf_counter() - t0
+    res.append(row)
     torch.save(res, os.path.join(job["out"], f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -3919,9 +4072,13 @@ def drive_mesh(dev, card):
     ``TP_RULES``, every rank's served tokens equal to one card's, the bf16
     forward with K5 at (4, 8, KV 2) a rank and no reshard, each rank's
     split leaves a quarter of the whole leaves' bytes, the fp32 forward's
-    last-position logits within ``TP_REL`` of one card's.  Returns K5's
-    launches in the meshes' served prefills and forwards, summed over
-    ranks, and those at the TP ranks' shapes by (H, KV, Sq, Skv, D)."""
+    last-position logits within ``TP_REL`` of one card's, the served
+    prefill's K5 at the rank's heads, no weight resharded in serving,
+    each rank's cache its spec blocks' bytes (the sequence split over
+    ``model``).  (e) the families of ``SPLIT_RUNS`` over the same ranks
+    (``split_on_mesh``, ``check_split``).  Returns K5's launches in the
+    meshes' served prefills and forwards, summed over ranks, and those
+    at the TP ranks' shapes by (H, KV, Sq, Skv, D)."""
     import dataclasses
     import shutil
 
@@ -3970,6 +4127,8 @@ def drive_mesh(dev, card):
                               .requests_at(0)["tokens"])
     t0 = time.perf_counter()
     one_tp = serve_recorded(cfg_tp, run_tp, dev, forward=True)
+    one_tp32s = serve_recorded(cfg_tp32, dict(run_tp, gen=SPLIT_FP32_GEN),
+                               dev, warm=False)
     params = T.init_params(cfg_tp32, torch.Generator(device=dev).manual_seed(
         0), device=dev)
     one_tp32 = forward_recorded(cfg_tp32, params, tok_tp.to(dev), dev)
@@ -3984,6 +4143,30 @@ def drive_mesh(dev, card):
           f"{one_tp['forward']['k5']}; the fp32 forward "
           f"{one_tp32['ms']:.3f} ms; {time.perf_counter() - t0:.1f} s; "
           f"card {card}")
+    # (e)'s one-card runs: each family's bf16 and fp32 serves
+    split, one_split = [], []
+    for name, r in SPLIT_RUNS.items():
+        run = {k: r[k] for k in ("batch", "prompt", "gen")}
+        case = {"name": name, "bf16": split_config(name, r["layers"]),
+                "bf16_run": run,
+                "fp32": split_config(name, r["layers"], "float32"),
+                "fp32_run": dict(run, gen=SPLIT_FP32_GEN)}
+        t0 = time.perf_counter()
+        one_split.append({k: serve_recorded(case[k], case[k + "_run"], dev,
+                                            warm=False)
+                          for k in ("bf16", "fp32")})
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        o = one_split[-1]["bf16"]
+        print(f"phase 16(e) one card {name} ({case['bf16'].num_layers} "
+              f"layers at full width, bf16): serve batch {run['batch']}, "
+              f"prompt {run['prompt']}, gen {run['gen']}: "
+              f"prefill_ms={o['prefill_ms']:.3f} "
+              f"decode_ms_per_token={o['decode_ms']:.3f}, K5 a prefill "
+              f"{o['prefill']['k5_shapes']}; the fp32 serve of "
+              f"{SPLIT_FP32_GEN} tokens too; "
+              f"{time.perf_counter() - t0:.1f} s; card {card}")
+        split.append(case)
     cfg16 = mesh_config(MESH_SERVE["layers"])
     one = serve_recorded(cfg16, run_c, dev)
     if one["prefill"]["k5"] != cfg16.num_layers:
@@ -4030,7 +4213,8 @@ def drive_mesh(dev, card):
                       "serve_cfg": dataclasses.replace(cfg16, moe_impl=impl)}
                      for shape, impl in MESH_CASES],
            "tp": {"run": TP_RUN, "cfg": cfg_tp, "cfg32": cfg_tp32,
-                  "tokens": tok_tp}}
+                  "tokens": tok_tp},
+           "split": split}
     host0 = host_available_gb()
     t0 = time.perf_counter()
     M.run_ranks(mesh_rank, world, job, timeout_s=MESH_TIMEOUT_S)
@@ -4169,12 +4353,33 @@ def drive_mesh(dev, card):
         rels.append(rel)
         same = torch.equal(got.argmax(-1), want.argmax(-1))
         problems = []
-        if not torch.equal(sv["generated"], one_tp["generated"]):
-            problems.append(f"tokens {sv['generated'].tolist()} vs one "
-                            f"card's {one_tp['generated'].tolist()}")
-        if fw["k5"] != want_k5 or f32["k5"] != want_k5:
-            problems.append(f"K5 {fw['k5']} (fp32 {f32['k5']}), want "
+        s32 = row["serve32"]
+        if not torch.equal(sv["generated"], tp[0]["serve"]["generated"]):
+            problems.append("bf16 tokens differ from rank 0's")
+        if not torch.equal(s32["generated"], one_tp32s["generated"]):
+            problems.append(f"fp32 tokens {s32['generated'].tolist()} vs "
+                            f"one card's {one_tp32s['generated'].tolist()}")
+        want32 = one_tp32s["logits"][:, tpv]
+        rel_s = ((s32["logits"][:, tpv] - want32).norm()
+                 / want32.norm()).item()
+        if not rel_s <= TP_REL:
+            problems.append(f"fp32 served prefill logits rel err "
+                            f"{rel_s:.3e} (limit {TP_REL})")
+        if any(d["reshards"] for d in s32["decode"]):
+            problems.append("fp32 decode steps reshard weights")
+        if (fw["k5"] != want_k5 or f32["k5"] != want_k5
+                or sv["prefill"]["k5_shapes"] != want_k5):
+            problems.append(f"K5 {fw['k5']} (fp32 {f32['k5']}, the served "
+                            f"prefill {sv['prefill']['k5_shapes']}), want "
                             f"{want_k5}")
+        if any(d["reshards"] for d in sv["decode"]) or sv["prefill"][
+                "reshards"]:
+            problems.append(f"weights resharded: the prefill "
+                            f"{sv['prefill']['reshards']}, the decode steps "
+                            f"{[d['reshards'] for d in sv['decode']]}")
+        if sv["cache_bytes"] != sv["cache_spec_bytes"]:
+            problems.append(f"cache {sv['cache_bytes']} bytes, its spec "
+                            f"blocks {sv['cache_spec_bytes']}")
         if not (fw["placement_none"] and fw["gather_calls"] == 0
                 and f32["gather_calls"] == 0):
             problems.append(f"a dense block leaf resharded: placement None "
@@ -4194,20 +4399,39 @@ def drive_mesh(dev, card):
             "prefill"]["k5"]
         tp_launches(fw["k5"])
         tp_launches(f32["k5"])
+        tp_launches(sv["prefill"]["k5_shapes"])
+        tp_launches(s32["prefill"]["k5_shapes"])
+        k5_mesh += s32["prefill"]["k5"]
     sv, fw, f32 = tp[0]["serve"], tp[0]["serve"]["forward"], tp[0]["fp32"]
-    pre = sv["prefill"]
+    pre, dec = sv["prefill"], sv["decode"][-1]
+    diff = (sv["generated"] != one_tp["generated"]).any(0).nonzero()
+    first = "none" if not len(diff) else int(diff[0])
+    s32 = tp[0]["serve32"]
+    rel_s = ((s32["logits"][:, tpv] - one_tp32s["logits"][:, tpv]).norm()
+             / one_tp32s["logits"][:, tpv].norm()).item()
     print(f"phase 16{name} TP_RULES, {m} ranks on the one card (gloo), "
           f"{describe(cfg_tp)}: serve batch {run_tp['batch']}, prompt "
-          f"{run_tp['prompt']}, gen {run_tp['gen']}: every rank's tokens "
-          f"equal to one card's ({one_tp['generated'][:, 0].tolist()} "
-          f"first); prefill_ms per rank "
+          f"{run_tp['prompt']}, gen {run_tp['gen']}: bf16 tokens equal to "
+          f"one card's {first == 'none'}, first step that differs {first} "
+          f"(not held: the split softmax sums in fp32 where one card rounds "
+          f"its weights to bf16); fp32 (TF32 off) serve of "
+          f"{SPLIT_FP32_GEN} tokens equal to one card's on every rank, its "
+          f"prefill logits rel err {rel_s:.3e} (limit {TP_REL}); "
+          f"prefill_ms per rank "
           f"{[round(x['serve']['prefill_ms'], 3) for x in tp]} "
           f"(one card {one_tp['prefill_ms']:.3f}), decode_ms_per_token "
           f"{[round(x['serve']['decode_ms'], 3) for x in tp]} (one card "
           f"{one_tp['decode_ms']:.3f}); the prefill's collectives "
           f"{pre['calls']} ({pre['bytes']} bytes, host ms "
-          f"{pre['host_ms']:.3f}; attention's all-gathers "
-          f"{pre['gather_calls']}, {pre['gather_bytes']} bytes); the bf16 "
+          f"{pre['host_ms']:.3f}; all-gathers {pre['gather_calls']}, "
+          f"{pre['gather_bytes']} bytes: the cache's K/V heads and the "
+          f"logits; K5 {pre['k5_shapes']} a rank); a decode step's "
+          f"collectives: all-reduces {dec['reduce_calls']} "
+          f"({dec['reduce_bytes']} bytes), all-gathers {dec['gather_calls']} "
+          f"({dec['gather_bytes']} bytes), reshards {dec['reshards']}, host "
+          f"ms {dec['host_ms']:.3f}; each rank's cache "
+          f"{[x['serve']['cache_bytes'] for x in tp]} bytes, its spec blocks "
+          f"{sv['cache_spec_bytes']}; the bf16 "
           f"forward over the prompts ms per rank "
           f"{[round(x['serve']['forward']['ms'], 3) for x in tp]} (one "
           f"card {one_tp['forward']['ms']:.3f}; counted collectives "
@@ -4224,7 +4448,86 @@ def drive_mesh(dev, card):
           f"{TP_REL}), same argmax; peak serving per rank "
           f"{[round(x['serve']['peak_gb'], 2) for x in tp]} GB; "
           f"{tp[0]['s']:.1f} s on the ranks; card {card}")
+
+    # (e): the families whose decode mixers compute on TP's blocks
+    k5_mesh += check_split(split, one_split,
+                           [r[len(MESH_CASES) + 1] for r in by_rank], card)
     return k5_mesh, k5_tp
+
+
+def check_split(split, one_split, ranks, card):
+    """(e)'s checks and lines: in fp32 every rank's last prefill logits
+    within ``TP_REL`` of one card's (same argmax) and its tokens equal to
+    one card's; in both dtypes every rank's tokens equal to rank 0's, its
+    cache bytes its spec blocks', and each decode step resharding only
+    what ``decode_reshards`` says (no leaf TP computes split); the bf16
+    tokens against one card's reported.  Returns K5's launches in the
+    ranks' prefills."""
+    import torch
+    k5 = 0
+    for i, case in enumerate(split):
+        name, cfg = case["name"], case["bf16"]
+        rows = [r["split"][i] for r in ranks]
+        vocab = slice(0, cfg.vocab_size)
+        problems, rels = [], []
+        for r, row in enumerate(rows):
+            for key in ("bf16", "fp32"):
+                sv, one = row[key], one_split[i][key]
+                if not torch.equal(sv["generated"], rows[0][key]["generated"]):
+                    problems.append(f"rank {r} {key} tokens differ from rank "
+                                    f"0's")
+                if sv["cache_bytes"] != sv["cache_spec_bytes"]:
+                    problems.append(f"rank {r} {key} cache "
+                                    f"{sv['cache_bytes']} bytes, its spec "
+                                    f"blocks {sv['cache_spec_bytes']}")
+                steps = [d["reshards"] for d in sv["decode"]]
+                if any(n != sv["want_reshards"] for n in steps):
+                    problems.append(f"rank {r} {key} decode reshards "
+                                    f"{steps}, want {sv['want_reshards']}")
+                k5 += sv["prefill"]["k5"]
+            f32, one32 = row["fp32"], one_split[i]["fp32"]
+            got, want = f32["logits"][:, vocab], one32["logits"][:, vocab]
+            rel = ((got - want).norm() / want.norm()).item()
+            rels.append(rel)
+            if not (torch.isfinite(got).all() and rel <= TP_REL
+                    and torch.equal(got.argmax(-1), want.argmax(-1))):
+                problems.append(f"rank {r} fp32 prefill logits rel err "
+                                f"{rel:.3e} (limit {TP_REL})")
+            if not torch.equal(f32["generated"], one32["generated"]):
+                problems.append(f"rank {r} fp32 tokens "
+                                f"{f32['generated'].tolist()} vs one card's "
+                                f"{one32['generated'].tolist()}")
+        if problems:
+            raise AssertionError(f"phase 16(e) {name}: " + "; ".join(problems))
+        bf, one = rows[0]["bf16"], one_split[i]["bf16"]
+        diff = (bf["generated"] != one["generated"]).any(0).nonzero()
+        first = "none" if not len(diff) else int(diff[0])
+        dec, pre = bf["decode"][-1], bf["prefill"]
+        print(f"phase 16(e) {name} over (1, 4) TP_RULES, 4 ranks on the one "
+              f"card (gloo), {cfg.num_layers} layers at full width: bf16 "
+              f"serve batch {bf['generated'].shape[0]}, gen "
+              f"{bf['generated'].shape[1]}: prefill_ms per rank "
+              f"{[round(x['bf16']['prefill_ms'], 3) for x in rows]} (one "
+              f"card {one['prefill_ms']:.3f}), decode_ms_per_token "
+              f"{[round(x['bf16']['decode_ms'], 3) for x in rows]} (one card "
+              f"{one['decode_ms']:.3f}); tokens equal to one card's "
+              f"{first == 'none'}, first step that differs {first}; K5 a "
+              f"prefill {pre['k5_shapes']}; the prefill's collectives "
+              f"{pre['calls']} ({pre['bytes']} bytes; reshards "
+              f"{pre['reshards']}); a decode step: all-reduces "
+              f"{dec['reduce_calls']} ({dec['reduce_bytes']} bytes), "
+              f"all-gathers {dec['gather_calls']} ({dec['gather_bytes']} "
+              f"bytes), reshards {dec['reshards']} ({dec['reshard_bytes']} "
+              f"bytes; what TP computes whole: {bf['want_reshards']}), host "
+              f"ms {dec['host_ms']:.3f}; each rank's cache "
+              f"{[x['bf16']['cache_bytes'] for x in rows]} bytes, its spec "
+              f"blocks {bf['cache_spec_bytes']}; fp32 (TF32 off) last "
+              f"prefill logits vs one card rel Frobenius err per rank "
+              f"{[f'{x:.3e}' for x in rels]} (limit {TP_REL}), "
+              f"{SPLIT_FP32_GEN} greedy tokens equal to one card's on every "
+              f"rank; {ranks[0]['s']:.1f} s on the ranks for (e); card "
+              f"{card}")
+    return k5
 
 
 

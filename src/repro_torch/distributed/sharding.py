@@ -37,8 +37,10 @@ layout, so nothing is left of the callback but what the model reads:
 ``make_act_sharder`` gives an ``ActSharder``, the mesh, the axes the batch
 was split over and the rules.  ``resolve_rules`` refuses the two rule
 sets whose activation layouts (``act_seq``, ``act_hidden``) are not
-ported.  ``local_block`` cuts a rank's block of a tensor out of the whole
-by its spec.
+ported.  ``cache_specs`` gives the decode cache's blocks (the batch over
+``pod``/``data``, the sequence over ``model``, the SSD state's heads over
+``model``).  ``local_block`` cuts a rank's block of a tensor out of the
+whole by its spec.
 """
 from __future__ import annotations
 
@@ -223,6 +225,32 @@ def param_spec_tree(shape_tree: Pytree, axes_tree: Pytree,
     specs = [spec_for(tuple(s.shape), a, rules, mesh)
              for s, a in zip(flat_s, flat_a)]
     return tree_unflatten(shape_tree, specs)
+
+
+def block_shape(shape: Sequence[int], spec: P, mesh) -> Tuple[int, ...]:
+    """The shape of a rank's block of a tensor of ``shape`` under ``spec``
+    on ``mesh`` (a ``DeviceMesh`` or a fake one)."""
+    sizes = mesh_shape(mesh)
+    out = list(shape)
+    for dim, part in enumerate(spec):
+        if part is not None:
+            out[dim] //= math.prod(sizes[a] for a in (
+                (part,) if isinstance(part, str) else part))
+    return tuple(out)
+
+
+def cache_specs(cfg, mesh, batch: int, seq: int, rules=None) -> Pytree:
+    """The spec of every leaf of the decode cache of ``batch`` sequences of
+    ``seq`` positions on ``mesh`` under ``rules`` (None: ``TRAIN_RULES``):
+    the cache part of the JAX package's ``shardings_for``, ``spec_for`` of
+    ``decode.cache_logical_axes`` with every rule (``cache_batch``,
+    ``cache_seq`` and ``heads``, the sequence over ``model`` where it
+    divides)."""
+    from repro_torch.models import decode as DE
+    return param_spec_tree(DE.cache_shapes(cfg, batch, seq,
+                                           make=DE.LeafShape),
+                           DE.cache_logical_axes(cfg, batch, seq),
+                           rules or TRAIN_RULES, mesh)
 
 
 def batch_axes(batch: int, rules, mesh) -> Tuple[str, ...]:

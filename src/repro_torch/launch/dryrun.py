@@ -9,8 +9,8 @@ For each cell this driver:
      asks ``device.resolve`` for one);
   2. builds rank 0's blocks as ``meta`` tensors (shape and dtype, no
      storage): every parameter under ``transformer.param_block_specs``,
-     the AdamW moments alike, the batch and cache under
-     ``steps.shardings_for``'s batch specs;
+     the AdamW moments alike, the batch and the cache under
+     ``steps.shardings_for``'s specs;
   3. runs the real step of ``steps.make_train_step`` (whose AdamW
      update writes the parameters and moments in place, JAX's donation),
      ``make_prefill_step`` or ``make_decode_step`` on them once, eagerly,
@@ -41,9 +41,10 @@ holds ``real`` only.  Four operators' output sizes depend on the data:
 which the ids lie below), ``nonzero`` of the kept assignments and
 ``unique`` of the tokens (both counted at their bound: every element
 kept, every token distinct).  Over a mesh the decode cache is each rank's
-batch block of the whole sequence, the layout the port's decode keeps
-(its ``cache_seq`` split over model is not ported), where JAX's spec
-splits the sequence too.  ``SEQPAR``/``DECODE`` cells are refused, with
+block under the JAX package's spec (``sharding.cache_specs``: the batch
+over ``pod``/``data``, the sequence over ``model`` where it divides, the
+SSD state's heads over ``model``), the layout the port's decode keeps.
+``SEQPAR``/``DECODE`` cells are refused, with
 ``sharding.resolve_rules``' message; ``long_500k`` is skipped on a
 quadratic arch, as in the JAX dry run.
 
@@ -72,7 +73,6 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed import sharding as SHD
 from repro_torch.launch import steps as ST
 from repro_torch.launch.mesh import production_mesh_shape
-from repro_torch.models import decode as DE
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.tree import tree_leaves, tree_map
@@ -93,24 +93,11 @@ LAUNCHES = {"systolic_matmul": ("systolic_matmul",),
 # a rank's blocks
 # ---------------------------------------------------------------------------
 
-def block_shape(shape: Sequence[int], spec, mesh) -> Tuple[int, ...]:
-    """The shape of a rank's block of a tensor of ``shape`` under
-    ``spec`` on ``mesh`` (a ``DeviceMesh`` or a fake one)."""
-    sizes = SHD.mesh_shape(mesh)
-    out = list(shape)
-    for dim, part in enumerate(spec):
-        if part is not None:
-            n = math.prod(sizes[a] for a in ((part,) if isinstance(part, str)
-                                              else part))
-            out[dim] //= n
-    return tuple(out)
-
-
 def _blocks(shapes, specs, mesh, device):
     """``shapes``' tree of tensors (anything with ``shape`` and ``dtype``)
     as empty blocks under ``specs``' tree on ``device``."""
     return tree_map(lambda s, sp: torch.empty(
-        block_shape(s.shape, sp, mesh), dtype=s.dtype, device=device),
+        SHD.block_shape(s.shape, sp, mesh), dtype=s.dtype, device=device),
         shapes, specs)
 
 
@@ -120,9 +107,10 @@ def cell_blocks(cfg: ModelConfig, shape: ShapeConfig, mesh, rules=None,
     (``transformer.param_block_specs`` of ``rules``; raises on the rule
     sets ``sharding.resolve_rules`` refuses), for a train cell ``opt``
     (the AdamW state, its moments in the parameters' blocks), ``batch``
-    and for a decode cell ``cache`` (the batch blocks of the whole
-    sequence, as the port's decode holds it).  Every rank of a mesh
-    holds blocks of the same shapes."""
+    and for a decode cell ``cache`` (its blocks under
+    ``steps.shardings_for``'s cache specs, the JAX package's: the batch
+    over ``pod``/``data``, the sequence and the SSD heads over
+    ``model``).  Every rank of a mesh holds blocks of the same shapes."""
     rules = rules or SHD.TRAIN_RULES
     pspec = T.param_block_specs(cfg, mesh, rules)
     sh = ST.shardings_for(cfg, mesh, shape, rules,
@@ -136,11 +124,7 @@ def cell_blocks(cfg: ModelConfig, shape: ShapeConfig, mesh, rules=None,
             nu=_blocks(o.nu, pspec, mesh, device))
     out["batch"] = _blocks(sh["batch_shapes"], sh["batch"], mesh, device)
     if shape.kind == "decode":
-        B, S = shape.global_batch, shape.seq_len
-        cspec = SHD.param_spec_tree(
-            sh["cache_shapes"], DE.cache_logical_axes(cfg, B, S),
-            {"cache_batch": rules["cache_batch"]}, mesh)
-        out["cache"] = _blocks(sh["cache_shapes"], cspec, mesh, device)
+        out["cache"] = _blocks(sh["cache_shapes"], sh["cache"], mesh, device)
     return out
 
 
@@ -281,7 +265,8 @@ def _step(cfg, shape, mesh, rules, blocks):
         fn = ST.make_prefill_step(cfg, mesh=mesh, batch_axes=baxes,
                                   rules=rules)
         return fn(blocks["params"], blocks["batch"])
-    fn = ST.make_decode_step(cfg, mesh=mesh, batch_axes=baxes, rules=rules)
+    fn = ST.make_decode_step(cfg, mesh=mesh, batch_axes=baxes, rules=rules,
+                             seq=shape.seq_len)
     return fn(blocks["params"], blocks["cache"], blocks["batch"])
 
 
@@ -396,8 +381,9 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: Path,
             wall_s=time.time() - t0,
         )
         if shape.kind == "decode":
-            rec["cache_layout"] = ("each rank's batch block of the whole "
-                                   "sequence (cache_seq split not ported)")
+            rec["cache_layout"] = ("each rank's block under the JAX "
+                                   "package's cache spec (cache_batch, "
+                                   "cache_seq over model, SSD heads)")
         print(f"[dryrun] {tag}: dominant={terms.dominant} "
               f"compute={terms.compute_s:.4f}s memory={terms.memory_s:.4f}s "
               f"coll={terms.collective_s:.4f}s frac={terms.roofline_fraction:.3f} "

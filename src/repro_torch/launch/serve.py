@@ -15,15 +15,19 @@ so it is the card's time for the phase, not the time to enqueue it.
 same whole batch, keeps its ``batch_spec`` block, holds its block of
 every weight under ``rules`` (``transformer.place_params``, drawn leaf by
 leaf from the seed's generator: the one-card run's weights), prefills and
-decodes through the sharded steps, which gather each layer's blocks as
-they take it (every token gathers every split leaf once), and gathers
-the greedy tokens of every block, so every rank returns the whole
-batch's.
+decodes through the sharded steps, which compute on TP's blocks
+(resharding only the leaves ``transformer.compute_defs`` keeps whole,
+and under FSDP the data split) and hold the rank's block of the cache
+under the JAX package's spec (``sharding.cache_specs``: the sequence
+split over ``model``), re-cut at the capacity by ``_grow_cache``, and
+gathers the greedy tokens of every block, so every rank returns the
+whole batch's.
 """
 from __future__ import annotations
 
 import argparse
 import itertools
+import math
 import time
 
 import numpy as np
@@ -33,6 +37,7 @@ import torch.distributed as dist
 from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import RequestStream
 from repro_torch.device import resolve
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import sharding as SH
 from repro_torch.launch import steps as ST
 from repro_torch.models import decode as DE
@@ -98,7 +103,8 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt: int = 64,
     prefill_fn = ST.make_prefill_step(cfg, mesh=mesh, batch_axes=baxes,
                                       rules=rules)
     decode_fn = ST.make_decode_step(cfg, mesh=mesh, batch_axes=baxes,
-                                    rules=rules)
+                                    rules=rules, seq=prompt + gen)
+    shard = None if mesh is None else SH.make_act_sharder(mesh, baxes, rules)
     batch_in = {"tokens": tokens.to(dev)}
     if cfg.frontend == "audio_frames":
         # the stub frontend, as the JAX package's: zero frame embeddings
@@ -116,7 +122,8 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt: int = 64,
     t0 = time.perf_counter()
     logits, cache = prefill_fn(params, batch_in)
     # grow the cache to prompt+gen capacity for attention layers
-    cache = _grow_cache(cfg, cache, batch, prompt + gen)
+    cache = _grow_cache(cfg, cache, batch, prompt + gen, shard=shard,
+                        seq=prompt)
     _sync(dev, mesh)
     t_prefill = time.perf_counter() - t0
 
@@ -140,15 +147,31 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt: int = 64,
     }
 
 
-def _grow_cache(cfg, cache, batch: int, capacity: int):
+def _grow_cache(cfg, cache, batch: int, capacity: int, *, shard=None,
+                seq=None):
     """Re-embed a prompt-sized cache into a ``capacity``-sized one (prefix
     copy along the seq dim; ring/state caches, ``kpos`` included, and the
     encoder's ``xk``/``xv`` are size-invariant).
 
     A prompt within the sliding window whose ``capacity`` outgrows it would
     turn a full K/V cache into a ring; the JAX package's version breaks
-    there on the mismatched trees, and this one raises ``ValueError``."""
-    def grow(tmpl, src):
+    there on the mismatched trees, and this one raises ``ValueError``.
+
+    Over a mesh (``shard``, a ``sharding.ActSharder``; ``batch`` the
+    rank's block, ``seq`` the prompt's length) the cache is the rank's
+    blocks under ``sharding.cache_specs``: a leaf whose blocks change
+    with the length (the sequence split over ``model``) is gathered whole
+    over its non-batch axes, padded, and cut to the rank's block of the
+    capacity-sized leaf."""
+    old_specs = new_specs = axes = None
+    B = batch
+    if shard is not None:
+        old_specs = ST.cache_specs_for(cfg, shard, batch, seq)
+        new_specs = ST.cache_specs_for(cfg, shard, batch, capacity)
+        B *= math.prod(SH.mesh_shape(shard.mesh)[a] for a in shard.batch_axes)
+        axes = DE.cache_logical_axes(cfg, B, capacity)
+
+    def grow(tmpl, src, so, sn, ax):
         if isinstance(tmpl, dict):
             if tmpl.keys() != src.keys():
                 raise ValueError(
@@ -157,16 +180,36 @@ def _grow_cache(cfg, cache, batch: int, capacity: int):
                     f"({cfg.sliding_window}) but prompt + gen = {capacity} "
                     f"outgrows it, which needs a ring cache the prefill did "
                     f"not build")
-            return {k: grow(tmpl[k], src[k]) for k in tmpl}
+            return {k: grow(tmpl[k], src[k], so and so[k], sn and sn[k],
+                            ax and ax[k]) for k in tmpl}
         if isinstance(tmpl, list):
-            return [grow(t, s) for t, s in zip(tmpl, src)]
-        if tmpl.shape == src.shape:
+            return [grow(*args) for args in zip(
+                tmpl, src, so or [None] * len(tmpl), sn or [None] * len(tmpl),
+                ax or [None] * len(tmpl))]
+        if shard is None:
+            if tmpl.shape == src.shape:
+                return src
+            dst = torch.zeros(tmpl.shape, dtype=tmpl.dtype, device=src.device)
+            dst[tuple(slice(0, s) for s in src.shape)] = src
+            return dst
+        if so == sn and tuple(src.shape) == SH.block_shape(tmpl.shape, sn,
+                                                           shard.mesh):
             return src
-        dst = torch.zeros(tmpl.shape, dtype=tmpl.dtype, device=src.device)
-        dst[tuple(slice(0, s) for s in src.shape)] = src
-        return dst
+        # the non-batch splits gathered, the leaf padded, the new cut
+        rest = lambda sp: SH.P(*(None if a == "cache_batch" else part
+                                 for a, part in zip(ax, tuple(sp) + (None,) * (
+                                     len(ax) - len(sp)))))
+        whole = coll.gather_block(src, rest(so), shard.mesh)
+        batch_only = SH.P(*(part if a == "cache_batch" else None for a, part
+                            in zip(ax, tuple(sn) + (None,) * (
+                                len(ax) - len(sn)))))
+        dst = torch.zeros(SH.block_shape(tmpl.shape, batch_only, shard.mesh),
+                          dtype=tmpl.dtype, device=src.device)
+        dst[tuple(slice(0, s) for s in whole.shape)] = whole
+        return SH.local_block(dst, rest(sn), shard.mesh).contiguous()
 
-    new = grow(DE.cache_shapes(cfg, batch, capacity), cache)
+    new = grow(DE.cache_shapes(cfg, B, capacity, make=DE.LeafShape), cache,
+               old_specs, new_specs, axes)
     new["pos"] = cache["pos"]
     return new
 

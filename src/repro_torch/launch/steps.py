@@ -37,6 +37,7 @@ once; ``metrics["loss"]`` is the global mean.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Tuple
 
 import torch
@@ -215,30 +216,56 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
     return train_step
 
 
+def cache_specs_for(cfg: ModelConfig, shard, batch: int, seq: int):
+    """The specs of the decode cache whose rank's block holds ``batch``
+    sequences of the whole ``seq`` positions over ``shard``'s mesh:
+    ``sharding.cache_specs`` (``shardings_for``'s ``"cache"``) of the
+    whole batch (``batch`` times the batch axes' ranks); None off a
+    mesh."""
+    if shard is None:
+        return None
+    Bg = batch * math.prod(SH.mesh_shape(shard.mesh)[a]
+                           for a in shard.batch_axes)
+    return SH.cache_specs(cfg, shard.mesh, Bg, seq, shard.rules)
+
+
 def make_prefill_step(cfg: ModelConfig, *, mesh=None, batch_axes=(),
                       rules=None):
     """The prefill step; on ``mesh`` each rank passes its blocks of the
     parameters under ``rules`` and its block of a batch split over
-    ``batch_axes``."""
+    ``batch_axes``, and gets its blocks of the prompts' cache
+    (``cache_specs_for``)."""
     shard = _sharder(mesh, batch_axes, SH.resolve_rules(rules))
 
     def prefill_step(params, batch):
+        B, S = batch["tokens"].shape
         return DE.prefill(cfg, params, batch["tokens"],
                           encoder_frames=batch.get("encoder_frames"),
                           frontend_embeds=batch.get("frontend_embeds"),
-                          shard=shard)
+                          shard=shard,
+                          specs=cache_specs_for(cfg, shard, B, S))
 
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, *, mesh=None, batch_axes=(),
-                     rules=None):
-    """The decode step; on ``mesh`` as ``make_prefill_step``."""
+                     rules=None, seq=None):
+    """The decode step; on ``mesh`` as ``make_prefill_step``, the cache
+    the rank's blocks of one of ``seq`` positions (its capacity: a rank's
+    block cannot tell whether the sequence is split)."""
     shard = _sharder(mesh, batch_axes, SH.resolve_rules(rules))
+    if shard is not None and seq is None:
+        raise ValueError("make_decode_step: over a mesh the cache's "
+                         "capacity (seq) is needed for its specs")
+
+    specs = {}                 # by the rank's batch: the same every token
 
     def decode_step(params, cache, batch):
+        B = batch["tokens"].shape[0]
+        if B not in specs:
+            specs[B] = cache_specs_for(cfg, shard, B, seq)
         return DE.decode_step(cfg, params, cache, batch["tokens"],
-                              shard=shard)
+                              shard=shard, specs=specs[B])
 
     return decode_step
 
@@ -268,8 +295,6 @@ def shardings_for(cfg: ModelConfig, mesh, shape: ShapeConfig, rules=None,
         out["opt_shapes"] = adamw.state_shapes(pshapes)
     if shape.kind == "decode":
         B, S = shape.global_batch, shape.seq_len
-        cshapes = DE.cache_shapes(cfg, B, S)
-        out["cache"] = SH.param_spec_tree(
-            cshapes, DE.cache_logical_axes(cfg, B, S), rules, mesh)
-        out["cache_shapes"] = cshapes
+        out["cache"] = SH.cache_specs(cfg, mesh, B, S, rules)
+        out["cache_shapes"] = DE.cache_shapes(cfg, B, S)
     return out

@@ -25,25 +25,41 @@ the new K/V (or latent) row at ``pos`` (``pos % W`` in the ring) with
 ``index_copy_`` on the 0-d ``pos`` tensor, so no step reads ``pos`` back to
 the host.
 
-Over a mesh (``shard``) the mixers keep their blocks whole
-(``transformer.placement(..., mixers=False)``): the cache splits no head
-(the JAX package's cache splits its sequence over ``model``,
-``cache_seq``, which is not ported), so attention, MLA's absorbed step,
-the RG-LRU, the SSD block and cross-attention run as on one card.  The
-FFN, the embedding and the head take TP's compute split, and both
-``prefill`` and ``decode_step`` return the last position's logits gathered
-whole over ``model`` (``transformer.gather_vocab``).
+Over a mesh (``shard``) each rank holds its block of every cache leaf
+under the JAX package's spec (``sharding.cache_specs``, the cache part of
+``launch.steps.shardings_for``): its batch block over ``pod``/``data``,
+the sequence of every K/V, latent, ring and cross-attention leaf over
+``model`` where it divides (``cache_seq``; whole otherwise), the SSD
+state's heads over ``model``; the RG-LRU state, the conv tails and the
+ring's ``kpos`` whole.  The mixers compute on TP's blocks
+(``transformer.compute_defs``, as ``forward``): a token's q, K/V or
+latent row is assembled over ``model`` (one row, so small), each rank
+scores its sequence block of the cache, and the ranks' partial softmaxes
+are combined over ``model`` in fp32 (the max, then the sum and the
+weighted values: ``_combine``) before ``wo`` takes its rows.  The new
+row at ``pos`` is written by the rank whose block holds it: every rank
+writes at its clamped index, the others their old row back
+(``_write_row``), so no step reads ``pos`` on the host.  The SSD block
+steps its heads of the state and gathers ``y`` before the gated norm;
+the RG-LRU steps its channels and gathers the new state whole.
+``prefill`` fills the rank's blocks: K/V gathered over the heads, then
+cut to the rank's sequence block (the ring rolled first); MLA's latents
+computed for the rank's rows.  Both return the last position's logits
+gathered whole over ``model`` (``transformer.gather_vocab``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -63,57 +79,71 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def layer_cache_def(cfg: ModelConfig, kind: str, batch: int,
-                    seq: int) -> Dict[str, torch.Tensor]:
-    """Shape and dtype of one layer's cache, as ``meta`` tensors."""
+@dataclasses.dataclass(frozen=True)
+class LeafShape:
+    """A cache leaf's shape and dtype with no tensor behind it
+    (``cache_shapes(..., make=LeafShape)``): the specs and a rank's blocks
+    are worked out from it without a whole-cache ``meta`` tensor, which
+    the dry run would count as memory."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def layer_cache_def(cfg: ModelConfig, kind: str, batch: int, seq: int,
+                    make=_meta) -> Dict[str, Any]:
+    """Shape and dtype of one layer's cache, as ``meta`` tensors (or what
+    ``make(shape, dtype)`` gives)."""
     dt = getattr(torch, cfg.dtype)
     Dh = cfg.resolved_head_dim
     KV = cfg.num_kv_heads
     out: Dict[str, torch.Tensor] = {}
     if kind == "attn":
         if cfg.attention == "mla":
-            out["lat"] = _meta((batch, seq, cfg.kv_lora_rank), dt)
-            out["kr"] = _meta((batch, seq, cfg.rope_head_dim), dt)
+            out["lat"] = make((batch, seq, cfg.kv_lora_rank), dt)
+            out["kr"] = make((batch, seq, cfg.rope_head_dim), dt)
         elif _use_ring(cfg, seq):
             W = cfg.sliding_window
-            out["k"] = _meta((batch, W, KV, Dh), dt)
-            out["v"] = _meta((batch, W, KV, Dh), dt)
-            out["kpos"] = _meta((W,), torch.int32)
+            out["k"] = make((batch, W, KV, Dh), dt)
+            out["v"] = make((batch, W, KV, Dh), dt)
+            out["kpos"] = make((W,), torch.int32)
         else:
-            out["k"] = _meta((batch, seq, KV, Dh), dt)
-            out["v"] = _meta((batch, seq, KV, Dh), dt)
+            out["k"] = make((batch, seq, KV, Dh), dt)
+            out["v"] = make((batch, seq, KV, Dh), dt)
     elif kind == "rglru":
         W = cfg.d_model
-        out["h"] = _meta((batch, W), torch.float32)
-        out["conv"] = _meta((batch, 3, W), dt)
+        out["h"] = make((batch, W), torch.float32)
+        out["conv"] = make((batch, 3, W), dt)
     elif kind == "ssd":
         din = cfg.ssm_expand * cfg.d_model
         H = din // cfg.ssm_head_dim
         conv_ch = din + 2 * cfg.ssm_ngroups * cfg.ssm_state
-        out["h"] = _meta((batch, H, cfg.ssm_head_dim, cfg.ssm_state),
-                         torch.float32)
-        out["conv"] = _meta((batch, cfg.ssm_conv - 1, conv_ch), dt)
+        out["h"] = make((batch, H, cfg.ssm_head_dim, cfg.ssm_state),
+                        torch.float32)
+        out["conv"] = make((batch, cfg.ssm_conv - 1, conv_ch), dt)
     else:
         raise ValueError(kind)
     if cfg.cross_attention:
-        out["xk"] = _meta((batch, cfg.encoder_seq, KV, Dh), dt)
-        out["xv"] = _meta((batch, cfg.encoder_seq, KV, Dh), dt)
+        out["xk"] = make((batch, cfg.encoder_seq, KV, Dh), dt)
+        out["xv"] = make((batch, cfg.encoder_seq, KV, Dh), dt)
     return out
 
 
-def cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> Pytree:
-    """The cache tree as ``meta`` tensors (no storage)."""
+def cache_shapes(cfg: ModelConfig, batch: int, seq: int,
+                 make=_meta) -> Pytree:
+    """The cache tree as ``meta`` tensors (no storage), or as what
+    ``make(shape, dtype)`` gives (``LeafShape``)."""
     period = len(cfg.block_pattern)
     groups, rem = divmod(cfg.num_layers, period)
-    group_tree = {f"b{j}_{kind}": layer_cache_def(cfg, kind, batch, seq)
+    group_tree = {f"b{j}_{kind}": layer_cache_def(cfg, kind, batch, seq,
+                                                  make)
                   for j, kind in enumerate(cfg.block_pattern)}
-    stacked = T.tree_map(lambda s: _meta((groups,) + tuple(s.shape),
-                                         s.dtype), group_tree) if groups else {}
+    stacked = T.tree_map(lambda s: make((groups,) + tuple(s.shape),
+                                        s.dtype), group_tree) if groups else {}
     return {
         "blocks": stacked,
-        "rem": [layer_cache_def(cfg, cfg.block_pattern[j % period], batch, seq)
-                for j in range(rem)],
-        "pos": _meta((), torch.int32),
+        "rem": [layer_cache_def(cfg, cfg.block_pattern[j % period], batch, seq,
+                                make) for j in range(rem)],
+        "pos": make((), torch.int32),
     }
 
 
@@ -161,41 +191,151 @@ def cache_logical_axes(cfg: ModelConfig, batch: int, seq: int) -> Pytree:
     }
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> Pytree:
+def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None, *,
+               specs=None, mesh=None) -> Pytree:
     """A zero cache on ``device`` (None: the card); a ring's ``kpos`` is -1
-    (no slot filled)."""
+    (no slot filled).  With ``specs`` (``sharding.cache_specs`` of the
+    whole ``batch`` and ``seq`` on ``mesh``) each leaf is this rank's
+    block."""
     dev = resolve(device)
 
-    def mk(s: torch.Tensor) -> torch.Tensor:
-        fill = -1 if s.dtype == torch.int32 and s.dim() == 1 else 0
-        return torch.full(s.shape, fill, dtype=s.dtype, device=dev)
+    def mk(s: LeafShape, spec=None) -> torch.Tensor:
+        fill = -1 if s.dtype == torch.int32 and len(s.shape) == 1 else 0
+        shape = s.shape if spec is None else SH.block_shape(s.shape, spec,
+                                                            mesh)
+        return torch.full(shape, fill, dtype=s.dtype, device=dev)
 
-    return T.tree_map(mk, cache_shapes(cfg, batch, seq))
+    shapes = cache_shapes(cfg, batch, seq, make=LeafShape)
+    if specs is None:
+        return T.tree_map(mk, shapes)
+    return T.tree_map(mk, shapes, specs)
+
+
+@dataclasses.dataclass(frozen=True)
+class Block:
+    """This rank's block of a cache leaf along its dim 1 (the sequence,
+    the ring's slots, or the SSD state's heads): its index among the
+    ``n`` blocks over the mesh ``axes``."""
+    index: int
+    n: int
+    axes: Tuple[str, ...]
+
+    def lo(self, size: int) -> int:
+        """The first position of the block, of ``size`` positions."""
+        return self.index * size
+
+
+def layer_blocks(specs, mesh) -> Dict[str, Block]:
+    """The ``Block`` of each of a layer's cache leaves that is split on
+    dim 1 under ``specs`` (a dict of ``P``), from the rank's coordinates
+    on ``mesh``; none where ``specs`` is None (one card)."""
+    if specs is None:
+        return {}
+    coords = SH.mesh_coords(mesh)
+    out = {}
+    for name, spec in specs.items():
+        part = spec[1] if len(spec) > 1 else None
+        if part is not None:
+            i, n = SH.block_index(part, mesh, coords)
+            out[name] = Block(i, n, (part,) if isinstance(part, str)
+                              else tuple(part))
+    return out
+
+
+def _write_row(c: torch.Tensor, at, row: torch.Tensor,
+               blk: Optional[Block]) -> None:
+    """``row`` (B, 1, ...) into ``c`` at ``at`` (a 0-d tensor) along dim 1.
+    ``c`` a rank's ``blk`` of the whole: the rank writes at the clamped
+    local index, ``row`` where its block holds ``at`` and the old row
+    back elsewhere, so no rank reads ``at`` on the host."""
+    if blk is None:
+        c.index_copy_(1, at.reshape(1).long(), row)
+        return
+    size = c.shape[1]
+    local = at.reshape(1).long() - blk.lo(size)
+    idx = local.clamp(0, size - 1)
+    inside = ((local >= 0) & (local < size)).reshape(
+        (1,) * row.dim())
+    c.index_copy_(1, idx, torch.where(inside, row.to(c.dtype),
+                                      c.index_select(1, idx)))
+
+
+def _combine(s: torch.Tensor, values, blk: Block, mesh) -> torch.Tensor:
+    """The softmax over the ranks' sequence blocks of the fp32 scores
+    ``s`` (..., S: this rank's block, masked positions at -1e30) applied
+    to the values: ``values(p)`` gives the rank's weighted sum (..., D) of
+    its block's values for weights ``p``.  The max is reduced over
+    ``blk.axes`` first, then the sums of the weights and of the weighted
+    values in one fp32 all-reduce: (..., D)."""
+    m = s.amax(dim=-1, keepdim=True)
+    coll.reduce_(m, mesh, blk.axes, dist.ReduceOp.MAX)
+    p = torch.exp(s - m)
+    acc = values(p)
+    flat = torch.cat([acc.reshape(-1), p.sum(dim=-1).reshape(-1)])
+    coll.reduce_(flat, mesh, blk.axes)
+    n = acc.numel()
+    return flat[:n].reshape(acc.shape) / flat[n:].reshape(acc.shape[:-1]
+                                                          + (1,))
+
+
+def _whole_heads(t: torch.Tensor, heads: int, ctx) -> torch.Tensor:
+    """``t`` (B, S, h, D), the rank's block of ``heads`` heads over
+    ``model`` where h < heads, gathered whole; else ``t``."""
+    if t.shape[2] == heads:
+        return t
+    return coll.gather_block(t, SH.P(None, None, "model"), ctx.shard.mesh)
+
+
+def _rank_heads(o: torch.Tensor, heads: int, ctx) -> torch.Tensor:
+    """This rank's ``heads`` of ``o`` (B, S, H, D), those of its block of
+    ``wo``'s rows over ``model``; ``o`` where it computes all of them."""
+    if heads == o.shape[2]:
+        return o
+    lo = T._model_index(ctx) * heads
+    return o[:, :, lo:lo + heads]
+
+
+def _attend(q, k, v, ok, blk: Optional[Block], ctx) -> torch.Tensor:
+    """q (B, 1, H, Dh) over k (B, S, KV, Dh) and v (B, S, KV, Dv), the
+    positions ``ok`` (S,) may see; where ``blk`` is given, k and v are the
+    rank's sequence block and the softmax is taken over every rank's
+    (``_combine``).  -> (B, 1, H, Dv) in v's dtype."""
+    B, C, H, Dh = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, C, KV, H // KV, Dh)
+    s = torch.einsum("bckgd,bskd->bkgcs", qg, k).float() / math.sqrt(Dh)
+    s = s.masked_fill(~ok, -1e30)
+    if blk is None:
+        w = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgcs,bskd->bckgd", w.to(v.dtype), v)
+        return o.reshape(B, C, H, v.shape[-1])
+    o = _combine(s, lambda p: torch.einsum("bkgcs,bskd->bkgcd", p,
+                                           v.float()),
+                 blk, ctx.shard.mesh)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, C, H, v.shape[-1]).to(
+        v.dtype)
 
 
 # ---------------------------------------------------------------------------
 # single-token block steps
 # ---------------------------------------------------------------------------
 
-def _ring_attend(q, kc, vc, kpos, pos, window):
-    """q (B,1,H,Dh) vs ring cache (B,W,KV,Dh); kpos (W,) slot->abs position."""
-    B, _, H, Dh = q.shape
-    KV = kc.shape[2]
-    G = H // KV
-    qg = q.reshape(B, 1, KV, G, Dh)
-    s = torch.einsum("bckgd,bskd->bkgcs", qg, kc).float() / math.sqrt(Dh)
+def _ring_attend(q, kc, vc, kpos, pos, window, blk=None, ctx=None):
+    """q (B,1,H,Dh) vs ring cache (B,W,KV,Dh); kpos (W,) slot->abs position.
+    Over a mesh (``blk``) the rank's block of the slots and of ``kpos``."""
     ok = (kpos >= 0) & (kpos <= pos) & ((pos - kpos) < window)
-    s = s.masked_fill(~ok, -1e30)
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgcs,bskd->bckgd", w.to(vc.dtype), vc)
-    return o.reshape(B, 1, H, vc.shape[-1])
+    return _attend(q, kc, vc, ok, blk, ctx)
 
 
-def attn_step(cfg: ModelConfig, p, x, cache, pos, ctx):
+def attn_step(cfg: ModelConfig, p, x, cache, pos, ctx, blocks=None):
     """One token of GQA attention; writes its K/V (and ring slot) into
-    ``cache`` in place.  K is qk-normed and rotated before it is cached."""
+    ``cache`` in place.  K is qk-normed and rotated before it is cached.
+    Over a mesh q, k and v come from the blocks' heads and are gathered
+    whole, the row is written by the rank whose ``blocks["k"]`` holds it,
+    each rank scores its sequence block and the softmax is combined over
+    ``model``; ``wo`` row-parallel on the rank's heads."""
     Dh = cfg.resolved_head_dim
-    H, KV = cfg.num_heads, cfg.num_kv_heads
+    H, KV = p["wq"].shape[-1] // Dh, p["wk"].shape[-1] // Dh
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     q = T._heads(T._proj(h, p["wq"], p.get("bq")), H, Dh)
     k = T._heads(T._proj(h, p["wk"], p.get("bk")), KV, Dh)
@@ -206,29 +346,46 @@ def attn_step(cfg: ModelConfig, p, x, cache, pos, ctx):
     if cfg.rope in ("rope", "mrope"):
         q = L.apply_rope(q, ctx.cos, ctx.sin)
         k = L.apply_rope(k, ctx.cos, ctx.sin)
-    window = cfg.sliding_window if cfg.family == "hybrid" else 0
-    if "kpos" in cache:                       # ring buffer (long-context local)
-        W = cfg.sliding_window
-        slot = (pos % W).reshape(1).long()
-        cache["k"].index_copy_(1, slot, k)
-        cache["v"].index_copy_(1, slot, v)
-        cache["kpos"].index_copy_(0, slot, pos.reshape(1))
-        o = _ring_attend(q, cache["k"], cache["v"], cache["kpos"], pos, W)
-    else:
-        at = pos.reshape(1).long()
-        cache["k"].index_copy_(1, at, k)
-        cache["v"].index_copy_(1, at, v)
+    q = _whole_heads(q, cfg.num_heads, ctx)
+    k = _whole_heads(k, cfg.num_kv_heads, ctx)
+    v = _whole_heads(v, cfg.num_kv_heads, ctx)
+    blk = (blocks or {}).get("k")
+    W = cfg.sliding_window
+    ring = "kpos" in cache                    # ring buffer (long-context local)
+    at = pos % W if ring else pos
+    _write_row(cache["k"], at, k, blk)
+    _write_row(cache["v"], at, v, blk)
+    S = cache["k"].shape[1]
+    lo = 0 if blk is None else blk.lo(S)
+    if ring:
+        cache["kpos"].index_copy_(0, at.reshape(1).long(), pos.reshape(1))
+        o = _ring_attend(q, cache["k"], cache["v"], cache["kpos"][lo:lo + S],
+                         pos, W, blk, ctx)
+    elif blk is None:
+        # the plain block, as the JAX package's decode attends
         o = L._attn_block(q, cache["k"], cache["v"], q_start=pos, kv_start=0,
-                          causal=True, window=window, kv_len=pos + 1)
-    return x + T._proj(o.reshape(x.shape[0], 1, H * Dh), p["wo"])
+                          causal=True, window=W if cfg.family == "hybrid"
+                          else 0, kv_len=pos + 1)
+    else:
+        kp = lo + torch.arange(S, device=x.device)
+        ok = kp <= pos
+        if cfg.family == "hybrid" and W:
+            ok &= (pos - kp) < W
+        o = _attend(q, cache["k"], cache["v"], ok, blk, ctx)
+    o = _rank_heads(o, H, ctx)
+    return x + T._row_parallel(o.reshape(x.shape[0], 1, H * Dh), p["wo"],
+                               ctx, H < cfg.num_heads)
 
 
-def mla_step(cfg: ModelConfig, p, x, cache, pos, ctx):
+def mla_step(cfg: ModelConfig, p, x, cache, pos, ctx, blocks=None):
     """One token of MLA in the absorbed form: writes its latent and rope
     key into ``cache`` in place, folds ``wk_b`` into q, takes the scores and
     the context in latent space over positions 0..pos, then ``wv_b``.  Plain
-    einsums, as the JAX package decodes every attention plainly."""
-    H = cfg.num_heads
+    einsums, as the JAX package decodes every attention plainly.  Over a
+    mesh q is folded through the rank's heads of ``wk_b`` and gathered
+    whole, each rank scores its block of ``lat``/``kr`` and the softmax is
+    combined over ``model``; ``wv_b`` and ``wo`` on the rank's heads."""
+    H = p["wk_b"].shape[-1] // cfg.nope_head_dim
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     r = cfg.kv_lora_rank
     B = x.shape[0]
@@ -238,56 +395,105 @@ def mla_step(cfg: ModelConfig, p, x, cache, pos, ctx):
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = L.apply_rope(q_rope, ctx.cos_r, ctx.sin_r)
     lat_t, kr_t = T.mla_latent(cfg, p, h, ctx)
-    at = pos.reshape(1).long()
-    cache["lat"].index_copy_(1, at, lat_t)
-    cache["kr"].index_copy_(1, at, kr_t)
+    blk = (blocks or {}).get("lat")
+    _write_row(cache["lat"], pos, lat_t, blk)
+    _write_row(cache["kr"], pos, kr_t, blk)
     lat, kr = cache["lat"], cache["kr"]
     wk = p["wk_b"].reshape(r, H, dn)
     wv = p["wv_b"].reshape(r, H, dv)
     # absorb wk into q: q_lat (B,1,H,r)
     q_lat = torch.einsum("bchn,rhn->bchr", q_nope, wk.to(q_nope.dtype))
+    q_lat = _whole_heads(q_lat, cfg.num_heads, ctx)
+    q_rope = _whole_heads(q_rope, cfg.num_heads, ctx)
     s = (torch.einsum("bchr,bsr->bhcs", q_lat, lat)
          + torch.einsum("bchp,bsp->bhcs", q_rope, kr)).float()
     s = s / math.sqrt(dn + dr)
-    valid = torch.arange(lat.shape[1], device=x.device) <= pos
+    S = lat.shape[1]
+    lo = 0 if blk is None else blk.lo(S)
+    valid = lo + torch.arange(S, device=x.device) <= pos
     s = s.masked_fill(~valid, -1e30)
-    w = torch.softmax(s, dim=-1)
-    ctx_lat = torch.einsum("bhcs,bsr->bchr", w.to(lat.dtype), lat)
+    if blk is None:
+        w = torch.softmax(s, dim=-1)
+        ctx_lat = torch.einsum("bhcs,bsr->bchr", w.to(lat.dtype), lat)
+    else:
+        ctx_lat = _combine(s, lambda p_: torch.einsum(
+            "bhcs,bsr->bhcr", p_, lat.float()), blk, ctx.shard.mesh)
+        ctx_lat = ctx_lat.transpose(1, 2).to(lat.dtype)
+    ctx_lat = _rank_heads(ctx_lat, H, ctx)
     o = torch.einsum("bchr,rhv->bchv", ctx_lat, wv.to(ctx_lat.dtype))
-    return x + T._proj(o.reshape(B, 1, H * dv), p["wo"])
+    return x + T._row_parallel(o.reshape(B, 1, H * dv), p["wo"], ctx,
+                               H < cfg.num_heads)
 
 
-def cross_step(cfg: ModelConfig, p, x, cache, ctx):
+def cross_step(cfg: ModelConfig, p, x, cache, ctx, blocks=None):
     """One token's cross-attention over the encoder's cached K/V: the plain
-    ``_attn_block``, as the JAX package's decode has it."""
+    ``_attn_block``, as the JAX package's decode has it.  Over a mesh q is
+    gathered whole over the heads, each rank scores its block of
+    ``xk``/``xv`` and the softmax is combined over ``model``; ``wo``
+    row-parallel on the rank's heads."""
     Dh = cfg.resolved_head_dim
-    H = cfg.num_heads
+    H = p["wq"].shape[-1] // Dh
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    q = T._heads(T._proj(h, p["wq"]), H, Dh)
-    o = L._attn_block(q, cache["xk"], cache["xv"], q_start=0, kv_start=0,
-                      causal=False, window=0, kv_len=None)
-    return x + T._proj(o.reshape(x.shape[0], 1, H * Dh), p["wo"])
+    q = _whole_heads(T._heads(T._proj(h, p["wq"]), H, Dh), cfg.num_heads,
+                     ctx)
+    blk = (blocks or {}).get("xk")
+    if blk is None:
+        o = L._attn_block(q, cache["xk"], cache["xv"], q_start=0,
+                          kv_start=0, causal=False, window=0, kv_len=None)
+    else:
+        ok = torch.ones(cache["xk"].shape[1], dtype=torch.bool,
+                        device=x.device)
+        o = _attend(q, cache["xk"], cache["xv"], ok, blk, ctx)
+    o = _rank_heads(o, H, ctx)
+    return x + T._row_parallel(o.reshape(x.shape[0], 1, H * Dh), p["wo"],
+                               ctx, H < cfg.num_heads)
 
 
 def rglru_step_block(cfg: ModelConfig, p, x, cache, ctx):
     """One token through an RG-LRU mixer; returns (x, new h and conv).  The
     new state is ``rglru_step``'s, in x's dtype, stored as fp32: in bf16
     the carried state is rounded to bf16 every token, as in the JAX
-    package."""
+    package.  Over ``model`` (``wx``'s block narrower than the width) a
+    rank steps its channels of the whole state, its gates' rows summed
+    over ``model`` as ``transformer.rglru_forward`` sums them, ``wo``
+    row-parallel; the new state and conv tail are gathered whole."""
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     gate = L.act_fn("gelu")(T._proj(h, p["wy"]))[:, 0]
-    xb_t = T._proj(h, p["wx"])[:, 0]                            # (B,W)
-    hist = torch.cat([cache["conv"].to(x.dtype), xb_t[:, None]], dim=1)
+    xb_t = T._proj(h, p["wx"])[:, 0]                            # (B,Wl)
+    Wl, W = xb_t.shape[-1], p["wga"].shape[-1]
+    lo = 0 if Wl == W else T._model_index(ctx) * Wl
+    cut = slice(lo, lo + Wl)
+    hist = torch.cat([cache["conv"][..., cut].to(x.dtype), xb_t[:, None]],
+                     dim=1)
     w = p["conv_w"]
     conv = sum(hist[:, i] * w[i][None, :] for i in range(w.shape[0]))
-    ga = conv @ p["wga"].to(x.dtype) + p["bga"].to(x.dtype)
-    gx = conv @ p["wgx"].to(x.dtype) + p["bgx"].to(x.dtype)
-    hn = L.rglru_step(conv, gx, ga, p["log_a"], cache["h"])
-    y = T._proj((hn.to(x.dtype) * gate)[:, None], p["wo"])
-    return x + y, {"h": hn.float(), "conv": hist[:, 1:]}
+    if Wl == W:
+        ga = conv @ p["wga"].to(x.dtype) + p["bga"].to(x.dtype)
+        gx = conv @ p["wgx"].to(x.dtype) + p["bgx"].to(x.dtype)
+        log_a = p["log_a"]
+    else:
+        g = T._row_parallel(conv, torch.cat([p["wga"], p["wgx"]], dim=1),
+                            ctx, True)
+        ga = g[..., cut] + p["bga"][cut].to(g.dtype)
+        gx = g[..., W:][..., cut] + p["bgx"][cut].to(g.dtype)
+        log_a = p["log_a"][cut]
+    hn = L.rglru_step(conv, gx, ga, log_a, cache["h"][:, cut])
+    y = T._row_parallel((hn.to(x.dtype) * gate)[:, None], p["wo"], ctx,
+                        Wl < W)
+    hn, tail = hn.float(), hist[:, 1:]
+    if Wl < W:
+        mesh = ctx.shard.mesh
+        hn = coll.gather_block(hn, SH.P(None, "model"), mesh)
+        tail = coll.gather_block(tail, SH.P(None, None, "model"), mesh)
+    return x + y, {"h": hn, "conv": tail}
 
 
-def ssd_step_block(cfg: ModelConfig, p, x, cache, ctx):
+def ssd_step_block(cfg: ModelConfig, p, x, cache, ctx, blocks=None):
+    """One token through a Mamba-2 mixer; returns (x, new h and conv).
+    Over a mesh whose ``blocks["h"]`` splits the state's heads, the rank
+    computes the whole ``zxbcdt`` and conv (the SSD block is computed
+    whole, ``transformer.compute_defs``), steps its heads, and gathers
+    ``y`` over ``model`` before the gated norm over the whole width."""
     D = cfg.d_model
     din = cfg.ssm_expand * D
     G, N = cfg.ssm_ngroups, cfg.ssm_state
@@ -306,30 +512,44 @@ def ssd_step_block(cfg: ModelConfig, p, x, cache, ctx):
     Ct = Cm.reshape(-1, G, N)
     dtt = F.softplus(dt.float() + p["dt_bias"][None, :])
     A = -torch.exp(p["a_log"].float())
+    d_skip = p["d_skip"]
+    blk = (blocks or {}).get("h")
+    if blk is not None:
+        # the rank's heads, B and C taken per head
+        Hl = cache["h"].shape[1]
+        heads = slice(blk.lo(Hl), blk.lo(Hl) + Hl)
+        Bt = Bt.repeat_interleave(H // G, dim=1)[:, heads]
+        Ct = Ct.repeat_interleave(H // G, dim=1)[:, heads]
+        xt, dtt, A, d_skip = xt[:, heads], dtt[:, heads], A[heads], \
+            d_skip[heads]
     y, hn = L.ssd_step(xt, dtt, A, Bt, Ct, cache["h"])
-    y = y + xt * p["d_skip"].to(x.dtype)[None, :, None]
+    y = y + xt * d_skip.to(x.dtype)[None, :, None]
+    if blk is not None:
+        y = coll.gather_block(y, SH.P(None, "model"), ctx.shard.mesh)
     y = L.rms_norm(y.reshape(-1, din) * F.silu(z), p["out_ln"], cfg.norm_eps)
     out = T._proj(y[:, None], p["out_proj"])
     return x + out, {"h": hn, "conv": hist[:, 1:]}
 
 
-def block_step(cfg: ModelConfig, kind: str, p, x, cache, pos, ctx):
+def block_step(cfg: ModelConfig, kind: str, p, x, cache, pos, ctx,
+               blocks=None):
     """One token through one block; writes the block's new state into
-    ``cache`` (its tensors, in place) and returns (x, cache)."""
+    ``cache`` (its tensors, in place) and returns (x, cache).  ``blocks``:
+    ``layer_blocks`` of the layer's cache over a mesh."""
     if kind == "attn":
         step = mla_step if cfg.attention == "mla" else attn_step
-        x = step(cfg, p["attn"], x, cache, pos, ctx)
+        x = step(cfg, p["attn"], x, cache, pos, ctx, blocks)
     else:
         if kind == "rglru":
             x, new = rglru_step_block(cfg, p["rec"], x, cache, ctx)
         elif kind == "ssd":
-            x, new = ssd_step_block(cfg, p["ssd"], x, cache, ctx)
+            x, new = ssd_step_block(cfg, p["ssd"], x, cache, ctx, blocks)
         else:
             raise ValueError(kind)
         cache["h"].copy_(new["h"])
         cache["conv"].copy_(new["conv"])
     if "xattn" in p and "xk" in cache:
-        x = cross_step(cfg, p["xattn"], x, cache, ctx)
+        x = cross_step(cfg, p["xattn"], x, cache, ctx, blocks)
     if "ffn" in p:
         x = T.ffn_forward(cfg, p["ffn"], x, ctx)
     return x, cache
@@ -339,19 +559,21 @@ def block_step(cfg: ModelConfig, kind: str, p, x, cache, pos, ctx):
 # decode step (one new token for the whole batch)
 # ---------------------------------------------------------------------------
 
-def decode_step(cfg: ModelConfig, params, cache, tokens, *,
-                shard=None) -> Tuple[torch.Tensor, Pytree]:
+def decode_step(cfg: ModelConfig, params, cache, tokens, *, shard=None,
+                specs=None) -> Tuple[torch.Tensor, Pytree]:
     """tokens (B, 1) at position cache['pos'] -> (logits (B,1,V), cache).
 
     The cache is updated in place (the JAX package returns a new tree):
     every layer's state, conv tail and K/V row, and ``pos``, which advances
     by one.  The returned cache is the one passed in.  ``shard``: a
-    mesh's ``sharding.ActSharder``, as ``T.forward`` takes it; each
-    layer's blocks are resharded as the loop runs it (``_layers``), so a
-    token gathers every split leaf once."""
+    mesh's ``sharding.ActSharder``, as ``T.forward`` takes it, each
+    layer's blocks resharded to TP's compute blocks as the loop runs it
+    (``_layers``); ``specs``: then the cache's (``sharding.cache_specs``
+    of the whole batch and the cache's whole sequence), of which ``cache``
+    holds this rank's blocks."""
     pos = cache["pos"]
     B = tokens.shape[0]
-    place = T.placement(cfg, shard, mixers=False)
+    place = T.placement(cfg, shard)
     x = T.embed_tokens(cfg, params, tokens, place, shard)
     if cfg.rope == "learned":
         # clamped as JAX's gather clamps, so no step reads pos on the host
@@ -360,28 +582,32 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, *,
                            "pos_embed").index_select(0, at).to(x.dtype)[None]
     ctx = T.rope_ctx(cfg, T.default_positions(cfg, pos.expand(B, 1)))
     ctx.shard, ctx.place = shard, place
-    for kind, lp, path, lc in _layers(cfg, params, cache):
+    for kind, lp, path, lc, ls in _layers(cfg, params, cache, specs):
         x, _ = block_step(cfg, kind, T.computed(lp, place, *path), x, lc,
-                          pos, ctx)
+                          pos, ctx, layer_blocks(ls, shard and shard.mesh))
     pos.add_(1)
     return T.gather_vocab(cfg, T.unembed(cfg, params, x, place, shard),
                           shard), cache
 
 
-def _layers(cfg: ModelConfig, params, cache):
+def _layers(cfg: ModelConfig, params, cache, specs=None):
     """(kind, the layer's stored leaves, their path in the parameters, its
-    cache entry) of every layer in order.  The loops reshard a layer's
-    leaves as they call its block (``T.computed``), so its gathered leaves
-    are a temporary: a rank holds one layer's at a time."""
+    cache entry, its cache specs or None) of every layer in order.  The
+    loops reshard a layer's leaves as they call its block (``T.computed``),
+    so its gathered leaves are a temporary: a rank holds one layer's at a
+    time."""
     pattern = cfg.block_pattern
     blocks = params["blocks"]
     for g in range(T.num_groups(blocks)):
         gp, gc = T.group_params(blocks, g), T.group_params(cache["blocks"], g)
         for j, kind in enumerate(pattern):
             key = f"b{j}_{kind}"
-            yield kind, gp[key], ("blocks", key), gc[key]
+            ls = None if specs is None else {
+                n: SH.P(*sp[1:]) for n, sp in specs["blocks"][key].items()}
+            yield kind, gp[key], ("blocks", key), gc[key], ls
     for j, (lp, lc) in enumerate(zip(params["rem"], cache["rem"])):
-        yield pattern[j % len(pattern)], lp, ("rem", j), lc
+        ls = None if specs is None else specs["rem"][j]
+        yield pattern[j % len(pattern)], lp, ("rem", j), lc, ls
 
 
 # ---------------------------------------------------------------------------
@@ -389,8 +615,10 @@ def _layers(cfg: ModelConfig, params, cache):
 # ---------------------------------------------------------------------------
 
 def _attn_prefill_kv(cfg, p, h, ctx):
+    """The prompt's K (qk-normed, rotated) and V for the cache, of the
+    block's kv heads."""
     Dh = cfg.resolved_head_dim
-    KV = cfg.num_kv_heads
+    KV = p["wk"].shape[-1] // Dh
     k = T._heads(T._proj(h, p["wk"], p.get("bk")), KV, Dh)
     v = T._heads(T._proj(h, p["wv"], p.get("bv")), KV, Dh)
     if cfg.qk_norm:
@@ -400,52 +628,79 @@ def _attn_prefill_kv(cfg, p, h, ctx):
     return k, v
 
 
-def block_prefill(cfg: ModelConfig, kind: str, p, x, ctx: T.Ctx):
-    """Forward one block over the full prompt, returning its cache entry."""
+def _cut(t: torch.Tensor, blk: Optional[Block]) -> torch.Tensor:
+    """The rank's ``blk`` of ``t``'s whole dim 1 (``t`` where None)."""
+    if blk is None:
+        return t
+    size = t.shape[1] // blk.n
+    return t.narrow(1, blk.lo(size), size)
+
+
+def block_prefill(cfg: ModelConfig, kind: str, p, x, ctx: T.Ctx,
+                  blocks=None):
+    """Forward one block over the full prompt, returning its cache entry:
+    over a mesh the rank's ``blocks`` (``layer_blocks``) of each leaf."""
     S = x.shape[1]
+    blocks = blocks or {}
     cache: Dict[str, torch.Tensor] = {}
     if kind == "attn" and cfg.attention == "mla":
         h = L.rms_norm(x, p["attn"]["ln"], cfg.norm_eps)
-        cache["lat"], cache["kr"] = T.mla_latent(cfg, p["attn"], h, ctx)
+        blk, rows = blocks.get("lat"), ctx
+        if blk is not None:
+            # the latents of the rank's rows: their norm is over r alone
+            h = _cut(h, blk)
+            rows = dataclasses.replace(ctx, cos_r=_cut(ctx.cos_r, blk),
+                                       sin_r=_cut(ctx.sin_r, blk))
+        cache["lat"], cache["kr"] = T.mla_latent(cfg, p["attn"], h, rows)
         x = T.mla_forward(cfg, p["attn"], x, ctx)
     elif kind == "attn":
         h = L.rms_norm(x, p["attn"]["ln"], cfg.norm_eps)
         k, v = _attn_prefill_kv(cfg, p["attn"], h, ctx)
+        k = _whole_heads(k, cfg.num_kv_heads, ctx)
+        v = _whole_heads(v, cfg.num_kv_heads, ctx)
+        blk = blocks.get("k")
         if _use_ring(cfg, S):
             W = cfg.sliding_window
             shift = (S - W) % W          # align slots to p % W
-            cache["k"] = torch.roll(k[:, S - W:], shift, dims=1)
-            cache["v"] = torch.roll(v[:, S - W:], shift, dims=1)
+            cache["k"] = _cut(torch.roll(k[:, S - W:], shift, dims=1), blk)
+            cache["v"] = _cut(torch.roll(v[:, S - W:], shift, dims=1), blk)
             cache["kpos"] = torch.roll(
                 torch.arange(S - W, S, dtype=torch.int32, device=x.device),
                 shift)
         else:
-            cache["k"], cache["v"] = k, v
+            cache["k"], cache["v"] = _cut(k, blk), _cut(v, blk)
         window = cfg.sliding_window if cfg.family == "hybrid" else 0
         x = T.attn_forward(cfg, p["attn"], x, ctx, window=window)
     elif kind == "rglru":
         x, (hl, conv) = T.rglru_forward(cfg, p["rec"], x, ctx)
+        if hl.shape[-1] < cfg.d_model:
+            # the rank's channels: the state is whole on every rank
+            mesh = ctx.shard.mesh
+            hl = coll.gather_block(hl, SH.P(None, "model"), mesh)
+            conv = coll.gather_block(conv, SH.P(None, None, "model"), mesh)
         # the last state in x's dtype, as the JAX package keeps it
         cache["h"], cache["conv"] = hl.float(), conv
     elif kind == "ssd":
         x, (hl, conv) = T.ssd_forward(cfg, p["ssd"], x, ctx)
-        cache["h"], cache["conv"] = hl, conv
+        cache["h"], cache["conv"] = _cut(hl, blocks.get("h")), conv
     else:
         raise ValueError(kind)
     if "xattn" in p and ctx.enc_out is not None:
         # the encoder's K/V once, into the cache; the prompt attends to them
-        # through K5 (non-causal)
+        # through K5 (non-causal), on the block's kv heads
         xp = p["xattn"]
-        cache["xk"], cache["xv"] = T.cross_kv(cfg, xp, ctx)
-        x = T.attn_forward(cfg, xp, x, ctx,
-                           kv_override=(cache["xk"], cache["xv"]), cross=True)
+        xk, xv = T.cross_kv(cfg, xp, ctx)
+        blk = blocks.get("xk")
+        cache["xk"] = _cut(_whole_heads(xk, cfg.num_kv_heads, ctx), blk)
+        cache["xv"] = _cut(_whole_heads(xv, cfg.num_kv_heads, ctx), blk)
+        x = T.attn_forward(cfg, xp, x, ctx, kv_override=(xk, xv), cross=True)
     if "ffn" in p:
         x = T.ffn_forward(cfg, p["ffn"], x, ctx)
     return x, cache
 
 
 def prefill(cfg: ModelConfig, params, tokens, *, encoder_frames=None,
-            frontend_embeds=None, shard=None):
+            frontend_embeds=None, shard=None, specs=None):
     """Run the prompt, returning (logits_last (B,1,V), cache).  With
     ``encoder_frames`` the encoder runs first and each block's ``xk``/``xv``
     hold its K/V; without them they stay zero and decode's cross-attention
@@ -454,9 +709,12 @@ def prefill(cfg: ModelConfig, params, tokens, *, encoder_frames=None,
     replace the prompt's first F positions (``T.splice_frontend``); the
     rotary positions are 0..S-1, on all three channels for M-RoPE.
     ``shard``: a mesh's ``sharding.ActSharder``, as ``T.forward`` takes
-    it; each layer resharded as the loop runs it (``_layers``)."""
+    it; each layer resharded as the loop runs it (``_layers``).
+    ``specs``: then the specs of the whole prompts' cache
+    (``sharding.cache_specs``), of which the cache returned holds this
+    rank's blocks."""
     B, S = tokens.shape
-    place = T.placement(cfg, shard, mixers=False)
+    place = T.placement(cfg, shard)
     x = T.splice_frontend(cfg, params, T.embed_tokens(cfg, params, tokens,
                                                       place, shard),
                           frontend_embeds, place)
@@ -465,10 +723,17 @@ def prefill(cfg: ModelConfig, params, tokens, *, encoder_frames=None,
         cfg, torch.arange(S, device=tokens.device)[None].expand(B, S)))
     ctx.shard, ctx.place = shard, place
     ctx = T.encoder_ctx(cfg, params, ctx, encoder_frames, x.dtype)
-    cache = init_cache(cfg, B, S, device=tokens.device)
+    if specs is None:
+        cache = init_cache(cfg, B, S, device=tokens.device)
+    else:
+        Bg = B * math.prod(SH.mesh_shape(shard.mesh)[a]
+                           for a in shard.batch_axes)
+        cache = init_cache(cfg, Bg, S, device=tokens.device, specs=specs,
+                           mesh=shard.mesh)
     cache["pos"].fill_(S)
-    for kind, lp, path, lc in _layers(cfg, params, cache):
-        x, c = block_prefill(cfg, kind, T.computed(lp, place, *path), x, ctx)
+    for kind, lp, path, lc, ls in _layers(cfg, params, cache, specs):
+        x, c = block_prefill(cfg, kind, T.computed(lp, place, *path), x, ctx,
+                             layer_blocks(ls, shard and shard.mesh))
         for name, t in c.items():
             lc[name].copy_(t)
     logits = T.unembed(cfg, params, x[:, -1:], place, shard)

@@ -364,8 +364,7 @@ def place_params(cfg: ModelConfig, source, mesh, *, rules=None,
     return tree_map(keep, source, specs)
 
 
-def compute_defs(cfg: ModelConfig, mesh, rules, *, mixers: bool = True
-                 ) -> Pytree:
+def compute_defs(cfg: ModelConfig, mesh, rules) -> Pytree:
     """``param_defs`` with each leaf's logical axes as a layer computes
     with it on ``mesh`` under ``rules`` (``sharding.leaf_specs``'
     ``compute_axes``): ``tp`` kept where the split follows the heads or
@@ -376,9 +375,9 @@ def compute_defs(cfg: ModelConfig, mesh, rules, *, mixers: bool = True
     heads do not divide over ``tp``'s n ranks (or whose kv heads neither
     divide over them nor divide n: a rank's q heads would straddle two kv
     groups), K/V and their biases where the kv heads do not divide (each
-    rank then reads the one kv head of its q heads), and with ``mixers``
-    False every mixer of the decoder's blocks: attention, MLA, RG-LRU,
-    SSD, cross-attention (decode's, whose cache is not split by heads)."""
+    rank then reads the one kv head of its q heads).  Decode takes the
+    same blocks: its cache is split along the sequence, not the heads
+    (``decode``)."""
     shape = SH.mesh_shape(mesh)
     n = math.prod(shape.get(a, 1) for a in rules.get("tp", ()))
     H, KV = cfg.num_heads, cfg.num_kv_heads
@@ -395,24 +394,23 @@ def compute_defs(cfg: ModelConfig, mesh, rules, *, mixers: bool = True
             not kv_heads and k in ("wk", "wv", "bk", "bv")) else pd
             for k, pd in d.items()}
 
-    def block(d, split_mixers):
+    def block(d):
         out = {}
         for name, sub in d.items():
             if name in ("attn", "xattn"):
-                out[name] = attn(sub, split_mixers and heads)
-            elif name == "ssd" or (name == "rec" and not split_mixers):
+                out[name] = attn(sub, heads)
+            elif name == "ssd":
                 out[name] = tree_map(whole, sub)
             else:
                 out[name] = sub
         return out
 
     defs = param_defs(cfg)
-    out = dict(defs, blocks={k: block(v, mixers)
-                             for k, v in defs["blocks"].items()},
-               rem=[block(v, mixers) for v in defs["rem"]])
+    out = dict(defs, blocks={k: block(v) for k, v in defs["blocks"].items()},
+               rem=[block(v) for v in defs["rem"]])
     if "encoder" in defs:
         out["encoder"] = dict(defs["encoder"],
-                              blocks=block(defs["encoder"]["blocks"], True))
+                              blocks=block(defs["encoder"]["blocks"]))
     if "patch_proj" in defs:
         out["patch_proj"] = whole(defs["patch_proj"])
     return out
@@ -445,18 +443,17 @@ class Placement:
         return tree_map(one, tree, specs)
 
 
-def placement(cfg: ModelConfig, shard, *, mixers: bool = True
-              ) -> Optional[Placement]:
+def placement(cfg: ModelConfig, shard) -> Optional[Placement]:
     """The ``Placement`` of a mesh's ``sharding.ActSharder``: storage under
-    its rules, compute by ``compute_defs`` (``mixers`` False: decode's,
-    every mixer whole) and in the MoE layout of its batch's axes; None on
+    its rules, compute by ``compute_defs`` and in the MoE layout of its
+    batch's axes (the forward's, prefill's and decode's alike); None on
     one card, and on a mesh where every stored block is its compute block
     (``TP_RULES`` on a dense model whose heads divide over ``model``)."""
     if shard is None:
         return None
     layout = moe_ep.moe_layout(cfg, shard.mesh, shard.batch_axes)
     defs = param_defs(cfg)
-    cdefs = compute_defs(cfg, shard.mesh, shard.rules, mixers=mixers)
+    cdefs = compute_defs(cfg, shard.mesh, shard.rules)
     specs = tree_map(lambda pd, cd: SH.leaf_specs(
         pd.shape, pd.axes, shard.rules, shard.mesh, layout, cd.axes), defs,
         cdefs)

@@ -46,6 +46,14 @@ HELD = [("qwen3-8b", "train_4k", {}, MESH),
         ("qwen3-8b", "prefill_32k", {}, MESH),
         ("qwen3-moe-235b-a22b", "train_4k", {"moe_impl": "ep"}, MESH),
         ("qwen3-moe-235b-a22b", "prefill_32k", {"moe_impl": "ep"}, MESH)]
+# decode cells on MESH whose argument and cache bytes are held to JAX's
+# (the cache under its spec: the sequence over model, the SSD heads)
+HELD_DECODE = [("qwen3-8b", "decode_32k", {}, MESH),
+               ("qwen3-moe-235b-a22b", "decode_32k", {"moe_impl": "ep"}, MESH),
+               ("recurrentgemma-2b", "decode_32k", {}, MESH),
+               ("minicpm3-4b", "decode_32k", {}, MESH),
+               ("mamba2-370m", "decode_32k", {}, MESH),
+               ("whisper-medium", "decode_32k", {}, MESH)]
 PLAIN = {"systolic_matmul": ["systolic_matmul_plain"],
          "vector_engine": ["fused_affine_act_plain", "quantize_int8_plain",
                            "dequantize_int8_plain"],
@@ -130,16 +138,18 @@ _JAX = textwrap.dedent("""
                           **({"axis_types": (_at.Auto,) * 2} if _at else {}))
         sh = ST.shardings_for(cfg, m, shp, SH.TRAIN_RULES,
                               with_opt=shp.kind == "train")
-        total = 0
-        for part in ("param", "opt", "batch"):
+        total = cache = 0
+        for part in ("param", "opt", "batch", "cache"):
             if f"{part}_shapes" not in sh:
                 continue
             key = "params" if part == "param" else part
             for s, ns in zip(jax.tree.leaves(sh[f"{part}_shapes"]),
                              jax.tree.leaves(sh[key])):
-                total += (int(np.prod(ns.shard_shape(s.shape)))
-                          * np.dtype(s.dtype).itemsize)
-        out.append(total)
+                nb = (int(np.prod(ns.shard_shape(s.shape)))
+                      * np.dtype(s.dtype).itemsize)
+                total += nb
+                cache += nb if part == "cache" else 0
+        out.append([total, cache])
     open(sys.argv[1], "w").write(json.dumps(out))
 """)
 
@@ -168,13 +178,16 @@ def runs(tmp_path_factory):
                reduced("recurrentgemma-2b"), MESH, "train")]
     cells += [(a, "decode_32k", reduced(a, **ov), MESH, "train")
               for a, _, ov, _ in HELD[::2]]
+    cells += [(a, s, reduced(a, **ov), m, "train")
+              for a, s, ov, m in HELD_DECODE[3:]]
     tp = subprocess.Popen(
         [sys.executable, "-c", _TORCH, str(tmp / "torch.json"),
          json.dumps(PLAIN), json.dumps(cells)], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     jp = subprocess.Popen(
         [sys.executable, "-c", _JAX, str(tmp / "jax.json"),
-         json.dumps([(a, s, ov, m) for a, s, ov, m in HELD])], env=env,
+         json.dumps([(a, s, ov, m) for a, s, ov, m in HELD + HELD_DECODE])],
+        env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     outs = [p.communicate(timeout=300)[0] for p in (tp, jp)]
     assert tp.returncode == 0, outs[0][-4000:]
@@ -319,7 +332,20 @@ def test_argument_bytes_equal_jax_shard_bytes(runs, i):
     arch, shape, _, mesh = HELD[i]
     rec = _rec(runs, arch, shape, mesh)
     assert rec["status"] == "ok", rec.get("traceback", rec)
-    assert rec["memory"]["argument_bytes"] == runs["jax_bytes"][i]
+    assert rec["memory"]["argument_bytes"] == runs["jax_bytes"][i][0]
+
+
+@pytest.mark.parametrize("i", range(len(HELD_DECODE)))
+def test_decode_cache_bytes_equal_jax_spec_blocks(runs, i):
+    """Rank 0's decode arguments, and its cache within them, take the
+    bytes of the JAX package's ``shardings_for`` blocks: the cache split
+    along the sequence over ``model`` (and the SSD state by heads)."""
+    arch, shape, _, mesh = HELD_DECODE[i]
+    rec = _rec(runs, arch, shape, mesh)
+    assert rec["status"] == "ok", rec.get("traceback", rec)
+    total, cache = runs["jax_bytes"][len(HELD) + i]
+    assert rec["cache_bytes"] == cache > 0
+    assert rec["memory"]["argument_bytes"] == total
 
 
 def test_dense_prefill_flops_are_its_gemms_and_k5(runs):
@@ -362,22 +388,23 @@ def test_train_flops_lie_in_the_model_flops_band(runs, arch):
 
 def test_tp_collectives_are_counted(runs):
     """A (2, 4) prefill of the reduced qwen3-8b sums over ``model`` once
-    for the vocabulary-parallel embedding and once for each layer's MLP
-    (``w2`` row-parallel; the prefill keeps attention whole, as decode's
-    cache splits no head), and gathers the last position's logits over
-    the vocabulary; at (1, 1) it issues no collective.
+    for the vocabulary-parallel embedding and twice for each layer
+    (attention's ``wo`` and the MLP's ``w2``, row-parallel: the prefill
+    computes on TP's blocks), and gathers the cache's K/V heads and the
+    last position's logits over the vocabulary; at (1, 1) it issues no
+    collective.
     The vocabulary-parallel loss issues its MAX all-reduce and its two
     ``psum``s, each of the (B, S) fp32 rows (``analysis.collectives``
     counts all three)."""
     cfg = get_arch("qwen3-8b").reduced()
     rec = _rec(runs, "qwen3-8b", "prefill_32k")
     det = rec["raw"]["real"]["coll_detail"]
-    assert det["all-reduce"]["count"] == 1 + cfg.num_layers
+    assert det["all-reduce"]["count"] == 1 + 2 * cfg.num_layers
     shape = SHAPES_BY_NAME["prefill_32k"]
     act = shape.global_batch // MESH[0] * shape.seq_len * cfg.d_model
     assert cfg.dtype == "float32"       # every sum of 4-byte elements
     assert det["all-reduce"]["result_bytes"] == (
-        1 + cfg.num_layers) * act * 4
+        1 + 2 * cfg.num_layers) * act * 4
     assert "all-gather" in det
     one = _rec(runs, "qwen3-8b", "prefill_32k", (1, 1))["raw"]["real"]
     assert one["coll_detail"] == {}
@@ -410,7 +437,7 @@ def test_refusals_and_skips(runs):
                         ("recurrentgemma-2b", "decode_32k")):
         rec = _rec(runs, arch, shape)
         assert rec["status"] == "ok", rec.get("traceback", rec)
-        assert "cache_layout" in rec
+        assert "cache_seq over model" in rec["cache_layout"]
 
 
 def test_argument_bytes_are_what_a_real_rank_holds(tmp_path):

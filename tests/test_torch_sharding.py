@@ -4,7 +4,9 @@ package's, on the CPU.
 For every architecture of ``ARCHS`` (full widths), all four rule sets and
 the fake meshes below, ``spec_for`` through ``param_spec_tree`` must give
 the JAX package's partition specs leaf for leaf (compared as tuples), and
-so must ``batch_spec`` and the cache's spec tree; ``param_logical_axes``,
+so must ``batch_spec`` and the cache's spec tree (``cache_specs``, which
+the steps take, against JAX's ``shardings_for`` on the production
+meshes); ``param_logical_axes``,
 ``cache_logical_axes``, ``adamw.state_shapes`` and ``specs.input_specs``
 must give its axes, shapes and dtypes.  ``shardings_for`` is held to JAX's
 on its one-device local mesh, and ``transformer.param_block_specs`` (the
@@ -201,8 +203,10 @@ def test_unported_rule_sets_are_refused_by_name(name, maker):
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
-def test_cache_axes_and_specs_match_jax(arch):
+def test_cache_axes_and_specs_match_jax(arch, monkeypatch):
     cfg, jcfg = get_arch(arch), jget_arch(arch)
+    # JAX's shardings_for on a fake mesh: its specs, not NamedShardings
+    monkeypatch.setattr(JST, "NamedSharding", lambda mesh, spec: spec)
     for shape in DECODE_SHAPES + [SHAPES[0]]:
         B, S = shape.global_batch, shape.seq_len
         cshapes, jcshapes = (DE.cache_shapes(cfg, B, S),
@@ -222,6 +226,19 @@ def test_cache_axes_and_specs_match_jax(arch):
                                         getattr(JSH, rname), mesh),
                     SH.param_spec_tree(cshapes, caxes, getattr(SH, rname),
                                        mesh))
+        if shape.kind != "decode":
+            continue
+        # the cache specs the port's steps take, against JAX's
+        # shardings_for on the production meshes
+        for mname in ("16x16", "2x16x16"):
+            mesh = _FakeMesh(MESHES[mname])
+            for rname in RULES.values():
+                want = JST.shardings_for(jcfg, mesh, shape,
+                                         getattr(JSH, rname))["cache"]
+                _specs_equal(want, SH.cache_specs(cfg, mesh, B, S,
+                                                  getattr(SH, rname)))
+                _specs_equal(want, ST.shardings_for(
+                    cfg, mesh, shape, getattr(SH, rname))["cache"])
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))

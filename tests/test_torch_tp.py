@@ -160,26 +160,19 @@ def test_compute_specs_follow_tp_rules_and_heads(arch, shape):
     """For every arch, each leaf's compute spec under either rule set is
     its ``TP_RULES`` storage spec, or whole for the named exceptions and
     the head counts that do not divide (GPT-2's 25 heads, RecurrentGemma's
-    10 at 4 and 16, qwen3-8b's 8 kv heads at 16); decode's placement keeps
-    every mixer whole."""
+    10 at 4 and 16, qwen3-8b's 8 kv heads at 16); prefill and decode take
+    the same placement."""
     cfg = ARCHS[arch] if arch in ARCHS else PAPER_LM_SUITE[arch]
     mesh = type("Fake", (), {"shape": {"data": shape[0],
                                        "model": shape[1]}})()
     layout = moe_ep.moe_layout(cfg, mesh, ("data",))
     defs = T.param_defs(cfg)
-    for mixers in (True, False):
-        cdefs = dict(_walk(T.compute_defs(cfg, mesh, SH.TP_RULES,
-                                          mixers=mixers)))
-        for rules in (SH.TRAIN_RULES, SH.TP_RULES):
-            for path, pd in _walk(defs):
-                got = SH.leaf_specs(pd.shape, pd.axes, rules, mesh, layout,
-                                    cdefs[path].axes).compute
-                want = _want(cfg, path, pd, mesh, layout)
-                in_mixer = any(k in ("attn", "xattn", "rec", "ssd")
-                               for k in path) and path[0] != "encoder"
-                if not mixers and in_mixer and "expert" not in pd.axes:
-                    want = SH.P()
-                assert got == want, (path, mixers, got, want)
+    cdefs = dict(_walk(T.compute_defs(cfg, mesh, SH.TP_RULES)))
+    for rules in (SH.TRAIN_RULES, SH.TP_RULES):
+        for path, pd in _walk(defs):
+            got = SH.leaf_specs(pd.shape, pd.axes, rules, mesh, layout,
+                                cdefs[path].axes).compute
+            assert got == _want(cfg, path, pd, mesh, layout), (path, got)
 
 
 def test_heads_that_do_not_divide_stay_whole():
@@ -203,6 +196,7 @@ def test_tp_rules_on_a_dense_model_move_no_leaf():
     cfg = get_arch("qwen3-8b").reduced()
     assert T.placement(cfg, SH.ActSharder(mesh, (), SH.TP_RULES)) is None
     assert T.placement(cfg, SH.ActSharder(mesh, (), SH.TRAIN_RULES)) is None
-    # decode keeps attention whole, so its prefill gathers it
-    assert T.placement(cfg, SH.ActSharder(mesh, (), SH.TP_RULES),
-                       mixers=False) is not None
+    # decode computes on the same blocks: its cache splits the sequence
+    # over model, not the heads
+    spec = SH.cache_specs(cfg, mesh, 4, 64, SH.TP_RULES)["blocks"]["b0_attn"]
+    assert spec["k"] == spec["v"] == SH.P(None, "data", "model")

@@ -66,20 +66,37 @@ def ep_rank(rank, world, store_dir, inputs, out_dir):
     dist.destroy_process_group()
 
 
+def serve_inputs(cfg, kw):
+    """The whole batch's prompts of a ``serve_rank`` case, and Whisper's
+    encoder frames (a seeded normal draw; None without an encoder)."""
+    from repro_torch.data.pipeline import RequestStream
+    B, S = kw["batch"], kw["prompt"]
+    tok = torch.from_numpy(RequestStream(cfg, B, S, kw.get("seed", 0))
+                           .requests_at(0)["tokens"])
+    frames = None
+    if cfg.frontend == "audio_frames":
+        frames = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                             generator=torch.Generator().manual_seed(7))
+    return tok, frames
+
+
 def serve_rank(rank, world, store_dir, cases, out_dir):
     """For each case (arch, mesh shape, config overrides, serve keywords,
-    the rules' name): ``serve`` over the mesh, and the prefill step on
+    the rules' name): ``serve`` over the mesh; then the prefill step on
     this rank's block of the served batch (the logits gathered over the
-    batch's axes)."""
+    batch's axes, and the rank's cache leaves), the cache grown to the
+    capacity, and the decode steps fed the served tokens (the last
+    logits gathered, the rank's cache leaves).  The rank's coordinates
+    go with them."""
     import dataclasses
 
     from repro_torch.configs import get_arch
-    from repro_torch.data.pipeline import RequestStream
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch import mesh as M
     from repro_torch.launch import serve as SV
     from repro_torch.launch import steps as ST
     from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
     torch.set_num_threads(1)          # the ranks share the host's cores
     M.init_group(store_dir, rank, world, "gloo")
     real = SV.get_arch
@@ -88,21 +105,41 @@ def serve_rank(rank, world, store_dir, cases, out_dir):
         cfg = dataclasses.replace(get_arch(arch).reduced(), **over)
         SV.get_arch = lambda name, cfg=cfg: cfg
         mesh = M.make_mesh(shape, ("data", "model"), device="cpu")
+        coords = SH.mesh_coords(mesh)
+        res[f"{i}_coords"] = np.array([coords["data"], coords["model"]])
         rules = getattr(SH, rname)
-        res[f"{i}_generated"] = SV.serve(arch, device="cpu", mesh=mesh,
-                                         rules=rules, **kw)["generated"]
-        B, S = kw["batch"], kw["prompt"]
+        gen = SV.serve(arch, device="cpu", mesh=mesh, rules=rules,
+                       **kw)["generated"]
+        res[f"{i}_generated"] = gen
+        B, S, G = kw["batch"], kw["prompt"], kw["gen"]
         baxes = SH.batch_axes(B, rules, mesh)
+        bspec = SH.batch_spec((B, S), rules, mesh)
         params = T.place_params(cfg, torch.Generator().manual_seed(
             kw.get("seed", 0)), mesh, rules=rules, device="cpu")
-        tok = torch.from_numpy(RequestStream(cfg, B, S, kw.get("seed", 0))
-                               .requests_at(0)["tokens"])
-        tok = SH.local_block(tok, SH.batch_spec((B, S), rules, mesh), mesh)
+        tok, frames = serve_inputs(cfg, kw)
+        batch = {"tokens": SH.local_block(tok, bspec, mesh)}
+        if frames is not None:
+            batch["encoder_frames"] = SH.local_block(frames, bspec, mesh)
+        feed = SH.local_block(torch.from_numpy(gen), bspec, mesh)
         step = ST.make_prefill_step(cfg, mesh=mesh, batch_axes=baxes,
                                     rules=rules)
+        decode = ST.make_decode_step(cfg, mesh=mesh, batch_axes=baxes,
+                                     rules=rules, seq=S + G)
         with torch.no_grad():
-            logits, _ = step(params, {"tokens": tok})
-        res[f"{i}_logits"] = SV.gather_batch(logits, mesh, baxes).numpy()
+            logits, cache = step(params, batch)
+            res[f"{i}_logits"] = SV.gather_batch(logits, mesh, baxes).numpy()
+            for j, t in enumerate(tree_leaves(cache)):
+                res[f"{i}_prefill_c{j}"] = t.clone().numpy()
+            cache = SV._grow_cache(cfg, cache, feed.shape[0], S + G,
+                                   shard=SH.make_act_sharder(mesh, baxes,
+                                                             rules), seq=S)
+            for t in range(G - 1):
+                logits, cache = decode(params, cache,
+                                       {"tokens": feed[:, t:t + 1]})
+        res[f"{i}_decode_logits"] = SV.gather_batch(logits, mesh,
+                                                    baxes).numpy()
+        for j, t in enumerate(tree_leaves(cache)):
+            res[f"{i}_decode_c{j}"] = t.numpy()
     SV.get_arch = real
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     dist.destroy_process_group()

@@ -3,12 +3,15 @@
 then print ``analysis.report``'s tables of the records.
 
     python3 tools/dryrun_sweep.py [--mesh single|multi|both] [--rules train]
-                                  [--jobs 8] [--out results/dryrun_torch]
+                                  [--kind train|prefill|decode] [--jobs 8]
+                                  [--out results/dryrun_torch]
 
 Each cell is one ``python -m repro_torch.launch.dryrun`` process with the
 card hidden (``CUDA_VISIBLE_DEVICES`` empty): the dry run needs none.  A
 cell's process that fails or outlives ``--timeout`` is reported and the
-sweep goes on; the exit code is 1 if any did.
+sweep goes on; the exit code is 1 if any did.  ``--kind`` keeps the
+cells of one kind of shape, and prints each record's argument bytes (the
+cache's in a decode cell) exactly.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ def main() -> int:
     ap.add_argument("--mesh", default="single",
                     choices=("single", "multi", "both"))
     ap.add_argument("--rules", default="train")
+    ap.add_argument("--kind", default=None,
+                    choices=("train", "prefill", "decode"))
     ap.add_argument("--jobs", type=int, default=8)
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--out", default=str(ROOT / "results" / "dryrun_torch"))
@@ -39,7 +44,8 @@ def main() -> int:
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "CUDA_VISIBLE_DEVICES": ""}
-    todo = [(a.name, s.name, m) for a, s, _ in cells() for m in meshes]
+    todo = [(a.name, s.name, m) for a, s, _ in cells() for m in meshes
+            if args.kind in (None, s.kind)]
 
     def one(cell):
         arch, shape, mesh = cell
@@ -69,6 +75,14 @@ def main() -> int:
     print(report.dryrun_table([r for r in recs
                                if r.get("rules", "train") == args.rules
                                and r["status"] in ("ok", "skipped")]))
+    if args.kind:
+        names = {(a, s, m) for a, s, m in todo}
+        for r in sorted(recs, key=lambda r: (r["arch"], r["shape"])):
+            if (r["arch"], r["shape"], r["mesh"]) in names and r[
+                    "status"] == "ok":
+                print(f"[sweep] {r['arch']} {r['shape']} {r['mesh']}: "
+                      f"argument_bytes={r['memory']['argument_bytes']} "
+                      f"peak_bytes={r['memory']['peak_bytes']}", flush=True)
     return 0 if all(ok) else 1
 
 
