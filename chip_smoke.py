@@ -236,6 +236,18 @@ K5_QWEN = [(4, 32, 8, 1024, 1024, 128), (4, 20, 20, 1024, 1024, 128),
 # rank's data block is 2 prompts: the same heads at half the work).
 K5_TP = [(4, 8, 2, 1024, 1024, 128), (4, 16, 1, 1024, 1024, 128),
          (4, 32, 2, 1024, 1024, 128)]
+# K5 at the other shapes a rank's served prefill launches in phase 16,
+# (shape, causal), bf16, each also in CUDA graph windows beside SDPA's
+# fused backends: (e)'s over (1, 4) TP_RULES, minicpm3-4b's 10 heads and
+# Whisper's 4 (encoder 1500², decoder 384², cross-attention 384 x 1500),
+# and (f)'s over (2, 2) DECODE_RULES, the whole batch of 4 on the rank's
+# heads, qwen3-8b's 16 (KV 4) and minicpm3-4b's 20.
+K5_RANKS = [((4, 10, 10, 1024, 1024, 96, 64), True),
+            ((4, 4, 4, 1500, 1500, 64), False),
+            ((4, 4, 4, 384, 384, 64), True),
+            ((4, 4, 4, 384, 1500, 64), False),
+            ((4, 16, 4, 1024, 1024, 128), True),
+            ((4, 20, 20, 1024, 1024, 96, 64), True)]
 QWEN_FULL = {   # (layers, d_model, heads, KV, head dim, (expert) d_ff,
                 #  experts, top-k, qk-norm, QKV bias, vocab, parameters)
     "qwen3-8b": (36, 4096, 32, 8, 128, 12288, 0, 0, True, False, 151936,
@@ -2129,6 +2141,14 @@ def drive_qwen(dev, counters, time_ms, call_ms, max_err, randn, card):
          "window": 0, **rows[(shape, torch.bfloat16)],
          "float32": {k: v for k, v in rows[(shape, torch.float32)].items()
                      if k != "library"}} for shape in K5_TP]
+    entries["rank_shapes"] = []
+    for shape, causal in K5_RANKS:
+        entries["rank_shapes"].append(
+            {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
+             "window": 0, **check_k5_case(
+                 shape, causal, 0, torch.bfloat16, randn, time_ms, call_ms,
+                 max_err, card, backends=True)})
+        torch.cuda.empty_cache()
     return entries
 
 
@@ -3439,6 +3459,24 @@ SPLIT_RUNS = {
     "whisper-medium": {"layers": 2, "batch": 4, "prompt": 384, "gen": 4},
 }
 SPLIT_FP32_GEN = 4
+# (f) DECODE_RULES over (2, 2) at full width, on the same 4 ranks: the
+# weights 2-D resident (in-dim over data, out-dim over model: no leaf
+# moves in serving), the residual stream split over data along d_model,
+# every data rank the whole batch of 4 prompts against its block of the
+# cache (its 2 rows, the sequence over model).  Each case as (d) and (e)
+# configure it, so their one-card serves are the references: qwen3-8b
+# over 2 of its 36 layers (K5 at (4, 16, KV 4) a rank), minicpm3-4b over
+# 2 of 62 (its latents normed over their whole width, 40 heads 20 a rank;
+# K5 at (4, 20, KV 20, 96/64)), Mamba-2 370M over 2 of 48 (the SSD block
+# resident, its state cut by batch and heads).  bf16 timed (its tokens
+# against one card's reported), fp32 with TF32 off checked (the last
+# prefill logits within TP_REL, every rank's tokens equal to one card's).
+DECODE2D_SHAPE = (2, 2)
+DECODE2D_RUNS = {
+    "qwen3-8b": {"layers": 2, "batch": 4, "prompt": 1024, "gen": 4},
+    "minicpm3-4b": {"layers": 2, "batch": 4, "prompt": 1024, "gen": 4},
+    "mamba2-370m": {"layers": 2, "batch": 4, "prompt": 1024, "gen": 4},
+}
 
 
 def split_config(name, layers, dtype=None):
@@ -3970,14 +4008,14 @@ def cache_spec_bytes(cfg, mesh, run, rules):
                          run["batch"]), mesh, rules)["cache"])
 
 
-def split_on_mesh(split, mesh, dev):
-    """(e) on this rank (``TP_RULES`` over ``mesh``): for each family, the
-    bf16 ``serve`` (timed) and the fp32 one
-    (``SPLIT_FP32_GEN`` tokens), each with the bytes of the rank's cache
-    beside its spec blocks' (``launch.dryrun.cell_blocks``) and the
+def split_on_mesh(split, mesh, dev, rules=None):
+    """(e) on this rank (``TP_RULES`` over ``mesh``; (f) ``DECODE_RULES``
+    where ``rules`` says): for each family, the bf16 ``serve`` (timed)
+    and the fp32 one (its ``fp32_run``), each with the bytes of the rank's
+    cache beside its spec blocks' (``launch.dryrun.cell_blocks``) and the
     reshards a decode step should make (``decode_reshards``)."""
     from repro_torch.distributed import sharding as SH
-    rules = SH.TP_RULES
+    rules = rules or SH.TP_RULES
     out = []
     for case in split:
         row = {}
@@ -3999,7 +4037,8 @@ def mesh_rank(rank, world, store_dir, job):
     ``launch.mesh.run_ranks`` for all of ``job["cases"]``, so the ranks
     start once): on the card's one device, in a gloo group, for each mesh
     (a) and (b) (``exact_on_mesh``), then (c) (``serve_recorded``,
-    ``mesh_gen`` tokens), timed, the pinned host cache emptied after each
+    ``mesh_gen`` tokens), then (d), (e) and (f) (``DECODE_RULES`` over
+    ``DECODE2D_SHAPE``), timed, the pinned host cache emptied after each
     (four ranks' caches of every mesh's buffers and the parent passed the
     96 GiB of host memory of an H100 host); its results to
     ``job["out"]/rank<r>.pt``."""
@@ -4043,6 +4082,15 @@ def mesh_rank(rank, world, store_dir, job):
     res.append(row)
     t0 = time.perf_counter()
     row = {"split": split_on_mesh(job["split"], mesh, dev)}
+    dist.barrier()
+    row["s"] = time.perf_counter() - t0
+    res.append(row)
+    t0 = time.perf_counter()
+    from repro_torch.distributed import sharding as SH
+    mesh = M.make_mesh(DECODE2D_SHAPE, ("data", "model"),
+                       device=job["device"])
+    row = {"split": split_on_mesh(job["decode2d"], mesh, dev,
+                                  SH.DECODE_RULES)}
     dist.barrier()
     row["s"] = time.perf_counter() - t0
     res.append(row)
@@ -4167,6 +4215,26 @@ def drive_mesh(dev, card):
               f"{SPLIT_FP32_GEN} tokens too; "
               f"{time.perf_counter() - t0:.1f} s; card {card}")
         split.append(case)
+    # (f)'s cases: (d)'s and (e)'s configurations, their one-card serves
+    # the references
+    decode2d, one_decode2d = [], []
+    for name, r in DECODE2D_RUNS.items():
+        run = {k: r[k] for k in ("batch", "prompt", "gen")}
+        if name == TP_MODEL:
+            cfgs, one_ref = (cfg_tp, cfg_tp32), {"bf16": one_tp,
+                                                 "fp32": one_tp32s}
+            same = run == dict(run_tp, gen=run["gen"])
+        else:
+            i = list(SPLIT_RUNS).index(name)
+            cfgs = (split[i]["bf16"], split[i]["fp32"])
+            one_ref, same = one_split[i], run == split[i]["bf16_run"]
+        if not (same and cfgs[0].num_layers == r["layers"]):
+            raise AssertionError(f"phase 16(f) {name}: {r} is not the run "
+                                 f"its one-card reference served")
+        decode2d.append({"name": name, "bf16": cfgs[0], "bf16_run": run,
+                         "fp32": cfgs[1],
+                         "fp32_run": dict(run, gen=SPLIT_FP32_GEN)})
+        one_decode2d.append(one_ref)
     cfg16 = mesh_config(MESH_SERVE["layers"])
     one = serve_recorded(cfg16, run_c, dev)
     if one["prefill"]["k5"] != cfg16.num_layers:
@@ -4214,7 +4282,7 @@ def drive_mesh(dev, card):
                      for shape, impl in MESH_CASES],
            "tp": {"run": TP_RUN, "cfg": cfg_tp, "cfg32": cfg_tp32,
                   "tokens": tok_tp},
-           "split": split}
+           "split": split, "decode2d": decode2d}
     host0 = host_available_gb()
     t0 = time.perf_counter()
     M.run_ranks(mesh_rank, world, job, timeout_s=MESH_TIMEOUT_S)
@@ -4451,18 +4519,23 @@ def drive_mesh(dev, card):
 
     # (e): the families whose decode mixers compute on TP's blocks
     k5_mesh += check_split(split, one_split,
-                           [r[len(MESH_CASES) + 1] for r in by_rank], card)
+                           [r[len(MESH_CASES) + 1] for r in by_rank], card,
+                           tp_launches)
+    # (f): DECODE_RULES over (2, 2)
+    k5_mesh += check_decode2d(decode2d, one_decode2d,
+                              [r[len(MESH_CASES) + 2] for r in by_rank], card,
+                              tp_launches)
     return k5_mesh, k5_tp
 
 
-def check_split(split, one_split, ranks, card):
+def check_split(split, one_split, ranks, card, launched):
     """(e)'s checks and lines: in fp32 every rank's last prefill logits
     within ``TP_REL`` of one card's (same argmax) and its tokens equal to
     one card's; in both dtypes every rank's tokens equal to rank 0's, its
     cache bytes its spec blocks', and each decode step resharding only
     what ``decode_reshards`` says (no leaf TP computes split); the bf16
     tokens against one card's reported.  Returns K5's launches in the
-    ranks' prefills."""
+    ranks' prefills, and hands ``launched`` each prefill's by shape."""
     import torch
     k5 = 0
     for i, case in enumerate(split):
@@ -4485,6 +4558,7 @@ def check_split(split, one_split, ranks, card):
                     problems.append(f"rank {r} {key} decode reshards "
                                     f"{steps}, want {sv['want_reshards']}")
                 k5 += sv["prefill"]["k5"]
+                launched(sv["prefill"]["k5_shapes"])
             f32, one32 = row["fp32"], one_split[i]["fp32"]
             got, want = f32["logits"][:, vocab], one32["logits"][:, vocab]
             rel = ((got - want).norm() / want.norm()).item()
@@ -4530,6 +4604,103 @@ def check_split(split, one_split, ranks, card):
     return k5
 
 
+
+def check_decode2d(cases, refs, ranks, card, launched):
+    """(f)'s checks and lines (``DECODE_RULES`` over ``DECODE2D_SHAPE``):
+    in fp32 every rank's last prefill logits within ``TP_REL`` of one
+    card's (same argmax) and its tokens equal to one card's; in both
+    dtypes every rank's tokens equal to rank 0's, its weight bytes (held
+    in ``serve_recorded``) and cache bytes its spec blocks', no weight
+    resharded in the prefill or a decode step, and K5 at the rank's heads
+    over the whole batch, once a layer of the prefill; the bf16 tokens
+    against one card's reported (the first step that differs).  Returns
+    K5's launches in the ranks' prefills, and hands ``launched`` each
+    prefill's by shape."""
+    import torch
+    data, model = DECODE2D_SHAPE
+    k5 = 0
+    for i, case in enumerate(cases):
+        name, cfg = case["name"], case["bf16"]
+        rows = [r["split"][i] for r in ranks]
+        vocab = slice(0, cfg.vocab_size)
+        run = case["bf16_run"]
+        want_k5 = {} if cfg.family == "ssm" else {
+            (run["batch"], cfg.num_heads // model,
+             cfg.num_kv_heads // model, run["prompt"], run["prompt"],
+             (cfg.nope_head_dim + cfg.rope_head_dim
+              if cfg.attention == "mla" else cfg.resolved_head_dim)):
+            cfg.num_layers}
+        problems, rels = [], []
+        for r, row in enumerate(rows):
+            for key in ("bf16", "fp32"):
+                sv = row[key]
+                if not torch.equal(sv["generated"], rows[0][key]["generated"]):
+                    problems.append(f"rank {r} {key} tokens differ from rank "
+                                    f"0's")
+                if sv["cache_bytes"] != sv["cache_spec_bytes"]:
+                    problems.append(f"rank {r} {key} cache "
+                                    f"{sv['cache_bytes']} bytes, its spec "
+                                    f"blocks {sv['cache_spec_bytes']}")
+                moved = [sv["prefill"]["reshards"]] + [
+                    d["reshards"] for d in sv["decode"]]
+                if any(moved) or sv["want_reshards"]:
+                    problems.append(f"rank {r} {key} weights resharded: "
+                                    f"the prefill, then each decode step "
+                                    f"{moved}")
+                if sv["prefill"]["k5_shapes"] != want_k5:
+                    problems.append(f"rank {r} {key} K5 "
+                                    f"{sv['prefill']['k5_shapes']}, want "
+                                    f"{want_k5}")
+                k5 += sv["prefill"]["k5"]
+                launched(sv["prefill"]["k5_shapes"])
+            f32, one32 = row["fp32"], refs[i]["fp32"]
+            got, want = f32["logits"][:, vocab], one32["logits"][:, vocab]
+            rel = ((got - want).norm() / want.norm()).item()
+            rels.append(rel)
+            if not (torch.isfinite(got).all() and rel <= TP_REL
+                    and torch.equal(got.argmax(-1), want.argmax(-1))):
+                problems.append(f"rank {r} fp32 prefill logits rel err "
+                                f"{rel:.3e} (limit {TP_REL})")
+            if not torch.equal(f32["generated"], one32["generated"]):
+                problems.append(f"rank {r} fp32 tokens "
+                                f"{f32['generated'].tolist()} vs one card's "
+                                f"{one32['generated'].tolist()}")
+        if problems:
+            raise AssertionError(f"phase 16(f) {name}: " + "; ".join(problems))
+        bf, one = rows[0]["bf16"], refs[i]["bf16"]
+        n = bf["generated"].shape[1]
+        diff = (bf["generated"] != one["generated"][:, :n]).any(0).nonzero()
+        first = "none" if not len(diff) else int(diff[0])
+        dec, pre = bf["decode"][-1], bf["prefill"]
+        print(f"phase 16(f) {name} over ({data}, {model}) DECODE_RULES, "
+              f"{data * model} ranks on the one card (gloo), "
+              f"{cfg.num_layers} layers at full width: bf16 serve batch "
+              f"{bf['generated'].shape[0]} (every rank the whole batch), "
+              f"prompt {run['prompt']}, gen {n}: prefill_ms per rank "
+              f"{[round(x['bf16']['prefill_ms'], 3) for x in rows]} (one "
+              f"card {one['prefill_ms']:.3f}), decode_ms_per_token "
+              f"{[round(x['bf16']['decode_ms'], 3) for x in rows]} (one card "
+              f"{one['decode_ms']:.3f}); tokens equal to one card's "
+              f"{first == 'none'}, first step that differs {first}; K5 a "
+              f"prefill {pre['k5_shapes']}; the prefill's collectives: "
+              f"all-reduces {pre['reduce_calls']} ({pre['reduce_bytes']} "
+              f"bytes), all-gathers {pre['gather_calls']} "
+              f"({pre['gather_bytes']} bytes), host ms {pre['host_ms']:.3f}; "
+              f"a decode step: all-reduces {dec['reduce_calls']} "
+              f"({dec['reduce_bytes']} bytes), all-gathers "
+              f"{dec['gather_calls']} ({dec['gather_bytes']} bytes), host "
+              f"ms {dec['host_ms']:.3f}; weight bytes resharded a token "
+              f"{dec['reshard_bytes']} (the prefill {pre['reshard_bytes']}); "
+              f"each rank's weights {[x['bf16']['param_bytes'] for x in rows]}"
+              f" bytes, its DECODE_RULES spec blocks {bf['spec_bytes']}; "
+              f"each rank's cache {[x['bf16']['cache_bytes'] for x in rows]} "
+              f"bytes, its spec blocks {bf['cache_spec_bytes']}; fp32 (TF32 "
+              f"off) last prefill logits vs one card rel Frobenius err per "
+              f"rank {[f'{x:.3e}' for x in rels]} (limit {TP_REL}), "
+              f"{SPLIT_FP32_GEN} greedy tokens equal to one card's on every "
+              f"rank; {ranks[0]['s']:.1f} s on the ranks for (f); card "
+              f"{card}")
+    return k5
 
 # ---------------------------------------------------------------------------
 # Phase 17: training over a mesh — the gradient of qwen3-moe-235b-a22b over
@@ -6102,8 +6273,8 @@ def main() -> int:
     dryruns = start_dryruns(Path(dryrun_dir.name))
     mark("16, the mesh")
     k5_mesh, k5_tp = drive_mesh(dev, card)
-    for row in k5_qwen["tp_ranks"]:
-        b, h, kv, sq, skv, d = row["shape"]
+    for row in k5_qwen["tp_ranks"] + k5_qwen["rank_shapes"]:
+        b, h, kv, sq, skv, d = row["shape"][:6]
         row["launches"] = k5_tp.get((h, kv, sq, skv, d), 0)
     torch.cuda.empty_cache()
     gc.collect()

@@ -11,9 +11,10 @@ Rule sets:
   TRAIN_RULES  : FSDP ("fsdp"->data) + TP ("tp"->model) + EP ("expert"->model)
   TP_RULES     : pure tensor parallel (no FSDP)
   SEQPAR_RULES : TRAIN_RULES + the residual stream sharded over model along
-                 the sequence
+                 the sequence (refused: not ported)
   DECODE_RULES : weights 2-D resident, the residual stream sharded over data
-                 along the hidden dim
+                 along the hidden dim, the token batch over pod alone
+                 (serving only: the train steps refuse it)
 
 A mesh is a ``torch.distributed.DeviceMesh`` over an initialised process
 group, or anything whose ``.shape`` is a ``{name: size}`` dict (the tests'
@@ -30,17 +31,21 @@ experts over model), and the one a layer computes with
 data split (the column-parallel in and row-parallel out products XLA's
 partitioner makes of JAX's layout), a leaf the model keeps whole (its
 logical axes given without ``tp``: ``transformer.compute_defs``) whole,
-expert leaves in the in_specs of the MoE layout.  The model reshards one
-into the other a layer at a time (``models.transformer.Placement``).  Where JAX's activation
-constraint steers GSPMD's layout, the local batch block already is the
-layout, so nothing is left of the callback but what the model reads:
-``make_act_sharder`` gives an ``ActSharder``, the mesh, the axes the batch
-was split over and the rules.  ``resolve_rules`` refuses the two rule
-sets whose activation layouts (``act_seq``, ``act_hidden``) are not
-ported.  ``cache_specs`` gives the decode cache's blocks (the batch over
-``pod``/``data``, the sequence over ``model``, the SSD state's heads over
-``model``).  ``local_block`` cuts a rank's block of a tensor out of the
-whole by its spec.
+expert leaves in the in_specs of the MoE layout.  Under ``DECODE_RULES``
+(``resident``) a dense leaf computes with the block it stores: the
+model's products take the data split of their in-dim as a sum of
+activation partials instead.  The model reshards one into the other a
+layer at a time (``models.transformer.Placement``).  Where JAX's
+activation constraint steers GSPMD's layout, the local batch block
+already is the layout, so nothing is left of the callback but what the
+model reads: ``make_act_sharder`` gives an ``ActSharder``, the mesh, the
+axes the batch was split over and the rules, and from them the axes the
+residual stream's hidden dim splits over (``act_hidden``).
+``resolve_rules`` refuses ``SEQPAR_RULES``, whose activation layout
+(``act_seq``) is not ported.  ``cache_specs`` gives the decode cache's
+blocks (the batch over ``pod``/``data``, the sequence over ``model``, the
+SSD state's heads over ``model``).  ``local_block`` cuts a rank's block of
+a tensor out of the whole by its spec.
 """
 from __future__ import annotations
 
@@ -155,18 +160,23 @@ def spec_for(shape: Tuple[int, ...], axes: Tuple[Optional[str], ...],
 
 
 def resolve_rules(rules=None) -> Dict[str, Tuple[str, ...]]:
-    """``rules``, ``TRAIN_RULES`` where None.  ``SEQPAR_RULES`` and
-    ``DECODE_RULES`` are refused by name: their residual-stream layouts
-    (``act_seq`` over model, ``act_hidden`` over data) are not ported, and
-    run as ``TRAIN_RULES`` they would hide that (ROADMAP, queue 1)."""
+    """``rules``, ``TRAIN_RULES`` where None.  ``SEQPAR_RULES`` is refused
+    by name: its residual-stream layout (``act_seq`` over model) is not
+    ported, and run as ``TRAIN_RULES`` it would hide that (ROADMAP, queue
+    1)."""
     if rules is None:
         return TRAIN_RULES
-    for name in ("SEQPAR_RULES", "DECODE_RULES"):
-        if rules == globals()[name]:
-            raise NotImplementedError(
-                f"{name}: its activation layout is not ported yet (ROADMAP "
-                f"queue 1); TRAIN_RULES and TP_RULES run")
+    if rules == SEQPAR_RULES:
+        raise NotImplementedError(
+            "SEQPAR_RULES: its activation layout is not ported yet (ROADMAP "
+            "queue 1); TRAIN_RULES, TP_RULES and DECODE_RULES run")
     return rules
+
+
+def resident(rules) -> bool:
+    """``rules`` keep every dense weight where it is stored and split the
+    residual stream instead (``act_hidden``: ``DECODE_RULES``)."""
+    return bool(rules.get("act_hidden"))
 
 
 def compute_spec(axes: Tuple[Optional[str], ...], layout: Optional[str],
@@ -207,8 +217,14 @@ def leaf_specs(shape: Tuple[int, ...], axes: Tuple[Optional[str], ...],
     """The storage spec (``spec_for`` under ``rules``) and the compute
     spec (``compute_spec`` of ``layout`` and ``rules``, of
     ``compute_axes``: ``axes`` without the splits a layer does not take;
-    ``axes`` where None) of one leaf."""
-    return LeafSpecs(spec_for(shape, axes, rules, mesh),
+    ``axes`` where None) of one leaf.  Under ``resident`` rules a dense
+    leaf computes with its stored block; an expert leaf takes the MoE
+    layout's in_specs all the same (``ep``'s gather its ``fsdp`` dim over
+    data, as JAX's ``shard_map`` in_specs do)."""
+    storage = spec_for(shape, axes, rules, mesh)
+    if "expert" not in axes and resident(rules):
+        return LeafSpecs(storage, storage)
+    return LeafSpecs(storage,
                      compute_spec(axes if compute_axes is None
                                   else compute_axes, layout, shape, rules,
                                   mesh))
@@ -283,6 +299,15 @@ class ActSharder:
     batch_axes: Tuple[str, ...] = ()
     rules: Dict[str, Tuple[str, ...]] = field(
         default_factory=lambda: TRAIN_RULES)
+
+    def hidden_axes(self, width: int) -> Tuple[str, ...]:
+        """The mesh axes the residual stream's hidden dim of ``width``
+        splits over: JAX's ``"act"`` constraint, ``act_hidden`` less the
+        batch's axes, the longest prefix that divides ``width`` (() where
+        none does: the stream stays whole, as the constraint leaves
+        it)."""
+        return _fit_axes(width, [a for a in self.rules.get("act_hidden", ())
+                                 if a not in self.batch_axes], self.mesh)
 
 
 def make_act_sharder(mesh, batch_axes: Sequence[str] = (),

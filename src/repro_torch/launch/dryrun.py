@@ -44,9 +44,11 @@ kept, every token distinct).  Over a mesh the decode cache is each rank's
 block under the JAX package's spec (``sharding.cache_specs``: the batch
 over ``pod``/``data``, the sequence over ``model`` where it divides, the
 SSD state's heads over ``model``), the layout the port's decode keeps.
-``SEQPAR``/``DECODE`` cells are refused, with
-``sharding.resolve_rules``' message; ``long_500k`` is skipped on a
-quadratic arch, as in the JAX dry run.
+``SEQPAR`` cells are refused, with ``sharding.resolve_rules``' message,
+and so are ``decode2d`` train cells (``steps.refuse_training``); its
+prefill and decode cells run with the weights resident and the batch
+over ``pod`` alone.  ``long_500k`` is skipped on a quadratic arch, as in
+the JAX dry run.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k --mesh multi
@@ -105,7 +107,7 @@ def cell_blocks(cfg: ModelConfig, shape: ShapeConfig, mesh, rules=None,
                 device="meta") -> Dict[str, object]:
     """Rank 0's blocks of one cell's arguments on ``mesh``: ``params``
     (``transformer.param_block_specs`` of ``rules``; raises on the rule
-    sets ``sharding.resolve_rules`` refuses), for a train cell ``opt``
+    set ``sharding.resolve_rules`` refuses), for a train cell ``opt``
     (the AdamW state, its moments in the parameters' blocks), ``batch``
     and for a decode cell ``cache`` (its blocks under
     ``steps.shardings_for``'s cache specs, the JAX package's: the batch
@@ -349,6 +351,8 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: Path,
 
     try:
         SHD.resolve_rules(rules)
+        if shape.kind == "train":
+            ST.refuse_training(rules)
     except NotImplementedError as e:
         rec["status"] = "refused"
         rec["reason"] = str(e)

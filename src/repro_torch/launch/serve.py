@@ -12,12 +12,15 @@ so it is the card's time for the phase, not the time to enqueue it.
 
 ``serve(..., mesh=mesh, rules=rules)`` serves over a mesh of ranks
 (``launch.mesh``): every rank calls it with the same arguments, draws the
-same whole batch, keeps its ``batch_spec`` block, holds its block of
+same whole batch, keeps its ``batch_spec`` block (under ``DECODE_RULES``
+the batch splits over ``pod`` alone: a pod's ranks all keep the whole
+of it, and their cache its ``data`` rows), holds its block of
 every weight under ``rules`` (``transformer.place_params``, drawn leaf by
 leaf from the seed's generator: the one-card run's weights), prefills and
 decodes through the sharded steps, which compute on TP's blocks
 (resharding only the leaves ``transformer.compute_defs`` keeps whole,
-and under FSDP the data split) and hold the rank's block of the cache
+and under FSDP the data split; under ``DECODE_RULES`` nothing dense:
+the weights stay resident) and hold the rank's block of the cache
 under the JAX package's spec (``sharding.cache_specs``: the sequence
 split over ``model``), re-cut at the capacity by ``_grow_cache``, and
 gathers the greedy tokens of every block, so every rank returns the
@@ -81,7 +84,7 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt: int = 64,
     generated tokens outgrow is refused (``_grow_cache``), and so is a
     prompt shorter than a patch frontend's ``frontend_seq``.  ``mesh``:
     serve over it (every rank the same call; ``rules`` the sharding rules,
-    default ``TRAIN_RULES``, or ``TP_RULES``).  Returns ``generated``
+    default ``TRAIN_RULES``, or ``TP_RULES`` or ``DECODE_RULES``).  Returns ``generated``
     int32 (batch, gen), ``prefill_s`` and ``decode_s_per_token``."""
     dev = resolve(device)
     cfg = get_arch(arch)

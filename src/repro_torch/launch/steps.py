@@ -7,12 +7,16 @@ rank calls the step on its own blocks: the batch's and cache's block along
 ``batch_axes`` (the axes ``sharding.batch_axes`` gives the whole batch
 under the caller's rules), and its block of every parameter under
 ``rules`` (``transformer.place_params``; ``TRAIN_RULES`` where None,
-``TP_RULES`` too; ``SEQPAR_RULES`` and ``DECODE_RULES`` are refused by
-name, ``sharding.resolve_rules``).  The ``sharding.ActSharder`` of the
-mesh, those axes and the rules lets the model reshard each layer to the
-blocks it computes with and sends the MoE FFN down the expert-parallel
-path.  The training step takes the gradient with ``torch.autograd.grad``
-over the parameter leaves (on the card the SSD scan's through K8b,
+``TP_RULES`` too; ``SEQPAR_RULES`` is refused by name,
+``sharding.resolve_rules``).  ``DECODE_RULES`` serves (the prefill and
+decode steps: the token batch over ``pod`` alone, every ``data`` rank
+the whole of it, the cache over ``pod`` and ``data``, the weights
+resident); the gradient and train steps refuse it by name
+(``refuse_training``).  The ``sharding.ActSharder`` of the mesh, those
+axes and the rules lets the model reshard each layer to the blocks it
+computes with and sends the MoE FFN down the expert-parallel path.
+The training step takes the gradient with ``torch.autograd.grad`` over
+the parameter leaves (on the card the SSD scan's through K8b,
 attention's through K5b and the RG-LRU's through K7b, the
 expert-parallel MoE's through ``distributed.collectives``), accumulates
 microbatches in a Python loop where the JAX package scans, applies the
@@ -109,6 +113,17 @@ def _reduce_grouped(values: torch.Tensor, groups, mesh, op) -> torch.Tensor:
     return values
 
 
+def refuse_training(rules) -> None:
+    """``DECODE_RULES`` is refused by name: its gradient would be summed
+    over ranks that hold the same batch (every ``data`` rank the whole of
+    it), whose convention the training step does not have yet (ROADMAP,
+    queue 1)."""
+    if rules == SH.DECODE_RULES:
+        raise NotImplementedError(
+            "DECODE_RULES: training under it is not ported yet (ROADMAP "
+            "queue 1); its prefill and decode steps run")
+
+
 def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
                  batch_axes: Tuple[str, ...] = (), rules=None):
     """``(params, batch) -> (loss, grads)``: the train step's loss and the
@@ -116,6 +131,7 @@ def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
     global mean's, each leaf reduced as ``leaf_axes`` says, in fp32; int8
     when ``tcfg`` asks)."""
     rules = SH.resolve_rules(rules)
+    refuse_training(rules)
     shard = _sharder(mesh, batch_axes, rules)
     world = 1 if mesh is None else SH.mesh_size(mesh)
     axes = leaf_axes(cfg, mesh, rules) if world > 1 else None
@@ -199,6 +215,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
     JAX train step's donation: the step returns the parameter and state
     objects it was given, updated, and a caller that wants the old values
     hands it a copy."""
+    refuse_training(SH.resolve_rules(rules))
     grad_fn = make_grad_fn(cfg, tcfg, mesh=mesh, batch_axes=batch_axes,
                            rules=rules)
     reduce_sq = norm_reduction(cfg, mesh, rules)
@@ -217,11 +234,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
 
 
 def cache_specs_for(cfg: ModelConfig, shard, batch: int, seq: int):
-    """The specs of the decode cache whose rank's block holds ``batch``
+    """The specs of the decode cache of a rank's token block of ``batch``
     sequences of the whole ``seq`` positions over ``shard``'s mesh:
     ``sharding.cache_specs`` (``shardings_for``'s ``"cache"``) of the
-    whole batch (``batch`` times the batch axes' ranks); None off a
-    mesh."""
+    whole batch (``batch`` times the token batch axes' ranks: under
+    ``DECODE_RULES`` ``pod``'s alone, while the cache's blocks split it
+    over ``data`` too); None off a mesh."""
     if shard is None:
         return None
     Bg = batch * math.prod(SH.mesh_shape(shard.mesh)[a]
@@ -234,7 +252,8 @@ def make_prefill_step(cfg: ModelConfig, *, mesh=None, batch_axes=(),
     """The prefill step; on ``mesh`` each rank passes its blocks of the
     parameters under ``rules`` and its block of a batch split over
     ``batch_axes``, and gets its blocks of the prompts' cache
-    (``cache_specs_for``)."""
+    (``cache_specs_for``; under ``DECODE_RULES`` its batch rows of the
+    tokens it was given)."""
     shard = _sharder(mesh, batch_axes, SH.resolve_rules(rules))
 
     def prefill_step(params, batch):

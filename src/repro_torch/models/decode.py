@@ -45,7 +45,15 @@ the RG-LRU steps its channels and gathers the new state whole.
 ``prefill`` fills the rank's blocks: K/V gathered over the heads, then
 cut to the rank's sequence block (the ring rolled first); MLA's latents
 computed for the rank's rows.  Both return the last position's logits
-gathered whole over ``model`` (``transformer.gather_vocab``).
+gathered whole over ``model`` (``transformer.gather_vocab``).  Under
+``DECODE_RULES`` the token batch is split over ``pod`` alone while the
+cache keeps its ``data`` split by batch: every ``data`` rank computes a
+token's q, K/V or latent row for the whole batch (the weights resident,
+``transformer._cols``), takes its batch rows of them for its cache
+(``layer_blocks``' ``"rows"``), scores its ``(cache_batch, cache_seq)``
+block, and gathers the attention output over those rows before ``wo``;
+the SSD and RG-LRU steps step the rank's rows the same way, and the
+prefill cuts every leaf to them.
 """
 from __future__ import annotations
 
@@ -225,10 +233,19 @@ class Block:
         return self.index * size
 
 
-def layer_blocks(specs, mesh) -> Dict[str, Block]:
+def _axes(part) -> Tuple[str, ...]:
+    return (part,) if isinstance(part, str) else tuple(part)
+
+
+def layer_blocks(specs, mesh, batch_axes: Tuple[str, ...] = ()
+                 ) -> Dict[str, Block]:
     """The ``Block`` of each of a layer's cache leaves that is split on
     dim 1 under ``specs`` (a dict of ``P``), from the rank's coordinates
-    on ``mesh``; none where ``specs`` is None (one card)."""
+    on ``mesh``, and under ``"rows"`` the rank's block of the token batch
+    that its cache holds: the batch axes of the cache's spec past
+    ``batch_axes``, those the tokens are split over (``DECODE_RULES``:
+    the tokens over ``pod`` alone, the cache over ``pod`` and ``data``);
+    none where ``specs`` is None (one card)."""
     if specs is None:
         return {}
     coords = SH.mesh_coords(mesh)
@@ -237,9 +254,41 @@ def layer_blocks(specs, mesh) -> Dict[str, Block]:
         part = spec[1] if len(spec) > 1 else None
         if part is not None:
             i, n = SH.block_index(part, mesh, coords)
-            out[name] = Block(i, n, (part,) if isinstance(part, str)
-                              else tuple(part))
+            out[name] = Block(i, n, _axes(part))
+        if len(spec[:1]) and spec[0] is not None and "rows" not in out:
+            axes = _axes(spec[0])
+            nb = len(batch_axes)
+            assert axes[:nb] == tuple(batch_axes), (axes, batch_axes)
+            extra = coll.live_axes(mesh, axes[nb:])
+            if extra:
+                out["rows"] = Block(*SH.block_index(extra, mesh, coords),
+                                    extra)
     return out
+
+
+def _layer_blocks(specs, shard) -> Dict[str, Block]:
+    """``layer_blocks`` of a layer's cache ``specs`` over ``shard`` (a
+    ``sharding.ActSharder``; none on one card)."""
+    return ({} if shard is None else
+            layer_blocks(specs, shard.mesh, shard.batch_axes))
+
+
+def _rows(t: torch.Tensor, rows: Optional[Block]) -> torch.Tensor:
+    """The rank's ``rows`` (``layer_blocks``) of ``t``'s batch dim 0;
+    ``t`` where None."""
+    if rows is None:
+        return t
+    size = t.shape[0] // rows.n
+    return t.narrow(0, rows.lo(size), size)
+
+
+def _all_rows(t: torch.Tensor, rows: Optional[Block], ctx) -> torch.Tensor:
+    """``t``, the rank's ``rows`` of the batch, gathered whole over their
+    axes; ``t`` where None."""
+    if rows is None:
+        return t
+    part = rows.axes[0] if len(rows.axes) == 1 else rows.axes
+    return coll.gather_block(t, SH.P(part), ctx.shard.mesh)
 
 
 def _write_row(c: torch.Tensor, at, row: torch.Tensor,
@@ -335,21 +384,24 @@ def attn_step(cfg: ModelConfig, p, x, cache, pos, ctx, blocks=None):
     each rank scores its sequence block and the softmax is combined over
     ``model``; ``wo`` row-parallel on the rank's heads."""
     Dh = cfg.resolved_head_dim
-    H, KV = p["wq"].shape[-1] // Dh, p["wk"].shape[-1] // Dh
-    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    q = T._heads(T._proj(h, p["wq"], p.get("bq")), H, Dh)
-    k = T._heads(T._proj(h, p["wk"], p.get("bk")), KV, Dh)
-    v = T._heads(T._proj(h, p["wv"], p.get("bv")), KV, Dh)
+    h = T._rms_norm(x, p["ln"], cfg.norm_eps, ctx)
+    oq, okv = T._attn_outs(cfg, ctx, Dh, Dh)
+    q, k, v = T._cols(h, [p["wq"], p["wk"], p["wv"]], ctx, cfg.d_model,
+                      [p.get("bq"), p.get("bk"), p.get("bv")], [oq, okv, okv])
+    H, KV = q.shape[-1] // Dh, k.shape[-1] // Dh
+    q, k, v = T._heads(q, H, Dh), T._heads(k, KV, Dh), T._heads(v, KV, Dh)
     if cfg.qk_norm:
         q = L.rms_norm(q, p["qn"], cfg.norm_eps)
         k = L.rms_norm(k, p["kn"], cfg.norm_eps)
     if cfg.rope in ("rope", "mrope"):
         q = L.apply_rope(q, ctx.cos, ctx.sin)
         k = L.apply_rope(k, ctx.cos, ctx.sin)
-    q = _whole_heads(q, cfg.num_heads, ctx)
-    k = _whole_heads(k, cfg.num_kv_heads, ctx)
-    v = _whole_heads(v, cfg.num_kv_heads, ctx)
-    blk = (blocks or {}).get("k")
+    blocks = blocks or {}
+    rows = blocks.get("rows")
+    q = _rows(_whole_heads(q, cfg.num_heads, ctx), rows)
+    k = _rows(_whole_heads(k, cfg.num_kv_heads, ctx), rows)
+    v = _rows(_whole_heads(v, cfg.num_kv_heads, ctx), rows)
+    blk = blocks.get("k")
     W = cfg.sliding_window
     ring = "kpos" in cache                    # ring buffer (long-context local)
     at = pos % W if ring else pos
@@ -372,7 +424,7 @@ def attn_step(cfg: ModelConfig, p, x, cache, pos, ctx, blocks=None):
         if cfg.family == "hybrid" and W:
             ok &= (pos - kp) < W
         o = _attend(q, cache["k"], cache["v"], ok, blk, ctx)
-    o = _rank_heads(o, H, ctx)
+    o = _rank_heads(_all_rows(o, rows, ctx), H, ctx)
     return x + T._row_parallel(o.reshape(x.shape[0], 1, H * Dh), p["wo"],
                                ctx, H < cfg.num_heads)
 
@@ -384,27 +436,38 @@ def mla_step(cfg: ModelConfig, p, x, cache, pos, ctx, blocks=None):
     einsums, as the JAX package decodes every attention plainly.  Over a
     mesh q is folded through the rank's heads of ``wk_b`` and gathered
     whole, each rank scores its block of ``lat``/``kr`` and the softmax is
-    combined over ``model``; ``wv_b`` and ``wo`` on the rank's heads."""
-    H = p["wk_b"].shape[-1] // cfg.nope_head_dim
+    combined over ``model``; ``wv_b`` and ``wo`` on the rank's heads.
+    Under ``DECODE_RULES`` ``wk_b`` and ``wv_b`` stay resident, their
+    latent rows over ``data`` and their flat columns over ``model``
+    (``_absorb_q``, ``_absorb_o``), and the rank scores its batch rows
+    of the cache, the context gathered over them before ``wv_b``."""
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     r = cfg.kv_lora_rank
     B = x.shape[0]
-    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    cq = L.rms_norm(T._proj(h, p["wq_a"]), p["q_ln"], cfg.norm_eps)
-    q = T._heads(T._proj(cq, p["wq_b"]), H, dn + dr)
+    h = T._rms_norm(x, p["ln"], cfg.norm_eps, ctx)
+    cq = L.rms_norm(T.mla_q_latent(cfg, p, h, ctx), p["q_ln"], cfg.norm_eps)
+    oq, _ = T._attn_outs(cfg, ctx, dn + dr, 0)
+    (q,) = T._cols(cq, [p["wq_b"]], ctx, cfg.q_lora_rank, outs=[oq])
+    H = q.shape[-1] // (dn + dr)
+    q = T._heads(q, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = L.apply_rope(q_rope, ctx.cos_r, ctx.sin_r)
     lat_t, kr_t = T.mla_latent(cfg, p, h, ctx)
-    blk = (blocks or {}).get("lat")
-    _write_row(cache["lat"], pos, lat_t, blk)
-    _write_row(cache["kr"], pos, kr_t, blk)
+    blocks = blocks or {}
+    blk, rows = blocks.get("lat"), blocks.get("rows")
+    _write_row(cache["lat"], pos, _rows(lat_t, rows), blk)
+    _write_row(cache["kr"], pos, _rows(kr_t, rows), blk)
     lat, kr = cache["lat"], cache["kr"]
-    wk = p["wk_b"].reshape(r, H, dn)
-    wv = p["wv_b"].reshape(r, H, dv)
-    # absorb wk into q: q_lat (B,1,H,r)
-    q_lat = torch.einsum("bchn,rhn->bchr", q_nope, wk.to(q_nope.dtype))
-    q_lat = _whole_heads(q_lat, cfg.num_heads, ctx)
-    q_rope = _whole_heads(q_rope, cfg.num_heads, ctx)
+    resident = ctx.shard is not None and SH.resident(ctx.shard.rules)
+    if resident:
+        q_lat = _absorb_q(cfg, q_nope, p["wk_b"], ctx)
+    else:
+        wk = p["wk_b"].reshape(r, H, dn)
+        # absorb wk into q: q_lat (B,1,H,r)
+        q_lat = torch.einsum("bchn,rhn->bchr", q_nope, wk.to(q_nope.dtype))
+        q_lat = _whole_heads(q_lat, cfg.num_heads, ctx)
+    q_lat = _rows(q_lat, rows)
+    q_rope = _rows(_whole_heads(q_rope, cfg.num_heads, ctx), rows)
     s = (torch.einsum("bchr,bsr->bhcs", q_lat, lat)
          + torch.einsum("bchp,bsp->bhcs", q_rope, kr)).float()
     s = s / math.sqrt(dn + dr)
@@ -419,10 +482,73 @@ def mla_step(cfg: ModelConfig, p, x, cache, pos, ctx, blocks=None):
         ctx_lat = _combine(s, lambda p_: torch.einsum(
             "bhcs,bsr->bhcr", p_, lat.float()), blk, ctx.shard.mesh)
         ctx_lat = ctx_lat.transpose(1, 2).to(lat.dtype)
+    ctx_lat = _all_rows(ctx_lat, rows, ctx)
+    if resident:
+        o = _absorb_o(cfg, ctx_lat, p["wv_b"], ctx)
+        return x + T._row_parallel(o, p["wo"], ctx,
+                                   o.shape[-1] < cfg.num_heads * dv)
     ctx_lat = _rank_heads(ctx_lat, H, ctx)
+    wv = p["wv_b"].reshape(r, H, dv)
     o = torch.einsum("bchr,rhv->bchv", ctx_lat, wv.to(ctx_lat.dtype))
     return x + T._row_parallel(o.reshape(B, 1, H * dv), p["wo"], ctx,
                                H < cfg.num_heads)
+
+
+def _block_start(size: int, width: int, rule: str, ctx):
+    """(the first index, the axes) of this rank's block of ``size`` along
+    a weight's dim of ``width`` split over ``rule``'s axes (``tp``: a
+    flat block of heads x head dim; ``fsdp``: latent rows); (0, ()) where
+    the rank holds the whole dim."""
+    if size == width:
+        return 0, ()
+    mesh = ctx.shard.mesh
+    axes = SH._fit_axes(width, ctx.shard.rules[rule], mesh)
+    return T._axes_block(axes, mesh)[0] * size, axes
+
+
+def _absorb_q(cfg: ModelConfig, q_nope, wk_b, ctx):
+    """q_lat (B, 1, H, r) whole, ``q_nope`` folded through this rank's
+    resident block of ``wk_b`` (its latent rows over ``data``, a flat block
+    of its heads' nope columns over ``model``, which need not hold whole
+    heads): the rank's columns of q (``q_nope`` the rank's heads or all
+    of them) contracted within each head they touch in fp32, the partial
+    heads summed over ``model``, the latent rows gathered over ``data``,
+    rounded once to q's dtype."""
+    dn, H = cfg.nope_head_dim, cfg.num_heads
+    mesh = ctx.shard.mesh
+    B, C, Hq, _ = q_nope.shape
+    width = wk_b.shape[-1]
+    lo, axes = _block_start(width, H * dn, "tp", ctx)
+    off = 0 if Hq == H else lo               # q's first flat column
+    qf = q_nope.reshape(B, C, Hq * dn)[..., lo - off:lo - off + width]
+    h0 = lo // dn
+    ht = (lo + width - 1) // dn - h0 + 1
+    head = (lo + torch.arange(width, device=qf.device)) // dn - h0
+    mask = F.one_hot(head, ht).T.float()                        # (ht, w)
+    part = (qf.float()[:, :, None, :] * mask) @ wk_b.float().T  # (B,C,ht,r')
+    q_lat = part.new_zeros((B, C, H, wk_b.shape[0]))
+    q_lat[:, :, h0:h0 + ht] = part
+    q_lat = T._psum(q_lat, mesh, axes)
+    _, raxes = _block_start(wk_b.shape[0], cfg.kv_lora_rank, "fsdp", ctx)
+    if raxes:
+        q_lat = T._gather_last(q_lat, raxes, mesh)
+    return q_lat.to(q_nope.dtype)
+
+
+def _absorb_o(cfg: ModelConfig, ctx_lat, wv_b, ctx):
+    """(B, 1, w): the context ``ctx_lat`` (B, 1, H, r, every head and
+    latent row) through this rank's resident block of ``wv_b``: its flat
+    block of w value columns (heads x v_head_dim over ``model``, the rows
+    of ``wo`` the rank holds), each contracted over the rank's latent rows
+    in fp32 and summed over ``data``, rounded once."""
+    dv = cfg.v_head_dim
+    width = wv_b.shape[-1]
+    lo, _ = _block_start(width, cfg.num_heads * dv, "tp", ctx)
+    r0, raxes = _block_start(wv_b.shape[0], cfg.kv_lora_rank, "fsdp", ctx)
+    head = (lo + torch.arange(width, device=ctx_lat.device)) // dv
+    sel = ctx_lat[:, :, head, r0:r0 + wv_b.shape[0]].float()   # (B,1,w,r')
+    o = torch.einsum("bcwr,rw->bcw", sel, wv_b.float())
+    return T._psum(o, ctx.shard.mesh, raxes).to(ctx_lat.dtype)
 
 
 def cross_step(cfg: ModelConfig, p, x, cache, ctx, blocks=None):
@@ -432,11 +558,14 @@ def cross_step(cfg: ModelConfig, p, x, cache, ctx, blocks=None):
     ``xk``/``xv`` and the softmax is combined over ``model``; ``wo``
     row-parallel on the rank's heads."""
     Dh = cfg.resolved_head_dim
-    H = p["wq"].shape[-1] // Dh
-    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    q = _whole_heads(T._heads(T._proj(h, p["wq"]), H, Dh), cfg.num_heads,
-                     ctx)
-    blk = (blocks or {}).get("xk")
+    h = T._rms_norm(x, p["ln"], cfg.norm_eps, ctx)
+    oq, _ = T._attn_outs(cfg, ctx, Dh, Dh)
+    (q,) = T._cols(h, [p["wq"]], ctx, cfg.d_model, outs=[oq])
+    H = q.shape[-1] // Dh
+    blocks = blocks or {}
+    rows = blocks.get("rows")
+    q = _rows(_whole_heads(T._heads(q, H, Dh), cfg.num_heads, ctx), rows)
+    blk = blocks.get("xk")
     if blk is None:
         o = L._attn_block(q, cache["xk"], cache["xv"], q_start=0,
                           kv_start=0, causal=False, window=0, kv_len=None)
@@ -444,22 +573,27 @@ def cross_step(cfg: ModelConfig, p, x, cache, ctx, blocks=None):
         ok = torch.ones(cache["xk"].shape[1], dtype=torch.bool,
                         device=x.device)
         o = _attend(q, cache["xk"], cache["xv"], ok, blk, ctx)
-    o = _rank_heads(o, H, ctx)
+    o = _rank_heads(_all_rows(o, rows, ctx), H, ctx)
     return x + T._row_parallel(o.reshape(x.shape[0], 1, H * Dh), p["wo"],
                                ctx, H < cfg.num_heads)
 
 
-def rglru_step_block(cfg: ModelConfig, p, x, cache, ctx):
+def rglru_step_block(cfg: ModelConfig, p, x, cache, ctx, blocks=None):
     """One token through an RG-LRU mixer; returns (x, new h and conv).  The
     new state is ``rglru_step``'s, in x's dtype, stored as fp32: in bf16
     the carried state is rounded to bf16 every token, as in the JAX
     package.  Over ``model`` (``wx``'s block narrower than the width) a
     rank steps its channels of the whole state, its gates' rows summed
     over ``model`` as ``transformer.rglru_forward`` sums them, ``wo``
-    row-parallel; the new state and conv tail are gathered whole."""
-    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    gate = L.act_fn("gelu")(T._proj(h, p["wy"]))[:, 0]
-    xb_t = T._proj(h, p["wx"])[:, 0]                            # (B,Wl)
+    row-parallel; the new state and conv tail are gathered whole.  Where
+    the cache holds the rank's batch rows (``blocks["rows"]``,
+    ``DECODE_RULES``), the rank steps those rows and gathers their output
+    over them before ``wo``."""
+    h = T._rms_norm(x, p["ln"], cfg.norm_eps, ctx)
+    gy, xb = T._cols(h, [p["wy"], p["wx"]], ctx, cfg.d_model)
+    rows = (blocks or {}).get("rows")
+    gate = _rows(L.act_fn("gelu")(gy)[:, 0], rows)
+    xb_t = _rows(xb[:, 0], rows)                                # (B,Wl)
     Wl, W = xb_t.shape[-1], p["wga"].shape[-1]
     lo = 0 if Wl == W else T._model_index(ctx) * Wl
     cut = slice(lo, lo + Wl)
@@ -478,8 +612,8 @@ def rglru_step_block(cfg: ModelConfig, p, x, cache, ctx):
         gx = g[..., W:][..., cut] + p["bgx"][cut].to(g.dtype)
         log_a = p["log_a"][cut]
     hn = L.rglru_step(conv, gx, ga, log_a, cache["h"][:, cut])
-    y = T._row_parallel((hn.to(x.dtype) * gate)[:, None], p["wo"], ctx,
-                        Wl < W)
+    y = T._row_parallel(_all_rows(hn.to(x.dtype) * gate, rows, ctx)[:, None],
+                        p["wo"], ctx, Wl < W)
     hn, tail = hn.float(), hist[:, 1:]
     if Wl < W:
         mesh = ctx.shard.mesh
@@ -493,19 +627,37 @@ def ssd_step_block(cfg: ModelConfig, p, x, cache, ctx, blocks=None):
     Over a mesh whose ``blocks["h"]`` splits the state's heads, the rank
     computes the whole ``zxbcdt`` and conv (the SSD block is computed
     whole, ``transformer.compute_defs``), steps its heads, and gathers
-    ``y`` over ``model`` before the gated norm over the whole width."""
+    ``y`` over ``model`` before the gated norm over the whole width.
+    Under ``DECODE_RULES`` the block stays resident: ``in_proj``'s
+    output row and the conv of the rank's ``conv_w`` channels are
+    gathered over ``model``, the rank steps its batch rows
+    (``blocks["rows"]``) and heads, and the normed rows are gathered
+    before ``out_proj``, row-parallel."""
     D = cfg.d_model
     din = cfg.ssm_expand * D
     G, N = cfg.ssm_ngroups, cfg.ssm_state
     H = din // cfg.ssm_head_dim
     P = cfg.ssm_head_dim
-    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    zxbcdt = T._proj(h, p["in_proj"])[:, 0]                     # (B, ...)
+    h = T._rms_norm(x, p["ln"], cfg.norm_eps, ctx)
+    (zxbcdt,) = T._cols(h, [p["in_proj"]], ctx, D,
+                        outs=[2 * din + 2 * G * N + H])
+    blocks = blocks or {}
+    rows = blocks.get("rows")
+    zxbcdt = _rows(zxbcdt[:, 0], rows)                          # (B, ...)
     z, xs, BC, dt = torch.split(zxbcdt, [din, din, 2 * G * N, H], dim=-1)
     conv_in = torch.cat([xs, BC], dim=-1)
     hist = torch.cat([cache["conv"].to(x.dtype), conv_in[:, None]], dim=1)
     w = p["conv_w"]
-    conv = F.silu(sum(hist[:, i] * w[i][None, :] for i in range(w.shape[0])))
+    taps, axes = hist, ()
+    if w.shape[-1] < hist.shape[-1]:
+        # the rank's channels of the resident conv_w, gathered after
+        mesh = ctx.shard.mesh
+        axes = SH._fit_axes(hist.shape[-1], ctx.shard.rules["tp"], mesh)
+        taps = T._narrow(hist, -1, w.shape[-1], axes, mesh)
+    conv = sum(taps[:, i] * w[i][None, :] for i in range(w.shape[0]))
+    if axes:
+        conv = T._gather_last(conv, axes, ctx.shard.mesh)
+    conv = F.silu(conv)
     xs, Bm, Cm = torch.split(conv, [din, G * N, G * N], dim=-1)
     xt = xs.reshape(-1, H, P)
     Bt = Bm.reshape(-1, G, N)
@@ -513,7 +665,7 @@ def ssd_step_block(cfg: ModelConfig, p, x, cache, ctx, blocks=None):
     dtt = F.softplus(dt.float() + p["dt_bias"][None, :])
     A = -torch.exp(p["a_log"].float())
     d_skip = p["d_skip"]
-    blk = (blocks or {}).get("h")
+    blk = blocks.get("h")
     if blk is not None:
         # the rank's heads, B and C taken per head
         Hl = cache["h"].shape[1]
@@ -527,7 +679,8 @@ def ssd_step_block(cfg: ModelConfig, p, x, cache, ctx, blocks=None):
     if blk is not None:
         y = coll.gather_block(y, SH.P(None, "model"), ctx.shard.mesh)
     y = L.rms_norm(y.reshape(-1, din) * F.silu(z), p["out_ln"], cfg.norm_eps)
-    out = T._proj(y[:, None], p["out_proj"])
+    out = T._row_parallel(_all_rows(y, rows, ctx)[:, None], p["out_proj"],
+                          ctx, False)
     return x + out, {"h": hn, "conv": hist[:, 1:]}
 
 
@@ -541,7 +694,7 @@ def block_step(cfg: ModelConfig, kind: str, p, x, cache, pos, ctx,
         x = step(cfg, p["attn"], x, cache, pos, ctx, blocks)
     else:
         if kind == "rglru":
-            x, new = rglru_step_block(cfg, p["rec"], x, cache, ctx)
+            x, new = rglru_step_block(cfg, p["rec"], x, cache, ctx, blocks)
         elif kind == "ssd":
             x, new = ssd_step_block(cfg, p["ssd"], x, cache, ctx, blocks)
         else:
@@ -578,13 +731,14 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, *, shard=None,
     if cfg.rope == "learned":
         # clamped as JAX's gather clamps, so no step reads pos on the host
         at = pos.reshape(1).clamp(max=cfg.max_position - 1).long()
-        x = x + T.computed(params["pos_embed"], place,
-                           "pos_embed").index_select(0, at).to(x.dtype)[None]
+        x = x + T._to_hidden(T.computed(params["pos_embed"], place,
+                                        "pos_embed").index_select(0, at).to(
+            x.dtype)[None], T.Ctx(cfg=cfg, shard=shard))
     ctx = T.rope_ctx(cfg, T.default_positions(cfg, pos.expand(B, 1)))
     ctx.shard, ctx.place = shard, place
     for kind, lp, path, lc, ls in _layers(cfg, params, cache, specs):
         x, _ = block_step(cfg, kind, T.computed(lp, place, *path), x, lc,
-                          pos, ctx, layer_blocks(ls, shard and shard.mesh))
+                          pos, ctx, _layer_blocks(ls, shard))
     pos.add_(1)
     return T.gather_vocab(cfg, T.unembed(cfg, params, x, place, shard),
                           shard), cache
@@ -618,9 +772,11 @@ def _attn_prefill_kv(cfg, p, h, ctx):
     """The prompt's K (qk-normed, rotated) and V for the cache, of the
     block's kv heads."""
     Dh = cfg.resolved_head_dim
-    KV = p["wk"].shape[-1] // Dh
-    k = T._heads(T._proj(h, p["wk"], p.get("bk")), KV, Dh)
-    v = T._heads(T._proj(h, p["wv"], p.get("bv")), KV, Dh)
+    _, okv = T._attn_outs(cfg, ctx, Dh, Dh)
+    k, v = T._cols(h, [p["wk"], p["wv"]], ctx, cfg.d_model,
+                   [p.get("bk"), p.get("bv")], [okv, okv])
+    k, v = T._heads(k, k.shape[-1] // Dh, Dh), T._heads(v, v.shape[-1] // Dh,
+                                                         Dh)
     if cfg.qk_norm:
         k = L.rms_norm(k, p["kn"], cfg.norm_eps)
     if cfg.rope in ("rope", "mrope"):
@@ -639,12 +795,14 @@ def _cut(t: torch.Tensor, blk: Optional[Block]) -> torch.Tensor:
 def block_prefill(cfg: ModelConfig, kind: str, p, x, ctx: T.Ctx,
                   blocks=None):
     """Forward one block over the full prompt, returning its cache entry:
-    over a mesh the rank's ``blocks`` (``layer_blocks``) of each leaf."""
+    over a mesh the rank's ``blocks`` (``layer_blocks``) of each leaf, its
+    batch ``rows`` among them (``DECODE_RULES``: each leaf computed for
+    the whole token batch, then cut)."""
     S = x.shape[1]
     blocks = blocks or {}
     cache: Dict[str, torch.Tensor] = {}
     if kind == "attn" and cfg.attention == "mla":
-        h = L.rms_norm(x, p["attn"]["ln"], cfg.norm_eps)
+        h = T._rms_norm(x, p["attn"]["ln"], cfg.norm_eps, ctx)
         blk, rows = blocks.get("lat"), ctx
         if blk is not None:
             # the latents of the rank's rows: their norm is over r alone
@@ -654,7 +812,7 @@ def block_prefill(cfg: ModelConfig, kind: str, p, x, ctx: T.Ctx,
         cache["lat"], cache["kr"] = T.mla_latent(cfg, p["attn"], h, rows)
         x = T.mla_forward(cfg, p["attn"], x, ctx)
     elif kind == "attn":
-        h = L.rms_norm(x, p["attn"]["ln"], cfg.norm_eps)
+        h = T._rms_norm(x, p["attn"]["ln"], cfg.norm_eps, ctx)
         k, v = _attn_prefill_kv(cfg, p["attn"], h, ctx)
         k = _whole_heads(k, cfg.num_kv_heads, ctx)
         v = _whole_heads(v, cfg.num_kv_heads, ctx)
@@ -696,7 +854,9 @@ def block_prefill(cfg: ModelConfig, kind: str, p, x, ctx: T.Ctx,
         x = T.attn_forward(cfg, xp, x, ctx, kv_override=(xk, xv), cross=True)
     if "ffn" in p:
         x = T.ffn_forward(cfg, p["ffn"], x, ctx)
-    return x, cache
+    rows = blocks.get("rows")
+    return x, {k: t if t.dim() < 2 else _rows(t, rows)
+               for k, t in cache.items()}
 
 
 def prefill(cfg: ModelConfig, params, tokens, *, encoder_frames=None,
@@ -717,8 +877,8 @@ def prefill(cfg: ModelConfig, params, tokens, *, encoder_frames=None,
     place = T.placement(cfg, shard)
     x = T.splice_frontend(cfg, params, T.embed_tokens(cfg, params, tokens,
                                                       place, shard),
-                          frontend_embeds, place)
-    x = T.add_positions(cfg, params, x, place)
+                          frontend_embeds, place, shard)
+    x = T.add_positions(cfg, params, x, place, shard)
     ctx = T.rope_ctx(cfg, T.default_positions(
         cfg, torch.arange(S, device=tokens.device)[None].expand(B, S)))
     ctx.shard, ctx.place = shard, place
@@ -733,7 +893,7 @@ def prefill(cfg: ModelConfig, params, tokens, *, encoder_frames=None,
     cache["pos"].fill_(S)
     for kind, lp, path, lc, ls in _layers(cfg, params, cache, specs):
         x, c = block_prefill(cfg, kind, T.computed(lp, place, *path), x, ctx,
-                             layer_blocks(ls, shard and shard.mesh))
+                             _layer_blocks(ls, shard))
         for name, t in c.items():
             lc[name].copy_(t)
     logits = T.unembed(cfg, params, x[:, -1:], place, shard)

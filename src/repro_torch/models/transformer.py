@@ -42,7 +42,16 @@ computed whole; expert leaves take the in_specs of the JAX package's
 expert-parallel path (``distributed.moe_ep``, taken with a ``model`` axis
 larger than 1; else the gather path).  The leaves outside the blocks (the
 embedding, the head, the patch projection, the positions, the encoder's)
-are resharded where they are used.  Under
+are resharded where they are used.  Under ``DECODE_RULES``
+(``sharding.resident``) no dense leaf moves: the residual stream is the
+rank's ``d_model / data`` block (``ActSharder.hidden_axes``), a
+column-parallel product multiplies it by the stored block and sums the
+partials over ``data`` in fp32 (``_cols``; the outputs of leaves
+``compute_defs`` keeps whole gathered over ``model``, a one-token row at
+decode), a row-parallel one ends on the rank's block, the norms sum
+their squares over ``data`` (``_rms_norm``), the embedding gives and the
+head contracts the rank's columns, and the MoE FFN gathers the whole
+width its in_specs take.  Under
 ``cfg.remat`` (the JAX package's ``jax.checkpoint`` of each group and
 ``rem`` layer, and of each encoder block) each of them runs under
 ``torch.utils.checkpoint`` when a gradient is taken, on one card and over
@@ -364,6 +373,18 @@ def place_params(cfg: ModelConfig, source, mesh, *, rules=None,
     return tree_map(keep, source, specs)
 
 
+def head_split(cfg: ModelConfig, mesh, rules) -> Tuple[bool, bool]:
+    """(the q heads split over ``tp``'s ranks, the kv heads too), as
+    ``compute_defs`` decides: q where its heads divide and the kv heads
+    divide or divide the ranks, K/V where theirs divide as well."""
+    shape = SH.mesh_shape(mesh)
+    n = math.prod(shape.get(a, 1) for a in rules.get("tp", ()))
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    kv_heads = KV % n == 0
+    heads = H % n == 0 and (kv_heads or n % KV == 0)
+    return heads, heads and kv_heads
+
+
 def compute_defs(cfg: ModelConfig, mesh, rules) -> Pytree:
     """``param_defs`` with each leaf's logical axes as a layer computes
     with it on ``mesh`` under ``rules`` (``sharding.leaf_specs``'
@@ -378,12 +399,7 @@ def compute_defs(cfg: ModelConfig, mesh, rules) -> Pytree:
     rank then reads the one kv head of its q heads).  Decode takes the
     same blocks: its cache is split along the sequence, not the heads
     (``decode``)."""
-    shape = SH.mesh_shape(mesh)
-    n = math.prod(shape.get(a, 1) for a in rules.get("tp", ()))
-    H, KV = cfg.num_heads, cfg.num_kv_heads
-    kv_heads = KV % n == 0
-    heads = H % n == 0 and (kv_heads or n % KV == 0)
-    kv_heads = heads and kv_heads
+    heads, kv_heads = head_split(cfg, mesh, rules)
 
     def whole(pd):
         return PDef(pd.shape, tuple(None if a == "tp" else a
@@ -448,7 +464,8 @@ def placement(cfg: ModelConfig, shard) -> Optional[Placement]:
     its rules, compute by ``compute_defs`` and in the MoE layout of its
     batch's axes (the forward's, prefill's and decode's alike); None on
     one card, and on a mesh where every stored block is its compute block
-    (``TP_RULES`` on a dense model whose heads divide over ``model``)."""
+    (``TP_RULES`` on a dense model whose heads divide over ``model``;
+    ``DECODE_RULES`` on any dense model: its weights stay resident)."""
     if shard is None:
         return None
     layout = moe_ep.moe_layout(cfg, shard.mesh, shard.batch_axes)
@@ -538,6 +555,133 @@ def _model_index(ctx: Ctx) -> int:
     return ctx.shard.mesh.get_local_rank("model")
 
 
+def _axes_block(axes: Tuple[str, ...], mesh) -> Tuple[int, int]:
+    """(this rank's index, the number of blocks) along ``axes``, the
+    first the major."""
+    return SH.block_index(axes, mesh, {a: mesh.get_local_rank(a)
+                                       for a in axes})
+
+
+def _narrow(t: torch.Tensor, dim: int, size: int, axes, mesh):
+    """This rank's block of ``size`` along ``dim`` of ``t`` over ``axes``."""
+    i, _ = _axes_block(axes, mesh)
+    return t.narrow(dim, i * size, size)
+
+
+def _psum(y: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``y`` summed over the ranks of each axis of ``axes`` in turn
+    (``collectives.psum``)."""
+    for a in coll.live_axes(mesh, axes):
+        y = coll.psum(y, mesh, a)
+    return y
+
+
+def _gather_last(y: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """``y``, this rank's block of its last dim over ``axes``, gathered
+    whole."""
+    part = axes[0] if len(axes) == 1 else tuple(axes)
+    return coll.gather_block(y, SH.P(*([None] * (y.dim() - 1)), part), mesh)
+
+
+def _hidden_axes(ctx: Ctx, width: int) -> Tuple[str, ...]:
+    """The axes a ``width``-wide residual stream splits over on
+    ``ctx``'s mesh (``ActSharder.hidden_axes``; () on one card)."""
+    return () if ctx.shard is None else ctx.shard.hidden_axes(width)
+
+
+def _rms_norm(x, scale, eps: float, ctx: Ctx):
+    """``layers.rms_norm``; where ``x`` is this rank's block of the
+    residual stream's hidden dim (``DECODE_RULES``' ``act_hidden``), the
+    mean of squares is taken over the whole width: the blocks' sums of
+    squares summed over ``act_hidden``'s axes in fp32, and the rank's
+    block of ``scale`` applied."""
+    width = scale.shape[-1]
+    if x.shape[-1] == width:
+        return L.rms_norm(x, scale, eps)
+    axes, mesh = _hidden_axes(ctx, width), ctx.shard.mesh
+    x32 = x.float()
+    var = _psum(x32.square().sum(dim=-1, keepdim=True), mesh, axes) / width
+    w = _narrow(scale, -1, x.shape[-1], axes, mesh)
+    return (x32 * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
+
+
+def _cols(a, ws, ctx: Ctx, width: int, bs=None, outs=None):
+    """``[a @ w (+ b) for w, b in zip(ws, bs)]``, column-parallel products
+    over an in-dim of ``width``.  Where it is split (``DECODE_RULES``: the
+    weights 2-D resident, their ``fsdp`` in-dim over data; ``a`` the
+    rank's block of the residual stream), the rank multiplies its block
+    of ``a`` by its block of each weight (the one of the two that is
+    whole narrowed to the other), the partials of every product are
+    summed over those axes in one fp32 all-reduce and rounded once to
+    ``a``'s dtype, as one card's GEMM accumulates its contraction, and
+    the bias is added after the sum.  An output narrower than its
+    ``outs`` width (a leaf ``compute_defs`` keeps whole over ``model``,
+    stored split) is then gathered over ``model``: a one-token row at
+    decode.  Elsewhere ``_proj`` of each, as one card computes it."""
+    bs = bs or [None] * len(ws)
+    outs = outs or [None] * len(ws)
+    if a.shape[-1] == width and all(w.shape[0] == width for w in ws):
+        ys = [_proj(a, w, b) for w, b in zip(ws, bs)]
+    else:
+        sh = ctx.shard
+        mesh = sh.mesh
+        axes = (sh.hidden_axes(width) if a.shape[-1] < width else
+                SH._fit_axes(width, sh.rules["fsdp"], mesh))
+        size = width // math.prod(SH.mesh_shape(mesh)[x] for x in axes)
+        if a.shape[-1] == width:
+            a = _narrow(a, -1, size, axes, mesh)
+        parts = [a.float() @ (w if w.shape[0] == size else
+                              _narrow(w, 0, size, axes, mesh)).float()
+                 for w in ws]
+        n = [p.shape[-1] for p in parts]
+        y = _psum(torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0],
+                  mesh, axes).to(a.dtype)
+        ys = [yi if b is None else yi + b.to(yi.dtype)
+              for yi, b in zip(y.split(n, dim=-1), bs)]
+    return [y if out is None or y.shape[-1] == out else
+            _gather_last(y, SH._fit_axes(out, ctx.shard.rules["tp"],
+                                         ctx.shard.mesh), ctx.shard.mesh)
+            for y, out in zip(ys, outs)]
+
+
+def _to_hidden(x, ctx: Ctx):
+    """``x`` (..., D), a whole row of the residual stream, cut to this
+    rank's block of its hidden dim where the stream splits
+    (``_hidden_axes``); ``x`` itself elsewhere."""
+    axes = _hidden_axes(ctx, x.shape[-1])
+    if not axes:
+        return x
+    mesh = ctx.shard.mesh
+    n = math.prod(SH.mesh_shape(mesh)[a] for a in axes)
+    return _narrow(x, -1, x.shape[-1] // n, axes, mesh)
+
+
+def _attn_outs(cfg: ModelConfig, ctx: Ctx, qdim: int, kvdim: int):
+    """The widths ``_cols`` is to give the q and the K/V products at: the
+    whole flat width where ``head_split`` keeps those heads whole, None
+    (the computed block) where they split, None on one card."""
+    if ctx.shard is None:
+        return None, None
+    heads, kv_heads = head_split(cfg, ctx.shard.mesh, ctx.shard.rules)
+    return (None if heads else cfg.num_heads * qdim,
+            None if kv_heads else cfg.num_kv_heads * kvdim)
+
+
+def _conv(x, w, state, ctx: Ctx):
+    """``layers.causal_conv1d``; where ``w`` is this rank's block of the
+    channels and ``x`` whole (``DECODE_RULES``: the SSD block's
+    ``conv_w`` resident, its channels over ``model``), the rank's
+    channels convolved and the output and new state gathered whole."""
+    if w.shape[-1] == x.shape[-1]:
+        return L.causal_conv1d(x, w, state)
+    mesh, c = ctx.shard.mesh, w.shape[-1]
+    axes = SH._fit_axes(x.shape[-1], ctx.shard.rules["tp"], mesh)
+    y, st = L.causal_conv1d(
+        _narrow(x, -1, c, axes, mesh), w,
+        None if state is None else _narrow(state, -1, c, axes, mesh))
+    return _gather_last(y, axes, mesh), _gather_last(st, axes, mesh)
+
+
 def _row_parallel(a, w, ctx: Ctx, split: bool):
     """``a @ w``; where ``split``, ``w`` is this rank's block of rows (the
     contraction dim split over ``model``, ``a`` the matching columns) and
@@ -546,7 +690,16 @@ def _row_parallel(a, w, ctx: Ctx, split: bool):
     replicated activation's cotangent is a set of partials that sum to the
     true one over the ranks, as the training step's loss × 1/ranks has it).
     The partials are taken and summed in fp32 and rounded once to ``a``'s
-    dtype, as one card's GEMM accumulates its whole contraction."""
+    dtype, as one card's GEMM accumulates its whole contraction.  A
+    stored block of rows narrower than ``a`` (``DECODE_RULES``: a leaf
+    ``compute_defs`` keeps whole, resident) takes the rank's columns of
+    ``a`` and is summed the same way; ``w``'s columns are then the rank's
+    block of the residual stream."""
+    if w.shape[0] < a.shape[-1]:
+        mesh = ctx.shard.mesh
+        a = _narrow(a, -1, w.shape[0], SH._fit_axes(
+            a.shape[-1], ctx.shard.rules["tp"], mesh), mesh)
+        split = True
     if not split:
         return _proj(a, w)
     y = a.float() @ w.float()
@@ -582,15 +735,19 @@ def attn_forward(cfg: ModelConfig, p, x, ctx: Ctx, *, window=0,
     no RoPE.  The heads are the blocks': over ``model`` a rank's q heads
     (and kv heads where they divide), ``wo`` row-parallel."""
     Dh = cfg.resolved_head_dim
-    H = p["wq"].shape[-1] // Dh
-    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    q = _heads(_proj(h, p["wq"], p.get("bq")), H, Dh)
+    h = _rms_norm(x, p["ln"], cfg.norm_eps, ctx)
+    oq, okv = _attn_outs(cfg, ctx, Dh, Dh)
     if kv_override is None:
-        KV = p["wk"].shape[-1] // Dh
-        k = _heads(_proj(h, p["wk"], p.get("bk")), KV, Dh)
-        v = _heads(_proj(h, p["wv"], p.get("bv")), KV, Dh)
+        q, k, v = _cols(h, [p["wq"], p["wk"], p["wv"]], ctx, cfg.d_model,
+                        [p.get("bq"), p.get("bk"), p.get("bv")],
+                        [oq, okv, okv])
+        k = _heads(k, k.shape[-1] // Dh, Dh)
+        v = _heads(v, v.shape[-1] // Dh, Dh)
     else:
+        (q,) = _cols(h, [p["wq"]], ctx, cfg.d_model, [p.get("bq")], [oq])
         k, v = kv_override
+    H = q.shape[-1] // Dh
+    q = _heads(q, H, Dh)
     k, v = _rank_kv(cfg, k, v, H, ctx)
     if cfg.qk_norm and not cross:
         q = L.rms_norm(q, p["qn"], cfg.norm_eps)
@@ -612,10 +769,19 @@ def mla_latent(cfg: ModelConfig, p, h, ctx: Ctx):
     """The normed kv latent (B, S, r) and the roped key its heads share
     (B, S, dr) of the normed block input ``h``: what the MLA cache holds."""
     r = cfg.kv_lora_rank
-    kv = _proj(h, p["wkv_a"])
+    (kv,) = _cols(h, [p["wkv_a"]], ctx, cfg.d_model)
     lat = L.rms_norm(kv[..., :r], p["kv_ln"], cfg.norm_eps)
     kr = L.apply_rope(kv[..., r:][:, :, None, :], ctx.cos_r, ctx.sin_r)
     return lat, kr[:, :, 0]
+
+
+def mla_q_latent(cfg: ModelConfig, p, h, ctx: Ctx):
+    """The q latent (B, S, q_lora_rank) of the normed block input ``h``,
+    before its norm: ``wq_a`` is computed whole (``compute_defs``; stored
+    resident under ``DECODE_RULES``, its output gathered over
+    ``model``)."""
+    (cq,) = _cols(h, [p["wq_a"]], ctx, cfg.d_model, outs=[cfg.q_lora_rank])
+    return cq
 
 
 def mla_forward(cfg: ModelConfig, p, x, ctx: Ctx):
@@ -629,15 +795,19 @@ def mla_forward(cfg: ModelConfig, p, x, ctx: Ctx):
     Over ``model`` a rank takes its heads of ``wq_b``, ``wk_b``, ``wv_b``
     and ``wo``; the latents are computed whole."""
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
-    H = p["wk_b"].shape[-1] // dn
-    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    cq = L.rms_norm(_proj(h, p["wq_a"]), p["q_ln"], cfg.norm_eps)
-    q = _heads(_proj(cq, p["wq_b"]), H, dn + dr)
+    h = _rms_norm(x, p["ln"], cfg.norm_eps, ctx)
+    oq, _ = _attn_outs(cfg, ctx, dn + dr, 0)
+    cq = L.rms_norm(mla_q_latent(cfg, p, h, ctx), p["q_ln"], cfg.norm_eps)
+    (q,) = _cols(cq, [p["wq_b"]], ctx, cfg.q_lora_rank, outs=[oq])
+    H = q.shape[-1] // (dn + dr)
+    q = _heads(q, H, dn + dr)
     q_nope = q[..., :dn]
     q_rope = L.apply_rope(q[..., dn:], ctx.cos_r, ctx.sin_r)
     lat, k_rope = mla_latent(cfg, p, h, ctx)
-    k_nope = _heads(_proj(lat, p["wk_b"]), H, dn)
-    v = _heads(_proj(lat, p["wv_b"]), H, dv)
+    ok, ov = _attn_outs(cfg, ctx, dn, dv)
+    k_nope, v = _cols(lat, [p["wk_b"], p["wv_b"]], ctx, cfg.kv_lora_rank,
+                      outs=[ok, ov])
+    k_nope, v = _heads(k_nope, H, dn), _heads(v, H, dv)
     qf = torch.cat([q_nope, q_rope], dim=-1)
     kf = torch.cat([k_nope, k_rope[:, :, None].expand(*k_nope.shape[:3], dr)],
                    dim=-1)
@@ -655,9 +825,16 @@ def ffn_forward(cfg: ModelConfig, p, x, ctx: Ctx):
     under the JAX package's conditions: ``moe_ep.moe_layout``), else over
     the flattened tokens (the gather path), in token blocks of
     ``moe_block_tokens`` (halved until it divides B*S) past twice that
-    many tokens."""
-    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    many tokens.  Over a hidden-split stream (``DECODE_RULES``) the MoE
+    takes the normed rows whole and cuts its output back to the rank's
+    block; the MLP's ``w1``/``w3`` are column-parallel (``_cols``)."""
+    h = _rms_norm(x, p["ln"], cfg.norm_eps, ctx)
     if cfg.num_experts:
+        if h.shape[-1] < cfg.d_model:
+            # the experts' in_specs take whole-width rows: the rank's
+            # block of the stream gathered, the output cut back to it
+            h = _gather_last(h, _hidden_axes(ctx, cfg.d_model),
+                             ctx.shard.mesh)
         B, S, D = h.shape
         sh = ctx.shard
         layout = (moe_ep.moe_layout(cfg, sh.mesh, sh.batch_axes)
@@ -670,7 +847,7 @@ def ffn_forward(cfg: ModelConfig, p, x, ctx: Ctx):
                       d_ff=cfg.moe_d_ff or cfg.d_ff, k=cfg.experts_per_token,
                       capacity_factor=cfg.moe_capacity_factor, act=cfg.act,
                       mesh=sh.mesh, batch_axes=sh.batch_axes)
-            return x + y
+            return x + _to_hidden(y, ctx)
         bt = 0
         if cfg.moe_block_tokens and B * S > 2 * cfg.moe_block_tokens:
             bt = cfg.moe_block_tokens
@@ -681,9 +858,9 @@ def ffn_forward(cfg: ModelConfig, p, x, ctx: Ctx):
             p["w2"], num_experts=cfg.num_experts, k=cfg.experts_per_token,
             capacity_factor=cfg.moe_capacity_factor, act=cfg.act,
             block_tokens=bt)
-        return x + y.reshape(B, S, D)
-    a = L.act_fn(cfg.act)(_proj(h, p["w1"]))
-    y = _row_parallel(a * _proj(h, p["w3"]), p["w2"], ctx,
+        return x + _to_hidden(y.reshape(B, S, D), ctx)
+    a1, a3 = _cols(h, [p["w1"], p["w3"]], ctx, cfg.d_model)
+    y = _row_parallel(L.act_fn(cfg.act)(a1) * a3, p["w2"], ctx,
                       p["w2"].shape[0] < cfg.d_ff)
     return x + y
 
@@ -697,9 +874,9 @@ def rglru_forward(cfg: ModelConfig, p, x, ctx: Ctx, h0=None, conv0=None):
     products summed over ``model`` (one ``psum`` for both) with the biases
     added after the sum, then cut to the rank's channels, ``log_a`` with
     them; ``wo`` is row-parallel."""
-    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    gate = L.act_fn("gelu")(_proj(h, p["wy"]))
-    xb = _proj(h, p["wx"])
+    h = _rms_norm(x, p["ln"], cfg.norm_eps, ctx)
+    gy, xb = _cols(h, [p["wy"], p["wx"]], ctx, cfg.d_model)
+    gate = L.act_fn("gelu")(gy)
     xb, conv_state = L.causal_conv1d(xb, p["conv_w"], conv0)
     Wl, W = xb.shape[-1], p["wga"].shape[-1]
     if Wl == W:
@@ -727,11 +904,12 @@ def ssd_forward(cfg: ModelConfig, p, x, ctx: Ctx, h0=None, conv0=None):
     G, N = cfg.ssm_ngroups, cfg.ssm_state
     H = din // cfg.ssm_head_dim
     P = cfg.ssm_head_dim
-    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    zxbcdt = _proj(h, p["in_proj"])
+    h = _rms_norm(x, p["ln"], cfg.norm_eps, ctx)
+    (zxbcdt,) = _cols(h, [p["in_proj"]], ctx, D,
+                      outs=[2 * din + 2 * G * N + H])
     z, xs, BC, dt = torch.split(zxbcdt, [din, din, 2 * G * N, H], dim=-1)
     conv_in = torch.cat([xs, BC], dim=-1)
-    conv_out, conv_state = L.causal_conv1d(conv_in, p["conv_w"], conv0)
+    conv_out, conv_state = _conv(conv_in, p["conv_w"], conv0, ctx)
     conv_out = F.silu(conv_out)
     xs, Bm, Cm = torch.split(conv_out, [din, G * N, G * N], dim=-1)
     Bsz, S = x.shape[0], x.shape[1]
@@ -744,7 +922,8 @@ def ssd_forward(cfg: ModelConfig, p, x, ctx: Ctx, h0=None, conv0=None):
     y = y + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
     y = y.reshape(Bsz, S, din)
     y = L.rms_norm(y * F.silu(z), p["out_ln"], cfg.norm_eps)
-    return x + _proj(y, p["out_proj"]), (h_last, conv_state)
+    out = _row_parallel(y, p["out_proj"], ctx, False)
+    return x + out, (h_last, conv_state)
 
 
 # ---------------------------------------------------------------------------
@@ -776,11 +955,11 @@ def cross_kv(cfg: ModelConfig, xp, ctx: Ctx):
     encoder's output under the block's ``xattn`` norm; KV the block's kv
     heads (over ``model`` a rank's, where they divide)."""
     Dh = cfg.resolved_head_dim
-    KV = xp["wk"].shape[-1] // Dh
-    hk = L.rms_norm(ctx.enc_out, xp["ln"], cfg.norm_eps)
-    k = _heads(_proj(hk, xp["wk"]), KV, Dh)
-    v = _heads(_proj(hk, xp["wv"]), KV, Dh)
-    return k, v
+    hk = _rms_norm(ctx.enc_out, xp["ln"], cfg.norm_eps, ctx)
+    _, okv = _attn_outs(cfg, ctx, Dh, Dh)
+    k, v = _cols(hk, [xp["wk"], xp["wv"]], ctx, cfg.d_model,
+                 outs=[okv, okv])
+    return _heads(k, k.shape[-1] // Dh, Dh), _heads(v, v.shape[-1] // Dh, Dh)
 
 
 def group_params(blocks: Pytree, g: int) -> Pytree:
@@ -825,10 +1004,11 @@ def encode(cfg: ModelConfig, params, frames, shard=None):
     place = placement(cfg, shard)
     ctx = Ctx(cfg=cfg, shard=shard, place=place)
     pos = computed(enc["pos_embed"], place, "encoder", "pos_embed")
-    x = frames + pos[None, : frames.shape[1]].to(frames.dtype)
+    x = _to_hidden(frames + pos[None, : frames.shape[1]].to(frames.dtype),
+                   ctx)
     x = run_encoder_blocks(cfg, enc["blocks"], x, ctx)
-    return L.rms_norm(x, computed(enc["final_norm"], place, "encoder",
-                                  "final_norm"), cfg.norm_eps)
+    return _rms_norm(x, computed(enc["final_norm"], place, "encoder",
+                             "final_norm"), cfg.norm_eps, ctx)
 
 
 def run_encoder_blocks(cfg: ModelConfig, blocks, x, ctx: Ctx):
@@ -838,15 +1018,17 @@ def run_encoder_blocks(cfg: ModelConfig, blocks, x, ctx: Ctx):
     computes its heads, ``wo`` row-parallel."""
     place = ctx.place
     Dh = cfg.resolved_head_dim
+    oq, okv = _attn_outs(cfg, ctx, Dh, Dh)
 
     def block(bp, x):
         bp = computed(bp, place, "encoder", "blocks")
         a = bp["attn"]
-        H, KV = a["wq"].shape[-1] // Dh, a["wk"].shape[-1] // Dh
-        h = L.rms_norm(x, a["ln"], cfg.norm_eps)
-        q = _heads(_proj(h, a["wq"]), H, Dh)
-        k, v = _rank_kv(cfg, _heads(_proj(h, a["wk"]), KV, Dh),
-                        _heads(_proj(h, a["wv"]), KV, Dh), H, ctx)
+        h = _rms_norm(x, a["ln"], cfg.norm_eps, ctx)
+        q, k, v = _cols(h, [a["wq"], a["wk"], a["wv"]], ctx, cfg.d_model,
+                        outs=[oq, okv, okv])
+        H, KV = q.shape[-1] // Dh, k.shape[-1] // Dh
+        q = _heads(q, H, Dh)
+        k, v = _rank_kv(cfg, _heads(k, KV, Dh), _heads(v, KV, Dh), H, ctx)
         o = L.blocked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk,
                                 unroll=cfg.attn_unroll)
         o = o.reshape(x.shape[0], x.shape[1], H * Dh)
@@ -905,17 +1087,22 @@ def embed_tokens(cfg: ModelConfig, params, tokens, place=None, shard=None):
     tensor (``_TokenRows`` keeps the tokens), so nothing of it is kept for
     the backward.  Split over the vocabulary (``shard``, ``vocab_split``),
     a rank looks up the tokens in its own rows, zeros for the others, and
-    the ranks' rows are summed over ``model``: one of them is not zero."""
+    the ranks' rows are summed over ``model``: one of them is not zero.
+    Where the residual stream splits over its hidden dim (``DECODE_RULES``)
+    the rows are the rank's block of their columns, cut before the
+    sum."""
     table = computed(params["embed"], place, "embed")
     split = vocab_split(cfg, table.shape[0], shard)
+    hid = Ctx(cfg=cfg, shard=shard)
     if split is None:
-        x = _TokenRows.apply(table, tokens)
+        x = _to_hidden(_TokenRows.apply(table, tokens), hid)
     else:
         mesh, lo = split
         local = tokens.long() - lo
         mine = (local >= 0) & (local < table.shape[0])
         x = _TokenRows.apply(table, torch.where(mine, local, 0))
-        x = coll.psum(torch.where(mine[..., None], x, 0), mesh, "model")
+        x = coll.psum(_to_hidden(torch.where(mine[..., None], x, 0), hid),
+                      mesh, "model")
     if cfg.family == "hybrid":                       # gemma-style embed scale
         # the scale rounded to the model's dtype first (bf16: 50.5, not
         # 50.596 at d_model 2560), as the JAX package does
@@ -929,14 +1116,17 @@ def unembed(cfg: ModelConfig, params, x, place=None, shard=None):
     on a mesh (``place``) the head's compute block, under remat where
     ``cfg.remat``: split over the vocabulary (``shard``, ``vocab_split``),
     the rank's columns of the logits (column-parallel), the padding mask
-    on its own."""
+    on its own.  Where the stream splits over its hidden dim
+    (``DECODE_RULES``) the rank's block of it is contracted against its
+    rows of the head, summed over ``data`` (``_cols``)."""
     key = "embed" if cfg.tie_embeddings else "lm_head"
 
     def run(head, norm, x):
         head = computed(head, place, key)
-        x = L.rms_norm(x, computed(norm, place, "final_norm"), cfg.norm_eps)
+        ctx = Ctx(cfg=cfg, shard=shard)
+        x = _rms_norm(x, computed(norm, place, "final_norm"), cfg.norm_eps, ctx)
         w = head.T if cfg.tie_embeddings else head
-        logits = x @ w.to(x.dtype)
+        (logits,) = _cols(x, [w], ctx, cfg.d_model)
         if cfg.padded_vocab != cfg.vocab_size:
             # mask the padding columns with an additive bias
             split = vocab_split(cfg, w.shape[-1], shard)
@@ -973,11 +1163,14 @@ def rope_ctx(cfg: ModelConfig, positions) -> Ctx:
 
 
 def splice_frontend(cfg: ModelConfig, params, x, frontend_embeds,
-                    place=None):
+                    place=None, shard=None):
     """Early fusion: the patch embeddings (B, F, D), projected by
     ``patch_proj`` (on a mesh, ``place``, gathered, under remat where
     ``cfg.remat``), replace the first F of x's S positions, where the config
-    has the ``vision_patches`` frontend and the caller gives them.  F > S
+    has the ``vision_patches`` frontend and the caller gives them (over a
+    hidden-split stream, ``shard``, the rank's block of their columns: the
+    resident ``patch_proj``'s output gathered over ``model``, then cut).
+    F > S
     is refused (the JAX package's concatenation would return F positions
     where S were asked)."""
     if cfg.frontend != "vision_patches" or frontend_embeds is None:
@@ -986,16 +1179,19 @@ def splice_frontend(cfg: ModelConfig, params, x, frontend_embeds,
     if F_ > S:
         raise ValueError(f"{cfg.name}: {F_} frontend positions, past the "
                          f"{S}-token prompt they would replace")
+    ctx = Ctx(cfg=cfg, shard=shard)
     pe = _remat(cfg.remat and place is not None,
-                lambda w, fe: _proj(fe.to(x.dtype), computed(
-                    w, place, "patch_proj")),
+                lambda w, fe: _cols(fe.to(x.dtype), [computed(
+                    w, place, "patch_proj")], ctx, cfg.d_model,
+                    outs=[cfg.d_model])[0],
                 params["patch_proj"], frontend_embeds)
-    return torch.cat([pe, x[:, F_:]], dim=1)
+    return torch.cat([_to_hidden(pe, ctx), x[:, F_:]], dim=1)
 
 
-def add_positions(cfg: ModelConfig, params, x, place=None):
+def add_positions(cfg: ModelConfig, params, x, place=None, shard=None):
     """x (B, S, D) plus the learned positions 0..S-1, where the config
-    has them (on a mesh, ``place``, resharded).  A block longer than
+    has them (on a mesh, ``place``, resharded; over a hidden-split stream,
+    ``shard``, the rank's block of their columns).  A block longer than
     ``max_position`` is refused here (JAX's gather would clamp the index;
     a card's would fault)."""
     if cfg.rope != "learned":
@@ -1004,8 +1200,8 @@ def add_positions(cfg: ModelConfig, params, x, place=None):
     if S > cfg.max_position:
         raise ValueError(f"{cfg.name}: {S} tokens, past the {cfg.max_position}"
                          f" learned positions")
-    return x + computed(params["pos_embed"], place, "pos_embed")[:S].to(
-        x.dtype)
+    return x + _to_hidden(computed(params["pos_embed"], place, "pos_embed")[
+        :S].to(x.dtype), Ctx(cfg=cfg, shard=shard))
 
 
 def encoder_ctx(cfg: ModelConfig, params, ctx: Ctx, encoder_frames, dtype):
@@ -1038,8 +1234,8 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
     place = placement(cfg, shard)
     x = splice_frontend(cfg, params,
                         embed_tokens(cfg, params, tokens, place, shard),
-                        frontend_embeds, place)
-    x = add_positions(cfg, params, x, place)
+                        frontend_embeds, place, shard)
+    x = add_positions(cfg, params, x, place, shard)
     if positions is None:
         positions = default_positions(
             cfg, torch.arange(S, device=tokens.device)[None].expand(B, S))

@@ -13,7 +13,11 @@ device, no launch, no library and no CUDA.  Its argument bytes must equal
 the JAX package's shard bytes from ``shardings_for`` on an 8-device host
 mesh of the same shape (a JAX subprocess), its ``model_flops`` JAX's, and
 the FLOPs of a dense prefill on one rank a hand count of its GEMMs plus
-K5's work count.
+K5's work count.  Under ``DECODE_RULES`` (``decode2d``) its decode cells
+take the argument bytes of JAX's ``shardings_for`` under those rules, a
+reduced qwen3-8b step issues the hand-counted activation collectives of
+the hidden-split stream and no weight gather, and a train cell is
+refused.
 """
 import dataclasses
 import json
@@ -54,6 +58,9 @@ HELD_DECODE = [("qwen3-8b", "decode_32k", {}, MESH),
                ("minicpm3-4b", "decode_32k", {}, MESH),
                ("mamba2-370m", "decode_32k", {}, MESH),
                ("whisper-medium", "decode_32k", {}, MESH)]
+# the first two again under DECODE_RULES (``decode2d``): the weights
+# resident, every data rank the whole token batch, the cache split
+HELD_DECODE2D = HELD_DECODE[:2]
 PLAIN = {"systolic_matmul": ["systolic_matmul_plain"],
          "vector_engine": ["fused_affine_act_plain", "quantize_int8_plain",
                            "dequantize_int8_plain"],
@@ -131,12 +138,12 @@ _JAX = textwrap.dedent("""
     from repro.launch import steps as ST
     _at = getattr(jax.sharding, "AxisType", None)
     out = []
-    for arch, shape, ov, mesh in json.loads(sys.argv[2]):
+    for arch, shape, ov, mesh, rules in json.loads(sys.argv[2]):
         cfg = dataclasses.replace(get_arch(arch).reduced(), **ov)
         shp = SHAPES_BY_NAME[shape]
         m = jax.make_mesh(tuple(mesh), ("data", "model"),
                           **({"axis_types": (_at.Auto,) * 2} if _at else {}))
-        sh = ST.shardings_for(cfg, m, shp, SH.TRAIN_RULES,
+        sh = ST.shardings_for(cfg, m, shp, getattr(SH, rules),
                               with_opt=shp.kind == "train")
         total = cache = 0
         for part in ("param", "opt", "batch", "cache"):
@@ -180,13 +187,20 @@ def runs(tmp_path_factory):
               for a, _, ov, _ in HELD[::2]]
     cells += [(a, s, reduced(a, **ov), m, "train")
               for a, s, ov, m in HELD_DECODE[3:]]
+    cells += [(a, s, reduced(a, **ov), m, "decode2d")
+              for a, s, ov, m in HELD_DECODE2D]
+    cells.append(("qwen3-8b", "train_4k", reduced("qwen3-8b"), MESH,
+                  "decode2d"))
     tp = subprocess.Popen(
         [sys.executable, "-c", _TORCH, str(tmp / "torch.json"),
          json.dumps(PLAIN), json.dumps(cells)], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     jp = subprocess.Popen(
         [sys.executable, "-c", _JAX, str(tmp / "jax.json"),
-         json.dumps([(a, s, ov, m) for a, s, ov, m in HELD + HELD_DECODE])],
+         json.dumps([(a, s, ov, m, "TRAIN_RULES")
+                     for a, s, ov, m in HELD + HELD_DECODE]
+                    + [(a, s, ov, m, "DECODE_RULES")
+                       for a, s, ov, m in HELD_DECODE2D])],
         env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     outs = [p.communicate(timeout=300)[0] for p in (tp, jp)]
@@ -346,6 +360,69 @@ def test_decode_cache_bytes_equal_jax_spec_blocks(runs, i):
     total, cache = runs["jax_bytes"][len(HELD) + i]
     assert rec["cache_bytes"] == cache > 0
     assert rec["memory"]["argument_bytes"] == total
+
+
+@pytest.mark.parametrize("i", range(len(HELD_DECODE2D)))
+def test_decode2d_argument_bytes_equal_jax_spec_blocks(runs, i):
+    """Under ``DECODE_RULES`` rank 0's decode arguments take the bytes of
+    JAX's ``shardings_for`` blocks under those rules, the cache its block
+    split over data by batch and over model by sequence; against the
+    ``TRAIN_RULES`` cell only the token batch grows: every data rank holds
+    the whole of it."""
+    arch, shape, _, mesh = HELD_DECODE2D[i]
+    rec = _rec(runs, arch, shape, mesh, "decode2d")
+    assert rec["status"] == "ok", rec.get("traceback", rec)
+    total, cache = runs["jax_bytes"][len(HELD) + len(HELD_DECODE) + i]
+    assert rec["cache_bytes"] == cache > 0
+    assert rec["memory"]["argument_bytes"] == total
+    train = _rec(runs, arch, shape, mesh)
+    assert rec["cache_bytes"] == train["cache_bytes"]
+    B = SHAPES_BY_NAME[shape].global_batch
+    assert (rec["memory"]["argument_bytes"]
+            - train["memory"]["argument_bytes"]) == 4 * (B - B // mesh[0])
+
+
+def test_decode2d_collectives_are_counted(runs):
+    """A (2, 4) ``DECODE_RULES`` decode step of the reduced qwen3-8b, the
+    whole batch of B tokens on every rank: all-reduces of the embedding
+    over ``model`` (the rank's D/2 columns), the final norm's sum of
+    squares and the logits' partials over ``data``, and a layer's eight:
+    its two norms' sums of squares and the q|k|v and w1|w3 partials over
+    ``data``, the split softmax's max and sums, ``wo`` and ``w2`` over
+    ``model``; all-gathers of a layer's q, K and V heads over ``model``
+    and of the attention output over the cache's batch rows (``data``),
+    and of the logits over the vocabulary.  No weight is gathered."""
+    cfg = get_arch("qwen3-8b").reduced()
+    rec = _rec(runs, "qwen3-8b", "decode_32k", MESH, "decode2d")
+    assert rec["status"] == "ok", rec.get("traceback", rec)
+    det = rec["raw"]["real"]["coll_detail"]
+    assert cfg.dtype == "float32" and MESH == (2, 4)
+    L, B = cfg.num_layers, SHAPES_BY_NAME["decode_32k"].global_batch
+    D, Dh, F, Vp = (cfg.d_model, cfg.resolved_head_dim, cfg.d_ff,
+                    cfg.padded_vocab)
+    H, KV = cfg.num_heads // 4, cfg.num_kv_heads // 4
+    rows = B // 2
+    # the softmax over the cache's rows, every head: the max, then the
+    # weighted values and the weights' sums in one
+    Hw = cfg.num_heads
+    layer = [B, B * (H + 2 * KV) * Dh,               # ln, q|k|v
+             rows * Hw, rows * Hw * (Dh + 1),        # max, sums
+             B * D // 2, B, B * 2 * F // 4, B * D // 2]  # wo, ln, w1|w3, w2
+    reduce = [B * D // 2] + layer * L + [B, B * Vp // 4]
+    assert det["all-reduce"]["count"] == len(reduce)
+    assert det["all-reduce"]["result_bytes"] == 4 * sum(reduce)
+    gather = ([B * cfg.num_heads * Dh, 2 * B * cfg.num_kv_heads * Dh,
+               B * cfg.num_heads * Dh] * L + [B * Vp])
+    assert det["all-gather"]["count"] == 4 * L + 1
+    assert det["all-gather"]["result_bytes"] == 4 * sum(gather)
+    assert set(det) == {"all-reduce", "all-gather"}
+
+
+def test_decode2d_train_cell_is_refused(runs):
+    """Training under ``DECODE_RULES`` is not ported: the cell is recorded
+    as refused, by name."""
+    rec = _rec(runs, "qwen3-8b", "train_4k", MESH, "decode2d")
+    assert rec["status"] == "refused" and "DECODE_RULES" in rec["reason"]
 
 
 def test_dense_prefill_flops_are_its_gemms_and_k5(runs):

@@ -24,7 +24,19 @@ the absorbed step on a rank's heads), Mamba-2 370M (the SSD state's 8
 heads split), Whisper-medium (the 16 encoder frames of ``xk``/``xv``
 split, its frames a seeded draw) and RecurrentGemma-2B with a 96-token
 prompt past its 64-token window (the ring split, 16 slots a rank at
-(1, 4)).  Every rank must return the one-process greedy tokens, and the
+(1, 4)).  Then ``DECODE_RULES`` over (2, 2), which serves with the
+weights 2-D resident (no leaf gathered a token), the residual stream
+split over ``data`` along ``d_model`` and every ``data`` rank holding the
+whole token batch (``serve_rank`` takes ``batch_spec`` under the rules:
+whole, as the batch splits over ``pod`` alone) against its block of the
+cache, split over ``data`` by batch and over ``model`` by sequence:
+qwen3-8b, minicpm3-4b, minicpm3-4b with 3 heads (the resident ``wk_b``
+and ``wv_b`` blocks cutting a head in two over ``model``: the absorbed
+step's partial heads summed), Mamba-2 370M, Whisper-medium,
+RecurrentGemma-2B on the 96-token ring prompt (its one kv head gathered
+whole over ``model``), qwen2-vl (``patch_proj`` resident) and qwen3-moe
+(``ep``: every rank routes the whole batch, at the config's capacity
+factor).  Every rank must return the one-process greedy tokens, and the
 prefill step's last-position logits, gathered over the batch's blocks,
 must be within 1e-5 (fp32; the sums run in another order); each rank's
 cache after the prefill, and after the decode steps fed the served
@@ -59,9 +71,16 @@ CASES = [(arch, shape, over, SERVE, "TRAIN_RULES") for arch in ARCHS
     (arch, shape, {}, kw, rules)
     for arch, kw in [(a, SERVE) for a in SPLIT] + [("recurrentgemma-2b",
                                                       RING)]
-    for shape, rules in (((1, 4), "TP_RULES"), ((2, 2), "TRAIN_RULES"))]
+    for shape, rules in (((1, 4), "TP_RULES"), ((2, 2), "TRAIN_RULES"))] + [
+    (arch, (2, 2), over, kw, "DECODE_RULES") for arch, over, kw in [
+        ("qwen3-8b", {}, SERVE), ("minicpm3-4b", {}, SERVE),
+        ("minicpm3-4b", {"num_heads": 3, "num_kv_heads": 3}, SERVE),
+        ("mamba2-370m", {}, SERVE), ("whisper-medium", {}, SERVE),
+        ("recurrentgemma-2b", {}, RING), ("qwen2-vl-72b", {}, SERVE),
+        (ARCHS[0], {}, SERVE)]]
 IDS = [(f"{a.split('-')[0]}-{s[0]}x{s[1]}-{'-'.join(o) or 'ep'}"
-        if get_arch(a).num_experts else f"{a}-{s[0]}x{s[1]}")
+        if get_arch(a).num_experts else
+        f"{a}-{s[0]}x{s[1]}" + "".join(f"-{k}" for k in o))
        + ("" if r == "TRAIN_RULES" else f"-{r}") for a, s, o, _, r in CASES]
 
 

@@ -15,8 +15,10 @@ and ``TP_RULES`` on the (2, 4), (4, 2) and (1, 8) meshes of the host-mesh
 tests.  Nothing here needs a process group: a fake mesh is a ``{name:
 size}`` dict, as ``tests/test_distributed.py`` fakes one.  Mesh entry
 points without a group raise, and so do the step makers given
-``SEQPAR_RULES`` or ``DECODE_RULES``, whose activation layouts are not
-ported.
+``SEQPAR_RULES``, whose activation layout is not ported, and the
+gradient and train step makers given ``DECODE_RULES``, which serves;
+under it ``transformer.placement`` moves no dense leaf (the weights stay
+resident), only the expert leaves the MoE layout gathers.
 """
 import math
 
@@ -184,12 +186,16 @@ def test_param_block_specs_are_jax_s_param_spec_tree(arch):
         cfg, mesh, SH.TRAIN_RULES)
 
 
-@pytest.mark.parametrize("name", ["SEQPAR_RULES", "DECODE_RULES"])
-@pytest.mark.parametrize("maker", ["make_grad_fn", "make_train_step",
-                                   "make_prefill_step", "make_decode_step"])
+@pytest.mark.parametrize("maker,name", [
+    (m, n) for m in ("make_grad_fn", "make_train_step", "make_prefill_step",
+                     "make_decode_step")
+    for n in ("SEQPAR_RULES", "DECODE_RULES")
+    if n == "SEQPAR_RULES" or m in ("make_grad_fn", "make_train_step")])
 def test_unported_rule_sets_are_refused_by_name(name, maker):
-    """Their residual-stream layouts are not ported: run as
-    ``TRAIN_RULES`` they would hide that."""
+    """``SEQPAR_RULES``' residual-stream layout is not ported: run as
+    ``TRAIN_RULES`` it would hide that.  ``DECODE_RULES`` serves, but
+    its gradient's reduction over the ranks that hold the same batch is
+    not ported: the training makers refuse it."""
     from repro_torch.configs import TrainConfig
     cfg = get_arch("qwen3-8b").reduced()
     mesh = _FakeMesh({"data": 2, "model": 2})
@@ -198,8 +204,44 @@ def test_unported_rule_sets_are_refused_by_name(name, maker):
     with pytest.raises(NotImplementedError, match=name):
         getattr(ST, maker)(*args, mesh=mesh, batch_axes=("data",),
                            rules=getattr(SH, name))
-    with pytest.raises(NotImplementedError, match=name):
-        SH.make_act_sharder(mesh, ("data",), getattr(SH, name))
+    if name == "SEQPAR_RULES":
+        with pytest.raises(NotImplementedError, match=name):
+            SH.make_act_sharder(mesh, ("data",), getattr(SH, name))
+
+
+@pytest.mark.parametrize("shape", [{"data": 2, "model": 2},
+                                   {"data": 16, "model": 16}])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "minicpm3-4b", "mamba2-370m",
+                                  "qwen3-moe-235b-a22b"])
+def test_decode_rules_move_no_dense_leaf(arch, shape):
+    """Under ``DECODE_RULES`` every dense leaf computes with the block it
+    stores (``placement`` None for a dense model), where ``TRAIN_RULES``
+    gathers its FSDP split; expert leaves alone are resharded, to
+    ``moe_ep``'s in_specs (``ep``: the batch is whole on a pod); the
+    residual stream splits over ``data`` along ``d_model``."""
+    from repro_torch.distributed import collectives as C
+    cfg = get_arch(arch)
+    mesh = _FakeMesh(shape)
+    shard = SH.ActSharder(mesh, SH.batch_axes(4, SH.DECODE_RULES, mesh),
+                          SH.DECODE_RULES)
+    assert shard.batch_axes == () and shard.hidden_axes(cfg.d_model) == (
+        "data",)
+    train = T.placement(cfg, SH.ActSharder(mesh, ("data",), SH.TRAIN_RULES))
+    place = T.placement(cfg, shard)
+    defs = T.tree_leaves(T.param_defs(cfg))
+    if not cfg.num_experts:
+        assert place is None
+    else:
+        specs = T.tree_leaves(place.specs)
+        moved = [pd.axes for pd, ls in zip(defs, specs) if C.moves(
+            len(pd.shape), ls.storage, ls.compute, mesh)]
+        assert moved and all("expert" in ax for ax in moved)
+        assert all(ls.compute[:2] == (None, "model") for pd, ls in
+                   zip(defs, specs) if "expert" in pd.axes)
+    # what TRAIN_RULES moves that DECODE_RULES keeps: the FSDP split
+    assert any(C.moves(len(pd.shape), ls.storage, ls.compute, mesh)
+               for pd, ls in zip(defs, T.tree_leaves(train.specs))
+               if "expert" not in pd.axes)
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
