@@ -248,6 +248,13 @@ K5_RANKS = [((4, 10, 10, 1024, 1024, 96, 64), True),
             ((4, 4, 4, 384, 1500, 64), False),
             ((4, 16, 4, 1024, 1024, 128), True),
             ((4, 20, 20, 1024, 1024, 96, 64), True)]
+# K5 at two more shapes the mesh phases launch, (shape, causal, window,
+# dtype), timed the same way: RecurrentGemma-2B's 4096-token prompt at
+# batch 4 in phase 16(e) (window 2048), and a (2, 2) SEQPAR_RULES rank of
+# qwen3-8b's gradient in phase 17(e) (1 of the 2 sequences, 16 heads, KV
+# 4, 256 tokens; fp32, as that gradient runs)
+K5_LATE = [((4, 10, 1, 4096, 4096, 256), True, GEMMA_WINDOW, "bfloat16"),
+           ((1, 16, 4, 256, 256, 128), True, 0, "float32")]
 QWEN_FULL = {   # (layers, d_model, heads, KV, head dim, (expert) d_ff,
                 #  experts, top-k, qk-norm, QKV bias, vocab, parameters)
     "qwen3-8b": (36, 4096, 32, 8, 128, 12288, 0, 0, True, False, 151936,
@@ -1011,7 +1018,9 @@ def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
     of ``k5_planted`` must read above it.  With ``backends``, K5 and each
     of SDPA's fused backends alone (``sdpa_backends``) are also timed in
     CUDA graphs, among the forms ``library_ms`` takes the fastest of.
-    Returns a dict of the kernels line's keys
+    Where a window masks, SDPA's masked form stands in for the backends
+    (``is_causal`` computes another function).  Returns a dict of the
+    kernels line's keys
     (``library`` holds each SDPA form; ``rel_frobenius`` and ``planted``
     their readings)."""
     import torch
@@ -1062,7 +1071,14 @@ def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
     if backends:
         wins = graph_windows_ms(lambda: flash_attention(
             q, k, v, causal=causal, window=window))
-        sdpa = sdpa_backends(q, k, v, causal)
+        if "sdpa_is_causal" in libs or not (causal or window):
+            sdpa = sdpa_backends(q, k, v, causal)
+        else:
+            # is_causal is not K5's function where the window masks: SDPA
+            # with the mask, in the same windows
+            sdpa = {"masked": graph_windows_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=KV != H))}
         ran = {n: statistics.median(w) for n, w in sdpa.items()
                if not isinstance(w, str)}
         checked.update(ms_graph=statistics.median(wins),
@@ -2142,12 +2158,14 @@ def drive_qwen(dev, counters, time_ms, call_ms, max_err, randn, card):
          "float32": {k: v for k, v in rows[(shape, torch.float32)].items()
                      if k != "library"}} for shape in K5_TP]
     entries["rank_shapes"] = []
-    for shape, causal in K5_RANKS:
+    for shape, causal, window, dtype in (
+            [(shape, causal, 0, "bfloat16") for shape, causal in K5_RANKS]
+            + K5_LATE):
         entries["rank_shapes"].append(
-            {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
-             "window": 0, **check_k5_case(
-                 shape, causal, 0, torch.bfloat16, randn, time_ms, call_ms,
-                 max_err, card, backends=True)})
+            {"shape": list(shape), "dtype": dtype, "causal": causal,
+             "window": window, **check_k5_case(
+                 shape, causal, window, getattr(torch, dtype), randn,
+                 time_ms, call_ms, max_err, card, backends=True)})
         torch.cuda.empty_cache()
     return entries
 
@@ -3478,6 +3496,38 @@ DECODE2D_RUNS = {
     "mamba2-370m": {"layers": 2, "batch": 4, "prompt": 1024, "gen": 4},
 }
 
+# (g) SEQPAR_RULES over (1, 4) at full width, on the same 4 ranks: the
+# prefill's residual stream split over model along the sequence between
+# blocks (256 of the 1024 prompt rows a rank; each block gathers the
+# normed rows, its row-parallel sums reduce-scatters; the last logits from
+# the last rank's row), a decode token whole.  Each case as (d) and (e)
+# configure it, so their one-card serves are the references: qwen3-8b
+# over 2 of its 36 layers, Mamba-2 370M over 2 of 48 (the SSD block
+# computed whole, its output cut to the rank's rows).  bf16 timed, fp32
+# (TF32 off) held: the last prefill logits within TP_REL, tokens equal.
+SEQPAR_SHAPE = (1, 4)
+SEQPAR_RUNS = {
+    "qwen3-8b": {"layers": 2, "batch": 4, "prompt": 1024, "gen": 4},
+    "mamba2-370m": {"layers": 2, "batch": 4, "prompt": 1024, "gen": 4},
+}
+
+
+def seqpar_prefill_collectives(cfg, model):
+    """(reduce-scatters, all-gathers) of the sequence that a
+    ``SEQPAR_RULES`` prefill of ``cfg`` issues over ``model`` ranks:
+    the embedding's vocabulary sum; an attention layer's ``wo`` and
+    ``w2`` sums, and its gathers of the normed rows for the cache's K/V,
+    for attention and for the MLP; an SSD layer's one gather (computed
+    whole, its output cut); the last rows' gather for the logits."""
+    rs = int(cfg.padded_vocab % model == 0)
+    ag = 1
+    for j in range(cfg.num_layers):
+        if cfg.block_pattern[j % len(cfg.block_pattern)] == "attn":
+            rs, ag = rs + 2, ag + 3
+        else:
+            ag += 1
+    return rs, ag
+
 
 def split_config(name, layers, dtype=None):
     """A family of (e) at full width, checked as its phase checks it, cut
@@ -4010,18 +4060,25 @@ def cache_spec_bytes(cfg, mesh, run, rules):
 
 def split_on_mesh(split, mesh, dev, rules=None):
     """(e) on this rank (``TP_RULES`` over ``mesh``; (f) ``DECODE_RULES``
-    where ``rules`` says): for each family, the bf16 ``serve`` (timed)
-    and the fp32 one (its ``fp32_run``), each with the bytes of the rank's
-    cache beside its spec blocks' (``launch.dryrun.cell_blocks``) and the
-    reshards a decode step should make (``decode_reshards``)."""
+    and (g) ``SEQPAR_RULES`` where ``rules`` says): for each family, the
+    bf16 ``serve`` (timed) and the fp32 one (its ``fp32_run``), each with
+    the bytes of the rank's cache beside its spec blocks'
+    (``launch.dryrun.cell_blocks``), the reshards a decode step should
+    make (``decode_reshards``) and the sequence's collectives
+    (``seq_counted``: the prefill's, a token splitting none)."""
+    import torch
+
     from repro_torch.distributed import sharding as SH
     rules = rules or SH.TP_RULES
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     out = []
     for case in split:
         row = {}
         for key in ("bf16", "fp32"):
             cfg, run = case[key], case[key + "_run"]
-            sv = serve_recorded(cfg, run, dev, mesh, rules, warm=False)
+            with seq_counted(sync) as seqc:
+                sv = serve_recorded(cfg, run, dev, mesh, rules, warm=False)
+            sv["seq"] = seqc.rows
             empty_host_cache()
             baxes = SH.batch_axes(run["batch"], rules, mesh)
             sv["cache_spec_bytes"] = cache_spec_bytes(cfg, mesh, run, rules)
@@ -4037,8 +4094,9 @@ def mesh_rank(rank, world, store_dir, job):
     ``launch.mesh.run_ranks`` for all of ``job["cases"]``, so the ranks
     start once): on the card's one device, in a gloo group, for each mesh
     (a) and (b) (``exact_on_mesh``), then (c) (``serve_recorded``,
-    ``mesh_gen`` tokens), then (d), (e) and (f) (``DECODE_RULES`` over
-    ``DECODE2D_SHAPE``), timed, the pinned host cache emptied after each
+    ``mesh_gen`` tokens), then (d), (e), (f) (``DECODE_RULES`` over
+    ``DECODE2D_SHAPE``) and (g) (``SEQPAR_RULES`` over ``SEQPAR_SHAPE``),
+    timed, the pinned host cache emptied after each
     (four ranks' caches of every mesh's buffers and the parent passed the
     96 GiB of host memory of an H100 host); its results to
     ``job["out"]/rank<r>.pt``."""
@@ -4091,6 +4149,13 @@ def mesh_rank(rank, world, store_dir, job):
                        device=job["device"])
     row = {"split": split_on_mesh(job["decode2d"], mesh, dev,
                                   SH.DECODE_RULES)}
+    dist.barrier()
+    row["s"] = time.perf_counter() - t0
+    res.append(row)
+    t0 = time.perf_counter()
+    mesh = M.make_mesh(SEQPAR_SHAPE, ("data", "model"), device=job["device"])
+    row = {"split": split_on_mesh(job["seqpar"], mesh, dev,
+                                  SH.SEQPAR_RULES)}
     dist.barrier()
     row["s"] = time.perf_counter() - t0
     res.append(row)
@@ -4215,26 +4280,32 @@ def drive_mesh(dev, card):
               f"{SPLIT_FP32_GEN} tokens too; "
               f"{time.perf_counter() - t0:.1f} s; card {card}")
         split.append(case)
-    # (f)'s cases: (d)'s and (e)'s configurations, their one-card serves
-    # the references
-    decode2d, one_decode2d = [], []
-    for name, r in DECODE2D_RUNS.items():
-        run = {k: r[k] for k in ("batch", "prompt", "gen")}
-        if name == TP_MODEL:
-            cfgs, one_ref = (cfg_tp, cfg_tp32), {"bf16": one_tp,
-                                                 "fp32": one_tp32s}
-            same = run == dict(run_tp, gen=run["gen"])
-        else:
-            i = list(SPLIT_RUNS).index(name)
-            cfgs = (split[i]["bf16"], split[i]["fp32"])
-            one_ref, same = one_split[i], run == split[i]["bf16_run"]
-        if not (same and cfgs[0].num_layers == r["layers"]):
-            raise AssertionError(f"phase 16(f) {name}: {r} is not the run "
-                                 f"its one-card reference served")
-        decode2d.append({"name": name, "bf16": cfgs[0], "bf16_run": run,
-                         "fp32": cfgs[1],
-                         "fp32_run": dict(run, gen=SPLIT_FP32_GEN)})
-        one_decode2d.append(one_ref)
+    # (f)'s and (g)'s cases: (d)'s and (e)'s configurations, their
+    # one-card serves the references
+    def referenced(runs, what):
+        cases, refs = [], []
+        for name, r in runs.items():
+            run = {k: r[k] for k in ("batch", "prompt", "gen")}
+            if name == TP_MODEL:
+                cfgs, one_ref = (cfg_tp, cfg_tp32), {"bf16": one_tp,
+                                                     "fp32": one_tp32s}
+                same = run == dict(run_tp, gen=run["gen"])
+            else:
+                i = list(SPLIT_RUNS).index(name)
+                cfgs = (split[i]["bf16"], split[i]["fp32"])
+                one_ref, same = one_split[i], run == split[i]["bf16_run"]
+            if not (same and cfgs[0].num_layers == r["layers"]):
+                raise AssertionError(f"phase 16{what} {name}: {r} is not "
+                                     f"the run its one-card reference "
+                                     f"served")
+            cases.append({"name": name, "bf16": cfgs[0], "bf16_run": run,
+                          "fp32": cfgs[1],
+                          "fp32_run": dict(run, gen=SPLIT_FP32_GEN)})
+            refs.append(one_ref)
+        return cases, refs
+
+    decode2d, one_decode2d = referenced(DECODE2D_RUNS, "(f)")
+    seqpar, one_seqpar = referenced(SEQPAR_RUNS, "(g)")
     cfg16 = mesh_config(MESH_SERVE["layers"])
     one = serve_recorded(cfg16, run_c, dev)
     if one["prefill"]["k5"] != cfg16.num_layers:
@@ -4282,7 +4353,7 @@ def drive_mesh(dev, card):
                      for shape, impl in MESH_CASES],
            "tp": {"run": TP_RUN, "cfg": cfg_tp, "cfg32": cfg_tp32,
                   "tokens": tok_tp},
-           "split": split, "decode2d": decode2d}
+           "split": split, "decode2d": decode2d, "seqpar": seqpar}
     host0 = host_available_gb()
     t0 = time.perf_counter()
     M.run_ranks(mesh_rank, world, job, timeout_s=MESH_TIMEOUT_S)
@@ -4525,6 +4596,10 @@ def drive_mesh(dev, card):
     k5_mesh += check_decode2d(decode2d, one_decode2d,
                               [r[len(MESH_CASES) + 2] for r in by_rank], card,
                               tp_launches)
+    # (g): SEQPAR_RULES over (1, 4)
+    k5_mesh += check_seqpar(seqpar, one_seqpar,
+                            [r[len(MESH_CASES) + 3] for r in by_rank], card,
+                            tp_launches)
     return k5_mesh, k5_tp
 
 
@@ -4702,6 +4777,111 @@ def check_decode2d(cases, refs, ranks, card, launched):
               f"{card}")
     return k5
 
+def check_seqpar(cases, refs, ranks, card, launched):
+    """(g)'s checks and lines (``SEQPAR_RULES`` over ``SEQPAR_SHAPE``): in
+    fp32 every rank's last prefill logits within ``TP_REL`` of one card's
+    (same argmax) and its tokens equal to one card's; in both dtypes every
+    rank's tokens equal to rank 0's, its cache bytes its spec blocks', a
+    decode step resharding what ``decode_reshards`` says, the prefill's
+    sequence collectives ``seqpar_prefill_collectives``' (the stream
+    split) and K5 at the rank's heads over its rank's batch, once a
+    layer; the bf16 tokens against one card's reported.  Returns K5's
+    launches in the ranks' prefills, and hands ``launched`` each
+    prefill's by shape."""
+    import torch
+    data, model = SEQPAR_SHAPE
+    k5 = 0
+    for i, case in enumerate(cases):
+        name, cfg = case["name"], case["bf16"]
+        rows = [r["split"][i] for r in ranks]
+        vocab = slice(0, cfg.vocab_size)
+        run = case["bf16_run"]
+        rs, ag = seqpar_prefill_collectives(cfg, model)
+        want_k5 = {} if cfg.family == "ssm" else {
+            (run["batch"] // data, cfg.num_heads // model,
+             cfg.num_kv_heads // model, run["prompt"], run["prompt"],
+             cfg.resolved_head_dim): cfg.num_layers}
+        problems, rels = [], []
+        for r, row in enumerate(rows):
+            for key in ("bf16", "fp32"):
+                sv = row[key]
+                if not torch.equal(sv["generated"], rows[0][key]["generated"]):
+                    problems.append(f"rank {r} {key} tokens differ from rank "
+                                    f"0's")
+                if sv["cache_bytes"] != sv["cache_spec_bytes"]:
+                    problems.append(f"rank {r} {key} cache "
+                                    f"{sv['cache_bytes']} bytes, its spec "
+                                    f"blocks {sv['cache_spec_bytes']}")
+                steps = [d["reshards"] for d in sv["decode"]]
+                if any(n != sv["want_reshards"] for n in steps):
+                    problems.append(f"rank {r} {key} decode reshards "
+                                    f"{steps}, want {sv['want_reshards']}")
+                seq = (sv["seq"]["reduce-scatter"]["calls"],
+                       sv["seq"]["all-gather"]["calls"])
+                if seq != (rs, ag):
+                    problems.append(f"rank {r} {key} the sequence's "
+                                    f"reduce-scatters and all-gathers {seq}, "
+                                    f"want {(rs, ag)}")
+                if sv["prefill"]["k5_shapes"] != want_k5:
+                    problems.append(f"rank {r} {key} K5 "
+                                    f"{sv['prefill']['k5_shapes']}, want "
+                                    f"{want_k5}")
+                k5 += sv["prefill"]["k5"]
+                launched(sv["prefill"]["k5_shapes"])
+            f32, one32 = row["fp32"], refs[i]["fp32"]
+            got, want = f32["logits"][:, vocab], one32["logits"][:, vocab]
+            rel = ((got - want).norm() / want.norm()).item()
+            rels.append(rel)
+            if not (torch.isfinite(got).all() and rel <= TP_REL
+                    and torch.equal(got.argmax(-1), want.argmax(-1))):
+                problems.append(f"rank {r} fp32 prefill logits rel err "
+                                f"{rel:.3e} (limit {TP_REL})")
+            if not torch.equal(f32["generated"], one32["generated"]):
+                problems.append(f"rank {r} fp32 tokens "
+                                f"{f32['generated'].tolist()} vs one card's "
+                                f"{one32['generated'].tolist()}")
+        if problems:
+            raise AssertionError(f"phase 16(g) {name}: " + "; ".join(problems))
+        bf, one = rows[0]["bf16"], refs[i]["bf16"]
+        n = bf["generated"].shape[1]
+        diff = (bf["generated"] != one["generated"][:, :n]).any(0).nonzero()
+        first = "none" if not len(diff) else int(diff[0])
+        dec, pre, sq = bf["decode"][-1], bf["prefill"], bf["seq"]
+        print(f"phase 16(g) {name} over ({data}, {model}) SEQPAR_RULES, "
+              f"{data * model} ranks on the one card (gloo), "
+              f"{cfg.num_layers} layers at full width: bf16 serve batch "
+              f"{bf['generated'].shape[0]}, prompt {run['prompt']} "
+              f"({run['prompt'] // model} rows a rank between blocks), gen "
+              f"{n}: prefill_ms per rank "
+              f"{[round(x['bf16']['prefill_ms'], 3) for x in rows]} (one "
+              f"card {one['prefill_ms']:.3f}), decode_ms_per_token "
+              f"{[round(x['bf16']['decode_ms'], 3) for x in rows]} (one card "
+              f"{one['decode_ms']:.3f}); tokens equal to one card's "
+              f"{first == 'none'}, first step that differs {first}; K5 a "
+              f"prefill {pre['k5_shapes']}; the prefill's sequence "
+              f"reduce-scatters {sq['reduce-scatter']['calls']} "
+              f"({sq['reduce-scatter']['bytes']} bytes given, host ms "
+              f"{sq['reduce-scatter']['host_ms']:.3f}; gloo: an fp32 "
+              f"all-reduce and a cut) and all-gathers "
+              f"{sq['all-gather']['calls']} ({sq['all-gather']['bytes']} "
+              f"bytes, host ms {sq['all-gather']['host_ms']:.3f}), all its "
+              f"collectives: all-reduces {pre['reduce_calls']} "
+              f"({pre['reduce_bytes']} bytes), all-gathers "
+              f"{pre['gather_calls']} ({pre['gather_bytes']} bytes), host "
+              f"ms {pre['host_ms']:.3f}; a decode step: all-reduces "
+              f"{dec['reduce_calls']} ({dec['reduce_bytes']} bytes), "
+              f"all-gathers {dec['gather_calls']} ({dec['gather_bytes']} "
+              f"bytes), reshards {dec['reshards']}, host ms "
+              f"{dec['host_ms']:.3f}; each rank's cache "
+              f"{[x['bf16']['cache_bytes'] for x in rows]} bytes, its spec "
+              f"blocks {bf['cache_spec_bytes']}; fp32 (TF32 off) last "
+              f"prefill logits vs one card rel Frobenius err per rank "
+              f"{[f'{x:.3e}' for x in rels]} (limit {TP_REL}), "
+              f"{SPLIT_FP32_GEN} greedy tokens equal to one card's on every "
+              f"rank; {ranks[0]['s']:.1f} s on the ranks for (g); card "
+              f"{card}")
+    return k5
+
 # ---------------------------------------------------------------------------
 # Phase 17: training over a mesh — the gradient of qwen3-moe-235b-a22b over
 # meshes of ranks, Mamba-2 370M trained over two
@@ -4727,6 +4907,15 @@ MESH_GRAD_BAR = {"loss": 1e-5, "leaf": 1e-4}
 # batch of 2 x 256 on every rank, held to the one-card gradient at (a)'s
 # bars.
 TP_GRAD = {"layers": 2, "batch": 2, "seq": 256, "seed": 2}
+# (e) the same gradient (one job, (d)'s reference) under SEQPAR_RULES over
+# (1, 4) and (2, 2): the residual stream split over model along the
+# sequence between blocks, 64 and 128 of the 256 rows a rank (at (2, 2)
+# the batch over data, 1 x 256 a rank: K5 and K5b at (1, 16, KV 4, 256))
+# The cases in the job's order: the first pays the ranks' first gloo
+# collectives on CUDA tensors (their pinned buffers), so (e)'s (1, 4) case
+# runs before (d)'s, whose step then shows the split's own cost
+TP_GRAD_CASES = [((1, 4), "SEQPAR_RULES"), ((1, 4), "TP_RULES"),
+                 ((2, 2), "SEQPAR_RULES")]
 # (b) bf16, int8 gradients: (2, 2) ep and ep_resident, a global batch of 4
 # x 1024 (a data block of 2 x 1024 a rank), capacity factor 16 as in (a).
 # A (2, 2) ep rank: 1.32 G whole and 64 experts (1.21 G): 5.06 GB of bf16
@@ -4821,6 +5010,80 @@ class reduce_counted:
         coll.reduce_ = self.real
 
 
+class seq_counted:
+    """Within the block the residual stream's sequence collectives
+    (``SEQPAR_RULES``) are counted by kind: the reduce-scatters
+    (``collectives._scatter_sum``: ``psum_scatter``'s forward and
+    ``all_gather_dim``'s backward; on gloo an fp32 all-reduce and a cut)
+    and the all-gathers (``collectives._gather_cat``: ``all_gather_dim``'s
+    forward and ``psum_scatter``'s backward): calls, bytes of the tensor
+    each is given, host seconds between two synchronizes of the card.
+    Within a ``collectives_counted`` block (``within``) each kind also
+    keeps that block's all-gather counts inside it (``inner_gathers``:
+    calls, bytes, host ms), so that the block's other all-gathers can be
+    told apart."""
+
+    KINDS = {"reduce-scatter": "_scatter_sum", "all-gather": "_gather_cat"}
+
+    def __init__(self, sync, within=None):
+        self.sync, self.within = sync, within
+        self.rows = {k: {"calls": 0, "bytes": 0, "host_ms": 0.0,
+                         "inner_gathers": [0, 0, 0.0]} for k in self.KINDS}
+
+    def __enter__(self):
+        from repro_torch.distributed import collectives as coll
+        self.real = {k: getattr(coll, n) for k, n in self.KINDS.items()}
+
+        def wrap(kind, fn):
+            def counted(t, *args, **kw):
+                snap = None if self.within is None else self.within.snap()
+                self.sync()
+                t0 = time.perf_counter()
+                out = fn(t, *args, **kw)
+                self.sync()
+                row = self.rows[kind]
+                if snap is not None:
+                    inner = self.within.since(snap)
+                    for i, k in enumerate(("gather_calls", "gather_bytes",
+                                           "gather_ms")):
+                        row["inner_gathers"][i] += inner[k]
+                row["host_ms"] += (time.perf_counter() - t0) * 1e3
+                row["calls"] += 1
+                row["bytes"] += t.numel() * t.element_size()
+                return out
+            return counted
+
+        for kind, n in self.KINDS.items():
+            setattr(coll, n, wrap(kind, self.real[kind]))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.distributed import collectives as coll
+        for kind, n in self.KINDS.items():
+            setattr(coll, n, self.real[kind])
+
+
+class stream_recorded:
+    """Within the block the bytes of every block's input on this rank
+    (``transformer.apply_block``'s ``x``): the residual stream a layer's
+    remat unit keeps for the backward (``seen``, the distinct sizes)."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as T
+        self.real, self.seen = T.apply_block, set()
+
+        def recorded(cfg, kind, p, x, ctx):
+            self.seen.add(x.numel() * x.element_size())
+            return self.real(cfg, kind, p, x, ctx)
+
+        T.apply_block = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as T
+        T.apply_block = self.real
+
+
 def host_available_gb():
     """The host's available memory (``MemAvailable``), GB."""
     with open("/proc/meminfo") as f:
@@ -4899,13 +5162,15 @@ def held_to_reference(leaves, specs, ref, mesh, dev):
 
 
 def grad_on_mesh(job, dev):
-    """Phase 17(a) or (b) on this rank: the one-card reference on rank 0
-    (its gradient leaves kept on the host), then for each mesh of
-    ``job["cases"]`` the weights placed ``in_turns`` from the same seed
-    (each rank its ``TRAIN_RULES`` blocks, their bytes and the reduced
+    """Phase 17(a), (b), (d) or (e) on this rank: the one-card reference
+    on rank 0 (its gradient leaves kept on the host), then for each case
+    of ``job["cases"]``, (mesh shape, MoE form[, rules: ``TRAIN_RULES``
+    where none]), the weights placed ``in_turns`` from the same seed
+    (each rank its blocks under the rules, their bytes and the reduced
     gradient's held to the spec's), ``steps.make_grad_fn`` on the rank's
     block of the batch (launches, time, the reduction's collectives, the
-    reshards' all-gathers, peak memory), its leaves held to the
+    reshards' all-gathers, the sequence's collectives, the bytes of each
+    block's input, peak memory), its leaves held to the
     reference's; with int8 also, in the same call, the reduced leaves
     before the transform to the reference's before it (that check's own
     time and collectives taken out of the step's); and where
@@ -4932,7 +5197,6 @@ def grad_on_mesh(job, dev):
     from repro_torch.optim import adamw
     from repro_torch.tree import tree_leaves
     cfg, run = job["cfg"], job["run"]
-    rules = getattr(SH, job.get("rules", "TRAIN_RULES"))
     tcfg = TrainConfig(grad_compression=job["compression"])
     rank = dist.get_rank()
     cuda = dev.type == "cuda"
@@ -4974,7 +5238,9 @@ def grad_on_mesh(job, dev):
         torch.cuda.empty_cache()
     dist.barrier()
     names = leaf_names(T.param_defs(cfg))
-    for shape, impl in job["cases"]:
+    for shape, impl, *case_rules in job["cases"]:
+        rname = case_rules[0] if case_rules else "TRAIN_RULES"
+        rules = getattr(SH, rname)
         cfg_m = dataclasses.replace(cfg, moe_impl=impl) if impl else cfg
         mesh = M.make_mesh(shape, ("data", "model"), device=dev.type)
         baxes = SH.batch_axes(B, rules, mesh)
@@ -5026,7 +5292,9 @@ def grad_on_mesh(job, dev):
             GC.wire_transform = held_before_int8
         try:
             with reduce_counted(sync) as red, \
-                    collectives_counted(sync) as coll_all:
+                    collectives_counted(sync) as coll_all, \
+                    seq_counted(sync, coll_all) as seqc, \
+                    stream_recorded() as stream:
                 t0 = time.perf_counter()
                 loss, grads = grad_fn(params, local)
                 sync()
@@ -5037,6 +5305,8 @@ def grad_on_mesh(job, dev):
             ("calls", "bytes", "host_ms", "gather_calls", "gather_bytes",
              "gather_ms"), 0)
         empty_host_cache()
+        seq_inner = [sum(r["inner_gathers"][i] for r in seqc.rows.values())
+                     for i in range(3)]
         gnorm = adamw.global_norm(grads, ST.norm_reduction(
             cfg_m, mesh, rules)).item()
         stats["grad_bytes"] = tree_bytes(grads)
@@ -5053,16 +5323,21 @@ def grad_on_mesh(job, dev):
                 f"the dry run's blocks {stats['spec_bytes']}, {spec32}, "
                 f"{spec32} and {stats['dryrun_argument_bytes']}")
         row.update({
-            "shape": shape, "impl": impl or job.get("rules", "TRAIN_RULES"),
-            "rules": job.get("rules", "TRAIN_RULES"), "loss": loss.item(),
+            "shape": shape, "impl": impl or rname, "rules": rname,
+            "loss": loss.item(), "stream_bytes": sorted(stream.seen),
+            "seq": seqc.rows,
             "norm": gnorm, "ms": ms, "reduce": red.row(),
             "collectives": {"calls": coll_all.calls - minus["calls"],
                             "bytes": coll_all.nbytes - minus["bytes"],
                             "host_ms": coll_all.s * 1e3 - minus["host_ms"]},
-            "gathers": {"calls": coll_all.gathers[0] - minus["gather_calls"],
-                        "bytes": coll_all.gathers[1] - minus["gather_bytes"],
+            # the reshards' all-gathers: every all-gather but the
+            # sequence's (SEQPAR_RULES)
+            "gathers": {"calls": coll_all.gathers[0] - minus["gather_calls"]
+                        - seq_inner[0],
+                        "bytes": coll_all.gathers[1] - minus["gather_bytes"]
+                        - seq_inner[1],
                         "host_ms": (coll_all.gathers[2] * 1e3
-                                    - minus["gather_ms"])},
+                                    - minus["gather_ms"] - seq_inner[2])},
             "check_ms": check["s"] * 1e3, "host_gb": host_available_gb(),
             "launches": {k: c.launches - before[k]
                          for k, c in counted.items()},
@@ -5258,10 +5533,13 @@ def check_mesh_grads(ranks, bar, what, card):
     ``grad_on_mesh`` job against its bars (``bar["leaf"]``: on each
     leaf's relative Frobenius error; with int8, the reduced gradient's
     before the transform, and the transformed leaves' errors printed);
-    returns the case rows."""
+    ``what`` labels the lines (a dict: by each case's rules); returns the
+    case rows."""
     ref = ranks[0]["ref"]
     rows = []
+    labels = what if isinstance(what, dict) else {}
     for i, row in enumerate(ranks[0]["cases"]):
+        what = labels.get(row["rules"], what)
         name = f"({row['shape'][0]}, {row['shape'][1]}) {row['impl']}"
         rel = _by_leaf(row["rels"], row["leaves"])
         loss_rel = abs(row["loss"] - ref["loss"]) / abs(ref["loss"])
@@ -5421,39 +5699,84 @@ def mesh_grad_fp32(dev, card, total):
 
 
 def mesh_grad_tp(dev, card, total):
-    """Phase 17(d): the fp32 gradient of qwen3-8b at full width over a
-    (1, 4) mesh under ``TP_RULES`` (TP's compute split under autograd)
-    against one card's; K5's and K5b's launches added to ``total``."""
+    """Phase 17(d) and (e): the fp32 gradient of qwen3-8b at full width
+    against one card's (one job, one reference), over a (1, 4) mesh under
+    ``TP_RULES`` (TP's compute split under autograd), and (e) over (1, 4)
+    and (2, 2) under ``SEQPAR_RULES`` (the residual stream split over
+    ``model`` along the sequence between blocks: the bytes each layer's
+    remat unit keeps held to B S / model D 4, beside (d)'s B S D 4), in
+    ``TP_GRAD_CASES``' order; K5's and K5b's launches added to ``total``
+    (the (2, 2) case's also under ``k5_shapes``, by its rank's (H, KV,
+    Sq, Skv, D))."""
     g = TP_GRAD
     cfg32 = as_fp32(qwen_config(TP_MODEL, g["layers"]))
     ranks, wall = run_mesh_job({
         "kind": "grad", "cfg": cfg32, "run": g, "compression": "none",
-        "cases": [((1, 4), None)], "fault": False, "rules": "TP_RULES"},
-        4, dev)
-    (row,) = check_mesh_grads(ranks, MESH_GRAD_BAR, "(d)", card)
-    n = [r["cases"][0]["launches"] for r in ranks]
+        "cases": [(shape, None, rules) for shape, rules in TP_GRAD_CASES],
+        "fault": False}, 4, dev)
+    rows = check_mesh_grads(ranks, MESH_GRAD_BAR, {"TP_RULES": "(d)",
+                                                   "SEQPAR_RULES": "(e)"},
+                            card)
+    D, B, S = cfg32.d_model, g["batch"], g["seq"]
     k5 = (2 if cfg32.remat else 1) * cfg32.num_layers
-    if any(x["K5"] != k5 or x["K5b"] != cfg32.num_layers for x in n):
-        raise AssertionError(f"phase 17(d): K5/K5b launches per rank {n} "
-                             f"(want {k5}, {cfg32.num_layers})")
-    for x in n:
-        for k in ("K5", "K5b"):
-            total[k] += x[k]
-    c = row["collectives"]
-    print(f"phase 17(d) {cfg32.name} ({describe(cfg32)}; TF32 off) over "
-          f"(1, 4) TP_RULES, 4 ranks on the one card: batch {g['batch']} x "
-          f"{g['seq']} (the whole batch a rank, {cfg32.num_heads // 4} "
-          f"heads and {cfg32.num_kv_heads // 4} kv heads a rank), one-card "
-          f"reference {ranks[0]['ref']['s']:.1f} s on rank 0; the mesh's "
-          f"gradient step ms per rank "
-          f"{[round(r['cases'][0]['ms'], 3) for r in ranks]} (counted "
-          f"collectives synchronize the card); all its collectives "
-          f"{c['calls']}, {c['bytes']} bytes, host ms {c['host_ms']:.3f}; "
-          f"the gradient's reduction {row['reduce']['calls']} all-reduces, "
-          f"{row['reduce']['bytes']} bytes; {held_line(row)}; K5 {k5} "
-          f"(remat), K5b {cfg32.num_layers} a rank; peak per rank "
-          f"{[round(r['cases'][0]['peak_gb'], 2) for r in ranks]} GB; "
-          f"{wall:.1f} s with the ranks' start; card {card}")
+    tp = [r["rules"] for r in rows].index("TP_RULES")
+    for i, row in enumerate(rows):
+        what = "(d)" if row["rules"] == "TP_RULES" else "(e)"
+        data, model = row["shape"]
+        n = [r["cases"][i]["launches"] for r in ranks]
+        if any(x["K5"] != k5 or x["K5b"] != cfg32.num_layers for x in n):
+            raise AssertionError(f"phase 17{what} {row['shape']}: K5/K5b "
+                                 f"launches per rank {n} (want {k5}, "
+                                 f"{cfg32.num_layers})")
+        for x in n:
+            for k in ("K5", "K5b"):
+                total[k] += x[k]
+        # the stream a layer's remat unit keeps: the rank's batch block
+        # of the sequence, its rows of it under SEQPAR_RULES
+        rows_a = S // model if row["rules"] == "SEQPAR_RULES" else S
+        want = B // data * rows_a * D * 4
+        kept = [r["cases"][i]["stream_bytes"] for r in ranks]
+        if any(k != [want] for k in kept):
+            raise AssertionError(f"phase 17{what} {row['shape']}: a layer's "
+                                 f"input bytes per rank {kept}, want "
+                                 f"{want} (B {B // data} x S {rows_a} x D "
+                                 f"{D} x 4)")
+        c, sq = row["collectives"], row["seq"]
+        if row["rules"] == "SEQPAR_RULES" and not (
+                sq["reduce-scatter"]["calls"] and sq["all-gather"]["calls"]):
+            raise AssertionError(f"phase 17(e) {row['shape']}: the "
+                                 f"sequence's collectives {sq}")
+        if (data, model) == (2, 2):
+            key = (cfg32.num_heads // 2, cfg32.num_kv_heads // 2, S, S,
+                   cfg32.resolved_head_dim)
+            total["k5_shapes"][key] = total["k5_shapes"].get(key, 0) + sum(
+                x["K5"] for x in n)
+        print(f"phase 17{what} {cfg32.name} ({describe(cfg32)}; TF32 off) "
+              f"over ({data}, {model}) {row['rules']}, 4 ranks on the one "
+              f"card: batch {B} x {S} ({B // data} x {S} a rank, "
+              f"{cfg32.num_heads // model} heads and "
+              f"{cfg32.num_kv_heads // model} kv heads a rank); a layer "
+              f"keeps {want} bytes of the stream a rank (B {B // data} x S "
+              f"{rows_a} x D {D} x 4, held); the mesh's gradient step ms per "
+              f"rank {[round(r['cases'][i]['ms'], 3) for r in ranks]} "
+              f"(counted collectives synchronize the card); all its "
+              f"collectives {c['calls']}, {c['bytes']} bytes, host ms "
+              f"{c['host_ms']:.3f}, of them the sequence's reduce-scatters "
+              f"{sq['reduce-scatter']['calls']} "
+              f"({sq['reduce-scatter']['bytes']} bytes given, host ms "
+              f"{sq['reduce-scatter']['host_ms']:.3f}; gloo: an fp32 "
+              f"all-reduce and a cut) and all-gathers "
+              f"{sq['all-gather']['calls']} ({sq['all-gather']['bytes']} "
+              f"bytes, host ms {sq['all-gather']['host_ms']:.3f}); the "
+              f"gradient's reduction {row['reduce']['calls']} all-reduces, "
+              f"{row['reduce']['bytes']} bytes; {held_line(row)}; K5 {k5} "
+              f"(remat), K5b {cfg32.num_layers} a rank; peak per rank "
+              f"{[round(r['cases'][i]['peak_gb'], 2) for r in ranks]} GB "
+              f"((d), (1, 4) TP_RULES: "
+              f"{[round(r['cases'][tp]['peak_gb'], 2) for r in ranks]}); "
+              f"one-card reference {ranks[0]['ref']['s']:.1f} s on rank 0; "
+              f"{wall:.1f} s for (d) and (e) with the ranks' start; card "
+              f"{card}")
 
 
 def mesh_grad_bf16(dev, card, time_ms, total):
@@ -5639,15 +5962,16 @@ def mesh_train_dp(dev, card, total):
 
 def drive_mesh_train(dev, card, time_ms):
     """Phase 17: training over a mesh of ranks sharing the card (gloo):
-    ``mesh_grad_fp32``, ``mesh_grad_tp``, ``mesh_grad_bf16``,
-    ``mesh_train_dp``.  Returns the
+    ``mesh_grad_fp32``, ``mesh_grad_tp`` ((d) and (e)),
+    ``mesh_grad_bf16``, ``mesh_train_dp``.  Returns the
     launches of K3, K4, K5, K5b, K8 and K8b in its mesh runs, summed over
-    the ranks (and each (a)/(b) case's ``argument_bytes`` under that
-    key), and K3's given-absmax entry."""
+    the ranks (each (a)/(b) case's ``argument_bytes`` under that key, and
+    K5's at (e)'s (2, 2) rank shape under ``k5_shapes``), and K3's
+    given-absmax entry."""
     from repro_torch.kernels import _build
     _build.build_all()
     total = dict.fromkeys(("K3", "K4", "K5", "K5b", "K8", "K8b"), 0)
-    total["argument_bytes"] = []
+    total["argument_bytes"], total["k5_shapes"] = [], {}
     mesh_grad_fp32(dev, card, total)
     mesh_grad_tp(dev, card, total)
     k3_given = mesh_grad_bf16(dev, card, time_ms, total)
@@ -5658,8 +5982,13 @@ def drive_mesh_train(dev, card, time_ms):
 # Phase 18: the fleet's ClusterSim and the dry run
 # ---------------------------------------------------------------------------
 
-# (b): the dry run's cells, each a subprocess with the card hidden from it
-DRYRUN_CELLS = [("qwen3-moe-235b-a22b", "train_4k"), ("qwen3-8b", "prefill_32k")]
+# (b): the dry run's cells (arch, shape, rules), each a subprocess with the
+# card hidden from it; qwen3-8b's train_4k under train and seqpar side by
+# side (the residual stream split along the sequence between blocks)
+DRYRUN_CELLS = [("qwen3-moe-235b-a22b", "train_4k", "train"),
+                ("qwen3-8b", "prefill_32k", "train"),
+                ("qwen3-8b", "train_4k", "train"),
+                ("qwen3-8b", "train_4k", "seqpar")]
 DRYRUN_TIMEOUT_S = 300
 # (a): clocks a spin holds the stream before each timed K6 launch (~1 ms,
 # several times the host's time to issue the events and the launch)
@@ -5668,7 +5997,7 @@ SPIN_CYCLES = 2_000_000
 
 def start_dryruns(out_dir):
     """Phase 18(b), started: ``python -m repro_torch.launch.dryrun`` for
-    each of DRYRUN_CELLS on the single-pod mesh under TRAIN_RULES, each in
+    each of DRYRUN_CELLS on the single-pod mesh under its rules, each in
     its own process with CUDA_VISIBLE_DEVICES empty, writing its record
     under ``out_dir``; returns the processes, which are killed at exit if
     still running (a phase before 18 failed)."""
@@ -5679,7 +6008,7 @@ def start_dryruns(out_dir):
            "CUDA_VISIBLE_DEVICES": ""}
     procs = [(cell, subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         cell[0], "--shape", cell[1], "--mesh", "single", "--rules", "train",
+         cell[0], "--shape", cell[1], "--mesh", "single", "--rules", cell[2],
          "--out", str(out_dir), "--force"], cwd=root, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         for cell in DRYRUN_CELLS]
@@ -5690,17 +6019,21 @@ def start_dryruns(out_dir):
 def finish_dryruns(procs, out_dir, card):
     """Phase 18(b): each dry run exits 0 with status ok, no kernel
     launched, no kernel library loaded or built (the build directory as it
-    was) and CUDA never initialised; prints its roofline line."""
+    was) and CUDA never initialised; prints its roofline line, its peak,
+    temporaries and collectives by kind.  A ``seqpar`` cell takes the
+    ``train`` cell's argument bytes, fewer temporary bytes, and
+    reduce-scatters."""
     from repro_torch.kernels import _build
     built = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
-    for (arch, shape), proc in procs:
+    recs = {}
+    for (arch, shape, rules), proc in procs:
         try:
             out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
         finally:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        path = out_dir / f"{arch}__{shape}__single__train.json"
+        path = out_dir / f"{arch}__{shape}__single__{rules}.json"
         rec = json.loads(path.read_text()) if path.exists() else {}
         if proc.returncode != 0 or rec.get("status") != "ok":
             raise AssertionError(f"phase 18(b) dry run {arch} {shape}: exit "
@@ -5714,7 +6047,9 @@ def finish_dryruns(procs, out_dir, card):
                                  f"{rec['libraries_loaded']}, CUDA "
                                  f"initialised {rec['cuda_initialized']}")
         t, m = rec["roofline"], rec["memory"]
-        print(f"phase 18(b) dry run {arch} {shape} single (16, 16) train "
+        recs[arch, shape, rules] = rec
+        coll = rec["raw"]["real"]["coll_detail"]
+        print(f"phase 18(b) dry run {arch} {shape} single (16, 16) {rules} "
               f"rules, meta tensors over a fake group of 256 ranks, card "
               f"hidden: exit 0, status ok, no kernel launched, no library "
               f"loaded, CUDA not initialised; flops/chip "
@@ -5727,8 +6062,33 @@ def finish_dryruns(procs, out_dir, card):
               f"ratio {t['useful_ratio']:.3f} roofline fraction "
               f"{t['roofline_fraction']:.4f}; argument_bytes "
               f"{m['argument_bytes']} alias_bytes {m['alias_bytes']} "
-              f"peak_bytes {m['peak_bytes']}; wall "
-              f"{rec['wall_s']:.1f} s")
+              f"temp_bytes {m['temp_bytes']} peak_bytes {m['peak_bytes']} "
+              f"({m['peak_bytes'] / 1e9:.2f} GB a rank); collectives by "
+              f"kind (count, result bytes, traffic bytes) "
+              + ", ".join(f"{k} ({int(v['count'])}, {v['result_bytes']:.4e}, "
+                          f"{v['traffic_bytes']:.4e})"
+                          for k, v in sorted(coll.items()))
+              + f"; wall {rec['wall_s']:.1f} s")
+    for (arch, shape, rules), rec in recs.items():
+        train = recs.get((arch, shape, "train"))
+        if rules != "seqpar" or train is None:
+            continue
+        m, tm = rec["memory"], train["memory"]
+        if not (m["argument_bytes"] == tm["argument_bytes"]
+                and m["temp_bytes"] < tm["temp_bytes"]
+                and "reduce-scatter" in rec["raw"]["real"]["coll_detail"]):
+            raise AssertionError(f"phase 18(b) {arch} {shape} seqpar: "
+                                 f"argument bytes {m['argument_bytes']} "
+                                 f"(train {tm['argument_bytes']}), temp "
+                                 f"{m['temp_bytes']} (train "
+                                 f"{tm['temp_bytes']}), collectives "
+                                 f"{sorted(rec['raw']['real']['coll_detail'])}")
+        print(f"phase 18(b) {arch} {shape} seqpar beside train: the same "
+              f"argument bytes {m['argument_bytes']}; temp bytes "
+              f"{m['temp_bytes']} vs {tm['temp_bytes']} "
+              f"({(tm['temp_bytes'] - m['temp_bytes']) / 1e9:.2f} GB less), "
+              f"peak {m['peak_bytes'] / 1e9:.2f} vs "
+              f"{tm['peak_bytes'] / 1e9:.2f} GB a rank")
     if sorted(p.name for p in _build.BUILD_DIR.glob("*.so")) != built:
         raise AssertionError("phase 18(b): the build directory changed")
 
@@ -6291,6 +6651,9 @@ def main() -> int:
                      mesh_train_launches=mesh17["K8b"])
     k5b_entry.update(launches=k5b_entry["launches"] + mesh17["K5b"],
                      mesh_train_launches=mesh17["K5b"])
+    for row in k5_qwen["rank_shapes"]:
+        b, h, kv, sq, skv, d = row["shape"][:6]
+        row["launches"] += mesh17["k5_shapes"].get((h, kv, sq, skv, d), 0)
     gc.collect()
     empty_host_cache()
     mark("18, ClusterSim and the dry run")

@@ -10,6 +10,17 @@ differentiates through ``shard_map``.
   JAX transposes it to ``psum_scatter``; gloo on CUDA tensors has neither
   reduce-scatter nor all-to-all, so the backward is an all-reduce of the
   cotangent and this rank's block of it.
+- ``all_gather_dim(x, mesh, axis, dim)``: ``lax.all_gather(..., tiled=
+  True)`` on any dim.  Its backward is JAX's transpose, a reduce-scatter:
+  the cotangent summed over the axis **in fp32** and cut to the rank's
+  block, rounded once to ``x``'s dtype.
+- ``psum_scatter(x, mesh, axis, dim)``: ``lax.psum_scatter(...,
+  tiled=True)``.  The sum over the axis in fp32, cut to the rank's block
+  along ``dim`` and rounded once to ``x``'s dtype; its backward is an
+  all-gather of the cotangent (JAX's transpose), not an all-reduce.
+  Both reduce-scatters are one reduce-scatter call on NCCL and on
+  the dry run's ``fake`` group; gloo has none on CUDA tensors, so there
+  they all-reduce the fp32 sum and cut it: the same arithmetic.
 
 The training step (``launch.steps``) makes the rest of JAX's transpose
 explicit: every rank scales its loss by 1 / (the mesh's ranks), and after
@@ -88,6 +99,80 @@ def all_gather_tiled(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return _AllGatherTiled.apply(x, mesh.get_group(axis),
                                  mesh.get_local_rank(axis),
                                  mesh_shape(mesh)[axis])
+
+
+# ``reduce_scatter_tensor`` under its newer name where torch has it
+_reduce_scatter = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+
+
+def _scatter_sum(t: torch.Tensor, group, index: int, n: int,
+                 dim: int) -> torch.Tensor:
+    """The sum of ``t`` over ``group`` in fp32, this rank's ``index`` of
+    ``n`` blocks along ``dim``, rounded once to ``t``'s dtype."""
+    dtype = t.dtype
+    full = t.float().movedim(dim, 0).contiguous()
+    if dist.get_backend(group) in ("nccl", "fake"):
+        out = full.new_empty((full.shape[0] // n,) + full.shape[1:])
+        _reduce_scatter(out, full, group=group)
+    else:
+        dist.all_reduce(full, group=group)
+        size = full.shape[0] // n
+        out = full.narrow(0, index * size, size)
+    return out.movedim(0, dim).to(dtype).contiguous()
+
+
+def _gather_cat(t: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """The ``n`` ranks' ``t`` of ``group`` concatenated along ``dim`` in
+    the group's order."""
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+class _AllGatherDim(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, index, n, dim):
+        ctx.group, ctx.index, ctx.n, ctx.dim = group, index, n, dim
+        return _gather_cat(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_scatter_sum(g, ctx.group, ctx.index, ctx.n, ctx.dim), None,
+                None, None, None)
+
+
+class _PsumScatter(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, index, n, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        return _scatter_sum(x, group, index, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_cat(g, ctx.group, ctx.n, ctx.dim), None, None, None, None
+
+
+def _axis(mesh, axis: str):
+    return (mesh.get_group(axis), mesh.get_local_rank(axis),
+            mesh_shape(mesh)[axis])
+
+
+def all_gather_dim(x: torch.Tensor, mesh, axis: str, dim: int
+                   ) -> torch.Tensor:
+    """The ranks' ``x`` of ``axis`` concatenated on ``dim`` in the axis's
+    order, differentiable (the backward a reduce-scatter in fp32)."""
+    return _AllGatherDim.apply(x, *_axis(mesh, axis), dim)
+
+
+def psum_scatter(x: torch.Tensor, mesh, axis: str, dim: int
+                 ) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over the ranks
+    of ``axis`` (summed in fp32), differentiable (the backward an
+    all-gather)."""
+    return _PsumScatter.apply(x, *_axis(mesh, axis), dim)
 
 
 def live_axes(mesh, axes: Sequence[str]) -> tuple:

@@ -11,7 +11,7 @@ Rule sets:
   TRAIN_RULES  : FSDP ("fsdp"->data) + TP ("tp"->model) + EP ("expert"->model)
   TP_RULES     : pure tensor parallel (no FSDP)
   SEQPAR_RULES : TRAIN_RULES + the residual stream sharded over model along
-                 the sequence (refused: not ported)
+                 the sequence between blocks
   DECODE_RULES : weights 2-D resident, the residual stream sharded over data
                  along the hidden dim, the token batch over pod alone
                  (serving only: the train steps refuse it)
@@ -40,9 +40,10 @@ activation constraint steers GSPMD's layout, the local batch block
 already is the layout, so nothing is left of the callback but what the
 model reads: ``make_act_sharder`` gives an ``ActSharder``, the mesh, the
 axes the batch was split over and the rules, and from them the axes the
-residual stream's hidden dim splits over (``act_hidden``).
-``resolve_rules`` refuses ``SEQPAR_RULES``, whose activation layout
-(``act_seq``) is not ported.  ``cache_specs`` gives the decode cache's
+residual stream's hidden dim splits over (``act_hidden``) and its
+sequence between blocks (``act_seq``, ``SEQPAR_RULES``: a block gathers
+the sequence in and reduce-scatters it out, ``models.transformer``).
+``cache_specs`` gives the decode cache's
 blocks (the batch over ``pod``/``data``, the sequence over ``model``, the
 SSD state's heads over ``model``).  ``local_block`` cuts a rank's block of
 a tensor out of the whole by its spec.
@@ -160,17 +161,8 @@ def spec_for(shape: Tuple[int, ...], axes: Tuple[Optional[str], ...],
 
 
 def resolve_rules(rules=None) -> Dict[str, Tuple[str, ...]]:
-    """``rules``, ``TRAIN_RULES`` where None.  ``SEQPAR_RULES`` is refused
-    by name: its residual-stream layout (``act_seq`` over model) is not
-    ported, and run as ``TRAIN_RULES`` it would hide that (ROADMAP, queue
-    1)."""
-    if rules is None:
-        return TRAIN_RULES
-    if rules == SEQPAR_RULES:
-        raise NotImplementedError(
-            "SEQPAR_RULES: its activation layout is not ported yet (ROADMAP "
-            "queue 1); TRAIN_RULES, TP_RULES and DECODE_RULES run")
-    return rules
+    """``rules``, ``TRAIN_RULES`` where None."""
+    return TRAIN_RULES if rules is None else rules
 
 
 def resident(rules) -> bool:
@@ -308,6 +300,15 @@ class ActSharder:
         it)."""
         return _fit_axes(width, [a for a in self.rules.get("act_hidden", ())
                                  if a not in self.batch_axes], self.mesh)
+
+    def seq_axes(self, seq_len: int) -> Tuple[str, ...]:
+        """The mesh axes the residual stream's sequence of ``seq_len``
+        tokens splits over between blocks: JAX's ``"act"`` constraint on
+        a 3-D stream, ``act_seq`` less the batch's axes, the longest
+        prefix that divides ``seq_len`` (() where none does: a prompt the
+        axes do not divide, a decode token, keeps the stream whole)."""
+        return _fit_axes(seq_len, [a for a in self.rules.get("act_seq", ())
+                                   if a not in self.batch_axes], self.mesh)
 
 
 def make_act_sharder(mesh, batch_axes: Sequence[str] = (),

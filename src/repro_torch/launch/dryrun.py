@@ -44,8 +44,11 @@ kept, every token distinct).  Over a mesh the decode cache is each rank's
 block under the JAX package's spec (``sharding.cache_specs``: the batch
 over ``pod``/``data``, the sequence over ``model`` where it divides, the
 SSD state's heads over ``model``), the layout the port's decode keeps.
-``SEQPAR`` cells are refused, with ``sharding.resolve_rules``' message,
-and so are ``decode2d`` train cells (``steps.refuse_training``); its
+``seqpar`` cells run with the residual stream split over ``model``
+along the sequence between blocks (the parameters' blocks are
+``train``'s; a layer's remat unit keeps the rank's rows, and its row-
+parallel sums are reduce-scatters beside the sequence's all-gathers).
+``decode2d`` train cells are refused (``steps.refuse_training``); its
 prefill and decode cells run with the weights resident and the batch
 over ``pod`` alone.  ``long_500k`` is skipped on a quadratic arch, as in
 the JAX dry run.

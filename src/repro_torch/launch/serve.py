@@ -84,7 +84,9 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4, prompt: int = 64,
     generated tokens outgrow is refused (``_grow_cache``), and so is a
     prompt shorter than a patch frontend's ``frontend_seq``.  ``mesh``:
     serve over it (every rank the same call; ``rules`` the sharding rules,
-    default ``TRAIN_RULES``, or ``TP_RULES`` or ``DECODE_RULES``).  Returns ``generated``
+    default ``TRAIN_RULES``, or ``TP_RULES``, ``SEQPAR_RULES`` (the
+    prefill's residual stream split along the sequence) or
+    ``DECODE_RULES``).  Returns ``generated``
     int32 (batch, gen), ``prefill_s`` and ``decode_s_per_token``."""
     dev = resolve(device)
     cfg = get_arch(arch)

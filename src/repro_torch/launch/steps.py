@@ -7,8 +7,9 @@ rank calls the step on its own blocks: the batch's and cache's block along
 ``batch_axes`` (the axes ``sharding.batch_axes`` gives the whole batch
 under the caller's rules), and its block of every parameter under
 ``rules`` (``transformer.place_params``; ``TRAIN_RULES`` where None,
-``TP_RULES`` too; ``SEQPAR_RULES`` is refused by name,
-``sharding.resolve_rules``).  ``DECODE_RULES`` serves (the prefill and
+``TP_RULES`` and ``SEQPAR_RULES`` too, the last keeping the residual
+stream split over ``model`` along the sequence between blocks:
+``transformer.seq_split``).  ``DECODE_RULES`` serves (the prefill and
 decode steps: the token batch over ``pod`` alone, every ``data`` rank
 the whole of it, the cache over ``pod`` and ``data``, the weights
 resident); the gradient and train steps refuse it by name

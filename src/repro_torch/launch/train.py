@@ -10,7 +10,8 @@ place (``adamw.apply_``: the JAX launcher's step donates both), under
 recomputed in the backward.  Over a mesh each rank takes its block of
 the stream's global batch and places its block of every parameter under
 ``rules``
-(``TRAIN_RULES`` where None, or ``TP_RULES``) from the seed's generator
+(``TRAIN_RULES`` where None, ``TP_RULES`` or ``SEQPAR_RULES``, which
+splits the residual stream along the sequence) from the seed's generator
 (``transformer.place_params``, which draws as ``init_params`` does); its
 AdamW moments take the same blocks.  The step reshards each layer as it
 runs it and reduces the gradient over the ranks (``launch.steps``), the

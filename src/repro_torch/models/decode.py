@@ -53,7 +53,12 @@ token's q, K/V or latent row for the whole batch (the weights resident,
 (``layer_blocks``' ``"rows"``), scores its ``(cache_batch, cache_seq)``
 block, and gathers the attention output over those rows before ``wo``;
 the SSD and RG-LRU steps step the rank's rows the same way, and the
-prefill cuts every leaf to them.
+prefill cuts every leaf to them.  Under ``SEQPAR_RULES`` the prefill's
+residual stream is the rank's rows of the prompt between blocks
+(``transformer.seq_split``): each block gathers its normed rows whole,
+so the cache's leaves are written as before, and the last position's
+row is gathered from the rank that holds it; a decode token splits no
+sequence and runs as under ``TRAIN_RULES``.
 """
 from __future__ import annotations
 
@@ -723,7 +728,9 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, *, shard=None,
     layer's blocks resharded to TP's compute blocks as the loop runs it
     (``_layers``); ``specs``: then the cache's (``sharding.cache_specs``
     of the whole batch and the cache's whole sequence), of which ``cache``
-    holds this rank's blocks."""
+    holds this rank's blocks.  One token splits no sequence: the residual
+    stream stays whole under ``SEQPAR_RULES`` too (``T.seq_split`` gives
+    (), as JAX's ``"act"`` constraint finds no axis that divides 1)."""
     pos = cache["pos"]
     B = tokens.shape[0]
     place = T.placement(cfg, shard)
@@ -797,12 +804,15 @@ def block_prefill(cfg: ModelConfig, kind: str, p, x, ctx: T.Ctx,
     """Forward one block over the full prompt, returning its cache entry:
     over a mesh the rank's ``blocks`` (``layer_blocks``) of each leaf, its
     batch ``rows`` among them (``DECODE_RULES``: each leaf computed for
-    the whole token batch, then cut)."""
-    S = x.shape[1]
+    the whole token batch, then cut).  Under ``SEQPAR_RULES`` ``x`` is
+    the rank's rows of the prompt (``ctx.seq``) and so is the block's
+    output; the cache's leaves come from the normed rows gathered
+    whole."""
     blocks = blocks or {}
     cache: Dict[str, torch.Tensor] = {}
     if kind == "attn" and cfg.attention == "mla":
-        h = T._rms_norm(x, p["attn"]["ln"], cfg.norm_eps, ctx)
+        h = T._seq_gather(T._rms_norm(x, p["attn"]["ln"], cfg.norm_eps, ctx),
+                          ctx)
         blk, rows = blocks.get("lat"), ctx
         if blk is not None:
             # the latents of the rank's rows: their norm is over r alone
@@ -812,7 +822,9 @@ def block_prefill(cfg: ModelConfig, kind: str, p, x, ctx: T.Ctx,
         cache["lat"], cache["kr"] = T.mla_latent(cfg, p["attn"], h, rows)
         x = T.mla_forward(cfg, p["attn"], x, ctx)
     elif kind == "attn":
-        h = T._rms_norm(x, p["attn"]["ln"], cfg.norm_eps, ctx)
+        h = T._seq_gather(T._rms_norm(x, p["attn"]["ln"], cfg.norm_eps, ctx),
+                          ctx)
+        S = h.shape[1]
         k, v = _attn_prefill_kv(cfg, p["attn"], h, ctx)
         k = _whole_heads(k, cfg.num_kv_heads, ctx)
         v = _whole_heads(v, cfg.num_kv_heads, ctx)
@@ -869,19 +881,24 @@ def prefill(cfg: ModelConfig, params, tokens, *, encoder_frames=None,
     replace the prompt's first F positions (``T.splice_frontend``); the
     rotary positions are 0..S-1, on all three channels for M-RoPE.
     ``shard``: a mesh's ``sharding.ActSharder``, as ``T.forward`` takes
-    it; each layer resharded as the loop runs it (``_layers``).
+    it; each layer resharded as the loop runs it (``_layers``), the
+    residual stream the rank's rows of the prompt between blocks where
+    the rules split it (``SEQPAR_RULES``, ``T.seq_split``).
     ``specs``: then the specs of the whole prompts' cache
     (``sharding.cache_specs``), of which the cache returned holds this
-    rank's blocks."""
+    rank's blocks.  The last position's logits are every rank's: over a
+    split stream its row, which the last rank along the split holds, is
+    gathered first."""
     B, S = tokens.shape
     place = T.placement(cfg, shard)
+    seq = T.seq_split(shard, S)
     x = T.splice_frontend(cfg, params, T.embed_tokens(cfg, params, tokens,
-                                                      place, shard),
-                          frontend_embeds, place, shard)
-    x = T.add_positions(cfg, params, x, place, shard)
+                                                      place, shard, seq),
+                          frontend_embeds, place, shard, seq)
+    x = T.add_positions(cfg, params, x, place, shard, seq)
     ctx = T.rope_ctx(cfg, T.default_positions(
         cfg, torch.arange(S, device=tokens.device)[None].expand(B, S)))
-    ctx.shard, ctx.place = shard, place
+    ctx.shard, ctx.place, ctx.seq = shard, place, seq
     ctx = T.encoder_ctx(cfg, params, ctx, encoder_frames, x.dtype)
     if specs is None:
         cache = init_cache(cfg, B, S, device=tokens.device)
@@ -896,5 +913,7 @@ def prefill(cfg: ModelConfig, params, tokens, *, encoder_frames=None,
                              _layer_blocks(ls, shard))
         for name, t in c.items():
             lc[name].copy_(t)
-    logits = T.unembed(cfg, params, x[:, -1:], place, shard)
+    # each rank's last row gathered: the last of them is position S - 1
+    last = T._seq_gather(x[:, -1:], ctx)[:, -1:]
+    logits = T.unembed(cfg, params, last, place, shard)
     return T.gather_vocab(cfg, logits, shard), cache

@@ -51,7 +51,17 @@ partials over ``data`` in fp32 (``_cols``; the outputs of leaves
 decode), a row-parallel one ends on the rank's block, the norms sum
 their squares over ``data`` (``_rms_norm``), the embedding gives and the
 head contracts the rank's columns, and the MoE FFN gathers the whole
-width its in_specs take.  Under
+width its in_specs take.  Under ``SEQPAR_RULES`` (``seq_split``: the
+JAX package's ``act_seq``) the residual stream between blocks is the
+rank's rows of the sequence over ``model``: the embedding's sum a
+reduce-scatter, each block's norm on the rank's rows, then the normed
+rows gathered whole for the products that need every token
+(``_seq_gather``; attention, the RG-LRU's conv and scan, MoE routing),
+each row-parallel product that joins the stream ending in a
+reduce-scatter (``_psum_rows``) and a part computed whole cut to the
+rank's rows; the gathers' backward sums over ``model`` in fp32, the
+reduce-scatters' gathers, so each layer's remat unit keeps a rank's
+``S / model`` rows.  Whisper's encoder stays whole.  Under
 ``cfg.remat`` (the JAX package's ``jax.checkpoint`` of each group and
 ``rem`` layer, and of each encoder block) each of them runs under
 ``torch.utils.checkpoint`` when a gradient is taken, on one card and over
@@ -527,8 +537,10 @@ class Ctx:
     (B, S, half), MLA's over its rope dims (``cos_r``, ``sin_r``), the
     encoder's output (B, encoder_seq, D) that cross-attention reads, and
     over a mesh ``shard``, its mesh, batch axes and rules
-    (``sharding.make_act_sharder``), and ``place``, the ``placement`` of
-    the parameters it gives."""
+    (``sharding.make_act_sharder``), ``place``, the ``placement`` of
+    the parameters it gives, and ``seq``, the axes the residual stream's
+    sequence splits over between blocks (``seq_split``; () where each
+    rank holds the whole of it)."""
     cfg: ModelConfig
     cos: Optional[torch.Tensor] = None
     sin: Optional[torch.Tensor] = None
@@ -537,6 +549,7 @@ class Ctx:
     enc_out: Optional[torch.Tensor] = None
     shard: Optional[SH.ActSharder] = None
     place: Optional[Placement] = None
+    seq: Tuple[str, ...] = ()
 
 
 def _proj(x, w, b=None):
@@ -587,6 +600,58 @@ def _hidden_axes(ctx: Ctx, width: int) -> Tuple[str, ...]:
     """The axes a ``width``-wide residual stream splits over on
     ``ctx``'s mesh (``ActSharder.hidden_axes``; () on one card)."""
     return () if ctx.shard is None else ctx.shard.hidden_axes(width)
+
+
+def seq_split(shard, seq_len: int) -> Tuple[str, ...]:
+    """The axes of more than one rank that the residual stream's sequence
+    of ``seq_len`` tokens splits over between blocks on ``shard``'s mesh
+    (``ActSharder.seq_axes``: ``SEQPAR_RULES``' ``act_seq``); () on one
+    card and wherever the stream stays whole."""
+    if shard is None:
+        return ()
+    return coll.live_axes(shard.mesh, shard.seq_axes(seq_len))
+
+
+def _seq_ranks(seq, shard) -> int:
+    """The number of blocks a sequence split over ``seq`` has."""
+    return math.prod(SH.mesh_shape(shard.mesh)[a] for a in seq) if seq else 1
+
+
+def _seq_lo(rows: int, seq, shard) -> int:
+    """The first position of this rank's ``rows`` of a sequence split
+    over ``seq``; 0 where it is whole."""
+    return _axes_block(seq, shard.mesh)[0] * rows if seq else 0
+
+
+def _seq_cut(t: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """This rank's rows of ``t``'s whole sequence (dim 1) where the stream
+    splits (``ctx.seq``); ``t`` elsewhere."""
+    if not ctx.seq:
+        return t
+    return _narrow(t, 1, t.shape[1] // _seq_ranks(ctx.seq, ctx.shard),
+                   ctx.seq, ctx.shard.mesh)
+
+
+def _seq_gather(t: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """``t``, this rank's rows of the sequence (dim 1), gathered whole over
+    ``ctx.seq`` (``collectives.all_gather_dim``, the minor axis first; its
+    backward sums the cotangent over them in fp32); ``t`` where the stream
+    is whole."""
+    for a in reversed(ctx.seq):
+        t = coll.all_gather_dim(t, ctx.shard.mesh, a, 1)
+    return t
+
+
+def _psum_rows(y: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """The partials ``y`` (B, S, ...) summed over ``model``: where the
+    stream splits over ``model`` alone, a reduce-scatter to this rank's
+    rows (``collectives.psum_scatter``, in fp32, its backward an
+    all-gather), else ``collectives.psum``, then the rank's rows where
+    the stream splits."""
+    mesh = ctx.shard.mesh
+    if ctx.seq == ("model",):
+        return coll.psum_scatter(y, mesh, "model", 1)
+    return _seq_cut(coll.psum(y, mesh, "model"), ctx)
 
 
 def _rms_norm(x, scale, eps: float, ctx: Ctx):
@@ -682,7 +747,7 @@ def _conv(x, w, state, ctx: Ctx):
     return _gather_last(y, axes, mesh), _gather_last(st, axes, mesh)
 
 
-def _row_parallel(a, w, ctx: Ctx, split: bool):
+def _row_parallel(a, w, ctx: Ctx, split: bool, stream: bool = True):
     """``a @ w``; where ``split``, ``w`` is this rank's block of rows (the
     contraction dim split over ``model``, ``a`` the matching columns) and
     the ranks' partial products are summed over ``model``
@@ -694,15 +759,23 @@ def _row_parallel(a, w, ctx: Ctx, split: bool):
     stored block of rows narrower than ``a`` (``DECODE_RULES``: a leaf
     ``compute_defs`` keeps whole, resident) takes the rank's columns of
     ``a`` and is summed the same way; ``w``'s columns are then the rank's
-    block of the residual stream."""
+    block of the residual stream.  Where the product joins the residual
+    stream (``stream``) and the stream splits along the sequence
+    (``ctx.seq``, ``SEQPAR_RULES``), the output is the rank's rows: the
+    sum a reduce-scatter (``_psum_rows``), a product computed whole cut.
+    A sum that feeds a scan (the RG-LRU's gates) passes ``stream=False``
+    and stays whole."""
     if w.shape[0] < a.shape[-1]:
         mesh = ctx.shard.mesh
         a = _narrow(a, -1, w.shape[0], SH._fit_axes(
             a.shape[-1], ctx.shard.rules["tp"], mesh), mesh)
         split = True
     if not split:
-        return _proj(a, w)
+        y = _proj(a, w)
+        return _seq_cut(y, ctx) if stream else y
     y = a.float() @ w.float()
+    if stream:
+        return _psum_rows(y, ctx).to(a.dtype)
     return coll.psum(y, ctx.shard.mesh, "model").to(a.dtype)
 
 
@@ -733,9 +806,11 @@ def attn_forward(cfg: ModelConfig, p, x, ctx: Ctx, *, window=0,
     then RoPE, in the JAX package's order.  ``kv_override``: (k, v) for
     cross-attention (``cross``), which is non-causal, with no qk-norm and
     no RoPE.  The heads are the blocks': over ``model`` a rank's q heads
-    (and kv heads where they divide), ``wo`` row-parallel."""
+    (and kv heads where they divide), ``wo`` row-parallel.  Where ``x`` is
+    the rank's rows of the sequence (``ctx.seq``), the normed rows are
+    gathered whole first and ``wo`` ends on the rank's rows."""
     Dh = cfg.resolved_head_dim
-    h = _rms_norm(x, p["ln"], cfg.norm_eps, ctx)
+    h = _seq_gather(_rms_norm(x, p["ln"], cfg.norm_eps, ctx), ctx)
     oq, okv = _attn_outs(cfg, ctx, Dh, Dh)
     if kv_override is None:
         q, k, v = _cols(h, [p["wq"], p["wk"], p["wv"]], ctx, cfg.d_model,
@@ -759,7 +834,7 @@ def attn_forward(cfg: ModelConfig, p, x, ctx: Ctx, *, window=0,
             k = L.apply_rope(k, ctx.cos, ctx.sin)
     o = L.blocked_attention(q, k, v, causal=not cross, window=window,
                             chunk=cfg.attn_chunk, unroll=cfg.attn_unroll)
-    o = o.reshape(x.shape[0], x.shape[1], H * v.shape[-1])
+    o = o.reshape(h.shape[0], h.shape[1], H * v.shape[-1])
     return x + _row_parallel(o, p["wo"], ctx, H < cfg.num_heads)
 
 
@@ -793,9 +868,10 @@ def mla_forward(cfg: ModelConfig, p, x, ctx: Ctx):
     gradient flows through the latents' norms and the rope key, which
     ``expand`` shares over the heads (its gradient the sum over them).
     Over ``model`` a rank takes its heads of ``wq_b``, ``wk_b``, ``wv_b``
-    and ``wo``; the latents are computed whole."""
+    and ``wo``; the latents are computed whole (over a sequence split
+    along ``ctx.seq``, from the gathered rows)."""
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
-    h = _rms_norm(x, p["ln"], cfg.norm_eps, ctx)
+    h = _seq_gather(_rms_norm(x, p["ln"], cfg.norm_eps, ctx), ctx)
     oq, _ = _attn_outs(cfg, ctx, dn + dr, 0)
     cq = L.rms_norm(mla_q_latent(cfg, p, h, ctx), p["q_ln"], cfg.norm_eps)
     (q,) = _cols(cq, [p["wq_b"]], ctx, cfg.q_lora_rank, outs=[oq])
@@ -813,7 +889,7 @@ def mla_forward(cfg: ModelConfig, p, x, ctx: Ctx):
                    dim=-1)
     o = L.blocked_attention(qf, kf, v, causal=True, chunk=cfg.attn_chunk,
                             unroll=cfg.attn_unroll)
-    o = o.reshape(x.shape[0], x.shape[1], H * dv)
+    o = o.reshape(h.shape[0], h.shape[1], H * dv)
     return x + _row_parallel(o, p["wo"], ctx, H < cfg.num_heads)
 
 
@@ -827,8 +903,11 @@ def ffn_forward(cfg: ModelConfig, p, x, ctx: Ctx):
     ``moe_block_tokens`` (halved until it divides B*S) past twice that
     many tokens.  Over a hidden-split stream (``DECODE_RULES``) the MoE
     takes the normed rows whole and cuts its output back to the rank's
-    block; the MLP's ``w1``/``w3`` are column-parallel (``_cols``)."""
-    h = _rms_norm(x, p["ln"], cfg.norm_eps, ctx)
+    block; the MLP's ``w1``/``w3`` are column-parallel (``_cols``).  Over
+    a sequence split along ``ctx.seq`` the normed rows are gathered whole
+    (routing and capacity see every token, as one card's), the MoE's
+    output cut to the rank's rows and ``w2``'s sum a reduce-scatter."""
+    h = _seq_gather(_rms_norm(x, p["ln"], cfg.norm_eps, ctx), ctx)
     if cfg.num_experts:
         if h.shape[-1] < cfg.d_model:
             # the experts' in_specs take whole-width rows: the rank's
@@ -847,7 +926,7 @@ def ffn_forward(cfg: ModelConfig, p, x, ctx: Ctx):
                       d_ff=cfg.moe_d_ff or cfg.d_ff, k=cfg.experts_per_token,
                       capacity_factor=cfg.moe_capacity_factor, act=cfg.act,
                       mesh=sh.mesh, batch_axes=sh.batch_axes)
-            return x + _to_hidden(y, ctx)
+            return x + _seq_cut(_to_hidden(y, ctx), ctx)
         bt = 0
         if cfg.moe_block_tokens and B * S > 2 * cfg.moe_block_tokens:
             bt = cfg.moe_block_tokens
@@ -858,7 +937,7 @@ def ffn_forward(cfg: ModelConfig, p, x, ctx: Ctx):
             p["w2"], num_experts=cfg.num_experts, k=cfg.experts_per_token,
             capacity_factor=cfg.moe_capacity_factor, act=cfg.act,
             block_tokens=bt)
-        return x + _to_hidden(y.reshape(B, S, D), ctx)
+        return x + _seq_cut(_to_hidden(y.reshape(B, S, D), ctx), ctx)
     a1, a3 = _cols(h, [p["w1"], p["w3"]], ctx, cfg.d_model)
     y = _row_parallel(L.act_fn(cfg.act)(a1) * a3, p["w2"], ctx,
                       p["w2"].shape[0] < cfg.d_ff)
@@ -873,8 +952,11 @@ def rglru_forward(cfg: ModelConfig, p, x, ctx: Ctx, h0=None, conv0=None):
     the gates are computed as JAX's partitioner does, the rank's rows'
     products summed over ``model`` (one ``psum`` for both) with the biases
     added after the sum, then cut to the rank's channels, ``log_a`` with
-    them; ``wo`` is row-parallel."""
-    h = _rms_norm(x, p["ln"], cfg.norm_eps, ctx)
+    them; ``wo`` is row-parallel.  Over a sequence split along
+    ``ctx.seq`` the normed rows are gathered whole (the conv and the scan
+    need every token), the gates' sum stays whole and ``wo``'s ends on
+    the rank's rows."""
+    h = _seq_gather(_rms_norm(x, p["ln"], cfg.norm_eps, ctx), ctx)
     gy, xb = _cols(h, [p["wy"], p["wx"]], ctx, cfg.d_model)
     gate = L.act_fn("gelu")(gy)
     xb, conv_state = L.causal_conv1d(xb, p["conv_w"], conv0)
@@ -885,7 +967,7 @@ def rglru_forward(cfg: ModelConfig, p, x, ctx: Ctx, h0=None, conv0=None):
         log_a = p["log_a"]
     else:
         g = _row_parallel(xb, torch.cat([p["wga"], p["wgx"]], dim=1), ctx,
-                          True)
+                          True, stream=False)
         lo = _model_index(ctx) * Wl
         cut = slice(lo, lo + Wl)
         ga = g[..., cut] + p["bga"][cut].to(g.dtype)
@@ -899,12 +981,15 @@ def rglru_forward(cfg: ModelConfig, p, x, ctx: Ctx, h0=None, conv0=None):
 # --- Mamba-2 SSD block -----------------------------------------------------------
 
 def ssd_forward(cfg: ModelConfig, p, x, ctx: Ctx, h0=None, conv0=None):
+    """The Mamba-2 block, computed whole on every rank; over a sequence
+    split along ``ctx.seq`` from the gathered normed rows, its output cut
+    to the rank's rows."""
     D = cfg.d_model
     din = cfg.ssm_expand * D
     G, N = cfg.ssm_ngroups, cfg.ssm_state
     H = din // cfg.ssm_head_dim
     P = cfg.ssm_head_dim
-    h = _rms_norm(x, p["ln"], cfg.norm_eps, ctx)
+    h = _seq_gather(_rms_norm(x, p["ln"], cfg.norm_eps, ctx), ctx)
     (zxbcdt,) = _cols(h, [p["in_proj"]], ctx, D,
                       outs=[2 * din + 2 * G * N + H])
     z, xs, BC, dt = torch.split(zxbcdt, [din, din, 2 * G * N, H], dim=-1)
@@ -912,7 +997,7 @@ def ssd_forward(cfg: ModelConfig, p, x, ctx: Ctx, h0=None, conv0=None):
     conv_out, conv_state = _conv(conv_in, p["conv_w"], conv0, ctx)
     conv_out = F.silu(conv_out)
     xs, Bm, Cm = torch.split(conv_out, [din, G * N, G * N], dim=-1)
-    Bsz, S = x.shape[0], x.shape[1]
+    Bsz, S = h.shape[0], h.shape[1]
     xh = xs.reshape(Bsz, S, H, P)
     Bm = Bm.reshape(Bsz, S, G, N)
     Cm = Cm.reshape(Bsz, S, G, N)
@@ -1081,7 +1166,8 @@ def vocab_split(cfg: ModelConfig, width: int, shard
     return shard.mesh, shard.mesh.get_local_rank("model") * width
 
 
-def embed_tokens(cfg: ModelConfig, params, tokens, place=None, shard=None):
+def embed_tokens(cfg: ModelConfig, params, tokens, place=None, shard=None,
+                 seq: Tuple[str, ...] = ()):
     """The token rows of the embedding; on a mesh (``place``) of the
     table's compute block.  The gathered table is no input of a saved
     tensor (``_TokenRows`` keeps the tokens), so nothing of it is kept for
@@ -1090,19 +1176,21 @@ def embed_tokens(cfg: ModelConfig, params, tokens, place=None, shard=None):
     the ranks' rows are summed over ``model``: one of them is not zero.
     Where the residual stream splits over its hidden dim (``DECODE_RULES``)
     the rows are the rank's block of their columns, cut before the
-    sum."""
+    sum.  Where it splits along the sequence (``seq``, ``seq_split``) the
+    rank's rows come back: a whole table looks up the rank's tokens
+    alone, a split one sums its partial rows by a reduce-scatter."""
     table = computed(params["embed"], place, "embed")
     split = vocab_split(cfg, table.shape[0], shard)
-    hid = Ctx(cfg=cfg, shard=shard)
+    hid = Ctx(cfg=cfg, shard=shard, seq=seq)
     if split is None:
-        x = _to_hidden(_TokenRows.apply(table, tokens), hid)
+        x = _to_hidden(_TokenRows.apply(table, _seq_cut(tokens, hid)), hid)
     else:
-        mesh, lo = split
+        _, lo = split
         local = tokens.long() - lo
         mine = (local >= 0) & (local < table.shape[0])
         x = _TokenRows.apply(table, torch.where(mine, local, 0))
-        x = coll.psum(_to_hidden(torch.where(mine[..., None], x, 0), hid),
-                      mesh, "model")
+        x = _psum_rows(_to_hidden(torch.where(mine[..., None], x, 0), hid),
+                       hid)
     if cfg.family == "hybrid":                       # gemma-style embed scale
         # the scale rounded to the model's dtype first (bf16: 50.5, not
         # 50.596 at d_model 2560), as the JAX package does
@@ -1111,20 +1199,25 @@ def embed_tokens(cfg: ModelConfig, params, tokens, place=None, shard=None):
     return x
 
 
-def unembed(cfg: ModelConfig, params, x, place=None, shard=None):
+def unembed(cfg: ModelConfig, params, x, place=None, shard=None,
+            seq: Tuple[str, ...] = ()):
     """The final norm and the head (the embedding's transpose where tied);
     on a mesh (``place``) the head's compute block, under remat where
     ``cfg.remat``: split over the vocabulary (``shard``, ``vocab_split``),
     the rank's columns of the logits (column-parallel), the padding mask
     on its own.  Where the stream splits over its hidden dim
     (``DECODE_RULES``) the rank's block of it is contracted against its
-    rows of the head, summed over ``data`` (``_cols``)."""
+    rows of the head, summed over ``data`` (``_cols``).  Where ``x`` is
+    the rank's rows of the sequence (``seq``), they are normed, then
+    gathered whole: the logits split the vocabulary, not the sequence
+    (the JAX package's ``"logits"`` layout)."""
     key = "embed" if cfg.tie_embeddings else "lm_head"
 
     def run(head, norm, x):
         head = computed(head, place, key)
-        ctx = Ctx(cfg=cfg, shard=shard)
-        x = _rms_norm(x, computed(norm, place, "final_norm"), cfg.norm_eps, ctx)
+        ctx = Ctx(cfg=cfg, shard=shard, seq=seq)
+        x = _seq_gather(_rms_norm(x, computed(norm, place, "final_norm"),
+                                  cfg.norm_eps, ctx), ctx)
         w = head.T if cfg.tie_embeddings else head
         (logits,) = _cols(x, [w], ctx, cfg.d_model)
         if cfg.padded_vocab != cfg.vocab_size:
@@ -1163,45 +1256,53 @@ def rope_ctx(cfg: ModelConfig, positions) -> Ctx:
 
 
 def splice_frontend(cfg: ModelConfig, params, x, frontend_embeds,
-                    place=None, shard=None):
+                    place=None, shard=None, seq: Tuple[str, ...] = ()):
     """Early fusion: the patch embeddings (B, F, D), projected by
     ``patch_proj`` (on a mesh, ``place``, gathered, under remat where
     ``cfg.remat``), replace the first F of x's S positions, where the config
     has the ``vision_patches`` frontend and the caller gives them (over a
     hidden-split stream, ``shard``, the rank's block of their columns: the
-    resident ``patch_proj``'s output gathered over ``model``, then cut).
-    F > S
+    resident ``patch_proj``'s output gathered over ``model``, then cut;
+    where ``x`` is the rank's rows of the sequence, ``seq``, those of its
+    rows that lie among the first F).  F > S
     is refused (the JAX package's concatenation would return F positions
     where S were asked)."""
     if cfg.frontend != "vision_patches" or frontend_embeds is None:
         return x
-    F_, S = frontend_embeds.shape[1], x.shape[1]
+    ctx = Ctx(cfg=cfg, shard=shard, seq=seq)
+    rows = x.shape[1]
+    F_, S = frontend_embeds.shape[1], rows * _seq_ranks(seq, shard)
     if F_ > S:
         raise ValueError(f"{cfg.name}: {F_} frontend positions, past the "
                          f"{S}-token prompt they would replace")
-    ctx = Ctx(cfg=cfg, shard=shard)
     pe = _remat(cfg.remat and place is not None,
                 lambda w, fe: _cols(fe.to(x.dtype), [computed(
                     w, place, "patch_proj")], ctx, cfg.d_model,
                     outs=[cfg.d_model])[0],
                 params["patch_proj"], frontend_embeds)
-    return torch.cat([_to_hidden(pe, ctx), x[:, F_:]], dim=1)
+    lo = _seq_lo(rows, seq, shard)
+    n = min(max(F_ - lo, 0), rows)
+    return torch.cat([_to_hidden(pe[:, lo:lo + n], ctx), x[:, n:]], dim=1)
 
 
-def add_positions(cfg: ModelConfig, params, x, place=None, shard=None):
+def add_positions(cfg: ModelConfig, params, x, place=None, shard=None,
+                  seq: Tuple[str, ...] = ()):
     """x (B, S, D) plus the learned positions 0..S-1, where the config
     has them (on a mesh, ``place``, resharded; over a hidden-split stream,
-    ``shard``, the rank's block of their columns).  A block longer than
-    ``max_position`` is refused here (JAX's gather would clamp the index;
-    a card's would fault)."""
+    ``shard``, the rank's block of their columns; where ``x`` is the
+    rank's rows of the sequence, ``seq``, the positions of those rows).
+    A block longer than ``max_position`` is refused here (JAX's gather
+    would clamp the index; a card's would fault)."""
     if cfg.rope != "learned":
         return x
-    S = x.shape[1]
+    rows = x.shape[1]
+    S = rows * _seq_ranks(seq, shard)
     if S > cfg.max_position:
         raise ValueError(f"{cfg.name}: {S} tokens, past the {cfg.max_position}"
                          f" learned positions")
+    lo = _seq_lo(rows, seq, shard)
     return x + _to_hidden(computed(params["pos_embed"], place, "pos_embed")[
-        :S].to(x.dtype), Ctx(cfg=cfg, shard=shard))
+        lo:lo + rows].to(x.dtype), Ctx(cfg=cfg, shard=shard))
 
 
 def encoder_ctx(cfg: ModelConfig, params, ctx: Ctx, encoder_frames, dtype):
@@ -1229,21 +1330,26 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
     cross-attention; ``shard`` a mesh's ``sharding.ActSharder``, where the
     logits are the rank's block of the vocabulary (the JAX package's
     ``"logits"`` layout; ``vocab_split``) wherever it splits over
-    ``model``."""
+    ``model``.  Under ``SEQPAR_RULES`` the residual stream is the rank's
+    rows of the sequence from the embedding to the final norm
+    (``seq_split``; the JAX package's ``shard(x, "act")`` after the
+    positions and at the end of every block): each layer's remat unit
+    keeps those rows alone."""
     B, S = tokens.shape
     place = placement(cfg, shard)
+    seq = seq_split(shard, S)
     x = splice_frontend(cfg, params,
-                        embed_tokens(cfg, params, tokens, place, shard),
-                        frontend_embeds, place, shard)
-    x = add_positions(cfg, params, x, place, shard)
+                        embed_tokens(cfg, params, tokens, place, shard, seq),
+                        frontend_embeds, place, shard, seq)
+    x = add_positions(cfg, params, x, place, shard, seq)
     if positions is None:
         positions = default_positions(
             cfg, torch.arange(S, device=tokens.device)[None].expand(B, S))
     ctx = rope_ctx(cfg, positions)
-    ctx.shard, ctx.place = shard, place
+    ctx.shard, ctx.place, ctx.seq = shard, place, seq
     ctx = encoder_ctx(cfg, params, ctx, encoder_frames, x.dtype)
     x = run_decoder_blocks(cfg, params, x, ctx)
-    return unembed(cfg, params, x, place, shard)
+    return unembed(cfg, params, x, place, shard, seq)
 
 
 def gather_vocab(cfg: ModelConfig, logits: torch.Tensor, shard

@@ -7,6 +7,15 @@ function is ``torch_mesh_ranks.units_rank``).
   be the sum (the concatenation in the axis's order) of the group's x, and
   x_r's gradient autograd's gradient of the sum over all ranks of
   sum(y_r * w_r) in x_r, computed here in one process (fp32, 1e-6).
+- ``collectives.all_gather_dim`` and ``psum_scatter`` along dim 1 over
+  each axis of the (2, 2) mesh (``SEQ_COLLECTIVES``, the residual stream's
+  sequence split under ``SEQPAR_RULES``): the forward the concatenation
+  in the axis's order (the rank's block of the sum), x_r's gradient
+  autograd's gradient of the whole-tensor arithmetic summed over the
+  ranks (fp32, 1e-6): the gather's backward a reduce-scatter, the
+  scatter's an all-gather.  In bf16 over the 4 ranks of a (1, 4) mesh,
+  both sum in fp32 and round once: 1, 2^-8, 2^-8, 0 give 1 + 2^-7, in
+  bf16 (the output's dtype).
 - ``collectives.reshard`` from a stored block to a computed one
   (``RESHARD_CASES``: gathered whole, the resident experts' move of the
   split from D to F, a swap of axes, a cut alone): the forward must be
@@ -49,8 +58,9 @@ from repro_torch.launch import train as TR
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.distributed import sharding as SH
-from torch_mesh_ranks import (BF16_COTANGENTS, RESHARD_CASES, UNIT_MOE,
-                              UNIT_TRAIN, units_rank)
+from torch_mesh_ranks import (BF16_COTANGENTS, RESHARD_CASES,
+                              SEQ_COLLECTIVES, UNIT_MOE, UNIT_TRAIN,
+                              units_rank)
 
 SHAPE = {"data": 2, "model": 2}
 
@@ -92,6 +102,43 @@ def test_a_collectives_backward_is_autograd_of_the_sum_over_ranks(
     for r in range(4):
         np.testing.assert_allclose(got[r][f"{key}_dx"], want[r].numpy(),
                                    rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("axis", ["data", "model"])
+@pytest.mark.parametrize("name", [c[0] for c in SEQ_COLLECTIVES])
+def test_sequence_collectives_backward_is_autograd_of_the_whole(
+        ranks, name, axis):
+    got = ranks[1]
+    key = f"{name}_{axis}"
+    xs = [torch.from_numpy(r[f"{key}_x"]).requires_grad_() for r in got]
+    total = 0.0
+    for group in _groups(axis):
+        if name == "gather_dim":
+            ys = [torch.cat([xs[r] for r in group], dim=1)] * len(group)
+        else:
+            ys = list(torch.chunk(sum(xs[r] for r in group), len(group),
+                                  dim=1))
+        for r, y in zip(group, ys):
+            np.testing.assert_allclose(got[r][f"{key}_y"],
+                                       y.detach().numpy(), rtol=1e-6,
+                                       atol=1e-6)
+            total = total + (y * torch.from_numpy(got[r][f"{key}_w"])).sum()
+    want = torch.autograd.grad(total, xs)
+    for r in range(4):
+        np.testing.assert_allclose(got[r][f"{key}_dx"], want[r].numpy(),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_sequence_collectives_sum_bf16_in_fp32(ranks):
+    got = ranks[1]
+    c = [torch.tensor(v, dtype=torch.bfloat16) for v in BF16_COTANGENTS]
+    assert float((c[0] + c[1]) + (c[2] + c[3])) == 1.0
+    for r in got:
+        assert r["psum_scatter_bf16"][0] == "torch.bfloat16"
+        np.testing.assert_array_equal(r["psum_scatter_bf16_y"],
+                                      np.full((1, 1, 2), 1.0 + 2.0 ** -7))
+        np.testing.assert_array_equal(r["gather_dim_bf16_dx"],
+                                      np.full((1, 1, 2), 1.0 + 2.0 ** -7))
 
 
 class _At:

@@ -13,7 +13,9 @@ device, no launch, no library and no CUDA.  Its argument bytes must equal
 the JAX package's shard bytes from ``shardings_for`` on an 8-device host
 mesh of the same shape (a JAX subprocess), its ``model_flops`` JAX's, and
 the FLOPs of a dense prefill on one rank a hand count of its GEMMs plus
-K5's work count.  Under ``DECODE_RULES`` (``decode2d``) its decode cells
+K5's work count.  Under ``SEQPAR_RULES`` (``seqpar``) a train cell keeps
+``train``'s argument bytes, falls in temporaries by at least the stream
+its remat units no longer keep and records reduce-scatters.  Under ``DECODE_RULES`` (``decode2d``) its decode cells
 take the argument bytes of JAX's ``shardings_for`` under those rules, a
 reduced qwen3-8b step issues the hand-counted activation collectives of
 the hidden-split stream and no weight gather, and a train cell is
@@ -506,9 +508,39 @@ def test_decode_memory_counts_the_returned_cache_once(runs, arch):
                                + m["output_bytes"] - m["alias_bytes"])
 
 
-def test_refusals_and_skips(runs):
+def test_seqpar_cell_keeps_the_rank_s_rows_of_the_stream(runs):
+    """The reduced qwen3-8b ``train_4k`` cell over (2, 4) under
+    ``SEQPAR_RULES`` runs: its arguments are the ``train`` cell's bytes
+    (the same parameter, moment and batch blocks), which are JAX's
+    ``shardings_for``; its temporaries fall by at least the stream the
+    remat units keep, by hand: each of the L layers' inputs, a rank's
+    B / 2 sequences of S tokens of width D in fp32, is S / 4 rows where
+    ``train`` keeps S; its row-parallel sums are reduce-scatters (none
+    under ``train``), beside the sequence's all-gathers, and its
+    all-reduces move a small part of ``train``'s bytes."""
+    cfg = get_arch("qwen3-8b").reduced()
     rec = _rec(runs, "qwen3-8b", "train_4k", rules="seqpar")
-    assert rec["status"] == "refused" and "SEQPAR_RULES" in rec["reason"]
+    train = _rec(runs, "qwen3-8b", "train_4k")
+    assert rec["status"] == "ok", rec.get("traceback", rec)
+    m, t = rec["memory"], train["memory"]
+    assert m["argument_bytes"] == t["argument_bytes"] == runs["jax_bytes"][
+        0][0]
+    shape = SHAPES_BY_NAME["train_4k"]
+    B, S = shape.global_batch // MESH[0], shape.seq_len
+    assert cfg.dtype == "float32" and S % MESH[1] == 0
+    saved = cfg.num_layers * B * (S - S // MESH[1]) * cfg.d_model * 4
+    assert t["temp_bytes"] - m["temp_bytes"] >= saved > 0
+    assert m["peak_bytes"] < t["peak_bytes"]
+    det, tdet = (rec["raw"]["real"]["coll_detail"],
+                 train["raw"]["real"]["coll_detail"])
+    assert det["reduce-scatter"]["count"] > 0
+    assert "reduce-scatter" not in tdet
+    assert det["all-gather"]["count"] > tdet["all-gather"]["count"]
+    assert (det["all-reduce"]["result_bytes"]
+            < tdet["all-reduce"]["result_bytes"] / 100)
+
+
+def test_refusals_and_skips(runs):
     assert _rec(runs, "qwen3-8b", "long_500k")["status"] == "skipped"
     for arch, shape in (("mamba2-370m", "long_500k"),
                         ("recurrentgemma-2b", "decode_32k")):

@@ -36,7 +36,17 @@ step's partial heads summed), Mamba-2 370M, Whisper-medium,
 RecurrentGemma-2B on the 96-token ring prompt (its one kv head gathered
 whole over ``model``), qwen2-vl (``patch_proj`` resident) and qwen3-moe
 (``ep``: every rank routes the whole batch, at the config's capacity
-factor).  Every rank must return the one-process greedy tokens, and the
+factor).  Then ``SEQPAR_RULES``, whose prefill keeps the residual stream
+split over ``model`` along the sequence between blocks (the cache's
+leaves from the gathered rows, the last logits from the rank that holds
+the last row): qwen3-8b, minicpm3-4b (MLA's latents computed whole) and
+Mamba-2 (the SSD block whole) over (1, 4) and (2, 2); RecurrentGemma-2B
+on the 96-token ring prompt, Whisper-medium (the encoder whole) and
+qwen3-moe (``ep``, at the config's capacity factor: every rank routes
+the whole batch's gathered tokens) and qwen2-vl (its patch rows spliced
+into the ranks that hold them) over (1, 4); and qwen3-8b at a
+30-token prompt, which 4 ranks do not divide, so the stream stays
+whole.  Every rank must return the one-process greedy tokens, and the
 prefill step's last-position logits, gathered over the batch's blocks,
 must be within 1e-5 (fp32; the sums run in another order); each rank's
 cache after the prefill, and after the decode steps fed the served
@@ -77,11 +87,22 @@ CASES = [(arch, shape, over, SERVE, "TRAIN_RULES") for arch in ARCHS
         ("minicpm3-4b", {"num_heads": 3, "num_kv_heads": 3}, SERVE),
         ("mamba2-370m", {}, SERVE), ("whisper-medium", {}, SERVE),
         ("recurrentgemma-2b", {}, RING), ("qwen2-vl-72b", {}, SERVE),
-        (ARCHS[0], {}, SERVE)]]
+        (ARCHS[0], {}, SERVE)]] + [
+    (arch, shape, {}, kw, "SEQPAR_RULES") for arch, kw, shapes in [
+        ("qwen3-8b", SERVE, ((1, 4), (2, 2))),
+        ("minicpm3-4b", SERVE, ((1, 4), (2, 2))),
+        ("mamba2-370m", SERVE, ((1, 4), (2, 2))),
+        ("recurrentgemma-2b", RING, ((1, 4),)),
+        ("whisper-medium", SERVE, ((1, 4),)), (ARCHS[0], SERVE, ((1, 4),)),
+        ("qwen2-vl-72b", SERVE, ((1, 4),)),
+        ("qwen3-8b", dict(SERVE, prompt=30), ((1, 4),))]
+    for shape in shapes]
 IDS = [(f"{a.split('-')[0]}-{s[0]}x{s[1]}-{'-'.join(o) or 'ep'}"
         if get_arch(a).num_experts else
         f"{a}-{s[0]}x{s[1]}" + "".join(f"-{k}" for k in o))
-       + ("" if r == "TRAIN_RULES" else f"-{r}") for a, s, o, _, r in CASES]
+       + ("" if r == "TRAIN_RULES" else f"-{r}")
+       + ("" if kw["prompt"] in (SERVE["prompt"], RING["prompt"]) else
+          f"-prompt{kw['prompt']}") for a, s, o, kw, r in CASES]
 
 
 @pytest.fixture(scope="module")

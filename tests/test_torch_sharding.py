@@ -14,9 +14,10 @@ blocks a rank stores) to JAX's ``param_spec_tree`` under ``TRAIN_RULES``
 and ``TP_RULES`` on the (2, 4), (4, 2) and (1, 8) meshes of the host-mesh
 tests.  Nothing here needs a process group: a fake mesh is a ``{name:
 size}`` dict, as ``tests/test_distributed.py`` fakes one.  Mesh entry
-points without a group raise, and so do the step makers given
-``SEQPAR_RULES``, whose activation layout is not ported, and the
-gradient and train step makers given ``DECODE_RULES``, which serves;
+points without a group raise, and so do the gradient and train step
+makers given ``DECODE_RULES``, which serves; ``ActSharder.seq_axes``
+splits the residual stream's sequence where JAX's ``"act"`` constraint
+does under ``SEQPAR_RULES``;
 under it ``transformer.placement`` moves no dense leaf (the weights stay
 resident), only the expert leaves the MoE layout gathers.
 """
@@ -187,26 +188,61 @@ def test_param_block_specs_are_jax_s_param_spec_tree(arch):
 
 
 @pytest.mark.parametrize("maker,name", [
-    (m, n) for m in ("make_grad_fn", "make_train_step", "make_prefill_step",
-                     "make_decode_step")
-    for n in ("SEQPAR_RULES", "DECODE_RULES")
-    if n == "SEQPAR_RULES" or m in ("make_grad_fn", "make_train_step")])
+    (m, "DECODE_RULES") for m in ("make_grad_fn", "make_train_step")])
 def test_unported_rule_sets_are_refused_by_name(name, maker):
-    """``SEQPAR_RULES``' residual-stream layout is not ported: run as
-    ``TRAIN_RULES`` it would hide that.  ``DECODE_RULES`` serves, but
-    its gradient's reduction over the ranks that hold the same batch is
-    not ported: the training makers refuse it."""
+    """``DECODE_RULES`` serves, but its gradient's reduction over the
+    ranks that hold the same batch is not ported: the training makers
+    refuse it."""
     from repro_torch.configs import TrainConfig
     cfg = get_arch("qwen3-8b").reduced()
     mesh = _FakeMesh({"data": 2, "model": 2})
-    args = (cfg, TrainConfig()) if maker in ("make_grad_fn",
-                                             "make_train_step") else (cfg,)
     with pytest.raises(NotImplementedError, match=name):
-        getattr(ST, maker)(*args, mesh=mesh, batch_axes=("data",),
-                           rules=getattr(SH, name))
-    if name == "SEQPAR_RULES":
-        with pytest.raises(NotImplementedError, match=name):
-            SH.make_act_sharder(mesh, ("data",), getattr(SH, name))
+        getattr(ST, maker)(cfg, TrainConfig(), mesh=mesh,
+                           batch_axes=("data",), rules=getattr(SH, name))
+
+
+class _Act:
+    """An activation's shape, all JAX's ``make_act_sharder`` reads."""
+
+    def __init__(self, shape):
+        self.shape, self.ndim = shape, len(shape)
+
+
+@pytest.mark.parametrize("mname", ["2x4", "1x8", "16x16", "2x16x16", "1x1"])
+def test_seq_axes_are_jax_s_act_constraint(mname, monkeypatch):
+    """``ActSharder.seq_axes`` of a (B, S, D) residual stream under
+    ``SEQPAR_RULES`` is the sequence entry of the spec JAX's
+    ``make_act_sharder`` constrains ``"act"`` to (its ``NamedSharding``
+    and ``with_sharding_constraint`` patched to hand the spec back), the
+    batch's axes taken first: a sequence that does not divide, a decode
+    token and a batch that does not divide among the shapes.  The other
+    rule sets split no sequence; ``transformer.seq_split`` drops the axes
+    of one rank."""
+    monkeypatch.setattr(JSH, "NamedSharding", lambda mesh, spec: spec)
+    monkeypatch.setattr(jax.lax, "with_sharding_constraint",
+                        lambda x, spec: spec)
+    shape = {"16x16": {"data": 16, "model": 16}, "1x8": {"data": 1,
+                                                         "model": 8}}.get(
+        mname, MESHES.get(mname))
+    mesh = _FakeMesh(shape)
+    split = 0
+    for B, S in ((256, 4096), (8, 32), (8, 30), (4, 1), (3, 64), (2, 48)):
+        for rname in ("SEQPAR_RULES", "TRAIN_RULES", "TP_RULES"):
+            rules = getattr(SH, rname)
+            jspec = JSH.make_act_sharder(mesh, getattr(JSH, rname))(
+                _Act((B, S, 64)), "act")
+            if mesh.size == 1:               # JAX's sharder returns x itself
+                jspec = JP()
+            want = tuple(jspec)[1] if len(jspec) > 1 else None
+            want = () if want is None else (
+                (want,) if isinstance(want, str) else tuple(want))
+            shard = SH.ActSharder(mesh, SH.batch_axes(B, rules, mesh), rules)
+            got = shard.seq_axes(S) if mesh.size > 1 else ()
+            assert got == want, (B, S, rname, got, want)
+            assert T.seq_split(shard, S) == tuple(
+                a for a in got if mesh.shape[a] > 1)
+            split += bool(T.seq_split(shard, S))
+    assert split or mname == "1x1"
 
 
 @pytest.mark.parametrize("shape", [{"data": 2, "model": 2},

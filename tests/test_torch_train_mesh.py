@@ -18,8 +18,11 @@ one device over the global batch.  Every rank stores only its block of
 each leaf under the rules (FSDP over data, TP and the vocabulary over
 model); the step reshards a layer at a time, under remat (the configs'
 default).  ``SHARD_CASES`` train the reduced qwen3-8b and Mamba-2 over
-the whole (2, 4) mesh, and qwen3-8b under ``TP_RULES``, beside JAX's step
-on the same host mesh; there, and in the MoE's (2, 4) cases at capacity
+the whole (2, 4) mesh, under ``TRAIN_RULES`` and under ``SEQPAR_RULES``
+(the residual stream split over ``model`` along the sequence between
+blocks: every block's output on a rank is its S / 4 rows, recorded by a
+wrapper of ``transformer.apply_block``), and qwen3-8b under
+``TP_RULES``, beside JAX's step on the same host mesh; there, and in the MoE's (2, 4) cases at capacity
 factor 8 without int8, each rank's parameter and AdamW moment blocks must
 have the shape of JAX's ``addressable_shards`` at the same mesh
 coordinates and hold their values at the bars below.
@@ -358,3 +361,20 @@ def test_split_leaf_codes_are_the_whole_leafs_codes_in_jax(runs, shape,
                         shape)
         assert np.abs(want).max() == 127
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", SHARD_CASES, ids=SHARD_IDS)
+def test_between_blocks_a_rank_holds_its_rows_of_the_stream(runs, case):
+    """Every block's output on every rank, a layer of each step's forward
+    (remat's recompute stops once it has what the backward needs, before
+    the block returns): under ``SEQPAR_RULES`` the rank's S / 4 rows of
+    the sequence, the (2, 4) mesh's ``model`` ranks each a quarter; under
+    the other rule sets the whole sequence."""
+    _, ranks = runs
+    arch, shape, rname, _ = case
+    cfg = get_arch(arch).reduced()
+    want = TRAIN_S // shape[1] if rname == "SEQPAR_RULES" else TRAIN_S
+    for r in ranks:
+        rows = r[shard_key(*case) + "_rows"]
+        assert len(rows) == TRAIN_STEPS * cfg.num_layers, len(rows)
+        assert set(rows.tolist()) == {want}

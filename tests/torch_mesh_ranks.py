@@ -217,6 +217,40 @@ def _reshard_cases(mesh, res):
 
 
 BF16_COTANGENTS = (1.0, 2.0 ** -8, 2.0 ** -8, 0.0)
+# (name, rows of a rank's block along dim 1, rows of its output)
+SEQ_COLLECTIVES = (("gather_dim", 2, 4), ("psum_scatter", 4, 2))
+
+
+def _seq_collectives(mesh, g, rank, res):
+    """``collectives.all_gather_dim`` and ``psum_scatter`` along dim 1
+    over each axis of the (2, 2) mesh under autograd (x and w drawn from
+    ``g``, each rank differentiating sum(y * w)); then, over a (1, 4) mesh
+    of the same ranks, bf16 inputs (``BF16_COTANGENTS``, one a rank)
+    through ``psum_scatter`` and as the cotangent of ``all_gather_dim``'s
+    output: both summed in fp32."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch import mesh as M
+    fns = {"gather_dim": coll.all_gather_dim, "psum_scatter": coll.psum_scatter}
+    for axis in ("data", "model"):
+        for name, rows, out in SEQ_COLLECTIVES:
+            x = torch.randn(3, rows, 5, generator=g, requires_grad=True)
+            w = torch.randn(3, out, 5, generator=g)
+            y = fns[name](x, mesh, axis, 1)
+            (dx,) = torch.autograd.grad((y * w).sum(), [x])
+            key = f"{name}_{axis}"
+            res.update({f"{key}_x": x.detach().numpy(), f"{key}_w": w.numpy(),
+                        f"{key}_y": y.detach().numpy(),
+                        f"{key}_dx": dx.numpy()})
+    line = M.make_mesh((1, 4), ("data", "model"), device="cpu")
+    v = torch.full((1, 4, 2), BF16_COTANGENTS[rank], dtype=torch.bfloat16)
+    y = coll.psum_scatter(v, line, "model", 1)
+    res["psum_scatter_bf16"] = np.array([str(y.dtype)])
+    res["psum_scatter_bf16_y"] = y.float().numpy()
+    x = torch.zeros((1, 1, 2), dtype=torch.bfloat16, requires_grad=True)
+    y = coll.all_gather_dim(x, line, "model", 1)
+    (dx,) = torch.autograd.grad(y, [x], torch.full_like(
+        y, BF16_COTANGENTS[rank]))
+    res["gather_dim_bf16_dx"] = dx.float().numpy()
 
 
 def _remat_case(mesh, res):
@@ -303,6 +337,7 @@ def units_rank(rank, world, store_dir, out_dir):
             res.update({f"{key}_x": x.detach().numpy(), f"{key}_w": w.numpy(),
                         f"{key}_y": y.detach().numpy(),
                         f"{key}_dx": dx.numpy()})
+    _seq_collectives(mesh, g, rank, res)
     _reshard_cases(mesh, res)
     _remat_case(mesh, res)
     for impl in ("ep", "ep_resident"):
@@ -353,10 +388,14 @@ CODES_CASES = [((2, 4), "ep_resident"), ((1, 8), "ep")]
 # (arch, mesh, rules, compression): trained over the whole (2, 4) mesh and
 # held to JAX's step on the same host mesh, every rank's parameter and
 # moment blocks to JAX's addressable shards; the MoE's (2, 4) cases at
-# capacity factor 8 without int8 keep their moments too (``SHARD_MOE``)
+# capacity factor 8 without int8 keep their moments too (``SHARD_MOE``).
+# Each records the sequence rows of every block's output on the rank
+# (``_rows`` keys): under SEQPAR_RULES the rank's S / 4
 SHARD_CASES = [("qwen3-8b", (2, 4), "TRAIN_RULES", "none"),
                ("mamba2-370m", (2, 4), "TRAIN_RULES", "none"),
-               ("qwen3-8b", (2, 4), "TP_RULES", "none")]
+               ("qwen3-8b", (2, 4), "TP_RULES", "none"),
+               ("qwen3-8b", (2, 4), "SEQPAR_RULES", "none"),
+               ("mamba2-370m", (2, 4), "SEQPAR_RULES", "none")]
 SHARD_MOE = [((2, 4), "ep", 8.0, "none"), ((2, 4), "ep_resident", 8.0,
                                            "none")]
 
@@ -492,12 +531,25 @@ def train_mesh_rank(rank, world, store_dir, inputs, out_dir):
             if (shape, impl) in CODES_CASES and cf == MOE_CF[0]:
                 _codes_case(cfg, mesh, whole(moe, cfg),
                             moe_key(shape, impl, cf, "codes"), res)
+    apply_block = T.apply_block
     for arch, shape, rname, comp in SHARD_CASES:
         mesh = M.make_mesh(shape, ("data", "model"), device="cpu")
         cfg = get_arch(arch).reduced()
-        _train_case(cfg, mesh, whole(arch, cfg), comp, 1,
-                    shard_key(arch, shape, rname, comp), res, rank == 0,
-                    rules=getattr(SH, rname), moments=True)
+        rows = []
+
+        def recorded(*args, **kw):
+            out = apply_block(*args, **kw)
+            rows.append(out.shape[1])
+            return out
+
+        T.apply_block = recorded
+        try:
+            _train_case(cfg, mesh, whole(arch, cfg), comp, 1,
+                        shard_key(arch, shape, rname, comp), res, rank == 0,
+                        rules=getattr(SH, rname), moments=True)
+        finally:
+            T.apply_block = apply_block
+        res[shard_key(arch, shape, rname, comp) + "_rows"] = np.array(rows)
     for arch, shape, comp, mb in DP_CASES:
         n = math.prod(shape)
         mesh = DeviceMesh("cpu", torch.arange(n).view(shape),
