@@ -252,9 +252,17 @@ K5_RANKS = [((4, 10, 10, 1024, 1024, 96, 64), True),
 # dtype), timed the same way: RecurrentGemma-2B's 4096-token prompt at
 # batch 4 in phase 16(e) (window 2048), and a (2, 2) SEQPAR_RULES rank of
 # qwen3-8b's gradient in phase 17(e) (1 of the 2 sequences, 16 heads, KV
-# 4, 256 tokens; fp32, as that gradient runs)
+# 4, 256 tokens; fp32, as that gradient runs), and a (2, 2) DECODE_RULES
+# rank of the same gradient in 17(f) (both sequences, 16 heads, KV 4; K5b
+# timed there too, in fp32)
 K5_LATE = [((4, 10, 1, 4096, 4096, 256), True, GEMMA_WINDOW, "bfloat16"),
-           ((1, 16, 4, 256, 256, 128), True, 0, "float32")]
+           ((1, 16, 4, 256, 256, 128), True, 0, "float32"),
+           ((2, 16, 4, 256, 256, 128), True, 0, "float32")]
+# K5 and K5b with the queries shifted and the keys cut to a valid prefix
+# (the JAX package's _attn_block positions): a chunk of 256 query rows of
+# qwen3-8b's heads at positions 768-1023 against a cache of 1024 rows, 900
+# of them valid, bf16, causal; (shape, q_offset, kv_len)
+K5_OFFSET = ((4, 32, 8, 256, 1024, 128), 768, 900)
 QWEN_FULL = {   # (layers, d_model, heads, KV, head dim, (expert) d_ff,
                 #  experts, top-k, qk-norm, QKV bias, vocab, parameters)
     "qwen3-8b": (36, 4096, 32, 8, 128, 12288, 0, 0, True, False, 151936,
@@ -974,41 +982,49 @@ def drive_lm(dev, counters):
     return launches[-1]
 
 
-def attn_pairs(Sq, Skv, causal, window):
-    """The (Sq, Skv) mask of the query-key pairs attention computes."""
+def attn_pairs(Sq, Skv, causal, window, q_offset=0, kv_len=None):
+    """The (Sq, Skv) mask of the query-key pairs attention computes, query
+    row i at position i + ``q_offset``, the keys below ``kv_len`` (an int;
+    None: every key)."""
     import torch
-    qp = torch.arange(Sq)[:, None]
+    qp = torch.arange(Sq)[:, None] + q_offset
     kp = torch.arange(Skv)[None, :]
     keep = torch.ones(Sq, Skv, dtype=torch.bool)
     if causal:
         keep &= kp <= qp
     if window:
         keep &= (qp - kp) < window
+    if kv_len is not None:
+        keep &= kp < kv_len
     return keep
 
 
-def k5_tiles(Sq, Skv, causal, window, dtype):
+def k5_tiles(Sq, Skv, causal, window, dtype, q_offset=0, kv_len=None):
     """(KV tiles K5 walks, KV tiles there are) for one (batch, head), by
-    the kernel's rule (csrc/flash_attention.cu, ``tile_range``): a query
-    tile of bq rows walks from the key tile holding q0 - window + 1 to the
-    one ending at min(Skv, q0 + bq), or every tile where it holds a row
-    that sees no key.  bf16 takes 128-query, 64-key tiles; fp32 32-query
-    tiles of 32 keys (16 at D = 256 are not counted here)."""
+    the kernel's rule (csrc/flash_attention.cu, ``tile_range``), query row
+    i at position i + ``q_offset`` and the keys below ``kv_len`` valid: a
+    query tile of bq rows walks from the key tile holding its first
+    position - window + 1 to the one ending at its last position + 1 (up
+    to the valid keys), or every tile where it holds a row that sees no
+    key.  bf16 takes 128-query, 64-key tiles; fp32 32-query tiles of 32
+    keys (16 at D = 256 are not counted here)."""
     import torch
     bq, bk = (128, 64) if dtype == torch.bfloat16 else (32, 32)
+    kvl = Skv if kv_len is None else max(0, min(kv_len, Skv))
     n_kv = -(-Skv // bk)
     walked = 0
     for q0 in range(0, Sq, bq):
-        q_last = min(q0 + bq, Sq) - 1
-        full = bool(window) and q_last >= Skv + window - 1
-        lo = max(0, q0 - window + 1) if window and not full else 0
-        hi = min(Skv, q_last + 1) if causal and not full else Skv
+        q_last = min(q0 + bq, Sq) - 1 + q_offset
+        full = kvl <= 0 or (bool(window) and q_last >= kvl + window - 1)
+        lo = max(0, q0 + q_offset - window + 1) if window and not full else 0
+        hi = Skv if full else (min(kvl, q_last + 1) if causal else kvl)
         walked += -(-hi // bk) - lo // bk
     return walked, -(-Sq // bq) * n_kv
 
 
 def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
-                  max_err, card=None, planted=False, backends=False):
+                  max_err, card=None, planted=False, backends=False,
+                  q_offset=0, kv_len=None):
     """K5 at one shape (B, H, KV, Sq, Skv, D), or (..., D, Dv) with v's
     own head dim, against its plain version, and its times beside
     F.scaled_dot_product_attention's and its bound.  Where the window masks
@@ -1019,8 +1035,11 @@ def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
     of SDPA's fused backends alone (``sdpa_backends``) are also timed in
     CUDA graphs, among the forms ``library_ms`` takes the fastest of.
     Where a window masks, SDPA's masked form stands in for the backends
-    (``is_causal`` computes another function).  Returns a dict of the
-    kernels line's keys
+    (``is_causal`` computes another function).  ``q_offset`` and
+    ``kv_len`` (an int, handed to K5 as a 0-d tensor on the card, which
+    the kernel reads there) place the queries and bound the keys; SDPA
+    then takes the boolean mask of those positions.  Returns a dict of
+    the kernels line's keys
     (``library`` holds each SDPA form; ``rel_frobenius`` and ``planted``
     their readings)."""
     import torch
@@ -1033,9 +1052,14 @@ def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
     k, v = randn(B, KV, Skv, D, dtype=dtype), randn(B, KV, Skv, Dv,
                                                     dtype=dtype)
     rtol, atol = (0.05, 0.03) if dtype == torch.bfloat16 else (1e-3, 2e-4)
-    got = flash_attention(q, k, v, causal=causal, window=window)
-    want = flash_attention_plain(q, k, v, causal=causal, window=window)
-    tag = f"K5 {tuple(shape)} {dtype}"
+    shifted = bool(q_offset) or kv_len is not None
+    pos = {"q_offset": q_offset, "kv_len": None if kv_len is None else
+           torch.tensor(kv_len, device=q.device)}
+    got = flash_attention(q, k, v, causal=causal, window=window, **pos)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 **pos)
+    tag = f"K5 {tuple(shape)} {dtype}" + (
+        f" q_offset {q_offset} kv_len {kv_len}" if shifted else "")
     err = max_err(got, want, rtol, atol, tag)
     checked = {}
     if planted:
@@ -1053,25 +1077,28 @@ def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
             checked["planted"] = faults
     del got, want
     torch.cuda.empty_cache()
-    keep = attn_pairs(Sq, Skv, causal, window)
-    mask = keep.to(q.device) if (causal or window) else None
-    ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
-                                         window=window))
+    keep = attn_pairs(Sq, Skv, causal, window, q_offset, kv_len)
+    mask = keep.to(q.device) if (causal or window or shifted) else None
+    run = lambda: flash_attention(q, k, v, causal=causal,  # noqa: E731
+                                  window=window, **pos)
+    ms = time_ms(run)
     plain = time_ms(lambda: flash_attention_plain(
-        q, k, v, causal=causal, window=window))
+        q, k, v, causal=causal, window=window, **pos))
     libs = {"sdpa_mask": time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, enable_gqa=KV != H))}
-    if causal and (not window or Sq <= window):   # the window masks nothing
+    if causal and (not window or Sq <= window) and not shifted:
+        # the window masks nothing
         libs["sdpa_is_causal"] = time_ms(
             lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=KV != H))
-    bnd, by = k5_bound(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv)
-    walked, tiles = k5_tiles(Sq, Skv, causal, window, dtype)
+    bnd, by = k5_bound(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv,
+                       q_offset, kv_len)
+    walked, tiles = k5_tiles(Sq, Skv, causal, window, dtype, q_offset,
+                             kv_len)
     graphs = ""
     if backends:
-        wins = graph_windows_ms(lambda: flash_attention(
-            q, k, v, causal=causal, window=window))
-        if "sdpa_is_causal" in libs or not (causal or window):
+        wins = graph_windows_ms(run)
+        if "sdpa_is_causal" in libs or not (causal or window or shifted):
             sdpa = sdpa_backends(q, k, v, causal)
         else:
             # is_causal is not K5's function where the window masks: SDPA
@@ -1094,9 +1121,13 @@ def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
                       for n, w in sdpa.items()))
     print(f"K5 flash_attention B={B} H={H} KV={KV} Sq={Sq} Skv={Skv} "
           f"D={D}{f' Dv={Dv}' if Dv != D else ''} causal={causal} "
-          f"window={window} {dtype}: "
+          f"window={window}"
+          + (f" q_offset={q_offset} kv_len={kv_len} (a 0-d tensor on the "
+             f"card, read by the kernel; pairs kept "
+             f"{int(keep.sum())} of {Sq * Skv})" if shifted else "")
+          + f" {dtype}: "
           f"max_abs_err={err:.3e} rtol={rtol} atol={atol}; "
-          f"ms={ms:.4f} (per Python call {call_ms(lambda: flash_attention(q, k, v, causal=causal, window=window)):.4f}) "
+          f"ms={ms:.4f} (per Python call {call_ms(run):.4f}) "
           f"plain_ms={plain:.4f} library_ms "
           + " ".join(f"({name}) {t:.4f}" for name, t in libs.items())
           + f" bound_ms={bnd:.4f} ({by}); KV tiles walked {walked} of "
@@ -1150,8 +1181,8 @@ def k5_planted(q, k, v, causal, window, got, want):
     t1 = min(t0 + 64, Skv)
     real = FA._mask
 
-    def dropped(Sq_, Skv_, causal_, window_, device):
-        keep = real(Sq_, Skv_, causal_, window_, device)
+    def dropped(*args):
+        keep = real(*args)
         keep[:, t0:t1] = False
         return keep
 
@@ -1353,8 +1384,9 @@ def drive_gemma(dev, counters, time_ms, call_ms, max_err, randn):
                              device=dev)
     real = (ops.rglru_scan, ops.flash_attention)
 
-    def plain_k5(q, k, v, *, causal, window):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    def plain_k5(q, k, v, *, causal, window, **pos):
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     **pos)
 
     runs = {}
     for name in ("kernel", "plain", "kernel", "plain"):
@@ -1946,8 +1978,9 @@ def fp32_prefill_check(cfg32, dev, run, card, inputs=None):
                            ["tokens"]).to(dev)
     real = ops.flash_attention
 
-    def plain_k5(q, k, v, *, causal, window):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    def plain_k5(q, k, v, *, causal, window, **pos):
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     **pos)
 
     runs = {}
     for name in ("kernel", "plain", "kernel", "plain"):
@@ -2167,6 +2200,25 @@ def drive_qwen(dev, counters, time_ms, call_ms, max_err, randn, card):
                  shape, causal, window, getattr(torch, dtype), randn,
                  time_ms, call_ms, max_err, card, backends=True)})
         torch.cuda.empty_cache()
+    # K5b at 17(f)'s rank shape, fp32, timed beside SDPA's backward
+    shape = K5_LATE[-1][0]
+    _, _, entries["rank_shapes"][-1]["k5b"] = k5b_case(
+        shape, True, 0, torch.float32, time_ms, call_ms, max_err, randn,
+        card, timed=True)
+    # ---- 11(f): K5 and K5b with q_offset and kv_len ----------------------
+    shape, q_offset, kv_len = K5_OFFSET
+    entries["offsets"] = {
+        "shape": list(shape), "dtype": "bfloat16", "causal": True,
+        "window": 0, "q_offset": q_offset, "kv_len": kv_len,
+        **check_k5_case(shape, True, 0, torch.bfloat16, randn, time_ms,
+                        call_ms, max_err, card, q_offset=q_offset,
+                        kv_len=kv_len)}
+    err, rel, k5b_row = k5b_case(shape, True, 0, torch.bfloat16, time_ms,
+                                 call_ms, max_err, randn, card,
+                                 q_offset=q_offset, kv_len=kv_len)
+    entries["offsets"]["k5b"] = {"max_abs_err": err, "rel_frobenius": rel,
+                                 **k5b_row}
+    torch.cuda.empty_cache()
     return entries
 
 
@@ -2516,13 +2568,14 @@ def graph_windows_ms(fn, reps=5, windows=5, stream=None):
     return out
 
 
-def sdpa_bwd_windows(q, k, v, do, causal, window):
+def sdpa_bwd_windows(q, k, v, do, causal, window, q_offset=0, kv_len=None):
     """(form, ms of each window) of the backward alone of
     F.scaled_dot_product_attention on the same inputs, timed as
     ``graph_windows_ms`` times K5b: the forward runs once on a side stream,
     ``autograd.grad`` of it is captured there.  ``is_causal`` where the
     window masks nothing, no mask where nothing is masked, else the
-    explicit mask."""
+    explicit mask (of ``q_offset`` and ``kv_len``'s positions where
+    given)."""
     import torch
     import torch.nn.functional as F
     B, H, Sq, D = q.shape
@@ -2530,17 +2583,19 @@ def sdpa_bwd_windows(q, k, v, do, causal, window):
     ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
+    shifted = bool(q_offset) or kv_len is not None
     with torch.cuda.stream(side):
-        if causal and (not window or Sq <= window):
+        if causal and (not window or Sq <= window) and not shifted:
             form = "sdpa_is_causal"
             out = F.scaled_dot_product_attention(*ins, is_causal=True,
                                                  enable_gqa=KV != H)
-        elif not causal and not window:
+        elif not causal and not window and not shifted:
             form = "sdpa_no_mask"
             out = F.scaled_dot_product_attention(*ins, enable_gqa=KV != H)
         else:
             form = "sdpa_mask"
-            mask = attn_pairs(Sq, Skv, causal, window).to(q.device)
+            mask = attn_pairs(Sq, Skv, causal, window, q_offset,
+                              kv_len).to(q.device)
             out = F.scaled_dot_product_attention(*ins, attn_mask=mask,
                                                  enable_gqa=KV != H)
     windows = graph_windows_ms(
@@ -2575,7 +2630,7 @@ def rel_frobenius(got, want):
     return ((got - want).norm() / want.norm().clamp_min(floor)).item()
 
 
-def k5b_planted(q, k, v, o, lse, do, causal, window, got, want):
+def k5b_planted(q, k, v, o, lse, do, causal, window, got, want, **pos):
     """Readings of two planted faults against the plain version ``want``:
     K5b's dQ scaled by 0.9, and the plain version with the 64-key tile in
     the middle of the keys dropped from every sum (the dQ pass's, the
@@ -2586,15 +2641,16 @@ def k5b_planted(q, k, v, o, lse, do, causal, window, got, want):
     t0 = Skv // 2 // 64 * 64
     real = FA._mask
 
-    def dropped(Sq, Skv_, causal_, window_, device):
-        keep = real(Sq, Skv_, causal_, window_, device)
+    def dropped(*args):
+        keep = real(*args)
         keep[:, t0:t0 + 64] = False
         return keep
 
     FA._mask = dropped
     try:
         drop = FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                            causal=causal, window=window)
+                                            causal=causal, window=window,
+                                            **pos)
     finally:
         FA._mask = real
     out = {"dq x 0.9": rel_frobenius(got[0] * 0.9, want[0])}
@@ -2606,16 +2662,18 @@ def k5b_planted(q, k, v, o, lse, do, causal, window, got, want):
 
 
 def k5b_case(shape, causal, window, dtype, time_ms, call_ms, max_err, randn,
-             card, backends=False):
+             card, backends=False, q_offset=0, kv_len=None, timed=None):
     """K5's output and log-sum-exp against its plain version's, then K5b
     against its plain version, both fed K5's output and lse, at one shape
     (B, H, KV, Sq, Skv, D) or (..., D, Dv): K5's elementwise tolerances and
     K5B_REL's relative Frobenius bar, two calls byte-equal; in bf16 two
-    planted faults read against that bar, and the times (K5b and SDPA's
+    planted faults read against that bar; the times (K5b and SDPA's
     backward each in CUDA graphs, five windows; with ``backends`` also each
-    of SDPA's fused backends alone) beside the bound.  Prints one line;
-    returns (max abs error, the relative errors, the bf16 row of times or
-    None)."""
+    of SDPA's fused backends alone) beside the bound where ``timed`` (None:
+    in bf16).  ``q_offset`` and ``kv_len`` (an int, handed to K5 and K5b
+    as a 0-d tensor on the card) place the queries and bound the keys.
+    Prints one line; returns (max abs error, the relative errors, the row
+    of times or None)."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     B, H, KV, Sq, Skv, D = shape[:6]
@@ -2625,24 +2683,29 @@ def k5b_case(shape, causal, window, dtype, time_ms, call_ms, max_err, randn,
     v = randn(B, KV, Skv, Dv, dtype=dtype)
     do = randn(B, H, Sq, Dv, dtype=dtype)
     bf = dtype == torch.bfloat16
+    timed = bf if timed is None else timed
     rtol, atol = (0.05, 0.03) if bf else (1e-3, 2e-4)
-    tag = f"{shape} {dtype}"
+    shifted = bool(q_offset) or kv_len is not None
+    pos = {"q_offset": q_offset, "kv_len": None if kv_len is None else
+           torch.tensor(kv_len, device=q.device)}
+    tag = f"{shape} {dtype}" + (f" q_offset {q_offset} kv_len {kv_len}"
+                                if shifted else "")
     # the forward that training runs: o at K5's bar, the lse (fp32 in
     # both) as the card tests hold it, rows that saw no key alike
     o, lse = FA.flash_attention(q, k, v, causal=causal, window=window,
-                                return_lse=True)
+                                return_lse=True, **pos)
     want_o, want_lse = FA.flash_attention_plain(
-        q, k, v, causal=causal, window=window, return_lse=True)
+        q, k, v, causal=causal, window=window, return_lse=True, **pos)
     o_err = max_err(o, want_o, rtol, atol, f"K5 {tag} o")
     lse_err = max_err(lse, want_lse, 1e-5, 1e-4, f"K5 {tag} lse")
     if not torch.equal(lse == FA.NEG_INF, want_lse == FA.NEG_INF):
         raise AssertionError(f"K5 {tag}: rows that saw no key differ")
     del want_o, want_lse
     run = lambda: FA.flash_attention_bwd(q, k, v, o, lse, do,  # noqa: E731
-                                         causal=causal, window=window)
+                                         causal=causal, window=window, **pos)
     got = run()
     want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                        window=window)
+                                        window=window, **pos)
     err = max(max_err(gg, ww, rtol, atol, f"K5b {tag} {name}")
               for name, gg, ww in zip(("dq", "dk", "dv"), got, want))
     limit = K5B_REL[str(dtype).split(".")[1]]
@@ -2657,29 +2720,38 @@ def k5b_case(shape, causal, window, dtype, time_ms, call_ms, max_err, randn,
     del again
     line = (f"K5b flash_attention_bwd B={B} H={H} KV={KV} Sq={Sq} Skv={Skv} "
             f"D={D}{f' Dv={Dv}' if Dv != D else ''} causal={causal} "
-            f"window={window} {dtype}: K5's o max_abs_err={o_err:.3e}, lse "
+            f"window={window}"
+            + (f" q_offset={q_offset} kv_len={kv_len} (a 0-d tensor on the "
+               f"card, read by K5 and K5b)" if shifted else "")
+            + f" {dtype}: K5's o max_abs_err={o_err:.3e}, lse "
             f"{lse_err:.3e} (rtol 1e-5 atol 1e-4); dq, dk, dv "
             f"max_abs_err={err:.3e} rtol={rtol} atol={atol}, relative "
             f"Frobenius " + ", ".join(f"{n} {r:.3e}" for n, r in rel.items())
             + f" (limit {limit}); a second call byte-equal")
     row = None
+    planted = None
     if bf:
-        planted = k5b_planted(q, k, v, o, lse, do, causal, window, got, want)
+        planted = k5b_planted(q, k, v, o, lse, do, causal, window, got, want,
+                              **pos)
         if min(planted.values()) <= limit:
             raise AssertionError(f"K5b {tag}: a planted fault reads within "
                                  f"the bar: {planted}, limit {limit}")
         line += "; planted faults read " + ", ".join(
             f"{n} {r:.3e}" for n, r in planted.items())
-        del got, want
+    del got, want
+    if timed:
         wins = graph_windows_ms(run)
         ms = statistics.median(wins)
         plain = time_ms(lambda: FA.flash_attention_bwd_plain(
-            q, k, v, o, lse, do, causal=causal, window=window), reps=2)
-        form, lib_wins = sdpa_bwd_windows(q, k, v, do, causal, window)
+            q, k, v, o, lse, do, causal=causal, window=window, **pos), reps=2)
+        form, lib_wins = sdpa_bwd_windows(q, k, v, do, causal, window,
+                                          q_offset, kv_len)
         lib = statistics.median(lib_wins)
-        bnd, by = k5b_bound(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv)
-        cluster = FA.bwd_plan(B, H, KV, Sq, Skv, D, causal, window,
-                              FA._sms(q.device))["cluster"]
+        bnd, by = k5b_bound(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv,
+                            q_offset, kv_len)
+        cluster = (FA.bwd_plan(B, H, KV, Sq, Skv, D, causal, window,
+                               FA._sms(q.device), q_offset=q_offset,
+                               kv_len=kv_len)["cluster"] if bf else 1)
         row = {"cluster": cluster,
                "ms": ms, "ms_spread": [min(wins), max(wins)],
                "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
@@ -2691,8 +2763,9 @@ def k5b_case(shape, causal, window, dtype, time_ms, call_ms, max_err, randn,
                  f"{call_ms(run, reps=20):.4f}) plain_ms={plain:.4f} "
                  f"library_ms ({form} backward alone, timed the same way) "
                  f"{lib:.4f} ({min(lib_wins):.4f}-{max(lib_wins):.4f}) "
-                 f"bound_ms={bnd:.4f} ({by}); wgmma, dK/dV over clusters of "
-                 f"{cluster}")
+                 f"bound_ms={bnd:.4f} ({by}); "
+                 + (f"wgmma, dK/dV over clusters of {cluster}" if bf else
+                    "CUDA cores"))
         if backends:
             alone = sdpa_bwd_backends(q, k, v, do, causal)
             row["backends"] = {
@@ -2702,8 +2775,6 @@ def k5b_case(shape, causal, window, dtype, time_ms, call_ms, max_err, randn,
                 f"{n} {statistics.median(w):.4f}" if isinstance(w, list)
                 else f"{n} {w}" for n, w in alone.items())
         line += f"; card {card}"
-    else:
-        del got, want
     print(line)
     del q, k, v, do, o, lse, run
     torch.cuda.empty_cache()
@@ -2875,10 +2946,10 @@ class plain_versions:
         self.real = (FA.flash_attention, FA.flash_attention_bwd,
                      RG.rglru_scan, RG.rglru_scan_bwd)
 
-        def plain_fwd(q, k, v, *, causal, window, return_lse=False):
+        def plain_fwd(q, k, v, *, causal, window, return_lse=False, **pos):
             return FA.flash_attention_plain(q, k, v, causal=causal,
                                             window=window,
-                                            return_lse=return_lse)
+                                            return_lse=return_lse, **pos)
 
         FA.flash_attention = plain_fwd
         FA.flash_attention_bwd = FA.flash_attention_bwd_plain
@@ -4911,11 +4982,16 @@ TP_GRAD = {"layers": 2, "batch": 2, "seq": 256, "seed": 2}
 # (1, 4) and (2, 2): the residual stream split over model along the
 # sequence between blocks, 64 and 128 of the 256 rows a rank (at (2, 2)
 # the batch over data, 1 x 256 a rank: K5 and K5b at (1, 16, KV 4, 256))
+# (f) the same gradient under DECODE_RULES over (2, 2): the weights
+# resident in their 2-D blocks (no dense leaf resharded), every rank the
+# whole batch of 2 x 256, the residual stream split over data along the
+# hidden dim (a layer's remat unit keeps B 2 x S 256 x D/2 2048 x 4 =
+# 4,194,304 bytes a rank; K5 and K5b at (2, 16, KV 4, 256)).
 # The cases in the job's order: the first pays the ranks' first gloo
 # collectives on CUDA tensors (their pinned buffers), so (e)'s (1, 4) case
 # runs before (d)'s, whose step then shows the split's own cost
 TP_GRAD_CASES = [((1, 4), "SEQPAR_RULES"), ((1, 4), "TP_RULES"),
-                 ((2, 2), "SEQPAR_RULES")]
+                 ((2, 2), "SEQPAR_RULES"), ((2, 2), "DECODE_RULES")]
 # (b) bf16, int8 gradients: (2, 2) ep and ep_resident, a global batch of 4
 # x 1024 (a data block of 2 x 1024 a rank), capacity factor 16 as in (a).
 # A (2, 2) ep rank: 1.32 G whole and 64 experts (1.21 G): 5.06 GB of bf16
@@ -5338,6 +5414,8 @@ def grad_on_mesh(job, dev):
                         - seq_inner[1],
                         "host_ms": (coll_all.gathers[2] * 1e3
                                     - minus["gather_ms"] - seq_inner[2])},
+            # the placement's reshards that move a weight's block
+            "reshards": coll_all.reshards[0],
             "check_ms": check["s"] * 1e3, "host_gb": host_available_gb(),
             "launches": {k: c.launches - before[k]
                          for k, c in counted.items()},
@@ -5699,29 +5777,33 @@ def mesh_grad_fp32(dev, card, total):
 
 
 def mesh_grad_tp(dev, card, total):
-    """Phase 17(d) and (e): the fp32 gradient of qwen3-8b at full width
-    against one card's (one job, one reference), over a (1, 4) mesh under
-    ``TP_RULES`` (TP's compute split under autograd), and (e) over (1, 4)
-    and (2, 2) under ``SEQPAR_RULES`` (the residual stream split over
+    """Phase 17(d), (e) and (f): the fp32 gradient of qwen3-8b at full
+    width against one card's (one job, one reference), over a (1, 4) mesh
+    under ``TP_RULES`` (TP's compute split under autograd), (e) over (1,
+    4) and (2, 2) under ``SEQPAR_RULES`` (the residual stream split over
     ``model`` along the sequence between blocks: the bytes each layer's
-    remat unit keeps held to B S / model D 4, beside (d)'s B S D 4), in
-    ``TP_GRAD_CASES``' order; K5's and K5b's launches added to ``total``
-    (the (2, 2) case's also under ``k5_shapes``, by its rank's (H, KV,
-    Sq, Skv, D))."""
+    remat unit keeps held to B S / model D 4, beside (d)'s B S D 4) and
+    (f) over (2, 2) under ``DECODE_RULES`` (every rank the whole batch, the
+    stream split over ``data`` along the hidden dim: B S D / data 4 kept,
+    and no weight block resharded), in ``TP_GRAD_CASES``' order; K5's and
+    K5b's launches added to ``total`` (the (2, 2) cases' also under
+    ``k5_shapes`` and ``k5b_shapes``, by the rank's (B, H, KV, Sq, Skv,
+    D))."""
     g = TP_GRAD
     cfg32 = as_fp32(qwen_config(TP_MODEL, g["layers"]))
     ranks, wall = run_mesh_job({
         "kind": "grad", "cfg": cfg32, "run": g, "compression": "none",
         "cases": [(shape, None, rules) for shape, rules in TP_GRAD_CASES],
         "fault": False}, 4, dev)
-    rows = check_mesh_grads(ranks, MESH_GRAD_BAR, {"TP_RULES": "(d)",
-                                                   "SEQPAR_RULES": "(e)"},
-                            card)
+    labels = {"TP_RULES": "(d)", "SEQPAR_RULES": "(e)",
+              "DECODE_RULES": "(f)"}
+    rows = check_mesh_grads(ranks, MESH_GRAD_BAR, labels, card)
     D, B, S = cfg32.d_model, g["batch"], g["seq"]
     k5 = (2 if cfg32.remat else 1) * cfg32.num_layers
     tp = [r["rules"] for r in rows].index("TP_RULES")
     for i, row in enumerate(rows):
-        what = "(d)" if row["rules"] == "TP_RULES" else "(e)"
+        what = labels[row["rules"]]
+        decode2d = row["rules"] == "DECODE_RULES"
         data, model = row["shape"]
         n = [r["cases"][i]["launches"] for r in ranks]
         if any(x["K5"] != k5 or x["K5b"] != cfg32.num_layers for x in n):
@@ -5732,32 +5814,45 @@ def mesh_grad_tp(dev, card, total):
             for k in ("K5", "K5b"):
                 total[k] += x[k]
         # the stream a layer's remat unit keeps: the rank's batch block
-        # of the sequence, its rows of it under SEQPAR_RULES
+        # of the sequence, its rows of it under SEQPAR_RULES; under
+        # DECODE_RULES the whole batch and the rank's block of the hidden
+        # dim
         rows_a = S // model if row["rules"] == "SEQPAR_RULES" else S
-        want = B // data * rows_a * D * 4
+        b_rank = B if decode2d else B // data
+        width = D // data if decode2d else D
+        want = b_rank * rows_a * width * 4
         kept = [r["cases"][i]["stream_bytes"] for r in ranks]
         if any(k != [want] for k in kept):
             raise AssertionError(f"phase 17{what} {row['shape']}: a layer's "
                                  f"input bytes per rank {kept}, want "
-                                 f"{want} (B {B // data} x S {rows_a} x D "
-                                 f"{D} x 4)")
+                                 f"{want} (B {b_rank} x S {rows_a} x D "
+                                 f"{width} x 4)")
+        if decode2d and (row["reshards"] or row["gathers"]["calls"]):
+            raise AssertionError(f"phase 17(f) {row['shape']}: weight "
+                                 f"blocks resharded {row['reshards']}, "
+                                 f"all-gathers {row['gathers']}: under "
+                                 f"DECODE_RULES no dense leaf moves")
         c, sq = row["collectives"], row["seq"]
         if row["rules"] == "SEQPAR_RULES" and not (
                 sq["reduce-scatter"]["calls"] and sq["all-gather"]["calls"]):
             raise AssertionError(f"phase 17(e) {row['shape']}: the "
                                  f"sequence's collectives {sq}")
         if (data, model) == (2, 2):
-            key = (cfg32.num_heads // 2, cfg32.num_kv_heads // 2, S, S,
-                   cfg32.resolved_head_dim)
-            total["k5_shapes"][key] = total["k5_shapes"].get(key, 0) + sum(
-                x["K5"] for x in n)
+            key = (b_rank, cfg32.num_heads // 2, cfg32.num_kv_heads // 2, S,
+                   S, cfg32.resolved_head_dim)
+            for name, k in (("k5_shapes", "K5"), ("k5b_shapes", "K5b")):
+                total[name][key] = total[name].get(key, 0) + sum(
+                    x[k] for x in n)
         print(f"phase 17{what} {cfg32.name} ({describe(cfg32)}; TF32 off) "
               f"over ({data}, {model}) {row['rules']}, 4 ranks on the one "
-              f"card: batch {B} x {S} ({B // data} x {S} a rank, "
+              f"card: batch {B} x {S} ({b_rank} x {S} a rank, "
               f"{cfg32.num_heads // model} heads and "
               f"{cfg32.num_kv_heads // model} kv heads a rank); a layer "
-              f"keeps {want} bytes of the stream a rank (B {B // data} x S "
-              f"{rows_a} x D {D} x 4, held); the mesh's gradient step ms per "
+              f"keeps {want} bytes of the stream a rank (B {b_rank} x S "
+              f"{rows_a} x D {width} x 4, held)"
+              + ("; no weight block resharded, no all-gather (held)"
+                 if decode2d else "")
+              + f"; the mesh's gradient step ms per "
               f"rank {[round(r['cases'][i]['ms'], 3) for r in ranks]} "
               f"(counted collectives synchronize the card); all its "
               f"collectives {c['calls']}, {c['bytes']} bytes, host ms "
@@ -5966,12 +6061,14 @@ def drive_mesh_train(dev, card, time_ms):
     ``mesh_grad_bf16``, ``mesh_train_dp``.  Returns the
     launches of K3, K4, K5, K5b, K8 and K8b in its mesh runs, summed over
     the ranks (each (a)/(b) case's ``argument_bytes`` under that key, and
-    K5's at (e)'s (2, 2) rank shape under ``k5_shapes``), and K3's
+    K5's and K5b's at (e)'s and (f)'s (2, 2) rank shapes, (B, H, KV, Sq,
+    Skv, D), under ``k5_shapes`` and ``k5b_shapes``), and K3's
     given-absmax entry."""
     from repro_torch.kernels import _build
     _build.build_all()
     total = dict.fromkeys(("K3", "K4", "K5", "K5b", "K8", "K8b"), 0)
     total["argument_bytes"], total["k5_shapes"] = [], {}
+    total["k5b_shapes"] = {}
     mesh_grad_fp32(dev, card, total)
     mesh_grad_tp(dev, card, total)
     k3_given = mesh_grad_bf16(dev, card, time_ms, total)
@@ -6508,8 +6605,9 @@ def main() -> int:
                              f"and the ViT {after} (want {want}), in all "
                              f"{launches} (want {want_all})")
 
-    def plain_k5(q, k, v, *, causal, window):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    def plain_k5(q, k, v, *, causal, window, **pos):
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     **pos)
 
     for ex, reqs in served:
         name = ex.pipeline.name
@@ -6652,8 +6750,14 @@ def main() -> int:
     k5b_entry.update(launches=k5b_entry["launches"] + mesh17["K5b"],
                      mesh_train_launches=mesh17["K5b"])
     for row in k5_qwen["rank_shapes"]:
-        b, h, kv, sq, skv, d = row["shape"][:6]
-        row["launches"] += mesh17["k5_shapes"].get((h, kv, sq, skv, d), 0)
+        # phase 17's launches by the rank's whole shape, its batch included
+        # ((e)'s and (f)'s (2, 2) ranks differ only there)
+        row["launches"] += mesh17["k5_shapes"].get(tuple(row["shape"][:6]),
+                                                   0)
+        if "k5b" in row:
+            row["k5b"]["launches"] = mesh17["k5b_shapes"].get(
+                tuple(row["shape"][:6]), 0)
+    k5b_entry["offsets"] = k5_qwen["offsets"]["k5b"]
     gc.collect()
     empty_host_cache()
     mark("18, ClusterSim and the dry run")

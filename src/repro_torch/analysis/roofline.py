@@ -153,13 +153,16 @@ def bound(nbytes, ops_, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attn_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
-    """The number of query-key pairs attention computes, both sequences
-    from position 0: key <= query where causal, query - key < window
-    where a window is set."""
-    q = np.arange(Sq, dtype=np.int64)
+def attn_pairs(Sq: int, Skv: int, causal: bool, window: int,
+               q_offset: int = 0, kv_len=None) -> int:
+    """The number of query-key pairs attention computes, query row i at
+    position i + ``q_offset`` and key j at j: key <= query where causal,
+    query - key < window where a window is set, key < ``kv_len`` where
+    given."""
+    q = np.arange(Sq, dtype=np.int64) + q_offset
     lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
-    hi = np.minimum(q, Skv - 1) if causal else np.full_like(q, Skv - 1)
+    last = Skv - 1 if kv_len is None else min(int(kv_len), Skv) - 1
+    hi = np.minimum(q, last) if causal else np.full_like(q, last)
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
@@ -211,21 +214,26 @@ def k4_bound(M, N, out_dtype=torch.float32):
     return bound(*k4_work(M, N, out_dtype), torch.float32)
 
 
-def k5_work(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv=None):
+def k5_work(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv=None,
+            q_offset=0, kv_len=None):
     """K5 at one shape (q/k head dim D, v's Dv, D where None): q, k, v read
     and o written in ``dtype``; two products over the pairs the masks
-    leave, S over D and P V over Dv."""
+    leave (``attn_pairs`` of ``q_offset`` and ``kv_len``), S over D and
+    P V over Dv."""
     Dv = Dv or D
     nbytes = (B * H * Sq + B * KV * Skv) * (D + Dv) * _esz(dtype)
-    return nbytes, 2 * B * H * (D + Dv) * attn_pairs(Sq, Skv, causal, window)
+    return nbytes, 2 * B * H * (D + Dv) * attn_pairs(Sq, Skv, causal, window,
+                                                     q_offset, kv_len)
 
 
-def k5_bound(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv=None):
-    return bound(*k5_work(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv),
-                 dtype)
+def k5_bound(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv=None,
+             q_offset=0, kv_len=None):
+    return bound(*k5_work(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv,
+                          q_offset, kv_len), dtype)
 
 
-def k5b_work(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv=None):
+def k5b_work(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv=None,
+             q_offset=0, kv_len=None):
     """K5b at one shape: q, k, v, o, dO read and dq, dk, dv written once in
     ``dtype``, the lse read in fp32; the least work is five products over
     the pairs the masks leave, S, dQ and dK over D, dP and dV over Dv (2.5
@@ -233,13 +241,14 @@ def k5b_work(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv=None):
     Dv = Dv or D
     nbytes = (_esz(dtype) * (2 * B * H * Sq + 2 * B * KV * Skv) * (D + Dv)
               + 4 * B * H * Sq)
-    pairs = attn_pairs(Sq, Skv, causal, window)
+    pairs = attn_pairs(Sq, Skv, causal, window, q_offset, kv_len)
     return nbytes, 2 * (3 * D + 2 * Dv) * B * H * pairs
 
 
-def k5b_bound(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv=None):
-    return bound(*k5b_work(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv),
-                 dtype)
+def k5b_bound(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv=None,
+              q_offset=0, kv_len=None):
+    return bound(*k5b_work(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv,
+                           q_offset, kv_len), dtype)
 
 
 def k6_bound(n, n_seg=0):

@@ -14,7 +14,6 @@ Rule sets:
                  the sequence between blocks
   DECODE_RULES : weights 2-D resident, the residual stream sharded over data
                  along the hidden dim, the token batch over pod alone
-                 (serving only: the train steps refuse it)
 
 A mesh is a ``torch.distributed.DeviceMesh`` over an initialised process
 group, or anything whose ``.shape`` is a ``{name: size}`` dict (the tests'

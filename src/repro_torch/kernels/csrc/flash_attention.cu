@@ -3,6 +3,15 @@
 // -> o (B,H,Sq,Dv), scores scaled by 1/sqrt(Dqk).  K5b, its backward, is the
 // second half of the file.
 //
+// Positions (the JAX package's _attn_block): query row i sits at i +
+// q_offset, key j at j, and only the keys below kv_len (the valid prefix of
+// a preallocated cache, one length for the batch) count.  A pair attends
+// where key <= query (causal), query - key < window (a window) and key <
+// kv_len.  kv_len comes as an int or as a pointer to an int64 on the card,
+// which every block reads itself (no copy to the host); it is clamped to
+// [0, Skv].  Every tile range and mask below is of these positions; with
+// q_offset 0 and kv_len Skv they are the unshifted ones.
+//
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention
 // (_flash_kernel), the Pallas TPU kernel whose grid (B*H, Sq/bq, Skv/bk)
 // carries m, l and acc in VMEM scratch across the sequential KV dimension.
@@ -92,10 +101,34 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// The valid keys: *kv_len_p (on the card) where given, else kv_len, in
+// [0, Skv].
+__device__ __forceinline__ int valid_keys(const long long* kv_len_p,
+                                          int kv_len, int Skv) {
+  if (kv_len_p == nullptr) return kv_len;
+  const long long n = __ldg(kv_len_p);
+  return n < 0 ? 0 : (n > Skv ? Skv : static_cast<int>(n));
+}
+
+// A query at position qa sees no key: none lies below kvl, or (a window)
+// every one that does lies a window or more before it.
+__device__ __forceinline__ bool row_dead(int qa, int kvl, int window) {
+  return kvl <= 0 || (window && qa >= kvl + window - 1);
+}
+
+// The pair (query at position qa, key kpos) is masked.
+__device__ __forceinline__ bool pair_masked(int qa, int kpos, int kvl,
+                                            int causal, int window) {
+  return (causal && kpos > qa) || (window && qa - kpos >= window) ||
+         kpos >= kvl;
+}
+
 // Query tile `qi` of `nq` (counted from the last tile under causal masking,
 // so that the tiles with the most keys go out first) of head bh, [q0, q0 +
-// BQ), and the key range [k_lo, k_hi) it walks; `full` when it holds a row
-// that sees no key, which walks every key, masked.
+// BQ), and the key range [k_lo, k_hi) it walks (up to kvl, the valid
+// keys); `full` when it holds a row that sees no key, which walks every
+// key, masked.  A row that sees none is a suffix of the rows: the last
+// row's test decides.
 struct TileRange {
   int bh, q0, k_lo, k_hi;
   bool full;
@@ -103,24 +136,25 @@ struct TileRange {
 
 __device__ __forceinline__ TileRange tile_range(int qi, int nq, int bh,
                                                 int BQ, int Sq, int Skv,
-                                                int causal, int window) {
+                                                int causal, int window,
+                                                int q_off, int kvl) {
   TileRange t;
   t.bh = bh;
   t.q0 = (causal ? nq - 1 - qi : qi) * BQ;
-  const int q_last = min(t.q0 + BQ, Sq) - 1;
-  t.full = window && q_last >= Skv + window - 1;
-  t.k_lo = (window && !t.full) ? max(0, t.q0 - window + 1) : 0;
-  t.k_hi = (causal && !t.full) ? min(Skv, q_last + 1) : Skv;
+  const int q_last = min(t.q0 + BQ, Sq) - 1 + q_off;
+  t.full = row_dead(q_last, kvl, window);
+  t.k_lo = (window && !t.full) ? max(0, t.q0 + q_off - window + 1) : 0;
+  t.k_hi = t.full ? Skv : (causal ? min(kvl, q_last + 1) : kvl);
   return t;
 }
 
-// True when keys [k0, k0 + BK) need per-element masking for query rows
-// [q_first, q_last]: they cross the causal diagonal, the window's edge or
-// the end of the keys.
+// True when keys [k0, k0 + BK) need per-element masking for queries at
+// positions [q_first, q_last]: they cross the causal diagonal, the
+// window's edge or the end of the valid keys.
 __device__ __forceinline__ bool tile_masked(int k0, int BK, int q_first,
-                                            int q_last, int Skv, int causal,
+                                            int q_last, int kvl, int causal,
                                             int window, bool full) {
-  return full || k0 + BK > Skv || (causal && k0 + BK - 1 > q_first) ||
+  return full || k0 + BK > kvl || (causal && k0 + BK - 1 > q_first) ||
          (window && q_last - k0 >= window);
 }
 
@@ -147,17 +181,19 @@ __global__ void __launch_bounds__(F32_BQ * LANES)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int H, int KV, int Sq, int Skv,
-                 float scale, int causal, int window) {
+                 float scale, int causal, int window, int q_off, int kv_len,
+                 const long long* __restrict__ kv_len_p) {
   constexpr int DP = DQK / LANES;   // q.k columns a lane
   constexpr int VP = DV / LANES;    // o columns a lane
   static_assert(DQK % LANES == 0 && DV % LANES == 0, "whole columns a lane");
   constexpr int THREADS = F32_BQ * LANES;
   __shared__ float ks[BKV][DQK];
   __shared__ float vs[BKV][DV];
+  const int kvl = valid_keys(kv_len_p, kv_len, Skv);
   int bh = blockIdx.y, q0 = blockIdx.x * F32_BQ, k_lo = 0, k_hi = Skv;
   if constexpr (SKIP) {
     const TileRange t = tile_range(blockIdx.y, gridDim.y, blockIdx.x, F32_BQ,
-                                   Sq, Skv, causal, window);
+                                   Sq, Skv, causal, window, q_off, kvl);
     bh = t.bh;
     q0 = t.q0;
     k_lo = t.k_lo / BKV * BKV;
@@ -169,7 +205,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = bh / H;
   const int kvh = (bh % H) / (H / KV);
   const int qpos = q0 + row;
-  const size_t q_off = ((size_t)bh * Sq + qpos) * DQK;
+  const size_t q_at = ((size_t)bh * Sq + qpos) * DQK;
   const size_t o_off = ((size_t)bh * Sq + qpos) * DV;
   const size_t k_base = ((size_t)b * KV + kvh) * Skv * DQK;
   const size_t v_base = ((size_t)b * KV + kvh) * Skv * DV;
@@ -177,7 +213,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float qr[DP], acc[VP];
 #pragma unroll
   for (int i = 0; i < DP; ++i)
-    qr[i] = qpos < Sq ? q[q_off + lane + LANES * i] : 0.0f;
+    qr[i] = qpos < Sq ? q[q_at + lane + LANES * i] : 0.0f;
 #pragma unroll
   for (int i = 0; i < VP; ++i) acc[i] = 0.0f;
   float m = NEG_INF, l = 0.0f;
@@ -205,8 +241,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         part += __shfl_xor_sync(0xffffffffu, part, off);
       const int kpos = k0 + j;
       float sj = part * scale;
-      if ((causal && kpos > qpos) || (window && qpos - kpos >= window))
-        sj = NEG_INF;
+      if (pair_masked(qpos + q_off, kpos, kvl, causal, window)) sj = NEG_INF;
       if (kpos >= Skv) sj = -INFINITY;  // past the end: weight exactly 0
       s[j] = sj;
       tile_max = fmaxf(tile_max, sj);
@@ -242,20 +277,25 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int DQK, int DV, int LANES = 4, int BKV = 32>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int H, int KV, int Sq, int Skv, float scale,
-               int causal, int window, cudaStream_t stream) {
+               int causal, int window, int q_off, int kv_len,
+               const long long* kv_len_p, cudaStream_t stream) {
   const int nq = (Sq + F32_BQ - 1) / F32_BQ;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(o);
-  if (causal || window)
+  // a valid prefix shorter than the keys (or one read on the card) skips
+  // as the masks do
+  if (causal || window || kv_len < Skv || kv_len_p)
     flash_f32_kernel<DQK, DV, LANES, BKV, true>
         <<<dim3(B * H, nq), F32_BQ * LANES, 0, stream>>>(
-        qf, kf, vf, of, lse, H, KV, Sq, Skv, scale, causal, window);
+        qf, kf, vf, of, lse, H, KV, Sq, Skv, scale, causal, window, q_off,
+        kv_len, kv_len_p);
   else
     flash_f32_kernel<DQK, DV, LANES, BKV, false>
         <<<dim3(nq, B * H), F32_BQ * LANES, 0, stream>>>(
-        qf, kf, vf, of, lse, H, KV, Sq, Skv, scale, causal, window);
+        qf, kf, vf, of, lse, H, KV, Sq, Skv, scale, causal, window, q_off,
+        kv_len, kv_len_p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -498,7 +538,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                   int B, int H, int KV, int Sq, int Skv, float scale_log2,
-                  int causal, int window) {
+                  int causal, int window, int q_off, int kv_len,
+                  const long long* __restrict__ kv_len_p) {
   constexpr int NDQ = col_blocks(DQK);     // 64-column blocks of q and k
   constexpr int NDV = col_blocks(DV);      // of v and o
   static_assert(DQK % 16 == 0 && DV % 16 == 0 && NDV <= NDQ,
@@ -513,8 +554,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   // Grid (B*H, query tiles): every head's tile qi goes out before any
   // head's tile qi + 1, the heaviest first under causal masking.
+  const int kvl = valid_keys(kv_len_p, kv_len, Skv);
   const TileRange t = tile_range(blockIdx.y, gridDim.y, blockIdx.x, BQ, Sq,
-                                 Skv, causal, window);
+                                 Skv, causal, window, q_off, kvl);
   const int b = t.bh / H;
   const int kvh = (t.bh % H) / (H / KV);
   const __nv_bfloat16* qg = q + (size_t)t.bh * Sq * DQK;
@@ -588,15 +630,15 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     // with c = log2(e) / sqrt(DQK), one FFMA and one ex2 an element where no
     // score is masked.
     const int k0 = j * BK;
-    const bool masked = tile_masked(k0, BK, wq0, wq0 + 63, Skv, causal,
-                                    window, t.full);
+    const bool masked = tile_masked(k0, BK, wq0 + q_off, wq0 + 63 + q_off,
+                                    kvl, causal, window, t.full);
     float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int r = (i / 2) % 2;
       if (masked) {
         const int kpos = k0 + 8 * (i / 4) + col0 + (i % 2);
-        if ((causal && kpos > qpos[r]) || (window && qpos[r] - kpos >= window))
+        if (pair_masked(qpos[r] + q_off, kpos, kvl, causal, window))
           s[i] = NEG_INF;
         if (kpos >= Skv) s[i] = -INFINITY;  // past the end: weight exactly 0
       }
@@ -707,7 +749,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 template <int DQK, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int H, int KV, int Sq, int Skv, float scale,
-                int causal, int window, cudaStream_t stream) {
+                int causal, int window, int q_off, int kv_len,
+                const long long* kv_len_p, cudaStream_t stream) {
   constexpr int smem = bf16_smem_bytes<DQK, DV>();
   static bool configured = false;  // once per head-dim pair and process
   if (!configured) {
@@ -721,7 +764,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   flash_bf16_kernel<DQK, DV><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
-      B, H, KV, Sq, Skv, scale * LOG2E, causal, window);
+      B, H, KV, Sq, Skv, scale * LOG2E, causal, window, q_off, kv_len,
+      kv_len_p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -768,6 +812,8 @@ struct BwdArgs {
   int H, KV, Sq, Skv;
   float scale;
   int causal, window;
+  int q_off, kv_len;              // the positions' shift, the valid keys
+  const long long* kv_len_p;      // the valid keys on the card, or null
 };
 
 // Delta = rowsum(dO o O) over the Dv columns of O and dO in fp32, a warp a
@@ -788,15 +834,27 @@ flash_bwd_delta_kernel(const E* __restrict__ o, const E* __restrict__ dout,
   if (lane == 0) delta[row] = sum;
 }
 
-// The query rows [q_lo, q_hi) that see any of keys [k0, k0 + BK): causal
-// rows from k0 on, with a window those before k0 + BK - 1 + window; every
-// row to Sq where rows that see no key exist (Sq >= Skv + window), since
-// they weigh every key.
-__device__ __forceinline__ void query_range(int k0, int BK, int Sq, int Skv,
-                                            int causal, int window, int& q_lo,
-                                            int& q_hi) {
-  q_lo = causal ? k0 : 0;
-  q_hi = (window && Sq < Skv + window) ? min(Sq, k0 + BK - 1 + window) : Sq;
+// The query rows [q_lo, q_hi) that see any of keys [k0, k0 + BK) below
+// the kvl valid keys, a row i at position i + q_off: causal rows from k0 -
+// q_off on, with a window those before k0 + BK - 1 + window - q_off; and
+// from the first row that sees no key on (row_dead), every row to Sq,
+// since such rows weigh every key
+// (kernels/flash_attention.py::bwd_query_tiles in 64-row tiles).
+__device__ __forceinline__ void query_range(int k0, int BK, int Sq, int causal,
+                                            int window, int q_off, int kvl,
+                                            int& q_lo, int& q_hi) {
+  q_lo = Sq;
+  q_hi = 0;
+  if (k0 < kvl) {
+    q_lo = causal ? max(0, k0 - q_off) : 0;
+    q_hi = window ? min(Sq, k0 + BK - 1 + window - q_off) : Sq;
+  }
+  const int dead = kvl <= 0 ? 0
+                   : (window ? max(0, kvl + window - 1 - q_off) : Sq);
+  if (dead < Sq) {
+    q_lo = q_hi <= q_lo ? dead : min(q_lo, dead);
+    q_hi = Sq;
+  }
 }
 
 // P and dS * scale of one (query, key) pair from the recomputed score s (in
@@ -804,15 +862,16 @@ __device__ __forceinline__ void query_range(int k0, int BK, int Sq, int Skv,
 // -inf for a row that saw no key.
 __device__ __forceinline__ void pair_grads(float s, float dp, int qi, int kj,
                                            float l2, float delta,
-                                           const BwdArgs& a, float scale_log2,
-                                           float inv_skv, float& p, float& ds) {
+                                           const BwdArgs& a, int kvl,
+                                           float scale_log2, float inv_skv,
+                                           float& p, float& ds) {
   const bool valid = qi < a.Sq && kj < a.Skv;
   p = 0.0f;
   ds = 0.0f;
   if (l2 == -INFINITY) {
     p = valid ? inv_skv : 0.0f;
-  } else if (valid && !(a.causal && kj > qi) &&
-             !(a.window && qi - kj >= a.window)) {
+  } else if (valid &&
+             !pair_masked(qi + a.q_off, kj, kvl, a.causal, a.window)) {
     p = exp2f(fmaf(s, scale_log2, -l2));
     ds = p * (dp - delta) * a.scale;
   }
@@ -950,23 +1009,32 @@ __device__ __forceinline__ void bar_wait(int id) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
 }
 
-// True when no pair of keys [k0, k0 + 64) and queries [q0, q0 + 64) is
-// kept: the tile lies past either sequence's end, above the causal
-// diagonal or beyond the window.
-__device__ __forceinline__ bool pair_tile_empty(int k0, int q0,
-                                                const BwdArgs& a) {
-  return k0 >= a.Skv || q0 >= a.Sq || (a.causal && k0 > q0 + 63) ||
-         (a.window && q0 - k0 - 63 >= a.window);
+// True when query rows [q0, q0 + 64) hold one that sees no key (the
+// last row's test decides: such rows are a suffix).
+__device__ __forceinline__ bool tile_dead_rows(int q0, const BwdArgs& a,
+                                               int kvl) {
+  return row_dead(q0 + 63 + a.q_off, kvl, a.window);
 }
 
-// True when keys [k0, k0 + 64) and queries [q0, q0 + 64) need per-pair
-// masking: the tile crosses the causal diagonal or the window's edge, runs
-// past Skv or Sq, or holds a query row that sees no key.
+// True when no pair of keys [k0, k0 + 64) and query rows [q0, q0 + 64) is
+// kept: the tile lies past the query rows' end or the valid keys, above
+// the shifted causal diagonal or beyond the window.
+__device__ __forceinline__ bool pair_tile_empty(int k0, int q0,
+                                                const BwdArgs& a, int kvl) {
+  return k0 >= kvl || q0 >= a.Sq || (a.causal && k0 > q0 + 63 + a.q_off) ||
+         (a.window && q0 + a.q_off - k0 - 63 >= a.window);
+}
+
+// True when keys [k0, k0 + 64) and query rows [q0, q0 + 64) need per-pair
+// masking: the tile crosses the shifted causal diagonal or the window's
+// edge, runs past the valid keys or Sq, or holds a query row that sees no
+// key.
 __device__ __forceinline__ bool pair_tile_masked(int k0, int q0,
-                                                 const BwdArgs& a) {
-  return k0 + 64 > a.Skv || q0 + 64 > a.Sq || (a.causal && k0 + 63 > q0) ||
-         (a.window &&
-          (q0 + 63 - k0 >= a.window || q0 + 63 >= a.Skv + a.window - 1));
+                                                 const BwdArgs& a, int kvl) {
+  return k0 + 64 > kvl || q0 + 64 > a.Sq ||
+         (a.causal && k0 + 63 > q0 + a.q_off) ||
+         (a.window && q0 + 63 + a.q_off - k0 >= a.window) ||
+         tile_dead_rows(q0, a, kvl);
 }
 
 template <int DQK, int DV, bool KVM>
@@ -1011,6 +1079,7 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
   const int G = a.H / a.KV;
   const float scale_log2 = a.scale * LOG2E;
   const float inv_skv = 1.0f / a.Skv;
+  const int kvl = valid_keys(a.kv_len_p, a.kv_len, a.Skv);
   const bf16* const Q = static_cast<const bf16*>(a.q);
   const bf16* const K = static_cast<const bf16*>(a.k);
   const bf16* const V = static_cast<const bf16*>(a.v);
@@ -1031,7 +1100,8 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
     // the most query rows), else the last (a window leaves them the most)
     own0 = (a.causal ? blockIdx.z : gridDim.z - 1 - blockIdx.z) * ROWS;
     int q_lo, q_hi;
-    query_range(own0, ROWS, a.Sq, a.Skv, a.causal, a.window, q_lo, q_hi);
+    query_range(own0, ROWS, a.Sq, a.causal, a.window, a.q_off, kvl, q_lo,
+                q_hi);
     qt_lo = q_lo / 64;
     nqt = q_hi > q_lo ? (q_hi + 63) / 64 - qt_lo : 0;
     const int heads = rank < G ? (G - rank + R - 1) / R : 0;
@@ -1042,7 +1112,8 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
                          a.Skv, DV);
   } else {
     const TileRange tr = tile_range(blockIdx.y, gridDim.y, blockIdx.x, ROWS,
-                                    a.Sq, a.Skv, a.causal, a.window);
+                                    a.Sq, a.Skv, a.causal, a.window, a.q_off,
+                                    kvl);
     bh_own = tr.bh;
     b = tr.bh / a.H;
     kvh = (tr.bh % a.H) / G;
@@ -1177,8 +1248,7 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
 
       // rows in the tile that see no key (lse NEG_INF): weights 1 / Skv on
       // every key, no gradient to Q or K
-      const bool dead_rows =
-          MASKED && a.window && q0 + 63 >= a.Skv + a.window - 1;
+      const bool dead_rows = MASKED && tile_dead_rows(q0, a, kvl);
       const float* const lse_s = rows_s + st * 128;
       // P = exp(S - lse), in x (SOLO, or warpgroup 0)
       auto form_p = [&]() {
@@ -1198,8 +1268,9 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
           if constexpr (MASKED) {
             const int qi = KVM ? q0 + c : q0 + r, kj = KVM ? k0 + r : k0 + c;
             const bool valid = qi < a.Sq && kj < a.Skv;
-            const bool keep = valid && !(a.causal && kj > qi) &&
-                              !(a.window && qi - kj >= a.window);
+            const bool keep =
+                valid && !pair_masked(qi + a.q_off, kj, kvl, a.causal,
+                                      a.window);
             p = keep ? p : 0.0f;
             if (dead_rows && l2 == -INFINITY) p = valid ? inv_skv : 0.0f;
           }
@@ -1299,10 +1370,10 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
     };
     // a warpgroup whose 64 rows keep no pair of the tile skips it, unless
     // a row there sees no key
-    if (!pair_tile_masked(k0, q0, a))
+    if (!pair_tile_masked(k0, q0, a, kvl))
       step(std::false_type{});
-    else if (!SOLO || !pair_tile_empty(k0, q0, a) ||
-             (a.window && q0 + 63 >= a.Skv + a.window - 1))
+    else if (!SOLO || !pair_tile_empty(k0, q0, a, kvl) ||
+             tile_dead_rows(q0, a, kvl))
       step(std::true_type{});
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -1431,6 +1502,7 @@ flash_bwd_f32_kernel(const BwdArgs a) {
   const int G = a.H / a.KV;
   const float scale_log2 = a.scale * LOG2E;
   const float inv_skv = 1.0f / a.Skv;
+  const int kvl = valid_keys(a.kv_len_p, a.kv_len, a.Skv);
   int b, kvh, own0, bh_own = 0;
   TileRange t{};
   const float* own1g;
@@ -1445,7 +1517,7 @@ flash_bwd_f32_kernel(const BwdArgs a) {
     own_valid = a.Skv;
   } else {
     t = tile_range(blockIdx.y, gridDim.y, blockIdx.x, F_BO, a.Sq, a.Skv,
-                   a.causal, a.window);
+                   a.causal, a.window, a.q_off, kvl);
     bh_own = t.bh;
     b = t.bh / a.H;
     kvh = (t.bh % a.H) / G;
@@ -1524,7 +1596,7 @@ flash_bwd_f32_kernel(const BwdArgs a) {
       const int qi = KVM ? o0 + lane : own0 + r;
       const int kj = KVM ? own0 + r : o0 + lane;
       float p, ds;
-      pair_grads(sv[i], dpv[i], qi, kj, lse_s[qloc], delta_s[qloc], a,
+      pair_grads(sv[i], dpv[i], qi, kj, lse_s[qloc], delta_s[qloc], a, kvl,
                  scale_log2, inv_skv, p, ds);
       ps[r * PS + lane] = p;
       dss[r * PS + lane] = ds;
@@ -1552,7 +1624,8 @@ flash_bwd_f32_kernel(const BwdArgs a) {
 
   if constexpr (KVM) {
     int q_lo, q_hi;
-    query_range(own0, F_BO, a.Sq, a.Skv, a.causal, a.window, q_lo, q_hi);
+    query_range(own0, F_BO, a.Sq, a.causal, a.window, a.q_off, kvl, q_lo,
+                q_hi);
     for (int g = 0; g < G; ++g)
       for (int o0 = q_lo / F_BT * F_BT; o0 < q_hi; o0 += F_BT)
         step(b * a.H + kvh * G + g, o0);
@@ -1657,14 +1730,19 @@ int launch_bwd(const BwdArgs& a, const void* o, float* delta, int B,
 // contiguous of dtype (fp32 or bf16) and 16-byte aligned; (D, Dv) one of the
 // pairs below (kernels/flash_attention.py::HEAD_DIM_PAIRS); H a multiple of
 // KV.  `lse`, fp32 (B,H,Sq), receives each row's m + log l (row_lse) where
-// it is not null.  Launches on `stream` and returns cudaGetLastError().
+// it is not null.  q_offset >= 0 shifts the queries' positions; kv_len in
+// [0, Skv] counts the valid keys, or kv_len_p, where not null, points to
+// an int64 on the card that every block reads in its place.  Launches on
+// `stream` and returns cudaGetLastError().
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, float* lse, int B, int H, int KV,
                                int Sq, int Skv, int D, int Dv, float scale,
-                               int causal, int window, int dtype,
-                               void* stream) {
+                               int causal, int window, int q_offset,
+                               int kv_len, const long long* kv_len_p,
+                               int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ARGS q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal, window, s
+#define ARGS q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal, window, \
+             q_offset, kv_len, kv_len_p, s
 #define PAIR(a, b) ((a) * 1024 + (b))
   if (dtype == DTYPE_F32) {
     switch (PAIR(D, Dv)) {
@@ -1699,21 +1777,23 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
 // HEAD_DIM_PAIRS), any other refused; lse fp32 (B,H,Sq) as flash_attention
 // wrote it for these inputs; delta fp32 (B,H,Sq) scratch; `cluster` (1..8)
 // the ranks that split a KV head's query heads in the bf16 dK/dV pass, as
-// kernels/flash_attention.py::bwd_plan gives it.  dq, dk and dv are written
-// whole (zeros where no pair reaches them).  Launches two kernels (bf16) or
+// kernels/flash_attention.py::bwd_plan gives it; q_offset, kv_len and
+// kv_len_p as flash_attention took them.  dq, dk and dv are written whole
+// (zeros where no pair reaches them).  Launches two kernels (bf16) or
 // three (fp32) on `stream` and returns cudaGetLastError().
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const float* lse,
                                    const void* dout, float* delta, void* dq,
                                    void* dk, void* dv, int B, int H, int KV,
                                    int Sq, int Skv, int D, int Dv, float scale,
-                                   int causal, int window, int cluster,
-                                   int dtype, void* stream) {
+                                   int causal, int window, int q_offset,
+                                   int kv_len, const long long* kv_len_p,
+                                   int cluster, int dtype, void* stream) {
   if (cluster < 1 || cluster > MAX_CLUSTER)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BwdArgs a{q, k, v, dout, o, lse, delta, dq, dk, dv, H, KV, Sq, Skv,
-                  scale, causal, window};
+                  scale, causal, window, q_offset, kv_len, kv_len_p};
 #define ARGS a, o, delta, B, cluster, s
   if (dtype == DTYPE_F32) {
     switch (PAIR(D, Dv)) {

@@ -25,10 +25,21 @@ The TPU side has no such
 kernel: the JAX package differentiates ``models/layers.py::
 blocked_attention`` by autodiff.  ``flash_attention_bwd_plain`` is the same
 arithmetic in fp32 PyTorch, and ``FlashAttention`` the autograd function
-that runs K5 and K5b on the card and the plain versions on the CPU.  A row
-that sees no key (rows at or past Skv + window - 1 with a window) has the
-log-sum-exp NEG_INF: its weights are 1 / Skv on every key, as the forward
-gives it the mean of V, and its scores, the constant mask value, pass no
+that runs K5 and K5b on the card and the plain versions on the CPU.
+
+Every form takes JAX's ``_attn_block`` positions: ``q_offset`` (an int
+>= 0) puts query row i at position i + q_offset against key j at j, and
+``kv_len`` (None, an int, or a 0-d integer tensor: one valid-prefix
+length shared by the batch) keeps the keys below it.  A pair attends
+where ``kpos <= qpos + q_offset`` (causal), ``qpos + q_offset - kpos <
+window`` (a window) and ``kpos < kv_len``; the kernels walk only the key
+tiles (and K5b's dK/dV pass the query tiles) that the shifted diagonal,
+the window and the valid prefix leave.  A ``kv_len`` tensor on the card
+is read by the kernels themselves, with no copy to the host.  A row that
+sees no key (no key below kv_len, or with a window every key below it
+too far back) has the log-sum-exp NEG_INF: its weights are 1 / Skv on
+every key, as the forward gives it the mean of V (JAX's softmax of a row
+all at the mask value), and its scores, the constant mask value, pass no
 gradient to Q or K.
 """
 from __future__ import annotations
@@ -56,32 +67,67 @@ MAX_CLUSTER = 8
 SMS = 132
 
 
-def _mask(Sq: int, Skv: int, causal: bool, window: int, device
-          ) -> torch.Tensor:
-    """(Sq, Skv) bool: the pairs that attend (both sequences from 0)."""
-    qpos = torch.arange(Sq, device=device)[:, None]
+def _mask(Sq: int, Skv: int, causal: bool, window: int, device,
+          q_offset: int = 0, kv_len=None) -> torch.Tensor:
+    """(Sq, Skv) bool: the pairs that attend, query row i at position
+    i + ``q_offset``, key j at j, the keys below ``kv_len`` (None: all)."""
+    qpos = torch.arange(Sq, device=device)[:, None] + q_offset
     kpos = torch.arange(Skv, device=device)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
     if causal:
         mask &= kpos <= qpos
     if window:
         mask &= (qpos - kpos) < window
+    if kv_len is not None:
+        mask &= kpos < (kv_len.to(device) if isinstance(kv_len, torch.Tensor)
+                        else kv_len)
     return mask
+
+
+def check_offset(kernel: str, q_offset) -> int:
+    """``q_offset`` as an int >= 0 (a 0-d tensor read once)."""
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"{kernel}: q_offset {q_offset}, want >= 0")
+    return q_offset
+
+
+def kv_len_value(kv_len, Skv: int):
+    """The number of valid keys ``kv_len`` leaves of ``Skv`` where the host
+    knows it (None, an int, a tensor on the CPU), clamped to [0, Skv];
+    None for a tensor on a card, which the kernels read themselves."""
+    if isinstance(kv_len, torch.Tensor):
+        if kv_len.device.type != "cpu":
+            return None
+        kv_len = int(kv_len)
+    return Skv if kv_len is None else max(0, min(int(kv_len), Skv))
+
+
+def _kv_len_args(kv_len, Skv: int, device):
+    """(the valid-prefix length the kernels take, the 0-d int64 tensor on
+    the card they read in its place, or None)."""
+    if isinstance(kv_len, torch.Tensor) and kv_len.device.type != "cpu":
+        if kv_len.numel() != 1 or kv_len.is_floating_point():
+            raise ValueError(f"kv_len: a one-element integer tensor, got "
+                             f"{tuple(kv_len.shape)} {kv_len.dtype}")
+        return Skv, kv_len.reshape(()).to(device=device, dtype=torch.int64)
+    return kv_len_value(kv_len, Skv), None
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
-                          return_lse: bool = False):
+                          return_lse: bool = False, q_offset: int = 0,
+                          kv_len=None):
     """q (B,H,Sq,D); k (B,KV,Skv,D); v (B,KV,Skv,Dv) -- dense masked
-    softmax of the scores scaled by 1 / sqrt(D) -> (B,H,Sq,Dv).  With
-    ``return_lse`` also each row's log-sum-exp of its scaled, masked
-    scores, fp32 (B,H,Sq)."""
+    softmax of the scores scaled by 1 / sqrt(D) -> (B,H,Sq,Dv), the mask
+    ``_mask``'s.  With ``return_lse`` also each row's log-sum-exp of its
+    scaled, masked scores, fp32 (B,H,Sq)."""
     B, H, Sq, D = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     G = H // KV
     qg = q.reshape(B, KV, G, Sq, D).float()
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) / math.sqrt(D)
-    mask = _mask(Sq, Skv, causal, window, q.device)
+    mask = _mask(Sq, Skv, causal, window, q.device, q_offset, kv_len)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", w, v.float())
@@ -92,7 +138,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
-                              window: int = 0):
+                              window: int = 0, q_offset: int = 0,
+                              kv_len=None):
     """K5b's arithmetic in fp32 PyTorch: (dQ, dK, dV) in the inputs'
     dtypes from the forward's output ``o`` and log-sum-exp ``lse`` (B,H,Sq)
     and the output's cotangent ``do`` (both (B,H,Sq,Dv)).  P = exp(S - lse) where the mask
@@ -109,7 +156,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     dog = do.reshape(B, KV, G, Sq, Dv).float()
     og = o.reshape(B, KV, G, Sq, Dv).float()
     kf, vf = k.float(), v.float()
-    mask = _mask(Sq, Skv, causal, window, q.device)
+    mask = _mask(Sq, Skv, causal, window, q.device, q_offset, kv_len)
     dead = (lse.reshape(B, KV, G, Sq, 1) == NEG_INF)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, kf) * scale
     p = torch.where(mask, torch.exp(s - lse.reshape(B, KV, G, Sq, 1)), 0.0)
@@ -131,15 +178,27 @@ def bwd_rows(D: int) -> int:
 
 
 def bwd_query_tiles(kt: int, Sq: int, Skv: int, causal: bool, window: int,
-                    rows: int = BWD_TILE) -> range:
+                    rows: int = BWD_TILE, q_offset: int = 0,
+                    kv_len=None) -> range:
     """The 64-row query tiles K5b's dK/dV pass walks for the key tile
-    ``kt`` of ``rows`` keys: the rows that see any of its keys (causal rows
-    from its first key on, with a window those before its last key +
-    window), every row where some row sees no key (it weighs every key)."""
+    ``kt`` of ``rows`` keys (``csrc/flash_attention.cu``'s
+    ``query_range``): the rows that see any of its keys below the valid
+    prefix (causal rows from its first key less ``q_offset`` on, with a
+    window those before its last key + window less ``q_offset``), and
+    from the first row that sees no key on, every row to Sq (such a row
+    weighs every key).  ``kv_len`` as ``kv_len_value`` reads it (None:
+    every key valid)."""
     k0 = kt * rows
-    q_lo = k0 if causal else 0
-    q_hi = (min(Sq, k0 + rows - 1 + window)
-            if window and Sq < Skv + window else Sq)
+    kvl = Skv if kv_len is None else kv_len
+    q_lo, q_hi = Sq, 0
+    if k0 < kvl:
+        q_lo = max(0, k0 - q_offset) if causal else 0
+        q_hi = (min(Sq, k0 + rows - 1 + window - q_offset) if window
+                else Sq)
+    dead = (0 if kvl <= 0 else
+            max(0, kvl + window - 1 - q_offset) if window else Sq)
+    if dead < Sq:
+        q_lo, q_hi = (dead if q_hi <= q_lo else min(q_lo, dead)), Sq
     if q_hi <= q_lo:
         return range(0)
     return range(q_lo // BWD_TILE, -(-q_hi // BWD_TILE))
@@ -148,7 +207,8 @@ def bwd_query_tiles(kt: int, Sq: int, Skv: int, causal: bool, window: int,
 @functools.lru_cache(maxsize=256)
 def bwd_plan(B: int, H: int, KV: int, Sq: int, Skv: int, D: int,
              causal: bool = True, window: int = 0, sms: int = SMS,
-             cluster: int = 0) -> dict:
+             cluster: int = 0, q_offset: int = 0,
+             kv_len: int = None) -> dict:
     """K5b's bf16 dK/dV pass at these shapes (D q/k's head dim): the
     ``cluster`` of R ranks
     that split each KV head's G = H / KV query heads (rank r takes
@@ -158,13 +218,16 @@ def bwd_plan(B: int, H: int, KV: int, Sq: int, Skv: int, D: int,
     and walks its heads' query tiles; R is ``cluster`` where given, else
     the smallest that brings the longest such walk down to the card's
     share of all of them (``sms`` blocks at once), or as near as R <=
-    min(8, G) comes."""
+    min(8, G) comes.  ``q_offset`` and ``kv_len`` (an int, or None: every
+    key valid, as where the kernel reads a card tensor's) as
+    ``bwd_query_tiles`` takes them."""
     G = H // KV
     rows = bwd_rows(D)
     nk = -(-Skv // rows)
-    tiles = tuple(tuple(bwd_query_tiles(kt, Sq, Skv, causal, window, rows))
+    tiles = tuple(tuple(bwd_query_tiles(kt, Sq, Skv, causal, window, rows,
+                                        q_offset, kv_len))
                   for kt in range(nk))
-    longest = max(map(len, tiles))
+    longest = max(map(len, tiles), default=0)
     share = B * KV * G * sum(map(len, tiles)) / sms
     if not 0 <= cluster <= MAX_CLUSTER:
         raise ValueError(f"bwd_plan: cluster {cluster}, want 1..{MAX_CLUSTER}")
@@ -183,11 +246,13 @@ def _lib() -> ctypes.CDLL:
     if lib.flash_attention.argtypes is None:
         lib.flash_attention.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_void_p])
         lib.flash_attention.restype = ctypes.c_int
         lib.flash_attention_bwd.argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float]
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 2
+            + [ctypes.c_void_p])
         lib.flash_attention_bwd.restype = ctypes.c_int
     return lib
 
@@ -229,17 +294,23 @@ def _aligned(*tensors):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    return_lse: bool = False):
+                    return_lse: bool = False, q_offset: int = 0,
+                    kv_len=None):
     """q (B, H, Sq, D); k (B, KV, Skv, D); v (B, KV, Skv, Dv) -> (B, H, Sq,
     Dv), on the card; with ``return_lse`` also each row's log-sum-exp, fp32
-    (B, H, Sq), which ``flash_attention_bwd`` reads."""
+    (B, H, Sq), which ``flash_attention_bwd`` reads.  ``q_offset`` and
+    ``kv_len`` place the queries and bound the keys (the module's
+    docstring)."""
     _check_qkv("flash_attention", q, k, v)
-    if shape_only.is_fake(q, k, v):
-        out, lse = torch.ops.repro_torch.flash_attention(q, k, v, causal,
-                                                         window, return_lse)
-        return (out, lse) if return_lse else out
+    q_offset = check_offset("flash_attention", q_offset)
     B, H, Sq, D = q.shape
     KV, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    kvl, kvl_t = _kv_len_args(kv_len, Skv, q.device)
+    if shape_only.is_fake(q, k, v):
+        # a kv_len tensor the host cannot read counts every key
+        out, lse = torch.ops.repro_torch.flash_attention(
+            q, k, v, causal, window, return_lse, q_offset, kvl)
+        return (out, lse) if return_lse else out
     _build.require_cuda("flash_attention", q, k, v)
     q, k, v = _aligned(q, k, v)
     out = q.new_empty((B, H, Sq, Dv))
@@ -252,7 +323,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         code = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), B, H, KV, Sq, Skv, D,
-            Dv, 1.0 / math.sqrt(D), int(causal), int(window),
+            Dv, 1.0 / math.sqrt(D), int(causal), int(window), q_offset,
+            kvl, None if kvl_t is None else kvl_t.data_ptr(),
             _build.dtype_code(q.dtype), _build.stream_of(q))
     _build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
@@ -260,12 +332,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        window: int = 0):
+                        window: int = 0, q_offset: int = 0, kv_len=None):
     """K5b on the card: (dQ, dK, dV), what ``flash_attention_bwd_plain``
     computes, each in q's dtype with fp32 accumulation.  ``o`` and ``lse``
     are what ``flash_attention(..., return_lse=True)`` returned for these
-    inputs; ``do`` has o's shape (B, H, Sq, Dv) and dtype."""
+    inputs (the same ``q_offset`` and ``kv_len``); ``do`` has o's shape
+    (B, H, Sq, Dv) and dtype."""
     _check_qkv("flash_attention_bwd", q, k, v)
+    q_offset = check_offset("flash_attention_bwd", q_offset)
     check_bwd_dims("flash_attention_bwd", q, v)
     B, H, Sq, D = q.shape
     KV, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
@@ -277,17 +351,20 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
                          f"{lse.dtype}, want {(B, H, Sq)} float32")
+    kvl, kvl_t = _kv_len_args(kv_len, Skv, q.device)
     if shape_only.is_fake(q, k, v, o, lse, do):
-        return torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, lse, do,
-                                                         causal, window)
+        return torch.ops.repro_torch.flash_attention_bwd(
+            q, k, v, o, lse, do, causal, window, q_offset, kvl)
     _build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
     q, k, v, o, do = _aligned(q, k, v, o, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # a kv_len the kernel reads on the card: planned as every key valid
     cluster = (bwd_plan(B, H, KV, Sq, Skv, D, bool(causal), int(window),
-                        _sms(q.device))["cluster"]
+                        _sms(q.device), q_offset=q_offset,
+                        kv_len=None if kvl_t is not None else kvl)["cluster"]
                if q.dtype == torch.bfloat16 else 1)
     lib = _lib()
     with torch.cuda.device(q.device):
@@ -295,7 +372,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, H, KV, Sq, Skv, D, Dv,
-            1.0 / math.sqrt(D), int(causal), int(window), cluster,
+            1.0 / math.sqrt(D), int(causal), int(window), q_offset, kvl,
+            None if kvl_t is None else kvl_t.data_ptr(), cluster,
             _build.dtype_code(q.dtype), _build.stream_of(q))
     _build.check(lib, code, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
@@ -309,18 +387,18 @@ flash_attention_bwd.launches = 0
 class FlashAttention(torch.autograd.Function):
     """``flash_attention`` with its gradient: K5 forward (keeping the
     log-sum-exp) and K5b backward on the card, ``flash_attention_plain``
-    and ``flash_attention_bwd_plain`` on the CPU."""
+    and ``flash_attention_bwd_plain`` on the CPU; ``apply(q, k, v,
+    causal, window, q_offset=0, kv_len=None)``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, q_offset=0, kv_len=None):
         check_bwd_dims("FlashAttention", q, v)
         ctx.causal, ctx.window = causal, window
-        if q.device.type == "cpu":
-            o, lse = flash_attention_plain(q, k, v, causal=causal,
-                                           window=window, return_lse=True)
-        else:
-            o, lse = flash_attention(q, k, v, causal=causal, window=window,
-                                     return_lse=True)
+        ctx.q_offset, ctx.kv_len = q_offset, kv_len
+        fwd = (flash_attention_plain if q.device.type == "cpu"
+               else flash_attention)
+        o, lse = fwd(q, k, v, causal=causal, window=window, return_lse=True,
+                     q_offset=q_offset, kv_len=kv_len)
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
@@ -330,5 +408,6 @@ class FlashAttention(torch.autograd.Function):
         bwd = (flash_attention_bwd_plain if q.device.type == "cpu"
                else flash_attention_bwd)
         dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
-                         window=ctx.window)
-        return dq, dk, dv, None, None
+                         window=ctx.window, q_offset=ctx.q_offset,
+                         kv_len=ctx.kv_len)
+        return dq, dk, dv, None, None, None, None

@@ -89,14 +89,21 @@ def matmul_padded(x, w, b=None, *, act="none", bm=128, bn=128, bk=128,
     return matmul(x, w, b, act=act, out_dtype=out_dtype)
 
 
-def attention(q, k, v, *, causal=True, window=0, bq=128, bk=128):
+def attention(q, k, v, *, causal=True, window=0, bq=128, bk=128,
+              q_offset=0, kv_len=None):
+    """q (B,H,Sq,D), k (B,KV,Skv,D), v (B,KV,Skv,Dv) -> (B,H,Sq,Dv); query
+    row i at position i + ``q_offset``, the keys below ``kv_len`` (None,
+    an int or a 0-d integer tensor) valid."""
     if _needs_grad(q, k, v):
         return FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal, window)
+                                    v.contiguous(), causal, window, q_offset,
+                                    kv_len)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset, kv_len=kv_len)
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal, window=window)
+                           causal=causal, window=window, q_offset=q_offset,
+                           kv_len=kv_len)
 
 
 def affine_act(x, scale, bias, *, act="none", out_dtype=None):

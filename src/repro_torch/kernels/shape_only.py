@@ -70,31 +70,34 @@ _define("dequantize_int8",
 
 
 # ---- K5, K5b ---------------------------------------------------------------
-def _k5_fake(q, k, v, causal, window, return_lse):
+# q_offset places the queries, kv_len (in [0, Skv]) bounds the keys
+def _k5_fake(q, k, v, causal, window, return_lse, q_offset, kv_len):
     B, H, Sq, _ = q.shape
     lse = (q.new_empty((B, H, Sq), dtype=torch.float32) if return_lse
            else _none(q))
     return q.new_empty((B, H, Sq, v.shape[-1])), lse
 
 
-def _k5_ops(work, q, k, v, causal, window):
+def _k5_ops(work, q, k, v, causal, window, q_offset, kv_len):
     B, H, Sq, D = q
     return work(B, H, k[1], Sq, k[2], D, causal, window, torch.float32,
-                v[-1])[1]
+                v[-1], q_offset, kv_len)[1]
 
 
 _define("flash_attention",
         "(Tensor q, Tensor k, Tensor v, bool causal, int window, "
-        "bool return_lse) -> (Tensor, Tensor)", _k5_fake,
-        lambda q, k, v, causal, window, lse: _k5_ops(RL.k5_work, q, k, v,
-                                                     causal, window))
+        "bool return_lse, int q_offset, int kv_len) -> (Tensor, Tensor)",
+        _k5_fake,
+        lambda q, k, v, causal, window, lse, q_offset, kv_len: _k5_ops(
+            RL.k5_work, q, k, v, causal, window, q_offset, kv_len))
 _define("flash_attention_bwd",
         "(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor dout, "
-        "bool causal, int window) -> (Tensor, Tensor, Tensor)",
-        lambda q, k, v, o, lse, do, causal, window: (
+        "bool causal, int window, int q_offset, int kv_len) -> "
+        "(Tensor, Tensor, Tensor)",
+        lambda q, k, v, o, lse, do, causal, window, q_offset, kv_len: (
             q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)),
-        lambda q, k, v, o, lse, do, causal, window: _k5_ops(
-            RL.k5b_work, q, k, v, causal, window))
+        lambda q, k, v, o, lse, do, causal, window, q_offset, kv_len:
+        _k5_ops(RL.k5b_work, q, k, v, causal, window, q_offset, kv_len))
 
 
 # ---- K7, K7b ---------------------------------------------------------------

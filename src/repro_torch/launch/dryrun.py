@@ -48,10 +48,11 @@ SSD state's heads over ``model``), the layout the port's decode keeps.
 along the sequence between blocks (the parameters' blocks are
 ``train``'s; a layer's remat unit keeps the rank's rows, and its row-
 parallel sums are reduce-scatters beside the sequence's all-gathers).
-``decode2d`` train cells are refused (``steps.refuse_training``); its
-prefill and decode cells run with the weights resident and the batch
-over ``pod`` alone.  ``long_500k`` is skipped on a quadratic arch, as in
-the JAX dry run.
+``decode2d`` cells run with the weights resident, the residual stream
+split over ``data`` along the hidden dim and the batch over ``pod``
+alone; a train cell's backward counts the reduce-scatters that carry
+the hidden-split stream's gathers back.  ``long_500k`` is skipped on a
+quadratic arch, as in the JAX dry run.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k --mesh multi
@@ -109,10 +110,9 @@ def _blocks(shapes, specs, mesh, device):
 def cell_blocks(cfg: ModelConfig, shape: ShapeConfig, mesh, rules=None,
                 device="meta") -> Dict[str, object]:
     """Rank 0's blocks of one cell's arguments on ``mesh``: ``params``
-    (``transformer.param_block_specs`` of ``rules``; raises on the rule
-    set ``sharding.resolve_rules`` refuses), for a train cell ``opt``
-    (the AdamW state, its moments in the parameters' blocks), ``batch``
-    and for a decode cell ``cache`` (its blocks under
+    (``transformer.param_block_specs`` of ``rules``), for a train cell
+    ``opt`` (the AdamW state, its moments in the parameters' blocks),
+    ``batch`` and for a decode cell ``cache`` (its blocks under
     ``steps.shardings_for``'s cache specs, the JAX package's: the batch
     over ``pod``/``data``, the sequence and the SSD heads over
     ``model``).  Every rank of a mesh holds blocks of the same shapes."""
@@ -353,18 +353,6 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: Path,
     groups = cfg.num_layers // period
 
     try:
-        SHD.resolve_rules(rules)
-        if shape.kind == "train":
-            ST.refuse_training(rules)
-    except NotImplementedError as e:
-        rec["status"] = "refused"
-        rec["reason"] = str(e)
-        print(f"[dryrun] {tag}: refused: {e}", flush=True)
-        out_dir.mkdir(parents=True, exist_ok=True)
-        out_path.write_text(json.dumps(rec, indent=1))
-        return rec
-
-    try:
         t0 = time.time()
         mesh = fake_mesh(dims, names)
         real = count_step(cfg, shape, mesh, rules)
@@ -437,7 +425,7 @@ def main() -> None:
             rec = run_cell(arch, shape, mesh_name, out_dir, args.rules,
                            force=args.force)
             n_ok += rec["status"] == "ok"
-            n_skip += rec["status"] in ("skipped", "refused")
+            n_skip += rec["status"] == "skipped"
             n_err += rec["status"] == "error"
     print(f"[dryrun] done: ok={n_ok} skipped={n_skip} errors={n_err}")
     if n_err:

@@ -9,11 +9,11 @@ under the caller's rules), and its block of every parameter under
 ``rules`` (``transformer.place_params``; ``TRAIN_RULES`` where None,
 ``TP_RULES`` and ``SEQPAR_RULES`` too, the last keeping the residual
 stream split over ``model`` along the sequence between blocks:
-``transformer.seq_split``).  ``DECODE_RULES`` serves (the prefill and
-decode steps: the token batch over ``pod`` alone, every ``data`` rank
-the whole of it, the cache over ``pod`` and ``data``, the weights
-resident); the gradient and train steps refuse it by name
-(``refuse_training``).  The ``sharding.ActSharder`` of the mesh, those
+``transformer.seq_split``).  Under ``DECODE_RULES`` every step runs: the
+token batch over ``pod`` alone, every ``data`` rank the whole of it, the
+weights resident, the residual stream split over ``data`` along the
+hidden dim (the cache of the prefill and decode steps over ``pod`` and
+``data``).  The ``sharding.ActSharder`` of the mesh, those
 axes and the rules lets the model reshard each layer to the blocks it
 computes with and sends the MoE FFN down the expert-parallel path.
 The training step takes the gradient with ``torch.autograd.grad`` over
@@ -38,7 +38,15 @@ axes its stored block is not split over), so a rank ends with the
 gradient of its own blocks.  The int8 transform then acts on the reduced
 gradient, every split leaf's block (dense or expert) against the whole
 leaf's absmax (K3's given-absmax mode); the global norm counts each block
-once; ``metrics["loss"]`` is the global mean.
+once; ``metrics["loss"]`` is the global mean.  The convention holds
+whatever the batch's layout, because every collective the forward
+issues has JAX's transpose as its backward (``distributed.collectives``:
+a gather's is a reduce-scatter, a ``psum``'s an all-reduce): the ranks'
+scaled losses sum to the global mean, and each rank's gradient is its
+share of that sum's.  Under ``DECODE_RULES`` every rank's loss is the
+global mean itself (every rank holds every token), so each contributes
+1 / (the mesh's ranks) of it; a leaf's block held by several ranks (a
+norm's scale, whole on all of them) sums their shares.
 """
 from __future__ import annotations
 
@@ -114,17 +122,6 @@ def _reduce_grouped(values: torch.Tensor, groups, mesh, op) -> torch.Tensor:
     return values
 
 
-def refuse_training(rules) -> None:
-    """``DECODE_RULES`` is refused by name: its gradient would be summed
-    over ranks that hold the same batch (every ``data`` rank the whole of
-    it), whose convention the training step does not have yet (ROADMAP,
-    queue 1)."""
-    if rules == SH.DECODE_RULES:
-        raise NotImplementedError(
-            "DECODE_RULES: training under it is not ported yet (ROADMAP "
-            "queue 1); its prefill and decode steps run")
-
-
 def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
                  batch_axes: Tuple[str, ...] = (), rules=None):
     """``(params, batch) -> (loss, grads)``: the train step's loss and the
@@ -132,7 +129,6 @@ def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
     global mean's, each leaf reduced as ``leaf_axes`` says, in fp32; int8
     when ``tcfg`` asks)."""
     rules = SH.resolve_rules(rules)
-    refuse_training(rules)
     shard = _sharder(mesh, batch_axes, rules)
     world = 1 if mesh is None else SH.mesh_size(mesh)
     axes = leaf_axes(cfg, mesh, rules) if world > 1 else None
@@ -216,7 +212,6 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
     JAX train step's donation: the step returns the parameter and state
     objects it was given, updated, and a caller that wants the old values
     hands it a copy."""
-    refuse_training(SH.resolve_rules(rules))
     grad_fn = make_grad_fn(cfg, tcfg, mesh=mesh, batch_axes=batch_axes,
                            rules=rules)
     reduce_sq = norm_reduction(cfg, mesh, rules)

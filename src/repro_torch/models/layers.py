@@ -128,25 +128,20 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention of q (B, Sq, H, Dh) over k (B, Skv, KV, Dh) and v (B,
     Skv, KV, Dv) -> (B, Sq, H, Dv), causal and windowed as asked, through
-    ``ops.attention`` (K5 on the card).
+    ``ops.attention`` (K5 on the card, its plain version on the CPU; K5b
+    under autograd).  ``q_offset`` (an int >= 0) puts query row i at
+    position i + q_offset; ``kv_len`` (None, an int or a 0-d integer
+    tensor, shared by the batch) keeps the keys below it: JAX's
+    ``_attn_block`` mask.  A row that sees no key takes the mean of all
+    Skv values, as JAX's softmax of a row all at the mask value gives it.
 
     The JAX package's version loops over query chunks; ``chunk`` and
     ``unroll`` only shape that loop, so they are accepted and unused here,
-    like the TPU tile sizes.  A ``q_offset`` or ``kv_len`` takes the plain
-    ``_attn_block`` on the CPU and raises on the card: K5 aligns both
-    sequences at position 0 and takes no valid-prefix length, and a quiet
-    plain path there would hide the kernel.  Serving does not need them
-    (decode calls ``_attn_block`` directly).
+    like the TPU tile sizes.
     """
-    if isinstance(q_offset, torch.Tensor) or q_offset or kv_len is not None:
-        if q.device.type != "cpu":
-            raise NotImplementedError(
-                "blocked_attention: K5 takes no q_offset or kv_len; only "
-                "the CPU runs them (plain _attn_block)")
-        return _attn_block(q, k, v, q_start=q_offset, kv_start=0,
-                           causal=causal, window=window, kv_len=kv_len)
     o = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
-                      v.transpose(1, 2), causal=causal, window=window)
+                      v.transpose(1, 2), causal=causal, window=window,
+                      q_offset=q_offset, kv_len=kv_len)
     return o.transpose(1, 2)
 
 

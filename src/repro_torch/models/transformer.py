@@ -51,15 +51,19 @@ partials over ``data`` in fp32 (``_cols``; the outputs of leaves
 decode), a row-parallel one ends on the rank's block, the norms sum
 their squares over ``data`` (``_rms_norm``), the embedding gives and the
 head contracts the rank's columns, and the MoE FFN gathers the whole
-width its in_specs take.  Under ``SEQPAR_RULES`` (``seq_split``: the
-JAX package's ``act_seq``) the residual stream between blocks is the
-rank's rows of the sequence over ``model``: the embedding's sum a
-reduce-scatter, each block's norm on the rank's rows, then the normed
-rows gathered whole for the products that need every token
-(``_seq_gather``; attention, the RG-LRU's conv and scan, MoE routing),
-each row-parallel product that joins the stream ending in a
-reduce-scatter (``_psum_rows``) and a part computed whole cut to the
-rank's rows; the gathers' backward sums over ``model`` in fp32, the
+width its in_specs take.  It trains as it serves: every one of those
+sums and gathers carries the gradient as JAX's transpose does (a
+``psum``'s backward an all-reduce, a gather's, ``_gather_last``, a
+reduce-scatter in fp32), so the training step's loss × 1 / ranks gives
+each rank its share of the global mean's gradient.  Under
+``SEQPAR_RULES`` (``seq_split``: the JAX package's ``act_seq``) the
+residual stream between blocks is the rank's rows of the sequence over
+``model``: the embedding's sum a reduce-scatter, each block's norm on
+the rank's rows, then the normed rows gathered whole for the products
+that need every token (``_seq_gather``; attention, the RG-LRU's conv
+and scan, MoE routing), each row-parallel product that joins the stream
+ending in a reduce-scatter (``_psum_rows``) and a part computed whole
+cut to the rank's rows; the gathers' backward sums over ``model`` in fp32, the
 reduce-scatters' gathers, so each layer's remat unit keeps a rank's
 ``S / model`` rows.  Whisper's encoder stays whole.  Under
 ``cfg.remat`` (the JAX package's ``jax.checkpoint`` of each group and
@@ -590,10 +594,13 @@ def _psum(y: torch.Tensor, mesh, axes) -> torch.Tensor:
 
 
 def _gather_last(y: torch.Tensor, axes, mesh) -> torch.Tensor:
-    """``y``, this rank's block of its last dim over ``axes``, gathered
-    whole."""
-    part = axes[0] if len(axes) == 1 else tuple(axes)
-    return coll.gather_block(y, SH.P(*([None] * (y.dim() - 1)), part), mesh)
+    """``y``, this rank's block of its last dim over ``axes`` (the first
+    the major), gathered whole: one ``collectives.all_gather_dim`` an
+    axis, the minor first, so that its backward reduce-scatters the
+    cotangent over them in fp32 (JAX's transpose of the gather)."""
+    for a in reversed(tuple(axes)):
+        y = coll.all_gather_dim(y, mesh, a, y.dim() - 1)
+    return y
 
 
 def _hidden_axes(ctx: Ctx, width: int) -> Tuple[str, ...]:

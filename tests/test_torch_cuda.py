@@ -729,21 +729,24 @@ K5_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 def _k5_case(cuda, b, h, kv, sq, skv, d, causal, window, dtype, seed=4,
-             rel=False, dv=None):
+             rel=False, dv=None, q_offset=0, kv_len=None):
     """K5 against its plain version at one shape (v's head dim ``dv``, d
-    where None); with ``rel`` also within K5_REL's relative Frobenius
-    error.  Returns (q, k, v, got, want)."""
+    where None), the queries at ``q_offset`` and the keys below ``kv_len``;
+    with ``rel`` also within K5_REL's relative Frobenius error.  Returns
+    (q, k, v, got, want)."""
     rng = np.random.default_rng(seed)
     dv = dv or d
     q = _randn(rng, (b, h, sq, d), dtype, cuda)
     k = _randn(rng, (b, kv, skv, d), dtype, cuda)
     v = _randn(rng, (b, kv, skv, dv), dtype, cuda)
     before = flash_attention.launches
-    got = flash_attention(q, k, v, causal=causal, window=window)
+    got = flash_attention(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset, kv_len=kv_len)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == (b, h, sq, dv)
-    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, kv_len=kv_len)
     bf = dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(),
                                rtol=0.05 if bf else 1e-3,
@@ -854,10 +857,11 @@ def _rel_frobenius(got, want):
 
 
 def _k5b_case(cuda, b, h, kv, sq, skv, d, causal, window, dtype, seed=5,
-              dv=None):
+              dv=None, q_offset=0, kv_len=None):
     """K5 (with its lse) and K5b against their plain versions at one shape
-    (v's head dim ``dv``, d where None), both fed the kernel's o and lse;
-    the elementwise tolerances are K5's, with K5B_REL beside them.  Returns
+    (v's head dim ``dv``, d where None), the queries at ``q_offset`` and
+    the keys below ``kv_len``, both fed the kernel's o and lse; the
+    elementwise tolerances are K5's, with K5B_REL beside them.  Returns
     (inputs, K5b's gradients, the plain version's)."""
     dv = dv or d
     rng = np.random.default_rng(seed)
@@ -865,10 +869,11 @@ def _k5b_case(cuda, b, h, kv, sq, skv, d, causal, window, dtype, seed=5,
     k = _randn(rng, (b, kv, skv, d), dtype, cuda)
     v = _randn(rng, (b, kv, skv, dv), dtype, cuda)
     do = _randn(rng, (b, h, sq, dv), dtype, cuda)
+    pos = dict(q_offset=q_offset, kv_len=kv_len)
     o, lse = flash_attention(q, k, v, causal=causal, window=window,
-                             return_lse=True)
+                             return_lse=True, **pos)
     _, want_lse = flash_attention_plain(q, k, v, causal=causal,
-                                        window=window, return_lse=True)
+                                        window=window, return_lse=True, **pos)
     assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
     # the lse of a row that saw no key is the mask value, as in the plain
     # version: K5b reads that to give the row its weights 1 / Skv
@@ -876,11 +881,11 @@ def _k5b_case(cuda, b, h, kv, sq, skv, d, causal, window, dtype, seed=5,
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
     before = flash_attention_bwd.launches
     got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                              window=window)
+                              window=window, **pos)
     torch.cuda.synchronize()
     assert flash_attention_bwd.launches == before + 1
     want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                     window=window)
+                                     window=window, **pos)
     bf = dtype == torch.bfloat16
     for name, gg, ww in zip(("dq", "dk", "dv"), got, want):
         assert gg.dtype == dtype and gg.shape == ww.shape, name
@@ -1005,6 +1010,105 @@ def test_ops_attention_under_grad_runs_k5_and_k5b(cuda):
         flash_attention_plain(*ref, causal=True, window=40), ref, do)
     for gg, ww in zip(got, want):
         torch.testing.assert_close(gg, ww, rtol=1e-3, atol=2e-4)
+
+
+# K5 and K5b with the queries shifted and the keys cut to a valid prefix:
+# (Sq, Skv, causal, window, q_offset, kv_len).  A chunk of a long prompt
+# against its cache; rows that see no key (a window past the valid keys;
+# no valid key at all); a decode token; non-causal with a window; a
+# q_offset past Skv; kv_len past Skv (every key)
+K5_OFFSETS = [(256, 1024, True, 0, 768, 900), (100, 300, True, 37, 150, 200),
+              (64, 200, False, 0, 0, 65), (130, 130, True, 0, 7, 0),
+              (200, 300, True, 45, 250, 260), (1, 500, True, 0, 420, 421),
+              (65, 200, False, 45, 30, 150), (70, 90, True, 0, 200, 1000)]
+K5_OFFSET_DIMS = [(64, 64), (128, 128), (256, 256), (96, 64)]
+
+
+@pytest.mark.parametrize("sq,skv,causal,window,q_offset,kv_len", K5_OFFSETS)
+@pytest.mark.parametrize("d,dv", K5_OFFSET_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_with_offsets_matches_plain(cuda, sq, skv, causal,
+                                                    window, q_offset, kv_len,
+                                                    d, dv, dtype):
+    """K5 with ``q_offset`` and ``kv_len`` (an int; a 0-d tensor on the
+    card every other case) against the plain version: the shifted diagonal,
+    the window and the valid prefix, and rows that see no key the mean of
+    all Skv values."""
+    if K5_OFFSETS.index((sq, skv, causal, window, q_offset, kv_len)) % 2:
+        kv_len = torch.tensor(kv_len, device=cuda)
+    _k5_case(cuda, 2, 4, 2, sq, skv, d, causal, window, dtype, dv=dv,
+             q_offset=q_offset, kv_len=kv_len)
+
+
+@pytest.mark.parametrize("sq,skv,causal,window,q_offset,kv_len", K5_OFFSETS)
+@pytest.mark.parametrize("d,dv", K5_OFFSET_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_with_offsets_matches_plain(
+        cuda, sq, skv, causal, window, q_offset, kv_len, d, dv, dtype):
+    """K5b with ``q_offset`` and ``kv_len`` against its plain version, both
+    fed K5's o and lse (whose rows that saw no key are the mask value in
+    both): no gradient to a key past the valid prefix but the 1 / Skv of
+    the rows that see no key in dV."""
+    if K5_OFFSETS.index((sq, skv, causal, window, q_offset, kv_len)) % 2:
+        kv_len = torch.tensor(kv_len, device=cuda)
+    _, (_, dk, _), _ = _k5b_case(cuda, 2, 4, 2, sq, skv, d, causal, window,
+                                 dtype, dv=dv, q_offset=q_offset,
+                                 kv_len=kv_len)
+    kvl = min(int(kv_len), skv)
+    assert not dk[:, :, kvl:].any()
+
+
+def test_a_kv_len_on_the_card_is_read_there(cuda):
+    """A ``kv_len`` tensor on the card goes to K5 and K5b as a pointer:
+    no call synchronizes with the host (torch's sync debug mode raises on
+    one), and the result is the int's."""
+    rng = np.random.default_rng(12)
+    q = _randn(rng, (2, 8, 64, 128), torch.bfloat16, cuda)
+    k, v = (_randn(rng, (2, 2, 256, 128), torch.bfloat16, cuda)
+            for _ in range(2))
+    do = _randn(rng, (2, 8, 64, 128), torch.bfloat16, cuda)
+    n = torch.tensor(150, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        o, lse = flash_attention(q, k, v, causal=True, q_offset=100,
+                                 kv_len=n, return_lse=True)
+        grads = flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                    q_offset=100, kv_len=n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    o2, lse2 = flash_attention(q, k, v, causal=True, q_offset=100,
+                               kv_len=150, return_lse=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    for a, b_ in zip(grads, flash_attention_bwd(q, k, v, o2, lse2, do,
+                                                causal=True, q_offset=100,
+                                                kv_len=150)):
+        assert torch.equal(a, b_)
+
+
+def test_layers_blocked_attention_takes_offsets_on_the_card(cuda):
+    """``layers.blocked_attention`` with ``q_offset`` and ``kv_len`` runs K5
+    (and K5b under grad) on the card, no plain attention: the gradients of
+    autograd through the plain version (fp32)."""
+    from repro_torch.models import layers as L
+    rng = np.random.default_rng(13)
+    q = _randn(rng, (2, 40, 8, 64), torch.float32, cuda)
+    k, v = (_randn(rng, (2, 120, 2, 64), torch.float32, cuda)
+            for _ in range(2))
+    do = _randn(rng, (2, 40, 8, 64), torch.float32, cuda)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    kw = dict(causal=True, window=48, q_offset=60,
+              kv_len=torch.tensor(90, device=cuda))
+    got = torch.autograd.grad(L.blocked_attention(*ins, **kw), ins, do)
+    assert (flash_attention.launches - before[0],
+            flash_attention_bwd.launches - before[1]) == (1, 1)
+    ref = [t.clone().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_plain(*ref, **kw), ref,
+                               do.transpose(1, 2))
+    for gg, ww in zip(got, want):
+        torch.testing.assert_close(gg, ww.transpose(1, 2), rtol=1e-3,
+                                   atol=2e-4)
 
 
 def test_flash_attention_bwd_refuses_what_it_cannot_run(cuda):

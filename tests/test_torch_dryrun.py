@@ -18,8 +18,9 @@ K5's work count.  Under ``SEQPAR_RULES`` (``seqpar``) a train cell keeps
 its remat units no longer keep and records reduce-scatters.  Under ``DECODE_RULES`` (``decode2d``) its decode cells
 take the argument bytes of JAX's ``shardings_for`` under those rules, a
 reduced qwen3-8b step issues the hand-counted activation collectives of
-the hidden-split stream and no weight gather, and a train cell is
-refused.
+the hidden-split stream and no weight gather; its train cells take JAX's
+argument bytes too, and the gathers of the stream's whole-width rows
+(the MoE's) are reduce-scattered back in the backward.
 """
 import dataclasses
 import json
@@ -63,6 +64,8 @@ HELD_DECODE = [("qwen3-8b", "decode_32k", {}, MESH),
 # the first two again under DECODE_RULES (``decode2d``): the weights
 # resident, every data rank the whole token batch, the cache split
 HELD_DECODE2D = HELD_DECODE[:2]
+# train cells under DECODE_RULES whose argument bytes are held to JAX's
+HELD_TRAIN2D = HELD[::2]
 PLAIN = {"systolic_matmul": ["systolic_matmul_plain"],
          "vector_engine": ["fused_affine_act_plain", "quantize_int8_plain",
                            "dequantize_int8_plain"],
@@ -191,8 +194,8 @@ def runs(tmp_path_factory):
               for a, s, ov, m in HELD_DECODE[3:]]
     cells += [(a, s, reduced(a, **ov), m, "decode2d")
               for a, s, ov, m in HELD_DECODE2D]
-    cells.append(("qwen3-8b", "train_4k", reduced("qwen3-8b"), MESH,
-                  "decode2d"))
+    cells += [(a, s, reduced(a, **ov), m, "decode2d")
+              for a, s, ov, m in HELD_TRAIN2D]
     tp = subprocess.Popen(
         [sys.executable, "-c", _TORCH, str(tmp / "torch.json"),
          json.dumps(PLAIN), json.dumps(cells)], env=env,
@@ -202,7 +205,7 @@ def runs(tmp_path_factory):
          json.dumps([(a, s, ov, m, "TRAIN_RULES")
                      for a, s, ov, m in HELD + HELD_DECODE]
                     + [(a, s, ov, m, "DECODE_RULES")
-                       for a, s, ov, m in HELD_DECODE2D])],
+                       for a, s, ov, m in HELD_DECODE2D + HELD_TRAIN2D])],
         env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     outs = [p.communicate(timeout=300)[0] for p in (tp, jp)]
@@ -420,11 +423,56 @@ def test_decode2d_collectives_are_counted(runs):
     assert set(det) == {"all-reduce", "all-gather"}
 
 
-def test_decode2d_train_cell_is_refused(runs):
-    """Training under ``DECODE_RULES`` is not ported: the cell is recorded
-    as refused, by name."""
-    rec = _rec(runs, "qwen3-8b", "train_4k", MESH, "decode2d")
-    assert rec["status"] == "refused" and "DECODE_RULES" in rec["reason"]
+@pytest.mark.parametrize("i", range(len(HELD_TRAIN2D)))
+def test_decode2d_train_argument_bytes_equal_jax_spec_blocks(runs, i):
+    """A ``train_4k`` cell under ``DECODE_RULES`` runs, and rank 0's
+    arguments (its parameter and AdamW moment blocks, the whole token
+    batch) take the bytes of JAX's ``shardings_for`` blocks under those
+    rules: against the ``TRAIN_RULES`` cell the parameters and moments
+    are the same blocks (FSDP over data, TP and the experts over model)
+    and only the batch grows, every data rank holding the whole of it."""
+    arch, shape, _, mesh = HELD_TRAIN2D[i]
+    rec = _rec(runs, arch, shape, mesh, "decode2d")
+    assert rec["status"] == "ok", rec.get("traceback", rec)
+    total, _ = runs["jax_bytes"][len(HELD) + len(HELD_DECODE)
+                                 + len(HELD_DECODE2D) + i]
+    assert rec["memory"]["argument_bytes"] == total
+    train = _rec(runs, arch, shape, mesh)
+    assert (rec["param_bytes"], rec["opt_bytes"]) == (
+        train["param_bytes"], train["opt_bytes"])
+    shp = SHAPES_BY_NAME[shape]
+    B = shp.global_batch
+    assert (rec["memory"]["argument_bytes"]
+            - train["memory"]["argument_bytes"]) == (
+        2 * 4 * (B - B // mesh[0]) * shp.seq_len)
+
+
+def test_decode2d_train_gathers_are_reduce_scattered_back(runs):
+    """The reduced qwen3-moe (``ep``) ``train_4k`` cell over (2, 4) under
+    ``DECODE_RULES``: each layer's MoE gathers the rank's D / 2 columns of
+    the stream's B S rows whole over ``data`` (twice under remat, beside
+    the three expert leaves' reshards, which gather their fsdp dim over
+    data as the ``ep`` in_specs ask), and the backward carries each of
+    the stream's gathers back by one reduce-scatter over ``data`` in
+    fp32, its output the rank's B S D / 2 block.  The reduced qwen3-8b's
+    cell, whose heads divide over ``model``, gathers nothing and
+    reshards no dense leaf."""
+    cfg = get_arch("qwen3-moe-235b-a22b").reduced()
+    rec = _rec(runs, "qwen3-moe-235b-a22b", "train_4k", MESH, "decode2d")
+    assert rec["status"] == "ok", rec.get("traceback", rec)
+    assert cfg.dtype == "float32" and cfg.remat
+    det = rec["raw"]["real"]["coll_detail"]
+    shp = SHAPES_BY_NAME["train_4k"]
+    L, B, S, D = (cfg.num_layers, shp.global_batch, shp.seq_len,
+                  cfg.d_model)
+    assert det["reduce-scatter"]["count"] == L
+    assert det["reduce-scatter"]["result_bytes"] == L * B * S * D // 2 * 4
+    assert det["all-gather"]["count"] == 2 * L * (1 + 3)
+    stream = 2 * L * B * S * D * 4
+    assert stream < det["all-gather"]["result_bytes"] < 1.01 * stream
+    dense = _rec(runs, "qwen3-8b", "train_4k", MESH, "decode2d")
+    assert dense["status"] == "ok", dense.get("traceback", dense)
+    assert set(dense["raw"]["real"]["coll_detail"]) == {"all-reduce"}
 
 
 def test_dense_prefill_flops_are_its_gemms_and_k5(runs):

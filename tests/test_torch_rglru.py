@@ -197,18 +197,11 @@ def test_attn_block_with_q_start_and_kv_len_matches_jax(window):
                           kv_start=0, causal=True, window=window,
                           kv_len=pos + 1)
     _close(got, want, rtol=1e-5, atol=1e-5)
-    # blocked_attention takes the plain block for q_offset / kv_len on the CPU
+    # blocked_attention takes q_offset / kv_len through ops.attention (the
+    # plain version on the CPU)
     got2 = L.blocked_attention(*_port(q, k, v), window=window, q_offset=pos,
                                kv_len=torch.tensor(pos + 1))
     torch.testing.assert_close(got2, got)
-
-
-def test_blocked_attention_refuses_q_offset_and_kv_len_off_the_cpu():
-    q, k, v = (torch.empty(1, 8, 2, 16, device="meta") for _ in range(3))
-    with pytest.raises(NotImplementedError, match="q_offset or kv_len"):
-        L.blocked_attention(q, k, v, q_offset=3)
-    with pytest.raises(NotImplementedError, match="q_offset or kv_len"):
-        L.blocked_attention(q, k, v, kv_len=torch.tensor(5))
 
 
 def test_ring_attend_matches_jax():

@@ -187,18 +187,32 @@ def test_param_block_specs_are_jax_s_param_spec_tree(arch):
         cfg, mesh, SH.TRAIN_RULES)
 
 
-@pytest.mark.parametrize("maker,name", [
-    (m, "DECODE_RULES") for m in ("make_grad_fn", "make_train_step")])
-def test_unported_rule_sets_are_refused_by_name(name, maker):
-    """``DECODE_RULES`` serves, but its gradient's reduction over the
-    ranks that hold the same batch is not ported: the training makers
-    refuse it."""
+@pytest.mark.parametrize("maker", ["make_grad_fn", "make_train_step"])
+def test_decode_rules_training_makers_build(maker):
+    """Both training makers take ``DECODE_RULES`` (no batch axis: every
+    rank the whole batch) and build a step; the gradient's reduction is
+    the one every rule set takes: each leaf summed over the axes its
+    stored block is not split over (a norm's whole scale over all of
+    them, a 2-D resident block over none) and the norm counting each
+    block once."""
     from repro_torch.configs import TrainConfig
     cfg = get_arch("qwen3-8b").reduced()
     mesh = _FakeMesh({"data": 2, "model": 2})
-    with pytest.raises(NotImplementedError, match=name):
-        getattr(ST, maker)(cfg, TrainConfig(), mesh=mesh,
-                           batch_axes=("data",), rules=getattr(SH, name))
+    rules = SH.DECODE_RULES
+    assert SH.batch_axes(4, rules, mesh) == ()
+    step = getattr(ST, maker)(cfg, TrainConfig(), mesh=mesh, batch_axes=(),
+                              rules=rules)
+    assert callable(step)
+    axes = ST.leaf_axes(cfg, mesh, rules)
+    specs = T.tree_leaves(T.param_block_specs(cfg, mesh, rules),
+                          is_leaf=SH.is_spec)
+    assert len(axes) == len(specs)
+    for (split, over), spec in zip(axes, specs):
+        assert set(split) | set(over) == {"data", "model"}
+        assert not set(split) & set(over)
+    assert ((), ("data", "model")) in axes
+    assert (("data", "model"), ()) in axes
+    assert ST.norm_reduction(cfg, mesh, rules) is not None
 
 
 class _Act:

@@ -191,9 +191,9 @@ def test_prefill_attends_through_the_attention_kernel(model, monkeypatch):
     calls = []
     real = ops.flash_attention_plain
 
-    def counting(q, k, v, *, causal, window):
+    def counting(q, k, v, *, causal, window, **pos):
         calls.append((tuple(q.shape), tuple(k.shape), causal))
-        return real(q, k, v, causal=causal, window=window)
+        return real(q, k, v, causal=causal, window=window, **pos)
 
     monkeypatch.setattr(ops, "flash_attention_plain", counting)
     B, S = 2, 24

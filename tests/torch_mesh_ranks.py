@@ -1,5 +1,7 @@
 """Rank functions of the port's mesh tests (``tests/test_torch_moe_ep.py``,
-``tests/test_torch_serve_mesh.py``): ``launch.mesh.run_ranks`` spawns each
+``tests/test_torch_serve_mesh.py``, ``tests/test_torch_train_mesh.py``,
+``tests/test_torch_train_decode2d.py`` and others):
+``launch.mesh.run_ranks`` spawns each
 rank, which imports this module by name (no JAX here), joins a gloo group
 on the CPU, runs its cases and writes its results to ``rank<r>.npz``."""
 import os
@@ -400,6 +402,24 @@ SHARD_MOE = [((2, 4), "ep", 8.0, "none"), ((2, 4), "ep_resident", 8.0,
                                            "none")]
 
 
+# (arch, config overrides, compression): trained over DECODE2D_SHAPE under
+# DECODE_RULES (the weights resident, every rank the whole batch, the
+# residual stream split over data along the hidden dim), held to JAX's
+# jitted step on the same host mesh (tests/test_torch_train_decode2d.py)
+DECODE2D_SHAPE = (2, 4)
+DECODE2D_CASES = [
+    ("qwen3-8b", {}, "none"), ("qwen3-8b", {}, "int8"),
+    ("mamba2-370m", {}, "none"),
+    ("qwen3-moe-235b-a22b", {"moe_impl": "ep", "moe_capacity_factor": 8.0},
+     "none"),
+    ("recurrentgemma-2b", {}, "none"), ("minicpm3-4b", {}, "none")]
+
+
+def decode2d_key(arch, over, comp):
+    return "_".join([arch, *(f"{k}-{v}" for k, v in sorted(over.items())),
+                     comp])
+
+
 def moe_key(shape, impl, cf, comp):
     return f"{shape[0]}x{shape[1]}_{impl}_{cf}_{comp}"
 
@@ -558,6 +578,63 @@ def train_mesh_rank(rank, world, store_dir, inputs, out_dir):
             cfg = get_arch(arch).reduced()
             _train_case(cfg, mesh, whole(arch, cfg), comp, mb,
                         dp_key(arch, shape, comp, mb), res, rank == 0)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
+    dist.destroy_process_group()
+
+
+def decode2d_train_rank(rank, world, store_dir, inputs, out_dir):
+    """``DECODE2D_CASES`` over ``DECODE2D_SHAPE`` under ``DECODE_RULES``:
+    for each, the reduced gradient blocks of the first batch where the
+    step hands them to AdamW or to the int8 transform (``{key}_g{j}``),
+    then ``_train_case``'s steps with every rank's parameter and moment
+    blocks; ``inputs`` holds each arch's whole tree (``{arch}_{j}``)."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.distributed import compression as GC
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    torch.set_num_threads(1)          # the ranks share the host's cores
+    M.init_group(store_dir, rank, world, "gloo")
+    d = np.load(inputs)
+    mesh = M.make_mesh(DECODE2D_SHAPE, ("data", "model"), device="cpu")
+    rules = SH.DECODE_RULES
+    baxes = SH.batch_axes(TRAIN_B, rules, mesh)
+    res = {}
+    wire = GC.wire_transform
+    for arch, over, comp in DECODE2D_CASES:
+        cfg = dataclasses.replace(get_arch(arch).reduced(), **over)
+        shapes = T.param_shapes(cfg)
+        whole = tree_unflatten(shapes, [
+            torch.from_numpy(d[f"{arch}_{j}"])
+            for j in range(len(tree_leaves(shapes)))])
+        key = decode2d_key(arch, over, comp)
+        kept = {}
+
+        def before_int8(leaves, absmax=None):
+            kept["g"] = [g.clone() for g in leaves]
+            wire(leaves, absmax)
+
+        params = T.place_params(cfg, T.tree_map(torch.clone, whole), mesh,
+                                rules=rules, device="cpu")
+        b = TokenStream(cfg, TRAIN_B, TRAIN_S, TRAIN_SEED,
+                        device="cpu").batch_at(0)
+        GC.wire_transform = before_int8
+        try:
+            _, grads = ST.make_grad_fn(cfg, TrainConfig(
+                grad_compression=comp, **TRAIN_KW), mesh=mesh,
+                batch_axes=baxes, rules=rules)(params, b)
+        finally:
+            GC.wire_transform = wire
+        for j, g in enumerate(kept.get("g", tree_leaves(grads))):
+            res[f"{key}_g{j}"] = g.numpy()
+        del params, grads, kept
+        _train_case(cfg, mesh, whole, comp, 1, key, res, rank == 0,
+                    rules=rules, moments=True)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     dist.destroy_process_group()
 
