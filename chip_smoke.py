@@ -167,8 +167,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 # The kernels' work and least times at an H100 SXM's peaks (NVIDIA data
 # sheet, dense, at a 700 W power limit): one count with the dry run's.
 from repro_torch.analysis.roofline import (  # noqa: E402
-    k1_bounds, k2_bound, k3_bound, k4_bound, k5_bound, k5b_bound, k6_bound,
-    k7_bound, k7b_bound, k8_bound, k8b_bound)
+    k1_bounds, k2_bound, k3_bound, k4_bound, k5_bounds, k5b_bounds,
+    k6_bound, k7_bound, k7b_bound, k8_bound, k8b_bound)
 
 REQUESTS = 8
 RESNET_LAUNCHES = 53                    # convolutions per ResNet-50 request
@@ -258,6 +258,10 @@ K5_RANKS = [((4, 10, 10, 1024, 1024, 96, 64), True),
 K5_LATE = [((4, 10, 1, 4096, 4096, 256), True, GEMMA_WINDOW, "bfloat16"),
            ((1, 16, 4, 256, 256, 128), True, 0, "float32"),
            ((2, 16, 4, 256, 256, 128), True, 0, "float32")]
+# K5b in fp32, timed beside SDPA's fp32 backward: qwen3-8b's training
+# shape and Whisper-medium's encoder; name: (shape, causal)
+K5B_FP32_TIMED = {"qwen3-8b": ((4, 32, 8, 1024, 1024, 128), True),
+                  "whisper_encoder": ((4, 16, 16, 1500, 1500, 64), False)}
 # K5 and K5b with the queries shifted and the keys cut to a valid prefix
 # (the JAX package's _attn_block positions): a chunk of 256 query rows of
 # qwen3-8b's heads at positions 768-1023 against a cache of 1024 rows, 900
@@ -302,6 +306,22 @@ K5_PAPER = {  # name: (shape, causal, the model, launches a prefill)
 # ragged last one where no mask hides it, the middle one under the causal
 # mask; the last query tile zeroed) must read above it.
 K5_REL = {"bfloat16": 2e-2, "float32": 1e-4}
+# K5 and K5b in fp32 run 3xTF32 on the tensor cores: where the 1xTF32
+# stand-in is read (``tf32_standin``), the kernel is held within this
+# relative Frobenius error of the plain version, and the stand-in, which
+# drops the split's lo terms, must read above K5_REL's fp32 bar.  Beside
+# those rows, the times of the CUDA-core fp32 kernels the 3xTF32 ones
+# replaced, as this script measured them on an NVIDIA H100 80GB HBM3 at
+# 700 W (ms; K5 by (shape, causal), K5b at 17(f)'s rank shape).
+K5_TF32_REL = 1e-5
+K5_FP32_BEFORE = {
+    ((4, 32, 8, 1024, 1024, 128), True): 2.8972,
+    ((4, 20, 20, 1024, 1024, 128), True): 1.9955,
+    ((4, 64, 4, 1024, 1024, 128), True): 5.7196,
+    ((4, 8, 2, 1024, 1024, 128), True): 0.7283,
+    ((1, 16, 4, 256, 256, 128), True): 0.0825,
+    ((2, 16, 4, 256, 256, 128), True): 0.0923}
+K5B_FP32_BEFORE = {((2, 16, 4, 256, 256, 128), True): 0.6351}
 # Phase 14, MLA and the vision frontend (src/repro_torch/configs/
 # minicpm3_4b.py, qwen2_vl_72b.py, paper_suite.py), each served in bf16 at
 # batch 4 with 32 new tokens: minicpm3-4b at full width and depth (62
@@ -999,17 +1019,28 @@ def attn_pairs(Sq, Skv, causal, window, q_offset=0, kv_len=None):
     return keep
 
 
-def k5_tiles(Sq, Skv, causal, window, dtype, q_offset=0, kv_len=None):
+def k5_tiles(B, H, Sq, Skv, D, causal, window, dtype, sms, q_offset=0,
+             kv_len=None):
     """(KV tiles K5 walks, KV tiles there are) for one (batch, head), by
     the kernel's rule (csrc/flash_attention.cu, ``tile_range``), query row
     i at position i + ``q_offset`` and the keys below ``kv_len`` valid: a
     query tile of bq rows walks from the key tile holding its first
     position - window + 1 to the one ending at its last position + 1 (up
     to the valid keys), or every tile where it holds a row that sees no
-    key.  bf16 takes 128-query, 64-key tiles; fp32 32-query tiles of 32
-    keys (16 at D = 256 are not counted here)."""
+    key.  bf16 takes 128-query, 64-key tiles; fp32 the block of
+    ``launch_f32`` on a card of ``sms`` SMs (16 query rows a warp: eight
+    warps at head dim 128 where those fill the SMs, else four where they
+    do, else two) and ``TfFwd::BK``'s keys."""
     import torch
-    bq, bk = (128, 64) if dtype == torch.bfloat16 else (32, 32)
+    if dtype == torch.bfloat16:
+        bq, bk = 128, 64
+    else:
+        nw = (8 if D == 128 and B * H * -(-Sq // 128) >= sms
+              else 4 if B * H * -(-Sq // 64) >= sms else 2)
+        bq = 16 * nw
+        bk = (32 if D <= 64 else 16 if D < 128
+              else (16 if nw == 8 else 32) if D == 128
+              else (8 if nw == 4 else 16))
     kvl = Skv if kv_len is None else max(0, min(kv_len, Skv))
     n_kv = -(-Skv // bk)
     walked = 0
@@ -1024,7 +1055,7 @@ def k5_tiles(Sq, Skv, causal, window, dtype, q_offset=0, kv_len=None):
 
 def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
                   max_err, card=None, planted=False, backends=False,
-                  q_offset=0, kv_len=None):
+                  q_offset=0, kv_len=None, standin=False):
     """K5 at one shape (B, H, KV, Sq, Skv, D), or (..., D, Dv) with v's
     own head dim, against its plain version, and its times beside
     F.scaled_dot_product_attention's and its bound.  Where the window masks
@@ -1038,8 +1069,11 @@ def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
     (``is_causal`` computes another function).  ``q_offset`` and
     ``kv_len`` (an int, handed to K5 as a 0-d tensor on the card, which
     the kernel reads there) place the queries and bound the keys; SDPA
-    then takes the boolean mask of those positions.  Returns a dict of
-    the kernels line's keys
+    then takes the boolean mask of those positions.  In fp32 the bound is
+    the 3xTF32 route's, with the FMA pipes' beside it (``bound_fma_ms``);
+    with ``standin`` (fp32) the output is held within K5_TF32_REL of the
+    plain version and the 1xTF32 stand-in must read above K5_REL.
+    Returns a dict of the kernels line's keys
     (``library`` holds each SDPA form; ``rel_frobenius`` and ``planted``
     their readings)."""
     import torch
@@ -1075,6 +1109,11 @@ def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
                 raise AssertionError(f"{tag}: a planted fault reads within "
                                      f"the bar: {faults}, limit {limit}")
             checked["planted"] = faults
+    if standin:
+        checked.update(tf32_readings(
+            tag, {"o": (got, want, tf32_standin(
+                q, k, v, causal=causal, window=window, q_offset=q_offset,
+                kv_len=kv_len))}))
     del got, want
     torch.cuda.empty_cache()
     keep = attn_pairs(Sq, Skv, causal, window, q_offset, kv_len)
@@ -1091,10 +1130,16 @@ def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
         libs["sdpa_is_causal"] = time_ms(
             lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=KV != H))
-    bnd, by = k5_bound(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv,
-                       q_offset, kv_len)
-    walked, tiles = k5_tiles(Sq, Skv, causal, window, dtype, q_offset,
-                             kv_len)
+    (bnd, by), fma = k5_bounds(B, H, KV, Sq, Skv, D, causal, window, dtype,
+                               Dv, q_offset, kv_len)
+    if fma is not None:
+        checked["bound_fma_ms"] = fma[0]
+    before = K5_FP32_BEFORE.get((tuple(shape), causal)) \
+        if dtype == torch.float32 and not shifted else None
+    walked, tiles = k5_tiles(
+        B, H, Sq, Skv, D, causal, window, dtype,
+        torch.cuda.get_device_properties(q.device).multi_processor_count,
+        q_offset, kv_len)
     graphs = ""
     if backends:
         wins = graph_windows_ms(run)
@@ -1130,19 +1175,85 @@ def check_k5_case(shape, causal, window, dtype, randn, time_ms, call_ms,
           f"ms={ms:.4f} (per Python call {call_ms(run):.4f}) "
           f"plain_ms={plain:.4f} library_ms "
           + " ".join(f"({name}) {t:.4f}" for name, t in libs.items())
-          + f" bound_ms={bnd:.4f} ({by}); KV tiles walked {walked} of "
-          f"{tiles} a (batch, head)"
+          + f" bound_ms={bnd:.4f} ({by})"
+          + (f" (3xTF32 on the tensor cores) bound_fma_ms={fma[0]:.4f} "
+             f"({fma[1]})" if fma else "")
+          + (f"; the CUDA-core kernel it replaced {before:.4f}" if before
+             else "")
+          + f"; KV tiles walked {walked} of {tiles} a (batch, head)"
           + (f"; relative Frobenius err {checked['rel_frobenius']:.3e} "
              f"(limit {checked['rel_limit']})" if "rel_limit" in checked
              else "")
           + ("; planted faults read " + ", ".join(
               f"{n} {r:.3e}" for n, r in checked["planted"].items())
              if "planted" in checked else "")
+          + (f"; {checked['tf32_line']}" if "tf32_line" in checked else "")
           + graphs + (f"; card {card}" if card else ""))
+    checked.pop("tf32_line", None)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bnd, "bound_by": by,
             "library_ms": min(libs.values()), "library": libs,
             **checked}
+
+
+def tf32_standin(q, k, v, do=None, *, causal, window, q_offset=0,
+                 kv_len=None, terms=1):
+    """K5's output (with ``do``, K5b's dq, dk, dv from it) with every
+    product one TF32 product, operands truncated to TF32 and the split's
+    lo terms dropped: what a kernel without them would give.  Dense and
+    masked as the plain versions, in fp32.  With ``terms`` 0 every product
+    is a plain one in the inputs' dtype (in fp64, the exact reference of
+    ``tests/test_torch_cuda.py``'s 3xTF32 tests)."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+
+    def mm(a, b):
+        if not terms:
+            return a @ b
+
+        def hi(t):
+            return (t.contiguous().view(torch.int32) & -8192).view(
+                torch.float32)
+        return hi(a) @ hi(b)
+    B, H, Sq, D = q.shape
+    KV, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // KV
+    kk, vv = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    kv = None if kv_len is None else int(kv_len)
+    keep = FA._mask(Sq, Skv, causal, window, q.device, q_offset, kv)
+    scale = 1.0 / math.sqrt(D)
+    s = torch.where(keep, mm(q, kk.transpose(-1, -2)) * scale, FA.NEG_INF)
+    p = torch.softmax(s, -1)
+    o = mm(p, vv)
+    if do is None:
+        return o
+    dead = ~keep.any(-1, keepdim=True)
+    dp = mm(do, vv.transpose(-1, -2))
+    delta = (do * o).sum(-1, keepdim=True)
+    ds = torch.where(keep & ~dead, p * (dp - delta), 0.0) * scale
+    dk = mm(ds.transpose(-1, -2), q).reshape(B, KV, G, Skv, D).sum(2)
+    dv = mm(p.transpose(-1, -2), do).reshape(B, KV, G, Skv, Dv).sum(2)
+    return mm(ds, kk), dk, dv
+
+
+def tf32_readings(tag, outs):
+    """Each output's kernel and 1xTF32 stand-in readings against the plain
+    version, ``outs`` {name: (kernel's, plain's, stand-in's)}: the kernel
+    within K5_TF32_REL, the stand-in above K5_REL's fp32 bar.  Returns
+    the readings and a line for the check's print."""
+    rel = {n: rel_frobenius(g, w) for n, (g, w, _) in outs.items()}
+    one = {n: rel_frobenius(s, w) for n, (_, w, s) in outs.items()}
+    bar = K5_REL["float32"]
+    if max(rel.values()) > K5_TF32_REL or min(one.values()) <= bar:
+        raise AssertionError(f"{tag}: 3xTF32 reads {rel} (bar "
+                             f"{K5_TF32_REL}), the 1xTF32 stand-in {one} "
+                             f"(must read above {bar})")
+    return {"rel_frobenius_3xtf32": rel, "standin_1xtf32": one,
+            "tf32_line": "relative Frobenius against the plain version "
+            + ", ".join(f"{n} {r:.3e}" for n, r in rel.items())
+            + f" (3xTF32 bar {K5_TF32_REL}); the 1xTF32 stand-in reads "
+            + ", ".join(f"{n} {r:.3e}" for n, r in one.items())
+            + f" (must read above {bar})"}
 
 
 def sdpa_backends(q, k, v, causal):
@@ -1372,7 +1483,7 @@ def drive_gemma(dev, counters, time_ms, call_ms, max_err, randn):
     torch.cuda.synchronize()
     profile_serving(cfg, params, tok, cache, nxt,
                     {"K7": ("rglru_chunked_kernel",),
-                     "K5": ("flash_bf16_kernel", "flash_f32_kernel")})
+                     "K5": ("flash_bf16_kernel", "flash_tf32_kernel")})
     del params, cache
 
     # ---- 9(d): the ring cache, prompt past the window ---------------------
@@ -2095,7 +2206,8 @@ def drive_qwen(dev, counters, time_ms, call_ms, max_err, randn, card):
     for shape in K5_QWEN + K5_TP:
         for dtype in (torch.float32, torch.bfloat16):
             rows[(shape, dtype)] = check_k5_case(
-                shape, True, 0, dtype, randn, time_ms, call_ms, max_err, card)
+                shape, True, 0, dtype, randn, time_ms, call_ms, max_err, card,
+                standin=dtype == torch.float32)
 
     names = ("K1", "K2", "K5", "K6", "K8", "K7")
     entries = {}
@@ -2153,7 +2265,7 @@ def drive_qwen(dev, counters, time_ms, call_ms, max_err, randn, card):
     DE.decode_step(cfg, params, cache, nxt)
     torch.cuda.synchronize()
     profile_serving(cfg, params, tok, cache, nxt,
-                    {"K5": ("flash_bf16_kernel", "flash_f32_kernel")}, card)
+                    {"K5": ("flash_bf16_kernel", "flash_tf32_kernel")}, card)
     del params, cache
     torch.cuda.empty_cache()
     fp32_prefill_check(as_fp32(qwen_config("qwen3-8b", QWEN_CHECK_LAYERS)), dev,
@@ -2198,13 +2310,19 @@ def drive_qwen(dev, counters, time_ms, call_ms, max_err, randn, card):
             {"shape": list(shape), "dtype": dtype, "causal": causal,
              "window": window, **check_k5_case(
                  shape, causal, window, getattr(torch, dtype), randn,
-                 time_ms, call_ms, max_err, card, backends=True)})
+                 time_ms, call_ms, max_err, card, backends=True,
+                 standin=dtype == "float32")})
         torch.cuda.empty_cache()
     # K5b at 17(f)'s rank shape, fp32, timed beside SDPA's backward
     shape = K5_LATE[-1][0]
     _, _, entries["rank_shapes"][-1]["k5b"] = k5b_case(
         shape, True, 0, torch.float32, time_ms, call_ms, max_err, randn,
-        card, timed=True)
+        card, timed=True, standin=True)
+    # K5b in fp32 beside SDPA's fp32 backward at two training shapes
+    entries["k5b_fp32"] = {
+        name: k5b_case(shape, causal, 0, torch.float32, time_ms, call_ms,
+                       max_err, randn, card, timed=True)[2]
+        for name, (shape, causal) in K5B_FP32_TIMED.items()}
     # ---- 11(f): K5 and K5b with q_offset and kv_len ----------------------
     shape, q_offset, kv_len = K5_OFFSET
     entries["offsets"] = {
@@ -2420,7 +2538,7 @@ def drive_paper(dev, counters, time_ms, call_ms, max_err, randn, card):
     nxt = {"tokens": batch_in["tokens"][:, -1:]}
     decode_fn(params, cache, nxt)
     torch.cuda.synchronize()
-    kernels = {"K5": ("flash_bf16_kernel", "flash_f32_kernel")}
+    kernels = {"K5": ("flash_bf16_kernel", "flash_tf32_kernel")}
     profile_run(f"prefill whisper-medium (B={B}, S={S}, "
                 f"{cfg.encoder_seq} frames", lambda: prefill_fn(params,
                                                                batch_in),
@@ -2493,7 +2611,7 @@ def drive_vlm(dev, counters, time_ms, call_ms, max_err, randn, card):
             torch.cuda.empty_cache()
 
     # ---- 14(b), 14(c): each model served, profiled, then its fp32 check ---
-    kernels = {"K5": ("flash_bf16_kernel", "flash_f32_kernel")}
+    kernels = {"K5": ("flash_bf16_kernel", "flash_tf32_kernel")}
     launches = {}
     for name, run in VLM_SERVE.items():
         cfg = vlm_config(name, VLM_LAYERS if name == "qwen2-vl-72b" else None)
@@ -2662,7 +2780,8 @@ def k5b_planted(q, k, v, o, lse, do, causal, window, got, want, **pos):
 
 
 def k5b_case(shape, causal, window, dtype, time_ms, call_ms, max_err, randn,
-             card, backends=False, q_offset=0, kv_len=None, timed=None):
+             card, backends=False, q_offset=0, kv_len=None, timed=None,
+             standin=False):
     """K5's output and log-sum-exp against its plain version's, then K5b
     against its plain version, both fed K5's output and lse, at one shape
     (B, H, KV, Sq, Skv, D) or (..., D, Dv): K5's elementwise tolerances and
@@ -2672,8 +2791,11 @@ def k5b_case(shape, causal, window, dtype, time_ms, call_ms, max_err, randn,
     of SDPA's fused backends alone) beside the bound where ``timed`` (None:
     in bf16).  ``q_offset`` and ``kv_len`` (an int, handed to K5 and K5b
     as a 0-d tensor on the card) place the queries and bound the keys.
-    Prints one line; returns (max abs error, the relative errors, the row
-    of times or None)."""
+    In fp32 the bound is the 3xTF32 route's, with the FMA pipes' beside it;
+    with ``standin`` (fp32) each gradient is held within K5_TF32_REL of the
+    plain version and the 1xTF32 stand-in must read above K5_REL.  Prints
+    one line; returns (max abs error, the relative errors, the row of times
+    or None)."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     B, H, KV, Sq, Skv, D = shape[:6]
@@ -2738,6 +2860,15 @@ def k5b_case(shape, causal, window, dtype, time_ms, call_ms, max_err, randn,
                                  f"the bar: {planted}, limit {limit}")
         line += "; planted faults read " + ", ".join(
             f"{n} {r:.3e}" for n, r in planted.items())
+    tf32 = {}
+    if standin:
+        one = tf32_standin(q, k, v, do, causal=causal, window=window,
+                           q_offset=q_offset, kv_len=kv_len)
+        tf32 = tf32_readings(f"K5b {tag}", {
+            name: (gg, ww, ss)
+            for name, gg, ww, ss in zip(("dq", "dk", "dv"), got, want, one)})
+        line += "; " + tf32.pop("tf32_line")
+        del one
     del got, want
     if timed:
         wins = graph_windows_ms(run)
@@ -2747,25 +2878,32 @@ def k5b_case(shape, causal, window, dtype, time_ms, call_ms, max_err, randn,
         form, lib_wins = sdpa_bwd_windows(q, k, v, do, causal, window,
                                           q_offset, kv_len)
         lib = statistics.median(lib_wins)
-        bnd, by = k5b_bound(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv,
-                            q_offset, kv_len)
-        cluster = (FA.bwd_plan(B, H, KV, Sq, Skv, D, causal, window,
-                               FA._sms(q.device), q_offset=q_offset,
-                               kv_len=kv_len)["cluster"] if bf else 1)
+        (bnd, by), fma = k5b_bounds(B, H, KV, Sq, Skv, D, causal, window,
+                                    dtype, Dv, q_offset, kv_len)
+        cluster = FA.bwd_plan(B, H, KV, Sq, Skv, D, causal, window,
+                              FA._sms(q.device), q_offset=q_offset,
+                              kv_len=kv_len, fp32=not bf)["cluster"]
+        before = None if bf or shifted else K5B_FP32_BEFORE.get(
+            (tuple(shape), causal))
         row = {"cluster": cluster,
                "ms": ms, "ms_spread": [min(wins), max(wins)],
                "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
                "library_ms": lib, "library": form,
                "library_spread": [min(lib_wins), max(lib_wins)],
-               "planted": planted}
+               "planted": planted, **tf32,
+               **({"bound_fma_ms": fma[0]} if fma else {})}
         line += (f"; ms={ms:.4f} (CUDA graph, median of 5 windows, "
                  f"{min(wins):.4f}-{max(wins):.4f}; per Python call "
                  f"{call_ms(run, reps=20):.4f}) plain_ms={plain:.4f} "
                  f"library_ms ({form} backward alone, timed the same way) "
                  f"{lib:.4f} ({min(lib_wins):.4f}-{max(lib_wins):.4f}) "
-                 f"bound_ms={bnd:.4f} ({by}); "
-                 + (f"wgmma, dK/dV over clusters of {cluster}" if bf else
-                    "CUDA cores"))
+                 f"bound_ms={bnd:.4f} ({by})"
+                 + (f" (3xTF32 on the tensor cores) bound_fma_ms="
+                    f"{fma[0]:.4f} ({fma[1]})" if fma else "")
+                 + (f"; the CUDA-core kernel it replaced {before:.4f}"
+                    if before else "")
+                 + ("; wgmma" if bf else "; 3xTF32 on mma.sync")
+                 + f", dK/dV over clusters of {cluster}")
         if backends:
             alone = sdpa_bwd_backends(q, k, v, do, causal)
             row["backends"] = {
@@ -6352,7 +6490,10 @@ def main() -> int:
     for kernel, source in (("quantize_int8_kernel", "vector_engine"),
                            ("rglru_chunked_kernel", "rglru"),
                            ("rglru_bwd_chunked_kernel", "rglru"),
-                           ("flash_bwd_bf16_kernel", "flash_attention")):
+                           ("flash_bwd_bf16_kernel", "flash_attention"),
+                           ("flash_tf32_kernel", "flash_attention"),
+                           ("flash_bwd_dq_tf32_kernel", "flash_attention"),
+                           ("flash_bwd_dkdv_tf32_kernel", "flash_attention")):
         for row in _build.ptxas_counts(logs.get(source, ""), kernel):
             print(f"  {kernel}{row['instance'][:24]}: ptxas "
                   f"{row['registers']} registers, {row['smem']} bytes shared "
@@ -6363,6 +6504,13 @@ def main() -> int:
                      ("flash_attention_bwd", "flash_bwd_bf16_kernel",
                       "flash_attention"),
                      ("rglru_scan_bwd", "rglru_bwd_chunked_kernel", "rglru"))}
+    # the fp32 (3xTF32) kernels' instances: K5's, and K5b's two passes
+    fp32_ptxas = {kernel: [{k: row[k] for k in ("instance", "registers",
+                                                "spilled")}
+                           for row in _build.ptxas_counts(
+                               logs.get("flash_attention", ""), kernel)]
+                  for kernel in ("flash_tf32_kernel", "flash_bwd_dq_tf32_kernel",
+                                 "flash_bwd_dkdv_tf32_kernel")}
     k1_regs = k1_ptxas(logs.get("systolic_matmul", ""))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -6701,6 +6849,9 @@ def main() -> int:
         call_ms, max_err, randn, card)
     for entry in train12_entries:       # ptxas of each template instance
         entry["ptxas"] = bwd_ptxas[entry["name"]]
+        if entry["name"] == "flash_attention_bwd":
+            entry["ptxas_fp32"] = (fp32_ptxas["flash_bwd_dq_tf32_kernel"]
+                                   + fp32_ptxas["flash_bwd_dkdv_tf32_kernel"])
     torch.cuda.empty_cache()
     mark("13, Whisper and the paper's LMs")
     k5_paper = drive_paper(dev, counters + (lindley_scan, ssd_scan,
@@ -6850,7 +7001,7 @@ def main() -> int:
          "main_path_launches": launches[2], "train_launches": k5_train,
          "mesh_launches": k5_mesh, "mesh_train_launches": mesh17["K5"],
          "serving": k5_serving, "qwen": k5_qwen, "paper": k5_paper,
-         "mla_vlm": k5_vlm},
+         "mla_vlm": k5_vlm, "ptxas_fp32": fp32_ptxas["flash_tf32_kernel"]},
         {**k6_entry, "max_abs_err": k6_err},
         {"name": "ssd_scan", "route": "cuda", "source": src + "ssd.cu",
          "replaces": "src/repro/kernels/ssd.py:87",

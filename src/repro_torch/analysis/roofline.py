@@ -226,10 +226,23 @@ def k5_work(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv=None,
                                                      q_offset, kv_len)
 
 
+def k5_bounds(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv=None,
+              q_offset=0, kv_len=None):
+    """K5's bound for the work it does, (ms, by): fp32 as three TF32
+    products on the tensor cores (3xTF32), bf16 as one bf16 product; and
+    the fp32 FMA pipes' bound of the same products (None for bf16)."""
+    nbytes, ops_ = k5_work(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv,
+                           q_offset, kv_len)
+    if dtype != torch.float32:
+        return bound(nbytes, ops_, dtype), None
+    return bound(nbytes, 3 * ops_, "tf32"), bound(nbytes, ops_, dtype)
+
+
 def k5_bound(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv=None,
              q_offset=0, kv_len=None):
-    return bound(*k5_work(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv,
-                          q_offset, kv_len), dtype)
+    """K5's bound for the work it does (``k5_bounds``' first)."""
+    return k5_bounds(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv,
+                     q_offset, kv_len)[0]
 
 
 def k5b_work(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv=None,
@@ -245,10 +258,15 @@ def k5b_work(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv=None,
     return nbytes, 2 * (3 * D + 2 * Dv) * B * H * pairs
 
 
-def k5b_bound(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv=None,
-              q_offset=0, kv_len=None):
-    return bound(*k5b_work(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv,
-                           q_offset, kv_len), dtype)
+def k5b_bounds(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv=None,
+               q_offset=0, kv_len=None):
+    """K5b's bound for the work it does, as ``k5_bounds``: fp32 as 3xTF32
+    on the tensor cores beside the FMA pipes' bound (None for bf16)."""
+    nbytes, ops_ = k5b_work(B, H, KV, Sq, Skv, D, causal, window, dtype, Dv,
+                            q_offset, kv_len)
+    if dtype != torch.float32:
+        return bound(nbytes, ops_, dtype), None
+    return bound(nbytes, 3 * ops_, "tf32"), bound(nbytes, ops_, dtype)
 
 
 def k6_bound(n, n_seg=0):

@@ -17,9 +17,10 @@
 // carries m, l and acc in VMEM scratch across the sequential KV dimension.
 //
 // What bounds it on the H100: the 2*Sq*Skv*(Dqk + Dv) operations of the two
-// products over the key range the masks leave (bf16 on the tensor cores at long
-// sequences, RecurrentGemma-2B's D = 256); at the ViT's shapes (fp32, D = 32,
-// 5 to 197 tokens) the launch and the per-block loads.
+// products over the key range the masks leave, on the tensor cores: bf16 at
+// 989 TFLOP/s, fp32 as three TF32 products each at 495 (the FMA pipes' 67
+// would be 2.5 times slower); at the ViT's shapes (fp32, D = 32, 5 to 197
+// tokens) the launch and the per-block loads.
 //
 // What the design does about it.  Both kernels keep m, l and the accumulator
 // in fp32 registers, launch one block per (b*h, query tile), under causal
@@ -81,18 +82,52 @@
 // copies zero-fill.  O goes out through the warpgroup's Q tile, so DV needs
 // no more blocks than DQK.
 //
-// fp32 (flash_f32_kernel): the CUDA cores, so that fp32 stays fp32 (the
-// serving checks' 1e-3 bar; TF32 would eat into it).  One block per 32-query
-// tile; LANES threads own one query row, each with 1/LANES of its head
-// dimension in registers, and combine their partial q.k with log2(LANES)
-// warp shuffles; each lane also holds 1/LANES of o's DV columns.  DQK <= 128
-// takes 4 lanes and 32-key tiles; DQK = 256 takes 8 lanes and 16-key tiles
-// (two [16][256] fp32 tiles are 32 KB of static shared memory).  Without causal masking or a window (the ViT) it walks
-// every key, as it did before tile skipping (see flash_f32_kernel).
+// fp32 (flash_tf32_kernel, and K5b's fp32 passes below): 3xTF32 on the
+// tensor cores, so that fp32 keeps fp32's accuracy (the card's fp32 bar is
+// a relative Frobenius error of 1e-4; one TF32 product reads ~1e-3).  An
+// operand a splits as mma.cuh's split_tf32 splits it: ah is a truncated to
+// TF32, al the remainder truncated again (inf and NaN keep ah, al = 0), and
+// a.b = al.bh + ah.bl + ah.bh.  The tensor cores' own accumulation
+// truncates, which over a long sum drifts past fp32's rounding (dP - Delta
+// cancels at one key; dK and dV sum over G heads and every query row), so
+// the large terms ah.bh are summed on the tensor cores from zero over two
+// k8 steps (S, dP) or one tile (P V and the other accumulators) and added
+// to the running sum in fp32; the small terms run in sums of their own.
+// - The route is mma.sync m16n8k8, not wgmma: wgmma takes TF32 operands only
+//   K-major from shared memory, so V in P.V (and dO and Q in dV = P^T dO,
+//   dK = dS^T Q) would each need a transposed copy, and P and dS could not
+//   stay in registers.  mma.sync reads both operands from registers, and P
+//   stays in registers: its C fragment (row g, columns 2t and 2t + 1)
+//   becomes the A fragment (row g, k t and t + 4) by relabelling the keys
+//   inside each 8-key step, k index t + 4i = key 2t + i, for P and for the
+//   rows of V it meets alike (tf_c_to_a, tf_split_b).
+// - Tiles sit in shared memory as rows of D + 4 words (4 or 20 modulo the
+//   32 banks at every head dim served), hi in one array and lo in a second
+//   of the same layout, so that the A fragment, B read along a row and B
+//   read down the rows each hit the 32 banks once.  They arrive by cp.async
+//   (16 bytes a thread, zeros past the rows) into the hi array of one of
+//   two stages, the next tile's copies in flight during this tile's
+//   products, and each thread splits in place the chunks it copied as soon
+//   as they land (tf_load's and tf_split's loops walk the same elements):
+//   no barrier between landing and splitting, and warps that finish their
+//   products first split while the others still compute; one barrier a
+//   tile then publishes it.  Each element is split once a block, not once a
+//   product or a warp; P (and dS) are split in registers.
+// - A warp owns 16 query rows and runs both products of its rows with the
+//   online softmax in fp32 (ex2 with log2(e) / sqrt(DQK) folded in, as in
+//   bf16), the masks applied to S after the products, at the finite
+//   NEG_INF; a warp whose rows keep no pair of a tile skips it.  Blocks of
+//   4 warps (64 rows): 32-key tiles up to head dim 64 (two blocks an SM),
+//   16 at 80 and 96 (two blocks); at 128 of 8 warps and 16 keys (198 KB,
+//   one block an SM) where those fill the SMs, else of 4 and 32 keys, and
+//   of 2 (32 keys) where 64-row blocks would leave SMs idle (the ranks'
+//   256-token shapes, the ViT's requests; launch_f32); at 256 of 4 and 8
+//   keys, or 2 and 16.
 #include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -164,139 +199,6 @@ __device__ __forceinline__ bool tile_masked(int k0, int BK, int q_first,
 // gives such a row the weight 1 / Skv on every key, as the forward does.
 __device__ __forceinline__ float row_lse(float m, float l) {
   return m == NEG_INF ? NEG_INF : m + logf(l);
-}
-
-// ---------------------------------------------------------------------------
-// fp32 on the CUDA cores.
-constexpr int F32_BQ = 32;
-
-// SKIP: causal masking or a window is on; the grid is (B*H, query tiles),
-// so every head's heaviest tile goes out first, and a block walks only its
-// key range.  Without them (the ViT) the grid is (query tiles, B*H) and a
-// block walks every key: the range's few dependent operations ahead of the
-// first copy, or other code in place of the plain loop, cost 3-23% at the
-// ViT's 122 tokens (tools/k5_ab.py).
-template <int DQK, int DV, int LANES, int BKV, bool SKIP>
-__global__ void __launch_bounds__(F32_BQ * LANES)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int H, int KV, int Sq, int Skv,
-                 float scale, int causal, int window, int q_off, int kv_len,
-                 const long long* __restrict__ kv_len_p) {
-  constexpr int DP = DQK / LANES;   // q.k columns a lane
-  constexpr int VP = DV / LANES;    // o columns a lane
-  static_assert(DQK % LANES == 0 && DV % LANES == 0, "whole columns a lane");
-  constexpr int THREADS = F32_BQ * LANES;
-  __shared__ float ks[BKV][DQK];
-  __shared__ float vs[BKV][DV];
-  const int kvl = valid_keys(kv_len_p, kv_len, Skv);
-  int bh = blockIdx.y, q0 = blockIdx.x * F32_BQ, k_lo = 0, k_hi = Skv;
-  if constexpr (SKIP) {
-    const TileRange t = tile_range(blockIdx.y, gridDim.y, blockIdx.x, F32_BQ,
-                                   Sq, Skv, causal, window, q_off, kvl);
-    bh = t.bh;
-    q0 = t.q0;
-    k_lo = t.k_lo / BKV * BKV;
-    k_hi = t.k_hi;
-  }
-  const int tid = threadIdx.x;
-  const int row = tid / LANES;
-  const int lane = tid % LANES;
-  const int b = bh / H;
-  const int kvh = (bh % H) / (H / KV);
-  const int qpos = q0 + row;
-  const size_t q_at = ((size_t)bh * Sq + qpos) * DQK;
-  const size_t o_off = ((size_t)bh * Sq + qpos) * DV;
-  const size_t k_base = ((size_t)b * KV + kvh) * Skv * DQK;
-  const size_t v_base = ((size_t)b * KV + kvh) * Skv * DV;
-
-  float qr[DP], acc[VP];
-#pragma unroll
-  for (int i = 0; i < DP; ++i)
-    qr[i] = qpos < Sq ? q[q_at + lane + LANES * i] : 0.0f;
-#pragma unroll
-  for (int i = 0; i < VP; ++i) acc[i] = 0.0f;
-  float m = NEG_INF, l = 0.0f;
-
-  for (int k0 = k_lo; k0 < k_hi; k0 += BKV) {
-    for (int e = tid; e < BKV * DQK; e += THREADS) {
-      const int r = e / DQK, c = e % DQK;
-      ks[r][c] = k0 + r < Skv ? k[k_base + (size_t)(k0 + r) * DQK + c] : 0.0f;
-    }
-    for (int e = tid; e < BKV * DV; e += THREADS) {
-      const int r = e / DV, c = e % DV;
-      vs[r][c] = k0 + r < Skv ? v[v_base + (size_t)(k0 + r) * DV + c] : 0.0f;
-    }
-    __syncthreads();
-
-    float s[BKV];
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      float part = 0.0f;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) part = fmaf(qr[i], ks[j][lane + LANES * i], part);
-#pragma unroll
-      for (int off = 1; off < LANES; off <<= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      const int kpos = k0 + j;
-      float sj = part * scale;
-      if (pair_masked(qpos + q_off, kpos, kvl, causal, window)) sj = NEG_INF;
-      if (kpos >= Skv) sj = -INFINITY;  // past the end: weight exactly 0
-      s[j] = sj;
-      tile_max = fmaxf(tile_max, sj);
-    }
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-    float psum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      s[j] = expf(s[j] - m_new);
-      psum += s[j];
-    }
-    l = l * alpha + psum;
-    m = m_new;
-#pragma unroll
-    for (int i = 0; i < VP; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BKV; ++j)
-#pragma unroll
-      for (int i = 0; i < VP; ++i) acc[i] = fmaf(s[j], vs[j][lane + LANES * i], acc[i]);
-    __syncthreads();
-  }
-
-  if (qpos < Sq) {
-    const float denom = fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int i = 0; i < VP; ++i) o[o_off + lane + LANES * i] = acc[i] / denom;
-    if (lse != nullptr && lane == 0)
-      lse[(size_t)bh * Sq + qpos] = row_lse(m, l);
-  }
-}
-
-template <int DQK, int DV, int LANES = 4, int BKV = 32>
-int launch_f32(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int H, int KV, int Sq, int Skv, float scale,
-               int causal, int window, int q_off, int kv_len,
-               const long long* kv_len_p, cudaStream_t stream) {
-  const int nq = (Sq + F32_BQ - 1) / F32_BQ;
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  float* of = static_cast<float*>(o);
-  // a valid prefix shorter than the keys (or one read on the card) skips
-  // as the masks do
-  if (causal || window || kv_len < Skv || kv_len_p)
-    flash_f32_kernel<DQK, DV, LANES, BKV, true>
-        <<<dim3(B * H, nq), F32_BQ * LANES, 0, stream>>>(
-        qf, kf, vf, of, lse, H, KV, Sq, Skv, scale, causal, window, q_off,
-        kv_len, kv_len_p);
-  else
-    flash_f32_kernel<DQK, DV, LANES, BKV, false>
-        <<<dim3(nq, B * H), F32_BQ * LANES, 0, stream>>>(
-        qf, kf, vf, of, lse, H, KV, Sq, Skv, scale, causal, window, q_off,
-        kv_len, kv_len_p);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -770,6 +672,479 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
+// fp32: 3xTF32 on the tensor cores (mma.sync m16n8k8).  The route, the
+// split, the tiles and the relabelled keys are set out in the note at the
+// top of the file; the helpers below serve K5's fp32 forward and both
+// passes of K5b's fp32 backward.
+
+// Words a row of a D-column fp32 tile in shared memory: D + 4, which is 4
+// or 20 modulo the 32 banks at every head dim served, so that each of the
+// three fragment reads below hits the 32 banks once.
+__host__ __device__ constexpr int tf_stride(int D) { return D + 4; }
+
+// Rows [row0, row0 + ROWS) of a (rows_valid, D) fp32 matrix into the hi
+// array `h` of a tile, 16 bytes a thread by cp.async, zeros past
+// rows_valid (D is a multiple of 8, so a chunk never straddles a row).
+template <int ROWS, int D, int THREADS>
+__device__ __forceinline__ void tf_load(float* h, const float* g, int row0,
+                                        int rows_valid) {
+  constexpr int C4 = D / 4, SD = tf_stride(D);
+  for (int e = threadIdx.x; e < ROWS * C4; e += THREADS) {
+    const int r = e / C4, c = e % C4;
+    const bool ok = row0 + r < rows_valid;
+    cp_async16(smem_u32(h + r * SD + 4 * c),
+               ok ? g + (size_t)(row0 + r) * D + 4 * c : g, ok);
+  }
+}
+
+// A landed tile split in place, once a block: `h` keeps each value
+// truncated to TF32, `l` (the same layout) the remainder truncated again
+// (mma.cuh's split_tf32: inf and NaN keep hi and take lo = 0).  The walk
+// is tf_load's, so each thread splits the chunks it copied, once its own
+// copies have landed, with no barrier between.
+template <int ROWS, int D, int THREADS>
+__device__ __forceinline__ void tf_split(float* h, float* l) {
+  constexpr int C4 = D / 4, SD = tf_stride(D);
+  for (int e = threadIdx.x; e < ROWS * C4; e += THREADS) {
+    const int at = e / C4 * SD + 4 * (e % C4);
+    const uint4 x = *reinterpret_cast<const uint4*>(h + at);
+    uint4 hi, lo;
+    split_tf32(x.x, hi.x, lo.x);
+    split_tf32(x.y, hi.y, lo.y);
+    split_tf32(x.z, hi.z, lo.z);
+    split_tf32(x.w, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(h + at) = hi;
+    *reinterpret_cast<uint4*>(l + at) = lo;
+  }
+}
+
+// d (16 x 8, fp32) += a . b, TF32 operands: mma.cuh's mma_tf32 without
+// `volatile`, so that the compiler may interleave independent products.
+__device__ __forceinline__ void tf_mma(float (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a . b, TF32 operands, from a zero accumulator.
+__device__ __forceinline__ void tf_mma0(float (&d)[4], const uint32_t (&a)[4],
+                                        const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.0f));
+}
+
+// The A fragment of rows r0 + g and r0 + g + 8, k columns c0 + t and c0 +
+// t + 4 (g = lane / 4, t = lane % 4) of a row-major tile: hi from h, lo
+// from l.
+template <int SD>
+__device__ __forceinline__ void tf_frag_a(uint32_t (&ah)[4], uint32_t (&al)[4],
+                                          const float* h, const float* l,
+                                          int r0, int c0, int lane) {
+  const int at = (r0 + lane / 4) * SD + c0 + lane % 4;
+  const int off[4] = {0, 8 * SD, 4, 8 * SD + 4};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    ah[r] = __float_as_uint(h[at + off[r]]);
+    al[r] = __float_as_uint(l[at + off[r]]);
+  }
+}
+
+// The B fragment with k along a row: n is row n0 + g, k columns c0 + t and
+// c0 + t + 4 (K in S = Q K^T, V in dP = dO V^T, Q and dO in the dK/dV
+// pass's transposed scores).
+template <int SD>
+__device__ __forceinline__ void tf_frag_b_row(uint32_t (&bh)[2],
+                                              uint32_t (&bl)[2],
+                                              const float* h, const float* l,
+                                              int n0, int c0, int lane) {
+  const int at = (n0 + lane / 4) * SD + c0 + lane % 4;
+  bh[0] = __float_as_uint(h[at]);
+  bh[1] = __float_as_uint(h[at + 4]);
+  bl[0] = __float_as_uint(l[at]);
+  bl[1] = __float_as_uint(l[at + 4]);
+}
+
+// The B fragment with k down the rows, keys relabelled: k index t + 4 r is
+// row k0 + 2 t + r, n is column n0 + g (V in P V, K in dS K, dO in P^T dO, Q
+// in dS^T Q).
+template <int SD>
+__device__ __forceinline__ void tf_frag_b_col(uint32_t (&bh)[2],
+                                              uint32_t (&bl)[2],
+                                              const float* h, const float* l,
+                                              int k0, int n0, int lane) {
+  const int at = (k0 + 2 * (lane % 4)) * SD + n0 + lane / 4;
+  bh[0] = __float_as_uint(h[at]);
+  bh[1] = __float_as_uint(h[at + SD]);
+  bl[0] = __float_as_uint(l[at]);
+  bl[1] = __float_as_uint(l[at + SD]);
+}
+
+// An accumulator fragment c (rows g and g + 8, columns 2t and 2t + 1) as
+// the A fragment of the next product, split: k index t is column 2t and t
+// + 4 column 2t + 1, the relabelling tf_frag_b_col reads its rows in.
+__device__ __forceinline__ void tf_c_to_a(const float (&c)[4],
+                                          uint32_t (&ah)[4],
+                                          uint32_t (&al)[4]) {
+  split_tf32(__float_as_uint(c[0]), ah[0], al[0]);
+  split_tf32(__float_as_uint(c[2]), ah[1], al[1]);
+  split_tf32(__float_as_uint(c[1]), ah[2], al[2]);
+  split_tf32(__float_as_uint(c[3]), ah[3], al[3]);
+}
+
+// c (16 x 8 NT) = A . B^T over D: A the 16 rows from r0 of tile (ah_, al_)
+// (stride SA), B the 8 NT rows of tile (bh_, bl_) (stride SB), both with k
+// along their rows.  The small terms al.bh and ah.bl run on in two
+// accumulators of their own across the k8 steps; the large term ah.bh is
+// summed on the tensor cores from zero over two steps at a time and added
+// to c in fp32: the tensor cores' own accumulation truncates, and over a
+// long sum of the large terms that drifts past fp32's rounding (dP - Delta
+// cancels at one key).  The three sums are independent, so no product
+// waits on the one before it.
+template <int D, int NT, int SA, int SB>
+__device__ __forceinline__ void tf_scores(float (&c)[NT][4], const float* ah_,
+                                          const float* al_, int r0,
+                                          const float* bh_, const float* bl_,
+                                          int lane) {
+  static_assert(D % 16 == 0, "k8 steps in pairs");
+  float c1[NT][4], c2[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[n][i] = c1[n][i] = c2[n][i] = 0.0f;
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ks += 2) {
+    float t[NT][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
+      tf_frag_a<SA>(ah, al, ah_, al_, r0, 8 * (ks + h), lane);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        tf_frag_b_row<SB>(bh[n], bl[n], bh_, bl_, 8 * n, 8 * (ks + h), lane);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        tf_mma(c1[n], al, bh[n]);
+        tf_mma(c2[n], ah, bl[n]);
+        if (h == 0)
+          tf_mma0(t[n], ah, bh[n]);
+        else
+          tf_mma(t[n], ah, bh[n]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[n][i] += t[n][i];
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[n][i] += c1[n][i] + c2[n][i];
+}
+
+// acc (16 x 8 N) += A . B over NT k8 steps: A the NT A fragments (ah, al)
+// (accumulator fragments made A fragments, tf_c_to_a), B rows 0 .. 8 NT -
+// 1 of tile (bh_, bl_) (stride SB), columns n_base + 8 n.  The 8-column
+// blocks go in groups of GRP; a group's large terms and its small terms
+// over the NT steps are summed on the tensor cores from zero, in two sums
+// that do not wait on each other, and added to acc in fp32, as in
+// tf_scores, so that no running sum is left to the tensor cores'
+// truncating accumulation over more than one tile.
+template <int N, int NT, int SB>
+__device__ __forceinline__ void tf_accumulate(float (&acc)[N][4],
+                                              const uint32_t (&ah)[NT][4],
+                                              const uint32_t (&al)[NT][4],
+                                              const float* bh_,
+                                              const float* bl_, int n_base,
+                                              int lane) {
+  constexpr int GRP = N % 4 == 0 && N <= 16 ? 4 : 2;
+  static_assert(N % GRP == 0, "whole groups");
+#pragma unroll
+  for (int n0 = 0; n0 < N; n0 += GRP) {
+    float tb[GRP][4], ts[GRP][4];
+#pragma unroll
+    for (int k = 0; k < NT; ++k) {
+      uint32_t bh[GRP][2], bl[GRP][2];
+#pragma unroll
+      for (int u = 0; u < GRP; ++u)
+        tf_frag_b_col<SB>(bh[u], bl[u], bh_, bl_, 8 * k,
+                          n_base + 8 * (n0 + u), lane);
+#pragma unroll
+      for (int u = 0; u < GRP; ++u) {
+        if (k == 0) {
+          tf_mma0(ts[u], al[k], bh[u]);
+          tf_mma0(tb[u], ah[k], bh[u]);
+        } else {
+          tf_mma(ts[u], al[k], bh[u]);
+          tf_mma(tb[u], ah[k], bh[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < GRP; ++u) tf_mma(ts[u], ah[k], bl[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < GRP; ++u)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n0 + u][i] += tb[u][i] + ts[u][i];
+  }
+}
+
+// No pair of keys [k0, k0 + nk) and queries at positions [qa, qa + nq) is
+// kept: the keys lie past the valid ones, above the causal diagonal, or a
+// window or more before the queries.
+__device__ __forceinline__ bool tf_none_kept(int k0, int nk, int qa, int nq,
+                                             int kvl, int causal,
+                                             int window) {
+  return k0 >= kvl || (causal && k0 > qa + nq - 1) ||
+         (window && qa - (k0 + nk - 1) >= window);
+}
+
+// ---- K5's forward ----------------------------------------------------------
+// NW warps of 16 query rows each (BQ = 16 NW rows a block), BK keys a tile.
+// Q (split once) and two stages of K and V (hi and lo each) in dynamic
+// shared memory, sized so that an SM holds eight warps where it can: up
+// to head dim 96, two blocks of four (BK 32, or 16 at 80 and 96; 86-104
+// KB each); at 128 one block of eight (BK 16, 198 KB), or of four or two
+// (BK 32) where the grid is small; at 256 one block of four (BK 8) or two
+// (BK 16).
+template <int DQK, int DV, int NW>
+struct TfFwd {
+  static constexpr int BQ = 16 * NW, THREADS = 32 * NW;
+  static constexpr int BK = DQK <= 64 ? 32
+                            : DQK < 128 ? 16
+                            : DQK == 128 ? (NW == 8 ? 16 : 32)
+                            : (NW == 4 ? 8 : 16);
+  static constexpr int SQ = tf_stride(DQK), SV = tf_stride(DV);
+  static constexpr int QW = BQ * SQ;                 // Q's hi (or lo) words
+  static constexpr int KW = BK * SQ, VW = BK * SV;   // a K (V) tile's
+  static constexpr int STAGE = 2 * (KW + VW);        // K hi, lo, V hi, lo
+  static constexpr int SMEM = 4 * (2 * QW + 2 * STAGE);
+};
+
+template <int DQK, int DV, int NW>
+__global__ void __launch_bounds__(32 * NW, 1)
+flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int H, int KV, int Sq, int Skv,
+                  float scale, int causal, int window, int q_off, int kv_len,
+                  const long long* __restrict__ kv_len_p) {
+  using C = TfFwd<DQK, DV, NW>;
+  constexpr int BQ = C::BQ, BK = C::BK, THREADS = C::THREADS;
+  constexpr int SQ = C::SQ, SV = C::SV, NT = BK / 8, NV = DV / 8;
+  static_assert(DQK % 8 == 0 && DV % 8 == 0, "k8 steps and n8 tiles");
+  extern __shared__ float4 tf_smem[];
+  float* const qh = reinterpret_cast<float*>(tf_smem);
+  float* const ql = qh + C::QW;
+  float* const st0 = ql + C::QW;   // stage s at st0 + s STAGE
+
+  const int kvl = valid_keys(kv_len_p, kv_len, Skv);
+  const TileRange tr = tile_range(blockIdx.y, gridDim.y, blockIdx.x, BQ, Sq,
+                                  Skv, causal, window, q_off, kvl);
+  const int b = tr.bh / H, kvh = (tr.bh % H) / (H / KV);
+  const float* const qg = q + (size_t)tr.bh * Sq * DQK;
+  const float* const kg = k + ((size_t)b * KV + kvh) * Skv * DQK;
+  const float* const vg = v + ((size_t)b * KV + kvh) * Skv * DV;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = warp * 16;                   // the warp's rows in the block
+  const int row0 = tr.q0 + wr + lane / 4;     // this thread's: row0, row0 + 8
+  const int qa = tr.q0 + wr + q_off;          // the warp's first position
+  const int col0 = 2 * (lane % 4);
+  const float scale_log2 = scale * LOG2E;
+  const int j_lo = tr.k_lo / BK, j_hi = (tr.k_hi + BK - 1) / BK;
+
+  float acc[NV][4];
+#pragma unroll
+  for (int n = 0; n < NV; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
+  // m in the scores' own units, l a per-thread partial sum
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+
+  // A stage: K hi, K lo, V hi, V lo.  Each thread splits the chunks it
+  // copied (tf_load's and tf_split's loops walk the same elements), so a
+  // tile is split as soon as this thread's copies land, with no barrier
+  // between; the barrier after publishes the split tile.
+  auto stage = [&](int st) { return st0 + st * C::STAGE; };
+  auto load_kv = [&](int j, int st) {
+    tf_load<BK, DQK, THREADS>(stage(st), kg, j * BK, Skv);
+    tf_load<BK, DV, THREADS>(stage(st) + 2 * C::KW, vg, j * BK, Skv);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  auto split_kv = [&](int st) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    tf_split<BK, DQK, THREADS>(stage(st), stage(st) + C::KW);
+    tf_split<BK, DV, THREADS>(stage(st) + 2 * C::KW,
+                              stage(st) + 2 * C::KW + C::VW);
+  };
+  if (j_lo < j_hi) {
+    tf_load<BQ, DQK, THREADS>(qh, qg, tr.q0, Sq);
+    load_kv(j_lo, 0);
+    split_kv(0);
+    tf_split<BQ, DQK, THREADS>(qh, ql);
+  }
+  __syncthreads();
+
+  for (int j = j_lo; j < j_hi; ++j) {
+    const int st = (j - j_lo) & 1;
+    const float* const kh = stage(st);
+    const float* const kl = kh + C::KW;
+    const float* const vh = kl + C::KW;
+    const float* const vl = vh + C::VW;
+    // tile j + 1's copies go to the other stage (tile j - 1's, which every
+    // warp is done with) and land while tile j's products run
+    if (j + 1 < j_hi) load_kv(j + 1, st ^ 1);
+    const int k0 = j * BK;
+    // a warp whose rows keep no pair of the tile skips it (unless the block
+    // holds a row that sees no key: such a row weighs every key)
+    if (tr.full || !tf_none_kept(k0, BK, qa, 16, kvl, causal, window)) {
+      float s[NT][4];
+      tf_scores<DQK, NT, SQ, SQ>(s, qh, ql, wr, kh, kl, lane);
+
+      // The online softmax in fp32, as the bf16 kernel's: m in the scores'
+      // units, 2^(s c - m c) with c = log2(e) / sqrt(DQK), masks applied to S
+      // after the products.
+      const bool masked = tile_masked(k0, BK, qa, qa + 15, kvl, causal, window,
+                                      tr.full);
+      float tmax[2] = {-INFINITY, -INFINITY};
+  #pragma unroll
+      for (int n = 0; n < NT; ++n)
+  #pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i / 2;
+          if (masked) {
+            const int kpos = k0 + 8 * n + col0 + (i % 2);
+            if (pair_masked(row0 + 8 * r + q_off, kpos, kvl, causal, window))
+              s[n][i] = NEG_INF;
+            if (kpos >= Skv) s[n][i] = -INFINITY;  // past the end: weight 0
+          }
+          tmax[r] = fmaxf(tmax[r], s[n][i]);
+        }
+      float alpha[2];
+  #pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+        tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+        const float m_new = fmaxf(m[r], tmax[r]);
+        alpha[r] = ex2((m[r] - m_new) * scale_log2);
+        m[r] = m_new;
+      }
+      float psum[2] = {0.0f, 0.0f};
+      if (masked) {
+        // s - m first: exactly 0 where both are NEG_INF (a row that has seen
+        // no key)
+  #pragma unroll
+        for (int n = 0; n < NT; ++n)
+  #pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[n][i] = ex2((s[n][i] - m[i / 2]) * scale_log2);
+            psum[i / 2] += s[n][i];
+          }
+      } else {
+        const float mc[2] = {m[0] * scale_log2, m[1] * scale_log2};
+  #pragma unroll
+        for (int n = 0; n < NT; ++n)
+  #pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[n][i] = ex2(fmaf(s[n][i], scale_log2, -mc[i / 2]));
+            psum[i / 2] += s[n][i];
+          }
+      }
+      l[0] = l[0] * alpha[0] + psum[0];
+      l[1] = l[1] * alpha[1] + psum[1];
+  #pragma unroll
+      for (int n = 0; n < NV; ++n)
+  #pragma unroll
+        for (int i = 0; i < 4; ++i) acc[n][i] *= alpha[i / 2];
+      // O += P V, P split in registers as the A fragments of the tile's
+      // NT 8-key steps
+      uint32_t ph[NT][4], pl[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) tf_c_to_a(s[n], ph[n], pl[n]);
+      tf_accumulate<NV, NT, SV>(acc, ph, pl, vh, vl, 0, lane);
+    }
+    // tile j + 1 split as it lands, then published, and stage st freed for
+    // tile j + 2
+    if (j + 1 < j_hi) split_kv(st ^ 1);
+    __syncthreads();
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.0f / fmaxf(l[r], 1e-30f);
+  }
+  if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < Sq)
+        lse[(size_t)tr.bh * Sq + row0 + 8 * r] =
+            row_lse(m[r] == NEG_INF ? NEG_INF : m[r] * scale, l[r]);
+  }
+#pragma unroll
+  for (int n = 0; n < NV; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < Sq)
+        *reinterpret_cast<float2*>(o + ((size_t)tr.bh * Sq + row0 + 8 * r) *
+                                           DV + 8 * n + col0) =
+            make_float2(acc[n][2 * r] * inv[r], acc[n][2 * r + 1] * inv[r]);
+}
+
+template <int DQK, int DV, int NW>
+int launch_tf32(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int H, int KV, int Sq, int Skv,
+                float scale, int causal, int window, int q_off, int kv_len,
+                const long long* kv_len_p, cudaStream_t stream) {
+  using C = TfFwd<DQK, DV, NW>;
+  static const int attr =
+      static_cast<int>(cudaFuncSetAttribute(
+          flash_tf32_kernel<DQK, DV, NW>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM));
+  if (attr) return attr;
+  const dim3 grid(B * H, (Sq + C::BQ - 1) / C::BQ);
+  flash_tf32_kernel<DQK, DV, NW><<<grid, C::THREADS, C::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, KV, Sq,
+      Skv, scale, causal, window, q_off, kv_len, kv_len_p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5 in fp32: blocks of four warps (64 query rows); at head dim 128 of
+// eight (128 rows) where those fill the SMs; of two (32) where 64-row
+// blocks would leave SMs idle.
+template <int DQK, int DV>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int KV, int Sq, int Skv, float scale,
+               int causal, int window, int q_off, int kv_len,
+               const long long* kv_len_p, cudaStream_t stream) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long heads = (long long)B * H;
+  if constexpr (DQK == 128) {
+    if (heads * ((Sq + 127) / 128) >= sms)
+      return launch_tf32<DQK, DV, 8>(q, k, v, o, lse, B, H, KV, Sq, Skv,
+                                     scale, causal, window, q_off, kv_len,
+                                     kv_len_p, stream);
+  }
+  if (heads * ((Sq + 63) / 64) >= sms)
+    return launch_tf32<DQK, DV, 4>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale,
+                                   causal, window, q_off, kv_len, kv_len_p,
+                                   stream);
+  return launch_tf32<DQK, DV, 2>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale,
+                                 causal, window, q_off, kv_len, kv_len_p,
+                                 stream);
+}
+
+// ---------------------------------------------------------------------------
 // K5b: the backward, FlashAttention-2's decomposition.
 //
 // Replaces: no TPU kernel.  The JAX package differentiates
@@ -787,12 +1162,12 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 // dK and dV summed over the G = H / KV query heads of a KV head.  A row that
 // saw no key (lse == NEG_INF) weighs every key 1 / Skv, as the forward gave
 // it the mean of V, and passes nothing to dQ or dK (its scores are the
-// constant mask value).  Two passes on one stream: the dK/dV pass, one
-// block per (b, KV head, key tile) and, in bf16, per rank of a cluster
+// constant mask value).  Two passes on one stream, in bf16 and in fp32
+// alike: the dQ pass, one block per (b, head, query tile) walking the key
+// tiles, runs first and computes Delta of its rows on the way; then the
+// dK/dV pass, one block per (b, KV head, key tile) and rank of a cluster
 // that splits the G heads, walking its heads and the query tiles the masks
-// leave; the dQ pass, one block per (b, head, query tile) walking the key
-// tiles.  Delta comes first: in bf16 the dQ pass computes its rows' and
-// runs first, in fp32 a launch of its own.  dK, dV and dQ each accumulate
+// leave.  dK, dV and dQ each accumulate
 // in registers and are written once, in a fixed order (no atomics:
 // deterministic); both passes recompute S and dP, so the backward runs
 // seven products where the least is five (dQ's atomics are the price of
@@ -805,7 +1180,7 @@ struct BwdArgs {
   const void* dout;
   const void* o;
   const float* lse;
-  float* delta;       // written by the bf16 dQ pass or the fp32 Delta launch
+  float* delta;       // written by the dQ pass, read by the dK/dV pass
   void* dq;
   void* dk;
   void* dv;
@@ -815,24 +1190,6 @@ struct BwdArgs {
   int q_off, kv_len;              // the positions' shift, the valid keys
   const long long* kv_len_p;      // the valid keys on the card, or null
 };
-
-// Delta = rowsum(dO o O) over the Dv columns of O and dO in fp32, a warp a
-// row (fp32; the bf16 dQ pass computes its own).
-template <typename E>
-__global__ void __launch_bounds__(256)
-flash_bwd_delta_kernel(const E* __restrict__ o, const E* __restrict__ dout,
-                       float* __restrict__ delta, int rows, int D) {
-  const int row = blockIdx.x * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;      // the whole warp
-  const E* op = o + (size_t)row * D;
-  const E* gp = dout + (size_t)row * D;
-  float sum = 0.0f;
-  for (int d = lane; d < D; d += 32) sum = fmaf(to_f32(op[d]), to_f32(gp[d]), sum);
-#pragma unroll
-  for (int off = 16; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (lane == 0) delta[row] = sum;
-}
 
 // The query rows [q_lo, q_hi) that see any of keys [k0, k0 + BK) below
 // the kvl valid keys, a row i at position i + q_off: causal rows from k0 -
@@ -1459,200 +1816,377 @@ flash_bwd_bf16_kernel(const BwdArgs a) {
   }
 }
 
-// ---- fp32 on the CUDA cores -----------------------------------------------
-// The same two modes with 32-row own and other tiles of fp32 in shared
-// memory (the other tiles' rows padded to DQK + 1 and DV + 1 words,
-// conflict-free when a warp reads one column of 32 rows).  Phase 1: a
-// thread four (own, other) pairs, one other row a lane, S over DQK and dP
-// over DV; phase 2: a thread DQK / 8 elements of dK (or dQ) and DV / 8 of
-// dV, consecutive columns a warp.
-constexpr int F_BO = 32, F_BT = 32;
-
+// ---- fp32: 3xTF32 on the tensor cores (mma.sync) -------------------------
+// K5's fp32 helpers (tf_load, tf_split, the fragments, tf_scores,
+// tf_accumulate) in the bf16 passes' two-pass shape.  A warp owns 16 rows
+// (query rows for dQ, keys for dK/dV) and runs all its products: S and dP
+// (own . other^T, three accumulators each), P and dS from them (pair_grads
+// where the step is masked), then dQ += dS K, or dV += P^T dO and dK +=
+// dS^T Q with P^T and dS^T split in registers as A fragments.  The own
+// tiles are split once a block; the other side's tiles arrive by cp.async
+// into two stages, one step ahead, and are split once they land.  The dQ
+// pass runs first and computes Delta = rowsum(dO o O) of its rows on the
+// way (fp32, a warp a row), for itself and into the scratch the dK/dV pass
+// reads.  The dK/dV pass splits a KV head's G query heads over the R ranks
+// of a cluster (bwd_plan's R for the fp32 rows), the ranks' fp32 partials
+// summed in rank order through distributed shared memory as in bf16.  At
+// head dim 256 the dK and dV of 16 keys are 256 registers a thread, so two
+// warps share 16 keys, each recomputing S and dP and taking half of dK's
+// and dV's columns; the dQ pass's block is 32 rows there.
 template <int DQK, int DV>
-constexpr int bwd_f32_smem_bytes() {
-  return (F_BO * (DQK + DV) + F_BT * (DQK + 1 + DV + 1) +
-          2 * F_BO * (F_BT + 1) + 2 * F_BT) *
-         4;
+struct TfBwd {
+  static constexpr bool WIDE = DQK > 128;            // head dim 256
+  static constexpr int KROWS = WIDE ? 16 : 64;       // own keys, dK/dV
+  static constexpr int CS = WIDE ? 2 : 1;            // column groups
+  static constexpr int KV_WARPS = KROWS / 16 * CS;
+  static constexpr int QROWS = WIDE ? 32 : 64;       // own query rows, dQ
+  static constexpr int Q_WARPS = QROWS / 16;
+  static constexpr int BTK = 16;                     // query rows a dK/dV step
+  static constexpr int BTQ = WIDE ? 8 : 16;          // keys a dQ step
+  static constexpr int SQ = tf_stride(DQK), SV = tf_stride(DV);
+  // own hi and lo of both operands, two stages of the other side's, and
+  // the own rows' Delta (dQ) or each stage's rows' lse and Delta (dK/dV);
+  // the dK/dV ranks' partials reuse the tiles
+  static constexpr int Q_SMEM = 4 * (2 * (QROWS + 2 * BTQ) * (SQ + SV) + QROWS);
+  static constexpr int KV_TILES =
+      4 * (2 * (KROWS + 2 * BTK) * (SQ + SV) + 4 * BTK);
+  static constexpr int KV_RED = 4 * KROWS * (SQ + SV);
+  static constexpr int KV_SMEM = KV_TILES > KV_RED ? KV_TILES : KV_RED;
+};
+
+// Query rows [q0, q0 + nq) and keys [k0, k0 + nk) need masking pair by
+// pair: the keys cross the shifted causal diagonal, the window's edge or
+// the end of the valid keys, the rows run past Sq, or one sees no key.
+__device__ __forceinline__ bool tf_pairs_masked(int k0, int nk, int q0,
+                                                int nq, const BwdArgs& a,
+                                                int kvl) {
+  return k0 + nk > kvl || q0 + nq > a.Sq ||
+         (a.causal && k0 + nk - 1 > q0 + a.q_off) ||
+         (a.window && q0 + nq - 1 + a.q_off - k0 >= a.window) ||
+         row_dead(q0 + nq - 1 + a.q_off, kvl, a.window);
 }
 
-template <int DQK, int DV, bool KVM>
-__global__ void __launch_bounds__(BWD_THREADS)
-flash_bwd_f32_kernel(const BwdArgs a) {
-  constexpr int OSQ = DQK + 1, OSV = DV + 1;  // words an other-tile row
-  constexpr int PS = F_BT + 1;              // words a P/dS row
-  constexpr int NEQ = F_BO * DQK / BWD_THREADS;  // dK or dQ a thread
-  constexpr int NEV = F_BO * DV / BWD_THREADS;   // dV a thread
-  static_assert(F_BO * DQK % BWD_THREADS == 0 && F_BO * DV % BWD_THREADS == 0,
-                "whole rows a pass");
-  extern __shared__ float fsm[];
-  float* const own1 = fsm;                  // K or Q
-  float* const own2 = own1 + F_BO * DQK;    // V or dO
-  float* const oth1 = own2 + F_BO * DV;     // Q or K
-  float* const oth2 = oth1 + F_BT * OSQ;    // dO or V
-  float* const ps = oth2 + F_BT * OSV;
-  float* const dss = ps + F_BO * PS;
-  float* const lse_s = dss + F_BO * PS;
-  float* const delta_s = lse_s + F_BT;
-  const float* const Q = static_cast<const float*>(a.q);
-  const float* const K = static_cast<const float*>(a.k);
-  const float* const V = static_cast<const float*>(a.v);
-  const float* const dO = static_cast<const float*>(a.dout);
+// A warp skips a step where its pairs keep none and no row sees no key.
+__device__ __forceinline__ bool tf_step_empty(int k0, int nk, int q0, int nq,
+                                              const BwdArgs& a, int kvl) {
+  return !row_dead(q0 + nq - 1 + a.q_off, kvl, a.window) &&
+         (q0 >= a.Sq ||
+          tf_none_kept(k0, nk, q0 + a.q_off, nq, kvl, a.causal, a.window));
+}
+
+template <int DQK, int DV>
+__global__ void __launch_bounds__(32 * TfBwd<DQK, DV>::Q_WARPS, 1)
+flash_bwd_dq_tf32_kernel(const BwdArgs a) {
+  using C = TfBwd<DQK, DV>;
+  constexpr int THREADS = 32 * C::Q_WARPS, BQ = C::QROWS, BT = C::BTQ;
+  constexpr int SQ = C::SQ, SV = C::SV, NT = BT / 8;
+  constexpr int KW = BT * SQ, VW = BT * SV, STAGE = 2 * (KW + VW);
+  extern __shared__ float4 tf_smem[];
+  float* const qh = reinterpret_cast<float*>(tf_smem);
+  float* const ql = qh + BQ * SQ;
+  float* const gh = ql + BQ * SQ;           // dO
+  float* const gl = gh + BQ * SV;
+  float* const st0 = gl + BQ * SV;          // stage s: K hi, K lo, V hi, V lo
+  float* const delta_s = st0 + 2 * STAGE;   // the own rows' Delta
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = warp * 16, col0 = 2 * (lane % 4);
+  const int G = a.H / a.KV;
+  const float scale_log2 = a.scale * LOG2E, inv_skv = 1.0f / a.Skv;
+  const int kvl = valid_keys(a.kv_len_p, a.kv_len, a.Skv);
+  const TileRange tr = tile_range(blockIdx.y, gridDim.y, blockIdx.x, BQ,
+                                  a.Sq, a.Skv, a.causal, a.window, a.q_off,
+                                  kvl);
+  const int b = tr.bh / a.H, kvh = (tr.bh % a.H) / G;
+  const size_t kv = (size_t)b * a.KV + kvh;
+  const float* const Qg = static_cast<const float*>(a.q) + (size_t)tr.bh * a.Sq * DQK;
+  const float* const Gg = static_cast<const float*>(a.dout) + (size_t)tr.bh * a.Sq * DV;
+  const float* const Og = static_cast<const float*>(a.o) + (size_t)tr.bh * a.Sq * DV;
+  const float* const Kg = static_cast<const float*>(a.k) + kv * a.Skv * DQK;
+  const float* const Vg = static_cast<const float*>(a.v) + kv * a.Skv * DV;
+  const int j_lo = tr.k_lo / BT, j_hi = (tr.k_hi + BT - 1) / BT;
+
+  // Each thread splits the chunks it copied (as in K5's forward): a tile
+  // is split as this thread's copies land, and the barrier after
+  // publishes it.
+  auto stage = [&](int st) { return st0 + st * STAGE; };
+  auto load_kv = [&](int j, int st) {
+    tf_load<BT, DQK, THREADS>(stage(st), Kg, j * BT, a.Skv);
+    tf_load<BT, DV, THREADS>(stage(st) + 2 * KW, Vg, j * BT, a.Skv);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  auto split_kv = [&](int st) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    tf_split<BT, DQK, THREADS>(stage(st), stage(st) + KW);
+    tf_split<BT, DV, THREADS>(stage(st) + 2 * KW, stage(st) + 2 * KW + VW);
+  };
+  tf_load<BQ, DQK, THREADS>(qh, Qg, tr.q0, a.Sq);
+  tf_load<BQ, DV, THREADS>(gh, Gg, tr.q0, a.Sq);
+  if (j_lo < j_hi) load_kv(j_lo, 0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  // Delta of the warp's 16 rows, a warp a row, lanes over the columns
+#pragma unroll 1
+  for (int i = 0; i < 16; ++i) {
+    const int r = tr.q0 + wr + i;
+    float sum = 0.0f;
+    if (r < a.Sq)
+      for (int d = lane; d < DV; d += 32)
+        sum = fmaf(Og[(size_t)r * DV + d], Gg[(size_t)r * DV + d], sum);
+#pragma unroll
+    for (int off = 16; off; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) {
+      delta_s[wr + i] = sum;
+      if (r < a.Sq) a.delta[(size_t)tr.bh * a.Sq + r] = sum;
+    }
+  }
+  __syncwarp();
+  const int row0 = tr.q0 + wr + lane / 4;   // this thread's: row0, row0 + 8
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    l2[r] = qi < a.Sq ? lse_log2(a.lse[(size_t)tr.bh * a.Sq + qi]) : 0.0f;
+    dl[r] = delta_s[wr + lane / 4 + 8 * r];
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  if (j_lo < j_hi) split_kv(0);
+  tf_split<BQ, DQK, THREADS>(qh, ql);
+  tf_split<BQ, DV, THREADS>(gh, gl);
+  __syncthreads();
+
+  float dq[DQK / 8][4];
+#pragma unroll
+  for (int n = 0; n < DQK / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dq[n][i] = 0.0f;
+
+  for (int j = j_lo; j < j_hi; ++j) {
+    const int st = (j - j_lo) & 1;
+    const float* const kh = stage(st);
+    const float* const kl = kh + KW;
+    const float* const vh = kl + KW;
+    const float* const vl = vh + VW;
+    if (j + 1 < j_hi) load_kv(j + 1, st ^ 1);
+    const int k0 = j * BT, q0 = tr.q0 + wr;
+    if (!tf_step_empty(k0, BT, q0, 16, a, kvl)) {
+      const bool masked = tf_pairs_masked(k0, BT, q0, 16, a, kvl);
+      float s[NT][4], dp[NT][4];
+      tf_scores<DQK, NT, SQ, SQ>(s, qh, ql, wr, kh, kl, lane);
+      tf_scores<DV, NT, SV, SV>(dp, gh, gl, wr, vh, vl, lane);
+      // dS = P (dP - Delta) scale, split as the A fragments of dQ += dS K
+      uint32_t dh[NT][4], dlo[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i / 2;
+          float p, ds;
+          if (masked) {
+            pair_grads(s[n][i], dp[n][i], row0 + 8 * r,
+                       k0 + 8 * n + col0 + (i % 2), l2[r], dl[r], a, kvl,
+                       scale_log2, inv_skv, p, ds);
+          } else {
+            p = ex2(fmaf(s[n][i], scale_log2, -l2[r]));
+            ds = p * (dp[n][i] - dl[r]) * a.scale;
+          }
+          s[n][i] = ds;
+        }
+        tf_c_to_a(s[n], dh[n], dlo[n]);
+      }
+      tf_accumulate<DQK / 8, NT, SQ>(dq, dh, dlo, kh, kl, 0, lane);
+    }
+    if (j + 1 < j_hi) split_kv(st ^ 1);
+    __syncthreads();
+  }
+
+  float* const out = static_cast<float*>(a.dq) + (size_t)tr.bh * a.Sq * DQK;
+#pragma unroll
+  for (int n = 0; n < DQK / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < a.Sq)
+        *reinterpret_cast<float2*>(out + (size_t)(row0 + 8 * r) * DQK + 8 * n +
+                                   col0) =
+            make_float2(dq[n][2 * r], dq[n][2 * r + 1]);
+}
+
+template <int DQK, int DV>
+__global__ void __launch_bounds__(32 * TfBwd<DQK, DV>::KV_WARPS, 1)
+flash_bwd_dkdv_tf32_kernel(const BwdArgs a) {
+  using C = TfBwd<DQK, DV>;
+  constexpr int THREADS = 32 * C::KV_WARPS, ROWS = C::KROWS, BT = C::BTK;
+  constexpr int CS = C::CS, SQ = C::SQ, SV = C::SV, NT = BT / 8;
+  constexpr int NDV = DV / 8 / CS, NDK = DQK / 8 / CS;  // a warp's 8-column tiles
+  static_assert(DV / 8 % CS == 0 && DQK / 8 % CS == 0, "whole column groups");
+  constexpr int QW = BT * SQ, GW = BT * SV, STAGE = 2 * (QW + GW);
+  extern __shared__ float4 tf_smem[];
+  float* const kh = reinterpret_cast<float*>(tf_smem);
+  float* const kl = kh + ROWS * SQ;
+  float* const vh = kl + ROWS * SQ;
+  float* const vl = vh + ROWS * SV;
+  float* const st0 = vl + ROWS * SV;        // stage s: Q hi, lo, dO hi, lo
+  float* const rows_s = st0 + 2 * STAGE;    // stage s: lse at 2 BT s, Delta BT on
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int kr = warp / CS * 16, cw = warp % CS;  // own rows, column group
+  const int col0 = 2 * (lane % 4);
   const int G = a.H / a.KV;
-  const float scale_log2 = a.scale * LOG2E;
-  const float inv_skv = 1.0f / a.Skv;
+  const float scale_log2 = a.scale * LOG2E, inv_skv = 1.0f / a.Skv;
   const int kvl = valid_keys(a.kv_len_p, a.kv_len, a.Skv);
-  int b, kvh, own0, bh_own = 0;
-  TileRange t{};
-  const float* own1g;
-  const float* own2g;
-  int own_valid;
-  if constexpr (KVM) {
-    b = blockIdx.x / a.KV;
-    kvh = blockIdx.x % a.KV;
-    own0 = blockIdx.y * F_BO;
-    own1g = K + (size_t)blockIdx.x * a.Skv * DQK;
-    own2g = V + (size_t)blockIdx.x * a.Skv * DV;
-    own_valid = a.Skv;
-  } else {
-    t = tile_range(blockIdx.y, gridDim.y, blockIdx.x, F_BO, a.Sq, a.Skv,
-                   a.causal, a.window, a.q_off, kvl);
-    bh_own = t.bh;
-    b = t.bh / a.H;
-    kvh = (t.bh % a.H) / G;
-    own0 = t.q0;
-    own1g = Q + (size_t)t.bh * a.Sq * DQK;
-    own2g = dO + (size_t)t.bh * a.Sq * DV;
-    own_valid = a.Sq;
-    for (int i = tid; i < F_BO; i += BWD_THREADS) {
-      const int r = own0 + i;
-      const size_t at = (size_t)t.bh * a.Sq + r;
-      lse_s[i] = r < a.Sq ? lse_log2(a.lse[at]) : 0.0f;
-      delta_s[i] = r < a.Sq ? a.delta[at] : 0.0f;
-    }
-  }
-  for (int e = tid; e < F_BO * DQK; e += BWD_THREADS)
-    own1[e] = own0 + e / DQK < own_valid ? own1g[(size_t)own0 * DQK + e] : 0.0f;
-  for (int e = tid; e < F_BO * DV; e += BWD_THREADS)
-    own2[e] = own0 + e / DV < own_valid ? own2g[(size_t)own0 * DV + e] : 0.0f;
-  float acc1[NEQ], acc2[KVM ? NEV : 1];
-#pragma unroll
-  for (int j = 0; j < NEQ; ++j) acc1[j] = 0.0f;
-#pragma unroll
-  for (int j = 0; j < (KVM ? NEV : 1); ++j) acc2[j] = 0.0f;
+  const int R = gridDim.x, rank = blockIdx.x;   // the cluster spans grid x
+  const int b = blockIdx.y / a.KV, kvh = blockIdx.y % a.KV;
+  // key tiles heaviest first, as in bf16
+  const int own0 = (a.causal ? blockIdx.z : gridDim.z - 1 - blockIdx.z) * ROWS;
+  int q_lo, q_hi;
+  query_range(own0, ROWS, a.Sq, a.causal, a.window, a.q_off, kvl, q_lo, q_hi);
+  const int qt_lo = q_lo / BT;
+  const int nqt = q_hi > q_lo ? (q_hi + BT - 1) / BT - qt_lo : 0;
+  const int heads = rank < G ? (G - rank + R - 1) / R : 0;
+  const int n_steps = heads * nqt;
+  const float* const Q = static_cast<const float*>(a.q);
+  const float* const dO = static_cast<const float*>(a.dout);
+  tf_load<ROWS, DQK, THREADS>(
+      kh, static_cast<const float*>(a.k) + (size_t)blockIdx.y * a.Skv * DQK,
+      own0, a.Skv);
+  tf_load<ROWS, DV, THREADS>(
+      vh, static_cast<const float*>(a.v) + (size_t)blockIdx.y * a.Skv * DV,
+      own0, a.Skv);
 
-  auto step = [&](int bh, int o0) {
-    const float* o1g;
-    const float* o2g;
-    int valid;
-    if constexpr (KVM) {
-      o1g = Q + (size_t)bh * a.Sq * DQK;
-      o2g = dO + (size_t)bh * a.Sq * DV;
-      valid = a.Sq;
-    } else {
-      const size_t kv = (size_t)b * a.KV + kvh;
-      o1g = K + kv * a.Skv * DQK;
-      o2g = V + kv * a.Skv * DV;
-      valid = a.Skv;
+  // step s: head rank + R (s / nqt) of the KV head's G, query tile s % nqt;
+  // each thread splits the chunks it copied, as in K5's forward
+  auto stage = [&](int st) { return st0 + st * STAGE; };
+  auto load_step = [&](int s, int st) {
+    const size_t bh = (size_t)b * a.H + kvh * G + rank + R * (s / nqt);
+    const int o0 = (qt_lo + s % nqt) * BT;
+    tf_load<BT, DQK, THREADS>(stage(st), Q + bh * a.Sq * DQK, o0, a.Sq);
+    tf_load<BT, DV, THREADS>(stage(st) + 2 * QW, dO + bh * a.Sq * DV, o0,
+                             a.Sq);
+    for (int i = tid; i < 2 * BT; i += THREADS) {
+      const int r = o0 + i % BT;
+      const float* src = (i < BT ? a.lse : a.delta) + bh * a.Sq + r;
+      cp_async4(smem_u32(rows_s + st * 2 * BT + i), r < a.Sq ? src : a.lse,
+                r < a.Sq);
     }
-    __syncthreads();
-    for (int e = tid; e < F_BT * DQK; e += BWD_THREADS) {
-      const int r = e / DQK, c = e % DQK;
-      oth1[r * OSQ + c] = o0 + r < valid ? o1g[(size_t)o0 * DQK + e] : 0.0f;
-    }
-    for (int e = tid; e < F_BT * DV; e += BWD_THREADS) {
-      const int r = e / DV, c = e % DV;
-      oth2[r * OSV + c] = o0 + r < valid ? o2g[(size_t)o0 * DV + e] : 0.0f;
-    }
-    if constexpr (KVM) {
-      for (int i = tid; i < F_BT; i += BWD_THREADS) {
-        const int r = o0 + i;
-        const size_t at = (size_t)bh * a.Sq + r;
-        lse_s[i] = r < a.Sq ? lse_log2(a.lse[at]) : 0.0f;
-        delta_s[i] = r < a.Sq ? a.delta[at] : 0.0f;
-      }
-    }
-    __syncthreads();
-    float sv[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dpv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-    for (int d = 0; d < DQK; ++d) {
-      const float x1 = oth1[lane * OSQ + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        sv[i] = fmaf(own1[(warp + 8 * i) * DQK + d], x1, sv[i]);
-    }
-#pragma unroll 4
-    for (int d = 0; d < DV; ++d) {
-      const float x2 = oth2[lane * OSV + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        dpv[i] = fmaf(own2[(warp + 8 * i) * DV + d], x2, dpv[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = warp + 8 * i;
-      const int qloc = KVM ? lane : r;
-      const int qi = KVM ? o0 + lane : own0 + r;
-      const int kj = KVM ? own0 + r : o0 + lane;
-      float p, ds;
-      pair_grads(sv[i], dpv[i], qi, kj, lse_s[qloc], delta_s[qloc], a, kvl,
-                 scale_log2, inv_skv, p, ds);
-      ps[r * PS + lane] = p;
-      dss[r * PS + lane] = ds;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < NEQ; ++j) {
-      const int e = tid + BWD_THREADS * j;
-      const int r = e / DQK, d = e % DQK;
-#pragma unroll 8
-      for (int c = 0; c < F_BT; ++c)
-        acc1[j] = fmaf(dss[r * PS + c], oth1[c * OSQ + d], acc1[j]);
-    }
-    if constexpr (KVM) {
-#pragma unroll
-      for (int j = 0; j < NEV; ++j) {
-        const int e = tid + BWD_THREADS * j;
-        const int r = e / DV, d = e % DV;
-#pragma unroll 8
-        for (int c = 0; c < F_BT; ++c)
-          acc2[j] = fmaf(ps[r * PS + c], oth2[c * OSV + d], acc2[j]);
-      }
-    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
+  auto split_step = [&](int st) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    tf_split<BT, DQK, THREADS>(stage(st), stage(st) + QW);
+    tf_split<BT, DV, THREADS>(stage(st) + 2 * QW, stage(st) + 2 * QW + GW);
+  };
+  asm volatile("cp.async.commit_group;\n" ::: "memory");  // the own tiles
+  if (n_steps > 0) load_step(0, 0);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  tf_split<ROWS, DQK, THREADS>(kh, kl);
+  tf_split<ROWS, DV, THREADS>(vh, vl);
+  if (n_steps > 0) split_step(0);
+  __syncthreads();
 
-  if constexpr (KVM) {
-    int q_lo, q_hi;
-    query_range(own0, F_BO, a.Sq, a.causal, a.window, a.q_off, kvl, q_lo,
-                q_hi);
-    for (int g = 0; g < G; ++g)
-      for (int o0 = q_lo / F_BT * F_BT; o0 < q_hi; o0 += F_BT)
-        step(b * a.H + kvh * G + g, o0);
-  } else {
-    for (int o0 = t.k_lo / F_BT * F_BT; o0 < t.k_hi; o0 += F_BT)
-      step(bh_own, o0);
-  }
+  float dv[NDV][4], dk[NDK][4];
+#pragma unroll
+  for (int n = 0; n < NDV; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dv[n][i] = 0.0f;
+#pragma unroll
+  for (int n = 0; n < NDK; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[n][i] = 0.0f;
 
-  // dK (or dQ), then dV
-  float* const out1 = KVM ? static_cast<float*>(a.dk) +
-                                (size_t)blockIdx.x * a.Skv * DQK
-                          : static_cast<float*>(a.dq) +
-                                (size_t)bh_own * a.Sq * DQK;
+  for (int s = 0; s < n_steps; ++s) {
+    const int st = s & 1;
+    const float* const qh = stage(st);
+    const float* const ql = qh + QW;
+    const float* const gh = ql + QW;
+    const float* const gl = gh + GW;
+    if (s + 1 < n_steps) load_step(s + 1, st ^ 1);
+    const int o0 = (qt_lo + s % nqt) * BT, k0 = own0 + kr;
+    if (!tf_step_empty(k0, 16, o0, BT, a, kvl)) {
+      const bool masked = tf_pairs_masked(k0, 16, o0, BT, a, kvl);
+      // S^T and dP^T: own keys . the step's query rows
+      float sT[NT][4], dpT[NT][4];
+      tf_scores<DQK, NT, SQ, SQ>(sT, kh, kl, kr, qh, ql, lane);
+      tf_scores<DV, NT, SV, SV>(dpT, vh, vl, kr, gh, gl, lane);
+      const float* const lse_s = rows_s + st * 2 * BT;
+      // P^T into sT, dS^T into dpT
 #pragma unroll
-  for (int j = 0; j < NEQ; ++j) {
-    const int e = tid + BWD_THREADS * j;
-    if (own0 + e / DQK < own_valid) out1[(size_t)own0 * DQK + e] = acc1[j];
-  }
-  if constexpr (KVM) {
-    float* const out2 = static_cast<float*>(a.dv) +
-                        (size_t)blockIdx.x * a.Skv * DV;
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int j = 0; j < NEV; ++j) {
-      const int e = tid + BWD_THREADS * j;
-      if (own0 + e / DV < own_valid) out2[(size_t)own0 * DV + e] = acc2[j];
+        for (int i = 0; i < 4; ++i) {
+          const int c = 8 * n + col0 + (i % 2);   // the query row in the tile
+          const float l2 = lse_log2(lse_s[c]);
+          float p, ds;
+          if (masked) {
+            pair_grads(sT[n][i], dpT[n][i], o0 + c,
+                       k0 + lane / 4 + 8 * (i / 2), l2, lse_s[BT + c], a, kvl,
+                       scale_log2, inv_skv, p, ds);
+          } else {
+            p = ex2(fmaf(sT[n][i], scale_log2, -l2));
+            ds = p * (dpT[n][i] - lse_s[BT + c]) * a.scale;
+          }
+          sT[n][i] = p;
+          dpT[n][i] = ds;
+        }
+      uint32_t fh[NT][4], fl[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) tf_c_to_a(sT[n], fh[n], fl[n]);
+      tf_accumulate<NDV, NT, SV>(dv, fh, fl, gh, gl, cw * (DV / CS), lane);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) tf_c_to_a(dpT[n], fh[n], fl[n]);
+      tf_accumulate<NDK, NT, SQ>(dk, fh, fl, qh, ql, cw * (DQK / CS), lane);
     }
+    if (s + 1 < n_steps) split_step(st ^ 1);
+    __syncthreads();
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  // This rank's partials in fp32 over the tiles: ROWS dV rows of DV + 4,
+  // then ROWS dK rows of DQK + 4.
+  constexpr int RSV = DV + 4, RSK = DQK + 4;
+  float* const red_v = reinterpret_cast<float*>(tf_smem);
+  float* const red_k = red_v + ROWS * RSV;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = kr + lane / 4 + 8 * r;
+#pragma unroll
+    for (int n = 0; n < NDV; ++n)
+      *reinterpret_cast<float2*>(red_v + row * RSV + cw * (DV / CS) + 8 * n +
+                                 col0) = make_float2(dv[n][2 * r],
+                                                     dv[n][2 * r + 1]);
+#pragma unroll
+    for (int n = 0; n < NDK; ++n)
+      *reinterpret_cast<float2*>(red_k + row * RSK + cw * (DQK / CS) + 8 * n +
+                                 col0) = make_float2(dk[n][2 * r],
+                                                     dk[n][2 * r + 1]);
+  }
+  cluster_sync();
+  // Rank `rank` sums its slice of the rows' 4-column chunks (dV's, then
+  // dK's) over the ranks in rank order and writes them.
+  constexpr int NV4 = ROWS * DV / 4, N4 = NV4 + ROWS * DQK / 4;
+  const int lo = rank * N4 / R, hi = (rank + 1) * N4 / R;
+  for (int e = lo + tid; e < hi; e += THREADS) {
+    const bool is_v = e < NV4;
+    const int d = is_v ? DV : DQK, e4 = (is_v ? e : e - NV4) * 4;
+    const int m = e4 / d, col = e4 % d;
+    const uint32_t addr =
+        smem_u32((is_v ? red_v + m * RSV : red_k + m * RSK) + col);
+    float4 v = ld_cluster16(addr, 0);
+    for (int q = 1; q < R; ++q) {
+      const float4 w = ld_cluster16(addr, q);
+      v.x += w.x;
+      v.y += w.y;
+      v.z += w.z;
+      v.w += w.w;
+    }
+    const int row = own0 + m;
+    if (row < a.Skv)
+      *reinterpret_cast<float4*>(static_cast<float*>(is_v ? a.dv : a.dk) +
+                                 ((size_t)blockIdx.y * a.Skv + row) * d +
+                                 col) = v;
+  }
+  cluster_sync();             // no block leaves while read remotely
 }
 
 template <typename Kernel>
@@ -1661,12 +2195,31 @@ int set_smem(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-// The launches of K5b at head dims (DQK, DV); `bf16` picks the tensor-core
-// kernels, whose dK/dV pass runs in clusters of `cluster` blocks.  The
-// shared-memory limits are raised once a kernel and process.
+// A dK/dV pass over `grid`, its clusters of grid.x blocks along x.
+template <typename Kernel>
+int launch_clusters(Kernel kernel, dim3 grid, int threads, int smem,
+                    cudaStream_t stream, const BwdArgs& a) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = grid.x;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, a));
+}
+
+// The launches of K5b at head dims (DQK, DV): the dQ pass first (it writes
+// Delta, which the dK/dV pass reads), then the dK/dV pass in clusters of
+// `cluster` blocks; `bf16` picks the wgmma kernels, else the 3xTF32 ones.
+// The shared-memory limits are raised once a kernel and process.
 template <int DQK, int DV, bool BF16>
-int launch_bwd(const BwdArgs& a, const void* o, float* delta, int B,
-               int cluster, cudaStream_t stream) {
+int launch_bwd(const BwdArgs& a, int B, int cluster, cudaStream_t stream) {
   int err;
   if constexpr (BF16) {
     constexpr int smem = bwd_bf16_smem_bytes<DQK, DV>();
@@ -1677,48 +2230,31 @@ int launch_bwd(const BwdArgs& a, const void* o, float* delta, int B,
     if (attr_kv) return attr_kv;
     if (attr_q) return attr_q;
     constexpr int rows = bwd_rows<DQK, DV>();
-    // the dQ pass first: it writes Delta, which the dK/dV pass reads
     flash_bwd_bf16_kernel<DQK, DV, false>
         <<<dim3(B * a.H, (a.Sq + rows - 1) / rows), BWD_THREADS, smem,
            stream>>>(a);
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(cluster, B * a.KV, (a.Skv + rows - 1) / rows);
-    cfg.blockDim = dim3(BWD_THREADS);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = cluster;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-    err = static_cast<int>(
-        cudaLaunchKernelEx(&cfg, flash_bwd_bf16_kernel<DQK, DV, true>, a));
+    err = launch_clusters(flash_bwd_bf16_kernel<DQK, DV, true>,
+                          dim3(cluster, B * a.KV, (a.Skv + rows - 1) / rows),
+                          BWD_THREADS, smem, stream, a);
   } else {
-    const int rows = B * a.H * a.Sq;
-    flash_bwd_delta_kernel<float><<<(rows + 7) / 8, 256, 0, stream>>>(
-        static_cast<const float*>(o), static_cast<const float*>(a.dout), delta,
-        rows, DV);
-    err = static_cast<int>(cudaGetLastError());
-    if (err) return err;
-    constexpr int smem = bwd_f32_smem_bytes<DQK, DV>();
-    static const int attr_kv =
-        set_smem(flash_bwd_f32_kernel<DQK, DV, true>, smem);
+    using C = TfBwd<DQK, DV>;
     static const int attr_q =
-        set_smem(flash_bwd_f32_kernel<DQK, DV, false>, smem);
-    if (attr_kv) return attr_kv;
+        set_smem(flash_bwd_dq_tf32_kernel<DQK, DV>, C::Q_SMEM);
+    static const int attr_kv =
+        set_smem(flash_bwd_dkdv_tf32_kernel<DQK, DV>, C::KV_SMEM);
     if (attr_q) return attr_q;
-    flash_bwd_f32_kernel<DQK, DV, true>
-        <<<dim3(B * a.KV, (a.Skv + F_BO - 1) / F_BO), BWD_THREADS, smem,
-           stream>>>(a);
+    if (attr_kv) return attr_kv;
+    flash_bwd_dq_tf32_kernel<DQK, DV>
+        <<<dim3(B * a.H, (a.Sq + C::QROWS - 1) / C::QROWS), 32 * C::Q_WARPS,
+           C::Q_SMEM, stream>>>(a);
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
-    flash_bwd_f32_kernel<DQK, DV, false>
-        <<<dim3(B * a.H, (a.Sq + F_BO - 1) / F_BO), BWD_THREADS, smem,
-           stream>>>(a);
+    err = launch_clusters(
+        flash_bwd_dkdv_tf32_kernel<DQK, DV>,
+        dim3(cluster, B * a.KV, (a.Skv + C::KROWS - 1) / C::KROWS),
+        32 * C::KV_WARPS, C::KV_SMEM, stream, a);
   }
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
@@ -1750,7 +2286,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
       case PAIR(32, 32): return launch_f32<32, 32>(ARGS);
       case PAIR(64, 64): return launch_f32<64, 64>(ARGS);
       case PAIR(128, 128): return launch_f32<128, 128>(ARGS);
-      case PAIR(256, 256): return launch_f32<256, 256, 8, 16>(ARGS);
+      case PAIR(256, 256): return launch_f32<256, 256>(ARGS);
       case PAIR(96, 64): return launch_f32<96, 64>(ARGS);
       case PAIR(80, 80): return launch_f32<80, 80>(ARGS);
       case PAIR(32, 16): return launch_f32<32, 16>(ARGS);
@@ -1794,7 +2330,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BwdArgs a{q, k, v, dout, o, lse, delta, dq, dk, dv, H, KV, Sq, Skv,
                   scale, causal, window, q_offset, kv_len, kv_len_p};
-#define ARGS a, o, delta, B, cluster, s
+#define ARGS a, B, cluster, s
   if (dtype == DTYPE_F32) {
     switch (PAIR(D, Dv)) {
       case PAIR(16, 16): return launch_bwd<16, 16, false>(ARGS);

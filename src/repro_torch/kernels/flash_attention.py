@@ -5,8 +5,11 @@ attention with fp32 m, l and accumulator, GQA (head h reads KV head
 h // (H / KV)), causal masking and a sliding window, walking only the key
 tiles the masks leave.  q and k share a head dim Dqk, v has its own Dv
 (MLA: q/k 96 = nope 64 + rope 32, v 64), and the scores are scaled by
-1 / sqrt(Dqk); the kernel is built for the pairs in ``HEAD_DIM_PAIRS``.  bf16 runs both products on the tensor cores
-(``wgmma``), fp32 on the CUDA cores.  It replaces the Pallas TPU kernel
+1 / sqrt(Dqk); the kernel is built for the pairs in ``HEAD_DIM_PAIRS``.
+bf16 runs both products on the tensor cores (``wgmma``); fp32 runs them on
+the tensor cores too, each as three TF32 products (3xTF32: hi.hi + hi.lo +
+lo.hi of operands split into TF32 halves, ``mma.sync``), which keeps
+fp32's accuracy.  It replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention``; unlike that kernel it
 needs no tile to divide Sq or Skv.
 ``flash_attention_plain`` is the same function as one dense masked softmax.
@@ -18,9 +21,12 @@ each KV head's query heads inside the kernel, no atomics.  bf16 runs its
 products on ``wgmma`` with the other side's tiles copied one step ahead,
 its dK/dV pass splitting a KV head's query heads over the ranks of a
 thread-block cluster (``bwd_plan``; ``tests/test_torch_attention_bwd_split.py``
-holds a plain model of that split against the JAX package); fp32 runs on
-the CUDA cores.  K5b is built for the same (Dqk, Dv) pairs as K5
-(``check_bwd_dims``): S and dQ, dK run over Dqk, dP, dV and Delta over Dv.
+holds a plain model of that split against the JAX package); fp32 runs the
+same two passes and the same split with each product as 3xTF32 on
+``mma.sync`` (``tests/test_torch_attention_tf32.py`` holds a plain model
+of that arithmetic against the JAX package).  K5b is built for the same
+(Dqk, Dv) pairs as K5 (``check_bwd_dims``): S and dQ, dK run over Dqk,
+dP, dV and Delta over Dv.
 The TPU side has no such
 kernel: the JAX package differentiates ``models/layers.py::
 blocked_attention`` by autodiff.  ``flash_attention_bwd_plain`` is the same
@@ -61,7 +67,8 @@ HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((96, 64), (80, 80),
 # K5b's bf16 kernels (csrc/flash_attention.cu): rows of an other-side tile
 # (and of the own tile at head dim 256; 128 own rows, 64 a warpgroup,
 # below); the most ranks a cluster of the dK/dV pass has; the SMs the plan
-# assumes where it is not told the card's (an H100 SXM's).
+# assumes where it is not told the card's (an H100 SXM's).  The fp32
+# kernels' tiles are ``bwd_rows`` and ``bwd_tile`` with ``fp32``.
 BWD_TILE = 64
 MAX_CLUSTER = 8
 SMS = 132
@@ -171,16 +178,26 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
             dv.to(v.dtype))
 
 
-def bwd_rows(D: int) -> int:
-    """Own rows of a K5b bf16 block at q/k head dim D (Dv is never
-    larger): keys of the dK/dV pass, query rows of the dQ pass."""
+def bwd_rows(D: int, fp32: bool = False) -> int:
+    """Own keys of a K5b dK/dV block at q/k head dim D (Dv is never
+    larger): in bf16 128 up to head dim 128 (64 a warpgroup), else 64 (the
+    dQ pass's own query rows too); in fp32 (``TfBwd::KROWS``) 64, 16 at
+    head dim 256."""
+    if fp32:
+        return 64 if D <= 128 else 16
     return 2 * BWD_TILE if D <= 128 else BWD_TILE
+
+
+def bwd_tile(fp32: bool = False) -> int:
+    """Query rows a step of K5b's dK/dV pass walks: 64 in bf16, 16 in fp32
+    (``TfBwd::BTK``)."""
+    return 16 if fp32 else BWD_TILE
 
 
 def bwd_query_tiles(kt: int, Sq: int, Skv: int, causal: bool, window: int,
                     rows: int = BWD_TILE, q_offset: int = 0,
-                    kv_len=None) -> range:
-    """The 64-row query tiles K5b's dK/dV pass walks for the key tile
+                    kv_len=None, tile: int = BWD_TILE) -> range:
+    """The ``tile``-row query tiles K5b's dK/dV pass walks for the key tile
     ``kt`` of ``rows`` keys (``csrc/flash_attention.cu``'s
     ``query_range``): the rows that see any of its keys below the valid
     prefix (causal rows from its first key less ``q_offset`` on, with a
@@ -201,31 +218,32 @@ def bwd_query_tiles(kt: int, Sq: int, Skv: int, causal: bool, window: int,
         q_lo, q_hi = (dead if q_hi <= q_lo else min(q_lo, dead)), Sq
     if q_hi <= q_lo:
         return range(0)
-    return range(q_lo // BWD_TILE, -(-q_hi // BWD_TILE))
+    return range(q_lo // tile, -(-q_hi // tile))
 
 
 @functools.lru_cache(maxsize=256)
 def bwd_plan(B: int, H: int, KV: int, Sq: int, Skv: int, D: int,
              causal: bool = True, window: int = 0, sms: int = SMS,
              cluster: int = 0, q_offset: int = 0,
-             kv_len: int = None) -> dict:
-    """K5b's bf16 dK/dV pass at these shapes (D q/k's head dim): the
-    ``cluster`` of R ranks
+             kv_len: int = None, fp32: bool = False) -> dict:
+    """K5b's dK/dV pass at these shapes (D q/k's head dim; the fp32
+    kernels' tiles with ``fp32``): the ``cluster`` of R ranks
     that split each KV head's G = H / KV query heads (rank r takes
     ``heads[r]`` = r, r + R, ...), the key tiles of ``key_rows`` keys in
     launch order (``key_tiles``, the heaviest first) and the
-    ``query_tiles`` each walks.  A block is (b, KV head, key tile, rank)
-    and walks its heads' query tiles; R is ``cluster`` where given, else
-    the smallest that brings the longest such walk down to the card's
-    share of all of them (``sms`` blocks at once), or as near as R <=
+    ``query_tiles`` (of ``query_rows`` rows) each walks.  A block is (b,
+    KV head, key tile, rank) and walks its heads' query tiles; R is
+    ``cluster`` where given, else the smallest that brings the longest
+    such walk down to the card's share of all of them (``sms`` blocks at
+    once), or as near as R <=
     min(8, G) comes.  ``q_offset`` and ``kv_len`` (an int, or None: every
     key valid, as where the kernel reads a card tensor's) as
     ``bwd_query_tiles`` takes them."""
     G = H // KV
-    rows = bwd_rows(D)
+    rows, tile = bwd_rows(D, fp32), bwd_tile(fp32)
     nk = -(-Skv // rows)
     tiles = tuple(tuple(bwd_query_tiles(kt, Sq, Skv, causal, window, rows,
-                                        q_offset, kv_len))
+                                        q_offset, kv_len, tile))
                   for kt in range(nk))
     longest = max(map(len, tiles), default=0)
     share = B * KV * G * sum(map(len, tiles)) / sms
@@ -238,7 +256,8 @@ def bwd_plan(B: int, H: int, KV: int, Sq: int, Skv: int, D: int,
     return {"cluster": cluster,
             "heads": tuple(tuple(range(r, G, cluster))
                            for r in range(cluster)),
-            "key_rows": rows, "key_tiles": order, "query_tiles": tiles}
+            "key_rows": rows, "key_tiles": order, "query_tiles": tiles,
+            "query_rows": tile}
 
 
 def _lib() -> ctypes.CDLL:
@@ -362,10 +381,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     # a kv_len the kernel reads on the card: planned as every key valid
-    cluster = (bwd_plan(B, H, KV, Sq, Skv, D, bool(causal), int(window),
-                        _sms(q.device), q_offset=q_offset,
-                        kv_len=None if kvl_t is not None else kvl)["cluster"]
-               if q.dtype == torch.bfloat16 else 1)
+    cluster = bwd_plan(B, H, KV, Sq, Skv, D, bool(causal), int(window),
+                       _sms(q.device), q_offset=q_offset,
+                       kv_len=None if kvl_t is not None else kvl,
+                       fp32=q.dtype == torch.float32)["cluster"]
     lib = _lib()
     with torch.cuda.device(q.device):
         code = lib.flash_attention_bwd(

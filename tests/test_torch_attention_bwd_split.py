@@ -15,7 +15,9 @@ forward's output and log-sum-exp as K5b is fed K5's, and held to
 ``tests/test_torch_attention_grad.py``'s tolerances (rtol 1e-4, atol
 1e-5: both sides fp32, differing only in the order of the sums).  The
 plan is checked to cover every (query head, key tile) once, and every pair
-the masks leave.
+the masks leave.  The fp32 kernels' plan (``bwd_plan(..., fp32=True)``:
+64 own keys, 16 at head dim 256, query tiles of 16 rows) gets the same
+two checks.
 """
 import math
 
@@ -28,7 +30,7 @@ import torch
 from repro.models import layers as JL
 from repro_torch.kernels.flash_attention import (BWD_TILE, MAX_CLUSTER,
                                                  NEG_INF, _mask, bwd_plan,
-                                                 bwd_rows,
+                                                 bwd_rows, bwd_tile,
                                                  flash_attention_plain)
 
 RTOL, ATOL = 1e-4, 1e-5         # tests/test_torch_attention_grad.py
@@ -41,7 +43,6 @@ def split_model(q, k, v, o, lse, do, *, causal, window, plan):
     B, H, Sq, D = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     G = H // KV
-    T = BWD_TILE
     scale = 1.0 / math.sqrt(D)
     qg = q.reshape(B, KV, G, Sq, D)
     dog = do.reshape(B, KV, G, Sq, D)
@@ -54,7 +55,7 @@ def split_model(q, k, v, o, lse, do, *, causal, window, plan):
     dp = torch.einsum("bkgqd,bksd->bkgqs", dog, v)
     ds = torch.where(mask & ~dead, p * (dp - delta), 0.0) * scale
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    rows = plan["key_rows"]
+    rows, T = plan["key_rows"], plan["query_rows"]
     for kt in plan["key_tiles"]:
         ks = slice(kt * rows, min(Skv, (kt + 1) * rows))
         parts = []
@@ -118,9 +119,26 @@ CASES = [
 
 @pytest.mark.parametrize("shape,causal,window,cluster", CASES)
 def test_split_model_matches_jax_vjp(shape, causal, window, cluster):
+    _split_model_case(shape, causal, window, cluster, fp32=False)
+
+
+# The fp32 kernels' plan (64 own keys, 16 at head dim 256; query tiles of
+# 16 rows) at the same splits, and at head dims 128 and 256
+FP32_CASES = CASES[::2] + [((1, 8, 2, 100, 90, 128), True, 0, 3),
+                           ((1, 4, 1, 70, 70, 256), False, 20, 0)]
+
+
+@pytest.mark.parametrize("shape,causal,window,cluster", FP32_CASES)
+def test_fp32_split_model_matches_jax_vjp(shape, causal, window, cluster):
+    _split_model_case(shape, causal, window, cluster, fp32=True)
+
+
+def _split_model_case(shape, causal, window, cluster, fp32):
     q, k, v, do = _inputs(*shape)
     B, H, KV, Sq, Skv, D = shape
-    plan = bwd_plan(B, H, KV, Sq, Skv, D, causal, window, cluster=cluster)
+    plan = bwd_plan(B, H, KV, Sq, Skv, D, causal, window, cluster=cluster,
+                    fp32=fp32)
+    assert plan["query_rows"] == (bwd_tile(True) if fp32 else BWD_TILE)
     G = H // KV
     assert plan["cluster"] == (cluster or plan["cluster"])
     assert 1 <= plan["cluster"] <= min(MAX_CLUSTER, G)
@@ -136,14 +154,17 @@ def test_split_model_matches_jax_vjp(shape, causal, window, cluster):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("shape,causal,window", [
+PLAN_SHAPES = [
     ((4, 10, 1, 1024, 1024, 256), True, 2048),
     ((1, 10, 1, 4096, 4096, 256), True, 2048),
     ((4, 32, 8, 1024, 1024, 128), True, 0),
     ((1, 10, 1, 200, 200, 32), True, 0),
     ((2, 10, 1, 160, 70, 16), False, 30),
     ((1, 4, 2, 300, 40, 64), True, 30),
-    ((1, 16, 1, 96, 96, 16), False, 0)])
+    ((1, 16, 1, 96, 96, 16), False, 0)]
+
+
+@pytest.mark.parametrize("shape,causal,window", PLAN_SHAPES)
 @pytest.mark.parametrize("cluster", [0, 3])
 def test_plan_covers_every_head_and_key_tile_once(shape, causal, window,
                                                   cluster):
@@ -151,11 +172,26 @@ def test_plan_covers_every_head_and_key_tile_once(shape, causal, window,
     query head once a key tile (over the ranks), and the key tile's query
     tiles every one that holds a pair the masks leave or a row that sees
     no key."""
+    _plan_covers(shape, causal, window, cluster, fp32=False)
+
+
+@pytest.mark.parametrize("shape,causal,window", PLAN_SHAPES)
+@pytest.mark.parametrize("cluster", [0, 3])
+def test_fp32_plan_covers_every_head_and_key_tile_once(shape, causal,
+                                                       window, cluster):
+    """The same of the fp32 kernels' plan, with their key and query
+    tiles."""
+    _plan_covers(shape, causal, window, cluster, fp32=True)
+
+
+def _plan_covers(shape, causal, window, cluster, fp32):
     B, H, KV, Sq, Skv, D = shape
     G = H // KV
-    plan = bwd_plan(B, H, KV, Sq, Skv, D, causal, window, cluster=cluster)
-    rows = plan["key_rows"]
-    assert rows == bwd_rows(D)
+    plan = bwd_plan(B, H, KV, Sq, Skv, D, causal, window, cluster=cluster,
+                    fp32=fp32)
+    rows, T = plan["key_rows"], plan["query_rows"]
+    assert rows == bwd_rows(D, fp32)
+    assert T == bwd_tile(fp32)
     nk = -(-Skv // rows)
     assert sorted(plan["key_tiles"]) == list(range(nk))
     walks = [len(plan["query_tiles"][kt]) for kt in plan["key_tiles"]]
@@ -167,7 +203,7 @@ def test_plan_covers_every_head_and_key_tile_once(shape, causal, window,
     dead = ~mask.any(1)
     for kt in range(nk):
         ks = slice(kt * rows, (kt + 1) * rows)
-        need = {qt for qt in range(-(-Sq // BWD_TILE))
-                if (mask[qt * BWD_TILE:(qt + 1) * BWD_TILE, ks].any()
-                    or dead[qt * BWD_TILE:(qt + 1) * BWD_TILE].any())}
+        need = {qt for qt in range(-(-Sq // T))
+                if (mask[qt * T:(qt + 1) * T, ks].any()
+                    or dead[qt * T:(qt + 1) * T].any())}
         assert need <= set(plan["query_tiles"][kt]), kt

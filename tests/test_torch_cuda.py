@@ -941,6 +941,103 @@ def test_flash_attention_bwd_repeats_bit_for_bit(cuda, d, dtype):
         assert torch.equal(a, b_)
 
 
+# ---- K5 and K5b in fp32: 3xTF32 on the tensor cores ------------------------
+
+def tf32_standin(q, k, v, do=None, *, causal, terms):
+    """``chip_smoke.py``'s dense attention (with ``do`` its dq, dk, dv) with
+    every product one TF32 product (terms 1: the 1xTF32 stand-in) or a
+    plain one in the inputs' dtype (terms 0; in fp64, the exact
+    reference)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import tf32_standin as standin
+    return standin(q, k, v, do, causal=causal, window=0, terms=terms)
+
+
+# 17(f)'s rank shape (B, H, KV, S, Skv, D), causal, and one at head dim 64
+# with no mask
+TF32_SHAPES = [((2, 16, 4, 256, 256, 128), True),
+               ((1, 4, 2, 200, 300, 64), False)]
+
+
+@pytest.mark.parametrize("shape,causal", TF32_SHAPES)
+def test_flash_attention_is_3xtf32_not_1xtf32(cuda, shape, causal):
+    """Against fp64, K5 in fp32 reads below 1e-5 (relative Frobenius); a
+    stand-in with one TF32 product a step (the lo terms dropped) reads
+    above the card's fp32 bar of 1e-4."""
+    B, H, KV, Sq, Skv, D = shape
+    rng = np.random.default_rng(23)
+    q = _randn(rng, (B, H, Sq, D), torch.float32, cuda)
+    k, v = (_randn(rng, (B, KV, Skv, D), torch.float32, cuda)
+            for _ in range(2))
+    exact = tf32_standin(q.double(), k.double(), v.double(), causal=causal,
+                         terms=0)
+    assert rel_frobenius(flash_attention(q, k, v, causal=causal), exact) \
+        < 1e-5
+    assert rel_frobenius(tf32_standin(q, k, v, causal=causal, terms=1),
+                         exact) > 1e-4
+
+
+@pytest.mark.parametrize("shape,causal", TF32_SHAPES)
+def test_flash_attention_bwd_is_3xtf32_not_1xtf32(cuda, shape, causal):
+    """K5b in fp32, fed K5's o and lse, against the fp64 gradients: each of
+    dq, dk, dv below 1e-5; the 1xTF32 stand-in above 1e-4."""
+    B, H, KV, Sq, Skv, D = shape
+    rng = np.random.default_rng(29)
+    q = _randn(rng, (B, H, Sq, D), torch.float32, cuda)
+    k, v = (_randn(rng, (B, KV, Skv, D), torch.float32, cuda)
+            for _ in range(2))
+    do = _randn(rng, (B, H, Sq, D), torch.float32, cuda)
+    exact = tf32_standin(q.double(), k.double(), v.double(), do.double(),
+                         causal=causal, terms=0)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    one = tf32_standin(q, k, v, do, causal=causal, terms=1)
+    for name, gg, ee, ww in zip(("dq", "dk", "dv"), got, exact, one):
+        assert rel_frobenius(gg, ee) < 1e-5, name
+        assert rel_frobenius(ww, ee) > 1e-4, name
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_fp32_non_finite_as_plain(cuda, causal):
+    """Exactly the plain version's non-finite outputs are non-finite: NaN
+    in a query row and a key, +inf in a query row that sees 100 keys (some
+    score +inf); without the causal mask also -inf in a value (with it, the
+    plain version's 0 x inf reaches rows the kernel never pairs with that
+    key).  NaN may stand for +-inf (a term inf x lo with lo = 0)."""
+    rng = np.random.default_rng(9)
+    q = _randn(rng, (1, 4, 150, 64), torch.float32, cuda)
+    k, v = (_randn(rng, (1, 2, 150, 64), torch.float32, cuda)
+            for _ in range(2))
+    q[0, 1, 7, 3] = math.nan
+    q[0, 2, 100, 0] = math.inf
+    k[0, 1, 90, 9] = math.nan
+    if not causal:
+        v[0, 0, 60, 2] = -math.inf
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert (~torch.isfinite(want)).any()
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+
+
+def test_flash_attention_bwd_fp32_non_finite_as_plain(cuda):
+    """K5b's non-finite outputs are the plain version's with NaN in a row
+    of dO and +inf in a value, no mask (every pair is walked: the plain
+    version's 0 x NaN reaches every key)."""
+    rng = np.random.default_rng(10)
+    q = _randn(rng, (1, 4, 150, 64), torch.float32, cuda)
+    k, v = (_randn(rng, (1, 2, 150, 64), torch.float32, cuda)
+            for _ in range(2))
+    do = _randn(rng, (1, 4, 150, 64), torch.float32, cuda)
+    do[0, 3, 30, 5] = math.nan
+    v[0, 0, 70, 1] = math.inf
+    o, lse = flash_attention(q, k, v, causal=False, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False)
+    for name, gg, ww in zip(("dq", "dk", "dv"), got, want):
+        assert (~torch.isfinite(ww)).any(), name
+        assert torch.equal(torch.isfinite(gg), torch.isfinite(ww)), name
+
+
 # TP's compute split: the shapes of a rank along ``model`` (B, H, KV, S, D),
 # causal, at a batch of 4 prompts of 1024 tokens: qwen3-8b's 32 heads and 8
 # kv heads over 4 ranks, qwen3-moe's 64 and 4 over 4 and over 2
